@@ -1,0 +1,326 @@
+"""Symbol: the declarative graph IR.
+
+Counterpart of ``mxtpu/symbol/symbol.py``: ``Symbol`` (:95), ``bind``
+(:382), shape inference (:496), ``Variable`` (:622), ``Group`` (:648) and
+``load_json`` (:705). The JSON schema is the same, so a graph serialized
+by either package loads in the other. Shape inference runs each op on
+meta tensors (``OpDef.infer``) instead of ``jax.eval_shape``.
+"""
+from __future__ import annotations
+
+import ast
+import json
+import threading
+
+import torch
+
+from ..base import MXNetError, attr_repr
+from ..ops.registry import get_op, op_exists, torch_dtype
+
+__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "NameManager"]
+
+
+class NameManager:
+    """Auto-names composed ops per thread: fullyconnected0,
+    fullyconnected1, ... (an explicit name wins)."""
+
+    _tls = threading.local()
+
+    @classmethod
+    def get(cls, name, hint):
+        if name:
+            return name
+        counter = cls._tls.__dict__.setdefault("counter", {})
+        idx = counter.get(hint, 0)
+        counter[hint] = idx + 1
+        return "%s%d" % (hint, idx)
+
+
+class _Node:
+    __slots__ = ("op", "name", "attrs", "inputs", "_extra_attrs")
+
+    def __init__(self, op, name, attrs, inputs):
+        self.op = op  # OpDef, or None for variables
+        self.name = name
+        self.attrs = dict(attrs)  # raw attr values (pre-parse)
+        self.inputs = list(inputs)  # list of (node, out_index)
+        self._extra_attrs = {}  # dunder attrs such as __shape__
+
+    @property
+    def is_variable(self):
+        return self.op is None
+
+    def parsed_attrs(self):
+        return self.op.parse_attrs(self.attrs)
+
+
+class Symbol:
+    """A (possibly multi-output) symbolic expression: list of node entries."""
+
+    def __init__(self, outputs):
+        self._outputs = list(outputs)  # list of (node, out_index)
+
+    def _topo(self):
+        order = []
+        seen = set()
+
+        def visit(node):
+            if id(node) in seen:
+                return
+            seen.add(id(node))
+            for n, _ in node.inputs:
+                visit(n)
+            order.append(node)
+
+        for n, _ in self._outputs:
+            visit(n)
+        return order
+
+    def _aux_node_set(self):
+        """Variable nodes wired into aux slots of any op."""
+        aux = set()
+        for node in self._topo():
+            if node.op is None or not node.op.aux_names:
+                continue
+            names = node.op.input_names(node.parsed_attrs())
+            for i, (inode, _) in enumerate(node.inputs):
+                if i < len(names) and names[i] in node.op.aux_names \
+                        and inode.is_variable:
+                    aux.add(id(inode))
+        return aux
+
+    def list_arguments(self):
+        aux = self._aux_node_set()
+        return [n.name for n in self._topo()
+                if n.is_variable and id(n) not in aux]
+
+    def list_auxiliary_states(self):
+        aux = self._aux_node_set()
+        return [n.name for n in self._topo()
+                if n.is_variable and id(n) in aux]
+
+    def list_outputs(self):
+        out = []
+        for node, idx in self._outputs:
+            if node.is_variable:
+                out.append(node.name)
+            else:
+                names = _output_names(node,
+                                      node.op.n_out(node.parsed_attrs()))
+                out.append(names[idx] if idx < len(names) else
+                           "%s_output%d" % (node.name, idx))
+        return out
+
+    @property
+    def name(self):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].name
+        return None
+
+    def __add__(self, other):
+        if not isinstance(other, Symbol):
+            raise MXNetError("Symbol + scalar is not ported yet")
+        return _compose(get_op("_plus"), None, [self, other], {})
+
+    __hash__ = object.__hash__
+
+    def __repr__(self):
+        return "<Symbol %s>" % (self.name or ",".join(self.list_outputs()))
+
+    # ------------------------------------------------ inference
+    def infer_shape(self, *args, **kwargs):
+        """(arg_shapes, out_shapes, aux_shapes) from known input shapes."""
+        arg_names = self.list_arguments()
+        known = {}
+        for n, s in zip(arg_names, args):
+            if s is not None:
+                known[n] = tuple(s)
+        known.update({k: tuple(v) for k, v in kwargs.items()
+                      if v is not None})
+        shapes, _ = _infer_graph(self, known)
+        arg_shapes = [shapes.get(n) for n in arg_names]
+        for n, s in zip(arg_names, arg_shapes):
+            if s is None:
+                raise MXNetError("infer_shape: cannot infer the shape of "
+                                 "argument '%s'; pass it" % n)
+        out_shapes = [shapes.get(_entry_key(e)) for e in self._outputs]
+        aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
+        return arg_shapes, out_shapes, aux_shapes
+
+    # ------------------------------------------------ bind
+    def bind(self, ctx, args, aux_states=None):
+        """An inference Executor over ``args`` (gradients arrive with
+        training)."""
+        from ..executor import Executor
+        return Executor(self, ctx, args, aux_states=aux_states)
+
+    # ------------------------------------------------ serialization
+    def tojson(self):
+        nodes = []
+        node_id = {}
+        arg_nodes = []
+        for node in self._topo():
+            nid = len(nodes)
+            node_id[id(node)] = nid
+            attrs = {k: attr_repr(v) for k, v in node.attrs.items()
+                     if not k.startswith("__") and v is not None}
+            attrs.update(node._extra_attrs)
+            entry = {"op": "null" if node.is_variable else node.op.name,
+                     "name": node.name,
+                     "inputs": [[node_id[id(n)], idx, 0]
+                                for n, idx in node.inputs]}
+            if attrs:
+                entry["attrs"] = attrs
+            nodes.append(entry)
+            if node.is_variable:
+                arg_nodes.append(nid)
+        heads = [[node_id[id(n)], idx, 0] for n, idx in self._outputs]
+        return json.dumps({"nodes": nodes, "arg_nodes": arg_nodes,
+                           "node_row_ptr": list(range(len(nodes) + 1)),
+                           "heads": heads,
+                           "attrs": {"mxnet_version": ["int", 1100],
+                                     "framework": ["str", "mxtpu"]}},
+                          indent=2)
+
+
+def _output_names(node, n_vis):
+    if n_vis == 1:
+        return ["%s_output" % node.name]
+    return ["%s_output%d" % (node.name, i) for i in range(n_vis)]
+
+
+def _entry_key(entry):
+    node, idx = entry
+    return (id(node), idx)
+
+
+def _shape_attr(shp):
+    """A variable's __shape__ attr: a tuple, a JSON list, or a string."""
+    if isinstance(shp, str):
+        shp = ast.literal_eval(shp)
+    return tuple(int(x) for x in shp)
+
+
+def _infer_graph(sym, shape_hints):
+    """Forward shape/dtype propagation with ``OpDef.infer`` (meta tensors);
+    a consumer's ``infer_args`` fills unknown parameter shapes."""
+    shapes = {}
+    dtypes = {}
+    for node in sym._topo():
+        if node.is_variable:
+            shp = shape_hints.get(node.name)
+            if shp is None and node._extra_attrs.get("__shape__") is not None:
+                shp = _shape_attr(node._extra_attrs["__shape__"])
+            vdt = node._extra_attrs.get("__dtype__")
+            dt = torch_dtype(str(vdt)) if vdt is not None else torch.float32
+            shapes[node.name] = tuple(shp) if shp is not None else None
+            shapes[(id(node), 0)] = shapes[node.name]
+            dtypes[node.name] = dt
+            dtypes[(id(node), 0)] = dt
+            continue
+        attrs = node.parsed_attrs()
+        in_shapes = [shapes.get((id(n), i)) for n, i in node.inputs]
+        if any(s is None for s in in_shapes) and node.op.infer_args:
+            full = node.op.infer_args(attrs, in_shapes)
+            for (inode, _), old, new in zip(node.inputs, in_shapes, full):
+                if old is None and new is not None and inode.is_variable:
+                    shapes[inode.name] = tuple(new)
+                    shapes[(id(inode), 0)] = tuple(new)
+        missing = [n.name for n, i in node.inputs
+                   if shapes.get((id(n), i)) is None]
+        if missing:
+            raise MXNetError("infer_shape: node '%s' (%s) needs the shapes "
+                             "of %s" % (node.name, node.op.name, missing))
+        in_avals = [(shapes[(id(n), i)], dtypes[(id(n), i)])
+                    for n, i in node.inputs]
+        for i, (s, d) in enumerate(node.op.infer(attrs, in_avals)):
+            shapes[(id(node), i)] = s
+            dtypes[(id(node), i)] = d
+    return shapes, dtypes
+
+
+# ---------------------------------------------------------------- constructors
+def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
+    if not isinstance(name, str):
+        raise TypeError("Expect a string for variable name")
+    node = _Node(None, name, {}, [])
+    if shape is not None:
+        node._extra_attrs["__shape__"] = tuple(shape)
+    if dtype is not None:
+        node._extra_attrs["__dtype__"] = str(dtype)
+    if attr:
+        node._extra_attrs.update({k: str(v) for k, v in attr.items()})
+    node._extra_attrs.update({k: str(v) for k, v in kwargs.items()})
+    return Symbol([(node, 0)])
+
+
+var = Variable
+
+
+def Group(symbols):
+    entries = []
+    for s in symbols:
+        entries.extend(s._outputs)
+    return Symbol(entries)
+
+
+def _compose(op, name, sym_inputs, attrs, kwarg_syms=None):
+    """Create an op node; auto-create Variables for missing tensor inputs
+    (fc weight/bias, norm gamma/beta, softmax_label)."""
+    hint = op.name.lower().lstrip("_")
+    name = NameManager.get(name, hint)
+    parsed = op.parse_attrs(attrs)
+    by_name = dict(kwarg_syms or {})
+    in_syms = []
+    pos = list(sym_inputs)
+    for argn in op.input_names(parsed):
+        if argn in by_name:
+            in_syms.append(by_name[argn])
+        elif pos:
+            in_syms.append(pos.pop(0))
+        else:
+            in_syms.append(Variable("%s_%s" % (name, argn)))
+    entries = []
+    for s in in_syms:
+        if not isinstance(s, Symbol):
+            raise MXNetError("op %s: inputs must be Symbols, got %s"
+                             % (op.name, type(s)))
+        if len(s._outputs) != 1:
+            raise MXNetError("op %s: cannot compose multi-output symbol "
+                             "directly" % op.name)
+        entries.append(s._outputs[0])
+    node = _Node(op, name, attrs, entries)
+    n_vis = op.n_out(parsed)
+    return Symbol([(node, i) for i in range(n_vis)])
+
+
+def create(op_name, inputs, attrs, name=None, kwarg_syms=None):
+    return _compose(get_op(op_name), name, inputs, attrs,
+                    kwarg_syms=kwarg_syms)
+
+
+# ---------------------------------------------------------------- load
+def load_json(json_str):
+    data = json.loads(json_str)
+    built = []
+    for meta in data["nodes"]:
+        attrs = meta.get("attrs") or meta.get("attr") or \
+            meta.get("param") or {}
+        if meta["op"] == "null":
+            node = _Node(None, meta["name"], {}, [])
+            node._extra_attrs = {k: v for k, v in attrs.items()
+                                 if k.startswith("__")}
+        else:
+            if not op_exists(meta["op"]):
+                raise MXNetError("load: unknown op '%s'" % meta["op"])
+            op = get_op(meta["op"])
+            inputs = [(built[i], idx) for i, idx, *_ in meta["inputs"]]
+            op_attrs = {k: v for k, v in attrs.items()
+                        if not k.startswith("__") and k in op.attrs_spec}
+            node = _Node(op, meta["name"], op_attrs, inputs)
+            node._extra_attrs = {k: v for k, v in attrs.items()
+                                 if k.startswith("__")}
+        built.append(node)
+    heads = [(built[i], idx) for i, idx, *_ in data["heads"]]
+    return Symbol(heads)
+

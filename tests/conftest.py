@@ -38,6 +38,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 `-m 'not slow'` gate "
         "(long convergence runs and known-flaky-threshold gates)")
+    config.addinivalue_line(
+        "markers", "cuda: tests of mxtpu_torch's CUDA kernels; they skip "
+        "without a CUDA device (run on the GPU machine with "
+        "`python -m pytest --noconftest tests/test_torch_cuda.py`)")
 
 
 def pytest_collection_modifyitems(config, items):
