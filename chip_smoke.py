@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
 
@@ -7,19 +7,30 @@ Phases (any failure raises and exits non-zero):
 1. Device: require CUDA; print the card's name and power limit.
 2. Build every hand-written kernel of ``mxtpu_torch/csrc`` with nvcc
    (one process per source, started together) and print the seconds.
-3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the serving path's shapes and at edge cases, in float32
-   (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then CUDA-event times
-   of the kernel, the plain version and the library call that computes
-   the same function (timed as a yardstick only; the port never calls
-   it), beside the least time the card could take (bound_ms).
-4. Serving: the transformer LM at GPT-2-small widths with seeded random
-   weights, served by ``ServingSession`` on gpu(0) with buckets (1, 4):
-   8 requests of 1024 tokens from 4 client threads. Checks that every
-   probability row is finite and sums to 1, that the flash kernel ran
-   exactly once per layer per dispatched batch, and that one answer
+3. Flash kernel vs plain: the flash-attention kernel against its plain
+   PyTorch version on the card, at the LM path's shapes and at edge
+   cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then
+   CUDA-event times of the kernel, the plain version and the library call
+   that computes the same function (timed as a yardstick only; the port
+   never calls it), beside the least time the card could take (bound_ms).
+3b. Epilogue kernel vs plain: the BN-apply+ReLU(+residual) kernel
+   against its plain version at ResNet-50's bucket-32 sites, channel-minor
+   and NCHW, float32 and bfloat16, with and without the residual, a
+   ragged M, C = 37 and planted NaN/inf: max abs err must be 0 and the
+   NaN positions equal. Then CUDA-event times beside bound_ms (bytes).
+   No one PyTorch call computes relu(x*s+b)[+r], so library_ms is null.
+4. LM serving: the transformer LM at GPT-2-small widths with seeded
+   random weights, served by ``ServingSession`` on gpu(0) with buckets
+   (1, 4): 8 requests of 1024 tokens from 4 client threads. Checks that
+   every probability row is finite and sums to 1, that the flash kernel
+   ran exactly once per layer per dispatched batch, and that one answer
    matches a ``Predictor`` on cpu() (the plain versions).
-5. Prints the kernels' JSON line, then the device line last.
+5. ResNet-50 serving: pre-activation ResNet-50 v2 at 224x224 with seeded
+   random weights and BN statistics, served with buckets (1, 8, 32): 64
+   requests from 8 client threads. Checks 50 fused BatchNorm->ReLU sites,
+   ``launches == 50 x dispatched batches`` for the epilogue kernel,
+   finite rows summing to 1, and one answer against a cpu() Predictor.
+6. Prints the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -45,6 +56,20 @@ BUCKETS = (1, 4)
 N_REQUESTS = 8
 N_CLIENTS = 4
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+# pre-activation ResNet-50 v2 (He et al. 2016), mxtpu/models/resnet.py
+RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
+RESNET_SITES = 50  # bn0 + 3 per bottleneck unit x 16 + bn1
+RESNET_BUCKETS = (1, 8, 32)
+RESNET_REQUESTS = 64
+RESNET_CLIENTS = 8
+# (shape, channel axis): ResNet-50's bucket-32 extremes, bn0 (112x112x64)
+# and bn1 (7x7x2048), channel-minor as the TPU kernel takes them and NCHW
+# as the served graph hands them over; a ragged M; C = 37
+EPILOGUE_CASES = [((401408, 64), -1), ((1568, 2048), -1),
+                  ((32, 64, 112, 112), 1), ((32, 2048, 7, 7), 1),
+                  ((1000, 72), -1), ((999, 37), -1)]
+EPILOGUE_MAIN = ((32, 64, 112, 112), 1)  # bn0 at bucket 32, as served
 
 
 def log(*a):
@@ -153,6 +178,274 @@ def phase_kernels(att, gen):
     return timed, worst
 
 
+def epilogue_bound_ms(shape, axis, dtype, residual):
+    """Least time for one epilogue pass: x (and the residual) read and y
+    written once plus scale and shift, against the HBM rate; or its f32
+    operations (mul, add, compare, and the residual's add) against the
+    f32 peak; whichever is larger."""
+    n = 1
+    for d in shape:
+        n *= d
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = n * esize * (3 if residual else 2) + 2 * shape[axis] * 4
+    ops = n * (4 if residual else 3)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def bit_err(got, want):
+    """0.0 when got equals want bit for bit up to NaN payloads (NaN at the
+    same places, every other value equal); else the largest difference
+    (inf when the NaN positions differ)."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    g, w = got[~nan], want[~nan]
+    same = g == w
+    if bool(same.all()):
+        return 0.0
+    return (g[~same].float() - w[~same].float()).abs().max().item()
+
+
+def epilogue_inputs(shape, axis, dtype, residual, gen):
+    c = shape[axis]
+    x = (torch.randn(shape, device="cuda", generator=gen) * 2).to(dtype)
+    r = torch.randn(shape, device="cuda", generator=gen).to(dtype) \
+        if residual else None
+    scale = torch.rand(c, device="cuda", generator=gen) + 0.5
+    shift = torch.randn(c, device="cuda", generator=gen) * 0.5
+    return x, scale, shift, r
+
+
+def phase_epilogue(epi, gen):
+    """Epilogue kernel vs its plain version, bit for bit; returns the
+    timed rows (the main one is bn0 at bucket 32, f32, as served)."""
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, axis, plant in [c + (False,) for c in EPILOGUE_CASES] + [
+                ((257, 40), -1, True), ((2, 6, 9, 9), 1, True)]:
+            for residual in (False, True):
+                x, s, b, r = epilogue_inputs(shape, axis, dtype, residual,
+                                             gen)
+                if plant:  # NaN and +-inf in x
+                    flat = x.view(-1)
+                    flat[::7] = float("nan")
+                    flat[3::11] = float("inf")
+                    flat[5::13] = float("-inf")
+                got = epi.bn_apply_relu_add(x, s, b, r, axis=axis)
+                want = epi.bn_apply_relu_add_reference(x, s, b, r,
+                                                       axis=axis)
+                torch.cuda.synchronize()
+                err = bit_err(got, want)
+                if err != 0.0:
+                    raise AssertionError(
+                        "epilogue kernel differs from its plain version: "
+                        "err %r at %s %s %s residual=%s"
+                        % (err, shape, axis, dtype, residual))
+                checked += 1
+    log("  epilogue: %d cases (%d shapes incl. NaN/inf planted, f32 and "
+        "bf16, with and without residual) equal the plain version bit "
+        "for bit" % (checked, len(EPILOGUE_CASES) + 2))
+
+    timed = []
+    for (shape, axis), dtype, residual in [
+            (EPILOGUE_MAIN, torch.float32, False),
+            (EPILOGUE_MAIN, torch.bfloat16, False),
+            (EPILOGUE_MAIN, torch.float32, True),
+            (((401408, 64), -1), torch.float32, False),
+            (((32, 2048, 7, 7), 1), torch.float32, False),
+            (((1568, 2048), -1), torch.float32, False)]:
+        x, s, b, r = epilogue_inputs(shape, axis, dtype, residual, gen)
+
+        def kern():
+            return epi.bn_apply_relu_add(x, s, b, r, axis=axis)
+
+        def plain():
+            return epi.bn_apply_relu_add_reference(x, s, b, r, axis=axis)
+
+        err = bit_err(kern(), plain())
+        ms = cuda_ms(kern, 100)
+        plain_ms = cuda_ms(plain, 20)
+        bound_ms, bound_by = epilogue_bound_ms(shape, axis, dtype, residual)
+        row = dict(shape=list(shape), axis=axis,
+                   dtype=str(dtype).split(".")[1], residual=residual,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        log("  epilogue %-8s %s axis=%d residual=%d: kernel %.4f ms, plain "
+            "%.4f ms, bound %.4f ms (%s; kernel at %.1f%% of it), err %g"
+            % (row["dtype"], shape, axis, residual, ms, plain_ms, bound_ms,
+               bound_by, 100.0 * bound_ms / ms, err))
+        timed.append(row)
+    return timed
+
+
+def resnet_params(sym, seed):
+    """Seeded random weights and BN statistics (numpy): He-scaled conv
+    weights, with each unit's last conv at a quarter of that so the
+    residual stream stays near unit scale over 16 units (at full He scale
+    it grows ~1000x and the softmax is one-hot); gamma in U(0.5, 1.5),
+    beta in U(-0.1, 0.1), moving_mean in N(0, 0.1), moving_var in
+    U(0.5, 1.5), so the folded scale and shift are not trivial; the
+    classifier N(0, 1/fan_in)."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(1,) + RESNET["image_shape"])
+    params = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        if name.endswith("_gamma"):
+            w = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("_beta"):
+            w = rng.uniform(-0.1, 0.1, shape)
+        elif name.endswith("_bias"):
+            w = np.zeros(shape)
+        elif name.startswith("fc"):
+            w = rng.standard_normal(shape) / np.sqrt(fan_in)
+        else:
+            w = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+            if name.endswith("_conv3_weight"):
+                w *= 0.25
+        params["arg:" + name] = w.astype(np.float32)
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        w = rng.normal(0.0, 0.1, shape) if name.endswith("_moving_mean") \
+            else rng.uniform(0.5, 1.5, shape)
+        params["aux:" + name] = w.astype(np.float32)
+    return params
+
+
+def phase_resnet(mt, epi, seed, card, profile=False):
+    sym = mt.models.get_resnet(**RESNET)
+    sym_json = sym.tojson()
+    t0 = time.perf_counter()
+    params = resnet_params(sym, seed)
+    n_params = sum(v.size for v in params.values())
+    log("  ResNet-50 v2 %s: %d parameters + statistics (%.3f GB f32), made "
+        "in %.1f s" % (RESNET, n_params, n_params * 4 / 1e9,
+                       time.perf_counter() - t0))
+    shape = (1,) + RESNET["image_shape"]
+    rng = np.random.default_rng(seed + 1)
+    requests = [rng.standard_normal(shape, dtype=np.float32)
+                for _ in range(RESNET_REQUESTS)]
+
+    t0 = time.perf_counter()
+    session = mt.serving.ServingSession(
+        sym_json, params, {"data": shape}, buckets=RESNET_BUCKETS,
+        contexts=[mt.gpu(0)], warmup=True)
+    log("  session up in %.2f s; warmup batch ms %s"
+        % (time.perf_counter() - t0, session.warmup_ms))
+    answers = [None] * RESNET_REQUESTS
+    latency = [None] * RESNET_REQUESTS
+    errors = []
+
+    def client(idx):
+        try:
+            mine = list(range(idx, RESNET_REQUESTS, RESNET_CLIENTS))
+            sent = [(r, time.perf_counter(),
+                     session.predict_async({"data": requests[r]}))
+                    for r in mine]
+            for r, t, fut in sent:
+                answers[r] = fut.wait(600)[0]
+                latency[r] = (time.perf_counter() - t) * 1e3
+        except Exception as exc:  # re-raised on the main thread below
+            errors.append(exc)
+
+    try:
+        epi.bn_apply_relu_add.launches = 0  # count the main path alone
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(RESNET_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = epi.bn_apply_relu_add.launches
+        batches = session.metrics.counter("batches_dispatched").value
+        stats = session.stats()
+        sites = session.pool.replicas[0].base._executor.fused_sites
+    finally:
+        session.close()
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads) or any(a is None
+                                                   for a in answers):
+        raise AssertionError("not every request was answered")
+    for r, out in enumerate(answers):
+        if out.shape != (1, RESNET["num_classes"]):
+            raise AssertionError("answer %d has shape %s" % (r, out.shape))
+        if not np.isfinite(out).all():
+            raise AssertionError("answer %d is not finite" % r)
+        dev = np.abs(out.sum(axis=1, dtype=np.float64) - 1.0).max()
+        if dev > 1e-4:
+            raise AssertionError("answer %d rows sum to 1 +- %g" % (r, dev))
+    if sites != RESNET_SITES:
+        raise AssertionError("executor fused %d BatchNorm->ReLU sites, not "
+                             "%d" % (sites, RESNET_SITES))
+    if batches < 1 or launches != RESNET_SITES * batches:
+        raise AssertionError("epilogue launches %d != %d sites x %d batches"
+                             % (launches, RESNET_SITES, batches))
+    log("  %d requests in %d batches: %d fused sites, epilogue launches "
+        "%d = %d x %d" % (RESNET_REQUESTS, batches, sites, launches,
+                          RESNET_SITES, batches))
+    lat = np.array(latency)
+    top = np.array([a.max() for a in answers])
+    log("  [%s] %.3f images/s; request latency ms (client): p50 %.1f, p99 "
+        "%.1f, max %.1f; session request_latency_ms p50 %.1f p99 %.1f; "
+        "batch_exec_ms mean %.2f; top probability min %.3g max %.3g"
+        % (card, RESNET_REQUESTS / wall, np.percentile(lat, 50),
+           np.percentile(lat, 99), lat.max(),
+           stats["request_latency_ms"]["p50_ms"],
+           stats["request_latency_ms"]["p99_ms"],
+           stats["batch_exec_ms"]["mean_ms"], top.min(), top.max()))
+
+    log("  batch_exec_ms of each batch: %s"
+        % [round(v, 2) for v in
+           session.metrics.histogram("batch_exec_ms")._values])
+    x = np.concatenate(requests[:max(RESNET_BUCKETS)])
+    breakdown = batch_breakdown(mt, sym_json, params, x, profile,
+                                "ResNet-50")
+    # every BatchNorm of ResNet-50 v2 feeds a ReLU, so the 50 fused sites
+    # are its 50 BatchNorm outputs: their shapes at the largest bucket
+    bn_nodes = [n for n in sym._topo() if not n.is_variable
+                and n.op.name == "BatchNorm"]
+    site_shapes = mt.sym.Group([mt.symbol.Symbol([(n, 0)])
+                                for n in bn_nodes]).infer_shape(
+        data=x.shape)[1]
+    sites_bound_ms = sum(epilogue_bound_ms(tuple(s), 1, torch.float32,
+                                           False)[0] for s in site_shapes)
+    breakdown["epilogue_sites_bound_ms"] = sites_bound_ms
+    log("  the %d epilogue sites of one bucket-%d forward: bound %.4f ms "
+        "(bytes: each activation read and written once)"
+        % (len(site_shapes), x.shape[0], sites_bound_ms))
+    if profile:
+        epi_ms = sum(v for k, v in breakdown["by_kernel_ms"].items()
+                     if "planes_kernel" in k or "rows_kernel" in k)
+        breakdown["epilogue_device_ms"] = epi_ms
+        log("  their device time in the profiled forward: %.4f ms (at "
+            "%.1f%% of the bound)" % (epi_ms, 100.0 * sites_bound_ms
+                                      / max(epi_ms, 1e-9)))
+    t0 = time.perf_counter()
+    cpu_pred = mt.Predictor(sym_json, params, ctx=mt.cpu(),
+                            input_shapes={"data": shape})
+    cpu_pred.forward(data=requests[0])
+    ref = cpu_pred.get_outputs()[0]
+    abs_err = float(np.abs(answers[0] - ref).max())
+    log("  gpu vs cpu Predictor on request 0: max abs err %.3e (cpu "
+        "forward %.1f s)" % (abs_err, time.perf_counter() - t0))
+    if not abs_err <= 1e-4:
+        raise AssertionError("served ResNet-50 output disagrees with the "
+                             "cpu path: %g" % abs_err)
+    return dict(launches=launches, batches=batches, fused_sites=sites,
+                images_per_s=RESNET_REQUESTS / wall, latency_ms=latency,
+                session_stats=stats, warmup_ms=session.warmup_ms,
+                cpu_abs_err=abs_err, n_params=int(n_params),
+                breakdown=breakdown)
+
+
 def lm_params(sym, seed):
     """Seeded random weights for every argument but the inputs (numpy)."""
     rng = np.random.default_rng(seed)
@@ -238,7 +531,9 @@ def phase_serving(mt, att, seed, card, profile=False):
         % (card, N_REQUESTS / wall, N_REQUESTS * LM["seq_len"] / wall,
            np.median(lat), lat.max(), [round(x, 1) for x in latency]))
 
-    breakdown = batch_breakdown(mt, sym_json, params, requests, profile)
+    breakdown = batch_breakdown(
+        mt, sym_json, params, np.concatenate(requests[:max(BUCKETS)]),
+        profile, "LM")
     t0 = time.perf_counter()
     cpu_pred = mt.Predictor(sym_json, params, ctx=mt.cpu(),
                             input_shapes={"data": (1, LM["seq_len"])})
@@ -259,14 +554,12 @@ def phase_serving(mt, att, seed, card, profile=False):
                 n_params=int(n_params), breakdown=breakdown)
 
 
-def batch_breakdown(mt, sym_json, params, requests, profile):
-    """Where a bucket-4 batch's time goes on a gpu Predictor: input
-    copy, forward (to a device sync) and the answer's device->host copy,
-    by host clock; with ``profile`` also device time by kernel name."""
-    b = max(BUCKETS)
+def batch_breakdown(mt, sym_json, params, x, profile, label):
+    """Where one largest-bucket batch's time goes on a gpu Predictor:
+    input copy, forward (to a device sync) and the answer's device->host
+    copy, by host clock; with ``profile`` also device time by kernel."""
     pred = mt.Predictor(sym_json, params, ctx=mt.gpu(0),
-                        input_shapes={"data": (b, LM["seq_len"])})
-    x = np.concatenate(requests[:b])
+                        input_shapes={"data": x.shape})
     pred.forward(data=x)
     pred.get_outputs()
     reps = 3
@@ -287,9 +580,10 @@ def batch_breakdown(mt, sym_json, params, requests, profile):
         t_out += t3 - t2
     row = {"input_ms": t_in / reps * 1e3, "forward_ms": t_fwd / reps * 1e3,
            "to_host_ms": t_out / reps * 1e3}
-    log("  bucket-%d batch on a gpu Predictor (mean of %d): input copy "
+    log("  %s bucket-%d batch on a gpu Predictor (mean of %d): input copy "
         "%.2f ms, forward %.2f ms, device->host %.2f ms"
-        % (b, reps, row["input_ms"], row["forward_ms"], row["to_host_ms"]))
+        % (label, x.shape[0], reps, row["input_ms"], row["forward_ms"],
+           row["to_host_ms"]))
     if profile:
         from torch.profiler import ProfilerActivity, profile as _prof
         with _prof(activities=[ProfilerActivity.CPU,
@@ -301,11 +595,11 @@ def batch_breakdown(mt, sym_json, params, requests, profile):
                   and e.device_type.name == "CUDA"]
         total = sum(e.device_time_total for e in events)
         row["device_ms"] = total / 1e3
-        row["by_kernel_ms"] = {}
+        row["by_kernel_ms"] = {e.key: e.device_time_total / 1e3
+                               for e in events}
         log("  profiled forward: %.2f ms of device time in %d kernels"
             % (total / 1e3, len(events)))
-        for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
-            row["by_kernel_ms"][e.key[:80]] = e.device_time_total / 1e3
+        for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
             log("    %8.3f ms %5.1f%%  x%-4d %s"
                 % (e.device_time_total / 1e3,
                    100.0 * e.device_time_total / max(total, 1e-9),
@@ -320,8 +614,9 @@ def main(argv=None):
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one bucket-4 forward with "
-                         "torch.profiler and print device time by kernel")
+                    help="also trace one largest-bucket forward of each "
+                         "model with torch.profiler and print device time "
+                         "by kernel")
     args = ap.parse_args(argv)
 
     # 1. device
@@ -329,6 +624,7 @@ def main(argv=None):
         raise SystemExit("chip_smoke: no CUDA device")
     import mxtpu_torch as mt
     from mxtpu_torch.ops import attention as att
+    from mxtpu_torch.ops import epilogue as epi
     card = card_line()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -354,10 +650,16 @@ def main(argv=None):
     log("[kernels]")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timed, worst = phase_kernels(att, gen)
+    log("[epilogue]")
+    epi_timed = phase_epilogue(epi, gen)
 
-    # 4. serving
+    # 4. LM serving
     log("[serving]")
     served = phase_serving(mt, att, args.seed, card, profile=args.profile)
+
+    # 5. ResNet-50 serving
+    log("[resnet]")
+    resnet = phase_resnet(mt, epi, args.seed, card, profile=args.profile)
 
     main_row = timed[max(BUCKETS)]
     kernels = {"kernels": [{
@@ -368,7 +670,15 @@ def main(argv=None):
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}
+        "library_ms": main_row["library_ms"]}, {
+        "name": "bn_relu_epilogue", "route": "cuda",
+        "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
+        "replaces": "mxtpu/ops/epilogue.py:30",
+        "launches": resnet["launches"],
+        "max_abs_err": epi_timed[0]["max_abs_err"],
+        "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
+        "bound_ms": epi_timed[0]["bound_ms"],
+        "bound_by": epi_timed[0]["bound_by"], "library_ms": None}]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -376,7 +686,8 @@ def main(argv=None):
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "timed_by_batch": timed,
                        "worst_err": {str(k): v for k, v in worst.items()},
-                       "serving": served, "build_s": built}, f, indent=1)
+                       "epilogue_timed": epi_timed, "serving": served,
+                       "resnet": resnet, "build_s": built}, f, indent=1)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

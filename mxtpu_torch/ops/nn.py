@@ -1,10 +1,18 @@
-"""Neural-network ops the transformer LM's serving path uses.
+"""Neural-network ops of the transformer LM and the image-classification
+zoo.
 
 Counterpart of the matching entries of ``mxtpu/ops/nn.py``:
-``FullyConnected`` (:37), ``LayerNorm`` (:274), ``Activation`` (:295),
-``SoftmaxOutput`` (:382, forward only: the loss head's custom gradient
-arrives with training) and ``Dropout`` (:492). Matrix products go to
-``torch.nn.functional.linear``, as the JAX package leaves them to XLA.
+``FullyConnected`` (:37), ``Convolution`` (:83), ``Pooling`` (:193),
+``BatchNorm`` (:235, inference only: batch statistics and the aux
+writeback arrive with training), ``LayerNorm`` (:274), ``Activation``
+(:295), ``SoftmaxOutput`` (:382, forward only: the loss head's custom
+gradient arrives with training), ``Dropout`` (:492) and ``Concat``
+(:543). Matrix products and convolutions go to ``torch.nn.functional``
+(cuBLAS, cuDNN), as the JAX package leaves them to XLA.
+
+``bn_relu_inference`` is what the executor runs for an inference
+``BatchNorm -> Activation(relu)`` pair: the BN statistics folded into a
+per-channel scale and shift, then one pass of the epilogue kernel.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .epilogue import bn_apply_relu_add, fold_bn
 from .registry import Required, register
 
 
@@ -139,3 +148,189 @@ def _dropout(a, x):
 
 
 register("Dropout", _dropout, attrs={"p": 0.5, "__is_train__": False})
+
+
+# ---------------------------------------------------------------- Convolution
+def _tup(v, n, default):
+    v = tuple(v) if v else ()
+    if len(v) < n:
+        v = v + (default,) * (n - len(v))
+    return v[:n]
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _convolution(a, data, weight, bias=None):
+    """N-d convolution. ``layout="NHWC"`` keeps the weight in its OIHW
+    storage and moves only the activation: the data is viewed as NCHW for
+    the call and the result viewed back, with no copy of the weight."""
+    nd = len(a.kernel)
+    channels_last = nd == 2 and a.layout == "NHWC"
+    x = data.permute(0, 3, 1, 2) if channels_last else data
+    out = _CONV[nd](x, weight, bias, stride=_tup(a.stride, nd, 1),
+                    padding=_tup(a.pad, nd, 0),
+                    dilation=_tup(a.dilate, nd, 1), groups=int(a.num_group))
+    return out.permute(0, 2, 3, 1) if channels_last else out
+
+
+def _conv_infer(a, shapes):
+    data = shapes[0]
+    c = data[-1] if a.layout == "NHWC" else data[1]
+    out = [data, (int(a.num_filter), c // int(a.num_group)) + tuple(a.kernel)]
+    if not a.no_bias:
+        out.append((int(a.num_filter),))
+    return out
+
+
+register("Convolution", _convolution,
+         arg_names=lambda a: ["data", "weight"] if a.get("no_bias") else
+         ["data", "weight", "bias"],
+         attrs={"kernel": Required(tuple), "stride": (), "dilate": (),
+                "pad": (), "num_filter": Required(int), "num_group": 1,
+                "no_bias": False, "workspace": 1024, "cudnn_tune": None,
+                "cudnn_off": False, "layout": None},
+         aliases=("Convolution_v1",), infer_args=_conv_infer)
+
+
+# ---------------------------------------------------------------- Pooling
+def _pool_pads(in_shape, kernel, stride, pad, convention):
+    """Per-dim (lo, hi) padding; 'full' (ceil) convention pads extra on
+    the high side (a copy of mxtpu/ops/nn.py:_pool_pads)."""
+    pads = []
+    for x, k, s, p in zip(in_shape, kernel, stride, pad):
+        if convention == "full":
+            out = -(-(x + 2 * p - k) // s) + 1  # ceil
+        else:
+            out = (x + 2 * p - k) // s + 1
+        needed = max((out - 1) * s + k - x - p, p)
+        pads.append((p, needed))
+    return pads
+
+
+def _window(x, kernel, stride, kind):
+    """Max or sum over unpadded windows of the trailing len(kernel) dims."""
+    if len(kernel) == 1:
+        return _window(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                       kind).squeeze(-2)
+    if kind == "max":
+        pool = F.max_pool2d if len(kernel) == 2 else F.max_pool3d
+        return pool(x, kernel, stride)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+def _pooling(a, data):
+    """Pooling padded as the JAX op pads (``_pool_pads``: -inf for max,
+    0 for avg/sum) and then windowed with no padding of torch's own, so
+    both conventions agree; avg divides by the full window, padding
+    included."""
+    nd = data.ndim - 2
+    channels_last = nd == 2 and a.layout == "NHWC"
+    x = data.permute(0, 3, 1, 2) if channels_last else data
+    spatial = tuple(x.shape[2:])
+    if a.global_pool:
+        kernel, stride, pad = spatial, (1,) * nd, (0,) * nd
+    else:
+        kernel = _tup(a.kernel, nd, 1)
+        stride = _tup(a.stride, nd, 1)
+        pad = _tup(a.pad, nd, 0)
+    flat = []
+    for lo, hi in reversed(_pool_pads(spatial, kernel, stride, pad,
+                                      a.pooling_convention)):
+        flat += [lo, hi]
+    is_max = a.pool_type == "max"
+    if any(flat):
+        x = F.pad(x, flat, value=float("-inf") if is_max else 0.0)
+    out = _window(x, kernel, stride, "max" if is_max else "sum")
+    if a.pool_type == "avg":
+        denom = 1
+        for k in kernel:
+            denom *= k
+        out = out / denom
+    elif not is_max and a.pool_type != "sum":
+        raise MXNetError("unknown pool_type %s" % a.pool_type)
+    return out.permute(0, 2, 3, 1) if channels_last else out
+
+
+register("Pooling", _pooling,
+         attrs={"kernel": (), "pool_type": "max", "global_pool": False,
+                "stride": (), "pad": (), "pooling_convention": "valid",
+                "cudnn_off": False, "layout": None},
+         aliases=("Pooling_v1",))
+
+
+# ---------------------------------------------------------------- BatchNorm
+def _refuse_training(a):
+    if a.get("__is_train__", False):
+        raise MXNetError("BatchNorm in training mode is not ported yet; the "
+                         "port runs inference only")
+
+
+def _batch_norm(a, data, gamma, beta, moving_mean, moving_var):
+    """Inference BatchNorm on the moving statistics, in the JAX
+    arithmetic: ``inv = rsqrt(var + eps)`` cast to the data type, then
+    ``(x - mean) * (g * inv) + beta`` with ``g = 1`` under fix_gamma."""
+    _refuse_training(a)
+    ax = int(a.axis) % data.ndim
+    bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.ndim))
+    g = torch.ones_like(gamma) if a.fix_gamma else gamma
+    inv = torch.rsqrt(moving_var.to(torch.float32) + a.eps).to(data.dtype)
+    out = (data - moving_mean.reshape(bshape)) * (g * inv).reshape(bshape) \
+        + beta.reshape(bshape)
+    if a.output_mean_var:
+        return out, moving_mean, moving_var
+    return out
+
+
+def _bn_infer(a, shapes):
+    c = (shapes[0][int(a.axis)],)
+    return [shapes[0], c, c, c, c]
+
+
+register("BatchNorm", _batch_norm,
+         arg_names=["data", "gamma", "beta", "moving_mean", "moving_var"],
+         aux_names=["moving_mean", "moving_var"],
+         attrs={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                "use_global_stats": False, "output_mean_var": False,
+                "axis": 1, "__is_train__": False},
+         num_outputs=lambda a: 3 if a.output_mean_var else 1,
+         aliases=("BatchNorm_v1",), infer_args=_bn_infer)
+
+
+def _dense(x, axis):
+    """(x or a permuted view of it that is contiguous, where ``axis``
+    lands, the permutation back): a channels-last result viewed as NCHW
+    is already dense in memory, so the kernel takes it without a copy."""
+    if x.is_contiguous():
+        return x, axis, None
+    order = sorted(range(x.ndim), key=lambda d: -x.stride(d))
+    xp = x.permute(order)
+    if not xp.is_contiguous():
+        xp = xp.contiguous()
+    back = [order.index(d) for d in range(x.ndim)]
+    return xp, order.index(axis), back
+
+
+def bn_relu_inference(a, data, gamma, beta, moving_mean, moving_var):
+    """``Activation(relu)(BatchNorm(...))`` at inference as one epilogue
+    pass: ``fold_bn`` on the moving statistics (gamma = 1 under
+    fix_gamma) gives the f32 per-channel scale and shift, and
+    ``bn_apply_relu_add`` applies them with the ReLU. It rounds as
+    ``x * scale + shift`` where the BatchNorm op rounds as
+    ``(x - mean) * (g * inv) + beta``."""
+    _refuse_training(a)
+    f32 = torch.float32
+    g = torch.ones_like(gamma, dtype=f32) if a.fix_gamma else gamma.to(f32)
+    scale, shift = fold_bn(g, beta.to(f32), moving_mean.to(f32),
+                           moving_var.to(f32), a.eps)
+    x, axis, back = _dense(data, int(a.axis) % data.ndim)
+    y = bn_apply_relu_add(x, scale.contiguous(), shift.contiguous(),
+                          axis=axis)
+    return y if back is None else y.permute(back)
+
+
+# ---------------------------------------------------------------- Concat
+register("Concat", lambda a, *xs: torch.cat(xs, dim=int(a.dim)),
+         variadic="num_args", attrs={"num_args": Required(int), "dim": 1},
+         aliases=("concat",))

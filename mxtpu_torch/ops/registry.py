@@ -59,11 +59,13 @@ class OpDef:
     ``fn(attrs, *inputs)`` returns a tensor or a tuple of tensors.
     ``infer_args(attrs, in_shapes_with_None)`` fills parameter shapes
     from the data shape (weights, biases, norm scales, labels).
+    ``variadic`` names the attr holding the input count (``num_args``);
+    the tensor inputs are then ``arg0 .. argN``.
     """
 
     def __init__(self, name, fn, arg_names=("data",), attrs=None,
                  num_outputs=1, aliases=(), aux_names=(), infer_args=None,
-                 doc=None):
+                 variadic=None, doc=None):
         self.name = name
         self.fn = fn
         self.arg_names = arg_names if callable(arg_names) else list(arg_names)
@@ -72,6 +74,7 @@ class OpDef:
         self.aliases = aliases
         self.aux_names = list(aux_names)
         self.infer_args = infer_args
+        self.variadic = variadic
         self.doc = doc or (fn.__doc__ or "")
 
     def parse_attrs(self, kwargs):
@@ -93,6 +96,9 @@ class OpDef:
             else self.num_outputs
 
     def input_names(self, attrs=None):
+        if self.variadic:
+            return ["arg%d" % i
+                    for i in range(int((attrs or {}).get(self.variadic, 0)))]
         if callable(self.arg_names):
             return list(self.arg_names(attrs or AttrDict()))
         return self.arg_names

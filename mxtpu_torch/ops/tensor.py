@@ -1,10 +1,10 @@
-"""Tensor ops the transformer LM's serving path uses.
+"""Tensor ops of the served models (the transformer LM and the image zoo).
 
 Counterpart of the matching entries of ``mxtpu/ops/tensor.py``: ``Cast``
 (:101), ``elemwise_add`` with its ``_plus`` alias (:147, what Symbol ``+``
-composes), ``broadcast_add`` (:202), ``Reshape`` (:334), ``transpose``
-(:342), ``slice_axis`` (:420) and ``Embedding`` (:476). The other op
-families of that module are ported in later slices.
+composes), ``broadcast_add`` (:202), ``Reshape`` (:334), ``Flatten``
+(:338), ``transpose`` (:342), ``slice_axis`` (:420) and ``Embedding``
+(:476). The other op families of that module are ported in later slices.
 """
 from __future__ import annotations
 
@@ -94,6 +94,10 @@ register("Reshape", _reshape,
          attrs={"shape": (), "target_shape": (), "reverse": False,
                 "keep_highest": False},
          aliases=("reshape",))
+
+
+register("Flatten", lambda a, x: x.reshape(x.shape[0], -1), attrs={},
+         aliases=("flatten",))
 
 
 def _transpose(a, x):

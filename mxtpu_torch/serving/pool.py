@@ -2,11 +2,12 @@
 
 Counterpart of ``mxtpu/serving/pool.py``: ``default_contexts``,
 ``_Replica`` with its dispatch/collect split (:295-325) and the round
-robin ``ExecutorPool`` with ``warmup``. Each replica owns the model
-weights on its device once and the Predictor's shape-keyed bind cache;
-every bucket shape is bound and run once at warmup. The process-wide
-warm cache, hot-swap adoption and cost rows of the JAX pool arrive in a
-later slice.
+robin ``ExecutorPool``. Each replica owns the model weights on its
+device once and the Predictor's shape-keyed bind cache. Warmup is
+``warmup_replica``, which the session calls on each replica's own
+dispatcher thread, because cuDNN keeps its plans per thread. The
+process-wide warm cache, hot-swap adoption and cost rows of the JAX pool
+arrive in a later slice.
 """
 from __future__ import annotations
 
@@ -120,19 +121,17 @@ class ExecutorPool:
         rep = replica if replica is not None else self.next_replica()
         return rep.run(inputs)
 
-    def warmup(self, buckets):
-        """Bind and run every (replica, bucket) once, so traffic never
-        pays a first-call cost (kernel build, allocator growth). Returns
-        ``{bucket: ms}`` of the second, steady-state run on the last
-        replica."""
+    def warmup_replica(self, rep, buckets):
+        """Bind and run every bucket on ``rep`` twice, on the calling
+        thread, so traffic never pays a first-call cost (kernel build,
+        allocator growth, the thread's cuDNN plans). Returns
+        ``{bucket: ms}`` of the second, steady-state runs."""
         times = {}
-        for rep in self.replicas:
-            rep.bind_thread()
-            for b in buckets:
-                dummy = {k: _np.zeros(s, dtype=_np.float32)
-                         for k, s in self.bucket_shapes(b).items()}
-                rep.run(dummy)
-                t0 = time.perf_counter()
-                rep.run(dummy)
-                times[int(b)] = (time.perf_counter() - t0) * 1e3
+        for b in buckets:
+            dummy = {k: _np.zeros(s, dtype=_np.float32)
+                     for k, s in self.bucket_shapes(b).items()}
+            rep.run(dummy)
+            t0 = time.perf_counter()
+            rep.run(dummy)
+            times[int(b)] = (time.perf_counter() - t0) * 1e3
         return times

@@ -269,17 +269,22 @@ def _compose(op, name, sym_inputs, attrs, kwarg_syms=None):
     (fc weight/bias, norm gamma/beta, softmax_label)."""
     hint = op.name.lower().lstrip("_")
     name = NameManager.get(name, hint)
+    if op.variadic:
+        in_syms = list(sym_inputs)
+        attrs = dict(attrs)
+        attrs[op.variadic] = len(in_syms)
     parsed = op.parse_attrs(attrs)
-    by_name = dict(kwarg_syms or {})
-    in_syms = []
-    pos = list(sym_inputs)
-    for argn in op.input_names(parsed):
-        if argn in by_name:
-            in_syms.append(by_name[argn])
-        elif pos:
-            in_syms.append(pos.pop(0))
-        else:
-            in_syms.append(Variable("%s_%s" % (name, argn)))
+    if not op.variadic:
+        by_name = dict(kwarg_syms or {})
+        in_syms = []
+        pos = list(sym_inputs)
+        for argn in op.input_names(parsed):
+            if argn in by_name:
+                in_syms.append(by_name[argn])
+            elif pos:
+                in_syms.append(pos.pop(0))
+            else:
+                in_syms.append(Variable("%s_%s" % (name, argn)))
     entries = []
     for s in in_syms:
         if not isinstance(s, Symbol):

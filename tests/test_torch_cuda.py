@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+flash attention within a tolerance, and the BN-apply+ReLU epilogue bit
+for bit (NaN positions included) at ResNet-50's served shapes.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -19,6 +21,15 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     from mxtpu_torch.ops import attention as att
     return torch, att
+
+
+@pytest.fixture
+def epi():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mxtpu_torch.ops import epilogue
+    return torch, epilogue
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-4),
@@ -72,3 +83,106 @@ def test_kernel_refuses_what_it_does_not_take(cuda, case):
     with pytest.raises(MXNetError):
         att.flash_attention(q, k, k)
     assert att.flash_attention.launches == before
+
+
+def _epilogue_inputs(torch, shape, axis, dtype, residual, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[axis]
+    x = (torch.randn(shape, device="cuda", generator=g) * 2).to(dtype)
+    r = torch.randn(shape, device="cuda", generator=g).to(dtype) \
+        if residual else None
+    scale = torch.rand(c, device="cuda", generator=g) + 0.5
+    shift = torch.randn(c, device="cuda", generator=g) * 0.5
+    return x, scale, shift, r
+
+
+def _same_bits(torch, got, want):
+    """Equal values, NaN at the same places (NaN payloads aside)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+# phase 3b of chip_smoke.py: the ResNet-50 bucket-32 sites, channel-minor
+# and NCHW, a ragged M, C = 37
+EPILOGUE_CASES = [((401408, 64), -1), ((1568, 2048), -1),
+                  ((32, 64, 112, 112), 1), ((32, 2048, 7, 7), 1),
+                  ((1000, 72), -1), ((999, 37), -1), ((3, 37, 5, 7), 1),
+                  ((2, 5, 7, 37), 3)]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,axis", EPILOGUE_CASES,
+                         ids=["x".join(map(str, s)) + "-ax%d" % a
+                              for s, a in EPILOGUE_CASES])
+def test_epilogue_kernel_equals_plain_version(epi, shape, axis, dtype,
+                                              residual):
+    torch, e = epi
+    x, s, b, r = _epilogue_inputs(torch, shape, axis, getattr(torch, dtype),
+                                  residual, seed=sum(shape))
+    before = e.bn_apply_relu_add.launches
+    got = e.bn_apply_relu_add(x, s, b, r, axis=axis)
+    want = e.bn_apply_relu_add_reference(x, s, b, r, axis=axis)
+    torch.cuda.synchronize()
+    assert e.bn_apply_relu_add.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _same_bits(torch, got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,axis", [((257, 40), -1), ((2, 6, 9, 9), 1)])
+def test_epilogue_nan_and_inf_pass_as_in_the_plain_version(epi, shape, axis,
+                                                           dtype):
+    torch, e = epi
+    x, s, b, r = _epilogue_inputs(torch, shape, axis, getattr(torch, dtype),
+                                  True, seed=3)
+    flat = x.view(-1)
+    flat[::7] = float("nan")
+    flat[3::11] = float("inf")
+    flat[5::13] = float("-inf")
+    got = e.bn_apply_relu_add(x, s, b, r, axis=axis)
+    want = e.bn_apply_relu_add_reference(x, s, b, r, axis=axis)
+    _same_bits(torch, got, want)
+    assert torch.isnan(got).any() and torch.isinf(got).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,axis", [((300, 16), -1), ((4, 8, 10, 10), 1)])
+def test_epilogue_unaligned_views_take_the_scalar_path(epi, shape, axis,
+                                                       dtype):
+    """A contiguous view one element into its storage is not 16-byte
+    aligned: the kernel runs without vectors and still agrees."""
+    torch, e = epi
+    dt = getattr(torch, dtype)
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randn(n + 1, device="cuda").to(dt)
+    x = buf[1:].view(shape)
+    c = shape[axis]
+    s = torch.rand(c, device="cuda") + 0.5
+    b = torch.randn(c, device="cuda")
+    _same_bits(torch, e.bn_apply_relu_add(x, s, b, x, axis=axis),
+               e.bn_apply_relu_add_reference(x, s, b, x, axis=axis))
+
+
+@pytest.mark.parametrize("case", ["float16", "non_contiguous", "cpu_scale",
+                                  "scale_bf16"])
+def test_epilogue_kernel_refuses_what_it_does_not_take(epi, case):
+    torch, e = epi
+    from mxtpu_torch import MXNetError
+    x = torch.zeros(8, 4, device="cuda")
+    s = torch.ones(4, device="cuda")
+    if case == "float16":
+        x = x.half()
+    elif case == "non_contiguous":
+        x = torch.zeros(4, 8, device="cuda").t()
+    elif case == "cpu_scale":
+        s = torch.ones(4)
+    else:
+        s = s.bfloat16()
+    before = e.bn_apply_relu_add.launches
+    with pytest.raises(MXNetError):
+        e.bn_apply_relu_add(x, s, torch.zeros(4, device="cuda"))
+    assert e.bn_apply_relu_add.launches == before

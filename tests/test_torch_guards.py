@@ -37,7 +37,7 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import mxtpu_torch\n"
             "from mxtpu_torch import serving, predict, convert, build\n"
-            "from mxtpu_torch.ops import attention\n"
+            "from mxtpu_torch.ops import attention, epilogue\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in %r)\n"
             "print(repr(bad))\n" % (str(REPO), FORBIDDEN))
@@ -95,7 +95,7 @@ def test_explicit_cpu_context_is_honoured(mt):
 
 
 def test_import_builds_nothing_and_finds_the_sources(mt):
-    assert mt.build.sources() == ["flash_attn_fwd"]
+    assert mt.build.sources() == ["bn_relu_epilogue", "flash_attn_fwd"]
     assert mt.build.build_log == {} or all(
         isinstance(v, dict) for v in mt.build.build_log.values())
     src, lib = mt.build._target("flash_attn_fwd")

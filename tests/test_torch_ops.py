@@ -42,9 +42,6 @@ CASES = [
     ("Reshape", [_rand((2, 3, 4), 12)], {"shape": (0, -1)}),
     ("Reshape", [_rand((2, 3, 4), 13)], {"shape": (-3, 0)}),
     ("Reshape", [_rand((2, 3, 4), 14)], {"shape": (0, -4, 1, 3, 4)}),
-    # (-2,) and not (0, -2): mxtpu keys its per-op jit cache on
-    # hash(attrs), and hash(-1) == hash(-2), so (0, -2) would run the
-    # program cached for (0, -1) above
     ("Reshape", [_rand((2, 3, 4), 15)], {"shape": (-2,)}),
     ("Reshape", [_rand((2, 3, 4), 16)], {"shape": (-1, 2, 2),
                                          "reverse": True}),
@@ -88,12 +85,21 @@ IDS = ["%s-%d" % (c[0], i) for i, c in enumerate(CASES)]
 
 
 def _jax_invoke(name, arrays, attrs):
+    """mxtpu's op on an empty per-op jit cache, put back afterwards.
+    mxtpu keys that process-wide cache on hash(attrs) alone, and
+    hash(-1) == hash(-2) (ROADMAP C): a Reshape to (-2,) here and one to
+    (-1,) in another test of the same worker would run each other's
+    program."""
     import jax
     import jax.numpy as jnp
     op = jreg.get_op(name)
     rng = jax.random.PRNGKey(0) if op.needs_rng else None
-    _, _, outs = jreg.invoke(name, [jnp.asarray(a) for a in arrays],
-                             dict(attrs), rng=rng)
+    saved, op._jit_cache = op._jit_cache, {}
+    try:
+        _, _, outs = jreg.invoke(name, [jnp.asarray(a) for a in arrays],
+                                 dict(attrs), rng=rng)
+    finally:
+        op._jit_cache = saved
     return [np.asarray(o.astype(jnp.float32)) for o in outs]
 
 

@@ -123,6 +123,46 @@ def test_session_matches_mxtpu_predictor(mt, lm, buckets):
     assert stats["batches_dispatched"] >= (7 if buckets == (1,) else 3)
 
 
+def test_session_warms_each_replica_on_its_dispatcher_thread(mt, lm,
+                                                            monkeypatch):
+    """cuDNN keeps its plans per thread, so the warmup runs on the thread
+    that will serve, once per replica, before the session accepts."""
+    from mxtpu_torch.serving import pool
+    seen = []
+    real = pool.ExecutorPool.warmup_replica
+
+    def spy(self, rep, buckets):
+        seen.append((threading.current_thread().name, tuple(buckets)))
+        return real(self, rep, buckets)
+
+    monkeypatch.setattr(pool.ExecutorPool, "warmup_replica", spy)
+    js, params, _ = lm
+    with mt.serving.ServingSession(js, params, {"data": (1, SEQ)},
+                                   buckets=(2, 1),
+                                   contexts=[mt.cpu(), mt.cpu()]) as sess:
+        assert sorted(sess.warmup_ms) == [1, 2]
+        assert len(sess.predict({"data": _tokens(1, seed=2)[0]})) == 1
+    assert sorted(seen) == [("mxtpu-torch-serving-0", (1, 2)),
+                            ("mxtpu-torch-serving-1", (1, 2))]
+
+
+def test_session_warmup_failure_raises_and_stops_its_threads(mt, lm,
+                                                             monkeypatch):
+    from mxtpu_torch.serving import pool
+
+    def fail(self, rep, buckets):
+        raise mt.MXNetError("warmup failed")
+
+    monkeypatch.setattr(pool.ExecutorPool, "warmup_replica", fail)
+    js, params, _ = lm
+    before = set(threading.enumerate())
+    with pytest.raises(mt.MXNetError, match="warmup failed"):
+        mt.serving.ServingSession(js, params, {"data": (1, SEQ)},
+                                  buckets=(1,), contexts=[mt.cpu()])
+    assert not [t for t in threading.enumerate()
+                if t not in before and t.name.startswith("mxtpu-torch")]
+
+
 def test_session_without_contexts_needs_cuda(mt, lm):
     import torch
     if torch.cuda.is_available():

@@ -78,9 +78,9 @@ def test_infer_shape_names_the_missing_input(mt):
 
 
 def test_unknown_op_in_json_raises(mt):
-    js = mx.sym.Convolution(mx.sym.Variable("x"), kernel=(3, 3),
-                            num_filter=2).tojson()
-    with pytest.raises(mt.MXNetError, match="unknown op 'Convolution'"):
+    js = mx.sym.Deconvolution(mx.sym.Variable("x"), kernel=(3, 3),
+                              num_filter=2).tojson()
+    with pytest.raises(mt.MXNetError, match="unknown op 'Deconvolution'"):
         mt.symbol.load_json(js)
 
 
