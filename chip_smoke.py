@@ -6,13 +6,18 @@ Phases (any failure raises and exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build every hand-written kernel of ``mxtpu_torch/csrc`` with nvcc
-   (one process per source, started together) and print the seconds.
+   (one process per source, started together) and print the seconds;
+   print each kernel instance's registers and spills (the served flash
+   instance, float32 D=64, must not spill) and, where the toolkit has
+   cuobjdump, count the flash library's tensor-core (HMMA) instructions.
 3. Flash kernel vs plain: the flash-attention kernel against its plain
    PyTorch version on the card, at the LM path's shapes and at edge
-   cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then
-   CUDA-event times of the kernel, the plain version and the library call
-   that computes the same function (timed as a yardstick only; the port
-   never calls it), beside the least time the card could take (bound_ms).
+   cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then,
+   at the served shape for B = 1 and 4 in both types, CUDA-event times of
+   the kernel, the plain version and the library call that computes the
+   same function (timed as a yardstick only; the port never calls it),
+   beside the least time the card could take (bound_ms): float32 counted
+   as three TF32 tensor-core passes, the route the kernel takes.
 3b. Epilogue kernel vs plain: the BN-apply+ReLU(+residual) kernel
    against its plain version at ResNet-50's bucket-32 sites, channel-minor
    and NCHW, float32 and bfloat16, with and without the residual, a
@@ -37,6 +42,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -46,9 +53,15 @@ import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
-# the operations/s of each type the kernels compute in
+# the operations/s of each type the kernels compute in: f32 on the CUDA
+# cores, bf16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32_OPS_PER_S = 495e12
+# the flash kernel computes an f32 product as three TF32 products
+# (3xTF32: big*small + small*big + big*big)
+TF32_PASSES = 3
+FLASH_SERVED_INSTANCE = "flash_fwd_kernel<float, 64>"
 
 LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_heads=12,
           d_model=768, d_ff=3072)  # GPT-2 small (Radford et al. 2019)
@@ -85,12 +98,23 @@ def card_line():
 
 
 def cuda_ms(fn, iters, warmup=3):
-    """Mean device time of fn() over ``iters`` back-to-back calls."""
+    """Mean device time of fn() over ``iters`` back-to-back calls. The
+    calls queue behind a spin kernel that outlasts their host-side cost,
+    so the card runs them back to back even where one call takes longer
+    on the host than on the card (a ~20 us kernel behind its Python
+    wrapper)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0  # host and device, an upper bound
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles a second at the card's top clock: spin at least as long
+    # as twice the host time of the calls, at most ~1 s
+    torch.cuda._sleep(int(min(2.0 * call_s * iters, 1.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -99,25 +123,103 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, h, t, s, d, causal, dtype):
-    """Least time for the attention forward: live (row, key) pairs times
-    4*d flops against the type's peak, or q, k, v read and o written once
-    against the HBM rate, whichever is larger."""
+def attention_flops(b, h, t, s, d, causal):
+    """Flops of the attention forward: live (row, key) pairs times 4*d
+    (q.k and p.v, a multiply and an add each)."""
     if causal:
         pairs = sum(min(r + 1, s) for r in range(t))
     else:
         pairs = t * s
-    flops = 4.0 * d * pairs * b * h
+    return 4.0 * d * pairs * b * h
+
+
+def attention_bound_ms(b, h, t, s, d, causal, dtype):
+    """Least time for the attention forward: its operations on the
+    tensor cores (f32 as TF32_PASSES TF32 passes at the TF32 peak, bf16 at
+    the bf16 peak), or q, k, v read and o written once against the HBM
+    rate, whichever is larger."""
+    flops = attention_flops(b, h, t, s, d, causal)
+    if dtype == torch.float32:
+        ops_ms = TF32_PASSES * flops / PEAK_TF32_OPS_PER_S * 1e3
+    else:
+        ops_ms = flops / PEAK_OPS_PER_S[dtype] * 1e3
     nbytes = (2 * b * h * t * d + 2 * b * h * s * d) * \
         torch.empty((), dtype=dtype).element_size()
-    ops_ms = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
+def cuda_core_ms(b, h, t, s, d, causal):
+    """The f32 flops against the CUDA cores' f32 peak: the bound of the
+    earlier CUDA-core kernel, printed beside the tensor-core bound for
+    continuity."""
+    return attention_flops(b, h, t, s, d, causal) / \
+        PEAK_OPS_PER_S[torch.float32] * 1e3
+
+
+def ptxas_instances(text):
+    """(kernel instance, registers, spill store bytes, spill load bytes)
+    of each entry function that one ``nvcc -Xptxas -v`` log reports."""
+    rows, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _instance_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1))) + spill)
+            name, spill = None, (0, 0)
+    return rows
+
+
+def _instance_name(sym):
+    """'flash_fwd_kernel<float, 64>' from a mangled template kernel name
+    (the argument forms csrc/ uses: float, bf16, int, bool)."""
+    m = re.search(r"([a-z_]+_kernel)I(.*?E)E", sym)
+    if not m:
+        return sym
+    words = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "false",
+             "Lb1E": "true"}
+    args = re.findall(r"13__nv_bfloat16|Li\d+E|Lb[01]E|f", m.group(2))
+    return "%s<%s>" % (m.group(1), ", ".join(words.get(a, a[2:-1])
+                                             for a in args))
+
+
+def check_flash_build(build):
+    """The served flash instance does not spill, and the library's SASS
+    (where the toolkit has cuobjdump) holds tensor-core HMMA instructions."""
+    inst = {row[0]: row for row in
+            ptxas_instances(build.build_log["flash_attn_fwd"]["ptxas"])}
+    served = inst.get(FLASH_SERVED_INSTANCE)
+    if served is None:
+        # reused from an earlier build of the same source: no ptxas log
+        log("  flash: library reused, ptxas log not available")
+    elif served[2] or served[3]:
+        raise AssertionError("%s spills: %s" % (FLASH_SERVED_INSTANCE,
+                                                served))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  flash: no cuobjdump, SASS not checked")
+        return
+    out = subprocess.run([tool, "-sass", str(build._target(
+        "flash_attn_fwd")[1])], capture_output=True, text=True, check=True,
+        timeout=300)
+    hmma = sum("HMMA" in line for line in out.stdout.splitlines())
+    log("  flash: %d HMMA instructions in the SASS (cuobjdump -sass)" % hmma)
+    if hmma == 0:
+        raise AssertionError("the flash library has no HMMA instruction")
+
+
 def phase_kernels(att, gen):
-    """Flash kernel vs its plain version; returns the timed main-shape row."""
+    """Flash kernel vs its plain version; returns the timed rows (f32 and
+    bf16 at each bucket of the served shape) and the worst error by type."""
     F = torch.nn.functional
     cases = [  # (B, H, T, S, D, causal)
         (1, 12, 1024, 1024, 64, True),   # the served shapes: bucket 1 ...
@@ -154,27 +256,41 @@ def phase_kernels(att, gen):
                                                  dtype)))
             worst[dtype] = max(worst.get(dtype, 0.0), err)
 
-    timed = {}
-    for b in BUCKETS:
-        h, t, d = 12, 1024, 64
-        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
-                   for _ in range(3))
-        got = att.flash_attention(q, k, v, causal=True)
-        want = att.flash_attention_reference(q, k, v, causal=True)
-        err = (got - want).abs().max().item()
-        ms = cuda_ms(lambda: att.flash_attention(q, k, v, causal=True), 50)
-        plain_ms = cuda_ms(
-            lambda: att.flash_attention_reference(q, k, v, causal=True), 10)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 50)
-        bound_ms, bound_by = attention_bound_ms(b, h, t, t, d, True,
-                                                torch.float32)
-        log("  flash f32 causal B=%d H=%d T=S=%d D=%d: kernel %.4f ms, "
-            "plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s), err %.3e"
-            % (b, h, t, d, ms, plain_ms, lib_ms, bound_ms, bound_by, err))
-        timed[b] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+    timed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for b in BUCKETS:
+            h, t, d = 12, 1024, 64
+            q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(3))
+            got = att.flash_attention(q, k, v, causal=True)
+            want = att.flash_attention_reference(q, k, v, causal=True)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= TOL[dtype]:
+                raise AssertionError("flash kernel disagrees at the served "
+                                     "shape: %r (%s, B=%d)" % (err, name, b))
+            ms = cuda_ms(lambda: att.flash_attention(q, k, v, causal=True),
+                         50)
+            plain_ms = cuda_ms(
+                lambda: att.flash_attention_reference(q, k, v, causal=True),
+                10)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 50)
+            bound_ms, bound_by = attention_bound_ms(b, h, t, t, d, True,
+                                                    dtype)
+            row = dict(dtype=name, B=b, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            extra = ""
+            if dtype == torch.float32:
+                row["cuda_core_ms"] = cuda_core_ms(b, h, t, t, d, True)
+                extra = "; CUDA-core f32 figure %.4f ms" % row["cuda_core_ms"]
+            log("  flash %s causal B=%d H=%d T=S=%d D=%d: kernel %.4f ms, "
+                "plain %.4f ms, sdpa %.4f ms (kernel/sdpa %.2f), bound %.4f "
+                "ms (%s; kernel at %.1f%% of it)%s, err %.3e"
+                % (name, b, h, t, d, ms, plain_ms, lib_ms, ms / lib_ms,
+                   bound_ms, bound_by, 100.0 * bound_ms / ms, extra, err))
+            timed.append(row)
     return timed, worst
 
 
@@ -642,9 +758,10 @@ def main(argv=None):
         {k: round(v, 1) for k, v in built.items()},
         time.perf_counter() - t0))
     for name, rec in mt.build.build_log.items():
-        for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log("  %s: %s" % (name, line.strip()))
+        for inst, regs, st, ld in ptxas_instances(rec["ptxas"]):
+            log("  %s: %s: %d registers, %d bytes spill stores, %d bytes "
+                "spill loads" % (name, inst, regs, st, ld))
+    check_flash_build(mt.build)
 
     # 3. kernel vs plain
     log("[kernels]")
@@ -661,7 +778,8 @@ def main(argv=None):
     log("[resnet]")
     resnet = phase_resnet(mt, epi, args.seed, card, profile=args.profile)
 
-    main_row = timed[max(BUCKETS)]
+    main_row = next(r for r in timed if r["dtype"] == "float32"
+                    and r["B"] == max(BUCKETS))
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -684,7 +802,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels["kernels"],
-                       "timed_by_batch": timed,
+                       "flash_timed": timed,
                        "worst_err": {str(k): v for k, v in worst.items()},
                        "epilogue_timed": epi_timed, "serving": served,
                        "resnet": resnet, "build_s": built}, f, indent=1)

@@ -1,50 +1,77 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++ on the tensor cores.
 //
 // Replaces the Pallas TPU kernel mxtpu/ops/attention.py:_fwd_kernel
 // (launched by _flash_call). Same function: o = softmax(q k^T * scale) v
 // with an online softmax, f32 running max m, normaliser l and f32
 // accumulator; causal masking is top-left aligned (col <= row) even when
-// T != S; p is rounded to the input type before p.v (bf16 inputs); the
-// output is acc / l with l == 0 -> 1.
+// T != S; p is rounded to the input type before p.v (bf16 inputs) while l
+// sums the unrounded p; the running max is clamped to 0 while it is -inf,
+// so a fully masked tile gives p = 0; the output is acc / l with
+// l == 0 -> 1 (S = 0 gives 0).
 //
 // What bounds it on this card: at the serving path's shape (T = S = 1024,
-// D = 64, causal, f32) a head does 4*D flops for each of the T(T+1)/2
-// live (row, key) pairs, ~134 Mflop, against 16*T*D = 1 MB of q, k, v
-// and o read or written once: ~128 flops per byte, six times the ~20 f32
-// flops per byte that the H100's CUDA-core rate (67 TFLOP/s) over its
-// HBM rate (3.35 TB/s) balances at. It is bound by operations, not bytes.
+// D = 64, causal) a head does 4*D flops for each of the T(T+1)/2 live
+// (row, key) pairs, ~134 Mflop, against 16*T*D = 1 MB of f32 q, k, v and o
+// read or written once: ~128 flops per byte. f32 to f32 accuracy on the
+// tensor cores takes three TF32 products per product (below), so the f32
+// kernel is bound by operations at 495/3 TFLOP/s; bf16 at 989 TFLOP/s is
+// balanced near bytes (3.35 TB/s).
 //
-// What the design does about that: it keeps every operand of the inner
-// loops on chip. One block per (batch*head, 128-row q tile); its q rows
-// and f32 accumulators live in registers (one thread per query row, or
-// two threads splitting D = 128), and K/V tiles of 32 keys are staged in
-// shared memory once per block and read by all rows as broadcasts, so
-// HBM traffic is one pass over K/V per q tile. A loop over kv tiles
-// inside the block takes the place of the TPU grid's sequential third
-// axis; a causal block stops at its last row's diagonal, and the q tiles
-// are issued heaviest first so the causal tail does not idle the card.
-// Loads past S are predicated off and the tile is zero-filled, so rows
-// past kv_len are never read (the TPU kernel zeroes them instead). The
-// products run on the CUDA cores in f32 (FMA); moving them to the tensor
-// cores (mma.sync / wgmma) is the next step for speed.
+// What the design does about that:
+// - Products on the tensor cores with mma.sync. f32 runs m16n8k8 TF32 as
+//   3xTF32: each operand x is split into big = rna_tf32(x) and
+//   small = rna_tf32(x - big) (round to nearest, ties away from zero, as
+//   cvt.rna.tf32.f32), and big*small + small*big + big*big (the
+//   small cross terms first) accumulate in f32, which keeps f32-grade
+//   error where one TF32 pass keeps ~3 decimal digits. bf16 runs m16n8k16
+//   bf16 -> f32.
+// - Each of the block's 4 warps owns 16 query rows; the scores S of a kv
+//   tile stay in registers and feed the p.v product directly. For TF32 the
+//   accumulator layout (a thread holds keys 2t, 2t+1) differs from the
+//   A-operand layout (keys t, t+4), so inside each 8-key step the k index t
+//   stands for key 2t and t+4 for key 2t+1, and V's rows are read in that
+//   order. bf16 operands come from shared memory by ldmatrix (.trans for
+//   V); f32 ones by plain loads from rows padded by 16 bytes, which keeps
+//   every fragment read free of bank conflicts.
+// - K/V tiles go through a double-buffered ring in dynamic shared memory,
+//   filled by 16-byte cp.async copies (zero-filled past S, so rows past
+//   kv_len are never read); the next tile's copy is in flight while the
+//   current one is multiplied. Pointers that are not 16-byte aligned take
+//   plain loads into the same ring.
+// - 64 query rows per block, so B = 1 (12 heads x 1024 rows) puts 192
+//   blocks on the 132 SMs. Heads run along grid x and q tiles along grid
+//   y, heaviest causal tile first, so every head's long tiles start in the
+//   first wave. The causal mask is applied only on tiles that cross a
+//   warp's diagonal, a warp skips tiles wholly above its diagonal, and a
+//   block stops at its last row's diagonal.
+// - f32 q fragments (big and small) stay in registers up to D = 64; at
+//   D = 128 they are read from shared memory and split per tile, and the
+//   kv tile is 32 keys, to stay clear of spills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 128;  // threads per block
-constexpr int kBlockN = 32;    // keys per shared-memory tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockM = 16 * kWarps;  // query rows per block, 16 per warp
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <typename T, int D>
+struct Cfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kBlockN = (kF32 && D == 128) ? 32 : 64;  // keys/tile
+  static constexpr int kLd = D + 16 / (int)sizeof(T);  // padded row, elements
+  static constexpr bool kQInSmem = kF32 && D == 128;
+  static constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16 B per row
+  // q tile, then K[2] and V[2] kv tiles
+  static constexpr size_t kSmemBytes =
+      (size_t)(kBlockM + 4 * kBlockN) * kLd * sizeof(T);
+};
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -55,131 +82,436 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Dimension held in slot i by the thread owning part `part` of a row:
-// chunks of 4 dims alternate between the kTPR threads of a row, so the
-// two halves of a D = 128 row read neighbouring 16-byte chunks of a
-// shared-memory row (different banks) rather than the same bank.
-template <int kTPR>
-__device__ __forceinline__ int dim_of(int i, int part) {
-  return (i / 4) * 4 * kTPR + part * 4 + (i % 4);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
+// from zero: the rounding of cvt.rna.tf32.f32, written as an integer add
+// and mask because ptxas expands that cvt into a compare-and-select
+// sequence on sm_90a, which made the splits most of the f32 kernel's work
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32 (3xTF32 operand split)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// 2^x by the SFU (ex2.approx.ftz: ~2 ulp; a result below 2^-126, which
+// adds nothing next to the row's p = 1 at its max, is flushed to 0;
+// 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += small*big + big*small + big*big: the small cross terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Rows [row0, row0 + kRows) of a (n_rows, D) matrix into a padded shared
+// tile; rows past n_rows are zero-filled and never read.
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int n_rows, bool vec, int tid) {
+  using C = Cfg<T, D>;
+  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
+  static_assert(kRows * C::kChunks % kThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int i = 0; i < kRows * C::kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / C::kChunks;
+    const int e0 = (c % C::kChunks) * kE;
+    const int gr = row0 + r;
+    const bool ok = gr < n_rows;
+    T* d = dst + r * C::kLd + e0;
+    if (vec) {
+      cp_async16(d, src + (size_t)(ok ? gr : 0) * D + e0, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kE; ++e)
+        d[e] = ok ? src[(size_t)gr * D + e0 + e] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// Per-warp fragments of q, held for the whole kv loop (unless kQInSmem).
+template <typename T, int D, bool kF32 = Cfg<T, D>::kF32>
+struct QFrag;
+
+template <typename T, int D>
+struct QFrag<T, D, true> {  // f32: TF32 big and small parts, 8 dims a step
+  static constexpr int kSteps = Cfg<T, D>::kQInSmem ? 1 : D / 8;
+  uint32_t big[kSteps][4], small[kSteps][4];
+
+  // A operand of step kk: rows g, g + 8; dims kk*8 + t, kk*8 + t + 4
+  __device__ __forceinline__ void fetch(const float* sq, int kk, int slot) {
+    constexpr int kLd = Cfg<T, D>::kLd;
+    const float* p = sq + kk * 8;
+    split(p[0], big[slot][0], small[slot][0]);
+    split(p[8 * kLd], big[slot][1], small[slot][1]);
+    split(p[4], big[slot][2], small[slot][2]);
+    split(p[8 * kLd + 4], big[slot][3], small[slot][3]);
+  }
+};
+
+template <typename T, int D>
+struct QFrag<T, D, false> {  // bf16: A operands, 16 dims a step
+  uint32_t a[D / 16][4];
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int t_len,
-                 int s_len, float scale, int causal) {
-  constexpr int kTPR = D > 64 ? 2 : 1;      // threads per query row
-  constexpr int kDS = D / kTPR;             // dims each thread holds
-  constexpr int kBlockM = kThreads / kTPR;  // query rows per block
-  __shared__ __align__(16) float ks[kBlockN][D];
-  __shared__ __align__(16) float vs[kBlockN][D];
+                 int s_len, float scale, int causal, int vec) {
+  using C = Cfg<T, D>;
+  static_assert(C::kF32 || !C::kQInSmem, "q stays in shared memory for f32");
+  constexpr int kN = C::kBlockN;
+  constexpr int kLd = C::kLd;
+  constexpr int kNT = kN / 8;  // 8-key column tiles of S
+  constexpr int kDT = D / 8;   // 8-dim column tiles of o
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + kBlockM * kLd;  // [2][kN][kLd]
+  T* sV = sK + 2 * kN * kLd;   // [2][kN][kLd]
 
   const int tid = threadIdx.x;
-  const int part = tid % kTPR;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const size_t bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
   const int row0 = q_tile * kBlockM;
-  const int row = row0 + tid / kTPR;
-  const bool row_ok = row < t_len;
-  const size_t bh = blockIdx.y;
+  const int wrow0 = row0 + warp * 16;
   const T* qb = q + bh * (size_t)t_len * D;
   const T* kb = k + bh * (size_t)s_len * D;
   const T* vb = v + bh * (size_t)s_len * D;
   T* ob = o + bh * (size_t)t_len * D;
 
-  float qr[kDS];
-  float acc[kDS];
-#pragma unroll
-  for (int i = 0; i < kDS; ++i) {
-    qr[i] = row_ok ? to_f32(qb[(size_t)row * D + dim_of<kTPR>(i, part)])
-                   : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
   // causal: no column past the block's last row contributes
-  const int kv_end = causal ? min(s_len, row0 + kBlockM) : s_len;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockN) {
-    const int n = min(kBlockN, kv_end - kv0);
-    __syncthreads();  // every row is done with the previous tile
-    for (int idx = tid; idx < kBlockN * D; idx += kThreads) {
-      const int r = idx / D;
-      const int c = idx % D;
-      float kx = 0.f, vx = 0.f;
-      if (r < n) {
-        const size_t off = (size_t)(kv0 + r) * D + c;
-        kx = to_f32(kb[off]);
-        vx = to_f32(vb[off]);
-      }
-      ks[r][c] = kx;
-      vs[r][c] = vx;
-    }
-    __syncthreads();
+  const int last_row = min(row0 + kBlockM, t_len) - 1;
+  const int kv_end = causal ? min(s_len, last_row + 1) : s_len;
+  const int n_tiles = (kv_end + kN - 1) / kN;
+  const bool warp_live = wrow0 < t_len;
+  const int warp_last = min(wrow0 + 15, t_len - 1);
 
-    float s[kBlockN];
-    float m_tile = -INFINITY;
+  load_rows<T, D, kBlockM>(sQ, qb, row0, t_len, vec, tid);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_rows<T, D, kN>(sK, kb, 0, s_len, vec, tid);
+    load_rows<T, D, kN>(sV, vb, 0, s_len, vec, tid);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // q has landed
+  __syncthreads();
+
+  QFrag<T, D> qf;
+  const T* sq_warp = sQ + (warp * 16) * kLd;
+  if constexpr (C::kF32) {
+    if constexpr (!C::kQInSmem) {
 #pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < kDS; ++i) dot += qr[i] * ks[j][dim_of<kTPR>(i, part)];
-      if (kTPR == 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      const int col = kv0 + j;
-      const bool ok = j < n && (!causal || col <= row);
-      s[j] = ok ? dot * scale : -INFINITY;
-      m_tile = fmaxf(m_tile, s[j]);
+      for (int kk = 0; kk < kDT; ++kk)
+        qf.fetch(sq_warp + g * kLd + t, kk, kk);
     }
-    const float m_new = fmaxf(m, m_tile);
-    // a row with no live column yet keeps m = -inf; exp(-inf - 0) = 0
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = expf(m - m_use);
-    l *= alpha;
+  } else {
 #pragma unroll
-    for (int i = 0; i < kDS; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBlockN; ++j) {
-      const float p = expf(s[j] - m_use);
-      l += p;
-      const float pv = to_f32(from_f32<T>(p));  // p.astype(v.dtype)
-#pragma unroll
-      for (int i = 0; i < kDS; ++i) acc[i] += pv * vs[j][dim_of<kTPR>(i, part)];
-    }
-    m = m_new;
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(qf.a[kk], sq_warp + (lane & 15) * kLd + kk * 16 + (lane >> 4) * 8);
   }
 
-  if (row_ok) {
-    const float denom = l == 0.f ? 1.f : l;
+  float acc[kDT][4];
 #pragma unroll
-    for (int i = 0; i < kDS; ++i)
-      ob[(size_t)row * D + dim_of<kTPR>(i, part)] = from_f32<T>(acc[i] / denom);
+  for (int i = 0; i < kDT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
+  float l_row[2] = {0.f, 0.f};              // this thread's columns only
+  const float scale2 = scale * kLog2e;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kv0 = it * kN;
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      load_rows<T, D, kN>(sK + (stage ^ 1) * kN * kLd, kb, kv0 + kN, s_len,
+                          vec, tid);
+      load_rows<T, D, kN>(sV + (stage ^ 1) * kN * kLd, vb, kv0 + kN, s_len,
+                          vec, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed
+    __syncthreads();
+    const T* cK = sK + stage * kN * kLd;
+    const T* cV = sV + stage * kN * kLd;
+
+    // a warp whose rows all lie above this tile's first column skips it
+    if (warp_live && !(causal && kv0 > warp_last)) {
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+      // S = q k^T: c[e] of tile j is (row g + 8*(e>>1), key j*8 + 2t + (e&1))
+      if constexpr (C::kF32) {
+#pragma unroll
+        for (int kk = 0; kk < kDT; ++kk) {
+          const int slot = C::kQInSmem ? 0 : kk;
+          if constexpr (C::kQInSmem) qf.fetch(sq_warp + g * kLd + t, kk, 0);
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            const float* kr = cK + (j * 8 + g) * kLd + kk * 8 + t;
+            uint32_t bb0, bs0, bb1, bs1;
+            split(kr[0], bb0, bs0);
+            split(kr[4], bb1, bs1);
+            mma_3xtf32(s[j], qf.big[slot], qf.small[slot], bb0, bb1, bs0,
+                       bs1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+          for (int j = 0; j < kNT; j += 2) {
+            uint32_t b[4];
+            ldsm_x4(b, cK + (j * 8 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[j], qf.a[kk], b[0], b[1]);
+            mma_bf16(s[j + 1], qf.a[kk], b[2], b[3]);
+          }
+        }
+      }
+
+      // scale into the log2 domain; mask only where the tile needs it
+      const bool mask = kv0 + kN > s_len || (causal && kv0 + kN - 1 > wrow0);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale2;
+          if (mask) {
+            const int col = kv0 + j * 8 + 2 * t + (e & 1);
+            const int row = wrow0 + g + (e >> 1) * 8;
+            if (col >= s_len || (causal && col > row)) x = -INFINITY;
+          }
+          s[j][e] = x;
+        }
+
+      // online softmax; the 4 threads of a group share a row
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_row[r], mx);
+        // a row with no live column yet keeps m = -inf; exp2(-inf - 0) = 0
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2_approx(m_row[r] - m_use);
+        m_row[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2_approx(s[j][2 * r + c] - m_use);
+            s[j][2 * r + c] = p;
+            sum += p;
+          }
+        l_row[r] = l_row[r] * alpha + sum;
+#pragma unroll
+        for (int i = 0; i < kDT; ++i) {
+          acc[i][2 * r] *= alpha;
+          acc[i][2 * r + 1] *= alpha;
+        }
+      }
+
+      // acc += p v
+      if constexpr (C::kF32) {
+        // k index t <-> key 2t, t + 4 <-> key 2t + 1 of each 8-key step
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          uint32_t pb[4], ps[4];
+          split(s[j][0], pb[0], ps[0]);
+          split(s[j][2], pb[1], ps[1]);
+          split(s[j][1], pb[2], ps[2]);
+          split(s[j][3], pb[3], ps[3]);
+          const float* vr = cV + (j * 8 + 2 * t) * kLd + g;
+#pragma unroll
+          for (int i = 0; i < kDT; ++i) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split(vr[i * 8], bb0, bs0);
+            split(vr[kLd + i * 8], bb1, bs1);
+            mma_3xtf32(acc[i], pb, ps, bb0, bb1, bs0, bs1);
+          }
+        }
+      } else {
+        // p rounded to bf16 (p.astype(v.dtype)); l kept the unrounded sum
+#pragma unroll
+        for (int kb16 = 0; kb16 < kN / 16; ++kb16) {
+          const uint32_t a[4] = {
+              pack_bf16(s[2 * kb16][0], s[2 * kb16][1]),
+              pack_bf16(s[2 * kb16][2], s[2 * kb16][3]),
+              pack_bf16(s[2 * kb16 + 1][0], s[2 * kb16 + 1][1]),
+              pack_bf16(s[2 * kb16 + 1][2], s[2 * kb16 + 1][3])};
+#pragma unroll
+          for (int i = 0; i < kDT; i += 2) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, cV + (kb16 * 16 + ((lane >> 3) & 1) * 8 +
+                                   (lane & 7)) * kLd +
+                                 (i + (lane >> 4)) * 8);
+            mma_bf16(acc[i], a, b[0], b[1]);
+            mma_bf16(acc[i + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_row[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = l == 0.f ? 1.f : l;
+    const int row = wrow0 + g + 8 * r;
+    if (row >= t_len) continue;
+    T* orow = ob + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < kDT; ++i) {
+      const float x0 = acc[i][2 * r] / denom;
+      const float x1 = acc[i][2 * r + 1] / denom;
+      if constexpr (C::kF32) {
+        if (vec) {
+          *reinterpret_cast<float2*>(orow + i * 8) = make_float2(x0, x1);
+        } else {
+          orow[i * 8] = x0;
+          orow[i * 8 + 1] = x1;
+        }
+      } else {
+        if (vec) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          orow[i * 8] = __float2bfloat16(x0);
+          orow[i * 8 + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int t_len, int s_len, float scale, int causal,
-                   cudaStream_t stream) {
-  constexpr int kBlockM = kThreads / (D > 64 ? 2 : 1);
-  const dim3 grid((t_len + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+                   int vec, cudaStream_t stream) {
+  using C = Cfg<T, D>;
+  const int n_qt = (t_len + kBlockM - 1) / kBlockM;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_kernel<T, D>;
+  if (C::kSmemBytes > 48 * 1024) {  // once per instance and device
+    static std::atomic<unsigned long long> allowed{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(allowed.load() & bit)) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)C::kSmemBytes);
+      if (err != cudaSuccess) return err;
+      allowed.fetch_or(bit);
+    }
+  }
+  const dim3 grid(bh, n_qt);
+  kernel<<<grid, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, scale,
-      causal);
+      causal, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int bh, int t_len, int s_len, int d, float scale,
-                     int causal, cudaStream_t stream) {
+                     int causal, int vec, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, t_len, s_len, scale, causal, stream);
+      return launch<T, 32>(q, k, v, o, bh, t_len, s_len, scale, causal, vec,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, t_len, s_len, scale, causal, stream);
+      return launch<T, 64>(q, k, v, o, bh, t_len, s_len, scale, causal, vec,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, t_len, s_len, scale, causal, stream);
+      return launch<T, 128>(q, k, v, o, bh, t_len, s_len, scale, causal, vec,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -195,13 +527,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               float scale, int causal, int dtype,
                               void* stream) {
   if (bh <= 0 || t_len <= 0) return cudaSuccess;
-  if (bh > 65535 || s_len < 0) return cudaErrorInvalidValue;
+  if (s_len < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(o)) & 15) == 0;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, bh, t_len, s_len, d, scale, causal, st);
+    return launch_d<float>(q, k, v, o, bh, t_len, s_len, d, scale, causal,
+                           vec, st);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(q, k, v, o, bh, t_len, s_len, d, scale,
-                                   causal, st);
+                                   causal, vec, st);
   return cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,10 @@
 Counterpart of ``mxtpu/ops/attention.py``: ``flash_attention`` in the
 (B, H, T, D) layout and the ``_contrib_FlashAttention`` op with the same
 attrs. The Pallas kernel ``_fwd_kernel`` there becomes the CUDA kernel
-``mxtpu_torch/csrc/flash_attn_fwd.cu``; ``flash_attention_reference``
-beside it is the plain PyTorch version of the same online softmax.
+``mxtpu_torch/csrc/flash_attn_fwd.cu``, which runs its products on the
+tensor cores (float32 as 3xTF32, which keeps float32-grade error;
+bfloat16 as bf16 MMA); ``flash_attention_reference`` beside it is the
+plain PyTorch version of the same online softmax.
 
 Dispatch is by the tensors' device, with no fallback: a CPU tensor goes
 to the plain version, a CUDA tensor goes to the kernel or the call
@@ -100,9 +102,6 @@ def check_kernel_inputs(q, k, v):
         raise MXNetError("flash_attention kernel: k %s / v %s do not match "
                          "q %s" % (tuple(k.shape), tuple(v.shape),
                                    tuple(q.shape)))
-    if b * h > 65535:
-        raise MXNetError("flash_attention kernel: B*H = %d exceeds 65535"
-                         % (b * h))
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda or x.device != q.device:
             raise MXNetError("flash_attention kernel: %s is on %s; q, k, v "

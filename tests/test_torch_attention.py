@@ -5,7 +5,9 @@ CPU, as the JAX package's own tests run it. float32 within atol 1e-4,
 bfloat16 within 2e-2 (p is rounded to bf16 at different points of the
 two online softmaxes). Also the wrapper's dispatch: a CPU tensor takes the
 plain version and launches nothing, the kernel's input checks raise, and
-the module has no try/fallback."""
+the module has no try/fallback. Then chip_smoke's flash bound (f32 on the
+tensor cores as 3xTF32) and its reading of ptxas, and a CPU emulation of
+the kernel's f32 arithmetic that shows why it runs 3xTF32."""
 import ast
 import inspect
 
@@ -163,3 +165,96 @@ def test_attention_module_has_no_fallback(tt):
     _, _, att = tt
     tree = ast.parse(inspect.getsource(att))
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_chip_smoke_counts_the_flash_bound_on_the_tensor_cores(tt):
+    """chip_smoke's flash bound at the served shape (causal, H=12,
+    T=S=1024, D=64): f32 as three TF32 passes at 495 TFLOP/s, bf16 by
+    its bytes at 3.35 TB/s; the CUDA-core f32 figure beside."""
+    torch = tt[0]
+    import chip_smoke
+    served = (12, 1024, 1024, 64, True)
+    cases = [(4, torch.float32, 0.0391, "operations"),
+             (1, torch.float32, 0.0098, "operations"),
+             (4, torch.bfloat16, 0.0075, "bytes")]
+    for b, dtype, want_ms, want_by in cases:
+        ms, by = chip_smoke.attention_bound_ms(b, *served, dtype)
+        assert by == want_by
+        assert abs(ms - want_ms) < 5e-5, (b, dtype, ms)
+    assert abs(chip_smoke.cuda_core_ms(4, *served) - 0.0962) < 5e-5
+
+
+def test_chip_smoke_reads_ptxas_per_instance():
+    import chip_smoke
+    log = (
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__92c96d0c"
+        "_17_flash_attn_fwd_cu_cd4330bb16flash_fwd_kernelIfLi64EEEvPKT_S3_S3"
+        "_PS1_iifii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 223 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0_11rows"
+        "_kernelI13__nv_bfloat16Lb1EEEvPKT_PKfS6_S4_PS2_ll' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 0 barriers\n")
+    assert chip_smoke.ptxas_instances(log) == [
+        ("flash_fwd_kernel<float, 64>", 223, 8, 4),
+        ("rows_kernel<bf16, true>", 40, 0, 0)]
+
+
+def _tf32(torch, x):
+    """f32 rounded to TF32 (10 stored mantissa bits): to nearest, ties away
+    from zero, on the low 13 bits, as cvt.rna.tf32.f32 rounds."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(torch, a, b, passes):
+    """a @ b as the kernel's tensor cores form it from f32 operands: one
+    TF32 pass (big*big), or 3xTF32 (small*big + big*small + big*big with
+    x = big + small, both TF32); every product is exact in f32."""
+    ab, bb = _tf32(torch, a), _tf32(torch, b)
+    if passes == 1:
+        return ab @ bb
+    a_small, b_small = _tf32(torch, a - ab), _tf32(torch, b - bb)
+    return a_small @ bb + ab @ b_small + ab @ bb
+
+
+def _emulated_kernel(torch, q, k, v, causal, passes, block=64):
+    """The f32 arithmetic of csrc/flash_attn_fwd.cu: kv tiles of 64 keys,
+    an online softmax in f32, q.k^T and p.v on TF32 operands."""
+    t = q.shape[2]
+    scale = q.shape[-1] ** -0.5
+    m = torch.full(q.shape[:3] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, k.shape[2], block):
+        kc, vc = k[:, :, k0:k0 + block], v[:, :, k0:k0 + block]
+        s = _tf32_matmul(torch, q, kc.transpose(-1, -2), passes) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kc.shape[2])
+            s = s.masked_fill(cols[None, :] > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp(s - m_use)
+        alpha = torch.exp(m - m_use)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _tf32_matmul(torch, p, vc, passes)
+        m = m_new
+    return acc / torch.where(l == 0, 1.0, l)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_keeps_the_f32_gate_where_one_tf32_pass_does_not(tt, causal):
+    """Why the f32 kernel runs 3xTF32: emulated on the CPU at D=64,
+    T=S=256, the 3xTF32 result stays within chip_smoke's 2e-4 gate against
+    the plain version, and one TF32 pass breaks it."""
+    torch, _, att = tt
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 256, 64).astype(np.float32))
+               for _ in range(3))
+    want = att.flash_attention_reference(q, k, v, causal=causal)
+    err3 = (_emulated_kernel(torch, q, k, v, causal, 3) - want).abs().max()
+    err1 = (_emulated_kernel(torch, q, k, v, causal, 1) - want).abs().max()
+    assert err3.item() <= 2e-4
+    assert err1.item() > 2e-4
+    assert err1.item() > 100 * err3.item()
