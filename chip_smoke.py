@@ -1,15 +1,18 @@
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
+                          [--phases kernels,epilogue,...]
 
 Phases (any failure raises and exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build every hand-written kernel of ``mxtpu_torch/csrc`` with nvcc
    (one process per source, started together) and print the seconds;
-   print each kernel instance's registers and spills (the served flash
-   instance, float32 D=64, must not spill) and, where the toolkit has
-   cuobjdump, count the flash library's tensor-core (HMMA) instructions.
+   print each kernel instance's registers and spills (the LM's flash
+   instances, float32 D=64 with and without lse, must not spill) and,
+   where the toolkit has cuobjdump, count the flash library's
+   tensor-core (HMMA) instructions.
 3. Flash kernel vs plain: the flash-attention kernel against its plain
    PyTorch version on the card, at the LM path's shapes and at edge
    cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then,
@@ -24,6 +27,16 @@ Phases (any failure raises and exits non-zero):
    ragged M, C = 37 and planted NaN/inf: max abs err must be 0 and the
    NaN positions equal. Then CUDA-event times beside bound_ms (bytes).
    No one PyTorch call computes relu(x*s+b)[+r], so library_ms is null.
+3c. Flash backward kernel vs plain: the backward (dq, dk, dv) against
+   its plain version on the same q, k, v, o, dO and lse, and the forward
+   kernel's lse against the plain lse, at the LM's shapes and at edge
+   cases (T, S in {1, 63, 64, 65, 129}, T != S, S = 0, D 32/64/128),
+   float32 (error / max(1, |plain|) <= 1e-4) and bfloat16 (<= 2e-2).
+   Then CUDA-event times at the LM's shape beside the plain version, the
+   bound at the card's peak for each type (f32 as three TF32 passes, bf16
+   on the tensor cores; the CUDA-core figure of the kernel's own route
+   printed beside it), SDPA's backward alone as the library yardstick,
+   and the forward with and without lse.
 4. LM serving: the transformer LM at GPT-2-small widths with seeded
    random weights, served by ``ServingSession`` on gpu(0) with buckets
    (1, 4): 8 requests of 1024 tokens from 4 client threads. Checks that
@@ -35,7 +48,20 @@ Phases (any failure raises and exits non-zero):
    requests from 8 client threads. Checks 50 fused BatchNorm->ReLU sites,
    ``launches == 50 x dispatched batches`` for the epilogue kernel,
    finite rows summing to 1, and one answer against a cpu() Predictor.
-6. Prints the kernels' JSON line, then the device line last.
+6. LM training: the transformer LM at GPT-2-small widths and depth
+   trained through ``Module.fit`` on gpu(0) with Adam, from seeded Xavier
+   weights, on one seeded batch (B=4, T=1024) repeated 8 times. Checks a
+   finite cross-entropy that falls, and exactly one flash forward and one
+   flash backward launch per layer per step; prints step ms, tokens/s,
+   peak device memory, one step with the fused update against one
+   through the Updater in turns, and
+   (``--profile``) one step's device time by kernel. Then one SGD step of
+   a 2-layer model at full width, B=1, on gpu(0) and on a cpu() Module
+   from the same weights, each held to the exact step of a float64
+   gradient: the GPU's outputs within TRAIN_OUT_RTOL of the CPU's and its
+   distance from the exact step no more than TRAIN_CPU_FACTOR times the
+   CPU f32 step's own; a GPU step with TF32 GEMMs must fail both gates.
+7. Prints the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -61,14 +87,33 @@ PEAK_TF32_OPS_PER_S = 495e12
 # the flash kernel computes an f32 product as three TF32 products
 # (3xTF32: big*small + small*big + big*big)
 TF32_PASSES = 3
-FLASH_SERVED_INSTANCE = "flash_fwd_kernel<float, 64>"
+# the flash instances of the LM's paths, float32 D=64: without lse
+# (served) and with it (trained)
+FLASH_PATH_INSTANCES = ("flash_fwd_kernel<float, 64, false>",
+                        "flash_fwd_kernel<float, 64, true>")
 
 LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_heads=12,
           d_model=768, d_ff=3072)  # GPT-2 small (Radford et al. 2019)
 BUCKETS = (1, 4)
+# LM training (phase 6): Adam on one seeded batch repeated `steps` times
+TRAIN = dict(batch=4, steps=8, warmup=2, lr=5e-4)
+# the 2-layer GPU vs CPU step: SGD lr, output tolerance (probabilities,
+# relative, element by element), and how far from the exact float64 step
+# the GPU's f32 step may be, as a multiple of the CPU f32 step's distance.
+# On an H100 the f32 GPU step reads 6.7e-6 and 0.34, a step with TF32
+# GEMMs 6.7e-4 and 3.4: each gate sits between the two
+TRAIN_CPU_LR = 0.01
+TRAIN_OUT_RTOL = 5e-5
+TRAIN_CPU_FACTOR = 1.0
 N_REQUESTS = 8
 N_CLIENTS = 4
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# backward: max |kernel - plain| / max(1, max |plain|) over dq, dk, dv.
+# f32: both sum in f32, in other orders; bf16: both round their f32 sums
+# to bf16 (2^-8 relative), so one bf16 ulp of the largest value
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# forward lse, absolute: ex2.approx and log2f against torch's exp/log
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 
 # pre-activation ResNet-50 v2 (He et al. 2016), mxtpu/models/resnet.py
 RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
@@ -83,6 +128,7 @@ EPILOGUE_CASES = [((401408, 64), -1), ((1568, 2048), -1),
                   ((32, 64, 112, 112), 1), ((32, 2048, 7, 7), 1),
                   ((1000, 72), -1), ((999, 37), -1)]
 EPILOGUE_MAIN = ((32, 64, 112, 112), 1)  # bn0 at bucket 32, as served
+PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training")
 
 
 def log(*a):
@@ -123,14 +169,19 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def attention_pairs(t, s, causal):
+    """Live (row, key) pairs of one head: every pair, or under the causal
+    mask (col <= row, top-left) min(row + 1, S) keys for each row."""
+    if not causal:
+        return t * s
+    n = min(t, s)
+    return n * (n + 1) // 2 + max(t - s, 0) * s
+
+
 def attention_flops(b, h, t, s, d, causal):
     """Flops of the attention forward: live (row, key) pairs times 4*d
     (q.k and p.v, a multiply and an add each)."""
-    if causal:
-        pairs = sum(min(r + 1, s) for r in range(t))
-    else:
-        pairs = t * s
-    return 4.0 * d * pairs * b * h
+    return 4.0 * d * attention_pairs(t, s, causal) * b * h
 
 
 def attention_bound_ms(b, h, t, s, d, causal, dtype):
@@ -180,7 +231,7 @@ def ptxas_instances(text):
 
 
 def _instance_name(sym):
-    """'flash_fwd_kernel<float, 64>' from a mangled template kernel name
+    """'flash_fwd_kernel<float, 64, false>' from a mangled template name
     (the argument forms csrc/ uses: float, bf16, int, bool)."""
     m = re.search(r"([a-z_]+_kernel)I(.*?E)E", sym)
     if not m:
@@ -193,17 +244,18 @@ def _instance_name(sym):
 
 
 def check_flash_build(build):
-    """The served flash instance does not spill, and the library's SASS
-    (where the toolkit has cuobjdump) holds tensor-core HMMA instructions."""
+    """The flash instances of the LM's paths do not spill, and the
+    library's SASS (where the toolkit has cuobjdump) holds tensor-core HMMA
+    instructions."""
     inst = {row[0]: row for row in
             ptxas_instances(build.build_log["flash_attn_fwd"]["ptxas"])}
-    served = inst.get(FLASH_SERVED_INSTANCE)
-    if served is None:
-        # reused from an earlier build of the same source: no ptxas log
-        log("  flash: library reused, ptxas log not available")
-    elif served[2] or served[3]:
-        raise AssertionError("%s spills: %s" % (FLASH_SERVED_INSTANCE,
-                                                served))
+    for name in FLASH_PATH_INSTANCES:
+        row = inst.get(name)
+        if row is None:
+            # reused from an earlier build of the same source: no ptxas log
+            log("  flash: %s: no ptxas log (library reused)" % name)
+        elif row[2] or row[3]:
+            raise AssertionError("%s spills: %s" % (name, row))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("  flash: no cuobjdump, SASS not checked")
@@ -290,6 +342,168 @@ def phase_kernels(att, gen):
                 "ms (%s; kernel at %.1f%% of it)%s, err %.3e"
                 % (name, b, h, t, d, ms, plain_ms, lib_ms, ms / lib_ms,
                    bound_ms, bound_by, 100.0 * bound_ms / ms, extra, err))
+            timed.append(row)
+    return timed, worst
+
+
+def backward_flops(b, h, t, s, d, causal):
+    """Flops of the attention backward: the five products of 2*d flops
+    for each live pair that the gradient needs (S, dP, dV, dK, dQ). The
+    kernel itself does seven (S and dP again in its dQ pass)."""
+    return 5 * 2.0 * d * attention_pairs(t, s, causal) * b * h
+
+
+def backward_bound_ms(b, h, t, s, d, causal, dtype):
+    """Least time for the attention backward at the card's peak for its
+    type, as the forward's bound counts it: f32 as TF32_PASSES TF32
+    passes at the TF32 peak (3xTF32 keeps f32-grade error), bf16 at the
+    bf16 tensor-core peak; or q, k, v, o, dO read and dq, dk, dv written
+    once plus the f32 lse, against the HBM rate; whichever is larger. The
+    kernel runs on the CUDA cores, so it cannot reach this bound; its
+    CUDA-core figure is ``backward_cuda_core_ms``."""
+    flops = backward_flops(b, h, t, s, d, causal)
+    if dtype == torch.float32:
+        ops_ms = TF32_PASSES * flops / PEAK_TF32_OPS_PER_S * 1e3
+    else:
+        ops_ms = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (4 * b * h * t * d + 4 * b * h * s * d) * esize + b * h * t * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def backward_cuda_core_ms(b, h, t, s, d, causal):
+    """The backward's flops against the CUDA cores' f32 peak: the least
+    time of the route the kernel takes today (f32 FMA for both types),
+    printed beside the bound."""
+    return backward_flops(b, h, t, s, d, causal) / \
+        PEAK_OPS_PER_S[torch.float32] * 1e3
+
+
+def abs_err(got, want):
+    """max |got - want| in f32 (inf on a NaN)."""
+    if got.numel() == 0:
+        return 0.0
+    g = got.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return (g - want.float()).abs().max().item()
+
+
+def rel_err(got, want):
+    """max |got - want| / max(1, max |want|), in f32 (inf on a NaN)."""
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+
+
+def phase_backward(att, gen):
+    """Flash backward kernel vs its plain version on the same q, k, v, o,
+    dO and lse (the plain forward's), and the forward kernel's lse vs the
+    plain lse: at the LM's shapes and at edge cases, in float32 (error
+    scaled by max(1, max |plain|) <= BWD_TOL) and bfloat16. Then, at the
+    LM's shape, CUDA-event times beside the plain version, the bound and
+    SDPA's backward alone (torch.autograd.grad on a retained graph; timed
+    as a yardstick only, never called by the port). Returns the timed
+    rows and the worst error by type."""
+    F = torch.nn.functional
+    cases = [(1, 12, 1024, 1024, 64, True), (4, 12, 1024, 1024, 64, True),
+             (2, 4, 1024, 1024, 64, False)]
+    for t, s in [(1, 1), (63, 63), (64, 64), (65, 65), (129, 129),
+                 (63, 129), (129, 63), (1, 65), (65, 1), (64, 0)]:
+        for causal in (True, False):
+            cases.append((2, 3, t, s, 64, causal))
+    for d in (32, 128):
+        cases += [(2, 4, 200, 200, d, True), (2, 4, 129, 65, d, False)]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for b, h, t, s, d, causal in cases:
+            q, k, v, g = (torch.randn(b, h, n, d, device="cuda",
+                                      generator=gen).to(dtype)
+                          for n in (t, s, s, t))
+            out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                                     return_lse=True)
+            got_o, got_lse = att._flash_cuda(q, k, v, causal, d ** -0.5,
+                                             want_lse=True)
+            fin = torch.isfinite(lse)
+            lse_err = 0.0
+            if bool(fin.any()):
+                lse_err = (got_lse[fin] - lse[fin]).abs().max().item()
+            if not torch.equal(torch.isfinite(got_lse), fin) or \
+                    not lse_err <= LSE_TOL[dtype]:
+                raise AssertionError("flash forward lse disagrees: %r at %s"
+                                     % (lse_err, (b, h, t, s, d, causal,
+                                                  name)))
+            got = att.flash_attention_backward(q, k, v, out, g, lse,
+                                               causal=causal)
+            want = att.flash_attention_backward_reference(
+                q, k, v, out, g, lse, causal=causal)
+            torch.cuda.synchronize()
+            err = max(rel_err(a, w) for a, w in zip(got, want))
+            log("  flash bwd %-8s B=%d H=%d T=%d S=%d D=%d causal=%d  "
+                "err(dq,dk,dv)=%.3e lse_err=%.3e"
+                % (name, b, h, t, s, d, causal, err, lse_err))
+            if not err <= BWD_TOL[dtype]:
+                raise AssertionError(
+                    "flash backward kernel disagrees with its plain version:"
+                    " %r > %r at %s" % (err, BWD_TOL[dtype],
+                                        (b, h, t, s, d, causal, name)))
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+
+    timed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for b in BUCKETS:
+            h, t, d = 12, LM["seq_len"], 64
+            q, k, v, g = (torch.randn(b, h, t, d, device="cuda",
+                                      generator=gen).to(dtype)
+                          for _ in range(4))
+            out, lse = att._flash_cuda(q, k, v, True, d ** -0.5,
+                                       want_lse=True)
+
+            def kern():
+                return att.flash_attention_backward(q, k, v, out, g, lse,
+                                                    causal=True)
+
+            def plain():
+                return att.flash_attention_backward_reference(
+                    q, k, v, out, g, lse, causal=True)
+
+            got, want = kern(), plain()
+            err = max(rel_err(a, w) for a, w in zip(got, want))
+            aerr = max(abs_err(a, w) for a, w in zip(got, want))
+            del got, want
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, 5)
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), g, retain_graph=True), 20)
+            del o_lib
+            fwd_ms = cuda_ms(lambda: att.flash_attention(q, k, v,
+                                                         causal=True), 20)
+            fwd_lse_ms = cuda_ms(lambda: att._flash_cuda(
+                q, k, v, True, d ** -0.5, want_lse=True), 20)
+            bound_ms, bound_by = backward_bound_ms(b, h, t, t, d, True, dtype)
+            core_ms = backward_cuda_core_ms(b, h, t, t, d, True)
+            row = dict(dtype=name, B=b, max_abs_err=aerr, scaled_err=err,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       cuda_core_ms=core_ms, fwd_ms=fwd_ms,
+                       fwd_lse_ms=fwd_lse_ms)
+            log("  flash bwd %s causal B=%d H=%d T=S=%d D=%d: kernel %.4f "
+                "ms, plain %.4f ms, sdpa bwd %.4f ms (kernel/sdpa %.2f), "
+                "bound %.4f ms (%s; kernel at %.1f%% of it; CUDA-core f32 "
+                "figure %.4f ms), max abs err %.3e, scaled err %.3e; "
+                "forward %.4f ms, with lse %.4f ms"
+                % (name, b, h, t, d, ms, plain_ms, lib_ms, ms / lib_ms,
+                   bound_ms, bound_by, 100.0 * bound_ms / ms, core_ms, aerr,
+                   err, fwd_ms, fwd_lse_ms))
             timed.append(row)
     return timed, worst
 
@@ -670,6 +884,306 @@ def phase_serving(mt, att, seed, card, profile=False):
                 n_params=int(n_params), breakdown=breakdown)
 
 
+class RepeatBatch:
+    """A DataIter over one batch, ``n`` times per epoch (the LM's labels
+    are (B*T,), which NDArrayIter's one-row-per-example rule cannot
+    carry)."""
+
+    def __init__(self, mt, x, y, n):
+        self._batch = mt.io.DataBatch(
+            data=[mt.nd.array(x, ctx=mt.cpu())],
+            label=[mt.nd.array(y, ctx=mt.cpu())], pad=0)
+        self.provide_data = [mt.io.DataDesc("data", x.shape)]
+        self.provide_label = [mt.io.DataDesc("softmax_label", y.shape)]
+        self.n = n
+        self._i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= self.n:
+            raise StopIteration
+        self._i += 1
+        return self._batch
+
+    def reset(self):
+        self._i = 0
+
+
+def lm_batch(seed, batch, seq_len, vocab):
+    """Seeded tokens (B, T) and next-token labels (B*T,), float32."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, seq_len + 1))
+    return (ids[:, :-1].astype(np.float32),
+            ids[:, 1:].reshape(-1).astype(np.float32))
+
+
+def phase_training(mt, att, seed, card, profile=False):
+    """The LM trained through Module.fit on gpu(0) at GPT-2-small widths
+    and depth: Xavier weights from a numpy seed, Adam, one fixed batch
+    repeated TRAIN["steps"] times. Checks finite, falling cross-entropy
+    and exactly one flash forward and one flash backward launch per layer
+    per step; times the steps; then holds one step of a 2-layer model at
+    full width, B = 1, against a cpu() Module from the same weights."""
+    cfg = dict(LM)
+    sym = mt.models.get_transformer_lm(**cfg)
+    b, t, steps = TRAIN["batch"], cfg["seq_len"], TRAIN["steps"]
+    x, y = lm_batch(seed, b, t, cfg["vocab_size"])
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(mt.init.Xavier())
+    n_params = sum(int(np.prod(a.shape))
+                   for a in mod._exec.arg_dict.values()) - x.size - y.size
+    log("  LM %s, B=%d: %d parameters, bound and initialized in %.1f s"
+        % (cfg, b, n_params, time.perf_counter() - t0))
+    ce, stamps = [], []
+
+    def record(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ce.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it = RepeatBatch(mt, x, y, steps)
+    att.flash_attention.launches = 0  # count the main path alone
+    att.flash_attention_backward.launches = 0
+    t_start = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN["lr"]},
+            initializer=None, batch_end_callback=record, metric_sync=1)
+    fwd = att.flash_attention.launches
+    bwd = att.flash_attention_backward.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms = [float(v) for v in np.diff([t_start] + stamps) * 1e3]
+    want = cfg["num_layers"] * steps
+    log("  cross-entropy by step: %s" % [round(v, 4) for v in ce])
+    log("  flash launches: forward %d, backward %d (want %d = %d layers x "
+        "%d steps)" % (fwd, bwd, want, cfg["num_layers"], steps))
+    if len(ce) != steps or not np.all(np.isfinite(ce)) or \
+            not ce[-1] < ce[0]:
+        raise AssertionError("LM training did not lower a finite "
+                             "cross-entropy: %s" % ce)
+    if fwd != want or bwd != want:
+        raise AssertionError("flash launches fwd %d / bwd %d != %d"
+                             % (fwd, bwd, want))
+    warm = np.array(ms[TRAIN["warmup"]:])
+    row = dict(batch=b, steps=steps, ce=ce, step_ms=ms,
+               step_ms_mean=float(warm.mean()),
+               tokens_per_s=float(b * t / (warm.mean() / 1e3)),
+               max_memory_allocated=int(peak), n_params=n_params,
+               fwd_launches=fwd, bwd_launches=bwd)
+    log("  [%s] step ms %s; mean after %d warm-up steps %.2f ms, %.0f "
+        "tokens/s; max_memory_allocated %.2f GB"
+        % (card, [round(v, 1) for v in ms], TRAIN["warmup"],
+           row["step_ms_mean"], row["tokens_per_s"], peak / 1e9))
+    row["step_paths_ms"] = time_step_paths(mt, mod, x, y, card)
+    if profile:
+        row["profile"] = profile_step(mod, x, y, mt)
+    del mod
+    torch.cuda.empty_cache()
+    row.update(train_step_vs_cpu(mt, seed))
+    return row
+
+
+def time_step_paths(mt, mod, x, y, card, pairs=10, n=3):
+    """Host-clock ms of single training steps (``forward_backward`` +
+    ``update``), each ended by a device sync, with the update through the
+    fused rules (Adam) and through the Updater (an Adam subclass, which
+    has no fused rule): ``pairs`` turns of each, ordered fused, updater,
+    updater, fused, ..., of ``n`` steps, the first step of a turn not
+    counted. Each turn starts a fresh optimizer
+    (``init_optimizer(force_init=True)``), which leaves the work of a
+    step unchanged."""
+
+    class AdamByUpdater(mt.optimizer.Adam):
+        pass
+
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                         label=[mt.nd.array(y, ctx=mt.cpu())])
+    rescale = 1.0 / x.shape[0]
+    turns = {"fused": [], "updater": []}
+    for path in (["fused", "updater", "updater", "fused"] * pairs)[
+            :2 * pairs]:
+        klass = mt.optimizer.Adam if path == "fused" else AdamByUpdater
+        mod.init_optimizer(optimizer=klass(learning_rate=TRAIN["lr"],
+                                           rescale_grad=rescale),
+                           force_init=True)
+        if (mod._fused is not None) != (path == "fused"):
+            raise AssertionError("the %s turn did not arm its update" % path)
+        ms = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(db)
+            mod.update()
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        turns[path].append(float(np.mean(ms)))
+    wins = sum(u > f for f, u in zip(turns["fused"], turns["updater"]))
+    q = {k: [float(v) for v in np.percentile(t, [25, 50, 75])]
+         for k, t in turns.items()}
+    log("  [%s] one step, host clock to a device sync, %d turns each: "
+        "fused update median %.2f ms (quartiles %.2f-%.2f); Updater median "
+        "%.2f ms (quartiles %.2f-%.2f); Updater/fused %.3f; fused faster "
+        "in %d of %d pairs"
+        % (card, pairs, q["fused"][1], q["fused"][0], q["fused"][2],
+           q["updater"][1], q["updater"][0], q["updater"][2],
+           q["updater"][1] / q["fused"][1], wins, pairs))
+    return dict(turns_ms=turns, quartiles_ms=q, fused_wins=wins,
+                pairs=pairs)
+
+
+def profile_step(mod, x, y, mt):
+    """One fused training step under torch.profiler: device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile as _prof
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                         label=[mt.nd.array(y, ctx=mt.cpu())])
+    mod.forward_backward(db)
+    mod.update()
+    torch.cuda.synchronize()
+    with _prof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        mod.forward_backward(db)
+        mod.update()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    total = sum(e.device_time_total for e in events)
+    log("  profiled training step: %.2f ms of device time in %d kernels"
+        % (total / 1e3, len(events)))
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:14]:
+        log("    %8.3f ms %5.1f%%  x%-4d %s"
+            % (e.device_time_total / 1e3,
+               100.0 * e.device_time_total / max(total, 1e-9), e.count,
+               e.key[:90]))
+    return {"device_ms": total / 1e3,
+            "by_kernel_ms": {e.key: e.device_time_total / 1e3
+                             for e in events}}
+
+
+def _grads_f64(mt, sym, weights, x, y):
+    """The gradient of every parameter in float64 on the CPU (the
+    executor with float64 arrays), from ``weights`` (cpu NDArrays)."""
+    args = {n: mt.nd.NDArray(v._data.double(), mt.cpu())
+            for n, v in weights.items()}
+    args["data"] = mt.nd.NDArray(torch.from_numpy(x).double(), mt.cpu())
+    args["softmax_label"] = mt.nd.NDArray(torch.from_numpy(y).double(),
+                                          mt.cpu())
+    grads = {n: mt.nd.NDArray(torch.zeros_like(v._data), mt.cpu())
+             for n, v in args.items() if n in weights}
+    exe = sym.bind(mt.cpu(), args, args_grad=grads)
+    exe.forward(is_train=True)
+    exe.backward()
+    return {n: g._data.numpy() for n, g in grads.items()}
+
+
+def train_step_vs_cpu(mt, seed):
+    """One SGD step of a 2-layer LM at full width, B = 1, on gpu(0) and
+    on cpu() from the same weights, against the exact step (a float64
+    gradient on the CPU, through the plain versions). Both f32 steps run
+    with TF32 off. f32 is far from exact on this model (a LayerNorm over
+    small Xavier-scale embeddings multiplies the gradient, and the sums
+    over 1024 tokens and 50257 classes cancel), so the gate is relative:
+    the GPU step's largest distance from the exact step must stay within
+    TRAIN_CPU_FACTOR times the CPU f32 step's own, and the step's outputs
+    (probabilities, before the update) within TRAIN_OUT_RTOL of the CPU's,
+    element by element. A third step, on gpu(0) with TF32 GEMMs, is the
+    control: a GPU step of lower precision that both gates must refuse."""
+    cfg = dict(LM, num_layers=2)
+    sym = mt.models.get_transformer_lm(**cfg)
+    x, y = lm_batch(seed + 1, 1, cfg["seq_len"], cfg["vocab_size"])
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                         label=[mt.nd.array(y, ctx=mt.cpu())])
+    np.random.seed(seed + 1)
+    got = {}
+    weights = None
+    t0 = time.perf_counter()
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    for run, ctx, tf32 in (("gpu", mt.gpu(0), False),
+                           ("gpu_tf32", mt.gpu(0), True),
+                           ("cpu", mt.cpu(), False)):
+        mod = mt.mod.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("softmax_label", y.shape)])
+        if weights is None:
+            mod.init_params(mt.init.Xavier())
+            weights = mod.get_params()[0]
+        else:
+            mod.init_params(arg_params=weights)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": TRAIN_CPU_LR})
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            mod.forward_backward(db)
+            mod.update()
+            got[run] = (mod.get_outputs()[0].asnumpy(),
+                        {k: v.asnumpy() for k, v in
+                         mod.get_params()[0].items()})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32_was
+        del mod
+    g64 = _grads_f64(mt, sym, weights, x, y)
+    exact = {k: weights[k].asnumpy().astype(np.float64) - TRAIN_CPU_LR * g
+             for k, g in g64.items()}  # SGD, rescale_grad 1/B = 1, wd 0
+    c_out, c_w = got["cpu"]
+
+    def out_err(o):
+        return float((np.abs(o - c_out) / np.maximum(np.abs(c_out),
+                                                     1e-30)).max())
+
+    def dist(w):
+        return max(float(np.abs(w[k] - exact[k]).max()) for k in exact)
+
+    cpu_err = dist(c_w)
+    res = {"cpu_exact_err": cpu_err,
+           "cpu_weight_moved": max(float(np.abs(
+               c_w[k] - weights[k].asnumpy()).max()) for k in c_w)}
+    for run in ("gpu", "gpu_tf32"):
+        o, w = got[run]
+        res[run] = {"out_rel_err": out_err(o),
+                    "out_abs_err": float(np.abs(o - c_out).max()),
+                    "exact_err": dist(w),
+                    "weight_err": max(float(np.abs(w[k] - c_w[k]).max())
+                                      for k in c_w)}
+        res[run]["exact_ratio"] = res[run]["exact_err"] / max(cpu_err,
+                                                              1e-30)
+        log("  2-layer full-width SGD step (lr %g), %s vs cpu: outputs max "
+            "rel err %.3e (abs %.3e); updated weights %.3e apart; distance "
+            "from the exact (float64) step %.3e vs the cpu f32 step's %.3e "
+            "(ratio %.2f)" % (TRAIN_CPU_LR, run, res[run]["out_rel_err"],
+                              res[run]["out_abs_err"],
+                              res[run]["weight_err"], res[run]["exact_err"],
+                              cpu_err, res[run]["exact_ratio"]))
+    log("  the step moved weights by up to %.3e; three steps and the "
+        "float64 gradient in %.1f s" % (res["cpu_weight_moved"],
+                                        time.perf_counter() - t0))
+    gpu, ctl = res["gpu"], res["gpu_tf32"]
+    if not gpu["out_rel_err"] <= TRAIN_OUT_RTOL or \
+            not gpu["exact_ratio"] <= TRAIN_CPU_FACTOR:
+        raise AssertionError(
+            "gpu training step disagrees with the cpu step: outputs rel %g "
+            "(gate %g); distance from the exact step %g x the cpu's (gate "
+            "%g)" % (gpu["out_rel_err"], TRAIN_OUT_RTOL, gpu["exact_ratio"],
+                     TRAIN_CPU_FACTOR))
+    if ctl["out_rel_err"] <= TRAIN_OUT_RTOL or \
+            ctl["exact_ratio"] <= TRAIN_CPU_FACTOR:
+        raise AssertionError(
+            "the TF32 control step passed a gate (outputs rel %g, gate %g; "
+            "exact-step ratio %g, gate %g): the gates cannot tell f32 from "
+            "TF32" % (ctl["out_rel_err"], TRAIN_OUT_RTOL,
+                      ctl["exact_ratio"], TRAIN_CPU_FACTOR))
+    return res
+
+
 def batch_breakdown(mt, sym_json, params, x, profile, label):
     """Where one largest-bucket batch's time goes on a gpu Predictor:
     input copy, forward (to a device sync) and the answer's device->host
@@ -731,9 +1245,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one largest-bucket forward of each "
-                         "model with torch.profiler and print device time "
-                         "by kernel")
+                         "model and one training step of the LM with "
+                         "torch.profiler and print device time by kernel")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %s to run after the "
+                         "build (for iterating on one kernel); the kernels "
+                         "line and the device line are printed only when "
+                         "every phase ran" % ",".join(PHASES))
     args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        raise SystemExit("chip_smoke: unknown phases %s" % unknown)
 
     # 1. device
     if not torch.cuda.is_available():
@@ -763,28 +1286,60 @@ def main(argv=None):
                 "spill loads" % (name, inst, regs, st, ld))
     check_flash_build(mt.build)
 
-    # 3. kernel vs plain
-    log("[kernels]")
+    results = {"card": card, "build_s": built}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    timed, worst = phase_kernels(att, gen)
-    log("[epilogue]")
-    epi_timed = phase_epilogue(epi, gen)
-
+    # 3. kernel vs plain
+    if "kernels" in phases:
+        log("[kernels]")
+        results["flash_timed"], worst = phase_kernels(att, gen)
+        results["worst_err"] = {str(k): v for k, v in worst.items()}
+    if "epilogue" in phases:
+        log("[epilogue]")
+        results["epilogue_timed"] = phase_epilogue(epi, gen)
+    if "backward" in phases:
+        log("[backward]")
+        results["backward_timed"], worst = phase_backward(att, gen)
+        results["backward_worst_err"] = {str(k): v for k, v in worst.items()}
     # 4. LM serving
-    log("[serving]")
-    served = phase_serving(mt, att, args.seed, card, profile=args.profile)
-
+    if "serving" in phases:
+        log("[serving]")
+        results["serving"] = phase_serving(mt, att, args.seed, card,
+                                           profile=args.profile)
     # 5. ResNet-50 serving
-    log("[resnet]")
-    resnet = phase_resnet(mt, epi, args.seed, card, profile=args.profile)
+    if "resnet" in phases:
+        log("[resnet]")
+        results["resnet"] = phase_resnet(mt, epi, args.seed, card,
+                                         profile=args.profile)
+    # 6. LM training
+    if "training" in phases:
+        log("[training]")
+        results["training"] = phase_training(mt, att, args.seed, card,
+                                             profile=args.profile)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    if phases != list(PHASES):
+        log("chip_smoke: phases %s only; no kernels line, no device line"
+            % phases)
+        return 1
 
+    timed = results["flash_timed"]
+    epi_timed = results["epilogue_timed"]
+    served, resnet = results["serving"], results["resnet"]
+    trained = results["training"]
+    bwd_row = next(r for r in results["backward_timed"]
+                   if r["dtype"] == "float32" and r["B"] == TRAIN["batch"])
     main_row = next(r for r in timed if r["dtype"] == "float32"
                     and r["B"] == max(BUCKETS))
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxtpu/ops/attention.py:92",
-        "launches": served["launches"],
+        "launches": served["launches"] + trained["fwd_launches"],
+        "launches_by_path": {"lm_serving": served["launches"],
+                             "lm_training": trained["fwd_launches"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -793,19 +1348,21 @@ def main(argv=None):
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
         "launches": resnet["launches"],
+        "launches_by_path": {"resnet_serving": resnet["launches"]},
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],
-        "bound_by": epi_timed[0]["bound_by"], "library_ms": None}]}
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump({"card": card, "kernels": kernels["kernels"],
-                       "flash_timed": timed,
-                       "worst_err": {str(k): v for k, v in worst.items()},
-                       "epilogue_timed": epi_timed, "serving": served,
-                       "resnet": resnet, "build_s": built}, f, indent=1)
+        "bound_by": epi_timed[0]["bound_by"], "library_ms": None}, {
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "mxtpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "mxtpu/ops/attention.py:199",
+        "launches": trained["bwd_launches"],
+        "launches_by_path": {"lm_training": trained["bwd_launches"]},
+        "max_abs_err": bwd_row["max_abs_err"],
+        "scaled_err": bwd_row["scaled_err"],
+        "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"]}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

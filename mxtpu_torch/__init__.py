@@ -8,9 +8,11 @@ PyTorch version beside it: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, and nothing falls back. Entry points default to the
 card (``gpu(0)``) and raise without one unless given ``cpu()``.
 
-Ported so far: the transformer LM's serving path (Symbol, NDArray,
-Executor, Predictor, ServingSession) with the flash-attention forward
-kernel.
+Ported so far: serving (Symbol, NDArray, Executor, Predictor,
+ServingSession) of the transformer LM and the image-classification zoo,
+with the flash-attention forward and BN-apply+ReLU epilogue kernels; and
+training through ``Module`` (``fit``, the fused update, optimizers,
+metrics, ``NDArrayIter``) with the flash-attention backward kernel.
 """
 from . import base
 from .base import MXNetError
@@ -28,7 +30,19 @@ from . import serving
 from . import models
 from . import convert
 from . import build
+from . import random
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import metric
+from . import io
+from . import callback
+from . import module
+from . import module as mod
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
-           "predict", "Predictor", "serving", "models", "convert", "build"]
+           "predict", "Predictor", "serving", "models", "convert", "build",
+           "random", "initializer", "init", "lr_scheduler", "optimizer",
+           "metric", "io", "callback", "module", "mod"]

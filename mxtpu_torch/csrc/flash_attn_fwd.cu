@@ -7,7 +7,13 @@
 // T != S; p is rounded to the input type before p.v (bf16 inputs) while l
 // sums the unrounded p; the running max is clamped to 0 while it is -inf,
 // so a fully masked tile gives p = 0; the output is acc / l with
-// l == 0 -> 1 (S = 0 gives 0).
+// l == 0 -> 1 (S = 0 gives 0). Where the caller passes an lse pointer,
+// the kernel's kLse instance runs (a null pointer runs the instance
+// without it, the served path's code unchanged), and each row also writes
+// its log-sum-exp for the backward (flash_attn_bwd.cu):
+// in the natural log, lse = ln(sum_j exp(s_j * scale)), computed from the
+// log2-domain running max m and normaliser l as (m + log2(l)) * ln 2; a row
+// with no live key (S = 0) writes +inf, so exp(s - lse) is 0 there.
 //
 // What bounds it on this card: at the serving path's shape (T = S = 1024,
 // D = 64, causal) a head does 4*D flops for each of the T(T+1)/2 live
@@ -60,6 +66,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockM = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T, int D>
 struct Cfg {
@@ -223,11 +230,12 @@ struct QFrag<T, D, false> {  // bf16: A operands, 16 dims a step
   uint32_t a[D / 16][4];
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t_len,
-                 int s_len, float scale, int causal, int vec) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int t_len, int s_len, float scale,
+                 int causal, int vec) {
   using C = Cfg<T, D>;
   static_assert(C::kF32 || !C::kQInSmem, "q stays in shared memory for f32");
   constexpr int kN = C::kBlockN;
@@ -443,6 +451,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = l == 0.f ? 1.f : l;
     const int row = wrow0 + g + 8 * r;
     if (row >= t_len) continue;
+    if (kLse && t == 0)
+      lse[bh * (size_t)t_len + row] =
+          l == 0.f ? INFINITY : (m_row[r] + log2f(l)) * kLn2;
     T* orow = ob + (size_t)row * D + 2 * t;
 #pragma unroll
     for (int i = 0; i < kDT; ++i) {
@@ -468,14 +479,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int t_len, int s_len, float scale, int causal,
-                   int vec, cudaStream_t stream) {
+                   float* lse, int bh, int t_len, int s_len, float scale,
+                   int causal, int vec, cudaStream_t stream) {
   using C = Cfg<T, D>;
   const int n_qt = (t_len + kBlockM - 1) / kBlockM;
   if (n_qt > 65535) return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, kLse>;
   if (C::kSmemBytes > 48 * 1024) {  // once per instance and device
     static std::atomic<unsigned long long> allowed{0};
     int dev = 0;
@@ -493,25 +504,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(bh, n_qt);
   kernel<<<grid, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, scale,
-      causal, vec);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, t_len, s_len,
+      scale, causal, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int bh, int t_len, int s_len, int d, float scale,
-                     int causal, int vec, cudaStream_t stream) {
+                     float* lse, int bh, int t_len, int s_len, int d,
+                     float scale, int causal, int vec, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, t_len, s_len, scale, causal, vec,
-                           stream);
+      return lse ? launch<T, 32, true>(q, k, v, o, lse, bh, t_len, s_len,
+                                       scale, causal, vec, stream)
+                 : launch<T, 32, false>(q, k, v, o, lse, bh, t_len, s_len,
+                                        scale, causal, vec, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, t_len, s_len, scale, causal, vec,
-                           stream);
+      return lse ? launch<T, 64, true>(q, k, v, o, lse, bh, t_len, s_len,
+                                       scale, causal, vec, stream)
+                 : launch<T, 64, false>(q, k, v, o, lse, bh, t_len, s_len,
+                                        scale, causal, vec, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, t_len, s_len, scale, causal, vec,
-                            stream);
+      return lse ? launch<T, 128, true>(q, k, v, o, lse, bh, t_len, s_len,
+                                        scale, causal, vec, stream)
+                 : launch<T, 128, false>(q, k, v, o, lse, bh, t_len, s_len,
+                                         scale, causal, vec, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -520,12 +537,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (bh, t, d), k and v (bh, s, d), o (bh, t, d): contiguous, one dtype
-// (0 = float32, 1 = bfloat16). Launches on `stream`, does not
-// synchronise, and returns the launch's cudaError_t.
+// (0 = float32, 1 = bfloat16); lse (bh, t) float32, or null to skip it.
+// Launches on `stream`, does not synchronise, and returns the launch's
+// cudaError_t.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int bh, int t_len, int s_len, int d,
-                              float scale, int causal, int dtype,
-                              void* stream) {
+                              void* o, float* lse, int bh, int t_len,
+                              int s_len, int d, float scale, int causal,
+                              int dtype, void* stream) {
   if (bh <= 0 || t_len <= 0) return cudaSuccess;
   if (s_len < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -534,11 +552,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                     reinterpret_cast<uintptr_t>(v) |
                     reinterpret_cast<uintptr_t>(o)) & 15) == 0;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, bh, t_len, s_len, d, scale, causal,
-                           vec, st);
+    return launch_d<float>(q, k, v, o, lse, bh, t_len, s_len, d, scale,
+                           causal, vec, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, bh, t_len, s_len, d, scale,
-                                   causal, vec, st);
+    return launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t_len, s_len, d,
+                                   scale, causal, vec, st);
   return cudaErrorInvalidValue;
 }
 

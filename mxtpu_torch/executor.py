@@ -1,14 +1,19 @@
 """Executor: runs a bound Symbol as an eager walk of torch ops.
 
 Counterpart of ``mxtpu/executor.py``: the topo walk of ``_trace_graph``
-(:120-209) and ``Executor.forward(is_train=False)`` (:670). The JAX
-package traces the walk into one jitted XLA program; here it runs
-eagerly under ``torch.inference_mode()``, and each op's kernels launch
-asynchronously on the device's current stream. Where XLA fuses an
-inference BatchNorm with its ReLU, the plan runs the pair as one pass of
-the epilogue kernel (``ops/epilogue.py``), on every device. Only
-inference is ported: training (``is_train=True``, backward) arrives in a
-later slice.
+(:120-209), the constructor's ``args_grad``/``grad_req`` (:258-345),
+``forward`` (:670) and ``backward`` (:731-800). The JAX package traces
+the walk into jitted XLA programs and takes the gradient with
+``jax.vjp``; here the walk runs eagerly, and each op's kernels launch
+asynchronously on the device's current stream. Inference runs under
+``torch.inference_mode()``. Training (``forward(is_train=True)``) runs
+under grad mode with the bound arguments that receive a gradient as
+autograd leaves, and ``backward`` takes ``torch.autograd.grad`` of the
+outputs (head gradients: the caller's, else ones, which a loss head
+ignores) and writes or adds each gradient into its bound array in place.
+Where XLA fuses an inference BatchNorm with its ReLU, the inference plan
+runs the pair as one pass of the epilogue kernel (``ops/epilogue.py``),
+on every device; the training plan does not fuse.
 """
 from __future__ import annotations
 
@@ -98,7 +103,8 @@ def _trace_graph(symbol, is_train):
 class Executor:
     """Bound computation on one device context."""
 
-    def __init__(self, symbol, ctx, args, aux_states=None):
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None):
         self._symbol = symbol
         self._ctx = as_context(ctx) if ctx is not None else current_context()
         self.arg_names = symbol.list_arguments()
@@ -107,37 +113,108 @@ class Executor:
         self.arg_dict = self._as_dict(args, self.arg_names, "args")
         self.aux_dict = self._as_dict(aux_states or {}, self.aux_names,
                                       "aux_states")
+        if isinstance(grad_req, str):
+            self.grad_req = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self.grad_req = {n: grad_req.get(n, "null")
+                             for n in self.arg_names}
+        for n, req in self.grad_req.items():
+            if req not in ("write", "add", "null"):
+                raise MXNetError("grad_req %r of '%s': use write, add or "
+                                 "null" % (req, n))
+        self.grad_dict = {} if args_grad is None else self._as_dict(
+            args_grad, self.arg_names, "args_grad", allow_missing=True)
         self.outputs = []
-        self._run = None
+        self._runs = {}     # is_train -> the plan's run function
+        self._tape = None   # (outputs with their graph, {name: leaf})
 
     @staticmethod
-    def _as_dict(vals, names, what):
+    def _as_dict(vals, names, what, allow_missing=False):
         out = dict(vals) if isinstance(vals, dict) else dict(zip(names, vals))
-        for n in names:
-            if n not in out:
-                raise MXNetError("%s: missing array for '%s'" % (what, n))
+        out = {k: v for k, v in out.items() if v is not None}
+        if not allow_missing:
+            for n in names:
+                if n not in out:
+                    raise MXNetError("%s: missing array for '%s'" % (what, n))
         return out
 
+    def _run(self, is_train):
+        run = self._runs.get(is_train)
+        if run is None:
+            run = self._runs[is_train] = _trace_graph(self._symbol, is_train)
+        return run
+
+    def _grad_names(self):
+        return [n for n in self.arg_names
+                if self.grad_req.get(n, "null") != "null"
+                and n in self.grad_dict]
+
     def forward(self, is_train=False, **kwargs):
-        """Run the graph; returns the list of output NDArrays."""
-        if is_train:
-            raise MXNetError("Executor.forward(is_train=True): training is "
-                             "not ported yet")
+        """Run the graph; returns the list of output NDArrays. With
+        ``is_train`` the run keeps its autograd graph for ``backward``."""
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 self.arg_dict[k][:] = v
-        if self._run is None:
-            self._run = _trace_graph(self._symbol, is_train=False)
         raw_args = {n: self.arg_dict[n]._data for n in self.arg_names}
         raw_aux = {n: self.aux_dict[n]._data for n in self.aux_names}
-        with torch.inference_mode():
-            outs = self._run(raw_args, raw_aux)
-        self.outputs = [NDArray(o, self._ctx) for o in outs]
+        self._tape = None
+        if not is_train:
+            with torch.inference_mode():
+                outs = self._run(False)(raw_args, raw_aux)
+            self.outputs = [NDArray(o, self._ctx) for o in outs]
+            return self.outputs
+        leaves = {}
+        for n in self._grad_names():
+            leaves[n] = raw_args[n] = raw_args[n].detach().requires_grad_()
+        with torch.enable_grad():
+            outs = self._run(True)(raw_args, raw_aux)
+        self._tape = (outs, leaves)
+        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         return self.outputs
+
+    def backward(self, out_grads=None):
+        """Gradients of the last training forward into ``grad_dict``:
+        written (``grad_req="write"``) or added (``"add"``) in place.
+        ``out_grads`` are the head gradients, one per output; without
+        them every head gets ones (a loss head ignores its own)."""
+        names = self._grad_names()
+        if not names:
+            return
+        if self._tape is None:
+            raise MXNetError("backward: call forward(is_train=True) first")
+        outs, leaves = self._tape
+        if out_grads is None:
+            heads = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, (NDArray, torch.Tensor)):
+                out_grads = [out_grads]
+            heads = [getattr(g, "_data", g).to(o.device, o.dtype)
+                     for g, o in zip(out_grads, outs)]
+        pairs = [(o, g) for o, g in zip(outs, heads) if o.requires_grad]
+        grads = [None] * len(names)
+        if pairs:
+            grads = torch.autograd.grad(
+                [o for o, _ in pairs], [leaves[n] for n in names],
+                [g for _, g in pairs], allow_unused=True)
+        self._tape = None
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                dst = self.grad_dict[n]._data
+                if g is None:
+                    if self.grad_req[n] == "write":
+                        dst.zero_()
+                elif self.grad_req[n] == "add":
+                    dst.add_(g.to(dst.dtype))
+                else:
+                    dst.copy_(g)
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self.arg_names]
 
     @property
     def fused_sites(self):
         """How many BatchNorm -> ReLU pairs run as one epilogue launch."""
-        if self._run is None:
-            self._run = _trace_graph(self._symbol, is_train=False)
-        return self._run.fused_sites
+        return self._run(False).fused_sites

@@ -1,0 +1,324 @@
+"""Evaluation metrics (parity: python/mxnet/metric.py).
+
+Counterpart of ``mxtpu/metric.py``: ``EvalMetric``, ``Accuracy``,
+``CrossEntropy``, ``Perplexity``, ``CompositeEvalMetric``,
+``create``/``register``, and ``DeviceMetricAccum`` (:471-600), which
+keeps a fit's partial sums on the device. A per-batch ``asnumpy()`` of
+the LM's output (B*T x vocab f32, 823 MB at B = 4, T = 1024) would make
+the device->host copy most of a training step; the accumulator instead
+folds each batch into one f32 scalar per metric with torch ops queued on
+the device, and ``sync`` brings all of them to the host in one copy at
+the fit's metric-sync cadence. Instance counts are shape arithmetic,
+kept on the host as exact integers.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as _np
+import torch
+
+from .base import MXNetError
+from .ndarray import NDArray
+
+__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "Perplexity",
+           "CompositeEvalMetric", "DeviceKernel", "DeviceMetricAccum",
+           "create", "register", "check_label_shapes"]
+
+_REG = {}
+_ALIASES = {"Accuracy": ("acc",), "CrossEntropy": ("ce", "cross-entropy"),
+            "CompositeEvalMetric": ("composite",)}
+
+
+def check_label_shapes(labels, preds, shape=0):
+    if shape == 0:
+        label_shape, pred_shape = len(labels), len(preds)
+    else:
+        label_shape, pred_shape = labels.shape, preds.shape
+    if label_shape != pred_shape:
+        raise ValueError("Shape of labels %s does not match shape of "
+                         "predictions %s" % (label_shape, pred_shape))
+
+
+def _host(x):
+    return x.asnumpy() if isinstance(x, NDArray) else _np.asarray(x)
+
+
+class EvalMetric:
+    def __init__(self, name, output_names=None, label_names=None, **kwargs):
+        self.name = name
+        self.output_names = output_names
+        self.label_names = label_names
+        self._kwargs = kwargs
+        self.reset()
+
+    def device_kernel(self):
+        """A ``DeviceKernel`` computing this metric's per-batch partial
+        sum in torch ops on the device, or None (numpy path only)."""
+        return None
+
+    def update(self, labels, preds):
+        raise NotImplementedError
+
+    def reset(self):
+        self.num_inst = 0
+        self.sum_metric = 0.0
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, self.sum_metric / self.num_inst)
+
+    def get_name_value(self):
+        name, value = self.get()
+        if not isinstance(name, list):
+            name = [name]
+        if not isinstance(value, list):
+            value = [value]
+        return list(zip(name, value))
+
+    def __str__(self):
+        return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+
+def register(klass):
+    _REG[klass.__name__.lower()] = klass
+    for alias in _ALIASES.get(klass.__name__, ()):
+        _REG[alias] = klass
+    return klass
+
+
+def create(metric, *args, **kwargs):
+    if isinstance(metric, EvalMetric):
+        return metric
+    if isinstance(metric, list):
+        composite = CompositeEvalMetric()
+        for child in metric:
+            composite.add(create(child, *args, **kwargs))
+        return composite
+    klass = _REG.get(str(metric).lower())
+    if klass is None:
+        raise MXNetError("unknown metric %r (have %s)" % (metric,
+                                                         sorted(_REG)))
+    return klass(*args, **kwargs)
+
+
+@register
+class CompositeEvalMetric(EvalMetric):
+    def __init__(self, metrics=None, name="composite", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.metrics = [create(m) for m in (metrics or [])]
+
+    def add(self, metric):
+        self.metrics.append(create(metric))
+
+    def get_metric(self, index):
+        return self.metrics[index]
+
+    def update(self, labels, preds):
+        for metric in self.metrics:
+            metric.update(labels, preds)
+
+    def reset(self):
+        for metric in getattr(self, "metrics", []):
+            metric.reset()
+        super().reset()
+
+    def get(self):
+        names, values = [], []
+        for metric in self.metrics:
+            name, value = metric.get()
+            if isinstance(name, str):
+                name = [name]
+            if isinstance(value, (float, int)):
+                value = [value]
+            names.extend(name)
+            values.extend(value)
+        return (names, values)
+
+
+@register
+class Accuracy(EvalMetric):
+    def __init__(self, axis=1, name="accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.axis = axis
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred_label in zip(labels, preds):
+            pred, lab = _host(pred_label), _host(label)
+            if pred.shape != lab.shape:
+                pred = _np.argmax(pred, axis=self.axis)
+            pred = pred.astype("int32").flatten()
+            lab = lab.astype("int32").flatten()
+            check_label_shapes(lab, pred, shape=1)
+            self.sum_metric += float((pred == lab).sum())
+            self.num_inst += len(pred)
+
+    def device_kernel(self):
+        axis = self.axis
+
+        def sum_fn(label, pred):
+            if pred.shape != label.shape:
+                pred = torch.argmax(pred, dim=axis)
+            pred = pred.to(torch.int32).reshape(-1)
+            lab = label.to(torch.int32).reshape(-1)
+            return (pred == lab).sum().to(torch.float32)
+
+        return DeviceKernel(sum_fn, lambda label, pred: label.numel())
+
+
+@register
+class Perplexity(EvalMetric):
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            probs = _host(pred)
+            lab = _host(label).astype("int32").reshape(-1)
+            probs = probs.reshape(-1, probs.shape[-1])
+            picked = probs[_np.arange(lab.shape[0]), lab]
+            if self.ignore_label is not None:
+                ignore = (lab == self.ignore_label)
+                num -= int(ignore.sum())
+                picked = _np.where(ignore, 1.0, picked)
+            loss -= float(_np.sum(_np.log(_np.maximum(1e-10, picked))))
+            num += lab.shape[0]
+        self.sum_metric += loss
+        self.num_inst += max(1, num)
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+@register
+class CrossEntropy(EvalMetric):
+    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _host(label).ravel(), _host(pred)
+            assert label.shape[0] == pred.shape[0]
+            prob = pred[_np.arange(label.shape[0]), _np.int64(label)]
+            self.sum_metric += float((-_np.log(prob + self.eps)).sum())
+            self.num_inst += label.shape[0]
+
+    def device_kernel(self):
+        eps = self.eps
+
+        def sum_fn(label, pred):
+            lab = label.reshape(-1).to(torch.int64)
+            prob = pred.gather(1, lab[:, None])[:, 0].to(torch.float32)
+            return torch.sum(-torch.log(prob + eps))
+
+        return DeviceKernel(sum_fn, lambda label, pred: label.numel())
+
+
+class DeviceKernel:
+    """One metric's device recipe: ``sum_fn(label, pred)`` returns the
+    batch's partial sum as a 0-d f32 tensor on the pred's device (queued,
+    not waited for); ``count_fn(label, pred)`` the matching instance
+    count, from shapes, on the host."""
+
+    __slots__ = ("sum_fn", "count_fn")
+
+    def __init__(self, sum_fn, count_fn):
+        self.sum_fn = sum_fn
+        self.count_fn = count_fn
+
+
+def _flatten_metrics(metric):
+    if isinstance(metric, CompositeEvalMetric):
+        out = []
+        for child in metric.metrics:
+            out.extend(_flatten_metrics(child))
+        return out
+    return [metric]
+
+
+class DeviceMetricAccum:
+    """Device-resident accumulator over an EvalMetric (or composite).
+
+    ``update`` folds a batch's (labels, outputs) into per-metric f32
+    scalars on the device and never waits for it; ``sync`` (at the fit's
+    metric-sync cadence and at epoch end) copies all of them to the host
+    in one transfer, adds them to the wrapped metrics' ``sum_metric`` /
+    ``num_inst`` and zeroes the device sums. ``last_snapshot`` holds the
+    name/value pairs of the latest sync for callbacks (Speedometer)."""
+
+    def __init__(self, metric, children, kernels):
+        self.metric = metric
+        self.children = children
+        self.kernels = kernels
+        self.last_snapshot = None
+        self.syncs = 0  # host transfers made, for tests and reports
+        self._zero()
+
+    @classmethod
+    def wrap(cls, metric):
+        """An accumulator for ``metric``, or None when a component has no
+        device kernel (it then stays on the numpy path)."""
+        if not isinstance(metric, EvalMetric):
+            return None
+        children = _flatten_metrics(metric)
+        kernels = [c.device_kernel() for c in children]
+        if not children or any(k is None for k in kernels):
+            return None
+        return cls(metric, children, kernels)
+
+    def _zero(self):
+        self._sums = [None] * len(self.children)
+        self._counts = [0] * len(self.children)
+        self._pending = False
+
+    def reset(self):
+        self._zero()
+        self.last_snapshot = None
+
+    def update(self, labels, preds):
+        """Fold one batch in; ``labels``/``preds`` are tensors or
+        NDArrays on one device. Nothing is copied to the host."""
+        labels = [getattr(x, "_data", x) for x in (labels or [])]
+        preds = [getattr(x, "_data", x) for x in (preds or [])]
+        check_label_shapes(labels, preds)
+        with torch.no_grad():
+            for i, k in enumerate(self.kernels):
+                for lab, p in zip(labels, preds):
+                    part = k.sum_fn(lab.to(p.device, non_blocking=True), p)
+                    self._sums[i] = part if self._sums[i] is None \
+                        else self._sums[i] + part
+                    self._counts[i] += int(k.count_fn(lab, p))
+        self._pending = True
+
+    def sync(self):
+        """The one host round trip: fold the device sums into the wrapped
+        metrics and refresh ``last_snapshot``; returns it."""
+        if self._pending:
+            live = [(c, s, n) for c, s, n in zip(self.children, self._sums,
+                                                 self._counts)
+                    if s is not None]
+            if live:
+                vals = torch.stack([s.to(torch.float64)
+                                    for _, s, _ in live]).cpu().tolist()
+                self.syncs += 1
+                for (child, _, n), v in zip(live, vals):
+                    child.sum_metric += float(v)
+                    child.num_inst += n
+            self._zero()
+        self.last_snapshot = self.metric.get_name_value()
+        return self.last_snapshot

@@ -1,0 +1,232 @@
+"""BaseModule: the training loop (parity: python/mxnet/module/
+base_module.py — fit :376-525, score).
+
+Counterpart of ``mxtpu/module/base_module.py:131-``: ``fit`` binds,
+initializes, arms the optimizer and loops over the epochs with
+``forward_backward`` + ``update``, the eval metric accumulating on the
+device (``metric.DeviceMetricAccum``) and reaching the host only at the
+metric-sync cadence, and at most ``max_in_flight`` steps queued on the
+device ahead of the host. The knobs of mxtpu's fit that the port does not
+have yet (a kvstore other than local, ``mesh``, ``elastic``, ``resume``,
+``tuned``, ``health``, ``monitor``, ``device_prefetch``) raise
+MXNetError when set, rather than being ignored.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from collections import deque
+from functools import reduce
+from math import gcd
+
+import torch
+
+from .. import callback as _cb
+from .. import metric as _metric
+from ..base import MXNetError
+from ..initializer import Uniform
+
+__all__ = ["BaseModule", "BatchEndParam"]
+
+
+class BatchEndParam:
+    """What a batch-end callback receives."""
+
+    def __init__(self, epoch, nbatch, eval_metric, locals=None):
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.eval_metric = eval_metric
+        self.locals = locals
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return list(obj) if isinstance(obj, (list, tuple)) else [obj]
+
+
+_UNPORTED_FIT = ("mesh", "elastic", "resume", "tuned", "health", "monitor",
+                 "device_prefetch")
+
+
+def refuse_unported(kvstore="local", **knobs):
+    """Raise MXNetError for a knob of mxtpu's fit the port lacks."""
+    if kvstore not in (None, "local", "device"):
+        raise MXNetError("kvstore %r is not ported yet; the port trains on "
+                         "one device ('local')" % (kvstore,))
+    for name in _UNPORTED_FIT:
+        if knobs.get(name) not in (None, False):
+            raise MXNetError("fit(%s=...) is not ported yet" % name)
+
+
+def _metric_sync(callbacks):
+    """The metric-sync cadence in batches: the gcd of the Speedometers'
+    ``frequent`` (every window boundary is a sync); 1 when another batch
+    callback may read live values; 0 (epoch end only) with none."""
+    if any(not isinstance(c, _cb.Speedometer) for c in callbacks):
+        return 1
+    freqs = [c.frequent for c in callbacks]
+    return reduce(gcd, freqs) if freqs else 0
+
+
+class _Pacer:
+    """Keeps at most ``limit`` training steps queued on the device: one
+    CUDA event per step, waiting on the oldest when the window is full.
+    On the CPU a step is done when it returns, so nothing is kept."""
+
+    def __init__(self, limit, device):
+        self.limit = max(1, int(limit))
+        self.cuda = device.type == "cuda"
+        self._events = deque()
+
+    def step_done(self):
+        if not self.cuda:
+            return
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events.append(ev)
+        while len(self._events) > self.limit:
+            self._events.popleft().synchronize()
+
+    def clear(self):
+        self._events.clear()
+
+
+class BaseModule:
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, reset=True, epoch=0):
+        """Evaluate over ``eval_data``; returns the metric's name/value
+        pairs."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            for callback in _as_list(batch_end_callback):
+                callback(BatchEndParam(epoch, nbatch, eval_metric, locals()))
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, max_in_flight=2, metric_sync=None,
+            device_metrics=True, device_prefetch=None, mesh=None,
+            elastic=None, resume=None, tuned=None, health=None):
+        """Train for ``num_epoch`` epochs (parity base_module.py:376-525).
+
+        ``max_in_flight``: at most this many steps queued on the device
+        ahead of the host. ``metric_sync``: device->host metric sync every
+        this many batches (None derives it from the batch callbacks:
+        the Speedometers' ``frequent``, 1 with any other callback, else
+        epoch end only). ``device_metrics``: accumulate the eval metric on
+        the device (metrics without a device kernel stay on the numpy
+        path)."""
+        refuse_unported(kvstore, mesh=mesh, elastic=elastic, resume=resume,
+                        tuned=tuned, health=health, monitor=monitor,
+                        device_prefetch=device_prefetch)
+        if num_epoch is None:
+            raise MXNetError("fit: please specify num_epoch")
+        initializer = initializer or Uniform(0.01)
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        eval_metric = _metric.create(eval_metric)
+        accum = _metric.DeviceMetricAccum.wrap(eval_metric) \
+            if device_metrics else None
+        eval_metric._device_accum = accum
+        callbacks = _as_list(batch_end_callback)
+        if metric_sync is None:
+            metric_sync = _metric_sync(callbacks)
+        metric_sync = max(0, int(metric_sync))
+        pacer = _Pacer(max_in_flight, self._device)
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                if accum is not None:
+                    accum.reset()
+                data_iter = iter(train_data)
+                nbatch = 0
+                data_batch = next(data_iter, None)
+                while data_batch is not None:
+                    self.forward_backward(data_batch)
+                    self.update()
+                    next_batch = next(data_iter, None)
+                    if accum is not None:
+                        labels, outs = self._step_view(data_batch)
+                        accum.update(labels, outs)
+                        pacer.step_done()
+                    else:
+                        self.update_metric(eval_metric, data_batch.label)
+                    last = next_batch is None
+                    if accum is not None and (
+                            last or metric_sync == 1 or
+                            (metric_sync and nbatch and
+                             nbatch % metric_sync == 0)):
+                        accum.sync()
+                        if last:
+                            pacer.clear()
+                    for callback in callbacks:
+                        callback(BatchEndParam(epoch, nbatch, eval_metric,
+                                               locals()))
+                    nbatch += 1
+                    data_batch = next_batch
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - tic)
+                epoch_cbs = _as_list(epoch_end_callback)
+                if epoch_cbs:
+                    arg_params, aux_params = self.get_params()
+                    for callback in epoch_cbs:
+                        callback(epoch, self.symbol, arg_params, aux_params)
+                if eval_data:
+                    if accum is not None:
+                        accum.last_snapshot = None
+                    res = self.score(eval_data, validation_metric,
+                                     batch_end_callback=(
+                                         eval_batch_end_callback),
+                                     epoch=epoch)
+                    for callback in _as_list(eval_end_callback):
+                        callback(BatchEndParam(epoch, 0, validation_metric,
+                                               locals()))
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                         name, val)
+                train_data.reset()
+        finally:
+            eval_metric._device_accum = None

@@ -1,0 +1,156 @@
+"""The fused update rules of Module's train step.
+
+Counterpart of ``mxtpu/module/fused.py``: the update rules ``_rule_sgd``,
+``_rule_nag``, ``_rule_adam``, ``_rule_rmsprop``, ``_rule_adagrad``
+(:64-165) and ``FusedTrainStep``, without its sharding, health taps,
+rematerialization or update groups. The JAX package traces forward,
+backward and the update of every parameter into one donated XLA program
+(``step`` :634-718, :794-864). Eagerly there is no program to fuse them
+into: the forward and backward are the executor's, and what is left here
+is the update, every parameter's rule in one call with f32 state. The
+rules call the optimizer's update functions, so they round as the
+Updater does. Per-parameter lr and wd come from the optimizer's own
+``_get_lr``/``_get_wd`` each step, with Adam's bias correction folded
+into lr as its ``update`` folds it.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import optimizer as opt
+
+__all__ = ["FusedTrainStep", "supports"]
+
+
+def _f32_zeros(w):
+    return torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+
+
+def _rule_sgd(o):
+    mom = float(getattr(o, "momentum", 0.0) or 0.0)
+    clip = o.clip_gradient or -1.0
+
+    def init(w):
+        return _f32_zeros(w) if mom else None
+
+    def apply(p, g, s, lr, wd):
+        if mom:
+            opt.sgd_mom_update_(p, g, s, lr, wd, o.rescale_grad, clip, mom)
+        else:
+            opt.sgd_update_(p, g, lr, wd, o.rescale_grad, clip)
+
+    return init, apply, None
+
+
+def _rule_nag(o):
+    mom = float(getattr(o, "momentum", 0.0) or 0.0)
+
+    def init(w):
+        return _f32_zeros(w) if mom else None
+
+    def apply(p, g, s, lr, wd):
+        opt.nag_update_(p, g, s, lr, wd, o.rescale_grad, o.clip_gradient,
+                        mom)
+
+    return init, apply, None
+
+
+def _rule_adam(o):
+    clip = o.clip_gradient or -1.0
+
+    def init(w):
+        return (_f32_zeros(w), _f32_zeros(w))
+
+    def apply(p, g, s, lr, wd):
+        opt.adam_update_(p, g, s[0], s[1], lr, wd, o.rescale_grad, clip,
+                         o.beta1, o.beta2, o.epsilon)
+
+    return init, apply, o.lr_scale
+
+
+def _rule_rmsprop(o):
+    clip = o.clip_gradient or -1.0
+    clip_w = getattr(o, "clip_weights", None) or -1.0
+    centered = bool(getattr(o, "centered", False))
+
+    def init(w):
+        return tuple(_f32_zeros(w) for _ in range(3 if centered else 1))
+
+    def apply(p, g, s, lr, wd):
+        if centered:
+            opt.rmspropalex_update_(p, g, *s, lr, wd, o.rescale_grad, clip,
+                                    o.gamma1, o.gamma2, o.epsilon, clip_w)
+        else:
+            opt.rmsprop_update_(p, g, s[0], lr, wd, o.rescale_grad, clip,
+                                o.gamma1, o.epsilon, clip_w)
+
+    return init, apply, None
+
+
+def _rule_adagrad(o):
+    def init(w):
+        return _f32_zeros(w)
+
+    def apply(p, g, s, lr, wd):
+        opt.adagrad_update_(p, g, s, lr, wd, o.rescale_grad,
+                            o.clip_gradient, o.float_stable_eps)
+
+    return init, apply, None
+
+
+_RULES = {"SGD": _rule_sgd, "NAG": _rule_nag, "Adam": _rule_adam,
+          "RMSProp": _rule_rmsprop, "AdaGrad": _rule_adagrad}
+
+
+def supports(optimizer):
+    """Whether a fused-step update rule exists for this optimizer."""
+    return type(optimizer).__name__ in _RULES
+
+
+class FusedTrainStep:
+    """The optimizer update of every trainable parameter in one call, by
+    the rules above, over a bound executor's arrays.
+
+    ``executor`` has run ``forward(is_train=True)`` and ``backward()``;
+    ``update`` applies each trainable parameter's rule in place, under
+    ``no_grad``, to the tensor the executor reads, from the gradient in
+    its grad array. The trainable parameters are those of
+    ``param_names`` that the executor gives a gradient (grad_req not
+    "null"). ``opt_state`` holds each one's f32 rule state in the
+    structure of the optimizer's ``create_state``. The parameter and
+    gradient tensors are held, so a reshaped executor that keeps its
+    arrays (``Module.reshape``) is updated by the same step."""
+
+    def __init__(self, executor, param_names, optimizer):
+        self.trainable = [n for n in param_names
+                          if executor.grad_req.get(n, "null") != "null"
+                          and n in executor.grad_dict]
+        self.params = {n: executor.arg_dict[n]._data for n in self.trainable}
+        self.grads = {n: executor.grad_dict[n]._data for n in self.trainable}
+        self.optimizer = optimizer
+        init, self._apply, self._lr_scale = \
+            _RULES[type(optimizer).__name__](optimizer)
+        self.opt_state = {n: init(self.params[n]) for n in self.trainable}
+        # the optimizer's index scheme (Module's idx2name), fresh indices
+        # for names it has not seen
+        name2idx = {}
+        for idx in sorted(optimizer.idx2name):
+            name2idx.setdefault(optimizer.idx2name[idx], idx)
+        nxt = max(optimizer.idx2name, default=-1) + 1
+        for n in self.trainable:
+            if n not in name2idx:
+                optimizer.idx2name[nxt] = name2idx[n] = nxt
+                nxt += 1
+        self._name_idx = [name2idx[n] for n in self.trainable]
+
+    def update(self):
+        """Apply one update to every trainable parameter."""
+        o = self.optimizer
+        with torch.no_grad():
+            for n, idx in zip(self.trainable, self._name_idx):
+                o._update_count(idx)
+                lr = o._get_lr(idx)
+                if self._lr_scale is not None:
+                    lr *= self._lr_scale(o._index_update_count[idx])
+                self._apply(self.params[n], self.grads[n],
+                            self.opt_state[n], lr, o._get_wd(idx))

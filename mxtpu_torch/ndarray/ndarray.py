@@ -1,10 +1,12 @@
-"""NDArray over torch.Tensor (the subset the serving path uses).
+"""NDArray over torch.Tensor (the subset serving and Module use).
 
 Counterpart of ``mxtpu/ndarray/ndarray.py``: ``NDArray`` with ``shape``,
-``dtype``, ``asnumpy``, ``as_in_context`` and in-place ``__setitem__``,
-and the ``array`` / ``zeros`` constructors. ``dtype`` is the torch dtype
-(bfloat16 has no numpy counterpart); ``asnumpy`` returns bfloat16 data
-as float32.
+``dtype``, ``asnumpy``, ``as_in_context``, ``copyto`` and in-place
+``__setitem__`` (an array, or a scalar filling it), and the ``array`` /
+``zeros`` constructors. ``dtype`` is the torch dtype (bfloat16 has no
+numpy counterpart); ``asnumpy`` returns bfloat16 data as float32. The
+optimizers update the tensors behind NDArrays in place
+(``optimizer.py``), so no NDArray arithmetic is needed yet.
 """
 from __future__ import annotations
 
@@ -55,7 +57,22 @@ class NDArray:
             return self
         return NDArray(self._data.to(ctx.torch_device), ctx)
 
+    def copyto(self, other):
+        """Copy into the NDArray ``other`` (in place) or onto the Context
+        ``other`` (a new NDArray); returns the destination."""
+        if isinstance(other, NDArray):
+            other._data.copy_(self._data.reshape(other._data.shape))
+            return other
+        ctx = as_context(other)
+        return NDArray(self._data.to(ctx.torch_device, copy=True), ctx)
+
     def __setitem__(self, key, value):
+        if isinstance(value, (int, float)):
+            if isinstance(key, slice) and key == slice(None):
+                self._data.fill_(value)
+            else:
+                self._data[key] = value
+            return
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, torch.Tensor):

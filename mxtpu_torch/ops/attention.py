@@ -15,8 +15,17 @@ the output's shape. ``flash_attention.launches`` counts kernel launches.
 
 ``block_q``/``block_k`` were the TPU kernel's tiling. They are accepted
 and recorded on the op for graph compatibility, but they do not choose
-the CUDA tiling and the result does not depend on them. Only the forward
-is here; the backward arrives with training.
+the CUDA tiling and the result does not depend on them.
+
+The gradient is ``FlashAttentionFunction``, the counterpart of the
+``jax.custom_vjp`` around ``_flash3``: its forward keeps q, k, v, the
+output and the row log-sum-exp (natural log; +inf for a row with no live
+key), and its backward is the CUDA kernel ``csrc/flash_attn_bwd.cu`` on
+the card or ``flash_attention_backward_reference`` on the CPU, both the
+standard recompute from the log-sum-exp, never a T x S matrix.
+``flash_attention_backward.launches`` counts backward kernel calls. A
+call with no gradient to keep (inference) runs the forward alone and
+asks the kernel for no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -28,10 +37,15 @@ import torch
 from ..base import MXNetError
 from .registry import register
 
-__all__ = ["flash_attention", "flash_attention_reference", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "FlashAttentionFunction", "NEG_INF"]
 
 NEG_INF = -1e30
 KERNEL = "flash_attn_fwd"
+BWD_KERNEL = "flash_attn_bwd"
+_ERROR_STRING = {KERNEL: "flash_attn_error_string",
+                 BWD_KERNEL: "flash_attn_bwd_error_string"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
@@ -40,27 +54,36 @@ def _scale(d, sm_scale):
     return float(sm_scale) if sm_scale is not None else 1.0 / (d ** 0.5)
 
 
-def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
+def _acc_dtype(q):
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
+                              return_lse=False):
     """Plain PyTorch online-softmax attention, (B, H, T, D) layout.
 
     The arithmetic of the kernel and of mxtpu's ``_streaming``: scores in
     f32, causal mask ``col <= row`` aligned top-left, running max and
     normaliser in f32, ``p`` rounded to ``v.dtype`` before ``p.v`` with an
     f32 accumulator, and ``acc / l`` with ``l == 0 -> 1``. The kv chunk
-    of the loop (128) changes rounding only."""
+    of the loop (128) changes rounding only. With ``return_lse`` it also
+    returns the rows' log-sum-exp ``m + log(l)`` (B, H, T) in f32, +inf
+    where ``l == 0``. float64 inputs are computed in float64 throughout
+    (for gradcheck)."""
     block = 128
     t = q.shape[2]
     s_len = k.shape[2]
     scale = _scale(q.shape[-1], sm_scale)
-    qf = q.to(torch.float32)
-    m = torch.full(q.shape[:3] + (1,), float("-inf"), dtype=torch.float32,
+    f32 = _acc_dtype(q)
+    qf = q.to(f32)
+    m = torch.full(q.shape[:3] + (1,), float("-inf"), dtype=f32,
                    device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(q.shape, dtype=f32, device=q.device)
     rows = torch.arange(t, device=q.device)[:, None]
     stop = min(s_len, t) if causal else s_len
     for k0 in range(0, stop, block):
-        kc = k[:, :, k0:k0 + block].to(torch.float32)
+        kc = k[:, :, k0:k0 + block].to(f32)
         vc = v[:, :, k0:k0 + block]
         s = torch.matmul(qf, kc.transpose(-1, -2)) * scale
         if causal:
@@ -71,10 +94,52 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
         p = torch.exp(s - m_use)
         alpha = torch.exp(m - m_use)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).to(torch.float32),
-                                         vc.to(torch.float32))
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).to(f32), vc.to(f32))
         m = m_new
-    return (acc / torch.where(l == 0, 1.0, l)).to(q.dtype)
+    out = (acc / torch.where(l == 0, 1.0, l)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0, float("inf"), m + torch.log(l))
+    return out, lse.squeeze(-1)
+
+
+def flash_attention_backward_reference(q, k, v, out, dout, lse,
+                                       causal=False, sm_scale=None):
+    """Plain PyTorch gradient of ``flash_attention`` (dq, dk, dv), by the
+    recompute the kernel does: ``P = exp(S - lse)``, ``delta =
+    rowsum(dO * O)``, ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP -
+    delta)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``, with the
+    forward's masks. It streams over kv chunks of 128, so it holds
+    O(T x chunk) scores at a time, in f32 (float64 for float64 inputs);
+    the gradients come back in the inputs' dtypes. ``lse`` is the
+    forward's (B, H, T) log-sum-exp."""
+    block = 128
+    t = q.shape[2]
+    s_len = k.shape[2]
+    scale = _scale(q.shape[-1], sm_scale)
+    f32 = _acc_dtype(q)
+    qf = q.to(f32)
+    gf = dout.to(f32)
+    delta = (gf * out.to(f32)).sum(dim=-1, keepdim=True)
+    lse_ = lse.to(f32).unsqueeze(-1)
+    dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=q.device)
+    rows = torch.arange(t, device=q.device)[:, None]
+    stop = min(s_len, t) if causal else s_len
+    for k0 in range(0, stop, block):
+        kc = k[:, :, k0:k0 + block].to(f32)
+        vc = v[:, :, k0:k0 + block].to(f32)
+        p = torch.exp(torch.matmul(qf, kc.transpose(-1, -2)) * scale - lse_)
+        if causal:
+            cols = torch.arange(k0, k0 + kc.shape[2], device=q.device)
+            p = p.masked_fill(cols[None, :] > rows, 0.0)
+        dv[:, :, k0:k0 + block] = torch.matmul(p.transpose(-1, -2), gf)
+        ds = p * (torch.matmul(gf, vc.transpose(-1, -2)) - delta)
+        dq += torch.matmul(ds, kc)
+        dk[:, :, k0:k0 + block] = torch.matmul(ds.transpose(-1, -2), qf)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
 
 
 def check_kernel_inputs(q, k, v):
@@ -109,57 +174,152 @@ def check_kernel_inputs(q, k, v):
 
 
 _kernel_lock = threading.Lock()
-_kernel_fn = None
+_kernel_fns = {}
 
 
-def _kernel():
-    global _kernel_fn
+def _kernel(name=KERNEL):
+    """(launcher, error_string) of kernel library ``name``, built and
+    bound on first use."""
     with _kernel_lock:
-        if _kernel_fn is None:
+        if name not in _kernel_fns:
             from .. import build
-            lib = build.load(KERNEL)
-            fn = lib.flash_attn_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            lib = build.load(name)
+            fn = getattr(lib, name)
+            n_ptr = 5 if name == KERNEL else 10
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            err = lib.flash_attn_error_string
+            err = getattr(lib, _ERROR_STRING[name])
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _kernel_fn = (fn, err)
-        return _kernel_fn
+            _kernel_fns[name] = (fn, err)
+        return _kernel_fns[name]
 
 
-def _flash_cuda(q, k, v, causal, scale):
+def _raise_on(rc, name, err):
+    if rc != 0:
+        raise MXNetError("%s launch failed: %s (cuda error %d)"
+                         % (name, err(rc).decode(), rc))
+
+
+def _flash_cuda(q, k, v, causal, scale, want_lse=False):
     check_kernel_inputs(q, k, v)
     fn, err = _kernel()
     b, h, t, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
+        if want_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b * h, t, k.shape[2], d, scale, int(bool(causal)),
-                _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise MXNetError("flash_attn_fwd launch failed: %s (cuda error %d)"
-                         % (err(rc).decode(), rc))
+                lse.data_ptr() if want_lse else None, b * h, t, k.shape[2],
+                d, scale, int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
+    _raise_on(rc, KERNEL, err)
     with _kernel_lock:
         flash_attention.launches += 1
-    return out
+    return (out, lse) if want_lse else out
+
+
+def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
+    check_kernel_inputs(q, k, v)
+    for name, x, like in (("out", out, q), ("dout", dout, q)):
+        if x.shape != like.shape or x.dtype != like.dtype or \
+                not x.is_contiguous() or x.device != q.device:
+            raise MXNetError("flash_attention_backward kernel: %s must be a "
+                             "contiguous %s %s on %s" % (
+                                 name, like.dtype, tuple(like.shape),
+                                 q.device))
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise MXNetError("flash_attention_backward kernel: lse must be a "
+                         "contiguous float32 %s on %s"
+                         % (tuple(q.shape[:3]), q.device))
+    fn, err = _kernel(BWD_KERNEL)
+    b, h, t, d = q.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t,
+                k.shape[2], d, scale, int(bool(causal)),
+                _DTYPE_CODES[q.dtype], stream)
+    _raise_on(rc, BWD_KERNEL, err)
+    with _kernel_lock:
+        flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+def _flash_forward(q, k, v, causal, scale, want_lse=False):
+    """The forward by device: plain on the CPU, an empty result of the
+    output's shape on meta tensors, the kernel on CUDA (or a raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         sm_scale=scale,
+                                         return_lse=want_lse)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        if want_lse:
+            return out, torch.empty(q.shape[:3], dtype=torch.float32,
+                                    device="meta")
+        return out
+    return _flash_cuda(q, k, v, causal, scale, want_lse=want_lse)
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, causal=False,
+                             sm_scale=None):
+    """(dq, dk, dv) of ``flash_attention`` from its output and row
+    log-sum-exp, dispatched by device like the forward: the plain version
+    on the CPU, the kernel on CUDA (or a raise), empty results on meta."""
+    scale = _scale(q.shape[-1], sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, dout, lse, causal=causal, sm_scale=scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    return _flash_bwd_cuda(q, k, v, out, dout.contiguous(), lse, causal,
+                           scale)
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its gradient: the forward keeps q, k, v, the
+    output and the log-sum-exp; the backward recomputes from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _flash_forward(q, k, v, causal, scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse,
+                                              causal=ctx.causal,
+                                              sm_scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=512,
                     block_k=1024):
     """Multi-head attention, (B, H, T, D) layout. ``block_q``/``block_k``
     are accepted for compatibility with the TPU op and do not change the
-    tiling or the result."""
+    tiling or the result. Under autograd, with an input that needs a
+    gradient, the call records ``FlashAttentionFunction``."""
     del block_q, block_k
     scale = _scale(q.shape[-1], sm_scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal,
-                                         sm_scale=scale)
-    if q.device.type == "meta":
-        return torch.empty_like(q)
-    return _flash_cuda(q, k, v, causal, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, bool(causal), scale)
+    return _flash_forward(q, k, v, causal, scale)
 
 
 flash_attention.launches = 0

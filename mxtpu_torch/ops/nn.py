@@ -4,11 +4,12 @@ zoo.
 Counterpart of the matching entries of ``mxtpu/ops/nn.py``:
 ``FullyConnected`` (:37), ``Convolution`` (:83), ``Pooling`` (:193),
 ``BatchNorm`` (:235, inference only: batch statistics and the aux
-writeback arrive with training), ``LayerNorm`` (:274), ``Activation``
-(:295), ``SoftmaxOutput`` (:382, forward only: the loss head's custom
-gradient arrives with training), ``Dropout`` (:492) and ``Concat``
-(:543). Matrix products and convolutions go to ``torch.nn.functional``
-(cuBLAS, cuDNN), as the JAX package leaves them to XLA.
+writeback arrive with its training slice), ``LayerNorm`` (:274),
+``Activation`` (:295), ``SoftmaxOutput`` (:382, with the loss head's own
+gradient, :357-377), ``Dropout`` (:484, drawing its mask from
+``random.generator``) and ``Concat`` (:543). Matrix products and
+convolutions go to ``torch.nn.functional`` (cuBLAS, cuDNN), as the JAX
+package leaves them to XLA; their gradients are torch's autograd.
 
 ``bn_relu_inference`` is what the executor runs for an inference
 ``BatchNorm -> Activation(relu)`` pair: the BN statistics folded into a
@@ -59,10 +60,10 @@ def _layer_norm(a, data, gamma, beta):
     """Normalize over one axis with learned scale/shift. The statistics
     are the JAX package's: f32 sum and sum of squares, and the variance
     E[x^2]-E[x]^2 clamped at 0 (mxtpu/ops/nn.py:254-262), so the two
-    packages round alike."""
+    packages round alike (float64 inputs stay in float64)."""
     ax = int(a.axis) % data.ndim
     n = data.shape[ax]
-    x32 = data.to(torch.float32)
+    x32 = data.to(torch.promote_types(data.dtype, torch.float32))
     s1 = torch.sum(x32, dim=ax, keepdim=True)
     s2 = torch.sum(torch.square(x32), dim=ax, keepdim=True)
     mean = s1 / n
@@ -70,8 +71,8 @@ def _layer_norm(a, data, gamma, beta):
     inv = torch.rsqrt(var + a.eps)
     bshape = tuple(data.shape[ax] if i == ax else 1
                    for i in range(data.ndim))
-    out32 = (x32 - mean) * inv * gamma.to(torch.float32).reshape(bshape) \
-        + beta.to(torch.float32).reshape(bshape)
+    out32 = (x32 - mean) * inv * gamma.to(x32.dtype).reshape(bshape) \
+        + beta.to(x32.dtype).reshape(bshape)
     out = out32.to(data.dtype)
     if a.output_mean_var:
         return (out, mean.squeeze(ax).to(data.dtype),
@@ -110,15 +111,70 @@ register("Activation", _activation, attrs={"act_type": Required(str)})
 
 
 # ---------------------------------------------------------------- SoftmaxOutput
-def _softmax_output(a, data, label):
-    """Forward of the loss head: softmax; the label is not read."""
-    del label
+def _softmax_fwd(a, data):
     if a.multi_output:
         return torch.softmax(data, dim=1)
     if data.ndim > 2 and not a.preserve_shape:
         return torch.softmax(data.reshape(data.shape[0], -1),
                              dim=-1).reshape(data.shape)
     return torch.softmax(data, dim=-1)
+
+
+def softmax_output_grad(a, p, label):
+    """The loss head's gradient (mxtpu/ops/nn.py:357-377, the reference's
+    softmax_output-inl.h): ``(p - onehot(label)) * grad_scale``; a label of
+    p's shape is the target itself; ``use_ignore`` gives rows labelled
+    ``ignore_label`` a zero gradient; ``normalization`` "batch" divides by
+    the batch, "valid" by the count of rows not ignored (at least 1)."""
+    axis = 1 if a.multi_output else p.ndim - 1
+    if label.shape == p.shape:
+        target = label.to(p.dtype)
+        valid = torch.ones(label.shape[:1], dtype=p.dtype, device=p.device)
+    else:
+        idx = label.to(torch.int64)
+        classes = torch.arange(p.shape[axis], device=p.device).reshape(
+            (-1,) + (1,) * (p.ndim - 1 - axis))
+        # an out-of-range id (the ignore label) is an all-zero row, as
+        # jax.nn.one_hot gives
+        target = (idx.unsqueeze(axis) == classes).to(p.dtype)
+        if a.use_ignore:
+            mask = idx != int(a.ignore_label)
+            target = torch.where(mask.unsqueeze(axis), target, p)
+            valid = mask.to(p.dtype)
+        else:
+            valid = torch.ones(idx.shape, dtype=p.dtype, device=p.device)
+    grad = (p - target) * a.grad_scale
+    if a.normalization == "batch":
+        grad = grad / p.shape[0]
+    elif a.normalization == "valid":
+        grad = grad / torch.clamp(valid.sum(), min=1.0)
+    return grad.to(p.dtype)
+
+
+class SoftmaxOutputFunction(torch.autograd.Function):
+    """softmax forward; the backward is ``softmax_output_grad`` and
+    ignores the incoming head gradient, as a loss head does."""
+
+    @staticmethod
+    def forward(ctx, data, label, a):
+        p = _softmax_fwd(a, data)
+        ctx.save_for_backward(p, label)
+        ctx.attrs = a
+        return p
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        del grad_out
+        p, label = ctx.saved_tensors
+        return softmax_output_grad(ctx.attrs, p, label), None, None
+
+
+def _softmax_output(a, data, label):
+    """The loss head: softmax forward; under autograd, the gradient of
+    ``softmax_output_grad``. The label is read only by the backward."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return SoftmaxOutputFunction.apply(data, label, a)
+    return _softmax_fwd(a, data)
 
 
 def _label_like_batch(a, shapes):
@@ -136,18 +192,26 @@ register("SoftmaxOutput", _softmax_output,
                 "multi_output": False, "use_ignore": False,
                 "preserve_shape": False, "normalization": "null",
                 "out_grad": False, "smooth_alpha": 0.0},
-         aliases=("Softmax",), infer_args=_label_like_batch)
+         loss_like=True, aliases=("Softmax",), infer_args=_label_like_batch)
 
 
 # ---------------------------------------------------------------- Dropout
-def _dropout(a, x):
+def _dropout(a, gen, x):
+    """Inverted dropout in training: keep each element with probability
+    ``1 - p`` and scale the kept ones by ``1 / (1 - p)``. The mask is drawn
+    from the device's generator (``random.generator``), so runs repeat
+    under ``random.seed``; at inference, or with p <= 0, the identity."""
     if not a.get("__is_train__", False) or a.p <= 0:
         return x
-    raise MXNetError("Dropout in training mode is not ported yet; the port "
-                     "runs inference only")
+    if gen is None:  # meta tensors: shape inference
+        return torch.empty_like(x)
+    keep = 1.0 - a.p
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return x * ((u < keep).to(x.dtype) / keep)
 
 
-register("Dropout", _dropout, attrs={"p": 0.5, "__is_train__": False})
+register("Dropout", _dropout, attrs={"p": 0.5, "__is_train__": False},
+         needs_rng=True)
 
 
 # ---------------------------------------------------------------- Convolution

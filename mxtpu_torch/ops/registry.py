@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import random as _random
 from ..base import MXNetError, parse_attr
 
 __all__ = ["OpDef", "register", "get_op", "op_exists", "list_ops",
@@ -61,11 +62,17 @@ class OpDef:
     from the data shape (weights, biases, norm scales, labels).
     ``variadic`` names the attr holding the input count (``num_args``);
     the tensor inputs are then ``arg0 .. argN``.
+    ``needs_rng``: the op draws random numbers; ``fn`` is then
+    ``fn(attrs, generator, *inputs)`` with the ``torch.Generator`` of the
+    inputs' device (``random.generator``), or None on meta tensors.
+    ``loss_like``: the output is a loss head whose gradient ignores the
+    incoming head gradient (SoftmaxOutput); ``fn`` encodes that in its
+    autograd.Function, and a backward with no head gradients feeds ones.
     """
 
     def __init__(self, name, fn, arg_names=("data",), attrs=None,
                  num_outputs=1, aliases=(), aux_names=(), infer_args=None,
-                 variadic=None, doc=None):
+                 variadic=None, needs_rng=False, loss_like=False, doc=None):
         self.name = name
         self.fn = fn
         self.arg_names = arg_names if callable(arg_names) else list(arg_names)
@@ -75,6 +82,8 @@ class OpDef:
         self.aux_names = list(aux_names)
         self.infer_args = infer_args
         self.variadic = variadic
+        self.needs_rng = needs_rng
+        self.loss_like = loss_like
         self.doc = doc or (fn.__doc__ or "")
 
     def parse_attrs(self, kwargs):
@@ -105,7 +114,12 @@ class OpDef:
 
     def apply(self, attrs, inputs):
         """Run the op eagerly; returns a tuple of tensors."""
-        out = self.fn(attrs, *inputs)
+        if self.needs_rng:
+            dev = inputs[0].device
+            gen = None if dev.type == "meta" else _random.generator(dev)
+            out = self.fn(attrs, gen, *inputs)
+        else:
+            out = self.fn(attrs, *inputs)
         if not isinstance(out, (tuple, list)):
             out = (out,)
         return tuple(out)

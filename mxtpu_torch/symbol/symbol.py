@@ -147,12 +147,21 @@ class Symbol:
         aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
         return arg_shapes, out_shapes, aux_shapes
 
+    def attr_dict(self):
+        """``{variable name: {attr: string}}`` of the variables that carry
+        attributes (``__lr_mult__``, ``__wd_mult__``, ``__init__``...)."""
+        return {n.name: {k: str(v) for k, v in n._extra_attrs.items()}
+                for n in self._topo() if n.is_variable and n._extra_attrs}
+
     # ------------------------------------------------ bind
-    def bind(self, ctx, args, aux_states=None):
-        """An inference Executor over ``args`` (gradients arrive with
-        training)."""
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        """An Executor over ``args``; ``args_grad`` (a dict or list of
+        NDArrays) receives the gradients of ``backward`` per
+        ``grad_req`` (write/add/null)."""
         from ..executor import Executor
-        return Executor(self, ctx, args, aux_states=aux_states)
+        return Executor(self, ctx, args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states)
 
     # ------------------------------------------------ serialization
     def tojson(self):

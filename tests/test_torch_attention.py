@@ -184,6 +184,25 @@ def test_chip_smoke_counts_the_flash_bound_on_the_tensor_cores(tt):
     assert abs(chip_smoke.cuda_core_ms(4, *served) - 0.0962) < 5e-5
 
 
+def test_chip_smoke_counts_the_backward_bound_at_each_types_peak(tt):
+    """chip_smoke's flash backward bound at the LM's shape: the five
+    products the gradient needs (16.12 GFLOP at B=4), f32 as three TF32
+    passes at 495 TFLOP/s, bf16 at 989 TFLOP/s (above its 0.0151 ms of
+    bytes); the CUDA-core f32 figure of the kernel's route beside."""
+    torch = tt[0]
+    import chip_smoke
+    served = (12, 1024, 1024, 64, True)
+    assert abs(chip_smoke.backward_flops(4, *served) - 16.121856e9) < 1e3
+    cases = [(4, torch.float32, 0.0977, "operations"),
+             (1, torch.float32, 0.0244, "operations"),
+             (4, torch.bfloat16, 0.0163, "operations")]
+    for b, dtype, want_ms, want_by in cases:
+        ms, by = chip_smoke.backward_bound_ms(b, *served, dtype)
+        assert by == want_by
+        assert abs(ms - want_ms) < 5e-5, (b, dtype, ms)
+    assert abs(chip_smoke.backward_cuda_core_ms(4, *served) - 0.2406) < 5e-5
+
+
 def test_chip_smoke_reads_ptxas_per_instance():
     import chip_smoke
     log = (
@@ -195,10 +214,16 @@ def test_chip_smoke_reads_ptxas_per_instance():
         "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0_11rows"
         "_kernelI13__nv_bfloat16Lb1EEEvPKT_PKfS6_S4_PS2_ll' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 40 registers, used 0 barriers\n")
+        "ptxas info    : Used 40 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__92c96d0c"
+        "_17_flash_attn_fwd_cu_cd4330bb16flash_fwd_kernelIfLi64ELb0EEEvPKT_"
+        "S3_S3_PS1_Pfiifii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 220 registers, used 1 barriers\n")
     assert chip_smoke.ptxas_instances(log) == [
         ("flash_fwd_kernel<float, 64>", 223, 8, 4),
-        ("rows_kernel<bf16, true>", 40, 0, 0)]
+        ("rows_kernel<bf16, true>", 40, 0, 0),
+        ("flash_fwd_kernel<float, 64, false>", 220, 0, 0)]
 
 
 def _tf32(torch, x):

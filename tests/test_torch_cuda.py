@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card, against their plain versions:
 flash attention within 2e-4 (f32, 3xTF32 on the tensor cores) and 2e-2
 (bf16) at the edges of its 64-row tiles, every head dim, no keys, and
-storage offsets; and the BN-apply+ReLU epilogue bit for bit (NaN
-positions included) at ResNet-50's served shapes.
+storage offsets; its log-sum-exp within 1e-4; the flash backward within
+1e-4 (f32) and 2e-2 (bf16) of max(1, |plain|) at the same edges; the
+BN-apply+ReLU epilogue bit for bit (NaN positions included) at
+ResNet-50's served shapes; and a Module training step on gpu(0) against
+the same step on cpu().
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -251,3 +254,106 @@ def test_epilogue_kernel_refuses_what_it_does_not_take(epi, case):
     with pytest.raises(MXNetError):
         e.bn_apply_relu_add(x, s, torch.zeros(4, device="cuda"))
     assert e.bn_apply_relu_add.launches == before
+
+
+def _scaled_err(torch, got, want):
+    if want.numel() == 0:
+        return 0.0
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,s,d", [(1, 1, 64), (63, 65, 64), (64, 64, 32),
+                                   (65, 63, 64), (129, 129, 128),
+                                   (200, 70, 32), (70, 200, 128),
+                                   (64, 0, 64)])
+def test_flash_backward_kernel_matches_plain_version(cuda, dtype, tol,
+                                                     causal, t, s, d):
+    torch, att = cuda
+    g = torch.Generator(device="cuda").manual_seed(7 * t + s + d)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(2, 3, n, d, device="cuda", generator=g)
+                   .to(dt) for n in (t, s, s, t))
+    out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    got_o, got_lse = att._flash_cuda(q, k, v, causal, d ** -0.5,
+                                     want_lse=True)
+    fin = torch.isfinite(lse)
+    assert torch.equal(torch.isfinite(got_lse), fin)
+    if bool(fin.any()):
+        assert (got_lse[fin] - lse[fin]).abs().max().item() <= 1e-4
+    before = att.flash_attention_backward.launches
+    got = att.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
+    want = att.flash_attention_backward_reference(q, k, v, out, do, lse,
+                                                  causal=causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention_backward.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.dtype == dt and a.shape == w.shape
+        assert _scaled_err(torch, a, w) <= tol
+
+
+def test_flash_autograd_on_the_card_runs_both_kernels(cuda):
+    torch, att = cuda
+    q = torch.randn(1, 2, 100, 64, device="cuda", requires_grad=True)
+    before = (att.flash_attention.launches,
+              att.flash_attention_backward.launches)
+    out = att.flash_attention(q, q, q, causal=True)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (att.flash_attention.launches,
+            att.flash_attention_backward.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert bool(torch.isfinite(q.grad).all())
+
+
+def test_flash_backward_refuses_what_it_does_not_take(cuda):
+    torch, att = cuda
+    from mxtpu_torch.base import MXNetError
+    q = torch.randn(1, 1, 8, 64, device="cuda")
+    lse = torch.zeros(1, 1, 8, device="cuda")
+    with pytest.raises(MXNetError, match="lse"):
+        att.flash_attention_backward(q, q, q, q, q, lse.double())
+    with pytest.raises(MXNetError, match="out"):
+        att.flash_attention_backward(q, q, q, q.half(), q, lse)
+
+
+def test_module_step_on_gpu_matches_cpu(cuda):
+    """One fused SGD step of a small LM on gpu(0) and on cpu() from the
+    same weights: outputs and updated weights within 1e-5."""
+    torch, att = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    cfg = dict(vocab_size=50, seq_len=64, num_layers=2, num_heads=2,
+               d_model=64)
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 50, (2, 64)).astype(np.float32)
+    y = rng.randint(0, 50, 128).astype(np.float32)
+    got, weights = [], None
+    for ctx in (mt.gpu(0), mt.cpu()):
+        mod = mt.mod.Module(mt.models.get_transformer_lm(**cfg), context=ctx)
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("softmax_label", y.shape)])
+        if weights is None:
+            np.random.seed(1)
+            mod.init_params(mt.init.Xavier())
+            weights = mod.get_params()[0]
+        else:
+            mod.init_params(arg_params=weights)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.05})
+        before = att.flash_attention_backward.launches
+        mod.forward_backward(mt.io.DataBatch(
+            [mt.nd.array(x, ctx=mt.cpu())], [mt.nd.array(y, ctx=mt.cpu())]))
+        mod.update()
+        if ctx.device_type == "gpu":
+            assert att.flash_attention_backward.launches == before + 2
+        got.append((mod.get_outputs()[0].asnumpy(),
+                    {k: v.asnumpy() for k, v in mod.get_params()[0].items()}))
+    (go, gw), (co, cw) = got
+    assert np.abs(go - co).max() <= 1e-5
+    for k in cw:
+        assert np.abs(gw[k] - cw[k]).max() <= 1e-5, k

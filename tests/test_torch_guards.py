@@ -37,6 +37,9 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import mxtpu_torch\n"
             "from mxtpu_torch import serving, predict, convert, build\n"
+            "from mxtpu_torch import (random, initializer, lr_scheduler,\n"
+            "                         optimizer, metric, io, callback)\n"
+            "from mxtpu_torch.module import Module, FusedTrainStep\n"
             "from mxtpu_torch.ops import attention, epilogue\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in %r)\n"
@@ -85,6 +88,17 @@ def test_default_context_is_gpu_and_raises_without_cuda(mt, no_cuda):
     assert mt.num_gpus() == 0
 
 
+def test_module_without_context_raises_without_cuda(mt, no_cuda):
+    """Module defaults to gpu(0): with no card it raises, and trains only
+    when given cpu() explicitly."""
+    sym = mt.models.get_mlp(4)
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        mt.mod.Module(sym)
+    with pytest.raises(mt.MXNetError, match="gpu"):
+        mt.mod.Module(sym, context=mt.gpu(0))
+    assert mt.mod.Module(sym, context=mt.cpu())._context == mt.cpu()
+
+
 def test_explicit_cpu_context_is_honoured(mt):
     import torch
     with mt.cpu():
@@ -95,7 +109,8 @@ def test_explicit_cpu_context_is_honoured(mt):
 
 
 def test_import_builds_nothing_and_finds_the_sources(mt):
-    assert mt.build.sources() == ["bn_relu_epilogue", "flash_attn_fwd"]
+    assert mt.build.sources() == ["bn_relu_epilogue", "flash_attn_bwd",
+                                  "flash_attn_fwd"]
     assert mt.build.build_log == {} or all(
         isinstance(v, dict) for v in mt.build.build_log.values())
     src, lib = mt.build._target("flash_attn_fwd")

@@ -129,10 +129,17 @@ def test_meta_shape_inference_matches_mxtpu(tt, name, arrays, attrs):
 
 
 def test_dropout_in_training_is_refused(tt):
+    """Dropout in training is no longer refused: it draws a mask (kept
+    values scaled by 1/(1-p)). What training still refuses is BatchNorm
+    with batch statistics, which arrives with its own slice."""
     torch, mt = tt
-    with pytest.raises(mt.MXNetError):
-        mt.ops.registry.invoke("Dropout", [torch.ones(2, 2)],
-                               {"p": 0.5, "__is_train__": True})
+    _, _, (y,) = mt.ops.registry.invoke("Dropout", [torch.ones(64, 64)],
+                                        {"p": 0.5, "__is_train__": True})
+    assert set(torch.unique(y).tolist()) == {0.0, 2.0}
+    with pytest.raises(mt.MXNetError, match="training"):
+        mt.ops.registry.invoke(
+            "BatchNorm", [torch.ones(2, 3)] + [torch.ones(3)] * 4,
+            {"__is_train__": True})
 
 
 def test_required_attr_missing_raises(tt):
