@@ -3,6 +3,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
                           [--phases kernels,epilogue,...]
+                          [--parent CSRC [--parent CSRC ...]]
 
 Phases (any failure raises and exits non-zero):
 
@@ -10,9 +11,13 @@ Phases (any failure raises and exits non-zero):
 2. Build every hand-written kernel of ``mxtpu_torch/csrc`` with nvcc
    (one process per source, started together) and print the seconds;
    print each kernel instance's registers and spills (the LM's flash
-   instances, float32 D=64 with and without lse, must not spill) and,
-   where the toolkit has cuobjdump, count the flash library's
-   tensor-core (HMMA) instructions.
+   instances must not spill: the forward's float32 D=64 with and without
+   lse, the backward's dK/dV and dQ kernels at D=64 in float32 and
+   bfloat16) and, where the toolkit has cuobjdump, count each flash
+   library's tensor-core (HMMA) instructions (none is a failure). With
+   ``--parent CSRC`` (the ``csrc`` directory of another tree, such as the
+   parent commit or a variant of this one; repeatable) also build that
+   tree's flash sources and print the same figures for them.
 3. Flash kernel vs plain: the flash-attention kernel against its plain
    PyTorch version on the card, at the LM path's shapes and at edge
    cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then,
@@ -30,13 +35,23 @@ Phases (any failure raises and exits non-zero):
 3c. Flash backward kernel vs plain: the backward (dq, dk, dv) against
    its plain version on the same q, k, v, o, dO and lse, and the forward
    kernel's lse against the plain lse, at the LM's shapes and at edge
-   cases (T, S in {1, 63, 64, 65, 129}, T != S, S = 0, D 32/64/128),
-   float32 (error / max(1, |plain|) <= 1e-4) and bfloat16 (<= 2e-2).
-   Then CUDA-event times at the LM's shape beside the plain version, the
-   bound at the card's peak for each type (f32 as three TF32 passes, bf16
-   on the tensor cores; the CUDA-core figure of the kernel's own route
-   printed beside it), SDPA's backward alone as the library yardstick,
-   and the forward with and without lse.
+   cases (T, S in {1, 15, 16, 17, 63, 64, 65, 127, 129}, around the 16-row
+   warp tiles and the 64-row block tiles; T != S under the causal mask;
+   S = 0; D 32/64/128; NaN stored past every tensor's end; storage
+   offsets that are not 16-byte aligned), float32 (error / max(1,
+   |plain|) <= 1e-4) and bfloat16 (<= 2e-2); a second call must give
+   bit-identical dq, dk and dv. Then CUDA-event times at the
+   LM's shape beside the plain version, the bound at the card's peak for
+   each type (f32 as three TF32 passes, bf16 on the tensor cores; the
+   figure of the kernel's own 7-product route printed beside it), SDPA's
+   backward alone as the library yardstick, and the forward with and
+   without lse. Last, the float32 kernel at B=1, H=1 and the LM's T, S
+   and D beside a CPU emulation of its arithmetic, with each MMA's f32
+   sum rounded to nearest and truncated as the tensor cores truncate it:
+   the errors show which model the card follows (printed, not gated).
+   With ``--parent``,
+   phases 3 and 3c also time each other tree's kernels on the same
+   inputs, in turns: parent, this, this, parent.
 4. LM serving: the transformer LM at GPT-2-small widths with seeded
    random weights, served by ``ServingSession`` on gpu(0) with buckets
    (1, 4): 8 requests of 1024 tokens from 4 client threads. Checks that
@@ -91,6 +106,16 @@ TF32_PASSES = 3
 # (served) and with it (trained)
 FLASH_PATH_INSTANCES = ("flash_fwd_kernel<float, 64, false>",
                         "flash_fwd_kernel<float, 64, true>")
+# the backward's instances on the LM's shape (D=64), both kernels, both
+# types
+FLASH_BWD_PATH_INSTANCES = tuple(
+    "flash_bwd_%s_kernel<%s, 64>" % (kern, typ)
+    for kern in ("dkdv", "dq") for typ in ("float", "bf16"))
+# products of 2*D flops for each live pair in the backward: the five the
+# gradient needs (S, dP, dV, dK, dQ), and the seven the kernels do (S and
+# dP again in the dQ kernel, so that no output needs atomics)
+BWD_PRODUCTS = 5
+BWD_ROUTE_PRODUCTS = 7
 
 LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_heads=12,
           d_model=768, d_ff=3072)  # GPT-2 small (Radford et al. 2019)
@@ -243,35 +268,102 @@ def _instance_name(sym):
                                              for a in args))
 
 
-def check_flash_build(build):
-    """The flash instances of the LM's paths do not spill, and the
-    library's SASS (where the toolkit has cuobjdump) holds tensor-core HMMA
-    instructions."""
-    inst = {row[0]: row for row in
-            ptxas_instances(build.build_log["flash_attn_fwd"]["ptxas"])}
-    for name in FLASH_PATH_INSTANCES:
-        row = inst.get(name)
-        if row is None:
-            # reused from an earlier build of the same source: no ptxas log
-            log("  flash: %s: no ptxas log (library reused)" % name)
-        elif row[2] or row[3]:
-            raise AssertionError("%s spills: %s" % (name, row))
+def sass_hmma(path):
+    """HMMA instructions in a library's SASS (cuobjdump -sass), or None
+    where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("  flash: no cuobjdump, SASS not checked")
-        return
-    out = subprocess.run([tool, "-sass", str(build._target(
-        "flash_attn_fwd")[1])], capture_output=True, text=True, check=True,
-        timeout=300)
-    hmma = sum("HMMA" in line for line in out.stdout.splitlines())
-    log("  flash: %d HMMA instructions in the SASS (cuobjdump -sass)" % hmma)
-    if hmma == 0:
-        raise AssertionError("the flash library has no HMMA instruction")
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True, timeout=300)
+    return sum("HMMA" in line for line in out.stdout.splitlines())
 
 
-def phase_kernels(att, gen):
+def check_flash_build(build):
+    """The flash instances of the LM's paths do not spill, and each flash
+    library's SASS (where the toolkit has cuobjdump) holds tensor-core
+    HMMA instructions. Returns {library: HMMA count}."""
+    counts = {}
+    for lib, names in (("flash_attn_fwd", FLASH_PATH_INSTANCES),
+                       ("flash_attn_bwd", FLASH_BWD_PATH_INSTANCES)):
+        inst = {row[0]: row for row in
+                ptxas_instances(build.build_log[lib]["ptxas"])}
+        for name in names:
+            row = inst.get(name)
+            if row is None:
+                # reused from an earlier build of the same source: no log
+                log("  %s: %s: no ptxas log (library reused)" % (lib, name))
+            elif row[2] or row[3]:
+                raise AssertionError("%s spills: %s" % (name, row))
+        hmma = sass_hmma(build._target(lib)[1])
+        if hmma is None:
+            log("  %s: no cuobjdump, SASS not checked" % lib)
+            continue
+        log("  %s: %d HMMA instructions in the SASS (cuobjdump -sass)"
+            % (lib, hmma))
+        if hmma == 0:
+            raise AssertionError("%s has no HMMA instruction" % lib)
+        counts[lib] = hmma
+    return counts
+
+
+class ParentKernels:
+    """Another tree's flash sources (``--parent``: its ``csrc``
+    directory), built with this tree's nvcc flags into
+    ``build/mxtpu_torch/parent<index>`` and bound by ``attention.bind``,
+    to time them in turns with this tree's kernels on the same inputs
+    through the wrappers' own launch code (``attention._launch``,
+    ``_launch_bwd``)."""
+
+    NAMES = ("flash_attn_fwd", "flash_attn_bwd")
+
+    def __init__(self, build, csrc, index=0):
+        self.csrc = csrc
+        self.dir = build.BUILD_DIR / ("parent%d" % index)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self._procs = {}
+        for name in self.NAMES:
+            out = self.dir / ("lib%s.so" % name)
+            self._procs[name] = (build.spawn(
+                os.path.join(csrc, name + ".cu"), out), out)
+        self.kernels, self.ptxas, self.hmma = {}, {}, {}
+
+    def finish(self, att):
+        """Wait for the builds started by __init__, bind the libraries and
+        print their registers, spills and HMMA counts."""
+        import ctypes
+        for name, (proc, out) in self._procs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError("%s %s does not build:\n%s"
+                                     % (self.csrc, name, text))
+            self.ptxas[name] = ptxas_instances(text)
+            self.hmma[name] = sass_hmma(out)
+            self.kernels[name] = att.bind(ctypes.CDLL(str(out)), name)
+            for inst, regs, st, ld in self.ptxas[name]:
+                log("  parent %s %s: %s: %d registers, %d bytes spill "
+                    "stores, %d bytes spill loads" % (self.csrc, name, inst,
+                                                      regs, st, ld))
+            log("  parent %s %s: %s HMMA instructions" % (self.csrc, name,
+                                                          self.hmma[name]))
+        return self
+
+
+def in_turns(parent_fn, this_fn, iters):
+    """CUDA-event ms of two versions of one call, in turns: parent, this,
+    this, parent. Returns ([parent ms], [this ms])."""
+    p1 = cuda_ms(parent_fn, iters)
+    t1 = cuda_ms(this_fn, iters)
+    t2 = cuda_ms(this_fn, iters)
+    p2 = cuda_ms(parent_fn, iters)
+    return [p1, p2], [t1, t2]
+
+
+def phase_kernels(att, gen, parents=()):
     """Flash kernel vs its plain version; returns the timed rows (f32 and
-    bf16 at each bucket of the served shape) and the worst error by type."""
+    bf16 at each bucket of the served shape) and the worst error by type.
+    With ``parents`` (ParentKernels), each timed row also holds each other
+    tree's forward and this tree's, timed in turns on the same inputs."""
     F = torch.nn.functional
     cases = [  # (B, H, T, S, D, causal)
         (1, 12, 1024, 1024, 64, True),   # the served shapes: bucket 1 ...
@@ -342,15 +434,38 @@ def phase_kernels(att, gen):
                 "ms (%s; kernel at %.1f%% of it)%s, err %.3e"
                 % (name, b, h, t, d, ms, plain_ms, lib_ms, ms / lib_ms,
                    bound_ms, bound_by, 100.0 * bound_ms / ms, extra, err))
+            row["turns"] = []
+            for parent in parents:
+                this_k = att._kernel()
+                pk = parent.kernels["flash_attn_fwd"]
+                scale = d ** -0.5
+                perr = (att._launch(pk, q, k, v, True, scale).float()
+                        - got.float()).abs().max().item()
+                p_ms, t_ms = in_turns(
+                    lambda: att._launch(pk, q, k, v, True, scale),
+                    lambda: att._launch(this_k, q, k, v, True, scale), 50)
+                row["turns"].append(dict(parent=parent.csrc, parent_ms=p_ms,
+                                         this_ms=t_ms, max_abs_diff=perr))
+                log("    in turns with %s (parent, this, this, parent): "
+                    "%.4f, %.4f, %.4f, %.4f ms; max abs diff %.3e"
+                    % (parent.csrc, p_ms[0], t_ms[0], t_ms[1], p_ms[1], perr))
             timed.append(row)
     return timed, worst
 
 
-def backward_flops(b, h, t, s, d, causal):
-    """Flops of the attention backward: the five products of 2*d flops
-    for each live pair that the gradient needs (S, dP, dV, dK, dQ). The
-    kernel itself does seven (S and dP again in its dQ pass)."""
-    return 5 * 2.0 * d * attention_pairs(t, s, causal) * b * h
+def backward_flops(b, h, t, s, d, causal, products=BWD_PRODUCTS):
+    """Flops of the attention backward: ``products`` products of 2*d
+    flops for each live pair; by default the five that the gradient needs
+    (S, dP, dV, dK, dQ). The kernels do seven (BWD_ROUTE_PRODUCTS)."""
+    return products * 2.0 * d * attention_pairs(t, s, causal) * b * h
+
+
+def _tensor_core_ms(flops, dtype):
+    """``flops`` at the card's tensor-core peak for ``dtype``: f32 as
+    TF32_PASSES TF32 passes at the TF32 peak, bf16 at the bf16 peak."""
+    if dtype == torch.float32:
+        return TF32_PASSES * flops / PEAK_TF32_OPS_PER_S * 1e3
+    return flops / PEAK_OPS_PER_S[dtype] * 1e3
 
 
 def backward_bound_ms(b, h, t, s, d, causal, dtype):
@@ -358,14 +473,8 @@ def backward_bound_ms(b, h, t, s, d, causal, dtype):
     type, as the forward's bound counts it: f32 as TF32_PASSES TF32
     passes at the TF32 peak (3xTF32 keeps f32-grade error), bf16 at the
     bf16 tensor-core peak; or q, k, v, o, dO read and dq, dk, dv written
-    once plus the f32 lse, against the HBM rate; whichever is larger. The
-    kernel runs on the CUDA cores, so it cannot reach this bound; its
-    CUDA-core figure is ``backward_cuda_core_ms``."""
-    flops = backward_flops(b, h, t, s, d, causal)
-    if dtype == torch.float32:
-        ops_ms = TF32_PASSES * flops / PEAK_TF32_OPS_PER_S * 1e3
-    else:
-        ops_ms = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    once plus the f32 lse, against the HBM rate; whichever is larger."""
+    ops_ms = _tensor_core_ms(backward_flops(b, h, t, s, d, causal), dtype)
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = (4 * b * h * t * d + 4 * b * h * s * d) * esize + b * h * t * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -373,12 +482,12 @@ def backward_bound_ms(b, h, t, s, d, causal, dtype):
                                    else "bytes")
 
 
-def backward_cuda_core_ms(b, h, t, s, d, causal):
-    """The backward's flops against the CUDA cores' f32 peak: the least
-    time of the route the kernel takes today (f32 FMA for both types),
-    printed beside the bound."""
-    return backward_flops(b, h, t, s, d, causal) / \
-        PEAK_OPS_PER_S[torch.float32] * 1e3
+def backward_route_ms(b, h, t, s, d, causal, dtype):
+    """The least time of the kernels' own route: its seven products at
+    the type's tensor-core peak (f32 as three TF32 passes), printed beside
+    the bound."""
+    return _tensor_core_ms(backward_flops(b, h, t, s, d, causal,
+                                          BWD_ROUTE_PRODUCTS), dtype)
 
 
 def abs_err(got, want):
@@ -401,58 +510,206 @@ def rel_err(got, want):
     return ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
 
 
-def phase_backward(att, gen):
+def tf32_round(x):
+    """f32 rounded to TF32 (10 stored mantissa bits): to nearest, ties away
+    from zero, as the kernels' tf32_rna rounds (csrc/mma_sm90.cuh)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def emulated_matmul(a, b, passes, acc="rn"):
+    """a @ b (f32, on the CPU) as the kernels' mma.sync m16n8k8 forms it:
+    TF32 operands, one pass (big*big) or 3xTF32 (small*big, big*small,
+    big*big, in that order, with x = big + small), products exact (11
+    by 11 bits fit in f32), in steps of 8 along the reduction. After each
+    MMA the f32 accumulator is the exact sum of it and the 8 products
+    rounded to nearest (``acc="rn"``), or (``"tc"``) that sum as the
+    tensor cores form it: each of the 9 addends truncated toward zero to
+    2 bits below the f32 ulp of the largest of them, then the sum
+    truncated to f32. Phase 3c holds the kernel against both."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    parts = [(ab, bb)] if passes == 1 else [
+        (tf32_round(a - ab), bb), (ab, tf32_round(b - bb)), (ab, bb)]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in parts:
+            x8, y8 = x[..., k0:k0 + 8], y[..., k0:k0 + 8, :]
+            if acc == "rn":
+                out = (out.double() + x8.double() @ y8.double()).float()
+                continue
+            terms = x8.unsqueeze(-1) * y8.unsqueeze(-3)
+            top = torch.maximum(terms.abs().amax(dim=-2), out.abs())
+            # addends in units of the grid 2^(e - 26), truncated: integers
+            # below 2^26, whose sum of 9 is exact in int64
+            inv = torch.ldexp(torch.ones_like(top), 26 - torch.frexp(top)[1])
+            units = terms.mul_(inv.unsqueeze(-2)).trunc_().long().sum(dim=-2)
+            units += out.mul(inv).trunc_().long()
+            exact = units.double() / inv.double()
+            out = exact.float()
+            out = torch.where(out.double().abs() > exact.abs(),
+                              torch.nextafter(out, torch.zeros_like(out)),
+                              out)
+    return out
+
+
+def emulated_backward(q, k, v, out, g, lse, causal, passes, acc="rn"):
+    """(dq, dk, dv) with the f32 arithmetic of csrc/flash_attn_bwd.cu on
+    the CPU: S = Q K^T and dP = dO V^T by ``emulated_matmul``, P =
+    exp(S*scale - lse) and dS = P (dP - delta) in f32, then dV = P^T dO,
+    dK = dS^T Q and dQ = dS K by ``emulated_matmul`` (P and dS split like
+    any other operand), each accumulated in one register over the whole
+    reduction as the kernels accumulate it."""
+    t, s, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = d ** -0.5
+    delta = (g * out).sum(dim=-1, keepdim=True)
+    p = torch.exp(emulated_matmul(q, k.transpose(-1, -2), passes, acc)
+                  * scale - lse.unsqueeze(-1))
+    if causal:
+        p = p.masked_fill(torch.arange(s)[None, :] > torch.arange(t)[:, None],
+                          0.0)
+    ds = p * (emulated_matmul(g, v.transpose(-1, -2), passes, acc) - delta)
+    dv = emulated_matmul(p.transpose(-1, -2), g, passes, acc)
+    dk = emulated_matmul(ds.transpose(-1, -2), q, passes, acc) * scale
+    dq = emulated_matmul(ds, k, passes, acc) * scale
+    return dq, dk, dv
+
+
+def backward_numerics(att, gen, case=(1, 1, 1024, 1024, 64, True)):
+    """Where the f32 backward's error comes from: the kernel's dq, dk, dv
+    at the LM's T, S and D, and the CPU emulation of its arithmetic
+    (``emulated_backward``, 3xTF32) with each MMA's sum rounded to
+    nearest and truncated as the tensor cores truncate it, each held
+    against the plain version and the kernel (scaled as BWD_TOL scales).
+    Returns the errors."""
+    b, h, t, s, d, causal = case
+    q, k, v, g = (x.cpu() for x in bwd_inputs(b, h, t, s, d, torch.float32,
+                                              gen))
+    out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    want = att.flash_attention_backward_reference(q, k, v, out, g, lse,
+                                                  causal=causal)
+    got = [x.cpu() for x in att.flash_attention_backward(
+        *(x.cuda() for x in (q, k, v, out, g, lse)), causal=causal)]
+    model = {acc: emulated_backward(q, k, v, out, g, lse, causal, 3, acc)
+             for acc in ("rn", "tc")}
+
+    def err(x, y):
+        return max(rel_err(a, w) for a, w in zip(x, y))
+
+    row = dict(case=list(case), kernel_vs_plain=err(got, want),
+               rn_model_vs_plain=err(model["rn"], want),
+               tc_model_vs_plain=err(model["tc"], want),
+               kernel_vs_rn_model=err(got, model["rn"]),
+               kernel_vs_tc_model=err(got, model["tc"]))
+    log("  f32 backward numerics at B=%d H=%d T=%d S=%d D=%d causal=%d "
+        "(scaled): kernel vs plain %.3e; 3xTF32 model vs plain, MMA sums "
+        "rounded to nearest %.3e, truncated as the tensor cores do %.3e; "
+        "kernel vs the round-to-nearest model %.3e, vs the truncating "
+        "model %.3e" % (b, h, t, s, d, causal, row["kernel_vs_plain"],
+                        row["rn_model_vs_plain"], row["tc_model_vs_plain"],
+                        row["kernel_vs_rn_model"],
+                        row["kernel_vs_tc_model"]))
+    return row
+
+
+def bwd_inputs(b, h, t, s, d, dtype, gen, offset=0, nan_tail=0):
+    """q, k, v, dO of one backward case. Each is a contiguous view
+    ``offset`` elements into a buffer whose other elements (before the
+    view and ``nan_tail`` after it) are NaN, which the kernel must never
+    read."""
+    def make(n):
+        numel = b * h * n * d
+        buf = torch.full((offset + numel + nan_tail,), float("nan"),
+                         device="cuda", dtype=dtype)
+        buf[offset:offset + numel] = torch.randn(
+            numel, device="cuda", generator=gen).to(dtype)
+        return buf[offset:offset + numel].view(b, h, n, d)
+    return tuple(make(n) for n in (t, s, s, t))
+
+
+def check_bwd_case(att, case, dtype, gen, offset=0, nan_tail=0):
+    """The backward kernel against its plain version on one case, the
+    forward kernel's lse against the plain lse, and a second call bit
+    for bit against the first. Returns the scaled error."""
+    b, h, t, s, d, causal = case
+    name = str(dtype).split(".")[1]
+    q, k, v, g = bwd_inputs(b, h, t, s, d, dtype, gen, offset, nan_tail)
+    out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    if nan_tail:  # the lse too, past its end
+        buf = torch.full((lse.numel() + nan_tail,), float("nan"),
+                         device="cuda")
+        buf[:lse.numel()] = lse.reshape(-1)
+        lse = buf[:lse.numel()].view(lse.shape)
+    got_o, got_lse = att._flash_cuda(q, k, v, causal, d ** -0.5,
+                                     want_lse=True)
+    fin = torch.isfinite(lse)
+    lse_err = 0.0
+    if bool(fin.any()):
+        lse_err = (got_lse[fin] - lse[fin]).abs().max().item()
+    if not torch.equal(torch.isfinite(got_lse), fin) or \
+            not lse_err <= LSE_TOL[dtype]:
+        raise AssertionError("flash forward lse disagrees: %r at %s"
+                             % (lse_err, (case, name)))
+    got = att.flash_attention_backward(q, k, v, out, g, lse, causal=causal)
+    again = att.flash_attention_backward(q, k, v, out, g, lse,
+                                         causal=causal)
+    want = att.flash_attention_backward_reference(q, k, v, out, g, lse,
+                                                  causal=causal)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, w) for a, w in zip(got, want))
+    same = all(torch.equal(a, r) for a, r in zip(got, again))
+    log("  flash bwd %-8s B=%d H=%d T=%d S=%d D=%d causal=%d%s  "
+        "err(dq,dk,dv)=%.3e lse_err=%.3e repeat=%s"
+        % (name, b, h, t, s, d, causal,
+           (" offset=%d" % offset if offset else "")
+           + (" nan_tail" if nan_tail else ""), err, lse_err,
+           "bit-identical" if same else "DIFFERS"))
+    if not err <= BWD_TOL[dtype]:
+        raise AssertionError(
+            "flash backward kernel disagrees with its plain version: %r > "
+            "%r at %s" % (err, BWD_TOL[dtype], (case, name, offset)))
+    if not same:
+        raise AssertionError("flash backward is not deterministic: a "
+                             "second call differs at %s" % ((case, name),))
+    return err
+
+
+def phase_backward(att, gen, parents=()):
     """Flash backward kernel vs its plain version on the same q, k, v, o,
     dO and lse (the plain forward's), and the forward kernel's lse vs the
     plain lse: at the LM's shapes and at edge cases, in float32 (error
-    scaled by max(1, max |plain|) <= BWD_TOL) and bfloat16. Then, at the
-    LM's shape, CUDA-event times beside the plain version, the bound and
+    scaled by max(1, max |plain|) <= BWD_TOL) and bfloat16, each call
+    repeated and held bit for bit. Then, at the LM's shape, CUDA-event
+    times beside the plain version, the bound, the route's figure and
     SDPA's backward alone (torch.autograd.grad on a retained graph; timed
-    as a yardstick only, never called by the port). Returns the timed
-    rows and the worst error by type."""
+    as a yardstick only, never called by the port); with ``parents``,
+    each other tree's backward and this tree's in turns. Returns the
+    timed rows and the worst error by type."""
     F = torch.nn.functional
     cases = [(1, 12, 1024, 1024, 64, True), (4, 12, 1024, 1024, 64, True),
              (2, 4, 1024, 1024, 64, False)]
-    for t, s in [(1, 1), (63, 63), (64, 64), (65, 65), (129, 129),
-                 (63, 129), (129, 63), (1, 65), (65, 1), (64, 0)]:
+    # around the 16-row warp tiles and the 64-row block tiles, T != S
+    # under the causal mask (top-left), a single key or row, no key
+    for t, s in [(1, 1), (15, 15), (16, 16), (17, 17), (63, 63), (64, 64),
+                 (65, 65), (127, 127), (129, 129), (63, 129), (129, 63),
+                 (15, 129), (129, 17), (1, 65), (65, 1), (64, 0), (17, 0)]:
         for causal in (True, False):
             cases.append((2, 3, t, s, 64, causal))
     for d in (32, 128):
-        cases += [(2, 4, 200, 200, d, True), (2, 4, 129, 65, d, False)]
+        cases += [(2, 4, 200, 200, d, True), (2, 4, 129, 65, d, False),
+                  (1, 3, 65, 129, d, True), (1, 3, 17, 15, d, True)]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        for b, h, t, s, d, causal in cases:
-            q, k, v, g = (torch.randn(b, h, n, d, device="cuda",
-                                      generator=gen).to(dtype)
-                          for n in (t, s, s, t))
-            out, lse = att.flash_attention_reference(q, k, v, causal=causal,
-                                                     return_lse=True)
-            got_o, got_lse = att._flash_cuda(q, k, v, causal, d ** -0.5,
-                                             want_lse=True)
-            fin = torch.isfinite(lse)
-            lse_err = 0.0
-            if bool(fin.any()):
-                lse_err = (got_lse[fin] - lse[fin]).abs().max().item()
-            if not torch.equal(torch.isfinite(got_lse), fin) or \
-                    not lse_err <= LSE_TOL[dtype]:
-                raise AssertionError("flash forward lse disagrees: %r at %s"
-                                     % (lse_err, (b, h, t, s, d, causal,
-                                                  name)))
-            got = att.flash_attention_backward(q, k, v, out, g, lse,
-                                               causal=causal)
-            want = att.flash_attention_backward_reference(
-                q, k, v, out, g, lse, causal=causal)
-            torch.cuda.synchronize()
-            err = max(rel_err(a, w) for a, w in zip(got, want))
-            log("  flash bwd %-8s B=%d H=%d T=%d S=%d D=%d causal=%d  "
-                "err(dq,dk,dv)=%.3e lse_err=%.3e"
-                % (name, b, h, t, s, d, causal, err, lse_err))
-            if not err <= BWD_TOL[dtype]:
-                raise AssertionError(
-                    "flash backward kernel disagrees with its plain version:"
-                    " %r > %r at %s" % (err, BWD_TOL[dtype],
-                                        (b, h, t, s, d, causal, name)))
+        for case in cases:
+            err = check_bwd_case(att, case, dtype, gen)
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        # NaN past every end; views not 16-byte aligned (plain loads)
+        for case, offset, tail in [((2, 3, 129, 65, 64, True), 0, 4096),
+                                   ((2, 3, 65, 129, 64, False), 0, 4096),
+                                   ((2, 3, 130, 190, 64, True), 1, 64),
+                                   ((1, 2, 100, 100, 128, False), 3, 64),
+                                   ((1, 2, 77, 77, 32, True), 1, 0)]:
+            err = check_bwd_case(att, case, dtype, gen, offset, tail)
             worst[dtype] = max(worst.get(dtype, 0.0), err)
 
     timed = []
@@ -477,7 +734,7 @@ def phase_backward(att, gen):
             got, want = kern(), plain()
             err = max(rel_err(a, w) for a, w in zip(got, want))
             aerr = max(abs_err(a, w) for a, w in zip(got, want))
-            del got, want
+            del want
             ms = cuda_ms(kern, 20)
             plain_ms = cuda_ms(plain, 5)
             qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
@@ -490,20 +747,37 @@ def phase_backward(att, gen):
             fwd_lse_ms = cuda_ms(lambda: att._flash_cuda(
                 q, k, v, True, d ** -0.5, want_lse=True), 20)
             bound_ms, bound_by = backward_bound_ms(b, h, t, t, d, True, dtype)
-            core_ms = backward_cuda_core_ms(b, h, t, t, d, True)
+            route_ms = backward_route_ms(b, h, t, t, d, True, dtype)
             row = dict(dtype=name, B=b, max_abs_err=aerr, scaled_err=err,
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       cuda_core_ms=core_ms, fwd_ms=fwd_ms,
+                       route_ms=route_ms, fwd_ms=fwd_ms,
                        fwd_lse_ms=fwd_lse_ms)
             log("  flash bwd %s causal B=%d H=%d T=S=%d D=%d: kernel %.4f "
                 "ms, plain %.4f ms, sdpa bwd %.4f ms (kernel/sdpa %.2f), "
-                "bound %.4f ms (%s; kernel at %.1f%% of it; CUDA-core f32 "
-                "figure %.4f ms), max abs err %.3e, scaled err %.3e; "
-                "forward %.4f ms, with lse %.4f ms"
+                "bound %.4f ms (%s; kernel at %.1f%% of it; the 7-product "
+                "route's figure %.4f ms, kernel at %.1f%% of it), max abs "
+                "err %.3e, scaled err %.3e; forward %.4f ms, with lse %.4f ms"
                 % (name, b, h, t, d, ms, plain_ms, lib_ms, ms / lib_ms,
-                   bound_ms, bound_by, 100.0 * bound_ms / ms, core_ms, aerr,
-                   err, fwd_ms, fwd_lse_ms))
+                   bound_ms, bound_by, 100.0 * bound_ms / ms, route_ms,
+                   100.0 * route_ms / ms, aerr, err, fwd_ms, fwd_lse_ms))
+            row["turns"] = []
+            for parent in parents:
+                this_k = att._kernel(att.BWD_KERNEL)
+                pk = parent.kernels["flash_attn_bwd"]
+                args = (q, k, v, out, g, lse, True, d ** -0.5)
+                perr = max(rel_err(a, w) for a, w in zip(
+                    att._launch_bwd(pk, *args), got))
+                p_ms, t_ms = in_turns(lambda: att._launch_bwd(pk, *args),
+                                      lambda: att._launch_bwd(this_k, *args),
+                                      20)
+                row["turns"].append(dict(parent=parent.csrc, parent_ms=p_ms,
+                                         this_ms=t_ms, scaled_diff=perr))
+                log("    in turns with %s (parent, this, this, parent): "
+                    "%.4f, %.4f, %.4f, %.4f ms (parent/this %.2f); scaled "
+                    "diff %.3e" % (parent.csrc, p_ms[0], t_ms[0], t_ms[1],
+                                   p_ms[1], sum(p_ms) / sum(t_ms), perr))
+            del got
             timed.append(row)
     return timed, worst
 
@@ -1065,7 +1339,13 @@ def profile_step(mod, x, y, mt):
             % (e.device_time_total / 1e3,
                100.0 * e.device_time_total / max(total, 1e-9), e.count,
                e.key[:90]))
-    return {"device_ms": total / 1e3,
+    bwd = {e.key: e.device_time_total / 1e3 for e in events
+           if "flash_bwd_" in e.key}
+    log("  the flash backward's kernels in the step: %.3f ms (%.1f%%): %s"
+        % (sum(bwd.values()), 100.0 * sum(bwd.values()) * 1e3
+           / max(total, 1e-9), {k[:40]: round(v, 3) for k, v in
+                                 bwd.items()}))
+    return {"device_ms": total / 1e3, "flash_bwd_ms": sum(bwd.values()),
             "by_kernel_ms": {e.key: e.device_time_total / 1e3
                              for e in events}}
 
@@ -1247,6 +1527,12 @@ def main(argv=None):
                     help="also trace one largest-bucket forward of each "
                          "model and one training step of the LM with "
                          "torch.profiler and print device time by kernel")
+    ap.add_argument("--parent", metavar="CSRC", action="append", default=[],
+                    help="the csrc directory of another tree (a parent "
+                         "commit or a variant, unpacked outside the "
+                         "commit): build its flash sources too and time its "
+                         "kernels in turns with this tree's in phases 3 and "
+                         "3c; repeatable")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
                          "build (for iterating on one kernel); the kernels "
@@ -1284,22 +1570,29 @@ def main(argv=None):
         for inst, regs, st, ld in ptxas_instances(rec["ptxas"]):
             log("  %s: %s: %d registers, %d bytes spill stores, %d bytes "
                 "spill loads" % (name, inst, regs, st, ld))
-    check_flash_build(mt.build)
+    hmma = check_flash_build(mt.build)
+    parents = [ParentKernels(mt.build, csrc, i)  # all builds at once
+               for i, csrc in enumerate(args.parent)]
+    parents = [p.finish(att) for p in parents]
 
-    results = {"card": card, "build_s": built}
+    results = {"card": card, "build_s": built, "hmma": hmma,
+               "parents": [{"csrc": p.csrc, "ptxas": p.ptxas,
+                            "hmma": p.hmma} for p in parents]}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     # 3. kernel vs plain
     if "kernels" in phases:
         log("[kernels]")
-        results["flash_timed"], worst = phase_kernels(att, gen)
+        results["flash_timed"], worst = phase_kernels(att, gen, parents)
         results["worst_err"] = {str(k): v for k, v in worst.items()}
     if "epilogue" in phases:
         log("[epilogue]")
         results["epilogue_timed"] = phase_epilogue(epi, gen)
     if "backward" in phases:
         log("[backward]")
-        results["backward_timed"], worst = phase_backward(att, gen)
+        results["backward_timed"], worst = phase_backward(att, gen,
+                                                          parents)
         results["backward_worst_err"] = {str(k): v for k, v in worst.items()}
+        results["backward_numerics"] = backward_numerics(att, gen)
     # 4. LM serving
     if "serving" in phases:
         log("[serving]")

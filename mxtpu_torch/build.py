@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file has a plain ``extern "C"`` launcher; it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/mxtpu_torch/`` at the root of the checkout, on first use, and
 loaded with ``ctypes``. A library's file name carries a digest of its
-source and flags, so an edited source builds anew and an unchanged one is
-reused. Nothing here runs when the module is imported.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is reused. Nothing here
+runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build",
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "spawn", "build",
            "load", "build_log"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -55,12 +56,26 @@ def _nvcc():
 
 
 def _target(name):
+    """(source, library path) of kernel ``name``. The digest covers the
+    source, every header of ``csrc/`` (a source may include any of them)
+    and the flags."""
     src = CSRC_DIR / ("%s.cu" % name)
     if not src.exists():
         raise MXNetError("no kernel source %s" % src)
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / ("lib%s-%s.so" % (name, h.hexdigest()[:12]))
+
+
+def spawn(src, out):
+    """The ``nvcc`` process (started, not waited for; output and ptxas's
+    figures on its stdout as text) that compiles ``src`` into the library
+    ``out`` with NVCC_FLAGS."""
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
 
 
 def build(names=None):
@@ -77,10 +92,7 @@ def build(names=None):
             build_log.setdefault(name, {"seconds": None, "ptxas": ""})
             continue
         tmp = out.with_suffix(".%d.tmp" % os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        procs[name] = (spawn(src, tmp), tmp, out, time.perf_counter())
     done = {}
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():

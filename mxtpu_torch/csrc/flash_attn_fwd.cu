@@ -53,12 +53,9 @@
 // - f32 q fragments (big and small) stay in registers up to D = 64; at
 //   D = 128 they are read from shared memory and split per tile, and the
 //   kv tile is 32 keys, to stay clear of spills.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -74,136 +71,10 @@ struct Cfg {
   static constexpr int kBlockN = (kF32 && D == 128) ? 32 : 64;  // keys/tile
   static constexpr int kLd = D + 16 / (int)sizeof(T);  // padded row, elements
   static constexpr bool kQInSmem = kF32 && D == 128;
-  static constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16 B per row
   // q tile, then K[2] and V[2] kv tiles
   static constexpr size_t kSmemBytes =
       (size_t)(kBlockM + 4 * kBlockN) * kLd * sizeof(T);
 };
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
-// from zero: the rounding of cvt.rna.tf32.f32, written as an integer add
-// and mask because ptxas expands that cvt into a compare-and-select
-// sequence on sm_90a, which made the splits most of the f32 kernel's work
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32 (3xTF32 operand split)
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// 2^x by the SFU (ex2.approx.ftz: ~2 ulp; a result below 2^-126, which
-// adds nothing next to the row's p = 1 at its max, is flushed to 0;
-// 2^-inf = 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += small*big + big*small + big*big: the small cross terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4],
-                                           uint32_t bb0, uint32_t bb1,
-                                           uint32_t bs0, uint32_t bs1) {
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Rows [row0, row0 + kRows) of a (n_rows, D) matrix into a padded shared
-// tile; rows past n_rows are zero-filled and never read.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
-                                          int n_rows, bool vec, int tid) {
-  using C = Cfg<T, D>;
-  constexpr int kE = 16 / sizeof(T);  // elements per 16-byte chunk
-  static_assert(kRows * C::kChunks % kThreads == 0, "whole rounds of copies");
-#pragma unroll
-  for (int i = 0; i < kRows * C::kChunks / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / C::kChunks;
-    const int e0 = (c % C::kChunks) * kE;
-    const int gr = row0 + r;
-    const bool ok = gr < n_rows;
-    T* d = dst + r * C::kLd + e0;
-    if (vec) {
-      cp_async16(d, src + (size_t)(ok ? gr : 0) * D + e0, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kE; ++e)
-        d[e] = ok ? src[(size_t)gr * D + e0 + e] : from_f32<T>(0.f);
-    }
-  }
-}
 
 // Per-warp fragments of q, held for the whole kv loop (unless kQInSmem).
 template <typename T, int D, bool kF32 = Cfg<T, D>::kF32>
@@ -268,11 +139,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool warp_live = wrow0 < t_len;
   const int warp_last = min(wrow0 + 15, t_len - 1);
 
-  load_rows<T, D, kBlockM>(sQ, qb, row0, t_len, vec, tid);
+  load_rows<T, D, kLd, kBlockM, kThreads>(sQ, qb, row0, t_len, vec, tid);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_rows<T, D, kN>(sK, kb, 0, s_len, vec, tid);
-    load_rows<T, D, kN>(sV, vb, 0, s_len, vec, tid);
+    load_rows<T, D, kLd, kN, kThreads>(sK, kb, 0, s_len, vec, tid);
+    load_rows<T, D, kLd, kN, kThreads>(sV, vb, 0, s_len, vec, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();  // q has landed
@@ -305,10 +176,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kv0 = it * kN;
     const int stage = it & 1;
     if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_rows<T, D, kN>(sK + (stage ^ 1) * kN * kLd, kb, kv0 + kN, s_len,
-                          vec, tid);
-      load_rows<T, D, kN>(sV + (stage ^ 1) * kN * kLd, vb, kv0 + kN, s_len,
-                          vec, tid);
+      load_rows<T, D, kLd, kN, kThreads>(sK + (stage ^ 1) * kN * kLd, kb,
+                                         kv0 + kN, s_len, vec, tid);
+      load_rows<T, D, kLd, kN, kThreads>(sV + (stage ^ 1) * kN * kLd, vb,
+                                         kv0 + kN, s_len, vec, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile has landed
@@ -487,20 +358,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int n_qt = (t_len + kBlockM - 1) / kBlockM;
   if (n_qt > 65535) return cudaErrorInvalidValue;
   auto kernel = flash_fwd_kernel<T, D, kLse>;
-  if (C::kSmemBytes > 48 * 1024) {  // once per instance and device
-    static std::atomic<unsigned long long> allowed{0};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = 1ull << (dev & 63);
-    if (!(allowed.load() & bit)) {
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)C::kSmemBytes);
-      if (err != cudaSuccess) return err;
-      allowed.fetch_or(bit);
-    }
-  }
+  static std::atomic<unsigned long long> allowed{0};  // per instance
+  const cudaError_t err = allow_smem(kernel, C::kSmemBytes, allowed);
+  if (err != cudaSuccess) return err;
   const dim3 grid(bh, n_qt);
   kernel<<<grid, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -22,7 +22,11 @@ The gradient is ``FlashAttentionFunction``, the counterpart of the
 output and the row log-sum-exp (natural log; +inf for a row with no live
 key), and its backward is the CUDA kernel ``csrc/flash_attn_bwd.cu`` on
 the card or ``flash_attention_backward_reference`` on the CPU, both the
-standard recompute from the log-sum-exp, never a T x S matrix.
+standard recompute from the log-sum-exp, never a T x S matrix. The
+backward kernel also runs its products on the tensor cores (3xTF32 for
+float32, bf16 MMA with P and dS rounded to bf16 as operands), in a dK/dV
+and a dQ kernel that each write their output tiles once: no atomics, so
+a repeated call gives the same bits.
 ``flash_attention_backward.launches`` counts backward kernel calls. A
 call with no gradient to keep (inference) runs the forward alone and
 asks the kernel for no log-sum-exp.
@@ -177,22 +181,29 @@ _kernel_lock = threading.Lock()
 _kernel_fns = {}
 
 
+def bind(lib, name):
+    """(launcher, error_string) of kernel ``name`` in the ctypes library
+    ``lib``, with their C signatures set: the one binding of the
+    launchers' interface (``chip_smoke.py --parent`` binds another tree's
+    build with it too)."""
+    fn = getattr(lib, name)
+    n_ptr = 5 if name == KERNEL else 10
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, _ERROR_STRING[name])
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
 def _kernel(name=KERNEL):
     """(launcher, error_string) of kernel library ``name``, built and
     bound on first use."""
     with _kernel_lock:
         if name not in _kernel_fns:
             from .. import build
-            lib = build.load(name)
-            fn = getattr(lib, name)
-            n_ptr = 5 if name == KERNEL else 10
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = getattr(lib, _ERROR_STRING[name])
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            _kernel_fns[name] = (fn, err)
+            _kernel_fns[name] = bind(build.load(name), name)
         return _kernel_fns[name]
 
 
@@ -202,9 +213,11 @@ def _raise_on(rc, name, err):
                          % (name, err(rc).decode(), rc))
 
 
-def _flash_cuda(q, k, v, causal, scale, want_lse=False):
-    check_kernel_inputs(q, k, v)
-    fn, err = _kernel()
+def _launch(kernel, q, k, v, causal, scale, want_lse=False):
+    """out (and lse) of one call of the forward launcher ``kernel`` (a
+    ``bind`` pair) on checked inputs, on q's current stream. Counts
+    nothing."""
+    fn, err = kernel
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
@@ -215,12 +228,21 @@ def _flash_cuda(q, k, v, causal, scale, want_lse=False):
                 lse.data_ptr() if want_lse else None, b * h, t, k.shape[2],
                 d, scale, int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _raise_on(rc, KERNEL, err)
-    with _kernel_lock:
-        flash_attention.launches += 1
     return (out, lse) if want_lse else out
 
 
+def _flash_cuda(q, k, v, causal, scale, want_lse=False):
+    check_kernel_inputs(q, k, v)
+    res = _launch(_kernel(), q, k, v, causal, scale, want_lse=want_lse)
+    with _kernel_lock:
+        flash_attention.launches += 1
+    return res
+
+
 def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
+    """(dq, dk, dv) from the backward kernel (delta, dK/dV and dQ
+    launches on the current stream, products on the tensor cores), after
+    the checks; one count of ``flash_attention_backward.launches``."""
     check_kernel_inputs(q, k, v)
     for name, x, like in (("out", out, q), ("dout", dout, q)):
         if x.shape != like.shape or x.dtype != like.dtype or \
@@ -234,7 +256,18 @@ def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
         raise MXNetError("flash_attention_backward kernel: lse must be a "
                          "contiguous float32 %s on %s"
                          % (tuple(q.shape[:3]), q.device))
-    fn, err = _kernel(BWD_KERNEL)
+    res = _launch_bwd(_kernel(BWD_KERNEL), q, k, v, out, dout, lse, causal,
+                      scale)
+    with _kernel_lock:
+        flash_attention_backward.launches += 1
+    return res
+
+
+def _launch_bwd(kernel, q, k, v, out, dout, lse, causal, scale):
+    """(dq, dk, dv) of one call of the backward launcher ``kernel`` (a
+    ``bind`` pair) on checked inputs, on q's current stream. Counts
+    nothing."""
+    fn, err = kernel
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -248,8 +281,6 @@ def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
                 k.shape[2], d, scale, int(bool(causal)),
                 _DTYPE_CODES[q.dtype], stream)
     _raise_on(rc, BWD_KERNEL, err)
-    with _kernel_lock:
-        flash_attention_backward.launches += 1
     return dq, dk, dv
 
 

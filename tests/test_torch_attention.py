@@ -5,9 +5,10 @@ CPU, as the JAX package's own tests run it. float32 within atol 1e-4,
 bfloat16 within 2e-2 (p is rounded to bf16 at different points of the
 two online softmaxes). Also the wrapper's dispatch: a CPU tensor takes the
 plain version and launches nothing, the kernel's input checks raise, and
-the module has no try/fallback. Then chip_smoke's flash bound (f32 on the
-tensor cores as 3xTF32) and its reading of ptxas, and a CPU emulation of
-the kernel's f32 arithmetic that shows why it runs 3xTF32."""
+the module has no try/fallback. Then chip_smoke's flash bounds (f32 on
+the tensor cores as 3xTF32) and its reading of ptxas, and CPU emulations
+of the forward's and the backward's f32 arithmetic that show why both
+run 3xTF32."""
 import ast
 import inspect
 
@@ -167,6 +168,61 @@ def test_attention_module_has_no_fallback(tt):
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
 
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd"])
+def test_one_binding_matches_each_launchers_c_signature(tt, name,
+                                                        monkeypatch):
+    """``attention.bind``, the one binding of the launchers (used by the
+    wrappers and by ``chip_smoke.py --parent``), sets the argument types
+    of the launcher's extern "C" signature in its source, and the launch
+    code shared by both (``_launch``, ``_launch_bwd``) passes each
+    argument in the place of its name there."""
+    import contextlib
+    import ctypes
+    import re
+    import types
+    torch, mt, att = tt
+    src = (mt.build.CSRC_DIR / (name + ".cu")).read_text()
+    sig = re.search(r'extern "C" int %s\((.*?)\)' % name, src, re.S)
+    params = [p.split() for p in sig.group(1).split(",")]
+    names = [p[-1].lstrip("*") for p in params]
+    types_ = [ctypes.c_void_p if "*" in "".join(p) else
+              {"int": ctypes.c_int, "float": ctypes.c_float}[p[-2]]
+              for p in params]
+    calls = []
+
+    def launcher(*args):
+        calls.append(dict(zip(names, args)))
+        return 0
+
+    lib = types.SimpleNamespace(**{name: launcher,
+                                   att._ERROR_STRING[name]: lambda rc: b""})
+    kernel = att.bind(lib, name)
+    assert kernel[0].argtypes == types_
+    assert kernel[1].argtypes == [ctypes.c_int]
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(
+                            cuda_stream=1234))
+    q = torch.zeros(2, 3, 5, 32)
+    k, v = torch.zeros(2, 3, 7, 32), torch.ones(2, 3, 7, 32)
+    want = dict(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), bh=6,
+                t_len=5, s_len=7, d=32, scale=0.5, causal=1, dtype=0,
+                stream=1234)
+    if name == att.KERNEL:
+        out, lse = att._launch(kernel, q, k, v, True, 0.5, want_lse=True)
+        want.update(o=out.data_ptr(), lse=lse.data_ptr())
+    else:
+        o, g, lse = q + 1, q + 2, torch.zeros(2, 3, 5)
+        dq, dk, dv = att._launch_bwd(kernel, q, k, v, o, g, lse, True, 0.5)
+        want.update(o=o.data_ptr(), dout=g.data_ptr(), lse=lse.data_ptr(),
+                    dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr())
+        assert calls[0]["delta"] not in want.values()  # its own scratch
+        want["delta"] = calls[0]["delta"]
+    assert calls == [want]
+    assert sorted(want) == sorted(names)
+
+
 def test_chip_smoke_counts_the_flash_bound_on_the_tensor_cores(tt):
     """chip_smoke's flash bound at the served shape (causal, H=12,
     T=S=1024, D=64): f32 as three TF32 passes at 495 TFLOP/s, bf16 by
@@ -188,11 +244,14 @@ def test_chip_smoke_counts_the_backward_bound_at_each_types_peak(tt):
     """chip_smoke's flash backward bound at the LM's shape: the five
     products the gradient needs (16.12 GFLOP at B=4), f32 as three TF32
     passes at 495 TFLOP/s, bf16 at 989 TFLOP/s (above its 0.0151 ms of
-    bytes); the CUDA-core f32 figure of the kernel's route beside."""
+    bytes); beside it the figure of the kernels' own route, their seven
+    products (22.57 GFLOP) at the same peaks."""
     torch = tt[0]
     import chip_smoke
     served = (12, 1024, 1024, 64, True)
     assert abs(chip_smoke.backward_flops(4, *served) - 16.121856e9) < 1e3
+    assert abs(chip_smoke.backward_flops(4, *served, products=7)
+               - 22.5705984e9) < 1e3
     cases = [(4, torch.float32, 0.0977, "operations"),
              (1, torch.float32, 0.0244, "operations"),
              (4, torch.bfloat16, 0.0163, "operations")]
@@ -200,7 +259,11 @@ def test_chip_smoke_counts_the_backward_bound_at_each_types_peak(tt):
         ms, by = chip_smoke.backward_bound_ms(b, *served, dtype)
         assert by == want_by
         assert abs(ms - want_ms) < 5e-5, (b, dtype, ms)
-    assert abs(chip_smoke.backward_cuda_core_ms(4, *served) - 0.2406) < 5e-5
+    for b, dtype, want_ms in [(4, torch.float32, 0.1368),
+                              (4, torch.bfloat16, 0.0228),
+                              (1, torch.float32, 0.0342)]:
+        ms = chip_smoke.backward_route_ms(b, *served, dtype)
+        assert abs(ms - want_ms) < 5e-5, (b, dtype, ms)
 
 
 def test_chip_smoke_reads_ptxas_per_instance():
@@ -283,3 +346,61 @@ def test_3xtf32_keeps_the_f32_gate_where_one_tf32_pass_does_not(tt, causal):
     assert err3.item() <= 2e-4
     assert err1.item() > 2e-4
     assert err1.item() > 100 * err3.item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_keeps_the_backward_gate_where_one_tf32_pass_does_not(
+        tt, causal):
+    """Why the f32 backward runs 3xTF32: emulated on the CPU at D=64,
+    T=S=256, the 3xTF32 gradients stay within chip_smoke's BWD_TOL (1e-4
+    of max(1, |plain|)) of the plain version, and one TF32 pass breaks
+    it."""
+    torch, _, att = tt
+    import chip_smoke
+    tol = chip_smoke.BWD_TOL[torch.float32]
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(1, 2, 256, 64)
+                                   .astype(np.float32)) for _ in range(4))
+    out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    want = att.flash_attention_backward_reference(q, k, v, out, g, lse,
+                                                  causal=causal)
+
+    def err(passes):
+        got = chip_smoke.emulated_backward(q, k, v, out, g, lse, causal,
+                                           passes)
+        return max(chip_smoke.rel_err(a, w) for a, w in zip(got, want))
+
+    err3, err1 = err(3), err(1)
+    assert err3 <= tol
+    assert err1 > tol
+    assert err1 > 100 * err3
+
+
+def test_truncating_mma_accumulation_accounts_for_the_backward_error(tt):
+    """Where the f32 backward's error against the plain version comes
+    from: at the LM's causal T=S=1024 and D=64, the 3xTF32 emulation
+    reads about 1e-6 (scaled) when each MMA rounds its f32 sum to nearest,
+    and over ten times that when the sum is truncated as the tensor cores
+    truncate it (chip_smoke phase 3c holds the kernel against both
+    models); truncated, it is still inside BWD_TOL."""
+    torch, _, att = tt
+    import chip_smoke
+    tol = chip_smoke.BWD_TOL[torch.float32]
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(1, 1, 1024, 64)
+                                   .astype(np.float32)) for _ in range(4))
+    out, lse = att.flash_attention_reference(q, k, v, causal=True,
+                                             return_lse=True)
+    want = att.flash_attention_backward_reference(q, k, v, out, g, lse,
+                                                  causal=True)
+
+    def err(acc):
+        got = chip_smoke.emulated_backward(q, k, v, out, g, lse, True, 3,
+                                           acc)
+        return max(chip_smoke.rel_err(a, w) for a, w in zip(got, want))
+
+    rn, tc = err("rn"), err("tc")
+    assert rn < 2e-6
+    assert tc > 10 * rn
+    assert tc <= tol

@@ -2,7 +2,9 @@
 flash attention within 2e-4 (f32, 3xTF32 on the tensor cores) and 2e-2
 (bf16) at the edges of its 64-row tiles, every head dim, no keys, and
 storage offsets; its log-sum-exp within 1e-4; the flash backward within
-1e-4 (f32) and 2e-2 (bf16) of max(1, |plain|) at the same edges; the
+1e-4 (f32) and 2e-2 (bf16) of max(1, |plain|) at the edges of its 16-
+and 64-row tiles, every head dim, no keys, unaligned storage and NaN
+stored past the ends, bit-identical when repeated; the
 BN-apply+ReLU epilogue bit for bit (NaN positions included) at
 ResNet-50's served shapes; and a Module training step on gpu(0) against
 the same step on cpu().
@@ -294,6 +296,121 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype, tol,
     for a, w in zip(got, want):
         assert a.dtype == dt and a.shape == w.shape
         assert _scaled_err(torch, a, w) <= tol
+
+
+def _bwd_case(torch, att, t, s, d, dt, causal, seed, offset=0, tail=0,
+              b=1, h=2):
+    """The backward kernel on q, k, v, dO that are each a contiguous view
+    ``offset`` elements into a buffer holding NaN before and ``tail``
+    elements after it (the lse likewise), held to the plain version
+    within 1e-4 (float32) or 2e-2 (bfloat16) of max(1, |plain|), and a
+    second call held to the first bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(shape, dtype, fill=None):
+        n = 1
+        for x in shape:
+            n *= x
+        buf = torch.full((offset + n + tail,), float("nan"), device="cuda",
+                         dtype=dtype)
+        buf[offset:offset + n] = (torch.randn(n, device="cuda", generator=g)
+                                  if fill is None else fill.reshape(-1))
+        return buf[offset:offset + n].view(shape)
+
+    q, k, v, do = (make((b, h, n, d), dt) for n in (t, s, s, t))
+    out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    lse = make(lse.shape, torch.float32, fill=lse)
+    before = att.flash_attention_backward.launches
+    got = att.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
+    again = att.flash_attention_backward(q, k, v, out, do, lse,
+                                         causal=causal)
+    want = att.flash_attention_backward_reference(q, k, v, out, do, lse,
+                                                  causal=causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention_backward.launches == before + 2
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    for a, r, w in zip(got, again, want):
+        assert a.dtype == dt and a.shape == w.shape
+        assert _scaled_err(torch, a, w) <= tol
+        assert torch.equal(a, r)
+    return got
+
+
+BWD_EDGES = [1, 15, 16, 17, 63, 64, 65, 127, 129]  # 16-row warp, 64-row tiles
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", BWD_EDGES)
+@pytest.mark.parametrize("t", BWD_EDGES)
+def test_flash_backward_tile_edges(cuda, dtype, causal, t, s):
+    """Partial warp and block tiles on both sides, T != S under the
+    causal mask (top-left aligned), a single row or key."""
+    torch, att = cuda
+    _bwd_case(torch, att, t, s, 64, getattr(torch, dtype), causal,
+              seed=t * 1000 + s)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t,s", [(17, 15), (65, 129), (129, 63), (200, 200),
+                                 (64, 0), (1, 0)])
+def test_flash_backward_head_dims(cuda, dtype, causal, d, t, s):
+    """Every head dim (D=128 streams 32-row tiles), and S = 0, where dq
+    is 0 and dk, dv are empty."""
+    torch, att = cuda
+    dq, dk, dv = _bwd_case(torch, att, t, s, d, getattr(torch, dtype),
+                           causal, seed=7 * t + s + d, b=2, h=3)
+    if s == 0:
+        assert not dq.float().abs().max().item()
+        assert dk.numel() == dv.numel() == 0
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    ("float32", 4), ("bfloat16", 8), ("float32", 1), ("bfloat16", 1),
+    ("float32", 3), ("bfloat16", 5)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_storage_offsets(cuda, dtype, offset, causal):
+    """Views 16 bytes into their storage (the cp.async path) and views
+    that are not 16-byte aligned (plain loads into the same ring)."""
+    torch, att = cuda
+    _bwd_case(torch, att, 130, 190, 64, getattr(torch, dtype), causal,
+              seed=offset, offset=offset)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,s,d", [(65, 129, 64), (129, 65, 64),
+                                   (33, 70, 128), (70, 33, 32)])
+def test_flash_backward_nan_past_the_ends_never_leaks(cuda, dtype, causal, t,
+                                                      s, d):
+    """NaN stored past the end of q, k, v, dO and lse (and, at offset 1,
+    before them) is never read: the gradients stay finite and agree."""
+    torch, att = cuda
+    got = _bwd_case(torch, att, t, s, d, getattr(torch, dtype), causal,
+                    seed=t + s, tail=4096)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _bwd_case(torch, att, t, s, d, getattr(torch, dtype), causal,
+              seed=t + s + 1, offset=1, tail=64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_is_bit_identical_on_repeat(cuda, dtype):
+    """No atomics: at the LM's shape (causal, H=12, T=S=1024, D=64) five
+    calls give the same dq, dk and dv bit for bit."""
+    torch, att = cuda
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(1, 12, 1024, 64, device="cuda", generator=g)
+                   .to(dt) for _ in range(4))
+    out, lse = att._flash_cuda(q, k, v, True, 0.125, want_lse=True)
+    first = att.flash_attention_backward(q, k, v, out, do, lse, causal=True)
+    for _ in range(4):
+        again = att.flash_attention_backward(q, k, v, out, do, lse,
+                                             causal=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_flash_autograd_on_the_card_runs_both_kernels(cuda):

@@ -119,3 +119,24 @@ def test_import_builds_nothing_and_finds_the_sources(mt):
     assert "arch=compute_90a,code=sm_90a" in mt.build.NVCC_FLAGS
     with pytest.raises(mt.MXNetError, match="no kernel source"):
         mt.build._target("missing_kernel")
+
+
+def test_editing_a_shared_header_changes_every_library_name(mt, tmp_path,
+                                                            monkeypatch):
+    """A library's name digests its source and every csrc/*.cuh header,
+    so an edited header builds anew instead of reusing a stale library;
+    an unchanged tree keeps its name."""
+    for p in (PKG / "csrc").iterdir():
+        if p.suffix in (".cu", ".cuh"):
+            (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(mt.build, "CSRC_DIR", tmp_path)
+    before = {n: mt.build._target(n)[1].name for n in mt.build.sources()}
+    assert before == {n: mt.build._target(n)[1].name
+                      for n in mt.build.sources()}
+    header = tmp_path / "mma_sm90.cuh"
+    assert header.exists()
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: mt.build._target(n)[1].name for n in mt.build.sources()}
+    assert all(after[n] != before[n] for n in before)
+    (tmp_path / "new_helpers.cuh").write_text("// a new header\n")
+    assert all(mt.build._target(n)[1].name != after[n] for n in after)
