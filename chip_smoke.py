@@ -153,7 +153,21 @@ EPILOGUE_CASES = [((401408, 64), -1), ((1568, 2048), -1),
                   ((32, 64, 112, 112), 1), ((32, 2048, 7, 7), 1),
                   ((1000, 72), -1), ((999, 37), -1)]
 EPILOGUE_MAIN = ((32, 64, 112, 112), 1)  # bn0 at bucket 32, as served
-PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training")
+# ResNet-50 v2 trained through Module.fit (phase 7), as mxtpu's bench.py
+# configures its headline run (bench.py:535-559): B=256, Xavier gaussian
+# "in" magnitude 2, SGD lr 0.1, momentum 0.9, rescale 1/B; 512 seeded
+# images for 4 epochs (8 steps), prefetched onto the card, a checkpoint
+# at each epoch's end
+RESNET_TRAIN = dict(batch=256, images=512, epochs=4, warmup=2, lr=0.1,
+                    momentum=0.9, copy_steps=3)
+# bench.py:23: 3 x (2 x 4.089 GFLOP) a trained image (forward + backward)
+RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
+# the one-step gate of phase 7: resnet-8 at B=32 (mxtpu's tests' size)
+RESNET8 = dict(num_classes=10, num_layers=8, image_shape=(3, 28, 28))
+RESNET8_BATCH = 32
+RESNET8_LR = 0.1
+PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
+          "resnet_training")
 
 
 def log(*a):
@@ -1350,20 +1364,27 @@ def profile_step(mod, x, y, mt):
                              for e in events}}
 
 
-def _grads_f64(mt, sym, weights, x, y):
+def _grads_f64(mt, sym, weights, x, y, aux=None):
     """The gradient of every parameter in float64 on the CPU (the
-    executor with float64 arrays), from ``weights`` (cpu NDArrays)."""
-    args = {n: mt.nd.NDArray(v._data.double(), mt.cpu())
-            for n, v in weights.items()}
-    args["data"] = mt.nd.NDArray(torch.from_numpy(x).double(), mt.cpu())
-    args["softmax_label"] = mt.nd.NDArray(torch.from_numpy(y).double(),
-                                          mt.cpu())
+    executor with float64 arrays), from ``weights`` (cpu NDArrays); with
+    ``aux`` (cpu NDArrays) also the aux values that training forward
+    wrote back, as (grads, aux)."""
+    def f64(t):
+        return mt.nd.NDArray(t.double(), mt.cpu())
+
+    args = {n: f64(v._data) for n, v in weights.items()}
+    args["data"] = f64(torch.from_numpy(x))
+    args["softmax_label"] = f64(torch.from_numpy(y))
     grads = {n: mt.nd.NDArray(torch.zeros_like(v._data), mt.cpu())
              for n, v in args.items() if n in weights}
-    exe = sym.bind(mt.cpu(), args, args_grad=grads)
+    aux64 = {n: f64(v._data) for n, v in (aux or {}).items()}
+    exe = sym.bind(mt.cpu(), args, args_grad=grads, aux_states=aux64)
     exe.forward(is_train=True)
     exe.backward()
-    return {n: g._data.numpy() for n, g in grads.items()}
+    g = {n: t._data.numpy() for n, t in grads.items()}
+    if aux is None:
+        return g
+    return g, {n: v._data.numpy() for n, v in aux64.items()}
 
 
 def train_step_vs_cpu(mt, seed):
@@ -1464,6 +1485,429 @@ def train_step_vs_cpu(mt, seed):
     return res
 
 
+def resnet_train_data(seed):
+    """512 seeded images in [0, 1) (308 MB f32) and labels of 1000
+    classes, as bench.py makes its batch."""
+    rng = np.random.RandomState(seed)
+    n = RESNET_TRAIN["images"]
+    x = rng.rand(n, *RESNET["image_shape"]).astype(np.float32)
+    y = rng.randint(0, RESNET["num_classes"], n).astype(np.float32)
+    return x, y
+
+
+class TimedCallback:
+    """An epoch-end callback timed on the host clock, device work before
+    and after it synchronized."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.ms = []
+
+    def __call__(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.fn(*args)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+def phase_resnet_training(mt, epi, seed, card, profile=False):
+    """ResNet-50 v2 at 224x224 trained through Module.fit on gpu(0): f32
+    with TF32 off, B=256, Xavier weights from a numpy seed, SGD, 4 epochs
+    over 512 seeded images with ``device_prefetch`` and a ``do_checkpoint``
+    at each epoch's end, acc and ce on the device. Gates: a finite
+    cross-entropy at every step that ends lower than it starts; every
+    moving statistic finite and moved; the last checkpoint reloaded by
+    ``Module.load`` on gpu(0) bit for bit the live params and statistics;
+    the trained model's evaluation forward launching the epilogue once at
+    each of its 50 sites and within 1e-4 of the same forward through the
+    epilogue's plain version; and resnet-8's one-step gate
+    (``resnet8_step_vs_cpu``). Reports step ms, images/s, MFU, peak
+    memory, the input copy with and without the prefetcher, the device
+    time of the BatchNorm-train->ReLU pairs on their own, and with
+    ``profile`` one step's device time by kernel."""
+    import tempfile
+    cfg = RESNET_TRAIN
+    b, epochs = cfg["batch"], cfg["epochs"]
+    steps = epochs * cfg["images"] // b
+    sym = mt.models.get_resnet(**RESNET)
+    t0 = time.perf_counter()
+    x, y = resnet_train_data(seed)
+    log("  %d seeded images (%.0f MB f32) in %.1f s"
+        % (len(x), x.nbytes / 1e6, time.perf_counter() - t0))
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    ce, stamps = [], []
+
+    def record(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ce.append(dict(zip(*param.eval_metric.get()))["cross-entropy"])
+        param.eval_metric.reset()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    prefix = os.path.join(tmp, "resnet50")
+    ckpt = TimedCallback(mt.callback.do_checkpoint(prefix))
+    try:
+        np.random.seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        epi.bn_apply_relu_add.launches = 0  # the training walk fuses none
+        t_start = time.perf_counter()
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=b), num_epoch=epochs,
+                eval_metric=["acc", "ce"], optimizer="sgd",
+                optimizer_params={"learning_rate": cfg["lr"],
+                                  "momentum": cfg["momentum"],
+                                  "rescale_grad": 1.0 / b},
+                initializer=mt.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2),
+                batch_end_callback=record, epoch_end_callback=ckpt,
+                metric_sync=1, device_prefetch=True)
+        peak = torch.cuda.max_memory_allocated()
+        train_launches = epi.bn_apply_relu_add.launches
+        ms = [float(v) for v in np.diff([t_start] + stamps) * 1e3]
+        log("  cross-entropy by step: %s" % [round(v, 4) for v in ce])
+        if len(ce) != steps or not np.all(np.isfinite(ce)) or \
+                not ce[-1] < ce[0]:
+            raise AssertionError("ResNet-50 training did not lower a finite "
+                                 "cross-entropy: %s" % ce)
+        if train_launches:
+            raise AssertionError("the training walk launched the epilogue "
+                                 "%d times" % train_launches)
+        warm = np.array(ms[cfg["warmup"]:])
+        # every other step opens an epoch, after the last epoch's
+        # checkpoint and the iterator's reset
+        inner = np.array(ms[1::2][1:])
+        row = dict(batch=b, steps=steps, ce=ce, step_ms=ms,
+                   step_ms_mean=float(warm.mean()),
+                   step_ms_within_epoch=float(inner.mean()),
+                   checkpoint_ms=ckpt.ms,
+                   images_per_s=float(b / (warm.mean() / 1e3)),
+                   max_memory_allocated=int(peak))
+        row["mfu"] = row["images_per_s"] * RESNET_FLOPS_PER_IMAGE / \
+            PEAK_OPS_PER_S[torch.float32]
+        log("  [%s] step ms %s; mean after %d warm-up steps %.2f ms (%.1f "
+            "images/s, MFU %.1f%% of 67 TFLOP/s f32); steps inside an epoch "
+            "%.2f ms; epoch-end checkpoints %s ms; max_memory_allocated "
+            "%.2f GB" % (card, [round(v, 1) for v in ms], cfg["warmup"],
+                         row["step_ms_mean"], row["images_per_s"],
+                         100.0 * row["mfu"], row["step_ms_within_epoch"],
+                         [round(v, 1) for v in ckpt.ms], peak / 1e9))
+
+        args, aux = mod.get_params()
+        for name, v in aux.items():
+            t = v._data
+            init = 0.0 if name.endswith("_moving_mean") else 1.0
+            if not bool(torch.isfinite(t).all()) or \
+                    bool((t == init).all()):
+                raise AssertionError("moving statistic %s is not finite or "
+                                     "did not move" % name)
+        row["checkpoint_reload"] = check_checkpoint_reload(
+            mt, prefix, epochs, sym, (args, aux), b)
+        batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
+                                [mt.nd.array(y[:b], ctx=mt.cpu())])
+        row.update(eval_forward_gate(mt, epi, mod, batch))
+        row["input_copy_ms"] = time_input_copy(mt, mod, x, y, card)
+        if profile:
+            row["profile"] = profile_resnet_step(mt, mod, batch)
+        row["bn_relu_pairs"] = pairs = time_bn_relu_pairs(mt, sym, b, card)
+        log("  the pairs' forward+backward against the step: %.1f%% of its "
+            "host-clock mean" % (100.0 * pairs["fwd_bwd_ms"]
+                                 / row["step_ms_mean"]))
+        if profile:
+            dev = row["profile"]["device_ms"]
+            # as phase 6 estimates it: a run's host-clock mean less one
+            # profiled step's device time
+            row["idle_share_estimate"] = 1.0 - dev / row["step_ms_mean"]
+            log("  ... %.1f%% of the profiled step's %.2f ms of device "
+                "time; idle share, an estimate: %.1f%%"
+                % (100.0 * pairs["fwd_bwd_ms"] / dev, dev,
+                   100.0 * row["idle_share_estimate"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del mod
+    torch.cuda.empty_cache()
+    row["resnet8_step"] = resnet8_step_vs_cpu(mt, seed)
+    return row
+
+
+def check_checkpoint_reload(mt, prefix, epoch, sym, live, b):
+    """The epoch's checkpoint, loaded by Module.load on gpu(0), gives the
+    live params and statistics bit for bit."""
+    mod = mt.mod.Module.load(prefix, epoch, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (b,) + RESNET["image_shape"])],
+             label_shapes=[("softmax_label", (b,))], for_training=False)
+    if mod.symbol.tojson() != sym.tojson():
+        raise AssertionError("the checkpoint's symbol is not the model's")
+    worst = 0
+    for want, got in zip(live, mod.get_params()):
+        if sorted(want) != sorted(got):
+            raise AssertionError("the checkpoint names other arrays")
+        for k in want:
+            if not torch.equal(want[k]._data, got[k]._data):
+                worst += 1
+    log("  checkpoint of epoch %d reloaded on gpu(0): %d arrays, %d not "
+        "bit-identical" % (epoch, sum(map(len, live)), worst))
+    if worst:
+        raise AssertionError("%d reloaded arrays differ from the live ones"
+                             % worst)
+    del mod
+    return {"arrays": sum(map(len, live)), "differ": worst}
+
+
+def eval_forward_gate(mt, epi, mod, batch):
+    """The trained model's evaluation forward on one batch: the epilogue
+    kernel launches once per fused site, and the output is within 1e-4 of
+    the same forward with each site through the epilogue's plain version
+    (on the same card, the same trained statistics)."""
+    from mxtpu_torch.ops import nn as nn_ops
+    epi.bn_apply_relu_add.launches = 0
+    mod.forward(batch, is_train=False)
+    got = mod.get_outputs()[0]._data.clone()
+    torch.cuda.synchronize()
+    launches = epi.bn_apply_relu_add.launches
+    kernel = nn_ops.bn_apply_relu_add
+
+    def plain(x, scale, shift, residual=None, axis=-1, **_):
+        return epi.bn_apply_relu_add_reference(x, scale, shift, residual,
+                                               axis)
+
+    nn_ops.bn_apply_relu_add = plain
+    try:
+        mod.forward(batch, is_train=False)
+        want = mod.get_outputs()[0]._data.clone()
+    finally:
+        nn_ops.bn_apply_relu_add = kernel
+    err = float((got - want).abs().max())
+    sites = mod._exec.fused_sites
+    log("  trained model's evaluation forward (B=%d): %d fused sites, "
+        "epilogue launches %d; vs the plain epilogue max abs err %.3e; "
+        "rows finite %s" % (got.shape[0], sites, launches, err,
+                            bool(torch.isfinite(got).all())))
+    if sites != RESNET_SITES or launches != RESNET_SITES:
+        raise AssertionError("evaluation forward: %d sites, %d epilogue "
+                             "launches (want %d)" % (sites, launches,
+                                                     RESNET_SITES))
+    if not err <= 1e-4 or not bool(torch.isfinite(got).all()):
+        raise AssertionError("evaluation forward disagrees with the plain "
+                             "epilogue: %g" % err)
+    return {"eval_launches": launches, "eval_max_abs_err": err}
+
+
+def time_input_copy(mt, mod, x, y, card):
+    """Host-clock ms to get a batch into the bound input arrays, over
+    ``copy_steps`` training steps each: from the host (NDArrayIter, a
+    pageable copy in ``Module._load_batch``) and through a
+    DevicePrefetchIter (the wait on the staged batch and a device-to-
+    device copy). Each step trains between the copies, so the producer
+    can stage the next batch meanwhile."""
+    b, n = RESNET_TRAIN["batch"], RESNET_TRAIN["copy_steps"]
+    # n batches: the images again from the start where they run out
+    x = np.concatenate([x] * -(-n * b // len(x)))[:n * b]
+    y = np.concatenate([y] * -(-n * b // len(y)))[:n * b]
+    out = {}
+    for how in ("host", "prefetch", "prefetch", "host"):
+        it = mt.io.NDArrayIter(x, y, batch_size=b)
+        if how == "prefetch":
+            it = mt.io.DevicePrefetchIter(it, device=mt.gpu(0))
+        ms = []
+        try:
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(it)
+                mod._load_batch(batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                mod._exec.forward(is_train=True)
+                mod._exec.backward()
+                mod.update()
+                torch.cuda.synchronize()
+        finally:
+            if how == "prefetch":
+                it.close()
+        out.setdefault(how, []).extend(ms)
+    log("  [%s] input copy of a B=%d batch (%.0f MB), host clock to a sync,"
+        " %d steps x 2 turns: from the host %s ms (mean %.2f); through the "
+        "prefetcher %s ms (mean %.2f)"
+        % (card, b, x[:b].nbytes / 1e6, n,
+           [round(v, 2) for v in out["host"]], np.mean(out["host"]),
+           [round(v, 2) for v in out["prefetch"]],
+           np.mean(out["prefetch"])))
+    return out
+
+
+def profile_resnet_step(mt, mod, batch):
+    """One training step (forward_backward + update) under torch.profiler:
+    device time by kernel, and grouped by kind (convolution, GEMM,
+    reduction, elementwise, copy) from the kernels' names."""
+    from torch.profiler import ProfilerActivity, profile as _prof
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    with _prof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    total = sum(e.device_time_total for e in events) / 1e3
+    kinds = {}
+    for e in events:
+        k = e.key.lower()
+        kind = ("convolution" if any(w in k for w in (
+            "conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop",
+            "winograd", "fft")) else
+            "gemm" if "gemm" in k or "cutlass" in k else
+            "reduction" if "reduce" in k else
+            "elementwise" if "elementwise" in k else
+            "copy" if "copy" in k or "memcpy" in k or "memset" in k else
+            "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3
+    log("  profiled ResNet-50 training step: %.2f ms of device time in %d "
+        "kernels; by kind %s" % (total, len(events),
+                                 {k: round(v, 2) for k, v in
+                                  sorted(kinds.items())}))
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:16]:
+        log("    %8.3f ms %5.1f%%  x%-4d %s"
+            % (e.device_time_total / 1e3,
+               100.0 * e.device_time_total / 1e3 / max(total, 1e-9),
+               e.count, e.key[:90]))
+    return {"device_ms": total, "by_kind_ms": kinds,
+            "by_kernel_ms": {e.key: e.device_time_total / 1e3
+                             for e in events}}
+
+
+def time_bn_relu_pairs(mt, sym, b, card):
+    """Device time of the step's 50 BatchNorm-train -> ReLU pairs on their
+    own: at each site's shape, the port's BatchNorm in training and the
+    ReLU forward, then their backward from a head gradient, timed with
+    CUDA events (the same ops the training walk runs there), summed over
+    the sites."""
+    op = mt.ops.registry.get_op("BatchNorm")
+    dev = mt.gpu(0).torch_device
+    bn_nodes = [n for n in sym._topo() if not n.is_variable
+                and n.op.name == "BatchNorm"]
+    shapes = mt.sym.Group([mt.symbol.Symbol([(n, 0)]) for n in bn_nodes]) \
+        .infer_shape(data=(b,) + RESNET["image_shape"])[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    total_fwd = total_all = 0.0
+    for node, shape in zip(bn_nodes, shapes):
+        a = type(node.parsed_attrs())(node.parsed_attrs())
+        a["__is_train__"] = True
+        c = shape[1]
+        x = torch.randn(shape, device=dev, generator=gen)
+        g = torch.rand(c, device=dev, generator=gen) + 0.5
+        beta = torch.zeros(c, device=dev)
+        mm, mv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        head = torch.randn(shape, device=dev, generator=gen)
+        xg, gg, bg = (t.clone().requires_grad_() for t in (x, g, beta))
+
+        def fwd():
+            with torch.no_grad():
+                return torch.relu(op.apply(a, [x, g, beta, mm, mv])[0])
+
+        def fwd_bwd():
+            y = torch.relu(op.apply(a, [xg, gg, bg, mm, mv])[0])
+            torch.autograd.grad(y, (xg, gg, bg), head)
+
+        total_fwd += cuda_ms(fwd, 3, warmup=1)
+        total_all += cuda_ms(fwd_bwd, 3, warmup=1)
+        del x, head, xg
+    torch.cuda.empty_cache()
+    log("  [%s] the %d BatchNorm-train->ReLU pairs of a B=%d step on their "
+        "own (CUDA events): forward %.2f ms, forward+backward %.2f ms"
+        % (card, len(shapes), b, total_fwd, total_all))
+    return {"sites": len(shapes), "fwd_ms": total_fwd,
+            "fwd_bwd_ms": total_all}
+
+
+def resnet8_step_vs_cpu(mt, seed):
+    """One SGD step of resnet-8 at B=32 on gpu(0) and on cpu() from the
+    same weights and statistics, against the exact step (float64 on the
+    CPU): the GPU's updated weights and moving statistics no farther from
+    it than TRAIN_CPU_FACTOR times the CPU f32 step's, and its outputs
+    (probabilities before the update) within TRAIN_OUT_RTOL of the CPU's.
+    A control step on gpu(0) with TF32 convolutions and GEMMs must fail a
+    gate."""
+    sym = mt.models.get_resnet(**RESNET8)
+    rng = np.random.RandomState(seed + 2)
+    x = rng.rand(RESNET8_BATCH, *RESNET8["image_shape"]).astype(np.float32)
+    y = rng.randint(0, RESNET8["num_classes"], RESNET8_BATCH).astype(
+        np.float32)
+    db = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                         [mt.nd.array(y, ctx=mt.cpu())])
+    np.random.seed(seed + 2)
+    got, start = {}, None
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    for run, ctx, tf32 in (("gpu", mt.gpu(0), False),
+                           ("gpu_tf32", mt.gpu(0), True),
+                           ("cpu", mt.cpu(), False)):
+        mod = mt.mod.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("softmax_label", y.shape)])
+        if start is None:
+            mod.init_params(mt.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+            start = mod.get_params()
+        else:
+            mod.init_params(arg_params=start[0], aux_params=start[1])
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": RESNET8_LR})
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            mod.forward_backward(db)
+            mod.update()
+            got[run] = (mod.get_outputs()[0].asnumpy(),) + tuple(
+                {k: v.asnumpy() for k, v in d.items()}
+                for d in mod.get_params())
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        del mod
+    g64, aux64 = _grads_f64(mt, sym, start[0], x, y, aux=start[1])
+    rescale = 1.0 / RESNET8_BATCH
+    exact_w = {k: start[0][k].asnumpy().astype(np.float64)
+               - RESNET8_LR * rescale * g for k, g in g64.items()}
+    c_out, c_w, c_a = got["cpu"]
+
+    def dist(vals, exact):
+        return max(float(np.abs(vals[k] - exact[k]).max()) for k in exact)
+
+    res = {"cpu_weight_err": dist(c_w, exact_w),
+           "cpu_stat_err": dist(c_a, aux64)}
+    for run in ("gpu", "gpu_tf32"):
+        o, w, a = got[run]
+        r = res[run] = {
+            "out_rel_err": float((np.abs(o - c_out) / np.maximum(
+                np.abs(c_out), 1e-30)).max()),
+            "weight_err": dist(w, exact_w), "stat_err": dist(a, aux64)}
+        r["weight_ratio"] = r["weight_err"] / max(res["cpu_weight_err"],
+                                                  1e-30)
+        r["stat_ratio"] = r["stat_err"] / max(res["cpu_stat_err"], 1e-30)
+        r["ok"] = (r["out_rel_err"] <= TRAIN_OUT_RTOL and
+                   r["weight_ratio"] <= TRAIN_CPU_FACTOR and
+                   r["stat_ratio"] <= TRAIN_CPU_FACTOR)
+        log("  resnet-8 SGD step (B=%d, lr %g), %s vs cpu: outputs max rel "
+            "err %.3e; distance from the exact (float64) step: weights "
+            "%.3e vs the cpu f32 step's %.3e (ratio %.2f), moving "
+            "statistics %.3e vs %.3e (ratio %.2f)"
+            % (RESNET8_BATCH, RESNET8_LR, run, r["out_rel_err"],
+               r["weight_err"], res["cpu_weight_err"], r["weight_ratio"],
+               r["stat_err"], res["cpu_stat_err"], r["stat_ratio"]))
+    if not res["gpu"]["ok"]:
+        raise AssertionError("resnet-8 gpu step disagrees with the cpu "
+                             "step: %s" % res["gpu"])
+    if res["gpu_tf32"]["ok"]:
+        raise AssertionError("the TF32 control step passed every gate: the "
+                             "gates cannot tell f32 from TF32: %s"
+                             % res["gpu_tf32"])
+    return res
+
+
 def batch_breakdown(mt, sym_json, params, x, profile, label):
     """Where one largest-bucket batch's time goes on a gpu Predictor:
     input copy, forward (to a device sync) and the answer's device->host
@@ -1525,8 +1969,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one largest-bucket forward of each "
-                         "model and one training step of the LM with "
-                         "torch.profiler and print device time by kernel")
+                         "model and one training step of the LM and of "
+                         "ResNet-50 with torch.profiler and print device "
+                         "time by kernel")
     ap.add_argument("--parent", metavar="CSRC", action="append", default=[],
                     help="the csrc directory of another tree (a parent "
                          "commit or a variant, unpacked outside the "
@@ -1608,6 +2053,11 @@ def main(argv=None):
         log("[training]")
         results["training"] = phase_training(mt, att, args.seed, card,
                                              profile=args.profile)
+    # 7. ResNet-50 training
+    if "resnet_training" in phases:
+        log("[resnet_training]")
+        results["resnet_training"] = phase_resnet_training(
+            mt, epi, args.seed, card, profile=args.profile)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1622,6 +2072,7 @@ def main(argv=None):
     epi_timed = results["epilogue_timed"]
     served, resnet = results["serving"], results["resnet"]
     trained = results["training"]
+    resnet_eval = results["resnet_training"]["eval_launches"]
     bwd_row = next(r for r in results["backward_timed"]
                    if r["dtype"] == "float32" and r["B"] == TRAIN["batch"])
     main_row = next(r for r in timed if r["dtype"] == "float32"
@@ -1640,8 +2091,9 @@ def main(argv=None):
         "name": "bn_relu_epilogue", "route": "cuda",
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
-        "launches": resnet["launches"],
-        "launches_by_path": {"resnet_serving": resnet["launches"]},
+        "launches": resnet["launches"] + resnet_eval,
+        "launches_by_path": {"resnet_serving": resnet["launches"],
+                             "resnet_training_eval": resnet_eval},
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],

@@ -10,9 +10,11 @@ card (``gpu(0)``) and raise without one unless given ``cpu()``.
 
 Ported so far: serving (Symbol, NDArray, Executor, Predictor,
 ServingSession) of the transformer LM and the image-classification zoo,
-with the flash-attention forward and BN-apply+ReLU epilogue kernels; and
+with the flash-attention forward and BN-apply+ReLU epilogue kernels;
 training through ``Module`` (``fit``, the fused update, optimizers,
-metrics, ``NDArrayIter``) with the flash-attention backward kernel.
+metrics, ``NDArrayIter``) with the flash-attention backward kernel, and
+of the conv nets with BatchNorm on batch statistics; the device
+prefetcher; and checkpoints in mxtpu's file formats (``model``).
 """
 from . import base
 from .base import MXNetError
@@ -37,6 +39,7 @@ from . import lr_scheduler
 from . import optimizer
 from . import metric
 from . import io
+from . import model
 from . import callback
 from . import module
 from . import module as mod
@@ -45,4 +48,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
-           "metric", "io", "callback", "module", "mod"]
+           "metric", "io", "model", "callback", "module", "mod"]

@@ -1,18 +1,32 @@
-"""Training callbacks (parity: python/mxnet/callback.py —
-log_train_metric, Speedometer :120).
+"""Training callbacks (parity: python/mxnet/callback.py — do_checkpoint
+:55, log_train_metric, Speedometer :120).
 
-The port's own copy of the two callbacks of ``mxtpu/callback.py`` that a
+The port's own copy of the callbacks of ``mxtpu/callback.py`` that a
 Module fit uses, without the telemetry registry (not ported). Speedometer
 reads the metric snapshot that ``fit`` takes at its metric-sync cadence
 when the metric accumulates on the device, so it forces no device sync
-of its own.
+of its own. ``do_checkpoint`` writes synchronously, where mxtpu's goes
+through its asynchronous snapshot writer (not ported); the files are
+the same either way.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer", "log_train_metric"]
+__all__ = ["do_checkpoint", "Speedometer", "log_train_metric"]
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback: ``model.save_checkpoint`` of the symbol and
+    params ``fit`` hands it, every ``period`` epochs."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -11,9 +11,13 @@ under grad mode with the bound arguments that receive a gradient as
 autograd leaves, and ``backward`` takes ``torch.autograd.grad`` of the
 outputs (head gradients: the caller's, else ones, which a loss head
 ignores) and writes or adds each gradient into its bound array in place.
+A training forward also writes each op's updated aux values (BatchNorm's
+moving statistics) into ``aux_dict`` in place, as ``mxtpu/executor.py``
+does (:196-203, :727-728); an inference forward writes nothing.
 Where XLA fuses an inference BatchNorm with its ReLU, the inference plan
 runs the pair as one pass of the epilogue kernel (``ops/epilogue.py``),
-on every device; the training plan does not fuse.
+on every device, reading the moving statistics at every forward; the
+training plan does not fuse.
 """
 from __future__ import annotations
 
@@ -43,8 +47,23 @@ def _fusable_bn(node, consumers, graph_outputs):
     return users[0]
 
 
+def _aux_sources(node, attrs):
+    """[(position among the op's aux values, name of the aux variable
+    that feeds it)] of an op node with aux_names."""
+    names = node.op.input_names(attrs)
+    out = []
+    for j, an in enumerate(node.op.aux_names):
+        src = node.inputs[names.index(an)][0]
+        if src.is_variable:
+            out.append((j, src.name))
+    return out
+
+
 def _trace_graph(symbol, is_train):
-    """Return ``run(arg_vals, aux_vals) -> outputs`` for ``symbol``.
+    """Return ``run(arg_vals, aux_vals) -> (outputs, aux_updates)`` for
+    ``symbol``; ``aux_updates`` maps an aux variable's name to the value
+    the op it feeds computed for it in a training run (later writers
+    win), and is empty at inference.
 
     The plan (topo order, parsed attrs, input slots) is built once here,
     so a forward only walks a list. At inference each fusable
@@ -63,7 +82,7 @@ def _trace_graph(symbol, is_train):
     plan = []
     for node in topo:
         if node.is_variable:
-            plan.append((node, None, None, None, None))
+            plan.append((node, None, None, None, None, ()))
             continue
         if id(node) in fused_into:
             continue
@@ -76,14 +95,17 @@ def _trace_graph(symbol, is_train):
                                                  graph_outputs)
         if relu is not None:
             fused_into.add(id(relu))
-            plan.append((node, attrs, ins, 1, (id(relu), 0)))
+            plan.append((node, attrs, ins, 1, (id(relu), 0), ()))
         else:
-            plan.append((node, attrs, ins, node.op.n_out(attrs), None))
+            aux = _aux_sources(node, attrs) \
+                if is_train and node.op.aux_names else ()
+            plan.append((node, attrs, ins, node.op.n_out(attrs), None, aux))
     out_entries = [(id(n), i) for n, i in symbol._outputs]
 
     def run(arg_vals, aux_vals):
         env = {}
-        for node, attrs, ins, n_vis, fused_out in plan:
+        aux_updates = {}
+        for node, attrs, ins, n_vis, fused_out, aux in plan:
             if attrs is None:
                 src = aux_vals if id(node) in aux_nodes else arg_vals
                 env[(id(node), 0)] = src[node.name]
@@ -94,7 +116,9 @@ def _trace_graph(symbol, is_train):
                 outs = node.op.apply(attrs, [env[k] for k in ins])
                 for i in range(n_vis):
                     env[(id(node), i)] = outs[i]
-        return [env[e] for e in out_entries]
+                for j, name in aux:
+                    aux_updates[name] = outs[n_vis + j]
+        return [env[e] for e in out_entries], aux_updates
 
     run.fused_sites = len(fused_into)
     return run
@@ -162,17 +186,31 @@ class Executor:
         self._tape = None
         if not is_train:
             with torch.inference_mode():
-                outs = self._run(False)(raw_args, raw_aux)
+                outs, _ = self._run(False)(raw_args, raw_aux)
             self.outputs = [NDArray(o, self._ctx) for o in outs]
             return self.outputs
         leaves = {}
         for n in self._grad_names():
             leaves[n] = raw_args[n] = raw_args[n].detach().requires_grad_()
         with torch.enable_grad():
-            outs = self._run(True)(raw_args, raw_aux)
+            outs, aux_updates = self._run(True)(raw_args, raw_aux)
+        self._write_aux(aux_updates)
         self._tape = (outs, leaves)
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         return self.outputs
+
+    def _write_aux(self, aux_updates):
+        """Copy a training forward's aux values into ``aux_dict`` in
+        place, so every holder of those tensors (a reshaped executor
+        sharing them, the inference plan) sees the new statistics. A
+        value that is the aux tensor itself (BatchNorm under
+        use_global_stats) is skipped: copying it onto itself would only
+        bump the version of a tensor the backward may have saved."""
+        with torch.no_grad():
+            for name, val in aux_updates.items():
+                dst = self.aux_dict[name]._data
+                if val is not dst:
+                    dst.copy_(val)
 
     def backward(self, out_grads=None):
         """Gradients of the last training forward into ``grad_dict``:

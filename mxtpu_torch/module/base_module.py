@@ -6,10 +6,12 @@ initializes, arms the optimizer and loops over the epochs with
 ``forward_backward`` + ``update``, the eval metric accumulating on the
 device (``metric.DeviceMetricAccum``) and reaching the host only at the
 metric-sync cadence, and at most ``max_in_flight`` steps queued on the
-device ahead of the host. The knobs of mxtpu's fit that the port does not
-have yet (a kvstore other than local, ``mesh``, ``elastic``, ``resume``,
-``tuned``, ``health``, ``monitor``, ``device_prefetch``) raise
-MXNetError when set, rather than being ignored.
+device ahead of the host. ``device_prefetch`` stages each next batch on
+the module's device from a producer thread (``io.DevicePrefetchIter``).
+The knobs of mxtpu's fit that the port does not have yet (a kvstore
+other than local, ``mesh``, ``elastic``, ``resume``, ``tuned``,
+``health``, ``monitor``) raise MXNetError when set, rather than being
+ignored.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ from math import gcd
 import torch
 
 from .. import callback as _cb
+from .. import io as _io
 from .. import metric as _metric
+from .. import model as _model
+from .. import ndarray as nd
 from ..base import MXNetError
 from ..initializer import Uniform
 
@@ -45,8 +50,7 @@ def _as_list(obj):
     return list(obj) if isinstance(obj, (list, tuple)) else [obj]
 
 
-_UNPORTED_FIT = ("mesh", "elastic", "resume", "tuned", "health", "monitor",
-                 "device_prefetch")
+_UNPORTED_FIT = ("mesh", "elastic", "resume", "tuned", "health", "monitor")
 
 
 def refuse_unported(kvstore="local", **knobs):
@@ -110,6 +114,16 @@ class BaseModule:
         self.forward(data_batch, is_train=True)
         self.backward()
 
+    def save_params(self, fname):
+        """The live params as one ``.params`` file (arg:/aux: names)."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        self.set_params(*_model.split_params(nd.load(fname), fname))
+
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, reset=True, epoch=0):
         """Evaluate over ``eval_data``; returns the metric's name/value
@@ -146,10 +160,11 @@ class BaseModule:
         the Speedometers' ``frequent``, 1 with any other callback, else
         epoch end only). ``device_metrics``: accumulate the eval metric on
         the device (metrics without a device kernel stay on the numpy
-        path)."""
+        path). ``device_prefetch``: wrap ``train_data`` (unless it is one
+        already) in a ``DevicePrefetchIter`` onto the module's context,
+        closed when fit ends (mxtpu/module/base_module.py:242-256)."""
         refuse_unported(kvstore, mesh=mesh, elastic=elastic, resume=resume,
-                        tuned=tuned, health=health, monitor=monitor,
-                        device_prefetch=device_prefetch)
+                        tuned=tuned, health=health, monitor=monitor)
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
         initializer = initializer or Uniform(0.01)
@@ -172,6 +187,11 @@ class BaseModule:
             metric_sync = _metric_sync(callbacks)
         metric_sync = max(0, int(metric_sync))
         pacer = _Pacer(max_in_flight, self._device)
+        owned = None
+        if device_prefetch and not isinstance(train_data,
+                                              _io.DevicePrefetchIter):
+            train_data = owned = _io.DevicePrefetchIter(
+                train_data, device=getattr(self, "_context", None))
         try:
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
@@ -230,3 +250,5 @@ class BaseModule:
                 train_data.reset()
         finally:
             eval_metric._device_accum = None
+            if owned is not None:
+                owned.close()

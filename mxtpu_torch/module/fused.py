@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import optimizer as opt
+from ..base import MXNetError
 
 __all__ = ["FusedTrainStep", "supports"]
 
@@ -139,9 +140,33 @@ class FusedTrainStep:
         nxt = max(optimizer.idx2name, default=-1) + 1
         for n in self.trainable:
             if n not in name2idx:
-                optimizer.idx2name[nxt] = name2idx[n] = nxt
+                optimizer.idx2name[nxt] = n
+                name2idx[n] = nxt
                 nxt += 1
         self._name_idx = [name2idx[n] for n in self.trainable]
+
+    def export_opt_state(self):
+        """The optimizer state as ``{index: numpy state}`` under the
+        optimizer's index scheme (``idx2name``), the Updater's, so a
+        state file written by either path loads on the other; every
+        index that names a parameter gets its state
+        (mxtpu/module/fused.py:930)."""
+        host = {n: opt.states_to_numpy(self.opt_state[n])
+                for n in self.trainable}
+        return {idx: host[n] for idx, n in self.optimizer.idx2name.items()
+                if n in host}
+
+    def import_opt_state(self, states):
+        """Copy ``{index: state}`` (numpy, as ``export_opt_state`` gives
+        it) into the live state tensors in place; for a parameter named
+        by several indices the lowest present wins (:949)."""
+        idx2name = self.optimizer.idx2name
+        with torch.no_grad():
+            for n in self.trainable:
+                found = [states[j] for j in sorted(states)
+                         if idx2name.get(j) == n and states[j] is not None]
+                if found:
+                    _copy_state(self.opt_state[n], found[0], n)
 
     def update(self):
         """Apply one update to every trainable parameter."""
@@ -154,3 +179,17 @@ class FusedTrainStep:
                     lr *= self._lr_scale(o._index_update_count[idx])
                 self._apply(self.params[n], self.grads[n],
                             self.opt_state[n], lr, o._get_wd(idx))
+
+
+def _copy_state(dst, src, name):
+    if isinstance(dst, tuple):
+        if not isinstance(src, tuple) or len(src) != len(dst):
+            raise MXNetError("optimizer state of %s: expected %d arrays"
+                             % (name, len(dst)))
+        for d, s_ in zip(dst, src):
+            _copy_state(d, s_, name)
+        return
+    if dst is None:
+        return
+    dst.copy_(torch.as_tensor(getattr(src, "_data", src)).reshape(
+        dst.shape))

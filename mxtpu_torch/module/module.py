@@ -12,21 +12,32 @@ When the optimizer has a fused rule (SGD, NAG, Adam, RMSProp, AdaGrad),
 ``init_optimizer`` arms a ``FusedTrainStep`` over those same arrays and
 ``update`` applies every parameter's rule in one call; any other
 optimizer updates through the Updater. ``forward_backward`` is the
-executor's training forward and backward, and ``get_outputs`` returns
-its outputs on the device, with no host copy.
+executor's training forward and backward (which writes BatchNorm's
+moving statistics back into the bound aux arrays), and ``get_outputs``
+returns its outputs on the device, with no host copy.
+
+Checkpoints (``save_checkpoint``, the static ``load``, ``save_params``,
+``load_params``, ``save_optimizer_states``, ``load_optimizer_states``;
+mxtpu/module/module.py:101-146, 699-744) write mxtpu's files:
+``-symbol.json`` and ``.params`` load in either package, bit for bit.
+A ``.states`` file is a pickle of ``{index: numpy state}``, which both
+of the port's update paths read and write; it is not interchangeable
+with mxtpu's, whose fused step pickles its own state tree.
 """
 from __future__ import annotations
 
 import logging
+import pickle
 
 import numpy as _np
 import torch
 
+from .. import model as _model
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import as_context, cpu, current_context
 from ..initializer import InitDesc, Uniform
-from ..ndarray import NDArray
+from ..ndarray import NDArray, host_copies
 from .base_module import BaseModule, refuse_unported
 from .fused import FusedTrainStep, supports
 
@@ -89,6 +100,57 @@ class Module(BaseModule):
         self._grad_req = "write"
         self._optimizer = self._updater = None
         self._fused = None
+        # set by load(): params written at bind, states at init_optimizer
+        self._arg_params = self._aux_params = None
+        self._preload_opt_states = None
+
+    # ------------------------------------------------ checkpoints
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over ``prefix-symbol.json`` whose params come from
+        ``prefix-%04d.params`` when it binds; with
+        ``load_optimizer_states`` its optimizer starts from
+        ``prefix-%04d.states``. ``kwargs`` go to the constructor."""
+        sym, args, auxs = _model.load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        async_write=False):
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and its
+        manifest, and with ``save_optimizer_states`` ``prefix-%04d.states``,
+        written synchronously (``async_write`` raises: not ported)."""
+        _model.refuse_async(async_write)
+        self._symbol.save("%s-symbol.json" % prefix)
+        arg_params, aux_params = self.get_params()
+        _model.save_params("%s-%04d.params" % (prefix, epoch), epoch,
+                           arg_params, aux_params)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            self.logger.info('Saved optimizer state to "%s"', state_name)
+
+    def save_optimizer_states(self, fname):
+        """Pickle of ``{index: numpy state}`` from the fused step or the
+        Updater, whichever updates."""
+        assert self.optimizer_initialized
+        with open(fname, "wb") as f:
+            f.write(pickle.dumps(self._fused.export_opt_state())
+                    if self._fused is not None
+                    else self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        assert self.optimizer_initialized
+        with open(fname, "rb") as f:
+            states = pickle.loads(f.read())
+        if self._fused is not None:
+            self._fused.import_opt_state(states)
+        else:
+            self._updater.set_states(states)
 
     # ------------------------------------------------ properties
     @property
@@ -131,6 +193,11 @@ class Module(BaseModule):
         self._label_shapes = _descs(label_shapes, self._label_names, "label")
         self._exec = self._bind_exec(None)
         self.binded = True
+        if self._arg_params is not None:  # a loaded checkpoint
+            args, auxs = self._arg_params, self._aux_params
+            self._arg_params = self._aux_params = None
+            self.params_initialized = False
+            self.init_params(arg_params=args, aux_params=auxs)
 
     def _bind_exec(self, old):
         """An Executor for the current data/label shapes; the parameter,
@@ -212,13 +279,18 @@ class Module(BaseModule):
                          force_init=force_init, allow_extra=allow_extra)
 
     def get_params(self):
-        """(arg_params, aux_params): cpu() copies of the live values."""
+        """(arg_params, aux_params): cpu() copies of the live values (the
+        aux values as the last training forward wrote them back), taken
+        with one device->host copy per dtype."""
         assert self.binded and self.params_initialized
-        host = cpu()
-        return ({n: self._exec.arg_dict[n].copyto(host)
-                 for n in self._param_names},
-                {n: self._exec.aux_dict[n].copyto(host)
-                 for n in self._aux_names})
+        ex = self._exec
+        arrays = [ex.arg_dict[n] for n in self._param_names] + \
+            [ex.aux_dict[n] for n in self._aux_names]
+        host = [NDArray(t, cpu())
+                for t in host_copies([a._data for a in arrays])]
+        k = len(self._param_names)
+        return (dict(zip(self._param_names, host[:k])),
+                dict(zip(self._aux_names, host[k:])))
 
     # ------------------------------------------------ optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -242,6 +314,9 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._arm_fused()
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def _arm_fused(self):
         """Arm the fused update when the optimizer has a rule."""

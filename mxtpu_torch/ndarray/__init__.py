@@ -1,4 +1,6 @@
-"""nd namespace: NDArray over torch.Tensor."""
-from .ndarray import NDArray, array, to_numpy, zeros
+"""nd namespace: NDArray over torch.Tensor, and mxtpu's file format."""
+from .ndarray import (NDArray, array, host_copies, load, save, to_numpy,
+                      zeros)
 
-__all__ = ["NDArray", "array", "zeros", "to_numpy"]
+__all__ = ["NDArray", "array", "zeros", "to_numpy", "host_copies", "save",
+           "load"]

@@ -3,11 +3,11 @@ zoo.
 
 Counterpart of the matching entries of ``mxtpu/ops/nn.py``:
 ``FullyConnected`` (:37), ``Convolution`` (:83), ``Pooling`` (:193),
-``BatchNorm`` (:235, inference only: batch statistics and the aux
-writeback arrive with its training slice), ``LayerNorm`` (:274),
-``Activation`` (:295), ``SoftmaxOutput`` (:382, with the loss head's own
-gradient, :357-377), ``Dropout`` (:484, drawing its mask from
-``random.generator``) and ``Concat`` (:543). Matrix products and
+``BatchNorm`` (:202-233; in training on the batch's statistics, with
+the updated moving statistics returned for the executor to write back),
+``LayerNorm`` (:274), ``Activation`` (:295), ``SoftmaxOutput`` (:382,
+with the loss head's own gradient, :357-377), ``Dropout`` (:484, drawing
+its mask from ``random.generator``) and ``Concat`` (:543). Matrix products and
 convolutions go to ``torch.nn.functional`` (cuBLAS, cuDNN), as the JAX
 package leaves them to XLA; their gradients are torch's autograd.
 
@@ -327,24 +327,50 @@ register("Pooling", _pooling,
 # ---------------------------------------------------------------- BatchNorm
 def _refuse_training(a):
     if a.get("__is_train__", False):
-        raise MXNetError("BatchNorm in training mode is not ported yet; the "
-                         "port runs inference only")
+        raise MXNetError("the fused BatchNorm->ReLU step runs at inference "
+                         "only; a training forward runs BatchNorm and "
+                         "Activation as two ops")
 
 
 def _batch_norm(a, data, gamma, beta, moving_mean, moving_var):
-    """Inference BatchNorm on the moving statistics, in the JAX
-    arithmetic: ``inv = rsqrt(var + eps)`` cast to the data type, then
-    ``(x - mean) * (g * inv) + beta`` with ``g = 1`` under fix_gamma."""
-    _refuse_training(a)
+    """BatchNorm in the JAX arithmetic (mxtpu/ops/nn.py:202-233):
+    ``(x - mean) * (g * inv) + beta`` with ``inv = rsqrt(var + eps)`` and
+    ``g = 1`` under fix_gamma. At inference, or with use_global_stats,
+    mean and var are the moving statistics, returned unchanged as the
+    aux values. In training they are the batch's, from one pass: a sum
+    and a sum of squares in float32 (float64 for float64 data), the
+    variance ``max(s2/n - mean^2, 0)``, both cast to the data type; the
+    gradient flows through them by autograd, and the moving statistics
+    move by ``m * moving + (1 - m) * stat`` with the stat detached.
+    Returns the visible outputs (out, and with output_mean_var the mean
+    and var used), then the new moving_mean and moving_var."""
     ax = int(a.axis) % data.ndim
     bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.ndim))
     g = torch.ones_like(gamma) if a.fix_gamma else gamma
-    inv = torch.rsqrt(moving_var.to(torch.float32) + a.eps).to(data.dtype)
-    out = (data - moving_mean.reshape(bshape)) * (g * inv).reshape(bshape) \
+    wide = torch.promote_types(data.dtype, torch.float32)
+    if a.use_global_stats or not a.get("__is_train__", False):
+        mean, var = moving_mean, moving_var
+        new_mm, new_mv = moving_mean, moving_var
+    else:
+        red = tuple(i for i in range(data.ndim) if i != ax)
+        n = _prod(data.shape[i] for i in red)
+        x32 = data.to(wide)
+        mean32 = torch.sum(x32, dim=red) / n
+        var32 = torch.sum(torch.square(x32), dim=red) / n \
+            - torch.square(mean32)
+        # maximum, not clamp: at a tie (var exactly 0) both jnp.maximum
+        # and torch.maximum pass half the gradient, clamp all of it
+        var32 = torch.maximum(var32, torch.zeros_like(var32))
+        mean, var = mean32.to(data.dtype), var32.to(data.dtype)
+        m = a.momentum
+        new_mm = m * moving_mean + (1 - m) * mean.detach()
+        new_mv = m * moving_var + (1 - m) * var.detach()
+    inv = torch.rsqrt(var.to(wide) + a.eps).to(data.dtype)
+    out = (data - mean.reshape(bshape)) * (g * inv).reshape(bshape) \
         + beta.reshape(bshape)
     if a.output_mean_var:
-        return out, moving_mean, moving_var
-    return out
+        return out, mean, var, new_mm, new_mv
+    return out, new_mm, new_mv
 
 
 def _bn_infer(a, shapes):

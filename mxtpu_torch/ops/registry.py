@@ -68,6 +68,11 @@ class OpDef:
     ``loss_like``: the output is a loss head whose gradient ignores the
     incoming head gradient (SoftmaxOutput); ``fn`` encodes that in its
     autograd.Function, and a backward with no head gradients feeds ones.
+    ``aux_names``: the trailing inputs that are auxiliary states
+    (BatchNorm's moving_mean and moving_var). ``fn`` then returns its
+    ``n_out`` visible outputs followed by ``len(aux_names)`` updated aux
+    values, and the executor writes those back after a training forward
+    (mxtpu/ops/registry.py:90-93).
     """
 
     def __init__(self, name, fn, arg_names=("data",), attrs=None,
@@ -113,7 +118,8 @@ class OpDef:
         return self.arg_names
 
     def apply(self, attrs, inputs):
-        """Run the op eagerly; returns a tuple of tensors."""
+        """Run the op eagerly; returns a tuple of tensors: the visible
+        outputs, then the updated aux values of an op with aux_names."""
         if self.needs_rng:
             dev = inputs[0].device
             gen = None if dev.type == "meta" else _random.generator(dev)
@@ -125,11 +131,12 @@ class OpDef:
         return tuple(out)
 
     def infer(self, attrs, in_avals):
-        """Output (shape, dtype) pairs from input (shape, dtype) pairs,
-        by running the op on meta tensors."""
+        """(shape, dtype) of the ``n_out`` visible outputs from input
+        (shape, dtype) pairs, by running the op on meta tensors; the
+        updated aux values an op returns after them are not outputs."""
         metas = [torch.empty(tuple(s), dtype=torch_dtype(d), device="meta")
                  for s, d in in_avals]
-        outs = self.apply(attrs, metas)
+        outs = self.apply(attrs, metas)[:self.n_out(attrs)]
         return [(tuple(o.shape), o.dtype) for o in outs]
 
 
@@ -164,7 +171,11 @@ def list_ops():
 
 
 def invoke(name, inputs, attrs_kwargs):
-    """Imperative invoke on raw tensors: parse attrs, run."""
+    """Imperative invoke on raw tensors: parse attrs, run. Returns
+    ``(op, attrs, outputs)``, where ``outputs`` is the full tuple of
+    ``apply``: ``outputs[:op.n_out(attrs)]`` are the visible outputs and
+    the rest the op's updated aux values (BatchNorm's new moving_mean and
+    moving_var), which nothing writes back here."""
     op = get_op(name)
     attrs = op.parse_attrs(attrs_kwargs)
     return op, attrs, op.apply(attrs, inputs)

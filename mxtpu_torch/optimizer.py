@@ -14,7 +14,9 @@ same functions, so it rounds as the Updater does.
 from __future__ import annotations
 
 import math
+import pickle
 
+import numpy as np
 import torch
 
 from .base import MXNetError
@@ -313,9 +315,23 @@ class RMSProp(Optimizer):
                             self.epsilon, clip_w)
 
 
+def states_to_numpy(state):
+    """An optimizer state (None, a tensor or NDArray, or a tuple of them)
+    as numpy arrays in the same structure: what a ``.states`` file
+    pickles."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(states_to_numpy(s) for s in state)
+    return getattr(state, "_data", state).detach().cpu().numpy()
+
+
 class Updater:
     """Applies an optimizer per key (parity optimizer.py:1019
-    get_updater); ``states`` holds each index's optimizer state."""
+    get_updater); ``states`` holds each index's optimizer state.
+    ``get_states``/``set_states`` carry them as a pickle of
+    ``{index: numpy state}``, mxtpu's layout (mxtpu/optimizer.py:442-
+    461); set states reach the weight's device at their first use."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -324,7 +340,33 @@ class Updater:
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+        elif _is_host_state(self.states[index]):
+            self.states[index] = _placed(self.states[index], weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def get_states(self):
+        return pickle.dumps({k: states_to_numpy(v)
+                             for k, v in self.states.items()})
+
+    def set_states(self, states):
+        self.states = dict(pickle.loads(states)
+                           if isinstance(states, bytes) else states)
+
+
+def _is_host_state(state):
+    if isinstance(state, tuple):
+        return any(_is_host_state(s) for s in state)
+    return isinstance(state, np.ndarray)
+
+
+def _placed(state, weight):
+    """A numpy state as NDArrays on ``weight``'s device."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_placed(s, weight) for s in state)
+    return NDArray(torch.from_numpy(np.ascontiguousarray(state)).to(
+        weight._data.device), weight.context)
 
 
 def get_updater(optimizer):

@@ -8,11 +8,11 @@ import sys as _sys
 
 from ..base import PrefixOpNamespace as _PrefixNS
 from ..ops.registry import get_op, list_ops
-from .symbol import (Group, NameManager, Symbol, Variable, create,
+from .symbol import (Group, NameManager, Symbol, Variable, create, load,
                      load_json, var)
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "NameManager",
-           "create", "contrib"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "NameManager", "create", "contrib"]
 
 
 def _make_sym_fn(opname, op):

@@ -17,7 +17,8 @@ import torch
 from ..base import MXNetError, attr_repr
 from ..ops.registry import get_op, op_exists, torch_dtype
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "NameManager"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "NameManager"]
 
 
 class NameManager:
@@ -191,6 +192,12 @@ class Symbol:
                                      "framework": ["str", "mxtpu"]}},
                           indent=2)
 
+    def save(self, fname):
+        """Write ``tojson()`` to ``fname`` (the ``-symbol.json`` of a
+        checkpoint; mxtpu/symbol/symbol.py:446)."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
 
 def _output_names(node, n_vis):
     if n_vis == 1:
@@ -338,3 +345,8 @@ def load_json(json_str):
     heads = [(built[i], idx) for i, idx, *_ in data["heads"]]
     return Symbol(heads)
 
+
+def load(fname):
+    """The Symbol of a JSON file written by either package's ``save``."""
+    with open(fname) as f:
+        return load_json(f.read())

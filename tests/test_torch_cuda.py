@@ -6,8 +6,9 @@ storage offsets; its log-sum-exp within 1e-4; the flash backward within
 and 64-row tiles, every head dim, no keys, unaligned storage and NaN
 stored past the ends, bit-identical when repeated; the
 BN-apply+ReLU epilogue bit for bit (NaN positions included) at
-ResNet-50's served shapes; and a Module training step on gpu(0) against
-the same step on cpu().
+ResNet-50's served shapes; a Module training step on gpu(0) against
+the same step on cpu(); BatchNorm in training on the card against the
+CPU; and DevicePrefetchIter staging behind a delayed side stream.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -474,3 +475,133 @@ def test_module_step_on_gpu_matches_cpu(cuda):
     assert np.abs(go - co).max() <= 1e-5
     for k in cw:
         assert np.abs(gw[k] - cw[k]).max() <= 1e-5, k
+
+
+@pytest.mark.parametrize("dtype,tol_out,tol_grad", [
+    ("float32", 1e-5, 1e-4), ("bfloat16", 2.0 ** -7, 2.0 ** -6)])
+@pytest.mark.parametrize("shape,axis,attrs", [
+    ((4, 8, 16, 16), 1, {"fix_gamma": False}),
+    ((4, 8, 16, 16), 1, {}),
+    ((2, 7, 9, 24), 3, {"fix_gamma": False, "output_mean_var": True}),
+    ((64, 33), 1, {"fix_gamma": False, "momentum": 0.5}),
+    ((1, 4, 1, 1), 1, {"fix_gamma": False}),
+    ((4, 8, 16, 16), 1, {"fix_gamma": False, "use_global_stats": True})])
+def test_batchnorm_training_on_cuda_matches_cpu(cuda, dtype, tol_out,
+                                                tol_grad, shape, axis, attrs):
+    """The port's BatchNorm in training on gpu(0) and on the CPU from the
+    same inputs: outputs and updated moving statistics within tol_out of
+    the largest value, the gradients of data, gamma and beta within
+    tol_grad of the largest (f32: sums in other orders; bf16: one and two
+    bf16 steps)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(len(shape) + axis)
+    c = shape[axis]
+    host = [rng.randn(*shape) * 2 + 0.5, rng.rand(c) + 0.5, rng.randn(c),
+            rng.randn(c) * 0.3, rng.rand(c) + 0.5]
+    head = rng.randn(*shape)
+    dt = getattr(torch, dtype)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [torch.tensor(v, dtype=dt, device=dev, requires_grad=True)
+                  for v in host[:3]]
+        stats = [torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in host[3:]]
+        op, a, outs = mt.ops.registry.invoke(
+            "BatchNorm", leaves + stats,
+            dict(attrs, axis=axis, __is_train__=True))
+        grads = torch.autograd.grad(
+            outs[0], leaves, torch.tensor(head, dtype=dt, device=dev),
+            allow_unused=True)
+        got[dev] = ([o.detach().float().cpu() for o in outs],
+                    [torch.zeros(v.shape) if g is None else g.float().cpu()
+                     for v, g in zip(host, grads)])
+
+    def scaled(x, y):
+        return float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
+
+    for x, y in zip(got["cuda"][0], got["cpu"][0]):
+        assert scaled(x, y) <= tol_out
+    for x, y in zip(got["cuda"][1], got["cpu"][1]):
+        if float(y.abs().max()):
+            assert scaled(x, y) <= tol_grad
+        else:
+            assert not float(x.abs().max())
+
+
+def test_device_prefetch_waits_for_a_delayed_side_stream(cuda):
+    """DevicePrefetchIter onto gpu(0) with its side stream held back by a
+    spin kernel before every copy: each consumed batch, read on the
+    consumer's stream, equals its host source bit for bit (a missing wait
+    would read the staged memory before the copy lands), the staged
+    tensors sit on cuda:0, and the host buffers they came through are
+    pinned."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+
+    class Delayed(mt.io.DevicePrefetchIter):
+        def _stage(self, batch):
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._stream):
+                torch.cuda._sleep(50_000_000)  # ~25 ms at ~2 GHz
+            return super()._stage(batch)
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(48, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 48).astype(np.float32)
+    it = Delayed(mt.io.NDArrayIter(x, y, batch_size=8), device=mt.gpu(0))
+    try:
+        for epoch in range(2):
+            n = 0
+            for batch in it:
+                d, lbl = batch.data[0]._data, batch.label[0]._data
+                assert d.device == torch.device("cuda", 0)
+                assert torch.equal(d.cpu(), torch.from_numpy(
+                    x[8 * n:8 * (n + 1)]))
+                assert torch.equal(lbl.cpu(), torch.from_numpy(
+                    y[8 * n:8 * (n + 1)]))
+                n += 1
+            assert n == 6
+            it.reset()
+        bufs = it.host_buffers
+        assert bufs and all(b.is_pinned() for b in bufs)
+    finally:
+        it.close()
+
+
+def test_module_fit_with_device_prefetch_on_gpu(cuda):
+    """resnet-8 trained by fit on gpu(0) with and without
+    ``device_prefetch``, from the same weights, with cuDNN's deterministic
+    algorithms (for this test only): the same weights and statistics bit
+    for bit."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(1)
+    x = rng.rand(64, 3, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.float32)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    try:
+        for prefetch in (False, True):
+            np.random.seed(2)
+            mod = mt.mod.Module(mt.models.get_resnet(10, 8, (3, 28, 28)),
+                                context=mt.gpu(0))
+            mod.fit(mt.io.NDArrayIter(x, y, batch_size=16), num_epoch=2,
+                    initializer=mt.init.Xavier(), device_prefetch=prefetch,
+                    optimizer_params={"learning_rate": 0.05})
+            out.append([{k: v._data for k, v in d.items()}
+                        for d in mod.get_params()])
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = flags
+    for a, b in zip(*out):
+        for k in a:
+            assert bool(torch.isfinite(a[k]).all())
+            assert torch.equal(a[k], b[k]), k

@@ -38,7 +38,8 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
             "import mxtpu_torch\n"
             "from mxtpu_torch import serving, predict, convert, build\n"
             "from mxtpu_torch import (random, initializer, lr_scheduler,\n"
-            "                         optimizer, metric, io, callback)\n"
+            "                         optimizer, metric, io, callback,\n"
+            "                         model)\n"
             "from mxtpu_torch.module import Module, FusedTrainStep\n"
             "from mxtpu_torch.ops import attention, epilogue\n"
             "bad = sorted(m for m in sys.modules\n"

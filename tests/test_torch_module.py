@@ -245,8 +245,7 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
     for kw in ({"kvstore": "dist_sync"}, {"mesh": "all"},
                {"elastic": "/tmp/x"}, {"resume": True}, {"tuned": "t.json"},
-               {"health": True}, {"monitor": object()},
-               {"device_prefetch": True}):
+               {"health": True}, {"monitor": object()}):
         with pytest.raises(mt.MXNetError, match="not ported"):
             mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
                     **kw)
@@ -272,3 +271,28 @@ def test_metric_sync_cadence_and_callbacks(mt, caplog):
                 batch_end_callback=[cb.Speedometer(8, 2),
                                     cb.log_train_metric(4)])
     assert "samples/sec" in caplog.text and "Train-accuracy" in caplog.text
+
+
+def test_fused_step_names_the_indices_it_assigns(mt):
+    """An optimizer given as an object carries no index->name map; the
+    fused step assigns the indices and maps each to its parameter's name,
+    so name-keyed settings (an lr_mult of 0 here) reach the update."""
+    x = np.random.RandomState(0).rand(8, 5).astype(np.float32)
+    mod = mt.mod.Module(mt.models.get_mlp(3), context=mt.cpu(),
+                        logger=_quiet())
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", (8,))])
+    mod.init_params(mt.init.Xavier())
+    o = mt.optimizer.SGD(learning_rate=0.5)
+    o.set_lr_mult({"fc1_weight": 0.0})
+    mod.init_optimizer(optimizer=o)
+    assert sorted(o.idx2name.values()) == sorted(mod._param_names)
+    before = mod.get_params()[0]
+    mod.forward_backward(mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                         [mt.nd.zeros((8,), ctx=mt.cpu())]))
+    mod.update()
+    after = mod.get_params()[0]
+    np.testing.assert_array_equal(after["fc1_weight"].asnumpy(),
+                                  before["fc1_weight"].asnumpy())
+    assert not np.array_equal(after["fc2_weight"].asnumpy(),
+                              before["fc2_weight"].asnumpy())

@@ -130,16 +130,18 @@ def test_meta_shape_inference_matches_mxtpu(tt, name, arrays, attrs):
 
 def test_dropout_in_training_is_refused(tt):
     """Dropout in training is no longer refused: it draws a mask (kept
-    values scaled by 1/(1-p)). What training still refuses is BatchNorm
-    with batch statistics, which arrives with its own slice."""
+    values scaled by 1/(1-p)). Nor is BatchNorm (batch statistics; see
+    test_torch_batchnorm_train.py). What training still refuses is the
+    fused BatchNorm->ReLU step, which serves inference only."""
     torch, mt = tt
+    from mxtpu_torch.ops.nn import bn_relu_inference
     _, _, (y,) = mt.ops.registry.invoke("Dropout", [torch.ones(64, 64)],
                                         {"p": 0.5, "__is_train__": True})
     assert set(torch.unique(y).tolist()) == {0.0, 2.0}
+    op = mt.ops.registry.get_op("BatchNorm")
     with pytest.raises(mt.MXNetError, match="training"):
-        mt.ops.registry.invoke(
-            "BatchNorm", [torch.ones(2, 3)] + [torch.ones(3)] * 4,
-            {"__is_train__": True})
+        bn_relu_inference(op.parse_attrs({"__is_train__": True}),
+                          torch.ones(2, 3), *[torch.ones(3)] * 4)
 
 
 def test_required_attr_missing_raises(tt):
