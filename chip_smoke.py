@@ -76,7 +76,26 @@ Phases (any failure raises and exits non-zero):
    gradient: the GPU's outputs within TRAIN_OUT_RTOL of the CPU's and its
    distance from the exact step no more than TRAIN_CPU_FACTOR times the
    CPU f32 step's own; a GPU step with TF32 GEMMs must fail both gates.
-7. Prints the kernels' JSON line, then the device line last.
+7. ResNet-50 training through ``Module.fit`` (``resnet_training``;
+   see ``phase_resnet_training``).
+8. Gluon ResNet-50 training (``gluon``): the zoo's ``resnet50_v2`` at
+   224x224, full depth and width, f32 with TF32 off, Xavier weights from
+   a numpy seed on gpu(0) (deferred shapes resolved by the first batch),
+   ``DataLoader(ArrayDataset(images, labels), batch_size=256)`` over phase
+   7's 512 seeded images, ``SoftmaxCrossEntropyLoss`` and
+   ``Trainer(..., "sgd", lr 0.1, momentum 0.9).step(256)``: 8 hybridized
+   steps of ``autograd.record()`` / ``backward()`` / ``step``, 4 with
+   ``hybridize(False)``, 4 hybridized again with ``num_workers=2``.
+   Gates: a finite loss that falls, moving statistics that moved,
+   ``save_params`` reloaded by a fresh net bit for bit, the hybridized
+   evaluation forward (B=256, outside ``record()``) launching the
+   epilogue at its 50 fused sites and within 1e-4 of the plain epilogue,
+   and the narrow ResNetV2's one SGD step on gpu(0) hybridized and
+   imperative held to the float64 step as phase 7 holds resnet-8 (a TF32
+   control must fail). Prints step ms (host clock, each step ending in a
+   device sync; mean after 2 warm-up steps) and the DataLoader's share of
+   it, images/s, MFU, peak memory, and phase 7's Module step beside it.
+9. Prints the kernels' JSON line, then the device line last.
 """
 from __future__ import annotations
 
@@ -166,8 +185,19 @@ RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
 RESNET8 = dict(num_classes=10, num_layers=8, image_shape=(3, 28, 28))
 RESNET8_BATCH = 32
 RESNET8_LR = 0.1
+# Gluon's resnet50_v2 trained through autograd.record and Trainer.step
+# (phase 8), the loop of examples/gluon/image_classification.py: the same
+# 512 images, batch, initializer and SGD as phase 7; 8 hybridized steps
+# and 4 imperative with DataLoader(num_workers=0), then 4 hybridized with
+# a threaded DataLoader; the one-step gate's net is the zoo's narrowest
+# ResNetV2 at resnet-8's size
+GLUON_TRAIN = dict(batch=256, hybrid_steps=8, imperative_steps=4,
+                   worker_steps=4, num_workers=2, warmup=2, lr=0.1,
+                   momentum=0.9)
+GLUON_NARROW = dict(layers=[1, 1, 1], channels=[16, 16, 32, 64],
+                    classes=10, thumbnail=True)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
-          "resnet_training")
+          "resnet_training", "gluon")
 
 
 def log(*a):
@@ -1605,10 +1635,19 @@ def phase_resnet_training(mt, epi, seed, card, profile=False):
             mt, prefix, epochs, sym, (args, aux), b)
         batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
                                 [mt.nd.array(y[:b], ctx=mt.cpu())])
-        row.update(eval_forward_gate(mt, epi, mod, batch))
+
+        def forward():
+            mod.forward(batch, is_train=False)
+            return mod.get_outputs()[0]._data
+
+        row.update(eval_forward_gate(
+            epi, forward, lambda: mod._exec.fused_sites,
+            "trained model's evaluation forward"))
         row["input_copy_ms"] = time_input_copy(mt, mod, x, y, card)
         if profile:
-            row["profile"] = profile_resnet_step(mt, mod, batch)
+            row["profile"] = profile_device(
+                lambda: (mod.forward_backward(batch), mod.update()),
+                "ResNet-50 training step")
         row["bn_relu_pairs"] = pairs = time_bn_relu_pairs(mt, sym, b, card)
         log("  the pairs' forward+backward against the step: %.1f%% of its "
             "host-clock mean" % (100.0 * pairs["fwd_bwd_ms"]
@@ -1654,15 +1693,16 @@ def check_checkpoint_reload(mt, prefix, epoch, sym, live, b):
     return {"arrays": sum(map(len, live)), "differ": worst}
 
 
-def eval_forward_gate(mt, epi, mod, batch):
-    """The trained model's evaluation forward on one batch: the epilogue
-    kernel launches once per fused site, and the output is within 1e-4 of
-    the same forward with each site through the epilogue's plain version
-    (on the same card, the same trained statistics)."""
+def eval_forward_gate(epi, forward, sites, label):
+    """A trained model's evaluation forward on one batch, ``forward()``
+    returning its output tensor: the epilogue kernel launches once per
+    fused site (``sites()``, read after the forward; 50), and the output
+    is within 1e-4 of the same forward with each site through the
+    epilogue's plain version (on the same card, the same trained
+    statistics)."""
     from mxtpu_torch.ops import nn as nn_ops
     epi.bn_apply_relu_add.launches = 0
-    mod.forward(batch, is_train=False)
-    got = mod.get_outputs()[0]._data.clone()
+    got = forward().clone()
     torch.cuda.synchronize()
     launches = epi.bn_apply_relu_add.launches
     kernel = nn_ops.bn_apply_relu_add
@@ -1673,23 +1713,21 @@ def eval_forward_gate(mt, epi, mod, batch):
 
     nn_ops.bn_apply_relu_add = plain
     try:
-        mod.forward(batch, is_train=False)
-        want = mod.get_outputs()[0]._data.clone()
+        want = forward().clone()
     finally:
         nn_ops.bn_apply_relu_add = kernel
     err = float((got - want).abs().max())
-    sites = mod._exec.fused_sites
-    log("  trained model's evaluation forward (B=%d): %d fused sites, "
-        "epilogue launches %d; vs the plain epilogue max abs err %.3e; "
-        "rows finite %s" % (got.shape[0], sites, launches, err,
-                            bool(torch.isfinite(got).all())))
-    if sites != RESNET_SITES or launches != RESNET_SITES:
-        raise AssertionError("evaluation forward: %d sites, %d epilogue "
-                             "launches (want %d)" % (sites, launches,
-                                                     RESNET_SITES))
+    n_sites = sites()
+    log("  %s (B=%d): %d fused sites, epilogue launches %d; vs the plain "
+        "epilogue max abs err %.3e; rows finite %s"
+        % (label, got.shape[0], n_sites, launches, err,
+           bool(torch.isfinite(got).all())))
+    if n_sites != RESNET_SITES or launches != RESNET_SITES:
+        raise AssertionError("%s: %d sites, %d epilogue launches (want %d)"
+                             % (label, n_sites, launches, RESNET_SITES))
     if not err <= 1e-4 or not bool(torch.isfinite(got).all()):
-        raise AssertionError("evaluation forward disagrees with the plain "
-                             "epilogue: %g" % err)
+        raise AssertionError("%s disagrees with the plain epilogue: %g"
+                             % (label, err))
     return {"eval_launches": launches, "eval_max_abs_err": err}
 
 
@@ -1736,18 +1774,16 @@ def time_input_copy(mt, mod, x, y, card):
     return out
 
 
-def profile_resnet_step(mt, mod, batch):
-    """One training step (forward_backward + update) under torch.profiler:
-    device time by kernel, and grouped by kind (convolution, GEMM,
-    reduction, elementwise, copy) from the kernels' names."""
+def profile_device(step, label):
+    """``step()`` once to warm, then once under torch.profiler: device
+    time by kernel, and grouped by kind (convolution, GEMM, reduction,
+    elementwise, copy) from the kernels' names."""
     from torch.profiler import ProfilerActivity, profile as _prof
-    mod.forward_backward(batch)
-    mod.update()
+    step()
     torch.cuda.synchronize()
     with _prof(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-        mod.forward_backward(batch)
-        mod.update()
+        step()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
@@ -1765,10 +1801,9 @@ def profile_resnet_step(mt, mod, batch):
             "copy" if "copy" in k or "memcpy" in k or "memset" in k else
             "other")
         kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3
-    log("  profiled ResNet-50 training step: %.2f ms of device time in %d "
-        "kernels; by kind %s" % (total, len(events),
-                                 {k: round(v, 2) for k, v in
-                                  sorted(kinds.items())}))
+    log("  profiled %s: %.2f ms of device time in %d kernels; by kind %s"
+        % (label, total, len(events),
+           {k: round(v, 2) for k, v in sorted(kinds.items())}))
     for e in sorted(events, key=lambda e: -e.device_time_total)[:16]:
         log("    %8.3f ms %5.1f%%  x%-4d %s"
             % (e.device_time_total / 1e3,
@@ -1872,40 +1907,304 @@ def resnet8_step_vs_cpu(mt, seed):
     rescale = 1.0 / RESNET8_BATCH
     exact_w = {k: start[0][k].asnumpy().astype(np.float64)
                - RESNET8_LR * rescale * g for k, g in g64.items()}
+    return step_gate(got, exact_w, aux64, ("gpu",), "resnet-8 SGD step "
+                     "(B=%d, lr %g)" % (RESNET8_BATCH, RESNET8_LR))
+
+
+def step_gate(got, exact_w, exact_a, runs, label):
+    """Hold each GPU step of ``runs`` as phase 7 holds resnet-8: ``got``
+    maps a run (those, "cpu" and the "gpu_tf32" control) to its outputs
+    (probabilities before the update), updated weights and moving
+    statistics; a step passes when its outputs are within TRAIN_OUT_RTOL
+    of the CPU's, and its weights and statistics no farther from the
+    exact (float64) step than TRAIN_CPU_FACTOR times the CPU f32 step's.
+    The TF32 control must fail a gate."""
     c_out, c_w, c_a = got["cpu"]
 
     def dist(vals, exact):
         return max(float(np.abs(vals[k] - exact[k]).max()) for k in exact)
 
     res = {"cpu_weight_err": dist(c_w, exact_w),
-           "cpu_stat_err": dist(c_a, aux64)}
-    for run in ("gpu", "gpu_tf32"):
+           "cpu_stat_err": dist(c_a, exact_a)}
+    for run in tuple(runs) + ("gpu_tf32",):
         o, w, a = got[run]
         r = res[run] = {
             "out_rel_err": float((np.abs(o - c_out) / np.maximum(
                 np.abs(c_out), 1e-30)).max()),
-            "weight_err": dist(w, exact_w), "stat_err": dist(a, aux64)}
+            "weight_err": dist(w, exact_w), "stat_err": dist(a, exact_a)}
         r["weight_ratio"] = r["weight_err"] / max(res["cpu_weight_err"],
                                                   1e-30)
         r["stat_ratio"] = r["stat_err"] / max(res["cpu_stat_err"], 1e-30)
         r["ok"] = (r["out_rel_err"] <= TRAIN_OUT_RTOL and
                    r["weight_ratio"] <= TRAIN_CPU_FACTOR and
                    r["stat_ratio"] <= TRAIN_CPU_FACTOR)
-        log("  resnet-8 SGD step (B=%d, lr %g), %s vs cpu: outputs max rel "
-            "err %.3e; distance from the exact (float64) step: weights "
-            "%.3e vs the cpu f32 step's %.3e (ratio %.2f), moving "
-            "statistics %.3e vs %.3e (ratio %.2f)"
-            % (RESNET8_BATCH, RESNET8_LR, run, r["out_rel_err"],
-               r["weight_err"], res["cpu_weight_err"], r["weight_ratio"],
-               r["stat_err"], res["cpu_stat_err"], r["stat_ratio"]))
-    if not res["gpu"]["ok"]:
-        raise AssertionError("resnet-8 gpu step disagrees with the cpu "
-                             "step: %s" % res["gpu"])
+        log("  %s, %s vs cpu: outputs max rel err %.3e; distance from the "
+            "exact (float64) step: weights %.3e vs the cpu f32 step's %.3e "
+            "(ratio %.2f), moving statistics %.3e vs %.3e (ratio %.2f)"
+            % (label, run, r["out_rel_err"], r["weight_err"],
+               res["cpu_weight_err"], r["weight_ratio"], r["stat_err"],
+               res["cpu_stat_err"], r["stat_ratio"]))
+    for run in runs:
+        if not res[run]["ok"]:
+            raise AssertionError("%s: the %s step disagrees with the cpu "
+                                 "step: %s" % (label, run, res[run]))
     if res["gpu_tf32"]["ok"]:
         raise AssertionError("the TF32 control step passed every gate: the "
                              "gates cannot tell f32 from TF32: %s"
                              % res["gpu_tf32"])
     return res
+
+
+def gluon_narrow(mt):
+    v = mt.gluon.model_zoo.vision
+    g = GLUON_NARROW
+    return v.ResNetV2(v.BasicBlockV2, g["layers"], g["channels"],
+                      classes=g["classes"], thumbnail=g["thumbnail"])
+
+
+def gluon_stripped(net):
+    return {k[len(net.prefix):]: p for k, p in net.collect_params().items()}
+
+
+def gluon_train_steps(mt, net, trainer, loss_fn, batches, steps):
+    """``steps`` steps of the users' loop: the next batch from the
+    DataLoader, ``autograd.record()`` around the forward and the loss,
+    ``backward()``, ``trainer.step(B)``, the loss read back (a device
+    sync). Host-clock ms of each step and of its wait on the DataLoader,
+    and the losses."""
+    b = GLUON_TRAIN["batch"]
+    step_ms, wait_ms, losses = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data, label = next(batches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with mt.autograd.record():
+            loss = loss_fn(net(data), label)
+        loss.backward()
+        trainer.step(b)
+        losses.append(float(loss.mean().asscalar()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wait_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t0) * 1e3)
+    return step_ms, wait_ms, losses
+
+
+def cycle(loader):
+    while True:
+        yield from loader
+
+
+def phase_gluon(mt, epi, seed, card, module_row=None, profile=False):
+    """Gluon's resnet50_v2 at 224x224 trained on gpu(0) through the
+    port's autograd and Trainer (see the module docstring, phase 8).
+    ``module_row`` is phase 7's result, printed beside for comparison;
+    with ``profile``, one hybridized step on a batch already on the card
+    is traced, and the idle share estimated from it."""
+    cfg = GLUON_TRAIN
+    b, warm = cfg["batch"], cfg["warmup"]
+    x, y = resnet_train_data(seed)
+    dataset = mt.gluon.data.ArrayDataset(x, y)
+    np.random.seed(seed)
+    net = mt.gluon.model_zoo.vision.resnet50_v2(
+        classes=RESNET["num_classes"])
+    net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mt.gpu(0))
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": cfg["lr"], "momentum": cfg["momentum"]})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    epi.bn_apply_relu_add.launches = 0  # the training walks fuse none
+    runs = {}
+    for name, steps, workers, hybrid in (
+            ("hybridized", cfg["hybrid_steps"], 0, True),
+            ("imperative", cfg["imperative_steps"], 0, False),
+            ("hybridized_workers", cfg["worker_steps"], cfg["num_workers"],
+             True)):
+        net.hybridize(hybrid)
+        batches = cycle(mt.gluon.data.DataLoader(dataset, batch_size=b,
+                                                 num_workers=workers))
+        try:
+            step_ms, wait_ms, losses = gluon_train_steps(
+                mt, net, trainer, loss_fn, batches, steps)
+        finally:
+            batches.close()
+        mean = float(np.mean(step_ms[warm:]))
+        wait = float(np.mean(wait_ms[warm:]))
+        runs[name] = dict(steps=steps, num_workers=workers, step_ms=step_ms,
+                          wait_ms=wait_ms, losses=losses,
+                          step_ms_mean=mean, wait_ms_mean=wait,
+                          compute_ms_mean=mean - wait,
+                          images_per_s=b / (mean / 1e3))
+        runs[name]["mfu"] = runs[name]["images_per_s"] * \
+            RESNET_FLOPS_PER_IMAGE / PEAK_OPS_PER_S[torch.float32]
+        log("  [%s] %s (num_workers=%d): loss by step %s; step ms %s; mean "
+            "after %d warm-up steps %.2f ms = DataLoader wait %.2f + compute "
+            "%.2f (%.1f images/s, MFU %.1f%% of 67 TFLOP/s f32)"
+            % (card, name, workers, [round(v, 4) for v in losses],
+               [round(v, 1) for v in step_ms], warm, mean, wait, mean - wait,
+               runs[name]["images_per_s"], 100.0 * runs[name]["mfu"]))
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = epi.bn_apply_relu_add.launches
+    row = dict(runs=runs, max_memory_allocated=int(peak))
+    losses = [v for r in runs.values() for v in r["losses"]]
+    hyb = runs["hybridized"]["losses"]
+    if not np.all(np.isfinite(losses)) or not hyb[-1] < hyb[0]:
+        raise AssertionError("Gluon ResNet-50 training did not lower a "
+                             "finite loss: %s" % losses)
+    if train_launches:
+        raise AssertionError("the training walks launched the epilogue %d "
+                             "times" % train_launches)
+    mod_ms = (module_row or {}).get("step_ms_within_epoch")
+    log("  [%s] step ms: Gluon hybridized %.2f, imperative %.2f, hybridized "
+        "with %d DataLoader workers %.2f; phase 7's Module step inside an "
+        "epoch %s; the DataLoader wait %.2f ms with no workers, %.2f with "
+        "%d; max_memory_allocated %.2f GB"
+        % (card, runs["hybridized"]["step_ms_mean"],
+           runs["imperative"]["step_ms_mean"], cfg["num_workers"],
+           runs["hybridized_workers"]["step_ms_mean"],
+           "%.2f" % mod_ms if mod_ms is not None else "not run",
+           runs["hybridized"]["wait_ms_mean"],
+           runs["hybridized_workers"]["wait_ms_mean"], cfg["num_workers"],
+           peak / 1e9))
+    row["module_step_ms_within_epoch"] = mod_ms
+    for name, p in gluon_stripped(net).items():
+        if name.endswith(("running_mean", "running_var")):
+            t = p.data()._data
+            init = 0.0 if name.endswith("running_mean") else 1.0
+            if not bool(torch.isfinite(t).all()) or bool((t == init).all()):
+                raise AssertionError("moving statistic %s is not finite or "
+                                     "did not move" % name)
+    row["reload"] = gluon_reload(mt, net)
+    data = mt.nd.array(x[:b], ctx=mt.gpu(0))
+    if profile:
+        label = mt.nd.array(y[:b], ctx=mt.gpu(0))
+
+        def step():
+            with mt.autograd.record():
+                loss = loss_fn(net(data), label)
+            loss.backward()
+            trainer.step(b)
+
+        net.hybridize()
+        row["profile"] = profile_device(step, "Gluon hybridized step")
+        dev = row["profile"]["device_ms"]
+        compute = runs["hybridized"]["compute_ms_mean"]
+        row["idle_share_estimate"] = 1.0 - dev / compute
+        log("  idle share of the hybridized step's compute (host-clock "
+            "mean %.2f ms less the profiled %.2f ms of device time), an "
+            "estimate: %.1f%%" % (compute, dev,
+                                  100.0 * row["idle_share_estimate"]))
+    net.hybridize()
+    row.update(eval_forward_gate(
+        epi, lambda: net(data)._data, lambda: net.fused_sites,
+        "Gluon evaluation forward (hybridized)"))
+    del net, trainer, data
+    torch.cuda.empty_cache()
+    row["narrow_step"] = gluon_step_vs_cpu(mt, seed)
+    return row
+
+
+def gluon_reload(mt, net):
+    """``save_params``, then a fresh resnet50_v2's ``load_params`` on
+    gpu(0): every parameter bit for bit."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gluon_")
+    try:
+        fname = os.path.join(tmp, "resnet50_v2.params")
+        net.save_params(fname)
+        fresh = mt.gluon.model_zoo.vision.resnet50_v2(
+            classes=RESNET["num_classes"])
+        fresh.load_params(fname, ctx=mt.gpu(0))
+        live, got = gluon_stripped(net), gluon_stripped(fresh)
+        if sorted(live) != sorted(got):
+            raise AssertionError("the reloaded net names other parameters")
+        differ = sum(not torch.equal(live[k].data()._data,
+                                     got[k].data()._data) for k in live)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  save_params -> a fresh net's load_params on gpu(0): %d "
+        "parameters, %d not bit-identical" % (len(live), differ))
+    if differ:
+        raise AssertionError("%d reloaded parameters differ" % differ)
+    return {"params": len(live), "differ": differ}
+
+
+def _softmax64(o):
+    o = o.astype(np.float64)
+    e = np.exp(o - o.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def gluon_step_vs_cpu(mt, seed):
+    """One SGD step (lr 0.1, no momentum) of the narrow ResNetV2 at
+    resnet-8's size (B=32, 28x28) through autograd.record and
+    Trainer.step, from the same weights: on gpu(0) hybridized and
+    imperative, on cpu(), and in float64 on the CPU (the exact step).
+    Each GPU step is held as phase 7 holds resnet-8: its probabilities
+    within TRAIN_OUT_RTOL of the CPU's, its weights and moving statistics
+    no farther from the float64 step than TRAIN_CPU_FACTOR times the CPU
+    f32 step's. A hybridized control step with TF32 convolutions and
+    GEMMs must fail a gate."""
+    rng = np.random.RandomState(seed + 3)
+    x = rng.rand(RESNET8_BATCH, *RESNET8["image_shape"]).astype(np.float32)
+    y = rng.randint(0, GLUON_NARROW["classes"], RESNET8_BATCH).astype(
+        np.float32)
+    with mt.cpu():
+        np.random.seed(seed + 3)
+        net = gluon_narrow(mt)
+        net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2))
+        net(mt.nd.array(x[:1]))
+        start = {k: p.data().asnumpy() for k, p in
+                 gluon_stripped(net).items()}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    got = {}
+    for run, ctx, hybrid, tf32, dtype in (
+            ("gpu_hybridized", mt.gpu(0), True, False, "float32"),
+            ("gpu_imperative", mt.gpu(0), False, False, "float32"),
+            ("gpu_tf32", mt.gpu(0), True, True, "float32"),
+            ("cpu", mt.cpu(), True, False, "float32"),
+            ("float64", mt.cpu(), True, False, "float64")):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            with ctx:
+                net = gluon_narrow(mt)
+                mt.convert.gluon_params_from_mxtpu(start, ctx, block=net)
+                if dtype != "float32":
+                    net.cast(dtype)
+                net.hybridize(hybrid)
+                trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                           {"learning_rate": RESNET8_LR})
+                loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+                data = mt.nd.array(x, dtype=dtype)
+                label = mt.nd.array(y, dtype=dtype)
+                with mt.autograd.record():
+                    out = net(data)
+                    loss = loss_fn(out, label)
+                loss.backward()
+                trainer.step(RESNET8_BATCH)
+                ps = gluon_stripped(net)
+                got[run] = (
+                    _softmax64(out.asnumpy()),
+                    {k: p.data().asnumpy().astype(np.float64)
+                     for k, p in ps.items() if p.grad_req != "null"},
+                    {k: p.data().asnumpy().astype(np.float64)
+                     for k, p in ps.items() if p.grad_req == "null"})
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+    _, exact_w, exact_a = got["float64"]
+    return step_gate(got, exact_w, exact_a,
+                     ("gpu_hybridized", "gpu_imperative"),
+                     "narrow Gluon ResNetV2 SGD step (B=%d, lr %g)"
+                     % (RESNET8_BATCH, RESNET8_LR))
 
 
 def batch_breakdown(mt, sym_json, params, x, profile, label):
@@ -1969,9 +2268,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one largest-bucket forward of each "
-                         "model and one training step of the LM and of "
-                         "ResNet-50 with torch.profiler and print device "
-                         "time by kernel")
+                         "model and one training step of the LM, of "
+                         "ResNet-50 through Module and through Gluon with "
+                         "torch.profiler and print device time by kernel")
     ap.add_argument("--parent", metavar="CSRC", action="append", default=[],
                     help="the csrc directory of another tree (a parent "
                          "commit or a variant, unpacked outside the "
@@ -2058,6 +2357,12 @@ def main(argv=None):
         log("[resnet_training]")
         results["resnet_training"] = phase_resnet_training(
             mt, epi, args.seed, card, profile=args.profile)
+    # 8. Gluon ResNet-50 training
+    if "gluon" in phases:
+        log("[gluon]")
+        results["gluon"] = phase_gluon(mt, epi, args.seed, card,
+                                       results.get("resnet_training"),
+                                       profile=args.profile)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2073,6 +2378,7 @@ def main(argv=None):
     served, resnet = results["serving"], results["resnet"]
     trained = results["training"]
     resnet_eval = results["resnet_training"]["eval_launches"]
+    gluon_eval = results["gluon"]["eval_launches"]
     bwd_row = next(r for r in results["backward_timed"]
                    if r["dtype"] == "float32" and r["B"] == TRAIN["batch"])
     main_row = next(r for r in timed if r["dtype"] == "float32"
@@ -2091,9 +2397,10 @@ def main(argv=None):
         "name": "bn_relu_epilogue", "route": "cuda",
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
-        "launches": resnet["launches"] + resnet_eval,
+        "launches": resnet["launches"] + resnet_eval + gluon_eval,
         "launches_by_path": {"resnet_serving": resnet["launches"],
-                             "resnet_training_eval": resnet_eval},
+                             "resnet_training_eval": resnet_eval,
+                             "gluon_eval": gluon_eval},
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],

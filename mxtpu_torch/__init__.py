@@ -14,7 +14,10 @@ with the flash-attention forward and BN-apply+ReLU epilogue kernels;
 training through ``Module`` (``fit``, the fused update, optimizers,
 metrics, ``NDArrayIter``) with the flash-attention backward kernel, and
 of the conv nets with BatchNorm on batch statistics; the device
-prefetcher; and checkpoints in mxtpu's file formats (``model``).
+prefetcher; checkpoints in mxtpu's file formats (``model``); and the
+imperative frontends: ``autograd`` on torch's tape, the NDArray and
+``nd.<op>`` surface, and ``gluon`` (blocks, hybridize through the
+executor's walk, Trainer, losses, DataLoader, the ResNet zoo).
 """
 from . import base
 from .base import MXNetError
@@ -23,6 +26,7 @@ from .context import Context, cpu, current_context, gpu, num_gpus
 from . import ops
 from . import symbol
 from . import symbol as sym
+from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import executor
@@ -43,9 +47,11 @@ from . import model
 from . import callback
 from . import module
 from . import module as mod
+from . import gluon
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
-           "metric", "io", "model", "callback", "module", "mod"]
+           "metric", "io", "model", "callback", "module", "mod",
+           "autograd", "gluon"]

@@ -27,6 +27,7 @@ from .base import MXNetError
 from .context import as_context, current_context
 from .ndarray import NDArray
 from .ops.nn import bn_relu_inference
+from .ops.registry import write_aux
 
 __all__ = ["Executor"]
 
@@ -59,7 +60,7 @@ def _aux_sources(node, attrs):
     return out
 
 
-def _trace_graph(symbol, is_train):
+def _trace_graph(symbol, is_train, fuse=True):
     """Return ``run(arg_vals, aux_vals) -> (outputs, aux_updates)`` for
     ``symbol``; ``aux_updates`` maps an aux variable's name to the value
     the op it feeds computed for it in a training run (later writers
@@ -70,7 +71,10 @@ def _trace_graph(symbol, is_train):
     ``BatchNorm -> Activation(relu)`` pair (``_fusable_bn``) becomes one
     step, ``nn.bn_relu_inference``, that writes the ReLU's output slot:
     the executor's counterpart of the fusion XLA builds for the JAX
-    package. ``run.fused_sites`` counts those pairs."""
+    package. ``run.fused_sites`` counts those pairs. ``fuse=False`` keeps
+    an inference plan unfused, for a caller that differentiates it (the
+    epilogue kernel has no gradient); training plans never fuse."""
+    fuse = fuse and not is_train
     topo = symbol._topo()
     aux_nodes = symbol._aux_node_set()
     graph_outputs = {(id(n), i) for n, i in symbol._outputs}
@@ -91,8 +95,8 @@ def _trace_graph(symbol, is_train):
             attrs = type(attrs)(attrs)
             attrs["__is_train__"] = is_train
         ins = [(id(n), i) for n, i in node.inputs]
-        relu = None if is_train else _fusable_bn(node, consumers,
-                                                 graph_outputs)
+        relu = _fusable_bn(node, consumers, graph_outputs) \
+            if fuse else None
         if relu is not None:
             fused_into.add(id(relu))
             plan.append((node, attrs, ins, 1, (id(relu), 0), ()))
@@ -194,23 +198,11 @@ class Executor:
             leaves[n] = raw_args[n] = raw_args[n].detach().requires_grad_()
         with torch.enable_grad():
             outs, aux_updates = self._run(True)(raw_args, raw_aux)
-        self._write_aux(aux_updates)
+        write_aux({n: a._data for n, a in self.aux_dict.items()},
+                  aux_updates)
         self._tape = (outs, leaves)
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         return self.outputs
-
-    def _write_aux(self, aux_updates):
-        """Copy a training forward's aux values into ``aux_dict`` in
-        place, so every holder of those tensors (a reshaped executor
-        sharing them, the inference plan) sees the new statistics. A
-        value that is the aux tensor itself (BatchNorm under
-        use_global_stats) is skipped: copying it onto itself would only
-        bump the version of a tensor the backward may have saved."""
-        with torch.no_grad():
-            for name, val in aux_updates.items():
-                dst = self.aux_dict[name]._data
-                if val is not dst:
-                    dst.copy_(val)
 
     def backward(self, out_grads=None):
         """Gradients of the last training forward into ``grad_dict``:

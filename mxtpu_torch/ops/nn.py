@@ -5,7 +5,8 @@ Counterpart of the matching entries of ``mxtpu/ops/nn.py``:
 ``FullyConnected`` (:37), ``Convolution`` (:83), ``Pooling`` (:193),
 ``BatchNorm`` (:202-233; in training on the batch's statistics, with
 the updated moving statistics returned for the executor to write back),
-``LayerNorm`` (:274), ``Activation`` (:295), ``SoftmaxOutput`` (:382,
+``LayerNorm`` (:274), ``Activation`` (:295), ``LeakyReLU`` (:313),
+``softmax`` and ``log_softmax`` (:320-323), ``SoftmaxOutput`` (:382,
 with the loss head's own gradient, :357-377), ``Dropout`` (:484, drawing
 its mask from ``random.generator``) and ``Concat`` (:543). Matrix products and
 convolutions go to ``torch.nn.functional`` (cuBLAS, cuDNN), as the JAX
@@ -108,6 +109,44 @@ def _activation(a, x):
 
 
 register("Activation", _activation, attrs={"act_type": Required(str)})
+
+
+def _leaky_relu(a, x, gamma=None):
+    t = a.act_type
+    if t == "leaky":
+        return torch.where(x > 0, x, a.slope * x)
+    if t == "elu":
+        return torch.where(x > 0, x, a.slope * (torch.exp(x) - 1))
+    if t == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return torch.where(x > 0, x, g * x)
+    if t == "rrelu":  # the mean slope, as mxtpu's inference form
+        return torch.where(x > 0, x,
+                           (a.lower_bound + a.upper_bound) / 2.0 * x)
+    raise MXNetError("unknown act_type %s" % t)
+
+
+register("LeakyReLU", _leaky_relu,
+         arg_names=lambda a: ["data", "gamma"] if a.get("act_type") == "prelu"
+         else ["data"],
+         attrs={"act_type": "leaky", "slope": 0.25, "lower_bound": 0.125,
+                "upper_bound": 0.334},
+         infer_args=lambda a, shapes: [shapes[0], (shapes[0][1],)]
+         if a.act_type == "prelu" else [shapes[0]])
+
+
+def _softmax_family(f):
+    def impl(a, x):
+        if a.temperature:
+            x = x / a.temperature
+        return f(x, dim=int(a.axis))
+    return impl
+
+
+register("softmax", _softmax_family(torch.softmax),
+         attrs={"axis": -1, "temperature": None})
+register("log_softmax", _softmax_family(torch.log_softmax),
+         attrs={"axis": -1, "temperature": None})
 
 
 # ---------------------------------------------------------------- SoftmaxOutput

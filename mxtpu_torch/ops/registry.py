@@ -179,3 +179,17 @@ def invoke(name, inputs, attrs_kwargs):
     op = get_op(name)
     attrs = op.parse_attrs(attrs_kwargs)
     return op, attrs, op.apply(attrs, inputs)
+
+
+def write_aux(dst, updates):
+    """Copy an op's or a graph's updated aux values (BatchNorm's moving
+    statistics) into the aux tensors they came from, in place under
+    ``no_grad``, so every holder of those tensors sees the new values:
+    ``updates`` and ``dst`` map an aux name to the new value and to the
+    tensor it updates. A value that is the aux tensor itself (BatchNorm
+    under use_global_stats) is skipped: copying it onto itself would only
+    bump the version of a tensor the backward may have saved."""
+    with torch.no_grad():
+        for name, val in updates.items():
+            if val is not dst[name]:
+                dst[name].copy_(val)

@@ -4,6 +4,7 @@ Counterpart of ``mxtpu/symbol/__init__.py``.
 """
 from __future__ import annotations
 
+import builtins as _builtins
 import sys as _sys
 
 from ..base import PrefixOpNamespace as _PrefixNS
@@ -12,7 +13,7 @@ from .symbol import (Group, NameManager, Symbol, Variable, create, load,
                      load_json, var)
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "NameManager", "create", "contrib"]
+           "NameManager", "create", "contrib", "maximum", "minimum"]
 
 
 def _make_sym_fn(opname, op):
@@ -36,3 +37,21 @@ for _name in list_ops():
         setattr(_mod, _name, _make_sym_fn(_name, get_op(_name)))
 
 contrib = _PrefixNS(_mod, "_contrib_")
+
+
+def _either_side(op, scalar_op, plain):
+    """Symbol or number on either side (mxtpu/symbol/__init__.py:80)."""
+    def fn(left, right):
+        if isinstance(left, Symbol) and isinstance(right, Symbol):
+            return create(op, [left, right], {})
+        if isinstance(left, Symbol):
+            return create(scalar_op, [left], {"scalar": float(right)})
+        if isinstance(right, Symbol):
+            return create(scalar_op, [right], {"scalar": float(left)})
+        return plain(left, right)
+    fn.__name__ = plain.__name__
+    return fn
+
+
+maximum = _either_side("_maximum", "_maximum_scalar", _builtins.max)
+minimum = _either_side("_minimum", "_minimum_scalar", _builtins.min)

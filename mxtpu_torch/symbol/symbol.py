@@ -118,10 +118,80 @@ class Symbol:
             return self._outputs[0][0].name
         return None
 
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("Symbol + scalar is not ported yet")
-        return _compose(get_op("_plus"), None, [self, other], {})
+    # ------------------------------------------------ arithmetic sugar
+    # (mxtpu/symbol/symbol.py:233-315): a Symbol operand composes the
+    # elementwise op, a number the scalar op; comparisons build 0/1 masks
+    def _binop(self, other, op, scalar_op):
+        if isinstance(other, Symbol):
+            return _compose(get_op(op), None, [self, other], {})
+        return _compose(get_op(scalar_op), None, [self],
+                        {"scalar": float(other)})
+
+    def _rscalar(self, other, scalar_op):
+        return _compose(get_op(scalar_op), None, [self],
+                        {"scalar": float(other)})
+
+    def __add__(self, o):
+        return self._binop(o, "_plus", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binop(o, "_minus", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._rscalar(o, "_rminus_scalar")
+
+    def __mul__(self, o):
+        return self._binop(o, "_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binop(o, "_div", "_div_scalar")
+
+    __div__ = __truediv__
+
+    def __rtruediv__(self, o):
+        return self._rscalar(o, "_rdiv_scalar")
+
+    __rdiv__ = __rtruediv__
+
+    def __pow__(self, o):
+        return self._binop(o, "_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        return self._rscalar(o, "_rpower_scalar")
+
+    def __neg__(self):
+        return _compose(get_op("negative"), None, [self], {})
+
+    def __gt__(self, o):
+        return self._binop(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binop(o, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binop(o, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
+
+    def __eq__(self, o):
+        # a scalar builds the mask; Symbol == Symbol stays identity, as
+        # symbols are dict keys and set members throughout
+        if isinstance(o, (int, float)) and not isinstance(o, bool):
+            return self._binop(o, "broadcast_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (int, float)) and not isinstance(o, bool):
+            return self._binop(o, "broadcast_not_equal",
+                               "_not_equal_scalar")
+        return NotImplemented
 
     __hash__ = object.__hash__
 

@@ -8,7 +8,10 @@ stored past the ends, bit-identical when repeated; the
 BN-apply+ReLU epilogue bit for bit (NaN positions included) at
 ResNet-50's served shapes; a Module training step on gpu(0) against
 the same step on cpu(); BatchNorm in training on the card against the
-CPU; and DevicePrefetchIter staging behind a delayed side stream.
+CPU; DevicePrefetchIter staging behind a delayed side stream; a Gluon
+SGD step of a narrow ResNetV2 on the card against its CPU step, the
+hybridized evaluation forward launching the epilogue once per fused site
+and equal to its plain version, and CUDA nd arrays staying on the card.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -605,3 +608,148 @@ def test_module_fit_with_device_prefetch_on_gpu(cuda):
         for k in a:
             assert bool(torch.isfinite(a[k]).all())
             assert torch.equal(a[k], b[k]), k
+
+
+def _narrow_resnet_v2(mt):
+    v = mt.gluon.model_zoo.vision
+    return v.ResNetV2(v.BasicBlockV2, [1, 1, 1], [16, 16, 32, 64],
+                      classes=10, thumbnail=True)
+
+
+def _gluon_step(mt, ctx, values, x, y, hybridize):
+    """One SGD step of the narrow ResNetV2 on ``ctx`` from ``values``
+    (by stripped name): (loss, {name: value after the step})."""
+    net = _narrow_resnet_v2(mt)
+    mt.convert.gluon_params_from_mxtpu(values, ctx, block=net)
+    if hybridize:
+        net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    data, label = mt.nd.array(x, ctx=ctx), mt.nd.array(y, ctx=ctx)
+    with mt.autograd.record():
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss.asnumpy(), {k[len(net.prefix):]: p.data().asnumpy()
+                            for k, p in net.collect_params().items()}
+
+
+@pytest.mark.parametrize("hybridize", [False, True],
+                         ids=["imperative", "hybridized"])
+def test_gluon_step_on_gpu_matches_cpu(cuda, hybridize):
+    """One Gluon SGD step (autograd.record, backward, Trainer.step) of the
+    narrow ResNetV2 on gpu(0) and on cpu() from the same weights: the
+    losses and the updated weights and moving statistics within 1e-5 of
+    the largest value (f32, TF32 off: sums in other orders)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    x = rng.rand(16, 3, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    with mt.cpu():
+        np.random.seed(4)
+        net = _narrow_resnet_v2(mt)
+        net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2))
+        net(mt.nd.array(x[:1]))
+        values = {k[len(net.prefix):]: p.data().asnumpy()
+                  for k, p in net.collect_params().items()}
+    gl, gw = _gluon_step(mt, mt.gpu(0), values, x, y, hybridize)
+    with mt.cpu():
+        cl, cw = _gluon_step(mt, mt.cpu(), values, x, y, hybridize)
+    assert np.abs(gl - cl).max() <= 1e-5 * max(1.0, np.abs(cl).max())
+    for k in cw:
+        scale = max(1.0, float(np.abs(cw[k]).max()))
+        assert np.abs(gw[k] - cw[k]).max() <= 1e-5 * scale, k
+
+
+def test_gluon_hybridized_eval_forward_launches_the_epilogue(cuda):
+    """The hybridized inference plan of the narrow ResNetV2 on gpu(0):
+    one epilogue launch per fused BatchNorm->ReLU site (7), none in a
+    training forward or a forward recorded in predict mode (whose
+    gradients flow), and the output within 1e-5 of the same forward
+    through the epilogue's plain version."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import epilogue as epi
+    from mxtpu_torch.ops import nn as nn_ops
+    rng = np.random.RandomState(5)
+    x = mt.nd.array(rng.rand(8, 3, 28, 28).astype(np.float32), ctx=mt.gpu(0))
+    np.random.seed(6)
+    net = _narrow_resnet_v2(mt)
+    net.initialize(mt.init.Xavier(), ctx=mt.gpu(0))
+    net.hybridize()
+    with mt.autograd.record():  # moves the statistics; fuses nothing
+        before = epi.bn_apply_relu_add.launches
+        net(x)
+        assert epi.bn_apply_relu_add.launches == before
+    # recorded in predict mode: the inference plan, unfused, so the
+    # gradient reaches the first convolution (the kernel has none)
+    with mt.autograd.record(train_mode=False):
+        loss = net(x).sum()
+    loss.backward()
+    assert epi.bn_apply_relu_add.launches == before
+    w = net.collect_params()[net.prefix + "conv2d0_weight"]
+    assert float(w.grad()._data.abs().sum()) > 0
+    before = epi.bn_apply_relu_add.launches
+    got = net(x)._data.clone()
+    assert net.fused_sites == 7
+    assert epi.bn_apply_relu_add.launches == before + 7
+    kernel = nn_ops.bn_apply_relu_add
+    nn_ops.bn_apply_relu_add = lambda x, scale, shift, residual=None, \
+        axis=-1, **_: epi.bn_apply_relu_add_reference(x, scale, shift,
+                                                      residual, axis)
+    try:
+        want = net(x)._data
+    finally:
+        nn_ops.bn_apply_relu_add = kernel
+    assert float((got - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+def test_nd_ops_on_the_card_stay_on_the_card(cuda):
+    """Every imperative path keeps a CUDA array on its card: the nd
+    functions, the operators, indexing, creation with ctx=gpu(0), the
+    gradient buffers, a DataLoader batch by default (gpu(0)), and the
+    Trainer's state."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    dev = torch.device("cuda", 0)
+    a = mt.nd.array(np.random.RandomState(0).randn(4, 5), ctx=mt.gpu(0))
+    idx = mt.nd.array([0, 2, 1, 4], ctx=mt.gpu(0))
+    a.attach_grad()
+    with mt.autograd.record():
+        outs = [mt.nd.relu(a), mt.nd.exp(a), a * 2, 2 - a, a / (a * a + 1),
+                a > 0, mt.nd.sum(a, axis=1), a.mean(), mt.nd.pick(a, idx),
+                mt.nd.take(a, idx), mt.nd.log_softmax(a), a[1:3], a[::-1],
+                a.T, mt.nd.stack(a, a), mt.nd.maximum(a, 0.5),
+                mt.nd.where(a > 0, a, a * 0.1), a.reshape((5, 4))]
+        total = sum(o.sum() for o in outs if o.dtype == torch.float32)
+    total.backward()
+    for o in outs + [total, a.grad, mt.nd.zeros((2,), ctx=mt.gpu(0)),
+                     mt.nd.ones((2,), ctx=mt.gpu(0)),
+                     mt.nd.arange(4, ctx=mt.gpu(0))]:
+        assert o._data.device == dev and o.context == mt.gpu(0)
+    ds = mt.gluon.data.ArrayDataset(np.ones((4, 3), np.float32),
+                                    np.arange(4, dtype=np.float32))
+    for nw in (0, 2):
+        for d, lbl in mt.gluon.data.DataLoader(ds, batch_size=2,
+                                               num_workers=nw):
+            assert d._data.device == dev and lbl._data.device == dev
+    net = mt.gluon.nn.Dense(3)
+    net.initialize()  # gpu(0) by default
+    tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.1, "momentum": 0.9})
+    with mt.autograd.record():
+        loss = net(mt.nd.ones((2, 5), ctx=mt.gpu(0))).sum()
+    loss.backward()
+    tr.step(2)
+    for p in net.collect_params().values():
+        assert p.data()._data.device == dev and p.grad()._data.device == dev
+    assert all(s._data.device == dev
+               for s in tr._updaters[0].states.values())

@@ -42,6 +42,8 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
             "                         model)\n"
             "from mxtpu_torch.module import Module, FusedTrainStep\n"
             "from mxtpu_torch.ops import attention, epilogue\n"
+            "from mxtpu_torch import autograd, gluon\n"
+            "from mxtpu_torch.gluon.model_zoo import vision\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in %r)\n"
             "print(repr(bad))\n" % (str(REPO), FORBIDDEN))
@@ -98,6 +100,26 @@ def test_module_without_context_raises_without_cuda(mt, no_cuda):
     with pytest.raises(mt.MXNetError, match="gpu"):
         mt.mod.Module(sym, context=mt.gpu(0))
     assert mt.mod.Module(sym, context=mt.cpu())._context == mt.cpu()
+
+
+def test_gluon_entry_points_default_to_the_card(mt, no_cuda):
+    """Block.initialize, nd.array, a DataLoader's batches and the
+    parameters a Trainer updates live on gpu(0) unless told otherwise:
+    with no card each raises, and each works given cpu()."""
+    import numpy as np
+    net = mt.gluon.nn.Dense(2, in_units=3)
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        net.initialize()
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        mt.nd.array(np.ones(3))
+    ds = mt.gluon.data.ArrayDataset(np.ones((4, 3), np.float32))
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        next(iter(mt.gluon.data.DataLoader(ds, batch_size=2)))
+    net.initialize(ctx=mt.cpu())
+    assert net.weight.data().context == mt.cpu()
+    with mt.cpu():
+        assert next(iter(mt.gluon.data.DataLoader(
+            ds, batch_size=2))).context == mt.cpu()
 
 
 def test_explicit_cpu_context_is_honoured(mt):
