@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU.
+NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
                           [--phases kernels,epilogue,...]
                           [--parent CSRC [--parent CSRC ...]]
+    python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
 
 Phases (any failure raises and exits non-zero):
 
@@ -95,7 +96,42 @@ Phases (any failure raises and exits non-zero):
    control must fail). Prints step ms (host clock, each step ending in a
    device sync; mean after 2 warm-up steps) and the DataLoader's share of
    it, images/s, MFU, peak memory, and phase 7's Module step beside it.
-9. Prints the kernels' JSON line, then the device line last.
+9. Data parallelism on one card (``data_parallel``): mxtpu's KVStore
+   cases on CUDA values, "local" and "device" (a pushed list summed, an
+   updater on the store, set_optimizer's SGD with momentum), each pulled
+   value bit for bit the same arithmetic on the host; then phase 7's
+   ResNet-50 v2 for 4 steps (B=256, 512 images, 2 epochs) through
+   ``fit(kvstore="dist_sync")`` on a one-rank NCCL group (the kvstore
+   path: every parameter pushed, all-reduced, updated by the Updater on
+   the store and pulled): with cuDNN deterministic its weights and
+   statistics within 1e-4 (of max(1, |w|)) of the same 4 steps through
+   the fused local path (printed: whether bit-identical); then, with
+   cuDNN as phase 7 runs it, a finite falling cross-entropy and the
+   evaluation forward's 50 epilogue launches within 1e-4 of the plain
+   epilogue. Prints its step ms beside phase 7's, and the push/pull
+   loop's host ms.
+10. Prints the kernels' JSON line, then the device line last.
+
+``--multi-gpu`` runs, in place of the phases, the data-parallel paths
+over 4 cards (it raises below 4 CUDA devices; the default run never
+takes it): the kernels built once; the KVStore cases over gpu(0..3) and
+a push+pull of ResNet-50's parameter set, timed; each kernel on each of
+cuda:1-3 against its plain version there (phases 3, 3b, 3c's gates);
+ResNet-50 v2 ``Module.fit`` over [gpu(0..3)], kvstore "device", B=256
+(64 a card), 8 steps on the fused path (BatchNorm over the whole batch,
+one NCCL all-reduce of the gradients a step), with step ms, images/s
+(per chip, against one card at B=64 and at B=256 timed in the same
+call), the gradient sum's device and host ms, a step's host ms, peak
+memory per card, and gates: a finite falling cross-entropy, replicas'
+weights and moving statistics bit-identical, the evaluation forward's
+50 epilogue launches on each card within 1e-4 of the plain epilogue;
+the LM at phase 6's widths over 4 cards (B=4 a card, Adam, 4 steps:
+tokens/s, 12 flash forward and 12 backward launches a step on each
+card); ``dist_sync`` with 4 processes, one per card (``--dist-worker``),
+NCCL: ResNet-50 v2 for 4 steps, the ranks' weights bit-identical; and
+Gluon's resnet50_v2 hybridized over 4 cards (``split_and_load``,
+``Trainer(kvstore="device")``), 4 steps: step ms and the Trainer's
+push/pull host ms. Its own summary line, then the device line, last.
 """
 from __future__ import annotations
 
@@ -196,8 +232,14 @@ GLUON_TRAIN = dict(batch=256, hybrid_steps=8, imperative_steps=4,
                    momentum=0.9)
 GLUON_NARROW = dict(layers=[1, 1, 1], channels=[16, 16, 32, 64],
                     classes=10, thumbnail=True)
+# phase 9 (data_parallel): phase 7's ResNet-50 for 4 steps through
+# fit(kvstore="dist_sync") on a one-rank NCCL group and through the fused
+# local path; --multi-gpu: the data-parallel paths over 4 cards
+DP_STEPS = 4
+MULTI = dict(gpus=4, batch=256, steps=8, lm_batch=4, lm_steps=4,
+             dist_steps=4, gluon_steps=4, kv_iters=5)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
-          "resnet_training", "gluon")
+          "resnet_training", "gluon", "data_parallel")
 
 
 def log(*a):
@@ -1255,7 +1297,8 @@ def phase_training(mt, att, seed, card, profile=False):
              label_shapes=[("softmax_label", y.shape)])
     mod.init_params(mt.init.Xavier())
     n_params = sum(int(np.prod(a.shape))
-                   for a in mod._exec.arg_dict.values()) - x.size - y.size
+                   for a in mod._exec_group.execs[0].arg_dict.values()) \
+        - x.size - y.size
     log("  LM %s, B=%d: %d parameters, bound and initialized in %.1f s"
         % (cfg, b, n_params, time.perf_counter() - t0))
     ce, stamps = [], []
@@ -1641,7 +1684,7 @@ def phase_resnet_training(mt, epi, seed, card, profile=False):
             return mod.get_outputs()[0]._data
 
         row.update(eval_forward_gate(
-            epi, forward, lambda: mod._exec.fused_sites,
+            epi, forward, lambda: mod._exec_group.execs[0].fused_sites,
             "trained model's evaluation forward"))
         row["input_copy_ms"] = time_input_copy(mt, mod, x, y, card)
         if profile:
@@ -1693,10 +1736,11 @@ def check_checkpoint_reload(mt, prefix, epoch, sym, live, b):
     return {"arrays": sum(map(len, live)), "differ": worst}
 
 
-def eval_forward_gate(epi, forward, sites, label):
+def eval_forward_gate(epi, forward, sites, label, expect=RESNET_SITES):
     """A trained model's evaluation forward on one batch, ``forward()``
     returning its output tensor: the epilogue kernel launches once per
-    fused site (``sites()``, read after the forward; 50), and the output
+    fused site (``sites()``, read after the forward; ``expect``, 50 a
+    replica), and the output
     is within 1e-4 of the same forward with each site through the
     epilogue's plain version (on the same card, the same trained
     statistics)."""
@@ -1722,9 +1766,9 @@ def eval_forward_gate(epi, forward, sites, label):
         "epilogue max abs err %.3e; rows finite %s"
         % (label, got.shape[0], n_sites, launches, err,
            bool(torch.isfinite(got).all())))
-    if n_sites != RESNET_SITES or launches != RESNET_SITES:
+    if n_sites != expect or launches != expect:
         raise AssertionError("%s: %d sites, %d epilogue launches (want %d)"
-                             % (label, n_sites, launches, RESNET_SITES))
+                             % (label, n_sites, launches, expect))
     if not err <= 1e-4 or not bool(torch.isfinite(got).all()):
         raise AssertionError("%s disagrees with the plain epilogue: %g"
                              % (label, err))
@@ -1734,7 +1778,7 @@ def eval_forward_gate(epi, forward, sites, label):
 def time_input_copy(mt, mod, x, y, card):
     """Host-clock ms to get a batch into the bound input arrays, over
     ``copy_steps`` training steps each: from the host (NDArrayIter, a
-    pageable copy in ``Module._load_batch``) and through a
+    pageable copy in the executor group's ``load_batch``) and through a
     DevicePrefetchIter (the wait on the staged batch and a device-to-
     device copy). Each step trains between the copies, so the producer
     can stage the next batch meanwhile."""
@@ -1753,11 +1797,11 @@ def time_input_copy(mt, mod, x, y, card):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 batch = next(it)
-                mod._load_batch(batch)
+                mod._exec_group.load_batch(batch)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
-                mod._exec.forward(is_train=True)
-                mod._exec.backward()
+                mod._exec_group.execs[0].forward(is_train=True)
+                mod._exec_group.execs[0].backward()
                 mod.update()
                 torch.cuda.synchronize()
         finally:
@@ -2207,6 +2251,842 @@ def gluon_step_vs_cpu(mt, seed):
                      % (RESNET8_BATCH, RESNET8_LR))
 
 
+def free_port():
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kvstore_cases(mt, ctxs):
+    """mxtpu's kvstore cases (tests/test_kvstore.py) on CUDA values over
+    the contexts ``ctxs``, for "local" and "device": a pushed list (one
+    value per context, cycled to 4) is summed; an updater runs on the
+    store; set_optimizer's SGD with momentum. Gate: each pulled value
+    bit for bit the same arithmetic on the host (the list added in
+    order; the same update functions on cpu() tensors)."""
+    rng = np.random.RandomState(3)
+    shape = (1000, 257)
+    vals = [rng.randn(*shape).astype(np.float32) for _ in range(4)]
+    placed = [ctxs[i % len(ctxs)] for i in range(4)]
+    want_sum = torch.from_numpy(vals[0])
+    for v in vals[1:]:
+        want_sum = want_sum + torch.from_numpy(v)
+    host_kv = mt.kv.create("local")
+    host_kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.1, momentum=0.9,
+                                           rescale_grad=0.25, wd=1e-4))
+    w0 = rng.randn(*shape).astype(np.float32)
+    host_kv.init(0, mt.nd.array(w0, ctx=mt.cpu()))
+    for v in vals[:3]:
+        host_kv.push(0, mt.nd.array(v, ctx=mt.cpu()))
+    want_sgd = host_kv._store[0]._data
+    out = {}
+    for kind in ("local", "device"):
+        kv = mt.kv.create(kind)
+        kv.init(3, mt.nd.zeros(shape, ctx=ctxs[0]))
+        kv.push(3, [mt.nd.array(v, ctx=c) for v, c in zip(vals, placed)])
+        outs = [mt.nd.zeros(shape, ctx=c) for c in ctxs]
+        kv.pull(3, out=outs)
+        agg = all(torch.equal(o._data.cpu(), want_sum) for o in outs)
+        def updater(key, recv, stored):
+            stored += recv * 2
+
+        kv.set_updater(updater)
+        kv.push(3, [mt.nd.array(v, ctx=c) for v, c in zip(vals, placed)])
+        kv.pull(3, out=outs)
+        upd = all(torch.equal(o._data.cpu(), want_sum + want_sum * 2)
+                  for o in outs)
+        kv = mt.kv.create(kind)
+        kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.1, momentum=0.9,
+                                          rescale_grad=0.25, wd=1e-4))
+        kv.init(0, mt.nd.array(w0, ctx=ctxs[0]))
+        for v in vals[:3]:
+            kv.push(0, mt.nd.array(v, ctx=ctxs[0]))
+        kv.pull(0, out=outs)
+        sgd = all(torch.equal(o._data.cpu(), want_sgd) for o in outs)
+        out[kind] = dict(aggregation=agg, updater=upd, sgd_momentum=sgd)
+        log("  kvstore %s over %s: pushed list summed bit for bit %s; "
+            "updater %s; SGD momentum on the store %s"
+            % (kind, ctxs, agg, upd, sgd))
+        if not (agg and upd and sgd):
+            raise AssertionError("kvstore %s disagrees with the host: %s"
+                                 % (kind, out[kind]))
+    return out
+
+
+class StepClock:
+    """Host-clock ms of each ``fit`` step, each ending in a device sync
+    of every card in use (a batch-end callback)."""
+
+    def __init__(self, n_devices=1):
+        self.n = n_devices
+        self.stamps = []
+
+    def __call__(self, param):
+        for i in range(self.n):
+            torch.cuda.synchronize(i)
+        self.stamps.append(time.perf_counter())
+
+    def ms(self, start):
+        return [float(v) for v in np.diff([start] + self.stamps) * 1e3]
+
+
+def fit_resnet(mt, contexts, x, y, batch, num_epoch, seed, kvstore,
+               on_module=None):
+    """ResNet-50 v2 through Module.fit over ``contexts`` from Xavier
+    weights drawn with the numpy ``seed`` (phase 7's configuration),
+    ``on_module(mod)`` called before the fit: (module, step ms,
+    cross-entropy by step)."""
+    mod = mt.mod.Module(mt.models.get_resnet(**RESNET), context=contexts)
+    if on_module is not None:
+        on_module(mod)
+    clock = StepClock(len(contexts))
+    ce = []
+
+    def record(param):
+        clock(param)
+        ce.append(dict(zip(*param.eval_metric.get()))["cross-entropy"])
+        param.eval_metric.reset()
+
+    np.random.seed(seed)
+    for i in range(len(contexts)):
+        torch.cuda.synchronize(i)
+    start = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=batch), num_epoch=num_epoch,
+            eval_metric=["acc", "ce"], optimizer="sgd", kvstore=kvstore,
+            optimizer_params={"learning_rate": RESNET_TRAIN["lr"],
+                              "momentum": RESNET_TRAIN["momentum"],
+                              "rescale_grad": 1.0 / batch},
+            initializer=mt.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=record, metric_sync=1)
+    return mod, clock.ms(start), ce
+
+
+def scaled_dist(a, b):
+    """max over arrays of |a - b| / max(1, |b|)."""
+    return max(float((a[k]._data.double() - b[k]._data.double()).abs()
+                     .max()) / max(1.0, float(b[k]._data.abs().max()))
+               for k in b)
+
+
+class DeterministicCudnn:
+    """cuDNN's deterministic algorithms inside the block (two runs of one
+    step then give the same bits), the flags restored after."""
+
+    def __enter__(self):
+        self.flags = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.flags
+
+
+def phase_data_parallel(mt, epi, seed, card, module_row=None):
+    """Phase 9 on one card: the KVStore cases on CUDA values, then
+    ResNet-50 v2 at phase 7's configuration trained for 4 steps through
+    ``fit(kvstore="dist_sync")`` on a one-rank NCCL group (the kvstore
+    path: every parameter pushed, all-reduced over NCCL, updated by the
+    Updater on the store and pulled). With cuDNN deterministic it is held
+    to the same 4 steps through the fused local path (without it two runs
+    of one path already part: cuDNN's weight gradients add with atomics,
+    and the trajectories separate); then it runs again with cuDNN as
+    phase 7 runs it, timed, and the trained model's evaluation forward
+    goes through the epilogue."""
+    import torch.distributed as dist
+    row = {"kvstore": kvstore_cases(mt, [mt.gpu(0)])}
+    x, y = resnet_train_data(seed)
+    b, steps = RESNET_TRAIN["batch"], DP_STEPS
+    x, y = x[:2 * b], y[:2 * b]
+    epochs = steps * b // len(x)
+    push_ms = []
+
+    def time_update(mod):  # the push/pull loop's host time
+        update = mod.update
+
+        def timed():
+            t0 = time.perf_counter()
+            update()
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+
+        mod.update = timed
+
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d"
+                            % free_port(), world_size=1, rank=0)
+    try:
+        with DeterministicCudnn():
+            fused, fused_ms, fused_ce = fit_resnet(
+                mt, [mt.gpu(0)], x, y, b, epochs, seed, "local")
+            if fused._fused is None:
+                raise AssertionError("the local run did not take the fused "
+                                     "step")
+            want = fused.get_params()
+            del fused
+            mod, det_ms, det_ce = fit_resnet(mt, [mt.gpu(0)], x, y, b,
+                                             epochs, seed, "dist_sync")
+            got = mod.get_params()
+            del mod
+        torch.cuda.empty_cache()
+        mod, ms, ce = fit_resnet(mt, [mt.gpu(0)], x, y, b, epochs, seed,
+                                 "dist_sync", on_module=time_update)
+        kv = mod._kvstore
+        if kv is None or kv.type != "dist_sync" or kv.num_workers != 1 or \
+                mod._fused is not None or not mod._update_on_kvstore:
+            raise AssertionError("dist_sync did not take the kvstore path")
+    finally:
+        dist.destroy_process_group()
+    dw, da = scaled_dist(got[0], want[0]), scaled_dist(got[1], want[1])
+    same = all(torch.equal(g[k]._data, w[k]._data)
+               for g, w in zip(got, want) for k in w)
+    row.update(dist_sync_step_ms=ms, dist_sync_ce=ce,
+               push_pull_host_ms=push_ms, deterministic_fused_ce=fused_ce,
+               deterministic_dist_sync_ce=det_ce,
+               deterministic_fused_step_ms=fused_ms,
+               deterministic_dist_sync_step_ms=det_ms, weights_dist=dw,
+               stats_dist=da, bit_identical=same, steps=steps, batch=b)
+    inner = float(np.mean([v for i, v in enumerate(ms) if i % 2]))
+    row["dist_sync_step_ms_within_epoch"] = inner
+    mod_ms = (module_row or {}).get("step_ms_within_epoch")
+    log("  with cuDNN deterministic, after %d steps: dist_sync vs the fused "
+        "local path weights %.3e, moving statistics %.3e (max |a - b| / "
+        "max(1, |b|)); bit-identical %s; cross-entropy fused %s, dist_sync "
+        "%s" % (steps, dw, da, same, [round(v, 4) for v in fused_ce],
+                [round(v, 4) for v in det_ce]))
+    log("  [%s] ResNet-50 v2, B=%d, %d steps, fit(kvstore=\"dist_sync\") on "
+        "a one-rank NCCL group: cross-entropy %s; step ms %s (steps inside "
+        "an epoch %.2f); the update's push/pull loop, host ms a step %s; "
+        "phase 7's step inside an epoch %s"
+        % (card, b, steps, [round(v, 4) for v in ce],
+           [round(v, 1) for v in ms], inner, [round(v, 1) for v in push_ms],
+           "%.2f" % mod_ms if mod_ms is not None else "not run"))
+    if not np.all(np.isfinite(ce)) or not ce[-1] < ce[0]:
+        raise AssertionError("dist_sync training did not lower a finite "
+                             "cross-entropy: %s" % ce)
+    if not (dw <= 1e-4 and da <= 1e-4):
+        raise AssertionError("dist_sync is %.3e / %.3e from the fused local "
+                             "path (gate 1e-4)" % (dw, da))
+    batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
+                            [mt.nd.array(y[:b], ctx=mt.cpu())])
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    row.update(eval_forward_gate(
+        epi, forward, lambda: mod._exec_group.execs[0].fused_sites,
+        "dist_sync-trained model's evaluation forward"))
+    del mod
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------- --multi-gpu
+def kernels_on_device(att, epi, i):
+    """Each kernel on cuda:i against its plain version there, with
+    phases 3, 3b and 3c's gates: flash forward (LM shape at B=1, and an
+    edge), flash backward (scaled error) and the epilogue (bit for bit,
+    NaN positions equal); returns the launches made."""
+    dev = torch.device("cuda", i)
+    gen = torch.Generator(device=dev).manual_seed(i)
+    before = (att.flash_attention.launches,
+              att.flash_attention_backward.launches,
+              epi.bn_apply_relu_add.launches)
+    rows = []
+    with torch.cuda.device(dev):
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, h, t, s, d in ((1, 12, 1024, 1024, 64),
+                                  (2, 3, 129, 65, 64)):
+                q, k, v, do = (torch.randn(b, h, n, d, device=dev,
+                                           generator=gen).to(dtype)
+                               for n in (t, s, s, t))
+                scale = att._scale(d, None)
+                out, lse = att._flash_forward(q, k, v, True, scale,
+                                              want_lse=True)
+                ref, ref_lse = att.flash_attention_reference(
+                    q, k, v, causal=True, return_lse=True)
+                fwd = abs_err(out, ref)
+                lse_err = abs_err(lse, ref_lse)
+                grads = att.flash_attention_backward(q, k, v, out, do, lse,
+                                                     causal=True)
+                want = att.flash_attention_backward_reference(
+                    q, k, v, out, do, lse, causal=True)
+                bwd = max(rel_err(g, w) for g, w in zip(grads, want))
+                ok = (fwd <= TOL[dtype] and lse_err <= LSE_TOL[dtype]
+                      and bwd <= BWD_TOL[dtype]
+                      and all(g.device == dev for g in grads))
+                rows.append(dict(dtype=str(dtype).split(".")[-1],
+                                 shape=(b, h, t, s, d), fwd_err=fwd,
+                                 lse_err=lse_err, bwd_err=bwd, ok=ok))
+        for (shape, axis) in EPILOGUE_CASES[2:4]:
+            x, scale, shift, _ = epilogue_inputs(shape, axis, torch.float32,
+                                                 False, gen)
+            x = x.to(dev)
+            x.view(-1)[::97] = float("nan")
+            got = epi.bn_apply_relu_add(x, scale.to(dev), shift.to(dev),
+                                        axis=axis)
+            want = epi.bn_apply_relu_add_reference(x, scale.to(dev),
+                                                   shift.to(dev), None, axis)
+            err = bit_err(got, want)
+            rows.append(dict(dtype="float32", shape=shape, epilogue_err=err,
+                             ok=err == 0 and got.device == dev))
+    torch.cuda.synchronize(dev)
+    launches = [a - b for a, b in zip(
+        (att.flash_attention.launches, att.flash_attention_backward.launches,
+         epi.bn_apply_relu_add.launches), before)]
+    bad = [r for r in rows if not r["ok"]]
+    log("  cuda:%d: flash fwd/bwd %s; epilogue max err %s; launches "
+        "(fwd, bwd, epilogue) %s"
+        % (i, ["%s %s fwd %.1e lse %.1e bwd %.1e" % (
+            r["dtype"], r["shape"], r["fwd_err"], r["lse_err"], r["bwd_err"])
+            for r in rows if "fwd_err" in r],
+           [r["epilogue_err"] for r in rows if "epilogue_err" in r],
+           launches))
+    if bad:
+        raise AssertionError("kernels on cuda:%d disagree with their plain "
+                             "versions: %s" % (i, bad))
+    return dict(rows=rows, launches=launches)
+
+
+class DeviceTally:
+    """Wraps a function of the port (looked up by name on its module at
+    each call) and counts its calls by the device of its first tensor
+    argument; ``restore`` puts the function back."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.by_device = {}
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        dev = str(next(a for a in args if isinstance(a, torch.Tensor))
+                  .device)
+        self.by_device[dev] = self.by_device.get(dev, 0) + 1
+        return self.fn(*args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+class SumClock:
+    """Times ``module/fused.py`` ``sum_replicas`` (the replicas' gradient
+    sum, one NCCL all-reduce a step): host ms of the call and device ms
+    between CUDA events recorded on each card around it (the largest)."""
+
+    def __init__(self, fused):
+        self.fused = fused
+        self.fn = fused.sum_replicas
+        self.host_ms, self.pending = [], []
+        fused.sum_replicas = self
+
+    def __call__(self, buffers):
+        devs = [b.device for b in buffers]
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in devs]
+        for (s, _), d in zip(ev, devs):
+            s.record(torch.cuda.current_stream(d))
+        t0 = time.perf_counter()
+        self.fn(buffers)
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        for (_, e), d in zip(ev, devs):
+            e.record(torch.cuda.current_stream(d))
+        self.pending.append(ev)
+
+    def device_ms(self):
+        out = []
+        for ev in self.pending:
+            for _, e in ev:
+                e.synchronize()
+            out.append(max(s.elapsed_time(e) for s, e in ev))
+        return out
+
+    def restore(self):
+        self.fused.sum_replicas = self.fn
+
+
+def host_step_ms(mod, batch, n, n_devices):
+    """Host-clock ms of ``n`` training steps on one batch, each started
+    after a sync of every card: ``fwd``/``bwd``/``update`` until each call
+    returns (the host's dispatch; a call may also wait on the card), then
+    ``sync`` until every card is done, and ``step`` in all."""
+    out = {k: [] for k in ("fwd", "bwd", "update", "sync", "step")}
+    for _ in range(n):
+        for i in range(n_devices):
+            torch.cuda.synchronize(i)
+        t = [time.perf_counter()]
+        mod._forward(batch, True, coupled=mod._fused is not None)
+        t.append(time.perf_counter())
+        mod.backward()
+        t.append(time.perf_counter())
+        mod.update()
+        t.append(time.perf_counter())
+        for i in range(n_devices):
+            torch.cuda.synchronize(i)
+        t.append(time.perf_counter())
+        for k, a, b in zip(("fwd", "bwd", "update", "sync"), t, t[1:]):
+            out[k].append((b - a) * 1e3)
+        out["step"].append((t[-1] - t[0]) * 1e3)
+    return out
+
+
+def device_busy_ms(step, n_devices):
+    """``step()`` once to warm, then once under torch.profiler: the summed
+    kernel time of each card (its busy time in the step)."""
+    from torch.profiler import ProfilerActivity, profile as _prof
+    step()
+    for i in range(n_devices):
+        torch.cuda.synchronize(i)
+    with _prof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        step()
+        for i in range(n_devices):
+            torch.cuda.synchronize(i)
+    busy = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + \
+                e.device_time_total / 1e3
+    return {"cuda:%d" % k: v for k, v in sorted(busy.items())}
+
+
+def multi_resnet(mt, epi, seed, card, n):
+    """ResNet-50 v2 Module.fit over [gpu(0..n-1)], kvstore "device",
+    B=256 in all (256/n a card), 8 steps: the fused path, BatchNorm over
+    the whole batch, one NCCL sum a step. Timed beside one context at
+    B=256/n (weak scaling) and at B=256 (strong scaling) in the same
+    call."""
+    from mxtpu_torch.module import fused as fused_mod
+    from mxtpu_torch.ops import nn as nn_ops
+    cfg = MULTI
+    b, steps = cfg["batch"], cfg["steps"]
+    x, y = resnet_train_data(seed)
+    ctxs = [mt.gpu(i) for i in range(n)]
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+    clock = SumClock(fused_mod)
+    try:
+        mod, ms, ce = fit_resnet(mt, ctxs, x, y, b, steps * b // len(x),
+                                 seed, "device")
+        sum_device = clock.device_ms()
+        sum_host = list(clock.host_ms)
+    finally:
+        clock.restore()
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+    if mod._fused is None:
+        raise AssertionError("the %d-card fit did not take the fused step"
+                             % n)
+    log("  cross-entropy by step: %s" % [round(v, 4) for v in ce])
+    if len(ce) != steps or not np.all(np.isfinite(ce)) or \
+            not ce[-1] < ce[0]:
+        raise AssertionError("%d-card training did not lower a finite "
+                             "cross-entropy: %s" % (n, ce))
+    execs = mod._exec_group.execs
+    differ = []
+    for name in mod._param_names:
+        w0 = execs[0].arg_dict[name]._data.cpu()
+        differ += [name for e in execs[1:]
+                   if not torch.equal(e.arg_dict[name]._data.cpu(), w0)]
+    for name in mod._aux_names:
+        a0 = execs[0].aux_dict[name]._data.cpu()
+        differ += [name for e in execs[1:]
+                   if not torch.equal(e.aux_dict[name]._data.cpu(), a0)]
+    log("  replicas bit-identical after %d steps: %s (%d params, %d "
+        "statistics)" % (steps, not differ, len(mod._param_names),
+                         len(mod._aux_names)))
+    if differ:
+        raise AssertionError("replicas differ in %s" % differ[:5])
+    grad_mb = sum(f.numel() * f.element_size() for f in
+                  mod._exec_group.flat_grads[0].values()) / 1e6
+    batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
+                            [mt.nd.array(y[:b], ctx=mt.cpu())])
+    split = host_step_ms(mod, batch, 4, n)
+    busy = device_busy_ms(lambda: (mod.forward_backward(batch),
+                                   mod.update()), n)
+    inner = [v for i, v in enumerate(ms) if i % 2 and i > 1]
+    tally = DeviceTally(nn_ops, "bn_apply_relu_add")
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    try:
+        gate = eval_forward_gate(epi, forward, lambda: sum(
+            e.fused_sites for e in execs), "%d-card evaluation forward" % n,
+            expect=RESNET_SITES * n)
+    finally:
+        tally.restore()
+    per_dev = dict(tally.by_device)
+    log("  epilogue launches of one evaluation forward by device: %s"
+        % per_dev)
+    if sorted(per_dev.values()) != [RESNET_SITES] * n:
+        raise AssertionError("epilogue launches by device %s, want %d each"
+                             % (per_dev, RESNET_SITES))
+    del mod
+    torch.cuda.empty_cache()
+    # the same step on one card: weak (B/n) and strong (B) scaling
+    single, one_split = {}, None
+    for bb in (b // n, b):
+        one, one_ms, _ = fit_resnet(mt, [mt.gpu(0)], x[:2 * bb], y[:2 * bb],
+                                    bb, 2, seed, "local")
+        single[bb] = one_ms
+        if bb == b // n:  # one replica's host split, for the n-card one
+            one_split = host_step_ms(one, mt.io.DataBatch(
+                [mt.nd.array(x[:bb], ctx=mt.cpu())],
+                [mt.nd.array(y[:bb], ctx=mt.cpu())]), 4, 1)
+        del one
+        torch.cuda.empty_cache()
+    step = float(np.mean(inner))
+    row = dict(cards=n, batch=b, steps=steps, ce=ce, step_ms=ms,
+               step_ms_within_epoch=step, images_per_s=b / (step / 1e3),
+               sum_device_ms=sum_device, sum_host_ms=sum_host,
+               grad_mb_per_card=grad_mb,
+               host_split_ms=split, device_busy_ms=busy,
+               one_card_host_split_ms=one_split,
+               max_memory_allocated=[int(p) for p in peaks],
+               single_step_ms={str(k): v for k, v in single.items()},
+               eval_launches_by_device=per_dev, **gate)
+    row["images_per_s_per_chip"] = row["images_per_s"] / n
+    one_small = float(np.mean(single[b // n][1::2][1:] or
+                              single[b // n][1:]))
+    one_big = float(np.mean(single[b][1::2][1:] or single[b][1:]))
+    row["weak"] = dict(one_card_step_ms=one_small,
+                       one_card_images_per_s=(b // n) / (one_small / 1e3),
+                       efficiency=row["images_per_s_per_chip"]
+                       / ((b // n) / (one_small / 1e3)))
+    row["strong"] = dict(one_card_step_ms=one_big,
+                         one_card_images_per_s=b / (one_big / 1e3),
+                         speedup=one_big / step)
+    log("  [%s] ResNet-50 v2 over %d cards, B=%d (%d a card): step ms %s; "
+        "inside an epoch %.2f ms, %.1f images/s, %.1f images/s per chip; "
+        "one card at B=%d %.2f ms (%.1f images/s): weak-scaling efficiency "
+        "%.1f%%; one card at B=%d %.2f ms: speedup %.2fx"
+        % (card, n, b, b // n, [round(v, 1) for v in ms], step,
+           row["images_per_s"], row["images_per_s_per_chip"], b // n,
+           one_small, row["weak"]["one_card_images_per_s"],
+           100.0 * row["weak"]["efficiency"], b, one_big,
+           row["strong"]["speedup"]))
+    log("  gradient sum (one NCCL all-reduce of %.1f MB a card): device ms "
+        "%s, host ms %s; peak memory by card %s GB"
+        % (grad_mb, [round(v, 3) for v in sum_device],
+           [round(v, 3) for v in sum_host],
+           [round(p / 1e9, 2) for p in peaks]))
+    log("  a step on the host clock, each part until its call returns: %s "
+        "(one card at B=%d: %s); kernel time of one profiled step by card "
+        "%s ms" % ({k: [round(v, 1) for v in vs] for k, vs in split.items()},
+                   b // n, {k: [round(v, 1) for v in vs]
+                            for k, vs in one_split.items()},
+                   {k: round(v, 2) for k, v in busy.items()}))
+    return row
+
+
+def multi_lm(mt, att, seed, card, n):
+    """The LM at phase 6's widths and depth over [gpu(0..n-1)], B=4 a
+    card, Adam, 4 steps through Module.fit: tokens/s, and 12 flash
+    forward and 12 backward launches a step on every card."""
+    cfg = dict(LM)
+    per, steps = MULTI["lm_batch"], MULTI["lm_steps"]
+    x, y = lm_batch(seed, per * n, cfg["seq_len"], cfg["vocab_size"])
+    mod = mt.mod.Module(mt.models.get_transformer_lm(**cfg),
+                        context=[mt.gpu(i) for i in range(n)])
+    np.random.seed(seed)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(mt.init.Xavier())
+    clock, ce = StepClock(n), []
+
+    def record(param):
+        clock(param)
+        ce.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+
+    fwd = DeviceTally(att, "_launch")
+    bwd = DeviceTally(att, "_launch_bwd")
+    try:
+        start = time.perf_counter()
+        mod.fit(RepeatBatch(mt, x, y, steps), num_epoch=1, eval_metric="ce",
+                optimizer="adam", kvstore="device",
+                optimizer_params={"learning_rate": TRAIN["lr"]},
+                initializer=None, batch_end_callback=record, metric_sync=1)
+        ms = clock.ms(start)
+    finally:
+        fwd.restore()
+        bwd.restore()
+    by_dev = {d: (fwd.by_device.get(d, 0) // steps,
+                  bwd.by_device.get(d, 0) // steps)
+              for d in sorted(set(fwd.by_device) | set(bwd.by_device))}
+    want = cfg["num_layers"]
+    tokens = per * n * cfg["seq_len"]
+    mean = float(np.mean(ms[1:]))
+    row = dict(cards=n, batch_per_card=per, steps=steps, ce=ce, step_ms=ms,
+               step_ms_mean=mean, tokens_per_s=tokens / (mean / 1e3),
+               launches_per_step_by_device=by_dev,
+               fused=mod._fused is not None,
+               fwd_launches=sum(fwd.by_device.values()),
+               bwd_launches=sum(bwd.by_device.values()))
+    log("  [%s] LM over %d cards, B=%d a card, Adam: cross-entropy %s; step "
+        "ms %s (mean after the first %.2f, %.0f tokens/s); flash launches a "
+        "step by device (fwd, bwd) %s" % (
+            card, n, per, [round(v, 4) for v in ce],
+            [round(v, 1) for v in ms], mean, row["tokens_per_s"], by_dev))
+    if not row["fused"] or not np.all(np.isfinite(ce)) or \
+            not ce[-1] < ce[0]:
+        raise AssertionError("LM over %d cards: fused %s, cross-entropy %s"
+                             % (n, row["fused"], ce))
+    if len(by_dev) != n or any(v != (want, want) for v in by_dev.values()):
+        raise AssertionError("flash launches a step by device %s, want %d "
+                             "each" % (by_dev, want))
+    del mod
+    torch.cuda.empty_cache()
+    return row
+
+
+def multi_gluon(mt, seed, card, n):
+    """Gluon's resnet50_v2, hybridized, over [gpu(0..n-1)]: split_and_load,
+    autograd.record, Trainer(kvstore="device") (each parameter pushed from
+    every card and pulled back), 4 steps of B=256: step ms and the
+    Trainer's push/pull host ms."""
+    cfg = MULTI
+    b, steps = cfg["batch"], cfg["gluon_steps"]
+    x, y = resnet_train_data(seed)
+    ctxs = [mt.gpu(i) for i in range(n)]
+    np.random.seed(seed)
+    net = mt.gluon.model_zoo.vision.resnet50_v2(
+        classes=RESNET["num_classes"])
+    net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctxs)
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_TRAIN["lr"],
+        "momentum": RESNET_TRAIN["momentum"]}, kvstore="device")
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    step_ms, push_ms, losses = [], [], []
+    for i in range(steps):
+        lo = (i * b) % len(x)
+        data = mt.gluon.utils.split_and_load(
+            mt.nd.array(x[lo:lo + b], ctx=mt.cpu()), ctxs)
+        label = mt.gluon.utils.split_and_load(
+            mt.nd.array(y[lo:lo + b], ctx=mt.cpu()), ctxs)
+        for j in range(n):
+            torch.cuda.synchronize(j)
+        t0 = time.perf_counter()
+        with mt.autograd.record():
+            ls = [loss_fn(net(d), l) for d, l in zip(data, label)]
+        mt.autograd.backward(ls)
+        t1 = time.perf_counter()
+        trainer.step(b)
+        push_ms.append((time.perf_counter() - t1) * 1e3)
+        for j in range(n):
+            torch.cuda.synchronize(j)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(sum(float(l.mean().asscalar()) for l in ls) / n))
+    first = {k: p.list_data() for k, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    differ = [k for k, ds in first.items()
+              if any(not torch.equal(d._data.cpu(), ds[0]._data.cpu())
+                     for d in ds[1:])]
+    mean = float(np.mean(step_ms[1:]))
+    log("  [%s] Gluon resnet50_v2 hybridized over %d cards, B=%d: loss %s; "
+        "step ms %s (mean after the first %.2f, %.1f images/s); "
+        "Trainer.step host ms (push/pull of %d parameters) %s; weights "
+        "identical on every card %s"
+        % (card, n, b, [round(v, 4) for v in losses],
+           [round(v, 1) for v in step_ms], mean, b / (mean / 1e3),
+           len(first), [round(v, 1) for v in push_ms], not differ))
+    if not np.all(np.isfinite(losses)) or differ:
+        raise AssertionError("Gluon over %d cards: losses %s, differing %s"
+                             % (n, losses, differ[:5]))
+    del net, trainer
+    torch.cuda.empty_cache()
+    return dict(cards=n, batch=b, steps=steps, losses=losses,
+                step_ms=step_ms, step_ms_mean=mean,
+                images_per_s=b / (mean / 1e3), trainer_step_host_ms=push_ms)
+
+
+def dist_worker(seed, out_dir):
+    """One rank of ``--dist-worker``: ResNet-50 v2 through
+    ``fit(kvstore="dist_sync")`` on gpu(LOCAL_RANK), its 1/world of every
+    B=256 batch; writes its step ms and digests of its weights and of its
+    moving statistics."""
+    import hashlib
+    import mxtpu_torch as mt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    b, steps = MULTI["batch"], MULTI["dist_steps"]
+    per = b // world
+    x, y = resnet_train_data(seed)
+    idx = np.concatenate([np.arange(i + rank * per, i + (rank + 1) * per)
+                          for i in range(0, len(x), b)])
+    mod, ms, ce = fit_resnet(mt, [mt.gpu(local)], x[idx], y[idx], per,
+                             steps * b // len(x), seed, "dist_sync")
+    kv = mod._kvstore
+    digests = []
+    for d in mod.get_params():
+        h = hashlib.sha256()
+        for k in sorted(d):
+            h.update(d[k].asnumpy().tobytes())
+        digests.append(h.hexdigest())
+    row = dict(rank=rank, world=kv.num_workers, kv_rank=kv.rank,
+               fused=mod._fused is not None, step_ms=ms, ce=ce,
+               digest=digests[0], aux_digest=digests[1])
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(row, f)
+    kv.barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_dist(seed, card, n):
+    """``dist_sync`` with n processes, one per card, NCCL: each runs
+    ``chip_smoke.py --dist-worker``; their weights must be bit-identical
+    (one digest). The moving statistics are each rank's own."""
+    import tempfile
+    out = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    port = free_port()
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 "--seed", str(seed), "--out", out], env=env))
+        rcs = [p.wait(timeout=600) for p in procs]
+        rows = []
+        for r in range(n):
+            with open(os.path.join(out, "rank%d.json" % r)) as f:
+                rows.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    digests = {r["digest"] for r in rows}
+    aux = {r["aux_digest"] for r in rows}
+    mean = [float(np.mean(r["step_ms"][1:])) for r in rows]
+    log("  [%s] dist_sync over %d processes (NCCL), ResNet-50 v2, B=%d (%d "
+        "a rank), %d steps: rcs %s; step ms by rank %s (means after the "
+        "first %s); cross-entropy (rank 0) %s; weights bit-identical "
+        "across ranks %s; moving statistics differ (each rank's BatchNorm "
+        "on its own rows, as mxtpu's kvstore path) %s"
+        % (card, n, MULTI["batch"], MULTI["batch"] // n,
+           MULTI["dist_steps"], rcs,
+           [[round(v, 1) for v in r["step_ms"]] for r in rows],
+           [round(v, 2) for v in mean], [round(v, 4) for v in rows[0]["ce"]],
+           len(digests) == 1, len(aux) == n))
+    if any(rcs) or len(digests) != 1 or any(
+            r["world"] != n or r["kv_rank"] != r["rank"] or r["fused"]
+            for r in rows):
+        raise AssertionError("dist_sync over %d processes: rcs %s, %d "
+                             "digests, rows %s" % (n, rcs, len(digests),
+                                                   rows))
+    return dict(processes=n, step_ms=[r["step_ms"] for r in rows],
+                step_ms_mean=mean, ce=rows[0]["ce"])
+
+
+def multi_gpu(args, card):
+    """``--multi-gpu``: the data-parallel paths over 4 cards (see the
+    module docstring). Raises below 4 devices."""
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import attention as att
+    from mxtpu_torch.ops import epilogue as epi
+    n = torch.cuda.device_count()
+    if n < MULTI["gpus"]:
+        raise SystemExit("chip_smoke --multi-gpu: %d CUDA device(s), needs "
+                         "%d" % (n, MULTI["gpus"]))
+    n = MULTI["gpus"]
+    names = [torch.cuda.get_device_name(i) for i in range(n)]
+    log("[multi_gpu] %d cards: %s" % (n, names))
+    t0 = time.perf_counter()
+    built = mt.build.build()  # once, before any worker process starts
+    log("[build] %s in %.1f s wall" % ({k: round(v, 1) for k, v in
+                                        built.items()},
+                                       time.perf_counter() - t0))
+    res = {"card": card, "cards": n, "names": names}
+    log("[multi_gpu kvstore]")
+    res["kvstore"] = kvstore_cases(mt, [mt.gpu(i) for i in range(n)])
+    res["kvstore"]["resnet_push_pull"] = kvstore_resnet_ms(mt, n, card)
+    log("[multi_gpu kernels]")
+    res["kernels_by_device"] = {i: kernels_on_device(att, epi, i)
+                                for i in range(1, n)}
+    log("[multi_gpu resnet]")
+    res["resnet"] = multi_resnet(mt, epi, args.seed, card, n)
+    log("[multi_gpu lm]")
+    res["lm"] = multi_lm(mt, att, args.seed, card, n)
+    log("[multi_gpu dist_sync]")
+    res["dist_sync"] = multi_dist(args.seed, card, n)
+    log("[multi_gpu gluon]")
+    res["gluon"] = multi_gluon(mt, args.seed, card, n)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1, default=str)
+    r = res["resnet"]
+    log(json.dumps({"multi_gpu": {
+        "cards": n, "resnet_images_per_s": r["images_per_s"],
+        "resnet_images_per_s_per_chip": r["images_per_s_per_chip"],
+        "weak_efficiency": r["weak"]["efficiency"],
+        "strong_speedup": r["strong"]["speedup"],
+        "grad_sum_device_ms": float(np.median(r["sum_device_ms"])),
+        "lm_tokens_per_s": res["lm"]["tokens_per_s"],
+        "dist_sync_step_ms": res["dist_sync"]["step_ms_mean"],
+        "gluon_step_ms": res["gluon"]["step_ms_mean"]}}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kvstore_resnet_ms(mt, n, card):
+    """KVStore "device" over n cards with ResNet-50's parameter set (161
+    arrays, one per card each): host and synced ms of one push of every
+    gradient list and one pull of every weight list."""
+    sym = mt.models.get_resnet(**RESNET)
+    shapes, _, _ = sym.infer_shape(data=(1,) + RESNET["image_shape"])
+    params = [(k, s) for k, s in zip(sym.list_arguments(), shapes)
+              if k not in ("data", "softmax_label")]
+    kv = mt.kv.create("device")
+    grads, weights = {}, {}
+    for k, s in params:
+        kv.init(k, mt.nd.zeros(s, ctx=mt.gpu(0)))
+        grads[k] = [mt.nd.ones(s, ctx=mt.gpu(i)) for i in range(n)]
+        weights[k] = [mt.nd.zeros(s, ctx=mt.gpu(i)) for i in range(n)]
+    host, synced = [], []
+    for _ in range(MULTI["kv_iters"]):
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        for k, _ in params:
+            kv.push(k, grads[k])
+            kv.pull(k, out=weights[k])
+        t1 = time.perf_counter()
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        host.append((t1 - t0) * 1e3)
+        synced.append((time.perf_counter() - t0) * 1e3)
+    ok = all(float(w._data.min()) == n == float(w._data.max())
+             for ws in weights.values() for w in ws)
+    numel = sum(int(np.prod(s)) for _, s in params)
+    log("  [%s] push+pull of ResNet-50's %d parameters (%.1f M f32) over %d "
+        "cards: host ms %s, synced ms %s; every pulled value == %d: %s"
+        % (card, len(params), numel / 1e6, n, [round(v, 1) for v in host],
+           [round(v, 1) for v in synced], n, ok))
+    if not ok:
+        raise AssertionError("kvstore push/pull of ResNet-50's parameters "
+                             "gave a wrong sum")
+    return dict(params=len(params), elements=numel, host_ms=host,
+                synced_ms=synced)
+
+
 def batch_breakdown(mt, sym_json, params, x, profile, label):
     """Where one largest-bucket batch's time goes on a gpu Predictor:
     input copy, forward (to a device sync) and the answer's device->host
@@ -2282,7 +3162,14 @@ def main(argv=None):
                          "build (for iterating on one kernel); the kernels "
                          "line and the device line are printed only when "
                          "every phase ran" % ",".join(PHASES))
+    ap.add_argument("--multi-gpu", action="store_true",
+                    help="run the data-parallel paths over 4 cards instead "
+                         "of the phases (raises below 4 CUDA devices)")
+    ap.add_argument("--dist-worker", action="store_true",
+                    help=argparse.SUPPRESS)  # one rank of --multi-gpu
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        return dist_worker(args.seed, args.out)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -2296,6 +3183,10 @@ def main(argv=None):
     from mxtpu_torch.ops import epilogue as epi
     card = card_line()
     log(card)
+    if args.multi_gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return multi_gpu(args, card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("torch %s, CUDA %s, %s, allow_tf32 matmul=%s cudnn=%s"
@@ -2363,6 +3254,11 @@ def main(argv=None):
         results["gluon"] = phase_gluon(mt, epi, args.seed, card,
                                        results.get("resnet_training"),
                                        profile=args.profile)
+    # 9. data parallelism on one card
+    if "data_parallel" in phases:
+        log("[data_parallel]")
+        results["data_parallel"] = phase_data_parallel(
+            mt, epi, args.seed, card, results.get("resnet_training"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2379,6 +3275,7 @@ def main(argv=None):
     trained = results["training"]
     resnet_eval = results["resnet_training"]["eval_launches"]
     gluon_eval = results["gluon"]["eval_launches"]
+    dp_eval = results["data_parallel"]["eval_launches"]
     bwd_row = next(r for r in results["backward_timed"]
                    if r["dtype"] == "float32" and r["B"] == TRAIN["batch"])
     main_row = next(r for r in timed if r["dtype"] == "float32"
@@ -2397,10 +3294,11 @@ def main(argv=None):
         "name": "bn_relu_epilogue", "route": "cuda",
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
-        "launches": resnet["launches"] + resnet_eval + gluon_eval,
+        "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval,
         "launches_by_path": {"resnet_serving": resnet["launches"],
                              "resnet_training_eval": resnet_eval,
-                             "gluon_eval": gluon_eval},
+                             "gluon_eval": gluon_eval,
+                             "data_parallel_eval": dp_eval},
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],

@@ -17,7 +17,11 @@ of the conv nets with BatchNorm on batch statistics; the device
 prefetcher; checkpoints in mxtpu's file formats (``model``); and the
 imperative frontends: ``autograd`` on torch's tape, the NDArray and
 ``nd.<op>`` surface, and ``gluon`` (blocks, hybridize through the
-executor's walk, Trainer, losses, DataLoader, the ResNet zoo).
+executor's walk, Trainer, losses, DataLoader, the ResNet zoo); data
+parallelism: ``kvstore`` (local/device and dist_sync over
+``torch.distributed``), Module over a context list (one executor per
+context, BatchNorm over the whole batch on the fused step) and Gluon's
+Parameter and Trainer over several contexts.
 """
 from . import base
 from .base import MXNetError
@@ -43,6 +47,8 @@ from . import lr_scheduler
 from . import optimizer
 from . import metric
 from . import io
+from . import kvstore
+from . import kvstore as kv
 from . import model
 from . import callback
 from . import module
@@ -53,5 +59,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
-           "metric", "io", "model", "callback", "module", "mod",
+           "metric", "io", "kvstore", "kv", "model", "callback", "module", "mod",
            "autograd", "gluon"]

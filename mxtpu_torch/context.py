@@ -15,7 +15,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
+           "context_list"]
 
 
 class Context:
@@ -112,3 +113,23 @@ def as_context(ctx):
     if dev.type == "cuda":
         return gpu(dev.index or 0)
     raise MXNetError("unsupported device %s" % dev)
+
+
+def context_list(contexts):
+    """A list of distinct Contexts from one context or a list of them.
+    A context named twice raises MXNetError that names it: mxtpu breaks
+    on a repeated context (a resharding assertion), the port refuses it
+    plainly. ``cpu(0)``, ``cpu(1)``, ... are distinct contexts on the one
+    host device, as mxtpu's tests use XLA's host devices."""
+    if not isinstance(contexts, (list, tuple)):
+        contexts = [contexts]
+    out = [as_context(c) for c in contexts]
+    if not out:
+        raise MXNetError("an empty context list")
+    seen = set()
+    for c in out:
+        if c in seen:
+            raise MXNetError("context %s is named twice in %s: each "
+                             "context holds one replica" % (c, out))
+        seen.add(c)
+    return out

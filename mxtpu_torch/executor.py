@@ -18,6 +18,17 @@ Where XLA fuses an inference BatchNorm with its ReLU, the inference plan
 runs the pair as one pass of the epilogue kernel (``ops/epilogue.py``),
 on every device, reading the moving statistics at every forward; the
 training plan does not fuse.
+
+``forward_replicas`` and ``backward_replicas`` run several executors of
+one symbol, each bound on its slice of a batch on its own device, as one
+function of the whole batch: the plan is walked over the replicas in
+lockstep (each step issued once per device; launches are asynchronous,
+so the devices overlap), an op that couples rows of the batch runs once
+over all replicas (``OpDef.group_fn``: BatchNorm's statistics, a
+normalized loss), and one ``torch.autograd.grad`` over every replica's
+heads carries the cross-replica terms back. This is the port's form of
+mxtpu's multi-context fused step, which is the single-device function
+of the whole batch under GSPMD (mxtpu/module/fused.py:235-255).
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from .ndarray import NDArray
 from .ops.nn import bn_relu_inference
 from .ops.registry import write_aux
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "forward_replicas", "backward_replicas"]
 
 
 def _fusable_bn(node, consumers, graph_outputs):
@@ -71,7 +82,9 @@ def _trace_graph(symbol, is_train, fuse=True):
     ``BatchNorm -> Activation(relu)`` pair (``_fusable_bn``) becomes one
     step, ``nn.bn_relu_inference``, that writes the ReLU's output slot:
     the executor's counterpart of the fusion XLA builds for the JAX
-    package. ``run.fused_sites`` counts those pairs. ``fuse=False`` keeps
+    package. ``run.fused_sites`` counts those pairs; ``run.replicas``
+    walks the plan over several replicas in lockstep
+    (``forward_replicas``). ``fuse=False`` keeps
     an inference plan unfused, for a caller that differentiates it (the
     epilogue kernel has no gradient); training plans never fuse."""
     fuse = fuse and not is_train
@@ -106,25 +119,47 @@ def _trace_graph(symbol, is_train, fuse=True):
             plan.append((node, attrs, ins, node.op.n_out(attrs), None, aux))
     out_entries = [(id(n), i) for n, i in symbol._outputs]
 
-    def run(arg_vals, aux_vals):
-        env = {}
-        aux_updates = {}
+    def run_replicas(arg_list, aux_list):
+        """The plan over replicas in lockstep, one value set per replica
+        (one: the plain walk): ([outputs of each], [aux_updates of
+        each]). Over several, each op runs by its ``replica_mode``."""
+        envs = [{} for _ in arg_list]
+        updates = [{} for _ in arg_list]
         for node, attrs, ins, n_vis, fused_out, aux in plan:
             if attrs is None:
-                src = aux_vals if id(node) in aux_nodes else arg_vals
-                env[(id(node), 0)] = src[node.name]
-            elif fused_out is not None:
-                env[fused_out] = bn_relu_inference(
-                    attrs, *[env[k] for k in ins])
+                for env, args, auxs in zip(envs, arg_list, aux_list):
+                    src = auxs if id(node) in aux_nodes else args
+                    env[(id(node), 0)] = src[node.name]
+                continue
+            inputs = [[env[k] for k in ins] for env in envs]
+            if fused_out is not None:
+                for env, x in zip(envs, inputs):
+                    env[fused_out] = bn_relu_inference(attrs, *x)
+                continue
+            mode = "rows" if len(envs) == 1 else node.op.replica_mode(
+                attrs, inputs[0][0].ndim if inputs[0] else 0)
+            if mode == "rows":
+                outs = [node.op.apply(attrs, x) for x in inputs]
+            elif mode == "group":
+                outs = node.op.group_fn(attrs, inputs)
             else:
-                outs = node.op.apply(attrs, [env[k] for k in ins])
+                raise MXNetError(
+                    "%s '%s' couples rows of the batch and has no form "
+                    "over replicas: this graph cannot train on several "
+                    "contexts as one batch" % (node.op.name, node.name))
+            for env, upd, o in zip(envs, updates, outs):
                 for i in range(n_vis):
-                    env[(id(node), i)] = outs[i]
+                    env[(id(node), i)] = o[i]
                 for j, name in aux:
-                    aux_updates[name] = outs[n_vis + j]
-        return [env[e] for e in out_entries], aux_updates
+                    upd[name] = o[n_vis + j]
+        return [[env[e] for e in out_entries] for env in envs], updates
+
+    def run(arg_vals, aux_vals):
+        outs, updates = run_replicas([arg_vals], [aux_vals])
+        return outs[0], updates[0]
 
     run.fused_sites = len(fused_into)
+    run.replicas = run_replicas
     return run
 
 
@@ -179,39 +214,53 @@ class Executor:
                 if self.grad_req.get(n, "null") != "null"
                 and n in self.grad_dict]
 
-    def forward(self, is_train=False, **kwargs):
-        """Run the graph; returns the list of output NDArrays. With
-        ``is_train`` the run keeps its autograd graph for ``backward``."""
-        for k, v in kwargs.items():
-            if k in self.arg_dict:
-                self.arg_dict[k][:] = v
-        raw_args = {n: self.arg_dict[n]._data for n in self.arg_names}
-        raw_aux = {n: self.aux_dict[n]._data for n in self.aux_names}
-        self._tape = None
-        if not is_train:
-            with torch.inference_mode():
-                outs, _ = self._run(False)(raw_args, raw_aux)
-            self.outputs = [NDArray(o, self._ctx) for o in outs]
-            return self.outputs
+    def _train_inputs(self, kwargs):
+        """(args, aux, leaves) of a training forward: the raw tensors, the
+        arguments that receive a gradient as fresh autograd leaves."""
+        raw_args, raw_aux = self._inputs(kwargs)
         leaves = {}
         for n in self._grad_names():
             leaves[n] = raw_args[n] = raw_args[n].detach().requires_grad_()
-        with torch.enable_grad():
-            outs, aux_updates = self._run(True)(raw_args, raw_aux)
+        return raw_args, raw_aux, leaves
+
+    def _inputs(self, kwargs):
+        for k, v in kwargs.items():
+            if k in self.arg_dict:
+                self.arg_dict[k][:] = v
+        self._tape = None
+        return ({n: self.arg_dict[n]._data for n in self.arg_names},
+                {n: self.aux_dict[n]._data for n in self.aux_names})
+
+    def _trained(self, outs, aux_updates, leaves):
+        """Finish a training forward: the aux writeback, the tape for
+        ``backward``, the detached outputs."""
         write_aux({n: a._data for n, a in self.aux_dict.items()},
                   aux_updates)
         self._tape = (outs, leaves)
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         return self.outputs
 
-    def backward(self, out_grads=None):
-        """Gradients of the last training forward into ``grad_dict``:
-        written (``grad_req="write"``) or added (``"add"``) in place.
-        ``out_grads`` are the head gradients, one per output; without
-        them every head gets ones (a loss head ignores its own)."""
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph; returns the list of output NDArrays. With
+        ``is_train`` the run keeps its autograd graph for ``backward``."""
+        if not is_train:
+            raw_args, raw_aux = self._inputs(kwargs)
+            with torch.inference_mode():
+                outs, _ = self._run(False)(raw_args, raw_aux)
+            self.outputs = [NDArray(o, self._ctx) for o in outs]
+            return self.outputs
+        raw_args, raw_aux, leaves = self._train_inputs(kwargs)
+        with torch.enable_grad():
+            outs, aux_updates = self._run(True)(raw_args, raw_aux)
+        return self._trained(outs, aux_updates, leaves)
+
+    def _backward_terms(self, out_grads):
+        """(outputs, head gradients, leaves, names) of the last training
+        forward: the heads are ``out_grads`` (one per output) moved onto
+        the outputs' device, or ones (a loss head ignores its own)."""
         names = self._grad_names()
         if not names:
-            return
+            return [], [], [], []
         if self._tape is None:
             raise MXNetError("backward: call forward(is_train=True) first")
         outs, leaves = self._tape
@@ -223,11 +272,24 @@ class Executor:
             heads = [getattr(g, "_data", g).to(o.device, o.dtype)
                      for g, o in zip(out_grads, outs)]
         pairs = [(o, g) for o, g in zip(outs, heads) if o.requires_grad]
+        return ([o for o, _ in pairs], [g for _, g in pairs],
+                [leaves[n] for n in names], names)
+
+    def backward(self, out_grads=None):
+        """Gradients of the last training forward into ``grad_dict``:
+        written (``grad_req="write"``) or added (``"add"``) in place.
+        ``out_grads`` are the head gradients, one per output; without
+        them every head gets ones (a loss head ignores its own)."""
+        outs, heads, leaves, names = self._backward_terms(out_grads)
+        if not names:
+            return
         grads = [None] * len(names)
-        if pairs:
-            grads = torch.autograd.grad(
-                [o for o, _ in pairs], [leaves[n] for n in names],
-                [g for _, g in pairs], allow_unused=True)
+        if outs:
+            grads = torch.autograd.grad(outs, leaves, heads,
+                                        allow_unused=True)
+        self._write_grads(names, grads)
+
+    def _write_grads(self, names, grads):
         self._tape = None
         with torch.no_grad():
             for n, g in zip(names, grads):
@@ -248,3 +310,44 @@ class Executor:
     def fused_sites(self):
         """How many BatchNorm -> ReLU pairs run as one epilogue launch."""
         return self._run(False).fused_sites
+
+
+def forward_replicas(executors):
+    """A training forward of ``executors`` (one symbol, each bound on its
+    slice of the batch on its own device, its inputs loaded) as one
+    function of the whole batch: the plan walked over the replicas in
+    lockstep (``run.replicas``). Each executor keeps its tape for
+    ``backward_replicas`` and its outputs, as its own ``forward``."""
+    if len(executors) == 1:
+        return [executors[0].forward(True)]
+    ins = [ex._train_inputs({}) for ex in executors]
+    with torch.enable_grad():
+        outs, updates = executors[0]._run(True).replicas(
+            [a for a, _, _ in ins], [x for _, x, _ in ins])
+    return [ex._trained(o, u, leaves) for ex, o, u, (_, _, leaves)
+            in zip(executors, outs, updates, ins)]
+
+
+def backward_replicas(executors, out_grads=None):
+    """The gradients of the last ``forward_replicas`` into every
+    executor's ``grad_dict``: one ``torch.autograd.grad`` over every
+    replica's heads and leaves, so the terms that cross replicas
+    (BatchNorm's statistics) reach each replica's parameters.
+    ``out_grads``: None, or one list of head gradients per executor."""
+    if len(executors) == 1:
+        executors[0].backward(None if out_grads is None else out_grads[0])
+        return
+    terms = [ex._backward_terms(None if out_grads is None else out_grads[i])
+             for i, ex in enumerate(executors)]
+    outs = [o for t in terms for o in t[0]]
+    heads = [h for t in terms for h in t[1]]
+    leaves = [x for t in terms for x in t[2]]
+    grads = [None] * len(leaves)
+    if outs and leaves:
+        grads = torch.autograd.grad(outs, leaves, heads, allow_unused=True)
+    k = 0
+    for ex, t in zip(executors, terms):
+        names = t[3]
+        if names:
+            ex._write_grads(names, grads[k:k + len(names)])
+        k += len(names)

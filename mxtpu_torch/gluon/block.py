@@ -12,7 +12,10 @@ nothing and returns the moving statistics, which are written back into
 the aux Parameters in place. Under ``record()`` the walk runs under
 torch's autograd, so gradients reach the Parameters (an inference plan
 recorded in predict mode is left unfused: the epilogue kernel has no
-gradient); outside it, under ``no_grad``.
+gradient); outside it, under ``no_grad``. A block whose Parameters live
+on several contexts keeps one plan and runs it on the context of its
+input, with that context's Parameter copies; BatchNorm then normalizes
+by each context's rows, as in mxtpu's Gluon.
 """
 from __future__ import annotations
 
@@ -295,9 +298,11 @@ class HybridBlock(Block):
             self._build_plan(args)
         plan = self._cached_plan
         flat_args, _ = _flatten(args)
+        ctx = flat_args[0].context
         arrays, arg_vals, aux_vals = [], {}, {}
         for name, kind, src in plan["sources"]:
-            arr = flat_args[src] if kind == "input" else src.data()
+            # each context's call runs the one plan on its own copies
+            arr = flat_args[src] if kind == "input" else src.data(ctx)
             arrays.append(arr)
             (aux_vals if name in plan["aux"] else arg_vals)[name] = arr._data
         is_train = autograd.is_training()
@@ -305,7 +310,6 @@ class HybridBlock(Block):
         with autograd.grad_mode():
             outs, aux_updates = run(arg_vals, aux_vals)
         write_aux(aux_vals, aux_updates)
-        ctx = flat_args[0].context
         out_arrays = [NDArray(o, ctx) for o in outs]
         if autograd.is_recording():
             autograd.record_arrays(arrays, out_arrays)

@@ -6,13 +6,15 @@ marked with its gradient buffer (``_init_impl`` :64-75), ``data``,
 ``grad``, ``set_data``, ``zero_grad``, ``cast``, ``var`` and
 ``reset_ctx``; ``ParameterDict.save``/``load`` with ``strip_prefix`` in
 mxtpu's ``.params`` format (``nd.save``/``nd.load``, which cross between
-the packages bit for bit). A parameter lives on one context: several
-need the KVStore over NCCL (ROADMAP A.4) and raise. ``set_data`` and a
-load write the tensor in place, so the parameter stays the same autograd
-leaf the Trainer updates.
+the packages bit for bit). A parameter holds one copy, and one gradient
+buffer, per context (``list_data``, ``list_grad``, ``list_ctx``; mxtpu
+:120-160), each from one host initialization. ``set_data`` and a load
+write every copy in place, so each stays the same autograd leaf the
+Trainer updates.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import autograd
@@ -29,22 +31,17 @@ class DeferredInitializationError(MXNetError):
     pass
 
 
-def one_context(ctx, what):
-    """The one Context of ``ctx`` (None: the current context, which is
-    gpu(0) unless a ``with cpu():`` scope says otherwise)."""
+def _ctx_list(ctx):
+    """The distinct Contexts of ``ctx`` (None: the current context, which
+    is gpu(0) unless a ``with cpu():`` scope says otherwise)."""
     if ctx is None:
-        return ctx_mod.current_context()
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(
-                "%s on %d contexts: several contexts need the KVStore over "
-                "NCCL (ROADMAP A.4), not ported yet" % (what, len(ctx)))
-        ctx = ctx[0]
-    return ctx_mod.as_context(ctx)
+        return [ctx_mod.current_context()]
+    return ctx_mod.context_list(ctx)
 
 
 class Parameter:
-    """A weight (or aux state) of a Block (parity parameter.py:41)."""
+    """A weight (or aux state) of a Block (parity parameter.py:41), with
+    one copy (and gradient buffer) per context."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
@@ -58,9 +55,8 @@ class Parameter:
         self.grad_req = grad_req if differentiable else "null"
         self._allow_deferred_init = allow_deferred_init
         self._var = None
-        self._data = None  # the NDArray, once initialized
-        self._grad = None
-        self._ctx = None
+        self._data = None  # {Context: NDArray}, once initialized
+        self._grad = None  # {Context: NDArray}
         self._deferred_init = ()
 
     def __repr__(self):
@@ -73,7 +69,7 @@ class Parameter:
         default_init = default_init or Uniform()
         if self._data is not None and not force_reinit:
             return
-        ctx = one_context(ctx, "Parameter %s" % self.name)
+        ctx = _ctx_list(ctx)
         if self.shape is None or any(s == 0 for s in self.shape):
             if self._allow_deferred_init:
                 self._deferred_init = (init, ctx, default_init)
@@ -84,21 +80,26 @@ class Parameter:
         self._finish_init(init, ctx, default_init)
 
     def _finish_init(self, init, ctx, default_init):
-        data = nd.zeros(self.shape, dtype=self.dtype, ctx=ctx)
+        """One initialization on the first context, copied to the rest
+        (mxtpu parameter.py:57-64)."""
+        data = nd.zeros(self.shape, dtype=self.dtype, ctx=ctx[0])
         initializer = init or self.init or default_init
         initializer(InitDesc(self.name), data)
         self._init_impl(data, ctx)
 
-    def _init_impl(self, data, ctx):
-        """Hold ``data`` on ``ctx`` and, unless grad_req is "null", mark
-        it as an autograd variable with a zero gradient buffer."""
-        self._ctx = ctx
-        self._data = data.as_in_context(ctx)
+    def _init_impl(self, data, ctx_list):
+        """Hold a copy of ``data`` on each context of ``ctx_list`` and,
+        unless grad_req is "null", mark each as an autograd variable with
+        a zero gradient buffer."""
+        self._data = {c: data.as_in_context(c) for c in ctx_list}
         if self.grad_req == "null":
             self._grad = None
             return
-        self._grad = nd.zeros(self.shape, dtype=self.dtype, ctx=ctx)
-        autograd.mark_variables([self._data], [self._grad], self.grad_req)
+        self._grad = {c: nd.zeros(self.shape, dtype=self.dtype, ctx=c)
+                      for c in ctx_list}
+        for c in ctx_list:
+            autograd.mark_variables([self._data[c]], [self._grad[c]],
+                                    self.grad_req)
 
     def _finish_deferred_init(self):
         if not self._deferred_init:
@@ -122,22 +123,23 @@ class Parameter:
         if self._data is None:
             self._deferred_init = ()
             with autograd.pause():
-                self._init_impl(data.astype(self.dtype),
-                                one_context(ctx, "Parameter %s"
-                                            % self.name))
+                self._init_impl(data.astype(self.dtype), _ctx_list(ctx))
         else:
             self.set_data(data)
 
     def set_data(self, data):
-        """Write ``data`` into the parameter in place."""
+        """Write ``data`` into every context's copy in place."""
         if self._data is None:
             raise MXNetError("Parameter %s has not been initialized"
                              % self.name)
         src = getattr(data, "_data", data)
+        if not isinstance(src, torch.Tensor):
+            src = torch.as_tensor(np.asarray(src))
         with torch.no_grad():
-            self._data._data.copy_(src.reshape(self._data.shape))
+            for arr in self._data.values():
+                arr._data.copy_(src.reshape(arr.shape))
 
-    def data(self, ctx=None):
+    def _check_initialized(self, ctx=None):
         if self._data is None:
             if self._deferred_init:
                 raise DeferredInitializationError(
@@ -145,36 +147,55 @@ class Parameter:
                     (self.name, str(ctx)))
             raise MXNetError("Parameter %s has not been initialized. "
                              "call .initialize() first" % self.name)
-        if ctx is not None and ctx_mod.as_context(ctx) != self._ctx:
+
+    def _on(self, arrays, ctx):
+        """The array of ``ctx`` (None: the only one, else the current
+        context's)."""
+        if ctx is None:
+            if len(arrays) == 1:
+                return next(iter(arrays.values()))
+            ctx = ctx_mod.current_context()
+        ctx = ctx_mod.as_context(ctx)
+        if ctx not in arrays:
             raise MXNetError("Parameter %s was not initialized on context "
                              "%s." % (self.name, str(ctx)))
-        return self._data
+        return arrays[ctx]
+
+    def data(self, ctx=None):
+        self._check_initialized(ctx)
+        return self._on(self._data, ctx)
 
     def list_data(self):
-        return [self.data()]
+        self._check_initialized()
+        return list(self._data.values())
 
     def grad(self, ctx=None):
+        self._check_initialized(ctx)
         if self._grad is None:
             raise MXNetError(
                 "Cannot get gradient array for Parameter %s because grad_req"
                 "='null'" % self.name)
-        self.data(ctx)  # the same context checks
-        return self._grad
+        return self._on(self._grad, ctx)
 
     def list_grad(self):
-        return [self.grad()]
+        self._check_initialized()
+        if self._grad is None:
+            raise MXNetError(
+                "Cannot get gradient array for Parameter %s because grad_req"
+                "='null'" % self.name)
+        return list(self._grad.values())
 
     def list_ctx(self):
         if self._data is None:
             if self._deferred_init:
-                return [self._deferred_init[1]]
+                return list(self._deferred_init[1])
             raise MXNetError("Parameter %s has not been initialized"
                              % self.name)
-        return [self._ctx]
+        return list(self._data)
 
     def zero_grad(self):
-        if self._grad is not None:
-            self._grad._data.zero_()
+        for g in (self._grad or {}).values():
+            g._data.zero_()
 
     def var(self):
         if self._var is None:
@@ -187,10 +208,12 @@ class Parameter:
         return self._var
 
     def reset_ctx(self, ctx):
-        ctx = one_context(ctx, "Parameter %s" % self.name)
+        """Move the parameter to the contexts ``ctx``: the first copy's
+        value on each."""
+        ctx = _ctx_list(ctx)
         if self._data is not None:
             with autograd.pause():
-                self._init_impl(self._data.detach(), ctx)
+                self._init_impl(self.list_data()[0].detach(), ctx)
         elif self._deferred_init:
             init, _, default_init = self._deferred_init
             self._deferred_init = (init, ctx, default_init)
@@ -200,8 +223,8 @@ class Parameter:
         if self._data is None:
             return
         with autograd.pause():
-            data = self._data.detach().astype(dtype)
-            self._init_impl(data, self._ctx)
+            first = self.list_data()[0].detach().astype(dtype)
+            self._init_impl(first, list(self._data))
 
 
 class ParameterDict:
@@ -300,7 +323,7 @@ class ParameterDict:
                 raise ValueError("Prefix %s is to be striped before saving, "
                                  "but Parameter %s does not start with %s"
                                  % (strip_prefix, param.name, strip_prefix))
-            arg_dict[param.name[len(strip_prefix):]] = param.data()
+            arg_dict[param.name[len(strip_prefix):]] = param.list_data()[0]
         nd.save(filename, arg_dict)
 
     def load(self, filename, ctx, allow_missing=False, ignore_extra=False,

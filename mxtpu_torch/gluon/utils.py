@@ -1,13 +1,16 @@
 """Gluon utilities.
 
 Counterpart of ``mxtpu/gluon/utils.py``: ``split_data``,
-``split_and_load``, ``clip_global_norm`` and ``check_sha1``. ``download``
+``split_and_load`` (each slice copied onto its own context),
+``clip_global_norm`` (over arrays on any devices) and ``check_sha1``. ``download``
 raises: the port fetches nothing over the network.
 """
 from __future__ import annotations
 
 import hashlib
 import math
+
+import torch
 
 from .. import ndarray as nd
 from ..base import MXNetError
@@ -53,8 +56,12 @@ def clip_global_norm(arrays, max_norm):
     most ``max_norm``; returns that norm before the rescale."""
     if not arrays:
         raise MXNetError("clip_global_norm: no arrays")
-    total_norm = math.sqrt(sum(float((arr * arr).sum().asscalar())
-                               for arr in arrays))
+    # each array's sum of squares on its own device, added on the first
+    # array's device: one host read for arrays on any set of devices
+    dev = arrays[0]._data.device
+    total = sum(torch.sum(torch.square(arr._data.detach())).to(dev)
+                for arr in arrays)
+    total_norm = math.sqrt(float(total))
     scale = max_norm / (total_norm + 1e-8)
     if scale < 1.0:
         for arr in arrays:

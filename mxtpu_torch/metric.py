@@ -282,7 +282,7 @@ class DeviceMetricAccum:
         return cls(metric, children, kernels)
 
     def _zero(self):
-        self._sums = [None] * len(self.children)
+        self._sums = [{} for _ in self.children]  # device -> sum
         self._counts = [0] * len(self.children)
         self._pending = False
 
@@ -291,8 +291,9 @@ class DeviceMetricAccum:
         self.last_snapshot = None
 
     def update(self, labels, preds):
-        """Fold one batch in; ``labels``/``preds`` are tensors or
-        NDArrays on one device. Nothing is copied to the host."""
+        """Fold one batch (or one context's rows of it) in;
+        ``labels``/``preds`` are tensors or NDArrays on one device, whose
+        own sum they join. Nothing is copied to the host."""
         labels = [getattr(x, "_data", x) for x in (labels or [])]
         preds = [getattr(x, "_data", x) for x in (preds or [])]
         check_label_shapes(labels, preds)
@@ -300,21 +301,24 @@ class DeviceMetricAccum:
             for i, k in enumerate(self.kernels):
                 for lab, p in zip(labels, preds):
                     part = k.sum_fn(lab.to(p.device, non_blocking=True), p)
-                    self._sums[i] = part if self._sums[i] is None \
-                        else self._sums[i] + part
+                    sums = self._sums[i]
+                    sums[p.device] = part if p.device not in sums \
+                        else sums[p.device] + part
                     self._counts[i] += int(k.count_fn(lab, p))
         self._pending = True
 
     def sync(self):
-        """The one host round trip: fold the device sums into the wrapped
-        metrics and refresh ``last_snapshot``; returns it."""
+        """The one host round trip: fold the device sums (each device's
+        added on the first one's) into the wrapped metrics and refresh
+        ``last_snapshot``; returns it."""
         if self._pending:
-            live = [(c, s, n) for c, s, n in zip(self.children, self._sums,
-                                                 self._counts)
-                    if s is not None]
+            live = [(c, list(s.values()), n) for c, s, n in
+                    zip(self.children, self._sums, self._counts) if s]
             if live:
-                vals = torch.stack([s.to(torch.float64)
-                                    for _, s, _ in live]).cpu().tolist()
+                dev = live[0][1][0].device
+                vals = torch.stack([
+                    sum(p.to(dev, torch.float64) for p in parts)
+                    for _, parts, _ in live]).cpu().tolist()
                 self.syncs += 1
                 for (child, _, n), v in zip(live, vals):
                     child.sum_metric += float(v)

@@ -1,7 +1,10 @@
-"""Checkpoint files: ``prefix-symbol.json``, ``prefix-%04d.params`` and
-the versioned ``.params.manifest.json`` beside the params.
+"""The KVStore decision rules, and the checkpoint files:
+``prefix-symbol.json``, ``prefix-%04d.params`` and the versioned
+``.params.manifest.json`` beside the params.
 
-A copy of ``mxtpu/model.py``'s checkpoint part (``_checkpoint_manifest``
+A copy of ``mxtpu/model.py``: the kvstore rules (``_create_kvstore``
+:20, ``_initialize_kvstore`` :45, ``_update_params_on_kvstore`` :54,
+``_update_params`` :65) and the checkpoint part (``_checkpoint_manifest``
 :81, ``save_checkpoint`` :100, ``load_checkpoint`` :142), in mxtpu's
 formats, so a checkpoint written by either package loads in the other.
 Writes are synchronous: mxtpu's ``async_write`` goes through its elastic
@@ -17,9 +20,71 @@ import time
 from . import ndarray as nd
 from . import symbol as sym
 from .base import MXNetError
+from .kvstore import KVStore
+from .kvstore import create as _create_kv
 from .ndarray.ndarray import dtype_name
 
 __all__ = ["save_checkpoint", "load_checkpoint", "checkpoint_manifest"]
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """(kvstore or None, update_on_kvstore): one device and not ``dist``
+    needs no store; ``local`` with a parameter over 16 M elements updates
+    on the devices, not on the store (mxtpu/model.py:20-42)."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = _create_kv(kvstore)
+            if kvstore == "local":
+                max_size = max(p.size for p in arg_params.values()) \
+                    if arg_params else 0
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, arg_params[name])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        name = param_names[index]
+        kvstore.push(name, grad_list, priority=-index)
+        kvstore.pull(name, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, param_names=None):
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            name = param_names[index]
+            kvstore.push(name, grad_list, priority=-index)
+            kvstore.pull(name, grad_list, priority=-index)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updater(index * num_device + k, g, w)
 
 
 def checkpoint_manifest(save_dict, epoch):

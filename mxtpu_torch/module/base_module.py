@@ -4,14 +4,16 @@ base_module.py — fit :376-525, score).
 Counterpart of ``mxtpu/module/base_module.py:131-``: ``fit`` binds,
 initializes, arms the optimizer and loops over the epochs with
 ``forward_backward`` + ``update``, the eval metric accumulating on the
-device (``metric.DeviceMetricAccum``) and reaching the host only at the
-metric-sync cadence, and at most ``max_in_flight`` steps queued on the
-device ahead of the host. ``device_prefetch`` stages each next batch on
-the module's device from a producer thread (``io.DevicePrefetchIter``).
-The knobs of mxtpu's fit that the port does not have yet (a kvstore
-other than local, ``mesh``, ``elastic``, ``resume``, ``tuned``,
-``health``, ``monitor``) raise MXNetError when set, rather than being
-ignored.
+device (``metric.DeviceMetricAccum``, one sum per context) and reaching
+the host only at the metric-sync cadence, and at most ``max_in_flight``
+steps queued on the device ahead of the host. ``device_prefetch`` stages
+each next batch on the first context's device from a producer thread
+(``io.DevicePrefetchIter``), as mxtpu's does; the executor group copies
+each context's rows to its device. ``kvstore`` is what
+``Module.init_optimizer`` takes: a name or a ``KVStore``. The knobs of
+mxtpu's fit that the port does not have yet (``mesh``, ``elastic``,
+``resume``, ``tuned``, ``health``, ``monitor``) raise MXNetError when
+set, rather than being ignored.
 """
 from __future__ import annotations
 
@@ -53,11 +55,8 @@ def _as_list(obj):
 _UNPORTED_FIT = ("mesh", "elastic", "resume", "tuned", "health", "monitor")
 
 
-def refuse_unported(kvstore="local", **knobs):
+def refuse_unported(**knobs):
     """Raise MXNetError for a knob of mxtpu's fit the port lacks."""
-    if kvstore not in (None, "local", "device"):
-        raise MXNetError("kvstore %r is not ported yet; the port trains on "
-                         "one device ('local')" % (kvstore,))
     for name in _UNPORTED_FIT:
         if knobs.get(name) not in (None, False):
             raise MXNetError("fit(%s=...) is not ported yet" % name)
@@ -109,6 +108,9 @@ class BaseModule:
     @property
     def symbol(self):
         return self._symbol
+
+    def _host_round_trip(self):
+        return False
 
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)
@@ -163,7 +165,7 @@ class BaseModule:
         path). ``device_prefetch``: wrap ``train_data`` (unless it is one
         already) in a ``DevicePrefetchIter`` onto the module's context,
         closed when fit ends (mxtpu/module/base_module.py:242-256)."""
-        refuse_unported(kvstore, mesh=mesh, elastic=elastic, resume=resume,
+        refuse_unported(mesh=mesh, elastic=elastic, resume=resume,
                         tuned=tuned, health=health, monitor=monitor)
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
@@ -191,7 +193,7 @@ class BaseModule:
         if device_prefetch and not isinstance(train_data,
                                               _io.DevicePrefetchIter):
             train_data = owned = _io.DevicePrefetchIter(
-                train_data, device=getattr(self, "_context", None))
+                train_data, device=self._context[0])
         try:
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
@@ -206,8 +208,8 @@ class BaseModule:
                     self.update()
                     next_batch = next(data_iter, None)
                     if accum is not None:
-                        labels, outs = self._step_view(data_batch)
-                        accum.update(labels, outs)
+                        for labels, outs in self._step_views():
+                            accum.update(labels, outs)
                         pacer.step_done()
                     else:
                         self.update_metric(eval_metric, data_batch.label)
@@ -230,8 +232,10 @@ class BaseModule:
                 self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                                  time.time() - tic)
                 epoch_cbs = _as_list(epoch_end_callback)
-                if epoch_cbs:
+                if epoch_cbs or self._host_round_trip():
                     arg_params, aux_params = self.get_params()
+                    if self._host_round_trip():
+                        self.set_params(arg_params, aux_params)
                     for callback in epoch_cbs:
                         callback(epoch, self.symbol, arg_params, aux_params)
                 if eval_data:

@@ -7,7 +7,9 @@ rematerialization or update groups. The JAX package traces forward,
 backward and the update of every parameter into one donated XLA program
 (``step`` :634-718, :794-864). Eagerly there is no program to fuse them
 into: the forward and backward are the executor's, and what is left here
-is the update, every parameter's rule in one call with f32 state. The
+is the update, every parameter's rule in one call with f32 state. Over
+several contexts the step first sums the replicas' gradients with one
+collective, then updates every replica from that sum. The
 rules call the optimizer's update functions, so they round as the
 Updater does. Per-parameter lr and wd come from the optimizer's own
 ``_get_lr``/``_get_wd`` each step, with Adam's bias correction folded
@@ -19,6 +21,7 @@ import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
+from ..ops.collective import sum_replicas
 
 __all__ = ["FusedTrainStep", "supports"]
 
@@ -110,28 +113,41 @@ def supports(optimizer):
 
 class FusedTrainStep:
     """The optimizer update of every trainable parameter in one call, by
-    the rules above, over a bound executor's arrays.
+    the rules above, over the arrays of one bound executor per replica.
 
-    ``executor`` has run ``forward(is_train=True)`` and ``backward()``;
-    ``update`` applies each trainable parameter's rule in place, under
-    ``no_grad``, to the tensor the executor reads, from the gradient in
-    its grad array. The trainable parameters are those of
-    ``param_names`` that the executor gives a gradient (grad_req not
-    "null"). ``opt_state`` holds each one's f32 rule state in the
-    structure of the optimizer's ``create_state``. The parameter and
-    gradient tensors are held, so a reshaped executor that keeps its
-    arrays (``Module.reshape``) is updated by the same step."""
+    ``executors`` have run a training forward and backward; ``update``
+    sums each replica's gradients (views into one flat buffer per dtype,
+    ``flat_grads``) with one collective (``sum_replicas``), then applies
+    each trainable parameter's rule on every replica, in place under
+    ``no_grad``, from that same sum, so the replicas stay bit-identical:
+    mxtpu's replicated update under GSPMD. The trainable parameters are
+    those of ``param_names`` that the executors give a gradient
+    (grad_req not "null"). ``opt_state[r]`` holds replica r's f32 rule
+    state in the structure of the optimizer's ``create_state``. The
+    parameter and gradient tensors are held, so a reshaped executor that
+    keeps its arrays (``Module.reshape``) is updated by the same step."""
 
-    def __init__(self, executor, param_names, optimizer):
+    def __init__(self, executors, param_names, optimizer, flat_grads=None):
+        if not isinstance(executors, (list, tuple)):
+            executors = [executors]
+        ex0 = executors[0]
         self.trainable = [n for n in param_names
-                          if executor.grad_req.get(n, "null") != "null"
-                          and n in executor.grad_dict]
-        self.params = {n: executor.arg_dict[n]._data for n in self.trainable}
-        self.grads = {n: executor.grad_dict[n]._data for n in self.trainable}
+                          if ex0.grad_req.get(n, "null") != "null"
+                          and n in ex0.grad_dict]
+        self.params = [{n: ex.arg_dict[n]._data for n in self.trainable}
+                       for ex in executors]
+        self.grads = [{n: ex.grad_dict[n]._data for n in self.trainable}
+                      for ex in executors]
+        self._flats = [list((f or {}).values())
+                       for f in (flat_grads or [None] * len(executors))]
+        if len(executors) > 1 and not all(self._flats):
+            raise MXNetError("a fused step over replicas needs each "
+                             "replica's gradients in flat buffers")
         self.optimizer = optimizer
         init, self._apply, self._lr_scale = \
             _RULES[type(optimizer).__name__](optimizer)
-        self.opt_state = {n: init(self.params[n]) for n in self.trainable}
+        self.opt_state = [{n: init(p[n]) for n in self.trainable}
+                          for p in self.params]
         # the optimizer's index scheme (Module's idx2name), fresh indices
         # for names it has not seen
         name2idx = {}
@@ -150,35 +166,43 @@ class FusedTrainStep:
         optimizer's index scheme (``idx2name``), the Updater's, so a
         state file written by either path loads on the other; every
         index that names a parameter gets its state
-        (mxtpu/module/fused.py:930)."""
-        host = {n: opt.states_to_numpy(self.opt_state[n])
+        (mxtpu/module/fused.py:930). The replicas' states are identical;
+        the first one's is written."""
+        host = {n: opt.states_to_numpy(self.opt_state[0][n])
                 for n in self.trainable}
         return {idx: host[n] for idx, n in self.optimizer.idx2name.items()
                 if n in host}
 
     def import_opt_state(self, states):
         """Copy ``{index: state}`` (numpy, as ``export_opt_state`` gives
-        it) into the live state tensors in place; for a parameter named
-        by several indices the lowest present wins (:949)."""
+        it) into every replica's live state tensors in place; for a
+        parameter named by several indices the lowest present wins
+        (:949)."""
         idx2name = self.optimizer.idx2name
         with torch.no_grad():
             for n in self.trainable:
                 found = [states[j] for j in sorted(states)
                          if idx2name.get(j) == n and states[j] is not None]
                 if found:
-                    _copy_state(self.opt_state[n], found[0], n)
+                    for st in self.opt_state:
+                        _copy_state(st[n], found[0], n)
 
     def update(self):
-        """Apply one update to every trainable parameter."""
+        """Sum the replicas' gradients, then apply one update to every
+        trainable parameter of every replica."""
         o = self.optimizer
         with torch.no_grad():
+            if len(self.params) > 1:
+                for bufs in zip(*self._flats):
+                    sum_replicas(list(bufs))
             for n, idx in zip(self.trainable, self._name_idx):
                 o._update_count(idx)
                 lr = o._get_lr(idx)
                 if self._lr_scale is not None:
                     lr *= self._lr_scale(o._index_update_count[idx])
-                self._apply(self.params[n], self.grads[n],
-                            self.opt_state[n], lr, o._get_wd(idx))
+                wd = o._get_wd(idx)
+                for p, g, st in zip(self.params, self.grads, self.opt_state):
+                    self._apply(p[n], g[n], st[n], lr, wd)
 
 
 def _copy_state(dst, src, name):

@@ -1,44 +1,56 @@
-"""Module: a symbol bound on one device, its parameters and optimizer.
+"""Module: a symbol bound on a list of device contexts, its parameters
+and optimizer.
 
 Counterpart of ``mxtpu/module/module.py`` (bind :285, init_params :190,
-init_optimizer :335 arming the fused step as ``_arm_fused`` :401-441
-does, forward_backward :509, update :575, get_outputs :603). The port
-binds one Executor on one device (``context`` defaults to gpu(0) and
-raises without CUDA; several contexts raise: data parallelism over
-NCCL is a later slice). The parameters live in the executor's bound
-arrays on the device; ``get_params`` returns cpu() copies.
+init_optimizer :335 with the kvstore decision, ``_arm_fused`` :401-441,
+forward_backward :509, update :575, get_outputs :603). The port binds a
+``DataParallelExecutorGroup``: one Executor per context, each on its
+slice of the batch (``work_load_list``); one context is a group of one.
+``context`` defaults to gpu(0) and raises without CUDA; a context named
+twice raises. The parameters live in the executors' bound arrays on the
+devices; ``get_params`` returns cpu() copies (averaged over the
+contexts, as mxtpu's executor group averages them).
 
-When the optimizer has a fused rule (SGD, NAG, Adam, RMSProp, AdaGrad),
-``init_optimizer`` arms a ``FusedTrainStep`` over those same arrays and
-``update`` applies every parameter's rule in one call; any other
-optimizer updates through the Updater. ``forward_backward`` is the
-executor's training forward and backward (which writes BatchNorm's
-moving statistics back into the bound aux arrays), and ``get_outputs``
-returns its outputs on the device, with no host copy.
+``init_optimizer`` follows mxtpu's: ``model._create_kvstore`` decides
+the store and ``update_on_kvstore``, ``rescale_grad`` is 1/(global
+batch), the optimizer's indices name each parameter (per device without
+``update_on_kvstore``). It then arms a ``FusedTrainStep`` on exactly
+mxtpu's conditions, because the choice decides BatchNorm's semantics
+over several contexts: the fused step runs ``forward_backward`` as one
+function of the whole batch (BatchNorm on the whole batch's statistics)
+and ``update`` sums the replicas' gradients with one collective and
+applies every rule on every replica. Otherwise (inputs_need_grad,
+grad_req other than "write", an optimizer without a rule, a ``dist``
+kvstore, an uneven ``work_load_list``, a batch that does not divide over
+the contexts) each context runs on its slice, with its own BatchNorm
+statistics, and ``update`` goes through the kvstore
+(``model._update_params_on_kvstore``) or the Updater
+(``model._update_params``), and ``fit`` averages the contexts' params
+on the host at each epoch end, as mxtpu's legacy path does.
+``forward`` called directly runs each context on its slice, as mxtpu's
+does; ``get_outputs`` merges them on the first context.
 
 Checkpoints (``save_checkpoint``, the static ``load``, ``save_params``,
 ``load_params``, ``save_optimizer_states``, ``load_optimizer_states``;
 mxtpu/module/module.py:101-146, 699-744) write mxtpu's files:
 ``-symbol.json`` and ``.params`` load in either package, bit for bit.
-A ``.states`` file is a pickle of ``{index: numpy state}``, which both
-of the port's update paths read and write; it is not interchangeable
-with mxtpu's, whose fused step pickles its own state tree.
+A ``.states`` file is a pickle of ``{index: numpy state}``, which the
+port's update paths read and write (through the kvstore when it
+updates); it is not interchangeable with mxtpu's, whose fused step
+pickles its own state tree.
 """
 from __future__ import annotations
 
 import logging
 import pickle
 
-import numpy as _np
-import torch
-
 from .. import model as _model
 from .. import optimizer as opt
 from ..base import MXNetError
-from ..context import as_context, cpu, current_context
+from ..context import context_list, current_context
 from ..initializer import InitDesc, Uniform
-from ..ndarray import NDArray, host_copies
-from .base_module import BaseModule, refuse_unported
+from .base_module import BaseModule
+from .executor_group import DataParallelExecutorGroup
 from .fused import FusedTrainStep, supports
 
 __all__ = ["Module"]
@@ -57,13 +69,6 @@ def _descs(shapes, names, what):
     return [(n, got[n]) for n in names if n in got]
 
 
-def _as_tensor(v, device):
-    t = getattr(v, "_data", v)
-    if not isinstance(t, torch.Tensor):
-        t = torch.as_tensor(_np.asarray(v))
-    return t.to(device)
-
-
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
@@ -72,14 +77,16 @@ class Module(BaseModule):
         super().__init__(logger=logger)
         if context is None:
             context = current_context()
-        if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise MXNetError("Module over %d contexts: data parallelism "
-                                 "is not ported yet; pass one context"
-                                 % len(context))
-            context = context[0]
-        self._context = as_context(context)
-        self._device = self._context.torch_device
+        self._context = context_list(context)
+        for ctx in self._context:
+            ctx.torch_device  # raises for a missing card
+        self._device = self._context[0].torch_device
+        if work_load_list is None:
+            work_load_list = [1] * len(self._context)
+        if len(work_load_list) != len(self._context):
+            raise MXNetError("work_load_list has %d entries for %d contexts"
+                             % (len(work_load_list), len(self._context)))
+        self._work_load_list = list(work_load_list)
         if state_names:
             raise MXNetError("Module(state_names=...) is not ported yet")
         self._symbol = symbol
@@ -95,10 +102,12 @@ class Module(BaseModule):
         self._fixed_param_names = list(fixed_param_names or [])
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
-        self._exec = None
+        self._exec_group = None
         self._data_shapes = self._label_shapes = None
         self._grad_req = "write"
         self._optimizer = self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._fused = None
         # set by load(): params written at bind, states at init_optimizer
         self._arg_params = self._aux_params = None
@@ -135,9 +144,12 @@ class Module(BaseModule):
             self.logger.info('Saved optimizer state to "%s"', state_name)
 
     def save_optimizer_states(self, fname):
-        """Pickle of ``{index: numpy state}`` from the fused step or the
-        Updater, whichever updates."""
+        """Pickle of ``{index: numpy state}`` from the fused step, the
+        kvstore's updater or the Updater, whichever updates."""
         assert self.optimizer_initialized
+        if self._fused is None and self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as f:
             f.write(pickle.dumps(self._fused.export_opt_state())
                     if self._fused is not None
@@ -145,6 +157,9 @@ class Module(BaseModule):
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._fused is None and self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             states = pickle.loads(f.read())
         if self._fused is not None:
@@ -179,7 +194,7 @@ class Module(BaseModule):
              grad_req="write"):
         if force_rebind:
             self.binded = False
-            self._exec = None
+            self._exec_group = None
             self._fused = None
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
@@ -191,7 +206,11 @@ class Module(BaseModule):
         self._grad_req = grad_req
         self._data_shapes = _descs(data_shapes, self._data_names, "data")
         self._label_shapes = _descs(label_shapes, self._label_names, "label")
-        self._exec = self._bind_exec(None)
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._work_load_list,
+            self._data_shapes, self._label_shapes, self._param_names,
+            for_training, inputs_need_grad,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
         self.binded = True
         if self._arg_params is not None:  # a loaded checkpoint
             args, auxs = self._arg_params, self._aux_params
@@ -199,40 +218,11 @@ class Module(BaseModule):
             self.params_initialized = False
             self.init_params(arg_params=args, aux_params=auxs)
 
-    def _bind_exec(self, old):
-        """An Executor for the current data/label shapes; the parameter,
-        gradient and aux arrays of ``old`` (a reshape) are kept."""
-        shapes = dict(self._data_shapes + self._label_shapes)
-        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**shapes)
-        dev = self._device
-        args, grads, reqs = {}, {}, {}
-        inputs = set(self._data_names + self._label_names)
-        for name, shape in zip(self._symbol.list_arguments(), arg_shapes):
-            if old is not None and name not in inputs:
-                args[name] = old.arg_dict[name]
-                if name in old.grad_dict:
-                    grads[name] = old.grad_dict[name]
-            else:
-                args[name] = NDArray(torch.zeros(shape, device=dev),
-                                     self._context)
-            need = (name in self._data_names and self.inputs_need_grad) or (
-                name not in inputs and self.for_training
-                and name not in self._fixed_param_names)
-            reqs[name] = self._grad_req if need else "null"
-            if need and name not in grads:
-                grads[name] = NDArray(torch.zeros(shape, device=dev),
-                                      self._context)
-        aux = {n: (old.aux_dict[n] if old is not None else
-                   NDArray(torch.zeros(s, device=dev), self._context))
-               for n, s in zip(self._aux_names, aux_shapes)}
-        return self._symbol.bind(self._context, args, args_grad=grads,
-                                 grad_req=reqs, aux_states=aux)
-
     def reshape(self, data_shapes, label_shapes=None):
         assert self.binded
         self._data_shapes = _descs(data_shapes, self._data_names, "data")
         self._label_shapes = _descs(label_shapes, self._label_names, "label")
-        self._exec = self._bind_exec(self._exec)
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
 
     # ------------------------------------------------ params
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
@@ -240,29 +230,32 @@ class Module(BaseModule):
         """Give every parameter its value: from ``arg_params`` /
         ``aux_params`` where named there, else from ``initializer``
         (default ``Uniform(0.01)``; an error when ``arg_params`` is given
-        without ``allow_missing``). Writes the bound arrays in place."""
+        without ``allow_missing``). The first context's arrays are
+        written in place, once, and copied to the other contexts."""
         if self.params_initialized and not force_init:
             return
         assert self.binded, "call bind before initializing the parameters"
         if initializer is None:
             initializer = Uniform(0.01)
         attrs = self._symbol.attr_dict()
+        group = self._exec_group
+        ex = group.execs[0]
         # arguments, then aux states, each in name order: the order of
         # the initializer's draws
-        pairs = [(n, self._exec.arg_dict[n], arg_params)
+        pairs = [(n, ex.arg_dict[n], arg_params)
                  for n in sorted(self._param_names)] + \
-                [(n, self._exec.aux_dict[n], aux_params)
+                [(n, ex.aux_dict[n], aux_params)
                  for n in sorted(self._aux_names)]
+        done = {}
         for name, arr, given in pairs:
             if given is not None and name in given:
-                with torch.no_grad():
-                    arr._data.copy_(_as_tensor(given[name], self._device)
-                                    .reshape(arr.shape))
-            elif given is not None and not allow_missing and \
+                done[name] = given[name]
+                continue
+            if given is not None and not allow_missing and \
                     given is arg_params:
                 raise MXNetError("%s is not presented" % name)
-            else:
-                initializer(InitDesc(name, attrs.get(name)), arr)
+            initializer(InitDesc(name, attrs.get(name)), arr)
+            done[name] = arr
         if not allow_extra:
             for given in (arg_params, aux_params):
                 extra = set(given or {}) - set(self._param_names) \
@@ -270,6 +263,8 @@ class Module(BaseModule):
                 if extra:
                     raise MXNetError("init_params: unknown parameters %s"
                                      % sorted(extra))
+        group.set_params({n: done[n] for n in self._param_names},
+                         {n: done[n] for n in self._aux_names})
         self.params_initialized = True
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
@@ -281,16 +276,10 @@ class Module(BaseModule):
     def get_params(self):
         """(arg_params, aux_params): cpu() copies of the live values (the
         aux values as the last training forward wrote them back), taken
-        with one device->host copy per dtype."""
+        with one device->host copy per dtype and device; over several
+        contexts each value is the contexts' average."""
         assert self.binded and self.params_initialized
-        ex = self._exec
-        arrays = [ex.arg_dict[n] for n in self._param_names] + \
-            [ex.aux_dict[n] for n in self._aux_names]
-        host = [NDArray(t, cpu())
-                for t in host_copies([a._data for a in arrays])]
-        k = len(self._param_names)
-        return (dict(zip(self._param_names, host[:k])),
-                dict(zip(self._aux_names, host[k:])))
+        return self._exec_group.get_params()
 
     # ------------------------------------------------ optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -300,18 +289,38 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        refuse_unported(kvstore)
+        group = self._exec_group
+        first = {n: b[0] for n, b in zip(self._param_names,
+                                         group.param_arrays)}
+        kv, update_on_kvstore = _model._create_kvstore(
+            kvstore, len(self._context), first)
+        batch_size = group.batch_size
+        if kv is not None and "dist" in kv.type and "_sync" in kv.type:
+            batch_size *= kv.num_workers
         if isinstance(optimizer, str):
+            n = len(self._context)
+            if update_on_kvstore:
+                idx2name = dict(enumerate(self._param_names))
+            else:
+                idx2name = {i * n + k: name for k in range(n)
+                            for i, name in enumerate(self._param_names)}
             params = dict(optimizer_params)
-            params.setdefault("rescale_grad",
-                              1.0 / self._data_shapes[0][1][0])
-            optimizer = opt.create(
-                optimizer, sym=self._symbol,
-                param_idx2name=dict(enumerate(self._param_names)), **params)
+            params.setdefault("rescale_grad", 1.0 / batch_size)
+            optimizer = opt.create(optimizer, sym=self._symbol,
+                                   param_idx2name=idx2name, **params)
         elif not isinstance(optimizer, opt.Optimizer):
             raise MXNetError("optimizer must be a name or an Optimizer")
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kv is not None:
+            _model._initialize_kvstore(kv, group.param_arrays, first,
+                                       self._param_names, update_on_kvstore)
+        if update_on_kvstore:
+            kv.set_optimizer(optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._arm_fused()
         if self._preload_opt_states is not None:
@@ -319,21 +328,26 @@ class Module(BaseModule):
             self._preload_opt_states = None
 
     def _arm_fused(self):
-        """Arm the fused update when the optimizer has a rule."""
+        """Arm the fused step on mxtpu's conditions (module.py:412-431):
+        training with grad_req "write", no input gradients, an optimizer
+        with a rule, no ``dist`` kvstore, an even ``work_load_list`` and a
+        batch that divides over the contexts."""
         self._fused = None
-        if self.for_training and supports(self._optimizer):
-            self._fused = FusedTrainStep(self._exec, self._param_names,
-                                         self._optimizer)
+        group = self._exec_group
+        n = len(self._context)
+        if (not self.for_training or self.inputs_need_grad
+                or self._grad_req != "write"
+                or not supports(self._optimizer)
+                or (self._kvstore is not None
+                    and "dist" in self._kvstore.type)
+                or len(set(self._work_load_list)) > 1
+                or (n > 1 and group.batch_size % n)):
+            return
+        self._fused = FusedTrainStep(group.execs, self._param_names,
+                                     self._optimizer, group.flat_grads)
 
     # ------------------------------------------------ compute
-    def _load_batch(self, data_batch):
-        ex = self._exec
-        for name, arr in zip(self._data_names, data_batch.data):
-            ex.arg_dict[name][:] = arr
-        for name, arr in zip(self._label_names, data_batch.label or []):
-            ex.arg_dict[name][:] = arr
-
-    def forward(self, data_batch, is_train=None):
+    def _forward(self, data_batch, is_train, coupled=False):
         assert self.binded and self.params_initialized
         if is_train is None:
             is_train = self.for_training
@@ -343,12 +357,21 @@ class Module(BaseModule):
                       zip(self._label_names, data_batch.label or [])]
             self.reshape(list(zip(self._data_names, new)),
                          labels or self._label_shapes)
-        self._load_batch(data_batch)
-        self._exec.forward(is_train=is_train)
+        self._exec_group.forward(data_batch, is_train, coupled=coupled)
+
+    def forward(self, data_batch, is_train=None):
+        """Each context's forward on its rows of the batch."""
+        self._forward(data_batch, is_train)
+
+    def forward_backward(self, data_batch):
+        """The training forward and backward; with the fused step armed,
+        over all contexts as one function of the whole batch."""
+        self._forward(data_batch, True, coupled=self._fused is not None)
+        self.backward()
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
-        self._exec.backward(out_grads=out_grads)
+        self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
         assert self.binded and self.params_initialized and \
@@ -356,29 +379,34 @@ class Module(BaseModule):
         if self._fused is not None:
             self._fused.update()
             return
-        ex = self._exec
-        for i, name in enumerate(self._param_names):
-            grad = ex.grad_dict.get(name)
-            if grad is None or ex.grad_req.get(name) == "null":
-                continue
-            self._updater(i, grad, ex.arg_dict[name])
+        group = self._exec_group
+        if self._update_on_kvstore:
+            _model._update_params_on_kvstore(
+                group.param_arrays, group.grad_arrays, self._kvstore,
+                self._param_names)
+        else:
+            _model._update_params(
+                group.param_arrays, group.grad_arrays, self._updater,
+                len(self._context), self._kvstore, self._param_names)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
-        outs = list(self._exec.outputs)
-        return outs if merge_multi_context else [[o] for o in outs]
+        return self._exec_group.get_outputs(merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
         assert self.binded and self.params_initialized and \
             self.inputs_need_grad
-        grads = [self._exec.grad_dict[n] for n in self._data_names]
-        return grads if merge_multi_context else [[g] for g in grads]
+        return self._exec_group.get_input_grads(merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
-        eval_metric.update(list(labels), self.get_outputs())
+        self._exec_group.update_metric(eval_metric, labels)
 
-    def _step_view(self, data_batch):
-        """(labels, outputs) of the last step, on the device."""
-        return ([self._exec.arg_dict[n]._data for n in self._label_names],
-                [o._data for o in self._exec.outputs])
+    def _step_views(self):
+        """[(labels, outputs)] of the last step, one pair per context, on
+        its device."""
+        return self._exec_group.step_views()
 
+    def _host_round_trip(self):
+        """Whether fit averages the contexts' params on the host at each
+        epoch end (mxtpu's legacy multi-context path)."""
+        return len(self._context) > 1 and self._fused is None

@@ -156,7 +156,9 @@ class NDArray:
         ctx = as_context(ctx)
         if ctx == self._ctx:
             return self
-        return NDArray(self._data.to(ctx.torch_device), ctx)
+        # a copy even where both contexts map to one torch device
+        # (cpu(0) -> cpu(1)): each context holds its own array
+        return NDArray(self._data.to(ctx.torch_device, copy=True), ctx)
 
     def copyto(self, other):
         """Copy into the NDArray ``other`` (in place) or onto the Context

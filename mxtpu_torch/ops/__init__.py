@@ -1,8 +1,10 @@
 """The port's operators: registry plus the op modules that register into it."""
 from . import registry
+from . import collective
 from . import tensor
 from . import epilogue
 from . import nn
 from . import attention
 
-__all__ = ["registry", "tensor", "epilogue", "nn", "attention"]
+__all__ = ["registry", "collective", "tensor", "epilogue", "nn",
+           "attention"]

@@ -39,7 +39,7 @@ import threading
 import torch
 
 from ..base import MXNetError
-from .registry import register
+from .registry import register, set_replicas
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
@@ -370,3 +370,4 @@ register("_contrib_FlashAttention", _flash_op,
          attrs={"causal": False, "sm_scale": 0.0, "block_q": 512,
                 "block_k": 1024},
          aliases=("flash_attention",))
+set_replicas(["_contrib_FlashAttention"])

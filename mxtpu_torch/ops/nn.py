@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .collective import ReplicaSum, sum_replicas
 from .epilogue import bn_apply_relu_add, fold_bn
-from .registry import Required, register
+from .registry import Required, off_batch_axis, register, set_replicas
 
 
 def _prod(xs):
@@ -159,12 +160,25 @@ def _softmax_fwd(a, data):
     return torch.softmax(data, dim=-1)
 
 
-def softmax_output_grad(a, p, label):
+def _valid_rows(a, p, label):
+    """1 for each row the loss counts, 0 for a row labelled
+    ``ignore_label`` under ``use_ignore``."""
+    if label.shape == p.shape:
+        return torch.ones(label.shape[:1], dtype=p.dtype, device=p.device)
+    idx = label.to(torch.int64)
+    if a.use_ignore:
+        return (idx != int(a.ignore_label)).to(p.dtype)
+    return torch.ones(idx.shape, dtype=p.dtype, device=p.device)
+
+
+def softmax_output_grad(a, p, label, denom=None):
     """The loss head's gradient (mxtpu/ops/nn.py:357-377, the reference's
     softmax_output-inl.h): ``(p - onehot(label)) * grad_scale``; a label of
     p's shape is the target itself; ``use_ignore`` gives rows labelled
     ``ignore_label`` a zero gradient; ``normalization`` "batch" divides by
-    the batch, "valid" by the count of rows not ignored (at least 1)."""
+    the batch, "valid" by the count of rows not ignored (at least 1).
+    ``denom``, given by the replica walk, is that divisor over the whole
+    batch of every replica."""
     axis = 1 if a.multi_output else p.ndim - 1
     if label.shape == p.shape:
         target = label.to(p.dtype)
@@ -183,7 +197,9 @@ def softmax_output_grad(a, p, label):
         else:
             valid = torch.ones(idx.shape, dtype=p.dtype, device=p.device)
     grad = (p - target) * a.grad_scale
-    if a.normalization == "batch":
+    if denom is not None:
+        grad = grad / denom
+    elif a.normalization == "batch":
         grad = grad / p.shape[0]
     elif a.normalization == "valid":
         grad = grad / torch.clamp(valid.sum(), min=1.0)
@@ -195,25 +211,45 @@ class SoftmaxOutputFunction(torch.autograd.Function):
     ignores the incoming head gradient, as a loss head does."""
 
     @staticmethod
-    def forward(ctx, data, label, a):
+    def forward(ctx, data, label, a, denom=None):
         p = _softmax_fwd(a, data)
         ctx.save_for_backward(p, label)
         ctx.attrs = a
+        ctx.denom = denom
         return p
 
     @staticmethod
     def backward(ctx, grad_out):
         del grad_out
         p, label = ctx.saved_tensors
-        return softmax_output_grad(ctx.attrs, p, label), None, None
+        return (softmax_output_grad(ctx.attrs, p, label, ctx.denom), None,
+                None, None)
 
 
-def _softmax_output(a, data, label):
+def _softmax_output(a, data, label, denom=None):
     """The loss head: softmax forward; under autograd, the gradient of
     ``softmax_output_grad``. The label is read only by the backward."""
     if torch.is_grad_enabled() and data.requires_grad:
-        return SoftmaxOutputFunction.apply(data, label, a)
+        return SoftmaxOutputFunction.apply(data, label, a, denom)
     return _softmax_fwd(a, data)
+
+
+def _softmax_output_group(a, inputs):
+    """SoftmaxOutput over replicas with ``normalization`` "batch" or
+    "valid": each replica's gradient divided by the whole batch's count
+    (rows, or rows not ignored summed over the replicas with one
+    collective), as mxtpu's fused step divides the whole batch's
+    gradient."""
+    if a.normalization == "batch":
+        total = sum(data.shape[0] for data, _ in inputs)
+        return [(_softmax_output(a, data, label, total),)
+                for data, label in inputs]
+    with torch.no_grad():
+        counts = [_valid_rows(a, data, label).sum().reshape(1)
+                  for data, label in inputs]
+        sum_replicas(counts)
+    return [(_softmax_output(a, data, label, torch.clamp(c[0], min=1.0)),)
+            for (data, label), c in zip(inputs, counts)]
 
 
 def _label_like_batch(a, shapes):
@@ -371,7 +407,23 @@ def _refuse_training(a):
                          "Activation as two ops")
 
 
-def _batch_norm(a, data, gamma, beta, moving_mean, moving_var):
+def _bn_global(a):
+    """Whether BatchNorm normalizes by its moving statistics (inference,
+    or use_global_stats) rather than the batch's."""
+    return a.use_global_stats or not a.get("__is_train__", False)
+
+
+def _bn_sums(a, data):
+    """(sum, sum of squares, count) over every axis but the channel's, in
+    float32 (float64 for float64 data): BatchNorm's one pass."""
+    ax = int(a.axis) % data.ndim
+    red = tuple(i for i in range(data.ndim) if i != ax)
+    x32 = data.to(torch.promote_types(data.dtype, torch.float32))
+    return (torch.sum(x32, dim=red), torch.sum(torch.square(x32), dim=red),
+            _prod(data.shape[i] for i in red))
+
+
+def _batch_norm(a, data, gamma, beta, moving_mean, moving_var, sums=None):
     """BatchNorm in the JAX arithmetic (mxtpu/ops/nn.py:202-233):
     ``(x - mean) * (g * inv) + beta`` with ``inv = rsqrt(var + eps)`` and
     ``g = 1`` under fix_gamma. At inference, or with use_global_stats,
@@ -382,21 +434,19 @@ def _batch_norm(a, data, gamma, beta, moving_mean, moving_var):
     gradient flows through them by autograd, and the moving statistics
     move by ``m * moving + (1 - m) * stat`` with the stat detached.
     Returns the visible outputs (out, and with output_mean_var the mean
-    and var used), then the new moving_mean and moving_var."""
+    and var used), then the new moving_mean and moving_var. ``sums``,
+    given by the replica walk, are the whole batch's ``_bn_sums``."""
     ax = int(a.axis) % data.ndim
     bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.ndim))
     g = torch.ones_like(gamma) if a.fix_gamma else gamma
     wide = torch.promote_types(data.dtype, torch.float32)
-    if a.use_global_stats or not a.get("__is_train__", False):
+    if _bn_global(a):
         mean, var = moving_mean, moving_var
         new_mm, new_mv = moving_mean, moving_var
     else:
-        red = tuple(i for i in range(data.ndim) if i != ax)
-        n = _prod(data.shape[i] for i in red)
-        x32 = data.to(wide)
-        mean32 = torch.sum(x32, dim=red) / n
-        var32 = torch.sum(torch.square(x32), dim=red) / n \
-            - torch.square(mean32)
+        s1, s2, n = _bn_sums(a, data) if sums is None else sums
+        mean32 = s1 / n
+        var32 = s2 / n - torch.square(mean32)
         # maximum, not clamp: at a tie (var exactly 0) both jnp.maximum
         # and torch.maximum pass half the gradient, clamp all of it
         var32 = torch.maximum(var32, torch.zeros_like(var32))
@@ -410,6 +460,21 @@ def _batch_norm(a, data, gamma, beta, moving_mean, moving_var):
     if a.output_mean_var:
         return out, mean, var, new_mm, new_mv
     return out, new_mm, new_mv
+
+
+def _batch_norm_group(a, inputs):
+    """BatchNorm in training over replicas, on the whole batch's
+    statistics as mxtpu's fused step computes them: each replica's sum
+    and sum of squares, stacked, are summed over the replicas with one
+    collective (``collective.ReplicaSum``: differentiable, so one backward
+    over every replica carries the cross-replica terms of the statistics'
+    gradient, with one collective again); every replica then normalizes,
+    and moves its moving statistics, from the same bits."""
+    parts = [_bn_sums(a, ins[0]) for ins in inputs]
+    sums = ReplicaSum.apply(*[torch.stack(p[:2]) for p in parts])
+    n = sum(p[2] for p in parts)
+    return [_batch_norm(a, *ins, sums=(s[0], s[1], n))
+            for ins, s in zip(inputs, sums)]
 
 
 def _bn_infer(a, shapes):
@@ -463,3 +528,16 @@ def bn_relu_inference(a, data, gamma, beta, moving_mean, moving_var):
 register("Concat", lambda a, *xs: torch.cat(xs, dim=int(a.dim)),
          variadic="num_args", attrs={"num_args": Required(int), "dim": 1},
          aliases=("concat",))
+
+
+# ---------------------------------------------------------------- replicas
+set_replicas(["FullyConnected", "Activation", "LeakyReLU", "Dropout",
+              "Convolution", "Convolution_v1", "Pooling", "Pooling_v1"])
+set_replicas(["LayerNorm", "softmax", "log_softmax"],
+             lambda a, nd: off_batch_axis(a.axis, nd))
+set_replicas(["Concat", "concat"], lambda a, nd: off_batch_axis(a.dim, nd))
+set_replicas(["SoftmaxOutput", "Softmax"],
+             lambda a, nd: a.normalization == "null",
+             group_fn=_softmax_output_group)
+set_replicas(["BatchNorm", "BatchNorm_v1"], lambda a, nd: _bn_global(a),
+             group_fn=_batch_norm_group)

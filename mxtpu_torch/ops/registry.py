@@ -14,7 +14,8 @@ from .. import random as _random
 from ..base import MXNetError, parse_attr
 
 __all__ = ["OpDef", "register", "get_op", "op_exists", "list_ops",
-           "Required", "invoke", "AttrDict", "torch_dtype"]
+           "Required", "invoke", "AttrDict", "torch_dtype", "set_replicas",
+           "off_batch_axis"]
 
 _OPS = {}
 
@@ -73,6 +74,14 @@ class OpDef:
     ``n_out`` visible outputs followed by ``len(aux_names)`` updated aux
     values, and the executor writes those back after a training forward
     (mxtpu/ops/registry.py:90-93).
+
+    Over replicas (the executor's replica walk: the batch split over
+    several devices, one graph each, in lockstep), ``row_local`` (a bool,
+    or a function of the attrs and the first input's rank) says whether each replica's result is
+    the whole batch's result on its rows; ``group_fn(attrs,
+    inputs_per_replica)`` computes an op that couples rows of the batch
+    (BatchNorm in training, a normalized loss) over all replicas at once
+    and returns each replica's ``apply`` tuple. ``replica_mode`` picks.
     """
 
     def __init__(self, name, fn, arg_names=("data",), attrs=None,
@@ -89,7 +98,21 @@ class OpDef:
         self.variadic = variadic
         self.needs_rng = needs_rng
         self.loss_like = loss_like
+        self.row_local = False
+        self.group_fn = None
         self.doc = doc or (fn.__doc__ or "")
+
+    def replica_mode(self, attrs, ndim):
+        """"rows" (each replica runs the op on its rows), "group" (one
+        ``group_fn`` call over the replicas), or None: the op couples rows
+        of the batch and has no group form, so a replica walk refuses
+        it rather than compute a per-replica answer. ``ndim`` is the rank
+        of the op's first input."""
+        rows = self.row_local(attrs, ndim) if callable(self.row_local) \
+            else self.row_local
+        if rows:
+            return "rows"
+        return "group" if self.group_fn is not None else None
 
     def parse_attrs(self, kwargs):
         out = AttrDict()
@@ -154,6 +177,25 @@ def register(name, fn=None, **kwargs):
         _do(fn)
         return _OPS[name]
     return _do
+
+
+def set_replicas(names, row_local=True, group_fn=None):
+    """Declare how the ops ``names`` run over replicas (``OpDef``'s
+    ``row_local`` and ``group_fn``)."""
+    for name in names:
+        op = get_op(name)
+        op.row_local = row_local
+        if group_fn is not None:
+            op.group_fn = group_fn
+
+
+def off_batch_axis(axis, ndim):
+    """Whether an ``axis`` attr (an int, a tuple, or None for every axis)
+    leaves axis 0, the batch axis, alone."""
+    if axis is None or ndim == 0:
+        return False
+    axes = axis if isinstance(axis, (tuple, list)) else (axis,)
+    return bool(axes) and all(int(x) % ndim != 0 for x in axes)
 
 
 def get_op(name):

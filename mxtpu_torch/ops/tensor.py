@@ -25,7 +25,8 @@ import ast
 import torch
 
 from ..base import MXNetError
-from .registry import Required, register, torch_dtype
+from .registry import (Required, off_batch_axis, register, set_replicas,
+                       torch_dtype)
 
 
 def _axis_tuple(axis, ndim, exclude=False):
@@ -311,3 +312,37 @@ register("take", _take, arg_names=["a", "indices"],
 
 register("where", lambda a, c, l, r: torch.where(c.to(torch.bool), l, r),
          arg_names=["condition", "x", "y"], attrs={})
+
+
+# ---------------------------------------------------------------- replicas
+# how each op runs over replicas (OpDef.replica_mode): elementwise ops and
+# reshapes of a replica's contiguous rows are its rows of the whole
+# result; an op that reduces, reorders or indexes the batch axis is
+# refused by a replica walk
+_ELEMENTWISE = (
+    ["relu", "sigmoid", "_copy", "negative", "abs", "square", "sqrt", "exp",
+     "log", "zeros_like", "ones_like", "Cast", "cast", "where",
+     "elemwise_add", "_plus", "_add", "elemwise_sub", "_minus", "_sub",
+     "elemwise_mul", "_mul", "elemwise_div", "_div", "_maximum", "_minimum",
+     "_power", "_plus_scalar", "_minus_scalar", "_rminus_scalar",
+     "_mul_scalar", "_div_scalar", "_rdiv_scalar", "_maximum_scalar",
+     "_minimum_scalar", "_power_scalar", "_rpower_scalar"]
+    + ["_" + n for n, _ in _COMPARE] + ["_%s_scalar" % n for n, _ in _COMPARE]
+    + ["broadcast_" + n for n in ("add", "plus", "sub", "minus", "mul", "div",
+                                  "power", "maximum", "minimum")]
+    + ["broadcast_" + n for n, _ in _COMPARE])
+set_replicas(_ELEMENTWISE + ["Reshape", "reshape", "Flatten", "flatten",
+                             "reshape_like", "Embedding"])
+set_replicas(["broadcast_to"], lambda a, nd: int(a.shape[0]) == 0)
+set_replicas(["sum", "mean", "max", "min"],
+             lambda a, nd: not a.exclude and off_batch_axis(a.axis, nd))
+set_replicas(["argmax"], lambda a, nd: off_batch_axis(a.axis, nd))
+set_replicas(["pick", "take"], lambda a, nd: off_batch_axis(a.axis, nd))
+set_replicas(["transpose"],
+             lambda a, nd: bool(a.axes) and int(a.axes[0]) % nd == 0)
+set_replicas(["expand_dims"], lambda a, nd: int(a.axis) != 0)
+set_replicas(["SwapAxis", "swapaxes"],
+             lambda a, nd: off_batch_axis((a.dim1, a.dim2), nd))
+set_replicas(["stack"], lambda a, nd: int(a.axis) != 0 and
+             int(a.axis) != -(nd + 1))
+set_replicas(["slice_axis"], lambda a, nd: off_batch_axis(a.axis, nd))

@@ -462,4 +462,4 @@ def test_resnet8_fit_matches_mxtpu(tt, resnet8_start):
     for k in ta:
         assert not np.array_equal(ta[k], a0[k])  # written back
         np.testing.assert_array_equal(
-            ta[k], tmod._exec.aux_dict[k].asnumpy())  # the live values
+            ta[k], tmod._exec_group.execs[0].aux_dict[k].asnumpy())  # live

@@ -11,7 +11,12 @@ the same step on cpu(); BatchNorm in training on the card against the
 CPU; DevicePrefetchIter staging behind a delayed side stream; a Gluon
 SGD step of a narrow ResNetV2 on the card against its CPU step, the
 hybridized evaluation forward launching the epilogue once per fused site
-and equal to its plain version, and CUDA nd arrays staying on the card.
+and equal to its plain version, and CUDA nd arrays staying on the card;
+the KVStore on CUDA values bit for bit against the host's sums and
+SGD; and, with two cards or more (skipped below), the KVStore over the
+cards, every kernel on every card against its plain version there, and
+a Module over [gpu(0), gpu(1)] against gpu(0) on the whole batch with
+bit-identical replicas.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -753,3 +758,143 @@ def test_nd_ops_on_the_card_stay_on_the_card(cuda):
         assert p.data()._data.device == dev and p.grad()._data.device == dev
     assert all(s._data.device == dev
                for s in tr._updaters[0].states.values())
+
+
+# ---------------------------------------------------------------- several
+def _gpus(torch, n):
+    if torch.cuda.device_count() < n:
+        pytest.skip("needs %d CUDA devices" % n)
+    return n
+
+
+def test_kvstore_on_cuda_values(cuda):
+    """KVStore local and device on CUDA values: a pushed list summed bit
+    for bit as the host adds it in list order, the updater run on the
+    store, and set_optimizer's SGD with momentum bit for bit the same
+    arithmetic on the host."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(0)
+    vals = [rng.randn(64, 33).astype(np.float32) for _ in range(4)]
+    for kind in ("local", "device"):
+        kv = mt.kv.create(kind)
+        kv.init("w", mt.nd.zeros((64, 33), ctx=mt.gpu(0)))
+        kv.push("w", [mt.nd.array(v, ctx=mt.gpu(0)) for v in vals])
+        out = mt.nd.zeros((64, 33), ctx=mt.gpu(0))
+        kv.pull("w", out=out)
+        want = torch.from_numpy(vals[0])
+        for v in vals[1:]:
+            want = want + torch.from_numpy(v)
+        assert torch.equal(out._data.cpu(), want)
+        kv = mt.kv.create(kind)
+        kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.1, momentum=0.9,
+                                          rescale_grad=0.5))
+        w = rng.randn(64, 33).astype(np.float32)
+        kv.init(0, mt.nd.array(w, ctx=mt.gpu(0)))
+        mom = np.zeros_like(w)
+        for v in vals[:2]:
+            kv.push(0, mt.nd.array(v, ctx=mt.gpu(0)))
+            mom = (0.9 * mom - np.float32(0.1) * (np.float32(0.5) * v)) \
+                .astype(np.float32)
+            w = (w + mom).astype(np.float32)
+        kv.pull(0, out=out)
+        np.testing.assert_allclose(out.asnumpy(), w, rtol=0, atol=1e-6)
+
+
+def test_kvstore_over_several_gpus(cuda):
+    """A list pushed from each card is summed on the first, in list
+    order, and pulled into every card's array in place."""
+    torch, _ = cuda
+    n = _gpus(torch, 2)
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(1)
+    vals = [rng.randn(1000).astype(np.float32) for _ in range(n)]
+    kv = mt.kv.create("device")
+    kv.init(3, mt.nd.zeros((1000,), ctx=mt.gpu(0)))
+    kv.push(3, [mt.nd.array(v, ctx=mt.gpu(i)) for i, v in enumerate(vals)])
+    outs = [mt.nd.zeros((1000,), ctx=mt.gpu(i)) for i in range(n)]
+    kv.pull(3, out=outs)
+    want = torch.from_numpy(vals[0])
+    for v in vals[1:]:
+        want = want + torch.from_numpy(v)
+    for i, o in enumerate(outs):
+        assert o._data.device == torch.device("cuda", i)
+        assert torch.equal(o._data.cpu(), want)
+
+
+def test_kernels_on_every_card(cuda):
+    """Each kernel on each card against its plain version on that card:
+    flash forward and backward (f32) and the epilogue (bit for bit)."""
+    torch, att = cuda
+    n = _gpus(torch, 2)
+    from mxtpu_torch.ops import epilogue as epi
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        q, k, v, do = (torch.randn(2, 2, 130, 64, device=dev, generator=g)
+                       for _ in range(4))
+        out, lse = att._flash_forward(q, k, v, True, att._scale(64, None),
+                                      want_lse=True)
+        ref, ref_lse = att.flash_attention_reference(q, k, v, causal=True,
+                                                     return_lse=True)
+        assert out.device == dev and lse.device == dev
+        assert float((out - ref).abs().max()) <= 2e-4
+        assert float((lse - ref_lse).abs().max()) <= 1e-4
+        dq, dk, dv = att.flash_attention_backward(q, k, v, out, do, lse,
+                                                  causal=True)
+        want = att.flash_attention_backward_reference(q, k, v, out, do, lse,
+                                                      causal=True)
+        for got, w in zip((dq, dk, dv), want):
+            assert got.device == dev
+            assert float(((got - w).abs() / w.abs().clamp(min=1)).max()) \
+                <= 1e-4
+        x = torch.randn(4, 16, 9, 9, device=dev, generator=g)
+        s, b = (torch.randn(16, device=dev, generator=g) for _ in range(2))
+        y = epi.bn_apply_relu_add(x, s, b, axis=1)
+        assert y.device == dev
+        assert torch.equal(y, epi.bn_apply_relu_add_reference(x, s, b, None,
+                                                              1))
+
+
+def test_module_over_two_gpus_is_the_whole_batch_step(cuda):
+    """A BatchNorm net through Module.fit over [gpu(0), gpu(1)] (the
+    fused step: BatchNorm over the whole batch, one NCCL sum a step)
+    equals gpu(0) alone on the whole batch within 1e-5, and its replicas
+    are bit-identical."""
+    torch, _ = cuda
+    _gpus(torch, 2)
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(0)
+    x = (rng.randn(32, 3, 8, 8) * 3).astype(np.float32)
+    x[16:] += 5.0
+    y = rng.randint(0, 4, 32).astype(np.float32)
+    s = mt.sym
+    h = s.Convolution(s.Variable("data"), kernel=(3, 3), num_filter=8,
+                      name="c")
+    h = s.Activation(s.BatchNorm(h, name="bn", fix_gamma=False),
+                     act_type="relu")
+    h = s.FullyConnected(h, num_hidden=4, name="fc")
+    net = s.SoftmaxOutput(h, name="softmax")
+    res = []
+    for ctxs in ([mt.gpu(0)], [mt.gpu(0), mt.gpu(1)]):
+        np.random.seed(3)
+        mod = mt.mod.Module(net, context=ctxs)
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=32), num_epoch=3,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mt.init.Xavier(), kvstore="device")
+        assert mod._fused is not None
+        res.append([{k: v.asnumpy() for k, v in d.items()}
+                    for d in mod.get_params()])
+    for a, b in zip(*res):
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+    e0, e1 = mod._exec_group.execs
+    for k, v in e0.arg_dict.items():
+        if k in mod._param_names:
+            assert torch.equal(v._data.cpu(), e1.arg_dict[k]._data.cpu()), k
+    for k, v in e0.aux_dict.items():
+        assert torch.equal(v._data.cpu(), e1.aux_dict[k]._data.cpu()), k

@@ -39,9 +39,10 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
             "from mxtpu_torch import serving, predict, convert, build\n"
             "from mxtpu_torch import (random, initializer, lr_scheduler,\n"
             "                         optimizer, metric, io, callback,\n"
-            "                         model)\n"
-            "from mxtpu_torch.module import Module, FusedTrainStep\n"
-            "from mxtpu_torch.ops import attention, epilogue\n"
+            "                         model, kvstore)\n"
+            "from mxtpu_torch.module import (Module, FusedTrainStep,\n"
+            "                                DataParallelExecutorGroup)\n"
+            "from mxtpu_torch.ops import attention, epilogue, collective\n"
             "from mxtpu_torch import autograd, gluon\n"
             "from mxtpu_torch.gluon.model_zoo import vision\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -99,7 +100,7 @@ def test_module_without_context_raises_without_cuda(mt, no_cuda):
         mt.mod.Module(sym)
     with pytest.raises(mt.MXNetError, match="gpu"):
         mt.mod.Module(sym, context=mt.gpu(0))
-    assert mt.mod.Module(sym, context=mt.cpu())._context == mt.cpu()
+    assert mt.mod.Module(sym, context=mt.cpu())._context == [mt.cpu()]
 
 
 def test_gluon_entry_points_default_to_the_card(mt, no_cuda):

@@ -176,7 +176,7 @@ def test_fused_step_equals_unfused_path(mt):
                 mod.forward_backward(db)
             mod.update()
         mods.append(mod)
-    assert mods[0].get_outputs()[0]._data is mods[0]._exec.outputs[0]._data
+    assert mods[0].get_outputs()[0]._data is mods[0]._exec_group.execs[0].outputs[0]._data
     assert not mods[0]._updater.states
     assert len(mods[1]._updater.states) == len(mods[1]._param_names)
     torch.testing.assert_close(mods[0].get_outputs()[0]._data,
@@ -243,14 +243,14 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     sym = mt.models.get_mlp(4)
     x, y = np.zeros((8, 5), np.float32), np.zeros(8, np.float32)
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
-    for kw in ({"kvstore": "dist_sync"}, {"mesh": "all"},
+    for kw in ({"kvstore": "dist_async"}, {"mesh": "all"},
                {"elastic": "/tmp/x"}, {"resume": True}, {"tuned": "t.json"},
                {"health": True}, {"monitor": object()}):
         with pytest.raises(mt.MXNetError, match="not ported"):
             mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
                     **kw)
-    with pytest.raises(mt.MXNetError, match="data parallelism"):
-        mt.mod.Module(sym, context=[mt.cpu(0), mt.cpu(1)])
+    with pytest.raises(mt.MXNetError, match="named twice"):
+        mt.mod.Module(sym, context=[mt.cpu(0), mt.cpu(0)])
 
 
 def test_metric_sync_cadence_and_callbacks(mt, caplog):
