@@ -128,10 +128,18 @@ weights and moving statistics bit-identical, the evaluation forward's
 the LM at phase 6's widths over 4 cards (B=4 a card, Adam, 4 steps:
 tokens/s, 12 flash forward and 12 backward launches a step on each
 card); ``dist_sync`` with 4 processes, one per card (``--dist-worker``),
-NCCL: ResNet-50 v2 for 4 steps, the ranks' weights bit-identical; and
+NCCL: ResNet-50 v2 for 4 steps, the ranks' weights bit-identical;
 Gluon's resnet50_v2 hybridized over 4 cards (``split_and_load``,
 ``Trainer(kvstore="device")``), 4 steps: step ms and the Trainer's
-push/pull host ms. Its own summary line, then the device line, last.
+push/pull host ms; then the mesh: ResNet-50 v2 through
+``Module(context=gpu(0)).fit(mesh=4)`` (``multi_mesh``: cross-replica
+weight-update sharding, held to the replicated path, the collectives'
+device and host ms, optimizer-state bytes a card), ring and Ulysses
+attention at the LM's widths over 4 cards (``multi_seq``: held to the
+plain attention and its backward in float64, flash launches by card, ms
+against ``FlashAttentionFunction`` on one card) and MoE, a pipeline and ``DataParallelTrainer`` each
+held to one card (``multi_parallel``). Its own summary line, then the
+device line, last.
 """
 from __future__ import annotations
 
@@ -2333,15 +2341,15 @@ class StepClock:
 
 
 def fit_resnet(mt, contexts, x, y, batch, num_epoch, seed, kvstore,
-               on_module=None):
-    """ResNet-50 v2 through Module.fit over ``contexts`` from Xavier
-    weights drawn with the numpy ``seed`` (phase 7's configuration),
-    ``on_module(mod)`` called before the fit: (module, step ms,
-    cross-entropy by step)."""
+               on_module=None, mesh=None):
+    """ResNet-50 v2 through Module.fit over ``contexts`` (with ``mesh``,
+    over the mesh's devices) from Xavier weights drawn with the numpy
+    ``seed`` (phase 7's configuration), ``on_module(mod)`` called before
+    the fit: (module, step ms, cross-entropy by step)."""
     mod = mt.mod.Module(mt.models.get_resnet(**RESNET), context=contexts)
     if on_module is not None:
         on_module(mod)
-    clock = StepClock(len(contexts))
+    clock = StepClock(max(len(contexts), mesh or 1))
     ce = []
 
     def record(param):
@@ -2350,7 +2358,7 @@ def fit_resnet(mt, contexts, x, y, batch, num_epoch, seed, kvstore,
         param.eval_metric.reset()
 
     np.random.seed(seed)
-    for i in range(len(contexts)):
+    for i in range(clock.n):
         torch.cuda.synchronize(i)
     start = time.perf_counter()
     mod.fit(mt.io.NDArrayIter(x, y, batch_size=batch), num_epoch=num_epoch,
@@ -2360,7 +2368,7 @@ def fit_resnet(mt, contexts, x, y, batch, num_epoch, seed, kvstore,
                               "rescale_grad": 1.0 / batch},
             initializer=mt.init.Xavier(rnd_type="gaussian",
                                        factor_type="in", magnitude=2),
-            batch_end_callback=record, metric_sync=1)
+            batch_end_callback=record, metric_sync=1, mesh=mesh)
     return mod, clock.ms(start), ce
 
 
@@ -2572,25 +2580,28 @@ class DeviceTally:
         setattr(self.module, self.name, self.fn)
 
 
-class SumClock:
-    """Times ``module/fused.py`` ``sum_replicas`` (the replicas' gradient
-    sum, one NCCL all-reduce a step): host ms of the call and device ms
-    between CUDA events recorded on each card around it (the largest)."""
+class CollectiveClock:
+    """Times a collective of ``module/fused.py`` (looked up by ``name``
+    there, as the fused step calls it): host ms of each call and device
+    ms between CUDA events recorded on each card's current stream around
+    it (the largest). ``sum_replicas`` is the replicated step's gradient
+    sum; ``reduce_scatter_replicas`` / ``all_gather_replicas`` the
+    sharded step's."""
 
-    def __init__(self, fused):
-        self.fused = fused
-        self.fn = fused.sum_replicas
+    def __init__(self, fused, name="sum_replicas"):
+        self.fused, self.name = fused, name
+        self.fn = getattr(fused, name)
         self.host_ms, self.pending = [], []
-        fused.sum_replicas = self
+        setattr(fused, name, self)
 
-    def __call__(self, buffers):
+    def __call__(self, buffers, *rest):
         devs = [b.device for b in buffers]
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in devs]
         for (s, _), d in zip(ev, devs):
             s.record(torch.cuda.current_stream(d))
         t0 = time.perf_counter()
-        self.fn(buffers)
+        self.fn(buffers, *rest)
         self.host_ms.append((time.perf_counter() - t0) * 1e3)
         for (_, e), d in zip(ev, devs):
             e.record(torch.cuda.current_stream(d))
@@ -2605,7 +2616,7 @@ class SumClock:
         return out
 
     def restore(self):
-        self.fused.sum_replicas = self.fn
+        setattr(self.fused, self.name, self.fn)
 
 
 def host_step_ms(mod, batch, n, n_devices):
@@ -2667,7 +2678,7 @@ def multi_resnet(mt, epi, seed, card, n):
     ctxs = [mt.gpu(i) for i in range(n)]
     for i in range(n):
         torch.cuda.reset_peak_memory_stats(i)
-    clock = SumClock(fused_mod)
+    clock = CollectiveClock(fused_mod)
     try:
         mod, ms, ce = fit_resnet(mt, ctxs, x, y, b, steps * b // len(x),
                                  seed, "device")
@@ -2685,15 +2696,7 @@ def multi_resnet(mt, epi, seed, card, n):
         raise AssertionError("%d-card training did not lower a finite "
                              "cross-entropy: %s" % (n, ce))
     execs = mod._exec_group.execs
-    differ = []
-    for name in mod._param_names:
-        w0 = execs[0].arg_dict[name]._data.cpu()
-        differ += [name for e in execs[1:]
-                   if not torch.equal(e.arg_dict[name]._data.cpu(), w0)]
-    for name in mod._aux_names:
-        a0 = execs[0].aux_dict[name]._data.cpu()
-        differ += [name for e in execs[1:]
-                   if not torch.equal(e.aux_dict[name]._data.cpu(), a0)]
+    differ = replicas_differ(mod)
     log("  replicas bit-identical after %d steps: %s (%d params, %d "
         "statistics)" % (steps, not differ, len(mod._param_names),
                          len(mod._aux_names)))
@@ -2992,6 +2995,558 @@ def multi_dist(seed, card, n):
                 step_ms_mean=mean, ce=rows[0]["ce"])
 
 
+def replicas_differ(mod):
+    """Names of the parameters and statistics whose replicas are not the
+    same bits as the first."""
+    execs = mod._exec_group.execs
+    differ = []
+    for name in mod._param_names:
+        w0 = execs[0].arg_dict[name]._data.cpu()
+        differ += [name for e in execs[1:]
+                   if not torch.equal(e.arg_dict[name]._data.cpu(), w0)]
+    for name in mod._aux_names:
+        a0 = execs[0].aux_dict[name]._data.cpu()
+        differ += [name for e in execs[1:]
+                   if not torch.equal(e.aux_dict[name]._data.cpu(), a0)]
+    return differ
+
+
+class OrderedCollectives:
+    """Inside the block, the fused step's collectives (``sum_replicas``,
+    ``reduce_scatter_replicas``, ``all_gather_replicas`` as
+    ``module/fused.py`` calls them) add the replicas in replica order on
+    the first one's card and copy the result out: every element is
+    summed in the same order on both the replicated and the sharded
+    path, which NCCL's all-reduce and reduce-scatter do not promise (and
+    a last-bit difference grows to ~1e-2 in 4 steps of this training, as
+    a difference from cuDNN's atomics does)."""
+
+    def __init__(self, fused):
+        self.fused = fused
+
+    @staticmethod
+    def _total(bufs):
+        total = bufs[0].clone()
+        for b in bufs[1:]:
+            total += b.to(total.device)
+        return total
+
+    def sum_replicas(self, bufs):
+        total = self._total(bufs)
+        for b in bufs:
+            b.copy_(total)
+
+    def reduce_scatter_replicas(self, ins, outs):
+        rows = self._total(ins).view(len(ins), -1)
+        for r, o in enumerate(outs):
+            o.copy_(rows[r])
+
+    def all_gather_replicas(self, ins, outs):
+        for o in outs:
+            for s, x in enumerate(ins):
+                o.view(len(ins), -1)[s].copy_(x)
+
+    NAMES = ("sum_replicas", "reduce_scatter_replicas",
+             "all_gather_replicas")
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.fused, k) for k in self.NAMES}
+        for k in self.NAMES:
+            setattr(self.fused, k, getattr(self, k))
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.fused, k, fn)
+
+
+class CheckedCollectives:
+    """Holds the first call of each of the fused step's collectives
+    (``reduce_scatter_replicas``, ``all_gather_replicas``,
+    ``sum_replicas`` as ``module/fused.py`` calls them: NCCL on the
+    cards) to the host's arithmetic on the same buffers, computed in
+    float64 on the first card: a sum within n * 2^-24 * sum |x| (+ the
+    smallest normal f32) of the exact sum, elementwise, which bounds
+    n - 1 f32 additions in any order; replica r of a reduce-scatter
+    given the r-th block of the sum; the all-reduce's replicas the same
+    bits; an all-gather's every block the bits of its source. ``worst``
+    is the largest error over its bound, by collective."""
+
+    NAMES = ("reduce_scatter_replicas", "all_gather_replicas",
+             "sum_replicas")
+
+    def __init__(self, fused):
+        self.fused = fused
+        self.saved = {k: getattr(fused, k) for k in self.NAMES}
+        self.worst, self.elements = {}, {}
+        for k in self.NAMES:
+            setattr(fused, k, self._wrap(k))
+
+    def _wrap(self, name):
+        def call(*args):
+            if name in self.worst:
+                return self.saved[name](*args)
+            ins, outs = args[0], args[-1]
+            if name != "all_gather_replicas":
+                dev0 = ins[0].device
+                exact = sum(b.double().to(dev0) for b in ins)
+                bound = sum(b.double().abs().to(dev0) for b in ins) * (
+                    len(ins) * 2.0 ** -24) + torch.finfo(torch.float32).tiny
+            self.saved[name](*args)
+            n = len(ins)
+            if name == "all_gather_replicas":
+                same = all(torch.equal(o.view(n, -1)[s_], x.to(o.device))
+                           for o in outs for s_, x in enumerate(ins))
+                worst = 0.0 if same else float("inf")
+            else:
+                blocks = [exact.view(n, -1)[r] if outs is not ins else exact
+                          for r in range(n)]
+                bounds = [bound.view(n, -1)[r] if outs is not ins else bound
+                          for r in range(n)]
+                worst = max(float(((o.double().to(exact.device) - w).abs()
+                                   / b).max())
+                            for o, w, b in zip(outs, blocks, bounds))
+                if outs is ins and not all(torch.equal(o.to(dev0), outs[0])
+                                           for o in outs[1:]):
+                    worst = float("inf")
+            self.worst[name] = worst
+            self.elements[name] = sum(o.numel() for o in outs)
+        return call
+
+    def restore(self):
+        for k, fn in self.saved.items():
+            setattr(self.fused, k, fn)
+
+
+def multi_mesh(mt, epi, seed, card, n, replicated=None):
+    """ResNet-50 v2 through ``Module(context=gpu(0)).fit(mesh=n)``: the
+    fused step over the mesh's n cards with cross-replica weight-update
+    sharding (one reduce-scatter of the gradients, each card's SGD on its
+    1/n of the sharded parameters' rows, one all-gather), B=256, 8 steps.
+    Gates: the plan armed; after 4 steps with cuDNN deterministic and the
+    collectives summing in replica order (``OrderedCollectives``), the
+    weights and statistics within 1e-4 (of max(1, |w|)) of the replicated
+    fused path over [gpu(0..n-1)] from the same weights and batches; then,
+    on NCCL, the first step's reduce-scatter, all-gather and all-reduce
+    held to the host's arithmetic (``CheckedCollectives``), one
+    reduce-scatter and one all-gather a step; the replicas
+    bit-identical; each card's optimizer-state bytes at most total/n plus
+    the replicated states; the evaluation forward's 50 epilogue launches
+    on each card."""
+    from mxtpu_torch.module import fused as fused_mod
+    from mxtpu_torch.ops import nn as nn_ops
+    b, steps = MULTI["batch"], MULTI["steps"]
+    x, y = resnet_train_data(seed)
+    with DeterministicCudnn(), OrderedCollectives(fused_mod):
+        rep, _, _ = fit_resnet(mt, [mt.gpu(i) for i in range(n)], x[:2 * b],
+                               y[:2 * b], b, DP_STEPS * b // (2 * b), seed,
+                               "device")
+        want = rep.get_params()
+        del rep
+        torch.cuda.empty_cache()
+        msh, _, _ = fit_resnet(mt, [mt.gpu(0)], x[:2 * b], y[:2 * b], b,
+                               DP_STEPS * b // (2 * b), seed, "local",
+                               mesh=n)
+        got = msh.get_params()
+        del msh
+        torch.cuda.empty_cache()
+    dw, da = scaled_dist(got[0], want[0]), scaled_dist(got[1], want[1])
+    same = all(torch.equal(g[k]._data, w[k]._data)
+               for g, w in zip(got, want) for k in w)
+    log("  with cuDNN deterministic and the collectives in replica order, "
+        "after %d steps: fit(mesh=%d) vs the replicated fused path over %d "
+        "cards: weights %.3e, moving statistics %.3e (max |a - b| / max(1, "
+        "|b|)); bit-identical %s" % (DP_STEPS, n, n, dw, da, same))
+    if not (dw <= 1e-4 and da <= 1e-4):
+        raise AssertionError("fit(mesh=%d) is %.3e / %.3e from the "
+                             "replicated path (gate 1e-4)" % (n, dw, da))
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+    clocks = [CollectiveClock(fused_mod, k) for k in (
+        "reduce_scatter_replicas", "all_gather_replicas", "sum_replicas")]
+    checked = CheckedCollectives(fused_mod)
+    try:
+        mod, ms, ce = fit_resnet(mt, [mt.gpu(0)], x, y, b,
+                                 steps * b // len(x), seed, "local",
+                                 mesh=n)
+        coll = {c.name: dict(device_ms=c.device_ms(), host_ms=c.host_ms)
+                for c in clocks}
+    finally:
+        checked.restore()
+        for c in clocks:
+            c.restore()
+    log("  the first step's collectives on NCCL against the host's "
+        "arithmetic, largest error over its bound (elements): %s"
+        % {k: "%.3f (%d)" % (v, checked.elements[k])
+           for k, v in checked.worst.items()})
+    if sorted(checked.worst) != sorted(CheckedCollectives.NAMES) or \
+            max(checked.worst.values()) > 1.0:
+        raise AssertionError("the sharded step's collectives on NCCL: "
+                             "error over bound %s" % checked.worst)
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+    fused = mod._fused
+    if fused is None or fused._plan is None:
+        raise AssertionError("fit(mesh=%d) did not arm the sharded step" % n)
+    log("  cross-entropy by step: %s" % [round(v, 4) for v in ce])
+    if len(ce) != steps or not np.all(np.isfinite(ce)) or \
+            not ce[-1] < ce[0]:
+        raise AssertionError("fit(mesh=%d) did not lower a finite "
+                             "cross-entropy: %s" % (n, ce))
+    calls = {k: len(v["host_ms"]) for k, v in coll.items()}
+    if calls["reduce_scatter_replicas"] != steps or \
+            calls["all_gather_replicas"] != steps:
+        raise AssertionError("collective calls over %d steps: %s"
+                             % (steps, calls))
+    differ = replicas_differ(mod)
+    sharded = set(fused.sharded_names)
+    per_card = fused.opt_state_bytes()
+    block = {k: sum(t.numel() * t.element_size() for t in
+                    (s if isinstance(s, tuple) else (s,)) if t is not None)
+             for k, s in fused.opt_state[0].items()}
+    total = sum(v * (n if k in sharded else 1) for k, v in block.items())
+    repl = sum(v for k, v in block.items() if k not in sharded)
+    log("  replicas bit-identical after %d steps: %s; %d of %d parameters "
+        "updated by rows; optimizer-state bytes by card %s (total %d, "
+        "replicated %d, bound total/%d + replicated = %d)"
+        % (steps, not differ, len(sharded), len(fused.trainable), per_card,
+           total, repl, n, total // n + repl))
+    if differ:
+        raise AssertionError("replicas differ in %s" % differ[:5])
+    if len(per_card) != n or max(per_card) > total // n + repl:
+        raise AssertionError("optimizer-state bytes by card %s exceed "
+                             "total/%d + replicated" % (per_card, n))
+    batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
+                            [mt.nd.array(y[:b], ctx=mt.cpu())])
+    # the host's split of a step, mesh and replicated in turns (the host
+    # is what bounds both, and it drifts within a call)
+    rep_mod, _, _ = fit_resnet(mt, [mt.gpu(i) for i in range(n)], x[:b],
+                               y[:b], b, 1, seed, "device")
+    turns = {"mesh": [], "replicated": []}
+    for i in range(4):
+        pair = [("mesh", mod), ("replicated", rep_mod)]
+        for name, m in (pair if i % 2 == 0 else pair[::-1]):
+            turns[name].append(host_step_ms(m, batch, 2, n))
+    del rep_mod
+    split, rep_split = ({k: [v for t in turns[name] for v in t[k]]
+                         for k in turns[name][0]}
+                        for name in ("mesh", "replicated"))
+    execs = mod._exec_group.execs
+    tally = DeviceTally(nn_ops, "bn_apply_relu_add")
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    try:
+        gate = eval_forward_gate(epi, forward, lambda: sum(
+            e.fused_sites for e in execs), "fit(mesh=%d) evaluation "
+            "forward" % n, expect=RESNET_SITES * n)
+    finally:
+        tally.restore()
+    per_dev = dict(tally.by_device)
+    log("  epilogue launches of one evaluation forward by device: %s"
+        % per_dev)
+    if sorted(per_dev.values()) != [RESNET_SITES] * n:
+        raise AssertionError("epilogue launches by device %s, want %d each"
+                             % (per_dev, RESNET_SITES))
+    del mod
+    torch.cuda.empty_cache()
+    inner = float(np.mean([v for i, v in enumerate(ms) if i % 2 and i > 1]))
+    row = dict(cards=n, batch=b, steps=steps, ce=ce, step_ms=ms,
+               step_ms_within_epoch=inner,
+               images_per_s_per_chip=b / (inner / 1e3) / n,
+               det_weights_dist=dw, det_stats_dist=da, det_bit_identical=same,
+               nccl_error_over_bound=checked.worst,
+               collectives=coll, host_split_ms=split,
+               replicated_host_split_ms=rep_split,
+               opt_state_bytes_by_card=per_card, opt_state_bytes_total=total,
+               opt_state_bytes_replicated=repl, sharded_params=len(sharded),
+               max_memory_allocated=[int(p) for p in peaks],
+               eval_launches_by_device=per_dev, **gate)
+    rep = replicated or {}
+    med = {k: (float(np.median(v["device_ms"])) if v["device_ms"] else None,
+               float(np.median(v["host_ms"])) if v["host_ms"] else None)
+           for k, v in coll.items()}
+    log("  [%s] ResNet-50 v2, fit(mesh=%d) from gpu(0), B=%d: step ms %s; "
+        "inside an epoch %.2f ms, %.1f images/s per chip (the replicated "
+        "path over %d cards in this run: %s ms, %s images/s per chip)"
+        % (card, n, b, [round(v, 1) for v in ms], inner,
+           row["images_per_s_per_chip"], n,
+           "%.2f" % rep["step_ms_within_epoch"] if rep else "not run",
+           "%.1f" % rep["images_per_s_per_chip"] if rep else "not run"))
+    log("  a step on the host clock, each part until its call returns, "
+        "mesh and replicated in turns (8 steps each): mesh %s; replicated "
+        "%s; medians mesh / replicated: step %.1f / %.1f, update %.1f / "
+        "%.1f" % (
+            {k: [round(v, 1) for v in vs] for k, vs in split.items()},
+            {k: [round(v, 1) for v in vs] for k, vs in rep_split.items()},
+            np.median(split["step"]), np.median(rep_split["step"]),
+            np.median(split["update"]), np.median(rep_split["update"])))
+    log("  collectives a step, median (device ms, host ms): %s; the "
+        "replicated all-reduce %s; peak memory by card %s GB (replicated "
+        "%s GB)" % (
+            {k: tuple(round(v, 3) if v is not None else None for v in p)
+             for k, p in med.items()},
+            (round(float(np.median(rep["sum_device_ms"])), 3),
+             round(float(np.median(rep["sum_host_ms"])), 3)) if rep
+            else "not run",
+            [round(p / 1e9, 2) for p in peaks],
+            [round(p / 1e9, 2) for p in rep.get("max_memory_allocated", [])]
+            or "not run"))
+    return row
+
+
+def host_ms(fn, n_devices, iters=5, warmup=2):
+    """Median host-clock ms of ``fn()`` from a sync of every card to a
+    sync of every card."""
+    out = []
+    for i in range(warmup + iters):
+        for d in range(n_devices):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        fn()
+        for d in range(n_devices):
+            torch.cuda.synchronize(d)
+        if i >= warmup:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def multi_seq(mt, att, seed, card, n):
+    """Ring and Ulysses attention over a ('seq',) mesh of n cards at the
+    LM's widths (H=12, D=64, B=1, causal), T=4096 and 16384, f32 and
+    bf16, forward and backward through autograd. Each is held to the
+    exact function of its inputs: the plain attention and its plain
+    backward (``flash_attention_reference`` /
+    ``flash_attention_backward_reference``) in float64 on gpu(0), on the
+    inputs as given (bf16 values widened). f32: output within 2e-5,
+    gradients within 2e-4 of max(1, |exact|) (the one-card kernel reads
+    1.48e-4 at T=16384 on an H100; its gate of 1e-4 was set at T <=
+    2048). bf16: output and gradients within 2e-2 of the largest exact
+    value. ``FlashAttentionFunction`` on gpu(0) over the whole sequence
+    is held to the same limits, and the distance from it is printed.
+    Flash launches by card: the ring r+1 forward and r+1 backward on
+    rank r, Ulysses one of each. Prints the ms of each beside the
+    one-card run."""
+    mesh = mt.parallel.make_mesh((n,), ("seq",),
+                                 devices=[mt.gpu(i) for i in range(n)])
+    dev0 = mt.gpu(0).torch_device
+    gen = torch.Generator(device=dev0).manual_seed(seed)
+    h, d = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    limits = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 2e-2)}
+    rows = []
+    for t in (4096, 16384):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(1, t, h, d, device=dev0,
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            scale = att._scale(d, None)
+            q64, k64, v64, do64 = (a.transpose(1, 2).double().contiguous()
+                                   for a in (q, k, v, do))
+            o64, lse64 = att.flash_attention_reference(
+                q64, k64, v64, causal=True, sm_scale=scale, return_lse=True)
+            exact_g = [g.transpose(1, 2) for g in
+                       att.flash_attention_backward_reference(
+                           q64, k64, v64, o64, do64, lse64, causal=True,
+                           sm_scale=scale)]
+            exact = o64.transpose(1, 2)
+            del q64, k64, v64, do64, lse64
+
+            def errors(out, grads):
+                """(output, gradient) distance from the exact values:
+                f32 absolute and gradients scaled by max(1, |exact|);
+                bf16 scaled by the largest exact value."""
+                if dtype == torch.float32:
+                    return abs_err(out, exact), max(
+                        rel_err(g, w) for g, w in zip(grads, exact_g))
+                return (abs_err(out, exact) / float(exact.abs().max()),
+                        max(abs_err(g, w) / float(w.abs().max())
+                            for g, w in zip(grads, exact_g)))
+
+            def one(grad=True):
+                xs = [a.transpose(1, 2).contiguous().requires_grad_(grad)
+                      for a in (q, k, v)]
+                out = att.FlashAttentionFunction.apply(*xs, True, scale)
+                if not grad:
+                    return out.transpose(1, 2), None
+                gs = torch.autograd.grad(out, xs,
+                                         do.transpose(1, 2).contiguous())
+                return out.detach().transpose(1, 2), \
+                    [g.transpose(1, 2) for g in gs]
+            ref, ref_g = one()
+            one_errs = errors(ref, ref_g)
+            one_fwd = host_ms(lambda: one(False), 1)
+            one_all = host_ms(one, 1)
+            lim = limits[dtype]
+            if not (one_errs[0] <= lim[0] and one_errs[1] <= lim[1]):
+                raise AssertionError(
+                    "FlashAttentionFunction T=%d %s: %.3e / %.3e from the "
+                    "exact values (limits %g / %g)" % (
+                        t, dtype, one_errs[0], one_errs[1], *lim))
+            for name, fn in (("ring", mt.parallel.ring_attention),
+                             ("ulysses", mt.parallel.ulysses_attention)):
+                def run(grad=True):
+                    xs = [a.detach().requires_grad_(grad) for a in (q, k, v)]
+                    out = fn(*xs, mesh=mesh, causal=True)
+                    if not grad:
+                        return out, None
+                    return out, torch.autograd.grad(out, xs, do)
+                fwd = DeviceTally(att, "_launch")
+                bwd = DeviceTally(att, "_launch_bwd")
+                att.flash_attention.launches = 0  # count this path alone
+                att.flash_attention_backward.launches = 0
+                try:
+                    out, grads = run()
+                    for i in range(n):
+                        torch.cuda.synchronize(i)
+                finally:
+                    fwd.restore()
+                    bwd.restore()
+                counted = (att.flash_attention.launches,
+                           att.flash_attention_backward.launches)
+                launches = {"cuda:%d" % i: (fwd.by_device.get("cuda:%d" % i,
+                                                              0),
+                                            bwd.by_device.get("cuda:%d" % i,
+                                                              0))
+                            for i in range(n)}
+                want = {"cuda:%d" % r: (r + 1, r + 1) if name == "ring"
+                        else (1, 1) for r in range(n)}
+                fwd_err, grad_err = errors(out, grads)
+                vs_one = (abs_err(out, ref), max(
+                    rel_err(g, w) for g, w in zip(grads, ref_g)))
+                ok = fwd_err <= lim[0] and grad_err <= lim[1]
+                row = dict(path=name, T=t, dtype=str(dtype).split(".")[-1],
+                           fwd_err=fwd_err, grad_err=grad_err, limits=lim,
+                           fwd_err_one_card=one_errs[0],
+                           grad_err_one_card=one_errs[1],
+                           fwd_err_vs_one_card=vs_one[0],
+                           grad_err_vs_one_card=vs_one[1],
+                           launches_by_device=launches, launches=counted,
+                           fwd_ms=host_ms(lambda: run(False), n),
+                           fwd_bwd_ms=host_ms(run, n),
+                           one_card_fwd_ms=one_fwd,
+                           one_card_fwd_bwd_ms=one_all)
+                rows.append(row)
+                log("  [%s] %s T=%d (%d a card) %s: from the exact values "
+                    "fwd %.2e, grad %.2e (limits %g / %g; the one-card "
+                    "kernel's %.2e / %.2e; from the one-card kernel %.2e / "
+                    "%.2e); flash launches (fwd, bwd) by card %s; ms fwd "
+                    "%.3f, fwd+bwd %.3f; one card over T: fwd %.3f, "
+                    "fwd+bwd %.3f" % (
+                        card, name, t, t // n, row["dtype"], fwd_err,
+                        grad_err, lim[0], lim[1], one_errs[0], one_errs[1],
+                        vs_one[0], vs_one[1], launches, row["fwd_ms"],
+                        row["fwd_bwd_ms"], one_fwd, one_all))
+                if counted != tuple(sum(v[i] for v in launches.values())
+                                    for i in range(2)):
+                    raise AssertionError("%s: the wrappers counted %s, the "
+                                         "launchers ran %s" % (
+                                             name, counted, launches))
+                if not ok or launches != want:
+                    raise AssertionError(
+                        "%s T=%d %s: errors %.3e / %.3e (limits %g / %g), "
+                        "launches %s (want %s)" % (
+                            name, t, row["dtype"], fwd_err, grad_err,
+                            lim[0], lim[1], launches, want))
+            del q, k, v, do, ref, ref_g, exact, exact_g, o64
+            torch.cuda.empty_cache()
+    return rows
+
+
+def multi_parallel(mt, seed, card, n):
+    """The other mesh functions on n cards, each held to the same
+    function on one card: ``moe_apply_topk`` (top-2, 8 experts over the
+    cards, output and gradients against the dense top-2 on gpu(0)),
+    ``pipeline_apply`` (4 stages, output and gradients against the
+    serial chain on gpu(0)) and ``DataParallelTrainer(shard_update=True)``
+    (3 SGD steps against the trainer on gpu(0) alone from the same
+    weights): rtol 1e-4 / atol 1e-5 (the trainer 2e-4 / 2e-5, mxtpu's
+    test tolerance)."""
+    dev0 = mt.gpu(0).torch_device
+    rng = np.random.RandomState(seed)
+    gpus = [mt.gpu(i) for i in range(n)]
+    out = {}
+
+    def close(a, b, rtol, atol):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float(((a - b).abs() - rtol * b.abs()).max()) <= atol
+
+    def t(a, grad=False):
+        return torch.tensor(a, device=dev0, requires_grad=grad)
+    # moe
+    tokens, dm, ne, k = 64, 32, 8, 2
+    W = t(rng.randn(ne, dm, dm).astype("f4") * 0.3, True)
+    gate = t(rng.randn(tokens, ne).astype("f4"), True)
+    x = t(rng.randn(tokens, dm).astype("f4"), True)
+    probe = t(rng.randn(tokens, dm).astype("f4"))
+    mesh = mt.parallel.make_mesh((n,), ("expert",), devices=gpus)
+    got, aux = mt.parallel.moe_apply_topk(
+        lambda p, tk: torch.tanh(torch.einsum("ecd,edf->ecf", tk, p["w"])),
+        {"w": W}, gate, x, k=k, mesh=mesh, capacity_factor=8.0)
+    g_got = torch.autograd.grad((got * probe).sum() + 0.01 * aux,
+                                (W, gate, x))
+    probs = gate.softmax(-1)
+    topv, topi = probs.topk(k)
+    wts = topv / topv.sum(-1, keepdim=True)
+    dense = sum(wts[:, j:j + 1] * torch.tanh(torch.einsum(
+        "td,tdf->tf", x, W[topi[:, j]])) for j in range(k))
+    aux_d = mt.parallel.load_balancing_loss(
+        gate, torch.nn.functional.one_hot(topi[:, 0], ne))
+    g_want = torch.autograd.grad((dense * probe).sum() + 0.01 * aux_d,
+                                 (W, gate, x))
+    out["moe_topk"] = ok = close(got, dense, 1e-4, 1e-5) and all(
+        close(a, b, 1e-4, 1e-5) for a, b in zip(g_got, g_want))
+    # pipeline
+    Ws = t(rng.randn(n, dm, dm).astype("f4") * 0.3, True)
+    xp = t(rng.randn(32, dm).astype("f4"), True)
+    pmesh = mt.parallel.make_mesh((n,), ("pipe",), devices=gpus)
+    got = mt.parallel.pipeline_apply(lambda p, a: torch.tanh(a @ p["w"]),
+                                     {"w": Ws}, xp, mesh=pmesh,
+                                     num_microbatches=4)
+    g_got = torch.autograd.grad((got * probe[:32]).sum(), (Ws, xp))
+    h = xp
+    for s in range(n):
+        h = torch.tanh(h @ Ws[s])
+    g_want = torch.autograd.grad((h * probe[:32]).sum(), (Ws, xp))
+    out["pipeline"] = close(got, h, 1e-4, 1e-5) and all(
+        close(a, b, 1e-4, 1e-5) for a, b in zip(g_got, g_want))
+    # DataParallelTrainer(shard_update=True) vs one card
+    s = mt.sym
+    hh = s.FullyConnected(s.Variable("data"), num_hidden=512, name="fc1")
+    hh = s.FullyConnected(s.Activation(hh, act_type="relu"), num_hidden=4,
+                          name="fc2")
+    net = s.SoftmaxOutput(hh, name="softmax")
+    X = rng.randn(64, 16).astype("f4")
+    Y = rng.randint(0, 4, 64).astype("f4")
+    params = {"learning_rate": 0.1, "momentum": 0.9,
+              "rescale_grad": 1.0 / 64}
+    trs, w0 = [], None
+    for devs in (gpus, [mt.gpu(0)]):
+        tr = mt.parallel.DataParallelTrainer(
+            net, mesh=mt.parallel.make_mesh((len(devs),), devices=devs),
+            optimizer_params=params, shard_update=True)
+        tr.init({"data": (64, 16), "softmax_label": (64,)})
+        if w0 is None:
+            w0 = {k: v.clone() for k, v in tr.params.items()}
+        else:
+            tr._module.set_params({k: mt.nd.NDArray(v, mt.gpu(0))
+                                   for k, v in w0.items()}, {})
+        for _ in range(3):
+            tr.step({"data": X, "softmax_label": Y})
+        trs.append(tr)
+    sharded = trs[0].fused.sharded_names
+    out["dp_trainer"] = sharded == ["fc1_weight"] and all(
+        close(trs[0].params[k], trs[1].params[k], 2e-4, 2e-5)
+        for k in trs[1].params) and not replicas_differ(trs[0]._module)
+    log("  [%s] over %d cards vs one card: %s (DataParallelTrainer updated "
+        "%s by rows)" % (card, n, out, sharded))
+    if not all(out.values()):
+        raise AssertionError("mesh functions on %d cards disagree with one "
+                             "card: %s" % (n, out))
+    del trs
+    torch.cuda.empty_cache()
+    return out
+
+
 def multi_gpu(args, card):
     """``--multi-gpu``: the data-parallel paths over 4 cards (see the
     module docstring). Raises below 4 devices."""
@@ -3019,12 +3574,18 @@ def multi_gpu(args, card):
                                 for i in range(1, n)}
     log("[multi_gpu resnet]")
     res["resnet"] = multi_resnet(mt, epi, args.seed, card, n)
+    log("[multi_gpu mesh]")
+    res["mesh"] = multi_mesh(mt, epi, args.seed, card, n, res["resnet"])
     log("[multi_gpu lm]")
     res["lm"] = multi_lm(mt, att, args.seed, card, n)
     log("[multi_gpu dist_sync]")
     res["dist_sync"] = multi_dist(args.seed, card, n)
     log("[multi_gpu gluon]")
     res["gluon"] = multi_gluon(mt, args.seed, card, n)
+    log("[multi_gpu seq]")
+    res["seq"] = multi_seq(mt, att, args.seed, card, n)
+    log("[multi_gpu parallel]")
+    res["parallel"] = multi_parallel(mt, args.seed, card, n)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3039,7 +3600,11 @@ def multi_gpu(args, card):
         "grad_sum_device_ms": float(np.median(r["sum_device_ms"])),
         "lm_tokens_per_s": res["lm"]["tokens_per_s"],
         "dist_sync_step_ms": res["dist_sync"]["step_ms_mean"],
-        "gluon_step_ms": res["gluon"]["step_ms_mean"]}}))
+        "gluon_step_ms": res["gluon"]["step_ms_mean"],
+        "mesh_step_ms": res["mesh"]["step_ms_within_epoch"],
+        "mesh_images_per_s_per_chip": res["mesh"]["images_per_s_per_chip"],
+        "ring_fwd_bwd_ms": {"%s/%d/%s" % (r["path"], r["T"], r["dtype"]):
+                            r["fwd_bwd_ms"] for r in res["seq"]}}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

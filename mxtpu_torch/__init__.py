@@ -21,7 +21,11 @@ executor's walk, Trainer, losses, DataLoader, the ResNet zoo); data
 parallelism: ``kvstore`` (local/device and dist_sync over
 ``torch.distributed``), Module over a context list (one executor per
 context, BatchNorm over the whole batch on the fused step) and Gluon's
-Parameter and Trainer over several contexts.
+Parameter and Trainer over several contexts; the mesh: ``sharding``
+(``MeshContext``, ``ShardingPlan``; ``Module.fit(mesh=...)`` with
+cross-replica weight-update sharding) and ``parallel`` (ring and Ulysses
+attention on the flash kernels, mixture of experts, pipelines,
+``DataParallelTrainer``).
 """
 from . import base
 from .base import MXNetError
@@ -54,10 +58,12 @@ from . import callback
 from . import module
 from . import module as mod
 from . import gluon
+from . import sharding
+from . import parallel
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
            "metric", "io", "kvstore", "kv", "model", "callback", "module", "mod",
-           "autograd", "gluon"]
+           "autograd", "gluon", "sharding", "parallel"]

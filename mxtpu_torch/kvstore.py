@@ -20,6 +20,13 @@ Counterpart of ``mxtpu/kvstore.py`` (``KVStore`` :69, ``init`` :200,
   ``jax.process_count() == 1``.
 - ``dist_async`` (mxtpu's TCP parameter server) and ``row_sparse_pull``
   (no sparse NDArray yet) raise.
+- The mesh veneer (mxtpu's :211-290): with a 1-D data mesh active
+  (``sharding.current()``), a ``local``/``device`` push of one value per
+  mesh device is one all-reduce over the mesh (``sum_replicas``: NCCL
+  on CUDA), counted in ``mesh_allreduces``; without an updater each
+  device keeps its copy of the sum and ``pull`` hands each ``out`` the
+  copy on its own device. A value list that does not cover the mesh's
+  devices, a multi-axis mesh or a ``dist`` store takes the path above.
 
 The optimizer runs on each worker after the all-reduce, mxtpu's
 "sync server" semantics; there is no server process.
@@ -32,7 +39,9 @@ import pickle
 import torch
 
 from . import optimizer as opt
+from . import sharding as _sharding
 from .base import MXNetError
+from .ops.collective import sum_replicas
 from .ndarray import NDArray
 
 __all__ = ["KVStore", "create"]
@@ -80,6 +89,9 @@ class KVStore:
         self._updater = None
         self._optimizer = None
         self._dist = _process_group() if kind.startswith("dist") else None
+        # key -> {context: its copy of the last mesh all-reduce}
+        self._replicas = {}
+        self.mesh_allreduces = 0
 
     # ------------------------------------------------ identity
     @property
@@ -117,6 +129,29 @@ class KVStore:
             acc = acc + _raw(x).detach().to(dev)
         return NDArray(acc, vlist[0].context)
 
+    def _mesh_align(self, vlist):
+        """``vlist`` in mesh order when it holds one value on each device
+        of an active 1-D data mesh (and the store is not ``dist``); else
+        None."""
+        if self._dist is not None or len(vlist) < 2:
+            return None
+        mctx = _sharding.current()
+        if mctx is None or mctx.mesh.axis_names != (mctx.layout.data_axis,):
+            return None
+        devices = mctx.devices
+        by_ctx = {getattr(v, "context", None): v for v in vlist}
+        if len(vlist) != len(devices) or set(by_ctx) != set(devices):
+            return None
+        return [by_ctx[c] for c in devices]
+
+    def _mesh_merge(self, ordered):
+        """One all-reduce of ``ordered`` (copies; the callers' arrays stay
+        as they were): each device's copy of the sum, in mesh order."""
+        sums = [_raw(v).detach().clone() for v in ordered]
+        sum_replicas(sums)
+        self.mesh_allreduces += 1
+        return [NDArray(t, v.context) for t, v in zip(sums, ordered)]
+
     def push(self, key, value, priority=0):
         """Sum the pushed values of each key (over the list, then over
         the workers); run the updater on the stored value, or store the
@@ -125,6 +160,17 @@ class KVStore:
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
             vlist = v if isinstance(v, list) else [v]
+            self._replicas.pop(k, None)
+            ordered = self._mesh_align(vlist)
+            if ordered is not None:
+                sums = self._mesh_merge(ordered)
+                stored = self._store.get(k)
+                mine = next((x for x in sums if stored is not None
+                             and x.context == stored.context), sums[0])
+                self._apply_push(k, mine)
+                if self._updater is None:
+                    self._replicas[k] = {x.context: x._data for x in sums}
+                continue
             merged = self._local_merge(vlist)
             if self._dist is not None:
                 t = _raw(merged).detach()
@@ -159,8 +205,9 @@ class KVStore:
                     raise MXNetError("pull: key %r was never initialized"
                                      % (k,))
                 src = self._store[k]._data
+                copies = self._replicas.get(k, {})
                 for dst in (o if isinstance(o, list) else [o]):
-                    dst._data.copy_(src)
+                    dst._data.copy_(copies.get(dst.context, src))
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         raise MXNetError("row_sparse_pull needs the sparse NDArray, not "

@@ -10,8 +10,13 @@ steps queued on the device ahead of the host. ``device_prefetch`` stages
 each next batch on the first context's device from a producer thread
 (``io.DevicePrefetchIter``), as mxtpu's does; the executor group copies
 each context's rows to its device. ``kvstore`` is what
-``Module.init_optimizer`` takes: a name or a ``KVStore``. The knobs of
-mxtpu's fit that the port does not have yet (``mesh``, ``elastic``,
+``Module.init_optimizer`` takes: a name or a ``KVStore``. ``mesh``
+(mxtpu/module/base_module.py:139-150, 256-281) trains data-parallel over
+a device mesh with cross-replica weight-update sharding: it goes through
+``sharding.resolve`` and stays active (``sharding.use``) for the whole
+fit, where ``Module._arm_fused`` finds it; ``None`` defers to
+``MXTPU_MESH`` and ``False`` turns the mesh off even with it set. The
+knobs of mxtpu's fit that the port does not have yet (``elastic``,
 ``resume``, ``tuned``, ``health``, ``monitor``) raise MXNetError when
 set, rather than being ignored.
 """
@@ -30,6 +35,7 @@ from .. import io as _io
 from .. import metric as _metric
 from .. import model as _model
 from .. import ndarray as nd
+from .. import sharding as _sharding
 from ..base import MXNetError
 from ..initializer import Uniform
 
@@ -52,7 +58,7 @@ def _as_list(obj):
     return list(obj) if isinstance(obj, (list, tuple)) else [obj]
 
 
-_UNPORTED_FIT = ("mesh", "elastic", "resume", "tuned", "health", "monitor")
+_UNPORTED_FIT = ("elastic", "resume", "tuned", "health", "monitor")
 
 
 def refuse_unported(**knobs):
@@ -164,9 +170,28 @@ class BaseModule:
         the device (metrics without a device kernel stay on the numpy
         path). ``device_prefetch``: wrap ``train_data`` (unless it is one
         already) in a ``DevicePrefetchIter`` onto the module's context,
-        closed when fit ends (mxtpu/module/base_module.py:242-256)."""
-        refuse_unported(mesh=mesh, elastic=elastic, resume=resume,
-                        tuned=tuned, health=health, monitor=monitor)
+        closed when fit ends (mxtpu/module/base_module.py:242-256).
+        ``mesh``: anything ``sharding.resolve`` takes (an int, ``"all"``,
+        ``"data:4"``, a ``Mesh`` or ``MeshContext``; ``None`` reads
+        ``MXTPU_MESH``, ``False`` disables), active for the whole fit."""
+        refuse_unported(elastic=elastic, resume=resume, tuned=tuned,
+                        health=health, monitor=monitor)
+        with _sharding.use(_sharding.resolve(mesh)):
+            self._fit(train_data, eval_data, eval_metric,
+                      epoch_end_callback, batch_end_callback, kvstore,
+                      optimizer, optimizer_params, eval_end_callback,
+                      eval_batch_end_callback, initializer, arg_params,
+                      aux_params, allow_missing, force_rebind, force_init,
+                      begin_epoch, num_epoch, validation_metric,
+                      max_in_flight, metric_sync, device_metrics,
+                      device_prefetch)
+
+    def _fit(self, train_data, eval_data, eval_metric, epoch_end_callback,
+             batch_end_callback, kvstore, optimizer, optimizer_params,
+             eval_end_callback, eval_batch_end_callback, initializer,
+             arg_params, aux_params, allow_missing, force_rebind,
+             force_init, begin_epoch, num_epoch, validation_metric,
+             max_in_flight, metric_sync, device_metrics, device_prefetch):
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
         initializer = initializer or Uniform(0.01)

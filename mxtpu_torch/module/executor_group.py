@@ -16,7 +16,9 @@ whole batch, as mxtpu's multi-context fused step computes them; without
 it each context is on its own, as mxtpu's executor group is. Each
 executor's parameter gradients are views into one flat buffer per dtype
 (``flat_grads``), so a step sums each replica's gradients with one
-collective.
+collective. The parameters of ``flat_tail`` go at the end of their buffer:
+under a sharding plan the replicated gradients then lie in one leading
+segment, summed in place, and the sharded ones after it.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ def _split_input_slice(batch_size, work_load_list):
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 fixed_param_names=None, grad_req="write", flat_tail=()):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(workload or [1] * len(self.contexts))
@@ -64,6 +66,7 @@ class DataParallelExecutorGroup:
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self._grad_req = grad_req
+        self.flat_tail = frozenset(flat_tail)
         self._coupled = False
         self.execs, self.flat_grads = [], []
         self.bind_exec(data_shapes, label_shapes)
@@ -129,9 +132,11 @@ class DataParallelExecutorGroup:
                     grads[name] = old.grad_dict[name]
             else:
                 args[name] = NDArray(torch.zeros(shape, device=dev), ctx)
-        # the parameters' gradients: views into one flat buffer per dtype
-        need = [n for n in self.param_names
-                if reqs[n] != "null" and n not in grads]
+        # the parameters' gradients: views into one flat buffer per dtype,
+        # those of flat_tail last
+        need = sorted((n for n in self.param_names
+                       if reqs[n] != "null" and n not in grads),
+                      key=lambda n: n in self.flat_tail)
         flats = {}
         by_dtype = {}
         for n in need:
@@ -178,14 +183,17 @@ class DataParallelExecutorGroup:
                     for arr in blocks[name]:
                         arr._data.copy_(src.reshape(arr.shape))
 
-    def get_params(self):
+    def get_params(self, first_only=False):
         """(arg_params, aux_params) as cpu() NDArrays: one context's
         values with one device->host copy per dtype; over several, the
         average of the contexts' copies computed on the host as mxtpu
-        computes it (executor_group.py:147-165)."""
+        computes it (executor_group.py:147-165), or with ``first_only``
+        the first context's (replicas known to hold the same bits)."""
         blocks = self.param_arrays + self.aux_arrays
         names = self.param_names + self.aux_names
-        n = len(self.execs)
+        if first_only:
+            blocks = [b[:1] for b in blocks]
+        n = len(blocks[0]) if blocks else 1
         host = host_copies([a._data for b in blocks for a in b])
         vals = []
         for i in range(len(blocks)):

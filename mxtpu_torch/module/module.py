@@ -26,7 +26,13 @@ the contexts) each context runs on its slice, with its own BatchNorm
 statistics, and ``update`` goes through the kvstore
 (``model._update_params_on_kvstore``) or the Updater
 (``model._update_params``), and ``fit`` averages the contexts' params
-on the host at each epoch end, as mxtpu's legacy path does.
+on the host at each epoch end, as mxtpu's legacy path does. Under an
+active mesh (``fit(mesh=...)``, ``sharding.use``, ``MXTPU_MESH``;
+mxtpu's :401-485) the fused step takes the mesh's ``ShardingPlan`` and
+runs over the mesh's devices, the executor group bound anew over them
+even for a Module bound to one context: cross-replica weight-update
+sharding (``fused.py``). A mesh the batch does not divide is declined
+with mxtpu's warning.
 ``forward`` called directly runs each context on its slice, as mxtpu's
 does; ``get_outputs`` merges them on the first context.
 
@@ -277,9 +283,11 @@ class Module(BaseModule):
         """(arg_params, aux_params): cpu() copies of the live values (the
         aux values as the last training forward wrote them back), taken
         with one device->host copy per dtype and device; over several
-        contexts each value is the contexts' average."""
+        contexts each value is the contexts' average; on the fused step,
+        whose replicas hold the same bits, the first replica's."""
         assert self.binded and self.params_initialized
-        return self._exec_group.get_params()
+        return self._exec_group.get_params(
+            first_only=self._fused is not None)
 
     # ------------------------------------------------ optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -328,23 +336,79 @@ class Module(BaseModule):
             self._preload_opt_states = None
 
     def _arm_fused(self):
-        """Arm the fused step on mxtpu's conditions (module.py:412-431):
+        """Arm the fused step on mxtpu's conditions (module.py:401-441):
         training with grad_req "write", no input gradients, an optimizer
-        with a rule, no ``dist`` kvstore, an even ``work_load_list`` and a
-        batch that divides over the contexts."""
+        with a rule, no ``dist`` kvstore and an even ``work_load_list``.
+        Under an active mesh the step takes a ``ShardingPlan`` and runs
+        over the mesh's devices, even for a Module bound to one context
+        (mxtpu's :422-424): the executor group is bound anew over them,
+        from the current parameters, with the sharded parameters'
+        gradients at the end of each flat buffer. Without one the batch must divide
+        over the contexts."""
         self._fused = None
         group = self._exec_group
-        n = len(self._context)
+        n = len(group.contexts)
         if (not self.for_training or self.inputs_need_grad
                 or self._grad_req != "write"
                 or not supports(self._optimizer)
                 or (self._kvstore is not None
                     and "dist" in self._kvstore.type)
-                or len(set(self._work_load_list)) > 1
-                or (n > 1 and group.batch_size % n)):
+                or len(set(self._work_load_list)) > 1):
             return
+        plan = self._resolve_sharding_plan()
+        if plan is None and n > 1 and group.batch_size % n:
+            return
+        if plan is not None:
+            tail = frozenset(plan.sharded_opt_names())
+            if plan.mesh_ctx.devices != group.contexts or \
+                    group.flat_tail != tail:
+                group = self._rebind(plan.mesh_ctx.devices, tail)
         self._fused = FusedTrainStep(group.execs, self._param_names,
-                                     self._optimizer, group.flat_grads)
+                                     self._optimizer, group.flat_grads,
+                                     plan=plan)
+
+    def _resolve_sharding_plan(self):
+        """The ShardingPlan of the active mesh, or None for the contexts'
+        own path (mxtpu's :456-478). A mesh the batch does not divide over
+        is declined with mxtpu's log line, never with wrong arithmetic; a
+        mesh with another axis larger than 1 raises (only the 1-D data
+        mesh is ported)."""
+        from .. import sharding as _sharding
+        mctx = _sharding.current()
+        if mctx is None or len(mctx.devices) <= 1:
+            return None
+        for axis, size in mctx.axis_sizes.items():
+            if axis != mctx.layout.data_axis and size > 1:
+                raise MXNetError(
+                    "fit(mesh=%r): axis '%s' of size %d; only a 1-D '%s' "
+                    "mesh is ported (tp/fsdp sharding is not)"
+                    % (mctx, axis, size, mctx.layout.data_axis))
+        if self._exec_group.batch_size % mctx.n_data != 0:
+            self.logger.warning(
+                "sharding: batch size %d does not divide over the %d-way "
+                "data axis — mesh declined, falling back to the "
+                "single-device fused path",
+                self._exec_group.batch_size, mctx.n_data)
+            return None
+        return _sharding.plan_for_module(self, mctx)
+
+    def _rebind(self, contexts, flat_tail):
+        """Bind the executor group anew over ``contexts`` (one replica
+        each, even slices, the gradients of ``flat_tail`` last in their
+        flat buffers), carrying the parameters and aux states of the
+        current one's first replica."""
+        old = self._exec_group
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, contexts, [1] * len(contexts), self._data_shapes,
+            self._label_shapes, self._param_names, self.for_training,
+            self.inputs_need_grad,
+            fixed_param_names=self._fixed_param_names,
+            grad_req=self._grad_req, flat_tail=flat_tail)
+        ex = old.execs[0]
+        self._exec_group.set_params(
+            {n: ex.arg_dict[n] for n in self._param_names},
+            {n: ex.aux_dict[n] for n in self._aux_names})
+        return self._exec_group
 
     # ------------------------------------------------ compute
     def _forward(self, data_batch, is_train, coupled=False):

@@ -451,9 +451,10 @@ def waitall():
         torch.cuda.synchronize()
 
 
-def _device(ctx):
-    return (as_context(ctx) if ctx is not None
-            else current_context()).torch_device
+def _context(ctx):
+    """The given context (``cpu(1)`` stays cpu(1) though it maps to the
+    one host device), else the current one."""
+    return as_context(ctx) if ctx is not None else current_context()
 
 
 def array(source_array, ctx=None, dtype=None):
@@ -469,8 +470,9 @@ def array(source_array, ctx=None, dtype=None):
         if not src.flags.writeable:  # torch takes writable memory only
             src = src.copy()
         source_array = torch.from_numpy(src)
-    return NDArray(source_array.to(device=_device(ctx), dtype=dt,
-                                   copy=True))
+    ctx = _context(ctx)
+    return NDArray(source_array.to(device=ctx.torch_device, dtype=dt,
+                                   copy=True), ctx)
 
 
 def _shape(shape):
@@ -479,8 +481,9 @@ def _shape(shape):
 
 def zeros(shape, ctx=None, dtype="float32", **kwargs):
     del kwargs
+    ctx = _context(ctx)
     return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                               device=_device(ctx)))
+                               device=ctx.torch_device), ctx)
 
 
 def empty(shape, ctx=None, dtype="float32"):
@@ -489,13 +492,15 @@ def empty(shape, ctx=None, dtype="float32"):
 
 def ones(shape, ctx=None, dtype="float32", **kwargs):
     del kwargs
+    ctx = _context(ctx)
     return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
-                              device=_device(ctx)))
+                              device=ctx.torch_device), ctx)
 
 
 def full(shape, val, ctx=None, dtype="float32"):
+    ctx = _context(ctx)
     return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
-                              device=_device(ctx)))
+                              device=ctx.torch_device), ctx)
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
@@ -503,11 +508,12 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     when ``stop`` is None), each value ``repeat`` times."""
     if stop is None:
         start, stop = 0.0, start
+    ctx = _context(ctx)
     out = torch.arange(start, stop, step, dtype=torch.float64,
-                       device=_device(ctx)).to(torch_dtype(dtype))
+                       device=ctx.torch_device).to(torch_dtype(dtype))
     if int(repeat) > 1:
         out = torch.repeat_interleave(out, int(repeat))
-    return NDArray(out)
+    return NDArray(out, ctx)
 
 
 def concatenate(arrays, axis=0, always_copy=True):

@@ -16,7 +16,12 @@ the KVStore on CUDA values bit for bit against the host's sums and
 SGD; and, with two cards or more (skipped below), the KVStore over the
 cards, every kernel on every card against its plain version there, and
 a Module over [gpu(0), gpu(1)] against gpu(0) on the whole batch with
-bit-identical replicas.
+bit-identical replicas; the mesh collectives (NCCL reduce-scatter and
+all-gather, peer-copy ppermute and all-to-all) against the host's
+arithmetic, and ``fit(mesh=n)`` from gpu(0) against the replicated
+fused path over the cards; with four cards (skipped below), ring and
+Ulysses attention, whose every hop is a flash kernel launch, against the
+same functions on cpu() contexts, where every hop is the plain version.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -898,3 +903,121 @@ def test_module_over_two_gpus_is_the_whole_batch_step(cuda):
             assert torch.equal(v._data.cpu(), e1.arg_dict[k]._data.cpu()), k
     for k, v in e0.aux_dict.items():
         assert torch.equal(v._data.cpu(), e1.aux_dict[k]._data.cpu()), k
+
+
+def test_mesh_collectives_on_cards(cuda):
+    """reduce_scatter / all_gather (NCCL) and ppermute / all_to_all (peer
+    copies) over the cards against the host's arithmetic."""
+    torch, _ = cuda
+    n = min(_gpus(torch, 2), 4)
+    from mxtpu_torch.ops import collective as C
+    g = torch.Generator().manual_seed(0)
+    host = [torch.randn(n * 1000, generator=g) for _ in range(n)]
+    ins = [h.to("cuda:%d" % i) for i, h in enumerate(host)]
+    outs = [torch.empty(1000, device="cuda:%d" % i) for i in range(n)]
+    C.reduce_scatter_replicas(ins, outs)
+    total = sum(host)
+    for r, o in enumerate(outs):
+        assert o.device == torch.device("cuda", r)
+        torch.testing.assert_close(o.cpu(), total[r * 1000:(r + 1) * 1000],
+                                   rtol=1e-6, atol=1e-6)
+    gathered = [torch.empty(n * 1000, device="cuda:%d" % i)
+                for i in range(n)]
+    C.all_gather_replicas(outs, gathered)
+    for gt in gathered:
+        assert torch.equal(gt.cpu(), torch.cat([o.cpu() for o in outs]))
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    moved = C.ppermute(ins, perm)
+    for i, j in perm:
+        assert moved[j].device == ins[j].device
+        assert torch.equal(moved[j].cpu(), host[i])
+    vals = [h.view(n, 1000) for h in ins]
+    a2a = C.all_to_all(vals, 0, 1)
+    for j, o in enumerate(a2a):
+        assert o.device == ins[j].device
+        assert torch.equal(o.cpu(), torch.cat(
+            [h.view(n, 1000)[j:j + 1] for h in host], dim=1))
+
+
+@pytest.mark.parametrize("dtype,fwd_tol,grad_tol", [
+    ("float32", 2e-4, 1e-4), ("bfloat16", 2e-2, 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("fn", ["ring_attention", "ulysses_attention"])
+def test_sequence_parallel_on_four_cards_matches_the_plain_hops(
+        cuda, fn, causal, dtype, fwd_tol, grad_tol):
+    """Ring / Ulysses attention over gpu(0..3) (each hop a flash forward
+    and backward kernel launch on its card) against the same function
+    over cpu(0..3) (each hop the plain version), forward and gradients:
+    the kernels' gates (forward f32 2e-4, bf16 2e-2; gradients 1e-4 and
+    2e-2 of max(1, |plain|))."""
+    torch, att = cuda
+    _gpus(torch, 4)
+    import mxtpu_torch as mt
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 256, 4, 64, generator=g).to(dt)
+                   for _ in range(4))
+    runs = []
+    for ctx in (mt.gpu, mt.cpu):
+        mesh = mt.parallel.make_mesh((4,), ("seq",),
+                                     devices=[ctx(i) for i in range(4)])
+        dev = ctx(0).torch_device
+        xs = [a.to(dev).requires_grad_(True) for a in (q, k, v)]
+        before = (att.flash_attention.launches,
+                  att.flash_attention_backward.launches)
+        out = getattr(mt.parallel, fn)(*xs, mesh=mesh, causal=causal)
+        grads = torch.autograd.grad(out, xs, do.to(dev))
+        launched = (att.flash_attention.launches - before[0],
+                    att.flash_attention_backward.launches - before[1])
+        runs.append((out.float().cpu(), [x.float().cpu() for x in grads],
+                     launched))
+    (out, grads, launched), (pout, pgrads, plain) = runs
+    hops = (10 if causal else 16) if fn == "ring_attention" else 4
+    assert launched == (hops, hops) and plain == (0, 0)
+    assert float((out - pout).abs().max()) <= fwd_tol
+    for a, b in zip(grads, pgrads):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) / scale <= grad_tol
+
+
+def test_fit_mesh_on_cards_is_the_replicated_step(cuda):
+    """A BatchNorm net through Module(gpu(0)).fit(mesh=n): the sharded
+    fused step over the mesh's cards (fc_weight's rows by replica)
+    within 1e-5 of the replicated fused path over the same cards, its
+    replicas bit-identical."""
+    torch, _ = cuda
+    n = min(_gpus(torch, 2), 4)
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(0)
+    x = (rng.randn(32, 3, 8, 8) * 3).astype(np.float32)
+    y = rng.randint(0, 4, 32).astype(np.float32)
+    s = mt.sym
+    h = s.Convolution(s.Variable("data"), kernel=(3, 3), num_filter=64,
+                      name="c")
+    h = s.Activation(s.BatchNorm(h, name="bn", fix_gamma=False),
+                     act_type="relu")
+    h = s.FullyConnected(h, num_hidden=4, name="fc")
+    net = s.SoftmaxOutput(h, name="softmax")
+    res = []
+    for ctxs, mesh in (([mt.gpu(i) for i in range(n)], False),
+                       ([mt.gpu(0)], n)):
+        np.random.seed(3)
+        mod = mt.mod.Module(net, context=ctxs)
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=32), num_epoch=3,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mt.init.Xavier(), kvstore="device", mesh=mesh)
+        res.append([{k: v.asnumpy() for k, v in d.items()}
+                    for d in mod.get_params()])
+    assert mod._fused._plan is not None
+    assert mod._fused.sharded_names == ["fc_weight"]
+    for a, b in zip(*res):
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+    execs = mod._exec_group.execs
+    assert len(execs) == n
+    for e in execs[1:]:
+        for k in mod._param_names:
+            assert torch.equal(e.arg_dict[k]._data.cpu(),
+                               execs[0].arg_dict[k]._data.cpu()), k

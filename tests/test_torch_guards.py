@@ -45,6 +45,9 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
             "from mxtpu_torch.ops import attention, epilogue, collective\n"
             "from mxtpu_torch import autograd, gluon\n"
             "from mxtpu_torch.gluon.model_zoo import vision\n"
+            "from mxtpu_torch import sharding, parallel\n"
+            "from mxtpu_torch.parallel import (ring_attention, moe,\n"
+            "                                  pipeline, dp, mesh)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in %r)\n"
             "print(repr(bad))\n" % (str(REPO), FORBIDDEN))

@@ -243,12 +243,19 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     sym = mt.models.get_mlp(4)
     x, y = np.zeros((8, 5), np.float32), np.zeros(8, np.float32)
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
-    for kw in ({"kvstore": "dist_async"}, {"mesh": "all"},
+    for kw in ({"kvstore": "dist_async"},
                {"elastic": "/tmp/x"}, {"resume": True}, {"tuned": "t.json"},
                {"health": True}, {"monitor": object()}):
         with pytest.raises(mt.MXNetError, match="not ported"):
             mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
                     **kw)
+    # mesh is ported: its default devices are the CUDA devices, so on a
+    # host without one it raises naming that, not silently on the CPU
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(mt.MXNetError, match="no CUDA device"):
+            mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                    mesh="all")
     with pytest.raises(mt.MXNetError, match="named twice"):
         mt.mod.Module(sym, context=[mt.cpu(0), mt.cpu(0)])
 
