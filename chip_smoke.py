@@ -5,6 +5,7 @@ NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
                           [--phases kernels,epilogue,...]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
+                          [--multi-phases kvstore,...,group2ctx]
 
 Phases (any failure raises and exits non-zero):
 
@@ -110,7 +111,33 @@ Phases (any failure raises and exits non-zero):
    evaluation forward's 50 epilogue launches within 1e-4 of the plain
    epilogue. Prints its step ms beside phase 7's, and the push/pull
    loop's host ms.
-10. Prints the kernels' JSON line, then the device line last.
+10. The LSTM bucketing LM (``rnn``; BASELINE config 4 at
+   example/rnn/lstm_bucketing.py's widths: 2 layers, 200 hidden, 200
+   embed, batch 32, buckets 10-60, vocabulary 10,000; f32, TF32 off in
+   cuBLAS and cuDNN). The RNN op's cuDNN route against the plain loop on
+   the card, outputs and the gradients of data, parameters and both
+   states, at the LM's shape (T=60, N=32, I=H=200, L=2) and at edges
+   (each mode, bidirectional, T=1, N=1 and batch-1 states, no
+   state_outputs, the clip route), within RNN_OP_TOL; both routes' times
+   at the LM's shape beside the operations bound (67 TFLOP/s) and
+   nn.LSTM's (the library yardstick), and whether torch copies the flat
+   vector into cuDNN's buffer. Then ``BucketingModule.fit`` unfused
+   (stacked LSTMCell unroll) and ``--fused`` (one FusedRNNCell: cuDNN) on
+   a seeded synthetic corpus (1600 sentences of 4-60 ids, the example's
+   next-id pattern; PTB is not in the repository), 3 epochs, SGD lr 0.01,
+   momentum 0.9, wd 1e-5, clip 1.0, Xavier(in, 2.34). Gates: each
+   variant's first step at bucket 60 (loss and every gradient) against
+   the same step in float64 on cpu() within RNN_GRAD_TOL, a TF32 control
+   step failing it; CE falling over 8 steps of one batch; after fit,
+   every bucket's module on the same parameter, gradient and optimizer
+   state tensors; the unfused fit on the loop only, the fused on cuDNN.
+   Prints per-epoch perplexity, each bucket's step ms (host clock to a
+   sync), words/s, kernel launches and device-busy share of a step
+   (torch.profiler), peak memory. Last, Gluon's ``rnn.LSTM(200,
+   num_layers=2)`` between an Embedding and a Dense(10000): the first
+   step's gradients against float64 on cpu(), then SGD ``Trainer.step``s
+   imperative and hybridized, timed; the loss must fall.
+11. Prints the kernels' JSON line, then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -138,8 +165,15 @@ device and host ms, optimizer-state bytes a card), ring and Ulysses
 attention at the LM's widths over 4 cards (``multi_seq``: held to the
 plain attention and its backward in float64, flash launches by card, ms
 against ``FlashAttentionFunction`` on one card) and MoE, a pipeline and ``DataParallelTrainer`` each
-held to one card (``multi_parallel``). Its own summary line, then the
-device line, last.
+held to one card (``multi_parallel``); last, ``group2ctx`` placement
+(``multi_group2ctx``): the model-parallel LSTM of
+examples/rnn/model_parallel_lstm.py at config 4's widths ('embed_rnn1'
+on gpu(0), 'rnn2_head' on gpu(1)) for 4 SGD steps through the Executor
+against the same net on gpu(0) alone (outputs and weights within 1e-6;
+each group's kernels on its own card under the profiler; step ms and
+cross-device copies). ``--multi-phases`` runs a subset (then no summary
+and no device line, rc 1). Its own summary line, then the device line,
+last.
 """
 from __future__ import annotations
 
@@ -246,8 +280,34 @@ GLUON_NARROW = dict(layers=[1, 1, 1], channels=[16, 16, 32, 64],
 DP_STEPS = 4
 MULTI = dict(gpus=4, batch=256, steps=8, lm_batch=4, lm_steps=4,
              dist_steps=4, gluon_steps=4, kv_iters=5)
+# BASELINE config 4 (phase 10, rnn): example/rnn/lstm_bucketing.py's
+# widths in MXNet v0.11 (2 LSTM layers, 200 hidden, 200 embed, batch 32,
+# PTB's 10,000-word vocabulary and buckets) with this repo's example's
+# optimizer (examples/rnn/lstm_bucketing.py:107-112), on a seeded
+# synthetic corpus (PTB is not in the repository): 1600 sentences of
+# 4-60 ids, 3 epochs. The op's cuDNN route is held to the loop within
+# RNN_OP_TOL of max(1, |loop|); each first step's gradients to float64
+# within RNN_GRAD_TOL of each parameter's largest, its loss within
+# RNN_GRAD_TOL relative
+RNN_LM = dict(vocab=10000, num_embed=200, num_hidden=200, num_layers=2,
+              batch=32, buckets=(10, 20, 30, 40, 50, 60))
+RNN_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-5,
+           "clip_gradient": 1.0}
+RNN_TRAIN = dict(sentences=1600, lengths=(4, 60), epochs=3, fall_steps=8,
+                 timed_steps=5)
+# Gluon's LSTM LM (T=35, the PTB word LM's) takes SGD at lr 0.1 on one
+# batch, so that its loss falls visibly in 8 steps
+RNN_GLUON = dict(seq_len=35, steps=4, lr=0.1)
+RNN_OP_TOL = 1e-4
+RNN_GRAD_TOL = 1e-4
+# --multi-gpu group2ctx: examples/rnn/model_parallel_lstm.py at config
+# 4's widths (PTB word-LM's seq 35), SGD lr 0.5 as the example's default
+MP_LSTM = dict(hidden=200, vocab=10000, seq_len=35, batch=32, steps=4,
+               lr=0.5, tol=1e-6)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
-          "resnet_training", "gluon", "data_parallel")
+          "resnet_training", "gluon", "data_parallel", "rnn")
+MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
+                "gluon", "seq", "parallel", "group2ctx")
 
 
 def log(*a):
@@ -3566,31 +3626,52 @@ def multi_gpu(args, card):
                                         built.items()},
                                        time.perf_counter() - t0))
     res = {"card": card, "cards": n, "names": names}
-    log("[multi_gpu kvstore]")
-    res["kvstore"] = kvstore_cases(mt, [mt.gpu(i) for i in range(n)])
-    res["kvstore"]["resnet_push_pull"] = kvstore_resnet_ms(mt, n, card)
-    log("[multi_gpu kernels]")
-    res["kernels_by_device"] = {i: kernels_on_device(att, epi, i)
-                                for i in range(1, n)}
-    log("[multi_gpu resnet]")
-    res["resnet"] = multi_resnet(mt, epi, args.seed, card, n)
-    log("[multi_gpu mesh]")
-    res["mesh"] = multi_mesh(mt, epi, args.seed, card, n, res["resnet"])
-    log("[multi_gpu lm]")
-    res["lm"] = multi_lm(mt, att, args.seed, card, n)
-    log("[multi_gpu dist_sync]")
-    res["dist_sync"] = multi_dist(args.seed, card, n)
-    log("[multi_gpu gluon]")
-    res["gluon"] = multi_gluon(mt, args.seed, card, n)
-    log("[multi_gpu seq]")
-    res["seq"] = multi_seq(mt, att, args.seed, card, n)
-    log("[multi_gpu parallel]")
-    res["parallel"] = multi_parallel(mt, args.seed, card, n)
+    phases = [p for p in args.multi_phases.split(",") if p]
+    unknown = sorted(set(phases) - set(MULTI_PHASES))
+    if unknown:
+        raise SystemExit("chip_smoke: unknown multi phases %s" % unknown)
+    if "kvstore" in phases:
+        log("[multi_gpu kvstore]")
+        res["kvstore"] = kvstore_cases(mt, [mt.gpu(i) for i in range(n)])
+        res["kvstore"]["resnet_push_pull"] = kvstore_resnet_ms(mt, n, card)
+    if "kernels" in phases:
+        log("[multi_gpu kernels]")
+        res["kernels_by_device"] = {i: kernels_on_device(att, epi, i)
+                                    for i in range(1, n)}
+    if "resnet" in phases:
+        log("[multi_gpu resnet]")
+        res["resnet"] = multi_resnet(mt, epi, args.seed, card, n)
+    if "mesh" in phases:
+        log("[multi_gpu mesh]")
+        res["mesh"] = multi_mesh(mt, epi, args.seed, card, n,
+                                 res.get("resnet"))
+    if "lm" in phases:
+        log("[multi_gpu lm]")
+        res["lm"] = multi_lm(mt, att, args.seed, card, n)
+    if "dist_sync" in phases:
+        log("[multi_gpu dist_sync]")
+        res["dist_sync"] = multi_dist(args.seed, card, n)
+    if "gluon" in phases:
+        log("[multi_gpu gluon]")
+        res["gluon"] = multi_gluon(mt, args.seed, card, n)
+    if "seq" in phases:
+        log("[multi_gpu seq]")
+        res["seq"] = multi_seq(mt, att, args.seed, card, n)
+    if "parallel" in phases:
+        log("[multi_gpu parallel]")
+        res["parallel"] = multi_parallel(mt, args.seed, card, n)
+    if "group2ctx" in phases:
+        log("[multi_gpu group2ctx]")
+        res["group2ctx"] = multi_group2ctx(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1, default=str)
+    if phases != list(MULTI_PHASES):
+        log("chip_smoke: multi phases %s only; no summary line, no device "
+            "line" % phases)
+        return 1
     r = res["resnet"]
     log(json.dumps({"multi_gpu": {
         "cards": n, "resnet_images_per_s": r["images_per_s"],
@@ -3604,7 +3685,9 @@ def multi_gpu(args, card):
         "mesh_step_ms": res["mesh"]["step_ms_within_epoch"],
         "mesh_images_per_s_per_chip": res["mesh"]["images_per_s_per_chip"],
         "ring_fwd_bwd_ms": {"%s/%d/%s" % (r["path"], r["T"], r["dtype"]):
-                            r["fwd_bwd_ms"] for r in res["seq"]}}}))
+                            r["fwd_bwd_ms"] for r in res["seq"]},
+        "group2ctx_step_ms": float(np.median(
+            res["group2ctx"]["split_step_ms"]))}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3707,6 +3790,755 @@ def batch_breakdown(mt, sym_json, params, x, profile, label):
     return row
 
 
+
+# ---------------------------------------------------------------- phase 10
+def rnn_sentences(seed, n, vocab, lo, hi):
+    """``n`` seeded sentences of ``lo``..``hi`` ids drawn uniformly, each a
+    run of the learnable pattern of examples/rnn/lstm_bucketing.py:28-37
+    (next id = id + 1, over ids 2..vocab-1; 0 pads)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        start = rng.randint(2, vocab - 1)
+        out.append([(start + i) % (vocab - 2) + 2
+                    for i in range(rng.randint(lo, hi + 1))])
+    return out
+
+
+def rnn_sym_gen(mt, fused, cfg=None, dtype=None):
+    """examples/rnn/lstm_bucketing.py's sym_gen: Embedding, a stacked
+    ``LSTMCell.unroll(merge_outputs=True)`` (or one ``FusedRNNCell``, the
+    ``--fused`` variant), Reshape, FullyConnected, SoftmaxOutput. With
+    ``dtype`` the initial states are zeros of that type (the float64
+    reference step; by default float32, as the cells make them)."""
+    cfg = cfg or RNN_LM
+    h = cfg["num_hidden"]
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data=data, input_dim=cfg["vocab"],
+                                 output_dim=cfg["num_embed"], name="embed")
+        if fused:
+            stack = mt.rnn.FusedRNNCell(h, num_layers=cfg["num_layers"],
+                                        mode="lstm", prefix="lstm_")
+        else:
+            stack = mt.rnn.SequentialRNNCell()
+            for i in range(cfg["num_layers"]):
+                stack.add(mt.rnn.LSTMCell(num_hidden=h,
+                                          prefix="lstm_l%d_" % i))
+        stack.reset()
+        begin = None if dtype is None else stack.begin_state(dtype=dtype)
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True,
+                                  begin_state=begin)
+        pred = mt.sym.Reshape(outputs, shape=(-1, h))
+        pred = mt.sym.FullyConnected(data=pred, num_hidden=cfg["vocab"],
+                                     name="pred")
+        label = mt.sym.Reshape(label, shape=(-1,))
+        pred = mt.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def lstm_flops(t, n, i, h, layers, directions=1):
+    """Multiply-add flops of an LSTM's forward: per layer, direction and
+    step the (N, I_l + H) x (I_l + H, 4H) gate product; the elementwise
+    gate arithmetic is left out (< 1 %)."""
+    total = 0
+    for layer in range(layers):
+        il = i if layer == 0 else h * directions
+        total += directions * t * 2 * n * (il + h) * 4 * h
+    return total
+
+
+def rnn_op_bound_ms(t, n, i, h, layers, backward):
+    """Least time of the RNN op at the card's f32 peak (no TF32): the
+    forward's flops, three times that with the backward (the data and
+    the weight gradients are one product each more); or the bytes of its
+    inputs and outputs read and written once at HBM rate, if larger."""
+    flops = lstm_flops(t, n, i, h, layers) * (3 if backward else 1)
+    params = 4 * h * (i + h + 2) + (layers - 1) * 4 * h * (2 * h + 2)
+    nbytes = 4 * (t * n * i + params + t * n * h + 4 * layers * n * h) * \
+        (2 if backward else 1)
+    ops_ms = flops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def rnn_route_case(rnn, registry, attrs, arrays):
+    """One RNN op case on the card: the op (cuDNN's route on a CUDA tensor,
+    the loop with the clip) and the plain loop (``rnn._loop_rnn`` on the
+    same tensors), forward and the gradients of data, parameters and
+    states under the same heads; returns max |op - loop| / max(1, max
+    |loop|) over everything."""
+    dev = arrays[0].device
+    op = registry.get_op("RNN")
+    a = op.parse_attrs(attrs)
+    t, n, i = arrays[0].shape
+    h, layers = int(a.state_size), int(a.num_layers)
+    d = 2 if a.bidirectional else 1
+    clip = rnn._clip_of(a)
+    res = []
+    for route in ("op", "loop"):
+        leaves = [x.clone().requires_grad_() for x in arrays]
+        before = dict(rnn.ROUTES)
+        if route == "op":
+            outs = list(op.apply(a, leaves))
+            want = "cudnn" if dev.type == "cuda" and clip is None \
+                else "loop"
+            if rnn.ROUTES[want] != before[want] + 1:
+                raise AssertionError("RNN %s took the wrong route: %s -> %s"
+                                     % (attrs, before, rnn.ROUTES))
+        else:
+            full = (layers * d, n, h)
+            cell = leaves[3].expand(full) if a.mode == "lstm" else None
+            outs = rnn._loop_rnn(a, None, leaves[0], rnn._unpack(
+                leaves[1], layers, i, h, a.mode, d),
+                leaves[2].expand(full), cell, clip)
+            outs = [outs[0]] + ([o for o in outs[1:] if o is not None]
+                                if a.state_outputs else [])
+        gen = torch.Generator(device=dev).manual_seed(7)
+        heads = [torch.randn(o.shape, device=dev, generator=gen)
+                 for o in outs]
+        grads = torch.autograd.grad(outs, leaves, heads)
+        res.append([o.detach() for o in outs] + list(grads))
+    err = 0.0
+    for got, want in zip(*res):
+        err = max(err, rel_err(got, want))
+    return err
+
+
+def rnn_op_checks(mt, seed, card):
+    """Phase 10's first part: the RNN op's cuDNN route against the plain
+    loop on the card at the LM's shape and at the edges, then both
+    routes' times at the LM's shape, beside the bound and nn.LSTM."""
+    from mxtpu_torch.ops import registry, rnn
+    cfg = RNN_LM
+    rng = np.random.RandomState(seed + 10)
+    dev = mt.gpu(0).torch_device
+
+    def case(mode, bi, layers, t, n, i, h, state_batch, so=True, clip=None):
+        d = 2 if bi else 1
+        size = rnn.rnn_param_size(layers, i, h, mode, bi)
+        arrays = [rng.randn(t, n, i), rng.randn(size) / np.sqrt(h),
+                  rng.randn(layers * d, state_batch, h) * 0.5]
+        if mode == "lstm":
+            arrays.append(rng.randn(layers * d, state_batch, h) * 0.5)
+        attrs = {"state_size": h, "num_layers": layers, "mode": mode,
+                 "bidirectional": bi, "state_outputs": so}
+        if clip is not None:
+            attrs.update(lstm_state_clip_min=clip[0],
+                         lstm_state_clip_max=clip[1])
+        return attrs, [torch.tensor(x, dtype=torch.float32, device=dev)
+                       for x in arrays]
+
+    lm = (cfg["buckets"][-1], cfg["batch"], cfg["num_embed"],
+          cfg["num_hidden"], cfg["num_layers"])
+    cases = [("lm lstm T=%d N=%d I=%d H=%d L=%d" % lm,
+              case("lstm", False, lm[4], lm[0], lm[1], lm[2], lm[3],
+                   lm[1]))]
+    for mode in ("rnn_relu", "rnn_tanh", "lstm", "gru"):
+        cases.append(("%s L=2 T=17 N=8" % mode,
+                      case(mode, False, 2, 17, 8, 24, 32, 8)))
+        cases.append(("%s bidirectional L=2" % mode,
+                      case(mode, True, 2, 11, 4, 24, 32, 4)))
+    cases += [("lstm T=1", case("lstm", False, 2, 1, 8, 24, 32, 8)),
+              ("gru N=1, batch-1 state", case("gru", True, 1, 9, 1, 24, 32,
+                                               1)),
+              ("lstm N=5, batch-1 state", case("lstm", True, 2, 9, 5, 24, 32,
+                                                1)),
+              ("lstm no state_outputs", case("lstm", False, 2, 9, 4, 24, 32,
+                                              4, so=False)),
+              ("lstm clip route (the loop)",
+               case("lstm", True, 2, 9, 4, 24, 32, 4, clip=(-0.3, 0.3)))]
+    errs = {}
+    for name, (attrs, xs) in cases:
+        errs[name] = rnn_route_case(rnn, registry, attrs, xs)
+        log("  RNN op %s: cuDNN vs loop on the card, outputs and "
+            "gradients, max err / max(1, |loop|) %.3e" % (name, errs[name]))
+    worst = max(errs.values())
+    if not worst <= RNN_OP_TOL:
+        raise AssertionError("RNN op: the cuDNN route is %.3e from the loop "
+                             "(gate %g): %s" % (worst, RNN_OP_TOL, errs))
+
+    # times at the LM's shape, forward and forward + backward
+    attrs, xs = cases[0][1]
+    op = registry.get_op("RNN")
+    a = op.parse_attrs(attrs)
+    t, n, i = xs[0].shape
+    h, layers = lm[3], lm[4]
+    leaves = [x.clone().requires_grad_() for x in xs]
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            op.apply(a, xs)
+
+    def cudnn_fb():
+        outs = op.apply(a, leaves)
+        torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+
+    full = (layers, n, h)
+
+    def loop_fwd():
+        with torch.no_grad():
+            rnn._loop_rnn(a, None, xs[0], rnn._unpack(
+                xs[1], layers, i, h, "lstm", 1), xs[2], xs[3], None)
+
+    def loop_fb():
+        outs = rnn._loop_rnn(a, None, leaves[0], rnn._unpack(
+            leaves[1], layers, i, h, "lstm", 1), leaves[2].expand(full),
+            leaves[3].expand(full), None)
+        outs = [o for o in outs if o is not None]
+        torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+
+    # nn.LSTM over the same weights, flattened into cuDNN's own buffer
+    # (the library yardstick; the port never calls it)
+    lib = torch.nn.LSTM(i, h, num_layers=layers).to(dev)
+    with torch.no_grad():
+        views = [w for per in rnn._unpack(xs[1], layers, i, h, "lstm", 1)
+                 for wts in per for w in wts]
+        for p, v in zip(lib._flat_weights, views):
+            p.copy_(v)
+    lib.flatten_parameters()
+    lib_x = xs[0].clone().requires_grad_()
+
+    def lib_fwd():
+        with torch.no_grad():
+            lib(xs[0], (xs[2], xs[3]))
+
+    def lib_fb():
+        out, (hn, cn) = lib(lib_x, (xs[2], xs[3]))
+        torch.autograd.grad([out, hn, cn], [lib_x] + list(lib.parameters()),
+                            [torch.ones_like(out), torch.ones_like(hn),
+                             torch.ones_like(cn)])
+
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cudnn_fwd()
+        torch.cuda.synchronize()
+    copies = any("contiguous chunk" in str(w.message) for w in caught)
+    flat_bytes = xs[1].numel() * 4
+    times = {}
+    for name, fn, iters in (("cudnn_fwd", cudnn_fwd, 20),
+                            ("cudnn_fwd_bwd", cudnn_fb, 10),
+                            ("loop_fwd", loop_fwd, 3),
+                            ("loop_fwd_bwd", loop_fb, 3),
+                            ("library_fwd", lib_fwd, 20),
+                            ("library_fwd_bwd", lib_fb, 10)):
+        times[name] = cuda_ms(fn, iters)
+    bound_f, by_f = rnn_op_bound_ms(t, n, i, h, layers, False)
+    bound_fb, by_fb = rnn_op_bound_ms(t, n, i, h, layers, True)
+    log("  [%s] RNN op at the LM's shape (T=%d N=%d I=H=%d L=%d, f32, "
+        "TF32 off): forward cuDNN route %.4f ms, loop %.4f, nn.LSTM %.4f, "
+        "bound %.4f (%s, %.2f GFLOP at 67 TFLOP/s); forward + backward "
+        "cuDNN route %.4f ms, loop %.4f, nn.LSTM %.4f, bound %.4f (%s)"
+        % (card, t, n, h, layers, times["cudnn_fwd"], times["loop_fwd"],
+           times["library_fwd"], bound_f, by_f,
+           lstm_flops(t, n, i, h, layers) / 1e9, times["cudnn_fwd_bwd"],
+           times["loop_fwd_bwd"], times["library_fwd_bwd"], bound_fb,
+           by_fb))
+    log("  the flat vector's views %s cuDNN's weight buffer (torch %s); "
+        "the vector is %.2f MB, one copy at HBM rate %.4f ms"
+        % ("are not" if copies else "are",
+           "warned" if copies else "did not warn", flat_bytes / 1e6,
+           2 * flat_bytes / HBM_BYTES_PER_S * 1e3))
+    return {"errors": errs, "worst_err": worst, "ms": times,
+            "bound_ms": {"fwd": bound_f, "fwd_bwd": bound_fb},
+            "bound_by": {"fwd": by_f, "fwd_bwd": by_fb},
+            "weights_copied_per_call": copies}
+
+
+def rnn_batch(mt, sentences, key, batch):
+    """A bucket-``key`` DataBatch of the first ``batch`` sentences that
+    fit it, padded with 0, labels the next ids, as BucketSentenceIter
+    makes them."""
+    rows = [s for s in sentences if len(s) <= key][:batch]
+    x = np.zeros((batch, key), np.float32)
+    for r, s in enumerate(rows):
+        x[r, :len(s)] = s
+    y = np.zeros_like(x)
+    y[:, :-1] = x[:, 1:]
+    return mt.io.DataBatch(
+        [mt.nd.array(x, ctx=mt.cpu())], [mt.nd.array(y, ctx=mt.cpu())],
+        pad=0, bucket_key=key,
+        provide_data=[mt.io.DataDesc("data", x.shape)],
+        provide_label=[mt.io.DataDesc("softmax_label", y.shape)])
+
+
+def rnn_grad_gate(got, exact, label):
+    """Each gradient's max |got - exact| over the largest |exact| of that
+    parameter, and the loss's relative error; (worst, by name)."""
+    by = {k: float(np.abs(got[k] - exact[k]).max()) /
+          max(float(np.abs(exact[k]).max()), 1e-30) for k in exact}
+    worst = max(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    log("  %s: worst gradient error / its largest |exact| %.3e (%s)"
+        % (label, worst, ", ".join("%s %.2e" % kv for kv in top)))
+    return worst, by
+
+
+def rnn_first_step_gate(mt, mod, sym, batch, card, label):
+    """The first step of ``mod`` (bound on gpu(0), initialized) at the
+    largest bucket: its loss and every gradient against the same step in
+    float64 on cpu() (the executor with float64 arrays) from the same
+    weights; then the same step with TF32 in cuBLAS and cuDNN, which must
+    fail the gate."""
+    weights = mod.get_params()[0]
+    x, y = batch.data[0].asnumpy(), batch.label[0].asnumpy()
+    g64, probs64 = _step_f64(mt, sym, weights, x, y)
+    lab = y.reshape(-1).astype(np.int64)
+    loss64 = float(-np.log(probs64[np.arange(lab.size), lab]).mean())
+    res = {}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    for run, tf32 in (("gpu", False), ("gpu_tf32", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        m = mod._curr_module
+        ex = m._exec_group.execs[0]
+        got = {k: ex.grad_dict[k].asnumpy().astype(np.float64) for k in g64}
+        probs = m.get_outputs()[0].asnumpy().astype(np.float64)
+        loss = float(-np.log(probs[np.arange(lab.size), lab]).mean())
+        worst, by = rnn_grad_gate(got, g64, "%s %s first step at T=%d"
+                                  % (label, run, x.shape[1]))
+        loss_err = abs(loss - loss64) / abs(loss64)
+        res[run] = {"worst_grad_err": worst, "grad_err": by,
+                    "loss": loss, "loss_err": loss_err,
+                    "ok": worst <= RNN_GRAD_TOL and loss_err <= RNN_GRAD_TOL}
+        log("  %s %s: loss %.6f vs float64 %.6f (rel %.3e); gate %g: %s"
+            % (label, run, loss, loss64, loss_err, RNN_GRAD_TOL,
+               "pass" if res[run]["ok"] else "fail"))
+    if not res["gpu"]["ok"]:
+        raise AssertionError("%s: the card's first step is off float64: %s"
+                             % (label, res["gpu"]))
+    if res["gpu_tf32"]["ok"]:
+        raise AssertionError("%s: the TF32 control step passed the float64 "
+                             "gate: the gate cannot tell f32 from TF32"
+                             % label)
+    res["loss64"] = loss64
+    return res
+
+
+def _step_f64(mt, sym, weights, x, y):
+    """A training step's gradients of every parameter and the output
+    (probabilities) in float64 on the CPU: the executor with float64
+    arrays, from ``weights`` (cpu NDArrays)."""
+    def f64(t):
+        return mt.nd.NDArray(t.double(), mt.cpu())
+
+    args = {n: f64(v._data) for n, v in weights.items()}
+    args["data"] = f64(torch.from_numpy(x))
+    args["softmax_label"] = f64(torch.from_numpy(y))
+    grads = {n: mt.nd.NDArray(torch.zeros_like(args[n]._data), mt.cpu())
+             for n in weights}
+    exe = sym.bind(mt.cpu(), args, args_grad=grads)
+    probs = exe.forward(is_train=True)[0].asnumpy()
+    exe.backward()
+    return {n: g._data.numpy() for n, g in grads.items()}, probs
+
+
+def step_kernels(step):
+    """``step()`` once to warm, then once under torch.profiler: (kernel
+    launches, summed kernel ms) by device index."""
+    from torch.profiler import ProfilerActivity, profile as _prof
+    step()
+    torch.cuda.synchronize()
+    with _prof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        step()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    by = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            n, ms = by.get(e.device_index, (0, 0.0))
+            by[e.device_index] = (n + 1, ms + e.device_time_total / 1e3)
+    return by
+
+
+def rnn_variant(mt, seed, card, fused, sentences):
+    """Config 4 trained through BucketingModule.fit on gpu(0): the first
+    step's float64 gate, 8 steps on one batch (CE must fall), then
+    ``fit`` over the seeded corpus; per-bucket step ms, launches and busy
+    share; shared storage across the buckets."""
+    import random
+    cfg = RNN_LM
+    label = "fused" if fused else "unfused"
+    sym_gen = rnn_sym_gen(mt, fused)
+    key = max(cfg["buckets"])
+    big = rnn_batch(mt, [s for s in sentences if len(s) > key - 10], key,
+                    cfg["batch"])
+
+    def fresh():
+        mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=key,
+                                     context=mt.gpu(0))
+        mod.bind(big.provide_data, big.provide_label)
+        np.random.seed(seed)
+        mod.init_params(mt.init.Xavier(factor_type="in", magnitude=2.34))
+        mod.init_optimizer(optimizer="sgd", optimizer_params=RNN_OPT)
+        return mod
+
+    mod = fresh()
+    w0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    gate = rnn_first_step_gate(mt, mod, rnn_sym_gen(
+        mt, fused, dtype="float64")(key)[0], big, card, label)
+    ce = []
+    lab = big.label[0].asnumpy().reshape(-1).astype(np.int64)
+    for _ in range(RNN_TRAIN["fall_steps"]):
+        mod.forward_backward(big)
+        mod.update()
+        p = mod.get_outputs()[0].asnumpy()
+        ce.append(float(-np.log(np.maximum(p[np.arange(lab.size), lab],
+                                           1e-30)).mean()))
+    log("  %s: CE over %d steps of one bucket-%d batch: %s"
+        % (label, len(ce), key, [round(v, 4) for v in ce]))
+    if not np.all(np.isfinite(ce)) or not ce[-1] < ce[0]:
+        raise AssertionError("%s: CE did not fall: %s" % (label, ce))
+    del mod
+
+    # fit over the corpus
+    random.seed(seed)
+    np.random.seed(seed)
+    it = mt.rnn.BucketSentenceIter(sentences, cfg["batch"],
+                                   buckets=list(cfg["buckets"]),
+                                   invalid_label=0)
+    mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=key,
+                                 context=mt.gpu(0))
+    metric = mt.metric.Perplexity(ignore_label=0)
+    ppl, stamps, steps = [], [], []
+
+    def epoch_end(epoch, symbol, arg, aux):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ppl.append(metric.get()[1])
+
+    def batch_end(param):
+        steps.append(param.nbatch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=RNN_TRAIN["epochs"], eval_metric=metric,
+            optimizer="sgd", optimizer_params=RNN_OPT,
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in w0.items()},
+            initializer=mt.init.Xavier(factor_type="in", magnitude=2.34),
+            epoch_end_callback=epoch_end, batch_end_callback=batch_end)
+    peak = torch.cuda.max_memory_allocated()
+    epoch_s = [float(v) for v in np.diff([t0] + stamps)]
+    n_batches = len(steps) // RNN_TRAIN["epochs"]
+    words = sum(len(s) for s in sentences if len(s) <= key)
+    log("  %s fit: %d epochs of %d batches; train perplexity by epoch %s; "
+        "epoch s %s (the Perplexity metric copies each step's %d x %d "
+        "probabilities to the host); peak memory %.2f GB"
+        % (label, RNN_TRAIN["epochs"], n_batches,
+           [round(v, 2) for v in ppl], [round(v, 2) for v in epoch_s],
+           cfg["batch"] * key, cfg["vocab"], peak / 1e9))
+    if not np.all(np.isfinite(ppl)):
+        raise AssertionError("%s: perplexity not finite: %s" % (label, ppl))
+    # every bucket runs over the default bucket's tensors
+    buckets = mod.buckets
+    ex0 = buckets[key]._exec_group.execs[0]
+    for k, m in buckets.items():
+        ex = m._exec_group.execs[0]
+        for n in buckets[key]._param_names:
+            if ex.arg_dict[n]._data.data_ptr() != \
+                    ex0.arg_dict[n]._data.data_ptr() or \
+                    ex.grad_dict[n]._data.data_ptr() != \
+                    ex0.grad_dict[n]._data.data_ptr():
+                raise AssertionError("%s: bucket %d does not share %s"
+                                     % (label, k, n))
+        if m._fused is None or m._fused.opt_state is not \
+                buckets[key]._fused.opt_state:
+            raise AssertionError("%s: bucket %d has its own optimizer "
+                                 "state" % (label, k))
+    log("  %s: all %d buckets share one set of parameters, gradients and "
+        "optimizer state" % (label, len(buckets)))
+
+    # each bucket's step on the host clock to a sync, its launches and
+    # device time under the profiler
+    per_bucket = {}
+    for k in cfg["buckets"]:
+        b = rnn_batch(mt, sentences, k, cfg["batch"])
+
+        def step():
+            mod.forward_backward(b)
+            mod.update()
+
+        ms = []
+        for i in range(RNN_TRAIN["timed_steps"] + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t1) * 1e3)
+        launches, dev_ms = step_kernels(step).get(0, (0, 0.0))
+        med = float(np.median(ms))
+        per_bucket[k] = {"step_ms": med, "step_ms_all": ms,
+                         "launches": launches, "device_ms": dev_ms,
+                         "busy_share": dev_ms / med,
+                         "words_per_s": cfg["batch"] * k / (med / 1e3)}
+        log("  [%s] %s bucket %d: step %.2f ms (median of %d), %.0f words/s, "
+            "%d kernel launches, %.2f ms of device time (busy %.1f %%)"
+            % (card, label, k, med, len(ms), per_bucket[k]["words_per_s"],
+               launches, dev_ms, 100 * dev_ms / med))
+    total_ms = sum(per_bucket[k]["step_ms"] for k in cfg["buckets"])
+    mean_words = cfg["batch"] * sum(cfg["buckets"]) / (total_ms / 1e3)
+    return {"first_step": gate, "ce_fall": ce, "perplexity": ppl,
+            "epoch_s": epoch_s, "batches_per_epoch": n_batches,
+            "corpus_words": words, "peak_memory": int(peak),
+            "buckets": per_bucket, "words_per_s_over_buckets": mean_words}
+
+
+def gluon_rnn_lm(mt, cfg):
+    net = mt.gluon.nn.Sequential(prefix="lm_")
+    with net.name_scope():
+        net.add(mt.gluon.nn.Embedding(cfg["vocab"], cfg["num_embed"]))
+        net.add(mt.gluon.rnn.LSTM(cfg["num_hidden"],
+                                  num_layers=cfg["num_layers"],
+                                  layout="NTC", input_size=cfg["num_embed"]))
+        net.add(mt.gluon.nn.Dense(cfg["vocab"], flatten=False,
+                                  in_units=cfg["num_hidden"]))
+    return net
+
+
+def rnn_gluon(mt, seed, card):
+    """Gluon's rnn.LSTM(200, num_layers=2) between an Embedding and a
+    Dense(10000): the first step's gradients on gpu(0) against the same
+    net in float64 on cpu(); then SGD Trainer.steps imperative and with
+    the Embedding and Dense hybridized, timed."""
+    cfg = RNN_LM
+    b, t = cfg["batch"], RNN_GLUON["seq_len"]
+    rng = np.random.RandomState(seed + 3)
+    ids = rng.randint(2, cfg["vocab"], (b, t + 1)).astype(np.float32)
+    nets = {}
+    for name, ctx in (("gpu", mt.gpu(0)), ("cpu64", mt.cpu())):
+        net = gluon_rnn_lm(mt, cfg)
+        np.random.seed(seed)
+        net.collect_params().initialize(mt.init.Xavier(), ctx=ctx)
+        nets[name] = net
+    src = {k[len(nets["gpu"].prefix):]: p.data().asnumpy()
+           for k, p in nets["gpu"].collect_params().items()}
+    mt.convert.gluon_params_from_mxtpu(src, mt.cpu(), nets["cpu64"])
+    nets["cpu64"].cast("float64")
+    grads = {}
+    for name, net in nets.items():
+        ctx = mt.gpu(0) if name == "gpu" else mt.cpu()
+        dt = "float64" if name == "cpu64" else "float32"
+        x = mt.nd.array(ids[:, :-1], ctx=ctx, dtype=dt)
+        y = mt.nd.array(ids[:, 1:], ctx=ctx, dtype=dt)
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        grads[name] = {k[len(net.prefix):]: p.grad().asnumpy().astype(
+            np.float64) for k, p in net.collect_params().items()}
+    worst, by = rnn_grad_gate(grads["gpu"], grads["cpu64"],
+                              "Gluon LSTM LM first step (B=%d, T=%d)"
+                              % (b, t))
+    if not worst <= RNN_GRAD_TOL:
+        raise AssertionError("Gluon LSTM LM: the card's first step is %.3e "
+                             "off float64 (gate %g)" % (worst, RNN_GRAD_TOL))
+    net = nets["gpu"]
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": RNN_GLUON["lr"],
+                                "momentum": RNN_OPT["momentum"]})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = mt.nd.array(ids[:, :-1], ctx=mt.gpu(0))
+    y = mt.nd.array(ids[:, 1:], ctx=mt.gpu(0))
+    runs = {}
+    for mode in ("imperative", "hybridized"):
+        if mode == "hybridized":
+            net.hybridize()
+        ms, losses = [], []
+        for i in range(RNN_GLUON["steps"] + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with mt.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(b)
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss.mean().asnumpy()))
+        runs[mode] = {"step_ms": ms, "step_ms_median": float(np.median(ms)),
+                      "loss": losses}
+        log("  [%s] Gluon LSTM LM %s: step ms %s (median %.2f), loss %s"
+            % (card, mode, [round(v, 2) for v in ms],
+               runs[mode]["step_ms_median"], [round(v, 4) for v in losses]))
+    allloss = runs["imperative"]["loss"] + runs["hybridized"]["loss"]
+    if not np.all(np.isfinite(allloss)) or not allloss[-1] < allloss[0]:
+        raise AssertionError("Gluon LSTM LM: loss did not fall: %s"
+                             % allloss)
+    return {"first_step_err": worst, "first_step_by": by, "runs": runs}
+
+
+def phase_rnn(mt, seed, card):
+    """Phase 10: the RNN op on cuDNN against the loop; BASELINE config 4
+    (the LSTM bucketing LM) trained through BucketingModule.fit, unfused
+    and --fused; Gluon's rnn.LSTM."""
+    from mxtpu_torch.ops import rnn
+    cfg = RNN_LM
+    res = {"op": rnn_op_checks(mt, seed, card)}
+    sentences = rnn_sentences(seed, RNN_TRAIN["sentences"], cfg["vocab"],
+                              *RNN_TRAIN["lengths"])
+    counts = np.bincount([int(np.searchsorted(cfg["buckets"], len(s)))
+                          for s in sentences], minlength=len(cfg["buckets"]))
+    log("  corpus: %d seeded sentences, %d-%d ids, %d words; sentences by "
+        "bucket %s" % (len(sentences), RNN_TRAIN["lengths"][0],
+                       RNN_TRAIN["lengths"][1],
+                       sum(len(s) for s in sentences),
+                       dict(zip(cfg["buckets"], counts.tolist()))))
+    for fused in (False, True):
+        before = dict(rnn.ROUTES)
+        name = "fused" if fused else "unfused"
+        res[name] = rnn_variant(mt, seed, card, fused, sentences)
+        res[name]["routes"] = {k: rnn.ROUTES[k] - before[k]
+                               for k in rnn.ROUTES}
+        if fused != (res[name]["routes"]["cudnn"] > 0):
+            raise AssertionError("%s: RNN routes %s" % (name,
+                                                        res[name]["routes"]))
+    res["gluon"] = rnn_gluon(mt, seed, card)
+    torch.cuda.empty_cache()
+    return res
+
+
+def mp_lstm_symbol(mt, cfg):
+    """examples/rnn/model_parallel_lstm.py's build_symbol: the embedding
+    and the first unrolled LSTM in ctx group 'embed_rnn1', the second LSTM
+    and the head in 'rnn2_head'."""
+    h, vocab, t = cfg["hidden"], cfg["vocab"], cfg["seq_len"]
+    with mt.AttrScope(ctx_group="embed_rnn1"):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data, input_dim=vocab, output_dim=h,
+                                 name="embed")
+        cell1 = mt.rnn.LSTMCell(num_hidden=h, prefix="lstm1_")
+        out1, _ = cell1.unroll(t, inputs=embed, merge_outputs=True,
+                               layout="NTC")
+    with mt.AttrScope(ctx_group="rnn2_head"):
+        cell2 = mt.rnn.LSTMCell(num_hidden=h, prefix="lstm2_")
+        out2, _ = cell2.unroll(t, inputs=out1, merge_outputs=True,
+                               layout="NTC")
+        flat = mt.sym.Reshape(out2, shape=(-1, h))
+        fc = mt.sym.FullyConnected(flat, num_hidden=vocab, name="fc")
+        lbl = mt.sym.Reshape(label, shape=(-1,))
+        return mt.sym.SoftmaxOutput(fc, lbl, name="softmax",
+                                    normalization="batch")
+
+
+def multi_group2ctx(mt, seed, card):
+    """``--multi-gpu``'s group2ctx phase: the model-parallel LSTM at
+    config 4's widths with 'embed_rnn1' on gpu(0) and 'rnn2_head' on
+    gpu(1) (``simple_bind(group2ctx=...)``: each variable on its group's
+    card), a few SGD steps through the Executor, against the same net on
+    gpu(0) alone from the same weights and batches. Gates: outputs and
+    weights within MP_LSTM["tol"] (printed: bit-identical or not); under
+    the profiler both cards run kernels in the split step, one card in
+    the other."""
+    cfg = MP_LSTM
+    b, t = cfg["batch"], cfg["seq_len"]
+    net = mp_lstm_symbol(mt, cfg)
+    shapes = dict(zip(net.list_arguments(), net.infer_shape(
+        data=(b, t), softmax_label=(b, t))[0]))
+    params = [n for n in shapes if n not in ("data", "softmax_label")]
+    np.random.seed(seed + 4)
+    w0 = {}
+    for n in params:
+        w0[n] = np.zeros(shapes[n], np.float32)
+        if n.endswith("weight"):
+            mt.init.Xavier()._init_weight(n, w0[n])
+    rng = np.random.RandomState(seed + 5)
+    tokens = rng.randint(0, cfg["vocab"], (cfg["steps"], b, t + 1)).astype(
+        np.float32)
+    reqs = {n: ("write" if n in w0 else "null") for n in shapes}
+    runs = {}
+    for name, g2c in (("split", {"embed_rnn1": mt.gpu(0),
+                                 "rnn2_head": mt.gpu(1)}),
+                      ("one_card", None)):
+        exe = net.simple_bind(mt.gpu(0), grad_req=reqs, group2ctx=g2c,
+                              data=(b, t), softmax_label=(b, t))
+        for n, v in w0.items():
+            exe.arg_dict[n][:] = v
+
+        def step(batch):
+            exe.arg_dict["data"][:] = batch[:, :-1]
+            exe.arg_dict["softmax_label"][:] = batch[:, 1:]
+            out = exe.forward(is_train=True)[0]
+            exe.backward()
+            with torch.no_grad():
+                for n in w0:
+                    exe.arg_dict[n]._data.sub_(
+                        cfg["lr"] * exe.grad_dict[n]._data)
+            return out
+
+        outs, ms = [], []
+        for batch in tokens:
+            for i in range(2):
+                torch.cuda.synchronize(i)
+            t1 = time.perf_counter()
+            out = step(batch)
+            for i in range(2):
+                torch.cuda.synchronize(i)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            outs.append(out.asnumpy())
+        weights = {n: exe.arg_dict[n].asnumpy() for n in w0}
+        places = sorted({str(exe.arg_dict[n].context) for n in w0})
+        kernels = step_kernels(lambda: step(tokens[0]))
+        runs[name] = {"outs": outs, "weights": weights, "step_ms": ms,
+                      "copies": exe.cross_device_copies,
+                      "kernels_by_device": kernels, "places": places,
+                      "out_device": str(out.context)}
+        log("  [%s] model-parallel LSTM %s: step ms %s; cross-device copies "
+            "a forward %d (each carried back once by the backward); "
+            "parameters on %s; kernels by device %s"
+            % (card, name, [round(v, 2) for v in ms],
+               exe.cross_device_copies, places,
+               {k: (v[0], round(v[1], 3)) for k, v in kernels.items()}))
+        del exe
+    split, one = runs["split"], runs["one_card"]
+    out_err = max(float(np.abs(a - b_).max())
+                  for a, b_ in zip(split["outs"], one["outs"]))
+    w_err = max(float(np.abs(split["weights"][n] - one["weights"][n]).max())
+                for n in w0)
+    same = out_err == 0.0 and w_err == 0.0
+    log("  split vs one card over %d steps: outputs max abs diff %.3e, "
+        "weights %.3e (%s)" % (cfg["steps"], out_err, w_err,
+                               "bit-identical" if same else
+                               "not bit-identical"))
+    if not (out_err <= cfg["tol"] and w_err <= cfg["tol"]):
+        raise AssertionError("group2ctx: the split net is %.3e / %.3e from "
+                             "one card (gate %g)" % (out_err, w_err,
+                                                     cfg["tol"]))
+    busy = split["kernels_by_device"]
+    if not (busy.get(0, (0,))[0] > 0 and busy.get(1, (0,))[0] > 0):
+        raise AssertionError("group2ctx: kernels by device %s: each group "
+                             "must run on its own card" % busy)
+    if set(one["kernels_by_device"]) != {0}:
+        raise AssertionError("group2ctx: the one-card net ran kernels on %s"
+                             % one["kernels_by_device"])
+    if split["places"] != ["gpu(0)", "gpu(1)"] or split["copies"] < 1:
+        raise AssertionError("group2ctx: placement %s, %d copies"
+                             % (split["places"], split["copies"]))
+    return {"out_err": out_err, "weight_err": w_err, "bit_identical": same,
+            "split_step_ms": split["step_ms"],
+            "one_card_step_ms": one["step_ms"],
+            "copies_per_forward": split["copies"],
+            "kernels_by_device": {
+                k: {str(d): list(v) for d, v in r["kernels_by_device"].items()}
+                for k, r in runs.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -3730,6 +4562,11 @@ def main(argv=None):
     ap.add_argument("--multi-gpu", action="store_true",
                     help="run the data-parallel paths over 4 cards instead "
                          "of the phases (raises below 4 CUDA devices)")
+    ap.add_argument("--multi-phases", default=",".join(MULTI_PHASES),
+                    help="with --multi-gpu, a comma-separated subset of %s "
+                         "(the summary line and the device line are "
+                         "printed only when every one ran)"
+                    % ",".join(MULTI_PHASES))
     ap.add_argument("--dist-worker", action="store_true",
                     help=argparse.SUPPRESS)  # one rank of --multi-gpu
     args = ap.parse_args(argv)
@@ -3824,6 +4661,10 @@ def main(argv=None):
         log("[data_parallel]")
         results["data_parallel"] = phase_data_parallel(
             mt, epi, args.seed, card, results.get("resnet_training"))
+    # 10. the LSTM bucketing LM (BASELINE config 4)
+    if "rnn" in phases:
+        log("[rnn]")
+        results["rnn"] = phase_rnn(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

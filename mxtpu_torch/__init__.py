@@ -31,6 +31,8 @@ from . import base
 from .base import MXNetError
 from . import context
 from .context import Context, cpu, current_context, gpu, num_gpus
+from . import attribute
+from .attribute import AttrScope
 from . import ops
 from . import symbol
 from . import symbol as sym
@@ -57,13 +59,15 @@ from . import model
 from . import callback
 from . import module
 from . import module as mod
+from . import rnn
 from . import gluon
 from . import sharding
 from . import parallel
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+__all__ = ["MXNetError", "AttrScope", "attribute", "Context", "cpu", "gpu",
+           "current_context",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
            "metric", "io", "kvstore", "kv", "model", "callback", "module", "mod",
-           "autograd", "gluon", "sharding", "parallel"]
+           "autograd", "gluon", "sharding", "parallel", "rnn"]

@@ -2,7 +2,10 @@
 
 Both packages name parameters alike (``arg:``/``aux:`` prefixes, the same
 symbol variable names) and store FullyConnected weights as
-``(num_hidden, in)``, so the conversion copies values one to one. Gluon
+``(num_hidden, in)``, so the conversion copies values one to one; a
+fused RNN's flat ``parameters`` vector is the same blob in both packages
+(``ops/rnn.py``), and ``FusedRNNCell.unpack_weights`` names its pieces
+alike, so RNN checkpoints cross unchanged too. Gluon
 parameters are matched with the block's prefix stripped: both packages
 count block names process-wide (``mxtpu/gluon/block.py:68``), so the
 same net gets other prefixes in the two packages, and from run to run.

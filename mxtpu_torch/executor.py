@@ -38,9 +38,10 @@ from .base import MXNetError
 from .context import as_context, current_context
 from .ndarray import NDArray
 from .ops.nn import bn_relu_inference
-from .ops.registry import write_aux
+from .ops.registry import torch_dtype, write_aux
 
-__all__ = ["Executor", "forward_replicas", "backward_replicas"]
+__all__ = ["Executor", "simple_bind", "forward_replicas",
+           "backward_replicas"]
 
 
 def _fusable_bn(node, consumers, graph_outputs):
@@ -71,7 +72,8 @@ def _aux_sources(node, attrs):
     return out
 
 
-def _trace_graph(symbol, is_train, fuse=True):
+def _trace_graph(symbol, is_train, fuse=True, placements=None,
+                 default_device=None):
     """Return ``run(arg_vals, aux_vals) -> (outputs, aux_updates)`` for
     ``symbol``; ``aux_updates`` maps an aux variable's name to the value
     the op it feeds computed for it in a training run (later writers
@@ -86,7 +88,16 @@ def _trace_graph(symbol, is_train, fuse=True):
     walks the plan over several replicas in lockstep
     (``forward_replicas``). ``fuse=False`` keeps
     an inference plan unfused, for a caller that differentiates it (the
-    epilogue kernel has no gradient); training plans never fuse."""
+    epilogue kernel has no gradient); training plans never fuse.
+
+    ``placements`` (group2ctx: a ``__ctx_group__`` name -> torch.device)
+    puts each node on its group's device, and every other op node on
+    ``default_device``: an input on another device crosses with
+    ``.to(device)``, which torch's autograd carries back in the backward
+    (the reference's ``_CrossDeviceCopy``; mxtpu/executor.py:120-179).
+    ``run.copies`` counts the crossings of the last run. An op with no
+    tensor inputs (``_zeros``) makes its output on its node's device, or
+    on the ``device`` given to ``run`` (default: the first argument's)."""
     fuse = fuse and not is_train
     topo = symbol._topo()
     aux_nodes = symbol._aux_node_set()
@@ -97,9 +108,10 @@ def _trace_graph(symbol, is_train, fuse=True):
             consumers.setdefault(id(n), []).append(node)
     fused_into = set()  # ids of the Activation nodes folded into a BN step
     plan = []
+    placements = placements or {}
     for node in topo:
         if node.is_variable:
-            plan.append((node, None, None, None, None, ()))
+            plan.append((node, None, None, None, None, (), None))
             continue
         if id(node) in fused_into:
             continue
@@ -108,30 +120,47 @@ def _trace_graph(symbol, is_train, fuse=True):
             attrs = type(attrs)(attrs)
             attrs["__is_train__"] = is_train
         ins = [(id(n), i) for n, i in node.inputs]
+        dev = placements.get(node._extra_attrs.get("__ctx_group__"),
+                             default_device) if placements else None
         relu = _fusable_bn(node, consumers, graph_outputs) \
             if fuse else None
         if relu is not None:
             fused_into.add(id(relu))
-            plan.append((node, attrs, ins, 1, (id(relu), 0), ()))
+            plan.append((node, attrs, ins, 1, (id(relu), 0), (), dev))
         else:
             aux = _aux_sources(node, attrs) \
                 if is_train and node.op.aux_names else ()
-            plan.append((node, attrs, ins, node.op.n_out(attrs), None, aux))
+            plan.append((node, attrs, ins, node.op.n_out(attrs), None, aux,
+                         dev))
     out_entries = [(id(n), i) for n, i in symbol._outputs]
 
-    def run_replicas(arg_list, aux_list):
+    def run_replicas(arg_list, aux_list, devices=None):
         """The plan over replicas in lockstep, one value set per replica
         (one: the plain walk): ([outputs of each], [aux_updates of
-        each]). Over several, each op runs by its ``replica_mode``."""
+        each]). Over several, each op runs by its ``replica_mode``.
+        ``devices``: each replica's device, for the ops with no tensor
+        inputs (default: each replica's first argument's)."""
+        if placements and len(arg_list) > 1:
+            raise MXNetError("group2ctx placement runs one replica")
+        if devices is None:
+            devices = [next((t.device for t in args.values()),
+                            torch.device("cpu")) for args in arg_list]
         envs = [{} for _ in arg_list]
         updates = [{} for _ in arg_list]
-        for node, attrs, ins, n_vis, fused_out, aux in plan:
+        copies = 0
+        for node, attrs, ins, n_vis, fused_out, aux, dev in plan:
             if attrs is None:
                 for env, args, auxs in zip(envs, arg_list, aux_list):
                     src = auxs if id(node) in aux_nodes else args
                     env[(id(node), 0)] = src[node.name]
                 continue
             inputs = [[env[k] for k in ins] for env in envs]
+            if dev is not None:
+                x = inputs[0]
+                for j, t in enumerate(x):
+                    if t.device != dev:
+                        x[j] = t.to(dev)
+                        copies += 1
             if fused_out is not None:
                 for env, x in zip(envs, inputs):
                     env[fused_out] = bn_relu_inference(attrs, *x)
@@ -139,7 +168,8 @@ def _trace_graph(symbol, is_train, fuse=True):
             mode = "rows" if len(envs) == 1 else node.op.replica_mode(
                 attrs, inputs[0][0].ndim if inputs[0] else 0)
             if mode == "rows":
-                outs = [node.op.apply(attrs, x) for x in inputs]
+                outs = [node.op.apply(attrs, x, dev or d)
+                        for x, d in zip(inputs, devices)]
             elif mode == "group":
                 outs = node.op.group_fn(attrs, inputs)
             else:
@@ -152,24 +182,32 @@ def _trace_graph(symbol, is_train, fuse=True):
                     env[(id(node), i)] = o[i]
                 for j, name in aux:
                     upd[name] = o[n_vis + j]
+        run.copies = copies
         return [[env[e] for e in out_entries] for env in envs], updates
 
-    def run(arg_vals, aux_vals):
-        outs, updates = run_replicas([arg_vals], [aux_vals])
+    def run(arg_vals, aux_vals, device=None):
+        outs, updates = run_replicas([arg_vals], [aux_vals],
+                                     None if device is None else [device])
         return outs[0], updates[0]
 
     run.fused_sites = len(fused_into)
     run.replicas = run_replicas
+    run.copies = 0
     return run
 
 
 class Executor:
-    """Bound computation on one device context."""
+    """Bound computation on one device context; with ``group2ctx`` (a
+    ``__ctx_group__`` name -> Context) each tagged node computes on its
+    group's context and every other op node on ``ctx``."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None):
+                 aux_states=None, group2ctx=None):
         self._symbol = symbol
         self._ctx = as_context(ctx) if ctx is not None else current_context()
+        self._device = self._ctx.torch_device
+        self._placements = {g: as_context(c).torch_device
+                            for g, c in (group2ctx or {}).items()} or None
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -190,6 +228,7 @@ class Executor:
         self.grad_dict = {} if args_grad is None else self._as_dict(
             args_grad, self.arg_names, "args_grad", allow_missing=True)
         self.outputs = []
+        self.cross_device_copies = 0  # inputs moved in the last forward
         self._runs = {}     # is_train -> the plan's run function
         self._tape = None   # (outputs with their graph, {name: leaf})
 
@@ -206,8 +245,14 @@ class Executor:
     def _run(self, is_train):
         run = self._runs.get(is_train)
         if run is None:
-            run = self._runs[is_train] = _trace_graph(self._symbol, is_train)
+            run = self._runs[is_train] = _trace_graph(
+                self._symbol, is_train, placements=self._placements,
+                default_device=self._device)
         return run
+
+    def _wrap(self, t):
+        """An output as an NDArray on its own device's context."""
+        return NDArray(t, self._ctx if t.device == self._device else None)
 
     def _grad_names(self):
         return [n for n in self.arg_names
@@ -237,7 +282,7 @@ class Executor:
         write_aux({n: a._data for n, a in self.aux_dict.items()},
                   aux_updates)
         self._tape = (outs, leaves)
-        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        self.outputs = [self._wrap(o.detach()) for o in outs]
         return self.outputs
 
     def forward(self, is_train=False, **kwargs):
@@ -246,12 +291,15 @@ class Executor:
         if not is_train:
             raw_args, raw_aux = self._inputs(kwargs)
             with torch.inference_mode():
-                outs, _ = self._run(False)(raw_args, raw_aux)
-            self.outputs = [NDArray(o, self._ctx) for o in outs]
+                outs, _ = self._run(False)(raw_args, raw_aux, self._device)
+            self.cross_device_copies = self._run(False).copies
+            self.outputs = [self._wrap(o) for o in outs]
             return self.outputs
         raw_args, raw_aux, leaves = self._train_inputs(kwargs)
         with torch.enable_grad():
-            outs, aux_updates = self._run(True)(raw_args, raw_aux)
+            outs, aux_updates = self._run(True)(raw_args, raw_aux,
+                                                self._device)
+        self.cross_device_copies = self._run(True).copies
         return self._trained(outs, aux_updates, leaves)
 
     def _backward_terms(self, out_grads):
@@ -323,7 +371,8 @@ def forward_replicas(executors):
     ins = [ex._train_inputs({}) for ex in executors]
     with torch.enable_grad():
         outs, updates = executors[0]._run(True).replicas(
-            [a for a, _, _ in ins], [x for _, x, _ in ins])
+            [a for a, _, _ in ins], [x for _, x, _ in ins],
+            [ex._device for ex in executors])
     return [ex._trained(o, u, leaves) for ex, o, u, (_, _, leaves)
             in zip(executors, outs, updates, ins)]
 
@@ -351,3 +400,46 @@ def backward_replicas(executors, out_grads=None):
         if names:
             ex._write_grads(names, grads[k:k + len(names)])
         k += len(names)
+
+
+def simple_bind(symbol, ctx=None, grad_req="write", type_dict=None,
+                group2ctx=None, shared_exec=None, **shapes):
+    """An Executor with zero arrays allocated from the shapes inferred
+    from ``shapes`` (mxtpu/executor.py:857-906): each argument, gradient
+    (where ``grad_req`` is not "null") and aux array is ``shared_exec``'s
+    of that name and shape where it has one, else new, on the context of
+    the variable's ``__ctx_group__`` under ``group2ctx``, else on ``ctx``.
+    dtypes come from ``type_dict`` (default float32)."""
+    ctx = as_context(ctx) if ctx is not None else current_context()
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+    type_dict = type_dict or {}
+    arg_names = symbol.list_arguments()
+    aux_names = symbol.list_auxiliary_states()
+    if isinstance(grad_req, str):
+        req_of = {n: grad_req for n in arg_names}
+    elif isinstance(grad_req, (list, tuple)):
+        req_of = dict(zip(arg_names, grad_req))
+    else:
+        req_of = {n: grad_req.get(n, "null") for n in arg_names}
+    groups = {n.name: n._extra_attrs.get("__ctx_group__")
+              for n in symbol._topo() if n.is_variable}
+    home = {n: as_context((group2ctx or {}).get(groups.get(n), ctx))
+            for n in arg_names + aux_names}
+
+    def array(name, shape, shared):
+        got = shared.get(name) if shared_exec is not None else None
+        if got is not None and got.shape == tuple(shape):
+            return got
+        c = home[name]
+        return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(
+            type_dict.get(name, "float32")), device=c.torch_device), c)
+
+    args = {n: array(n, s, getattr(shared_exec, "arg_dict", {}))
+            for n, s in zip(arg_names, arg_shapes)}
+    grads = {n: array(n, args[n].shape,
+                      getattr(shared_exec, "grad_dict", {}))
+             for n in arg_names if req_of.get(n, "null") != "null"}
+    aux = {n: array(n, s, getattr(shared_exec, "aux_dict", {}))
+           for n, s in zip(aux_names, aux_shapes)}
+    return Executor(symbol, ctx, args, args_grad=grads, grad_req=req_of,
+                    aux_states=aux, group2ctx=group2ctx)

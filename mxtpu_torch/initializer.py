@@ -4,7 +4,8 @@ The port's own copy of the parts of ``mxtpu/initializer.py`` that Module
 uses: ``InitDesc``, the name-suffix dispatch of ``Initializer.__call__``
 (bias/beta -> 0, gamma -> 1, weight -> the rule, moving statistics ->
 0/1), ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal`` and
-``Xavier``, plus ``create``/``register``. Random draws come from numpy's
+``Xavier``, ``LSTMBias`` and ``FusedRNN`` (mxtpu/initializer.py:210-285),
+plus ``create``/``register``. Random draws come from numpy's
 global RNG, so ``numpy.random.seed`` fixes the initial weights run to
 run. (The JAX package draws Uniform/Normal/Xavier from its threefry key
 chain, so the two packages' weights differ for the same seed; tests that
@@ -21,7 +22,7 @@ import numpy as _np
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Xavier", "LSTMBias", "FusedRNN", "register", "create"]
 
 _REG = {}
 
@@ -59,6 +60,11 @@ class Initializer:
         elif name.endswith("beta"):
             self._init_beta(name, arr)
         elif name.endswith("weight"):
+            self._init_weight(name, arr)
+        elif name.endswith("parameters"):
+            # a fused RNN's flat vector: a structured initializer sees one
+            # 1-D blob here; FusedRNNCell's variable carries FusedRNN,
+            # which initializes each matrix of the blob
             self._init_weight(name, arr)
         elif name.endswith("moving_mean") or name.endswith("running_mean"):
             self._init_zero(name, arr)
@@ -174,3 +180,69 @@ class Xavier(Initializer):
         else:
             w = _np.random.normal(0.0, scale, shape)
         arr[:] = w.astype(_np.float32)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros with the forget gate's quarter set to ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        a = _np.zeros(arr.shape, dtype="float32")
+        num_hidden = arr.shape[0] // 4
+        a[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = a
+
+    _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """A FusedRNNCell's flat ``parameters`` vector, initialized as mxtpu
+    does it: unpacked into per-gate matrices, the wrapped initializer run
+    on each weight matrix (so Xavier sees each matrix's fans), the biases
+    zero but the LSTM's i2h forget bias ``forget_bias``, and repacked."""
+
+    def __init__(self, init=None, num_hidden=0, num_layers=0, mode="lstm",
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        self._init = init or Uniform(0.07)
+        super().__init__(init=self._init.dumps(), num_hidden=int(num_hidden),
+                         num_layers=int(num_layers), mode=mode,
+                         bidirectional=bool(bidirectional),
+                         forget_bias=float(forget_bias))
+        self._num_hidden = int(num_hidden)
+        self._num_layers = int(num_layers)
+        self._mode = mode
+        self._bidirectional = bool(bidirectional)
+        self._forget_bias = float(forget_bias)
+
+    def _init_weight(self, name, arr):
+        from .ops.rnn import (rnn_infer_input_size, rnn_pack_weights,
+                              rnn_unpack_weights)
+        if not (self._num_hidden and self._num_layers):
+            self._init._init_weight(name, arr)
+            return
+        h, L = self._num_hidden, self._num_layers
+        size = int(_np.prod(arr.shape))
+        num_input = rnn_infer_input_size(size, L, h, self._mode,
+                                         self._bidirectional)
+        pieces = rnn_unpack_weights(_np.zeros(size, _np.float32), L,
+                                    num_input, h, self._mode,
+                                    self._bidirectional)
+        for k, v in pieces.items():
+            if k.endswith("_weight"):
+                tmp = _np.zeros(v.shape, "float32")
+                self._init._init_weight(k, tmp)
+                pieces[k] = tmp
+            elif "i2h_f_bias" in k and self._mode == "lstm":
+                pieces[k] = _np.full(v.shape, self._forget_bias, "float32")
+            else:
+                pieces[k] = _np.zeros(v.shape, "float32")
+        arr[:] = rnn_pack_weights(pieces, L, num_input, h, self._mode,
+                                  self._bidirectional).reshape(arr.shape)

@@ -1,0 +1,237 @@
+"""BucketingModule: one Module per bucket key over one set of parameters.
+
+Counterpart of ``mxtpu/module/bucketing_module.py`` (parity: python/
+mxnet/module/bucketing_module.py:56): ``sym_gen(bucket_key)`` gives each
+bucket's symbol; the default bucket's Module binds first, and each other
+bucket's Module binds with ``shared_module=`` the default one, so its
+executors run over the same parameter, gradient and aux tensors, and
+``borrow_optimizer``s it, so its update advances the same weights and the
+same optimizer state (the fused step's, when armed: ``FusedTrainStep``
+``state=``). ``switch_bucket`` (:131), ``prepare``, ``forward_backward``
+through the bucket's own fused step, ``update``, ``init_optimizer``
+(:151) and the checkpoint methods are mxtpu's. ``context`` is taken as
+mxtpu takes it (default: the current context, gpu(0)).
+"""
+from __future__ import annotations
+
+import logging
+
+from ..base import MXNetError
+from ..context import context_list, current_context
+from .base_module import BaseModule
+from .module import Module
+
+__all__ = ["BucketingModule"]
+
+
+class BucketingModule(BaseModule):
+    def __init__(self, sym_gen, default_bucket_key=None, logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None):
+        super().__init__(logger=logger)
+        if default_bucket_key is None:
+            raise MXNetError("BucketingModule needs a default_bucket_key")
+        self._default_bucket_key = default_bucket_key
+        self._sym_gen = sym_gen
+        self._context = context_list(context if context is not None
+                                     else current_context())
+        self._device = self._context[0].torch_device
+        self._work_load_list = work_load_list
+        self._fixed_param_names = fixed_param_names
+        self._state_names = state_names
+        self._buckets = {}
+        self._curr_module = None
+        self._curr_bucket_key = None
+
+    def _reset_bind(self):
+        self.binded = False
+        self._buckets = {}
+        self._curr_module = None
+        self._curr_bucket_key = None
+
+    @property
+    def data_names(self):
+        if self.binded:
+            return self._curr_module.data_names
+        return self._sym_gen(self._default_bucket_key)[1]
+
+    @property
+    def output_names(self):
+        if self.binded:
+            return self._curr_module.output_names
+        return self._sym_gen(self._default_bucket_key)[0].list_outputs()
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._curr_module.data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._curr_module.label_shapes
+
+    @property
+    def symbol(self):
+        assert self.binded
+        return self._curr_module.symbol
+
+    @property
+    def buckets(self):
+        """{bucket key: its bound Module}."""
+        return dict(self._buckets)
+
+    def _module(self, bucket_key):
+        symbol, data_names, label_names = self._sym_gen(bucket_key)
+        return Module(symbol, data_names, label_names, logger=self.logger,
+                      context=self._context,
+                      work_load_list=self._work_load_list,
+                      fixed_param_names=self._fixed_param_names,
+                      state_names=self._state_names)
+
+    # ------------------------------------------------ params
+    def get_params(self):
+        assert self.binded and self.params_initialized
+        return self._curr_module.get_params()
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        self._curr_module.init_params(initializer=initializer,
+                                      arg_params=arg_params,
+                                      aux_params=aux_params,
+                                      allow_missing=allow_missing,
+                                      force_init=force_init,
+                                      allow_extra=allow_extra)
+        self.params_initialized = True
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._curr_module.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        self._curr_module.set_states(states, value)
+
+    # ------------------------------------------------ bind
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        if shared_module is not None:
+            raise MXNetError("shared_module for BucketingModule is not "
+                             "supported")
+        if force_rebind:
+            self._reset_bind()
+        if self.binded:
+            self.logger.warning("Already binded, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+        module = self._module(self._default_bucket_key)
+        module.bind(data_shapes, label_shapes, for_training, inputs_need_grad,
+                    force_rebind=False, shared_module=None, grad_req=grad_req)
+        self._curr_module = module
+        self._curr_bucket_key = self._default_bucket_key
+        self._buckets[self._default_bucket_key] = module
+
+    def switch_bucket(self, bucket_key, data_shapes, label_shapes=None):
+        """Make ``bucket_key``'s Module current, binding it first over the
+        default bucket's arrays (and borrowing its optimizer) when new."""
+        assert self.binded, "call bind before switching bucket"
+        if bucket_key not in self._buckets:
+            default = self._buckets[self._default_bucket_key]
+            module = self._module(bucket_key)
+            module.bind(data_shapes, label_shapes,
+                        self._curr_module.for_training,
+                        self._curr_module.inputs_need_grad,
+                        force_rebind=False, shared_module=default)
+            if self.optimizer_initialized:
+                module.borrow_optimizer(default)
+            self._buckets[bucket_key] = module
+        self._curr_module = self._buckets[bucket_key]
+        self._curr_bucket_key = bucket_key
+
+    # ------------------------------------------------ optimizer
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, ignoring.")
+            return
+        self._curr_module.init_optimizer(kvstore, optimizer, optimizer_params,
+                                         force_init=force_init)
+        for mod in self._buckets.values():
+            if mod is not self._curr_module:
+                mod.borrow_optimizer(self._curr_module)
+        self.optimizer_initialized = True
+
+    # ------------------------------------------------ compute
+    def prepare(self, data_batch):
+        """Bind the batch's bucket ahead of its step, the current bucket
+        unchanged."""
+        assert self.binded and self.params_initialized
+        key, module = self._curr_bucket_key, self._curr_module
+        self.switch_bucket(data_batch.bucket_key, data_batch.provide_data,
+                           data_batch.provide_label)
+        self._curr_module, self._curr_bucket_key = module, key
+
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        self.switch_bucket(data_batch.bucket_key, data_batch.provide_data,
+                           data_batch.provide_label)
+        self._curr_module.forward(data_batch, is_train=is_train)
+
+    def forward_backward(self, data_batch):
+        """The bucket's own ``forward_backward`` (its fused step when
+        armed, over the shared weights)."""
+        assert self.binded and self.params_initialized
+        self.switch_bucket(data_batch.bucket_key, data_batch.provide_data,
+                           data_batch.provide_label)
+        self._curr_module.forward_backward(data_batch)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._curr_module.backward(out_grads=out_grads)
+
+    def update(self):
+        """One update of the shared weights from the current bucket's
+        gradients."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        self._curr_module.update()
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._curr_module.get_outputs(merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._curr_module.get_input_grads(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        assert self.binded and self.params_initialized
+        self._curr_module.update_metric(eval_metric, labels)
+
+    def _step_views(self):
+        return self._curr_module._step_views()
+
+    def _host_round_trip(self):
+        return self._curr_module is not None and \
+            self._curr_module._host_round_trip()
+
+    # ------------------------------------------------ checkpoints
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """The default bucket's Module's checkpoint (the shared weights)."""
+        self._buckets[self._default_bucket_key].save_checkpoint(
+            prefix, epoch, save_optimizer_states)

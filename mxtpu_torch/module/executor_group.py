@@ -6,8 +6,10 @@ Counterpart of ``mxtpu/module/executor_group.py``: ``_split_input_slice``
 slice's shapes (:101-131), ``set_params``, ``get_params`` averaged over
 the contexts on the host (:143-165), ``forward`` feeding each context its
 rows, ``backward``, ``get_outputs`` merged on the first context,
-``get_input_grads`` and ``update_metric`` per slice. A Module over one
-context is a group of one.
+``get_input_grads`` and ``update_metric`` per slice, and the state
+inputs' ``get_states``/``set_states``. A Module over one context is a
+group of one; ``shared_group`` binds over another group's arrays (the
+buckets of a BucketingModule share one set of parameters).
 
 ``forward(..., coupled=True)`` runs the executors as one function of the
 whole batch (``executor.forward_replicas``): BatchNorm then normalizes
@@ -52,7 +54,8 @@ def _split_input_slice(batch_size, work_load_list):
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write", flat_tail=()):
+                 fixed_param_names=None, grad_req="write", flat_tail=(),
+                 shared_group=None, state_names=()):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(workload or [1] * len(self.contexts))
@@ -69,7 +72,8 @@ class DataParallelExecutorGroup:
         self.flat_tail = frozenset(flat_tail)
         self._coupled = False
         self.execs, self.flat_grads = [], []
-        self.bind_exec(data_shapes, label_shapes)
+        self.state_names = list(state_names)
+        self.bind_exec(data_shapes, label_shapes, shared_group)
 
     # ------------------------------------------------ bind
     def _scaled_slice(self, islice, dim0):
@@ -90,11 +94,20 @@ class DataParallelExecutorGroup:
             return self._grad_req
         return "null"
 
-    def bind_exec(self, data_shapes, label_shapes):
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
         """One executor per context at its slice's shapes; on a rebind
         (a new batch shape) the parameter, gradient and aux arrays of the
-        previous executors are kept."""
+        previous executors are kept, and with ``shared_group`` (another
+        symbol's group over the same contexts: a bucket's) that group's
+        arrays of the same names and shapes and its flat gradient
+        buffers are taken, the same tensors."""
         old, old_flats = self.execs, self.flat_grads
+        if shared_group is not None:
+            if shared_group.contexts != self.contexts:
+                raise MXNetError("shared_module is bound on %s, this "
+                                 "module on %s" % (shared_group.contexts,
+                                                   self.contexts))
+            old, old_flats = shared_group.execs, shared_group.flat_grads
         self.data_shapes, self.label_shapes = data_shapes, label_shapes
         self.data_names = [n for n, _ in data_shapes]
         self.label_names = [n for n, _ in label_shapes]
@@ -126,8 +139,10 @@ class DataParallelExecutorGroup:
         args, reqs, grads = {}, {}, {}
         for name, shape in zip(self.arg_names, arg_shapes):
             reqs[name] = self._req(name)
-            if old is not None and name not in inputs:
-                args[name] = old.arg_dict[name]
+            kept = None if old is None or name in inputs else \
+                old.arg_dict.get(name)
+            if kept is not None and kept.shape == tuple(shape):
+                args[name] = kept
                 if name in old.grad_dict:
                     grads[name] = old.grad_dict[name]
             else:
@@ -154,9 +169,12 @@ class DataParallelExecutorGroup:
         for name, shape in zip(self.arg_names, arg_shapes):
             if reqs[name] != "null" and name not in grads:
                 grads[name] = NDArray(torch.zeros(shape, device=dev), ctx)
-        aux = {n: (old.aux_dict[n] if old is not None else
-                   NDArray(torch.zeros(s, device=dev), ctx))
-               for n, s in zip(self.aux_names, aux_shapes)}
+        aux = {}
+        for n, shape in zip(self.aux_names, aux_shapes):
+            kept = None if old is None else old.aux_dict.get(n)
+            aux[n] = kept if kept is not None and \
+                kept.shape == tuple(shape) else \
+                NDArray(torch.zeros(shape, device=dev), ctx)
         return self.symbol.bind(ctx, args, args_grad=grads, grad_req=reqs,
                                 aux_states=aux), flats
 
@@ -274,6 +292,33 @@ class DataParallelExecutorGroup:
         if merge_multi_context:
             return [self._merge(g) for g in grads]
         return grads
+
+    def get_states(self, merge_multi_context=True):
+        """The state inputs' arrays: per state name, each context's (or
+        merged on the first context)."""
+        states = [[exe.arg_dict[n] for exe in self.execs]
+                  for n in self.state_names]
+        if merge_multi_context:
+            return [self._merge(s) for s in states]
+        return states
+
+    def set_states(self, states=None, value=None):
+        """Copy ``states`` (per state name: one array split over the
+        contexts by rows, or one array per context) or fill ``value``."""
+        if (states is None) == (value is None):
+            raise MXNetError("set_states: give states or value, not both")
+        with torch.no_grad():
+            for i, name in enumerate(self.state_names):
+                dsts = [exe.arg_dict[name] for exe in self.execs]
+                if value is not None:
+                    for d in dsts:
+                        d._data.fill_(value)
+                    continue
+                src = states[i]
+                parts = src if isinstance(src, (list, tuple)) else \
+                    [src[s] for s in self.slices]
+                for d, v in zip(dsts, parts):
+                    d[:] = v
 
     def update_metric(self, eval_metric, labels):
         for exe, s in zip(self.execs, self.slices):

@@ -3,7 +3,9 @@
 Counterpart of ``mxtpu/module/fused.py``: the update rules ``_rule_sgd``,
 ``_rule_nag``, ``_rule_adam``, ``_rule_rmsprop``, ``_rule_adagrad``
 (:64-165) and ``FusedTrainStep`` with its cross-replica weight-update
-sharding (:242-260, 620-632, 708-710, 767-787), without its health taps,
+sharding (:242-260, 620-632, 708-710, 767-787) and the state shared by
+the steps of a BucketingModule's buckets (``state=``, ``adopt_state``),
+without its health taps,
 rematerialization or update groups. The JAX package traces forward,
 backward and the update of every parameter into one donated XLA program
 (``step`` :634-718, :794-864). Eagerly there is no program to fuse them
@@ -224,7 +226,7 @@ class FusedTrainStep:
     replicas end each step with the same bits either way."""
 
     def __init__(self, executors, param_names, optimizer, flat_grads=None,
-                 plan=None):
+                 plan=None, state=None):
         if not isinstance(executors, (list, tuple)):
             executors = [executors]
         ex0 = executors[0]
@@ -259,8 +261,11 @@ class FusedTrainStep:
                 for r in range(len(self.params)):
                     self._sums[r].update(b.g_views[r])
                     self._targets[r].update(b.p_rows[r])
-        self.opt_state = [{n: init(t[n]) for n in self.trainable}
-                          for t in self._targets]
+        if state is None:
+            self.opt_state = [{n: init(t[n]) for n in self.trainable}
+                              for t in self._targets]
+        else:
+            self.adopt_state(state, init)
         # the optimizer's index scheme (Module's idx2name), fresh indices
         # for names it has not seen
         name2idx = {}
@@ -273,6 +278,29 @@ class FusedTrainStep:
                 name2idx[n] = nxt
                 nxt += 1
         self._name_idx = [name2idx[n] for n in self.trainable]
+
+    def adopt_state(self, other, init):
+        """Advance ``other``'s optimizer state (the same dicts, so both
+        steps update one set of moments; mxtpu's ``state=`` and
+        ``adopt_state``, module/fused.py) for the parameters that both
+        update, which must be the same tensors in both (a module bound
+        with ``shared_module``); a parameter only this step updates gets
+        fresh state, added to the shared dicts."""
+        if other.optimizer is not self.optimizer or \
+                len(other.params) != len(self.params):
+            raise MXNetError("a fused step adopts the state of a step over "
+                             "the same optimizer and replicas")
+        for mine, theirs in zip(self.params, other.params):
+            for n in set(mine) & set(theirs):
+                if mine[n].data_ptr() != theirs[n].data_ptr():
+                    raise MXNetError(
+                        "adopt_state: parameter %s is not the shared "
+                        "module's tensor (bind with shared_module)" % n)
+        self.opt_state = other.opt_state
+        for st, t in zip(self.opt_state, self._targets):
+            for n in self.trainable:
+                if n not in st:
+                    st[n] = init(t[n])
 
     def _sharded(self):
         if self._plan is None:

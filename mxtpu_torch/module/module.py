@@ -36,6 +36,15 @@ with mxtpu's warning.
 ``forward`` called directly runs each context on its slice, as mxtpu's
 does; ``get_outputs`` merges them on the first context.
 
+``state_names`` are inputs that are neither data nor parameters (an
+RNN's carried state): bound without a gradient, kept across batches,
+read and written by ``get_states``/``set_states`` as the reference's
+Module does (mxtpu's returns [] there), and, as in mxtpu (:413), they
+keep the fused step disarmed. ``bind(shared_module=...)`` binds over the
+shared module's parameter, gradient and aux tensors (the same storage)
+and ``borrow_optimizer`` its optimizer and fused state: the per-bucket
+modules of ``BucketingModule`` (mxtpu :304-318, :746-766).
+
 Checkpoints (``save_checkpoint``, the static ``load``, ``save_params``,
 ``load_params``, ``save_optimizer_states``, ``load_optimizer_states``;
 mxtpu/module/module.py:101-146, 699-744) write mxtpu's files:
@@ -93,17 +102,19 @@ class Module(BaseModule):
             raise MXNetError("work_load_list has %d entries for %d contexts"
                              % (len(work_load_list), len(self._context)))
         self._work_load_list = list(work_load_list)
-        if state_names:
-            raise MXNetError("Module(state_names=...) is not ported yet")
         self._symbol = symbol
         args = symbol.list_arguments()
         self._data_names = list(data_names or [])
         self._label_names = [n for n in (label_names or []) if n in args]
-        for n in self._data_names:
-            if n not in args:
-                raise MXNetError("data name '%s' is not an argument of the "
-                                 "symbol (%s)" % (n, args))
-        input_names = self._data_names + self._label_names
+        self._state_names = list(state_names or [])
+        for what, names in (("data", self._data_names),
+                            ("state", self._state_names)):
+            for n in names:
+                if n not in args:
+                    raise MXNetError("%s name '%s' is not an argument of "
+                                     "the symbol (%s)" % (what, n, args))
+        input_names = self._data_names + self._label_names + \
+            self._state_names
         self._param_names = [n for n in args if n not in input_names]
         self._fixed_param_names = list(fixed_param_names or [])
         self._aux_names = symbol.list_auxiliary_states()
@@ -205,8 +216,14 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
+        shared_group = None
         if shared_module is not None:
-            raise MXNetError("bind(shared_module=...) is not ported yet")
+            if not (isinstance(shared_module, Module) and
+                    shared_module.binded and
+                    shared_module.params_initialized):
+                raise MXNetError("bind(shared_module=...) takes a Module "
+                                 "that is bound and initialized")
+            shared_group = shared_module._exec_group
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self._grad_req = grad_req
@@ -216,9 +233,12 @@ class Module(BaseModule):
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
             for_training, inputs_need_grad,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            shared_group=shared_group, state_names=self._state_names)
         self.binded = True
-        if self._arg_params is not None:  # a loaded checkpoint
+        if shared_module is not None:
+            self.params_initialized = True
+        elif self._arg_params is not None:  # a loaded checkpoint
             args, auxs = self._arg_params, self._aux_params
             self._arg_params = self._aux_params = None
             self.params_initialized = False
@@ -349,6 +369,7 @@ class Module(BaseModule):
         group = self._exec_group
         n = len(group.contexts)
         if (not self.for_training or self.inputs_need_grad
+                or self._state_names
                 or self._grad_req != "write"
                 or not supports(self._optimizer)
                 or (self._kvstore is not None
@@ -366,6 +387,29 @@ class Module(BaseModule):
         self._fused = FusedTrainStep(group.execs, self._param_names,
                                      self._optimizer, group.flat_grads,
                                      plan=plan)
+
+    def borrow_optimizer(self, shared_module):
+        """Train through ``shared_module``'s optimizer, kvstore and
+        Updater (mxtpu/module/module.py:746-766); with its fused step
+        armed, through a fused step over this module's executors that
+        adopts that step's optimizer state, so every bucket of a
+        BucketingModule advances one set of weights (shared storage,
+        ``bind(shared_module=...)``) and one set of moments."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("borrow_optimizer: the shared module has no "
+                             "optimizer")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        self._fused = None
+        if shared_module._fused is not None:
+            group = self._exec_group
+            self._fused = FusedTrainStep(
+                group.execs, self._param_names, self._optimizer,
+                group.flat_grads, plan=shared_module._fused._plan,
+                state=shared_module._fused)
 
     def _resolve_sharding_plan(self):
         """The ShardingPlan of the active mesh, or None for the contexts'
@@ -403,7 +447,8 @@ class Module(BaseModule):
             self._label_shapes, self._param_names, self.for_training,
             self.inputs_need_grad,
             fixed_param_names=self._fixed_param_names,
-            grad_req=self._grad_req, flat_tail=flat_tail)
+            grad_req=self._grad_req, flat_tail=flat_tail,
+            state_names=self._state_names)
         ex = old.execs[0]
         self._exec_group.set_params(
             {n: ex.arg_dict[n] for n in self._param_names},
@@ -464,6 +509,18 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
+
+    def get_states(self, merge_multi_context=True):
+        """The arrays of the ``state_names`` inputs (per context unless
+        merged; the reference's Module.get_states)."""
+        assert self.binded and self.params_initialized
+        return self._exec_group.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        """Write ``states`` (one array, or one list of per-context arrays,
+        per state name) or the scalar ``value`` into the state inputs."""
+        assert self.binded and self.params_initialized
+        self._exec_group.set_states(states, value)
 
     def _step_views(self):
         """[(labels, outputs)] of the last step, one pair per context, on

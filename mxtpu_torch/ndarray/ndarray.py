@@ -28,7 +28,7 @@ import torch
 
 from .. import autograd as _ag
 from ..base import MXNetError
-from ..context import as_context, cpu, current_context
+from ..context import Context, as_context, cpu, current_context
 from ..ops.registry import get_op, torch_dtype, write_aux
 
 __all__ = ["NDArray", "array", "invoke_op", "imperative_invoke", "waitall",
@@ -37,10 +37,14 @@ __all__ = ["NDArray", "array", "invoke_op", "imperative_invoke", "waitall",
 
 
 def to_numpy(t):
-    """Host numpy copy of a tensor (bfloat16 widened to float32)."""
+    """Host numpy copy of a tensor (bfloat16 widened to float32). A CPU
+    tensor is copied too: ``.numpy()`` would share its storage, and a
+    later in-place write (an update) would show in the caller's array."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
+    if t.device.type == "cpu":
+        return t.numpy().copy()
     return t.cpu().numpy()
 
 
@@ -420,9 +424,11 @@ def invoke_op(name, nd_inputs, attr_kwargs, out=None):
     if "__is_train__" in op.attrs_spec:
         attrs.setdefault("__is_train__", _ag.is_training())
     parsed = op.parse_attrs(attrs)
+    ctx = nd_inputs[0]._ctx if nd_inputs else \
+        _ctx_attr(attr_kwargs.get("ctx"))
     with _ag.grad_mode():
-        outs = op.apply(parsed, [x._data for x in nd_inputs])
-    ctx = nd_inputs[0]._ctx if nd_inputs else current_context()
+        outs = op.apply(parsed, [x._data for x in nd_inputs],
+                        ctx.torch_device)
     n_vis = op.n_out(parsed)
     if op.aux_names and len(outs) > n_vis:
         names = op.input_names(parsed)
@@ -442,6 +448,17 @@ def invoke_op(name, nd_inputs, attr_kwargs, out=None):
 
 
 imperative_invoke = invoke_op
+
+
+def _ctx_attr(ctx):
+    """The context of an op with no tensor inputs: its ``ctx`` attr (a
+    Context, or text such as "gpu(1)"), else the current context."""
+    if ctx is None or ctx == "":
+        return current_context()
+    if isinstance(ctx, str):
+        kind, _, rest = ctx.partition("(")
+        return Context(kind.strip(), int(rest.rstrip(")") or 0))
+    return as_context(ctx)
 
 
 def waitall():

@@ -5,6 +5,7 @@ from . import tensor
 from . import epilogue
 from . import nn
 from . import attention
+from . import rnn
 
 __all__ = ["registry", "collective", "tensor", "epilogue", "nn",
-           "attention"]
+           "attention", "rnn"]

@@ -8,7 +8,10 @@ the updated moving statistics returned for the executor to write back),
 ``LayerNorm`` (:274), ``Activation`` (:295), ``LeakyReLU`` (:313),
 ``softmax`` and ``log_softmax`` (:320-323), ``SoftmaxOutput`` (:382,
 with the loss head's own gradient, :357-377), ``Dropout`` (:484, drawing
-its mask from ``random.generator``) and ``Concat`` (:543). Matrix products and
+its mask from ``random.generator``), ``Concat`` (:543), ``SliceChannel``
+(:556, alias ``split``) and the sequence ops ``SequenceLast``,
+``SequenceMask`` and ``SequenceReverse`` (:638-668, time-major, with
+``use_sequence_length``). Matrix products and
 convolutions go to ``torch.nn.functional`` (cuBLAS, cuDNN), as the JAX
 package leaves them to XLA; their gradients are torch's autograd.
 
@@ -530,7 +533,74 @@ register("Concat", lambda a, *xs: torch.cat(xs, dim=int(a.dim)),
          aliases=("concat",))
 
 
+def _slice_channel(a, x):
+    ax, n = int(a.axis), int(a.num_outputs)
+    if x.shape[ax] % n:
+        raise MXNetError("SliceChannel: axis %d of size %d does not split "
+                         "into %d equal parts" % (ax, x.shape[ax], n))
+    parts = x.split(x.shape[ax] // n, dim=ax)
+    if a.squeeze_axis:
+        parts = [p.squeeze(ax) for p in parts]
+    return tuple(parts)
+
+
+register("SliceChannel", _slice_channel,
+         attrs={"num_outputs": Required(int), "axis": 1,
+                "squeeze_axis": False},
+         num_outputs=lambda a: int(a.num_outputs), aliases=("split",))
+
+
+# ---------------------------------------------------------------- sequences
+def _seq_lengths(data, sequence_length):
+    """The lengths (N,) as int64, shaped to broadcast over (T, N, ...)."""
+    return sequence_length.to(torch.int64).reshape(
+        (1, -1) + (1,) * (data.ndim - 2))
+
+
+def _sequence_last(a, data, sequence_length=None):
+    if not a.use_sequence_length or sequence_length is None:
+        return data[-1]
+    idx = (_seq_lengths(data, sequence_length) - 1).expand(
+        (1,) + tuple(data.shape[1:]))
+    return torch.gather(data, 0, idx)[0]
+
+
+def _sequence_mask(a, data, sequence_length=None):
+    if not a.use_sequence_length or sequence_length is None:
+        return data
+    t = torch.arange(data.shape[0], device=data.device).reshape(
+        (-1,) + (1,) * (data.ndim - 1))
+    return torch.where(t < _seq_lengths(data, sequence_length), data,
+                       torch.full((), a.value, dtype=data.dtype,
+                                  device=data.device))
+
+
+def _sequence_reverse(a, data, sequence_length=None):
+    if not a.use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    t = torch.arange(data.shape[0], device=data.device).reshape(
+        (-1,) + (1,) * (data.ndim - 1))
+    lens = _seq_lengths(data, sequence_length)
+    src = torch.where(t < lens, lens - 1 - t, t)
+    return torch.gather(data, 0, src.expand(data.shape))
+
+
+def _seq_args(a):
+    return ["data", "sequence_length"] if a.get("use_sequence_length") \
+        else ["data"]
+
+
+register("SequenceLast", _sequence_last, arg_names=_seq_args,
+         attrs={"use_sequence_length": False})
+register("SequenceMask", _sequence_mask, arg_names=_seq_args,
+         attrs={"use_sequence_length": False, "value": 0.0})
+register("SequenceReverse", _sequence_reverse, arg_names=_seq_args,
+         attrs={"use_sequence_length": False})
+
+
 # ---------------------------------------------------------------- replicas
+set_replicas(["SliceChannel", "split"],
+             lambda a, nd: off_batch_axis(a.axis, nd))
 set_replicas(["FullyConnected", "Activation", "LeakyReLU", "Dropout",
               "Convolution", "Convolution_v1", "Pooling", "Pooling_v1"])
 set_replicas(["LayerNorm", "softmax", "log_softmax"],

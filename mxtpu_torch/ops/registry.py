@@ -140,10 +140,14 @@ class OpDef:
             return list(self.arg_names(attrs or AttrDict()))
         return self.arg_names
 
-    def apply(self, attrs, inputs):
+    def apply(self, attrs, inputs, device=None):
         """Run the op eagerly; returns a tuple of tensors: the visible
-        outputs, then the updated aux values of an op with aux_names."""
-        if self.needs_rng:
+        outputs, then the updated aux values of an op with aux_names. An
+        op with no tensor inputs (``_zeros``) is ``fn(attrs, device)``,
+        and makes its output on ``device``."""
+        if not inputs and not self.variadic:
+            out = self.fn(attrs, torch.device(device or "cpu"))
+        elif self.needs_rng:
             dev = inputs[0].device
             gen = None if dev.type == "meta" else _random.generator(dev)
             out = self.fn(attrs, gen, *inputs)
@@ -159,7 +163,7 @@ class OpDef:
         updated aux values an op returns after them are not outputs."""
         metas = [torch.empty(tuple(s), dtype=torch_dtype(d), device="meta")
                  for s, d in in_avals]
-        outs = self.apply(attrs, metas)[:self.n_out(attrs)]
+        outs = self.apply(attrs, metas, "meta")[:self.n_out(attrs)]
         return [(tuple(o.shape), o.dtype) for o in outs]
 
 

@@ -13,8 +13,9 @@ and ``exclude`` and ``norm`` (:217-237), ``argmax`` (:254), ``pick``
 (:268), ``Reshape`` (:334), ``Flatten`` (:338), ``reshape_like``
 (:340), ``transpose`` (:342), ``expand_dims`` (:344), ``SwapAxis``
 (:346), ``slice_axis`` (:420), ``stack`` (:447), ``Embedding`` (:476),
-``take`` (:486) and ``where`` (:600), each with mxtpu's arg names and
-attr defaults. Comparisons return 0/1 in the left operand's dtype, as
+``take`` (:486), ``where`` (:600), ``reverse`` (:430) and ``_zeros``
+(:532, made on the executor's device), each with
+mxtpu's arg names and attr defaults. Comparisons return 0/1 in the left operand's dtype, as
 mxtpu's ``_logic`` does. The other op families of that module are
 ported in later slices.
 """
@@ -312,6 +313,19 @@ register("take", _take, arg_names=["a", "indices"],
 
 register("where", lambda a, c, l, r: torch.where(c.to(torch.bool), l, r),
          arg_names=["condition", "x", "y"], attrs={})
+register("reverse",
+         lambda a, x: torch.flip(x, dims=tuple(int(i) for i in a.axis)),
+         attrs={"axis": Required(tuple)}, aliases=("flip",))
+
+
+# zeros of ``shape`` on the executor's device, or imperatively on the
+# ``ctx`` attr's (``registry.OpDef.apply`` hands the device over)
+register("_zeros",
+         lambda a, device: torch.zeros(
+             tuple(int(s) for s in a.shape),
+             dtype=torch_dtype(a.dtype or "float32"), device=device),
+         arg_names=[],
+         attrs={"shape": Required(tuple), "dtype": "float32", "ctx": ""})
 
 
 # ---------------------------------------------------------------- replicas
@@ -346,3 +360,5 @@ set_replicas(["SwapAxis", "swapaxes"],
 set_replicas(["stack"], lambda a, nd: int(a.axis) != 0 and
              int(a.axis) != -(nd + 1))
 set_replicas(["slice_axis"], lambda a, nd: off_batch_axis(a.axis, nd))
+set_replicas(["reverse", "flip"], lambda a, nd: off_batch_axis(a.axis, nd))
+set_replicas(["_zeros"])  # a constant, the same on every replica

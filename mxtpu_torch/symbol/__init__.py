@@ -13,7 +13,8 @@ from .symbol import (Group, NameManager, Symbol, Variable, create, load,
                      load_json, var)
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "NameManager", "create", "contrib", "maximum", "minimum"]
+           "NameManager", "create", "contrib", "maximum", "minimum",
+           "zeros"]
 
 
 def _make_sym_fn(opname, op):
@@ -35,6 +36,8 @@ _mod = _sys.modules[__name__]
 for _name in list_ops():
     if not hasattr(_mod, _name):
         setattr(_mod, _name, _make_sym_fn(_name, get_op(_name)))
+
+zeros = _make_sym_fn("_zeros", get_op("_zeros"))
 
 contrib = _PrefixNS(_mod, "_contrib_")
 

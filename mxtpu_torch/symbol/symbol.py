@@ -1,8 +1,10 @@
 """Symbol: the declarative graph IR.
 
-Counterpart of ``mxtpu/symbol/symbol.py``: ``Symbol`` (:95), ``bind``
-(:382), shape inference (:496), ``Variable`` (:622), ``Group`` (:648) and
-``load_json`` (:705). The JSON schema is the same, so a graph serialized
+Counterpart of ``mxtpu/symbol/symbol.py``: ``Symbol`` (:95) with its
+output access (:161-176) and ``attr`` (:196), ``bind`` and
+``simple_bind`` (:373-386, with ``group2ctx``), shape inference (:496),
+``Variable`` (:622, with the scoped attrs of ``attribute.AttrScope``),
+``Group`` (:648) and ``load_json`` (:705). The JSON schema is the same, so a graph serialized
 by either package loads in the other. Shape inference runs each op on
 meta tensors (``OpDef.infer``) instead of ``jax.eval_shape``.
 """
@@ -14,6 +16,7 @@ import threading
 
 import torch
 
+from ..attribute import AttrScope
 from ..base import MXNetError, attr_repr
 from ..ops.registry import get_op, op_exists, torch_dtype
 
@@ -117,6 +120,35 @@ class Symbol:
         if len(self._outputs) == 1:
             return self._outputs[0][0].name
         return None
+
+    # ------------------------------------------------ access
+    def __getitem__(self, index):
+        """One output, by position or by its name in ``list_outputs``."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output %s not found" % index)
+            index = names.index(index)
+        if isinstance(index, int):
+            return Symbol([self._outputs[index]])
+        raise TypeError(index)
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        for i in range(len(self._outputs)):
+            yield self[i]
+
+    def attr(self, key):
+        """The head node's attribute ``key`` (a scoped or dunder attr
+        first), or None."""
+        node = self._outputs[0][0]
+        v = node._extra_attrs.get(key)
+        if v is None:
+            v = node.attrs.get(key)
+        return v
+
 
     # ------------------------------------------------ arithmetic sugar
     # (mxtpu/symbol/symbol.py:233-315): a Symbol operand composes the
@@ -226,13 +258,29 @@ class Symbol:
 
     # ------------------------------------------------ bind
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         """An Executor over ``args``; ``args_grad`` (a dict or list of
         NDArrays) receives the gradients of ``backward`` per
-        ``grad_req`` (write/add/null)."""
+        ``grad_req`` (write/add/null). ``group2ctx`` maps a
+        ``__ctx_group__`` name to the context its nodes compute on.
+        ``shared_exec`` is accepted as mxtpu accepts it: the arrays the
+        caller passes are the ones shared."""
         from ..executor import Executor
+        del shared_exec
         return Executor(self, ctx, args, args_grad=args_grad,
-                        grad_req=grad_req, aux_states=aux_states)
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None,
+                    shared_data_arrays=None, **kwargs):
+        """An Executor with arrays allocated from the shapes inferred from
+        ``kwargs`` (``executor.simple_bind``)."""
+        from ..executor import simple_bind
+        del shared_data_arrays
+        return simple_bind(self, ctx, grad_req=grad_req, type_dict=type_dict,
+                           group2ctx=group2ctx, shared_exec=shared_exec,
+                           **kwargs)
 
     # ------------------------------------------------ serialization
     def tojson(self):
@@ -326,14 +374,26 @@ def _infer_graph(sym, shape_hints):
 
 
 # ---------------------------------------------------------------- constructors
-def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, **kwargs):
+    """A variable node carrying the active ``AttrScope``'s attrs and its
+    own: ``__shape__``, ``__lr_mult__``, ``__wd_mult__``, ``__dtype__`` and
+    ``__init__`` (an initializer's ``dumps()``), as mxtpu stores them."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     node = _Node(None, name, {}, [])
+    node._extra_attrs.update(AttrScope.current())
     if shape is not None:
         node._extra_attrs["__shape__"] = tuple(shape)
+    if lr_mult is not None:
+        node._extra_attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        node._extra_attrs["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
         node._extra_attrs["__dtype__"] = str(dtype)
+    if init is not None:
+        node._extra_attrs["__init__"] = init.dumps() \
+            if hasattr(init, "dumps") else str(init)
     if attr:
         node._extra_attrs.update({k: str(v) for k, v in attr.items()})
     node._extra_attrs.update({k: str(v) for k, v in kwargs.items()})
@@ -381,6 +441,9 @@ def _compose(op, name, sym_inputs, attrs, kwarg_syms=None):
                              "directly" % op.name)
         entries.append(s._outputs[0])
     node = _Node(op, name, attrs, entries)
+    # the scoped attrs (with AttrScope(ctx_group=...)): the reference's
+    # __ctx_group__ mechanism
+    node._extra_attrs.update(AttrScope.current())
     n_vis = op.n_out(parsed)
     return Symbol([(node, i) for i in range(n_vis)])
 

@@ -22,6 +22,9 @@ arithmetic, and ``fit(mesh=n)`` from gpu(0) against the replicated
 fused path over the cards; with four cards (skipped below), ring and
 Ulysses attention, whose every hop is a flash kernel launch, against the
 same functions on cpu() contexts, where every hop is the plain version.
+The RNN op's cuDNN route against the plain loop on the card, its clip
+route and its refusal; a BucketingModule step on gpu(0) against cpu();
+with two cards, group2ctx placement against one card.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -1021,3 +1024,204 @@ def test_fit_mesh_on_cards_is_the_replicated_step(cuda):
         for k in mod._param_names:
             assert torch.equal(e.arg_dict[k]._data.cpu(),
                                execs[0].arg_dict[k]._data.cpu()), k
+
+
+# ---------------------------------------------------------------- RNN
+def _rnn_case(torch, mode, bi, layers, t, n, state_batch, seed=0):
+    """(attrs, [data, parameters, state(, state_cell)]) on cuda:0, f32."""
+    import numpy as np
+    from mxtpu_torch.ops import rnn
+    i, h = 7, 5
+    d = 2 if bi else 1
+    rng = np.random.RandomState(seed)
+    size = rnn.rnn_param_size(layers, i, h, mode, bi)
+    arrays = [rng.randn(t, n, i), rng.randn(size) * 0.4,
+              rng.randn(layers * d, state_batch, h) * 0.5]
+    if mode == "lstm":
+        arrays.append(rng.randn(layers * d, state_batch, h) * 0.5)
+    attrs = {"state_size": h, "num_layers": layers, "mode": mode,
+             "bidirectional": bi, "state_outputs": True}
+    return attrs, [torch.tensor(a, dtype=torch.float32, device="cuda")
+                   for a in arrays]
+
+
+@pytest.mark.parametrize("mode", ["rnn_relu", "rnn_tanh", "lstm", "gru"])
+@pytest.mark.parametrize("bi,layers,t,n,state_batch", [
+    (False, 1, 1, 1, 1), (False, 2, 9, 4, 4), (True, 2, 9, 4, 1),
+    (True, 1, 3, 5, 5)])
+def test_rnn_cudnn_route_matches_the_loop_on_the_card(cuda, mode, bi, layers,
+                                                      t, n, state_batch):
+    """The RNN op on a CUDA tensor takes cuDNN's RNN (the route count
+    moves); its outputs and the gradients of data, parameters and both
+    states are within 1e-4 of max(1, the largest) of the plain loop's on
+    the same card (f32, TF32 off in cuBLAS and cuDNN; cuDNN's tanh and
+    sigmoid differ from torch's by an ulp or two, which the steps
+    compound: up to 2.9e-5 on an H100)."""
+    torch, _ = cuda
+    torch.backends.cudnn.allow_tf32 = False
+    from mxtpu_torch.ops import registry, rnn
+    attrs, xs = _rnn_case(torch, mode, bi, layers, t, n, state_batch)
+    op = registry.get_op("RNN")
+    a = op.parse_attrs(attrs)
+    d = 2 if bi else 1
+    res = []
+    for route in ("cudnn", "loop"):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        before = dict(rnn.ROUTES)
+        if route == "cudnn":
+            outs = op.apply(a, leaves)
+            assert rnn.ROUTES["cudnn"] == before["cudnn"] + 1
+        else:
+            full = (layers * d, n, 5)
+            cell = leaves[3].expand(full) if mode == "lstm" else None
+            outs = [o for o in rnn._loop_rnn(
+                a, None, leaves[0], rnn._unpack(leaves[1], layers, 7, 5,
+                                                mode, d),
+                leaves[2].expand(full), cell, None) if o is not None]
+        heads = [torch.ones_like(o) * 0.1 + o.detach() for o in outs]
+        grads = torch.autograd.grad(outs, leaves, heads)
+        res.append([o.detach() for o in outs] + list(grads))
+    for got, want in zip(*res):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_rnn_clip_takes_the_loop_on_the_card(cuda):
+    """With the LSTM state clip set, the op runs the loop on the card (the
+    declared route): the cuDNN count stays, the result is the loop's."""
+    torch, _ = cuda
+    from mxtpu_torch.ops import registry, rnn
+    attrs, xs = _rnn_case(torch, "lstm", True, 2, 6, 3, 3, seed=1)
+    attrs.update(lstm_state_clip_min=-0.2, lstm_state_clip_max=0.2)
+    op = registry.get_op("RNN")
+    before = dict(rnn.ROUTES)
+    outs = op.apply(op.parse_attrs(attrs), xs)
+    assert rnn.ROUTES["cudnn"] == before["cudnn"]
+    assert rnn.ROUTES["loop"] == before["loop"] + 1
+    assert outs[0].device.type == "cuda"
+    assert float(outs[2].abs().max()) <= 0.2 + 1e-7
+
+
+def test_rnn_refuses_what_cudnn_does_not_take(cuda):
+    """A CUDA tensor cuDNN does not accept raises (no quiet loop)."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import registry
+    attrs, xs = _rnn_case(torch, "gru", False, 1, 3, 2, 2)
+    op = registry.get_op("RNN")
+    flag = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with pytest.raises(mt.MXNetError, match="cuDNN"):
+            op.apply(op.parse_attrs(attrs), xs)
+    finally:
+        torch.backends.cudnn.enabled = flag
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bucketing_step_on_the_card_matches_cpu(cuda, fused):
+    """One BucketingModule step of a narrow LSTM LM per bucket on gpu(0)
+    against the same steps on cpu(), from the same weights: weights
+    within 1e-5 and outputs within 1e-4 relative; every bucket shares
+    the default bucket's tensors on the card."""
+    torch, _ = cuda
+    torch.backends.cudnn.allow_tf32 = False
+    import numpy as np
+    import mxtpu_torch as mt
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        x = mt.sym.Embedding(data, input_dim=30, output_dim=8, name="embed")
+        if fused:
+            stack = mt.rnn.FusedRNNCell(12, num_layers=2, prefix="lstm_")
+        else:
+            stack = mt.rnn.SequentialRNNCell()
+            for i in range(2):
+                stack.add(mt.rnn.LSTMCell(12, prefix="lstm_l%d_" % i))
+        out, _ = stack.unroll(seq_len, inputs=x, merge_outputs=True)
+        out = mt.sym.FullyConnected(mt.sym.Reshape(out, shape=(-1, 12)),
+                                    num_hidden=30, name="pred")
+        return (mt.sym.SoftmaxOutput(out, mt.sym.Reshape(
+            label, shape=(-1,)), name="softmax"), ("data",),
+            ("softmax_label",))
+
+    rng = np.random.RandomState(0)
+    batches = []
+    for key in (9, 5, 9):
+        ids = rng.randint(1, 30, (4, key + 1)).astype(np.float32)
+        batches.append(mt.io.DataBatch(
+            [mt.nd.array(ids[:, :-1], ctx=mt.cpu())],
+            [mt.nd.array(ids[:, 1:], ctx=mt.cpu())], bucket_key=key,
+            provide_data=[mt.io.DataDesc("data", (4, key))],
+            provide_label=[mt.io.DataDesc("softmax_label", (4, key))]))
+    res = []
+    w0 = None
+    for ctx in (mt.gpu(0), mt.cpu()):
+        mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=9,
+                                     context=ctx)
+        mod.bind(batches[0].provide_data, batches[0].provide_label)
+        if w0 is None:
+            np.random.seed(1)
+            mod.init_params(mt.init.Xavier())
+            w0 = mod.get_params()[0]
+        else:
+            mod.init_params(arg_params=w0)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        outs = []
+        for b in batches:
+            mod.forward_backward(b)
+            mod.update()
+            outs.append(mod.get_outputs()[0].asnumpy())
+        res.append((outs, {k: v.asnumpy()
+                           for k, v in mod.get_params()[0].items()}))
+        if ctx == mt.gpu(0):
+            e5, e9 = (mod.buckets[k]._exec_group.execs[0] for k in (5, 9))
+            for k in mod.buckets[9]._param_names:
+                assert e5.arg_dict[k]._data.data_ptr() == \
+                    e9.arg_dict[k]._data.data_ptr()
+                assert e5.arg_dict[k]._data.device.type == "cuda"
+    for g, c in zip(res[0][0], res[1][0]):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-6)
+    for k, c in res[1][1].items():
+        np.testing.assert_allclose(res[0][1][k], c, rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_group2ctx_over_two_cards(cuda):
+    """tests/test_parallel.py:153's net with its groups on gpu(0) and
+    gpu(1): each group's outputs on its card, the inputs crossing once,
+    outputs and gradients equal to the same net on gpu(0) alone."""
+    torch, _ = cuda
+    _gpus(torch, 2)
+    import numpy as np
+    import mxtpu_torch as mx
+    with mx.AttrScope(ctx_group="dev1"):
+        data = mx.sym.Variable("data")
+        act1 = mx.sym.Activation(mx.sym.FullyConnected(
+            data, num_hidden=8, name="fc1"), act_type="relu")
+    with mx.AttrScope(ctx_group="dev2"):
+        net = mx.sym.Activation(mx.sym.FullyConnected(
+            act1, num_hidden=4, name="fc2"), act_type="tanh")
+    g2c = {"dev1": mx.gpu(0), "dev2": mx.gpu(1)}
+    split = net.simple_bind(mx.gpu(0), data=(2, 6), group2ctx=g2c)
+    single = net.simple_bind(mx.gpu(0), data=(2, 6))
+    assert split.arg_dict["fc2_weight"].context == mx.gpu(1)
+    rng = np.random.RandomState(0)
+    for name, arr in split.arg_dict.items():
+        v = rng.rand(*arr.shape).astype(np.float32) - 0.5
+        arr[:] = v
+        single.arg_dict[name][:] = v
+    res = []
+    for exe in (split, single):
+        out = exe.forward(is_train=True)[0]
+        exe.backward([mx.nd.ones(out.shape, ctx=out.context)])
+        res.append((out.asnumpy(), {k: g.asnumpy()
+                                    for k, g in exe.grad_dict.items()}))
+    assert split.outputs[0].context == mx.gpu(1)
+    assert split.cross_device_copies == 1  # act1 into fc2
+    np.testing.assert_allclose(res[0][0], res[1][0], rtol=1e-6, atol=1e-7)
+    for k in res[1][1]:
+        np.testing.assert_allclose(res[0][1][k], res[1][1][k], rtol=1e-6,
+                                   atol=1e-7, err_msg=k)

@@ -356,8 +356,7 @@ def test_ctc_loss_and_transposed_convolutions_raise(mt):
     for cls in ("Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose"):
         with pytest.raises(mt.MXNetError, match="Deconvolution"):
             getattr(mt.gluon.nn, cls)(4, 3)
-    with pytest.raises(mt.MXNetError, match="A.6"):
-        mt.gluon.rnn  # noqa: B018
+    assert issubclass(mt.gluon.rnn.LSTM, mt.gluon.Block)  # ported now
     with pytest.raises(mt.MXNetError, match="not ported"):
         mt.gluon.model_zoo.vision.get_model("alexnet")
     with pytest.raises(mt.MXNetError, match="pretrained"):
