@@ -2,7 +2,7 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...]
+                          [--phases kernels,epilogue,...,rnn,ssd]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
@@ -137,7 +137,32 @@ Phases (any failure raises and exits non-zero):
    num_layers=2)`` between an Embedding and a Dense(10000): the first
    step's gradients against float64 on cpu(), then SGD ``Trainer.step``s
    imperative and hybridized, timed; the loss must fall.
-11. Prints the kernels' JSON line, then the device line last.
+11. The SSD detector (``ssd``; BASELINE config 5 at example/ssd's
+   widths: vgg16_reduced at 300x300, 20 classes, 6 scales, 7,486
+   anchors, nms_topk 400; f32, TF32 off; synthetic painted boxes, VOC
+   not being in the repository). The suppression kernel against its
+   plain version on the card, bit for bit, on the candidates decoded
+   from the full-width net's outputs at B=32 and on adversarial sets
+   (one class overlapping, IoUs at the threshold, -inf tails,
+   force_suppress, NaN boxes, K = 1, 37 and 1,376), then its CUDA-event
+   time beside the plain version's and bound_ms. The first training step
+   at B=2 against float64 on the card (the f32 run's targets fed to a
+   graph that takes them as variables; the hard-negative margin, the
+   hardness drift and the anchors whose float64 target differs printed),
+   within SSD_GRAD_TOL, a TF32 control failing it and a cpu() f32 step
+   printed. ``Module.fit`` with MultiBoxMetric and examples/ssd/train.py's
+   SGD at B=32 (the upstream batch) and B=8 (mxtpu's example's), one
+   seeded batch 8 times: CE must fall; step ms, images/s and the share of
+   67 TFLOP/s, launches and the device-busy share of a step and the
+   MultiBox ops' device ms (torch.profiler), the metric's host copy,
+   peak memory; one kernel launch a step. ``get_symbol`` through
+   ``Module.forward(is_train=False)`` at B=32 on the trained weights: the
+   kernel route's detections equal the plain route's, one launch a
+   batch; MApMetric's host ms. Last, the twin of test_ssd_gate (tiny,
+   64x64, 12 epochs of 8 batches) from the port's Xavier draws at seeds
+   0-4: each CrossEntropy < 1.2 and checkpoint reloaded bit for bit, the
+   mean mAP above max(the mean untrained mAP, 0.05).
+12. Prints the kernels' JSON line, then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -304,8 +329,36 @@ RNN_GRAD_TOL = 1e-4
 # 4's widths (PTB word-LM's seq 35), SGD lr 0.5 as the example's default
 MP_LSTM = dict(hidden=200, vocab=10000, seq_len=35, batch=32, steps=4,
                lr=0.5, tol=1e-6)
+# BASELINE config 5 (phase 11, ssd): example/ssd's vgg16_reduced SSD at
+# 300x300 with VOC's 20 classes and 6 scales (7,486 anchors, 26.05 M
+# parameters), B=32 (the upstream example's batch; mxtpu's example
+# defaults to 8, timed beside it), nms_topk 400, on synthetic painted
+# boxes (examples/ssd/_synth.py; VOC is not in the repository), SGD with
+# examples/ssd/train.py's momentum 0.9 and wd 5e-4 at its lr 1e-3
+SSD = dict(num_classes=20, num_scales=6, network="vgg16_reduced",
+           data_shape=300, batch=32, small_batch=8, nms_topk=400)
+SSD_OPT = {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4}
+SSD_TRAIN = dict(fall_steps=8, timed_steps=5, f64_batch=2)
+SSD_EVAL = 2  # held-out batches of B=32
+# 30.2 GMAC an image forward (mxtpu's symbol at 300x300): 60.4 GFLOP,
+# three times that with the backward
+SSD_FLOPS_PER_IMAGE = 3 * 60.4e9
+# the first step against float64 at B=2: each gradient within
+# SSD_GRAD_TOL of its largest exact value (floored at 1e-6 of the net's
+# largest), cls_prob and loc_loss likewise. On an H100 the f32 step reads
+# 5.2e-4 (the first convolutions' bias gradients: sums of 180,000 terms
+# of both signs), a step with TF32 in cuBLAS and cuDNN 1.1e-1: the gate
+# sits between the two
+SSD_GRAD_TOL = 5e-3
+# the gate's twin (tests/test_examples_gate.py:91-115) from the port's own
+# Xavier draw at each of these numpy seeds
+SSD_GATE_SEEDS = (0, 1, 2, 3, 4)
+# operations of one IoU and its test: 4 min/max, 2 extents and their 2
+# clamps, the product, the union's add and subtract, the quotient, the
+# compare (the two areas are counted once a box, not a pair)
+NMS_IOU_OPS = 14
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
-          "resnet_training", "gluon", "data_parallel", "rnn")
+          "resnet_training", "gluon", "data_parallel", "rnn", "ssd")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -1315,14 +1368,14 @@ def phase_serving(mt, att, seed, card, profile=False):
 class RepeatBatch:
     """A DataIter over one batch, ``n`` times per epoch (the LM's labels
     are (B*T,), which NDArrayIter's one-row-per-example rule cannot
-    carry)."""
+    carry; the SSD's are (B, 8, 5) boxes named ``label``)."""
 
-    def __init__(self, mt, x, y, n):
+    def __init__(self, mt, x, y, n, label_name="softmax_label"):
         self._batch = mt.io.DataBatch(
             data=[mt.nd.array(x, ctx=mt.cpu())],
             label=[mt.nd.array(y, ctx=mt.cpu())], pad=0)
         self.provide_data = [mt.io.DataDesc("data", x.shape)]
-        self.provide_label = [mt.io.DataDesc("softmax_label", y.shape)]
+        self.provide_label = [mt.io.DataDesc(label_name, y.shape)]
         self.n = n
         self._i = 0
 
@@ -3663,6 +3716,10 @@ def multi_gpu(args, card):
     if "group2ctx" in phases:
         log("[multi_gpu group2ctx]")
         res["group2ctx"] = multi_group2ctx(mt, args.seed, card)
+    # 11. the SSD detector (BASELINE config 5)
+    if "ssd" in phases:
+        log("[ssd]")
+        results["ssd"] = phase_ssd(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4087,7 +4144,9 @@ def rnn_first_step_gate(mt, mod, sym, batch, card, label):
     fail the gate."""
     weights = mod.get_params()[0]
     x, y = batch.data[0].asnumpy(), batch.label[0].asnumpy()
-    g64, probs64 = _step_f64(mt, sym, weights, x, y)
+    outs, g64 = bind_step(mt, sym, mt.cpu(), torch.float64, weights,
+                          {"data": x, "softmax_label": y})
+    probs64 = outs[0]
     lab = y.reshape(-1).astype(np.int64)
     loss64 = float(-np.log(probs64[np.arange(lab.size), lab]).mean())
     res = {}
@@ -4127,27 +4186,9 @@ def rnn_first_step_gate(mt, mod, sym, batch, card, label):
     return res
 
 
-def _step_f64(mt, sym, weights, x, y):
-    """A training step's gradients of every parameter and the output
-    (probabilities) in float64 on the CPU: the executor with float64
-    arrays, from ``weights`` (cpu NDArrays)."""
-    def f64(t):
-        return mt.nd.NDArray(t.double(), mt.cpu())
-
-    args = {n: f64(v._data) for n, v in weights.items()}
-    args["data"] = f64(torch.from_numpy(x))
-    args["softmax_label"] = f64(torch.from_numpy(y))
-    grads = {n: mt.nd.NDArray(torch.zeros_like(args[n]._data), mt.cpu())
-             for n in weights}
-    exe = sym.bind(mt.cpu(), args, args_grad=grads)
-    probs = exe.forward(is_train=True)[0].asnumpy()
-    exe.backward()
-    return {n: g._data.numpy() for n, g in grads.items()}, probs
-
-
-def step_kernels(step):
-    """``step()`` once to warm, then once under torch.profiler: (kernel
-    launches, summed kernel ms) by device index."""
+def profiled(step):
+    """``step()`` once to warm, then once under torch.profiler, every
+    card synchronized: the profiler."""
     from torch.profiler import ProfilerActivity, profile as _prof
     step()
     torch.cuda.synchronize()
@@ -4156,6 +4197,13 @@ def step_kernels(step):
         step()
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
+    return prof
+
+
+def step_kernels(step):
+    """(kernel launches, summed kernel ms) of one profiled ``step()`` by
+    device index."""
+    prof = profiled(step)
     by = {}
     for e in prof.events():
         if e.device_type.name == "CUDA":
@@ -4539,6 +4587,563 @@ def multi_group2ctx(mt, seed, card):
                 for k, r in runs.items()}}
 
 
+# ---------------------------------------------------------------- phase 11
+def ssd_heads_symbol(mt, cfg):
+    """The train symbol's heads, Group([loc_preds, cls_preds, anchors]),
+    built from the model's own pieces (the same parameter names)."""
+    ssd = mt.models.ssd
+    data = mt.sym.Variable("data")
+    layers = ssd._build_features(data, cfg["num_scales"],
+                                 network=cfg["network"])
+    sizes, ratios = ssd.default_spec(cfg["num_scales"])
+    return mt.sym.Group(list(ssd._multibox_layer(
+        layers, cfg["num_classes"], sizes, ratios)))
+
+
+def ssd_targets_symbol(mt, cfg):
+    """The train symbol's loss heads (cls_prob, loc_loss) with the three
+    targets as variables (``loc_target``, ``loc_target_mask``,
+    ``cls_target``) in place of MultiBoxTarget: the graph a float64 step
+    runs on a float32 run's targets."""
+    ssd = mt.models.ssd
+    data = mt.sym.Variable("data")
+    layers = ssd._build_features(data, cfg["num_scales"],
+                                 network=cfg["network"])
+    sizes, ratios = ssd.default_spec(cfg["num_scales"])
+    loc_preds, cls_preds, _ = ssd._multibox_layer(
+        layers, cfg["num_classes"], sizes, ratios)
+    loc_t, loc_m, cls_t = [mt.sym.Variable(n) for n in (
+        "loc_target", "loc_target_mask", "cls_target")]
+    cls_prob = mt.sym.SoftmaxOutput(cls_preds, cls_t, ignore_label=-1,
+                                    use_ignore=True, multi_output=True,
+                                    normalization="valid", name="cls_prob")
+    loc_loss = mt.sym.MakeLoss(
+        mt.sym.smooth_l1(loc_m * (loc_preds - loc_t), scalar=1.0,
+                         name="loc_loss_"),
+        grad_scale=1.0, normalization="valid", name="loc_loss")
+    return mt.sym.Group([cls_prob, loc_loss])
+
+
+def ssd_targets(mt, heads, label):
+    """MultiBoxTarget as get_symbol_train configures it, on the heads
+    (loc_preds, cls_preds, anchors) and ``label``: (loc_target,
+    loc_target_mask, cls_target) tensors."""
+    _, _, outs = mt.ops.registry.invoke(
+        "_contrib_MultiBoxTarget", [heads[2], label, heads[1]],
+        dict(overlap_threshold=0.5, ignore_label=-1,
+             negative_mining_ratio=3.0, minimum_negative_samples=0,
+             negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2)))
+    return outs
+
+
+def bind_step(mt, sym, ctx, dtype, weights, inputs, grad=True):
+    """``sym`` bound on ``ctx`` in ``dtype`` with ``weights`` (NDArrays)
+    and ``inputs`` (name -> tensor or numpy array), one training forward
+    and backward (every head's gradient ones, which a loss head ignores;
+    an inference forward without ``grad``): (outputs, {parameter:
+    gradient}) as float64 numpy, or the output tensors without ``grad``.
+    Phase 10's and 11's float64 steps run through it."""
+    dev = ctx.torch_device
+
+    def arr(v):
+        t = v._data if hasattr(v, "_data") else (
+            torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+        return mt.nd.NDArray(t.to(dev, dtype, copy=True).contiguous(), ctx)
+
+    args = {n: arr(v) for n, v in weights.items()}
+    args.update({n: arr(v) for n, v in inputs.items()})
+    if not grad:
+        exe = sym.bind(ctx, args, grad_req="null")
+        return [o._data for o in exe.forward(is_train=False)]
+    grads = {n: mt.nd.NDArray(torch.zeros_like(args[n]._data), ctx)
+             for n in weights}
+    exe = sym.bind(ctx, args, args_grad=grads)
+    outs = exe.forward(is_train=True)
+    exe.backward()
+    torch.cuda.synchronize()
+    return ([o.asnumpy().astype(np.float64) for o in outs],
+            {n: g._data.double().cpu().numpy() for n, g in grads.items()})
+
+
+def ssd_grad_err(got, exact, label):
+    """Each parameter's max |got - exact| over its largest |exact|, the
+    denominator floored at 1e-6 of the largest gradient of any parameter
+    (a layer whose exact gradient is ~0 is held to the net's scale);
+    (worst, by name)."""
+    floor = 1e-6 * max(float(np.abs(g).max()) for g in exact.values())
+    by = {k: float(np.abs(got[k] - exact[k]).max()) /
+          max(float(np.abs(exact[k]).max()), floor) for k in exact}
+    worst = max(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    log("  %s: worst gradient error / its largest |exact| %.3e (%s)"
+        % (label, worst, ", ".join("%s %.2e" % kv for kv in top)))
+    return worst, by
+
+
+def ssd_first_step_gate(mt, contrib, ssd_data, weights, seed, card):
+    """The full-width train symbol's first step at B=2 on gpu(0) in f32
+    against the same step in float64 on the card. The targets first: the
+    f32 run's cls_target equals MultiBoxTarget on its own heads; the
+    anchors whose float64 target differs are counted beside the
+    hard-negative margin and the largest drift of the hardness scores
+    between the runs (a difference with the margin above the drift
+    fails: it cannot come from a near-tie); the float64 step then takes
+    the f32 run's three targets as inputs (``ssd_targets_symbol``). Every
+    gradient within SSD_GRAD_TOL of the float64 one (``ssd_grad_err``),
+    cls_prob and loc_loss within SSD_GRAD_TOL relative; a step with TF32
+    in cuBLAS and cuDNN must fail. The same step in f32 on cpu() is
+    printed beside, as f32's own distance from float64."""
+    cfg = SSD
+    b = SSD_TRAIN["f64_batch"]
+    x, lab = ssd_data.make_batch(np.random.RandomState(seed + 11), b,
+                                 (3, cfg["data_shape"], cfg["data_shape"]),
+                                 cfg["num_classes"])
+    gpu = mt.gpu(0)
+    train = mt.models.ssd.get_symbol_train(
+        num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
+        network=cfg["network"])
+    heads_sym = ssd_heads_symbol(mt, cfg)
+    heads = bind_step(mt, heads_sym, gpu, torch.float32, weights,
+                     {"data": x}, grad=False)
+    label = torch.from_numpy(lab).to(heads[0].device)
+    t32 = ssd_targets(mt, heads, label)
+    margin = ssd_data.mining_margin(heads[2], label, heads[1], t32[2])
+    heads64 = bind_step(mt, heads_sym, gpu, torch.float64, weights,
+                       {"data": x}, grad=False)
+    t64 = ssd_targets(mt, heads64, label.double())
+    differ = int((t64[2].float() != t32[2]).sum())
+    # how far the two runs' hardness scores part: a negative can swap
+    # across the cut only where the margin is within it
+    drift = float((torch.amax(heads64[1][:, 1:], dim=1)
+                   - torch.amax(heads[1][:, 1:], dim=1).double()).abs().max())
+    log("  [%s] first step targets at B=%d: %d positives, %d kept "
+        "negatives; hard-negative margin %.3e against the float64 run's "
+        "largest hardness drift %.3e; anchors whose float64 cls_target "
+        "differs: %d (the float64 step takes the f32 targets)"
+        % (card, b, int((t32[2] > 0).sum()), int((t32[2] == 0).sum()),
+           margin, drift, differ))
+    if differ and margin > drift:
+        raise AssertionError("ssd: %d float64 targets differ with no "
+                             "hard negative within reach of the cut "
+                             "(margin %g, drift %g)"
+                             % (differ, margin, drift))
+    targets = {"loc_target": t32[0], "loc_target_mask": t32[1],
+               "cls_target": t32[2]}
+    exact_out, exact = bind_step(mt, ssd_targets_symbol(mt, cfg), gpu,
+                                torch.float64, weights,
+                                dict(targets, data=x))
+    res = {"margin": margin, "hardness_drift": drift,
+           "f64_target_differs": differ}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    # the card's step through the train symbol; the same step on cpu() in
+    # f32 (printed: f32's own distance from float64); the TF32 control.
+    # The last two take the f32 targets: their own heads would pick other
+    # negatives at a near-tie
+    held = ssd_targets_symbol(mt, cfg)
+    for run, tf32, sym, ctx, inputs in (
+            ("gpu", False, train, gpu, {"data": x, "label": lab}),
+            ("cpu", False, held, mt.cpu(), dict(targets, data=x)),
+            ("gpu_tf32", True, held, gpu, dict(targets, data=x))):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            outs, got = bind_step(mt, sym, ctx, torch.float32, weights,
+                                 inputs)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        if run == "gpu" and not np.array_equal(outs[2],
+                                               t32[2].cpu().numpy()):
+            raise AssertionError("ssd: the step's cls_target is not "
+                                 "MultiBoxTarget's on its heads")
+        worst, by = ssd_grad_err(got, exact, "ssd %s first step" % run)
+        l2 = max(float(np.linalg.norm(got[k] - exact[k])) /
+                 max(float(np.linalg.norm(exact[k])), 1e-30) for k in exact)
+        out_err = max(float(np.abs(outs[i] - exact_out[i]).max()) /
+                      max(float(np.abs(exact_out[i]).max()), 1e-30)
+                      for i in (0, 1))
+        res[run] = {"worst_grad_err": worst, "grad_err": by,
+                    "worst_l2_err": l2, "out_err": out_err,
+                    "ok": worst <= SSD_GRAD_TOL and out_err <= SSD_GRAD_TOL}
+        if run == "cpu":
+            res[run]["ok"] = None  # printed, not gated
+        log("  ssd %s: worst per-parameter L2 error %.3e; cls_prob and "
+            "loc_loss vs float64 %.3e; gate %g: %s"
+            % (run, l2, out_err, SSD_GRAD_TOL,
+               {True: "pass", False: "fail", None: "not gated"}[
+                   res[run]["ok"]]))
+    if not res["gpu"]["ok"]:
+        raise AssertionError("ssd: the card's first step is off float64: "
+                             "%s" % {k: v for k, v in res["gpu"].items()
+                                     if k != "grad_err"})
+    if res["gpu_tf32"]["ok"]:
+        raise AssertionError("ssd: the TF32 control step passed the float64 "
+                             "gate: the gate cannot tell f32 from TF32")
+    return res
+
+
+def nms_ops(boxes, scores, cls, keep, force):
+    """Operations the sweep needs on these candidates: an IoU
+    (NMS_IOU_OPS) for each kept i and each later j it may clear (same
+    class, or any under force_suppress, and alive at the start), summed
+    over the batch."""
+    alive = scores > float("-inf")
+    same = (cls.unsqueeze(2) == cls.unsqueeze(1)) | bool(force)
+    k = scores.shape[1]
+    later = torch.ones(k, k, dtype=torch.bool, device=scores.device).triu(1)
+    pairs = same & later & keep.unsqueeze(2) & alive.unsqueeze(1)
+    return NMS_IOU_OPS * int(pairs.sum())
+
+
+def ssd_nms_checks(mt, contrib, ssd_data, weights, seed, card):
+    """The suppression kernel against its plain version on the card, bit
+    for bit: on the candidates decoded from the full-width net's outputs
+    at B=32 (K = nms_topk = 400 of 7,486 anchors) and on every set of
+    ``ssd_data.nms_sets`` at B=32 (one class overlapping, IoUs at the
+    threshold, -inf tails, force_suppress, NaN boxes, K = 37, 1,376 and
+    1); then, on the decoded candidates, CUDA-event times of the kernel
+    and of the plain version beside bound_ms (the larger of its bytes at
+    HBM_BYTES_PER_S and its operations, ``nms_ops``, at the f32 peak)."""
+    cfg = SSD
+    B = cfg["batch"]
+    x, _ = ssd_data.make_batch(np.random.RandomState(seed + 7), B,
+                               (3, cfg["data_shape"], cfg["data_shape"]),
+                               cfg["num_classes"])
+    loc_preds, cls_preds, anchors = bind_step(
+        mt, ssd_heads_symbol(mt, cfg), mt.gpu(0), torch.float32, weights,
+        {"data": x}, grad=False)
+    op = mt.ops.registry.get_op("_contrib_MultiBoxDetection")
+    a = op.parse_attrs(dict(nms_threshold=0.5, force_suppress=False,
+                            variances=(0.1, 0.1, 0.2, 0.2),
+                            nms_topk=cfg["nms_topk"]))
+    cands = contrib.detection_candidates(
+        a, torch.softmax(cls_preds, dim=1), loc_preds, anchors)
+    sets = [("decoded", *cands, 0.5, False)] + [
+        (n, *[torch.from_numpy(v).to(anchors.device) for v in (b_, s_, c_)],
+         t, f)
+        for n, b_, s_, c_, t, f in ssd_data.nms_sets(batch=B, seed=seed)]
+    checked = {}
+    for name, boxes, scores, cls, thresh, force in sets:
+        got = contrib.nms_keep(boxes, scores, cls, thresh, force)
+        want = contrib.nms_keep_reference(boxes, scores, cls, thresh, force)
+        torch.cuda.synchronize()
+        wrong = int((got != want).sum())
+        checked[name] = {"K": int(boxes.shape[1]), "kept": int(want.sum()),
+                         "differ": wrong}
+        if wrong:
+            raise AssertionError("multibox_nms %s: %d keep entries differ "
+                                 "from the plain version" % (name, wrong))
+    log("  multibox_nms == plain bit for bit on %s"
+        % ", ".join("%s (K=%d, %d kept)" % (n, c["K"], c["kept"])
+                    for n, c in checked.items()))
+    boxes, scores, cls = cands
+    keep = contrib.nms_keep_reference(boxes, scores, cls, 0.5, False)
+    ms = cuda_ms(lambda: contrib.nms_keep(boxes, scores, cls, 0.5, False),
+                 50)
+    plain_ms = cuda_ms(lambda: contrib.nms_keep_reference(
+        boxes, scores, cls, 0.5, False), 3, warmup=1)
+    nbytes = boxes.numel() * 4 + scores.numel() * 4 + cls.numel() * 4 + \
+        keep.numel()
+    ops = nms_ops(boxes, scores, cls, keep, False)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    row = {"B": B, "K": int(boxes.shape[1]), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "operations": ops, "max_abs_err": 0.0,
+           "library_ms": None, "sets": checked}
+    log("  [%s] multibox_nms at B=%d, K=%d (decoded): kernel %.4f ms, plain "
+        "%.3f ms (%.0fx), bound %.6f ms (%s: %d bytes, %d operations; far "
+        "below a launch's latency); no PyTorch call computes it"
+        % (card, B, row["K"], ms, plain_ms, plain_ms / ms, row["bound_ms"],
+           row["bound_by"], nbytes, ops))
+    return row
+
+
+def ssd_gate_twin(mt, ssd_data, card):
+    """tests/test_examples_gate.py::test_ssd_gate on gpu(0) through the
+    port, from the port's own Xavier draws at SSD_GATE_SEEDS (numpy's
+    stream: mxtpu's draw at its seed 2 is another net): each seed's
+    trained CrossEntropy < 1.2 and checkpoint reloaded bit for bit, and
+    the mean mAP over the seeds above max(the mean untrained mAP, 0.05).
+    Each seed's figures are printed: the gate's mAP swings with the
+    initial net in both packages."""
+    import tempfile
+    runs = []
+    tmp = tempfile.mkdtemp(prefix="ssd_gate_")
+    try:
+        for s in SSD_GATE_SEEDS:
+            t0 = time.perf_counter()
+            out = ssd_data.gate_twin(mt, mt.gpu(0),
+                                     os.path.join(tmp, "s%d" % s), seed=s)
+            out["seconds"] = time.perf_counter() - t0
+            out = {k: (float(v) if isinstance(v, np.floating) else v)
+                   for k, v in out.items()}
+            runs.append(out)
+            log("  [%s] gate twin seed %d: CrossEntropy %.4f, SmoothL1 %.4f, "
+                "mAP untrained %.4f -> trained %.4f, reload bit-exact %s "
+                "(%.1f s)" % (card, s, out["cross_entropy"],
+                              out["smooth_l1"], out["map_untrained"],
+                              out["map_trained"], out["reload_bit_exact"],
+                              out["seconds"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mean_t = float(np.mean([r["map_trained"] for r in runs]))
+    mean_u = float(np.mean([r["map_untrained"] for r in runs]))
+    log("  gate twin: mean mAP over seeds %s: untrained %.4f, trained %.4f "
+        "(gate > %.4f)" % (list(SSD_GATE_SEEDS), mean_u, mean_t,
+                           max(mean_u, 0.05)))
+    for s, r in zip(SSD_GATE_SEEDS, runs):
+        if not r["cross_entropy"] < 1.2 or not r["reload_bit_exact"]:
+            raise AssertionError("ssd gate twin seed %d: %s" % (s, r))
+    if not mean_t > max(mean_u, 0.05):
+        raise AssertionError("ssd gate twin: mean mAP %.4f not above %.4f"
+                             % (mean_t, max(mean_u, 0.05)))
+    return {"seeds": list(SSD_GATE_SEEDS), "runs": runs,
+            "map_trained_mean": mean_t, "map_untrained_mean": mean_u}
+
+
+def ssd_multibox_ms(mt, step):
+    """One step under torch.profiler with the MultiBoxTarget and
+    MultiBoxDetection ops inside record_function ranges: (kernel
+    launches, device ms of the step, {op: device ms of its kernels})."""
+    names = {"_contrib_MultiBoxTarget": "ssd::MultiBoxTarget",
+             "_contrib_MultiBoxDetection": "ssd::MultiBoxDetection"}
+    ops = {n: mt.ops.registry.get_op(n) for n in names}
+    saved = {n: op.fn for n, op in ops.items()}
+
+    def ranged(fn, label):
+        def run(*args):
+            with torch.profiler.record_function(label):
+                return fn(*args)
+        return run
+
+    try:
+        for n, op in ops.items():
+            op.fn = ranged(saved[n], names[n])
+        prof = profiled(step)
+    finally:
+        for n, op in ops.items():
+            op.fn = saved[n]
+    launches, dev_ms = 0, 0.0
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            launches += 1
+            dev_ms += e.device_time_total / 1e3
+    by_op = {}
+    for e in prof.key_averages():
+        if e.key in names.values():
+            by_op[e.key.split("::")[1]] = e.device_time_total / 1e3
+    return launches, dev_ms, by_op
+
+
+def ssd_training(mt, contrib, ssd_data, weights, seed, card):
+    """Config 5 through Module.fit on gpu(0): vgg16_reduced at 300x300, 20
+    classes, 6 scales, B=32, SGD (examples/ssd/train.py:96-100's momentum
+    0.9 and wd 5e-4 at lr 1e-3) from the Xavier weights, f32 with TF32
+    off, MultiBoxMetric, one seeded synthetic batch 8 times (CE, from each
+    step's outputs, must fall); then steps timed on the host clock to a
+    sync at B=32 and at B=8 (mxtpu's example default), images/s and the
+    share of the f32 peak at SSD_FLOPS_PER_IMAGE, one profiled step
+    (launches, device-busy share, MultiBoxTarget and MultiBoxDetection's
+    device and host ms), the metric's host copy, peak memory. The
+    suppression kernel must launch once a step, counted from zero."""
+    cfg = SSD
+    shape = (3, cfg["data_shape"], cfg["data_shape"])
+    out = {}
+    for b in (cfg["batch"], cfg["small_batch"]):
+        x, lab = ssd_data.make_batch(np.random.RandomState(seed + b), b,
+                                     shape, cfg["num_classes"])
+        it = RepeatBatch(mt, x, lab, SSD_TRAIN["fall_steps"],
+                         label_name="label")
+        mod = mt.mod.Module(mt.models.ssd.get_symbol_train(
+            num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
+            network=cfg["network"]), label_names=("label",),
+            context=mt.gpu(0))
+        metric = ssd_data.MultiBoxMetric()
+        ce, stamps = [], []
+
+        def batch_end(param):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            m = ssd_data.MultiBoxMetric()
+            m.update(None, param.locals["self"].get_outputs()[:3])
+            ce.append(float(m.get()[1][0]))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        contrib.nms_keep.launches = 0
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+                optimizer_params=SSD_OPT,
+                arg_params=weights,
+                batch_end_callback=batch_end)
+        fit_launches = contrib.nms_keep.launches
+        fit_ms = [float(v) * 1e3 for v in np.diff([t0] + stamps)]
+        peak = torch.cuda.max_memory_allocated()
+        batch = it._batch
+
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+
+        ms = []
+        for i in range(SSD_TRAIN["timed_steps"] + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t1) * 1e3)
+        timed_launches = contrib.nms_keep.launches - fit_launches
+        launches, dev_ms, by_op = ssd_multibox_ms(mt, step)
+        outs = mod.get_outputs()[:3]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ssd_data.MultiBoxMetric().update(None, outs)
+        metric_ms = (time.perf_counter() - t1) * 1e3
+        med = float(np.median(ms))
+        r = {"batch": b, "ce": ce, "fit_step_ms": fit_ms, "step_ms": med,
+             "step_ms_all": ms, "images_per_s": b / (med / 1e3),
+             "peak_share": SSD_FLOPS_PER_IMAGE * b / (med / 1e3)
+             / PEAK_OPS_PER_S[torch.float32],
+             "launches": launches, "device_ms": dev_ms,
+             "busy_share": dev_ms / med, "multibox_ms": by_op,
+             "metric_host_ms": metric_ms, "peak_memory": int(peak),
+             "nms_launches": fit_launches + timed_launches,
+             "steps": len(stamps) + len(ms) + 1,
+             "train_metric": dict(metric.get_name_value())}
+        out[b] = r
+        log("  [%s] B=%d: CE over %d steps %s; fit steps ms %s"
+            % (card, b, len(ce), [round(v, 4) for v in ce],
+               [round(v, 1) for v in fit_ms]))
+        log("  [%s] B=%d: step %.2f ms (median of %d), %.1f images/s, %.1f "
+            "%% of 67 TFLOP/s at %.0f GFLOP an image; %d kernel launches, "
+            "%.2f ms of device time (busy %.1f %%); device ms of "
+            "MultiBoxTarget %.3f and MultiBoxDetection %.3f; "
+            "MultiBoxMetric's host copy and numpy %.2f ms; peak memory "
+            "%.2f GB" % (card, b, med, len(ms), r["images_per_s"],
+                         100 * r["peak_share"], SSD_FLOPS_PER_IMAGE / 1e9,
+                         launches, dev_ms, 100 * dev_ms / med,
+                         by_op.get("MultiBoxTarget", float("nan")),
+                         by_op.get("MultiBoxDetection", float("nan")),
+                         metric_ms, peak / 1e9))
+        if not np.all(np.isfinite(ce)) or not ce[-1] < ce[0]:
+            raise AssertionError("ssd B=%d: CE did not fall: %s" % (b, ce))
+        if fit_launches != SSD_TRAIN["fall_steps"] or \
+                timed_launches != len(ms) + 1:
+            raise AssertionError(
+                "ssd B=%d: multibox_nms launched %d times in %d fit steps "
+                "and %d in %d timed ones: once a step expected"
+                % (b, fit_launches, SSD_TRAIN["fall_steps"], timed_launches,
+                   len(ms) + 1))
+        if b == cfg["batch"]:
+            trained = mod.get_params()[0]
+        del mod
+        torch.cuda.empty_cache()
+    return out, trained
+
+
+def ssd_eval(mt, contrib, ssd_data, params, seed, card):
+    """get_symbol at B=32 through Module.forward(is_train=False) on
+    gpu(0) with the trained weights over SSD_EVAL batches of held-out
+    synthetic images: the detections on the kernel route equal the plain
+    route's (the sweep's plain version on the card) bit for bit, one
+    kernel launch a batch; MApMetric's host ms."""
+    cfg = SSD
+    shape = (3, cfg["data_shape"], cfg["data_shape"])
+    it = ssd_data.SynthDetIter(cfg["batch"], shape, cfg["num_classes"],
+                               num_batches=SSD_EVAL, seed=seed + 77)
+    batches = list(it)
+    mod = mt.mod.Module(mt.models.ssd.get_symbol(
+        num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
+        network=cfg["network"]), label_names=("label",), context=mt.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False)
+    mod.set_params(params, {}, allow_missing=True)
+    kernel = contrib.nms_keep
+    metric = ssd_data.MApMetric()
+    dets, fwd_ms, map_ms = [], [], []
+    kernel.launches = 0
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=False)
+        outs = mod.get_outputs()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metric.update(batch.label, outs)
+        map_ms.append((time.perf_counter() - t1) * 1e3)
+        fwd_ms.append((t1 - t0) * 1e3)
+        dets.append(outs[0]._data.clone())
+    launches = kernel.launches
+
+    def plain(boxes, scores, cls, thresh, force=False):
+        return contrib.nms_keep_reference(boxes, scores, cls, thresh, force)
+
+    contrib.nms_keep = plain
+    try:
+        for batch, det in zip(batches, dets):
+            mod.forward(batch, is_train=False)
+            ref = mod.get_outputs()[0]._data
+            if not torch.equal(det, ref):
+                raise AssertionError(
+                    "ssd eval: the kernel route's detections differ from "
+                    "the plain route's in %d entries"
+                    % int((det != ref).sum()))
+    finally:
+        contrib.nms_keep = kernel
+    valid = float((dets[0][..., 0] >= 0).sum(dim=1).float().mean())
+    log("  [%s] eval B=%d: %d batches, forward %.2f ms (median), detections "
+        "== the plain route's bit for bit, %.1f kept an image; MApMetric "
+        "host %.2f ms a batch; mAP %.4f; multibox_nms launches %d"
+        % (card, cfg["batch"], len(batches), float(np.median(fwd_ms)),
+           valid, float(np.median(map_ms)), metric.get()[1], launches))
+    if launches != len(batches):
+        raise AssertionError("ssd eval: multibox_nms launched %d times in %d "
+                             "batches" % (launches, len(batches)))
+    return {"launches": launches, "forward_ms": fwd_ms, "map_host_ms": map_ms,
+            "map": metric.get()[1], "kept_per_image": valid}
+
+
+def phase_ssd(mt, seed, card):
+    """Phase 11: BASELINE config 5, the SSD detector (see the module
+    docstring)."""
+    from mxtpu_torch.models import ssd_data
+    from mxtpu_torch.ops import contrib
+    cfg = SSD
+    mod = mt.mod.Module(mt.models.ssd.get_symbol_train(
+        num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
+        network=cfg["network"]), label_names=("label",), context=mt.cpu())
+    mod.bind(data_shapes=[("data", (1, 3, cfg["data_shape"],
+                                    cfg["data_shape"]))],
+             label_shapes=[("label", (1, 8, 5))])
+    np.random.seed(seed)
+    mod.init_params(mt.init.Xavier())
+    weights = mod.get_params()[0]
+    n_params = sum(int(v.size) for v in weights.values())
+    log("  vgg16_reduced SSD at %dx%d, %d classes, %d scales: %.2f M "
+        "parameters (Xavier, numpy seed %d)"
+        % (cfg["data_shape"], cfg["data_shape"], cfg["num_classes"],
+           cfg["num_scales"], n_params / 1e6, seed))
+    del mod
+    res = {"parameters": n_params}
+    res["nms"] = ssd_nms_checks(mt, contrib, ssd_data, weights, seed, card)
+    res["first_step"] = ssd_first_step_gate(mt, contrib, ssd_data, weights,
+                                            seed, card)
+    res["training"], trained = ssd_training(mt, contrib, ssd_data, weights,
+                                            seed, card)
+    res["eval"] = ssd_eval(mt, contrib, ssd_data, trained, seed, card)
+    res["gate_twin"] = ssd_gate_twin(mt, ssd_data, card)
+    res["launches"] = {"ssd_training":
+                       res["training"][cfg["batch"]]["nms_launches"]
+                       + res["training"][cfg["small_batch"]]["nms_launches"],
+                       "ssd_eval": res["eval"]["launches"]}
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -4665,6 +5270,10 @@ def main(argv=None):
     if "rnn" in phases:
         log("[rnn]")
         results["rnn"] = phase_rnn(mt, args.seed, card)
+    # 11. the SSD detector (BASELINE config 5)
+    if "ssd" in phases:
+        log("[ssd]")
+        results["ssd"] = phase_ssd(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4686,6 +5295,8 @@ def main(argv=None):
                    if r["dtype"] == "float32" and r["B"] == TRAIN["batch"])
     main_row = next(r for r in timed if r["dtype"] == "float32"
                     and r["B"] == max(BUCKETS))
+    ssd = results["ssd"]
+    nms_row = ssd["nms"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -4718,7 +5329,16 @@ def main(argv=None):
         "scaled_err": bwd_row["scaled_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
-        "library_ms": bwd_row["library_ms"]}]}
+        "library_ms": bwd_row["library_ms"]}, {
+        "name": "multibox_nms", "route": "cuda",
+        "source": "mxtpu_torch/csrc/multibox_nms.cu",
+        "replaces": "mxtpu/ops/contrib.py:214",
+        "launches": sum(ssd["launches"].values()),
+        "launches_by_path": ssd["launches"],
+        "max_abs_err": nms_row["max_abs_err"],
+        "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
+        "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
+        "library_ms": None}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

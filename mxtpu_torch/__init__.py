@@ -25,7 +25,11 @@ Parameter and Trainer over several contexts; the mesh: ``sharding``
 (``MeshContext``, ``ShardingPlan``; ``Module.fit(mesh=...)`` with
 cross-replica weight-update sharding) and ``parallel`` (ring and Ulysses
 attention on the flash kernels, mixture of experts, pipelines,
-``DataParallelTrainer``).
+``DataParallelTrainer``); RNNs and bucketing (``rnn``,
+``BucketingModule``); the SSD detector (``models.ssd``, the MultiBox ops
+of ``ops/contrib.py`` with the suppression sweep as a CUDA kernel,
+``MakeLoss``, ``smooth_l1``) with ``models.ssd_data``'s synthetic boxes
+and metrics, and ``test_utils.default_context``.
 """
 from . import base
 from .base import MXNetError
@@ -63,6 +67,7 @@ from . import rnn
 from . import gluon
 from . import sharding
 from . import parallel
+from . import test_utils
 
 __all__ = ["MXNetError", "AttrScope", "attribute", "Context", "cpu", "gpu",
            "current_context",
@@ -70,4 +75,4 @@ __all__ = ["MXNetError", "AttrScope", "attribute", "Context", "cpu", "gpu",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
            "metric", "io", "kvstore", "kv", "model", "callback", "module", "mod",
-           "autograd", "gluon", "sharding", "parallel", "rnn"]
+           "autograd", "gluon", "sharding", "parallel", "rnn", "test_utils"]

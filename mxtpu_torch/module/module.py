@@ -71,16 +71,19 @@ from .fused import FusedTrainStep, supports
 __all__ = ["Module"]
 
 
-def _descs(shapes, names, what):
-    """[(name, shape)] from DataDesc-likes or pairs, in ``names`` order."""
+def _descs(shapes, names, what, unused=()):
+    """[(name, shape)] from DataDesc-likes or pairs, in ``names`` order.
+    A shape named in ``unused`` (a label name the symbol does not take,
+    as an inference symbol bound with its training labels) is dropped,
+    as mxtpu's Module drops it."""
     got = {}
     for d in shapes or []:
         name, shape = (d.name, d.shape) if hasattr(d, "name") else d
         got[name] = tuple(shape)
-    if set(got) - set(names):
+    extra = set(got) - set(names) - set(unused)
+    if extra:
         raise MXNetError("%s shapes name %s; the module's %s names are %s"
-                         % (what, sorted(set(got) - set(names)), what,
-                            names))
+                         % (what, sorted(extra), what, names))
     return [(n, got[n]) for n in names if n in got]
 
 
@@ -106,6 +109,8 @@ class Module(BaseModule):
         args = symbol.list_arguments()
         self._data_names = list(data_names or [])
         self._label_names = [n for n in (label_names or []) if n in args]
+        self._unused_labels = [n for n in (label_names or [])
+                               if n not in args]
         self._state_names = list(state_names or [])
         for what, names in (("data", self._data_names),
                             ("state", self._state_names)):
@@ -228,7 +233,8 @@ class Module(BaseModule):
         self.inputs_need_grad = inputs_need_grad
         self._grad_req = grad_req
         self._data_shapes = _descs(data_shapes, self._data_names, "data")
-        self._label_shapes = _descs(label_shapes, self._label_names, "label")
+        self._label_shapes = _descs(label_shapes, self._label_names, "label",
+                                    self._unused_labels)
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
@@ -247,7 +253,8 @@ class Module(BaseModule):
     def reshape(self, data_shapes, label_shapes=None):
         assert self.binded
         self._data_shapes = _descs(data_shapes, self._data_names, "data")
-        self._label_shapes = _descs(label_shapes, self._label_names, "label")
+        self._label_shapes = _descs(label_shapes, self._label_names, "label",
+                                    self._unused_labels)
         self._exec_group.reshape(self._data_shapes, self._label_shapes)
 
     # ------------------------------------------------ params

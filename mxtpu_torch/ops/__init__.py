@@ -6,6 +6,7 @@ from . import epilogue
 from . import nn
 from . import attention
 from . import rnn
+from . import contrib
 
 __all__ = ["registry", "collective", "tensor", "epilogue", "nn",
-           "attention", "rnn"]
+           "attention", "rnn", "contrib"]

@@ -7,7 +7,8 @@ Counterpart of the matching entries of ``mxtpu/ops/nn.py``:
 the updated moving statistics returned for the executor to write back),
 ``LayerNorm`` (:274), ``Activation`` (:295), ``LeakyReLU`` (:313),
 ``softmax`` and ``log_softmax`` (:320-323), ``SoftmaxOutput`` (:382,
-with the loss head's own gradient, :357-377), ``Dropout`` (:484, drawing
+with the loss head's own gradient, :357-377), ``MakeLoss`` (:449, the
+identity with a constant gradient), ``Dropout`` (:484, drawing
 its mask from ``random.generator``), ``Concat`` (:543), ``SliceChannel``
 (:556, alias ``split``) and the sequence ops ``SequenceLast``,
 ``SequenceMask`` and ``SequenceReverse`` (:638-668, time-major, with
@@ -271,6 +272,59 @@ register("SoftmaxOutput", _softmax_output,
                 "preserve_shape": False, "normalization": "null",
                 "out_grad": False, "smooth_alpha": 0.0},
          loss_like=True, aliases=("Softmax",), infer_args=_label_like_batch)
+
+
+# ---------------------------------------------------------------- MakeLoss
+def _make_loss_scale(a, shape, denom=None):
+    """MakeLoss's constant gradient (mxtpu/ops/nn.py:436-446):
+    ``grad_scale``, divided under "batch" by the rows and under "valid"
+    by the element count of the whole input (mxtpu's "valid" does not
+    count the elements above ``valid_thresh`` as the reference MXNet
+    does, ROADMAP C). ``denom``, given by the replica walk, is that
+    divisor over every replica."""
+    if denom is not None:
+        return a.grad_scale / denom
+    if a.normalization == "batch":
+        return a.grad_scale / shape[0]
+    if a.normalization == "valid":
+        return a.grad_scale / max(1, _prod(shape))
+    return a.grad_scale
+
+
+class MakeLossFunction(torch.autograd.Function):
+    """The identity forward; the backward ignores the incoming head
+    gradient and returns the constant ``scale`` everywhere."""
+
+    @staticmethod
+    def forward(ctx, data, scale):
+        ctx.scale = scale
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return torch.full_like(grad_out, ctx.scale), None
+
+
+def _make_loss(a, data, denom=None):
+    if torch.is_grad_enabled() and data.requires_grad:
+        return MakeLossFunction.apply(
+            data, _make_loss_scale(a, tuple(data.shape), denom))
+    return data
+
+
+def _make_loss_group(a, inputs):
+    """MakeLoss over replicas under "batch" or "valid": each replica's
+    gradient divided by the whole batch's rows or elements."""
+    dims = [tuple(x.shape) for (x,) in inputs]
+    total = sum(d[0] for d in dims) if a.normalization == "batch" else \
+        max(1, sum(_prod(d) for d in dims))
+    return [(_make_loss(a, x, total),) for (x,) in inputs]
+
+
+register("MakeLoss", _make_loss,
+         attrs={"grad_scale": 1.0, "valid_thresh": 0.0,
+                "normalization": "null"},
+         loss_like=True)
 
 
 # ---------------------------------------------------------------- Dropout
@@ -609,5 +663,7 @@ set_replicas(["Concat", "concat"], lambda a, nd: off_batch_axis(a.dim, nd))
 set_replicas(["SoftmaxOutput", "Softmax"],
              lambda a, nd: a.normalization == "null",
              group_fn=_softmax_output_group)
+set_replicas(["MakeLoss"], lambda a, nd: a.normalization == "null",
+             group_fn=_make_loss_group)
 set_replicas(["BatchNorm", "BatchNorm_v1"], lambda a, nd: _bn_global(a),
              group_fn=_batch_norm_group)

@@ -4,20 +4,20 @@ frontends (NDArray arithmetic, autograd, Gluon and its losses).
 Counterpart of the matching entries of ``mxtpu/ops/tensor.py``: the
 unary math (:53-99: ``relu``, ``sigmoid``, ``negative``, ``_copy``,
 ``abs``, ``square``, ``sqrt``, ``exp``, ``log``, ``zeros_like``,
-``ones_like``), ``Cast`` (:101), the elementwise binaries (:147-163,
-with ``_plus``/``_minus``/``_mul``/``_div``, what Symbol arithmetic
-composes, and the 0/1 comparisons), the scalar ops (:168-186), the
-broadcast binaries (:196-205) and ``broadcast_to`` (:212), the
-reductions ``sum``/``mean``/``max``/``min`` with ``axis``, ``keepdims``
-and ``exclude`` and ``norm`` (:217-237), ``argmax`` (:254), ``pick``
-(:268), ``Reshape`` (:334), ``Flatten`` (:338), ``reshape_like``
-(:340), ``transpose`` (:342), ``expand_dims`` (:344), ``SwapAxis``
-(:346), ``slice_axis`` (:420), ``stack`` (:447), ``Embedding`` (:476),
-``take`` (:486), ``where`` (:600), ``reverse`` (:430) and ``_zeros``
-(:532, made on the executor's device), each with
-mxtpu's arg names and attr defaults. Comparisons return 0/1 in the left operand's dtype, as
-mxtpu's ``_logic`` does. The other op families of that module are
-ported in later slices.
+``ones_like``, ``make_loss``), ``Cast`` (:101), the elementwise
+binaries (:147-163, with ``_plus``/``_minus``/``_mul``/``_div``, what
+Symbol arithmetic composes, and the 0/1 comparisons), the scalar ops
+(:168-186), ``smooth_l1`` (:188), the broadcast binaries (:196-205) and
+``broadcast_to`` (:212), the reductions ``sum``/``mean``/``max``/``min``
+with ``axis``, ``keepdims`` and ``exclude`` and ``norm`` (:217-237),
+``argmax`` (:254), ``pick`` (:268), ``Reshape`` (:334), ``Flatten``
+(:338), ``reshape_like`` (:340), ``transpose`` (:342), ``expand_dims``
+(:344), ``SwapAxis`` (:346), ``slice_axis`` (:420), ``stack`` (:447),
+``Embedding`` (:476), ``take`` (:486), ``where`` (:600), ``reverse``
+(:430) and ``_zeros`` (:532, made on the executor's device), each with
+mxtpu's arg names and attr defaults. Comparisons return 0/1 in the left
+operand's dtype, as mxtpu's ``_logic`` does. The other op families of
+that module are ported in later slices.
 """
 from __future__ import annotations
 
@@ -86,9 +86,28 @@ unary("exp", torch.exp)
 unary("log", torch.log)
 unary("zeros_like", torch.zeros_like)
 unary("ones_like", torch.ones_like)
+unary("make_loss", lambda x: x)  # the identity, gradient and all
 
-register("Cast", lambda a, x: x.to(torch_dtype(a.dtype)),
-         attrs={"dtype": Required(str)}, aliases=("cast",))
+
+def _cast(a, x):
+    """``x`` in ``a.dtype``. A float cast to an integer type saturates
+    at the type's range and maps NaN to 0, truncating toward zero in
+    between, as XLA's convert does for mxtpu (mxtpu/ops/tensor.py:101);
+    torch's own conversion wraps or overflows there."""
+    dt = torch_dtype(a.dtype)
+    if not x.is_floating_point() or dt.is_floating_point or dt == torch.bool:
+        return x.to(dt)
+    info = torch.iinfo(dt)
+    # float64 holds every int32 bound exactly; int64's max rounds up to
+    # 2**63, which the comparison then still maps to the max
+    xd = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    over, under = xd >= float(info.max), xd <= float(info.min)
+    mid = torch.where(over | under, torch.zeros_like(xd), xd).to(dt)
+    return torch.where(over, info.max, torch.where(under, info.min, mid)
+                       ).to(dt)
+
+
+register("Cast", _cast, attrs={"dtype": Required(str)}, aliases=("cast",))
 
 # ---------------------------------------------------------------- binaries
 # torch.maximum/minimum split the gradient at a tie as jnp.maximum does
@@ -117,6 +136,18 @@ binary_scalar("_power_scalar", torch.pow)
 binary_scalar("_rpower_scalar", lambda x, s: torch.pow(s, x))
 for _n, _f in _COMPARE:
     binary_scalar("_%s_scalar" % _n, _logic(_f))
+
+
+def _smooth_l1(a, x):
+    """``0.5 (x s)^2`` where ``|x| < 1/s^2``, else ``|x| - 0.5/s^2``
+    (mxtpu/ops/tensor.py:188); its gradient is ``s^2 x`` inside the band
+    and ``sign(x)`` outside, as ``jax.vjp`` of the same ``where``."""
+    s = a.scalar
+    return torch.where(torch.abs(x) < 1.0 / (s ** 2), 0.5 * (x * s) ** 2,
+                       torch.abs(x) - 0.5 / (s ** 2))
+
+
+register("smooth_l1", _smooth_l1, attrs={"scalar": 1.0})
 
 for _n, _f in [("add", torch.add), ("plus", torch.add), ("sub", torch.sub),
                ("minus", torch.sub), ("mul", torch.mul), ("div", torch.div),
@@ -164,10 +195,25 @@ def _argmax(a, x):
 register("argmax", _argmax, attrs={"axis": None, "keepdims": False})
 
 
+def _in_range(idx, n):
+    """(``idx`` wrapped into ``[0, n)`` with every id outside
+    ``[-n, n)`` set to 0, the mask of the ids inside): how
+    ``jnp.take``/``take_along_axis`` read an index, negative ones from
+    the end and the rest filled (mxtpu's NaN rows). The clamped index
+    never reaches a kernel out of range: on the card that trips a
+    device-side assert, which leaves the CUDA context unusable."""
+    valid = (idx >= -n) & (idx < n)
+    wrapped = torch.where(idx < 0, idx + n, idx)
+    return torch.where(valid, wrapped, torch.zeros_like(idx)), valid
+
+
 def _pick(a, x, index):
+    """``x``'s entries at ``index`` along ``axis``; an index outside
+    ``[-n, n)`` gives NaN and no gradient (mxtpu/ops/tensor.py:268)."""
     axis = (int(a.axis) if a.axis is not None else -1) % x.ndim
-    idx = index.to(torch.int64).unsqueeze(axis)
-    picked = torch.take_along_dim(x, idx, dim=axis)
+    idx, valid = _in_range(index.to(torch.int64), x.shape[axis])
+    picked = torch.take_along_dim(x, idx.unsqueeze(axis), dim=axis)
+    picked = torch.where(valid.unsqueeze(axis), picked, float("nan"))
     return picked if a.keepdims else picked.squeeze(axis)
 
 
@@ -283,8 +329,13 @@ register("slice_axis", _slice_axis,
 
 
 def _embedding(a, data, weight):
-    # float token ids truncate toward zero, as astype(int32) does
-    return torch.nn.functional.embedding(data.to(torch.int64), weight)
+    """Rows of ``weight`` at ``data``. Float ids truncate toward zero, as
+    astype(int32) does; ids in ``[-input_dim, 0)`` wrap and every other
+    id outside ``[0, input_dim)`` gives a NaN row with no gradient
+    (mxtpu's ``jnp.take``, mxtpu/ops/tensor.py:476)."""
+    idx, valid = _in_range(data.to(torch.int64), weight.shape[0])
+    rows = torch.nn.functional.embedding(idx, weight)
+    return torch.where(valid.unsqueeze(-1), rows, float("nan"))
 
 
 register("Embedding", _embedding, arg_names=["data", "weight"],
@@ -335,7 +386,8 @@ register("_zeros",
 # refused by a replica walk
 _ELEMENTWISE = (
     ["relu", "sigmoid", "_copy", "negative", "abs", "square", "sqrt", "exp",
-     "log", "zeros_like", "ones_like", "Cast", "cast", "where",
+     "log", "zeros_like", "ones_like", "make_loss", "smooth_l1", "Cast",
+     "cast", "where",
      "elemwise_add", "_plus", "_add", "elemwise_sub", "_minus", "_sub",
      "elemwise_mul", "_mul", "elemwise_div", "_div", "_maximum", "_minimum",
      "_power", "_plus_scalar", "_minus_scalar", "_rminus_scalar",

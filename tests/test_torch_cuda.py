@@ -24,7 +24,13 @@ Ulysses attention, whose every hop is a flash kernel launch, against the
 same functions on cpu() contexts, where every hop is the plain version.
 The RNN op's cuDNN route against the plain loop on the card, its clip
 route and its refusal; a BucketingModule step on gpu(0) against cpu();
-with two cards, group2ctx placement against one card.
+with two cards, group2ctx placement against one card. ``Embedding`` on
+ids outside its range leaving the CUDA context usable; the MultiBox
+suppression kernel bit for bit against its plain version on every set
+of ``models.ssd_data.nms_sets`` (one class overlapping, IoUs at the
+threshold, -inf tails, force_suppress, NaN boxes, K = 1, 37, 400,
+1,376), its refusals, and the tiny SSD's training step on gpu(0)
+against cpu() with the kernel launched once a step.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -1225,3 +1231,111 @@ def test_group2ctx_over_two_cards(cuda):
     for k in res[1][1]:
         np.testing.assert_allclose(res[0][1][k], res[1][1][k], rtol=1e-6,
                                    atol=1e-7, err_msg=k)
+
+
+def test_embedding_out_of_range_ids_leave_the_context_usable(cuda):
+    """Ids outside [-input_dim, input_dim) give NaN rows on the card, as
+    on the host, and never reach the gather: the CUDA context still
+    runs kernels afterwards."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    w = torch.arange(10.0, device="cuda").reshape(5, 2)
+    ids = torch.tensor([-7, -6, -5, -1, 0, 4, 5, 9, 2.7, -0.5],
+                       device="cuda")
+    _, _, (y,) = mt.ops.registry.invoke(
+        "Embedding", [ids, w], {"input_dim": 5, "output_dim": 2})
+    torch.cuda.synchronize()
+    want = [float("nan"), float("nan"), 0, 8, 0, 8, float("nan"),
+            float("nan"), 4, 0]
+    got = y[:, 0].cpu().tolist()
+    assert [g != g for g in got] == [v != v for v in want]
+    assert [g for g in got if g == g] == [v for v in want if v == v]
+    z = torch.ones(1000, device="cuda") * 2  # the context still works
+    torch.cuda.synchronize()
+    assert float(z.sum()) == 2000.0
+
+
+def _nms_set_ids():
+    return ["random", "one_class_overlapping", "at_threshold", "inf_tails",
+            "force_suppress", "nan_boxes", "k37", "k1376", "k1"]
+
+
+@pytest.mark.parametrize("name", _nms_set_ids())
+def test_nms_kernel_equals_plain_version(cuda, name):
+    torch, _ = cuda
+    from mxtpu_torch.models import ssd_data
+    from mxtpu_torch.ops import contrib
+    sets = {s[0]: s[1:] for s in ssd_data.nms_sets(batch=8)}
+    boxes, scores, cls, thresh, force = sets[name]
+    args = [torch.from_numpy(a).cuda() for a in (boxes, scores, cls)]
+    before = contrib.nms_keep.launches
+    got = contrib.nms_keep(*args, thresh, force)
+    want = contrib.nms_keep_reference(*args, thresh, force)
+    torch.cuda.synchronize()
+    assert contrib.nms_keep.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert torch.equal(got, want)
+    cpu = contrib.nms_keep(*[a.cpu() for a in args], thresh, force)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_nms_kernel_refuses_what_it_does_not_take(cuda):
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import contrib
+    b = torch.rand(2, 5, 4, device="cuda")
+    s = torch.rand(2, 5, device="cuda")
+    with pytest.raises(mt.MXNetError, match="float32"):
+        contrib.nms_keep(b.double(), s, s, 0.5)
+    with pytest.raises(mt.MXNetError, match="contiguous"):
+        contrib.nms_keep(b, s.t().contiguous().t(), s, 0.5)
+    big = torch.rand(1, 2048, 4, device="cuda")
+    with pytest.raises(mt.MXNetError, match="shared memory"):
+        contrib.nms_keep(big, torch.rand(1, 2048, device="cuda"),
+                         torch.rand(1, 2048, device="cuda"), 0.5)
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        contrib.nms_keep(b, s.cpu(), s, 0.5)
+
+
+def test_ssd_step_on_gpu_matches_cpu(cuda):
+    """One fused SGD step of the tiny SSD on gpu(0) and on cpu() from the
+    same weights: the targets equal, the suppression kernel launched once
+    on the card, the class probabilities, the location loss and the
+    updated weights within 1e-5 (cuDNN in f32, TF32 off)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.models import ssd_data
+    from mxtpu_torch.ops import contrib
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(num_classes=3, num_scales=3, network="tiny")
+    x, lab = ssd_data.make_batch(np.random.RandomState(0), 4, (3, 64, 64), 3)
+    got, weights = [], None
+    for ctx in (mt.gpu(0), mt.cpu()):
+        mod = mt.mod.Module(mt.models.ssd.get_symbol_train(**cfg),
+                            label_names=("label",), context=ctx)
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("label", lab.shape)])
+        if weights is None:
+            np.random.seed(1)
+            mod.init_params(mt.init.Xavier())
+            weights = mod.get_params()[0]
+        else:
+            mod.init_params(arg_params=weights)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.05, "momentum": 0.9, "wd": 5e-4})
+        before = contrib.nms_keep.launches
+        mod.forward_backward(mt.io.DataBatch(
+            [mt.nd.array(x, ctx=mt.cpu())], [mt.nd.array(lab, ctx=mt.cpu())]))
+        mod.update()
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize()
+            assert contrib.nms_keep.launches == before + 1
+        got.append(([o.asnumpy() for o in mod.get_outputs()],
+                    {k: v.asnumpy() for k, v in mod.get_params()[0].items()}))
+    (go, gw), (co, cw) = got
+    assert np.array_equal(go[2], co[2])
+    for i in (0, 1):
+        assert np.abs(go[i] - co[i]).max() <= 1e-5, i
+    for k in cw:
+        assert np.abs(gw[k] - cw[k]).max() <= 1e-5, k

@@ -90,6 +90,17 @@ CASES = (
       {}, [0]),
      ("pick", [_r((4, 5), 131), np.array([1, 0, 3, 2, 1], np.float32)],
       {"axis": 0, "keepdims": True}, [0]),
+     # indices outside [-n, n) give NaN and no gradient; in-range
+     # negative ones wrap (ROADMAP C.3)
+     ("pick", [_r((4, 5), 132), np.array([-6, -1, 5, 7], np.float32)],
+      {"axis": 1}, [0]),
+     ("pick", [_r((3, 4), 133), np.array([-1, -4, 4, 2], np.float32)],
+      {"axis": 0, "keepdims": True}, [0]),
+     # ids outside [0, input_dim): NaN rows with no gradient to the
+     # weight, in-range negative ids wrap (ROADMAP C.2)
+     ("Embedding", [np.array([[-7, -6, -5, -1, 0], [4, 5, 9, 2.7, -0.5]],
+                             np.float32), _r((5, 3), 134)],
+      {"input_dim": 5, "output_dim": 3}, [1]),
      ("reshape_like", [_r((2, 6), 140), _r((3, 4), 141)], {}, [0]),
      ("expand_dims", [_r((2, 3), 142)], {"axis": 1}, [0]),
      ("expand_dims", [_r((2, 3), 143)], {"axis": -1}, [0]),

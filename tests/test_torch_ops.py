@@ -28,12 +28,24 @@ def _rand(shape, seed, scale=1.0):
         np.float32)
 
 
+# float -> integer casts outside the target's range, NaN, and the
+# truncation toward zero in between (ROADMAP C.1)
+_CAST_EDGES = np.array([-300, -129, -1.5, 256, 300, np.nan, 3e9, -3e9, 2.5],
+                       np.float32)
+# ids outside [0, input_dim): negative ones in range wrap, the rest give
+# NaN rows; float ids truncate toward zero (ROADMAP C.2)
+_EMBED_IDS = np.array([-7, -6, -5, -1, 0, 4, 5, 9, 2.7, -0.5], np.float32)
+
 # (op, [input arrays], attrs) — every op the transformer LM's serving
 # path runs, across the attr values the graphs use and their neighbours
 CASES = [
     ("Cast", [_rand((3, 5), 0)], {"dtype": "float32"}),
     ("Cast", [_rand((3, 5), 1)], {"dtype": "bfloat16"}),
     ("Cast", [_rand((3, 5), 2)], {"dtype": "float16"}),
+    ("Cast", [_CAST_EDGES], {"dtype": "uint8"}),
+    ("Cast", [_CAST_EDGES], {"dtype": "int8"}),
+    ("Cast", [_CAST_EDGES], {"dtype": "int32"}),
+    ("Cast", [_rand((3, 5), 3, 200.0)], {"dtype": "uint8"}),
     ("elemwise_add", [_rand((2, 3, 4), 3), _rand((2, 3, 4), 4)], {}),
     ("_plus", [_rand((4, 6), 5), _rand((4, 6), 6)], {}),
     ("broadcast_add", [_rand((2, 3, 4), 7), _rand((1, 3, 4), 8)], {}),
@@ -54,6 +66,8 @@ CASES = [
                                              "end": -1}),
     ("Embedding", [np.array([[0, 3, 7], [2, 2, 9]], np.float32),
                    _rand((10, 6), 22)], {"input_dim": 10, "output_dim": 6}),
+    ("Embedding", [_EMBED_IDS, _rand((5, 3), 23)],
+     {"input_dim": 5, "output_dim": 3}),
     ("FullyConnected", [_rand((2, 5, 8), 23), _rand((6, 8), 24),
                         _rand((6,), 25)], {"num_hidden": 6,
                                            "flatten": False}),
@@ -126,6 +140,29 @@ def test_meta_shape_inference_matches_mxtpu(tt, name, arrays, attrs):
     want = jop.infer(jop.parse_attrs(dict(attrs)),
                      [(a.shape, np.float32) for a in arrays])
     assert [s for s, _ in got] == [tuple(s) for s, _ in want]
+
+
+def test_cast_values_at_the_integer_ranges(tt):
+    """The values of ROADMAP C.1 (mxtpu's on the CPU): saturation at
+    each type's range, NaN to 0, truncation toward zero. mxtpu runs
+    with x64 off, so its "int64" is int32; the port's int64 saturates at
+    int64's own range, a deliberate delta (ROADMAP C)."""
+    torch, mt = tt
+    x = torch.from_numpy(_CAST_EDGES)
+    want = {"uint8": [0, 0, 0, 255, 255, 0, 255, 0, 2],
+            "int8": [-128, -128, -1, 127, 127, 0, 127, -128, 2],
+            "int32": [-300, -129, -1, 256, 300, 0, 2147483647,
+                      -2147483648, 2],
+            "int64": [-300, -129, -1, 256, 300, 0, 3000000000,
+                      -3000000000, 2]}
+    for dtype, values in want.items():
+        _, _, (y,) = mt.ops.registry.invoke("Cast", [x], {"dtype": dtype})
+        assert y.dtype == getattr(torch, dtype)
+        assert y.tolist() == values, dtype
+    big = torch.tensor([1e30, -1e30, float("inf"), float("-inf")])
+    _, _, (y,) = mt.ops.registry.invoke("Cast", [big], {"dtype": "int64"})
+    info = torch.iinfo(torch.int64)
+    assert y.tolist() == [info.max, info.min, info.max, info.min]
 
 
 def test_dropout_in_training_is_refused(tt):
