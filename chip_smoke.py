@@ -27,7 +27,10 @@ Phases (any failure raises and exits non-zero):
    the kernel, the plain version and the library call that computes the
    same function (timed as a yardstick only; the port never calls it),
    beside the least time the card could take (bound_ms): float32 counted
-   as three TF32 tensor-core passes, the route the kernel takes.
+   as three TF32 tensor-core passes, the route the kernel takes. Then the
+   forward and the backward at head dim 96 (d_model 768 over 8 heads),
+   which the wrappers zero-pad to the kernel's 128, against the plain
+   version, timed beside D=128 at the same shape.
 3b. Epilogue kernel vs plain: the BN-apply+ReLU(+residual) kernel
    against its plain version at ResNet-50's bucket-32 sites, channel-minor
    and NCHW, float32 and bfloat16, with and without the residual, a
@@ -144,8 +147,12 @@ Phases (any failure raises and exits non-zero):
    plain version on the card, bit for bit, on the candidates decoded
    from the full-width net's outputs at B=32 and on adversarial sets
    (one class overlapping, IoUs at the threshold, -inf tails,
-   force_suppress, NaN boxes, K = 1, 37 and 1,376), then its CUDA-event
-   time beside the plain version's and bound_ms. The first training step
+   force_suppress, NaN boxes, K = 1, 37 and 1,376, -inf and NaN scores
+   between live ones), then its CUDA-event time beside the plain
+   version's and bound_ms. The same at nms_topk -1 (the op's default):
+   all 7,486 candidates of the net's outputs, bit for bit at B=4 (the
+   plain version's K x K temporaries), the kernel timed at B=32, the
+   plain version at B=4. The first training step
    at B=2 against float64 on the card (the f32 run's targets fed to a
    graph that takes them as variables; the hard-negative margin, the
    hardness drift and the anchors whose float64 target differs printed),
@@ -158,7 +165,8 @@ Phases (any failure raises and exits non-zero):
    peak memory; one kernel launch a step. ``get_symbol`` through
    ``Module.forward(is_train=False)`` at B=32 on the trained weights: the
    kernel route's detections equal the plain route's, one launch a
-   batch; MApMetric's host ms. Last, the twin of test_ssd_gate (tiny,
+   batch; MApMetric's host ms; then once more at nms_topk -1 and B=4.
+   Last, the twin of test_ssd_gate (tiny,
    64x64, 12 epochs of 8 batches) from the port's Xavier draws at seeds
    0-4: each CrossEntropy < 1.2 and checkpoint reloaded bit for bit, the
    mean mAP above max(the mean untrained mAP, 0.05).
@@ -340,6 +348,9 @@ SSD = dict(num_classes=20, num_scales=6, network="vgg16_reduced",
 SSD_OPT = {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4}
 SSD_TRAIN = dict(fall_steps=8, timed_steps=5, f64_batch=2)
 SSD_EVAL = 2  # held-out batches of B=32
+# images of the checks at nms_topk -1 (all 7,486 anchors): the plain
+# version's K x K temporaries take ~224 MB an image each
+SSD_ALL_ANCHORS_BATCH = 4
 # 30.2 GMAC an image forward (mxtpu's symbol at 300x300): 60.4 GFLOP,
 # three times that with the backward
 SSD_FLOPS_PER_IMAGE = 3 * 60.4e9
@@ -357,6 +368,8 @@ SSD_GATE_SEEDS = (0, 1, 2, 3, 4)
 # clamps, the product, the union's add and subtract, the quotient, the
 # compare (the two areas are counted once a box, not a pair)
 NMS_IOU_OPS = 14
+# the suppression kernel's two launches (csrc/multibox_nms.cu)
+NMS_LAUNCHES = ("nms_matrix_kernel", "nms_sweep_kernel")
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
@@ -831,6 +844,68 @@ def bwd_inputs(b, h, t, s, d, dtype, gen, offset=0, nan_tail=0):
             numel, device="cuda", generator=gen).to(dtype)
         return buf[offset:offset + numel].view(b, h, n, d)
     return tuple(make(n) for n in (t, s, s, t))
+
+
+def flash_head_dim_96(att, gen, b=4, h=8, t=1024):
+    """The forward and the backward at head dim 96, which the wrappers
+    zero-pad to the kernel's 128 (and slice back), against the plain
+    version at the LM's T, causal, in float32 and bfloat16; then
+    CUDA-event times of both beside the same calls at D=128 on the same
+    shape (the padded D=96 moves the bytes of D=128) and beside bound_ms
+    at the true D."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        row = {"dtype": name, "B": b, "H": h, "T": t}
+        for d in (96, 128):
+            q, k, v, g = (torch.randn(b, h, t, d, device=gen.device,
+                                      generator=gen).to(dtype)
+                          for _ in range(4))
+            got = att.flash_attention(q, k, v, causal=True)
+            out, lse = att.flash_attention_reference(q, k, v, causal=True,
+                                                     return_lse=True)
+            err = abs_err(got, out)
+            grads = att.flash_attention_backward(q, k, v, out, g, lse,
+                                                 causal=True)
+            want = att.flash_attention_backward_reference(q, k, v, out, g,
+                                                          lse, causal=True)
+            torch.cuda.synchronize()
+            bwd_err = max(rel_err(a, w) for a, w in zip(grads, want))
+            del grads, want
+            if not err <= TOL[dtype] or not bwd_err <= BWD_TOL[dtype]:
+                raise AssertionError(
+                    "flash at D=%d disagrees with its plain version: forward "
+                    "%r, backward %r (%s)" % (d, err, bwd_err, name))
+            ms = cuda_ms(lambda: att.flash_attention(q, k, v, causal=True),
+                         20)
+            bwd_ms = cuda_ms(lambda: att.flash_attention_backward(
+                q, k, v, out, g, lse, causal=True), 20)
+            bound_ms, bound_by = attention_bound_ms(b, h, t, t, d, True,
+                                                    dtype)
+            bwd_bound_ms, bwd_bound_by = backward_bound_ms(b, h, t, t, d,
+                                                           True, dtype)
+            row["D%d" % d] = dict(
+                max_abs_err=err, bwd_scaled_err=bwd_err, ms=ms,
+                bwd_ms=bwd_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by)
+            if d == 96:
+                row["D96"]["plain_ms"] = cuda_ms(
+                    lambda: att.flash_attention_reference(q, k, v,
+                                                          causal=True), 5)
+                row["D96"]["library_ms"] = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), 20)
+        a, c = row["D96"], row["D128"]
+        log("  flash %s causal B=%d H=%d T=S=%d D=96 (padded to 128): "
+            "forward %.4f ms (D=128: %.4f), bound %.4f ms (%s), plain %.4f "
+            "ms, sdpa %.4f ms, err %.3e; backward %.4f ms (D=128: %.4f), "
+            "bound %.4f ms (%s), scaled err %.3e"
+            % (name, b, h, t, a["ms"], c["ms"], a["bound_ms"], a["bound_by"],
+               a["plain_ms"], a["library_ms"], a["max_abs_err"], a["bwd_ms"],
+               c["bwd_ms"], a["bwd_bound_ms"], a["bwd_bound_by"],
+               a["bwd_scaled_err"]))
+        rows.append(row)
+    return rows
 
 
 def check_bwd_case(att, case, dtype, gen, offset=0, nan_tail=0):
@@ -4787,24 +4862,76 @@ def nms_ops(boxes, scores, cls, keep, force):
     """Operations the sweep needs on these candidates: an IoU
     (NMS_IOU_OPS) for each kept i and each later j it may clear (same
     class, or any under force_suppress, and alive at the start), summed
-    over the batch."""
-    alive = scores > float("-inf")
-    same = (cls.unsqueeze(2) == cls.unsqueeze(1)) | bool(force)
+    over the batch one image at a time (K x K temporaries)."""
     k = scores.shape[1]
     later = torch.ones(k, k, dtype=torch.bool, device=scores.device).triu(1)
-    pairs = same & later & keep.unsqueeze(2) & alive.unsqueeze(1)
-    return NMS_IOU_OPS * int(pairs.sum())
+    pairs = 0
+    for c, kp, s in zip(cls, keep, scores):
+        same = (c.unsqueeze(1) == c.unsqueeze(0)) | bool(force)
+        pairs += int((same & later & kp.unsqueeze(1)
+                      & (s > float("-inf")).unsqueeze(0)).sum())
+    return NMS_IOU_OPS * pairs
+
+
+def nms_timed(contrib, cands, plain_batch, card, label):
+    """CUDA-event times of the suppression kernel on ``cands`` (boxes,
+    scores, class ids of B images) and of its plain version on the first
+    ``plain_batch`` of them, beside bound_ms: the larger of its bytes (24
+    in and 1 out a candidate) at HBM_BYTES_PER_S and its operations,
+    ``nms_ops``, at the f32 peak."""
+    boxes, scores, cls = cands
+    B, K = scores.shape
+    keep = contrib.nms_keep(boxes, scores, cls, 0.5, False)
+    ms = cuda_ms(lambda: contrib.nms_keep(boxes, scores, cls, 0.5, False),
+                 50 if K <= 1000 else 10)
+    part = [x[:plain_batch] for x in cands]
+    plain_ms = cuda_ms(lambda: contrib.nms_keep_reference(*part, 0.5, False),
+                       3 if K <= 1000 else 1, warmup=1)
+    nbytes = boxes.numel() * 4 + scores.numel() * 4 + cls.numel() * 4 + \
+        keep.numel()
+    ops = nms_ops(boxes, scores, cls, keep, False)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    # device ms of each of the two launches, from one profiled call; None
+    # where the profiler saw neither (so it reads in `--phases ssd`, but
+    # not after the earlier phases' profiler sessions of the default run)
+    split = {name: 0.0 for name in NMS_LAUNCHES}
+    for e in profiled(lambda: contrib.nms_keep(boxes, scores, cls, 0.5,
+                                               False)).events():
+        for name in NMS_LAUNCHES:
+            if e.device_type.name == "CUDA" and name in e.name:
+                split[name] += e.device_time_total / 1e3
+    if not any(split.values()):
+        split = None
+    row = {"B": B, "K": K, "live": int((scores > float("-inf")).sum()),
+           "kept": int(keep.sum()), "ms": ms, "plain_ms": plain_ms,
+           "plain_B": plain_batch, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "operations": ops, "max_abs_err": 0.0,
+           "library_ms": None, "launch_ms": split,
+           "scratch_bytes": contrib.nms_plan(B, K)["scratch_bytes"]}
+    log("  [%s] multibox_nms at B=%d, K=%d (%s; %d live, %d kept): kernel "
+        "%.4f ms (profiled: %s), plain %.3f ms at B=%d, bound %.6f ms (%s: "
+        "%d bytes, %d operations), scratch %d bytes; no PyTorch call "
+        "computes it"
+        % (card, B, K, label, row["live"], row["kept"], ms,
+           "matrix %.4f, sweep %.4f" % tuple(split[n] for n in NMS_LAUNCHES)
+           if split else "no launch traced", plain_ms, plain_batch,
+           row["bound_ms"], row["bound_by"], nbytes, ops,
+           row["scratch_bytes"]))
+    return row
 
 
 def ssd_nms_checks(mt, contrib, ssd_data, weights, seed, card):
     """The suppression kernel against its plain version on the card, bit
     for bit: on the candidates decoded from the full-width net's outputs
-    at B=32 (K = nms_topk = 400 of 7,486 anchors) and on every set of
+    at B=32 (K = nms_topk = 400 of 7,486 anchors), on every set of
     ``ssd_data.nms_sets`` at B=32 (one class overlapping, IoUs at the
     threshold, -inf tails, force_suppress, NaN boxes, K = 37, 1,376 and
-    1); then, on the decoded candidates, CUDA-event times of the kernel
-    and of the plain version beside bound_ms (the larger of its bytes at
-    HBM_BYTES_PER_S and its operations, ``nms_ops``, at the f32 peak)."""
+    1, dead scores between live ones), and at nms_topk -1 (all 7,486
+    candidates) at B=4; then ``nms_timed`` at K=400 (kernel and plain at
+    B=32) and at K=7,486 (kernel at B=32, plain at B=4). Returns the
+    K=400 row with the K=7,486 row under "all_anchors"."""
     cfg = SSD
     B = cfg["batch"]
     x, _ = ssd_data.make_batch(np.random.RandomState(seed + 7), B,
@@ -4814,12 +4941,16 @@ def ssd_nms_checks(mt, contrib, ssd_data, weights, seed, card):
         mt, ssd_heads_symbol(mt, cfg), mt.gpu(0), torch.float32, weights,
         {"data": x}, grad=False)
     op = mt.ops.registry.get_op("_contrib_MultiBoxDetection")
-    a = op.parse_attrs(dict(nms_threshold=0.5, force_suppress=False,
-                            variances=(0.1, 0.1, 0.2, 0.2),
-                            nms_topk=cfg["nms_topk"]))
-    cands = contrib.detection_candidates(
-        a, torch.softmax(cls_preds, dim=1), loc_preds, anchors)
-    sets = [("decoded", *cands, 0.5, False)] + [
+    cands = {}
+    for topk in (cfg["nms_topk"], -1):
+        a = op.parse_attrs(dict(nms_threshold=0.5, force_suppress=False,
+                                variances=(0.1, 0.1, 0.2, 0.2),
+                                nms_topk=topk))
+        cands[topk] = contrib.detection_candidates(
+            a, torch.softmax(cls_preds, dim=1), loc_preds, anchors)
+    small = SSD_ALL_ANCHORS_BATCH
+    sets = [("decoded", *cands[cfg["nms_topk"]], 0.5, False),
+            ("decoded_all", *[v[:small] for v in cands[-1]], 0.5, False)] + [
         (n, *[torch.from_numpy(v).to(anchors.device) for v in (b_, s_, c_)],
          t, f)
         for n, b_, s_, c_, t, f in ssd_data.nms_sets(batch=B, seed=seed)]
@@ -4829,35 +4960,22 @@ def ssd_nms_checks(mt, contrib, ssd_data, weights, seed, card):
         want = contrib.nms_keep_reference(boxes, scores, cls, thresh, force)
         torch.cuda.synchronize()
         wrong = int((got != want).sum())
-        checked[name] = {"K": int(boxes.shape[1]), "kept": int(want.sum()),
-                         "differ": wrong}
+        checked[name] = {"B": int(boxes.shape[0]), "K": int(boxes.shape[1]),
+                         "kept": int(want.sum()), "differ": wrong}
         if wrong:
             raise AssertionError("multibox_nms %s: %d keep entries differ "
                                  "from the plain version" % (name, wrong))
+        del got, want
     log("  multibox_nms == plain bit for bit on %s"
-        % ", ".join("%s (K=%d, %d kept)" % (n, c["K"], c["kept"])
+        % ", ".join("%s (B=%d, K=%d, %d kept)" % (n, c["B"], c["K"],
+                                                   c["kept"])
                     for n, c in checked.items()))
-    boxes, scores, cls = cands
-    keep = contrib.nms_keep_reference(boxes, scores, cls, 0.5, False)
-    ms = cuda_ms(lambda: contrib.nms_keep(boxes, scores, cls, 0.5, False),
-                 50)
-    plain_ms = cuda_ms(lambda: contrib.nms_keep_reference(
-        boxes, scores, cls, 0.5, False), 3, warmup=1)
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + cls.numel() * 4 + \
-        keep.numel()
-    ops = nms_ops(boxes, scores, cls, keep, False)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
-    row = {"B": B, "K": int(boxes.shape[1]), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": nbytes, "operations": ops, "max_abs_err": 0.0,
-           "library_ms": None, "sets": checked}
-    log("  [%s] multibox_nms at B=%d, K=%d (decoded): kernel %.4f ms, plain "
-        "%.3f ms (%.0fx), bound %.6f ms (%s: %d bytes, %d operations; far "
-        "below a launch's latency); no PyTorch call computes it"
-        % (card, B, row["K"], ms, plain_ms, plain_ms / ms, row["bound_ms"],
-           row["bound_by"], nbytes, ops))
+    row = nms_timed(contrib, cands[cfg["nms_topk"]], B, card,
+                    "nms_topk %d" % cfg["nms_topk"])
+    row["all_anchors"] = nms_timed(contrib, cands[-1], small, card,
+                                   "nms_topk -1")
+    row["sets"] = checked
+    torch.cuda.empty_cache()
     return row
 
 
@@ -5045,20 +5163,25 @@ def ssd_training(mt, contrib, ssd_data, weights, seed, card):
     return out, trained
 
 
-def ssd_eval(mt, contrib, ssd_data, params, seed, card):
-    """get_symbol at B=32 through Module.forward(is_train=False) on
-    gpu(0) with the trained weights over SSD_EVAL batches of held-out
-    synthetic images: the detections on the kernel route equal the plain
-    route's (the sweep's plain version on the card) bit for bit, one
-    kernel launch a batch; MApMetric's host ms."""
+def ssd_eval(mt, contrib, ssd_data, params, seed, card, batch_size=None,
+             nms_topk=None, num_batches=SSD_EVAL):
+    """get_symbol at B=32 (or ``batch_size``) and nms_topk 400 (or
+    ``nms_topk``) through Module.forward(is_train=False) on gpu(0) with
+    the trained weights over ``num_batches`` batches of held-out synthetic
+    images: the detections on the kernel route equal the plain route's
+    (the sweep's plain version on the card) bit for bit, one kernel
+    launch a batch; MApMetric's host ms."""
     cfg = SSD
+    batch_size = batch_size or cfg["batch"]
+    nms_topk = nms_topk or cfg["nms_topk"]
     shape = (3, cfg["data_shape"], cfg["data_shape"])
-    it = ssd_data.SynthDetIter(cfg["batch"], shape, cfg["num_classes"],
-                               num_batches=SSD_EVAL, seed=seed + 77)
+    it = ssd_data.SynthDetIter(batch_size, shape, cfg["num_classes"],
+                               num_batches=num_batches, seed=seed + 77)
     batches = list(it)
     mod = mt.mod.Module(mt.models.ssd.get_symbol(
         num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
-        network=cfg["network"]), label_names=("label",), context=mt.gpu(0))
+        network=cfg["network"], nms_topk=nms_topk), label_names=("label",),
+        context=mt.gpu(0))
     mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
              for_training=False)
     mod.set_params(params, {}, allow_missing=True)
@@ -5095,11 +5218,13 @@ def ssd_eval(mt, contrib, ssd_data, params, seed, card):
     finally:
         contrib.nms_keep = kernel
     valid = float((dets[0][..., 0] >= 0).sum(dim=1).float().mean())
-    log("  [%s] eval B=%d: %d batches, forward %.2f ms (median), detections "
-        "== the plain route's bit for bit, %.1f kept an image; MApMetric "
-        "host %.2f ms a batch; mAP %.4f; multibox_nms launches %d"
-        % (card, cfg["batch"], len(batches), float(np.median(fwd_ms)),
-           valid, float(np.median(map_ms)), metric.get()[1], launches))
+    log("  [%s] eval B=%d, nms_topk %d: %d batches, forward %.2f ms "
+        "(median), detections == the plain route's bit for bit, %.1f kept "
+        "an image; MApMetric host %.2f ms a batch; mAP %.4f; multibox_nms "
+        "launches %d"
+        % (card, batch_size, nms_topk, len(batches),
+           float(np.median(fwd_ms)), valid, float(np.median(map_ms)),
+           metric.get()[1], launches))
     if launches != len(batches):
         raise AssertionError("ssd eval: multibox_nms launched %d times in %d "
                              "batches" % (launches, len(batches)))
@@ -5135,11 +5260,17 @@ def phase_ssd(mt, seed, card):
     res["training"], trained = ssd_training(mt, contrib, ssd_data, weights,
                                             seed, card)
     res["eval"] = ssd_eval(mt, contrib, ssd_data, trained, seed, card)
+    # the op's default nms_topk: every anchor a candidate
+    res["eval_all_anchors"] = ssd_eval(
+        mt, contrib, ssd_data, trained, seed, card,
+        batch_size=SSD_ALL_ANCHORS_BATCH, nms_topk=-1, num_batches=1)
     res["gate_twin"] = ssd_gate_twin(mt, ssd_data, card)
     res["launches"] = {"ssd_training":
                        res["training"][cfg["batch"]]["nms_launches"]
                        + res["training"][cfg["small_batch"]]["nms_launches"],
-                       "ssd_eval": res["eval"]["launches"]}
+                       "ssd_eval": res["eval"]["launches"],
+                       "ssd_eval_all_anchors":
+                       res["eval_all_anchors"]["launches"]}
     torch.cuda.empty_cache()
     return res
 
@@ -5226,6 +5357,7 @@ def main(argv=None):
         log("[kernels]")
         results["flash_timed"], worst = phase_kernels(att, gen, parents)
         results["worst_err"] = {str(k): v for k, v in worst.items()}
+        results["flash_d96"] = flash_head_dim_96(att, gen)
     if "epilogue" in phases:
         log("[epilogue]")
         results["epilogue_timed"] = phase_epilogue(epi, gen)
@@ -5297,6 +5429,7 @@ def main(argv=None):
                     and r["B"] == max(BUCKETS))
     ssd = results["ssd"]
     nms_row = ssd["nms"]
+    d96 = {r["dtype"]: r["D96"] for r in results["flash_d96"]}
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -5307,7 +5440,8 @@ def main(argv=None):
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}, {
+        "library_ms": main_row["library_ms"],
+        "d96_ms": {t: r["ms"] for t, r in d96.items()}}, {
         "name": "bn_relu_epilogue", "route": "cuda",
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
@@ -5329,7 +5463,8 @@ def main(argv=None):
         "scaled_err": bwd_row["scaled_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
-        "library_ms": bwd_row["library_ms"]}, {
+        "library_ms": bwd_row["library_ms"],
+        "d96_ms": {t: r["bwd_ms"] for t, r in d96.items()}}, {
         "name": "multibox_nms", "route": "cuda",
         "source": "mxtpu_torch/csrc/multibox_nms.cu",
         "replaces": "mxtpu/ops/contrib.py:214",
@@ -5338,7 +5473,11 @@ def main(argv=None):
         "max_abs_err": nms_row["max_abs_err"],
         "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
         "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None, "K": nms_row["K"],
+        "scratch_bytes": nms_row["scratch_bytes"],
+        "all_anchors": {key: nms_row["all_anchors"][key] for key in (
+            "B", "K", "live", "ms", "plain_ms", "plain_B", "bound_ms",
+            "bound_by", "scratch_bytes")}}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

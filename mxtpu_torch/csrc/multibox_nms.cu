@@ -1,5 +1,6 @@
 // Greedy non-maximum suppression over score-sorted candidates for Hopper
-// (sm_90a), CUDA C++: the sweep of MultiBoxDetection.
+// (sm_90a), CUDA C++: the sweep of MultiBoxDetection, for any number of
+// candidates K.
 //
 // Replaces mxtpu/ops/contrib.py:_nms_scan, an XLA lax.scan (not Pallas)
 // over the nms_topk score-sorted candidates of each image. Same
@@ -8,149 +9,277 @@
 // class under force_suppress). The output is the keep mask (B, K), one
 // byte a candidate (torch.bool).
 //
-// What bounds it on this card: neither bytes nor operations. It reads
-// 24 bytes a candidate and writes one (~10 KB an image at K = 400) and
-// does ~K^2/2 IoUs (80 k at K = 400, ~2 MFLOP), far below a launch's
-// latency either way. What it has is a chain of K dependent steps, which
-// mxtpu's XLA runs as one loop on the device and a PyTorch loop would run
-// as ~4 launches a step from the host.
+// What bounds it on this card: neither bytes nor operations. It reads 24
+// bytes a candidate and writes one, and needs an IoU (14 operations) for
+// each kept i and each later live j of its class: at K = 7,486 and B = 32,
+// 6 MB and 0.5-2 G operations, a few to 30 microseconds at the card's
+// rates. Neither is reached. The time goes where the bound does not look:
+// the matrix tests every pair of live candidates, kept or not (K^2 / 2 an
+// image, 0.9 G pairs at K = 7,486 and B = 32), at the rate the card
+// issues instructions, a warp paying for the divide when one of its 32
+// rows needs it; and the sweep is a chain, candidate i's fate depending
+// on every kept candidate before it.
 //
-// What the design does about that: one block an image, everything in
-// shared memory, one launch for the batch.
-//   1. The block loads the image's boxes and class ids into shared
-//      memory. Each warp then takes rows i in turn and, for each 32-column
-//      word w of the row, lane b computes "i clears j = 32 w + b" and a
-//      ballot makes the word. Only the words from i's own on are made
-//      and kept (row i needs j > i), so
-//      the bit matrix is an upper triangle: ~K^2/64 words (2,896 at K =
-//      400, 30,272 at K = 1,376, with nms_topk = -1 on the tiny net).
-//   2. Warp 0 sweeps the rows in order. Lane l holds alive words l and
-//      l + 32 in registers (K <= 2048); bit i is read with one shuffle
-//      from its owner and, when set, each lane clears its words with
-//      row i's. A kept i stays alive and a cleared one was never kept,
-//      so the final alive mask is the keep mask.
+// What the design does about that: two launches on the caller's stream,
+// the second after the first, with the "i clears j" bit matrix between
+// them in a scratch tensor the wrapper allocates.
+//   1. nms_matrix_kernel, over the whole card: one block of 64 threads
+//      for each (image, 64-row tile r, 64-column tile c >= r), the upper
+//      triangle only. The block stages the 64 columns' boxes, areas and
+//      class ids in shared memory, thread t loads row i = 64 r + t's box
+//      into registers (16-byte loads where the boxes are 16-byte
+//      aligned), and makes row i's 64-bit word "i clears j" for the
+//      tile's columns j = 64 c .. 64 c + 63, written at mask[img][c][i],
+//      so that a warp writes 256 consecutive bytes. A tile whose 64 rows
+//      or whose 64 columns are all dead (score not > -inf: -inf, NaN, or
+//      past K) exits at once: no word of it is ever needed. That covers
+//      every tile past the live count n, so on sorted scores the work
+//      follows the live candidates, not K. Per pair the class and j > i
+//      are tested first; where the intersection is exactly 0 the IoU is
+//      +-0 whatever the union, so the union and the divide are skipped
+//      (the decision 0 > thresh is the same).
+//   2. nms_sweep_kernel, one block of 1,024 threads an image. The block
+//      finds n by a reduction over the score row (the last 64-candidate
+//      chunk with a live candidate), and keeps the removed-mask, one bit
+//      a candidate, in shared memory (8 bytes per 64 candidates: 936
+//      bytes at K = 7,486, 3 KB at 24,564), set at the start for the dead
+//      ones. For each chunk of 64 up to n, warp 0 holds the chunk's 64
+//      diagonal words in registers (one coalesced read, issued during the
+//      previous chunk) and resolves the chunk as the fixed point of
+//      kept = alive & ~(OR of the kept rows' diagonal words), a warp
+//      reduction an iteration, a few iterations on real candidates; it
+//      then ORs the kept rows' words of the next chunk into its removed
+//      word while warps 1-31 do the same for the chunks after it, four
+//      loads in flight a warp (coalesced reads from L2, no atomics). One
+//      barrier a chunk. The chain is ceil(n / 64) chunk steps of about
+//      one L2 round trip each, not n single steps. The keep mask is
+//      written once at the end, coalesced.
+// Why two launches and not one with a thread-block cluster sharing the
+// matrix through distributed shared memory: the matrix of one image
+// outgrows a cluster's shared memory from K ~ 5,000 on (K^2 / 8 bytes),
+// so the two-launch path is needed for large K in any case, and at K =
+// 400 the second launch takes a few microseconds; one path is kept.
+//
 // IoU in mxtpu's order with every product, sum, difference and quotient
 // rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), so
 // nvcc cannot contract a pair into an FMA and move it across the
-// threshold; max/min propagate NaN as torch.maximum/minimum do. The
-// kernel therefore equals its plain PyTorch version bit for bit.
+// threshold; a box with a NaN coordinate is staged as the empty box (see
+// staged()). The kernel therefore equals its plain PyTorch version bit
+// for bit.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;          // candidates a tile, bits a word
+constexpr int kSweepThreads = 1024;
+constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxImageBlocks = 65535;  // gridDim.y
 
-__device__ __forceinline__ float tmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float tmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-
-// extents as torch's clamp(min=0): NaN passes
+// extents as torch's clamp(min=0)
 __device__ __forceinline__ float extent(float hi, float lo) {
   float d = __fsub_rn(hi, lo);
   return d < 0.f ? 0.f : d;
 }
 
-__device__ __forceinline__ float box_iou(float4 a, float4 b) {
-  float iw = extent(tmin(a.z, b.z), tmax(a.x, b.x));
-  float ih = extent(tmin(a.w, b.w), tmax(a.y, b.y));
-  float inter = __fmul_rn(iw, ih);
-  float area_a = __fmul_rn(extent(a.z, a.x), extent(a.w, a.y));
-  float area_b = __fmul_rn(extent(b.z, b.x), extent(b.w, b.y));
-  float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
-  return uni > 0.f ? __fdiv_rn(inter, uni) : 0.f;
+__device__ __forceinline__ float box_area(float4 b) {
+  return __fmul_rn(extent(b.z, b.x), extent(b.w, b.y));
 }
 
-// first word of row i's stored part in the triangle: each row of word
-// block v (rows 32 v .. 32 v + 31) keeps the W - v words from v on
-__host__ __device__ __forceinline__ int row_offset(int i, int W) {
-  int v = i >> 5;
-  return 32 * (v * W - v * (v - 1) / 2) + (i - 32 * v) * (W - v);
+// A box with a NaN coordinate has a NaN intersection with any box, so a
+// NaN union and an IoU of 0 in mxtpu's order. The empty box (+inf, +inf,
+// -inf, -inf) has an intersection of exactly 0 with any box without NaN,
+// so an IoU of 0 too: the kernel stages a NaN box as the empty box and
+// then needs no NaN test per pair (min and max of numbers are fminf and
+// fmaxf; a zero's sign changes no decision: it makes the product +-0)
+__device__ __forceinline__ float4 staged(float4 b) {
+  const bool nan = b.x != b.x || b.y != b.y || b.z != b.z || b.w != b.w;
+  return nan ? make_float4(INFINITY, INFINITY, -INFINITY, -INFINITY) : b;
 }
 
-__global__ void __launch_bounds__(kThreads)
-multibox_nms_kernel(const float* __restrict__ boxes,
-                    const float* __restrict__ scores,
-                    const float* __restrict__ cls,
-                    bool* __restrict__ keep, int K, float thresh,
-                    int force) {
-  extern __shared__ float4 smem[];
-  const int W = (K + 31) >> 5;
-  float4* sbox = smem;                                   // K
-  float* scls = reinterpret_cast<float*>(sbox + K);      // K
-  uint32_t* mask = reinterpret_cast<uint32_t*>(scls + K);
-  const int tri = row_offset(K, W);  // words of every row < K
-  uint32_t* alive_out = mask + tri;  // W
+// IoU(a, b) > thresh, with a's and b's areas given; the areas and the
+// divide are skipped where the intersection is exactly 0 (the IoU is
+// +-0 whatever the union)
+__device__ __forceinline__ bool clears(float4 a, float area_a, float4 b,
+                                       float area_b, float thresh) {
+  const float iw = extent(fminf(a.z, b.z), fmaxf(a.x, b.x));
+  const float ih = extent(fminf(a.w, b.w), fmaxf(a.y, b.y));
+  const float inter = __fmul_rn(iw, ih);
+  if (inter == 0.f) return 0.f > thresh;
+  const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+  return (uni > 0.f ? __fdiv_rn(inter, uni) : 0.f) > thresh;
+}
 
+__device__ __forceinline__ float4 load_box(const float* boxes, int64_t k,
+                                           bool aligned) {
+  const float* p = boxes + 4 * k;
+  if (aligned) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// tiles in the rows before row tile r of the upper triangle
+__device__ __forceinline__ long long row_start(long long r, long long T) {
+  return r * T - r * (r - 1) / 2;
+}
+
+__global__ void __launch_bounds__(kTile)
+nms_matrix_kernel(const float* __restrict__ boxes,
+                  const float* __restrict__ scores,
+                  const float* __restrict__ cls,
+                  unsigned long long* __restrict__ mask, int B, int K,
+                  int T, float thresh, int force, int aligned) {
+  __shared__ float4 sbox[kTile];
+  __shared__ float scls[kTile], sarea[kTile];
+  // (r, c) of this block's tile from its index p in the upper triangle
+  const long long p = blockIdx.x;
+  const double b2 = 2.0 * T + 1.0;
+  long long r = static_cast<long long>((b2 - sqrt(b2 * b2 - 8.0 * p)) / 2);
+  if (r < 0) r = 0;
+  if (r > T - 1) r = T - 1;
+  while (r > 0 && row_start(r, T) > p) --r;
+  while (r + 1 < T && row_start(r + 1, T) <= p) ++r;
+  const int c = static_cast<int>(r + (p - row_start(r, T)));
+  const int t = threadIdx.x;
+  const int i = static_cast<int>(r) * kTile + t;  // this thread's row
+  const int j = c * kTile + t;                    // the column it stages
+
+  for (int64_t img = blockIdx.y; img < B; img += gridDim.y) {
+    const float* b_boxes = boxes + img * K * 4;
+    const float* b_scores = scores + img * K;
+    const float* b_cls = cls + img * K;
+    const bool row_live = i < K && b_scores[i] > -INFINITY;
+    const bool col_live = j < K && b_scores[j] > -INFINITY;
+    if (j < K) {
+      const float4 bj = load_box(b_boxes, j, aligned);
+      sbox[t] = staged(bj);
+      sarea[t] = box_area(bj);
+      scls[t] = b_cls[j];
+    }
+    const bool any_row = __syncthreads_or(row_live);
+    const bool any_col = __syncthreads_or(col_live);
+    if (any_row && any_col && i < K) {
+      const float4 box = load_box(b_boxes, i, aligned);
+      const float4 bi = staged(box);
+      const float ai = box_area(box), ci = b_cls[i];
+      const int ncols = min(kTile, K - c * kTile);
+      const int first = c == r ? t + 1 : 0;  // j > i
+      unsigned long long word = 0;
+      for (int jj = first; jj < ncols; ++jj) {
+        if ((force || ci == scls[jj]) &&
+            clears(bi, ai, sbox[jj], sarea[jj], thresh))
+          word |= 1ull << jj;
+      }
+      mask[(img * T + c) * K + i] = word;
+    }
+    __syncthreads();  // sbox is restaged for the next image
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+nms_sweep_kernel(const float* __restrict__ scores,
+                 const unsigned long long* __restrict__ mask,
+                 bool* __restrict__ keep, int K, int T) {
+  extern __shared__ unsigned long long removed[];  // T words
+  __shared__ unsigned long long s_kept[2];
+  __shared__ int s_last;
   const int64_t img = blockIdx.x;
-  const float* b_boxes = boxes + img * K * 4;
   const float* b_scores = scores + img * K;
-  const float* b_cls = cls + img * K;
-  for (int k = threadIdx.x; k < K; k += kThreads) {
-    sbox[k] = make_float4(b_boxes[4 * k], b_boxes[4 * k + 1],
-                          b_boxes[4 * k + 2], b_boxes[4 * k + 3]);
-    scls[k] = b_cls[k];
-  }
-  __syncthreads();
-
-  // 1. the triangle of "i clears j" words, a row a warp at a time
+  const unsigned long long* M = mask + img * T * static_cast<int64_t>(K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < K; i += kWarps) {
-    const float4 bi = sbox[i];
-    const float ci = scls[i];
-    const int wi = i >> 5;
-    uint32_t* row = mask + row_offset(i, W);  // row[w - wi], w >= wi
-    for (int w = wi; w < W; ++w) {
-      const int j = 32 * w + lane;
-      bool bit = false;
-      if (j > i && j < K && (force || ci == scls[j]))
-        bit = box_iou(bi, sbox[j]) > thresh;
-      const uint32_t word = __ballot_sync(kFull, bit);
-      if (lane == 0) row[w - wi] = word;
+
+  // the dead candidates start removed; the last chunk with a live one
+  // bounds the sweep (a reduction, right for any order of the scores)
+  if (threadIdx.x == 0) s_last = -1;
+  __syncthreads();
+  uint32_t* removed32 = reinterpret_cast<uint32_t*>(removed);
+  for (int base = 0; base < T * kTile; base += kSweepThreads) {
+    const int k = base + threadIdx.x;
+    const unsigned live =
+        __ballot_sync(kFull, k < K && b_scores[k] > -INFINITY);
+    if (lane == 0 && k < T * kTile) {  // a warp's 32 are all in or out
+      removed32[k >> 5] = ~live;
+      if (live) atomicMax(&s_last, k >> 6);
     }
   }
   __syncthreads();
+  const int chunks = s_last + 1;
 
-  // 2. the sweep, by warp 0: lane l holds alive words l and l + 32
-  if (warp == 0) {
-    uint32_t lo = 0, hi = 0;
-    for (int w = 0; w < W; ++w) {
-      const int j = 32 * w + lane;
-      const uint32_t word =
-          __ballot_sync(kFull, j < K && b_scores[j] > -INFINITY);
-      if (lane == (w & 31)) {
-        if (w < 32) lo = word; else hi = word;
+  // chunk c's kept rows' words of a later chunk w, ORed over the warp:
+  // lane l loads rows 64 c + l and 64 c + l + 32 where they are kept
+  auto kept_words = [&](int c, unsigned long long kept, int w) {
+    const unsigned long long* row =
+        M + static_cast<int64_t>(w) * K + static_cast<int64_t>(c) * kTile;
+    return (((kept >> lane) & 1ull) ? row[lane] : 0ull) |
+           (((kept >> (lane + 32)) & 1ull) ? row[lane + 32] : 0ull);
+  };
+  auto warp_or = [](unsigned long long v) {
+    const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(v));
+    const unsigned hi =
+        __reduce_or_sync(kFull, static_cast<unsigned>(v >> 32));
+    return (static_cast<unsigned long long>(hi) << 32) | lo;
+  };
+  // warp 0 resolves the chunks in order and ORs each chunk's kept rows
+  // into the next chunk's word; warps 1.. OR them into the words after
+  // it. removed[c + 1] is final when warp 0 comes to it: the other
+  // warps' ORs into it ended at the barrier of chunk c. One barrier a
+  // chunk; s_kept is double-buffered across it.
+  unsigned long long d0 = 0, d1 = 0;  // warp 0: rows 64 c + lane (+ 32)
+  auto diagonal = [&](int c) {
+    const int i0 = c * kTile + lane, i1 = i0 + 32;
+    d0 = i0 < K ? M[static_cast<int64_t>(c) * K + i0] : 0ull;
+    d1 = i1 < K ? M[static_cast<int64_t>(c) * K + i1] : 0ull;
+  };
+  if (warp == 0 && chunks > 0) diagonal(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (warp == 0) {
+      // the greedy keep set of the chunk is the one fixed point of
+      // kept = alive & ~(OR of the kept rows' diagonal words): each row
+      // clears only later ones, so the iteration settles one more
+      // candidate each time at least, and in a few on real candidates
+      const unsigned long long alive = ~removed[c];
+      unsigned long long kept = alive, prev;
+      do {
+        prev = kept;
+        kept = alive & ~warp_or((((kept >> lane) & 1ull) ? d0 : 0ull) |
+                                (((kept >> (lane + 32)) & 1ull) ? d1 : 0ull));
+      } while (kept != prev);
+      if (lane == 0) {
+        removed[c] = ~kept;
+        s_kept[c & 1] = kept;
+      }
+      if (c + 1 < chunks) diagonal(c + 1);  // in flight across the barrier
+    }
+    __syncthreads();
+    const unsigned long long kept = s_kept[c & 1];
+    if (kept && warp == 0 && c + 1 < chunks) {
+      const unsigned long long v = warp_or(kept_words(c, kept, c + 1));
+      if (lane == 0) removed[c + 1] |= v;
+      __syncwarp();  // the whole warp reads it next
+    } else if (kept && warp > 0) {
+      // up to four words a warp in flight at once
+      for (int w0 = c + 1 + warp; w0 < chunks; w0 += 4 * (kSweepWarps - 1)) {
+        unsigned long long v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int w = w0 + u * (kSweepWarps - 1);
+          v[u] = w < chunks && removed[w] != ~0ull ? kept_words(c, kept, w)
+                                                    : 0ull;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int w = w0 + u * (kSweepWarps - 1);
+          const unsigned long long x = warp_or(v[u]);
+          if (lane == 0 && w < chunks) removed[w] |= x;
+        }
       }
     }
-    for (int i = 0; i < K; ++i) {
-      const int wi = i >> 5;
-      const uint32_t own = __shfl_sync(kFull, wi < 32 ? lo : hi, wi & 31);
-      if ((own >> (i & 31)) & 1u) {  // the same in every lane
-        const uint32_t* row = mask + row_offset(i, W);
-        if (lane >= wi && lane < W) lo &= ~row[lane - wi];
-        if (lane + 32 >= wi && lane + 32 < W) hi &= ~row[lane + 32 - wi];
-      }
-    }
-    if (lane < W) alive_out[lane] = lo;
-    if (lane + 32 < W) alive_out[lane + 32] = hi;
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < K; k += kThreads)
-    keep[img * K + k] = (alive_out[k >> 5] >> (k & 31)) & 1u;
-}
-
-// Shared memory of one block at K candidates, in bytes: the boxes and
-// class ids, the triangle, the alive words (ops/contrib.py nms_smem_bytes)
-long long smem_bytes(int K) {
-  const int W = (K + 31) >> 5;
-  return 4 * (5LL * K + row_offset(K, W) + W);
+  // a kept candidate is the only one not removed
+  for (int k = threadIdx.x; k < K; k += kSweepThreads)
+    keep[img * K + k] = !((removed[k >> 6] >> (k & 63)) & 1ull);
 }
 
 }  // namespace
@@ -158,30 +287,42 @@ long long smem_bytes(int K) {
 extern "C" {
 
 // boxes (B, K, 4), scores (B, K), cls (B, K): float32, contiguous, sorted
-// by score; keep (B, K) bytes. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for K outside [1, 2048] or shared memory
-// beyond the device's opt-in limit).
+// by score; mask: scratch of B * tiles * K 64-bit words; keep (B, K)
+// bytes. tiles = ceil(K / 64), pairs = tiles (tiles + 1) / 2 and
+// image_blocks = min(B, 65535), as ops/contrib.py nms_plan gives them
+// (checked here). Two launches on `stream`; returns cudaGetLastError()
+// after each (cudaErrorInvalidValue for a plan that does not match B and
+// K).
 int multibox_nms(const void* boxes, const void* scores, const void* cls,
-                 void* keep, int B, int K, float thresh, int force,
+                 void* mask, void* keep, int B, int K, int tiles,
+                 long long pairs, int image_blocks, float thresh, int force,
                  void* stream) {
-  if (B <= 0 || K <= 0 || K > 2048) return cudaErrorInvalidValue;
-  const long long bytes = smem_bytes(K);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  if (bytes > optin) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        multibox_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+  if (B <= 0 || K <= 0 || tiles != (K + kTile - 1) / kTile ||
+      pairs != static_cast<long long>(tiles) * (tiles + 1) / 2 ||
+      image_blocks != (B < kMaxImageBlocks ? B : kMaxImageBlocks))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int aligned = (reinterpret_cast<uintptr_t>(boxes) & 15) == 0;
+  nms_matrix_kernel<<<dim3(static_cast<unsigned>(pairs), image_blocks),
+                      kTile, 0, s>>>(
+      static_cast<const float*>(boxes), static_cast<const float*>(scores),
+      static_cast<const float*>(cls),
+      static_cast<unsigned long long*>(mask), B, K, tiles, thresh, force,
+      aligned);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t smem = sizeof(unsigned long long) * tiles;
+  if (smem > 48 * 1024) {
+    // K > 393,216: its matrix (K^2 / 8 bytes an image) is tens of GB
+    e = cudaFuncSetAttribute(nms_sweep_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  multibox_nms_kernel<<<B, kThreads, static_cast<size_t>(bytes),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(scores),
-      static_cast<const float*>(cls), static_cast<bool*>(keep), K, thresh,
-      force);
+  nms_sweep_kernel<<<B, kSweepThreads, smem, s>>>(
+      static_cast<const float*>(scores),
+      static_cast<const unsigned long long*>(mask),
+      static_cast<bool*>(keep), K, tiles);
   return cudaGetLastError();
 }
 

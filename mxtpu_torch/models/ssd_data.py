@@ -294,8 +294,10 @@ def nms_sets(batch=32, k=400, seed=0):
     classes; one class with every box overlapping; pairs whose IoU is
     exactly the threshold or one step either side of it (dyadic
     heights, so the quotient is exact); -inf tails; force_suppress
-    across classes; NaN coordinates; and K = 37, 1,376 (``nms_topk`` -1
-    on the tiny net's anchors) and 1."""
+    across classes; NaN coordinates; K = 37, 1,376 (``nms_topk`` -1 on
+    the tiny net's anchors) and 1; and -inf and NaN scores between live
+    ones, a whole 64-candidate tile of them included, which holds the
+    kernel's bound on the live count to the alive test."""
     rng = np.random.RandomState(seed)
 
     def boxes(b, n, lo=0.02, hi=0.45):
@@ -334,4 +336,11 @@ def nms_sets(batch=32, k=400, seed=0):
     for n in (37, 1376, 1):
         out.append(("k%d" % n, boxes(B, n), scores(B, n), classes(B, n),
                     0.5, False))
+    gaps = scores(B, K)
+    dead = rng.rand(B, K)
+    gaps[dead < 0.1] = -np.inf
+    gaps[(dead >= 0.1) & (dead < 0.15)] = np.nan
+    gaps[:, 64:128] = -np.inf
+    out.append(("dead_between_live", boxes(B, K), gaps, classes(B, K), 0.5,
+                False))
     return out

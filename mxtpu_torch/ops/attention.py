@@ -13,6 +13,13 @@ to the plain version, a CUDA tensor goes to the kernel or the call
 raises, and a meta tensor (shape inference) yields an empty result of
 the output's shape. ``flash_attention.launches`` counts kernel launches.
 
+The kernels are built for head dims 32, 64 and 128. The wrappers take
+any D <= 128, as mxtpu's kernel takes any D: q, k and v (and, for the
+backward, the output and its gradient) are zero-padded on the last axis
+to the next of those widths, the kernel runs, and the output and the
+gradients are sliced back to D. The scale comes from the true D. D > 128
+raises MXNetError.
+
 ``block_q``/``block_k`` were the TPU kernel's tiling. They are accepted
 and recorded on the op for graph compatibility, but they do not choose
 the CUDA tiling and the result does not depend on them.
@@ -284,9 +291,38 @@ def _launch_bwd(kernel, q, k, v, out, dout, lse, causal, scale):
     return dq, dk, dv
 
 
+def _kernel_width(q, k, v):
+    """The kernels' head dim for q, k, v of head dim D: the least of
+    _HEAD_DIMS that is >= D. D > 128 raises MXNetError."""
+    d = q.shape[-1]
+    if k.shape[-1] != d or v.shape[-1] != d:
+        raise MXNetError("flash_attention kernel: head dims differ (q %d, k "
+                         "%d, v %d)" % (d, k.shape[-1], v.shape[-1]))
+    for width in _HEAD_DIMS:
+        if d <= width:
+            return width
+    raise MXNetError("flash_attention kernel: head dim %d > %d; the kernels "
+                     "take D <= %d" % (d, _HEAD_DIMS[-1], _HEAD_DIMS[-1]))
+
+
+def _pad_head(x, width):
+    """x zero-padded on its last axis to ``width`` (x itself when it is
+    that wide). Zero columns add nothing to q.k^T, so the scores and the
+    lse are unchanged and the padded columns of the output and of the
+    gradients are zero."""
+    d = x.shape[-1]
+    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
+
+
+def _unpad_head(x, d):
+    """x's first ``d`` columns of its last axis, contiguous."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def _flash_forward(q, k, v, causal, scale, want_lse=False):
     """The forward by device: plain on the CPU, an empty result of the
-    output's shape on meta tensors, the kernel on CUDA (or a raise)."""
+    output's shape on meta tensors, the kernel on CUDA (or a raise), on
+    q, k, v padded to the kernel's head dim and the output sliced back."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          sm_scale=scale,
@@ -297,7 +333,12 @@ def _flash_forward(q, k, v, causal, scale, want_lse=False):
             return out, torch.empty(q.shape[:3], dtype=torch.float32,
                                     device="meta")
         return out
-    return _flash_cuda(q, k, v, causal, scale, want_lse=want_lse)
+    width = _kernel_width(q, k, v)
+    res = _flash_cuda(*(_pad_head(x, width) for x in (q, k, v)), causal,
+                      scale, want_lse=want_lse)
+    if not want_lse:
+        return _unpad_head(res, q.shape[-1])
+    return _unpad_head(res[0], q.shape[-1]), res[1]
 
 
 def flash_attention_backward(q, k, v, out, dout, lse, causal=False,
@@ -311,8 +352,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal=False,
             q, k, v, out, dout, lse, causal=causal, sm_scale=scale)
     if q.device.type == "meta":
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    return _flash_bwd_cuda(q, k, v, out, dout.contiguous(), lse, causal,
-                           scale)
+    width = _kernel_width(q, k, v)
+    grads = _flash_bwd_cuda(*(_pad_head(x, width) for x in (
+        q, k, v, out, dout.contiguous())), lse, causal, scale)
+    return tuple(_unpad_head(g, q.shape[-1]) for g in grads)
 
 
 flash_attention_backward.launches = 0

@@ -15,7 +15,9 @@ library.
 
 The sweep (``_nms_scan`` :214, an XLA ``lax.scan`` over the
 score-sorted candidates) is ``nms_keep``: a hand-written CUDA kernel for
-a CUDA tensor (``csrc/multibox_nms.cu``, one block an image) and
+a CUDA tensor (``csrc/multibox_nms.cu``: the "i clears j" bit matrix
+over the whole card into a scratch tensor, then a chunked sweep, one
+block an image; ``nms_plan`` sizes both launches and the scratch) and
 ``nms_keep_reference``, a loop over the candidates vectorised over the
 batch, for a CPU tensor. Nothing falls back: on the card the kernel runs
 or the call raises. ``nms_keep.launches`` counts kernel launches.
@@ -38,14 +40,13 @@ import torch
 from ..base import MXNetError
 from .registry import register, set_replicas
 
-__all__ = ["nms_keep", "nms_keep_reference", "nms_smem_bytes", "NMS_MAX_K",
-           "NMS_MAX_SMEM", "detection_candidates"]
+__all__ = ["nms_keep", "nms_keep_reference", "nms_plan",
+           "detection_candidates"]
 
 KERNEL = "multibox_nms"
-# the kernel's bounds: alive words in two registers a lane (K <= 2048)
-# and its shared memory within an H100 block's opt-in 227 KB
-NMS_MAX_K = 2048
-NMS_MAX_SMEM = 232448
+NMS_TILE = 64  # candidates a tile of the bit matrix, bits a word
+NMS_SWEEP_THREADS = 1024
+_MAX_IMAGE_BLOCKS = 65535  # a grid's y extent
 
 
 # ------------------------------------------------------------------ box utils
@@ -239,20 +240,29 @@ def nms_keep_reference(boxes, scores, cls_id, thresh, force_suppress):
     return alive  # a kept candidate stays alive; a cleared one was not kept
 
 
-def nms_smem_bytes(k):
-    """Shared memory of the kernel at ``k`` candidates: the boxes and
-    class ids, then the upper triangle of the "i clears j" bit matrix (row
-    i keeps the words from i's own on: ``W - i//32`` of ``W = ceil(k/32)``),
-    then the alive words."""
-    w = (k + 31) // 32
-    tri = sum(w - i // 32 for i in range(k))
-    return 4 * (4 * k + k + tri + w)
+def nms_plan(batch, k):
+    """The kernel's launch plan for ``batch`` images of ``k`` candidates,
+    as ``csrc/multibox_nms.cu`` takes it: ``tiles`` = ceil(k / 64) tiles
+    of 64 candidates (and 64-bit words a row); the matrix launch's grid
+    (``pairs`` = the tiles of the upper triangle, ``image_blocks``, the
+    images a column of blocks, looped past 65,535) of 64-thread blocks;
+    the sweep's grid, one block of 1,024 threads an image, with
+    ``sweep_smem`` bytes of removed-mask; and the scratch bit matrix,
+    ``scratch_shape`` (batch, tiles, k) int64 words of ``scratch_bytes``."""
+    tiles = -(-k // NMS_TILE)
+    pairs = tiles * (tiles + 1) // 2
+    return {"tiles": tiles, "pairs": pairs,
+            "image_blocks": min(batch, _MAX_IMAGE_BLOCKS),
+            "matrix_blocks": pairs * batch, "matrix_threads": NMS_TILE,
+            "sweep_blocks": batch, "sweep_threads": NMS_SWEEP_THREADS,
+            "sweep_smem": 8 * tiles, "scratch_shape": (batch, tiles, k),
+            "scratch_bytes": 8 * batch * tiles * k}
 
 
 def check_nms_inputs(boxes, scores, cls_id):
     """Raise MXNetError unless the inputs are what the kernel takes:
     float32, contiguous, boxes (B, K, 4), scores and class ids (B, K),
-    all on one CUDA device, with K within the kernel's bounds."""
+    all on one CUDA device."""
     if boxes.ndim != 3 or boxes.shape[2] != 4:
         raise MXNetError("multibox_nms kernel: boxes have shape %s, not "
                          "(B, K, 4)" % (tuple(boxes.shape),))
@@ -271,12 +281,6 @@ def check_nms_inputs(boxes, scores, cls_id):
             raise MXNetError("multibox_nms kernel: %s has shape %s, not %s"
                              % (name, tuple(v.shape),
                                 tuple(boxes.shape[:2])))
-    k = boxes.shape[1]
-    if k > NMS_MAX_K or nms_smem_bytes(k) > NMS_MAX_SMEM:
-        raise MXNetError(
-            "multibox_nms kernel: %d candidates need %d bytes of shared "
-            "memory (at most %d candidates and %d bytes); lower nms_topk"
-            % (k, nms_smem_bytes(k), NMS_MAX_K, NMS_MAX_SMEM))
 
 
 _kernel_lock = threading.Lock()
@@ -290,9 +294,9 @@ def _kernel():
             from .. import build
             lib = build.load(KERNEL)
             fn = lib.multibox_nms
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             err = lib.multibox_nms_error_string
             err.argtypes = [ctypes.c_int]
@@ -307,11 +311,15 @@ def _nms_cuda(boxes, scores, cls_id, thresh, force_suppress):
     keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
     if B == 0 or K == 0:
         return keep
+    plan = nms_plan(B, K)
+    mask = torch.empty(plan["scratch_shape"], dtype=torch.int64,
+                       device=boxes.device)
     fn, err = _kernel()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         rc = fn(boxes.data_ptr(), scores.data_ptr(), cls_id.data_ptr(),
-                keep.data_ptr(), B, K, float(thresh),
+                mask.data_ptr(), keep.data_ptr(), B, K, plan["tiles"],
+                plan["pairs"], plan["image_blocks"], float(thresh),
                 int(bool(force_suppress)), stream)
     if rc != 0:
         raise MXNetError("multibox_nms launch failed: %s (cuda error %d)"

@@ -1,11 +1,13 @@
 """mxtpu_torch flash attention vs mxtpu's: the port's plain version
 (what a CPU tensor runs) against ``mxtpu.ops.attention.flash_attention``,
 which at B*H*T*S <= 2**22 runs its Pallas kernel in interpret mode on the
-CPU, as the JAX package's own tests run it. float32 within atol 1e-4,
-bfloat16 within 2e-2 (p is rounded to bf16 at different points of the
-two online softmaxes). Also the wrapper's dispatch: a CPU tensor takes the
-plain version and launches nothing, the kernel's input checks raise, and
-the module has no try/fallback. Then chip_smoke's flash bounds (f32 on
+CPU, as the JAX package's own tests run it (D = 96 too). float32 within
+atol 1e-4, bfloat16 within 2e-2 (p is rounded to bf16 at different
+points of the two online softmaxes). Also the wrapper's dispatch: a CPU
+tensor takes the plain version and launches nothing, the head-dim pad of
+the card's wrappers (D <= 128 to the next built width) leaves the plain
+forward and backward unchanged in float64, the kernel's input checks
+raise, and the module has no try/fallback. Then chip_smoke's flash bounds (f32 on
 the tensor cores as 3xTF32) and its reading of ptxas, and CPU emulations
 of the forward's and the backward's f32 arithmetic that show why both
 run 3xTF32."""
@@ -107,6 +109,78 @@ def test_op_matches_mxtpu_op(tt):
     assert (parsed.block_q, parsed.block_k) == (32, 32)  # recorded
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-4)
+
+
+def test_op_matches_mxtpu_op_at_head_dim_96(tt):
+    """D = 96 (d_model 768 over 8 heads), which the card's wrapper pads to
+    the kernel's 128: the op against mxtpu's, whose Pallas kernel takes
+    the full D (interpret mode here)."""
+    torch, mt, _ = tt
+    import jax.numpy as jnp
+    from mxtpu.ops import registry as jreg
+    q, k, v = _qkv(1, 2, 64, 64, 96, seed=11)
+    attrs = {"causal": "True", "sm_scale": "0.0"}
+    _, _, (want,) = jreg.invoke("_contrib_FlashAttention",
+                                [jnp.asarray(x) for x in (q, k, v)], attrs)
+    _, _, (got,) = mt.ops.registry.invoke(
+        "_contrib_FlashAttention", [torch.from_numpy(x) for x in (q, k, v)],
+        attrs)
+    assert got.shape == (1, 2, 64, 96)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("d,width", [(1, 32), (16, 32), (32, 32), (48, 64),
+                                     (80, 128), (96, 128), (112, 128),
+                                     (128, 128)])
+def test_kernel_width_is_the_next_built_head_dim(tt, d, width):
+    torch, _, att = tt
+    q = torch.zeros(1, 1, 2, d)
+    assert att._kernel_width(q, q, q) == width
+
+
+def test_kernel_width_refuses_past_128_and_unequal_head_dims(tt):
+    torch, mt, att = tt
+    q = torch.zeros(1, 1, 2, 160)
+    with pytest.raises(mt.MXNetError, match="head dim 160 > 128"):
+        att._kernel_width(q, q, q)
+    with pytest.raises(mt.MXNetError, match="head dims differ"):
+        att._kernel_width(q[..., :48], q[..., :64], q[..., :48])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 48, 80, 96])
+def test_head_dim_pad_leaves_forward_and_backward_unchanged(tt, d, causal):
+    """What the card's wrappers do for D outside (32, 64, 128), on the
+    plain versions in float64: q, k, v, out and dO zero-padded to the
+    kernel's head dim, the scale from the true D, the output and the
+    gradients sliced back. They equal the unpadded plain version within
+    1e-12, the lse included, and the padded columns are exactly 0."""
+    torch, _, att = tt
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 3, n, d)) for n in
+                   (37, 45, 45, 37))
+    scale = att._scale(d, None)
+    width = att._kernel_width(q, k, v)
+    pad = [att._pad_head(x, width) for x in (q, k, v)]
+    out, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                             sm_scale=scale, return_lse=True)
+    out_p, lse_p = att.flash_attention_reference(*pad, causal=causal,
+                                                 sm_scale=scale,
+                                                 return_lse=True)
+    assert not out_p[..., d:].abs().max()
+    assert (att._unpad_head(out_p, d) - out).abs().max() <= 1e-12
+    assert (lse_p - lse).abs().max() <= 1e-12
+    want = att.flash_attention_backward_reference(q, k, v, out, do, lse,
+                                                  causal=causal,
+                                                  sm_scale=scale)
+    got = att.flash_attention_backward_reference(
+        *pad, att._pad_head(out, width), att._pad_head(do, width), lse_p,
+        causal=causal, sm_scale=scale)
+    for g, w in zip(got, want):
+        assert g.shape[-1] == width and not g[..., d:].abs().max()
+        g = att._unpad_head(g, d)
+        assert g.is_contiguous() and (g - w).abs().max() <= 1e-12
 
 
 def test_tpu_tiling_attrs_do_not_change_the_result(tt):

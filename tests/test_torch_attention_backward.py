@@ -202,5 +202,5 @@ def test_backward_kernel_input_checks_raise(tt):
     with pytest.raises(MXNetError):
         att._flash_bwd_cuda(q, q, q, q, q, torch.zeros(1, 1, 4), True, 1.0)
     with pytest.raises(MXNetError, match="head dim"):
-        x = torch.randn(1, 1, 4, 48)
+        x = torch.randn(1, 1, 4, 160)
         att._flash_bwd_cuda(x, x, x, x, x, torch.zeros(1, 1, 4), True, 1.0)

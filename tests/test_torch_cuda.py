@@ -29,8 +29,11 @@ ids outside its range leaving the CUDA context usable; the MultiBox
 suppression kernel bit for bit against its plain version on every set
 of ``models.ssd_data.nms_sets`` (one class overlapping, IoUs at the
 threshold, -inf tails, force_suppress, NaN boxes, K = 1, 37, 400,
-1,376), its refusals, and the tiny SSD's training step on gpu(0)
-against cpu() with the kernel launched once a step.
+1,376, dead scores between live ones) and at K = 1,757, 2,048, 7,486
+(all live and 50 live) and 24,564, its refusals, and the tiny SSD's
+training step on gpu(0) against cpu() with the kernel launched once a
+step. The flash forward and backward at head dims 16, 48, 80, 96 and
+112, which the wrappers pad to the kernel's next width.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -160,7 +163,7 @@ def test_nan_past_the_kv_tail_never_leaks(cuda):
     assert torch.isfinite(out).all()
 
 
-@pytest.mark.parametrize("case", ["float16", "non_contiguous", "d48"])
+@pytest.mark.parametrize("case", ["float16", "non_contiguous", "d160"])
 def test_kernel_refuses_what_it_does_not_take(cuda, case):
     torch, att = cuda
     from mxtpu_torch import MXNetError
@@ -170,12 +173,27 @@ def test_kernel_refuses_what_it_does_not_take(cuda, case):
     elif case == "non_contiguous":
         q = torch.zeros(1, 8, 2, 64, device="cuda").transpose(1, 2)
     else:
-        q = torch.zeros(1, 2, 8, 48, device="cuda")
+        q = torch.zeros(1, 2, 8, 160, device="cuda")
     k = torch.zeros_like(q).contiguous()
     before = att.flash_attention.launches
     with pytest.raises(MXNetError):
         att.flash_attention(q, k, k)
     assert att.flash_attention.launches == before
+
+
+PADDED_HEAD_DIMS = [16, 48, 80, 96, 112]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", PADDED_HEAD_DIMS)
+def test_flash_kernel_takes_every_head_dim_up_to_128(cuda, dtype, causal, d):
+    """Head dims the kernel is not built for: the wrapper pads q, k, v to
+    the next of 32, 64, 128 and slices the output back (one launch)."""
+    torch, att = cuda
+    out = _flash_case(torch, att, (2, 3, 130, d), (2, 3, 70, d),
+                      getattr(torch, dtype), causal, seed=d)
+    assert out.is_contiguous()
 
 
 def _epilogue_inputs(torch, shape, axis, dtype, residual, seed):
@@ -389,6 +407,19 @@ def test_flash_backward_head_dims(cuda, dtype, causal, d, t, s):
     if s == 0:
         assert not dq.float().abs().max().item()
         assert dk.numel() == dv.numel() == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", PADDED_HEAD_DIMS)
+def test_flash_backward_takes_every_head_dim_up_to_128(cuda, dtype, causal,
+                                                       d):
+    """The backward at head dims the kernel is not built for: q, k, v, out
+    and dO padded, dq, dk, dv sliced back, one counted launch a call."""
+    torch, att = cuda
+    got = _bwd_case(torch, att, 65, 129, d, getattr(torch, dtype), causal,
+                    seed=d, b=2, h=3)
+    assert all(g.shape[-1] == d and g.is_contiguous() for g in got)
 
 
 @pytest.mark.parametrize("dtype,offset", [
@@ -1257,7 +1288,8 @@ def test_embedding_out_of_range_ids_leave_the_context_usable(cuda):
 
 def _nms_set_ids():
     return ["random", "one_class_overlapping", "at_threshold", "inf_tails",
-            "force_suppress", "nan_boxes", "k37", "k1376", "k1"]
+            "force_suppress", "nan_boxes", "k37", "k1376", "k1",
+            "dead_between_live"]
 
 
 @pytest.mark.parametrize("name", _nms_set_ids())
@@ -1289,12 +1321,39 @@ def test_nms_kernel_refuses_what_it_does_not_take(cuda):
         contrib.nms_keep(b.double(), s, s, 0.5)
     with pytest.raises(mt.MXNetError, match="contiguous"):
         contrib.nms_keep(b, s.t().contiguous().t(), s, 0.5)
-    big = torch.rand(1, 2048, 4, device="cuda")
-    with pytest.raises(mt.MXNetError, match="shared memory"):
-        contrib.nms_keep(big, torch.rand(1, 2048, device="cuda"),
-                         torch.rand(1, 2048, device="cuda"), 0.5)
     with pytest.raises(mt.MXNetError, match="CUDA"):
         contrib.nms_keep(b, s.cpu(), s, 0.5)
+
+
+@pytest.mark.parametrize("b,k,live", [(4, 1757, None), (4, 2048, None),
+                                      (4, 7486, None), (4, 7486, 50),
+                                      (1, 24564, None)])
+def test_nms_kernel_at_any_candidate_count(cuda, b, k, live):
+    """Past the first kernel's 1,756: K = 2,048, SSD300's 7,486 anchors
+    (all live, as at nms_topk=-1 on an untrained net, and 50 live, as on a
+    trained one) and SSD512's 24,564, bit for bit against the plain
+    version, one counted launch a call."""
+    torch, _ = cuda
+    import numpy as np
+    from mxtpu_torch.ops import contrib
+    rng = np.random.RandomState(k + (live or 0))
+    c = rng.uniform(0.1, 0.9, (b, k, 2))
+    half = rng.uniform(0.02, 0.45, (b, k, 2)) / 2
+    boxes = np.concatenate([c - half, c + half], -1).astype(np.float32)
+    scores = -np.sort(-rng.rand(b, k), axis=1).astype(np.float32)
+    if live is not None:
+        scores[:, live:] = -np.inf
+    cls = rng.randint(0, 20, (b, k)).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (boxes, scores, cls)]
+    before = contrib.nms_keep.launches
+    got = contrib.nms_keep(*args, 0.45)
+    torch.cuda.synchronize()
+    assert contrib.nms_keep.launches == before + 1
+    for i in range(b):  # the plain version's K x K temporaries an image
+        want = contrib.nms_keep_reference(*(a[i:i + 1] for a in args), 0.45,
+                                          False)
+        assert torch.equal(got[i:i + 1], want), i
+        assert 0 < int(want.sum()) <= (live or k)
 
 
 def test_ssd_step_on_gpu_matches_cpu(cuda):

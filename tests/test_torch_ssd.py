@@ -11,7 +11,12 @@ the CPU, from the same numpy inputs (mxtpu on ``JAX_PLATFORMS=cpu``).
   exactly, boxes and scores within 1e-6, with ``nms_topk`` -1 and 400,
   ``force_suppress``, ``clip``, every candidate under the threshold.
 - The plain suppression sweep against mxtpu's ``_nms_scan``, on random
-  and adversarial candidate sets.
+  and adversarial candidate sets and at K = 2,500, past the 1,756 the
+  first kernel took; ``MultiBoxDetection`` at its default ``nms_topk``
+  -1 on 2,500 anchors. The kernel's launch plan (grids, scratch) at K =
+  1 to 24,564 against hand-worked sizes, and its algorithm, emulated in
+  numpy with the words it never writes as random bits, against the plain
+  sweep.
 - ``MakeLoss`` (null, batch, valid) and ``smooth_l1`` gradients against
   ``jax.vjp`` of mxtpu's ops.
 - The ``tiny`` train symbol's forward outputs and gradients against
@@ -231,13 +236,156 @@ def test_plain_sweep_matches_mxtpus_nms_scan(mt, case):
     assert contrib.nms_keep.launches == 0  # CPU: the plain version
 
 
-def test_nms_smem_bytes_counts_the_triangle(mt):
+# (K, batch) -> (tiles, pairs, scratch bytes): ceil(K / 64) tiles; the
+# upper triangle's tiles(tiles + 1) / 2 matrix blocks an image; the
+# matrix of 8-byte words, batch x tiles x K
+NMS_PLANS = [
+    ((1, 32), (1, 1, 8 * 32 * 1 * 1)),
+    ((37, 32), (1, 1, 8 * 32 * 1 * 37)),
+    ((400, 32), (7, 28, 716800)),            # 896 blocks, 0.7 MB
+    ((1376, 8), (22, 253, 8 * 8 * 22 * 1376)),
+    ((7486, 32), (117, 6903, 224220672)),    # SSD300 at nms_topk=-1
+    ((24564, 1), (384, 73920, 75460608)),    # SSD512's anchors
+]
+
+
+@pytest.mark.parametrize("kb,want", NMS_PLANS,
+                         ids=["K%d" % kb[0] for kb, _ in NMS_PLANS])
+def test_nms_plan_sizes_grids_and_scratch(mt, kb, want):
     from mxtpu_torch.ops import contrib
-    # boxes and class ids, the triangle, the alive words
-    assert contrib.nms_smem_bytes(400) == 4 * (5 * 400 + 2896 + 13)
-    assert contrib.nms_smem_bytes(1376) == 4 * (5 * 1376 + 30272 + 43)
-    assert contrib.nms_smem_bytes(1376) <= contrib.NMS_MAX_SMEM
-    assert contrib.nms_smem_bytes(2048) > contrib.NMS_MAX_SMEM
+    k, batch = kb
+    plan = contrib.nms_plan(batch, k)
+    tiles, pairs, scratch = want
+    assert (plan["tiles"], plan["pairs"], plan["scratch_bytes"]) == want
+    assert plan["scratch_shape"] == (batch, tiles, k)
+    assert plan["matrix_blocks"] == pairs * batch
+    assert plan["matrix_threads"] == 64
+    assert plan["image_blocks"] == batch
+    assert (plan["sweep_blocks"], plan["sweep_threads"]) == (batch, 1024)
+    assert plan["sweep_smem"] == 8 * tiles  # 936 bytes at K = 7,486
+    assert plan["sweep_smem"] <= 48 * 1024
+
+
+def test_nms_plan_loops_images_past_the_grids_y_extent(mt):
+    from mxtpu_torch.ops import contrib
+    plan = contrib.nms_plan(70000, 400)
+    assert plan["image_blocks"] == 65535
+    assert plan["sweep_blocks"] == 70000
+
+
+def _big_nms_set(k=2500, seed=5):
+    """K = 2,500 candidates past the old kernel's 1,756: random boxes of
+    3 classes, scores sorted, -inf from 2,200 on and for one whole tile
+    (64-127)."""
+    rng = np.random.RandomState(seed)
+    s = np.sort(rng.rand(k).astype(np.float32))[::-1].copy()
+    s[64:128] = -np.inf
+    s[2200:] = -np.inf
+    return (_boxes(rng, k), s, rng.randint(0, 3, k).astype(np.float32), 0.5,
+            False)
+
+
+def test_plain_sweep_matches_mxtpus_nms_scan_past_the_old_limit(mt):
+    import jax.numpy as jnp
+    import torch
+    from mxtpu_torch.ops import contrib
+    boxes, scores, cls, thresh, force = _big_nms_set()
+    want = np.asarray(jcontrib._nms_scan(jnp.asarray(boxes),
+                                         jnp.asarray(scores),
+                                         jnp.asarray(cls), thresh, force))
+    got = contrib.nms_keep(torch.from_numpy(boxes)[None],
+                           torch.from_numpy(scores)[None],
+                           torch.from_numpy(cls)[None], thresh, force)[0]
+    assert np.array_equal(got.numpy(), want)
+    assert 0 < want.sum() < 2200
+
+
+def test_multibox_detection_at_its_default_topk_past_the_old_limit(mt):
+    """nms_topk=-1 (the op's default) on 2,500 anchors at B=2: every
+    candidate goes to the sweep."""
+    arrays = _detection_case(seed=4, A=2500, B=2)
+    (want,), (got,) = _both(mt, "_contrib_MultiBoxDetection", arrays, {})
+    assert got.shape == want.shape == (2, 2500, 6)
+    assert np.array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:], want[..., 1:], rtol=0,
+                               atol=1e-6)
+    assert (got[..., 0] >= 0).sum() > 0
+
+
+def _kernel_algorithm(boxes, scores, cls, thresh, force, rng):
+    """``csrc/multibox_nms.cu``'s algorithm on one image, in numpy: the
+    64 x 64 tiles of the upper triangle write their rows' words except
+    where the tile's rows or columns are all dead, every other word is
+    random (the scratch is never cleared); the sweep starts from the dead
+    candidates removed, resolves each chunk up to the last live one as
+    the fixed point of kept = alive & ~(OR of the kept rows' diagonal
+    words), and ORs the kept rows' words into the later chunks' removed
+    words that are not all removed yet."""
+    import torch
+    from mxtpu_torch.ops import contrib
+    k = len(scores)
+    tiles = contrib.nms_plan(1, k)["tiles"]
+    b = torch.from_numpy(boxes)
+    iou = contrib._box_iou_corner(b, b).numpy()
+    same = (cls[:, None] == cls[None, :]) | force
+    bits = np.zeros((k, tiles * 64), bool)
+    bits[:, :k] = (iou > thresh) & same & np.triu(np.ones((k, k), bool), 1)
+    words = np.packbits(bits.reshape(k, tiles, 64), axis=-1,
+                        bitorder="little").view("<u8")[..., 0]  # (k, tiles)
+    live = np.zeros(tiles * 64, bool)
+    with np.errstate(invalid="ignore"):
+        live[:k] = scores > -np.inf
+    live_tile = live.reshape(tiles, 64).any(axis=1)
+    mask = rng.randint(0, 2 ** 63, (tiles, k), dtype=np.int64).view("u8")
+    for r in range(tiles):
+        for c in range(r, tiles):
+            if live_tile[r] and live_tile[c]:
+                rows = slice(64 * r, min(64 * r + 64, k))
+                mask[c, rows] = words[rows, c]
+    full = (1 << 64) - 1
+    removed = [full ^ int(w) for w in np.packbits(
+        live.reshape(tiles, 64), axis=-1, bitorder="little").view("<u8")[:, 0]]
+    chunks = int(np.flatnonzero(live_tile)[-1]) + 1 if live_tile.any() else 0
+    for c in range(chunks):
+        alive = full ^ removed[c]
+        kept, prev = alive, None
+        while kept != prev:  # the fixed point of the chunk's keep set
+            prev = kept
+            clear = 0
+            for t in range(min(64, k - 64 * c)):
+                if kept >> t & 1:
+                    clear |= int(mask[c, 64 * c + t])
+            kept = alive & (full ^ clear)
+        removed[c] = full ^ kept
+        for w in range(c + 1, chunks):
+            if removed[w] != full:
+                for t in range(64):
+                    if kept >> t & 1:
+                        removed[w] |= int(mask[w, 64 * c + t])
+    return np.array([not (removed[i >> 6] >> (i & 63)) & 1 for i in range(k)])
+
+
+def _algorithm_sets():
+    from mxtpu_torch.models import ssd_data
+    sets = [(n, b[0], s[0], c[0], t, f)
+            for n, b, s, c, t, f in ssd_data.nms_sets(batch=1, seed=4)]
+    return sets + [("k2500", *_big_nms_set())]
+
+
+@pytest.mark.parametrize("case", range(11))
+def test_kernel_algorithm_equals_the_plain_version(mt, case):
+    """The kernel's design, emulated, keeps what the plain sweep keeps on
+    every set of ``ssd_data.nms_sets`` and at K = 2,500, with the words
+    it never writes as random bits."""
+    import torch
+    from mxtpu_torch.ops import contrib
+    name, boxes, scores, cls, thresh, force = _algorithm_sets()[case]
+    want = contrib.nms_keep_reference(
+        *(torch.from_numpy(np.ascontiguousarray(x))[None]
+          for x in (boxes, scores, cls)), thresh, force)[0].numpy()
+    got = _kernel_algorithm(boxes, scores, cls, thresh, force,
+                            np.random.RandomState(case))
+    assert np.array_equal(got, want), name
 
 
 # ------------------------------------------------------- MakeLoss, smooth_l1
