@@ -2,14 +2,15 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...,rnn,ssd]
+                          [--phases kernels,epilogue,...,ssd,surface]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
 
 Phases (any failure raises and exits non-zero):
 
-1. Device: require CUDA; print the card's name and power limit.
+1. Device: require CUDA; print the card's name and power limit, and
+   whether cv2 and PIL import here (with their versions).
 2. Build every hand-written kernel of ``mxtpu_torch/csrc`` with nvcc
    (one process per source, started together) and print the seconds;
    print each kernel instance's registers and spills (the LM's flash
@@ -30,7 +31,13 @@ Phases (any failure raises and exits non-zero):
    as three TF32 tensor-core passes, the route the kernel takes. Then the
    forward and the backward at head dim 96 (d_model 768 over 8 heads),
    which the wrappers zero-pad to the kernel's 128, against the plain
-   version, timed beside D=128 at the same shape.
+   version, timed beside D=128 at the same shape. Then the wide pair
+   (``csrc/flash_attn_wide.cu``, head dims above 128, unpadded) at D =
+   129, 160, 192, 256 and 512, causal and not, T != S with T and S not
+   tile multiples, NaN past every end: forward and lse against the plain
+   version, backward within 1e-4 (f32) / 2e-2 (bf16) of max(1, |plain|)
+   and bit-identical on repeat; timed at B=4, H=8, T=1024, D=256 beside
+   the plain versions, SDPA's forward and backward and the bounds.
 3b. Epilogue kernel vs plain: the BN-apply+ReLU(+residual) kernel
    against its plain version at ResNet-50's bucket-32 sites, channel-minor
    and NCHW, float32 and bfloat16, with and without the residual, a
@@ -170,7 +177,30 @@ Phases (any failure raises and exits non-zero):
    64x64, 12 epochs of 8 batches) from the port's Xavier draws at seeds
    0-4: each CrossEntropy < 1.2 and checkpoint reloaded bit for bit, the
    mean mAP above max(the mean untrained mAP, 0.05).
-12. Prints the kernels' JSON line, then the device line last.
+12. The inference and inspection surface (``surface``): ResNet-50 v2
+   (224x224, seeded weights) over 512 seeded images in an NDArrayIter at
+   B=256: ``Module.predict`` bit for bit against ``iter_predict``'s
+   batches and within 1e-5 of the same Module's unfused walk, 50 epilogue
+   launches a batch, images/s; the feature extractor (``get_internals``
+   of the flatten output bound in a new Module) bit for bit against what
+   a Monitor with that pattern captures in the full net's sampled
+   forward (both walks unfused on a sampled batch), and its own fused
+   forward within 1e-5 of it; a ``SequentialModule`` of the ResNet-50
+   trunk and a fc1+SoftmaxOutput head, 3 SGD steps at B=64 (TF32 off,
+   cuDNN deterministic), within 1e-5 of the single Module from the same
+   weights; ``install_monitor`` on one ResNet-50 SGD step at B=64: one
+   stat a visible output, the outputs and weights bit for bit against
+   the unmonitored fused step, both steps' ms; the port's twin of
+   examples/module/python_loss.py on gpu(0) above its 0.9 gate; the LM
+   at GPT-2-small widths through the Predictor (``forward_batch`` at
+   buckets 1 and 4, ``reshaped``, ``partial_forward`` to the end bit for
+   bit against ``forward``, ``load_checkpoint_predictor`` over a port
+   checkpoint's ``.params`` bytes bit for bit against the dict-built
+   one; 12 flash launches a forward); the LM at d_model 1024 over 4
+   heads (head dim 256, 2 layers) served through the Predictor against
+   a cpu() one, then one SGD step: the wide forward and backward
+   launched once a layer each.
+13. Prints the kernels' JSON line, then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -212,6 +242,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import re
 import shutil
@@ -370,8 +401,23 @@ SSD_GATE_SEEDS = (0, 1, 2, 3, 4)
 NMS_IOU_OPS = 14
 # the suppression kernel's two launches (csrc/multibox_nms.cu)
 NMS_LAUNCHES = ("nms_matrix_kernel", "nms_sweep_kernel")
+# the wide flash pair (head dims above 128): the dims it is held to its
+# plain versions at, and the timed shape (B, H, T, D)
+WIDE_DIMS = (129, 160, 192, 256, 512)
+WIDE_TIMED = (4, 8, 1024, 256)
+# phase 12: ResNet-50 predict over `images` at B=`batch`; SequentialModule
+# and the monitored step at B=`seq_batch`, SGD as phase 7's
+SURFACE = dict(images=512, batch=256, seq_batch=64, seq_steps=3, lr=0.1,
+               momentum=0.9)
+# the LM at d_model 1024 over 4 heads (head dim 256), 2 layers
+WIDE_LM = dict(vocab_size=50257, seq_len=1024, num_layers=2, num_heads=4,
+               d_model=1024, d_ff=4096)
+# examples/module/python_loss.py's settings and its gate (test_examples_
+# gate.py's test_python_loss_module_gate)
+PYLOSS = dict(epochs=8, batch_size=32, num_examples=1024, seed=4, gate=0.9)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
-          "resnet_training", "gluon", "data_parallel", "rnn", "ssd")
+          "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
+          "surface")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -3795,6 +3841,10 @@ def multi_gpu(args, card):
     if "ssd" in phases:
         log("[ssd]")
         results["ssd"] = phase_ssd(mt, args.seed, card)
+    # 12. the inference and inspection surface, and the head-dim-256 LM
+    if "surface" in phases:
+        log("[surface]")
+        results["surface"] = phase_surface(mt, att, epi, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5275,6 +5325,596 @@ def phase_ssd(mt, seed, card):
     return res
 
 
+# ---------------------------------------------------------------- phase 12
+def flash_wide(att, gen):
+    """The wide pair (``csrc/flash_attn_wide.cu``, head dims above 128,
+    unpadded) against the plain versions on the card: at D in WIDE_DIMS,
+    causal and not, T < S and T > S with S and T not multiples of the
+    16-row and 32-key tiles, NaN stored past every tensor's end, float32
+    and bfloat16: the forward within TOL, its lse within LSE_TOL, the
+    backward within BWD_TOL of max(1, |plain|) and a second call
+    bit-identical. Then CUDA-event times at WIDE_TIMED (causal) of the
+    forward and the backward beside the plain versions, SDPA's forward and
+    backward (the library yardsticks) and the bounds as phases 3 and 3c
+    count them. Returns {"worst": ..., "timed": [rows]}."""
+    F = torch.nn.functional
+    cases = [(b, h, t, s, d, causal) for d in WIDE_DIMS
+             for causal in (False, True)
+             for b, h, t, s in ((2, 3, 200, 333), (1, 2, 333, 129))]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for b, h, t, s, d, causal in cases:
+            q, k, v, g = bwd_inputs(b, h, t, s, d, dtype, gen, nan_tail=64)
+            got, got_lse = att._flash_cuda(q, k, v, causal, d ** -0.5,
+                                           want_lse=True)
+            want, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                                      return_lse=True)
+            fin = torch.isfinite(lse)
+            lse_err = (got_lse[fin] - lse[fin]).abs().max().item() \
+                if bool(fin.any()) else 0.0
+            grads = att.flash_attention_backward(q, k, v, want, g, lse,
+                                                 causal=causal)
+            again = att.flash_attention_backward(q, k, v, want, g, lse,
+                                                 causal=causal)
+            ref = att.flash_attention_backward_reference(
+                q, k, v, want, g, lse, causal=causal)
+            torch.cuda.synchronize()
+            err, bwd = abs_err(got, want), max(rel_err(a, w) for a, w in
+                                               zip(grads, ref))
+            same = all(torch.equal(a, r) for a, r in zip(grads, again))
+            log("  flash wide %-8s B=%d H=%d T=%d S=%d D=%d causal=%d  "
+                "fwd err %.3e, lse err %.3e, bwd scaled err %.3e, repeat %s"
+                % (name, b, h, t, s, d, causal, err, lse_err, bwd,
+                   "bit-identical" if same else "DIFFERS"))
+            if not err <= TOL[dtype] or not lse_err <= LSE_TOL[dtype] or \
+                    not torch.equal(torch.isfinite(got_lse), fin) or \
+                    not bwd <= BWD_TOL[dtype] or not same:
+                raise AssertionError(
+                    "wide flash kernels disagree with their plain versions "
+                    "at %s: fwd %r, lse %r, bwd %r, repeat %s"
+                    % ((b, h, t, s, d, causal, name), err, lse_err, bwd,
+                       same))
+            w = worst.setdefault(name, {"fwd": 0.0, "bwd": 0.0})
+            w["fwd"], w["bwd"] = max(w["fwd"], err), max(w["bwd"], bwd)
+    timed = []
+    b, h, t, d = WIDE_TIMED
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v, g = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                      .to(dtype) for _ in range(4))
+        out, lse = att._flash_cuda(q, k, v, True, d ** -0.5, want_lse=True)
+        want = att.flash_attention_reference(q, k, v, causal=True)
+        grads = att.flash_attention_backward(q, k, v, out, g, lse,
+                                             causal=True)
+        ref = att.flash_attention_backward_reference(q, k, v, out, g, lse,
+                                                     causal=True)
+        err = abs_err(out, want)
+        bwd_err = max(abs_err(a, r) for a, r in zip(grads, ref))
+        bwd_scaled = max(rel_err(a, r) for a, r in zip(grads, ref))
+        del want, grads, ref
+        row = dict(dtype=name, B=b, H=h, T=t, D=d, max_abs_err=err,
+                   bwd_max_abs_err=bwd_err, bwd_scaled_err=bwd_scaled)
+        row["ms"] = cuda_ms(lambda: att.flash_attention(q, k, v,
+                                                        causal=True), 10)
+        row["plain_ms"] = cuda_ms(lambda: att.flash_attention_reference(
+            q, k, v, causal=True), 3)
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10)
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            b, h, t, t, d, True, dtype)
+        row["bwd_ms"] = cuda_ms(lambda: att.flash_attention_backward(
+            q, k, v, out, g, lse, causal=True), 5)
+        row["bwd_plain_ms"] = cuda_ms(
+            lambda: att.flash_attention_backward_reference(
+                q, k, v, out, g, lse, causal=True), 2)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qs, ks, vs), g, retain_graph=True), 5)
+        del o_lib
+        row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(
+            b, h, t, t, d, True, dtype)
+        log("  flash wide %s causal B=%d H=%d T=S=%d D=%d: forward %.4f ms "
+            "(plain %.4f, sdpa %.4f, bound %.4f %s), err %.3e; backward "
+            "%.4f ms (plain %.4f, sdpa bwd %.4f, bound %.4f %s), scaled err "
+            "%.3e" % (name, b, h, t, d, row["ms"], row["plain_ms"],
+                      row["library_ms"], row["bound_ms"], row["bound_by"],
+                      err, row["bwd_ms"], row["bwd_plain_ms"],
+                      row["bwd_library_ms"], row["bwd_bound_ms"],
+                      row["bwd_bound_by"], bwd_scaled))
+        if not err <= TOL[dtype] or not bwd_scaled <= BWD_TOL[dtype]:
+            raise AssertionError("wide flash disagrees at the timed shape: "
+                                 "%r, %r (%s)" % (err, bwd_scaled, name))
+        timed.append(row)
+    return {"worst": worst, "timed": timed}
+
+
+def mc_hinge_grad(scores, labels):
+    """examples/module/python_loss.py's Crammer-Singer multiclass hinge
+    subgradient, in numpy."""
+    scores = scores.asnumpy()
+    labels = labels.asnumpy().astype(np.int64)
+    n, _ = scores.shape
+    grad = np.zeros_like(scores)
+    for i in range(n):
+        margin = 1.0 + scores[i] - scores[i, labels[i]]
+        margin[labels[i]] = 0.0
+        worst = margin.argmax()
+        if margin[worst] > 0:
+            grad[i, labels[i]] -= 1.0
+            grad[i, worst] += 1.0
+    return grad / n
+
+
+def python_loss_data(n, rng, classes=5, dim=32):
+    """examples/module/python_loss.py's ``synth``: noisy binary
+    prototypes, one a class."""
+    protos = (rng.rand(classes, dim) > 0.5).astype("f4")
+    y = rng.randint(0, classes, n)
+    x = protos[y] + rng.randn(n, dim).astype("f4") * 0.25
+    return x, y.astype("f4")
+
+
+def python_loss_twin(mt, ctx, epochs=8, batch_size=32, num_examples=1024,
+                     seed=4, arg_params=None):
+    """The port's twin of examples/module/python_loss.py (which imports
+    mxtpu): ``SequentialModule(Module(MLP) on ctx, PythonLossModule(
+    grad_func=mc_hinge_grad))`` fit with SGD lr 0.5, momentum 0.9, Xavier
+    (or ``arg_params``), on the example's data from ``seed``. Returns the
+    validation accuracy."""
+    np.random.seed(seed)
+    x, y = python_loss_data(num_examples, np.random.RandomState(seed))
+    nval = num_examples // 4
+    train = mt.io.NDArrayIter(x[:-nval], y[:-nval], batch_size, shuffle=True,
+                              label_name="softmax_label")
+    val = mt.io.NDArrayIter(x[-nval:], y[-nval:], batch_size,
+                            label_name="softmax_label")
+    net = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=64,
+                                name="fc1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.FullyConnected(net, num_hidden=5, name="fc2")
+    quiet = logging.getLogger("chip_smoke.python_loss")
+    quiet.setLevel(logging.WARNING)
+    mod = mt.mod.SequentialModule(logger=quiet)
+    mod.add(mt.mod.Module(net, context=ctx, label_names=(), logger=quiet),
+            auto_wiring=True)
+    mod.add(mt.mod.PythonLossModule(grad_func=mc_hinge_grad, logger=quiet),
+            take_labels=True, auto_wiring=True)
+    mod.fit(train, eval_data=val, num_epoch=epochs, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.5, "momentum": 0.9},
+            eval_metric="acc", initializer=mt.initializer.Xavier(),
+            arg_params=arg_params)
+    val.reset()
+    return mod.score(val, mt.metric.Accuracy())[0][1]
+
+
+def _quiet_logger():
+    log_ = logging.getLogger("chip_smoke.surface")
+    log_.setLevel(logging.WARNING)
+    return log_
+
+
+def surface_resnet(mt, epi, seed, card):
+    """ResNet-50 v2 at 224x224 (seeded weights and statistics) over
+    SURFACE["images"] seeded images in an NDArrayIter at B=
+    SURFACE["batch"]: ``Module.predict`` against the concatenation of
+    ``iter_predict``'s outputs (bit for bit) and against the same
+    Module's unfused walk (within 1e-5), the epilogue launched at its 50
+    sites a batch, images/s; then the feature extractor
+    (``get_internals`` of the flatten output in a new Module over the
+    same params) against what a Monitor with that pattern and a
+    whole-array stat captures in the full net's forward."""
+    sym = mt.models.get_resnet(**RESNET)
+    params = resnet_params(sym, seed)
+    args, auxs = mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+    n, b = SURFACE["images"], SURFACE["batch"]
+    rng = np.random.default_rng(seed + 12)
+    x = rng.standard_normal((n,) + RESNET["image_shape"], dtype=np.float32)
+    y = rng.integers(0, RESNET["num_classes"], n).astype(np.float32)
+    it = mt.io.NDArrayIter(x, y, batch_size=b)
+    quiet = _quiet_logger()
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=quiet)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False)
+    mod.set_params(args, auxs)
+    mod.predict(it, num_batch=1)  # cuDNN's first calls
+    torch.cuda.synchronize()
+    epi.bn_apply_relu_add.launches = 0  # count the main path alone
+    t0 = time.perf_counter()
+    pred = mod.predict(it)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = epi.bn_apply_relu_add.launches
+    batches = -(-n // b)
+    parts = [outs[0]._data.clone() for outs, _, _ in mod.iter_predict(it)]
+    same = torch.equal(pred._data, torch.cat(parts))
+    # the same Module's unfused walk (what a sampled Monitor batch runs)
+    ex = mod._exec_group.execs[0]
+    unfused = []
+    it.reset()
+    for batch in it:
+        mod._exec_group.load_batch(batch)
+        raw = {k: a._data for k, a in ex.arg_dict.items()}
+        aux = {k: a._data for k, a in ex.aux_dict.items()}
+        with torch.inference_mode():
+            outs, _ = ex._run(False, fuse=False)(raw, aux, ex._device)
+        unfused.append(outs[0][:b - (batch.pad or 0)].clone())
+    unfused_err = float((pred._data - torch.cat(unfused)).abs().max())
+    rows = pred._data.double().sum(dim=1)
+    log("  [%s] ResNet-50 v2 predict: %d images at B=%d in %.3f s, %.1f "
+        "images/s; epilogue launches %d (%d a batch); predict == "
+        "iter_predict: %s; fused vs unfused walk max abs err %.3e; rows sum "
+        "to 1 +- %.2e" % (card, n, b, secs, n / secs, launches,
+                          launches // batches, same, unfused_err,
+                          float((rows - 1).abs().max())))
+    if pred.shape != (n, RESNET["num_classes"]) or not same:
+        raise AssertionError("predict %s differs from iter_predict's "
+                             "batches" % (pred.shape,))
+    if launches != RESNET_SITES * batches:
+        raise AssertionError("predict launched the epilogue %d times, not "
+                             "%d x %d" % (launches, RESNET_SITES, batches))
+    if not unfused_err <= 1e-5 or not bool(torch.isfinite(pred._data).all()):
+        raise AssertionError("fused predict vs the unfused walk: %g"
+                             % unfused_err)
+
+    feat = sym.get_children()[0].get_children()[0]  # fc1's data
+    feat_name = feat.list_outputs()[0]
+    fmod = mt.mod.Module(feat, label_names=None, context=mt.gpu(0),
+                         logger=quiet)
+    fmod.bind(data_shapes=[("data", (b,) + RESNET["image_shape"])],
+              for_training=False)
+    fmod.set_params(args, auxs, allow_extra=True)
+    captured = []
+    mon = mt.monitor.Monitor(
+        1, stat_func=lambda arr: captured.append(arr._data.clone()) or 0.0,
+        pattern=feat_name + "$")
+    mod.install_monitor(mon)  # the full net
+    batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
+                            [mt.nd.array(y[:b], ctx=mt.cpu())])
+    fmod.forward(batch, is_train=False)  # the extractor, unsampled: fused
+    fused_feat = fmod.get_outputs()[0]._data.clone()
+    mon.install(fmod._exec_group.execs[0])  # the extractor, sampled too
+    mon.tic()
+    mod.forward(batch, is_train=False)
+    fmod.forward(batch, is_train=False)
+    sampled_feat = fmod.get_outputs()[0]._data.clone()
+    n_stats = len(mon.toc())
+    torch.cuda.synchronize()
+    bitwise = len(captured) >= 1 and torch.equal(captured[0], sampled_feat)
+    fused_err = rel_err(fused_feat, captured[0])
+    log("  feature extractor %s %s: == the Monitor's capture in the full "
+        "net's sampled forward, bit for bit: %s; the extractor's own fused "
+        "forward vs that capture, error / max(1, |x|) %.3e (%d stats)"
+        % (feat_name, tuple(sampled_feat.shape), bitwise, fused_err,
+           n_stats))
+    if not bitwise or not fused_err <= 1e-5:
+        raise AssertionError("feature extractor differs from the Monitor's "
+                             "capture: bitwise %s, fused %g"
+                             % (bitwise, fused_err))
+    return dict(images_per_s=n / secs, predict_s=secs, launches=launches,
+                batches=batches, unfused_err=unfused_err,
+                feature=feat_name, feature_fused_err=fused_err)
+
+
+def _resnet_trunk_head(mt):
+    """(full ResNet-50 v2, its trunk up to the flatten, a head of fc1 and
+    SoftmaxOutput over the flatten's features)."""
+    sym = mt.models.get_resnet(**RESNET)
+    trunk = sym.get_children()[0].get_children()[0]
+    head = mt.sym.FullyConnected(mt.sym.Variable("data"),
+                                 num_hidden=RESNET["num_classes"],
+                                 name="fc1")
+    return sym, trunk, mt.sym.SoftmaxOutput(head, name="softmax")
+
+
+def _train_modules(mt, mod, args, auxs, b):
+    mod.bind(data_shapes=[("data", (b,) + RESNET["image_shape"])],
+             label_shapes=[("softmax_label", (b,))])
+    mod.init_params(arg_params=args, aux_params=auxs, allow_missing=False,
+                    allow_extra=True)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": SURFACE["lr"], "momentum": SURFACE["momentum"]})
+
+
+def surface_sequential(mt, seed, card):
+    """ResNet-50 v2's trunk (up to the flatten) and a fc1+SoftmaxOutput
+    head as a SequentialModule (the head binds with inputs_need_grad, so
+    its input gradient is the trunk's head gradient), SURFACE["seq_steps"]
+    SGD steps at B=SURFACE["seq_batch"] with TF32 off and cuDNN
+    deterministic, against the single Module from the same weights: every
+    weight and statistic within 1e-5 of max(1, |w|)."""
+    sym, trunk, head = _resnet_trunk_head(mt)
+    params = resnet_params(sym, seed)
+    args, auxs = mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+    b = SURFACE["seq_batch"]
+    rng = np.random.default_rng(seed + 13)
+    batches = [mt.io.DataBatch(
+        [mt.nd.array(rng.standard_normal((b,) + RESNET["image_shape"],
+                                         dtype=np.float32), ctx=mt.cpu())],
+        [mt.nd.array(rng.integers(0, RESNET["num_classes"], b)
+                     .astype(np.float32), ctx=mt.cpu())])
+        for _ in range(SURFACE["seq_steps"])]
+    quiet = _quiet_logger()
+    single = mt.mod.Module(sym, context=mt.gpu(0), logger=quiet)
+    seq = mt.mod.SequentialModule(logger=quiet)
+    seq.add(mt.mod.Module(trunk, label_names=None, context=mt.gpu(0),
+                          logger=quiet))
+    seq.add(mt.mod.Module(head, context=mt.gpu(0), logger=quiet),
+            take_labels=True, auto_wiring=True)
+    ms = {}
+    with DeterministicCudnn():
+        for name, mod in (("single", single), ("sequential", seq)):
+            _train_modules(mt, mod, args, auxs, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches:
+                mod.forward_backward(batch)
+                mod.update()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    got, want = seq.get_params(), single.get_params()
+    dist = max(scaled_dist(got[0], want[0]), scaled_dist(got[1], want[1]))
+    moved = scaled_dist(want[0], args)
+    log("  [%s] SequentialModule(trunk, fc1+softmax) vs the single Module, "
+        "%d SGD steps at B=%d: weights and statistics within %.3e of "
+        "max(1, |w|) (the steps moved them %.3e); step ms %.2f vs %.2f"
+        % (card, len(batches), b, dist, moved, ms["sequential"],
+           ms["single"]))
+    if not dist <= 1e-5 or not moved > 1e-4:
+        raise AssertionError("SequentialModule differs from the single "
+                             "Module: %g (moved %g)" % (dist, moved))
+    return dict(max_scaled_diff=dist, moved=moved, step_ms=ms)
+
+
+def surface_monitor_step(mt, seed, card):
+    """One ResNet-50 v2 SGD step at B=SURFACE["seq_batch"] with a Monitor
+    (interval 1, every tensor, the default stat) installed, against the
+    same step unmonitored (the fused update), cuDNN deterministic: as
+    many stats as the graph's visible op outputs plus its outputs, the
+    loss and the weights bit for bit; each step's ms printed."""
+    sym = mt.models.get_resnet(**RESNET)
+    params = resnet_params(sym, seed)
+    args, auxs = mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+    b = SURFACE["seq_batch"]
+    rng = np.random.default_rng(seed + 14)
+    batch = mt.io.DataBatch(
+        [mt.nd.array(rng.standard_normal((b,) + RESNET["image_shape"],
+                                         dtype=np.float32), ctx=mt.cpu())],
+        [mt.nd.array(rng.integers(0, RESNET["num_classes"], b)
+                     .astype(np.float32), ctx=mt.cpu())])
+    internals = sym.get_internals().list_outputs()
+    n_vars = len(sym.list_inputs())
+    expect = len(internals) - n_vars + len(sym.list_outputs())
+    res = {}
+    with DeterministicCudnn():
+        for monitored in (False, True):
+            mod = mt.mod.Module(sym, context=mt.gpu(0),
+                                logger=_quiet_logger())
+            _train_modules(mt, mod, args, auxs, b)
+            mon = None
+            if monitored:
+                mon = mt.monitor.Monitor(1)
+                mod.install_monitor(mon)
+                mon.tic()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            stats = mon.toc() if mon else []
+            torch.cuda.synchronize()
+            res[monitored] = dict(
+                ms=(time.perf_counter() - t0) * 1e3, stats=len(stats),
+                fused=mod._fused is not None,
+                out=mod.get_outputs()[0]._data.clone(),
+                params=mod.get_params())
+    plain, mon_ = res[False], res[True]
+    same_out = torch.equal(plain["out"], mon_["out"])
+    same_w = all(torch.equal(mon_["params"][i][k]._data,
+                             plain["params"][i][k]._data)
+                 for i in (0, 1) for k in plain["params"][i])
+    log("  [%s] install_monitor on a ResNet-50 step at B=%d: %d stats (%d "
+        "visible op outputs + %d graph output); outputs bit for bit %s, "
+        "weights and statistics bit for bit %s; fused step armed: "
+        "unmonitored %s, monitored %s; step ms monitored %.1f vs "
+        "unmonitored %.1f" % (card, b, mon_["stats"],
+                              expect - len(sym.list_outputs()),
+                              len(sym.list_outputs()), same_out, same_w,
+                              plain["fused"], mon_["fused"], mon_["ms"],
+                              plain["ms"]))
+    if mon_["stats"] != expect or not same_out or not same_w or \
+            mon_["fused"] or not plain["fused"]:
+        raise AssertionError("monitored step: %d stats (want %d), outputs "
+                             "%s, weights %s" % (mon_["stats"], expect,
+                                                 same_out, same_w))
+    return dict(stats=mon_["stats"], monitored_ms=mon_["ms"],
+                unmonitored_ms=plain["ms"])
+
+
+def _flash_counts(att):
+    return (att.flash_attention.launches, att.flash_attention.wide_launches,
+            att.flash_attention_backward.launches,
+            att.flash_attention_backward.wide_launches)
+
+
+def _zero_flash_counts(att):
+    att.flash_attention.launches = att.flash_attention.wide_launches = 0
+    att.flash_attention_backward.launches = 0
+    att.flash_attention_backward.wide_launches = 0
+
+
+def surface_lm(mt, att, seed, card):
+    """The LM at GPT-2-small widths (phase 4's) through the Predictor:
+    ``forward_batch`` at buckets 1 and 4 (3 rows padded), ``reshaped`` to
+    4 rows over the same weight tensors (equal to forward_batch's rows
+    bit for bit), ``partial_forward`` stepped node by node to the end
+    (equal to ``forward`` bit for bit), and a Predictor from
+    ``load_checkpoint_predictor`` over a checkpoint the port wrote (its
+    ``.params`` bytes) equal to the dict-built one; 12 flash launches a
+    forward."""
+    import tempfile
+    sym = mt.models.get_transformer_lm(**LM)
+    sym_json = sym.tojson()
+    params = lm_params(sym, seed)
+    t = LM["seq_len"]
+    rng = np.random.default_rng(seed + 15)
+    x4 = rng.integers(0, LM["vocab_size"], (4, t)).astype(np.float32)
+    _zero_flash_counts(att)
+    pred = mt.Predictor(sym_json, params, ctx=mt.gpu(0),
+                        input_shapes={"data": (1, t)}, bucket_sizes=BUCKETS)
+    t0 = time.perf_counter()
+    one = pred.forward_batch({"data": x4[:1]})[0]
+    three = pred.forward_batch({"data": x4[:3]})[0]
+    batch_s = time.perf_counter() - t0
+    wide = pred.reshaped({"data": (4, t)})
+    shares = all(wide._arg_params[k]._data is pred._arg_params[k]._data
+                 for k in pred._arg_params)
+    wide.forward(data=np.concatenate([x4[:3], np.zeros((1, t), "f4")]))
+    rows = wide.get_outputs()[0][:3 * t]
+    reshaped_same = np.array_equal(rows, three)
+    row0_err = float(np.abs(three[:t] - one).max())
+    pred.reshape({"data": (1, t)})
+    pred.forward(data=x4[:1])
+    full = pred.get_outputs()[0]
+    steps, left = 0, pred.num_steps
+    while left:
+        steps += 1
+        left = pred.partial_forward(steps)
+    partial_same = np.array_equal(pred.get_outputs()[0], full)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "lm")
+        arg_params, _ = mt.model.split_params(
+            {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+        mt.model.save_checkpoint(prefix, 0, sym, arg_params, {})
+        loaded = mt.predict.load_checkpoint_predictor(
+            prefix, 0, {"data": (1, t)}, ctx=mt.gpu(0))
+    loaded.forward(data=x4[:1])
+    loaded_same = np.array_equal(loaded.get_outputs()[0], full)
+    torch.cuda.synchronize()
+    counts = _flash_counts(att)
+    forwards = 2 + 1 + 1 + 1 + 1  # buckets 1, 4; reshaped; forward;
+    #                               partial_forward; the loaded Predictor
+    sums = np.abs(three.sum(axis=1, dtype=np.float64) - 1).max()
+    log("  [%s] LM Predictor: forward_batch at buckets 1 and 4 in %.2f s "
+        "(row 0 at bucket 4 vs bucket 1 max abs err %.3e; rows sum to 1 +- "
+        "%.1e); reshaped to 4 rows shares the weights %s and equals "
+        "forward_batch's rows bit for bit %s; partial_forward over %d nodes "
+        "== forward bit for bit %s; load_checkpoint_predictor (.params "
+        "bytes) == the dict-built Predictor bit for bit %s; flash launches "
+        "%d (%d layers x %d forwards)"
+        % (card, batch_s, row0_err, sums, shares, reshaped_same,
+           pred.num_steps, partial_same, loaded_same, counts[0],
+           LM["num_layers"], forwards))
+    if not (shares and reshaped_same and partial_same and loaded_same) or \
+            counts != (LM["num_layers"] * forwards, 0, 0, 0) or \
+            not row0_err <= 1e-4 or not sums <= 1e-4:
+        raise AssertionError("LM Predictor paths disagree: %s, %s, %s, %s, "
+                             "launches %s, row0 %g"
+                             % (shares, reshaped_same, partial_same,
+                                loaded_same, counts, row0_err))
+    return dict(flash_launches=counts[0], forwards=forwards,
+                num_steps=pred.num_steps, row0_err=row0_err)
+
+
+def surface_wide_lm(mt, att, seed, card):
+    """The transformer LM at WIDE_LM (d_model 1024 over 4 heads: head dim
+    256, on the wide pair) served through the Predictor (B=1, one launch
+    of the wide forward a layer) and held to a cpu() Predictor (the plain
+    attention); then one SGD step through Module (the wide forward with
+    its lse and the wide backward, once a layer each), its loss finite."""
+    sym = mt.models.get_transformer_lm(**WIDE_LM)
+    sym_json = sym.tojson()
+    arg_shapes, _, _ = sym.infer_shape(data=(1, WIDE_LM["seq_len"]))
+    rng = np.random.default_rng(seed + 16)
+    params = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        w = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        params["arg:" + name] = w + np.float32(name.endswith("_gamma"))
+    t = WIDE_LM["seq_len"]
+    x, y = lm_batch(seed + 17, 1, t, WIDE_LM["vocab_size"])
+    _zero_flash_counts(att)
+    pred = mt.Predictor(sym_json, params, ctx=mt.gpu(0),
+                        input_shapes={"data": (1, t)})
+    pred.forward(data=x)
+    out = pred.get_outputs()[0]
+    torch.cuda.synchronize()
+    served = _flash_counts(att)
+    cpu_pred = mt.Predictor(sym_json, params, ctx=mt.cpu(),
+                            input_shapes={"data": (1, t)})
+    cpu_pred.forward(data=x)
+    err = float(np.abs(out - cpu_pred.get_outputs()[0]).max())
+    quiet = _quiet_logger()
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=quiet)
+    mod.bind(data_shapes=[("data", (1, t))],
+             label_shapes=[("softmax_label", (t,))])
+    mod.init_params(arg_params={k[4:]: mt.nd.array(v, ctx=mt.cpu())
+                                for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01})
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                            [mt.nd.array(y, ctx=mt.cpu())])
+    _zero_flash_counts(att)
+    mod.forward_backward(batch)
+    mod.update()
+    probs = mod.get_outputs()[0]._data
+    torch.cuda.synchronize()
+    trained = _flash_counts(att)
+    labels = torch.from_numpy(y).long().to(probs.device)
+    loss = float(-torch.log(probs[torch.arange(t, device=probs.device),
+                                  labels].clamp(min=1e-30)).mean())
+    layers = WIDE_LM["num_layers"]
+    log("  [%s] LM at head dim %d (%s): served through the Predictor, wide "
+        "forward launches %d, vs a cpu() Predictor max abs err %.3e; one SGD "
+        "step through Module: wide forward %d, wide backward %d launches, "
+        "CE %.4f" % (card, WIDE_LM["d_model"] // WIDE_LM["num_heads"],
+                     WIDE_LM, served[1], err, trained[1], trained[3], loss))
+    if served != (0, layers, 0, 0) or trained != (0, layers, 0, layers) or \
+            not err <= 1e-4 or not np.isfinite(out).all() or \
+            not np.isfinite(loss):
+        raise AssertionError("the head-dim-256 LM: launches %s / %s, err %g,"
+                             " CE %r" % (served, trained, err, loss))
+    return dict(served_launches=served[1], trained_fwd_launches=trained[1],
+                trained_bwd_launches=trained[3], cpu_err=err, ce=loss)
+
+
+def phase_surface(mt, att, epi, seed, card):
+    """The inference and inspection surface (phase 12); see the module
+    docstring."""
+    res = {"resnet": surface_resnet(mt, epi, seed, card),
+           "sequential": surface_sequential(mt, seed, card),
+           "monitor_step": surface_monitor_step(mt, seed, card)}
+    t0 = time.perf_counter()
+    acc = python_loss_twin(mt, mt.gpu(0), **{
+        k: PYLOSS[k] for k in ("epochs", "batch_size", "num_examples",
+                               "seed")})
+    log("  [%s] python_loss twin (SequentialModule(Module(MLP), "
+        "PythonLossModule) on gpu(0)): val accuracy %.3f in %.1f s (gate > "
+        "%.1f)" % (card, acc, time.perf_counter() - t0, PYLOSS["gate"]))
+    if not acc > PYLOSS["gate"]:
+        raise AssertionError("python_loss twin stuck at %.3f" % acc)
+    res["python_loss_acc"] = acc
+    res["lm"] = surface_lm(mt, att, seed, card)
+    res["wide_lm"] = surface_wide_lm(mt, att, seed, card)
+    return res
+
+
+def image_packages():
+    """{"cv2": version or "absent", "PIL": ...} on this machine."""
+    import importlib
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = "absent"
+    return found
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -5332,6 +5972,8 @@ def main(argv=None):
            torch.cuda.get_device_name(0),
            torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32))
+    log("image packages (the record pipeline decodes with cv2 and packs "
+        "with PIL): %s" % image_packages())
 
     # 2. build
     t0 = time.perf_counter()
@@ -5358,6 +6000,7 @@ def main(argv=None):
         results["flash_timed"], worst = phase_kernels(att, gen, parents)
         results["worst_err"] = {str(k): v for k, v in worst.items()}
         results["flash_d96"] = flash_head_dim_96(att, gen)
+        results["flash_wide"] = flash_wide(att, gen)
     if "epilogue" in phases:
         log("[epilogue]")
         results["epilogue_timed"] = phase_epilogue(epi, gen)
@@ -5406,6 +6049,10 @@ def main(argv=None):
     if "ssd" in phases:
         log("[ssd]")
         results["ssd"] = phase_ssd(mt, args.seed, card)
+    # 12. the inference and inspection surface, and the head-dim-256 LM
+    if "surface" in phases:
+        log("[surface]")
+        results["surface"] = phase_surface(mt, att, epi, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5430,13 +6077,19 @@ def main(argv=None):
     ssd = results["ssd"]
     nms_row = ssd["nms"]
     d96 = {r["dtype"]: r["D96"] for r in results["flash_d96"]}
+    surface = results["surface"]
+    surf_lm, wide_lm = surface["lm"], surface["wide_lm"]
+    wide = next(r for r in results["flash_wide"]["timed"]
+                if r["dtype"] == "float32")
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxtpu/ops/attention.py:92",
-        "launches": served["launches"] + trained["fwd_launches"],
+        "launches": served["launches"] + trained["fwd_launches"]
+        + surf_lm["flash_launches"],
         "launches_by_path": {"lm_serving": served["launches"],
-                             "lm_training": trained["fwd_launches"]},
+                             "lm_training": trained["fwd_launches"],
+                             "lm_predictor": surf_lm["flash_launches"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5445,11 +6098,13 @@ def main(argv=None):
         "name": "bn_relu_epilogue", "route": "cuda",
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
-        "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval,
+        "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval
+        + surface["resnet"]["launches"],
         "launches_by_path": {"resnet_serving": resnet["launches"],
                              "resnet_training_eval": resnet_eval,
                              "gluon_eval": gluon_eval,
-                             "data_parallel_eval": dp_eval},
+                             "data_parallel_eval": dp_eval,
+                             "resnet_predict": surface["resnet"]["launches"]},
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],
@@ -5477,7 +6132,31 @@ def main(argv=None):
         "scratch_bytes": nms_row["scratch_bytes"],
         "all_anchors": {key: nms_row["all_anchors"][key] for key in (
             "B", "K", "live", "ms", "plain_ms", "plain_B", "bound_ms",
-            "bound_by", "scratch_bytes")}}]}
+            "bound_by", "scratch_bytes")}}, {
+        "name": "flash_attn_wide_fwd", "route": "cuda",
+        "source": "mxtpu_torch/csrc/flash_attn_wide.cu",
+        "replaces": "mxtpu/ops/attention.py:92",
+        "launches": wide_lm["served_launches"]
+        + wide_lm["trained_fwd_launches"],
+        "launches_by_path": {
+            "lm_d256_predictor": wide_lm["served_launches"],
+            "lm_d256_training_step": wide_lm["trained_fwd_launches"]},
+        "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "shape": [wide[k] for k in ("B", "H", "T", "D")]}, {
+        "name": "flash_attn_wide_bwd", "route": "cuda",
+        "source": "mxtpu_torch/csrc/flash_attn_wide.cu",
+        "replaces": "mxtpu/ops/attention.py:199",
+        "launches": wide_lm["trained_bwd_launches"],
+        "launches_by_path": {
+            "lm_d256_training_step": wide_lm["trained_bwd_launches"]},
+        "max_abs_err": wide["bwd_max_abs_err"],
+        "scaled_err": wide["bwd_scaled_err"], "ms": wide["bwd_ms"],
+        "plain_ms": wide["bwd_plain_ms"], "bound_ms": wide["bwd_bound_ms"],
+        "bound_by": wide["bwd_bound_by"],
+        "library_ms": wide["bwd_library_ms"],
+        "shape": [wide[k] for k in ("B", "H", "T", "D")]}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,12 @@ attention on the flash kernels, mixture of experts, pipelines,
 ``BucketingModule``); the SSD detector (``models.ssd``, the MultiBox ops
 of ``ops/contrib.py`` with the suppression sweep as a CUDA kernel,
 ``MakeLoss``, ``smooth_l1``) with ``models.ssd_data``'s synthetic boxes
-and metrics, and ``test_utils.default_context``.
+and metrics, and ``test_utils.default_context``; the inference and
+inspection surface: ``Module.predict``/``iter_predict``, ``monitor``
+(``Monitor`` over the executors' per-op walk), ``SequentialModule``,
+``PythonLossModule``, ``model.FeedForward``, ``Symbol.get_internals``
+and its kin, and ``Predictor.partial_forward``/``forward_batch``/
+``reshaped`` with ``predict.create`` and ``load_checkpoint_predictor``.
 """
 from . import base
 from .base import MXNetError
@@ -61,6 +66,7 @@ from . import kvstore
 from . import kvstore as kv
 from . import model
 from . import callback
+from . import monitor
 from . import module
 from . import module as mod
 from . import rnn
@@ -74,5 +80,6 @@ __all__ = ["MXNetError", "AttrScope", "attribute", "Context", "cpu", "gpu",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
-           "metric", "io", "kvstore", "kv", "model", "callback", "module", "mod",
+           "metric", "io", "kvstore", "kv", "model", "callback", "monitor",
+           "module", "mod",
            "autograd", "gluon", "sharding", "parallel", "rnn", "test_utils"]

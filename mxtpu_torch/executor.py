@@ -19,6 +19,17 @@ runs the pair as one pass of the epilogue kernel (``ops/epilogue.py``),
 on every device, reading the moving statistics at every forward; the
 training plan does not fuse.
 
+``set_monitor_callback`` (mxtpu :829) installs a per-op callback: on a
+forward whose callback is active (a ``Monitor``'s sampled batch) the walk
+hands it every op's visible outputs by name, as mxtpu's node-at-a-time
+walk does (:628-661, :685-689); such an inference forward runs the
+unfused plan, so the BatchNorm outputs that the epilogue would fold away
+exist and are seen. An unsampled forward keeps the fused plan.
+``reshape`` (:834), ``copy_params_from``, ``arg_arrays``/``aux_arrays``
+and the ``simple_bind`` method follow mxtpu's. ``eager_run_range`` walks
+a range of the graph's nodes one at a time (mxtpu :212), for
+``Predictor.partial_forward``.
+
 ``forward_replicas`` and ``backward_replicas`` run several executors of
 one symbol, each bound on its slice of a batch on its own device, as one
 function of the whole batch: the plan is walked over the replicas in
@@ -41,7 +52,7 @@ from .ops.nn import bn_relu_inference
 from .ops.registry import torch_dtype, write_aux
 
 __all__ = ["Executor", "simple_bind", "forward_replicas",
-           "backward_replicas"]
+           "backward_replicas", "eager_run_range"]
 
 
 def _fusable_bn(node, consumers, graph_outputs):
@@ -134,12 +145,14 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
                          dev))
     out_entries = [(id(n), i) for n, i in symbol._outputs]
 
-    def run_replicas(arg_list, aux_list, devices=None):
+    def run_replicas(arg_list, aux_list, devices=None, hook=None):
         """The plan over replicas in lockstep, one value set per replica
         (one: the plain walk): ([outputs of each], [aux_updates of
         each]). Over several, each op runs by its ``replica_mode``.
         ``devices``: each replica's device, for the ops with no tensor
-        inputs (default: each replica's first argument's)."""
+        inputs (default: each replica's first argument's). ``hook(node,
+        n_vis, outputs)`` sees each unfused op step's outputs (the first
+        replica's)."""
         if placements and len(arg_list) > 1:
             raise MXNetError("group2ctx placement runs one replica")
         if devices is None:
@@ -182,18 +195,45 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
                     env[(id(node), i)] = o[i]
                 for j, name in aux:
                     upd[name] = o[n_vis + j]
+            if hook is not None:
+                hook(node, n_vis, outs[0])
         run.copies = copies
         return [[env[e] for e in out_entries] for env in envs], updates
 
-    def run(arg_vals, aux_vals, device=None):
+    def run(arg_vals, aux_vals, device=None, hook=None):
         outs, updates = run_replicas([arg_vals], [aux_vals],
-                                     None if device is None else [device])
+                                     None if device is None else [device],
+                                     hook=hook)
         return outs[0], updates[0]
 
     run.fused_sites = len(fused_into)
     run.replicas = run_replicas
     run.copies = 0
     return run
+
+
+def eager_run_range(symbol, env, start, stop, arg_vals, aux_vals, device,
+                    topo=None):
+    """Run the nodes ``[start, stop)`` of ``symbol``'s topological order
+    one at a time, at inference and unfused, into ``env`` (entry key ->
+    tensor), reading variables from ``arg_vals``/``aux_vals`` and making
+    the outputs of ops with no tensor inputs on ``device`` (mxtpu
+    :212-255; the predict API's partial forward)."""
+    topo = topo if topo is not None else symbol._topo()
+    aux_nodes = symbol._aux_node_set()
+    for node in topo[start:stop]:
+        if node.is_variable:
+            src = aux_vals if id(node) in aux_nodes else arg_vals
+            env[(id(node), 0)] = src[node.name]
+            continue
+        attrs = node.parsed_attrs()
+        if "__is_train__" in node.op.attrs_spec:
+            attrs = type(attrs)(attrs)
+            attrs["__is_train__"] = False
+        outs = node.op.apply(attrs, [env[(id(n), i)] for n, i in
+                                     node.inputs], device)
+        for i in range(node.op.n_out(attrs)):
+            env[(id(node), i)] = outs[i]
 
 
 class Executor:
@@ -206,6 +246,7 @@ class Executor:
         self._symbol = symbol
         self._ctx = as_context(ctx) if ctx is not None else current_context()
         self._device = self._ctx.torch_device
+        self._group2ctx = group2ctx
         self._placements = {g: as_context(c).torch_device
                             for g, c in (group2ctx or {}).items()} or None
         self.arg_names = symbol.list_arguments()
@@ -229,8 +270,9 @@ class Executor:
             args_grad, self.arg_names, "args_grad", allow_missing=True)
         self.outputs = []
         self.cross_device_copies = 0  # inputs moved in the last forward
-        self._runs = {}     # is_train -> the plan's run function
+        self._runs = {}     # (is_train, fuse) -> the plan's run function
         self._tape = None   # (outputs with their graph, {name: leaf})
+        self._monitor_callback = None
 
     @staticmethod
     def _as_dict(vals, names, what, allow_missing=False):
@@ -242,13 +284,28 @@ class Executor:
                     raise MXNetError("%s: missing array for '%s'" % (what, n))
         return out
 
-    def _run(self, is_train):
-        run = self._runs.get(is_train)
+    def _run(self, is_train, fuse=True):
+        key = (is_train, fuse and not is_train)
+        run = self._runs.get(key)
         if run is None:
-            run = self._runs[is_train] = _trace_graph(
-                self._symbol, is_train, placements=self._placements,
-                default_device=self._device)
+            run = self._runs[key] = _trace_graph(
+                self._symbol, is_train, fuse=fuse,
+                placements=self._placements, default_device=self._device)
         return run
+
+    def _monitor_hook(self):
+        """The walk's hook that hands the monitor callback each op's
+        visible outputs by name, or None when no callback is active (an
+        unsampled batch)."""
+        cb = self._monitor_callback
+        if cb is None or not getattr(cb, "is_active", lambda: True)():
+            return None
+        from .symbol.symbol import _output_names
+
+        def hook(node, n_vis, outs):
+            for name, o in zip(_output_names(node, n_vis), outs):
+                cb(name, self._wrap(o.detach()))
+        return hook
 
     def _wrap(self, t):
         """An output as an NDArray on its own device's context."""
@@ -287,19 +344,24 @@ class Executor:
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; returns the list of output NDArrays. With
-        ``is_train`` the run keeps its autograd graph for ``backward``."""
+        ``is_train`` the run keeps its autograd graph for ``backward``.
+        With an active monitor callback every op's outputs reach it, the
+        inference walk unfused."""
+        hook = self._monitor_hook()
         if not is_train:
             raw_args, raw_aux = self._inputs(kwargs)
+            run = self._run(False, fuse=hook is None)
             with torch.inference_mode():
-                outs, _ = self._run(False)(raw_args, raw_aux, self._device)
-            self.cross_device_copies = self._run(False).copies
+                outs, _ = run(raw_args, raw_aux, self._device, hook=hook)
+            self.cross_device_copies = run.copies
             self.outputs = [self._wrap(o) for o in outs]
             return self.outputs
         raw_args, raw_aux, leaves = self._train_inputs(kwargs)
+        run = self._run(True)
         with torch.enable_grad():
-            outs, aux_updates = self._run(True)(raw_args, raw_aux,
-                                                self._device)
-        self.cross_device_copies = self._run(True).copies
+            outs, aux_updates = run(raw_args, raw_aux, self._device,
+                                    hook=hook)
+        self.cross_device_copies = run.copies
         return self._trained(outs, aux_updates, leaves)
 
     def _backward_terms(self, out_grads):
@@ -351,8 +413,77 @@ class Executor:
                     dst.copy_(g)
 
     @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
     def grad_arrays(self):
         return [self.grad_dict.get(n) for n in self.arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self.aux_names]
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy ``arg_params`` (and ``aux_params``: NDArrays, tensors or
+        numpy arrays) into the bound arrays of those names, in place on
+        their devices. A name this executor does not bind raises unless
+        ``allow_extra_params``."""
+        for given, bound, what in ((arg_params, self.arg_dict, "arguments"),
+                                   (aux_params or {}, self.aux_dict,
+                                    "aux states")):
+            for name, val in given.items():
+                if name not in bound:
+                    if not allow_extra_params:
+                        raise MXNetError('Found name "%s" not in %s'
+                                         % (name, what))
+                    continue
+                dst = bound[name]._data
+                src = getattr(val, "_data", val)
+                if not isinstance(src, torch.Tensor):
+                    src = torch.as_tensor(src)
+                with torch.no_grad():
+                    dst.copy_(src.reshape(dst.shape))
+
+    def set_monitor_callback(self, callback):
+        """Install ``callback(name, NDArray)``, called with every op's
+        visible outputs on each forward while it is active: one with an
+        ``is_active`` attribute that returns False (a ``Monitor`` between
+        its sampled batches) leaves that forward on the fused plan."""
+        self._monitor_callback = callback
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new Executor at the input shapes ``kwargs``: each named input
+        a new zero array (and a new gradient array where it has one),
+        every other argument, gradient and aux array this one's, the same
+        tensors. ``partial_shaping`` and ``allow_up_sizing`` are accepted
+        as mxtpu accepts them."""
+        del partial_shaping, allow_up_sizing
+        args, grads = dict(self.arg_dict), dict(self.grad_dict)
+        for name, shape in kwargs.items():
+            if name not in args:
+                continue
+            old = args[name]
+            args[name] = NDArray(torch.zeros(tuple(shape), dtype=old.dtype,
+                                             device=old._data.device),
+                                 old.context)
+            if name in grads:
+                grads[name] = NDArray(torch.zeros_like(args[name]._data),
+                                      old.context)
+        return Executor(self._symbol, self._ctx, args, args_grad=grads,
+                        grad_req=self.grad_req, aux_states=self.aux_dict,
+                        group2ctx=self._group2ctx)
+
+    @staticmethod
+    def simple_bind(symbol, ctx=None, grad_req="write", type_dict=None,
+                    shared_exec=None, shared_data_arrays=None, **kwargs):
+        """``executor.simple_bind`` as mxtpu's static method."""
+        del shared_data_arrays
+        return simple_bind(symbol, ctx, grad_req=grad_req,
+                           type_dict=type_dict, shared_exec=shared_exec,
+                           **kwargs)
 
     @property
     def fused_sites(self):

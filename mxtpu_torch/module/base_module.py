@@ -17,8 +17,14 @@ a device mesh with cross-replica weight-update sharding: it goes through
 fit, where ``Module._arm_fused`` finds it; ``None`` defers to
 ``MXTPU_MESH`` and ``False`` turns the mesh off even with it set. The
 knobs of mxtpu's fit that the port does not have yet (``elastic``,
-``resume``, ``tuned``, ``health``, ``monitor``) raise MXNetError when
-set, rather than being ignored.
+``resume``, ``tuned``, ``health``) raise MXNetError when set, rather
+than being ignored. ``monitor`` is installed after ``bind`` and armed
+with ``tic``/``toc_print`` around each batch (mxtpu :317, :485, :563),
+its per-op path taking the host metric. ``iter_predict`` and ``predict``
+(mxtpu :91-129) run the inference forward batch by batch, each batch's
+outputs trimmed of its pad; a module with no device views of its step
+(``_step_views`` None: a ``SequentialModule``) takes the host metric in
+``fit``.
 """
 from __future__ import annotations
 
@@ -38,18 +44,9 @@ from .. import ndarray as nd
 from .. import sharding as _sharding
 from ..base import MXNetError
 from ..initializer import Uniform
+from ..model import BatchEndParam
 
 __all__ = ["BaseModule", "BatchEndParam"]
-
-
-class BatchEndParam:
-    """What a batch-end callback receives."""
-
-    def __init__(self, epoch, nbatch, eval_metric, locals=None):
-        self.epoch = epoch
-        self.nbatch = nbatch
-        self.eval_metric = eval_metric
-        self.locals = locals
 
 
 def _as_list(obj):
@@ -58,7 +55,7 @@ def _as_list(obj):
     return list(obj) if isinstance(obj, (list, tuple)) else [obj]
 
 
-_UNPORTED_FIT = ("elastic", "resume", "tuned", "health", "monitor")
+_UNPORTED_FIT = ("elastic", "resume", "tuned", "health")
 
 
 def refuse_unported(**knobs):
@@ -132,6 +129,67 @@ class BaseModule:
     def load_params(self, fname):
         self.set_params(*_model.split_params(nd.load(fname), fname))
 
+    @property
+    def output_shapes(self):
+        raise NotImplementedError
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
+
+    def prepare(self, data_batch):
+        """Get ready for ``data_batch`` before its forward (a bucket's
+        module bound); nothing to do for a plain module."""
+
+    def _step_views(self):
+        """[(labels, outputs)] of the last step on the device, or None
+        when this module has none (fit then takes the host metric)."""
+        return None
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield (outputs, batch index, batch) of each batch's inference
+        forward, the outputs without the batch's pad rows."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The inference outputs of ``eval_data``, each batch's pad
+        trimmed: per output, the batches concatenated (one NDArray for a
+        single output unless ``always_output_list``), or with
+        ``merge_batches=False`` a list of each batch's outputs."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            output_list.append([out[0:out.shape[0] - pad].copy()
+                                for out in self.get_outputs()])
+        if not output_list:
+            return output_list
+        if not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        if any(len(out) != num_outputs for out in output_list):
+            raise ValueError("Cannot merge batches: different outputs")
+        merged = [nd.concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, reset=True, epoch=0):
         """Evaluate over ``eval_data``; returns the metric's name/value
@@ -175,14 +233,14 @@ class BaseModule:
         ``"data:4"``, a ``Mesh`` or ``MeshContext``; ``None`` reads
         ``MXTPU_MESH``, ``False`` disables), active for the whole fit."""
         refuse_unported(elastic=elastic, resume=resume, tuned=tuned,
-                        health=health, monitor=monitor)
+                        health=health)
         with _sharding.use(_sharding.resolve(mesh)):
             self._fit(train_data, eval_data, eval_metric,
                       epoch_end_callback, batch_end_callback, kvstore,
                       optimizer, optimizer_params, eval_end_callback,
                       eval_batch_end_callback, initializer, arg_params,
                       aux_params, allow_missing, force_rebind, force_init,
-                      begin_epoch, num_epoch, validation_metric,
+                      begin_epoch, num_epoch, validation_metric, monitor,
                       max_in_flight, metric_sync, device_metrics,
                       device_prefetch)
 
@@ -190,7 +248,7 @@ class BaseModule:
              batch_end_callback, kvstore, optimizer, optimizer_params,
              eval_end_callback, eval_batch_end_callback, initializer,
              arg_params, aux_params, allow_missing, force_rebind,
-             force_init, begin_epoch, num_epoch, validation_metric,
+             force_init, begin_epoch, num_epoch, validation_metric, monitor,
              max_in_flight, metric_sync, device_metrics, device_prefetch):
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
@@ -198,6 +256,9 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
+            device_metrics = False  # toc reads the batch's host stats
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -213,7 +274,8 @@ class BaseModule:
         if metric_sync is None:
             metric_sync = _metric_sync(callbacks)
         metric_sync = max(0, int(metric_sync))
-        pacer = _Pacer(max_in_flight, self._device)
+        pacer = _Pacer(max_in_flight, getattr(self, "_device",
+                                              torch.device("cpu")))
         owned = None
         if device_prefetch and not isinstance(train_data,
                                               _io.DevicePrefetchIter):
@@ -229,23 +291,29 @@ class BaseModule:
                 nbatch = 0
                 data_batch = next(data_iter, None)
                 while data_batch is not None:
+                    if monitor is not None:
+                        monitor.tic()
                     self.forward_backward(data_batch)
                     self.update()
                     next_batch = next(data_iter, None)
-                    if accum is not None:
-                        for labels, outs in self._step_views():
+                    views = self._step_views() if accum is not None \
+                        else None
+                    if views is not None:
+                        for labels, outs in views:
                             accum.update(labels, outs)
                         pacer.step_done()
                     else:
                         self.update_metric(eval_metric, data_batch.label)
                     last = next_batch is None
-                    if accum is not None and (
+                    if views is not None and (
                             last or metric_sync == 1 or
                             (metric_sync and nbatch and
                              nbatch % metric_sync == 0)):
                         accum.sync()
                         if last:
                             pacer.clear()
+                    if monitor is not None:
+                        monitor.toc_print()
                     for callback in callbacks:
                         callback(BatchEndParam(epoch, nbatch, eval_metric,
                                                locals()))

@@ -9,8 +9,10 @@ executors run over the same parameter, gradient and aux tensors, and
 same optimizer state (the fused step's, when armed: ``FusedTrainStep``
 ``state=``). ``switch_bucket`` (:131), ``prepare``, ``forward_backward``
 through the bucket's own fused step, ``update``, ``init_optimizer``
-(:151) and the checkpoint methods are mxtpu's. ``context`` is taken as
-mxtpu takes it (default: the current context, gpu(0)).
+(:151), ``output_shapes`` (:65), ``install_monitor`` (:224, which also
+reaches buckets bound later) and the checkpoint methods are mxtpu's;
+``predict``/``iter_predict`` come from ``BaseModule``. ``context`` is
+taken as mxtpu takes it (default: the current context, gpu(0)).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ class BucketingModule(BaseModule):
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -72,9 +75,23 @@ class BucketingModule(BaseModule):
         return self._curr_module.label_shapes
 
     @property
+    def output_shapes(self):
+        assert self.binded
+        return self._curr_module.output_shapes
+
+    @property
     def symbol(self):
         assert self.binded
         return self._curr_module.symbol
+
+    def install_monitor(self, mon):
+        """Monitor every bucket's module, those bound later too (the
+        reference's BucketingModule keeps the monitor for new
+        buckets)."""
+        assert self.binded
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
 
     @property
     def buckets(self):
@@ -156,6 +173,8 @@ class BucketingModule(BaseModule):
                         force_rebind=False, shared_module=default)
             if self.optimizer_initialized:
                 module.borrow_optimizer(default)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
         self._curr_module = self._buckets[bucket_key]
         self._curr_bucket_key = bucket_key

@@ -6,8 +6,9 @@ Counterpart of ``mxtpu/module/executor_group.py``: ``_split_input_slice``
 slice's shapes (:101-131), ``set_params``, ``get_params`` averaged over
 the contexts on the host (:143-165), ``forward`` feeding each context its
 rows, ``backward``, ``get_outputs`` merged on the first context,
-``get_input_grads`` and ``update_metric`` per slice, and the state
-inputs' ``get_states``/``set_states``. A Module over one context is a
+``get_input_grads`` and ``update_metric`` per slice, the state
+inputs' ``get_states``/``set_states``, and ``install_monitor`` (:220),
+which also reaches the executors of a later rebind. A Module over one context is a
 group of one; ``shared_group`` binds over another group's arrays (the
 buckets of a BucketingModule share one set of parameters).
 
@@ -73,6 +74,7 @@ class DataParallelExecutorGroup:
         self._coupled = False
         self.execs, self.flat_grads = [], []
         self.state_names = list(state_names)
+        self._monitor = None
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
     # ------------------------------------------------ bind
@@ -101,7 +103,8 @@ class DataParallelExecutorGroup:
         symbol's group over the same contexts: a bucket's) that group's
         arrays of the same names and shapes and its flat gradient
         buffers are taken, the same tensors."""
-        old, old_flats = self.execs, self.flat_grads
+        prev = old = self.execs
+        old_flats = self.flat_grads
         if shared_group is not None:
             if shared_group.contexts != self.contexts:
                 raise MXNetError("shared_module is bound on %s, this "
@@ -129,6 +132,11 @@ class DataParallelExecutorGroup:
                             for n in self.param_names]
         self.aux_arrays = [[e.aux_dict[n] for e in self.execs]
                            for n in self.aux_names]
+        if self._monitor is not None:  # the rebound executors instead
+            mon = self._monitor
+            mon.exes = [e for e in mon.exes if all(e is not p for p in prev)]
+            for exe in self.execs:
+                mon.install(exe)
 
     def _bind_one(self, ctx, shapes, old):
         """(executor, {dtype: flat gradient buffer}) of one context, its
@@ -319,6 +327,12 @@ class DataParallelExecutorGroup:
                     [src[s] for s in self.slices]
                 for d, v in zip(dsts, parts):
                     d[:] = v
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on every executor, now and after a rebind."""
+        self._monitor = mon
+        for exe in self.execs:
+            mon.install(exe)
 
     def update_metric(self, eval_metric, labels):
         for exe, s in zip(self.execs, self.slices):

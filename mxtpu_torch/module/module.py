@@ -35,6 +35,10 @@ sharding (``fused.py``). A mesh the batch does not divide is declined
 with mxtpu's warning.
 ``forward`` called directly runs each context on its slice, as mxtpu's
 does; ``get_outputs`` merges them on the first context.
+``install_monitor`` (mxtpu :674) takes mxtpu's per-op branch (:691-694):
+it disarms the fused step for good, and the monitor's sampled batches
+walk every op on each executor; ``output_shapes`` (:175) are inferred
+from the bound shapes.
 
 ``state_names`` are inputs that are neither data nor parameters (an
 RNN's carried state): bound without a gradient, kept across batches,
@@ -131,6 +135,7 @@ class Module(BaseModule):
         self._kvstore = None
         self._update_on_kvstore = False
         self._fused = None
+        self._monitor_installed = False
         # set by load(): params written at bind, states at init_optimizer
         self._arg_params = self._aux_params = None
         self._preload_opt_states = None
@@ -210,6 +215,22 @@ class Module(BaseModule):
     def label_shapes(self):
         return self._label_shapes
 
+    @property
+    def output_shapes(self):
+        """[(output name, shape)] at the bound (whole-batch) shapes."""
+        assert self.binded
+        shapes = self._symbol.infer_shape(
+            **dict(self._data_shapes + (self._label_shapes or [])))[1]
+        return list(zip(self._output_names, shapes))
+
+    def install_monitor(self, mon):
+        """Monitor every executor's ops (mxtpu's per-op path): the fused
+        step is disarmed, now and at any later ``init_optimizer``."""
+        assert self.binded
+        self._monitor_installed = True
+        self._fused = None
+        self._exec_group.install_monitor(mon)
+
     # ------------------------------------------------ bind
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -263,8 +284,11 @@ class Module(BaseModule):
         """Give every parameter its value: from ``arg_params`` /
         ``aux_params`` where named there, else from ``initializer``
         (default ``Uniform(0.01)``; an error when ``arg_params`` is given
-        without ``allow_missing``). The first context's arrays are
-        written in place, once, and copied to the other contexts."""
+        without ``allow_missing``). Names the module does not take are
+        ignored, as mxtpu ignores them (``allow_extra`` is accepted for
+        its signature): a SequentialModule hands every module the whole
+        dict. The first context's arrays are written in place, once, and
+        copied to the other contexts."""
         if self.params_initialized and not force_init:
             return
         assert self.binded, "call bind before initializing the parameters"
@@ -289,13 +313,6 @@ class Module(BaseModule):
                 raise MXNetError("%s is not presented" % name)
             initializer(InitDesc(name, attrs.get(name)), arr)
             done[name] = arr
-        if not allow_extra:
-            for given in (arg_params, aux_params):
-                extra = set(given or {}) - set(self._param_names) \
-                    - set(self._aux_names)
-                if extra:
-                    raise MXNetError("init_params: unknown parameters %s"
-                                     % sorted(extra))
         group.set_params({n: done[n] for n in self._param_names},
                          {n: done[n] for n in self._aux_names})
         self.params_initialized = True
@@ -364,7 +381,8 @@ class Module(BaseModule):
 
     def _arm_fused(self):
         """Arm the fused step on mxtpu's conditions (module.py:401-441):
-        training with grad_req "write", no input gradients, an optimizer
+        training with grad_req "write", no input gradients, no monitor
+        installed, an optimizer
         with a rule, no ``dist`` kvstore and an even ``work_load_list``.
         Under an active mesh the step takes a ``ShardingPlan`` and runs
         over the mesh's devices, even for a Module bound to one context
@@ -376,7 +394,7 @@ class Module(BaseModule):
         group = self._exec_group
         n = len(group.contexts)
         if (not self.for_training or self.inputs_need_grad
-                or self._state_names
+                or self._monitor_installed or self._state_names
                 or self._grad_req != "write"
                 or not supports(self._optimizer)
                 or (self._kvstore is not None

@@ -13,11 +13,15 @@ to the plain version, a CUDA tensor goes to the kernel or the call
 raises, and a meta tensor (shape inference) yields an empty result of
 the output's shape. ``flash_attention.launches`` counts kernel launches.
 
-The kernels are built for head dims 32, 64 and 128. The wrappers take
-any D <= 128, as mxtpu's kernel takes any D: q, k and v (and, for the
-backward, the output and its gradient) are zero-padded on the last axis
-to the next of those widths, the kernel runs, and the output and the
-gradients are sliced back to D. The scale comes from the true D. D > 128
+The tensor-core kernels are built for head dims 32, 64 and 128. The
+wrappers take any D <= 512, as mxtpu's kernel takes any D: for D <= 128,
+q, k and v (and, for the backward, the output and its gradient) are
+zero-padded on the last axis to the next of those widths, the kernel
+runs, and the output and the gradients are sliced back to D; the scale
+comes from the true D. For 128 < D <= 512 the width-generic pair
+``csrc/flash_attn_wide.cu`` (CUDA cores, D a runtime argument) runs on
+the unpadded tensors; its launches count in ``flash_attention.
+wide_launches`` and ``flash_attention_backward.wide_launches``. D > 512
 raises MXNetError.
 
 ``block_q``/``block_k`` were the TPU kernel's tiling. They are accepted
@@ -55,10 +59,18 @@ __all__ = ["flash_attention", "flash_attention_reference",
 NEG_INF = -1e30
 KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
+WIDE_KERNEL = "flash_attn_wide_fwd"
+WIDE_BWD_KERNEL = "flash_attn_wide_bwd"
 _ERROR_STRING = {KERNEL: "flash_attn_error_string",
-                 BWD_KERNEL: "flash_attn_bwd_error_string"}
+                 BWD_KERNEL: "flash_attn_bwd_error_string",
+                 WIDE_KERNEL: "flash_attn_wide_error_string",
+                 WIDE_BWD_KERNEL: "flash_attn_wide_error_string"}
+#: the source (``csrc/<stem>.cu``) that holds each launcher
+_SOURCE = {KERNEL: KERNEL, BWD_KERNEL: BWD_KERNEL,
+           WIDE_KERNEL: "flash_attn_wide", WIDE_BWD_KERNEL: "flash_attn_wide"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+WIDE_MAX_D = 512  # the wide pair's limit: its forward tiles fill 227 KB
 
 
 def _scale(d, sm_scale):
@@ -156,7 +168,8 @@ def flash_attention_backward_reference(q, k, v, out, dout, lse,
 def check_kernel_inputs(q, k, v):
     """Raise MXNetError unless q, k, v are what the CUDA kernel takes:
     CUDA tensors on one device, float32 or bfloat16 alike, contiguous,
-    q (B, H, T, D) and k, v (B, H, S, D) with D in (32, 64, 128)."""
+    q (B, H, T, D) and k, v (B, H, S, D) with D in (32, 64, 128) (the
+    tensor-core kernels) or in (128, 512] (the wide pair)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in _DTYPE_CODES:
             raise MXNetError("flash_attention kernel: %s has dtype %s; it "
@@ -171,9 +184,10 @@ def check_kernel_inputs(q, k, v):
         raise MXNetError("flash_attention kernel: q, k, v dtypes differ "
                          "(%s, %s, %s)" % (q.dtype, k.dtype, v.dtype))
     b, h, _, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise MXNetError("flash_attention kernel: head dim %d not in %s"
-                         % (d, _HEAD_DIMS))
+    if d not in _HEAD_DIMS and not _HEAD_DIMS[-1] < d <= WIDE_MAX_D:
+        raise MXNetError("flash_attention kernel: head dim %d not in %s nor "
+                         "in (%d, %d]" % (d, _HEAD_DIMS, _HEAD_DIMS[-1],
+                                          WIDE_MAX_D))
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
         raise MXNetError("flash_attention kernel: k %s / v %s do not match "
                          "q %s" % (tuple(k.shape), tuple(v.shape),
@@ -194,7 +208,7 @@ def bind(lib, name):
     launchers' interface (``chip_smoke.py --parent`` binds another tree's
     build with it too)."""
     fn = getattr(lib, name)
-    n_ptr = 5 if name == KERNEL else 10
+    n_ptr = 5 if name in (KERNEL, WIDE_KERNEL) else 10
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -205,12 +219,12 @@ def bind(lib, name):
 
 
 def _kernel(name=KERNEL):
-    """(launcher, error_string) of kernel library ``name``, built and
-    bound on first use."""
+    """(launcher, error_string) of launcher ``name``, its library built
+    and bound on first use."""
     with _kernel_lock:
         if name not in _kernel_fns:
             from .. import build
-            _kernel_fns[name] = bind(build.load(name), name)
+            _kernel_fns[name] = bind(build.load(_SOURCE[name]), name)
         return _kernel_fns[name]
 
 
@@ -238,18 +252,32 @@ def _launch(kernel, q, k, v, causal, scale, want_lse=False):
     return (out, lse) if want_lse else out
 
 
+def _wide(q):
+    """Whether q's head dim takes the wide pair (D > 128)."""
+    return q.shape[-1] > _HEAD_DIMS[-1]
+
+
 def _flash_cuda(q, k, v, causal, scale, want_lse=False):
+    """The forward kernel for q's head dim (the tensor-core kernel at D in
+    _HEAD_DIMS, the wide one above 128) after the checks; one count of
+    ``flash_attention.launches`` or ``.wide_launches``."""
     check_kernel_inputs(q, k, v)
-    res = _launch(_kernel(), q, k, v, causal, scale, want_lse=want_lse)
+    wide = _wide(q)
+    res = _launch(_kernel(WIDE_KERNEL if wide else KERNEL), q, k, v, causal,
+                  scale, want_lse=want_lse)
     with _kernel_lock:
-        flash_attention.launches += 1
+        if wide:
+            flash_attention.wide_launches += 1
+        else:
+            flash_attention.launches += 1
     return res
 
 
 def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
-    """(dq, dk, dv) from the backward kernel (delta, dK/dV and dQ
-    launches on the current stream, products on the tensor cores), after
-    the checks; one count of ``flash_attention_backward.launches``."""
+    """(dq, dk, dv) from the backward kernel for q's head dim (delta,
+    dK/dV and dQ launches on the current stream: on the tensor cores at D
+    in _HEAD_DIMS, the wide kernels above 128), after the checks; one
+    count of ``flash_attention_backward.launches`` or ``.wide_launches``."""
     check_kernel_inputs(q, k, v)
     for name, x, like in (("out", out, q), ("dout", dout, q)):
         if x.shape != like.shape or x.dtype != like.dtype or \
@@ -263,10 +291,14 @@ def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
         raise MXNetError("flash_attention_backward kernel: lse must be a "
                          "contiguous float32 %s on %s"
                          % (tuple(q.shape[:3]), q.device))
-    res = _launch_bwd(_kernel(BWD_KERNEL), q, k, v, out, dout, lse, causal,
-                      scale)
+    wide = _wide(q)
+    res = _launch_bwd(_kernel(WIDE_BWD_KERNEL if wide else BWD_KERNEL), q, k,
+                      v, out, dout, lse, causal, scale)
     with _kernel_lock:
-        flash_attention_backward.launches += 1
+        if wide:
+            flash_attention_backward.wide_launches += 1
+        else:
+            flash_attention_backward.launches += 1
     return res
 
 
@@ -292,8 +324,10 @@ def _launch_bwd(kernel, q, k, v, out, dout, lse, causal, scale):
 
 
 def _kernel_width(q, k, v):
-    """The kernels' head dim for q, k, v of head dim D: the least of
-    _HEAD_DIMS that is >= D. D > 128 raises MXNetError."""
+    """The kernels' head dim for q, k, v of head dim D, by D alone: the
+    least of _HEAD_DIMS that is >= D (the tensor-core kernels, padded up
+    to it), D itself for 128 < D <= 512 (the wide pair, unpadded). D >
+    512 raises MXNetError."""
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise MXNetError("flash_attention kernel: head dims differ (q %d, k "
@@ -301,8 +335,10 @@ def _kernel_width(q, k, v):
     for width in _HEAD_DIMS:
         if d <= width:
             return width
+    if d <= WIDE_MAX_D:
+        return d
     raise MXNetError("flash_attention kernel: head dim %d > %d; the kernels "
-                     "take D <= %d" % (d, _HEAD_DIMS[-1], _HEAD_DIMS[-1]))
+                     "take D <= %d" % (d, WIDE_MAX_D, WIDE_MAX_D))
 
 
 def _pad_head(x, width):
@@ -359,6 +395,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal=False,
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.wide_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -397,6 +434,7 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=512,
 
 
 flash_attention.launches = 0
+flash_attention.wide_launches = 0
 
 
 def _flash_op(a, q, k, v):

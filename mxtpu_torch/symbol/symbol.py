@@ -6,7 +6,13 @@ output access (:161-176) and ``attr`` (:196), ``bind`` and
 ``Variable`` (:622, with the scoped attrs of ``attribute.AttrScope``),
 ``Group`` (:648) and ``load_json`` (:705). The JSON schema is the same, so a graph serialized
 by either package loads in the other. Shape inference runs each op on
-meta tensors (``OpDef.infer``) instead of ``jax.eval_shape``.
+meta tensors (``OpDef.infer``) instead of ``jax.eval_shape``. The
+inspection surface: ``get_internals`` (:178, aux-update outputs hidden),
+``get_children``, ``list_inputs``, ``list_attr``, ``infer_shape_partial``
+(:327), ``infer_type`` (:356, numpy dtypes, propagated forward as
+mxtpu's types-only walk does), ``eval`` (:388), ``grad`` (:392, raises)
+and ``debug_str`` (:450). ``lint`` runs mxtpu's analysis passes, which
+are not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import ast
 import json
 import threading
 
+import numpy as _np
 import torch
 
 from ..attribute import AttrScope
@@ -103,6 +110,11 @@ class Symbol:
         return [n.name for n in self._topo()
                 if n.is_variable and id(n) in aux]
 
+    def list_inputs(self):
+        """Every variable (arguments and auxiliary states), in topological
+        order."""
+        return [n.name for n in self._topo() if n.is_variable]
+
     def list_outputs(self):
         out = []
         for node, idx in self._outputs:
@@ -140,6 +152,24 @@ class Symbol:
         for i in range(len(self._outputs)):
             yield self[i]
 
+    def get_internals(self):
+        """Every node's visible outputs (variables too) as one Symbol, in
+        topological order; an op's updated aux values stay hidden."""
+        entries = []
+        for node in self._topo():
+            n_vis = 1 if node.is_variable else \
+                node.op.n_out(node.parsed_attrs())
+            entries.extend((node, i) for i in range(n_vis))
+        return Symbol(entries)
+
+    def get_children(self):
+        """The head node's inputs as one Symbol, or None for a
+        variable."""
+        node = self._outputs[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
     def attr(self, key):
         """The head node's attribute ``key`` (a scoped or dunder attr
         first), or None."""
@@ -148,6 +178,19 @@ class Symbol:
         if v is None:
             v = node.attrs.get(key)
         return v
+
+    def list_attr(self, recursive=False):
+        """The head node's attributes as strings (its op attrs, then its
+        scoped and dunder attrs); ``recursive=True`` raises, as the
+        reference deprecated it for ``attr_dict``."""
+        if recursive:
+            raise MXNetError(
+                "list_attr(recursive=True) is deprecated; use attr_dict()")
+        node = self._outputs[0][0]
+        out = {k: attr_repr(v) for k, v in node.attrs.items()
+               if not k.startswith("__")}
+        out.update(node._extra_attrs)
+        return out
 
 
     # ------------------------------------------------ arithmetic sugar
@@ -233,6 +276,14 @@ class Symbol:
     # ------------------------------------------------ inference
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from known input shapes."""
+        return self._infer_shape(False, args, kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As ``infer_shape``, with None for every shape the known ones do
+        not determine (a node missing an input shape is skipped)."""
+        return self._infer_shape(True, args, kwargs)
+
+    def _infer_shape(self, partial, args, kwargs):
         arg_names = self.list_arguments()
         known = {}
         for n, s in zip(arg_names, args):
@@ -240,15 +291,34 @@ class Symbol:
                 known[n] = tuple(s)
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
-        shapes, _ = _infer_graph(self, known)
+        shapes, _ = _infer_graph(self, known, partial=partial)
         arg_shapes = [shapes.get(n) for n in arg_names]
-        for n, s in zip(arg_names, arg_shapes):
-            if s is None:
-                raise MXNetError("infer_shape: cannot infer the shape of "
-                                 "argument '%s'; pass it" % n)
+        if not partial:
+            for n, s in zip(arg_names, arg_shapes):
+                if s is None:
+                    raise MXNetError("infer_shape: cannot infer the shape "
+                                     "of argument '%s'; pass it" % n)
         out_shapes = [shapes.get(_entry_key(e)) for e in self._outputs]
         aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
         return arg_shapes, out_shapes, aux_shapes
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes from known
+        input types (positional in ``list_arguments`` order, or by name):
+        a variable takes its hint or its ``__dtype__``; an op takes its
+        ``dtype`` attr, else its first known input's type, and gives it
+        to its still-untyped variable inputs and to its outputs (mxtpu's
+        types-only walk); what nothing determines is None."""
+        arg_names = self.list_arguments()
+        known = {}
+        for n, t in zip(arg_names, args):
+            if t is not None:
+                known[n] = _np.dtype(t)
+        known.update({k: _np.dtype(v) for k, v in kwargs.items()})
+        dtypes = _infer_types(self, known)
+        return ([dtypes.get(n) for n in arg_names],
+                [dtypes[_entry_key(e)] for e in self._outputs],
+                [dtypes.get(n) for n in self.list_auxiliary_states()])
 
     def attr_dict(self):
         """``{variable name: {attr: string}}`` of the variables that carry
@@ -281,6 +351,24 @@ class Symbol:
         return simple_bind(self, ctx, grad_req=grad_req, type_dict=type_dict,
                            group2ctx=group2ctx, shared_exec=shared_exec,
                            **kwargs)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` (every argument, as NDArrays) on ``ctx`` and
+        run the inference forward; returns its outputs."""
+        return self.bind(ctx, kwargs).forward()
+
+    def grad(self, wrt):
+        raise MXNetError("Symbol.grad: use bind + backward")
+
+    def debug_str(self):
+        """One line a node, in topological order: its op (or Variable),
+        its name and its inputs' names."""
+        lines = []
+        for node in self._topo():
+            kind = "Variable" if node.is_variable else node.op.name
+            ins = ", ".join(n.name for n, _ in node.inputs)
+            lines.append("%s %s(%s)" % (kind, node.name, ins))
+        return "\n".join(lines)
 
     # ------------------------------------------------ serialization
     def tojson(self):
@@ -335,9 +423,40 @@ def _shape_attr(shp):
     return tuple(int(x) for x in shp)
 
 
-def _infer_graph(sym, shape_hints):
+def _infer_types(sym, type_hints):
+    """{variable name or entry key: numpy dtype or None}: the types-only
+    walk of mxtpu's ``_infer_graph`` (mxtpu/symbol/symbol.py:535-557)."""
+    dtypes = {}
+    for node in sym._topo():
+        if node.is_variable:
+            dt = type_hints.get(node.name)
+            vdt = node._extra_attrs.get("__dtype__")
+            if dt is None and vdt is not None:
+                dt = _np.dtype(str(vdt))
+            dtypes[node.name] = dtypes[(id(node), 0)] = dt
+            continue
+        dt = None
+        if node.attrs.get("dtype") is not None:
+            dt = _np.dtype(str(node.attrs["dtype"]))
+        else:
+            dt = next((dtypes[(id(n), i)] for n, i in node.inputs
+                       if dtypes.get((id(n), i)) is not None), None)
+        if dt is not None:
+            for inode, idx in node.inputs:
+                if dtypes.get((id(inode), idx)) is None and \
+                        inode.is_variable:
+                    dtypes[(id(inode), idx)] = dtypes[inode.name] = dt
+        n_all = node.op.n_out(node.parsed_attrs()) + len(node.op.aux_names)
+        for i in range(n_all):
+            dtypes[(id(node), i)] = dt
+    return dtypes
+
+
+def _infer_graph(sym, shape_hints, partial=False):
     """Forward shape/dtype propagation with ``OpDef.infer`` (meta tensors);
-    a consumer's ``infer_args`` fills unknown parameter shapes."""
+    a consumer's ``infer_args`` fills unknown parameter shapes. With
+    ``partial`` a node missing an input shape is skipped, not an
+    error."""
     shapes = {}
     dtypes = {}
     for node in sym._topo():
@@ -355,13 +474,18 @@ def _infer_graph(sym, shape_hints):
         attrs = node.parsed_attrs()
         in_shapes = [shapes.get((id(n), i)) for n, i in node.inputs]
         if any(s is None for s in in_shapes) and node.op.infer_args:
-            full = node.op.infer_args(attrs, in_shapes)
+            try:  # a rule that needs the missing shape fills nothing
+                full = node.op.infer_args(attrs, in_shapes)
+            except (TypeError, IndexError, ValueError):
+                full = in_shapes
             for (inode, _), old, new in zip(node.inputs, in_shapes, full):
                 if old is None and new is not None and inode.is_variable:
                     shapes[inode.name] = tuple(new)
                     shapes[(id(inode), 0)] = tuple(new)
         missing = [n.name for n, i in node.inputs
                    if shapes.get((id(n), i)) is None]
+        if missing and partial:
+            continue
         if missing:
             raise MXNetError("infer_shape: node '%s' (%s) needs the shapes "
                              "of %s" % (node.name, node.op.name, missing))

@@ -6,7 +6,9 @@ atol 1e-4, bfloat16 within 2e-2 (p is rounded to bf16 at different
 points of the two online softmaxes). Also the wrapper's dispatch: a CPU
 tensor takes the plain version and launches nothing, the head-dim pad of
 the card's wrappers (D <= 128 to the next built width) leaves the plain
-forward and backward unchanged in float64, the kernel's input checks
+forward and backward unchanged in float64, D in (128, 512] goes unpadded
+to the wide pair (D = 160 and 256 held against mxtpu too) and D > 512
+raises, the kernel's input checks
 raise, and the module has no try/fallback. Then chip_smoke's flash bounds (f32 on
 the tensor cores as 3xTF32) and its reading of ptxas, and CPU emulations
 of the forward's and the backward's f32 arithmetic that show why both
@@ -76,6 +78,22 @@ def test_plain_version_matches_mxtpu_flash(tt, dtype, causal, b, h, t, s,
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,s,d", [(64, 96, 160), (96, 64, 256)])
+def test_plain_version_matches_mxtpu_flash_at_wide_head_dims(tt, dtype,
+                                                            causal, t, s, d):
+    """D > 128, which the card runs on the wide pair unpadded: the plain
+    version against mxtpu's Pallas kernel (interpret mode), whose
+    BlockSpecs carry D whole; T != S, a kv tail that is not a tile
+    multiple; the tolerances of the D <= 128 cases."""
+    q, k, v = _qkv(1, 2, t, s, d, seed=t + s + d)
+    kw = dict(causal=causal, block_q=32, block_k=64)
+    want = _jax_flash(q, k, v, dtype, **kw)
+    got = _port_flash(tt, q, k, v, dtype, **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_version_matches_mxtpu_reference_oracle(tt, causal):
     """Against mxtpu's materialized-softmax oracle ``_reference`` at a
@@ -139,10 +157,27 @@ def test_kernel_width_is_the_next_built_head_dim(tt, d, width):
     assert att._kernel_width(q, q, q) == width
 
 
+@pytest.mark.parametrize("d", [129, 160, 192, 256, 384, 512])
+def test_kernel_width_sends_past_128_to_the_wide_pair_unpadded(tt, d):
+    """D > 128 no longer raises: the width is D itself (no pad), the
+    kernel checks take it, and the wrappers pick the wide launchers."""
+    torch, _, att = tt
+    q = torch.zeros(1, 1, 2, d)
+    assert att._kernel_width(q, q, q) == d
+    assert att._pad_head(q, d) is q and att._unpad_head(q, d) is q
+    assert att._wide(q) and not att._wide(q[..., :128])
+    assert att._SOURCE[att.WIDE_KERNEL] == att._SOURCE[att.WIDE_BWD_KERNEL] \
+        == "flash_attn_wide"
+    with pytest.raises(att.MXNetError, match="CUDA"):  # the last check
+        att.check_kernel_inputs(q, q, q)
+
+
 def test_kernel_width_refuses_past_128_and_unequal_head_dims(tt):
+    """Past the wide pair's limit (512) the width raises with the limit in
+    the message; unequal head dims raise too."""
     torch, mt, att = tt
-    q = torch.zeros(1, 1, 2, 160)
-    with pytest.raises(mt.MXNetError, match="head dim 160 > 128"):
+    q = torch.zeros(1, 1, 2, 513)
+    with pytest.raises(mt.MXNetError, match="head dim 513 > 512"):
         att._kernel_width(q, q, q)
     with pytest.raises(mt.MXNetError, match="head dims differ"):
         att._kernel_width(q[..., :48], q[..., :64], q[..., :48])
@@ -242,7 +277,9 @@ def test_attention_module_has_no_fallback(tt):
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
 
-@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd"])
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd",
+                                  "flash_attn_wide_fwd",
+                                  "flash_attn_wide_bwd"])
 def test_one_binding_matches_each_launchers_c_signature(tt, name,
                                                         monkeypatch):
     """``attention.bind``, the one binding of the launchers (used by the
@@ -255,7 +292,7 @@ def test_one_binding_matches_each_launchers_c_signature(tt, name,
     import re
     import types
     torch, mt, att = tt
-    src = (mt.build.CSRC_DIR / (name + ".cu")).read_text()
+    src = (mt.build.CSRC_DIR / (att._SOURCE[name] + ".cu")).read_text()
     sig = re.search(r'extern "C" int %s\((.*?)\)' % name, src, re.S)
     params = [p.split() for p in sig.group(1).split(",")]
     names = [p[-1].lstrip("*") for p in params]
@@ -283,7 +320,7 @@ def test_one_binding_matches_each_launchers_c_signature(tt, name,
     want = dict(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), bh=6,
                 t_len=5, s_len=7, d=32, scale=0.5, causal=1, dtype=0,
                 stream=1234)
-    if name == att.KERNEL:
+    if name in (att.KERNEL, att.WIDE_KERNEL):
         out, lse = att._launch(kernel, q, k, v, True, 0.5, want_lse=True)
         want.update(o=out.data_ptr(), lse=lse.data_ptr())
     else:

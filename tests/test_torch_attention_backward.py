@@ -11,7 +11,8 @@ bfloat16 within 3e-2 of the largest gradient: ``_streaming`` rounds the
 scores of q.k to bf16 inside its einsum and differentiates through bf16
 arithmetic, where the port's plain backward computes in f32 from bf16
 inputs and rounds only the results, so the two differ by a few bf16 ulps
-(2^-8 each) of the largest values. Also: gradcheck in float64, the row
+(2^-8 each) of the largest values. Head dims 160 and 256 (the card's
+wide pair, D > 128) are held the same way. Also: gradcheck in float64, the row
 log-sum-exp, NaN beyond the tensors' ends never read, S = 0, meta shape
 inference, and CPU dispatch launching no kernel."""
 import numpy as np
@@ -79,6 +80,11 @@ def _port_grads(tt, q, k, v, g, dtype, **kw):
     (1, 1, 64, 64, 128, True, "float32"),     # D = 128
     (1, 2, 96, 96, 64, True, "bfloat16"),
     (1, 2, 48, 160, 32, False, "bfloat16"),
+    (1, 2, 48, 80, 160, True, "float32"),     # D > 128: the wide pair's
+    (1, 2, 80, 48, 160, False, "float32"),    # plain version
+    (1, 1, 64, 96, 256, True, "float32"),
+    (1, 1, 96, 64, 256, False, "float32"),
+    (1, 1, 64, 96, 256, True, "bfloat16"),
 ])
 def test_plain_backward_matches_mxtpu_vjp(tt, b, h, t, s, d, causal, dtype):
     q, k, v, g = _inputs(b, h, t, s, d, seed=t + 3 * s + d)
@@ -104,6 +110,18 @@ def test_plain_backward_matches_the_public_mxtpu_op(tt):
     b, h, t, s, d = 1, 2, 80, 112, 32
     assert b * h * t * s <= 1 << 22
     q, k, v, g = _inputs(b, h, t, s, d, seed=11)
+    want = _jax_grads(q, k, v, g, "float32", True, public=True)
+    got = _port_grads(tt, q, k, v, g, "float32", causal=True)
+    _check(got, want, "float32")
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_plain_backward_at_wide_head_dims_matches_the_public_mxtpu_op(tt, d):
+    """D > 128 (the card's wide pair) through mxtpu's public op, whose
+    Pallas forward carries D whole (interpret mode here), causal, T != S,
+    float32 within 2e-5."""
+    b, h, t, s = 1, 2, 48, 72
+    q, k, v, g = _inputs(b, h, t, s, d, seed=d)
     want = _jax_grads(q, k, v, g, "float32", True, public=True)
     got = _port_grads(tt, q, k, v, g, "float32", causal=True)
     _check(got, want, "float32")
@@ -201,6 +219,6 @@ def test_backward_kernel_input_checks_raise(tt):
     q = torch.randn(1, 1, 4, 32)
     with pytest.raises(MXNetError):
         att._flash_bwd_cuda(q, q, q, q, q, torch.zeros(1, 1, 4), True, 1.0)
-    with pytest.raises(MXNetError, match="head dim"):
-        x = torch.randn(1, 1, 4, 160)
+    with pytest.raises(MXNetError, match="head dim"):  # past the wide 512
+        x = torch.randn(1, 1, 4, 513)
         att._flash_bwd_cuda(x, x, x, x, x, torch.zeros(1, 1, 4), True, 1.0)

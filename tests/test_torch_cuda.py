@@ -33,7 +33,8 @@ threshold, -inf tails, force_suppress, NaN boxes, K = 1, 37, 400,
 (all live and 50 live) and 24,564, its refusals, and the tiny SSD's
 training step on gpu(0) against cpu() with the kernel launched once a
 step. The flash forward and backward at head dims 16, 48, 80, 96 and
-112, which the wrappers pad to the kernel's next width.
+112, which the wrappers pad to the kernel's next width, and at 129, 160,
+192, 256 and 512, which take the wide pair unpadded (D = 513 refused).
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -163,7 +164,7 @@ def test_nan_past_the_kv_tail_never_leaks(cuda):
     assert torch.isfinite(out).all()
 
 
-@pytest.mark.parametrize("case", ["float16", "non_contiguous", "d160"])
+@pytest.mark.parametrize("case", ["float16", "non_contiguous", "d513"])
 def test_kernel_refuses_what_it_does_not_take(cuda, case):
     torch, att = cuda
     from mxtpu_torch import MXNetError
@@ -172,13 +173,15 @@ def test_kernel_refuses_what_it_does_not_take(cuda, case):
         q = q.half()
     elif case == "non_contiguous":
         q = torch.zeros(1, 8, 2, 64, device="cuda").transpose(1, 2)
-    else:
-        q = torch.zeros(1, 2, 8, 160, device="cuda")
+    else:  # past the wide pair's limit
+        q = torch.zeros(1, 2, 8, 513, device="cuda")
     k = torch.zeros_like(q).contiguous()
-    before = att.flash_attention.launches
-    with pytest.raises(MXNetError):
+    before = (att.flash_attention.launches,
+              att.flash_attention.wide_launches)
+    with pytest.raises(MXNetError, match="513" if case == "d513" else None):
         att.flash_attention(q, k, k)
-    assert att.flash_attention.launches == before
+    assert (att.flash_attention.launches,
+            att.flash_attention.wide_launches) == before
 
 
 PADDED_HEAD_DIMS = [16, 48, 80, 96, 112]
@@ -194,6 +197,81 @@ def test_flash_kernel_takes_every_head_dim_up_to_128(cuda, dtype, causal, d):
     out = _flash_case(torch, att, (2, 3, 130, d), (2, 3, 70, d),
                       getattr(torch, dtype), causal, seed=d)
     assert out.is_contiguous()
+
+
+WIDE_HEAD_DIMS = [129, 160, 192, 256, 512]
+WIDE_SHAPES = [(65, 129), (129, 63), (200, 200), (17, 0)]  # T<S, T>S, S=0
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("t,s", WIDE_SHAPES)
+def test_wide_flash_forward_matches_plain_version(cuda, dtype, tol, causal,
+                                                  d, t, s):
+    """Head dims above 128 go unpadded to the wide kernel: one counted wide
+    launch and none of the tensor-core kernel; output within the D <= 128
+    cases' tolerances of the plain version, its lse within 1e-4 (+inf at
+    the same rows)."""
+    torch, att = cuda
+    g = torch.Generator(device="cuda").manual_seed(t * s + d)
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, 3, t, d, device="cuda", generator=g).to(dt)
+    k = torch.randn(2, 3, s, d, device="cuda", generator=g).to(dt)
+    v = torch.randn(2, 3, s, d, device="cuda", generator=g).to(dt)
+    before = (att.flash_attention.launches,
+              att.flash_attention.wide_launches)
+    got = att.flash_attention(q, k, v, causal=causal)
+    got_o, got_lse = att._flash_cuda(q, k, v, causal, d ** -0.5,
+                                     want_lse=True)
+    want, lse = att.flash_attention_reference(q, k, v, causal=causal,
+                                              return_lse=True)
+    torch.cuda.synchronize()
+    assert (att.flash_attention.launches,
+            att.flash_attention.wide_launches) == (before[0], before[1] + 2)
+    assert got.dtype == dt and got.shape == q.shape
+    assert torch.equal(got, got_o)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    fin = torch.isfinite(lse)
+    assert torch.equal(torch.isfinite(got_lse), fin)
+    if bool(fin.any()):
+        assert (got_lse[fin] - lse[fin]).abs().max().item() <= 1e-4
+    if s == 0:
+        assert not got.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("t,s", WIDE_SHAPES)
+def test_wide_flash_backward_matches_plain_version(cuda, dtype, causal, d, t,
+                                                   s):
+    """The wide backward at D > 128: within 1e-4 (float32) or 2e-2
+    (bfloat16) of max(1, |plain|), bit-identical on repeat, NaN past every
+    end never read, one counted wide launch a call."""
+    torch, att = cuda
+    got = _bwd_case(torch, att, t, s, d, getattr(torch, dtype), causal,
+                    seed=7 * t + s + d, tail=64, b=2, h=3)
+    assert all(x.shape[-1] == d and bool(torch.isfinite(x).all())
+               for x in got)
+
+
+def test_wide_flash_autograd_on_the_card(cuda):
+    """FlashAttentionFunction at D=256 runs the wide forward and backward
+    once each and neither tensor-core kernel."""
+    torch, att = cuda
+    q = torch.randn(1, 2, 100, 256, device="cuda", requires_grad=True)
+    count = (lambda: (att.flash_attention.launches,
+                      att.flash_attention_backward.launches,
+                      att.flash_attention.wide_launches,
+                      att.flash_attention_backward.wide_launches))
+    before = count()
+    out = att.flash_attention(q, q, q, causal=True)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert count() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    assert bool(torch.isfinite(q.grad).all())
 
 
 def _epilogue_inputs(torch, shape, axis, dtype, residual, seed):
@@ -362,14 +440,15 @@ def _bwd_case(torch, att, t, s, d, dt, causal, seed, offset=0, tail=0,
     out, lse = att.flash_attention_reference(q, k, v, causal=causal,
                                              return_lse=True)
     lse = make(lse.shape, torch.float32, fill=lse)
-    before = att.flash_attention_backward.launches
+    counter = "wide_launches" if d > 128 else "launches"  # D > 128: wide
+    before = getattr(att.flash_attention_backward, counter)
     got = att.flash_attention_backward(q, k, v, out, do, lse, causal=causal)
     again = att.flash_attention_backward(q, k, v, out, do, lse,
                                          causal=causal)
     want = att.flash_attention_backward_reference(q, k, v, out, do, lse,
                                                   causal=causal)
     torch.cuda.synchronize()
-    assert att.flash_attention_backward.launches == before + 2
+    assert getattr(att.flash_attention_backward, counter) == before + 2
     tol = 1e-4 if dt == torch.float32 else 2e-2
     for a, r, w in zip(got, again, want):
         assert a.dtype == dt and a.shape == w.shape

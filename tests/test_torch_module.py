@@ -245,7 +245,7 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
     for kw in ({"kvstore": "dist_async"},
                {"elastic": "/tmp/x"}, {"resume": True}, {"tuned": "t.json"},
-               {"health": True}, {"monitor": object()}):
+               {"health": True}):
         with pytest.raises(mt.MXNetError, match="not ported"):
             mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
                     **kw)
