@@ -16,11 +16,12 @@ Phases (any failure raises and exits non-zero):
    print each kernel instance's registers and spills (the LM's flash
    instances must not spill: the forward's float32 D=64 with and without
    lse, the backward's dK/dV and dQ kernels at D=64 in float32 and
-   bfloat16) and, where the toolkit has cuobjdump, count each flash
-   library's tensor-core (HMMA) instructions (none is a failure). With
-   ``--parent CSRC`` (the ``csrc`` directory of another tree, such as the
-   parent commit or a variant of this one; repeatable) also build that
-   tree's flash sources and print the same figures for them.
+   bfloat16, and the wide pair's three kernels at D <= 256 in both types)
+   and, where the toolkit has cuobjdump, count each flash library's
+   tensor-core (HMMA) instructions (none is a failure). With ``--parent
+   CSRC`` (the ``csrc`` directory of another tree, such as the parent
+   commit or a variant of this one; repeatable) also build that tree's
+   flash sources (those it has) and print the same figures for them.
 3. Flash kernel vs plain: the flash-attention kernel against its plain
    PyTorch version on the card, at the LM path's shapes and at edge
    cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then,
@@ -32,12 +33,16 @@ Phases (any failure raises and exits non-zero):
    forward and the backward at head dim 96 (d_model 768 over 8 heads),
    which the wrappers zero-pad to the kernel's 128, against the plain
    version, timed beside D=128 at the same shape. Then the wide pair
-   (``csrc/flash_attn_wide.cu``, head dims above 128, unpadded) at D =
-   129, 160, 192, 256 and 512, causal and not, T != S with T and S not
-   tile multiples, NaN past every end: forward and lse against the plain
-   version, backward within 1e-4 (f32) / 2e-2 (bf16) of max(1, |plain|)
-   and bit-identical on repeat; timed at B=4, H=8, T=1024, D=256 beside
-   the plain versions, SDPA's forward and backward and the bounds.
+   (``csrc/flash_attn_wide.cu``, head dims above 128, unpadded, on the
+   tensor cores) at D = 129, 160, 192, 256, 512, 513, 640 and 1024, causal
+   and not, T != S with T and S not tile multiples, NaN past every end:
+   forward and lse against the plain version, backward within 1e-4 (f32)
+   / 2e-2 (bf16) of max(1, |plain|) and bit-identical on repeat; timed at
+   B=4, H=8, T=1024, D=256 beside the plain versions, SDPA's forward and
+   backward, the bounds and the pair's route figure (its own products at
+   the tensor-core peak), and at B=1 (its blocks against the SMs); then
+   at D = 512, 640 and 1024 (the column blocks' recompute in the route
+   figure).
 3b. Epilogue kernel vs plain: the BN-apply+ReLU(+residual) kernel
    against its plain version at ResNet-50's bucket-32 sites, channel-minor
    and NCHW, float32 and bfloat16, with and without the residual, a
@@ -63,7 +68,8 @@ Phases (any failure raises and exits non-zero):
    the errors show which model the card follows (printed, not gated).
    With ``--parent``,
    phases 3 and 3c also time each other tree's kernels on the same
-   inputs, in turns: parent, this, this, parent.
+   inputs, in turns: parent, this, this, parent (the wide pair's forward
+   and backward in both types too, at D = 256 and 512).
 4. LM serving: the transformer LM at GPT-2-small widths with seeded
    random weights, served by ``ServingSession`` on gpu(0) with buckets
    (1, 4): 8 requests of 1024 tokens from 4 client threads. Checks that
@@ -199,7 +205,9 @@ Phases (any failure raises and exits non-zero):
    one; 12 flash launches a forward); the LM at d_model 1024 over 4
    heads (head dim 256, 2 layers) served through the Predictor against
    a cpu() one, then one SGD step: the wide forward and backward
-   launched once a layer each.
+   launched once a layer each; the served forward's and the step's ms,
+   and with ``--parent`` the same with the other tree's wide pair, in
+   turns.
 13. Prints the kernels' JSON line, then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
@@ -402,9 +410,11 @@ NMS_IOU_OPS = 14
 # the suppression kernel's two launches (csrc/multibox_nms.cu)
 NMS_LAUNCHES = ("nms_matrix_kernel", "nms_sweep_kernel")
 # the wide flash pair (head dims above 128): the dims it is held to its
-# plain versions at, and the timed shape (B, H, T, D)
-WIDE_DIMS = (129, 160, 192, 256, 512)
+# plain versions at, the timed shape (B, H, T, D), and the wider dims timed
+# at that shape (D past 256: the pair's column blocks recompute the scores)
+WIDE_DIMS = (129, 160, 192, 256, 512, 513, 640, 1024)
 WIDE_TIMED = (4, 8, 1024, 256)
+WIDE_WIDER = (512, 640, 1024)
 # phase 12: ResNet-50 predict over `images` at B=`batch`; SequentialModule
 # and the monitored step at B=`seq_batch`, SGD as phase 7's
 SURFACE = dict(images=512, batch=256, seq_batch=64, seq_steps=3, lr=0.1,
@@ -412,6 +422,10 @@ SURFACE = dict(images=512, batch=256, seq_batch=64, seq_steps=3, lr=0.1,
 # the LM at d_model 1024 over 4 heads (head dim 256), 2 layers
 WIDE_LM = dict(vocab_size=50257, seq_len=1024, num_layers=2, num_heads=4,
                d_model=1024, d_ff=4096)
+# its served forward and SGD step timed in turns with another tree's wide
+# pair: rounds of (parent, this, this, parent), each time the median of
+# `served` or `step` calls
+WIDE_LM_TURNS = dict(rounds=10, served=10, step=5)
 # examples/module/python_loss.py's settings and its gate (test_examples_
 # gate.py's test_python_loss_module_gate)
 PYLOSS = dict(epochs=8, batch_size=32, num_examples=1024, seed=4, gate=0.9)
@@ -546,14 +560,18 @@ def sass_hmma(path):
 
 
 def check_flash_build(build):
-    """The flash instances of the LM's paths do not spill, and each flash
-    library's SASS (where the toolkit has cuobjdump) holds tensor-core
-    HMMA instructions. Returns {library: HMMA count}."""
+    """The flash instances of the LM's paths (and every instance of the
+    wide pair) do not spill, and each flash library's SASS (where the
+    toolkit has cuobjdump) holds tensor-core HMMA instructions. Returns
+    {library: HMMA count}."""
     counts = {}
     for lib, names in (("flash_attn_fwd", FLASH_PATH_INSTANCES),
-                       ("flash_attn_bwd", FLASH_BWD_PATH_INSTANCES)):
+                       ("flash_attn_bwd", FLASH_BWD_PATH_INSTANCES),
+                       ("flash_attn_wide", None)):
         inst = {row[0]: row for row in
                 ptxas_instances(build.build_log[lib]["ptxas"])}
+        if names is None:
+            names = sorted(inst) or ["every instance"]
         for name in names:
             row = inst.get(name)
             if row is None:
@@ -575,13 +593,14 @@ def check_flash_build(build):
 
 class ParentKernels:
     """Another tree's flash sources (``--parent``: its ``csrc``
-    directory), built with this tree's nvcc flags into
-    ``build/mxtpu_torch/parent<index>`` and bound by ``attention.bind``,
-    to time them in turns with this tree's kernels on the same inputs
-    through the wrappers' own launch code (``attention._launch``,
-    ``_launch_bwd``)."""
+    directory; those of NAMES it holds), built with this tree's nvcc flags
+    into ``build/mxtpu_torch/parent<index>`` and bound by
+    ``attention.bind``, to time them in turns with this tree's kernels on
+    the same inputs through the wrappers' own launch code
+    (``attention._launch``, ``_launch_bwd``). ``kernels`` maps each
+    launcher (``attention._SOURCE``) to its binding."""
 
-    NAMES = ("flash_attn_fwd", "flash_attn_bwd")
+    NAMES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide")
 
     def __init__(self, build, csrc, index=0):
         self.csrc = csrc
@@ -589,9 +608,12 @@ class ParentKernels:
         self.dir.mkdir(parents=True, exist_ok=True)
         self._procs = {}
         for name in self.NAMES:
+            src = os.path.join(csrc, name + ".cu")
+            if not os.path.exists(src):
+                log("  parent %s: no %s.cu" % (csrc, name))
+                continue
             out = self.dir / ("lib%s.so" % name)
-            self._procs[name] = (build.spawn(
-                os.path.join(csrc, name + ".cu"), out), out)
+            self._procs[name] = (build.spawn(src, out), out)
         self.kernels, self.ptxas, self.hmma = {}, {}, {}
 
     def finish(self, att):
@@ -605,7 +627,10 @@ class ParentKernels:
                                      % (self.csrc, name, text))
             self.ptxas[name] = ptxas_instances(text)
             self.hmma[name] = sass_hmma(out)
-            self.kernels[name] = att.bind(ctypes.CDLL(str(out)), name)
+            lib = ctypes.CDLL(str(out))
+            for launcher, source in att._SOURCE.items():
+                if source == name:
+                    self.kernels[launcher] = att.bind(lib, launcher)
             for inst, regs, st, ld in self.ptxas[name]:
                 log("  parent %s %s: %s: %d registers, %d bytes spill "
                     "stores, %d bytes spill loads" % (self.csrc, name, inst,
@@ -754,6 +779,34 @@ def backward_route_ms(b, h, t, s, d, causal, dtype):
     the bound."""
     return _tensor_core_ms(backward_flops(b, h, t, s, d, causal,
                                           BWD_ROUTE_PRODUCTS), dtype)
+
+
+def wide_tiling(mt, d, dtype, backward=False):
+    """The wide pair's launch at head dim ``d`` for ``dtype``, forward or
+    (``backward``) the dK/dV and dQ kernels, as the built library reports
+    it (``flash_attn_wide_tiling`` in csrc/flash_attn_wide.cu): {"columns":
+    output columns a block, "rows": stationary rows a block, "blocks":
+    column blocks a row tile}."""
+    import ctypes
+    fn = mt.build.load("flash_attn_wide").flash_attn_wide_tiling
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    if fn(d, code, int(backward), out) != 0:
+        raise AssertionError("flash_attn_wide_tiling refuses D=%d" % d)
+    return dict(zip(("columns", "rows", "blocks"), out))
+
+
+def wide_route_flops(b, h, t, s, d, causal, z, backward=False):
+    """Flops of the wide pair's own route (csrc/flash_attn_wide.cu): each
+    of its ``z`` column blocks (wide_tiling's "blocks") computes the scores
+    (and, in the backward, dP, in both of its kernels) over all of D, and
+    its own columns' products: the forward 2 D (Z + 1) a live pair, the
+    backward 2 D (4 Z + 3). At Z = 1 these are the forward's 4 D and the
+    seven products of BWD_ROUTE_PRODUCTS."""
+    per_pair = 2.0 * d * ((4 * z + 3) if backward else (z + 1))
+    return per_pair * attention_pairs(t, s, causal) * b * h
 
 
 def abs_err(got, want):
@@ -3844,7 +3897,8 @@ def multi_gpu(args, card):
     # 12. the inference and inspection surface, and the head-dim-256 LM
     if "surface" in phases:
         log("[surface]")
-        results["surface"] = phase_surface(mt, att, epi, args.seed, card)
+        results["surface"] = phase_surface(mt, att, epi, args.seed, card,
+                                           parents)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5326,17 +5380,55 @@ def phase_ssd(mt, seed, card):
 
 
 # ---------------------------------------------------------------- phase 12
-def flash_wide(att, gen):
+def wide_turns(att, parent, q, k, v, out, g, lse, scale, iters):
+    """Another tree's wide pair (``parent``: ParentKernels) and this tree's
+    on the same causal inputs: the largest difference of their forwards'
+    outputs and of their gradients (scaled as rel_err), then each pair
+    timed in turns (parent, this, this, parent), the forward over
+    ``iters[0]`` calls a time and the backward over ``iters[1]``. Logged;
+    returns the row."""
+    pf, pb = (parent.kernels[n] for n in (att.WIDE_KERNEL,
+                                          att.WIDE_BWD_KERNEL))
+    tf, tb = (att._kernel(n) for n in (att.WIDE_KERNEL, att.WIDE_BWD_KERNEL))
+    args = (q, k, v, out, g, lse, True, scale)
+    diff = abs_err(att._launch(pf, q, k, v, True, scale), out)
+    bwd_diff = max(rel_err(a, w) for a, w in zip(
+        att._launch_bwd(pb, *args), att._launch_bwd(tb, *args)))
+    p_ms, t_ms = in_turns(lambda: att._launch(pf, q, k, v, True, scale),
+                          lambda: att._launch(tf, q, k, v, True, scale),
+                          iters[0])
+    pb_ms, tb_ms = in_turns(lambda: att._launch_bwd(pb, *args),
+                            lambda: att._launch_bwd(tb, *args), iters[1])
+    log("    in turns with %s (parent, this, this, parent): forward %.4f, "
+        "%.4f, %.4f, %.4f ms (parent/this %.2f), max abs diff %.3e; "
+        "backward %.4f, %.4f, %.4f, %.4f ms (parent/this %.2f), scaled diff "
+        "%.3e" % (parent.csrc, p_ms[0], t_ms[0], t_ms[1], p_ms[1],
+                  sum(p_ms) / sum(t_ms), diff, pb_ms[0], tb_ms[0], tb_ms[1],
+                  pb_ms[1], sum(pb_ms) / sum(tb_ms), bwd_diff))
+    return dict(parent=parent.csrc, parent_ms=p_ms, this_ms=t_ms,
+                max_abs_diff=diff, bwd_parent_ms=pb_ms, bwd_this_ms=tb_ms,
+                bwd_scaled_diff=bwd_diff)
+
+
+def flash_wide(mt, att, gen, parents=()):
     """The wide pair (``csrc/flash_attn_wide.cu``, head dims above 128,
     unpadded) against the plain versions on the card: at D in WIDE_DIMS,
     causal and not, T < S and T > S with S and T not multiples of the
-    16-row and 32-key tiles, NaN stored past every tensor's end, float32
+    64-row and 32-key tiles, NaN stored past every tensor's end, float32
     and bfloat16: the forward within TOL, its lse within LSE_TOL, the
     backward within BWD_TOL of max(1, |plain|) and a second call
     bit-identical. Then CUDA-event times at WIDE_TIMED (causal) of the
     forward and the backward beside the plain versions, SDPA's forward and
-    backward (the library yardsticks) and the bounds as phases 3 and 3c
-    count them. Returns {"worst": ..., "timed": [rows]}."""
+    backward (the library yardsticks), the bounds as phases 3 and 3c count
+    them and the pair's route figure (wide_route_flops at the type's
+    tensor-core peak, its column blocks as wide_tiling reports them); the
+    same at B=1 (the blocks against the SMs); with ``parents``, each other
+    tree's wide pair and this tree's in turns (wide_turns). Last, the forward and the backward at
+    D in WIDE_WIDER at WIDE_TIMED's B, H and T, held to the plain versions
+    and timed beside their bounds and route figures, which count the
+    column blocks' recompute of the scores, and at D <= 512 (where the
+    earlier CUDA-core pair stopped) in turns with each parent's. Returns {"worst": ...,
+    "timed": [rows], "wider": [rows]}."""
     F = torch.nn.functional
     cases = [(b, h, t, s, d, causal) for d in WIDE_DIMS
              for causal in (False, True)
@@ -5379,11 +5471,13 @@ def flash_wide(att, gen):
             w["fwd"], w["bwd"] = max(w["fwd"], err), max(w["bwd"], bwd)
     timed = []
     b, h, t, d = WIDE_TIMED
+    scale = d ** -0.5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         q, k, v, g = (torch.randn(b, h, t, d, device="cuda", generator=gen)
                       .to(dtype) for _ in range(4))
-        out, lse = att._flash_cuda(q, k, v, True, d ** -0.5, want_lse=True)
+        out, lse = att._flash_cuda(q, k, v, True, scale, want_lse=True)
         want = att.flash_attention_reference(q, k, v, causal=True)
         grads = att.flash_attention_backward(q, k, v, out, g, lse,
                                              causal=True)
@@ -5403,6 +5497,9 @@ def flash_wide(att, gen):
             q, k, v, is_causal=True), 10)
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             b, h, t, t, d, True, dtype)
+        tiling = wide_tiling(mt, d, dtype)
+        row["route_ms"] = _tensor_core_ms(
+            wide_route_flops(b, h, t, t, d, True, tiling["blocks"]), dtype)
         row["bwd_ms"] = cuda_ms(lambda: att.flash_attention_backward(
             q, k, v, out, g, lse, causal=True), 5)
         row["bwd_plain_ms"] = cuda_ms(
@@ -5412,22 +5509,100 @@ def flash_wide(att, gen):
         o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             o_lib, (qs, ks, vs), g, retain_graph=True), 5)
-        del o_lib
+        del o_lib, qs, ks, vs
         row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(
             b, h, t, t, d, True, dtype)
+        row["bwd_route_ms"] = _tensor_core_ms(wide_route_flops(
+            b, h, t, t, d, True, wide_tiling(mt, d, dtype, True)["blocks"],
+            backward=True), dtype)
         log("  flash wide %s causal B=%d H=%d T=S=%d D=%d: forward %.4f ms "
-            "(plain %.4f, sdpa %.4f, bound %.4f %s), err %.3e; backward "
-            "%.4f ms (plain %.4f, sdpa bwd %.4f, bound %.4f %s), scaled err "
-            "%.3e" % (name, b, h, t, d, row["ms"], row["plain_ms"],
-                      row["library_ms"], row["bound_ms"], row["bound_by"],
-                      err, row["bwd_ms"], row["bwd_plain_ms"],
-                      row["bwd_library_ms"], row["bwd_bound_ms"],
-                      row["bwd_bound_by"], bwd_scaled))
+            "(plain %.4f, sdpa %.4f, bound %.4f %s, route %.4f: %.1f%% of "
+            "the bound), err %.3e; backward %.4f ms (plain %.4f, sdpa bwd "
+            "%.4f, bound %.4f %s, route %.4f: %.1f%% of the bound), scaled "
+            "err %.3e" % (name, b, h, t, d, row["ms"], row["plain_ms"],
+                          row["library_ms"], row["bound_ms"], row["bound_by"],
+                          row["route_ms"], 100.0 * row["bound_ms"] / row["ms"],
+                          err, row["bwd_ms"], row["bwd_plain_ms"],
+                          row["bwd_library_ms"], row["bwd_bound_ms"],
+                          row["bwd_bound_by"], row["bwd_route_ms"],
+                          100.0 * row["bwd_bound_ms"] / row["bwd_ms"],
+                          bwd_scaled))
         if not err <= TOL[dtype] or not bwd_scaled <= BWD_TOL[dtype]:
             raise AssertionError("wide flash disagrees at the timed shape: "
                                  "%r, %r (%s)" % (err, bwd_scaled, name))
+        # B = 1: the forward's blocks against the SMs, one a SM
+        q1, k1, v1, g1 = (x[:1].contiguous() for x in (q, k, v, g))
+        o1, l1 = att._flash_cuda(q1, k1, v1, True, scale, want_lse=True)
+        row["B1"] = dict(
+            blocks=h * -(-t // tiling["rows"]) * tiling["blocks"], sms=sms,
+            ms=cuda_ms(lambda: att.flash_attention(q1, k1, v1, causal=True),
+                       10),
+            bwd_ms=cuda_ms(lambda: att.flash_attention_backward(
+                q1, k1, v1, o1, g1, l1, causal=True), 5))
+        log("    B=1: %d blocks on %d SMs; forward %.4f ms, backward %.4f ms"
+            % (row["B1"]["blocks"], sms, row["B1"]["ms"],
+               row["B1"]["bwd_ms"]))
+        row["turns"] = [
+            wide_turns(att, parent, q, k, v, out, g, lse, scale, (10, 5))
+            for parent in parents if att.WIDE_KERNEL in parent.kernels]
+        del q, k, v, g, out, lse, q1, k1, v1, g1, o1, l1
         timed.append(row)
-    return {"worst": worst, "timed": timed}
+    wider = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for d2 in WIDE_WIDER:
+            q, k, v, g = (torch.randn(b, h, t, d2, device="cuda",
+                                      generator=gen).to(dtype)
+                          for _ in range(4))
+            out, lse = att._flash_cuda(q, k, v, True, d2 ** -0.5,
+                                       want_lse=True)
+            err = abs_err(out, att.flash_attention_reference(q, k, v,
+                                                             causal=True))
+            bwd = max(rel_err(a, r) for a, r in zip(
+                att.flash_attention_backward(q, k, v, out, g, lse,
+                                             causal=True),
+                att.flash_attention_backward_reference(q, k, v, out, g, lse,
+                                                       causal=True)))
+            blocks = wide_tiling(mt, d2, dtype)["blocks"]
+            bwd_blocks = wide_tiling(mt, d2, dtype, True)["blocks"]
+            row = dict(dtype=name, B=b, H=h, T=t, D=d2, max_abs_err=err,
+                       bwd_scaled_err=bwd, column_blocks=blocks)
+            row["ms"] = cuda_ms(lambda: att.flash_attention(q, k, v,
+                                                            causal=True), 5)
+            row["bwd_ms"] = cuda_ms(lambda: att.flash_attention_backward(
+                q, k, v, out, g, lse, causal=True), 3)
+            row["bound_ms"], row["bound_by"] = attention_bound_ms(
+                b, h, t, t, d2, True, dtype)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(
+                b, h, t, t, d2, True, dtype)
+            row["route_ms"] = _tensor_core_ms(
+                wide_route_flops(b, h, t, t, d2, True, blocks), dtype)
+            row["bwd_route_ms"] = _tensor_core_ms(wide_route_flops(
+                b, h, t, t, d2, True, bwd_blocks, backward=True), dtype)
+            log("  flash wide %s causal B=%d H=%d T=S=%d D=%d (%d column "
+                "blocks): forward %.4f ms (bound %.4f %s, route %.4f: %.2fx "
+                "the forward's products), err %.3e; backward %.4f ms (bound "
+                "%.4f %s, route %.4f: %.2fx the 5 products), scaled err %.3e"
+                % (name, b, h, t, d2, row["column_blocks"], row["ms"],
+                   row["bound_ms"], row["bound_by"], row["route_ms"],
+                   wide_route_flops(b, h, t, t, d2, True, blocks)
+                   / attention_flops(b, h, t, t, d2, True), err,
+                   row["bwd_ms"], row["bwd_bound_ms"], row["bwd_bound_by"],
+                   row["bwd_route_ms"],
+                   wide_route_flops(b, h, t, t, d2, True, bwd_blocks,
+                                    backward=True)
+                   / backward_flops(b, h, t, t, d2, True), bwd))
+            if not err <= TOL[dtype] or not bwd <= BWD_TOL[dtype]:
+                raise AssertionError("wide flash disagrees at D=%d: %r, %r "
+                                     "(%s)" % (d2, err, bwd, name))
+            row["turns"] = [
+                wide_turns(att, parent, q, k, v, out, g, lse, d2 ** -0.5,
+                           (5, 3))
+                for parent in parents
+                if att.WIDE_KERNEL in parent.kernels and d2 <= 512]
+            del q, k, v, g, out, lse
+            wider.append(row)
+    return {"worst": worst, "timed": timed, "wider": wider}
 
 
 def mc_hinge_grad(scores, labels):
@@ -5819,12 +5994,35 @@ def surface_lm(mt, att, seed, card):
                 num_steps=pred.num_steps, row0_err=row0_err)
 
 
-def surface_wide_lm(mt, att, seed, card):
+class WideSwap:
+    """Within ``with WideSwap(att, kernels):`` the wrappers launch the wide
+    pair bound in ``kernels`` ({launcher: binding}: another tree's,
+    ``ParentKernels.kernels``) in place of this tree's, so that a model
+    path can be timed with either pair."""
+
+    def __init__(self, att, kernels):
+        self.att, self.kernels = att, kernels
+        self.names = (att.WIDE_KERNEL, att.WIDE_BWD_KERNEL)
+
+    def __enter__(self):
+        self.saved = {n: self.att._kernel(n) for n in self.names}
+        self.att._kernel_fns.update({n: self.kernels[n] for n in self.names})
+        return self
+
+    def __exit__(self, *exc):
+        self.att._kernel_fns.update(self.saved)
+
+
+def surface_wide_lm(mt, att, seed, card, parents=()):
     """The transformer LM at WIDE_LM (d_model 1024 over 4 heads: head dim
     256, on the wide pair) served through the Predictor (B=1, one launch
     of the wide forward a layer) and held to a cpu() Predictor (the plain
     attention); then one SGD step through Module (the wide forward with
-    its lse and the wide backward, once a layer each), its loss finite."""
+    its lse and the wide backward, once a layer each), its loss finite.
+    Then the served forward's and the SGD step's host ms (to a sync); with
+    ``parents``, the same with each other tree's wide pair swapped into the
+    wrappers (WideSwap), in WIDE_LM_TURNS["rounds"] rounds of turns:
+    parent, this, this, parent, with the spread of the rounds."""
     sym = mt.models.get_transformer_lm(**WIDE_LM)
     sym_json = sym.tojson()
     arg_shapes, _, _ = sym.infer_shape(data=(1, WIDE_LM["seq_len"]))
@@ -5878,13 +6076,59 @@ def surface_wide_lm(mt, att, seed, card):
             not np.isfinite(loss):
         raise AssertionError("the head-dim-256 LM: launches %s / %s, err %g,"
                              " CE %r" % (served, trained, err, loss))
-    return dict(served_launches=served[1], trained_fwd_launches=trained[1],
-                trained_bwd_launches=trained[3], cpu_err=err, ce=loss)
+    res = dict(served_launches=served[1], trained_fwd_launches=trained[1],
+               trained_bwd_launches=trained[3], cpu_err=err, ce=loss)
+
+    def serve():
+        pred.forward(data=x)
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    res["served_ms"] = host_ms(serve, 1, iters=5, warmup=1)
+    res["step_ms"] = host_ms(step, 1, iters=3, warmup=1)
+    log("  [%s] the head-dim-256 LM: served forward %.2f ms, SGD step %.2f "
+        "ms (host clock to a sync)" % (card, res["served_ms"],
+                                       res["step_ms"]))
+    res["turns"] = []
+    for parent in parents:
+        if att.WIDE_KERNEL not in parent.kernels:
+            continue
+        turn = {"parent": parent.csrc}
+        for label, fn in (("served", serve), ("step", step)):
+            iters, rounds = WIDE_LM_TURNS[label], []
+            for _ in range(WIDE_LM_TURNS["rounds"]):
+                with WideSwap(att, parent.kernels):
+                    p1 = host_ms(fn, 1, iters=iters, warmup=1)
+                t1 = host_ms(fn, 1, iters=iters, warmup=1)
+                t2 = host_ms(fn, 1, iters=iters, warmup=1)
+                with WideSwap(att, parent.kernels):
+                    p2 = host_ms(fn, 1, iters=iters, warmup=1)
+                rounds.append(([p1, p2], [t1, t2]))
+            this = [x for _, t in rounds for x in t]
+            par = [x for p, _ in rounds for x in p]
+            ratio = [sum(p) / sum(t) for p, t in rounds]
+            turn[label] = dict(
+                rounds=rounds, this_median=float(np.median(this)),
+                parent_median=float(np.median(par)),
+                ratio_median=float(np.median(ratio)), ratio_min=min(ratio),
+                ratio_max=max(ratio))
+            log("    %s in turns with %s's wide pair, %d rounds (parent, "
+                "this, this, parent; median of %d calls each): this %.2f ms "
+                "(%.2f-%.2f), parent %.2f ms (%.2f-%.2f); parent/this a "
+                "round: median %.4f, %.4f-%.4f"
+                % (label, parent.csrc, len(rounds), iters,
+                   turn[label]["this_median"], min(this), max(this),
+                   turn[label]["parent_median"], min(par), max(par),
+                   turn[label]["ratio_median"], min(ratio), max(ratio)))
+        res["turns"].append(turn)
+    return res
 
 
-def phase_surface(mt, att, epi, seed, card):
+def phase_surface(mt, att, epi, seed, card, parents=()):
     """The inference and inspection surface (phase 12); see the module
-    docstring."""
+    docstring. ``parents``: surface_wide_lm's."""
     res = {"resnet": surface_resnet(mt, epi, seed, card),
            "sequential": surface_sequential(mt, seed, card),
            "monitor_step": surface_monitor_step(mt, seed, card)}
@@ -5899,7 +6143,7 @@ def phase_surface(mt, att, epi, seed, card):
         raise AssertionError("python_loss twin stuck at %.3f" % acc)
     res["python_loss_acc"] = acc
     res["lm"] = surface_lm(mt, att, seed, card)
-    res["wide_lm"] = surface_wide_lm(mt, att, seed, card)
+    res["wide_lm"] = surface_wide_lm(mt, att, seed, card, parents)
     return res
 
 
@@ -6000,7 +6244,7 @@ def main(argv=None):
         results["flash_timed"], worst = phase_kernels(att, gen, parents)
         results["worst_err"] = {str(k): v for k, v in worst.items()}
         results["flash_d96"] = flash_head_dim_96(att, gen)
-        results["flash_wide"] = flash_wide(att, gen)
+        results["flash_wide"] = flash_wide(mt, att, gen, parents)
     if "epilogue" in phases:
         log("[epilogue]")
         results["epilogue_timed"] = phase_epilogue(epi, gen)
@@ -6052,7 +6296,8 @@ def main(argv=None):
     # 12. the inference and inspection surface, and the head-dim-256 LM
     if "surface" in phases:
         log("[surface]")
-        results["surface"] = phase_surface(mt, att, epi, args.seed, card)
+        results["surface"] = phase_surface(mt, att, epi, args.seed, card,
+                                           parents)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -14,15 +14,16 @@ raises, and a meta tensor (shape inference) yields an empty result of
 the output's shape. ``flash_attention.launches`` counts kernel launches.
 
 The tensor-core kernels are built for head dims 32, 64 and 128. The
-wrappers take any D <= 512, as mxtpu's kernel takes any D: for D <= 128,
-q, k and v (and, for the backward, the output and its gradient) are
+wrappers take any D, as mxtpu's kernel takes any D: for D <= 128, q, k
+and v (and, for the backward, the output and its gradient) are
 zero-padded on the last axis to the next of those widths, the kernel
 runs, and the output and the gradients are sliced back to D; the scale
-comes from the true D. For 128 < D <= 512 the width-generic pair
-``csrc/flash_attn_wide.cu`` (CUDA cores, D a runtime argument) runs on
-the unpadded tensors; its launches count in ``flash_attention.
-wide_launches`` and ``flash_attention_backward.wide_launches``. D > 512
-raises MXNetError.
+comes from the true D. For D > 128 the width-generic pair
+``csrc/flash_attn_wide.cu`` (tensor cores as above, D a runtime
+argument split into column groups, one warp's each, and past 256 columns
+into blocks along the grid) runs on the unpadded tensors; its launches
+count in ``flash_attention.wide_launches`` and
+``flash_attention_backward.wide_launches``.
 
 ``block_q``/``block_k`` were the TPU kernel's tiling. They are accepted
 and recorded on the op for graph compatibility, but they do not choose
@@ -70,7 +71,6 @@ _SOURCE = {KERNEL: KERNEL, BWD_KERNEL: BWD_KERNEL,
            WIDE_KERNEL: "flash_attn_wide", WIDE_BWD_KERNEL: "flash_attn_wide"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-WIDE_MAX_D = 512  # the wide pair's limit: its forward tiles fill 227 KB
 
 
 def _scale(d, sm_scale):
@@ -169,7 +169,7 @@ def check_kernel_inputs(q, k, v):
     """Raise MXNetError unless q, k, v are what the CUDA kernel takes:
     CUDA tensors on one device, float32 or bfloat16 alike, contiguous,
     q (B, H, T, D) and k, v (B, H, S, D) with D in (32, 64, 128) (the
-    tensor-core kernels) or in (128, 512] (the wide pair)."""
+    padded kernels) or above 128 (the wide pair)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in _DTYPE_CODES:
             raise MXNetError("flash_attention kernel: %s has dtype %s; it "
@@ -184,10 +184,9 @@ def check_kernel_inputs(q, k, v):
         raise MXNetError("flash_attention kernel: q, k, v dtypes differ "
                          "(%s, %s, %s)" % (q.dtype, k.dtype, v.dtype))
     b, h, _, d = q.shape
-    if d not in _HEAD_DIMS and not _HEAD_DIMS[-1] < d <= WIDE_MAX_D:
+    if d not in _HEAD_DIMS and d <= _HEAD_DIMS[-1]:
         raise MXNetError("flash_attention kernel: head dim %d not in %s nor "
-                         "in (%d, %d]" % (d, _HEAD_DIMS, _HEAD_DIMS[-1],
-                                          WIDE_MAX_D))
+                         "above %d" % (d, _HEAD_DIMS, _HEAD_DIMS[-1]))
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
         raise MXNetError("flash_attention kernel: k %s / v %s do not match "
                          "q %s" % (tuple(k.shape), tuple(v.shape),
@@ -258,7 +257,7 @@ def _wide(q):
 
 
 def _flash_cuda(q, k, v, causal, scale, want_lse=False):
-    """The forward kernel for q's head dim (the tensor-core kernel at D in
+    """The forward kernel for q's head dim (``flash_attn_fwd`` at D in
     _HEAD_DIMS, the wide one above 128) after the checks; one count of
     ``flash_attention.launches`` or ``.wide_launches``."""
     check_kernel_inputs(q, k, v)
@@ -275,7 +274,7 @@ def _flash_cuda(q, k, v, causal, scale, want_lse=False):
 
 def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
     """(dq, dk, dv) from the backward kernel for q's head dim (delta,
-    dK/dV and dQ launches on the current stream: on the tensor cores at D
+    dK/dV and dQ launches on the current stream: ``flash_attn_bwd`` at D
     in _HEAD_DIMS, the wide kernels above 128), after the checks; one
     count of ``flash_attention_backward.launches`` or ``.wide_launches``."""
     check_kernel_inputs(q, k, v)
@@ -325,9 +324,8 @@ def _launch_bwd(kernel, q, k, v, out, dout, lse, causal, scale):
 
 def _kernel_width(q, k, v):
     """The kernels' head dim for q, k, v of head dim D, by D alone: the
-    least of _HEAD_DIMS that is >= D (the tensor-core kernels, padded up
-    to it), D itself for 128 < D <= 512 (the wide pair, unpadded). D >
-    512 raises MXNetError."""
+    least of _HEAD_DIMS that is >= D (the padded kernels), D itself above
+    128 (the wide pair, unpadded). Unequal head dims raise MXNetError."""
     d = q.shape[-1]
     if k.shape[-1] != d or v.shape[-1] != d:
         raise MXNetError("flash_attention kernel: head dims differ (q %d, k "
@@ -335,10 +333,7 @@ def _kernel_width(q, k, v):
     for width in _HEAD_DIMS:
         if d <= width:
             return width
-    if d <= WIDE_MAX_D:
-        return d
-    raise MXNetError("flash_attention kernel: head dim %d > %d; the kernels "
-                     "take D <= %d" % (d, WIDE_MAX_D, WIDE_MAX_D))
+    return d
 
 
 def _pad_head(x, width):

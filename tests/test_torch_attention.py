@@ -80,13 +80,15 @@ def test_plain_version_matches_mxtpu_flash(tt, dtype, causal, b, h, t, s,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t,s,d", [(64, 96, 160), (96, 64, 256)])
+@pytest.mark.parametrize("t,s,d", [(64, 96, 160), (96, 64, 256),
+                                   (48, 80, 640)])
 def test_plain_version_matches_mxtpu_flash_at_wide_head_dims(tt, dtype,
                                                             causal, t, s, d):
-    """D > 128, which the card runs on the wide pair unpadded: the plain
-    version against mxtpu's Pallas kernel (interpret mode), whose
-    BlockSpecs carry D whole; T != S, a kv tail that is not a tile
-    multiple; the tolerances of the D <= 128 cases."""
+    """D > 128, which the card runs on the wide pair unpadded (D = 640 in
+    three 256-column blocks): the plain version against mxtpu's Pallas
+    kernel (interpret mode), whose BlockSpecs carry D whole; T != S, a kv
+    tail that is not a tile multiple; the tolerances of the D <= 128
+    cases."""
     q, k, v = _qkv(1, 2, t, s, d, seed=t + s + d)
     kw = dict(causal=causal, block_q=32, block_k=64)
     want = _jax_flash(q, k, v, dtype, **kw)
@@ -157,10 +159,11 @@ def test_kernel_width_is_the_next_built_head_dim(tt, d, width):
     assert att._kernel_width(q, q, q) == width
 
 
-@pytest.mark.parametrize("d", [129, 160, 192, 256, 384, 512])
+@pytest.mark.parametrize("d", [129, 160, 192, 256, 384, 512, 513, 640,
+                               1024])
 def test_kernel_width_sends_past_128_to_the_wide_pair_unpadded(tt, d):
-    """D > 128 no longer raises: the width is D itself (no pad), the
-    kernel checks take it, and the wrappers pick the wide launchers."""
+    """Every D > 128 runs: the width is D itself (no pad), the kernel
+    checks take it, and the wrappers pick the wide launchers."""
     torch, _, att = tt
     q = torch.zeros(1, 1, 2, d)
     assert att._kernel_width(q, q, q) == d
@@ -173,12 +176,13 @@ def test_kernel_width_sends_past_128_to_the_wide_pair_unpadded(tt, d):
 
 
 def test_kernel_width_refuses_past_128_and_unequal_head_dims(tt):
-    """Past the wide pair's limit (512) the width raises with the limit in
-    the message; unequal head dims raise too."""
+    """Past 512, where the wide pair once stopped, the width is D itself
+    (the pair takes any D); unequal head dims raise."""
     torch, mt, att = tt
     q = torch.zeros(1, 1, 2, 513)
-    with pytest.raises(mt.MXNetError, match="head dim 513 > 512"):
-        att._kernel_width(q, q, q)
+    assert att._kernel_width(q, q, q) == 513 and att._wide(q)
+    with pytest.raises(mt.MXNetError, match="CUDA"):  # the last check
+        att.check_kernel_inputs(q, q, q)
     with pytest.raises(mt.MXNetError, match="head dims differ"):
         att._kernel_width(q[..., :48], q[..., :64], q[..., :48])
 
@@ -398,6 +402,82 @@ def test_chip_smoke_reads_ptxas_per_instance():
         ("flash_fwd_kernel<float, 64>", 223, 8, 4),
         ("rows_kernel<bf16, true>", 40, 0, 0),
         ("flash_fwd_kernel<float, 64, false>", 220, 0, 0)]
+
+
+def _wide_ptxas_log(spill=None):
+    """ptxas's report of the wide pair's forward, dK/dV and dQ instances
+    in both types, unchunked and chunked, as nvcc prints it; the instance
+    named ``spill`` (as ptxas_instances names it) spills 8 bytes."""
+    log, names = "", []
+    for kern in ("wide_fwd", "wide_dkdv", "wide_dq"):
+        for typ, tname in (("f", "float"), ("13__nv_bfloat16", "bf16")):
+            for chunked in (0, 1):
+                name = "%s_kernel<%s, %s>" % (kern, tname,
+                                               ("false", "true")[chunked])
+                names.append(name)
+                log += (
+                    "ptxas info    : Compiling entry function '_ZN50_GLOBAL_"
+                    "_N__0_18_flash_attn_wide_cu_0%d%s_kernelI%sLb%dEEEvPKT_"
+                    "S3_S3_PS1_Pfiiifii' for 'sm_90a'\n    0 bytes stack "
+                    "frame, %d bytes spill stores, 0 bytes spill loads\nptxas"
+                    " info    : Used 181 registers, used 3 barriers\n"
+                    % (len(kern) + 7, kern, typ, chunked,
+                       8 if name == spill else 0))
+    return log, names
+
+
+def test_chip_smoke_names_the_wide_pairs_instances_as_ptxas_reports_them():
+    """The wide pair's instances, which chip_smoke's build phase holds to
+    no spills, parse out of ptxas's mangled entry names."""
+    import chip_smoke
+    log, names = _wide_ptxas_log()
+    assert [row[0] for row in chip_smoke.ptxas_instances(log)] == names
+
+
+@pytest.mark.parametrize("spill", [None, "wide_fwd_kernel<float, false>",
+                                   "wide_dq_kernel<bf16, true>"])
+def test_chip_smoke_holds_every_wide_instance_to_no_spills(monkeypatch,
+                                                           spill):
+    """check_flash_build refuses a spill in any instance of the wide pair,
+    the chunked ones (D > 256) as well as those D <= 256 runs."""
+    import types
+    import chip_smoke
+    log, _ = _wide_ptxas_log(spill)
+    build = types.SimpleNamespace(
+        build_log={"flash_attn_fwd": {"ptxas": ""},
+                   "flash_attn_bwd": {"ptxas": ""},
+                   "flash_attn_wide": {"ptxas": log}},
+        _target=lambda name: (None, name))
+    monkeypatch.setattr(chip_smoke, "sass_hmma", lambda path: 5)
+    if spill is None:
+        assert chip_smoke.check_flash_build(build) == {
+            "flash_attn_fwd": 5, "flash_attn_bwd": 5, "flash_attn_wide": 5}
+    else:
+        with pytest.raises(AssertionError, match="spills"):
+            chip_smoke.check_flash_build(build)
+
+
+@pytest.mark.parametrize("d,blocks,fwd,bwd", [
+    (129, 1, 1.0, 1.4), (256, 1, 1.0, 1.4), (257, 2, 1.5, 2.2),
+    (640, 3, 2.0, 3.0), (1024, 4, 2.5, 3.8)])
+def test_chip_smoke_counts_the_wide_pairs_route_with_its_recompute(
+        d, blocks, fwd, bwd):
+    """The wide pair's route figure: each of its Z column blocks (the
+    kernel reports Z = ceil(D / 256); the card's tests hold it to that)
+    recomputes the scores over all of D (and dP, in both backward
+    kernels), so the forward does (Z + 1) / 2 times the forward's 4 D
+    flops a pair, and the backward (4 Z + 3) / 5 times the 5 products; at
+    Z = 1 the 7-product route of the D <= 128 backward."""
+    import chip_smoke
+    shape = (4, 8, 1024, 1024, d, True)
+    ratio = (chip_smoke.wide_route_flops(*shape, blocks)
+             / chip_smoke.attention_flops(*shape))
+    bwd_ratio = (chip_smoke.wide_route_flops(*shape, blocks, backward=True)
+                 / chip_smoke.backward_flops(*shape))
+    assert abs(ratio - fwd) < 1e-12 and abs(bwd_ratio - bwd) < 1e-12
+    if blocks == 1:
+        assert chip_smoke.wide_route_flops(*shape, blocks, backward=True) \
+            == chip_smoke.backward_flops(*shape, products=7)
 
 
 def _tf32(torch, x):

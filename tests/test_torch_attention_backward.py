@@ -115,7 +115,7 @@ def test_plain_backward_matches_the_public_mxtpu_op(tt):
     _check(got, want, "float32")
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 640])
 def test_plain_backward_at_wide_head_dims_matches_the_public_mxtpu_op(tt, d):
     """D > 128 (the card's wide pair) through mxtpu's public op, whose
     Pallas forward carries D whole (interpret mode here), causal, T != S,
@@ -219,6 +219,7 @@ def test_backward_kernel_input_checks_raise(tt):
     q = torch.randn(1, 1, 4, 32)
     with pytest.raises(MXNetError):
         att._flash_bwd_cuda(q, q, q, q, q, torch.zeros(1, 1, 4), True, 1.0)
-    with pytest.raises(MXNetError, match="head dim"):  # past the wide 512
-        x = torch.randn(1, 1, 4, 513)
+    x = torch.randn(1, 1, 4, 513)  # past 512: the wide pair, unpadded
+    assert att._kernel_width(x, x, x) == 513 and att._wide(x)
+    with pytest.raises(MXNetError, match="CUDA"):  # the device check
         att._flash_bwd_cuda(x, x, x, x, x, torch.zeros(1, 1, 4), True, 1.0)

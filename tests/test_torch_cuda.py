@@ -34,7 +34,8 @@ threshold, -inf tails, force_suppress, NaN boxes, K = 1, 37, 400,
 training step on gpu(0) against cpu() with the kernel launched once a
 step. The flash forward and backward at head dims 16, 48, 80, 96 and
 112, which the wrappers pad to the kernel's next width, and at 129, 160,
-192, 256 and 512, which take the wide pair unpadded (D = 513 refused).
+192, 256, 512, 513, 640 and 1024, which take the wide pair unpadded
+(above 256 split into 256-column blocks), with unaligned storage too.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -92,10 +93,12 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, tol, causal, b, h,
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def _flash_case(torch, att, shape_q, shape_kv, dt, causal, seed, offset=0):
+def _flash_case(torch, att, shape_q, shape_kv, dt, causal, seed, offset=0,
+                counter="launches"):
     """q, k, v of the given shapes (each a contiguous view ``offset``
     elements into its storage), held to the plain version within 2e-4
-    (float32) or 2e-2 (bfloat16); returns the kernel's output."""
+    (float32) or 2e-2 (bfloat16), one count of ``flash_attention.<counter>``;
+    returns the kernel's output."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def make(shape):
@@ -106,11 +109,11 @@ def _flash_case(torch, att, shape_q, shape_kv, dt, causal, seed, offset=0):
         return buf[offset:].view(shape)
 
     q, k, v = make(shape_q), make(shape_kv), make(shape_kv)
-    before = att.flash_attention.launches
+    before = getattr(att.flash_attention, counter)
     got = att.flash_attention(q, k, v, causal=causal)
     want = att.flash_attention_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert att.flash_attention.launches == before + 1
+    assert getattr(att.flash_attention, counter) == before + 1
     assert got.dtype == dt and got.shape == q.shape
     tol = 2e-4 if dt == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
@@ -164,21 +167,23 @@ def test_nan_past_the_kv_tail_never_leaks(cuda):
     assert torch.isfinite(out).all()
 
 
-@pytest.mark.parametrize("case", ["float16", "non_contiguous", "d513"])
+@pytest.mark.parametrize("case", ["float16", "non_contiguous",
+                                  "unequal_head_dims"])
 def test_kernel_refuses_what_it_does_not_take(cuda, case):
     torch, att = cuda
     from mxtpu_torch import MXNetError
     q = torch.zeros(1, 2, 8, 64, device="cuda")
+    k = torch.zeros_like(q)
     if case == "float16":
-        q = q.half()
+        q, k = q.half(), k.half()
     elif case == "non_contiguous":
         q = torch.zeros(1, 8, 2, 64, device="cuda").transpose(1, 2)
-    else:  # past the wide pair's limit
+    else:  # every head dim runs; q's and k's must agree
         q = torch.zeros(1, 2, 8, 513, device="cuda")
-    k = torch.zeros_like(q).contiguous()
     before = (att.flash_attention.launches,
               att.flash_attention.wide_launches)
-    with pytest.raises(MXNetError, match="513" if case == "d513" else None):
+    with pytest.raises(MXNetError, match="head dims differ"
+                       if case == "unequal_head_dims" else None):
         att.flash_attention(q, k, k)
     assert (att.flash_attention.launches,
             att.flash_attention.wide_launches) == before
@@ -199,7 +204,7 @@ def test_flash_kernel_takes_every_head_dim_up_to_128(cuda, dtype, causal, d):
     assert out.is_contiguous()
 
 
-WIDE_HEAD_DIMS = [129, 160, 192, 256, 512]
+WIDE_HEAD_DIMS = [129, 160, 192, 256, 512, 513, 640, 1024]
 WIDE_SHAPES = [(65, 129), (129, 63), (200, 200), (17, 0)]  # T<S, T>S, S=0
 
 
@@ -257,6 +262,22 @@ def test_wide_flash_backward_matches_plain_version(cuda, dtype, causal, d, t,
                for x in got)
 
 
+@pytest.mark.parametrize("dtype,offset", [("float32", 1), ("float32", 2),
+                                          ("bfloat16", 1), ("bfloat16", 4)])
+@pytest.mark.parametrize("d", [129, 256])
+def test_wide_flash_storage_offsets(cuda, dtype, offset, d):
+    """The wide pair on views 4 to 8 bytes into their storage (not 16-byte
+    aligned: 4-byte copies in float32, plain loads in bfloat16), causal,
+    T != S: the forward within 2e-4 / 2e-2 of the plain version and the
+    backward held as above, NaN before and past every view."""
+    torch, att = cuda
+    dt = getattr(torch, dtype)
+    _flash_case(torch, att, (1, 2, 70, d), (1, 2, 97, d), dt, True,
+                seed=d + offset, offset=offset, counter="wide_launches")
+    _bwd_case(torch, att, 70, 97, d, dt, True, seed=d * offset,
+              offset=offset, tail=64)
+
+
 def test_wide_flash_autograd_on_the_card(cuda):
     """FlashAttentionFunction at D=256 runs the wide forward and backward
     once each and neither tensor-core kernel."""
@@ -272,6 +293,24 @@ def test_wide_flash_autograd_on_the_card(cuda):
     torch.cuda.synchronize()
     assert count() == (before[0], before[1], before[2] + 1, before[3] + 1)
     assert bool(torch.isfinite(q.grad).all())
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_tiling_reports_the_column_blocks(cuda, d):
+    """flash_attn_wide_tiling, which chip_smoke.py's route figures and
+    block counts read: one column block a 256-column chunk of D, whole
+    16-row tiles, in both types and directions; d = 0 refused."""
+    import chip_smoke
+    import mxtpu_torch as mt
+    torch, _ = cuda
+    for dtype in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            tiling = chip_smoke.wide_tiling(mt, d, dtype, backward)
+            assert tiling["columns"] == 256
+            assert tiling["blocks"] == -(-d // 256)
+            assert tiling["rows"] % 16 == 0 and tiling["rows"] > 0
+    with pytest.raises(AssertionError, match="refuses"):
+        chip_smoke.wide_tiling(mt, 0, torch.float32)
 
 
 def _epilogue_inputs(torch, shape, axis, dtype, residual, seed):
