@@ -2,7 +2,7 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...,ssd,surface]
+                          [--phases kernels,epilogue,...,surface,records]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
@@ -208,7 +208,46 @@ Phases (any failure raises and exits non-zero):
    launched once a layer each; the served forward's and the step's ms,
    and with ``--parent`` the same with the other tree's wide pair, in
    turns.
-13. Prints the kernels' JSON line, then the device line last.
+13. The record pipeline (``records``; BASELINE configs 2 and 5 fed from
+   ``.rec`` files). Packs, with the port's packers under a temporary
+   directory, a train ``.rec``/``.idx`` of 1,280 JPEGs at 256x256 (the
+   edge ``im2rec --resize 256`` leaves ImageNet at; labels the
+   brightened channel of ``make_rec``'s images, so there is something to
+   learn), a val ``.rec`` of 512 and a detection ``.rec`` of 64 painted
+   boxes at 300x300, printing each one's seconds and bytes. Then
+   ``ImageRecordIter`` alone as train_imagenet.py:65-70 sets it (B=256,
+   224x224, shuffle, rand_crop, rand_mirror, the ImageNet means): two
+   epochs at 4 and 8 decode threads, images/s beside the ~670 a second
+   ResNet-50's in-memory step needs; gates: an epoch at 8 threads twice
+   and at 1 thread bit-identical, the first batch equal to a numpy decode
+   (cv2, the same drawn crops, mirrors and means), the tail batch's pad
+   and wrapped rows, ``ImageRecordUInt8Iter``'s pixels equal to the float
+   iterator's. Then config 2 end to end (``train_imagenet_twin``: every
+   line of train_imagenet.py:64-106 in the port's names): ResNet-50 v2
+   ``Module.fit`` on gpu(0) from the train ``.rec`` through
+   ``ResizeIter(train, 5)`` for 2 epochs, SGD lr 0.1, momentum 0.9, wd
+   1e-4 with ``MultiFactorScheduler``, ``kvstore="local"``, ``Accuracy``
+   and ``TopKAccuracy(top_k=5)``, ``Speedometer``, the val ``.rec``
+   scored each epoch; prints the step ms and images/s (medians inside an
+   epoch), the iterator's wait each step (host clock), then the same
+   module on one record batch: its step from the cpu() batch and from
+   the batch on the card, the batch's host-to-card copy (pageable,
+   pinned), the card's busy share (the kernels and copies of a profiled
+   step over the record-fed median), and phase 7's in-memory fit step by
+   the same statistic when phase 7 ran. Gates: a finite cross-entropy that
+   ends lower than it starts, the evaluation forward on a val batch with
+   50 epilogue launches within 1e-4 of the plain epilogue,
+   ``Module.predict`` over the val iterator (2 batches, 50 launches
+   each), TopKAccuracy's device sum equal to its host sum. Then config 5:
+   the SSD (vgg16_reduced, 300x300, B=32) through ``Module.fit`` from the
+   detection ``.rec`` by ``ImageDetRecordIter`` as examples/ssd/
+   train.py:81-84 sets it, 2 epochs of 2 steps (step ms, images/s, the
+   iterator's wait); gates: a finite loss, the label boxes in [0, 1], the
+   suppression kernel once a step; then ``ssd_eval`` through
+   ``ImageDetRecordIter`` as evaluate.py:130 sets it: the kernel once a
+   batch, bit for bit against its plain loop.
+14. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records`` paths included), then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -252,6 +291,7 @@ import argparse
 import json
 import logging
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -429,9 +469,18 @@ WIDE_LM_TURNS = dict(rounds=10, served=10, step=5)
 # examples/module/python_loss.py's settings and its gate (test_examples_
 # gate.py's test_python_loss_module_gate)
 PYLOSS = dict(epochs=8, batch_size=32, num_examples=1024, seed=4, gate=0.9)
+# phase 13: 1,280 + 512 JPEGs at 256x256 (im2rec --resize 256's edge) whose
+# labels are the brightened channel (i % 3) of make_rec's images, and 64
+# painted-box images at 300x300; B=256 (train_imagenet.py's default);
+# ResNet-50's in-memory step of ~381 ms at B=256 needs ~670 images/s
+RECORDS = dict(train=1280, val=512, edge=256, label_classes=3, det=64,
+               det_edge=300, batch=256, threads=(4, 8), iter_epochs=2,
+               need_images_per_s=670, tail_batch=200, uint8_batches=2,
+               epochs=2, epoch_size=5, speedometer_period=2,
+               memory_steps=4, ssd_batch=32, ssd_epochs=2)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
-          "surface")
+          "surface", "records")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -1948,6 +1997,7 @@ def phase_resnet_training(mt, epi, seed, card, profile=False):
         row = dict(batch=b, steps=steps, ce=ce, step_ms=ms,
                    step_ms_mean=float(warm.mean()),
                    step_ms_within_epoch=float(inner.mean()),
+                   step_ms_within_epoch_median=float(np.median(inner)),
                    checkpoint_ms=ckpt.ms,
                    images_per_s=float(b / (warm.mean() / 1e3)),
                    max_memory_allocated=int(peak))
@@ -3899,6 +3949,11 @@ def multi_gpu(args, card):
         log("[surface]")
         results["surface"] = phase_surface(mt, att, epi, args.seed, card,
                                            parents)
+    # 13. the record pipeline: configs 2 and 5 fed from .rec files
+    if "records" in phases:
+        log("[records]")
+        results["records"] = phase_records(mt, epi, args.seed, card,
+                                           results.get("resnet_training"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5268,19 +5323,20 @@ def ssd_training(mt, contrib, ssd_data, weights, seed, card):
 
 
 def ssd_eval(mt, contrib, ssd_data, params, seed, card, batch_size=None,
-             nms_topk=None, num_batches=SSD_EVAL):
+             nms_topk=None, num_batches=SSD_EVAL, it=None):
     """get_symbol at B=32 (or ``batch_size``) and nms_topk 400 (or
     ``nms_topk``) through Module.forward(is_train=False) on gpu(0) with
     the trained weights over ``num_batches`` batches of held-out synthetic
-    images: the detections on the kernel route equal the plain route's
-    (the sweep's plain version on the card) bit for bit, one kernel
-    launch a batch; MApMetric's host ms."""
+    images (or every batch of the iterator ``it``): the detections on the
+    kernel route equal the plain route's (the sweep's plain version on the
+    card) bit for bit, one kernel launch a batch; MApMetric's host ms."""
     cfg = SSD
     batch_size = batch_size or cfg["batch"]
     nms_topk = nms_topk or cfg["nms_topk"]
     shape = (3, cfg["data_shape"], cfg["data_shape"])
-    it = ssd_data.SynthDetIter(batch_size, shape, cfg["num_classes"],
-                               num_batches=num_batches, seed=seed + 77)
+    if it is None:
+        it = ssd_data.SynthDetIter(batch_size, shape, cfg["num_classes"],
+                                   num_batches=num_batches, seed=seed + 77)
     batches = list(it)
     mod = mt.mod.Module(mt.models.ssd.get_symbol(
         num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
@@ -6147,6 +6203,555 @@ def phase_surface(mt, att, epi, seed, card, parents=()):
     return res
 
 
+# ---------------------------------------------------------------- phase 13
+def train_imagenet_twin(mt, ctx, data_train, data_val=None, num_layers=50,
+                        image_shape=(3, 224, 224), num_classes=1000,
+                        batch_size=256, num_epochs=1, lr=0.1,
+                        lr_step_epochs="30,60", kv_store="local",
+                        epoch_size=0, speedometer_period=20, wrap=None,
+                        callbacks=(), logger=None):
+    """examples/image_classification/train_imagenet.py:64-106 through the
+    port's names, on ``ctx``: ResNet (v2) from ``mt.models.get_resnet``,
+    ``kv.create(kv_store)``, ``io.ImageRecordIter`` over ``data_train``
+    (shuffle, rand_crop, rand_mirror, the ImageNet means, the kvstore's
+    part) cut to ``epoch_size`` batches by ``io.ResizeIter``, a centre-
+    cropped ``ImageRecordIter`` over ``data_val``, SGD (momentum 0.9, wd
+    1e-4) with ``MultiFactorScheduler``, ``Accuracy`` and
+    ``TopKAccuracy(top_k=5)``, and a ``Speedometer`` whose readings are
+    kept. ``wrap`` (if given) wraps the train iterator before the resize,
+    ``callbacks`` run after the Speedometer. Returns (module, speeds,
+    the train ImageRecordIter, the val one or None)."""
+    net = mt.models.get_resnet(num_classes=num_classes,
+                               num_layers=num_layers,
+                               image_shape=image_shape)
+    kv = mt.kv.create(kv_store)
+    train = records = mt.io.ImageRecordIter(
+        path_imgrec=data_train, data_shape=image_shape,
+        batch_size=batch_size, shuffle=True, rand_mirror=True,
+        rand_crop=True, mean_r=123.68, mean_g=116.779, mean_b=103.939,
+        num_parts=kv.num_workers, part_index=kv.rank)
+    if wrap is not None:
+        train = wrap(train)
+    if epoch_size:
+        train = mt.io.ResizeIter(train, epoch_size)
+    val = None
+    if data_val:
+        val = mt.io.ImageRecordIter(
+            path_imgrec=data_val, data_shape=image_shape,
+            batch_size=batch_size,
+            mean_r=123.68, mean_g=116.779, mean_b=103.939)
+    steps = [int(e) for e in lr_step_epochs.split(",") if e]
+    lr_sched = mt.lr_scheduler.MultiFactorScheduler(
+        step=[s * 5000 for s in steps], factor=0.1) if steps else None
+    mod = mt.mod.Module(net, context=ctx,
+                        **({"logger": logger} if logger else {}))
+    speeds = []
+
+    class _MeterHook(mt.callback.Speedometer):
+        def _emit(self, param, speed):
+            speeds.append(speed)
+            super()._emit(param, speed)
+
+    mod.fit(train, eval_data=val, num_epoch=num_epochs, kvstore=kv,
+            optimizer="sgd",
+            optimizer_params={"learning_rate": lr, "momentum": 0.9,
+                              "wd": 1e-4, "lr_scheduler": lr_sched},
+            eval_metric=[mt.metric.Accuracy(),
+                         mt.metric.TopKAccuracy(top_k=5)],
+            batch_end_callback=[_MeterHook(batch_size, speedometer_period)]
+            + list(callbacks))
+    return mod, speeds, records, val
+
+
+class WaitClock:
+    """A DataIter that passes another one's batches through and keeps the
+    host-clock ms each ``next()`` waited for its batch."""
+
+    def __init__(self, it):
+        self.it = it
+        self.waits = []
+        self.batch_size = it.batch_size
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next()
+
+    def reset(self):
+        self.it.reset()
+
+    def next(self):
+        t0 = time.perf_counter()
+        try:
+            return self.it.next()
+        finally:
+            self.waits.append((time.perf_counter() - t0) * 1e3)
+
+
+def records_pack(mt, tmp, seed):
+    """The train, val and detection ``.rec`` files under ``tmp``, packed
+    by the port's packers; seconds and bytes of each."""
+    cfg = RECORDS
+    out = {}
+    for name, fn, kw in (
+            ("train", mt.test_utils.make_rec,
+             dict(n=cfg["train"], edge=cfg["edge"], seed=seed,
+                  num_classes=cfg["label_classes"])),
+            ("val", mt.test_utils.make_rec,
+             dict(n=cfg["val"], edge=cfg["edge"], seed=seed + 1,
+                  num_classes=cfg["label_classes"])),
+            ("det", mt.test_utils.make_det_rec,
+             dict(n=cfg["det"], edge=cfg["det_edge"], seed=seed + 2,
+                  num_classes=SSD["num_classes"]))):
+        path = os.path.join(tmp, name + ".rec")
+        t0 = time.perf_counter()
+        fn(path, **kw)
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        out[name] = {"path": path, "records": kw["n"], "seconds": secs,
+                     "bytes": size}
+        log("  packed %s: %d records at %dx%d in %.2f s, %d bytes (%.1f KB "
+            "a record)" % (name, kw["n"], kw["edge"], kw["edge"], secs, size,
+                           size / kw["n"] / 1e3))
+    return out
+
+
+def _digest(batch):
+    import hashlib
+    h = hashlib.sha1(batch.data[0].asnumpy().tobytes())
+    h.update(batch.label[0].asnumpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_recipe(mt, path, threads, **kw):
+    """train_imagenet.py's train ImageRecordIter at B=256, 224x224."""
+    args = dict(path_imgrec=path, data_shape=RESNET["image_shape"],
+                batch_size=RECORDS["batch"], shuffle=True, rand_crop=True,
+                rand_mirror=True, mean_r=123.68, mean_g=116.779,
+                mean_b=103.939, preprocess_threads=threads)
+    args.update(kw)
+    return mt.io.ImageRecordIter(**args)
+
+
+def numpy_first_batch(path, seed, shape, batch, mean):
+    """The first batch of the train recipe, decoded independently: the
+    epoch's order from ``RandomState(seed)``, cv2 decodes, the crops and
+    mirrors from ``RandomState(seed + 12345)`` in record order, minus
+    the means, NCHW."""
+    import cv2
+    from mxtpu_torch import recordio
+    rec = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                     path, "r")
+    order = list(rec.keys)
+    np.random.RandomState(seed).shuffle(order)
+    rng = np.random.RandomState(seed + 12345)
+    c, h, w = shape
+    data = np.empty((batch, c, h, w), np.float32)
+    label = np.empty(batch, np.float32)
+    for i, key in enumerate(order[:batch]):
+        header, buf = recordio.unpack(rec.read_idx(key))
+        img = cv2.cvtColor(cv2.imdecode(np.frombuffer(buf, np.uint8), 1),
+                           cv2.COLOR_BGR2RGB)
+        H, W = img.shape[:2]
+        y0 = rng.randint(0, H - h + 1)
+        x0 = rng.randint(0, W - w + 1)
+        img = img[y0:y0 + h, x0:x0 + w]
+        if rng.rand() < 0.5:
+            img = img[:, ::-1]
+        data[i] = (img.astype(np.float32) - mean).transpose(2, 0, 1)
+        label[i] = header.label
+    rec.close()
+    return data, label
+
+
+def records_iterator(mt, paths, seed, card):
+    """The train recipe's ImageRecordIter alone (see phase 13 in the
+    module docstring): images/s at each thread count over two epochs,
+    beside the rate ResNet-50's in-memory step needs; the gates on its
+    batches."""
+    cfg = RECORDS
+    train = paths["train"]["path"]
+    b = cfg["batch"]
+    rates, first_epochs = {}, {}
+    for threads in cfg["threads"]:
+        it = _train_recipe(mt, train, threads, seed=seed)
+        epochs = []
+        for epoch in range(cfg["iter_epochs"]):
+            if epoch:
+                it.reset()
+            t0 = time.perf_counter()
+            digests = [_digest(batch) for batch in it]
+            secs = time.perf_counter() - t0
+            epochs.append(len(digests) * b / secs)
+            if not epoch:
+                first_epochs[threads] = digests
+        it.close()
+        rates[threads] = {"epochs_images_per_s": epochs,
+                          "images_per_s": float(np.mean(epochs))}
+        log("  [%s] ImageRecordIter B=%d %s (crop, mirror, means), "
+            "preprocess_threads=%d: images/s by epoch %s, mean %.1f; "
+            "ResNet-50's in-memory step needs %d"
+            % (card, b, "x".join(map(str, RESNET["image_shape"][1:])),
+               threads, [round(v, 1) for v in epochs],
+               rates[threads]["images_per_s"], cfg["need_images_per_s"]))
+    many = max(cfg["threads"])
+    again = _train_recipe(mt, train, many, seed=seed)
+    second = [_digest(batch) for batch in again]
+    again.close()
+    one = _train_recipe(mt, train, 1, seed=seed)
+    t0 = time.perf_counter()
+    single, first = [], None
+    for batch in one:
+        first = first or batch
+        single.append(_digest(batch))
+    rates[1] = {"images_per_s": len(single) * b
+                / (time.perf_counter() - t0)}
+    one.close()
+    same = {t: d == second for t, d in first_epochs.items()}
+    log("  an epoch at %d threads, twice, and at 1 thread (%.1f images/s): "
+        "%d batches, bit-identical %s; at 1 thread %s"
+        % (many, rates[1]["images_per_s"], len(second), same,
+           single == second))
+    if not (first_epochs[many] == second == single and all(same.values())):
+        raise AssertionError("ImageRecordIter's batches depend on the run "
+                             "or the thread count: %s, 1 thread %s"
+                             % (same, single == second))
+    mean = np.array([123.68, 116.779, 103.939], np.float32)
+    want, want_label = numpy_first_batch(train, seed, RESNET["image_shape"],
+                                         b, mean)
+    got = first.data[0].asnumpy()
+    decode_err = float(np.abs(got - want).max())
+    label_ok = bool(np.array_equal(first.label[0].asnumpy(), want_label))
+    log("  first batch vs a numpy decode (cv2, the same drawn crops, "
+        "mirrors and means): max abs err %.3e, labels equal %s"
+        % (decode_err, label_ok))
+    if decode_err != 0.0 or not label_ok:
+        raise AssertionError("ImageRecordIter's first batch differs from "
+                             "the numpy decode: %g" % decode_err)
+    val = paths["val"]["path"]
+    n_val = paths["val"]["records"]
+    tail_b = cfg["tail_batch"]
+    it = mt.io.ImageRecordIter(path_imgrec=val, data_shape=RESNET[
+        "image_shape"], batch_size=tail_b, preprocess_threads=many)
+    batches = list(it)
+    it.close()
+    tail = batches[-1]
+    n = n_val - (len(batches) - 1) * tail_b
+    td = tail.data[0].asnumpy()
+    wrap_ok = all(np.array_equal(td[n + j], td[j % n])
+                  for j in range(tail_b - n))
+    log("  val at B=%d: %d batches, tail pad %d (want %d), wrapped rows "
+        "== the tail's first rows %s" % (tail_b, len(batches), tail.pad,
+                                         tail_b - n, wrap_ok))
+    if tail.pad != tail_b - n or not wrap_ok:
+        raise AssertionError("the tail batch's pad %s is wrong" % tail.pad)
+    kw = dict(path_imgrec=train, data_shape=RESNET["image_shape"],
+              batch_size=b, shuffle=True, rand_crop=True, rand_mirror=True,
+              preprocess_threads=many, seed=seed)
+    raw = mt.io.ImageRecordUInt8Iter(**kw)
+    flt = mt.io.ImageRecordIter(**kw)
+    u8_same = []
+    for _ in range(cfg["uint8_batches"]):
+        bu, bf = raw.next(), flt.next()
+        u8_same.append(bu.data[0].dtype == torch.uint8 and np.array_equal(
+            bu.data[0].asnumpy().astype(np.float32), bf.data[0].asnumpy()))
+    raw.close()
+    flt.close()
+    log("  ImageRecordUInt8Iter's pixels == the float iterator's before "
+        "means, %d batches: %s" % (len(u8_same), u8_same))
+    if not all(u8_same):
+        raise AssertionError("ImageRecordUInt8Iter differs from the float "
+                             "iterator")
+    return {"rates": rates, "decode_err": decode_err,
+            "tail_pad": tail.pad, "uint8_equal": u8_same}
+
+
+def _softmax_ce(probs, labels):
+    p = probs.double()
+    idx = labels.to(device=p.device, dtype=torch.long).reshape(-1)
+    return float(-torch.log(p[torch.arange(len(idx)), idx]
+                            .clamp_min(1e-30)).mean())
+
+
+def record_step_parts(mt, mod, records, n):
+    """What a record-fed step of ``mod`` is made of, on one batch from the
+    ImageRecordIter ``records``, each the median of ``n`` timed runs after
+    a warm one: the step from the cpu() batch (the fit's path: the module
+    copies it in), the step from the same batch on the card, the batch's
+    host-to-card copy from pageable and from pinned memory, and the
+    kernel and copy ms of one profiled step from the cpu() batch."""
+    records.reset()
+    host = records.next()
+    card_batch = mt.io.DataBatch(
+        [host.data[0].as_in_context(mt.gpu(0))],
+        [host.label[0].as_in_context(mt.gpu(0))])
+
+    def median_ms(fn):
+        times = []
+        for i in range(n + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(times))
+
+    def step(batch):
+        mod.forward_backward(batch)
+        mod.update()
+
+    x = host.data[0]._data
+    dev = card_batch.data[0]._data.device
+    pinned = x.pin_memory()
+    kernels = step_kernels(lambda: step(host))
+    return {"host_batch_step_ms": median_ms(lambda: step(host)),
+            "card_batch_step_ms": median_ms(lambda: step(card_batch)),
+            "copy_ms_pageable": median_ms(lambda: x.to(dev)),
+            "copy_ms_pinned": median_ms(
+                lambda: pinned.to(dev, non_blocking=True)),
+            "batch_bytes": x.numel() * x.element_size(),
+            "device_ms": kernels[0][1] if kernels else float("nan")}
+
+
+def records_config2(mt, epi, paths, seed, card, resnet_row=None):
+    """ResNet-50 v2 through ``train_imagenet_twin`` on gpu(0) from the
+    train ``.rec`` (B=256, ``ResizeIter`` of RECORDS["epoch_size"]
+    batches, RECORDS["epochs"] epochs, the val ``.rec`` scored after
+    each), then the evaluation forward's gate, ``Module.predict`` over
+    the val iterator and TopKAccuracy's device sum against its host sum
+    (see phase 13 in the module docstring)."""
+    cfg = RECORDS
+    b = cfg["batch"]
+    clock = []
+    ce, stamps = [], []
+
+    def record(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        mod_ = param.locals["self"]
+        ce.append(_softmax_ce(mod_.get_outputs()[0]._data,
+                              param.locals["data_batch"].label[0]._data))
+
+    def wrap(it):
+        clock.append(WaitClock(it))
+        return clock[0]
+
+    np.random.seed(seed)  # the initializer's draws
+    torch.cuda.synchronize()
+    epi.bn_apply_relu_add.launches = 0  # the fit's scoring forwards
+    t0 = time.perf_counter()
+    mod, speeds, train, val = train_imagenet_twin(
+        mt, mt.gpu(0), paths["train"]["path"], paths["val"]["path"],
+        num_layers=RESNET["num_layers"], image_shape=RESNET["image_shape"],
+        num_classes=RESNET["num_classes"], batch_size=b,
+        num_epochs=cfg["epochs"], epoch_size=cfg["epoch_size"],
+        speedometer_period=cfg["speedometer_period"], wrap=wrap,
+        callbacks=[record], logger=_quiet_logger())
+    fit_eval_launches = epi.bn_apply_relu_add.launches
+    ms = [float(v) * 1e3 for v in np.diff([t0] + stamps)]
+    waits = clock[0].waits
+    steps = cfg["epochs"] * cfg["epoch_size"]
+    # a step inside an epoch: not the first (the iterator's reset, the
+    # previous epoch's scoring of the val .rec)
+    inner = [v for i, v in enumerate(ms) if i % cfg["epoch_size"]]
+    med = float(np.median(inner))
+    log("  [%s] ResNet-50 v2 fit from the train .rec (B=%d, %d epochs of "
+        "ResizeIter %d, val .rec scored each epoch): CE by step %s"
+        % (card, b, cfg["epochs"], cfg["epoch_size"],
+           [round(v, 4) for v in ce]))
+    if len(ce) != steps or not np.all(np.isfinite(ce)) or \
+            not ce[-1] < ce[0]:
+        raise AssertionError("ResNet-50 from records did not lower a finite "
+                             "cross-entropy: %s" % ce)
+    row = {"batch": b, "steps": steps, "ce": ce, "step_ms": ms,
+           "step_ms_median": med, "images_per_s": b / (med / 1e3),
+           "wait_ms": waits, "wait_ms_median": float(np.median(
+               [w for i, w in enumerate(waits) if i % cfg["epoch_size"]])),
+           "speedometer": speeds, "fit_eval_launches": fit_eval_launches}
+    row.update(record_step_parts(mt, mod, train, cfg["memory_steps"]))
+    row["busy_share"] = row["device_ms"] / med
+    # phase 7's fit (device_prefetch, metric_sync=1, a checkpoint each
+    # epoch) by the same statistic: the median of its steps inside an
+    # epoch
+    row["phase7_step_ms"] = (resnet_row or {}).get(
+        "step_ms_within_epoch_median")
+    log("  [%s] step from records %.2f ms median inside an epoch (%s), "
+        "%.1f images/s; the iterator's wait a step %.2f ms median (%s); "
+        "Speedometer %s"
+        % (card, med, [round(v, 1) for v in ms], row["images_per_s"],
+           row["wait_ms_median"], [round(v, 1) for v in waits],
+           [round(v, 1) for v in speeds]))
+    log("  [%s] the same module on one record batch, medians of %d: step "
+        "from the cpu() batch %.2f ms, from the batch on the card %.2f ms; "
+        "the batch's host-to-card copy %.2f ms pageable, %.2f ms pinned "
+        "(%d bytes); %.2f ms of kernels and copies in a profiled step from "
+        "the cpu() batch: busy %.1f %% of the record-fed median; phase 7's "
+        "in-memory fit step, median inside an epoch: %s ms"
+        % (card, cfg["memory_steps"], row["host_batch_step_ms"],
+           row["card_batch_step_ms"], row["copy_ms_pageable"],
+           row["copy_ms_pinned"], row["batch_bytes"], row["device_ms"],
+           100 * row["busy_share"], row["phase7_step_ms"]))
+
+    val.reset()  # the fit's last scoring pass ran it to its end
+    vbatch = val.next()
+
+    def forward():
+        mod.forward(vbatch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    row.update(eval_forward_gate(
+        epi, forward, lambda: mod._exec_group.execs[0].fused_sites,
+        "from records, the val .rec's evaluation forward"))
+    epi.bn_apply_relu_add.launches = 0
+    pred = mod.predict(val)
+    torch.cuda.synchronize()
+    row["predict_launches"] = epi.bn_apply_relu_add.launches
+    n_val = paths["val"]["records"]
+    val_batches = -(-n_val // b)
+    log("  Module.predict over the val ImageRecordIter: %s, %d batches, "
+        "epilogue launches %d, finite %s"
+        % (tuple(pred.shape), val_batches, row["predict_launches"],
+           bool(torch.isfinite(pred._data).all())))
+    if pred.shape != (n_val, RESNET["num_classes"]) or \
+            row["predict_launches"] != RESNET_SITES * val_batches or \
+            not bool(torch.isfinite(pred._data).all()):
+        raise AssertionError("predict over the val records: %s, %d launches"
+                             % (pred.shape, row["predict_launches"]))
+    val.reset()
+    labels = torch.cat([vb.label[0]._data for vb in val])[:n_val]
+    host = mt.metric.TopKAccuracy(top_k=5)
+    host.update([mt.nd.array(labels, ctx=mt.cpu())],
+                [mt.nd.array(pred._data.cpu(), ctx=mt.cpu())])
+    dev = mt.metric.TopKAccuracy(top_k=5)
+    accum = mt.metric.DeviceMetricAccum.wrap(dev)
+    accum.update([labels.to(pred._data.device)], [pred._data])
+    accum.sync()
+    row["topk"] = {"host": [host.sum_metric, host.num_inst],
+                   "device": [dev.sum_metric, dev.num_inst],
+                   "syncs": accum.syncs}
+    log("  TopKAccuracy(5) over the val predictions: host %s, device %s "
+        "(%d host copy)" % (row["topk"]["host"], row["topk"]["device"],
+                             accum.syncs))
+    if row["topk"]["host"] != row["topk"]["device"]:
+        raise AssertionError("TopKAccuracy's device sum differs from its "
+                             "host sum: %s" % row["topk"])
+    for it_ in (train, val):
+        it_.close()
+    del mod
+    torch.cuda.empty_cache()
+    return row
+
+
+def records_config5(mt, paths, seed, card):
+    """The SSD (vgg16_reduced, 300x300, B=32) through ``Module.fit`` from
+    the detection ``.rec`` by ``ImageDetRecordIter`` as examples/ssd/
+    train.py:81-84 sets it, then ``ssd_eval`` through ``ImageDetRecordIter``
+    as evaluate.py:130 sets it (see phase 13 in the module docstring)."""
+    from mxtpu_torch.models import ssd_data
+    from mxtpu_torch.ops import contrib
+    cfg = SSD
+    b = RECORDS["ssd_batch"]
+    shape = (3, cfg["data_shape"], cfg["data_shape"])
+    det = paths["det"]["path"]
+    train = mt.io.ImageDetRecordIter(
+        path_imgrec=det, data_shape=shape, batch_size=b, shuffle=True,
+        mean_pixels=(123, 117, 104), rand_mirror_prob=0.5)
+    mod = mt.mod.Module(mt.models.ssd.get_symbol_train(
+        num_classes=cfg["num_classes"], num_scales=cfg["num_scales"],
+        network=cfg["network"]), label_names=("label",), context=mt.gpu(0),
+        logger=_quiet_logger())
+    ce, stamps, boxes = [], [], []
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        m = ssd_data.MultiBoxMetric()
+        m.update(None, param.locals["self"].get_outputs()[:3])
+        ce.append(float(m.get()[1][0]))
+        lab = param.locals["data_batch"].label[0].asnumpy()
+        valid = lab[..., 0] >= 0
+        boxes.append((int(valid.sum()), float(lab[valid][:, 1:5].min()),
+                      float(lab[valid][:, 1:5].max())))
+
+    random.seed(seed)  # the mirror's draws
+    np.random.seed(seed)  # Xavier's
+    contrib.nms_keep.launches = 0
+    clock = WaitClock(train)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(clock, num_epoch=RECORDS["ssd_epochs"],
+            eval_metric=ssd_data.MultiBoxMetric(), optimizer="sgd",
+            optimizer_params=SSD_OPT, initializer=mt.init.Xavier(),
+            batch_end_callback=[mt.callback.Speedometer(b, 10, log=False),
+                                batch_end])
+    fit_launches = contrib.nms_keep.launches
+    ms = [float(v) * 1e3 for v in np.diff([t0] + stamps)]
+    steps = len(stamps)
+    in_box = all(lo >= 0.0 and hi <= 1.0 for _, lo, hi in boxes)
+    steady = ms[1:] or ms
+    med = float(np.median(steady))
+    log("  [%s] SSD fit from the det .rec through ImageDetRecordIter (B=%d, "
+        "%d epochs, %d steps): CE %s, step ms %s (%.2f median after the "
+        "first, %.1f images/s), the iterator's wait a step %s ms; label "
+        "boxes in [0, 1]: %s (objects, min, max a batch %s); multibox_nms "
+        "launches %d"
+        % (card, b, RECORDS["ssd_epochs"], steps, [round(v, 4) for v in ce],
+           [round(v, 1) for v in ms], med, b / (med / 1e3),
+           [round(v, 1) for v in clock.waits], in_box, boxes,
+           fit_launches))
+    if not np.all(np.isfinite(ce)) or steps != RECORDS["ssd_epochs"] * (
+            paths["det"]["records"] // b):
+        raise AssertionError("SSD from records: CE %s over %d steps"
+                             % (ce, steps))
+    if not in_box or fit_launches != steps:
+        raise AssertionError("SSD from records: boxes in [0, 1] %s, "
+                             "suppression launches %d in %d steps"
+                             % (in_box, fit_launches, steps))
+    trained = mod.get_params()[0]
+    train.close()
+    del mod
+    torch.cuda.empty_cache()
+    ev = mt.io.ImageDetRecordIter(path_imgrec=det, data_shape=shape,
+                                  batch_size=b, mean_pixels=(123, 117, 104))
+    res = ssd_eval(mt, contrib, ssd_data, trained, seed, card, it=ev)
+    ev.close()
+    return {"ce": ce, "step_ms": ms, "step_ms_median": med,
+            "images_per_s": b / (med / 1e3), "wait_ms": clock.waits,
+            "boxes": boxes,
+            "fit_launches": fit_launches, "eval": res}
+
+
+def phase_records(mt, epi, seed, card, resnet_row=None):
+    """Phase 13: the record pipeline (see the module docstring)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    try:
+        t0 = time.perf_counter()
+        paths = records_pack(mt, tmp, seed)
+        res = {"pack": {k: {kk: vv for kk, vv in v.items() if kk != "path"}
+                        for k, v in paths.items()}}
+        res["iterator"] = records_iterator(mt, paths, seed, card)
+        res["config2"] = records_config2(mt, epi, paths, seed, card,
+                                         resnet_row)
+        res["config5"] = records_config5(mt, paths, seed, card)
+        res["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c2, c5 = res["config2"], res["config5"]
+    res["launches"] = {
+        "epilogue": {"records_fit_eval": c2["fit_eval_launches"],
+                     "records_eval": c2["eval_launches"],
+                     "records_predict": c2["predict_launches"]},
+        "nms": {"records_ssd_fit": c5["fit_launches"],
+                "records_ssd_eval": c5["eval"]["launches"]}}
+    log("  records phase %.1f s" % res["seconds"])
+    return res
+
+
 def image_packages():
     """{"cv2": version or "absent", "PIL": ...} on this machine."""
     import importlib
@@ -6298,6 +6903,11 @@ def main(argv=None):
         log("[surface]")
         results["surface"] = phase_surface(mt, att, epi, args.seed, card,
                                            parents)
+    # 13. the record pipeline: configs 2 and 5 fed from .rec files
+    if "records" in phases:
+        log("[records]")
+        results["records"] = phase_records(mt, epi, args.seed, card,
+                                           results.get("resnet_training"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -6326,6 +6936,7 @@ def main(argv=None):
     surf_lm, wide_lm = surface["lm"], surface["wide_lm"]
     wide = next(r for r in results["flash_wide"]["timed"]
                 if r["dtype"] == "float32")
+    rec_launches = results["records"]["launches"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -6344,12 +6955,15 @@ def main(argv=None):
         "source": "mxtpu_torch/csrc/bn_relu_epilogue.cu",
         "replaces": "mxtpu/ops/epilogue.py:30",
         "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval
-        + surface["resnet"]["launches"],
-        "launches_by_path": {"resnet_serving": resnet["launches"],
-                             "resnet_training_eval": resnet_eval,
-                             "gluon_eval": gluon_eval,
-                             "data_parallel_eval": dp_eval,
-                             "resnet_predict": surface["resnet"]["launches"]},
+        + surface["resnet"]["launches"]
+        + sum(rec_launches["epilogue"].values()),
+        "launches_by_path": dict({"resnet_serving": resnet["launches"],
+                                  "resnet_training_eval": resnet_eval,
+                                  "gluon_eval": gluon_eval,
+                                  "data_parallel_eval": dp_eval,
+                                  "resnet_predict":
+                                  surface["resnet"]["launches"]},
+                                 **rec_launches["epilogue"]),
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],
@@ -6368,8 +6982,9 @@ def main(argv=None):
         "name": "multibox_nms", "route": "cuda",
         "source": "mxtpu_torch/csrc/multibox_nms.cu",
         "replaces": "mxtpu/ops/contrib.py:214",
-        "launches": sum(ssd["launches"].values()),
-        "launches_by_path": ssd["launches"],
+        "launches": sum(ssd["launches"].values())
+        + sum(rec_launches["nms"].values()),
+        "launches_by_path": dict(ssd["launches"], **rec_launches["nms"]),
         "max_abs_err": nms_row["max_abs_err"],
         "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
         "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],

@@ -34,7 +34,12 @@ inspection surface: ``Module.predict``/``iter_predict``, ``monitor``
 (``Monitor`` over the executors' per-op walk), ``SequentialModule``,
 ``PythonLossModule``, ``model.FeedForward``, ``Symbol.get_internals``
 and its kin, and ``Predictor.partial_forward``/``forward_batch``/
-``reshaped`` with ``predict.create`` and ``load_checkpoint_predictor``.
+``reshaped`` with ``predict.create`` and ``load_checkpoint_predictor``;
+the record pipeline: ``recordio`` and its native reader over
+``src/core`` (``_native``, built with g++ on first use), ``image`` (cv2
+decode, the augmenters, ``ImageIter``, ``ImageDetIter``),
+``image_record`` (``ImageRecordIter`` and its kin over the native
+prefetch thread), the rest of ``io`` and ``metric.TopKAccuracy``.
 """
 from . import base
 from .base import MXNetError
@@ -62,6 +67,9 @@ from . import lr_scheduler
 from . import optimizer
 from . import metric
 from . import io
+from . import recordio
+from . import image
+from . import image_record
 from . import kvstore
 from . import kvstore as kv
 from . import model
@@ -80,6 +88,6 @@ __all__ = ["MXNetError", "AttrScope", "attribute", "Context", "cpu", "gpu",
            "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "initializer", "init", "lr_scheduler", "optimizer",
-           "metric", "io", "kvstore", "kv", "model", "callback", "monitor",
-           "module", "mod",
+           "metric", "io", "recordio", "image", "image_record", "kvstore",
+           "kv", "model", "callback", "monitor", "module", "mod",
            "autograd", "gluon", "sharding", "parallel", "rnn", "test_utils"]

@@ -1,7 +1,9 @@
 """Data iterators (parity: python/mxnet/io.py DataDesc/DataBatch/DataIter
-:176, PrefetchingIter and NDArrayIter :516).
+:176, ResizeIter, PrefetchingIter, NDArrayIter :516 and MXDataIter, and
+the C++ iterators of src/io: MNISTIter, CSVIter, LibSVMIter and the
+record iterators, by name through ``create_iterator``).
 
-Counterpart of ``mxtpu/io.py:26-128, 191-440, 466-648``. Batches are
+Counterpart of ``mxtpu/io.py``. Batches are
 assembled on the host, as numpy slices wrapped in cpu() NDArrays; the
 training step copies each batch to its device (``Module``), so an
 iterator never needs a card. ``PrefetchingIter`` fetches the next batch
@@ -11,8 +13,12 @@ which the consumer's stream waits for before it touches the batch.
 """
 from __future__ import annotations
 
+import gzip
+import os
+import struct
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as _np
 import torch
@@ -21,8 +27,12 @@ from .base import MXNetError
 from .context import as_context, cpu, gpu
 from .ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "PrefetchingIter",
-           "DevicePrefetchIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
+           "PrefetchingIter", "DevicePrefetchIter", "NDArrayIter",
+           "register_iter", "MNISTIter", "CSVIter", "MXDataIter",
+           "create_iterator", "ImageRecordIter", "ImageRecordUInt8Iter",
+           "ImageRecordIter_v1", "ImageRecordUInt8Iter_v1",
+           "ImageDetRecordIter", "LibSVMIter"]
 
 
 class DataDesc:
@@ -101,6 +111,79 @@ class DataIter:
 
     def getpad(self):
         pass
+
+    def checkpoint_state(self):
+        """The iterator's position for an exact resume (everything the
+        next ``next()`` needs to return the batch it would have), or None
+        where it cannot say."""
+        return None
+
+    def restore_state(self, state):
+        """Restore a ``checkpoint_state``; False where unsupported."""
+        return False
+
+
+class ResizeIter(DataIter):
+    """Another iterator with its epoch cut or stretched to ``size``
+    batches: the inner iterator is reset whenever it runs out."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+    def checkpoint_state(self):
+        inner = self.data_iter.checkpoint_state()
+        if inner is None:
+            return None
+        return {"cur": self.cur, "inner": inner}
+
+    def restore_state(self, state):
+        if not isinstance(state, dict) or "inner" not in state:
+            return False
+        if not self.data_iter.restore_state(state["inner"]):
+            return False
+        self.cur = int(state["cur"])
+        return True
 
 
 class PrefetchingIter(DataIter):
@@ -400,11 +483,14 @@ class NDArrayIter(DataIter):
     """Iterate over in-memory arrays (parity io.py:516): ``shuffle``
     permutes once, from numpy's global RNG, at construction;
     ``last_batch_handle`` is "pad" (wrap to the start and report
-    ``pad``), "discard" or "roll_over"."""
+    ``pad``), "discard" or "roll_over". ``num_workers > 0`` assembles up
+    to that many upcoming batches ahead of the cursor on a thread pool
+    (``close()`` shuts it down). ``checkpoint_state`` is the cursor and
+    the permutation."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
-                 label_name="softmax_label"):
+                 label_name="softmax_label", num_workers=0):
         super().__init__(batch_size)
         self.data = _init_data(data, allow_empty=False,
                                default_name=data_name)
@@ -422,6 +508,13 @@ class NDArrayIter(DataIter):
         self.cursor = -batch_size
         self.batch_size = batch_size
         self.last_batch_handle = last_batch_handle
+        self._num_workers = int(num_workers)
+        self._pool = None
+        self._pending = {}
+        if self._num_workers > 0:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self._num_workers,
+                thread_name_prefix="ndarrayiter")
 
     @property
     def provide_data(self):
@@ -433,7 +526,13 @@ class NDArrayIter(DataIter):
         return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
                 for k, v in self.label]
 
+    def hard_reset(self):
+        """Back to the first batch, whatever ``last_batch_handle``."""
+        self._drop_pending()
+        self.cursor = -self.batch_size
+
     def reset(self):
+        self._drop_pending()
         if self.last_batch_handle == "roll_over" and \
                 self.cursor > self.num_data:
             self.cursor = -self.batch_size + (self.cursor % self.num_data) \
@@ -441,17 +540,54 @@ class NDArrayIter(DataIter):
         else:
             self.cursor = -self.batch_size
 
+    def close(self):
+        """Shut down the assembly pool (nothing to do without
+        ``num_workers``)."""
+        self._drop_pending()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+            self._num_workers = 0
+
+    def _drop_pending(self):
+        for fut in self._pending.values():
+            fut.cancel()
+        self._pending.clear()
+
     def iter_next(self):
         self.cursor += self.batch_size
         return self.cursor < self.num_data
 
-    def _getdata(self, data_source):
-        assert self.cursor < self.num_data, "DataIter needs reset."
-        if self.cursor + self.batch_size <= self.num_data:
-            sel = self.idx[self.cursor:self.cursor + self.batch_size]
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        if self._pool is None:
+            return self._assemble(self.cursor)
+        fut = self._pending.pop(self.cursor, None)
+        if fut is None:
+            fut = self._pool.submit(self._assemble, self.cursor)
+        # queue the lookahead before waiting, so the workers stay busy
+        for k in range(1, self._num_workers + 1):
+            nc = self.cursor + k * self.batch_size
+            if nc < self.num_data and nc not in self._pending:
+                self._pending[nc] = self._pool.submit(self._assemble, nc)
+        return fut.result()
+
+    def _assemble(self, cursor):
+        """The batch at ``cursor``: a pure function of (cursor, idx), safe
+        on pool threads."""
+        return DataBatch(data=self._getdata(self.data, cursor),
+                         label=self._getdata(self.label, cursor),
+                         pad=self._pad_at(cursor), index=None)
+
+    def _getdata(self, data_source, cursor=None):
+        cursor = self.cursor if cursor is None else cursor
+        assert cursor < self.num_data, "DataIter needs reset."
+        if cursor + self.batch_size <= self.num_data:
+            sel = self.idx[cursor:cursor + self.batch_size]
         else:
-            pad = self.batch_size - self.num_data + self.cursor
-            sel = _np.concatenate([self.idx[self.cursor:], self.idx[:pad]])
+            pad = self.batch_size - self.num_data + cursor
+            sel = _np.concatenate([self.idx[cursor:], self.idx[:pad]])
         return [NDArray(torch.from_numpy(_np.ascontiguousarray(
             x[1][sel], dtype=_np.float32)), cpu()) for x in data_source]
 
@@ -461,8 +597,221 @@ class NDArrayIter(DataIter):
     def getlabel(self):
         return self._getdata(self.label)
 
-    def getpad(self):
+    def _pad_at(self, cursor):
         if self.last_batch_handle == "pad" and \
-                self.cursor + self.batch_size > self.num_data:
-            return self.cursor + self.batch_size - self.num_data
+                cursor + self.batch_size > self.num_data:
+            return cursor + self.batch_size - self.num_data
         return 0
+
+    def getpad(self):
+        return self._pad_at(self.cursor)
+
+    def checkpoint_state(self):
+        """The cursor and the permutation (a resumed process's fresh
+        iterator drew another one); ``idx`` by reference, as it never
+        changes after construction."""
+        return {"cursor": int(self.cursor), "idx": self.idx}
+
+    def restore_state(self, state):
+        if not isinstance(state, dict) or "cursor" not in state:
+            return False
+        idx = state.get("idx")
+        if idx is not None:
+            idx = _np.asarray(idx)
+            if idx.shape != self.idx.shape:
+                return False  # another dataset or epoch length
+            self.idx = idx.astype(self.idx.dtype, copy=False)
+        self._drop_pending()
+        self.cursor = int(state["cursor"])
+        return True
+
+
+_ITERS = {}
+
+
+def register_iter(fn, name=None):
+    """Register an iterator factory under its name, for
+    ``create_iterator`` (case-insensitive)."""
+    _ITERS[(name or fn.__name__).lower()] = fn
+    return fn
+
+
+def create_iterator(name, **kwargs):
+    """The registered iterator ``name`` made with ``kwargs`` (the names
+    the reference's C API creates iterators by)."""
+    fn = _ITERS.get(name.lower())
+    if fn is None:
+        raise MXNetError("Cannot find data iterator '%s'. Registered: %s"
+                         % (name, sorted(_ITERS)))
+    return fn(**kwargs)
+
+
+def _read_idx_file(path, is_image):
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        if is_image:
+            _, n, rows, cols = struct.unpack(">IIII", f.read(16))
+            return _np.frombuffer(f.read(), dtype=_np.uint8).reshape(
+                n, rows, cols)
+        struct.unpack(">II", f.read(8))
+        return _np.frombuffer(f.read(), dtype=_np.uint8)
+
+
+@register_iter
+def MNISTIter(image="train-images-idx3-ubyte", label="train-labels-idx1-ubyte",
+              batch_size=128, shuffle=True, flat=False, silent=False, seed=0,
+              input_shape=None, num_parts=1, part_index=0, **kwargs):
+    """MNIST's idx files (``.gz`` too) as an NDArrayIter of pixels in
+    [0, 1) (parity src/io/iter_mnist.cc:79); ``shuffle`` permutes with
+    ``RandomState(seed)``, the tail batch is dropped."""
+    for p in (image, label):
+        if not os.path.exists(p) and not os.path.exists(p + ".gz"):
+            raise MXNetError("MNISTIter: file not found: %s" % p)
+    img_path = image if os.path.exists(image) else image + ".gz"
+    lbl_path = label if os.path.exists(label) else label + ".gz"
+    images = _read_idx_file(img_path, True).astype("float32") / 255.0
+    labels = _read_idx_file(lbl_path, False).astype("float32")
+    if num_parts > 1:
+        part = images.shape[0] // num_parts
+        s = part * part_index
+        images, labels = images[s:s + part], labels[s:s + part]
+    if flat:
+        images = images.reshape(images.shape[0], -1)
+    else:
+        images = images.reshape(images.shape[0], 1, 28, 28)
+    if shuffle:
+        order = _np.random.RandomState(seed).permutation(images.shape[0])
+        images, labels = images[order], labels[order]
+    return NDArrayIter(images, labels, batch_size=batch_size,
+                       shuffle=False, last_batch_handle="discard")
+
+
+@register_iter
+def CSVIter(data_csv, data_shape, label_csv=None, label_shape=(1,),
+            batch_size=128, round_batch=True, **kwargs):
+    """Rows of a CSV file as an NDArrayIter (parity src/io/iter_csv.cc:59);
+    labels 0 without ``label_csv``."""
+    data = _np.loadtxt(data_csv, delimiter=",", dtype="float32")
+    data = data.reshape((-1,) + tuple(data_shape))
+    if label_csv is not None:
+        label = _np.loadtxt(label_csv, delimiter=",", dtype="float32")
+        label = label.reshape((-1,) + tuple(label_shape))
+        if label.shape[1:] == (1,):
+            label = label[:, 0]
+    else:
+        label = _np.zeros((data.shape[0],), dtype="float32")
+    return NDArrayIter(data, label, batch_size=batch_size,
+                       last_batch_handle="pad" if round_batch else "discard")
+
+
+class MXDataIter(DataIter):
+    """The reference's wrapper of a native iterator (io.py:740 MXDataIter);
+    the registered iterators here are Python objects already, so this
+    delegates to ``underlying``."""
+
+    def __init__(self, underlying, data_name="data",
+                 label_name="softmax_label"):
+        super().__init__()
+        self._it = underlying
+        self.data_name = data_name
+        self.label_name = label_name
+
+    def __getattr__(self, name):
+        try:
+            it = self.__dict__["_it"]
+        except KeyError:
+            raise AttributeError(name)
+        return getattr(it, name)
+
+    def reset(self):
+        self._it.reset()
+
+    def next(self):
+        return self._it.next()
+
+
+def _record_iter(name):
+    """image_record's iterator ``name``, imported when called
+    (image_record imports this module)."""
+    def make(**kwargs):
+        from . import image_record
+        return getattr(image_record, name)(**kwargs)
+    make.__name__ = make.__qualname__ = name
+    return make
+
+
+for _name in ("ImageRecordIter", "ImageRecordUInt8Iter", "ImageRecordIter_v1",
+              "ImageRecordUInt8Iter_v1", "ImageDetRecordIter"):
+    globals()[_name] = register_iter(_record_iter(_name))
+del _name
+
+
+@register_iter
+def LibSVMIter(data_libsvm, data_shape, batch_size=128, dense=False,
+               **kwargs):
+    """LibSVM text as batches (parity src/io/iter_libsvm.cc): each
+    batch's data is a cpu() NDArray over a ``torch.sparse_csr`` tensor
+    (the reference's csr storage), or dense with ``dense=True``; the
+    tail batch wraps to the first rows and reports ``pad``."""
+    feat_dim = int(_np.prod(data_shape))
+    vals, cols, ptr, labels = [], [], [0], []
+    with open(data_libsvm) as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            labels.append(float(parts[0]))
+            for tok in parts[1:]:
+                k, v = tok.split(":")
+                cols.append(int(k))
+                vals.append(float(v))
+            ptr.append(len(cols))
+    n = len(labels)
+    labels = _np.asarray(labels, dtype="float32")
+    vals = _np.asarray(vals, dtype="float32")
+    cols = _np.asarray(cols, dtype=_np.int64)
+    ptr = _np.asarray(ptr, dtype=_np.int64)
+    if dense:
+        full = _np.zeros((n, feat_dim), dtype="float32")
+        full[_np.repeat(_np.arange(n), _np.diff(ptr)), cols] = vals
+        return NDArrayIter(full.reshape((-1,) + tuple(data_shape)), labels,
+                           batch_size=batch_size, last_batch_handle="pad")
+    return _LibSVMIter(vals, cols, ptr, labels, feat_dim, batch_size)
+
+
+class _LibSVMIter(DataIter):
+    def __init__(self, vals, cols, ptr, labels, feat_dim, batch_size):
+        super().__init__(batch_size)
+        self._csr = (vals, cols, ptr)
+        self._labels = labels
+        self._cursor = 0
+        self.provide_data = [DataDesc("data", (batch_size, feat_dim),
+                                      "float32")]
+        self.provide_label = [DataDesc("label", (batch_size,), "float32")]
+
+    def reset(self):
+        self._cursor = 0
+
+    def next(self):
+        vals, cols, ptr = self._csr
+        n = len(self._labels)
+        if self._cursor >= n:
+            raise StopIteration
+        lo = self._cursor
+        hi = min(lo + self.batch_size, n)
+        pad = self.batch_size - (hi - lo)
+        rows = _np.concatenate([_np.arange(lo, hi), _np.arange(pad) % n])
+        counts = ptr[rows + 1] - ptr[rows]
+        sel = _np.concatenate([_np.arange(ptr[r], ptr[r + 1]) for r in rows]
+                              ).astype(_np.int64)
+        crow = _np.concatenate([[0], _np.cumsum(counts)]).astype(_np.int64)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(crow), torch.from_numpy(cols[sel]),
+            torch.from_numpy(vals[sel]),
+            (self.batch_size, self.provide_data[0].shape[1]),
+            check_invariants=True)
+        self._cursor = hi
+        return DataBatch(data=[NDArray(csr, cpu())],
+                         label=[NDArray(torch.from_numpy(
+                             self._labels[rows]), cpu())],
+                         pad=pad, index=None)

@@ -1,7 +1,7 @@
 """Evaluation metrics (parity: python/mxnet/metric.py).
 
 Counterpart of ``mxtpu/metric.py``: ``EvalMetric``, ``Accuracy``,
-``CrossEntropy``, ``Perplexity``, ``CompositeEvalMetric``,
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``CompositeEvalMetric``,
 ``create``/``register``, and ``DeviceMetricAccum`` (:471-600), which
 keeps a fit's partial sums on the device. A per-batch ``asnumpy()`` of
 the LM's output (B*T x vocab f32, 823 MB at B = 4, T = 1024) would make
@@ -21,12 +21,14 @@ import torch
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "Perplexity",
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "CrossEntropy",
+           "Perplexity",
            "CompositeEvalMetric", "DeviceKernel", "DeviceMetricAccum",
            "create", "register", "check_label_shapes"]
 
 _REG = {}
-_ALIASES = {"Accuracy": ("acc",), "CrossEntropy": ("ce", "cross-entropy"),
+_ALIASES = {"Accuracy": ("acc",), "TopKAccuracy": ("top_k_accuracy",),
+            "CrossEntropy": ("ce", "cross-entropy"),
             "CompositeEvalMetric": ("composite",)}
 
 
@@ -168,6 +170,46 @@ class Accuracy(EvalMetric):
             return (pred == lab).sum().to(torch.float32)
 
         return DeviceKernel(sum_fn, lambda label, pred: label.numel())
+
+
+@register
+class TopKAccuracy(EvalMetric):
+    """The share of samples whose label is among the ``top_k`` highest
+    scores (parity metric.py TopKAccuracy). Ties rank as numpy's and
+    torch's stable ascending sorts rank them: the later index higher."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.top_k = top_k
+        assert self.top_k > 1, "Please use Accuracy if top_k is no more than 1"
+        self.name += "_%d" % self.top_k
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred_label in zip(labels, preds):
+            pred = _np.argsort(_host(pred_label).astype("float32"), axis=1,
+                               kind="stable")
+            lab = _host(label).astype("int32").flatten()
+            num_samples, num_classes = pred.shape[:2]
+            for j in range(min(num_classes, self.top_k)):
+                self.sum_metric += float(
+                    (pred[:, num_classes - 1 - j].flatten() == lab).sum())
+            self.num_inst += num_samples
+
+    def device_kernel(self):
+        want_k = self.top_k
+
+        def sum_fn(label, pred):
+            order = torch.argsort(pred.to(torch.float32), dim=1,
+                                  stable=True)
+            lab = label.to(torch.int32).reshape(-1)
+            num_classes = pred.shape[1]
+            k = min(num_classes, want_k)
+            top = order[:, num_classes - k:].to(torch.int32)
+            return (top == lab[:, None]).sum().to(torch.float32)
+
+        return DeviceKernel(sum_fn, lambda label, pred: int(pred.shape[0]))
 
 
 @register

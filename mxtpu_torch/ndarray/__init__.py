@@ -26,7 +26,8 @@ __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "to_numpy", "host_copies", "save", "load", "add", "subtract",
            "multiply", "divide", "true_divide", "power", "maximum",
            "minimum", "equal", "not_equal", "greater", "greater_equal",
-           "lesser", "lesser_equal", "contrib"]
+           "lesser", "lesser_equal", "contrib", "imread", "imdecode",
+           "imresize"]
 
 
 def _make_nd_fn(opname, op):
@@ -122,3 +123,20 @@ greater = _cmp_fn("broadcast_greater", "_greater_scalar")
 greater_equal = _cmp_fn("broadcast_greater_equal", "_greater_equal_scalar")
 lesser = _cmp_fn("broadcast_lesser", "_lesser_scalar")
 lesser_equal = _cmp_fn("broadcast_lesser_equal", "_lesser_equal_scalar")
+
+
+# the host's image codec ops (parity: src/io/image_io.cc _cvimread,
+# _cvimdecode, _cvimresize: OpenCV on the CPU in the reference too)
+def imread(filename, flag=1, to_rgb=True, **kw):
+    from ..image import imread as impl
+    return impl(filename, flag=flag, to_rgb=to_rgb)
+
+
+def imdecode(buf, flag=1, to_rgb=True, **kw):
+    from ..image import imdecode as impl
+    return impl(buf, flag=flag, to_rgb=to_rgb)
+
+
+def imresize(src, w, h, interp=1, **kw):
+    from ..image import imresize as impl
+    return impl(src, w, h, interp=interp)

@@ -9,6 +9,8 @@ CUDA, as every entry point of the port does.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as _np
 
 from . import context as ctx_mod
@@ -16,7 +18,7 @@ from . import ndarray as nd
 
 __all__ = ["default_context", "set_default_context", "default_dtype",
            "same", "find_max_violation", "assert_almost_equal",
-           "almost_equal"]
+           "almost_equal", "make_rec", "make_det_rec"]
 
 
 def default_context():
@@ -65,3 +67,47 @@ def assert_almost_equal(a, b, rtol=1e-5, atol=1e-20, names=("a", "b")):
 
 def almost_equal(a, b, rtol=1e-5, atol=1e-20):
     return _np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True)
+
+
+def make_rec(path, n, edge=256, seed=0, num_classes=1000, quality=90):
+    """Pack ``n`` JPEG records of ``edge`` x ``edge`` (``.rec`` at
+    ``path``, ``.idx`` beside it), as ``tools/bench_input.make_rec``: one
+    seeded random base image rolled along its width and one channel
+    brightened a record, so the JPEGs compress as real photographs do;
+    the label of record ``i`` is ``i % num_classes``. Returns ``path``."""
+    from . import recordio
+    rng = _np.random.RandomState(seed)
+    rec = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                     path, "w")
+    base = rng.randint(0, 255, size=(edge, edge, 3), dtype=_np.uint8)
+    for i in range(n):
+        img = _np.roll(base, shift=int(rng.randint(0, edge)), axis=1).copy()
+        img[:, :, i % 3] = _np.minimum(255, img[:, :, i % 3] * 1.2).astype(
+            _np.uint8)
+        hdr = recordio.IRHeader(0, float(i % num_classes), i, 0)
+        rec.write_idx(i, recordio.pack_img(hdr, img, quality=quality,
+                                           img_fmt=".jpg"))
+    rec.close()
+    return path
+
+
+def make_det_rec(path, n, edge=300, num_classes=20, seed=0, quality=90):
+    """Pack ``n`` detection records: ``models.ssd_data.make_batch``'s
+    painted box on its dim background, at ``edge`` x ``edge``, scaled to
+    uint8 and JPEG-encoded, with the label ``[2, 5, cls, xmin, ymin,
+    xmax, ymax]`` (header width 2, object width 5, coordinates in [0, 1]).
+    Returns ``path``; the ``.idx`` is beside it."""
+    from . import recordio
+    from .models import ssd_data
+    rng = _np.random.RandomState(seed)
+    rec = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                     path, "w")
+    for i in range(n):
+        x, lab = ssd_data.make_batch(rng, 1, (3, edge, edge), num_classes)
+        img = (x[0].transpose(1, 2, 0) * 255.0).round().astype(_np.uint8)
+        label = [2.0, 5.0] + [float(v) for v in lab[0, 0]]
+        hdr = recordio.IRHeader(0, label, i, 0)
+        rec.write_idx(i, recordio.pack_img(hdr, img, quality=quality,
+                                           img_fmt=".jpg"))
+    rec.close()
+    return path

@@ -36,6 +36,13 @@ step. The flash forward and backward at head dims 16, 48, 80, 96 and
 112, which the wrappers pad to the kernel's next width, and at 129, 160,
 192, 256, 512, 513, 640 and 1024, which take the wide pair unpadded
 (above 256 split into 256-column blocks), with unaligned storage too.
+The record pipeline feeding the card: ``ImageRecordIter`` through
+``ResizeIter`` into ``Module.fit`` of a resnet-18 on gpu(0) with
+``Accuracy`` and ``TopKAccuracy``, its evaluation forward on a record
+batch launching the epilogue once per fused site and equal to the plain
+epilogue; ``TopKAccuracy`` accumulated on the card equal to its host
+sum; ``ImageDetRecordIter`` into the tiny SSD's ``fit`` with the
+suppression kernel launched once a step.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -1516,3 +1523,110 @@ def test_ssd_step_on_gpu_matches_cpu(cuda):
         assert np.abs(go[i] - co[i]).max() <= 1e-5, i
     for k in cw:
         assert np.abs(gw[k] - cw[k]).max() <= 1e-5, k
+
+
+def test_record_iter_fit_on_gpu_and_the_eval_epilogue(cuda, tmp_path,
+                                                      monkeypatch):
+    """ImageRecordIter (crop, mirror, means; 64 JPEGs) through ResizeIter
+    into Module.fit of a resnet-18 at 32x32 on gpu(0), 2 epochs of 3
+    steps, Accuracy and TopKAccuracy(5) on the device, the val .rec
+    scored each epoch; then the evaluation forward on a record batch:
+    one epilogue launch per fused site, within 1e-5 of the plain
+    epilogue."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import epilogue as epi
+    from mxtpu_torch.ops import nn as nn_ops
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    path = mt.test_utils.make_rec(str(tmp_path / "t.rec"), 64, edge=40,
+                                  num_classes=3)
+    kw = dict(path_imgrec=path, data_shape=(3, 32, 32), batch_size=16,
+              mean_r=123.68, mean_g=116.779, mean_b=103.939)
+    train = mt.io.ImageRecordIter(shuffle=True, rand_crop=True,
+                                  rand_mirror=True, **kw)
+    val = mt.io.ImageRecordIter(**kw)
+    net = mt.models.get_resnet(num_classes=10, num_layers=18,
+                               image_shape=(3, 32, 32))
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    np.random.seed(0)
+    metric = mt.metric.CompositeEvalMetric(
+        [mt.metric.Accuracy(), mt.metric.TopKAccuracy(top_k=5)])
+    mod.fit(mt.io.ResizeIter(train, 3), eval_data=val, num_epoch=2,
+            eval_metric=metric, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    names = [n for n, _ in metric.get_name_value()]
+    assert names == ["accuracy", "top_k_accuracy_5"]
+    assert all(np.isfinite(v) for _, v in metric.get_name_value())
+    val.reset()
+    batch = val.next()
+    before = epi.bn_apply_relu_add.launches
+    mod.forward(batch, is_train=False)
+    got = mod.get_outputs()[0]._data.clone()
+    torch.cuda.synchronize()
+    sites = mod._exec_group.execs[0].fused_sites
+    assert sites > 0 and epi.bn_apply_relu_add.launches == before + sites
+    kernel = nn_ops.bn_apply_relu_add
+    nn_ops.bn_apply_relu_add = lambda x, scale, shift, residual=None, \
+        axis=-1, **_: epi.bn_apply_relu_add_reference(x, scale, shift,
+                                                      residual, axis)
+    try:
+        mod.forward(batch, is_train=False)
+        want = mod.get_outputs()[0]._data
+    finally:
+        nn_ops.bn_apply_relu_add = kernel
+    assert float((got - want).abs().max()) <= 1e-5
+    train.close()
+    val.close()
+
+
+def test_top_k_accuracy_accumulates_on_the_card(cuda):
+    """TopKAccuracy's device kernel on CUDA predictions (ties included)
+    through DeviceMetricAccum: one host copy, the host path's sums."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(3)
+    host, dev = (mt.metric.TopKAccuracy(top_k=5) for _ in range(2))
+    accum = mt.metric.DeviceMetricAccum.wrap(dev)
+    for _ in range(3):
+        lab = rng.randint(0, 1000, 64).astype(np.float32)
+        pred = rng.rand(64, 1000).astype(np.float32)
+        pred[:4] = 0.25
+        host.update([mt.nd.array(lab, ctx=mt.cpu())],
+                    [mt.nd.array(pred, ctx=mt.cpu())])
+        accum.update([torch.from_numpy(lab)],
+                     [torch.from_numpy(pred).cuda()])
+    accum.sync()
+    assert accum.syncs == 1
+    assert (dev.sum_metric, dev.num_inst) == (host.sum_metric,
+                                              host.num_inst)
+
+
+def test_det_record_iter_feeds_the_ssd_on_gpu(cuda, tmp_path):
+    """ImageDetRecordIter (shuffle, mean_pixels, rand_mirror_prob 0.5, as
+    examples/ssd/train.py sets it) into the tiny SSD's Module.fit on
+    gpu(0): a finite loss, the suppression kernel once a step."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.models import ssd_data
+    from mxtpu_torch.ops import contrib
+    path = mt.test_utils.make_det_rec(str(tmp_path / "d.rec"), 16, edge=64,
+                                      num_classes=3)
+    it = mt.io.ImageDetRecordIter(
+        path_imgrec=path, data_shape=(3, 64, 64), batch_size=4,
+        shuffle=True, mean_pixels=(123, 117, 104), rand_mirror_prob=0.5)
+    mod = mt.mod.Module(mt.models.ssd.get_symbol_train(
+        num_classes=3, num_scales=3, network="tiny"),
+        label_names=("label",), context=mt.gpu(0))
+    metric = ssd_data.MultiBoxMetric()
+    before = contrib.nms_keep.launches
+    np.random.seed(1)
+    mod.fit(it, num_epoch=2, eval_metric=metric, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.01, "momentum": 0.9},
+            initializer=mt.init.Xavier())
+    torch.cuda.synchronize()
+    assert contrib.nms_keep.launches == before + 8
+    assert all(np.isfinite(v) for _, v in metric.get_name_value())
+    it.close()
