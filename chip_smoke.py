@@ -2,7 +2,7 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...,surface,records]
+                          [--phases kernels,epilogue,...,records,frontend]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
@@ -246,8 +246,27 @@ Phases (any failure raises and exits non-zero):
    suppression kernel once a step; then ``ssd_eval`` through
    ``ImageDetRecordIter`` as evaluate.py:130 sets it: the kernel once a
    batch, bit for bit against its plain loop.
-14. Prints the kernels' JSON line (each kernel's launches by path, the
-   ``records`` paths included), then the device line last.
+14. The rest of the Python frontend (``frontend``; ROADMAP A.14 and
+   C.8-C.13) on phase 7's model and images: ResNet-50 v2 (224x224, 1000
+   classes, B=256, f32) initialized by ``Mixed`` (Orthogonal for the FC
+   weight, MSRAPrelu for the convolutions, One/Zero for the rest),
+   ``Module.fit`` for 2 epochs of 2 steps with Nadam (wd 1e-4) on the
+   Updater path, ``Speedometer`` and ``ProgressBar``, one val batch
+   scored each epoch with ``LogValidationMetricsCallback``, and a
+   composite of Accuracy, TopKAccuracy(5), CrossEntropy and MSE/RMSE/MAE
+   against the one-hot label on the device. Gates: a finite loss each
+   step; 50 epilogue launches each score, and the evaluation forward's
+   50 bit for bit against the plain epilogue; each device metric's sum
+   within 1e-6 relative of its host update. Then each new optimizer's 4
+   updates at the 2048x1000 FC weight (SGD's multi_precision on float16)
+   on gpu(0) against cpu() within 1e-6 of the largest value, SGLD's
+   noise by its moments; every ``random`` sampler and ``sample_*`` op,
+   2^22 draws on the card, mean and variance within 5 standard errors,
+   the same seed the same bits; C.8-C.13 on CUDA tensors against cpu().
+   Prints the Nadam step against phase 7's fused SGD step.
+15. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records`` and ``frontend`` paths included), then the device line
+   last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -480,7 +499,7 @@ RECORDS = dict(train=1280, val=512, edge=256, label_classes=3, det=64,
                memory_steps=4, ssd_batch=32, ssd_epochs=2)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
-          "surface", "records")
+          "surface", "records", "frontend")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -2209,6 +2228,7 @@ def time_bn_relu_pairs(mt, sym, b, card):
     ReLU forward, then their backward from a head gradient, timed with
     CUDA events (the same ops the training walk runs there), summed over
     the sites."""
+    from mxtpu_torch.ops.tensor import relu  # the walk's, tie rule too
     op = mt.ops.registry.get_op("BatchNorm")
     dev = mt.gpu(0).torch_device
     bn_nodes = [n for n in sym._topo() if not n.is_variable
@@ -2230,10 +2250,10 @@ def time_bn_relu_pairs(mt, sym, b, card):
 
         def fwd():
             with torch.no_grad():
-                return torch.relu(op.apply(a, [x, g, beta, mm, mv])[0])
+                return relu(op.apply(a, [x, g, beta, mm, mv])[0])
 
         def fwd_bwd():
-            y = torch.relu(op.apply(a, [xg, gg, bg, mm, mv])[0])
+            y = relu(op.apply(a, [xg, gg, bg, mm, mv])[0])
             torch.autograd.grad(y, (xg, gg, bg), head)
 
         total_fwd += cuda_ms(fwd, 3, warmup=1)
@@ -6456,7 +6476,7 @@ def records_iterator(mt, paths, seed, card):
     u8_same = []
     for _ in range(cfg["uint8_batches"]):
         bu, bf = raw.next(), flt.next()
-        u8_same.append(bu.data[0].dtype == torch.uint8 and np.array_equal(
+        u8_same.append(bu.data[0].dtype == np.uint8 and np.array_equal(
             bu.data[0].asnumpy().astype(np.float32), bf.data[0].asnumpy()))
     raw.close()
     flt.close()
@@ -6764,6 +6784,411 @@ def image_packages():
     return found
 
 
+# phase 14: ResNet-50 v2 at full width (phase 7's model and images)
+# trained 4 steps (2 epochs of 2 batches, one val batch scored each
+# epoch) with Nadam on the Updater path, then 5 steps timed on a batch on
+# the card; the optimizers at the 2048x1000 FC weight, 4 updates each;
+# 2^22 draws a sampler
+FRONTEND = dict(batch=256, epochs=2, lr=0.001, wd=1e-4, timed_steps=5,
+                opt_steps=4, fc=(1000, 2048), draws=1 << 22, sigmas=5.0)
+
+
+def _one_hot_metric(mt, klass):
+    """``klass`` (MSE, RMSE or MAE) scored against the one-hot of the
+    class label, on the host path and in its device kernel alike."""
+    import torch.nn.functional as F
+
+    def one_hot(label, pred):
+        return F.one_hot(label.to(torch.int64).reshape(-1),
+                         pred.shape[1]).to(pred.dtype)
+
+    class OneHot(klass):
+        def update(self, labels, preds):
+            super().update([mt.nd.NDArray(one_hot(l._data, p._data))
+                            for l, p in zip(labels, preds)], preds)
+
+        def device_kernel(self):
+            k = super().device_kernel()
+            return mt.metric.DeviceKernel(
+                lambda label, pred: k.sum_fn(one_hot(label, pred), pred),
+                k.count_fn)
+
+    OneHot.__name__ = "OneHot" + klass.__name__
+    return OneHot(name="onehot_" + klass.__name__.lower())
+
+
+def frontend_metric(mt):
+    """Phase 14's eval metric: Accuracy, TopKAccuracy(5), CrossEntropy,
+    and MSE, RMSE and MAE against the one-hot label."""
+    return mt.metric.CompositeEvalMetric(
+        [mt.metric.Accuracy(), mt.metric.TopKAccuracy(top_k=5),
+         mt.metric.CrossEntropy()] +
+        [_one_hot_metric(mt, k) for k in (mt.metric.MSE, mt.metric.RMSE,
+                                          mt.metric.MAE)])
+
+
+def frontend_initializer(mt):
+    """Mixed over every ResNet-50 v2 parameter: Orthogonal for the FC
+    weight, MSRAPrelu for the convolutions, One/Zero for the BatchNorm
+    scales and shifts, the biases and the moving statistics."""
+    init = mt.init
+    return init.Mixed(
+        [r"fc1_weight$", r".*(conv\d+|_sc)_weight$", r".*_gamma$",
+         r".*_(beta|bias)$", r".*_moving_mean$", r".*_moving_var$"],
+        [init.Orthogonal(), init.MSRAPrelu(), init.One(), init.Zero(),
+         init.Zero(), init.One()])
+
+
+def frontend_training(mt, epi, seed, card, resnet_row):
+    """ResNet-50 v2 (224x224, 1000 classes, B=256, f32) through
+    Module.fit on gpu(0): Mixed initialization, Nadam (wd 1e-4) on the
+    Updater path (no fused rule), Speedometer and ProgressBar at each
+    batch, LogValidationMetricsCallback after each epoch's score of one
+    val batch, the composite metric on the device. Gates: a finite loss
+    every step; the Updater path; every parameter matched by a pattern
+    (Mixed raises otherwise); each device metric's sum equal to its host
+    update within
+    1e-6 relative on a trained batch; the evaluation forward's 50
+    epilogue launches bit for bit against the plain epilogue."""
+    cfg = FRONTEND
+    b = cfg["batch"]
+    sym = mt.models.get_resnet(**RESNET)
+    x, y = resnet_train_data(seed)
+    steps_per_epoch = len(x) // b
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    ce, stamps = [], []
+
+    def record(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ce.append(dict(zip(*param.eval_metric.get()))["cross-entropy"])
+
+    metric = frontend_metric(mt)
+    np.random.seed(seed)
+    epi.bn_apply_relu_add.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=b),
+            eval_data=mt.io.NDArrayIter(x[:b], y[:b], batch_size=b),
+            num_epoch=cfg["epochs"], eval_metric=metric, optimizer="nadam",
+            optimizer_params={"learning_rate": cfg["lr"], "wd": cfg["wd"],
+                              "rescale_grad": 1.0 / b},
+            initializer=frontend_initializer(mt),
+            batch_end_callback=[record, mt.callback.Speedometer(b, 1,
+                                                                log=False),
+                                mt.callback.ProgressBar(steps_per_epoch)],
+            eval_end_callback=mt.callback.LogValidationMetricsCallback(),
+            metric_sync=1, device_prefetch=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    score_launches = epi.bn_apply_relu_add.launches
+    sys.stdout.write("\n")
+    if mod._fused is not None or type(mod._optimizer).__name__ != "Nadam":
+        raise AssertionError("Nadam did not take the Updater path")
+    ms = [float(v) for v in np.diff([t0] + stamps) * 1e3]
+    log("  cross-entropy by step: %s" % [round(v, 4) for v in ce])
+    if len(ce) != cfg["epochs"] * steps_per_epoch or \
+            not np.all(np.isfinite(ce)):
+        raise AssertionError("the Nadam steps' loss is not finite: %s" % ce)
+    if score_launches != RESNET_SITES * cfg["epochs"]:
+        raise AssertionError("the epochs' scores launched the epilogue %d "
+                             "times" % score_launches)
+    # steps after each epoch's first (which follows a reset and a score)
+    inner = [m for i, m in enumerate(ms) if i % steps_per_epoch]
+    row = {"steps": len(ms), "ce": ce, "step_ms": ms,
+           "step_ms_within_epoch": float(np.mean(inner)), "fit_s": fit_s,
+           "score_launches": score_launches}
+    batch = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.cpu())],
+                            [mt.nd.array(y[:b], ctx=mt.cpu())])
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    gate = eval_forward_gate(
+        epi, forward, lambda: mod._exec_group.execs[0].fused_sites,
+        "Nadam-trained model's evaluation forward")
+    if gate["eval_max_abs_err"] != 0.0:
+        raise AssertionError("the epilogue is not bit for bit: %g"
+                             % gate["eval_max_abs_err"])
+    row.update(gate)
+    row["launches"] = score_launches + gate["eval_launches"]
+    row["metrics"] = frontend_metric_gate(mt, forward(), batch)
+    on_card = mt.io.DataBatch([mt.nd.array(x[:b], ctx=mt.gpu(0))],
+                              [mt.nd.array(y[:b], ctx=mt.gpu(0))])
+    timed = []
+    for _ in range(cfg["timed_steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod.forward_backward(on_card)
+        mod.update()
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t1) * 1e3)
+    row["timed_step_ms"] = timed
+    row["timed_step_ms_median"] = float(np.median(timed))
+    fused = resnet_row and resnet_row.get("step_ms_within_epoch_median")
+    row["phase7_fused_sgd_step_ms"] = fused
+    log("  [%s] Nadam on the Updater path: fit's step ms %s (from the "
+        "prefetcher); %d steps on a card-resident batch %s, median %.2f ms "
+        "against phase 7's fused SGD step %s ms (%s, the median inside an "
+        "epoch); fit %.1f s"
+        % (card, [round(v, 1) for v in ms], len(timed),
+           [round(v, 1) for v in timed], row["timed_step_ms_median"],
+           "%.2f" % fused if fused else "not measured", card, fit_s))
+    del mod
+    torch.cuda.empty_cache()
+    return row
+
+
+def frontend_metric_gate(mt, out, batch):
+    """Each metric of phase 14's composite on one trained batch: the
+    device sum (``DeviceMetricAccum``, one sync) against the host
+    ``update`` of the same outputs, within 1e-6 relative."""
+    label = batch.label[0].as_in_context(mt.gpu(0))
+    pred = mt.nd.NDArray(out)
+    dev = mt.metric.DeviceMetricAccum.wrap(frontend_metric(mt))
+    if dev is None:
+        raise AssertionError("a phase 14 metric has no device kernel")
+    dev.update([label], [pred])
+    got = dict(dev.sync())
+    host = frontend_metric(mt)
+    host.update([label], [pred])
+    worst = {}
+    for name, want in host.get_name_value():
+        worst[name] = abs(got[name] - want) / max(abs(want), 1e-30)
+    log("  device metric sums against the host update (relative): %s"
+        % {k: "%.1e" % v for k, v in worst.items()})
+    if dev.syncs != 1 or max(worst.values()) > 1e-6:
+        raise AssertionError("device metrics disagree with the host: %s"
+                             % worst)
+    return {"values": got, "rel_err": worst}
+
+
+FRONTEND_OPTIMIZERS = [
+    ("adadelta", {"rho": 0.9}), ("adamax", {"learning_rate": 0.002}),
+    ("nadam", {"learning_rate": 0.001}), ("ftrl", {"learning_rate": 0.1}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}), ("test", {}),
+    ("ccsgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+             "multi_precision": True})]
+
+
+def frontend_optimizers(mt, seed):
+    """Each new optimizer's 4 Updater steps at ResNet-50's largest
+    parameter (the 2048x1000 FC weight; float16 with SGD's
+    multi_precision) on gpu(0) against the same steps on cpu(): the
+    largest difference over the largest value, of the weight and of every
+    state, within 1e-6 (float16: one float16 step). SGLD: the noise of one
+    update (weight decay and gradient 0) has mean 0 and variance lr
+    within 5 standard errors."""
+    rng = np.random.RandomState(seed + 14)
+    shape = FRONTEND["fc"]
+    w0 = (rng.randn(*shape) * 0.02).astype(np.float32)
+    grads = [rng.randn(*shape).astype(np.float32)
+             for _ in range(FRONTEND["opt_steps"])]
+    rows = {}
+
+    def run(ctx, name, params, dtype):
+        opt = mt.optimizer.create(name, wd=1e-4, rescale_grad=1.0 / 256,
+                                  **params)
+        upd = mt.optimizer.get_updater(opt)
+        w = mt.nd.array(w0, ctx=ctx, dtype=dtype)
+        for g in grads:
+            upd(0, mt.nd.array(g, ctx=ctx, dtype=dtype), w)
+        state = upd.states[0]
+        leaves = [s for s in (state if isinstance(state, tuple)
+                              else (state,)) if s is not None]
+        return [w._data] + [s._data for s in leaves]
+
+    for name, params in FRONTEND_OPTIMIZERS:
+        dtype = "float16" if params.get("multi_precision") else "float32"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = run(mt.gpu(0), name, params, dtype)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FRONTEND["opt_steps"]
+        host = run(mt.cpu(), name, params, dtype)
+        errs = [float((a.cpu().double() - b.double()).abs().max()
+                      / max(float(b.double().abs().max()), 1e-30))
+                for a, b in zip(card, host)]
+        tol = 1e-3 if dtype == "float16" else 1e-6
+        rows["%s%s" % (name, "_mp" if dtype == "float16" else "")] = {
+            "rel_err": errs, "update_ms": ms}
+        if len(card) != len(host) or max(errs) > tol:
+            raise AssertionError("%s on gpu(0) differs from cpu(): %s"
+                                 % (name, errs))
+    lr, n = 0.04, shape[0] * shape[1]
+    w = mt.nd.zeros(shape, ctx=mt.gpu(0))
+    mt.optimizer.get_updater(mt.optimizer.create("sgld", learning_rate=lr))(
+        0, mt.nd.zeros(shape, ctx=mt.gpu(0)), w)
+    noise = w._data.double()
+    mean, var = float(noise.mean()), float(noise.var())
+    rows["sgld"] = {"mean": mean, "var": var}
+    log("  optimizers at %s, 4 updates, gpu(0) vs cpu() (largest relative "
+        "difference): %s; SGLD noise mean %.2e var %.5f (lr %g)"
+        % (shape, {k: "%.1e" % max(v["rel_err"]) for k, v in rows.items()
+                   if "rel_err" in v}, mean, var, lr))
+    if abs(mean) > 5 * np.sqrt(lr / n) or \
+            abs(var - lr) > 5 * lr * np.sqrt(2.0 / n):
+        raise AssertionError("SGLD's noise is not N(0, lr): %g, %g"
+                             % (mean, var))
+    return rows
+
+
+def _frontend_draws(mt):
+    """(name, draw(), analytic mean, variance) of phase 14's samplers:
+    the 8 ``random`` distributions and the 8 ``sample_*`` ops, 2^22
+    values each on gpu(0) (the per-row ops: 4 rows of 2^20)."""
+    n, ctx = FRONTEND["draws"], mt.gpu(0)
+    r = mt.random
+    rows = n // 4
+
+    def per_row(op, *params):
+        args = [mt.nd.array(np.full((4,), p, np.float32), ctx=ctx)
+                for p in params]
+        return lambda: getattr(mt.nd, op)(*args, shape=(rows,))
+
+    probs = mt.nd.array(np.array([0.1, 0.2, 0.3, 0.4], np.float32), ctx=ctx)
+    return [
+        ("uniform", lambda: r.uniform(-1, 3, shape=(n,), ctx=ctx), 1.0,
+         16 / 12.0),
+        ("normal", lambda: r.normal(0.5, 2.0, shape=(n,), ctx=ctx), 0.5,
+         4.0),
+        ("gamma", lambda: r.gamma(2.5, 0.5, shape=(n,), ctx=ctx), 1.25,
+         0.625),
+        ("exponential", lambda: r.exponential(4.0, shape=(n,), ctx=ctx),
+         0.25, 1 / 16.0),
+        ("poisson", lambda: r.poisson(3.5, shape=(n,), ctx=ctx), 3.5, 3.5),
+        ("negative_binomial", lambda: r.negative_binomial(
+            3, 0.4, shape=(n,), ctx=ctx), 4.5, 11.25),
+        ("generalized_negative_binomial", lambda:
+         r.generalized_negative_binomial(2.0, 0.5, shape=(n,), ctx=ctx),
+         2.0, 4.0),
+        ("multinomial", lambda: r.multinomial(probs, shape=(n,)), 2.0, 1.0),
+        ("sample_uniform", per_row("sample_uniform", -1.0, 3.0), 1.0,
+         16 / 12.0),
+        ("sample_normal", per_row("sample_normal", 0.5, 2.0), 0.5, 4.0),
+        ("sample_gamma", per_row("sample_gamma", 2.5, 0.5), 1.25, 0.625),
+        ("sample_exponential", per_row("sample_exponential", 4.0), 0.25,
+         1 / 16.0),
+        ("sample_poisson", per_row("sample_poisson", 3.5), 3.5, 3.5),
+        ("sample_negative_binomial", per_row("sample_negative_binomial",
+                                             3.0, 0.4), 4.5, 11.25),
+        ("sample_generalized_negative_binomial", per_row(
+            "sample_generalized_negative_binomial", 2.0, 0.5), 2.0, 4.0),
+        ("sample_multinomial", lambda: mt.nd.sample_multinomial(
+            probs, shape=(n,)), 2.0, 1.0)]
+
+
+def frontend_random(mt, seed):
+    """Each sampler's 2^22 draws on gpu(0): kept on the card (the result
+    is a CUDA tensor; the moments are reduced there and only they are
+    copied), mean and variance within 5 standard errors of the analytic
+    moments (the variance's error from the draws' fourth moment), and
+    the same seed drawing the same bits."""
+    rows = {}
+    k = FRONTEND["sigmas"]
+    for name, draw, mean, var in _frontend_draws(mt):
+        mt.random.seed(seed)
+        a = draw()
+        if not a._data.is_cuda or a.context != mt.gpu(0):
+            raise AssertionError("%s drew off the card" % name)
+        mt.random.seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = draw()  # timed warm: the first call loads the kernels
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        same = bool(torch.equal(a._data, again._data))
+        x = a._data.reshape(-1).double()
+        n = x.numel()
+        m, v = float(x.mean()), float(x.var(unbiased=False))
+        m4 = float(((x - m) ** 4).mean())
+        z_mean = abs(m - mean) / np.sqrt(var / n)
+        z_var = abs(v - var) / np.sqrt(max(m4 - var ** 2, 1e-30) / n)
+        rows[name] = {"n": n, "mean": m, "var": v, "z_mean": z_mean,
+                      "z_var": z_var, "same_seed_same_bits": same,
+                      "ms": ms, "dtype": str(a.dtype)}
+        if n != FRONTEND["draws"] or z_mean > k or z_var > k or not same:
+            raise AssertionError("%s: %s" % (name, rows[name]))
+    log("  samplers, 2^22 draws each on gpu(0) (mean, variance z-scores; "
+        "ms): %s" % {k_: "%.2f %.2f %.1f" % (r_["z_mean"], r_["z_var"],
+                                             r_["ms"])
+                     for k_, r_ in rows.items()})
+    return rows
+
+
+def frontend_faults(mt):
+    """ROADMAP C.8-C.13 on CUDA tensors, each against the same op on
+    cpu(): the relu/abs/power gradients at ties, integer scalar
+    arithmetic, integer sums and means, numpy dtypes in and out."""
+    ties = np.array([-1.0, 0.0, -0.0, 2.0], np.float32)
+    ints = np.array([7, 1, -3], np.int32)
+    u8 = np.array([250, 3, 9], np.uint8)
+    out = {}
+
+    def grads(ctx, f):
+        x = mt.nd.array(ties, ctx=ctx)
+        x.attach_grad()
+        with mt.autograd.record():
+            y = f(x)
+        y.backward()
+        return x.grad.asnumpy()
+
+    cases = {
+        "relu": lambda x: mt.nd.relu(x),
+        "Activation(relu)": lambda x: mt.nd.Activation(x, act_type="relu"),
+        "abs": lambda x: mt.nd.abs(x),
+        "x ** 0": lambda x: x ** 0,
+        "0 ** x": lambda x: 0 ** x}
+    for name, f in cases.items():
+        got, want = grads(mt.gpu(0), f), grads(mt.cpu(), f)
+        out[name] = got.tolist()
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(out["relu"], [0, 0.5, 0.5, 1])
+
+    def arith(ctx):
+        i = mt.nd.array(ints, ctx=ctx)
+        u = mt.nd.array(u8, ctx=ctx)
+        return [i + 0.5, i - 0.7, 0.7 - i, i * 2.5, i / 2, u + 10, u * 1.5,
+                i.sum(), u.sum(), i.mean(), u.mean(),
+                mt.nd.zeros((2,), ctx=ctx, dtype=np.float16),
+                mt.nd.array(i, ctx=ctx)]
+
+    for j, (g, h) in enumerate(zip(arith(mt.gpu(0)), arith(mt.cpu()))):
+        # the means may round one ulp apart (the card's reduction order)
+        if g.dtype != h.dtype or not np.allclose(g.asnumpy(), h.asnumpy(),
+                                                 rtol=1e-6, atol=0):
+            raise AssertionError("integer case %d: %s %s against %s %s"
+                                 % (j, g.dtype, g.asnumpy(), h.dtype,
+                                    h.asnumpy()))
+    got = arith(mt.gpu(0))
+    types = [str(a.dtype) for a in got]
+    want = ["int32"] * 4 + ["float32", "uint8", "uint8", "int32", "uint32",
+                            "float32", "float32", "float16", "int32"]
+    if types != want or got[5].asnumpy().tolist() != [4, 13, 19]:
+        raise AssertionError("types %s, uint8 + 10 %s" % (
+            types, got[5].asnumpy().tolist()))
+    out["types"] = types
+    log("  faults C.8-C.13 on gpu(0) == cpu(): relu/abs/pow gradients %s; "
+        "types %s" % ({k: v for k, v in out.items() if k != "types"},
+                      types))
+    return out
+
+
+def phase_frontend(mt, epi, seed, card, resnet_row=None):
+    """Phase 14 (module docstring): the training, optimizer, sampler and
+    fault parts, with the phase's seconds."""
+    t0 = time.perf_counter()
+    row = {"train": frontend_training(mt, epi, seed, card, resnet_row),
+           "optimizers": frontend_optimizers(mt, seed),
+           "random": frontend_random(mt, seed),
+           "faults": frontend_faults(mt)}
+    row["launches"] = {"frontend_eval": row["train"]["launches"]}
+    row["seconds"] = time.perf_counter() - t0
+    log("  [%s] frontend phase %.1f s" % (card, row["seconds"]))
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -6908,6 +7333,11 @@ def main(argv=None):
         log("[records]")
         results["records"] = phase_records(mt, epi, args.seed, card,
                                            results.get("resnet_training"))
+    # 14. the rest of the Python frontend on ResNet-50 v2 at full width
+    if "frontend" in phases:
+        log("[frontend]")
+        results["frontend"] = phase_frontend(mt, epi, args.seed, card,
+                                             results.get("resnet_training"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -6937,6 +7367,7 @@ def main(argv=None):
     wide = next(r for r in results["flash_wide"]["timed"]
                 if r["dtype"] == "float32")
     rec_launches = results["records"]["launches"]
+    front_launches = results["frontend"]["launches"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -6956,14 +7387,16 @@ def main(argv=None):
         "replaces": "mxtpu/ops/epilogue.py:30",
         "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval
         + surface["resnet"]["launches"]
-        + sum(rec_launches["epilogue"].values()),
+        + sum(rec_launches["epilogue"].values())
+        + sum(front_launches.values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
                                   "data_parallel_eval": dp_eval,
                                   "resnet_predict":
                                   surface["resnet"]["launches"]},
-                                 **rec_launches["epilogue"]),
+                                 **dict(rec_launches["epilogue"],
+                                        **front_launches)),
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],

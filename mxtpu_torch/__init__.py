@@ -39,8 +39,14 @@ the record pipeline: ``recordio`` and its native reader over
 ``src/core`` (``_native``, built with g++ on first use), ``image`` (cv2
 decode, the augmenters, ``ImageIter``, ``ImageDetIter``),
 ``image_record`` (``ImageRecordIter`` and its kin over the native
-prefetch thread), the rest of ``io`` and ``metric.TopKAccuracy``.
+prefetch thread), the rest of ``io`` and ``metric.TopKAccuracy``; the
+rest of the Python frontend's names: every metric, optimizer and
+initializer of mxtpu, ``callback.ProgressBar`` and
+``LogValidationMetricsCallback``, ``context.num_devices``, ``random``'s
+samplers with their 15 ops (``ops/random_ops.py``), ``visualization``,
+``executor_manager``, ``libinfo`` and ``symbol_doc``.
 """
+from .libinfo import __version__
 from . import base
 from .base import MXNetError
 from . import context
@@ -61,6 +67,9 @@ from . import models
 from . import convert
 from . import build
 from . import random
+from . import random as rnd
+from . import symbol_doc
+from . import libinfo
 from . import initializer
 from . import initializer as init
 from . import lr_scheduler
@@ -81,13 +90,18 @@ from . import rnn
 from . import gluon
 from . import sharding
 from . import parallel
+from . import visualization
+from . import visualization as viz
+from . import executor_manager
 from . import test_utils
 
-__all__ = ["MXNetError", "AttrScope", "attribute", "Context", "cpu", "gpu",
-           "current_context",
-           "num_gpus", "ops", "symbol", "sym", "ndarray", "nd", "executor",
+__all__ = ["__version__", "MXNetError", "AttrScope", "attribute", "Context",
+           "cpu", "gpu", "current_context", "num_gpus", "ops",
+           "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
-           "random", "initializer", "init", "lr_scheduler", "optimizer",
+           "random", "rnd", "symbol_doc", "libinfo", "initializer", "init",
+           "lr_scheduler", "optimizer",
            "metric", "io", "recordio", "image", "image_record", "kvstore",
            "kv", "model", "callback", "monitor", "module", "mod",
-           "autograd", "gluon", "sharding", "parallel", "rnn", "test_utils"]
+           "autograd", "gluon", "sharding", "parallel", "rnn",
+           "visualization", "viz", "executor_manager", "test_utils"]

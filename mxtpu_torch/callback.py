@@ -1,5 +1,6 @@
 """Training callbacks (parity: python/mxnet/callback.py — do_checkpoint
-:55, log_train_metric, Speedometer :120).
+:55, log_train_metric, Speedometer :120, ProgressBar,
+LogValidationMetricsCallback).
 
 The port's own copy of the callbacks of ``mxtpu/callback.py`` that a
 Module fit uses, without the telemetry registry (not ported). Speedometer
@@ -12,9 +13,12 @@ the same either way.
 from __future__ import annotations
 
 import logging
+import math
+import sys
 import time
 
-__all__ = ["do_checkpoint", "Speedometer", "log_train_metric"]
+__all__ = ["do_checkpoint", "Speedometer", "log_train_metric", "ProgressBar",
+           "LogValidationMetricsCallback"]
 
 
 def do_checkpoint(prefix, period=1):
@@ -84,3 +88,29 @@ class Speedometer:
         if elapsed > 0:
             self._emit(param, self.frequent * self.batch_size / elapsed)
         self._window_start = time.time()
+
+
+class ProgressBar:
+    """Textual progress bar over the epoch's ``total`` batches, written
+    to standard output."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = int(length)
+        self.total = max(1, int(total))
+
+    def __call__(self, param):
+        frac = min(1.0, param.nbatch / float(self.total))
+        done = int(round(self.bar_len * frac))
+        bar = "=" * done + "-" * (self.bar_len - done)
+        sys.stdout.write("[%s] %s%%\r" % (bar, math.ceil(100.0 * frac)))
+
+
+class LogValidationMetricsCallback:
+    """Logs each validation metric at an evaluation's end."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

@@ -16,7 +16,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
-           "context_list"]
+           "num_devices", "context_list"]
 
 
 class Context:
@@ -101,6 +101,13 @@ def current_context():
 
 def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_devices():
+    """The devices an array can live on: every CUDA device and the host.
+    mxtpu counts ``jax.devices()``, which on its CPU backend is the host
+    alone; here the host is always one device besides the cards."""
+    return num_gpus() + 1
 
 
 def as_context(ctx):

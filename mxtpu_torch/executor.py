@@ -466,7 +466,8 @@ class Executor:
             if name not in args:
                 continue
             old = args[name]
-            args[name] = NDArray(torch.zeros(tuple(shape), dtype=old.dtype,
+            args[name] = NDArray(torch.zeros(tuple(shape),
+                                             dtype=old._data.dtype,
                                              device=old._data.device),
                                  old.context)
             if name in grads:

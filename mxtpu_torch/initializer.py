@@ -3,26 +3,30 @@
 The port's own copy of the parts of ``mxtpu/initializer.py`` that Module
 uses: ``InitDesc``, the name-suffix dispatch of ``Initializer.__call__``
 (bias/beta -> 0, gamma -> 1, weight -> the rule, moving statistics ->
-0/1), ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal`` and
-``Xavier``, ``LSTMBias`` and ``FusedRNN`` (mxtpu/initializer.py:210-285),
-plus ``create``/``register``. Random draws come from numpy's
-global RNG, so ``numpy.random.seed`` fixes the initial weights run to
-run. (The JAX package draws Uniform/Normal/Xavier from its threefry key
-chain, so the two packages' weights differ for the same seed; tests that
-compare them copy one package's weights into the other.) An ``__init__``
+0/1, upsampling -> bilinear), ``Zero``, ``One``, ``Constant``,
+``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``, ``MSRAPrelu``,
+``Bilinear``, ``LSTMBias`` and ``FusedRNN``, ``Mixed`` and ``Load``,
+plus ``create``/``register``. Random draws come from numpy's global
+RNG, so ``numpy.random.seed`` fixes the initial weights run to run.
+(The JAX package draws Uniform/Normal/Xavier/MSRAPrelu from its threefry
+key chain, so the two packages' weights differ for the same seed; tests
+that compare them copy one package's weights into the other. Its
+Orthogonal draws from numpy as here, bit for bit the same.) An ``__init__``
 attribute on a variable (a JSON ``[name, kwargs]``) picks that
 variable's initializer, as in mxtpu.
 """
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as _np
 
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "LSTMBias", "FusedRNN", "register", "create"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "FusedRNN", "Mixed", "Load", "register", "create"]
 
 _REG = {}
 
@@ -53,7 +57,9 @@ class Initializer:
             klass, kwargs = json.loads(init_attr)
             create(klass, **kwargs)._init_weight(name, arr)
             return
-        if name.endswith("bias"):
+        if name.endswith("upsampling"):
+            self._init_bilinear(name, arr)
+        elif name.endswith("bias"):
             self._init_bias(name, arr)
         elif name.endswith("gamma"):
             self._init_gamma(name, arr)
@@ -70,8 +76,23 @@ class Initializer:
             self._init_zero(name, arr)
         elif name.endswith("moving_var") or name.endswith("running_var"):
             self._init_one(name, arr)
+        elif name.endswith("moving_inv_var") or name.endswith("moving_avg"):
+            self._init_zero(name, arr)
         else:
             self._init_default(name, arr)
+
+    def _init_bilinear(self, name, arr):
+        """An upsampling kernel: each (h, w) tap the product of two
+        linear-interpolation weights."""
+        shape = arr.shape
+        weight = _np.zeros(_np.prod(shape), dtype="float32")
+        f = _np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(_np.prod(shape)):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
 
     def _init_zero(self, name, arr):
         arr[:] = 0.0
@@ -156,6 +177,28 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """A (scaled) orthogonal matrix: the SVD factor of a uniform or normal
+    draw shaped (rows, the rest)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = int(_np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = _np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = _np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * q.reshape(arr.shape)).astype(_np.float32)
+
+
+@register
 class Xavier(Initializer):
     def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
         super().__init__(rnd_type=rnd_type, factor_type=factor_type,
@@ -180,6 +223,23 @@ class Xavier(Initializer):
         else:
             w = _np.random.normal(0.0, scale, shape)
         arr[:] = w.astype(_np.float32)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He's initialization for PReLU nets: gaussian Xavier with magnitude
+    2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
 
 
 @register
@@ -246,3 +306,41 @@ class FusedRNN(Initializer):
                 pieces[k] = _np.zeros(v.shape, "float32")
         arr[:] = rnn_pack_weights(pieces, L, num_input, h, self._mode,
                                   self._bidirectional).reshape(arr.shape)
+
+
+class Mixed:
+    """Each parameter initialized by the first of ``initializers`` whose
+    regular expression in ``patterns`` matches its name; a name matching
+    none raises."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("Parameter %s did not match any pattern" % name)
+
+
+class Load:
+    """Each parameter from ``param`` (a dict of arrays, keys optionally
+    prefixed "arg:"/"aux:" as a checkpoint's), else from
+    ``default_init``; with neither, it raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        del verbose  # mxtpu takes it and logs nothing either
+        self.param = dict(param)
+        self.default_init = default_init
+
+    def __call__(self, name, arr):
+        key = str(name)
+        for cand in (key, "arg:" + key, "aux:" + key):
+            if cand in self.param:
+                arr[:] = self.param[cand]
+                return
+        if self.default_init is None:
+            raise MXNetError("no init for %s" % name)
+        self.default_init(name, arr)

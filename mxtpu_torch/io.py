@@ -26,6 +26,7 @@ import torch
 from .base import MXNetError
 from .context import as_context, cpu, gpu
 from .ndarray import NDArray
+from .ndarray.ndarray import NARROW
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
            "PrefetchingIter", "DevicePrefetchIter", "NDArrayIter",
@@ -589,7 +590,8 @@ class NDArrayIter(DataIter):
             pad = self.batch_size - self.num_data + cursor
             sel = _np.concatenate([self.idx[cursor:], self.idx[:pad]])
         return [NDArray(torch.from_numpy(_np.ascontiguousarray(
-            x[1][sel], dtype=_np.float32)), cpu()) for x in data_source]
+            x[1][sel], dtype=NARROW.get(x[1].dtype.name, x[1].dtype))),
+            cpu()) for x in data_source]
 
     def getdata(self):
         return self._getdata(self.data)

@@ -1,7 +1,9 @@
 """Evaluation metrics (parity: python/mxnet/metric.py).
 
 Counterpart of ``mxtpu/metric.py``: ``EvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``CompositeEvalMetric``,
+``TopKAccuracy``, ``F1``, ``Perplexity``, ``MAE``, ``MSE``, ``RMSE``,
+``CrossEntropy``, ``PearsonCorrelation``, ``Loss`` (with ``Torch`` and
+``Caffe``), ``CustomMetric`` and ``np``, ``CompositeEvalMetric``,
 ``create``/``register``, and ``DeviceMetricAccum`` (:471-600), which
 keeps a fit's partial sums on the device. A per-batch ``asnumpy()`` of
 the LM's output (B*T x vocab f32, 823 MB at B = 4, T = 1024) would make
@@ -21,15 +23,19 @@ import torch
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "CrossEntropy",
-           "Perplexity",
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "CrossEntropy",
+           "Perplexity", "MAE", "MSE", "RMSE", "PearsonCorrelation", "Loss",
+           "Torch", "Caffe", "CustomMetric", "np",
            "CompositeEvalMetric", "DeviceKernel", "DeviceMetricAccum",
            "create", "register", "check_label_shapes"]
 
 _REG = {}
-_ALIASES = {"Accuracy": ("acc",), "TopKAccuracy": ("top_k_accuracy",),
+_ALIASES = {"Accuracy": ("acc",),
+            "TopKAccuracy": ("top_k_acc", "top_k_accuracy"),
             "CrossEntropy": ("ce", "cross-entropy"),
-            "CompositeEvalMetric": ("composite",)}
+            "PearsonCorrelation": ("pearsonr",),
+            "CompositeEvalMetric": ("composite",),
+            "CustomMetric": ("custom",)}
 
 
 def check_label_shapes(labels, preds, shape=0):
@@ -58,6 +64,20 @@ class EvalMetric:
         """A ``DeviceKernel`` computing this metric's per-batch partial
         sum in torch ops on the device, or None (numpy path only)."""
         return None
+
+    def update_dict(self, label, pred):
+        """``update`` with the outputs and labels given by name, those of
+        ``output_names``/``label_names`` when set."""
+        if self.output_names is not None:
+            pred = [pred[name] for name in self.output_names if name in pred]
+        else:
+            pred = list(pred.values())
+        if self.label_names is not None:
+            label = [label[name] for name in self.label_names
+                     if name in label]
+        else:
+            label = list(label.values())
+        self.update(label, pred)
 
     def update(self, labels, preds):
         raise NotImplementedError
@@ -90,7 +110,20 @@ def register(klass):
     return klass
 
 
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A ``CustomMetric`` over ``numpy_feval(label, pred)`` on numpy
+    arrays."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = name or numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
 def create(metric, *args, **kwargs):
+    """A metric by name or alias, a list of them (a composite), an
+    EvalMetric as is, or a ``feval(label, pred)`` as a CustomMetric."""
+    if callable(metric) and not isinstance(metric, EvalMetric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -213,6 +246,184 @@ class TopKAccuracy(EvalMetric):
 
 
 @register
+class F1(EvalMetric):
+    """F1 of a binary classifier, averaged over batches."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred_label = _np.argmax(_host(pred), axis=1)
+            label = _host(label).astype("int32")
+            check_label_shapes(label, pred_label)
+            if len(_np.unique(label)) > 2:
+                raise ValueError("F1 currently only supports binary "
+                                 "classification.")
+            tp = fp = fn = 0.0
+            for y_pred, y_true in zip(pred_label, label):
+                if y_pred == 1 and y_true == 1:
+                    tp += 1.0
+                elif y_pred == 1 and y_true == 0:
+                    fp += 1.0
+                elif y_pred == 0 and y_true == 1:
+                    fn += 1.0
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+            if precision + recall > 0:
+                self.sum_metric += 2 * precision * recall / (precision +
+                                                             recall)
+            self.num_inst += 1
+
+
+def _column(label):
+    """A 1-D label as a column, against (n, k) predictions."""
+    return label.reshape(label.shape[0], 1) if len(label.shape) == 1 \
+        else label
+
+
+class _Regression(EvalMetric):
+    """A per-batch mean of ``err(label - pred)``, averaged over batches
+    (MAE, MSE, RMSE); ``device_err`` is the same on tensors. ``err`` and
+    ``device_err`` are the subclass's."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.sum_metric += float(self.err(_column(_host(label)) -
+                                              _host(pred)))
+            self.num_inst += 1
+
+    def device_kernel(self):
+        err = self.device_err
+
+        def sum_fn(label, pred):
+            return err(_column(label) - pred).to(torch.float32)
+
+        return DeviceKernel(sum_fn, lambda label, pred: 1)
+
+
+@register
+class MAE(_Regression):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def err(diff):
+        return _np.abs(diff).mean()
+
+    @staticmethod
+    def device_err(diff):
+        return torch.mean(torch.abs(diff))
+
+
+@register
+class MSE(_Regression):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def err(diff):
+        return (diff ** 2.0).mean()
+
+    @staticmethod
+    def device_err(diff):
+        return torch.mean(torch.square(diff))
+
+
+@register
+class RMSE(_Regression):
+    """The mean over batches of each batch's root mean square error (not
+    one root of the whole set's mean), as mxtpu and the reference."""
+
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def err(diff):
+        return _np.sqrt((diff ** 2.0).mean())
+
+    @staticmethod
+    def device_err(diff):
+        return torch.sqrt(torch.mean(torch.square(diff)))
+
+
+@register
+class PearsonCorrelation(EvalMetric):
+    def __init__(self, name="pearsonr", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.sum_metric += float(_np.corrcoef(
+                _host(pred).ravel(), _host(label).ravel())[0, 1])
+            self.num_inst += 1
+
+
+@register
+class Loss(EvalMetric):
+    """The mean of the outputs themselves (a loss head's); labels are not
+    read."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, _, preds):
+        for pred in preds:
+            self.sum_metric += float(_host(pred).sum())
+            self.num_inst += int(_np.prod(pred.shape))
+
+    def device_kernel(self):
+        return DeviceKernel(lambda label, pred: torch.sum(pred).to(
+            torch.float32), lambda label, pred: pred.numel(),
+            needs_label=False)
+
+
+@register
+class Torch(Loss):
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` on numpy arrays, returning a
+    value (one instance) or a (sum, count) pair."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = "custom(%s)" % name
+        super().__init__(name, output_names, label_names)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_host(label), _host(pred))
+            if isinstance(reval, tuple):
+                (sum_metric, num_inst) = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+@register
 class Perplexity(EvalMetric):
     def __init__(self, ignore_label, axis=-1, name="perplexity",
                  output_names=None, label_names=None):
@@ -275,13 +486,15 @@ class DeviceKernel:
     """One metric's device recipe: ``sum_fn(label, pred)`` returns the
     batch's partial sum as a 0-d f32 tensor on the pred's device (queued,
     not waited for); ``count_fn(label, pred)`` the matching instance
-    count, from shapes, on the host."""
+    count, from shapes, on the host. A metric that reads no labels
+    (``Loss``) sets ``needs_label=False`` and gets None for them."""
 
-    __slots__ = ("sum_fn", "count_fn")
+    __slots__ = ("sum_fn", "count_fn", "needs_label")
 
-    def __init__(self, sum_fn, count_fn):
+    def __init__(self, sum_fn, count_fn, needs_label=True):
         self.sum_fn = sum_fn
         self.count_fn = count_fn
+        self.needs_label = needs_label
 
 
 def _flatten_metrics(metric):
@@ -338,11 +551,16 @@ class DeviceMetricAccum:
         own sum they join. Nothing is copied to the host."""
         labels = [getattr(x, "_data", x) for x in (labels or [])]
         preds = [getattr(x, "_data", x) for x in (preds or [])]
-        check_label_shapes(labels, preds)
+        if any(k.needs_label for k in self.kernels):
+            check_label_shapes(labels, preds)
         with torch.no_grad():
             for i, k in enumerate(self.kernels):
-                for lab, p in zip(labels, preds):
-                    part = k.sum_fn(lab.to(p.device, non_blocking=True), p)
+                pairs = zip(labels, preds) if k.needs_label else \
+                    ((None, p) for p in preds)
+                for lab, p in pairs:
+                    if lab is not None:
+                        lab = lab.to(p.device, non_blocking=True)
+                    part = k.sum_fn(lab, p)
                     sums = self._sums[i]
                     sums[p.device] = part if p.device not in sums \
                         else sums[p.device] + part

@@ -163,7 +163,7 @@ class DataParallelExecutorGroup:
         flats = {}
         by_dtype = {}
         for n in need:
-            by_dtype.setdefault(args[n].dtype, []).append(n)
+            by_dtype.setdefault(args[n]._data.dtype, []).append(n)
         for dtype, names in by_dtype.items():
             flat = torch.zeros(sum(args[n].size for n in names),
                                dtype=dtype, device=dev)

@@ -128,8 +128,13 @@ _RULES = {"SGD": _rule_sgd, "NAG": _rule_nag, "Adam": _rule_adam,
 
 
 def supports(optimizer):
-    """Whether a fused-step update rule exists for this optimizer."""
-    return type(optimizer).__name__ in _RULES
+    """Whether a fused-step update rule exists for this optimizer (not for
+    multi-precision SGD, whose master weights stay on the Updater, as in
+    mxtpu)."""
+    name = type(optimizer).__name__
+    if name == "SGD" and getattr(optimizer, "multi_precision", False):
+        return False
+    return name in _RULES
 
 
 class _Bucket:

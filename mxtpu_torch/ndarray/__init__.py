@@ -26,8 +26,8 @@ __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "to_numpy", "host_copies", "save", "load", "add", "subtract",
            "multiply", "divide", "true_divide", "power", "maximum",
            "minimum", "equal", "not_equal", "greater", "greater_equal",
-           "lesser", "lesser_equal", "contrib", "imread", "imdecode",
-           "imresize"]
+           "lesser", "lesser_equal", "contrib", "random", "imread",
+           "imdecode", "imresize"]
 
 
 def _make_nd_fn(opname, op):
@@ -80,7 +80,21 @@ for _name in list_ops():
     if not hasattr(_mod, _name):
         setattr(_mod, _name, _make_nd_fn(_name, get_op(_name)))
 
+# the samplers' public names (mxtpu/ndarray/__init__.py:69-78)
+for _pub, _priv in [("uniform", "_random_uniform"),
+                    ("normal", "_random_normal"),
+                    ("random_uniform", "_random_uniform"),
+                    ("random_normal", "_random_normal"),
+                    ("random_gamma", "_random_gamma"),
+                    ("random_exponential", "_random_exponential"),
+                    ("random_poisson", "_random_poisson"),
+                    ("negative_binomial", "_random_negative_binomial"),
+                    ("generalized_negative_binomial",
+                     "_random_generalized_negative_binomial")]:
+    setattr(_mod, _pub, _make_nd_fn(_priv, get_op(_priv)))
+
 contrib = _PrefixNS(_mod, "_contrib_")
+random = _PrefixNS(_mod, "_random_")
 
 # ------------------------------------------------- module-level arithmetic
 add = _op.add

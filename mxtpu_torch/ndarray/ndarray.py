@@ -6,8 +6,9 @@ properties, the autograd methods (``attach_grad`` :157, ``backward``
 arithmetic and comparison operators over the registered ops (:286-392),
 the guarded in-place operators (:360), the reductions and ``transpose``
 (:399-415); the imperative invoke ``invoke_op`` (:427) and the creation
-functions. ``dtype`` is the torch dtype (bfloat16 has no numpy
-counterpart); ``asnumpy`` returns bfloat16 data as float32. mxtpu's
+functions. ``dtype`` is a numpy dtype, as in mxtpu (bfloat16, which
+numpy lacks, gives the stand-in ``registry.BFLOAT16``); ``asnumpy``
+returns bfloat16 data as float32. mxtpu's
 arrays are immutable and "mutation" rebinds a buffer; here an in-place
 write (``x[:] = v``, ``+=``, ``out=``, the aux writeback) writes the
 tensor in place under ``no_grad``, so every holder of it sees the new
@@ -29,7 +30,7 @@ import torch
 from .. import autograd as _ag
 from ..base import MXNetError
 from ..context import Context, as_context, cpu, current_context
-from ..ops.registry import get_op, torch_dtype, write_aux
+from ..ops.registry import get_op, numpy_dtype, torch_dtype, write_aux
 
 __all__ = ["NDArray", "array", "invoke_op", "imperative_invoke", "waitall",
            "zeros", "ones", "empty", "full", "arange", "concatenate",
@@ -50,11 +51,7 @@ def to_numpy(t):
 
 def _dtype_str(dtype):
     """MXNet's name of a dtype given as a string, numpy or torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype_name(dtype)
-    if isinstance(dtype, str):
-        return dtype
-    return _np.dtype(dtype).name
+    return dtype if isinstance(dtype, str) else dtype_name(dtype)
 
 
 def _is_basic(k):
@@ -115,7 +112,9 @@ class NDArray:
 
     @property
     def dtype(self):
-        return self._data.dtype
+        """The numpy dtype, as mxtpu's ``np.dtype(self._data.dtype)``;
+        a bfloat16 array gives the stand-in ``registry.BFLOAT16``."""
+        return numpy_dtype(self._data.dtype)
 
     @property
     def ndim(self):
@@ -474,19 +473,31 @@ def _context(ctx):
     return as_context(ctx) if ctx is not None else current_context()
 
 
+#: the types ``array`` (and ``NDArrayIter``'s batches) narrow when no
+#: dtype is given, by name (mxtpu's ``_DTYPE_COERCE``: JAX without x64
+#: has no 64-bit types)
+NARROW = {"float64": "float32", "int64": "int32"}
+
+
 def array(source_array, ctx=None, dtype=None):
-    """NDArray from a numpy array, list, tensor or NDArray (float32
-    unless ``dtype`` is given, as in MXNet): always a copy, so the
-    in-place writes of training (the optimizer's, the aux writeback)
-    never reach the source."""
+    """NDArray from a numpy array, list, tensor or NDArray: always a copy,
+    so the in-place writes of training (the optimizer's, the aux
+    writeback) never reach the source. Its type is ``dtype`` if given,
+    else an NDArray's own, else the source's with float64 and int64
+    narrowed to float32 and int32, as mxtpu's ``array``."""
     if isinstance(source_array, NDArray):
         source_array = source_array._data.detach()
-    dt = torch_dtype(dtype) if dtype is not None else torch.float32
-    if not isinstance(source_array, torch.Tensor):
-        src = _np.asarray(source_array)
-        if not src.flags.writeable:  # torch takes writable memory only
-            src = src.copy()
-        source_array = torch.from_numpy(src)
+        dt = source_array.dtype
+    else:
+        if not isinstance(source_array, torch.Tensor):
+            src = _np.asarray(source_array)
+            if not src.flags.writeable:  # torch takes writable memory only
+                src = src.copy()
+            source_array = torch.from_numpy(src)
+        dt = torch_dtype(NARROW.get(dtype_name(source_array.dtype),
+                                    source_array.dtype))
+    if dtype is not None:
+        dt = torch_dtype(dtype)
     ctx = _context(ctx)
     return NDArray(source_array.to(device=ctx.torch_device, dtype=dt,
                                    copy=True), ctx)
@@ -547,9 +558,9 @@ _MAGIC = b"MXTPU001"
 
 
 def dtype_name(dtype):
-    """numpy's name of a torch dtype ("float32", "bfloat16", ...), the
-    name the file header and the checkpoint manifest carry."""
-    return str(dtype).rsplit(".", 1)[-1]
+    """numpy's name of a torch or numpy dtype ("float32", "bfloat16",
+    ...), the name the file header and the checkpoint manifest carry."""
+    return str(torch_dtype(dtype)).rsplit(".", 1)[-1]
 
 
 def host_copies(tensors):

@@ -7,6 +7,7 @@ from . import nn
 from . import attention
 from . import rnn
 from . import contrib
+from . import random_ops
 
 __all__ = ["registry", "collective", "tensor", "epilogue", "nn",
-           "attention", "rnn", "contrib"]
+           "attention", "rnn", "contrib", "random_ops"]

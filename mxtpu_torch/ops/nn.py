@@ -29,6 +29,7 @@ from ..base import MXNetError
 from .collective import ReplicaSum, sum_replicas
 from .epilogue import bn_apply_relu_add, fold_bn
 from .registry import Required, off_batch_axis, register, set_replicas
+from .tensor import relu
 
 
 def _prod(xs):
@@ -103,7 +104,7 @@ register("LayerNorm", _layer_norm,
 def _activation(a, x):
     t = a.act_type
     if t == "relu":
-        return torch.relu(x)
+        return relu(x)
     if t == "sigmoid":
         return torch.sigmoid(x)
     if t == "tanh":

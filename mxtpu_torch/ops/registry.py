@@ -8,31 +8,58 @@ which carry shapes and dtypes but no data and do no arithmetic.
 """
 from __future__ import annotations
 
+import numpy as _np
 import torch
 
 from .. import random as _random
 from ..base import MXNetError, parse_attr
 
 __all__ = ["OpDef", "register", "get_op", "op_exists", "list_ops",
-           "Required", "invoke", "AttrDict", "torch_dtype", "set_replicas",
-           "off_batch_axis"]
+           "Required", "invoke", "AttrDict", "torch_dtype", "numpy_dtype",
+           "BFLOAT16", "set_replicas", "off_batch_axis"]
 
 _OPS = {}
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64,
-           "int32": torch.int32, "int64": torch.int64,
-           "int8": torch.int8, "uint8": torch.uint8}
+           "int32": torch.int32, "int64": torch.int64, "int16": torch.int16,
+           "int8": torch.int8, "uint8": torch.uint8, "uint32": torch.uint32,
+           "bool": torch.bool}
+
+#: What ``NDArray.dtype`` gives for a bfloat16 array. numpy has no
+#: bfloat16 (mxtpu's comes from ml_dtypes, which the port does not
+#: need), so the stand-in is a 2-byte record whose one field is named
+#: "bfloat16": it equals no numeric type, ``torch_dtype`` maps it back,
+#: and ``np.zeros(n, BFLOAT16)`` holds the raw bits.
+BFLOAT16 = _np.dtype([("bfloat16", "<u2")])
+
+_NUMPY = {t: (BFLOAT16 if t == torch.bfloat16 else _np.dtype(n))
+          for n, t in _DTYPES.items()}
 
 
 def torch_dtype(name):
-    """torch dtype for an MXNet dtype string (or a torch dtype)."""
+    """torch dtype for an MXNet dtype: a string ("float32"), a numpy type
+    or dtype (``np.float32``, ``np.dtype("int8")``, ``BFLOAT16``) or a
+    torch dtype."""
     if isinstance(name, torch.dtype):
         return name
-    key = str(name)
+    if isinstance(name, str) or name is None:
+        key = str(name)
+    else:
+        try:
+            dt = _np.dtype(name)
+        except TypeError:
+            raise MXNetError("unsupported dtype %r" % (name,))
+        key = "bfloat16" if dt == BFLOAT16 else dt.name
     if key not in _DTYPES:
         raise MXNetError("unsupported dtype %r" % (name,))
     return _DTYPES[key]
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype (``BFLOAT16`` for bfloat16), as
+    mxtpu's ``NDArray.dtype`` is ``np.dtype(array.dtype)``."""
+    return _NUMPY[torch_dtype(dtype)]
 
 
 class Required:
@@ -65,7 +92,9 @@ class OpDef:
     the tensor inputs are then ``arg0 .. argN``.
     ``needs_rng``: the op draws random numbers; ``fn`` is then
     ``fn(attrs, generator, *inputs)`` with the ``torch.Generator`` of the
-    inputs' device (``random.generator``), or None on meta tensors.
+    inputs' device (``random.generator``), or None on meta tensors; one
+    with no tensor inputs (``_random_uniform``) is ``fn(attrs, generator,
+    device)``.
     ``loss_like``: the output is a loss head whose gradient ignores the
     incoming head gradient (SoftmaxOutput); ``fn`` encodes that in its
     autograd.Function, and a backward with no head gradients feeds ones.
@@ -145,12 +174,13 @@ class OpDef:
         outputs, then the updated aux values of an op with aux_names. An
         op with no tensor inputs (``_zeros``) is ``fn(attrs, device)``,
         and makes its output on ``device``."""
-        if not inputs and not self.variadic:
-            out = self.fn(attrs, torch.device(device or "cpu"))
-        elif self.needs_rng:
-            dev = inputs[0].device
+        if self.needs_rng:
+            dev = inputs[0].device if inputs else \
+                torch.device(device or "cpu")
             gen = None if dev.type == "meta" else _random.generator(dev)
-            out = self.fn(attrs, gen, *inputs)
+            out = self.fn(attrs, gen, *(inputs or (dev,)))
+        elif not inputs and not self.variadic:
+            out = self.fn(attrs, torch.device(device or "cpu"))
         else:
             out = self.fn(attrs, *inputs)
         if not isinstance(out, (tuple, list)):

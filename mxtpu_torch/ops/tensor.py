@@ -16,12 +16,18 @@ with ``axis``, ``keepdims`` and ``exclude`` and ``norm`` (:217-237),
 ``Embedding`` (:476), ``take`` (:486), ``where`` (:600), ``reverse``
 (:430) and ``_zeros`` (:532, made on the executor's device), each with
 mxtpu's arg names and attr defaults. Comparisons return 0/1 in the left
-operand's dtype, as mxtpu's ``_logic`` does. The other op families of
-that module are ported in later slices.
+operand's dtype, as mxtpu's ``_logic`` does. The types follow mxtpu's:
+a scalar op first puts its scalar in the array's type (``scalar_of``),
+an integer sum is int32 (uint8: uint32) and an integer mean float32. So
+do the gradients where torch's differ at a tie or a zero: ``relu``'s at
+0 is 1/2, ``abs``'s 1, and ``power``'s at 0^0 NaN (``_Relu``, ``_Abs``,
+``_Pow``). The other op families of that module are ported in later
+slices.
 """
 from __future__ import annotations
 
 import ast
+import math
 
 import torch
 
@@ -56,11 +62,29 @@ def binary(name, f, **kw):
              attrs={}, **kw)
 
 
+def scalar_of(x, s):
+    """The Python number ``s`` in ``x``'s type, as mxtpu's
+    ``jnp.asarray(scalar, x.dtype)`` makes it: rounded to a float type,
+    truncated toward zero for an integer type, where NaN raises
+    ValueError and a value outside the type's range OverflowError."""
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return float(torch.tensor(s, dtype=x.dtype))
+    if x.dtype.is_floating_point or x.dtype == torch.bool:
+        return s
+    v = int(s)
+    info = torch.iinfo(x.dtype)
+    if not info.min <= v <= info.max:
+        raise OverflowError("Python integer %d out of bounds for %s"
+                            % (v, str(x.dtype).rsplit(".", 1)[-1]))
+    return v
+
+
 def binary_scalar(name, f, **kw):
-    """``f(x, scalar)`` with the scalar a Python float, which torch rounds
-    to x's dtype as mxtpu's ``jnp.asarray(scalar, x.dtype)`` does."""
-    register(name, lambda a, x: f(x, a.scalar), arg_names=["data"],
-             attrs={"scalar": Required(float)}, **kw)
+    """``f(x, scalar)`` with the scalar first put in x's type
+    (``scalar_of``), so an integer array stays integer and a float16
+    one adds the float16 scalar, as in mxtpu."""
+    register(name, lambda a, x: f(x, scalar_of(x, a.scalar)),
+             arg_names=["data"], attrs={"scalar": Required(float)}, **kw)
 
 
 def _full_like(f):
@@ -74,12 +98,86 @@ def _logic(f):
     return lambda l, r: f(l, r).to(l.dtype)
 
 
+class _Relu(torch.autograd.Function):
+    """``max(x, 0)`` whose gradient at x = 0 (either sign) is 1/2, as
+    mxtpu's ``jnp.maximum(x, 0)`` splits a tie; ``torch.relu``'s is 0.
+    The backward is one ``heaviside`` mask times the head gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.heaviside(x, x.new_full((), 0.5))
+
+
+class _Abs(torch.autograd.Function):
+    """``|x|`` whose gradient at x = 0 (either sign) is 1, as
+    ``jnp.abs``'s (``select(x >= 0, g, -g)``); torch's ``sgn`` gives 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+class _Pow(torch.autograd.Function):
+    """``base ** exponent`` (either may be a Python number) with the
+    gradients of mxtpu's ``jnp.power`` (lax.pow's rules): ``exponent *
+    base ** (exponent - 1)`` for the base, unmasked, so 0 ** 0 gives NaN
+    where torch's own backward masks exponent 0; ``log(base) * out``
+    for the exponent, with a zero base read as 1."""
+
+    @staticmethod
+    def forward(ctx, base, exponent):
+        out = torch.pow(base, exponent)
+        ctx.numbers = [None if torch.is_tensor(v) else v
+                       for v in (base, exponent)]
+        ctx.save_for_backward(*[v if torch.is_tensor(v) else None
+                                for v in (base, exponent)], out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        base, exponent, out = ctx.saved_tensors
+        base = ctx.numbers[0] if base is None else base
+        exponent = ctx.numbers[1] if exponent is None else exponent
+        gb = ge = None
+        if ctx.needs_input_grad[0]:
+            # a tensor exponent: torch's pow by a number special-cases
+            # some (-0.5 is rsqrt, which gives -inf at -0 where pow's +inf)
+            e1 = exponent - 1 if torch.is_tensor(exponent) else \
+                torch.full_like(base, exponent - 1)
+            gb = (g * (exponent * torch.pow(base, e1))
+                  ).sum_to_size(base.shape)
+        if ctx.needs_input_grad[1]:
+            if torch.is_tensor(base):
+                log_b = torch.log(torch.where(base == 0, 1, base))
+            else:
+                log_b = math.log(base) if base > 0 else \
+                    (0.0 if base == 0 else math.nan)
+            ge = (g * (log_b * out)).sum_to_size(exponent.shape)
+        return gb, ge
+
+
+def relu(x):
+    return _Relu.apply(x)
+
+
 # ---------------------------------------------------------------- unary math
-unary("relu", torch.relu)
+unary("relu", relu)
 unary("sigmoid", torch.sigmoid)
 unary("_copy", torch.clone)
 unary("negative", torch.neg)
-unary("abs", torch.abs)
+unary("abs", _Abs.apply)
 unary("square", torch.square)
 unary("sqrt", torch.sqrt)
 unary("exp", torch.exp)
@@ -120,7 +218,7 @@ binary("elemwise_mul", torch.mul, aliases=("_mul",))
 binary("elemwise_div", torch.div, aliases=("_div",))
 binary("_maximum", torch.maximum)
 binary("_minimum", torch.minimum)
-binary("_power", torch.pow)
+binary("_power", _Pow.apply)
 for _n, _f in _COMPARE:
     binary("_" + _n, _logic(_f))
 
@@ -132,8 +230,8 @@ binary_scalar("_div_scalar", torch.div)
 binary_scalar("_rdiv_scalar", lambda x, s: s / x)
 binary_scalar("_maximum_scalar", _full_like(torch.maximum))
 binary_scalar("_minimum_scalar", _full_like(torch.minimum))
-binary_scalar("_power_scalar", torch.pow)
-binary_scalar("_rpower_scalar", lambda x, s: torch.pow(s, x))
+binary_scalar("_power_scalar", _Pow.apply)
+binary_scalar("_rpower_scalar", lambda x, s: _Pow.apply(s, x))
 for _n, _f in _COMPARE:
     binary_scalar("_%s_scalar" % _n, _logic(_f))
 
@@ -151,7 +249,7 @@ register("smooth_l1", _smooth_l1, attrs={"scalar": 1.0})
 
 for _n, _f in [("add", torch.add), ("plus", torch.add), ("sub", torch.sub),
                ("minus", torch.sub), ("mul", torch.mul), ("div", torch.div),
-               ("power", torch.pow), ("maximum", torch.maximum),
+               ("power", _Pow.apply), ("maximum", torch.maximum),
                ("minimum", torch.minimum)] + \
         [(n, _logic(f)) for n, f in _COMPARE]:
     binary("broadcast_" + _n, _f)
@@ -174,8 +272,29 @@ def _reduce(name, f):
                                 "exclude": False})
 
 
-_reduce("sum", torch.sum)
-_reduce("mean", torch.mean)
+#: the type an integer sum comes out in: JAX's default integer, int32,
+#: and uint32 for the unsigned types, wrapping on overflow
+_SUM_INT = {torch.uint8: torch.uint32, torch.bool: torch.int32}
+
+
+def _sum(x, dim, keepdim):
+    """``jnp.sum``'s types: an integer array sums to int32 (uint8 to
+    uint32), wrapping as mxtpu's does; torch's own sum gives int64."""
+    if x.is_floating_point():
+        return torch.sum(x, dim=dim, keepdim=keepdim)
+    return torch.sum(x, dim=dim, keepdim=keepdim, dtype=torch.int64).to(
+        _SUM_INT.get(x.dtype, torch.int32))
+
+
+def _mean(x, dim, keepdim):
+    """``jnp.mean``'s types: an integer array averages in float32."""
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=dim, keepdim=keepdim)
+
+
+_reduce("sum", _sum)
+_reduce("mean", _mean)
 _reduce("max", torch.amax)  # amax/amin share a tie's gradient, as jnp
 _reduce("min", torch.amin)
 register("norm", lambda a, x: torch.sqrt(torch.sum(torch.square(x))),

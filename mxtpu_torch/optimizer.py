@@ -1,12 +1,17 @@
 """Optimizers and the Updater (parity: python/mxnet/optimizer.py).
 
-Counterpart of ``mxtpu/optimizer.py:20-265, 430-467``: ``Optimizer``
-(lr/wd multipliers from ``__lr_mult__``/``__wd_mult__`` attributes, per
-index update counts, ``rescale_grad``, ``clip_gradient``, an optional
-lr scheduler), ``SGD``, ``NAG``, ``Adam``, ``RMSProp``, ``AdaGrad``,
-``create``/``register`` and the per-index ``Updater`` of the unfused
-path. The update arithmetic is the plain torch functions below, the
-counterparts of ``mxtpu/ops/optimizer_ops.py`` written as in-place
+Counterpart of ``mxtpu/optimizer.py``: ``Optimizer`` (lr/wd
+multipliers from ``__lr_mult__``/``__wd_mult__`` attributes, per index
+update counts, ``rescale_grad``, ``clip_gradient``, an optional lr
+scheduler), ``SGD`` (with ``multi_precision``: float16 weights updated
+through float32 master copies), ``NAG``, ``Adam``, ``RMSProp``,
+``AdaGrad``, ``AdaDelta``, ``Adamax``, ``Nadam``, ``Ftrl``, ``SGLD``,
+``DCASGD``, ``Test`` and ``ccSGD``, ``create``/``register`` and the
+per-index ``Updater`` of the unfused path. Only SGD, NAG, Adam, RMSProp
+and AdaGrad have fused-step rules (``module/fused.py``); the others, and
+multi-precision SGD, update through the Updater, as in mxtpu. The
+update arithmetic is the plain torch functions below, the counterparts
+of ``mxtpu/ops/optimizer_ops.py`` written as in-place
 updates of the weight and state tensors (under ``no_grad``, never
 recorded by autograd); the fused update (``module/fused.py``) calls the
 same functions, so it rounds as the Updater does.
@@ -19,11 +24,13 @@ import pickle
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .ndarray import NDArray
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "RMSProp", "AdaGrad",
-           "register", "create", "Updater", "get_updater"]
+           "AdaDelta", "Adamax", "Nadam", "Ftrl", "SGLD", "DCASGD", "Test",
+           "ccSGD", "register", "create", "Updater", "get_updater"]
 
 _REG = {}
 
@@ -45,6 +52,24 @@ def sgd_update_(w, g, lr, wd, rescale, clip):
 def sgd_mom_update_(w, g, mom, lr, wd, rescale, clip, momentum):
     mom.copy_(momentum * mom - lr * _prep(g, w, rescale, clip, wd))
     w.add_(mom)
+
+
+@torch.no_grad()
+def mp_sgd_update_(w, g, w32, lr, wd, rescale, clip):
+    """SGD on a low-precision weight through its float32 master copy
+    ``w32`` (mxtpu's ``mp_sgd_update``): the f32 copy takes the step and
+    the weight gets it rounded."""
+    w32.sub_(lr * _prep(g.to(torch.float32), w32, rescale, clip, wd))
+    w.copy_(w32)
+
+
+@torch.no_grad()
+def mp_sgd_mom_update_(w, g, mom, w32, lr, wd, rescale, clip, momentum):
+    """``mp_sgd_update_`` with an f32 momentum (``mp_sgd_mom_update``)."""
+    mom.copy_(momentum * mom - lr * _prep(g.to(torch.float32), w32, rescale,
+                                          clip, wd))
+    w32.add_(mom)
+    w.copy_(w32)
 
 
 @torch.no_grad()
@@ -101,6 +126,80 @@ def adagrad_update_(w, g, hist, lr, wd, rescale, clip, eps):
         g = torch.clamp(g, -clip, clip)
     hist.add_(torch.square(g))
     w.sub_(lr * (g / torch.sqrt(hist + eps) + wd * w))
+
+
+def _rescaled(g, rescale, clip):
+    """The gradient rescaled, then clipped when ``clip`` is set."""
+    g = g * rescale
+    return torch.clamp(g, -clip, clip) if clip else g
+
+
+@torch.no_grad()
+def adadelta_update_(w, g, acc_g, acc_delta, wd, rescale, clip, rho,
+                     epsilon):
+    g = _rescaled(g, rescale, clip)
+    acc_g.copy_(rho * acc_g + (1 - rho) * g ** 2)
+    delta = torch.sqrt(acc_delta + epsilon) / torch.sqrt(acc_g + epsilon) \
+        * g
+    acc_delta.copy_(rho * acc_delta + (1 - rho) * delta ** 2)
+    w.copy_(w - delta - wd * w)
+
+
+@torch.no_grad()
+def adamax_update_(w, g, m, u, lr, wd, rescale, clip, beta1, beta2):
+    g = _rescaled(g, rescale, clip) + wd * w
+    m.copy_(beta1 * m + (1.0 - beta1) * g)
+    u.copy_(torch.maximum(beta2 * u, torch.abs(g)))
+    w.sub_(lr * m / (u + 1e-8))
+
+
+@torch.no_grad()
+def nadam_update_(w, g, m, v, lr, wd, rescale, clip, beta1, beta2, epsilon,
+                  t, momentum_t, momentum_t_1, m_schedule, m_schedule_next):
+    g = _rescaled(g, rescale, clip) + wd * w
+    m.copy_(beta1 * m + (1.0 - beta1) * g)
+    v.copy_(beta2 * v + (1.0 - beta2) * g * g)
+    g_prime = g / (1.0 - m_schedule)
+    m_prime = m / (1.0 - m_schedule_next)
+    v_prime = v / (1.0 - beta2 ** t)
+    m_bar = (1.0 - momentum_t) * g_prime + momentum_t_1 * m_prime
+    w.sub_(lr * m_bar / (torch.sqrt(v_prime) + epsilon))
+
+
+@torch.no_grad()
+def ftrl_update_(w, g, z, n, lr, wd, rescale, clip, lamda1, beta):
+    g = _rescaled(g, rescale, clip)
+    new_n = n + torch.square(g)
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+    z.add_(g - sigma * w)
+    n.copy_(new_n)
+    w.copy_(torch.where(torch.abs(z) <= lamda1, torch.zeros_like(w),
+                        -(z - torch.sign(z) * lamda1)
+                        / ((beta + torch.sqrt(new_n)) / lr + wd)))
+
+
+@torch.no_grad()
+def sgld_update_(w, g, lr, wd, rescale, clip, generator):
+    """Langevin dynamics: half an SGD step plus N(0, lr) noise drawn from
+    ``generator`` on the weight's device."""
+    g = _rescaled(g, rescale, clip)
+    noise = torch.randn(w.shape, generator=generator, dtype=w.dtype,
+                        device=w.device) * math.sqrt(lr)
+    w.copy_(w - (lr / 2) * (g + wd * w) + noise)
+
+
+@torch.no_grad()
+def dcasgd_update_(w, g, mom, prev, lr, wd, rescale, clip, momentum, lamda):
+    """Delay-compensated SGD: the gradient corrected by ``lamda·g²·(w -
+    prev)``, ``prev`` the weight after the last update."""
+    g = _rescaled(g, rescale, clip)
+    comp = g + wd * w + lamda * g * g * (w - prev)
+    if mom is not None:
+        mom.copy_(momentum * mom - lr * comp)
+        w.add_(mom)
+    else:
+        w.sub_(lr * comp)
+    prev.copy_(w)
 
 
 # ---------------------------------------------------------------- optimizers
@@ -207,19 +306,34 @@ create = Optimizer.create_optimizer
 
 @register
 class SGD(Optimizer):
-    """SGD with optional momentum (parity optimizer.py:368)."""
+    """SGD with optional momentum (parity optimizer.py:368). With
+    ``multi_precision`` a float16 weight keeps a float32 master copy and
+    f32 momentum in its state, ``(momentum or None, master)``."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, multi_precision=False, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.multi_precision = multi_precision
 
     def create_state(self, index, weight):
-        return _zeros_like(weight) if self.momentum != 0.0 else None
+        mom = _zeros_like(weight) if self.momentum != 0.0 else None
+        if self.multi_precision and weight.dtype == np.float16:
+            return (mom, weight.astype("float32"))
+        return mom
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
-        if state is None:
+        if isinstance(state, tuple):
+            mom, w32 = state
+            if mom is not None:
+                mp_sgd_mom_update_(weight._data, grad._data, mom._data,
+                                   w32._data, lr, wd, self.rescale_grad,
+                                   self._clip(), self.momentum)
+            else:
+                mp_sgd_update_(weight._data, grad._data, w32._data, lr, wd,
+                               self.rescale_grad, self._clip())
+        elif state is None:
             sgd_update_(weight._data, grad._data, lr, wd, self.rescale_grad,
                         self._clip())
         else:
@@ -313,6 +427,145 @@ class RMSProp(Optimizer):
             rmsprop_update_(weight._data, grad._data, state[0]._data, lr, wd,
                             self.rescale_grad, self._clip(), self.gamma1,
                             self.epsilon, clip_w)
+
+
+@register
+class AdaDelta(Optimizer):
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        adadelta_update_(weight._data, grad._data, *map(_raw, state),
+                         self._get_wd(index), self.rescale_grad,
+                         self.clip_gradient, self.rho, self.epsilon)
+
+
+@register
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr /= (1.0 - self.beta1 ** self._index_update_count[index])
+        adamax_update_(weight._data, grad._data, *map(_raw, state), lr, wd,
+                       self.rescale_grad, self.clip_gradient, self.beta1,
+                       self.beta2)
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum. ``m_schedule`` is one product on the
+    optimizer, advanced by every parameter's update, as in mxtpu and the
+    reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        nadam_update_(weight._data, grad._data, *map(_raw, state), lr, wd,
+                      self.rescale_grad, self.clip_gradient, self.beta1,
+                      self.beta2, self.epsilon, t, momentum_t, momentum_t_1,
+                      self.m_schedule, self.m_schedule * momentum_t_1)
+
+
+@register
+class Ftrl(Optimizer):
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        ftrl_update_(weight._data, grad._data, *map(_raw, state),
+                     self._get_lr(index), self._get_wd(index),
+                     self.rescale_grad, self.clip_gradient, self.lamda1,
+                     self.beta)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics. The noise comes from the
+    generator of the weight's device (``random.generator``)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        sgld_update_(weight._data, grad._data, self._get_lr(index),
+                     self._get_wd(index), self.rescale_grad,
+                     self.clip_gradient,
+                     _random.generator(weight._data.device))
+
+
+@register
+class DCASGD(Optimizer):
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = _zeros_like(weight) if self.momentum != 0.0 else None
+        return (mom, weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        dcasgd_update_(weight._data, grad._data, *map(_raw, state),
+                       self._get_lr(index), self._get_wd(index),
+                       self.rescale_grad, self.clip_gradient, self.momentum,
+                       self.lamda)
+
+
+@register
+class Test(Optimizer):
+    """Adds the rescaled gradient to the weight; the state mirrors it."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight._data.add_(grad._data * self.rescale_grad)
+            state._data.copy_(weight._data)
+
+
+@register
+class ccSGD(SGD):
+    """Deprecated alias of SGD (parity optimizer.py ccSGD), so configs
+    naming 'ccsgd' keep working."""
 
 
 def states_to_numpy(state):

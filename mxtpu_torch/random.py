@@ -5,8 +5,15 @@ Counterpart of ``mxtpu/random.py`` (``seed``, ``next_key``,
 threefry key; here each device has its own ``torch.Generator``, seeded by
 ``seed`` and advanced by every draw (Dropout in training). The streams are
 not threefry's: the same seed gives other bits than the JAX package, so
-tests that compare the two feed both the same noise. As in mxtpu,
-``seed`` does not touch numpy's global RNG.
+tests that compare the two feed both the same noise, or compare
+statistics. As in mxtpu, ``seed`` does not touch numpy's global RNG.
+
+The samplers ``uniform``, ``normal``, ``gamma``, ``exponential``,
+``poisson``, ``negative_binomial``, ``generalized_negative_binomial``
+and ``multinomial`` (mxtpu/random.py:77-126) call the ``_random_*`` and
+``sample_multinomial`` ops (``ops/random_ops.py``) with mxtpu's
+signatures; ``ctx`` (default: the current context) is where the values
+are drawn and stay.
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "get_state", "set_state"]
+__all__ = ["seed", "generator", "get_state", "set_state", "uniform",
+           "normal", "gamma", "exponential", "poisson", "negative_binomial",
+           "generalized_negative_binomial", "multinomial"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -66,3 +75,56 @@ def set_state(state):
     _seed = int(state["seed"])
     for dev, st in state["generators"].items():
         generator(dev).set_state(st)
+
+
+# ------------------------------------------------- module-level samplers
+# (late imports: ndarray imports this module through the op registry)
+def _draw(op, ctx, **attrs):
+    from .ndarray import invoke_op
+    return invoke_op(op, [], dict(attrs, ctx=ctx))[0]
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), dtype="float32", ctx=None):
+    return _draw("_random_uniform", ctx, low=float(low), high=float(high),
+                 shape=shape, dtype=dtype)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), dtype="float32", ctx=None):
+    return _draw("_random_normal", ctx, loc=float(loc), scale=float(scale),
+                 shape=shape, dtype=dtype)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=(1,), dtype="float32", ctx=None):
+    return _draw("_random_gamma", ctx, alpha=float(alpha), beta=float(beta),
+                 shape=shape, dtype=dtype)
+
+
+def exponential(lam=1.0, shape=(1,), dtype="float32", ctx=None):
+    return _draw("_random_exponential", ctx, lam=float(lam), shape=shape,
+                 dtype=dtype)
+
+
+def poisson(lam=1.0, shape=(1,), dtype="float32", ctx=None):
+    return _draw("_random_poisson", ctx, lam=float(lam), shape=shape,
+                 dtype=dtype)
+
+
+def negative_binomial(k=1, p=1.0, shape=(1,), dtype="float32", ctx=None):
+    return _draw("_random_negative_binomial", ctx, k=int(k), p=float(p),
+                 shape=shape, dtype=dtype)
+
+
+def generalized_negative_binomial(mu=1.0, alpha=1.0, shape=(1,),
+                                  dtype="float32", ctx=None):
+    return _draw("_random_generalized_negative_binomial", ctx,
+                 mu=float(mu), alpha=float(alpha), shape=shape, dtype=dtype)
+
+
+def multinomial(data, shape=(), get_prob=False, dtype="int32"):
+    """Class draws from each row of probabilities in ``data`` (an
+    NDArray), on its device; with ``get_prob`` also their
+    log-probabilities."""
+    from .ndarray import invoke_op
+    out = invoke_op("sample_multinomial", [data],
+                    {"shape": shape, "get_prob": get_prob, "dtype": dtype})
+    return out if get_prob else out[0]

@@ -97,7 +97,7 @@ def test_nd_files_cross_between_the_packages_bit_for_bit(mt, tmp_path,
             np.testing.assert_array_equal(have, want, err_msg=dt)
             if reader == "mt":
                 assert got[dt].context == mt.cpu()
-                assert str(got[dt].dtype).endswith(dt)
+                assert str(got[dt]._data.dtype).endswith(dt)
     with open(fname, "rb") as f:  # a binary file object
         assert len(mt.nd.load(f)) == len(DTYPES)
 

@@ -42,7 +42,13 @@ The record pipeline feeding the card: ``ImageRecordIter`` through
 batch launching the epilogue once per fused site and equal to the plain
 epilogue; ``TopKAccuracy`` accumulated on the card equal to its host
 sum; ``ImageDetRecordIter`` into the tiny SSD's ``fit`` with the
-suppression kernel launched once a step.
+suppression kernel launched once a step. ROADMAP C.8-C.13 and A.14 on
+CUDA tensors against cpu(): the relu/abs/power gradients at ties and
+zeros, integer and float16/bfloat16 scalar arithmetic and reductions
+(uint32 sums read back), numpy dtypes in and out of the constructors;
+each new optimizer's 4 updates (float16 weights through SGD's
+multi_precision) and the MAE/MSE/RMSE/Loss device kernels; SGLD's
+noise, every sampler and ``multinomial`` by their moments.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -904,7 +910,7 @@ def test_nd_ops_on_the_card_stay_on_the_card(cuda):
                 mt.nd.take(a, idx), mt.nd.log_softmax(a), a[1:3], a[::-1],
                 a.T, mt.nd.stack(a, a), mt.nd.maximum(a, 0.5),
                 mt.nd.where(a > 0, a, a * 0.1), a.reshape((5, 4))]
-        total = sum(o.sum() for o in outs if o.dtype == torch.float32)
+        total = sum(o.sum() for o in outs if o.dtype == np.float32)
     total.backward()
     for o in outs + [total, a.grad, mt.nd.zeros((2,), ctx=mt.gpu(0)),
                      mt.nd.ones((2,), ctx=mt.gpu(0)),
@@ -1630,3 +1636,243 @@ def test_det_record_iter_feeds_the_ssd_on_gpu(cuda, tmp_path):
     assert contrib.nms_keep.launches == before + 8
     assert all(np.isfinite(v) for _, v in metric.get_name_value())
     it.close()
+
+
+# ---------------------------------------------------------------- ROADMAP
+# C.8-C.13 and A.14 on the card: each case the same op on a CUDA tensor
+# and on cpu(), or held by its statistics
+_TIES = [-1.0, 0.0, -0.0, 2.0, 0.5]
+_TIE_GRADS = {
+    "relu": lambda mt, x: mt.nd.relu(x),
+    "Activation(relu)": lambda mt, x: mt.nd.Activation(x, act_type="relu"),
+    "abs": lambda mt, x: mt.nd.abs(x),
+    "x ** 0": lambda mt, x: x ** 0,
+    "x ** 0.5": lambda mt, x: x ** 0.5,
+    "0 ** x": lambda mt, x: 0 ** x,
+    "-2 ** x": lambda mt, x: (-2) ** x,
+    "power(x, x)": lambda mt, x: mt.nd.power(x, x)}
+
+
+@pytest.mark.parametrize("name", sorted(_TIE_GRADS))
+def test_gradients_at_ties_on_the_card_match_cpu(cuda, name):
+    import numpy as np
+    import mxtpu_torch as mt
+
+    def grad(ctx):
+        x = mt.nd.array(np.array(_TIES, np.float32), ctx=ctx)
+        x.attach_grad()
+        with mt.autograd.record():
+            y = _TIE_GRADS[name](mt, x)
+        y.backward()
+        return x.grad.asnumpy()
+
+    np.testing.assert_array_equal(grad(mt.gpu(0)), grad(mt.cpu()))
+
+
+_INT_EXPRS = ["i + 0.5", "i - 0.7", "0.7 - i", "i * 2.5", "i / 2", "2 / i",
+              "i ** 2.0", "i == 0.5", "u + 10", "u - 5", "u * 1.5",
+              "u + 255.9", "h + 0.1", "b * 3.3", "i.sum()", "u.sum()",
+              "c.sum(axis=1)", "i.mean()", "u.mean()", "c.mean(axis=0)",
+              "big.sum()"]
+
+
+@pytest.mark.parametrize("expr", _INT_EXPRS)
+def test_integer_and_low_precision_arithmetic_on_the_card(cuda, expr):
+    import numpy as np
+    import mxtpu_torch as mt
+
+    def run(ctx):
+        env = {"i": mt.nd.array(np.array([7, 1, -3], np.int32), ctx=ctx),
+               "u": mt.nd.array(np.array([250, 3, 9], np.uint8), ctx=ctx),
+               "c": mt.nd.array(np.arange(12, dtype=np.int8).reshape(3, 4),
+                                ctx=ctx),
+               "h": mt.nd.array(np.linspace(0, 1, 5, dtype=np.float16),
+                                ctx=ctx),
+               "b": mt.nd.array(np.linspace(0, 1, 5), ctx=ctx,
+                                dtype="bfloat16"),
+               "big": mt.nd.array(np.array([2 ** 30, 2 ** 30], np.int32),
+                                  ctx=ctx)}
+        return eval(expr, env)
+
+    got, want = run(mt.gpu(0)), run(mt.cpu())
+    assert got.context == mt.gpu(0) and got._data.is_cuda
+    assert got.dtype == want.dtype and got._data.dtype == want._data.dtype
+    if got.dtype.kind == "f" and "mean" in expr:
+        # a mean may round one ulp apart (the card's reduction order)
+        np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+@pytest.mark.parametrize("dt", ["float32", "float16", "int32", "int8",
+                                "uint8", "bfloat16"])
+def test_numpy_dtypes_in_and_out_on_the_card(cuda, dt):
+    import numpy as np
+    import mxtpu_torch as mt
+    reg = mt.ops.registry
+    typ = reg.BFLOAT16 if dt == "bfloat16" else np.dtype(dt)
+    for arr in (mt.nd.zeros((2, 3), ctx=mt.gpu(0), dtype=typ),
+                mt.nd.ones((2, 3), ctx=mt.gpu(0), dtype=typ),
+                mt.nd.full((2, 3), 7, ctx=mt.gpu(0), dtype=typ),
+                mt.nd.array([[1, 2, 3]], ctx=mt.gpu(0), dtype=typ)):
+        assert arr.dtype == typ and arr._data.is_cuda
+        assert mt.nd.array(arr).dtype == typ  # an NDArray keeps its type
+    a = mt.nd.array(np.arange(4, dtype=np.int64), ctx=mt.gpu(0))
+    assert a.dtype == np.int32 and a.asnumpy().dtype == np.int32
+
+
+def test_uint32_sums_reach_the_host(cuda):
+    """An integer sum of uint8 is uint32, a type torch supports only in
+    part: it is made, copied and read back on the card."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    u = mt.nd.array(np.full((3, 100), 200, np.uint8), ctx=mt.gpu(0))
+    s = u.sum(axis=1)
+    assert s._data.dtype == torch.uint32 and s.dtype == np.uint32
+    np.testing.assert_array_equal(s.asnumpy(), np.full(3, 20000, np.uint32))
+
+
+_CARD_OPTIMIZERS = [
+    ("adadelta", {"rho": 0.9}), ("adamax", {"learning_rate": 0.01}),
+    ("nadam", {"learning_rate": 0.01}), ("ftrl", {"learning_rate": 0.1}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}), ("test", {}),
+    ("ccsgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+             "multi_precision": True})]
+
+
+@pytest.mark.parametrize("name,params", _CARD_OPTIMIZERS,
+                         ids=[c[0] + ("_mp" if c[1].get("multi_precision")
+                                      else "") for c in _CARD_OPTIMIZERS])
+def test_optimizer_updates_on_the_card_match_cpu(cuda, name, params):
+    """4 Updater steps with wd, clip_gradient and rescale_grad on gpu(0)
+    against cpu(): weights and states within 1e-6 of their largest value
+    (float16 weights: one float16 step)."""
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(5)
+    w0 = rng.randn(64, 33).astype(np.float32)
+    grads = [rng.randn(64, 33).astype(np.float32) for _ in range(4)]
+    dtype = "float16" if params.get("multi_precision") else "float32"
+
+    def run(ctx):
+        opt = mt.optimizer.create(name, wd=0.01, clip_gradient=0.8,
+                                  rescale_grad=0.5, **params)
+        upd = mt.optimizer.get_updater(opt)
+        w = mt.nd.array(w0, ctx=ctx, dtype=dtype)
+        for g in grads:
+            upd(0, mt.nd.array(g, ctx=ctx, dtype=dtype), w)
+        st = upd.states[0]
+        return [w] + [s for s in (st if isinstance(st, tuple) else (st,))
+                      if s is not None]
+
+    got, want = run(mt.gpu(0)), run(mt.cpu())
+    assert len(got) == len(want)
+    tol = 1e-3 if dtype == "float16" else 1e-6
+    for a, b in zip(got, want):
+        assert a._data.is_cuda and a.dtype == b.dtype
+        b = b.asnumpy().astype(np.float64)
+        err = np.abs(a.asnumpy().astype(np.float64) - b).max()
+        assert err <= tol * np.abs(b).max(), (name, err)
+
+
+def test_sgld_noise_on_the_card(cuda):
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    lr, shape = 0.04, (512, 512)
+    w = mt.nd.zeros(shape, ctx=mt.gpu(0))
+    upd = mt.optimizer.get_updater(mt.optimizer.create("sgld",
+                                                       learning_rate=lr))
+    upd(0, mt.nd.zeros(shape, ctx=mt.gpu(0)), w)
+    x, n = w._data.double(), w.size
+    assert w._data.is_cuda
+    assert abs(float(x.mean())) < 5 * np.sqrt(lr / n)
+    assert abs(float(x.var()) - lr) < 5 * lr * np.sqrt(2.0 / n)
+
+
+@pytest.mark.parametrize("name", ["MAE", "MSE", "RMSE", "Loss"])
+def test_metric_kernels_on_the_card_match_the_host(cuda, name):
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(7)
+    host, dev = (getattr(mt.metric, name)() for _ in range(2))
+    accum = mt.metric.DeviceMetricAccum.wrap(dev)
+    for _ in range(3):
+        lab = rng.rand(64, 10).astype(np.float32)
+        pred = rng.rand(64, 10).astype(np.float32)
+        host.update([mt.nd.array(lab, ctx=mt.cpu())],
+                    [mt.nd.array(pred, ctx=mt.cpu())])
+        accum.update([torch.from_numpy(lab)],
+                     [torch.from_numpy(pred).cuda()])
+    accum.sync()
+    assert accum.syncs == 1 and dev.num_inst == host.num_inst
+    assert abs(dev.sum_metric - host.sum_metric) <= \
+        1e-6 * abs(host.sum_metric)
+
+
+# (sampler, kwargs of the mx.random function or the op's row
+# parameters, analytic mean, variance)
+_CARD_SAMPLERS = [
+    ("uniform", {"low": -1.0, "high": 3.0}, 1.0, 16 / 12.0),
+    ("normal", {"loc": 0.5, "scale": 2.0}, 0.5, 4.0),
+    ("gamma", {"alpha": 2.5, "beta": 0.5}, 1.25, 0.625),
+    ("exponential", {"lam": 4.0}, 0.25, 1 / 16.0),
+    ("poisson", {"lam": 3.5}, 3.5, 3.5),
+    ("negative_binomial", {"k": 3, "p": 0.4}, 4.5, 11.25),
+    ("generalized_negative_binomial", {"mu": 2.0, "alpha": 0.5}, 2.0, 4.0),
+    ("sample_uniform", (-1.0, 3.0), 1.0, 16 / 12.0),
+    ("sample_normal", (0.5, 2.0), 0.5, 4.0),
+    ("sample_gamma", (2.5, 0.5), 1.25, 0.625),
+    ("sample_exponential", (4.0,), 0.25, 1 / 16.0),
+    ("sample_poisson", (3.5,), 3.5, 3.5),
+    ("sample_negative_binomial", (3.0, 0.4), 4.5, 11.25),
+    ("sample_generalized_negative_binomial", (2.0, 0.5), 2.0, 4.0)]
+
+
+@pytest.mark.parametrize("name,kw,mean,var", _CARD_SAMPLERS,
+                         ids=[c[0] for c in _CARD_SAMPLERS])
+def test_samplers_on_the_card_by_moments(cuda, name, kw, mean, var):
+    """2^20 draws on gpu(0): mean and variance within 5 standard errors,
+    the same seed the same bits."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    n = 1 << 20
+
+    def draw():
+        mt.random.seed(11)
+        if not name.startswith("sample_"):
+            return getattr(mt.random, name)(shape=(n,), ctx=mt.gpu(0), **kw)
+        args = [mt.nd.array(np.full((4,), p, np.float32), ctx=mt.gpu(0))
+                for p in kw]
+        return getattr(mt.nd, name)(*args, shape=(n // 4,))
+
+    a = draw()
+    assert a._data.is_cuda and a.size == n
+    assert torch.equal(a._data, draw()._data)
+    x = a._data.double().reshape(-1)
+    m, v = float(x.mean()), float(x.var(unbiased=False))
+    m4 = float(((x - m) ** 4).mean())
+    assert abs(m - mean) < 5 * np.sqrt(var / n)
+    assert abs(v - var) < 5 * np.sqrt(max(m4 - var ** 2, 1e-30) / n)
+
+
+def test_multinomial_on_the_card(cuda):
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    probs = np.array([[0.1, 0.2, 0.7], [0.5, 0.25, 0.25]], np.float32)
+    n = 1 << 18
+    draws, logp = mt.random.multinomial(
+        mt.nd.array(probs, ctx=mt.gpu(0)), shape=(n,), get_prob=True)
+    assert draws._data.is_cuda and draws.dtype == np.int32
+    d = draws.asnumpy()
+    for row in range(2):
+        freq = np.bincount(d[row], minlength=3) / n
+        se = np.sqrt(probs[row] * (1 - probs[row]) / n)
+        assert (np.abs(freq - probs[row]) < 5 * se).all()
+        np.testing.assert_allclose(logp.asnumpy()[row],
+                                   np.log(probs[row][d[row]]), rtol=1e-5)

@@ -69,8 +69,8 @@ def test_parameter_on_two_contexts(mt):
     for d in p.list_data():
         np.testing.assert_array_equal(d.asnumpy(), np.full((3, 2), 3.0))
     p.cast("float64")
-    assert all(d.dtype == torch.float64 for d in p.list_data())
-    assert all(g.dtype == torch.float64 for g in p.list_grad())
+    assert all(d.dtype == np.float64 for d in p.list_data())
+    assert all(g.dtype == np.float64 for g in p.list_grad())
     with pytest.raises(mt.MXNetError, match="named twice"):
         mt.gluon.Parameter("v", shape=(2,)).initialize(
             ctx=[mt.cpu(1), mt.cpu(1)])

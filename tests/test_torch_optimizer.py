@@ -123,4 +123,4 @@ def test_lr_wd_mult_and_scheduler(tt):
     with pytest.raises(mt.MXNetError, match="unknown optimizer"):
         mt.optimizer.create("lamb")
     with pytest.raises(mt.MXNetError, match="unknown arguments"):
-        mt.optimizer.create("sgd", multi_precision=True)
+        mt.optimizer.create("sgd", master_weights=True)
