@@ -2,7 +2,7 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...,records,frontend]
+                          [--phases kernels,epilogue,...,frontend,zoo]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
@@ -264,9 +264,27 @@ Phases (any failure raises and exits non-zero):
    2^22 draws on the card, mean and variance within 5 standard errors,
    the same seed the same bits; C.8-C.13 on CUDA tensors against cpu().
    Prints the Nadam step against phase 7's fused SGD step.
-15. Prints the kernels' JSON line (each kernel's launches by path, the
-   ``records`` and ``frontend`` paths included), then the device line
-   last.
+15. The rest of the image zoo and the op tranche (``zoo``; ROADMAP
+   A.15 and A.7's tensor/nn names): inception_v3, inception_v4 and
+   inception_resnet_v2 at 299x299 and googlenet at 224, 1000 classes,
+   seeded weights and BN statistics, served at B=32 through
+   ``Module.predict`` on gpu(0): probabilities finite and summing to 1,
+   the epilogue once per fused site (94, 149, 204, 0), the first rows
+   within 1e-4 of a cpu() Predictor's, the evaluation forward within
+   1e-4 of the plain epilogue; the epilogue alone at each model's sites,
+   its ms beside the bytes bound grouped by plane size (8x8, 17x17,
+   35x35, 71x71 and up). inception_v3 trained 3 SGD steps at B=32 through
+   ``Module.fit`` (a finite cross-entropy, every weight and moving
+   statistic moved). Gluon's densenet121, inceptionv3, mobilenet1.0,
+   vgg16_bn, squeezenet1.0 and alexnet from ``get_model``, hybridized,
+   one inference forward at B=32 (224; 299 for inceptionv3) with the
+   fused-site count and the plain-epilogue gate, then 2 ``Trainer.step``s
+   of densenet121 at B=32. Every case of ``tests/op_tranche_cases.py`` on
+   CUDA tensors against cpu() (indices out of range included, the
+   context synchronized after each), and Gluon's Conv2DTranspose.
+16. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records``, ``frontend`` and ``zoo`` paths included), then the device
+   line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -499,7 +517,7 @@ RECORDS = dict(train=1280, val=512, edge=256, label_classes=3, det=64,
                memory_steps=4, ssd_batch=32, ssd_epochs=2)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
-          "surface", "records", "frontend")
+          "surface", "records", "frontend", "zoo")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -3974,6 +3992,10 @@ def multi_gpu(args, card):
         log("[records]")
         results["records"] = phase_records(mt, epi, args.seed, card,
                                            results.get("resnet_training"))
+    # 15. the rest of the image zoo at full width and the op tranche
+    if "zoo" in phases:
+        log("[zoo]")
+        results["zoo"] = phase_zoo(mt, epi, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7189,6 +7211,401 @@ def phase_frontend(mt, epi, seed, card, resnet_row=None):
     return row
 
 
+# phase 15: the rest of the image zoo (A.15) at full width and the op
+# tranche (A.7) on the card. The symbolic models (name, input edge, fused
+# BatchNorm->ReLU sites) served at B=32 through Module.predict; Gluon's
+# zoo nets the same way through get_model; inception_v3 trained 3 SGD
+# steps and densenet121 2 Trainer steps at B=32
+ZOO = dict(batch=32, cpu_rows=2, lr=0.01, momentum=0.9, train_steps=3,
+           gluon_steps=2, timed_iters=20)
+ZOO_SYMBOLIC = (("inception_v3", 299, 94), ("inception_v4", 299, 149),
+                ("inception_resnet_v2", 299, 204), ("googlenet", 224, 0))
+ZOO_GLUON = (("densenet121", 224, 121), ("inceptionv3", 299, 94),
+             ("mobilenet1.0", 224, 27), ("vgg16_bn", 224, 13),
+             ("squeezenet1.0", 224, 0), ("alexnet", 224, 0))
+# the epilogue's sites grouped by plane edge (the largest edge of a group)
+ZOO_PLANES = ((8, "8x8"), (17, "17x17"), (35, "35x35"),
+              (1 << 30, "71x71 and up"))
+
+
+def zoo_params(sym, shape, seed):
+    """Seeded numpy weights and BN statistics for ``sym`` at ``shape``
+    (mxtpu's checkpoint naming): He-scaled convolutions, the classifier
+    at 1/fan_in, gamma in U(0.5, 1.5), beta and biases in U(-0.1, 0.1),
+    moving_mean N(0, 0.1), moving_var U(0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=shape)
+    params = {}
+    for name, s in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        fan_in = int(np.prod(s[1:])) if len(s) > 1 else 1
+        if name.endswith("_gamma"):
+            w = rng.uniform(0.5, 1.5, s)
+        elif name.endswith(("_beta", "_bias")):
+            w = rng.uniform(-0.1, 0.1, s)
+        elif name.startswith("fc"):
+            w = rng.standard_normal(s) / np.sqrt(fan_in)
+        else:
+            w = rng.standard_normal(s) * np.sqrt(2.0 / fan_in)
+        params["arg:" + name] = w.astype(np.float32)
+    for name, s in zip(sym.list_auxiliary_states(), aux_shapes):
+        w = rng.normal(0.0, 0.1, s) if name.endswith("_moving_mean") \
+            else rng.uniform(0.5, 1.5, s)
+        params["aux:" + name] = w.astype(np.float32)
+    return params
+
+
+def fused_site_shapes(mt, sym, shape):
+    """The output shapes of the BatchNorms that the inference walk fuses
+    with their ReLU (``executor._fusable_bn``), at input ``shape``."""
+    from mxtpu_torch.executor import _fusable_bn
+    topo = sym._topo()
+    outs = {(id(n), i) for n, i in sym._outputs}
+    consumers = {}
+    for node in topo:
+        for n, _ in node.inputs:
+            consumers.setdefault(id(n), []).append(node)
+    bns = [n for n in topo if not n.is_variable
+           and _fusable_bn(n, consumers, outs) is not None]
+    if not bns:
+        return []
+    return [tuple(s) for s in mt.sym.Group(
+        [mt.symbol.Symbol([(n, 0)]) for n in bns]).infer_shape(
+            data=shape)[1]]
+
+
+def zoo_epilogue_planes(epi, site_shapes, gen, label):
+    """The epilogue kernel timed alone at each fused site of one forward
+    (f32, NCHW, no residual; each distinct shape once, weighted by its
+    count), grouped by plane edge (``ZOO_PLANES``): launches, kernel ms,
+    bytes bound ms and the share of the bound the kernel reaches."""
+    from collections import Counter
+    groups = {}
+    for shape, count in sorted(Counter(site_shapes).items()):
+        x, s, b, _ = epilogue_inputs(shape, 1, torch.float32, False, gen)
+        ms = cuda_ms(lambda: epi.bn_apply_relu_add(x, s, b, axis=1),
+                     ZOO["timed_iters"])
+        bound = epilogue_bound_ms(shape, 1, torch.float32, False)[0]
+        key = next(k for edge, k in ZOO_PLANES if shape[2] <= edge)
+        g = groups.setdefault(key, dict(launches=0, ms=0.0, bound_ms=0.0,
+                                        shapes=[]))
+        g["launches"] += count
+        g["ms"] += count * ms
+        g["bound_ms"] += count * bound
+        g["shapes"].append([list(shape), count, ms, bound])
+    for key, g in groups.items():
+        g["bound_share"] = g["bound_ms"] / g["ms"]
+        log("  %s epilogue sites %-13s: %3d launches, kernel %.4f ms, bound "
+            "%.4f ms (bytes), at %.1f%% of the bound"
+            % (label, key, g["launches"], g["ms"], g["bound_ms"],
+               100.0 * g["bound_share"]))
+    return groups
+
+
+def zoo_symbolic(mt, epi, seed, card, gen):
+    """Each symbolic model of ``ZOO_SYMBOLIC`` served at B=32 through
+    ``Module.predict`` on gpu(0) from seeded weights: probabilities
+    finite and summing to 1, the epilogue once per fused site, the first
+    ``cpu_rows`` rows within 1e-4 of a cpu() Predictor's, the evaluation
+    forward against the plain epilogue (``eval_forward_gate``); then the
+    epilogue alone at the model's sites by plane size."""
+    b, r = ZOO["batch"], ZOO["cpu_rows"]
+    quiet = _quiet_logger()
+    rows = {}
+    for i, (name, edge, sites) in enumerate(ZOO_SYMBOLIC):
+        sym = getattr(mt.models, name).get_symbol(num_classes=1000)
+        shape = (b, 3, edge, edge)
+        params = zoo_params(sym, shape, seed + i)
+        args, auxs = mt.model.split_params(
+            {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+        rng = np.random.default_rng(seed + 20 + i)
+        x = rng.standard_normal(shape, dtype=np.float32)
+        y = rng.integers(0, 1000, b).astype(np.float32)
+        it = mt.io.NDArrayIter(x, y, batch_size=b)
+        mod = mt.mod.Module(sym, context=mt.gpu(0), logger=quiet)
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+                 for_training=False)
+        mod.set_params(args, auxs)
+        mod.predict(it)  # cuDNN's first calls
+        torch.cuda.synchronize()
+        epi.bn_apply_relu_add.launches = 0  # count the main path alone
+        t0 = time.perf_counter()
+        pred = mod.predict(it)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = epi.bn_apply_relu_add.launches
+        fused = mod._exec_group.execs[0].fused_sites
+        out = pred._data
+        dev = float((out.double().sum(dim=1) - 1).abs().max())
+        cpu_pred = mt.Predictor(sym.tojson(), params, ctx=mt.cpu(),
+                                input_shapes={"data": (r,) + shape[1:]})
+        cpu_pred.forward(data=x[:r])
+        cpu_err = float(np.abs(out[:r].cpu().numpy()
+                               - cpu_pred.get_outputs()[0]).max())
+        log("  [%s] %s at %dx%d, B=%d: predict %.2f ms (%.1f images/s); "
+            "%d fused sites, epilogue launches %d; rows sum to 1 +- %.2e; "
+            "gpu vs cpu Predictor on %d rows max abs err %.3e"
+            % (card, name, edge, edge, b, secs * 1e3, b / secs, fused,
+               launches, dev, r, cpu_err))
+        if tuple(pred.shape) != (b, 1000) or \
+                not bool(torch.isfinite(out).all()) or dev > 1e-4:
+            raise AssertionError("%s predict: shape %s, rows sum to 1 +- %g"
+                                 % (name, pred.shape, dev))
+        if fused != sites or launches != sites:
+            raise AssertionError("%s: %d fused sites, %d epilogue launches "
+                                 "(want %d)" % (name, fused, launches, sites))
+        if not cpu_err <= 1e-4:
+            raise AssertionError("%s on the card disagrees with the cpu "
+                                 "Predictor: %g" % (name, cpu_err))
+        batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                [mt.nd.array(y, ctx=mt.cpu())])
+
+        def forward():
+            mod.forward(batch, is_train=False)
+            return mod.get_outputs()[0]._data
+
+        row = dict(edge=edge, predict_ms=secs * 1e3, launches=launches,
+                   cpu_err=cpu_err)
+        row.update(eval_forward_gate(
+            epi, forward, lambda: mod._exec_group.execs[0].fused_sites,
+            "%s evaluation forward" % name, expect=sites))
+        row["planes"] = zoo_epilogue_planes(
+            epi, fused_site_shapes(mt, sym, shape), gen, name)
+        rows[name] = row
+        del mod, cpu_pred, pred, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_training(mt, seed, card):
+    """inception_v3 (299x299, 1000 classes) through ``Module.fit`` on
+    gpu(0): ``train_steps`` SGD steps at B=32 (lr 0.01, momentum 0.9)
+    from seeded weights over seeded images; the cross-entropy finite at
+    every step and every weight moved."""
+    b, n = ZOO["batch"], ZOO["train_steps"]
+    sym = mt.models.inception_v3.get_symbol(num_classes=1000)
+    params = zoo_params(sym, (b, 3, 299, 299), seed)
+    args, auxs = mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+    rng = np.random.default_rng(seed + 30)
+    x = rng.random((n * b, 3, 299, 299), dtype=np.float32)
+    y = rng.integers(0, 1000, n * b).astype(np.float32)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    ce, stamps = [], []
+
+    def record(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ce.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=b), num_epoch=1,
+            eval_metric="ce", optimizer="sgd",
+            optimizer_params={"learning_rate": ZOO["lr"],
+                              "momentum": ZOO["momentum"],
+                              "rescale_grad": 1.0 / b},
+            arg_params=args, aux_params=auxs, batch_end_callback=record,
+            metric_sync=1)
+    ms = [float(v) for v in np.diff([t0] + stamps) * 1e3]
+    trained, trained_aux = mod.get_params()
+    # gammas under fix_gamma take no step
+    weights = [k for k in args if k.endswith(("_weight", "_bias"))]
+    still = [k for k in weights
+             if np.array_equal(trained[k].asnumpy(), args[k].asnumpy())]
+    stats_still = [k for k, v in auxs.items()
+                   if np.array_equal(trained_aux[k].asnumpy(), v.asnumpy())]
+    log("  [%s] inception_v3 Module.fit, %d SGD steps at B=%d: "
+        "cross-entropy %s, step ms %s; weights unmoved %d of %d, moving "
+        "statistics unmoved %d of %d" % (card, n, b, [round(v, 4) for v in ce],
+                                         [round(v, 1) for v in ms],
+                                         len(still), len(weights),
+                                         len(stats_still), len(auxs)))
+    if len(ce) != n or not np.all(np.isfinite(ce)) or still or stats_still:
+        raise AssertionError("inception_v3 training: cross-entropy %s, "
+                             "unmoved %s %s" % (ce, still[:3],
+                                                stats_still[:3]))
+    return dict(ce=ce, step_ms=ms)
+
+
+def zoo_gluon(mt, epi, seed, card):
+    """Each net of ``ZOO_GLUON`` from ``get_model`` (1000 classes), Xavier
+    on gpu(0), hybridized: one inference forward at B=32 (finite, the
+    epilogue once per fused site, equal to the plain epilogue); then
+    ``gluon_steps`` SGD ``Trainer.step``s of densenet121 at B=32 (the
+    loss finite, every weight and moving statistic moved)."""
+    b = ZOO["batch"]
+    v = mt.gluon.model_zoo.vision
+    rows = {}
+    for i, (name, edge, sites) in enumerate(ZOO_GLUON):
+        np.random.seed(seed + i)
+        net = v.get_model(name)
+        net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2), ctx=mt.gpu(0))
+        net.hybridize()
+        rng = np.random.default_rng(seed + 40 + i)
+        x = mt.nd.array(rng.standard_normal((b, 3, edge, edge),
+                                            dtype=np.float32), ctx=mt.gpu(0))
+        out = net(x)._data  # shapes resolved, cuDNN's first calls
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (b, 1000) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError("gluon %s: output %s not finite"
+                                 % (name, tuple(out.shape)))
+        rows[name] = eval_forward_gate(
+            epi, lambda: net(x)._data, lambda: net.fused_sites,
+            "[%s] gluon %s at %dx%d" % (card, name, edge, edge),
+            expect=sites)
+        if name == "densenet121":
+            rows[name]["train"] = zoo_gluon_steps(mt, net, x, rng, card)
+        del net, x, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_gluon_steps(mt, net, x, rng, card):
+    b = ZOO["batch"]
+    y = mt.nd.array(rng.integers(0, 1000, b).astype(np.float32),
+                    ctx=mt.gpu(0))
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": ZOO["lr"], "momentum": ZOO["momentum"]})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    before = {k: p.data(mt.gpu(0))._data.clone()
+              for k, p in net.collect_params().items()}
+    losses, ms = [], []
+    for _ in range(ZOO["gluon_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(b)
+        losses.append(float(loss.mean().asscalar()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    checked = {k: p for k, p in net.collect_params().items()
+               if k.endswith(("weight", "running_mean", "running_var"))}
+    still = [k for k, p in checked.items()
+             if torch.equal(before[k], p.data(mt.gpu(0))._data)]
+    log("  [%s] gluon densenet121, %d Trainer steps at B=%d: loss %s, step "
+        "ms %s, weights and moving statistics unmoved %d of %d"
+        % (card, len(losses), b, [round(v, 4) for v in losses],
+           [round(v, 1) for v in ms], len(still), len(checked)))
+    if not np.all(np.isfinite(losses)) or still:
+        raise AssertionError("densenet121 Trainer steps: loss %s, unmoved "
+                             "%s" % (losses, still[:3]))
+    return dict(losses=losses, step_ms=ms)
+
+
+def zoo_ops(mt, card):
+    """Every case of ``tests/op_tranche_cases.py`` (the 97 names of the
+    tranche: out-of-range indices, ties, NaN, integer and float16 inputs)
+    on CUDA tensors against cpu(): the same dtypes, NaN and infinity
+    positions, integers equal, floats within 1e-5 (forward) and 1e-4
+    (gradient) of the largest; the context synchronized after each, so a
+    device assert fails the case that set it off. Then Gluon's
+    Conv2DTranspose on gpu(0) against cpu() from the same weights."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from op_tranche_cases import CASES
+
+    def run(name, arrays, attrs, diff, device):
+        xs = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        for i in diff:
+            xs[i].requires_grad_()
+        op = mt.ops.registry.get_op(name)
+        outs = op.apply(op.parse_attrs(dict(attrs)), xs, device)
+        grads = []
+        if diff and outs[0].requires_grad:
+            head = torch.from_numpy(np.asarray(np.random.RandomState(7).randn(
+                *outs[0].shape), np.float32)).to(device, outs[0].dtype)
+            grads = [g for g in torch.autograd.grad(
+                outs[0], [xs[i] for i in diff], head, allow_unused=True)
+                if g is not None]
+        return [t.detach().cpu() for t in list(outs) + grads], len(outs)
+
+    def err(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return float("inf")
+        if not want.is_floating_point():
+            return 0.0 if torch.equal(got, want) else float("inf")
+        g, w = got.double(), want.double()
+        odd = torch.isnan(w) | torch.isinf(w)
+        if not torch.equal(torch.isnan(g), torch.isnan(w)) or \
+                not torch.equal(g[torch.isinf(w)], w[torch.isinf(w)]):
+            return float("inf")
+        if not bool((~odd).any()):
+            return 0.0
+        return float((g[~odd] - w[~odd]).abs().max()) / max(
+            1.0, float(w[~odd].abs().max()))
+
+    worst = {"forward": 0.0, "gradient": 0.0}
+    names = set()
+    card_dev = mt.gpu(0).torch_device
+    for name, arrays, attrs, diff in CASES:
+        got, n_out = run(name, arrays, attrs, diff, card_dev)
+        torch.cuda.synchronize()
+        want, _ = run(name, arrays, attrs, diff, "cpu")
+        if len(got) != len(want):
+            raise AssertionError("%s %s: %d results on the card, %d on cpu"
+                                 % (name, attrs, len(got), len(want)))
+        for j, (g, w) in enumerate(zip(got, want)):
+            kind = "forward" if j < n_out else "gradient"
+            e = err(g, w)
+            worst[kind] = max(worst[kind], e)
+            if not e <= (1e-5 if kind == "forward" else 1e-4):
+                raise AssertionError("%s %s on the card: %s error %g"
+                                     % (name, attrs, kind, e))
+        names.add(name)
+    torch.backends.cudnn.allow_tf32 = False
+    wx = [np.random.RandomState(s).randn(*shape).astype(np.float32)
+          for s, shape in ((0, (2, 4, 7, 6)), (1, (4, 3, 3, 3)), (2, (6,)))]
+
+    def deconv(ctx):
+        with ctx:
+            layer = mt.gluon.nn.Conv2DTranspose(
+                6, 3, strides=2, padding=1, output_padding=1, groups=2,
+                in_channels=4)
+            layer.initialize(ctx=ctx)
+            layer.weight.set_data(mt.nd.array(wx[1], ctx=ctx))
+            layer.bias.set_data(mt.nd.array(wx[2], ctx=ctx))
+            return layer(mt.nd.array(wx[0], ctx=ctx))._data.cpu()
+
+    deconv_err = err(deconv(mt.gpu(0)), deconv(mt.cpu()))
+    log("  [%s] op tranche: %d cases of %d op names on CUDA tensors vs cpu: "
+        "worst forward error %.3e, gradient %.3e (of the largest); "
+        "Conv2DTranspose gpu vs cpu %.3e" % (card, len(CASES), len(names),
+                                             worst["forward"],
+                                             worst["gradient"], deconv_err))
+    if not deconv_err <= 1e-5:
+        raise AssertionError("Conv2DTranspose on the card: %g" % deconv_err)
+    return dict(cases=len(CASES), names=len(names), deconv_err=deconv_err,
+                **{"worst_%s" % k: v for k, v in worst.items()})
+
+
+def phase_zoo(mt, epi, seed, card):
+    """Phase 15 (module docstring): the symbolic models served and their
+    epilogue sites timed, inception_v3 trained, the Gluon zoo, the op
+    tranche; with the phase's seconds and its epilogue launches by
+    path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    row = {"symbolic": zoo_symbolic(mt, epi, seed, card, gen),
+           "train": zoo_training(mt, seed, card),
+           "gluon": zoo_gluon(mt, epi, seed, card),
+           "ops": zoo_ops(mt, card)}
+    sym, glu = row["symbolic"].values(), row["gluon"].values()
+    row["launches"] = {
+        "zoo_predict": sum(r["launches"] for r in sym),
+        "zoo_eval": sum(r["eval_launches"] for r in sym),
+        "zoo_gluon_eval": sum(r["eval_launches"] for r in glu)}
+    row["seconds"] = time.perf_counter() - t0
+    log("  [%s] zoo phase %.1f s; epilogue launches %s"
+        % (card, row["seconds"], row["launches"]))
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -7338,6 +7755,10 @@ def main(argv=None):
         log("[frontend]")
         results["frontend"] = phase_frontend(mt, epi, args.seed, card,
                                              results.get("resnet_training"))
+    # 15. the rest of the image zoo at full width and the op tranche
+    if "zoo" in phases:
+        log("[zoo]")
+        results["zoo"] = phase_zoo(mt, epi, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7368,6 +7789,7 @@ def main(argv=None):
                 if r["dtype"] == "float32")
     rec_launches = results["records"]["launches"]
     front_launches = results["frontend"]["launches"]
+    zoo_launches = results["zoo"]["launches"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -7388,7 +7810,7 @@ def main(argv=None):
         "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval
         + surface["resnet"]["launches"]
         + sum(rec_launches["epilogue"].values())
-        + sum(front_launches.values()),
+        + sum(front_launches.values()) + sum(zoo_launches.values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
@@ -7396,7 +7818,7 @@ def main(argv=None):
                                   "resnet_predict":
                                   surface["resnet"]["launches"]},
                                  **dict(rec_launches["epilogue"],
-                                        **front_launches)),
+                                        **front_launches, **zoo_launches)),
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],

@@ -1,10 +1,8 @@
-"""Datasets (counterpart of mxtpu/gluon/data/dataset.py).
-
-``RecordFileDataset`` needs RecordIO, not ported yet: it raises."""
+"""Datasets (counterpart of mxtpu/gluon/data/dataset.py)."""
 from __future__ import annotations
 
 from ... import ndarray as nd
-from ...base import MXNetError
+from ... import recordio
 
 
 class Dataset:
@@ -76,8 +74,15 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Needs RecordIO, not ported yet: raises."""
+    """Dataset over a RecordIO file and its ``.idx`` (parity dataset.py
+    RecordFileDataset): item i is the raw record of the i-th key."""
 
     def __init__(self, filename):
-        raise MXNetError("RecordFileDataset(%r) needs RecordIO, which is not "
-                         "ported yet" % (filename,))
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -1,14 +1,13 @@
 """Gluon convolution and pooling layers.
 
 Counterpart of ``mxtpu/gluon/nn/conv_layers.py``: ``Conv1D``/``2D``/``3D``
-over the port's ``Convolution``, and the max, average and global pooling
-layers in 1, 2 and 3 dimensions over its ``Pooling``. The
-``Conv*Transpose`` layers need the ``Deconvolution`` op, not ported yet
-(ROADMAP A.7): constructing one raises.
+over the port's ``Convolution``, ``Conv1D``/``2D``/``3DTranspose`` over its
+``Deconvolution`` (weight in (C_in, C_out/groups, *k), ``output_padding``
+its ``adj``), and the max, average and global pooling layers in 1, 2 and
+3 dimensions over its ``Pooling``.
 """
 from __future__ import annotations
 
-from ...base import MXNetError
 from ..block import HybridBlock
 
 
@@ -22,7 +21,7 @@ class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 **kwargs):
+                 op_name="Convolution", adj=None, **kwargs):
         super().__init__(**kwargs)
         from .basic_layers import Activation, _init_of
         with self.name_scope():
@@ -32,8 +31,14 @@ class _Conv(HybridBlock):
                 "kernel": kernel_size, "stride": strides, "dilate": dilation,
                 "pad": padding, "num_filter": channels, "num_group": groups,
                 "no_bias": not use_bias}
-            wshape = (channels, in_channels // groups
-                      if in_channels else 0) + kernel_size
+            if adj is not None:
+                self._kwargs["adj"] = adj
+            self._op_name = op_name
+            if op_name == "Convolution":
+                wshape = (channels, in_channels // groups
+                          if in_channels else 0) + kernel_size
+            else:  # Deconvolution: (C_in, C_out/groups, *k)
+                wshape = (in_channels, channels // groups) + kernel_size
             self.weight = self.params.get("weight", shape=wshape,
                                           init=weight_initializer,
                                           allow_deferred_init=True)
@@ -49,10 +54,11 @@ class _Conv(HybridBlock):
                 self.act = None
 
     def hybrid_forward(self, F, x, weight, bias=None):
+        op = getattr(F, self._op_name)
         if bias is None:
-            act = F.Convolution(x, weight, **self._kwargs)
+            act = op(x, weight, **self._kwargs)
         else:
-            act = F.Convolution(x, weight, bias, **self._kwargs)
+            act = op(x, weight, bias, **self._kwargs)
         if self.act is not None:
             act = self.act(act)
         return act
@@ -99,18 +105,42 @@ class Conv3D(_Conv):
                          bias_initializer, **kwargs)
 
 
-def _needs_deconvolution(name):
-    """A ``Conv*Transpose`` layer: it needs the Deconvolution op (ROADMAP
-    A.7), so constructing one raises."""
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("%s needs the Deconvolution op, which is not "
-                         "ported yet (ROADMAP A.7)" % name)
-    return type(name, (_Conv,), {"__init__": __init__})
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _pair(kernel_size, 1), _pair(strides, 1),
+                         _pair(padding, 1), _pair(dilation, 1), groups, layout,
+                         in_channels, activation, use_bias, weight_initializer,
+                         bias_initializer, op_name="Deconvolution",
+                         adj=_pair(output_padding, 1), **kwargs)
 
 
-Conv1DTranspose = _needs_deconvolution("Conv1DTranspose")
-Conv2DTranspose = _needs_deconvolution("Conv2DTranspose")
-Conv3DTranspose = _needs_deconvolution("Conv3DTranspose")
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _pair(kernel_size, 2), _pair(strides, 2),
+                         _pair(padding, 2), _pair(dilation, 2), groups, layout,
+                         in_channels, activation, use_bias, weight_initializer,
+                         bias_initializer, op_name="Deconvolution",
+                         adj=_pair(output_padding, 2), **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _pair(kernel_size, 3), _pair(strides, 3),
+                         _pair(padding, 3), _pair(dilation, 3), groups, layout,
+                         in_channels, activation, use_bias, weight_initializer,
+                         bias_initializer, op_name="Deconvolution",
+                         adj=_pair(output_padding, 3), **kwargs)
 
 
 class _Pooling(HybridBlock):

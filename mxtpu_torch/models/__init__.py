@@ -1,6 +1,6 @@
-"""Symbol-level model factories ported so far: the transformer LM and the
-image-classification zoo and the SSD detector (copies of
-``mxtpu/models``), plus the serving fixtures."""
+"""Symbol-level model factories: the transformer LM, the image-
+classification zoo and the SSD detector (copies of ``mxtpu/models``),
+plus the serving fixtures."""
 from . import transformer
 from . import resnet
 from . import resnet_v1
@@ -12,6 +12,10 @@ from . import alexnet
 from . import lenet
 from . import mlp
 from . import ssd
+from . import googlenet
+from . import inception_v3
+from . import inception_v4
+from . import inception_resnet_v2
 from . import serving_fixtures
 from .serving_fixtures import get_fixture as get_serving_fixture
 from .transformer import get_symbol as get_transformer_lm
@@ -21,9 +25,13 @@ from .vgg import get_symbol as get_vgg
 from .alexnet import get_symbol as get_alexnet
 from .lenet import get_symbol as get_lenet
 from .mlp import get_symbol as get_mlp
+from .googlenet import get_symbol as get_googlenet
+from .inception_v3 import get_symbol as get_inception_v3
 
 __all__ = ["transformer", "resnet", "resnet_v1", "resnext", "mobilenet",
            "inception_bn", "vgg", "alexnet", "lenet", "mlp", "ssd",
            "serving_fixtures", "get_serving_fixture", "get_transformer_lm",
            "get_resnet", "get_inception_bn", "get_vgg", "get_alexnet",
-           "get_lenet", "get_mlp"]
+           "get_lenet", "get_mlp", "googlenet", "inception_v3",
+           "inception_v4", "inception_resnet_v2", "get_googlenet",
+           "get_inception_v3"]

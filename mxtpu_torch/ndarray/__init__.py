@@ -5,16 +5,18 @@ Counterpart of ``mxtpu/ndarray/__init__.py``: ``_make_nd_fn`` (:18)
 generates ``nd.<op>`` for every op in the registry at import, with
 tensor inputs first (positionally or by arg name) and the non-tensor
 positionals mapped onto the attrs in registration order, as MXNet's
-generated signatures do; ``maximum``/``minimum`` take an array or a
-scalar on either side (:170-190), and the comparison functions
+generated signatures do; ``maximum``/``minimum``/``hypot`` take an array or
+a scalar on either side (:170-215), and the comparison functions
 (:246-262) an array or a scalar on the right.
 """
 from __future__ import annotations
 
 import builtins as _builtins
+import math as _math
 import operator as _op
 import sys as _sys
 
+from ..base import MXNetError
 from ..base import PrefixOpNamespace as _PrefixNS
 from ..ops.registry import get_op, list_ops
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
@@ -25,8 +27,9 @@ __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "concatenate", "invoke_op", "imperative_invoke", "waitall",
            "to_numpy", "host_copies", "save", "load", "add", "subtract",
            "multiply", "divide", "true_divide", "power", "maximum",
-           "minimum", "equal", "not_equal", "greater", "greater_equal",
-           "lesser", "lesser_equal", "contrib", "random", "imread",
+           "minimum", "hypot", "modulo", "moveaxis", "onehot_encode",
+           "equal", "not_equal", "greater", "greater_equal", "lesser",
+           "lesser_equal", "contrib", "random", "imread",
            "imdecode", "imresize"]
 
 
@@ -120,6 +123,26 @@ def _either_side(name, scalar_name, plain):
 
 maximum = _either_side("broadcast_maximum", "_maximum_scalar", _builtins.max)
 minimum = _either_side("broadcast_minimum", "_minimum_scalar", _builtins.min)
+hypot = _either_side("broadcast_hypot", "_hypot_scalar", _math.hypot)
+modulo = _op.mod
+
+
+def moveaxis(tensor, source, destination):
+    """One axis moved to a new position through the transpose op, so the
+    result stays on the autograd tape (mxtpu/ndarray/ndarray.py:550)."""
+    nd_ = tensor.ndim
+    if not (-nd_ <= source < nd_ and -nd_ <= destination < nd_):
+        raise MXNetError("moveaxis: axis out of range for %d-d array" % nd_)
+    src, dst = source % nd_, destination % nd_
+    axes = [i for i in range(nd_) if i != src]
+    axes.insert(dst, src)
+    return invoke_op("transpose", [tensor], {"axes": tuple(axes)})[0]
+
+
+def onehot_encode(indices, out):
+    """``out`` filled with the one-hot rows of ``indices`` (depth
+    ``out.shape[1]``), in place."""
+    return invoke_op("one_hot", [indices], {"depth": out.shape[1]}, out=out)[0]
 
 
 def _cmp_fn(broadcast_name, scalar_name):

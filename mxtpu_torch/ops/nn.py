@@ -12,7 +12,12 @@ identity with a constant gradient), ``Dropout`` (:484, drawing
 its mask from ``random.generator``), ``Concat`` (:543), ``SliceChannel``
 (:556, alias ``split``) and the sequence ops ``SequenceLast``,
 ``SequenceMask`` and ``SequenceReverse`` (:638-668, time-major, with
-``use_sequence_length``). Matrix products and
+``use_sequence_length``), and the rest of that module: ``Deconvolution``
+(:93), ``UpSampling`` (:578), ``Crop`` (:601), ``Pad`` (:563), ``LRN``,
+``InstanceNorm``, ``L2Normalization`` (:498-540), ``SoftmaxActivation``,
+``softmax_cross_entropy``, the regression heads and ``SVMOutput`` (loss
+heads whose backward ignores the head gradient, :402-479) and
+``IdentityAttachKLSparseReg`` (:674). Matrix products and
 convolutions go to ``torch.nn.functional`` (cuBLAS, cuDNN), as the JAX
 package leaves them to XLA; their gradients are torch's autograd.
 
@@ -29,7 +34,7 @@ from ..base import MXNetError
 from .collective import ReplicaSum, sum_replicas
 from .epilogue import bn_apply_relu_add, fold_bn
 from .registry import Required, off_batch_axis, register, set_replicas
-from .tensor import relu
+from .tensor import _in_range, _index_of, relu
 
 
 def _prod(xs):
@@ -653,6 +658,280 @@ register("SequenceReverse", _sequence_reverse, arg_names=_seq_args,
          attrs={"use_sequence_length": False})
 
 
+# --------------------------------------------------------------- Deconvolution
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconvolution(a, data, weight, bias=None):
+    """Transposed convolution with the weight in MXNet's (C_in, C_out/g,
+    *k) layout, which is torch's (mxtpu/ops/nn.py:93). torch's own
+    padding takes ``adj`` only below the stride, so the full output
+    (no padding) is computed and cut to mxtpu's window: ``pad`` off the
+    low end, the size ``(in-1)*s - 2*pad + d*(k-1) + 1 + adj`` (``adj``
+    from ``target_shape`` when that is given), zeros past the full
+    output's end where ``adj`` exceeds ``pad``."""
+    nd = len(a.kernel)
+    k = tuple(int(x) for x in a.kernel)
+    stride, dilate = _tup(a.stride, nd, 1), _tup(a.dilate, nd, 1)
+    pad, adj = _tup(a.pad, nd, 0), _tup(a.adj, nd, 0)
+    ke = tuple(dilate[i] * (k[i] - 1) + 1 for i in range(nd))
+    if a.target_shape:
+        tgt = _tup(a.target_shape, nd, 0)
+        adj = tuple(tgt[i] - ((data.shape[2 + i] - 1) * stride[i]
+                              - 2 * pad[i] + ke[i]) for i in range(nd))
+    out = _CONV_T[nd](data, weight, None, stride=stride, dilation=dilate,
+                      groups=int(a.num_group))
+    flat = []
+    for i in reversed(range(nd)):
+        full = out.shape[2 + i]
+        flat += [-pad[i], (full - pad[i] + adj[i]) - full]
+    out = F.pad(out, flat)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _deconv_infer(a, shapes):
+    data = shapes[0]
+    out = [data, (data[1], int(a.num_filter) // int(a.num_group))
+           + tuple(a.kernel)]
+    if not a.no_bias:
+        out.append((int(a.num_filter),))
+    return out
+
+
+register("Deconvolution", _deconvolution,
+         arg_names=lambda a: ["data", "weight"] if a.get("no_bias", True)
+         else ["data", "weight", "bias"],
+         attrs={"kernel": Required(tuple), "stride": (), "dilate": (),
+                "pad": (), "adj": (), "target_shape": (),
+                "num_filter": Required(int), "num_group": 1,
+                "no_bias": True, "workspace": 512, "cudnn_tune": None,
+                "cudnn_off": False, "layout": None},
+         infer_args=_deconv_infer)
+
+
+# ---------------------------------------------------------------- UpSampling
+def _upsampling(a, *xs):
+    """"nearest": each input repeated ``scale`` times along H and W, the
+    results concatenated on the channels (mxtpu concatenates under either
+    ``multi_input_mode``); "bilinear": the first input resized by
+    ``scale`` with half-pixel centers (``jax.image.resize``'s), the
+    weight input unread (mxtpu/ops/nn.py:578)."""
+    s = int(a.scale)
+    if a.sample_type == "nearest":
+        outs = [x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+                for x in xs]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return F.interpolate(xs[0], scale_factor=s, mode="bilinear",
+                         align_corners=False)
+
+
+register("UpSampling", _upsampling, variadic="num_args",
+         attrs={"num_args": 1, "scale": Required(int),
+                "sample_type": "nearest", "num_filter": 0,
+                "multi_input_mode": "concat", "workspace": 512})
+
+
+def _crop(a, *xs):
+    """The H x W window of x (the second input's H and W, or ``h_w``) at
+    ``offset`` or centred (mxtpu/ops/nn.py:601)."""
+    x = xs[0]
+    h, w = (xs[1].shape[2], xs[1].shape[3]) if len(xs) == 2 else \
+        (int(a.h_w[0]), int(a.h_w[1]))
+    if a.center_crop:
+        y0, x0 = (x.shape[2] - h) // 2, (x.shape[3] - w) // 2
+    else:
+        y0, x0 = int(a.offset[0]), int(a.offset[1])
+    return x[:, :, y0:y0 + h, x0:x0 + w]
+
+
+register("Crop", _crop, variadic="num_args",
+         attrs={"num_args": 1, "offset": (0, 0), "h_w": (0, 0),
+                "center_crop": False})
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """The source index of each position of an axis of ``n`` padded by
+    (lo, hi): clamped for "edge", mirrored without repeating the edge
+    (numpy's "reflect", folding again past the far end) for "reflect"."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return torch.clamp(i, 0, n - 1)
+    j = torch.remainder(i, 2 * (n - 1))
+    return torch.where(j < n, j, 2 * (n - 1) - j)
+
+
+def _pad(a, x):
+    """``pad_width`` holds (before, after) per axis. "constant" fills
+    ``constant_value``; "edge" and "reflect" read the source positions of
+    ``_pad_index`` along each padded axis (any axis, as jnp.pad)."""
+    pw = a.pad_width
+    pairs = [(int(pw[2 * i]), int(pw[2 * i + 1])) for i in range(x.ndim)]
+    if a.mode == "constant":
+        flat = [v for p in reversed(pairs) for v in p]
+        return F.pad(x, flat, value=a.constant_value)
+    if a.mode not in ("edge", "reflect"):
+        raise MXNetError("Pad: unknown mode %s" % a.mode)
+    for d, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            x = torch.index_select(
+                x, d, _pad_index(x.shape[d], lo, hi, a.mode, x.device))
+    return x
+
+
+register("Pad", _pad,
+         attrs={"mode": Required(str), "pad_width": Required(tuple),
+                "constant_value": 0.0},
+         aliases=("pad",))
+
+
+# --------------------------------------------------------------- normalization
+def _lrn(a, x):
+    """``x * (knorm + alpha/n * window_sum(x^2))^-beta`` over ``nsize``
+    channels, zero-padded by n//2 on each side (mxtpu/ops/nn.py:498)."""
+    n = int(a.nsize)
+    sq = F.pad(torch.square(x).movedim(1, -1), (n // 2, n // 2))
+    s = sq.unfold(-1, n, 1).sum(-1).movedim(-1, 1)
+    return x * torch.pow(a.knorm + (a.alpha / n) * s, -a.beta)
+
+
+register("LRN", _lrn,
+         attrs={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0,
+                "nsize": Required(int)})
+
+
+def _instance_norm(a, x, gamma, beta):
+    red = tuple(range(2, x.ndim))
+    mean = torch.mean(x, dim=red, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=red, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x - mean) * torch.rsqrt(var + a.eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
+register("InstanceNorm", _instance_norm, arg_names=["data", "gamma", "beta"],
+         attrs={"eps": 1e-3},
+         infer_args=lambda a, shapes: [shapes[0], (shapes[0][1],),
+                                       (shapes[0][1],)])
+
+
+def _l2_normalization(a, x):
+    """x over sqrt(sum(x^2) + eps) along the channel axis ("channel"),
+    the spatial axes ("spatial") or all but the batch ("instance")."""
+    red = {"channel": (1,), "spatial": tuple(range(2, x.ndim))}.get(
+        a.mode, tuple(range(1, x.ndim)))
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=red, keepdim=True)
+                          + a.eps)
+
+
+register("L2Normalization", _l2_normalization,
+         attrs={"eps": 1e-10, "mode": "instance"})
+
+
+def _softmax_activation(a, x):
+    if a.mode == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+register("SoftmaxActivation", _softmax_activation, attrs={"mode": "instance"})
+
+
+def _softmax_cross_entropy(a, data, label):
+    """``-sum(log_softmax(data)[i, label[i]])``; a label outside
+    [-n, n) reads NaN, one in [-n, 0) wraps (jnp's take_along_axis)."""
+    logp = torch.log_softmax(data, dim=-1)
+    idx, valid = _in_range(_index_of(label), data.shape[-1])
+    picked = torch.take_along_dim(logp, idx.unsqueeze(-1), dim=-1)
+    return -torch.sum(torch.where(valid.unsqueeze(-1), picked, float("nan")))
+
+
+register("softmax_cross_entropy", _softmax_cross_entropy,
+         arg_names=["data", "label"], attrs={})
+
+
+# ---------------------------------------------------------------- loss heads
+class _HeadFunction(torch.autograd.Function):
+    """A loss head: ``forward(data)`` is the op's output, and the backward
+    ignores the incoming gradient and returns ``grad(out, data, label)``
+    (mxtpu's ``jax.custom_vjp`` heads, mxtpu/ops/nn.py:402-479)."""
+
+    @staticmethod
+    def forward(ctx, data, label, a, link, grad):
+        out = link(data)
+        ctx.save_for_backward(out, data, label)
+        ctx.attrs, ctx.grad = a, grad
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        del grad_out
+        out, data, label = ctx.saved_tensors
+        g = ctx.grad(ctx.attrs, out, data, label)
+        return g.to(out.dtype), None, None, None, None
+
+
+def _head(link, grad):
+    def impl(a, data, label):
+        if torch.is_grad_enabled() and data.requires_grad:
+            return _HeadFunction.apply(data, label, a, link, grad)
+        return link(data)
+    return impl
+
+
+def _regression_grad(fn):
+    """``fn(out, label) * grad_scale``, the label reshaped to the
+    output's shape where they differ (regression_output-inl.h)."""
+    def grad(a, out, data, label):
+        lab = label.reshape(out.shape) if label.shape != out.shape \
+            else label
+        return fn(out, lab.to(out.dtype)) * a.grad_scale
+    return grad
+
+
+def _label_like_data(a, shapes):
+    return [shapes[0], shapes[1] if shapes[1] is not None else shapes[0]]
+
+
+for _n, _link, _g in [
+        ("LinearRegressionOutput", lambda x: x, lambda o, l: o - l),
+        ("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l),
+        ("MAERegressionOutput", lambda x: x,
+         lambda o, l: torch.sign(o - l))]:
+    register(_n, _head(_link, _regression_grad(_g)),
+             arg_names=["data", "label"], attrs={"grad_scale": 1.0},
+             loss_like=True, infer_args=_label_like_data)
+
+
+def _svm_grad(a, out, data, label):
+    """The hinge's gradient (mxtpu/ops/nn.py:463): ``s = 1 - 2 onehot``
+    (an out-of-range label is an all-zero one-hot row), linear:
+    ``s * [s x + margin > 0]``, squared: ``2 max(s x + margin, 0) s``;
+    times ``regularization_coefficient``."""
+    classes = torch.arange(data.shape[-1], device=data.device)
+    onehot = (label.to(torch.int64).unsqueeze(-1) == classes).to(data.dtype)
+    s = 1 - onehot * 2
+    dist = s * data + a.margin
+    if a.use_linear:
+        g = (dist > 0).to(data.dtype) * s
+    else:
+        g = 2 * torch.clamp(dist, min=0) * s
+    return g * a.regularization_coefficient
+
+
+register("SVMOutput", _head(lambda x: x.view_as(x), _svm_grad),
+         arg_names=["data", "label"],
+         attrs={"margin": 1.0, "regularization_coefficient": 1.0,
+                "use_linear": False},
+         loss_like=True, infer_args=_label_like_batch)
+# the identity, with no penalty in the gradient, as mxtpu's
+register("IdentityAttachKLSparseReg", lambda a, x: x.view_as(x),
+         attrs={"sparseness_target": 0.1, "penalty": 0.001,
+                "momentum": 0.9})
+
+
 # ---------------------------------------------------------------- replicas
 set_replicas(["SliceChannel", "split"],
              lambda a, nd: off_batch_axis(a.axis, nd))
@@ -668,3 +947,8 @@ set_replicas(["MakeLoss"], lambda a, nd: a.normalization == "null",
              group_fn=_make_loss_group)
 set_replicas(["BatchNorm", "BatchNorm_v1"], lambda a, nd: _bn_global(a),
              group_fn=_batch_norm_group)
+set_replicas(["Deconvolution", "UpSampling", "Crop", "LRN", "InstanceNorm",
+              "SoftmaxActivation", "LinearRegressionOutput",
+              "LogisticRegressionOutput", "MAERegressionOutput", "SVMOutput",
+              "IdentityAttachKLSparseReg", "L2Normalization"])
+set_replicas(["Pad", "pad"], lambda a, nd: not any(a.pad_width[:2]))

@@ -5,6 +5,7 @@ Counterpart of ``mxtpu/symbol/__init__.py``.
 from __future__ import annotations
 
 import builtins as _builtins
+import math as _math
 import sys as _sys
 
 from ..base import PrefixOpNamespace as _PrefixNS
@@ -14,7 +15,8 @@ from .symbol import (Group, NameManager, Symbol, Variable, create, load,
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
            "NameManager", "create", "contrib", "maximum", "minimum",
-           "zeros"]
+           "hypot", "zeros", "ones", "full", "arange", "uniform", "normal",
+           "pow"]
 
 
 def _make_sym_fn(opname, op):
@@ -58,3 +60,18 @@ def _either_side(op, scalar_op, plain):
 
 maximum = _either_side("_maximum", "_maximum_scalar", _builtins.max)
 minimum = _either_side("_minimum", "_minimum_scalar", _builtins.min)
+hypot = _either_side("_hypot", "_hypot_scalar", _math.hypot)
+# the constructors' public names (mxtpu/symbol/__init__.py:53-63)
+ones = _make_sym_fn("_ones", get_op("_ones"))
+arange = _make_sym_fn("_arange", get_op("_arange"))
+uniform = _make_sym_fn("_random_uniform", get_op("_random_uniform"))
+normal = _make_sym_fn("_random_normal", get_op("_random_normal"))
+
+
+def full(shape, val, dtype="float32", **kwargs):
+    """A constant-filled symbol: ``_ones * val``, as mxtpu's."""
+    return ones(shape=shape, dtype=dtype, **kwargs) * float(val)
+
+
+def pow(base, exp):  # noqa: A001  (mxtpu's name)
+    return base ** exp

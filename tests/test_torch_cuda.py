@@ -48,7 +48,12 @@ zeros, integer and float16/bfloat16 scalar arithmetic and reductions
 (uint32 sums read back), numpy dtypes in and out of the constructors;
 each new optimizer's 4 updates (float16 weights through SGD's
 multi_precision) and the MAE/MSE/RMSE/Loss device kernels; SGLD's
-noise, every sampler and ``multinomial`` by their moments.
+noise, every sampler and ``multinomial`` by their moments. A.7's
+tensor/nn tranche: every case of ``op_tranche_cases.py`` on CUDA tensors
+against cpu() (forward and gradient), indices far out of range leaving
+the context usable, the NDArray surface (``%``, ``clip``, ``dot``,
+``topk``), Gluon's ``Conv2DTranspose``; A.15's Gluon zoo nets on the card
+against cpu().
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -1876,3 +1881,184 @@ def test_multinomial_on_the_card(cuda):
         assert (np.abs(freq - probs[row]) < 5 * se).all()
         np.testing.assert_allclose(logp.asnumpy()[row],
                                    np.log(probs[row][d[row]]), rtol=1e-5)
+
+
+# ---------------------------------------------------------------- ROADMAP
+# A.7's tensor/nn tranche and A.15 on the card: every new op's case of
+# op_tranche_cases.py on CUDA tensors against cpu(), indices out of range
+# leaving the context usable, Conv2DTranspose, the Gluon zoo
+from op_tranche_cases import CASES as _TRANCHE  # noqa: E402
+
+
+def _tranche_run(torch, mt, name, arrays, attrs, diff, device):
+    """The op's outputs and, where ``diff`` names inputs, their gradients
+    under a seeded head gradient, on ``device``."""
+    import numpy as np
+    xs = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+    for i in diff:
+        xs[i].requires_grad_()
+    op = mt.ops.registry.get_op(name)
+    outs = op.apply(op.parse_attrs(dict(attrs)), xs, device)
+    grads = []
+    if diff and outs[0].requires_grad:
+        head = torch.from_numpy(np.asarray(np.random.RandomState(7).randn(
+            *outs[0].shape), np.float32)).to(device)
+        grads = torch.autograd.grad(outs[0], [xs[i] for i in diff],
+                                    head.to(outs[0].dtype),
+                                    allow_unused=True)
+    return ([o.detach().cpu() for o in outs],
+            [None if g is None else g.cpu() for g in grads])
+
+
+def _tranche_close(torch, got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if not want.is_floating_point():
+        assert torch.equal(got, want)
+        return
+    g, w = got.double(), want.double()
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    inf = torch.isinf(w)
+    assert torch.equal(g[inf], w[inf])
+    fin = ~torch.isnan(w) & ~inf
+    if bool(fin.any()):
+        scale = max(1.0, float(w[fin].abs().max()))
+        assert float((g[fin] - w[fin]).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("name,arrays,attrs,diff", _TRANCHE,
+                         ids=["%s-%d" % (c[0], i)
+                              for i, c in enumerate(_TRANCHE)])
+def test_tranche_op_on_the_card_matches_cpu(cuda, name, arrays, attrs, diff):
+    """Each case of the tranche on CUDA tensors: the forward within 1e-5
+    and the gradient within 1e-4 of the largest (TF32 off), the same
+    dtypes, NaN and infinity positions, integers equal."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    torch.backends.cudnn.allow_tf32 = False
+    outs, grads = _tranche_run(torch, mt, name, arrays, attrs, diff, "cuda")
+    torch.cuda.synchronize()
+    ref_outs, ref_grads = _tranche_run(torch, mt, name, arrays, attrs, diff,
+                                       "cpu")
+    for got, want in zip(outs, ref_outs):
+        _tranche_close(torch, got, want, 1e-5)
+    assert len(grads) == len(ref_grads)
+    for got, want in zip(grads, ref_grads):
+        assert (got is None) == (want is None)
+        if got is not None:
+            _tranche_close(torch, got, want, 1e-4)
+
+
+def test_out_of_range_indices_leave_the_context_usable(cuda):
+    """one_hot, gather_nd, batch_take and scatter_nd on indices far out
+    of range, NaN and huge floats: the answers equal the host's, and
+    the CUDA context still runs kernels afterwards (no device assert)."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    inv = mt.ops.registry.invoke
+    bad = [-7.0, -1.0, 3.0, 1e10, -1e10, float("nan"), 2.0 ** 40, 0.0]
+    data = torch.arange(12.0).reshape(3, 4)
+    cases = [
+        ("one_hot", lambda d: [torch.tensor(bad, device=d)], {"depth": 3}),
+        ("gather_nd", lambda d: [data.to(d), torch.tensor(
+            [bad, bad[::-1]], device=d)], {}),
+        ("batch_take", lambda d: [torch.arange(24.0).reshape(8, 3).to(d),
+                                  torch.tensor(bad, device=d)], {}),
+        ("scatter_nd", lambda d: [torch.ones(8, device=d), torch.tensor(
+            [bad, bad[::-1]], device=d)], {"shape": (3, 4)}),
+        ("take", lambda d: [data.to(d), torch.tensor(bad[:5], device=d)],
+         {})]
+    for name, ins, attrs in cases:
+        (got,) = inv(name, ins("cuda"), attrs)[2]
+        torch.cuda.synchronize()
+        (want,) = inv(name, ins("cpu"), attrs)[2]
+        assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want)), name
+        assert torch.equal(torch.nan_to_num(got.cpu()),
+                           torch.nan_to_num(want)), name
+    z = torch.ones(1000, device="cuda") * 2
+    torch.cuda.synchronize()
+    assert float(z.sum()) == 2000.0
+
+
+def test_ndarray_surface_of_the_tranche_on_the_card(cuda):
+    """``a % b``, ``nd.clip``, ``nd.dot`` and ``nd.topk`` on gpu(0) equal
+    cpu()'s, and stay on the card."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    x = np.array([[5.5, -3.0, 2.0], [0.0, 7.0, -1.5]], np.float32)
+    y = np.array([[2.0, 2.0, -3.0], [1.5, 4.0, 2.0]], np.float32)
+
+    def body(ctx):
+        a, b = mt.nd.array(x, ctx=ctx), mt.nd.array(y, ctx=ctx)
+        i = mt.nd.array(np.array([5, -5, 7], np.int32), ctx=ctx)
+        res = [a % b, a % 2.5, i % 0, mt.nd.clip(a, 0.0, 5.0),
+               mt.nd.dot(a, b.T), mt.nd.topk(a, k=2, ret_typ="both")[1]]
+        assert all(r.context == ctx for r in res)
+        return [r.asnumpy() for r in res]
+
+    for g, w in zip(body(mt.gpu(0)), body(mt.cpu())):
+        np.testing.assert_allclose(g, w, rtol=1e-6)
+
+
+def test_conv2d_transpose_on_the_card_matches_cpu(cuda):
+    """Gluon's Conv2DTranspose (Deconvolution, adj from output_padding,
+    groups, a bias) on gpu(0) from the same weights as on cpu():
+    forward and gradients within 1e-5 of the largest (cuDNN, TF32 off)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    torch.backends.cudnn.allow_tf32 = False
+    x = np.random.RandomState(0).randn(2, 4, 7, 6).astype(np.float32)
+    w = np.random.RandomState(1).randn(4, 3, 3, 3).astype(np.float32)
+    b = np.random.RandomState(2).randn(6).astype(np.float32)
+
+    def run(ctx):
+        with ctx:
+            layer = mt.gluon.nn.Conv2DTranspose(
+                6, 3, strides=2, padding=1, output_padding=1, groups=2,
+                in_channels=4)
+            layer.initialize(ctx=ctx)
+            layer.weight.set_data(mt.nd.array(w, ctx=ctx))
+            layer.bias.set_data(mt.nd.array(b, ctx=ctx))
+            xa = mt.nd.array(x, ctx=ctx)
+            xa.attach_grad()
+            with mt.autograd.record():
+                out = layer(xa)
+            out.backward()
+            return [out.asnumpy(), xa.grad.asnumpy(),
+                    layer.weight.grad(ctx).asnumpy()]
+
+    got, want = run(mt.gpu(0)), run(mt.cpu())
+    assert got[0].shape == (2, 6, 14, 12)
+    for g, v in zip(got, want):
+        np.testing.assert_allclose(g, v, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(v).max()))
+
+
+@pytest.mark.parametrize("name,edge", [
+    ("alexnet", 63), ("densenet121", 32), ("inceptionv3", 299),
+    ("mobilenet1.0", 32), ("squeezenet1.0", 32), ("vgg16_bn", 32)])
+def test_gluon_zoo_forward_on_the_card_matches_cpu(cuda, tmp_path, name,
+                                                   edge):
+    """Each new zoo net of ``get_model``, hybridized, at its narrowest
+    input: gpu(0) from the cpu() net's ``.params`` within 1e-4 of the
+    largest logit (cuDNN and cuBLAS, TF32 off)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    torch.backends.cudnn.allow_tf32 = False
+    v = mt.gluon.model_zoo.vision
+    x = np.random.RandomState(3).rand(2, 3, edge, edge).astype(np.float32)
+    with mt.cpu():
+        net = v.get_model(name, classes=10)
+        net.initialize(mt.init.Xavier(), ctx=mt.cpu())
+        net.hybridize()
+        want = net(mt.nd.array(x)).asnumpy()
+        net.save_params(str(tmp_path / "n.params"))
+    card = v.get_model(name, classes=10)
+    card.load_params(str(tmp_path / "n.params"), ctx=mt.gpu(0))
+    card.hybridize()
+    got = card(mt.nd.array(x, ctx=mt.gpu(0)))
+    assert got.context == mt.gpu(0)
+    np.testing.assert_allclose(got.asnumpy(), want, rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(want).max()))

@@ -68,6 +68,11 @@ FACTORIES = [
     ("alexnet", dict(num_classes=1000), IMAGENET),
     ("lenet", dict(num_classes=10), (1, 28, 28)),
     ("mlp", dict(num_classes=10), (784,)),
+    ("googlenet", dict(num_classes=1000), IMAGENET),
+    ("inception_v3", dict(num_classes=1000), (3, 299, 299)),
+    ("inception_v4", dict(num_classes=1000), (3, 299, 299)),
+    ("inception_resnet_v2", dict(num_classes=1000), (3, 299, 299)),
+    ("googlenet", dict(num_classes=10), (3, 96, 96)),
 ]
 FACTORY_IDS = ["%s-%d" % (f[0], i) for i, f in enumerate(FACTORIES)]
 
@@ -98,6 +103,10 @@ SITES = [
     ("mobilenet", dict(), 27),                     # conv1 + 2 x 13 blocks
     ("vgg", dict(num_layers=16, batch_norm=True), 13),
     ("vgg", dict(num_layers=16), 0),
+    ("googlenet", dict(), 0),                      # no BatchNorm
+    ("inception_v3", dict(), 94),                  # every BN but the aux
+    ("inception_v4", dict(), 149),
+    ("inception_resnet_v2", dict(), 204),
 ]
 
 
