@@ -282,9 +282,32 @@ Phases (any failure raises and exits non-zero):
    of densenet121 at B=32. Every case of ``tests/op_tranche_cases.py`` on
    CUDA tensors against cpu() (indices out of range included, the
    context synchronized after each), and Gluon's Conv2DTranspose.
-16. Prints the kernels' JSON line (each kernel's launches by path, the
-   ``records``, ``frontend`` and ``zoo`` paths included), then the device
-   line last.
+16. The Faster R-CNN at the VGG16 widths of MXNet's example/rcnn
+   (``rcnn``; ROADMAP A.7's second tranche): ``models.rcnn``'s "vgg16"
+   configuration (conv1_1-conv5_3, the RPN at 9 anchors over a 37x62
+   conv5_3 map, Proposal at 12,000 / 2,000, ``proposal_target`` as a
+   numpy Custom op, ROIPooling 7x7 over 2 x 128 ROIs, fc6/fc7 of 4096,
+   21 classes) trained through ``Module`` on gpu(0) at 600x1000, B=2,
+   f32 with TF32 off, SGD at the reference's lr 0.001, momentum 0.9 and
+   wd 5e-4, conv1 and conv2 fixed, from Xavier weights, on one seeded
+   synthetic batch repeated: every loss finite, the combined loss (the
+   RPN's and stage 2's cross-entropies and box losses, scaled as their
+   gradients are) lower at the last step than at the first; step ms
+   (host clock to a sync), the device-busy share of a profiled step, the
+   host's share in the Custom op, peak memory; then the test symbol's
+   forward (Proposal at 6,000 / 300) on 2 images: 600 ROIs, finite
+   probabilities summing to 1. The counts, set to 0 before each: one
+   ROIPooling forward and one backward launch a training step, one
+   forward for the test forward, one ``multibox_nms`` launch a Proposal
+   at K = 12,000 (training) and 6,000 (test). Then the ROIPooling kernel
+   alone at the training shape (R = 256, C = 512, 7x7, a 2x512x37x62
+   map after a ReLU, ROIs with .5 corners) against its plain version:
+   the forward bit for bit, the backward within 1e-6 of the largest and
+   bit-identical on repeat, both timed beside their plain versions and
+   their bytes bounds (no library call: the card has no torchvision).
+17. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records``, ``frontend``, ``zoo`` and ``rcnn`` paths included), then
+   the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -515,9 +538,18 @@ RECORDS = dict(train=1280, val=512, edge=256, label_classes=3, det=64,
                need_images_per_s=670, tail_batch=200, uint8_batches=2,
                epochs=2, epoch_size=5, speedometer_period=2,
                memory_steps=4, ssd_batch=32, ssd_epochs=2)
+#: phase 16: the Faster R-CNN's configuration in models.rcnn, its batch,
+#: the training steps on one repeated batch (the first and last losses
+#: gated), the timed steps after them, and the reference's SGD settings
+RCNN = dict(config="vgg16", batch=2, fall_steps=6, timed_steps=3,
+            lr=0.001, momentum=0.9, wd=0.0005)
+#: the ROIPooling kernel timed alone at the training shape: 2 x 128 ROIs
+#: over the 2 x 512 x 37 x 62 conv5_3 map, 7x7 bins at 1/16
+ROI_TIMED = dict(rois=256, channels=512, shape=(37, 62), image=(600, 1000),
+                 pooled=(7, 7), iters=5)
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
-          "surface", "records", "frontend", "zoo")
+          "surface", "records", "frontend", "zoo", "rcnn")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -3996,6 +4028,10 @@ def multi_gpu(args, card):
     if "zoo" in phases:
         log("[zoo]")
         results["zoo"] = phase_zoo(mt, epi, args.seed, card)
+    # 16. the Faster R-CNN at VGG16's widths and the ROIPooling kernel
+    if "rcnn" in phases:
+        log("[rcnn]")
+        results["rcnn"] = phase_rcnn(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7606,6 +7642,332 @@ def phase_zoo(mt, epi, seed, card):
     return row
 
 
+# ---------------------------------------------------------------- phase 16
+def roi_inputs(seed, rois, channels, shape, image, pooled, device="cuda"):
+    """ROIPooling's inputs at the Faster R-CNN's stage-2 shape: a ReLU'd 2
+    x C x H x W map (most bins tie at zero) and ROIs in image pixels, a
+    quarter with corners on multiples of 8 (.5 after the 1/16 scale: the
+    half-to-even case)."""
+    rng = np.random.RandomState(seed)
+    data = np.maximum(rng.randn(2, channels, *shape), 0).astype(np.float32)
+    h, w = image
+    x1 = rng.uniform(-20, w - 40, rois)
+    y1 = rng.uniform(-20, h - 40, rois)
+    boxes = np.stack([rng.randint(0, 2, rois), x1, y1,
+                      x1 + rng.uniform(8, w / 2, rois),
+                      y1 + rng.uniform(8, h / 2, rois)], 1)
+    boxes = boxes.astype(np.float32)
+    boxes[::4, 1:] = np.round(boxes[::4, 1:] / 8) * 8
+    return (torch.from_numpy(data).to(device),
+            torch.from_numpy(boxes).to(device), pooled, 1 / 16)
+
+
+def roi_bound_ms(data, rois, pooled):
+    """ROIPooling's bytes at 3.35 TB/s: the function's least (forward: the
+    map and the ROIs read, the max written; backward: dy, the map, the
+    ROIs and the max read, dx written) and this route's, which also
+    writes the int32 count of ties in the forward and reads it in the
+    backward. Returns (bound, bwd_bound, route, bwd_route) in ms."""
+    out = rois.shape[0] * data.shape[1] * pooled[0] * pooled[1] * 4
+    fwd = data.numel() * 4 + rois.numel() * 4 + out
+    bwd = 2 * out + 2 * data.numel() * 4 + rois.numel() * 4
+    return tuple(v / HBM_BYTES_PER_S * 1e3
+                 for v in (fwd, bwd, fwd + out, bwd + out))
+
+
+def roi_kernel_timed(mt, seed, card):
+    """The ROIPooling kernel at the training shape against its plain
+    version: the wrapper the path calls (``roi_pool`` under autograd),
+    forward bit for bit, backward within 1e-6 of the largest and
+    bit-identical on repeat; then CUDA-event ms of each launch alone
+    beside the plain versions' and the bytes bounds. Its launches are not
+    the path's: the caller reads the path's counts before this runs."""
+    from mxtpu_torch.ops import spatial
+    cfg = ROI_TIMED
+    data, rois, pooled, scale = roi_inputs(
+        seed + 16, cfg["rois"], cfg["channels"], cfg["shape"], cfg["image"],
+        cfg["pooled"])
+    x = data.clone().requires_grad_()
+    y = spatial.roi_pool(x, rois, pooled, scale)
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    (g1,) = torch.autograd.grad(y, [x], dy, retain_graph=True)
+    (g2,) = torch.autograd.grad(y, [x], dy)
+    want = spatial.roi_pool_reference(data, rois, pooled, scale)
+    gw = spatial.roi_pool_backward_reference(data, rois, dy, pooled, scale)
+    torch.cuda.synchronize()
+    out = y.detach()
+    fwd_err = abs_err(out, want)
+    bwd_err = abs_err(g1, gw)
+    bwd_scale = float(gw.abs().max())
+    if not torch.equal(out, want):
+        raise AssertionError("roi_pooling forward differs from its plain "
+                             "version: max abs err %g" % fwd_err)
+    if bwd_err > 1e-6 * bwd_scale or not torch.equal(g1, g2):
+        raise AssertionError(
+            "roi_pooling backward: max abs err %g against the plain "
+            "version's largest %g (1e-6 allowed), repeat bit-identical: %s"
+            % (bwd_err, bwd_scale, torch.equal(g1, g2)))
+    _, count = spatial._roi_forward_cuda(data, rois, *pooled, scale)
+    iters = cfg["iters"]
+    ms = cuda_ms(lambda: spatial._roi_forward_cuda(data, rois, *pooled,
+                                                   scale), iters)
+    plain_ms = cuda_ms(lambda: spatial.roi_pool_reference(
+        data, rois, pooled, scale), 2, warmup=1)
+    bwd_ms = cuda_ms(lambda: spatial.roi_pool_backward(
+        dy, data, rois, scale, out, count), iters)
+    bwd_plain_ms = cuda_ms(lambda: spatial.roi_pool_backward_reference(
+        data, rois, dy, pooled, scale), 2, warmup=1)
+    bound, bwd_bound, route, bwd_route = roi_bound_ms(data, rois, pooled)
+    tied = float((count > 1).float().mean())
+    row = {"shape": {"data": list(data.shape), "rois": rois.shape[0],
+                     "pooled": list(pooled)},
+           "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "route_ms": route,
+           "library_ms": None, "bwd_max_abs_err": bwd_err, "bwd_ms": bwd_ms,
+           "bwd_plain_ms": bwd_plain_ms, "bwd_bound_ms": bwd_bound,
+           "bwd_bound_by": "bytes", "bwd_route_ms": bwd_route,
+           "tied_bin_share": tied}
+    log("  [%s] roi_pooling at R=%d, %s, %s: forward %.4f ms (plain %.2f, "
+        "bound %.4f, route %.4f, bytes; %.1f %% of the bound) max abs err "
+        "%g; backward %.4f ms (plain %.2f, bound %.4f, route %.4f; %.1f %% "
+        "of the bound) max abs err %g of %g, repeat bit-identical; %.1f %% "
+        "of bins tie; no library call (the card has no torchvision)"
+        % (card, rois.shape[0], list(data.shape), list(pooled), ms,
+           plain_ms, bound, route, 100 * bound / ms, fwd_err, bwd_ms,
+           bwd_plain_ms, bwd_bound, bwd_route, 100 * bwd_bound / bwd_ms,
+           bwd_err, bwd_scale, 100 * tied))
+    return row
+
+
+class SweepByK:
+    """Stands in for ``spatial.nms_keep`` (the name Proposal calls) and
+    records the K of each call before calling the real wrapper, whose own
+    count is the launch count."""
+
+    def __init__(self, real):
+        self.real = real
+        self.calls = []
+
+    def __call__(self, boxes, *args, **kwargs):
+        self.calls.append(int(boxes.shape[1]))
+        return self.real(boxes, *args, **kwargs)
+
+
+class StageTwoLabels:
+    """Wraps ``rcnn.ProposalTarget.forward`` to keep the last stage-2
+    labels it assigned, for the stage-2 cross-entropy of the combined
+    loss (the graph does not output them), and the host ms of each
+    call."""
+
+    def __init__(self, rcnn):
+        self.cls = rcnn.ProposalTarget
+        self.real = self.cls.forward
+        self.labels = None
+        self.ms = []
+        keep = self
+
+        def forward(op, is_train, req, in_data, out_data, aux):
+            t0 = time.perf_counter()
+            keep.real(op, is_train, req, in_data, out_data, aux)
+            keep.ms.append((time.perf_counter() - t0) * 1e3)
+            keep.labels = out_data[1].asnumpy().copy()
+
+        self.cls.forward = forward
+
+    def close(self):
+        self.cls.forward = self.real
+
+
+def rcnn_losses(outs, labels, rpn_label, cfg):
+    """(RPN cross-entropy over the labelled anchors, RPN box loss,
+    stage-2 cross-entropy, stage-2 box loss, the combined loss with each
+    term scaled as its gradient is)."""
+    prob = outs[0]  # (N, 2, A*H*W)
+    lab = rpn_label.astype(np.int64)
+    keep = lab >= 0
+    p = np.take_along_axis(prob, np.where(keep, lab, 0)[:, None], 1)[:, 0]
+    rpn_ce = float(-np.log(np.maximum(p[keep], 1e-12)).mean())
+    rpn_box = float(outs[1])
+    cls = outs[2]
+    s2 = labels.astype(np.int64)
+    cls_ce = float(-np.log(np.maximum(cls[np.arange(len(s2)), s2],
+                                      1e-12)).mean())
+    box = float(outs[3])
+    combined = (rpn_ce + rpn_box * cfg["rpn_grad_scale"] + cls_ce
+                + box / cfg["rois_per_img"])
+    return rpn_ce, rpn_box, cls_ce, box, combined
+
+
+def rcnn_training(mt, rcnn, spatial, contrib, seed, card):
+    """The "vgg16" Faster R-CNN trained through Module on gpu(0) (module
+    docstring, phase 16); returns the row and the trained module."""
+    cfg = rcnn.CONFIGS[RCNN["config"]]
+    n = RCNN["batch"]
+    sym = rcnn.build_train_symbol(cfg)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), data_names=rcnn.DATA_NAMES,
+                        label_names=rcnn.LABEL_NAMES,
+                        fixed_param_names=rcnn.fixed_params(cfg, sym))
+    mod.bind(data_shapes=rcnn.data_shapes(cfg, n),
+             label_shapes=rcnn.label_shapes(cfg, n))
+    np.random.seed(seed)
+    mod.init_params(mt.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RCNN["lr"], "momentum": RCNN["momentum"],
+        "wd": RCNN["wd"]})
+    n_params = sum(int(v.size) for v in mod.get_params()[0].values())
+    arrays = rcnn.make_batch(np.random.RandomState(seed + 16), n, cfg)
+    batch = rcnn.batch_of(arrays, mt.cpu())
+    labels = StageTwoLabels(rcnn)
+    sweep = SweepByK(spatial.nms_keep)
+    spatial.nms_keep = sweep
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spatial.roi_pool.launches = 0
+        spatial.roi_pool_backward.launches = 0
+        contrib.nms_keep.launches = 0
+        losses, ms = [], []
+        steps = RCNN["fall_steps"] + RCNN["timed_steps"]
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs = [o.asnumpy() for o in mod.get_outputs()]
+            if i < RCNN["fall_steps"]:
+                losses.append(rcnn_losses(outs, labels.labels, arrays[2],
+                                          cfg))
+        launches = {"roi_pooling_fwd": spatial.roi_pool.launches,
+                    "roi_pooling_bwd": spatial.roi_pool_backward.launches,
+                    "multibox_nms": contrib.nms_keep.launches,
+                    "nms_K": sorted(set(sweep.calls))}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        spatial.nms_keep = sweep.real
+        labels.close()
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    busy = step_kernels(step).get(0, (0, 0.0))
+    timed = ms[RCNN["fall_steps"]:]
+    med = float(np.median(timed))
+    t_custom = labels.ms[RCNN["fall_steps"]:]
+    combined = [v[4] for v in losses]
+    row = {"config": RCNN["config"], "batch": n,
+           "image": list(cfg["image"]),
+           "parameters": n_params, "losses": losses, "combined": combined,
+           "step_ms": med, "step_ms_all": ms, "launches": launches,
+           "device_launches": busy[0], "device_ms": busy[1],
+           "busy_share": busy[1] / med, "proposal_target_host_ms": t_custom,
+           "peak_memory": int(peak)}
+    log("  [%s] Faster R-CNN %s at %dx%d, B=%d, %.2f M parameters: "
+        "losses (rpn CE, rpn box, rcnn CE, rcnn box, combined) by step %s"
+        % (card, RCNN["config"], cfg["image"][0], cfg["image"][1], n,
+           n_params / 1e6, [[round(x, 4) for x in v] for v in losses]))
+    log("  [%s] step %.1f ms (median of %d; all %s); profiled step %d "
+        "kernel launches, %.1f ms of device time (busy %.1f %%); "
+        "proposal_target's host forward %s ms; peak memory %.2f GB; "
+        "launches %s" % (card, med, len(timed),
+                         [round(v, 1) for v in ms], busy[0], busy[1],
+                         100 * busy[1] / med,
+                         [round(v, 2) for v in t_custom], peak / 1e9,
+                         launches))
+    if not all(np.isfinite(v).all() for v in losses):
+        raise AssertionError("rcnn: a loss is not finite: %s" % losses)
+    if not combined[-1] < combined[0]:
+        raise AssertionError("rcnn: the combined loss did not fall over %d "
+                             "steps of one batch: %s"
+                             % (len(combined), combined))
+    per_step = [launches[k] for k in ("roi_pooling_fwd", "roi_pooling_bwd",
+                                      "multibox_nms")]
+    if per_step != [steps] * 3 or launches["nms_K"] != [cfg["pre_nms_train"]]:
+        raise AssertionError("rcnn: %d training steps launched %s: one "
+                             "ROIPooling forward and backward and one sweep "
+                             "at K = %d a step expected"
+                             % (steps, launches, cfg["pre_nms_train"]))
+    return row, mod
+
+
+def rcnn_test_forward(mt, rcnn, spatial, contrib, trained, seed, card):
+    """The test symbol's forward on 2 images from the trained weights:
+    Proposal at 6,000 / 300, so 600 ROIs; probabilities finite and summing
+    to 1; one ROIPooling forward and one sweep at K = 6,000."""
+    cfg = rcnn.CONFIGS[RCNN["config"]]
+    n = RCNN["batch"]
+    mod = mt.mod.Module(rcnn.build_test_symbol(cfg), context=mt.gpu(0),
+                        data_names=rcnn.DATA_NAMES, label_names=None)
+    mod.bind(data_shapes=rcnn.data_shapes(cfg, n), for_training=False)
+    mod.set_params(*trained.get_params())
+    x, info = rcnn.make_batch(np.random.RandomState(seed + 77), n, cfg)[:2]
+    batch = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu()),
+                                  mt.nd.array(info, ctx=mt.cpu())],
+                            label=[], pad=0, index=None)
+    sweep = SweepByK(spatial.nms_keep)
+    spatial.nms_keep = sweep
+    try:
+        spatial.roi_pool.launches = 0
+        contrib.nms_keep.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=False)
+        rois, prob, deltas = [o.asnumpy() for o in mod.get_outputs()]
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {"roi_pooling_fwd": spatial.roi_pool.launches,
+                    "multibox_nms": contrib.nms_keep.launches,
+                    "nms_K": sorted(set(sweep.calls))}
+    finally:
+        spatial.nms_keep = sweep.real
+    post = cfg["post_nms_test"]
+    row = {"rois": list(rois.shape), "cls_prob": list(prob.shape),
+           "bbox_pred": list(deltas.shape), "ms": ms, "launches": launches}
+    log("  [%s] test forward: rois %s, cls_prob %s, bbox_pred %s in %.1f "
+        "ms; launches %s" % (card, rois.shape, prob.shape, deltas.shape, ms,
+                             launches))
+    finite = np.isfinite(prob).all() and np.isfinite(deltas).all()
+    if rois.shape != (n * post, 5) or prob.shape[0] != n * post or \
+            not finite or not np.allclose(prob.sum(1), 1.0, atol=1e-5):
+        raise AssertionError("rcnn test forward: rois %s, probabilities "
+                             "finite %s" % (rois.shape,
+                                            np.isfinite(prob).all()))
+    if launches != {"roi_pooling_fwd": 1, "multibox_nms": 1,
+                    "nms_K": [cfg["pre_nms_test"]]}:
+        raise AssertionError("rcnn test forward launched %s" % launches)
+    return row
+
+
+def phase_rcnn(mt, seed, card):
+    """Phase 16 (module docstring): the Faster R-CNN trained and tested,
+    then the ROIPooling kernel alone."""
+    from mxtpu_torch.models import rcnn
+    from mxtpu_torch.ops import contrib, spatial
+    t0 = time.perf_counter()
+    res = {}
+    res["training"], trained = rcnn_training(mt, rcnn, spatial, contrib,
+                                             seed, card)
+    res["test"] = rcnn_test_forward(mt, rcnn, spatial, contrib, trained,
+                                    seed, card)
+    del trained
+    torch.cuda.empty_cache()
+    tr, te = res["training"]["launches"], res["test"]["launches"]
+    res["launches"] = {
+        "roi_pooling": {"rcnn_train_fwd": tr["roi_pooling_fwd"],
+                        "rcnn_train_bwd": tr["roi_pooling_bwd"],
+                        "rcnn_test_fwd": te["roi_pooling_fwd"]},
+        "nms": {"rcnn_train_K%d" % tr["nms_K"][0]: tr["multibox_nms"],
+                "rcnn_test_K%d" % te["nms_K"][0]: te["multibox_nms"]},
+        "epilogue": {"rcnn": 0}}  # VGG16 has no BatchNorm
+    res["roi_pooling"] = roi_kernel_timed(mt, seed, card)
+    res["seconds"] = time.perf_counter() - t0
+    log("  [%s] rcnn phase %.1f s; launches %s"
+        % (card, res["seconds"], res["launches"]))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -7759,6 +8121,10 @@ def main(argv=None):
     if "zoo" in phases:
         log("[zoo]")
         results["zoo"] = phase_zoo(mt, epi, args.seed, card)
+    # 16. the Faster R-CNN at VGG16's widths and the ROIPooling kernel
+    if "rcnn" in phases:
+        log("[rcnn]")
+        results["rcnn"] = phase_rcnn(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7790,6 +8156,9 @@ def main(argv=None):
     rec_launches = results["records"]["launches"]
     front_launches = results["frontend"]["launches"]
     zoo_launches = results["zoo"]["launches"]
+    rcnn_res = results["rcnn"]
+    rcnn_launches = rcnn_res["launches"]
+    roi = rcnn_res["roi_pooling"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -7810,7 +8179,8 @@ def main(argv=None):
         "launches": resnet["launches"] + resnet_eval + gluon_eval + dp_eval
         + surface["resnet"]["launches"]
         + sum(rec_launches["epilogue"].values())
-        + sum(front_launches.values()) + sum(zoo_launches.values()),
+        + sum(front_launches.values()) + sum(zoo_launches.values())
+        + sum(rcnn_launches["epilogue"].values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
@@ -7818,7 +8188,8 @@ def main(argv=None):
                                   "resnet_predict":
                                   surface["resnet"]["launches"]},
                                  **dict(rec_launches["epilogue"],
-                                        **front_launches, **zoo_launches)),
+                                        **front_launches, **zoo_launches,
+                                        **rcnn_launches["epilogue"])),
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],
@@ -7838,8 +8209,10 @@ def main(argv=None):
         "source": "mxtpu_torch/csrc/multibox_nms.cu",
         "replaces": "mxtpu/ops/contrib.py:214",
         "launches": sum(ssd["launches"].values())
-        + sum(rec_launches["nms"].values()),
-        "launches_by_path": dict(ssd["launches"], **rec_launches["nms"]),
+        + sum(rec_launches["nms"].values())
+        + sum(rcnn_launches["nms"].values()),
+        "launches_by_path": dict(ssd["launches"], **rec_launches["nms"],
+                                 **rcnn_launches["nms"]),
         "max_abs_err": nms_row["max_abs_err"],
         "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
         "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
@@ -7871,7 +8244,21 @@ def main(argv=None):
         "plain_ms": wide["bwd_plain_ms"], "bound_ms": wide["bwd_bound_ms"],
         "bound_by": wide["bwd_bound_by"],
         "library_ms": wide["bwd_library_ms"],
-        "shape": [wide[k] for k in ("B", "H", "T", "D")]}]}
+        "shape": [wide[k] for k in ("B", "H", "T", "D")]}, {
+        "name": "roi_pooling", "route": "cuda",
+        "source": "mxtpu_torch/csrc/roi_pooling.cu",
+        "replaces": "mxtpu/ops/spatial.py:135",
+        "launches": sum(rcnn_launches["roi_pooling"].values()),
+        "launches_by_path": rcnn_launches["roi_pooling"],
+        "max_abs_err": roi["max_abs_err"], "ms": roi["ms"],
+        "plain_ms": roi["plain_ms"], "bound_ms": roi["bound_ms"],
+        "bound_by": roi["bound_by"], "route_ms": roi["route_ms"],
+        "library_ms": None,
+        "bwd_max_abs_err": roi["bwd_max_abs_err"], "bwd_ms": roi["bwd_ms"],
+        "bwd_plain_ms": roi["bwd_plain_ms"],
+        "bwd_bound_ms": roi["bwd_bound_ms"],
+        "bwd_bound_by": roi["bwd_bound_by"],
+        "bwd_route_ms": roi["bwd_route_ms"], "shape": roi["shape"]}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

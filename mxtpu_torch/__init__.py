@@ -44,7 +44,11 @@ rest of the Python frontend's names: every metric, optimizer and
 initializer of mxtpu, ``callback.ProgressBar`` and
 ``LogValidationMetricsCallback``, ``context.num_devices``, ``random``'s
 samplers with their 15 ops (``ops/random_ops.py``), ``visualization``,
-``executor_manager``, ``libinfo`` and ``symbol_doc``.
+``executor_manager``, ``libinfo`` and ``symbol_doc``; the op library's
+spatial, custom and update ops (``ops/spatial.py`` with ROIPooling as a
+CUDA kernel, ``ops/custom.py`` over ``operator``'s ``CustomOp`` and
+``CustomOpProp``, ``ops/optimizer_ops.py``) and the Faster R-CNN
+(``models.rcnn``).
 """
 from .libinfo import __version__
 from . import base
@@ -54,6 +58,7 @@ from .context import Context, cpu, current_context, gpu, num_gpus
 from . import attribute
 from .attribute import AttrScope
 from . import ops
+from . import operator
 from . import symbol
 from . import symbol as sym
 from . import autograd
@@ -96,7 +101,7 @@ from . import executor_manager
 from . import test_utils
 
 __all__ = ["__version__", "MXNetError", "AttrScope", "attribute", "Context",
-           "cpu", "gpu", "current_context", "num_gpus", "ops",
+           "cpu", "gpu", "current_context", "num_gpus", "ops", "operator",
            "symbol", "sym", "ndarray", "nd", "executor",
            "predict", "Predictor", "serving", "models", "convert", "build",
            "random", "rnd", "symbol_doc", "libinfo", "initializer", "init",

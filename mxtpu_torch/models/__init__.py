@@ -1,6 +1,6 @@
 """Symbol-level model factories: the transformer LM, the image-
-classification zoo and the SSD detector (copies of ``mxtpu/models``),
-plus the serving fixtures."""
+classification zoo, the SSD detector and the Faster R-CNN (copies of
+``mxtpu/models`` and of the rcnn example), plus the serving fixtures."""
 from . import transformer
 from . import resnet
 from . import resnet_v1
@@ -12,6 +12,7 @@ from . import alexnet
 from . import lenet
 from . import mlp
 from . import ssd
+from . import rcnn
 from . import googlenet
 from . import inception_v3
 from . import inception_v4
@@ -29,7 +30,7 @@ from .googlenet import get_symbol as get_googlenet
 from .inception_v3 import get_symbol as get_inception_v3
 
 __all__ = ["transformer", "resnet", "resnet_v1", "resnext", "mobilenet",
-           "inception_bn", "vgg", "alexnet", "lenet", "mlp", "ssd",
+           "inception_bn", "vgg", "alexnet", "lenet", "mlp", "ssd", "rcnn",
            "serving_fixtures", "get_serving_fixture", "get_transformer_lm",
            "get_resnet", "get_inception_bn", "get_vgg", "get_alexnet",
            "get_lenet", "get_mlp", "googlenet", "inception_v3",

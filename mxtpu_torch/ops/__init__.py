@@ -8,6 +8,10 @@ from . import attention
 from . import rnn
 from . import contrib
 from . import random_ops
+from . import spatial
+from . import custom
+from . import optimizer_ops
 
 __all__ = ["registry", "collective", "tensor", "epilogue", "nn",
-           "attention", "rnn", "contrib", "random_ops"]
+           "attention", "rnn", "contrib", "random_ops", "spatial", "custom",
+           "optimizer_ops"]

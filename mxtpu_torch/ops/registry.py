@@ -14,9 +14,9 @@ import torch
 from .. import random as _random
 from ..base import MXNetError, parse_attr
 
-__all__ = ["OpDef", "register", "get_op", "op_exists", "list_ops",
-           "Required", "invoke", "AttrDict", "torch_dtype", "numpy_dtype",
-           "BFLOAT16", "set_replicas", "off_batch_axis"]
+__all__ = ["OpDef", "register", "register_op", "get_op", "op_exists",
+           "list_ops", "Required", "invoke", "AttrDict", "torch_dtype",
+           "numpy_dtype", "BFLOAT16", "set_replicas", "off_batch_axis"]
 
 _OPS = {}
 
@@ -111,7 +111,11 @@ class OpDef:
     inputs_per_replica)`` computes an op that couples rows of the batch
     (BatchNorm in training, a normalized loss) over all replicas at once
     and returns each replica's ``apply`` tuple. ``replica_mode`` picks.
+    ``open_attrs``: the op takes attrs beyond ``attrs_spec`` (``Custom``'s
+    kwargs for its prop), which ``load_json`` keeps.
     """
+
+    open_attrs = False
 
     def __init__(self, name, fn, arg_names=("data",), attrs=None,
                  num_outputs=1, aliases=(), aux_names=(), infer_args=None,
@@ -201,16 +205,22 @@ def register(name, fn=None, **kwargs):
     """Register an op. Usable as decorator or direct call."""
 
     def _do(f):
-        op = OpDef(name, f, **kwargs)
-        _OPS[name] = op
-        for a in op.aliases:
-            _OPS[a] = op
+        register_op(OpDef(name, f, **kwargs))
         return f
 
     if fn is not None:
         _do(fn)
         return _OPS[name]
     return _do
+
+
+def register_op(op):
+    """Register an OpDef (a subclass with its own ``parse_attrs``, such
+    as ``Custom``'s) under its name and aliases."""
+    _OPS[op.name] = op
+    for a in op.aliases:
+        _OPS[a] = op
+    return op
 
 
 def set_replicas(names, row_local=True, group_fn=None):

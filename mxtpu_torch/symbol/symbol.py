@@ -594,7 +594,8 @@ def load_json(json_str):
             op = get_op(meta["op"])
             inputs = [(built[i], idx) for i, idx, *_ in meta["inputs"]]
             op_attrs = {k: v for k, v in attrs.items()
-                        if not k.startswith("__") and k in op.attrs_spec}
+                        if not k.startswith("__") and (
+                            k in op.attrs_spec or op.open_attrs)}
             node = _Node(op, meta["name"], op_attrs, inputs)
             node._extra_attrs = {k: v for k, v in attrs.items()
                                  if k.startswith("__")}

@@ -53,7 +53,14 @@ tensor/nn tranche: every case of ``op_tranche_cases.py`` on CUDA tensors
 against cpu() (forward and gradient), indices far out of range leaving
 the context usable, the NDArray surface (``%``, ``clip``, ``dot``,
 ``topk``), Gluon's ``Conv2DTranspose``; A.15's Gluon zoo nets on the card
-against cpu().
+against cpu(). A.7's second tranche: the ROIPooling kernel against its
+plain version on the same card tensors (forward bit for bit, backward
+within 1e-6 of the largest and bit-identical on repeat) at every case of
+``spatial_cases.py`` and at the Faster R-CNN's training shape, and its
+refusals; Proposal with the suppression kernel against the plain
+Proposal on the same card inputs, bit for bit, at K = 12,000 and 6,000;
+every spatial case on CUDA tensors against cpu(); a Custom op and the
+update ops on the card; the example Faster R-CNN's step on gpu(0).
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -2062,3 +2069,222 @@ def test_gluon_zoo_forward_on_the_card_matches_cpu(cuda, tmp_path, name,
     assert got.context == mt.gpu(0)
     np.testing.assert_allclose(got.asnumpy(), want, rtol=0,
                                atol=1e-4 * max(1.0, np.abs(want).max()))
+
+
+# A.7's second tranche: spatial.py, the Custom op and optimizer_ops on the
+# card. ROIPooling's kernel against its plain version on the same card
+# tensors (forward bit for bit, backward within 1e-6 of the largest and
+# bit-identical on repeat), Proposal with the suppression kernel against
+# the plain Proposal on the same card inputs (bit for bit), every spatial
+# case on CUDA tensors against cpu(), the Custom op and the update ops,
+# and the example Faster R-CNN's step on gpu(0)
+from spatial_cases import CASES as _SPATIAL  # noqa: E402
+
+_ROI_CASES = [c for c in _SPATIAL if c[0] == "ROIPooling"]
+
+
+def _roi_kernel_vs_plain(torch, data, rois, pooled, scale):
+    from mxtpu_torch.ops import spatial
+    before = (spatial.roi_pool.launches, spatial.roi_pool_backward.launches)
+    x = data.clone().requires_grad_()
+    y = spatial.roi_pool(x, rois, pooled, scale)
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    (g1,) = torch.autograd.grad(y, [x], dy, retain_graph=True)
+    (g2,) = torch.autograd.grad(y, [x], dy)
+    torch.cuda.synchronize()
+    assert (spatial.roi_pool.launches, spatial.roi_pool_backward.launches) \
+        == (before[0] + 1, before[1] + 2)
+    want = spatial.roi_pool_reference(data, rois, pooled, scale)
+    assert torch.equal(y.detach(), want)
+    gw = spatial.roi_pool_backward_reference(data, rois, dy, pooled, scale)
+    assert torch.equal(torch.isnan(g1), torch.isnan(gw))
+    fin = ~torch.isnan(gw)
+    scale_g = max(1e-30, float(gw[fin].abs().max())) if fin.any() else 1.0
+    assert float((g1[fin] - gw[fin]).abs().max()) <= 1e-6 * scale_g
+    assert torch.equal(torch.nan_to_num(g1), torch.nan_to_num(g2))
+
+
+@pytest.mark.parametrize("k", range(len(_ROI_CASES)))
+def test_roi_pooling_kernel_equals_plain_version(cuda, k):
+    torch, _ = cuda
+    _, (data, rois), attrs, _ = _ROI_CASES[k]
+    _roi_kernel_vs_plain(torch, torch.from_numpy(data).cuda(),
+                         torch.from_numpy(rois).cuda(),
+                         attrs["pooled_size"], attrs["spatial_scale"])
+
+
+def test_roi_pooling_kernel_at_the_training_shape(cuda):
+    """chip_smoke.py's phase-16 inputs: 256 ROIs over the ReLU'd
+    2x512x37x62 map, 7x7 at 1/16, a quarter with .5 corners."""
+    torch, _ = cuda
+    import chip_smoke
+    cfg = chip_smoke.ROI_TIMED
+    _roi_kernel_vs_plain(torch, *chip_smoke.roi_inputs(
+        0, cfg["rois"], cfg["channels"], cfg["shape"], cfg["image"],
+        cfg["pooled"]))
+
+
+def test_roi_pooling_kernel_refuses_what_it_does_not_take(cuda):
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import spatial
+    x = torch.rand(1, 2, 4, 4, device="cuda")
+    r = torch.tensor([[0, 0, 0, 3, 3]], dtype=torch.float32, device="cuda")
+    with pytest.raises(mt.MXNetError, match="float32"):
+        spatial.roi_pool(x.double(), r.double(), (2, 2), 1.0)
+    with pytest.raises(mt.MXNetError, match="contiguous"):
+        spatial.roi_pool(x.transpose(2, 3), r, (2, 2), 1.0)
+    with pytest.raises(mt.MXNetError, match="CUDA"):
+        spatial.roi_pool(x, r.cpu(), (2, 2), 1.0)
+
+
+def _proposal_on_card(torch, monkeypatch, arrays, attrs):
+    """Proposal on CUDA tensors with the suppression kernel, and again
+    with the plain sweep on the same tensors."""
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import contrib, spatial
+    xs = [a.cuda() if isinstance(a, torch.Tensor) else
+          torch.from_numpy(a).cuda() for a in arrays]
+    before = contrib.nms_keep.launches
+    _, _, got = mt.ops.registry.invoke("_contrib_Proposal", xs, dict(attrs))
+    torch.cuda.synchronize()
+    assert contrib.nms_keep.launches == before + 1
+    monkeypatch.setattr(spatial, "nms_keep", contrib.nms_keep_reference)
+    _, _, want = mt.ops.registry.invoke("_contrib_Proposal", xs, dict(attrs))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("k", [i for i, c in enumerate(_SPATIAL)
+                               if "Proposal" in c[0]])
+def test_proposal_on_the_card_equals_the_plain_proposal(cuda, monkeypatch,
+                                                        k):
+    torch, _ = cuda
+    _, arrays, attrs, _ = _SPATIAL[k]
+    _proposal_on_card(torch, monkeypatch, arrays, attrs)
+
+
+@pytest.mark.parametrize("pre,post", [(12000, 2000), (6000, 300)])
+def test_proposal_at_the_vgg16_shape(cuda, monkeypatch, pre, post):
+    """The Faster R-CNN's Proposal: 2 images, 9 anchors over 37 x 62, K =
+    12,000 (training) and 6,000 (test) into the suppression kernel."""
+    torch, _ = cuda
+    g = torch.Generator(device="cuda").manual_seed(5)
+    score = torch.randn(2, 2, 9 * 37 * 62, generator=g, device="cuda")
+    prob = torch.softmax(score, 1).reshape(2, 18, 37, 62)
+    bbox = 0.2 * torch.randn(2, 36, 37, 62, generator=g, device="cuda")
+    info = torch.tensor([[600, 1000, 1.0]] * 2, device="cuda")
+    attrs = {"feature_stride": 16, "scales": (8, 16, 32),
+             "ratios": (0.5, 1, 2), "rpn_pre_nms_top_n": pre,
+             "rpn_post_nms_top_n": post, "threshold": 0.7,
+             "rpn_min_size": 16}
+    (rois,) = _proposal_on_card(torch, monkeypatch, [prob, bbox, info],
+                                attrs)
+    assert rois.shape == (2 * post, 5)
+
+
+@pytest.mark.parametrize("name,arrays,attrs,diff", _SPATIAL,
+                         ids=["%s-%d" % (c[0], i)
+                              for i, c in enumerate(_SPATIAL)])
+def test_spatial_op_on_the_card_matches_cpu(cuda, name, arrays, attrs, diff):
+    """Each spatial case on CUDA tensors (the kernels where the op has
+    them): forward within 1e-5 and gradient within 1e-4 of the largest,
+    NaN and infinity positions equal."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    torch.backends.cudnn.allow_tf32 = False
+    outs, grads = _tranche_run(torch, mt, name, arrays, attrs, diff, "cuda")
+    torch.cuda.synchronize()
+    ref_outs, ref_grads = _tranche_run(torch, mt, name, arrays, attrs, diff,
+                                       "cpu")
+    for got, want in zip(outs, ref_outs):
+        _tranche_close(torch, got, want, 1e-5)
+    for got, want in zip(grads, ref_grads):
+        assert (got is None) == (want is None)
+        if got is not None:
+            _tranche_close(torch, got, want, 1e-4)
+
+
+def test_custom_op_and_update_ops_on_the_card(cuda):
+    """A numpy CustomOp inside autograd on gpu(0) (its outputs on the
+    card), and the eight update ops on CUDA tensors, against cpu()."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    class Sigmoid(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        1 / (1 + np.exp(-in_data[0].asnumpy())))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0].asnumpy()
+            self.assign(in_grad[0], req[0],
+                        out_grad[0].asnumpy() * y * (1 - y))
+
+    @mt.operator.register("card_sigmoid")
+    class SigmoidProp(mt.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+    x = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+    grads = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        a = mt.nd.array(x, ctx=ctx)
+        a.attach_grad()
+        with mt.autograd.record():
+            y = mt.nd.Custom(a, op_type="card_sigmoid")
+        y.backward()
+        assert y.context == ctx
+        grads.append((y.asnumpy(), a.grad.asnumpy()))
+    np.testing.assert_allclose(grads[0][0], grads[1][0], rtol=1e-6)
+    np.testing.assert_allclose(grads[0][1], grads[1][1], rtol=1e-6)
+    from update_op_cases import UPDATE_CASES
+    for name, arrays, attrs in UPDATE_CASES:
+        got = mt.ops.registry.invoke(
+            name, [torch.from_numpy(a).cuda() for a in arrays], attrs)[2]
+        want = mt.ops.registry.invoke(
+            name, [torch.from_numpy(a) for a in arrays], attrs)[2]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_example_rcnn_step_on_gpu(cuda):
+    """The example Faster R-CNN's training step through Module on gpu(0):
+    finite losses, one ROIPooling forward and backward launch and one
+    suppression launch a step, the RPN's class output against cpu()
+    within 1e-4 (the proposals themselves may differ: a card forward and
+    a CPU one reorder near-tied scores)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.models import rcnn
+    from mxtpu_torch.ops import contrib, spatial
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = rcnn.CONFIGS["example"]
+    arrays = rcnn.make_batch(np.random.RandomState(5), 2, cfg)
+    outs = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        mt.random.seed(1)
+        mod = mt.mod.Module(rcnn.build_train_symbol(cfg), context=ctx,
+                            data_names=rcnn.DATA_NAMES,
+                            label_names=rcnn.LABEL_NAMES)
+        mod.bind(data_shapes=rcnn.data_shapes(cfg, 2),
+                 label_shapes=rcnn.label_shapes(cfg, 2))
+        np.random.seed(3)
+        mod.init_params(mt.initializer.Xavier())
+        before = (spatial.roi_pool.launches,
+                  spatial.roi_pool_backward.launches,
+                  contrib.nms_keep.launches)
+        mod.forward_backward(rcnn.batch_of(arrays, ctx))
+        got = [o.asnumpy() for o in mod.get_outputs()]
+        after = (spatial.roi_pool.launches,
+                 spatial.roi_pool_backward.launches,
+                 contrib.nms_keep.launches)
+        if ctx.device_type == "gpu":
+            assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+        assert all(np.isfinite(o).all() for o in got)
+        outs.append(got)
+    np.testing.assert_allclose(outs[0][0], outs[1][0], atol=1e-4)

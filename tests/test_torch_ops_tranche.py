@@ -196,19 +196,21 @@ def _module_names():
 
 
 def test_census_of_the_port_against_mxtpu(tt):
-    """234 of mxtpu's 290 names; the 56 left are exactly spatial.py's,
-    linalg.py's, contrib.py's, optimizer_ops.py's and custom.py's."""
+    """263 of mxtpu's 290 names; the 27 left are exactly linalg.py's and
+    the rest of contrib.py's (CTC, fft/ifft, quantize/dequantize,
+    count_sketch). spatial.py's, custom.py's and optimizer_ops.py's
+    names are all in."""
     torch, mt = tt
     port = set(mt.ops.registry.list_ops())
     ref = set(jreg.list_ops())
     assert port <= ref
-    assert len(ref) == 290 and len(port) == 234
+    assert len(ref) == 290 and len(port) == 263
     by = _module_names()
-    assert by["tensor"] <= port and by["nn"] <= port
+    for done in ("tensor", "nn", "spatial", "custom", "optimizer_ops"):
+        assert by[done] <= port, done
     left = {m: sorted(n - port) for m, n in by.items() if n - port}
-    assert {m: len(v) for m, v in left.items()} == {
-        "spatial": 18, "linalg": 18, "contrib": 9, "optimizer_ops": 8,
-        "custom": 3}
+    assert {m: len(v) for m, v in left.items()} == {"linalg": 18,
+                                                    "contrib": 9}
 
 
 def test_module_level_functions_over_the_new_ops(tt):
