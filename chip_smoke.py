@@ -299,12 +299,17 @@ Phases (any failure raises and exits non-zero):
    probabilities summing to 1. The counts, set to 0 before each: one
    ROIPooling forward and one backward launch a training step, one
    forward for the test forward, one ``multibox_nms`` launch a Proposal
-   at K = 12,000 (training) and 6,000 (test). Then the ROIPooling kernel
+   at K = 12,000 (training) and 6,000 (test). Then the ROIPooling kernels
    alone at the training shape (R = 256, C = 512, 7x7, a 2x512x37x62
-   map after a ReLU, ROIs with .5 corners) against its plain version:
-   the forward bit for bit, the backward within 1e-6 of the largest and
-   bit-identical on repeat, both timed beside their plain versions and
-   their bytes bounds (no library call: the card has no torchvision).
+   map after a ReLU, ROIs with .5 corners), at the test forward's R = 600
+   (forward only) and over one large window (1x8x160x240 at 1/1) against
+   their plain version: the forward bit for bit, the backward within
+   1e-6 of the largest and bit-identical on repeat, each timed beside
+   its plain version and its bytes bound over the map pixels the bins
+   cover (no library call: the card has no torchvision), the earlier
+   kernels' times beside, the backward's two launches timed apart under the profiler;
+   with ``--parent``, the parent's ROIPooling kernels in turns and its
+   backward against this tree's bit for bit.
 17. Prints the kernels' JSON line (each kernel's launches by path, the
    ``records``, ``frontend``, ``zoo`` and ``rcnn`` paths included), then
    the device line last.
@@ -543,10 +548,16 @@ RECORDS = dict(train=1280, val=512, edge=256, label_classes=3, det=64,
 #: gated), the timed steps after them, and the reference's SGD settings
 RCNN = dict(config="vgg16", batch=2, fall_steps=6, timed_steps=3,
             lr=0.001, momentum=0.9, wd=0.0005)
-#: the ROIPooling kernel timed alone at the training shape: 2 x 128 ROIs
-#: over the 2 x 512 x 37 x 62 conv5_3 map, 7x7 bins at 1/16
-ROI_TIMED = dict(rois=256, channels=512, shape=(37, 62), image=(600, 1000),
-                 pooled=(7, 7), iters=5)
+#: the ROIPooling kernels timed alone at the training shape: 2 x 128 ROIs
+#: over the 2 x 512 x 37 x 62 conv5_3 map, 7x7 bins at 1/16; and at the
+#: test forward's 2 x 300 ROIs over the same map
+ROI_TIMED = dict(rois=256, test_rois=600, channels=512, shape=(37, 62),
+                 image=(600, 1000), pooled=(7, 7), iters=5)
+#: the earlier ROIPooling kernels (a thread an output with an int32 tie
+#: count; a thread a pixel walking every ROI) at the training shape,
+#: forward and backward ms (PERF.md §6, run a3; an H100 80GB HBM3 at
+#: 700 W), printed beside this tree's
+ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
           "surface", "records", "frontend", "zoo", "rcnn")
@@ -710,15 +721,17 @@ def check_flash_build(build):
 
 
 class ParentKernels:
-    """Another tree's flash sources (``--parent``: its ``csrc``
-    directory; those of NAMES it holds), built with this tree's nvcc flags
-    into ``build/mxtpu_torch/parent<index>`` and bound by
-    ``attention.bind``, to time them in turns with this tree's kernels on
-    the same inputs through the wrappers' own launch code
-    (``attention._launch``, ``_launch_bwd``). ``kernels`` maps each
-    launcher (``attention._SOURCE``) to its binding."""
+    """Another tree's flash and ROIPooling sources (``--parent``: its
+    ``csrc`` directory; those of NAMES it holds), built with this tree's
+    nvcc flags into ``build/mxtpu_torch/parent<index>``, the flash ones
+    bound by ``attention.bind``, to time them in turns with this tree's
+    kernels on the same inputs through the wrappers' own launch code
+    (``attention._launch``, ``_launch_bwd``), and ROIPooling's by
+    ``roi_binding``. ``kernels`` maps each launcher
+    (``attention._SOURCE``), and "roi_pooling", to its binding."""
 
-    NAMES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide")
+    NAMES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide",
+             "roi_pooling")
 
     def __init__(self, build, csrc, index=0):
         self.csrc = csrc
@@ -746,6 +759,10 @@ class ParentKernels:
             self.ptxas[name] = ptxas_instances(text)
             self.hmma[name] = sass_hmma(out)
             lib = ctypes.CDLL(str(out))
+            if name == "roi_pooling":
+                self.kernels[name] = roi_binding(
+                    lib, roi_takes_tie_count(os.path.join(self.csrc,
+                                                          name + ".cu")))
             for launcher, source in att._SOURCE.items():
                 if source == name:
                     self.kernels[launcher] = att.bind(lib, launcher)
@@ -4031,7 +4048,7 @@ def multi_gpu(args, card):
     # 16. the Faster R-CNN at VGG16's widths and the ROIPooling kernel
     if "rcnn" in phases:
         log("[rcnn]")
-        results["rcnn"] = phase_rcnn(mt, args.seed, card)
+        results["rcnn"] = phase_rcnn(mt, args.seed, card, parents)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7662,81 +7679,315 @@ def roi_inputs(seed, rois, channels, shape, image, pooled, device="cuda"):
             torch.from_numpy(boxes).to(device), pooled, 1 / 16)
 
 
-def roi_bound_ms(data, rois, pooled):
-    """ROIPooling's bytes at 3.35 TB/s: the function's least (forward: the
-    map and the ROIs read, the max written; backward: dy, the map, the
-    ROIs and the max read, dx written) and this route's, which also
-    writes the int32 count of ties in the forward and reads it in the
-    backward. Returns (bound, bwd_bound, route, bwd_route) in ms."""
-    out = rois.shape[0] * data.shape[1] * pooled[0] * pooled[1] * 4
-    fwd = data.numel() * 4 + rois.numel() * 4 + out
-    bwd = 2 * out + 2 * data.numel() * 4 + rois.numel() * 4
-    return tuple(v / HBM_BYTES_PER_S * 1e3
-                 for v in (fwd, bwd, fwd + out, bwd + out))
+def roi_large_window_inputs(seed, device="cuda"):
+    """One ROI over the whole of a ReLU'd 1 x 8 x 160 x 240 map at 1/1,
+    7x7 bins of ~23 x 34 pixels: a window larger than the forward's
+    staged tile, walked in row bands."""
+    rng = np.random.RandomState(seed)
+    data = np.maximum(rng.randn(1, 8, 160, 240) - 0.5, 0).astype(np.float32)
+    rois = np.array([[0, 0, 0, 239, 159]], np.float32)
+    return (torch.from_numpy(data).to(device),
+            torch.from_numpy(rois).to(device), (7, 7), 1.0)
 
 
-def roi_kernel_timed(mt, seed, card):
-    """The ROIPooling kernel at the training shape against its plain
-    version: the wrapper the path calls (``roi_pool`` under autograd),
-    forward bit for bit, backward within 1e-6 of the largest and
-    bit-identical on repeat; then CUDA-event ms of each launch alone
-    beside the plain versions' and the bytes bounds. Its launches are not
-    the path's: the caller reads the path's counts before this runs."""
+def roi_covered(data, rois, pooled, scale):
+    """The map pixels (n, y, x) that some bin of some ROI covers, from the
+    bins' own bounds (``spatial._roi_bins``): a ROI's bins are the
+    products of its row spans and its column spans, so they cover the
+    union of its non-empty row spans by the union of its non-empty column
+    spans."""
     from mxtpu_torch.ops import spatial
-    cfg = ROI_TIMED
-    data, rois, pooled, scale = roi_inputs(
-        seed + 16, cfg["rois"], cfg["channels"], cfg["shape"], cfg["image"],
-        cfg["pooled"])
-    x = data.clone().requires_grad_()
+    N, _, H, W = data.shape
+    rois = rois.detach().float()
+    hs, he, ws, we = spatial._roi_bins(rois, pooled[0], pooled[1], scale,
+                                       H, W)
+    yy = torch.arange(H, dtype=rois.dtype, device=rois.device)
+    xx = torch.arange(W, dtype=rois.dtype, device=rois.device)
+    in_y = ((yy >= hs[..., None]) & (yy < he[..., None])).any(1)  # (R, H)
+    in_x = ((xx >= ws[..., None]) & (xx < we[..., None])).any(1)  # (R, W)
+    bidx = spatial._batch_index(rois[:, 0], N)
+    hit = torch.zeros((N, H, W), dtype=torch.bool, device=rois.device)
+    for n in range(N):
+        mine = bidx == n
+        hit[n] = (in_y[mine][:, :, None] & in_x[mine][:, None, :]).any(0)
+    return int(hit.sum())
+
+
+def roi_bytes(data, rois, pooled, scale):
+    """ROIPooling's bytes on these inputs. The function's least: the
+    forward reads each map pixel that some bin covers (every channel) and
+    the ROIs and writes the max; the backward reads dy, those pixels
+    (each bin's max and tie count follow from them again) and the ROIs
+    and writes the whole dx. This route's: the forward the same; the
+    backward's first launch reads dy, the covered pixels and the ROIs and
+    writes each bin's (max, share) pair and each ROI's bin table, its
+    second reads the tables, the whole map and the pairs and writes
+    dx."""
+    N, C, H, W = data.shape
+    R = rois.shape[0]
+    ph, pw = pooled
+    out = R * C * ph * pw * 4
+    covered = roi_covered(data, rois, pooled, scale)
+    pixels = covered * C * 4
+    rb = rois.numel() * 4
+    table = R * (5 + 2 * ph + 2 * pw) * 4
+    whole = N * C * H * W * 4
+    return {"covered_pixels": covered,
+            "covered_share": covered / float(N * H * W),
+            "fwd": pixels + rb + out, "bwd": out + pixels + rb + whole,
+            "route_fwd": pixels + rb + out,
+            "route_bwd": (out + pixels + rb + 2 * out + table)
+            + (table + whole + 2 * out + whole)}
+
+
+def roi_bound_ms(data, rois, pooled, scale):
+    """roi_bytes at 3.35 TB/s: (bound, bwd_bound, route, bwd_route) in
+    ms."""
+    nb = roi_bytes(data, rois, pooled, scale)
+    return tuple(nb[k] / HBM_BYTES_PER_S * 1e3
+                 for k in ("fwd", "bwd", "route_fwd", "route_bwd"))
+
+
+def roi_takes_tie_count(src):
+    """Whether the roi_pooling.cu at ``src`` has the earlier interface, in
+    which ``roi_pool_forward`` also takes an int32 tie count."""
+    with open(src) as f:
+        text = f.read()
+    head = text[text.index("int roi_pool_forward("):]
+    return "count" in head[:head.index(")")]
+
+
+def roi_binding(lib, tie_count):
+    """ctypes bindings of a built roi_pooling library on tensors, on the
+    current stream: ``forward(data, rois, pooled, scale)`` -> (out,
+    count) and ``backward(dy, data, rois, scale, out, count)`` -> dx.
+    Without ``tie_count``, this tree's interface (the max alone, count
+    None; the backward's (max, share) and table scratch); with it, the
+    earlier one (the forward also writes an int32 tie count, the backward
+    reads it with the max)."""
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    shared = not tie_count
+    fwd, bwd = lib.roi_pool_forward, lib.roi_pool_backward
+    fwd.argtypes = [P] * (3 if shared else 4) + [I] * 7 + [F, P]
+    bwd.argtypes = [P] * 6 + [I] * 7 + [F, P]
+    fwd.restype = bwd.restype = I
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def forward(data, rois, pooled, scale):
+        N, C, H, W = data.shape
+        R = rois.shape[0]
+        out = data.new_empty((R, C) + tuple(pooled))
+        ptrs = [data.data_ptr(), rois.data_ptr(), out.data_ptr()]
+        count = None
+        if not shared:
+            count = torch.empty(out.shape, dtype=torch.int32,
+                                device=data.device)
+            ptrs.append(count.data_ptr())
+        rc = fwd(*ptrs, N, C, H, W, R, *pooled, float(scale), stream())
+        if rc:
+            raise AssertionError("roi_pool_forward: cuda error %d" % rc)
+        return out, count
+
+    def backward(dy, data, rois, scale, out, count):
+        N, C, H, W = data.shape
+        R, _, ph, pw = out.shape
+        dx = torch.empty_like(data)
+        if shared:
+            kv = data.new_empty((R, ph, pw, C, 2))
+            table = torch.empty((R, 5 + 2 * ph + 2 * pw), dtype=torch.int32,
+                                device=data.device)
+            ptrs = [dy, data, rois, kv, table, dx]
+        else:
+            ptrs = [dy, data, out, count, rois, dx]
+        rc = bwd(*[t.data_ptr() for t in ptrs], N, C, H, W, R, ph, pw,
+                 float(scale), stream())
+        if rc:
+            raise AssertionError("roi_pool_backward: cuda error %d" % rc)
+        return dx
+
+    return {"forward": forward, "backward": backward}
+
+
+def roi_checked(spatial, data, rois, pooled, scale, seed, backward=True):
+    """``roi_pool`` on the card against its plain version: the forward
+    bit for bit; with ``backward``, the gradient under autograd within
+    1e-6 of the plain version's largest, NaN where it is NaN, and
+    bit-identical on repeat. Returns (out, dy, dx, forward err, backward
+    err, the plain gradient's largest)."""
+    x = data.clone().requires_grad_(backward)
     y = spatial.roi_pool(x, rois, pooled, scale)
-    dy = torch.randn(y.shape, generator=torch.Generator(
-        device="cuda").manual_seed(seed), device="cuda")
-    (g1,) = torch.autograd.grad(y, [x], dy, retain_graph=True)
-    (g2,) = torch.autograd.grad(y, [x], dy)
     want = spatial.roi_pool_reference(data, rois, pooled, scale)
-    gw = spatial.roi_pool_backward_reference(data, rois, dy, pooled, scale)
     torch.cuda.synchronize()
     out = y.detach()
     fwd_err = abs_err(out, want)
-    bwd_err = abs_err(g1, gw)
-    bwd_scale = float(gw.abs().max())
     if not torch.equal(out, want):
         raise AssertionError("roi_pooling forward differs from its plain "
                              "version: max abs err %g" % fwd_err)
-    if bwd_err > 1e-6 * bwd_scale or not torch.equal(g1, g2):
+    if not backward:
+        return out, None, None, fwd_err, None, None
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        device=data.device).manual_seed(seed), device=data.device)
+    (g1,) = torch.autograd.grad(y, [x], dy, retain_graph=True)
+    (g2,) = torch.autograd.grad(y, [x], dy)
+    gw = spatial.roi_pool_backward_reference(data, rois, dy, pooled, scale)
+    torch.cuda.synchronize()
+    fin = ~torch.isnan(gw)
+    bwd_err = abs_err(g1[fin], gw[fin])
+    bwd_scale = float(gw[fin].abs().max()) if fin.any() else 0.0
+    same = torch.equal(torch.nan_to_num(g1), torch.nan_to_num(g2))
+    if bwd_err > 1e-6 * bwd_scale or not same or \
+            not torch.equal(torch.isnan(g1), ~fin):
         raise AssertionError(
             "roi_pooling backward: max abs err %g against the plain "
-            "version's largest %g (1e-6 allowed), repeat bit-identical: %s"
-            % (bwd_err, bwd_scale, torch.equal(g1, g2)))
-    _, count = spatial._roi_forward_cuda(data, rois, *pooled, scale)
-    iters = cfg["iters"]
+            "version's largest %g (1e-6 allowed), NaN where it is NaN: %s, "
+            "repeat bit-identical: %s"
+            % (bwd_err, bwd_scale, torch.equal(torch.isnan(g1), ~fin), same))
+    return out, dy, g1.detach(), fwd_err, bwd_err, bwd_scale
+
+
+def roi_launch_ms(step):
+    """Device ms of the backward's two kernels, each the mean of its
+    launches in four profiled ``step()``s (backward calls), by kernel
+    name (None where the profiler saw none: it may drop a session's first
+    launch)."""
+    names = {"roi_bins_kernel": "share", "roi_pool_gather_kernel": "gather"}
+
+    def steps():
+        for _ in range(4):
+            step()
+
+    prof = profiled(steps)
+    seen = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        for key, label in names.items():
+            if key in e.name:
+                n, ms = seen.get(label, (0, 0.0))
+                seen[label] = (n + 1, ms + e.device_time_total / 1e3)
+    return {label: seen[label][1] / seen[label][0] if label in seen
+            else None for label in names.values()}
+
+
+def roi_case_timed(spatial, name, inputs, seed, iters, backward, card):
+    """One ROIPooling case checked (``roi_checked``) and timed: each call
+    alone (CUDA events) beside its plain version's and its bytes bound
+    (``roi_bytes`` on these inputs)."""
+    data, rois, pooled, scale = inputs
+    _, dy, _, fwd_err, bwd_err, bwd_scale = roi_checked(
+        spatial, data, rois, pooled, scale, seed, backward)
+    nb = roi_bytes(data, rois, pooled, scale)
+    bound, bwd_bound, route, bwd_route = roi_bound_ms(data, rois, pooled,
+                                                      scale)
     ms = cuda_ms(lambda: spatial._roi_forward_cuda(data, rois, *pooled,
                                                    scale), iters)
     plain_ms = cuda_ms(lambda: spatial.roi_pool_reference(
         data, rois, pooled, scale), 2, warmup=1)
-    bwd_ms = cuda_ms(lambda: spatial.roi_pool_backward(
-        dy, data, rois, scale, out, count), iters)
-    bwd_plain_ms = cuda_ms(lambda: spatial.roi_pool_backward_reference(
-        data, rois, dy, pooled, scale), 2, warmup=1)
-    bound, bwd_bound, route, bwd_route = roi_bound_ms(data, rois, pooled)
-    tied = float((count > 1).float().mean())
     row = {"shape": {"data": list(data.shape), "rois": rois.shape[0],
-                     "pooled": list(pooled)},
+                     "pooled": list(pooled), "scale": scale},
+           "covered_share": nb["covered_share"],
            "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": "bytes", "route_ms": route,
-           "library_ms": None, "bwd_max_abs_err": bwd_err, "bwd_ms": bwd_ms,
-           "bwd_plain_ms": bwd_plain_ms, "bwd_bound_ms": bwd_bound,
-           "bwd_bound_by": "bytes", "bwd_route_ms": bwd_route,
-           "tied_bin_share": tied}
-    log("  [%s] roi_pooling at R=%d, %s, %s: forward %.4f ms (plain %.2f, "
-        "bound %.4f, route %.4f, bytes; %.1f %% of the bound) max abs err "
-        "%g; backward %.4f ms (plain %.2f, bound %.4f, route %.4f; %.1f %% "
-        "of the bound) max abs err %g of %g, repeat bit-identical; %.1f %% "
-        "of bins tie; no library call (the card has no torchvision)"
-        % (card, rois.shape[0], list(data.shape), list(pooled), ms,
-           plain_ms, bound, route, 100 * bound / ms, fwd_err, bwd_ms,
-           bwd_plain_ms, bwd_bound, bwd_route, 100 * bwd_bound / bwd_ms,
-           bwd_err, bwd_scale, 100 * tied))
+           "library_ms": None}
+    line = ("  [%s] roi_pooling %s at R=%d, %s, %s (%.1f %% of the map "
+            "covered): forward %.4f ms (plain %.2f, bound %.4f, route %.4f, "
+            "bytes: %.1f %% of the bound), max abs err %g"
+            % (card, name, rois.shape[0], list(data.shape), list(pooled),
+               100 * nb["covered_share"], ms, plain_ms, bound, route,
+               100 * bound / ms, fwd_err))
+    if backward:
+        bwd_ms = cuda_ms(lambda: spatial.roi_pool_backward(
+            dy, data, rois, scale), iters)
+        bwd_plain_ms = cuda_ms(lambda: spatial.roi_pool_backward_reference(
+            data, rois, dy, pooled, scale), 2, warmup=1)
+        row.update(bwd_max_abs_err=bwd_err, bwd_ms=bwd_ms,
+                   bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bound,
+                   bwd_bound_by="bytes", bwd_route_ms=bwd_route)
+        line += ("; backward %.4f ms (plain %.2f, bound %.4f, route %.4f: "
+                 "%.1f %% of the bound), max abs err %g of %g, repeat "
+                 "bit-identical" % (bwd_ms, bwd_plain_ms, bwd_bound,
+                                    bwd_route, 100 * bwd_bound / bwd_ms,
+                                    bwd_err, bwd_scale))
+    log(line + "; no library call (the card has no torchvision)")
+    return row
+
+
+def roi_against_parent(spatial, kernels, inputs, seed, iters, card):
+    """An earlier tree's ROIPooling kernels (``--parent``) on the training
+    shape's inputs: its backward against this tree's bit for bit (the
+    same terms summed in the same order), and both pairs timed in turns
+    (parent, this, this, parent)."""
+    data, rois, pooled, scale = inputs
+    out, dy, dx, *_ = roi_checked(spatial, data, rois, pooled, scale, seed)
+    p_out, p_count = kernels["forward"](data, rois, pooled, scale)
+    p_dx = kernels["backward"](dy, data, rois, scale, p_out, p_count)
+    torch.cuda.synchronize()
+    same_fwd = torch.equal(p_out, out)
+    same_bwd = torch.equal(p_dx.view(torch.int32), dx.view(torch.int32))
+    fwd_p, fwd_t = in_turns(
+        lambda: kernels["forward"](data, rois, pooled, scale),
+        lambda: spatial._roi_forward_cuda(data, rois, *pooled, scale), iters)
+    bwd_p, bwd_t = in_turns(
+        lambda: kernels["backward"](dy, data, rois, scale, p_out, p_count),
+        lambda: spatial.roi_pool_backward(dy, data, rois, scale), iters)
+    row = {"forward_bits_equal": same_fwd, "backward_bits_equal": same_bwd,
+           "forward_ms": {"parent": fwd_p, "this": fwd_t},
+           "backward_ms": {"parent": bwd_p, "this": bwd_t}}
+    log("  [%s] roi_pooling against the parent: forward bit for bit %s, "
+        "backward bit for bit %s; forward ms parent %s, this %s; backward "
+        "ms parent %s, this %s" % (card, same_fwd, same_bwd,
+                                   [round(v, 4) for v in fwd_p],
+                                   [round(v, 4) for v in fwd_t],
+                                   [round(v, 4) for v in bwd_p],
+                                   [round(v, 4) for v in bwd_t]))
+    if not (same_fwd and same_bwd):
+        raise AssertionError("roi_pooling differs from the parent's kernels: "
+                             "forward %s, backward %s" % (same_fwd, same_bwd))
+    return row
+
+
+def roi_kernel_timed(mt, seed, card, parents=()):
+    """The ROIPooling kernels against their plain version, through the
+    wrapper the path calls (``roi_pool`` under autograd; ``roi_checked``),
+    at the training shape, the test forward's 600 ROIs (forward only) and
+    one large window; then CUDA-event ms of each call alone beside the
+    plain versions' and the bytes bounds, the earlier kernels' times
+    beside (``ROI_EARLIER_MS``), the
+    backward's device ms by launch at the training shape, and, with
+    ``--parent``, the parent's kernels in turns. Its launches are not the
+    path's: the caller reads the path's counts before this runs."""
+    from mxtpu_torch.ops import spatial
+    cfg = ROI_TIMED
+    iters = cfg["iters"]
+    train = roi_inputs(seed + 16, cfg["rois"], cfg["channels"], cfg["shape"],
+                       cfg["image"], cfg["pooled"])
+    test = roi_inputs(seed + 17, cfg["test_rois"], cfg["channels"],
+                      cfg["shape"], cfg["image"], cfg["pooled"])
+    row = roi_case_timed(spatial, "training", train, seed, iters, True, card)
+    row["test_forward"] = roi_case_timed(spatial, "test forward", test,
+                                         seed, iters, False, card)
+    row["large_window"] = roi_case_timed(
+        spatial, "large window", roi_large_window_inputs(seed + 18), seed,
+        iters, True, card)
+    data, rois, pooled, scale = train
+    dy = torch.randn((rois.shape[0], data.shape[1]) + tuple(pooled),
+                     device=data.device)
+    row["bwd_launch_ms"] = roi_launch_ms(
+        lambda: spatial.roi_pool_backward(dy, data, rois, scale))
+    row["earlier_ms"] = ROI_EARLIER_MS
+    log("  [%s] roi_pooling at the training shape: forward %.4f ms (earlier "
+        "%.4f), backward %.4f ms (earlier %.4f; by launch %s); %.1f %% and "
+        "%.1f %% of the bytes bounds %.4f and %.4f ms"
+        % (card, row["ms"], ROI_EARLIER_MS["forward"], row["bwd_ms"],
+           ROI_EARLIER_MS["backward"], row["bwd_launch_ms"],
+           100 * row["bound_ms"] / row["ms"],
+           100 * row["bwd_bound_ms"] / row["bwd_ms"], row["bound_ms"],
+           row["bwd_bound_ms"]))
+    for p in parents:
+        if "roi_pooling" in p.kernels:
+            row.setdefault("parents", {})[p.csrc] = roi_against_parent(
+                spatial, p.kernels["roi_pooling"], train, seed, iters, card)
     return row
 
 
@@ -7940,7 +8191,7 @@ def rcnn_test_forward(mt, rcnn, spatial, contrib, trained, seed, card):
     return row
 
 
-def phase_rcnn(mt, seed, card):
+def phase_rcnn(mt, seed, card, parents=()):
     """Phase 16 (module docstring): the Faster R-CNN trained and tested,
     then the ROIPooling kernel alone."""
     from mxtpu_torch.models import rcnn
@@ -7961,7 +8212,7 @@ def phase_rcnn(mt, seed, card):
         "nms": {"rcnn_train_K%d" % tr["nms_K"][0]: tr["multibox_nms"],
                 "rcnn_test_K%d" % te["nms_K"][0]: te["multibox_nms"]},
         "epilogue": {"rcnn": 0}}  # VGG16 has no BatchNorm
-    res["roi_pooling"] = roi_kernel_timed(mt, seed, card)
+    res["roi_pooling"] = roi_kernel_timed(mt, seed, card, parents)
     res["seconds"] = time.perf_counter() - t0
     log("  [%s] rcnn phase %.1f s; launches %s"
         % (card, res["seconds"], res["launches"]))
@@ -7980,9 +8231,10 @@ def main(argv=None):
     ap.add_argument("--parent", metavar="CSRC", action="append", default=[],
                     help="the csrc directory of another tree (a parent "
                          "commit or a variant, unpacked outside the "
-                         "commit): build its flash sources too and time its "
-                         "kernels in turns with this tree's in phases 3 and "
-                         "3c; repeatable")
+                         "commit): build its flash and ROIPooling sources "
+                         "too and time its kernels in turns with this "
+                         "tree's in phases 3, 3c, 12 and 16 (ROIPooling's "
+                         "backward also compared bit for bit); repeatable")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
                          "build (for iterating on one kernel); the kernels "
@@ -8124,7 +8376,7 @@ def main(argv=None):
     # 16. the Faster R-CNN at VGG16's widths and the ROIPooling kernel
     if "rcnn" in phases:
         log("[rcnn]")
-        results["rcnn"] = phase_rcnn(mt, args.seed, card)
+        results["rcnn"] = phase_rcnn(mt, args.seed, card, parents)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

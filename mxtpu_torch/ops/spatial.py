@@ -285,7 +285,7 @@ def _kernels():
             from .. import build
             lib = build.load(KERNEL)
             fwd = lib.roi_pool_forward
-            fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_void_p]
             fwd.restype = ctypes.c_int
             bwd = lib.roi_pool_backward
@@ -310,54 +310,54 @@ def _raise_on(rc, what, err):
 
 
 def _roi_forward_cuda(data, rois, ph, pw, scale):
-    """Launch the forward: (out (R, C, ph, pw), count (R, C, ph, pw)
-    int32)."""
+    """Launch the forward: out (R, C, ph, pw), each bin's max."""
     check_roi_inputs(data, rois)
     N, C, H, W = data.shape
     R = rois.shape[0]
     out = torch.empty((R, C, ph, pw), dtype=torch.float32,
                       device=data.device)
-    count = torch.empty((R, C, ph, pw), dtype=torch.int32,
-                        device=data.device)
     if R == 0 or C == 0:
-        return out, count
+        return out
     fwd, _, err = _kernels()
     with torch.cuda.device(data.device):
-        rc = fwd(data.data_ptr(), rois.data_ptr(), out.data_ptr(),
-                 count.data_ptr(), N, C, H, W, R, ph, pw, float(scale),
-                 _stream(data))
+        rc = fwd(data.data_ptr(), rois.data_ptr(), out.data_ptr(), N, C, H,
+                 W, R, ph, pw, float(scale), _stream(data))
     _raise_on(rc, "roi_pool_forward", err)
     with _kernel_lock:
         roi_pool.launches += 1
-    return out, count
+    return out
 
 
-def roi_pool_backward(dy, data, rois, scale, out, count):
-    """Launch the backward kernel: the gradient (N, C, H, W) of ROIPooling
-    from ``dy`` (R, C, ph, pw), the forward's inputs and what the forward
-    kernel returned. One thread an input element, summing over the bins
-    that hold it in ROI and bin order, with no atomics: repeats are
-    bit-identical."""
-    R, C, ph, pw = out.shape
-    N, _, H, W = data.shape
+def roi_pool_backward(dy, data, rois, scale):
+    """Launch the backward: the gradient (N, C, H, W) of ROIPooling from
+    ``dy`` (R, C, ph, pw) and the forward's inputs. Two launches: each
+    bin's max and share of its head gradient into a (R, ph, pw, C, 2)
+    float32 scratch and each ROI's bin table into a (R, 5 + 2 ph + 2 pw)
+    int32 one, then a sum over the bins that hold each input element in
+    ROI and bin order, with no atomics: repeats are bit-identical.
+    ``roi_pool_backward.launches`` counts calls."""
+    N, C, H, W = data.shape
     check_roi_inputs(data, rois)
-    if rois.shape[0] != R:
-        raise MXNetError("roi_pooling backward: %d ROIs for %d outputs"
-                         % (rois.shape[0], R))
-    for name, v in (("dy", dy), ("out", out)):
-        if v.dtype != torch.float32 or not v.is_contiguous() or \
-                tuple(v.shape) != (R, C, ph, pw) or v.device != data.device:
-            raise MXNetError("roi_pooling backward: %s must be a contiguous "
-                             "float32 %s on %s" % (name, (R, C, ph, pw),
-                                                   data.device))
+    R = rois.shape[0]
+    if dy.dim() != 4 or tuple(dy.shape[:2]) != (R, C) or \
+            dy.dtype != torch.float32 or not dy.is_contiguous() or \
+            dy.device != data.device:
+        raise MXNetError("roi_pooling backward: dy %s must be a contiguous "
+                         "float32 (%d, %d, ph, pw) on %s"
+                         % (tuple(dy.shape), R, C, data.device))
+    ph, pw = dy.shape[2:]
     dx = torch.empty_like(data)
     if dx.numel() == 0:
         return dx
+    kv = torch.empty((R, ph, pw, C, 2), dtype=torch.float32,
+                     device=data.device)
+    table = torch.empty((R, 5 + 2 * ph + 2 * pw), dtype=torch.int32,
+                        device=data.device)
     _, bwd, err = _kernels()
     with torch.cuda.device(data.device):
-        rc = bwd(dy.data_ptr(), data.data_ptr(), out.data_ptr(),
-                 count.data_ptr(), rois.data_ptr(), dx.data_ptr(), N, C, H,
-                 W, R, ph, pw, float(scale), _stream(data))
+        rc = bwd(dy.data_ptr(), data.data_ptr(), rois.data_ptr(),
+                 kv.data_ptr(), table.data_ptr(), dx.data_ptr(), N, C, H, W,
+                 R, ph, pw, float(scale), _stream(data))
     _raise_on(rc, "roi_pool_backward", err)
     with _kernel_lock:
         roi_pool_backward.launches += 1
@@ -370,16 +370,14 @@ roi_pool_backward.launches = 0
 class _RoiPoolFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, rois, ph, pw, scale):
-        out, count = _roi_forward_cuda(data, rois, ph, pw, scale)
-        ctx.save_for_backward(data, rois, out, count)
+        ctx.save_for_backward(data, rois)
         ctx.scale = scale
-        return out
+        return _roi_forward_cuda(data, rois, ph, pw, scale)
 
     @staticmethod
     def backward(ctx, dy):
-        data, rois, out, count = ctx.saved_tensors
-        dx = roi_pool_backward(dy.contiguous(), data, rois, ctx.scale, out,
-                               count)
+        data, rois = ctx.saved_tensors
+        dx = roi_pool_backward(dy.contiguous(), data, rois, ctx.scale)
         return dx, None, None, None, None
 
 

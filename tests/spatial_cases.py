@@ -9,10 +9,18 @@ The ROIPooling cases plant what decides its answer: corners that land
 on .5 after scaling (half to even), ROIs partly and wholly off the map,
 1x1 ROIs, bins of zeros (tied maxima), NaN and +-inf inside bins, image
 indices out of range and NaN, adjacent bins that share a row, and the
-1/16 scale of the Faster R-CNN. The Proposal cases plant boxes under
-``rpn_min_size``, tied scores, a threshold that keeps fewer boxes than
-``rpn_post_nms_top_n`` (the cycling pad), ``output_score`` and two
-images."""
+1/16 scale of the Faster R-CNN; then the kernels' edges: windows larger
+and wider than the forward's staged tile, ROIs under one pixel, C = 3
+and C = 513 against the channel tiles, R = 1, every ROI on image 1,
+every ROI off the map, a bin of NaN and a bin of -inf, 300 ROIs crowding
+one pixel, and pooled sizes past the kernels' spans in shared memory.
+``ROI_MANY_TERMS`` puts a pixel in thousands of bins, where the kernel's
+sum and the plain version's add the same terms in different orders:
+``ordered_roi_gradient`` gives the kernel's order and ``order_bound``
+what bounds the difference between any two orders. The Proposal cases
+plant boxes under ``rpn_min_size``, tied scores, a threshold that keeps
+fewer boxes than ``rpn_post_nms_top_n`` (the cycling pad),
+``output_score`` and two images."""
 import numpy as np
 
 NAN, INF = np.nan, np.inf
@@ -67,6 +75,114 @@ _RCNN_MAP = _relu(_r((2, 4, 6, 9), 4, shift=-0.3))
 _RCNN_ROIS = _a([[0, 8, 8, 72, 56], [1, 24, 40, 136, 88], [0, 0, 0, 143, 95],
                  [1, 56, 8, 56, 8]])
 
+# the kernels' edges. One ROI over a whole 1x8x160x240 map at 1/1 (bins
+# of ~23x34): a window larger than the forward's staged tile, walked in
+# row bands; one over a 5x2100 map: a window row wider than the tile,
+# walked in column tiles too.
+_BIG = _relu(_r((1, 8, 160, 240), 40, shift=-0.5))
+_WIDE = _r((1, 3, 5, 2100), 41)
+# ROIs under one map pixel at 0.5 (every one of the 49 bins is that
+# pixel), and one two pixels wide (7 bins over 2 columns)
+_TINY_ROIS = _a([[0, 3, 3, 3.4, 3.2], [1, 7, 9, 7, 9], [0, 0, 0, 2, 1]])
+# C = 513: one past a multiple of the forward's and the gather's channel
+# tiles, at a small H and W
+_C513 = _relu(_r((2, 513, 5, 6), 42, shift=-0.3))
+_C513_ROIS = _a([[0, 0, 0, 5, 4], [1, 1, 2, 4, 4], [0, 2, 0, 3, 1]])
+# a bin holding NaN (image 0, channel 0, bin (1, 1) of the second ROI)
+# and one of only -inf (channel 1, bin (0, 0) of the first: rows 4-5,
+# columns 4-7)
+_HOLES = _r((2, 2, 8, 12), 43)
+_HOLES[0, 0, 2, 3] = NAN
+_HOLES[0, 1, 4:6, 4:8] = -INF
+_HOLE_ROIS = _a([[0, 4, 4, 11, 7], [0, 0, 0, 5, 3], [1, 4, 4, 11, 7]])
+# every ROI on image 1; every ROI off the map (past the bottom right
+# corner, whose bins clip to the corner pixel, and above the top left,
+# whose bins are empty)
+_ROIS_IMG1 = np.concatenate([np.ones((4, 1), np.float32), ROIS[:4, 1:]], 1)
+_ROIS_OFF = _a([[0, 30, 22, 41, 29], [1, -40, -30, -21, -19],
+                [1, 25, 1, 60, 9], [0, -30, 2, -4, 12]])
+
+# 300 ROIs over a ramp (the max of a rectangle is its bottom-right
+# corner, so each bin's gradient goes to its own pixel), 70 of them from
+# pixel (2, 2): more than a chunk of ROIs, more listed ROIs for one tile
+# than a warp has lanes, and a pixel in more bins than a warp's list
+# holds at once, while no pixel sums more than a few terms
+_RAMP = (np.arange(576, dtype=np.float32).reshape(1, 1, 24, 24) / 7
+         * _a([1, 2])[None, :, None, None])
+_rng = np.random.RandomState(49)
+_ys, _xs = np.meshgrid(np.arange(3, 24), np.arange(3, 24), indexing="ij")
+_CORNERS = np.stack([_ys.ravel(), _xs.ravel()], 1)[
+    _rng.permutation(441)[:300]]
+_TOPLEFT = np.concatenate([np.full((70, 2), 2),
+                           np.minimum(_rng.randint(0, 3, (230, 2)),
+                                      _CORNERS[70:])])
+_RAMP_ROIS = np.concatenate([np.zeros((300, 1)), _TOPLEFT[:, ::-1],
+                             _CORNERS[:, ::-1]], 1).astype(np.float32)
+# pooled sizes past the kernels' spans in shared memory: one bin a row
+_TALL = _r((1, 1, 520, 4), 50)
+_LONG = _r((1, 1, 1100, 2), 51)
+
+# 120 ROIs under pixel (3, 3) of a 1x4x6x7 map (each of their 49 bins is
+# that pixel: 5,880 terms there), and one ROI over image 1 of a ReLU'd
+# 2x3x6x7 map pooled 200x200 (each pixel in about a thousand bins, tied
+# zeros splitting their share)
+_rng = np.random.RandomState(52)
+_UNDER_ONE = np.concatenate([np.zeros((120, 1)), 3 + _rng.uniform(
+    -0.4, 0.4, (120, 4))], 1).astype(np.float32)
+ROI_MANY_TERMS = [
+    ([_r((1, 4, 6, 7), 53), _UNDER_ONE],
+     {"pooled_size": (7, 7), "spatial_scale": 1.0}),
+    ([_relu(_r((2, 3, 6, 7), 54, shift=-0.3)), _a([[1, 0, 0, 6, 5]])],
+     {"pooled_size": (200, 200), "spatial_scale": 1.0}),
+]
+
+
+def ordered_roi_gradient(data, image, bins, dy):
+    """ROIPooling's gradient as the card's kernel sums it: for each map
+    element, in float32, from 0, the terms of the bins that hold it in
+    (ROI, ph, pw) order. A bin's term is dy / (its tied maxima) on each
+    tied maximum, NaN on every pixel of a bin holding NaN, and none where
+    its max is not finite. ``image`` (R,) and ``bins`` (hs, he, ws, we),
+    (R, ph) and (R, pw), are each ROI's image and bin bounds as ints.
+    Returns dx, the number of terms of each element and the sum of their
+    magnitudes (float64)."""
+    hs, he, ws, we = bins
+    dx = np.zeros(data.shape, np.float32)
+    terms = np.zeros(data.shape, np.int64)
+    mag = np.zeros(data.shape, np.float64)
+    for r, b in enumerate(image):
+        for ph in range(hs.shape[1]):
+            for pw in range(ws.shape[1]):
+                at = (b, slice(None), slice(hs[r, ph], he[r, ph]),
+                      slice(ws[r, pw], we[r, pw]))
+                region = data[at]
+                if region.size == 0:
+                    continue
+                nan = np.isnan(region).any(axis=(1, 2))
+                m = np.where(np.isnan(region), -INF, region).max(axis=(1, 2))
+                tied = (region == m[:, None, None]) \
+                    & (np.isfinite(m) & ~nan)[:, None, None]
+                count = np.maximum(tied.sum(axis=(1, 2)), 1)
+                share = np.where(nan, np.float32(NAN),
+                                 dy[r, :, ph, pw] / count.astype(np.float32))
+                hit = tied | nan[:, None, None]
+                term = np.broadcast_to(share.astype(np.float32)[:, None, None],
+                                       region.shape)
+                np.add(dx[at], term, out=dx[at], where=hit)
+                terms[at] += hit
+                mag[at] += np.where(hit, np.abs(term.astype(np.float64)), 0)
+    return dx, terms, mag
+
+
+def order_bound(terms, mag):
+    """The most two float32 sums of the same n terms, in any orders, can
+    differ by: each is within gamma(n - 1) * sum |t| of the exact sum,
+    gamma(k) = k u / (1 - k u), u = 2^-24."""
+    u = 2.0 ** -24
+    k = np.maximum(terms - 1, 0) * u
+    return 2 * k / (1 - k) * mag
+
+
 _A_PROP = 6  # scales (2, 4) x ratios (0.5, 1, 2)
 _PROP_ATTRS = {"feature_stride": 8, "scales": (2.0, 4.0),
                "ratios": (0.5, 1.0, 2.0), "rpn_pre_nms_top_n": 200,
@@ -104,6 +220,30 @@ CASES = [
      {"pooled_size": (4, 4), "spatial_scale": 1.0}, [0]),
     ("ROIPooling", [_RCNN_MAP, _RCNN_ROIS],
      {"pooled_size": (7, 7), "spatial_scale": 0.0625}, [0]),
+    ("ROIPooling", [_BIG, _a([[0, 0, 0, 239, 159]])],
+     {"pooled_size": (7, 7), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_WIDE, _a([[0, 0, 0, 2099, 4], [0, 300, 1, 1900, 3]])],
+     {"pooled_size": (2, 7), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_ZEROS, _TINY_ROIS],
+     {"pooled_size": (7, 7), "spatial_scale": 0.5}, [0]),
+    ("ROIPooling", [_MAP, ROIS_SHARED],
+     {"pooled_size": (7, 7), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_C513, _C513_ROIS],
+     {"pooled_size": (7, 7), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_MAP, ROIS[1:2]],
+     {"pooled_size": (3, 3), "spatial_scale": 0.5}, [0]),
+    ("ROIPooling", [_MAP, _ROIS_IMG1],
+     {"pooled_size": (2, 2), "spatial_scale": 0.5}, [0]),
+    ("ROIPooling", [_MAP, _ROIS_OFF],
+     {"pooled_size": (3, 3), "spatial_scale": 0.5}, [0]),
+    ("ROIPooling", [_HOLES, _HOLE_ROIS],
+     {"pooled_size": (2, 2), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_RAMP, _RAMP_ROIS],
+     {"pooled_size": (1, 1), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_TALL, _a([[0, 0, 0, 3, 519], [0, 1, 10, 3, 400]])],
+     {"pooled_size": (520, 1), "spatial_scale": 1.0}, [0]),
+    ("ROIPooling", [_LONG, _a([[0, 0, 0, 1, 1099], [0, 0, 5, 1, 800]])],
+     {"pooled_size": (1100, 1), "spatial_scale": 1.0}, [0]),
     ("_contrib_PSROIPooling", [_r((2, 18, 7, 8), 16), ROIS[:6]],
      {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 3}, [0]),
     ("PSROIPooling", [_r((2, 8, 7, 8), 17), ROIS[:4]],

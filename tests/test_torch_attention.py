@@ -15,6 +15,7 @@ of the forward's and the backward's f32 arithmetic that show why both
 run 3xTF32."""
 import ast
 import inspect
+import os
 
 import numpy as np
 import pytest
@@ -379,6 +380,108 @@ def test_chip_smoke_counts_the_backward_bound_at_each_types_peak(tt):
                               (1, torch.float32, 0.0342)]:
         ms = chip_smoke.backward_route_ms(b, *served, dtype)
         assert abs(ms - want_ms) < 5e-5, (b, dtype, ms)
+
+
+def _covered_by_bins(shape, rois, pooled, scale):
+    """The map pixels (n, y, x) inside some bin of some ROI, marked bin by
+    bin from ROIPooling's arithmetic in numpy float32: corners rint (half
+    to even), extent max(x2 - x1 + 1, 1), bin size extent * float32(1 /
+    pooled), bin p spanning [clip(floor(p * bin) + x1, 0, W - 1),
+    clip(ceil((p + 1) * bin) + x1, 0, W)), a NaN bound empty; the image
+    truncated and clamped into [0, N)."""
+    f = np.float32
+    N, _, H, W = shape
+    hit = np.zeros((N, H, W), bool)
+
+    def span(p, size, origin, n):
+        lo = np.clip(np.floor(f(p) * size) + origin, 0, n - 1)
+        hi = np.clip(np.ceil(f(p + 1) * size) + origin, 0, n)
+        return (0, 0) if np.isnan(lo) or np.isnan(hi) else (int(lo),
+                                                           int(hi))
+
+    for roi in np.asarray(rois, f):
+        b = 0 if np.isnan(roi[0]) else int(np.clip(np.trunc(roi[0]), 0,
+                                                   N - 1))
+        x1, y1, x2, y2 = (np.rint(c * f(scale)) for c in roi[1:])
+        bin_h = max(y2 - y1 + f(1), f(1)) * (f(1) / f(pooled[0]))
+        bin_w = max(x2 - x1 + f(1), f(1)) * (f(1) / f(pooled[1]))
+        for ph in range(pooled[0]):
+            hs, he = span(ph, bin_h, y1, H)
+            for pw in range(pooled[1]):
+                ws, we = span(pw, bin_w, x1, W)
+                hit[b, hs:he, ws:we] = True
+    return int(hit.sum())
+
+
+def test_chip_smoke_counts_the_roi_bytes_these_inputs_need(tt):
+    """chip_smoke's ROIPooling bound counts the map pixels that some bin
+    covers, each channel once, as a bin-by-bin count does: on coinciding
+    bins (ROIs under 7 pixels at 7x7), ROIs off the map (those past the
+    bottom right clip to its corner pixel, those above the top left
+    cover nothing), ROIs on both images, and the training shape; then the
+    forward's bytes (those pixels, the ROIs, the max written) and the
+    backward's (dy, those pixels and the ROIs read, the whole dx written)
+    at 3.35 TB/s."""
+    torch = tt[0]
+    import chip_smoke
+    rng = np.random.RandomState(5)
+    coinciding = np.concatenate([
+        rng.randint(0, 2, (6, 1)), rng.uniform(0, 20, (6, 2)),
+        np.zeros((6, 2))], 1).astype(np.float32)
+    coinciding[:, 3:] = coinciding[:, 1:3] + rng.uniform(0, 6, (6, 2))
+    outside = np.array([[0, 30, 22, 41, 29], [1, -40, -30, -21, -19],
+                        [0, 25, 1, 60, 9], [1, -30, 2, -4, 12],
+                        [0, 2, 2, 6, 6]], np.float32)
+    rng = np.random.RandomState(6)
+    x1, y1 = rng.uniform(-4, 16, 10), rng.uniform(-4, 12, 10)
+    both = np.stack([np.arange(10) % 2, x1, y1, x1 + rng.uniform(0, 12, 10),
+                     y1 + rng.uniform(0, 10, 10)], 1).astype(np.float32)
+    cases = [((2, 3, 9, 11), coinciding, (7, 7), 0.5),
+             ((2, 2, 8, 10), outside, (3, 3), 0.5),
+             ((2, 4, 12, 15), both, (2, 3), 1.0)]
+    cfg = chip_smoke.ROI_TIMED
+    data, rois, pooled, scale = chip_smoke.roi_inputs(
+        16, cfg["rois"], cfg["channels"], cfg["shape"], cfg["image"],
+        cfg["pooled"], device="cpu")
+    cases.append((tuple(data.shape), rois.numpy(), pooled, scale))
+    counts = []
+    for shape, rois, pooled, scale in cases:
+        want = _covered_by_bins(shape, rois, pooled, scale)
+        counts.append(want)
+        data = torch.zeros(shape)
+        rois = torch.from_numpy(rois)
+        assert chip_smoke.roi_covered(data, rois, pooled, scale) == want
+        N, C, H, W = shape
+        R = rois.shape[0]
+        out = R * C * pooled[0] * pooled[1] * 4
+        nb = chip_smoke.roi_bytes(data, rois, pooled, scale)
+        assert nb["fwd"] == want * C * 4 + R * 20 + out
+        assert nb["bwd"] == (out + want * C * 4 + R * 20
+                             + N * C * H * W * 4)
+        ms = chip_smoke.roi_bound_ms(data, rois, pooled, scale)
+        assert ms[:2] == pytest.approx((nb["fwd"] / 3.35e9,
+                                        nb["bwd"] / 3.35e9), rel=1e-12)
+    # image 0: the corner pixel, column 9's rows 0-4, a 3x3 ROI; image 1's
+    # ROIs above the top left cover nothing
+    assert counts[1] == 1 + 5 + 9
+    assert round(nb["covered_share"], 3) == 0.981  # the training shape
+
+
+def test_chip_smoke_tells_the_roi_interfaces_apart(tmp_path):
+    """``--parent`` binds an earlier roi_pooling.cu, whose forward also
+    writes an int32 tie count, by the C signature in its source; this
+    tree's forward writes the max alone."""
+    import chip_smoke
+    earlier = tmp_path / "roi_pooling.cu"
+    earlier.write_text(
+        "int roi_pool_forward(const void* data, const void* rois, void* "
+        "out,\n                     void* count, int N, int C, int H, "
+        "int W, int R, int PH,\n                     int PW, float scale, "
+        "void* stream) {\n  return 0;\n}\n")
+    assert chip_smoke.roi_takes_tie_count(str(earlier))
+    assert not chip_smoke.roi_takes_tie_count(os.path.join(
+        os.path.dirname(chip_smoke.__file__), "mxtpu_torch", "csrc",
+        "roi_pooling.cu"))
 
 
 def test_chip_smoke_reads_ptxas_per_instance():

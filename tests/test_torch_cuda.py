@@ -56,8 +56,10 @@ the context usable, the NDArray surface (``%``, ``clip``, ``dot``,
 against cpu(). A.7's second tranche: the ROIPooling kernel against its
 plain version on the same card tensors (forward bit for bit, backward
 within 1e-6 of the largest and bit-identical on repeat) at every case of
-``spatial_cases.py`` and at the Faster R-CNN's training shape, and its
-refusals; Proposal with the suppression kernel against the plain
+``spatial_cases.py`` and at the Faster R-CNN's training shape, the
+forward at the test forward's 600 ROIs, the backward bit for bit with
+the sum in (ROI, ph, pw) order where a pixel is in thousands of bins,
+and its refusals; Proposal with the suppression kernel against the plain
 Proposal on the same card inputs, bit for bit, at K = 12,000 and 6,000;
 every spatial case on CUDA tensors against cpu(); a Custom op and the
 update ops on the card; the example Faster R-CNN's step on gpu(0).
@@ -2079,6 +2081,8 @@ def test_gluon_zoo_forward_on_the_card_matches_cpu(cuda, tmp_path, name,
 # case on CUDA tensors against cpu(), the Custom op and the update ops,
 # and the example Faster R-CNN's step on gpu(0)
 from spatial_cases import CASES as _SPATIAL  # noqa: E402
+from spatial_cases import (ROI_MANY_TERMS, order_bound,  # noqa: E402
+                           ordered_roi_gradient)
 
 _ROI_CASES = [c for c in _SPATIAL if c[0] == "ROIPooling"]
 
@@ -2114,6 +2118,39 @@ def test_roi_pooling_kernel_equals_plain_version(cuda, k):
                          attrs["pooled_size"], attrs["spatial_scale"])
 
 
+@pytest.mark.parametrize("k", range(len(ROI_MANY_TERMS)))
+def test_roi_pooling_kernel_sums_many_terms_in_order(cuda, k):
+    """A pixel in thousands of bins: the kernel's gradient equals, bit for
+    bit, the float32 sum of its terms in (ROI, ph, pw) order on the CPU,
+    and the plain version's, which adds them in another order, within the
+    bound on two orders' difference (``order_bound``)."""
+    import numpy as np
+    torch, _ = cuda
+    from mxtpu_torch.ops import spatial
+    (data, rois), attrs = ROI_MANY_TERMS[k]
+    pooled, scale = attrs["pooled_size"], attrs["spatial_scale"]
+    x = torch.from_numpy(data).cuda().requires_grad_()
+    r = torch.from_numpy(rois).cuda()
+    dy = np.random.RandomState(7).randn(
+        rois.shape[0], data.shape[1], *pooled).astype(np.float32)
+    y = spatial.roi_pool(x, r, pooled, scale)
+    (g,) = torch.autograd.grad(y, [x], torch.from_numpy(dy).cuda())
+    gw = spatial.roi_pool_backward_reference(x.detach(), r,
+                                             torch.from_numpy(dy).cuda(),
+                                             pooled, scale)
+    N, _, H, W = data.shape
+    t_rois = torch.from_numpy(rois)
+    bins = [b.long().numpy() for b in spatial._roi_bins(
+        t_rois, pooled[0], pooled[1], scale, H, W)]
+    image = spatial._batch_index(t_rois[:, 0], N).numpy()
+    want, terms, mag = ordered_roi_gradient(data, image, bins, dy)
+    assert terms.max() > 1000
+    got = g.cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.all(np.abs(gw.cpu().numpy().astype(np.float64) - want)
+                  <= order_bound(terms, mag))
+
+
 def test_roi_pooling_kernel_at_the_training_shape(cuda):
     """chip_smoke.py's phase-16 inputs: 256 ROIs over the ReLU'd
     2x512x37x62 map, 7x7 at 1/16, a quarter with .5 corners."""
@@ -2123,6 +2160,25 @@ def test_roi_pooling_kernel_at_the_training_shape(cuda):
     _roi_kernel_vs_plain(torch, *chip_smoke.roi_inputs(
         0, cfg["rois"], cfg["channels"], cfg["shape"], cfg["image"],
         cfg["pooled"]))
+
+
+def test_roi_pooling_kernel_at_the_test_forward_shape(cuda):
+    """The test symbol's forward: 2 x 300 ROIs over the 2x512x37x62 map,
+    one forward launch, bit for bit with the plain version."""
+    torch, _ = cuda
+    import chip_smoke
+    from mxtpu_torch.ops import spatial
+    cfg = chip_smoke.ROI_TIMED
+    data, rois, pooled, scale = chip_smoke.roi_inputs(
+        1, cfg["test_rois"], cfg["channels"], cfg["shape"], cfg["image"],
+        cfg["pooled"])
+    before = spatial.roi_pool.launches
+    y = spatial.roi_pool(data, rois, pooled, scale)
+    torch.cuda.synchronize()
+    assert spatial.roi_pool.launches == before + 1
+    assert y.shape == (600, 512, 7, 7)
+    assert torch.equal(y, spatial.roi_pool_reference(data, rois, pooled,
+                                                     scale))
 
 
 def test_roi_pooling_kernel_refuses_what_it_does_not_take(cuda):

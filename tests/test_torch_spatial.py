@@ -24,7 +24,8 @@ import pytest
 
 import mxtpu  # noqa: F401  (registers the JAX ops)
 from mxtpu.ops import registry as jreg
-from spatial_cases import CASES, ROIS, _a
+from spatial_cases import (CASES, ROI_MANY_TERMS, ROIS, _a, order_bound,
+                           ordered_roi_gradient)
 from test_torch_ops_tranche import _close, _jax_run
 
 FWD_RTOL = 1e-5
@@ -175,6 +176,39 @@ def test_roi_pooling_indices_as_xla_converts(tt):
     rois = _a([[v, 0, 0, 1, 1] for v in (np.nan, 1.7, -3, 5, 1e10, -0.5)])
     y, _ = _pool(torch, mt, data, rois, (1, 1), 1.0)
     assert y.ravel().tolist() == [1.0, 2.0, 1.0, 2.0, 2.0, 1.0]
+
+
+@pytest.mark.parametrize("k", range(len(ROI_MANY_TERMS)))
+def test_roi_pooling_gradient_over_many_terms(tt, k):
+    """A pixel in thousands of bins: the port's gradient and mxtpu's
+    (``jax.vjp`` of the jitted op) add the same terms as the sum in (ROI,
+    ph, pw) order does, each in its own order, so each is within the
+    bound on two orders' difference (``order_bound``: float32 epsilon
+    times the number and the magnitudes of the terms) of that sum."""
+    import jax
+    import jax.numpy as jnp
+    from mxtpu_torch.ops import spatial
+    torch, mt = tt
+    (data, rois), attrs = ROI_MANY_TERMS[k]
+    pooled, scale = attrs["pooled_size"], attrs["spatial_scale"]
+    t_rois = torch.from_numpy(rois)
+    N, _, H, W = data.shape
+    bins = [b.long().numpy() for b in spatial._roi_bins(
+        t_rois, pooled[0], pooled[1], scale, H, W)]
+    image = spatial._batch_index(t_rois[:, 0], N).numpy()
+    dy = np.random.RandomState(7).randn(
+        rois.shape[0], data.shape[1], *pooled).astype(np.float32)
+    want, terms, mag = ordered_roi_gradient(data, image, bins, dy)
+    assert terms.max() > 1000
+    _, got = _pool(torch, mt, data, rois, pooled, scale, head=dy)
+    jop = jreg.get_op("ROIPooling")
+    ja = jop.parse_attrs(dict(attrs))
+    _, vjp = jax.vjp(jax.jit(lambda x: jop.fn(ja, x, jnp.asarray(rois))),
+                     jnp.asarray(data))
+    (ref,) = vjp(jnp.asarray(dy))
+    bound = order_bound(terms, mag)
+    for g in (got, np.asarray(ref, np.float32)):
+        assert np.all(np.abs(g.astype(np.float64) - want) <= bound)
 
 
 def test_proposal_pads_by_cycling_the_kept(tt):
