@@ -2,7 +2,7 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...,frontend,zoo]
+                          [--phases kernels,epilogue,...,rcnn,ctc,sparse]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
@@ -310,9 +310,45 @@ Phases (any failure raises and exits non-zero):
    kernels' times beside, the backward's two launches timed apart under the profiler;
    with ``--parent``, the parent's ROIPooling kernels in turns and its
    backward against this tree's bit for bit.
-17. Prints the kernels' JSON line (each kernel's launches by path, the
-   ``records``, ``frontend``, ``zoo`` and ``rcnn`` paths included), then
-   the device line last.
+17. The LSTM-OCR trained with CTC (``ctc``): examples/ctc/lstm_ocr.py at
+   its defaults (``models/ctc_ocr.py``: 3,072 synthetic digit strips,
+   2,764 to train, two LSTMCells of 64 unrolled over T=32 steps of 32
+   features, 11 classes with the blank first, B=32, Adam at 0.01,
+   Xavier) through ``Module.fit`` on gpu(0) for one epoch (87 steps, the
+   last padded): the CTC loss finite and lower over the last 5 steps
+   than over the first 5, exactly one ``ctc_loss_fwd`` and one
+   ``ctc_loss_bwd`` launch a step; step ms and the device-busy share of
+   a profiled step; the prediction module's greedy-decode accuracy on
+   the 308 held-out strips (each frame's probabilities summing to 1)
+   and the trained graph's loss on gpu(0) against a cpu() Module. One
+   Gluon ``CTCLoss`` step under ``autograd.record`` on gpu(0) against
+   the CPU (one launch of each kernel). Then the kernel pair
+   (``csrc/ctc_loss.cu``) against its plain version on the same card
+   tensors at every case of ``tests/final_op_cases.CTC_CASES`` (the
+   infeasible alignments at 1e30 with the adjoint gradient, data and
+   label lengths, the blank last, interleaved padding, labels >= C, NaN
+   logits, an OCR batch) and at a speech shape (T=800, N=32, C=29, 100
+   to 200 labels): the loss within 1e-5 relative, the gradient within
+   1e-5 of the largest, bit-identical on repeat; each kernel timed at
+   the OCR and the speech shapes beside the plain version,
+   ``F.ctc_loss`` (forward, and forward+backward), the function's bytes
+   bound and this route's bytes with the stored alpha, and both
+   gradients held to the float64 plain version.
+18. The sparse NDArray (``sparse``): the sparse example's flow
+   (``models/sparse_linear.py``: LibSVMIter's ``CSRNDArray`` batches,
+   ``row_sparse_pull`` from a local kvstore holding the weight on the
+   card, a row_sparse gradient pushed through the store's SGD) at its
+   defaults on gpu(0) for 5 epochs, train accuracy rising; csr·dense and
+   csrᵀ·dense (a row_sparse result over the touched columns) at 8,192
+   rows x 1,000,000 features with 20 non-zeros a row, each within 1e-5
+   of the float64 product on the host and timed beside its bytes bound;
+   csr + csr and a retain of half the csrᵀ·dense rows there, on the
+   card, against scipy's sum and the rows themselves, timed; every
+   linalg and contrib case of ``tests/final_op_cases.py`` on CUDA
+   tensors against cpu() (gelqf's cuSOLVER Q and L against LAPACK's).
+19. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records``, ``frontend``, ``zoo``, ``rcnn`` and ``ctc`` paths
+   included), then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -560,7 +596,7 @@ ROI_TIMED = dict(rois=256, test_rois=600, channels=512, shape=(37, 62),
 ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
-          "surface", "records", "frontend", "zoo", "rcnn")
+          "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx")
 
@@ -4049,6 +4085,14 @@ def multi_gpu(args, card):
     if "rcnn" in phases:
         log("[rcnn]")
         results["rcnn"] = phase_rcnn(mt, args.seed, card, parents)
+    # 17. the LSTM-OCR trained with CTC and the CTC kernel pair
+    if "ctc" in phases:
+        log("[ctc]")
+        results["ctc"] = phase_ctc(mt, args.seed, card)
+    # 18. the sparse NDArray, row_sparse_pull, linalg and contrib's rest
+    if "sparse" in phases:
+        log("[sparse]")
+        results["sparse"] = phase_sparse(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -8219,6 +8263,653 @@ def phase_rcnn(mt, seed, card, parents=()):
     return res
 
 
+#: the LSTM-OCR of examples/ctc/lstm_ocr.py at its defaults: 3,072
+#: strips (seed 11), 90 % to train (2,764: 87 steps of B=32, the last
+#: padded), two LSTMCells of 64 over T=32 steps of 32 features, 11
+#: classes, the blank first, Adam at 0.01, Xavier; one epoch
+CTC = dict(num_examples=3072, seed=11, num_hidden=64, batch=32, lr=0.01,
+           epochs=1, window=5)
+#: a speech-recognition CTC shape: 800 frames, 32 utterances, 28
+#: characters and the blank, transcripts of 100-200 labels
+CTC_SPEECH = dict(T=800, N=32, C=29, L=200, min_label=100)
+CTC_TOL = 1e-5  # loss relative; gradient of the largest
+CTC_ITERS = {"ocr": 50, "speech": 5}
+#: the sparse example (examples/sparse/linear_classification.py) at its
+#: defaults, and the dots at a click-through shape: 8,192 rows over
+#: 1,000,000 hashed features, 20 non-zeros a row, a (1,000,000, 1) weight
+SPARSE = dict(num_examples=1024, dim=256, batch=64, lr=0.5, epochs=5,
+              seed=7)
+CLICK = dict(rows=8192, features=1000000, nnz=20, iters=20)
+SPARSE_TOL = 1e-5
+
+
+def _final_cases():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import final_op_cases
+    return final_op_cases
+
+
+def ctc_prepared(contrib, x, lab, blank_label, dl, ll):
+    """(labels, counts, data lengths, blank) as ``contrib.ctc_loss``
+    prepares them for the kernels, from card tensors."""
+    T, N, C = x.shape
+    first = blank_label != "last"
+    labs, n_lab = contrib.ctc_labels(lab, C, first, ll)
+    dlen = (torch.full((N,), T, dtype=torch.int32, device=x.device)
+            if dl is None else dl.to(torch.int32).contiguous())
+    return labs, n_lab, dlen, 0 if first else C - 1
+
+
+def ctc_case_checked(contrib, x, lab, blank_label, dl, ll, head, label):
+    """The kernel pair (through ``contrib.ctc_loss``'s autograd Function)
+    against the plain version on the same card tensors: the loss within
+    CTC_TOL relative (1e30 exactly where the plain version gives it), the
+    gradient within CTC_TOL of the largest with NaN at the same places,
+    and a second call bit-identical. Returns the errors."""
+    def kernel():
+        xt = x.clone().requires_grad_()
+        loss = contrib.ctc_loss(xt, lab, blank_label, dl, ll)
+        (g,) = torch.autograd.grad(loss, [xt], head)
+        return loss.detach(), g
+
+    labs, n_lab, dlen, blank = ctc_prepared(contrib, x, lab, blank_label,
+                                            dl, ll)
+    xt = x.clone().requires_grad_()
+    want = contrib.ctc_loss_reference(xt, labs, n_lab, dlen, blank)
+    (want_g,) = torch.autograd.grad(want, [xt], head)
+    want = want.detach()
+    got, got_g = kernel()
+    again, again_g = kernel()
+    torch.cuda.synchronize()
+    big = want == 1e30
+    loss_err = float(((got - want).abs() / want.abs().clamp(min=1.0))[
+        ~big].max()) if bool((~big).any()) else 0.0
+    nan = torch.isnan(want_g)
+    scale = float(want_g[~nan].abs().max()) if bool((~nan).any()) else 1.0
+    grad_err = float((got_g - want_g)[~nan].abs().max()) / max(
+        scale, 1e-30) if bool((~nan).any()) else 0.0
+    same = torch.equal(got, again) and torch.equal(
+        torch.nan_to_num(got_g), torch.nan_to_num(again_g)) and \
+        torch.equal(torch.isnan(got_g), torch.isnan(again_g))
+    ok = torch.equal(got == 1e30, big) and loss_err <= CTC_TOL and \
+        torch.equal(torch.isnan(got_g), nan) and grad_err <= CTC_TOL and same
+    if not ok:
+        raise AssertionError(
+            "ctc kernels %s: loss error %g (1e30 at %s, plain %s), gradient "
+            "error %g of %g, NaN same %s, repeat bit-identical %s"
+            % (label, loss_err, (got == 1e30).tolist(), big.tolist(),
+               grad_err, scale, torch.equal(torch.isnan(got_g), nan), same))
+    return dict(case=label, loss_err=loss_err, grad_err=grad_err,
+                infeasible=int(big.sum()))
+
+
+def ctc_speech_inputs(seed, device="cuda"):
+    """Seeded logits (T, N, C), 0-padded labels (N, L) of 100-200
+    characters in [1, C) and their lengths."""
+    cfg = CTC_SPEECH
+    rng = np.random.RandomState(seed + 800)
+    T, N, C, L = cfg["T"], cfg["N"], cfg["C"], cfg["L"]
+    x = rng.randn(T, N, C).astype(np.float32)
+    n = rng.randint(cfg["min_label"], L + 1, N)
+    lab = rng.randint(1, C, (N, L)).astype(np.float32)
+    lab[np.arange(L)[None, :] >= n[:, None]] = 0
+    return (torch.from_numpy(x).to(device), torch.from_numpy(lab).to(device),
+            n)
+
+
+def ctc_bytes(T, N, C, L):
+    """CTC's bytes at one shape. The function's least: the forward reads
+    the logits and the labels (with their counts and the data lengths)
+    and writes the loss; the backward reads the head gradient, the logits
+    and the labels and writes the gradient. This route's: the same, with
+    every step's alpha (T, N, 2L + 1) written by the forward and read by
+    the backward."""
+    small = 4 * (N * L + 3 * N)
+    alpha = 4 * T * N * (2 * L + 1)
+    fwd = 4 * T * N * C + small
+    bwd = 2 * 4 * T * N * C + small
+    return {"fwd": fwd, "bwd": bwd, "route_fwd": fwd + alpha,
+            "route_bwd": bwd + alpha}
+
+
+def ctc_timed(contrib, x, lab, card, label, iters):
+    """The kernels alone at one shape: each launch's CUDA-event ms beside
+    the plain version's (forward, and forward+backward under autograd),
+    ``F.ctc_loss`` (blank 0, ``reduction="none"``: forward, and
+    forward+backward, the same function where every alignment is
+    feasible, as here), the bytes bound and this route's bytes
+    (``ctc_bytes``); the kernels' loss and gradient against the plain
+    version's on these inputs, and the library's against the kernels'.
+    Counts these launches too: call it after the main path's counts are
+    read."""
+    T, N, C = x.shape
+    labs, n_lab, dlen, blank = ctc_prepared(contrib, x, lab, "first", None,
+                                            None)
+    logp = torch.log_softmax(x, -1).contiguous()
+    loss, alpha = contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, blank)
+    head = torch.ones(N, device=x.device)
+    fwd_ms = cuda_ms(lambda: contrib.ctc_loss_fwd(logp, labs, n_lab, dlen,
+                                                  blank), iters)
+    bwd_ms = cuda_ms(lambda: contrib.ctc_loss_bwd(head, logp, alpha, labs,
+                                                  n_lab, dlen, blank), iters)
+
+    def pair():
+        xt = x.detach().requires_grad_()
+        l = contrib.ctc_loss(xt, lab)
+        l.backward(head)
+
+    def plain(grad):
+        xt = x.detach().requires_grad_(grad)
+        l = contrib.ctc_loss_reference(xt, labs, n_lab, dlen, blank)
+        if grad:
+            l.backward(head)
+
+    def library(grad):
+        xt = x.detach().requires_grad_(grad)
+        l = torch.nn.functional.ctc_loss(
+            torch.log_softmax(xt, -1), labs.long(), dlen.long(),
+            n_lab.long(), blank=0, reduction="none")
+        if grad:
+            l.backward(head)
+        return l, xt
+
+    pair_ms = cuda_ms(pair, iters)
+    few = max(1, iters // 5)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: plain(False), few, warmup=1)
+    plain_pair_ms = cuda_ms(lambda: plain(True), few, warmup=1)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: library(False), iters)
+    lib_pair_ms = cuda_ms(lambda: library(True), iters)
+    lib_loss, xt = library(True)
+    xk = x.detach().requires_grad_()
+    kl = contrib.ctc_loss(xk, lab)
+    kl.backward(head)
+    lib_loss_err = float(((lib_loss - kl) / kl.abs()).abs().max().detach())
+    lib_grad_err = float((xt.grad - xk.grad).abs().max())
+    xp = x.detach().requires_grad_()
+    pl = contrib.ctc_loss_reference(xp, labs, n_lab, dlen, blank)
+    pl.backward(head)
+    err = float((kl - pl).abs().max().detach())
+    bwd_err = float((xk.grad - xp.grad).abs().max())
+    x64 = x.detach().double().requires_grad_()
+    contrib.ctc_loss_reference(x64, labs, n_lab, dlen, blank).backward(
+        head.double())
+    f64_err = {"kernel": float((xk.grad.double() - x64.grad).abs().max()),
+               "library": float((xt.grad.double() - x64.grad).abs().max())}
+    nb = {k: v / HBM_BYTES_PER_S * 1e3
+          for k, v in ctc_bytes(T, N, C, lab.shape[1]).items()}
+    row = {"shape": [T, N, C, int(lab.shape[1])], "ms": fwd_ms,
+           "bwd_ms": bwd_ms, "pair_ms": pair_ms, "plain_ms": plain_ms,
+           "pair_plain_ms": plain_pair_ms, "library_ms": lib_ms,
+           "pair_library_ms": lib_pair_ms, "max_abs_err": err,
+           "bwd_max_abs_err": bwd_err, "bound_ms": nb["fwd"],
+           "bound_by": "bytes", "route_ms": nb["route_fwd"],
+           "bwd_bound_ms": nb["bwd"], "bwd_bound_by": "bytes",
+           "bwd_route_ms": nb["route_bwd"], "steps": T,
+           "library_loss_rel_err": lib_loss_err,
+           "library_grad_max_abs_err": lib_grad_err,
+           "grad_max_abs_err_f64": f64_err}
+    log("  [%s] ctc kernels at %s %s (T, N, C, L): forward %.4f ms (plain "
+        "%.3f, F.ctc_loss %.4f, bound %.5f, route %.5f), backward %.4f ms "
+        "(bound %.5f, route %.5f); the pair %.4f ms through the autograd "
+        "Function, plain %.2f, F.ctc_loss forward+backward %.4f; against "
+        "the plain version: loss %.2e, gradient %.2e max abs; F.ctc_loss "
+        "against the kernels: loss %.2e relative, gradient %.2e; gradient "
+        "against the float64 plain version: the kernels %.2e, F.ctc_loss "
+        "%.2e" % (card, label, row["shape"], fwd_ms, plain_ms, lib_ms,
+                  row["bound_ms"], row["route_ms"], bwd_ms,
+                  row["bwd_bound_ms"], row["bwd_route_ms"], pair_ms,
+                  plain_pair_ms, lib_pair_ms, err, bwd_err, lib_loss_err,
+                  lib_grad_err, f64_err["kernel"], f64_err["library"]))
+    return row
+
+
+def ctc_kernel_checks(mt, contrib, seed, card, device="cuda"):
+    """The kernel pair against its plain version on the card: every case
+    of ``tests/final_op_cases.CTC_CASES`` (the infeasible alignments,
+    data and label lengths, the blank last, interleaved padding, labels
+    >= C, NaN logits, an OCR batch) and the speech shape; then both
+    shapes timed (``ctc_timed``)."""
+    cases = _final_cases()
+    rows = []
+    for name, T, N, C, labels, attrs, dl, ll, nan in cases.CTC_CASES:
+        x, lab, extra, head = cases.ctc_inputs(T, N, C, labels, dl, ll, nan)
+        dev = device
+        it = iter(extra)
+        dlt = torch.from_numpy(next(it)).to(dev) \
+            if attrs.get("use_data_lengths") else None
+        llt = torch.from_numpy(next(it)).to(dev) \
+            if attrs.get("use_label_lengths") else None
+        rows.append(ctc_case_checked(
+            contrib, torch.from_numpy(x).to(dev),
+            torch.from_numpy(lab).to(dev), attrs.get("blank_label", "first"),
+            dlt, llt, torch.from_numpy(head).to(dev), name))
+    x, lab, _ = ctc_speech_inputs(seed, device)
+    head = torch.from_numpy((np.random.RandomState(seed).rand(
+        x.shape[1]) + 0.5).astype(np.float32)).to(device)
+    rows.append(ctc_case_checked(contrib, x, lab, "first", None, None, head,
+                                 "speech"))
+    infeasible = [r for r in rows if r["infeasible"]]
+    log("  [%s] ctc kernels vs plain on the card: %d cases (%d with "
+        "infeasible sequences at 1e30), worst loss error %.2e, gradient %.2e "
+        "of the largest; speech shape loss %.2e, gradient %.2e; repeats "
+        "bit-identical" % (card, len(rows), len(infeasible),
+                           max(r["loss_err"] for r in rows),
+                           max(r["grad_err"] for r in rows),
+                           rows[-1]["loss_err"], rows[-1]["grad_err"]))
+    X, Y, _, _ = ctc_ocr_split()
+    B = CTC["batch"]
+    ocr_x = torch.from_numpy(np.random.RandomState(seed).randn(
+        X.shape[1], B, 11).astype(np.float32)).to(device)
+    timed = {"ocr": ctc_timed(contrib, ocr_x, torch.from_numpy(
+        Y[:B]).to(device), card, "OCR", CTC_ITERS["ocr"]),
+             "speech": ctc_timed(contrib, x, lab, card, "speech",
+                                 CTC_ITERS["speech"])}
+    return rows, timed
+
+
+def ctc_ocr_split():
+    from mxtpu_torch.models import ctc_ocr
+    return ctc_ocr.example_split(CTC["num_examples"], CTC["seed"])
+
+
+def ctc_training(mt, contrib, seed, card):
+    """The OCR through ``Module.fit`` on gpu(0) for one epoch at the
+    example's defaults (module docstring, phase 17); returns the row and
+    the trained module."""
+    from mxtpu_torch.models import ctc_ocr
+    X, Y, Xv, Yv = ctc_ocr_split()
+    B, H = CTC["batch"], CTC["num_hidden"]
+    T, F = X.shape[1:]
+    np.random.seed(CTC["seed"])  # NDArrayIter's shuffle, Xavier's draws
+    mt.random.seed(CTC["seed"])
+    it = mt.io.NDArrayIter(X, Y, batch_size=B, shuffle=True,
+                           label_name="label")
+    mod = mt.mod.Module(ctc_ocr.build_symbol(H, T, True),
+                        context=mt.gpu(0), label_names=("label",),
+                        logger=_quiet_logger())
+    losses, stamps = [], []
+
+    def on_batch(param):
+        losses.append(mod.get_outputs()[0].asnumpy())  # a device sync
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    contrib.ctc_loss_fwd.launches = 0
+    contrib.ctc_loss_bwd.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=CTC["epochs"], optimizer="adam",
+            optimizer_params={"learning_rate": CTC["lr"]},
+            eval_metric=mt.metric.Loss(),
+            initializer=mt.initializer.Xavier(), batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = {"fwd": contrib.ctc_loss_fwd.launches,
+                "bwd": contrib.ctc_loss_bwd.launches}
+    fit_s = time.perf_counter() - t0
+    steps = len(losses)
+    means = [float(v.mean()) for v in losses]
+    w = CTC["window"]
+    first, last = float(np.mean(means[:w])), float(np.mean(means[-w:]))
+    gaps = np.diff([t0] + stamps) * 1e3
+    med = float(np.median(gaps[w:]))
+    batch = next(iter(mt.io.NDArrayIter(X[:B], Y[:B], batch_size=B,
+                                        label_name="label")))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    busy = step_kernels(step).get(0, (0, 0.0))
+    row = {"train_strips": len(X), "steps": steps, "batch": B,
+           "num_hidden": H, "T": int(T), "features": int(F),
+           "loss_first": first, "loss_last": last,
+           "loss_by_step": means, "fit_s": fit_s, "step_ms": med,
+           "device_launches": busy[0], "device_ms": busy[1],
+           "busy_share": busy[1] / med, "launches": launches}
+    log("  [%s] OCR (2 LSTMCells of %d over T=%d, B=%d) one epoch of %d "
+        "strips through Module.fit: %d steps in %.1f s, CTC loss (mean of "
+        "the first / last %d steps) %.3f -> %.3f; step %.2f ms (median); "
+        "profiled step %d kernel launches, %.2f ms of device time (busy "
+        "%.1f %%); ctc launches %s"
+        % (card, H, T, B, len(X), steps, fit_s, w, first, last, med, busy[0],
+           busy[1], 100 * busy[1] / med, launches))
+    if not all(np.isfinite(v).all() for v in losses):
+        raise AssertionError("ctc: a loss is not finite")
+    if not last < first:
+        raise AssertionError("ctc: the loss did not fall over the epoch: "
+                             "%.4f -> %.4f" % (first, last))
+    if launches != {"fwd": steps, "bwd": steps} or steps != -(-len(X) // B):
+        raise AssertionError("ctc: %d steps launched %s: one forward and one "
+                             "backward a step expected" % (steps, launches))
+    row["eval"] = ctc_eval(mt, ctc_ocr, mod, Xv, Yv, card)
+    return row, mod
+
+
+def ctc_eval(mt, ctc_ocr, mod, Xv, Yv, card):
+    """The prediction module on gpu(0), sharing the trained weights: the
+    greedy-decode accuracy on the held-out strips (probabilities finite,
+    each frame's summing to 1); then the trained graph's CTC loss on one
+    held-out batch on gpu(0) against a cpu() Module with the same
+    weights (the plain version)."""
+    B, H = CTC["batch"], CTC["num_hidden"]
+    T, F = Xv.shape[1:]
+    pmod = mt.mod.Module(ctc_ocr.build_symbol(H, T, False),
+                         context=mt.gpu(0), label_names=None,
+                         logger=_quiet_logger())
+    pmod.bind(data_shapes=[("data", (B, T, F))], for_training=False)
+    args, auxs = mod.get_params()
+    pmod.set_params(args, auxs, allow_missing=False)
+    correct = total = 0
+    worst_sum = 0.0
+    for batch in mt.io.NDArrayIter(Xv, Yv, batch_size=B, label_name="label"):
+        pmod.forward(batch, is_train=False)
+        probs = pmod.get_outputs()[0].asnumpy()
+        if not np.isfinite(probs).all():
+            raise AssertionError("ctc eval: probabilities not finite")
+        worst_sum = max(worst_sum, float(np.abs(probs.sum(-1) - 1).max()))
+        c, n = ctc_ocr.decode_accuracy(probs, batch.label[0].asnumpy(),
+                                       B - batch.pad)
+        correct += c
+        total += n
+    acc = correct / max(total, 1)
+    vb = mt.io.DataBatch([mt.nd.array(Xv[:B], ctx=mt.cpu())],
+                         [mt.nd.array(Yv[:B], ctx=mt.cpu())])
+    twin = mt.mod.Module(ctc_ocr.build_symbol(H, T, True),
+                         context=mt.cpu(), label_names=("label",),
+                         logger=_quiet_logger())
+    twin.bind(data_shapes=[("data", (B, T, F))],
+              label_shapes=[("label", (B, ctc_ocr.MAX_LABEL))],
+              for_training=False)
+    twin.set_params(args, auxs)
+    twin.forward(vb, is_train=False)
+    mod.forward(vb, is_train=False)
+    want = twin.get_outputs()[0].asnumpy()
+    got = mod.get_outputs()[0].asnumpy()
+    twin_err = float((np.abs(got - want) / np.maximum(1, np.abs(want))).max())
+    log("  [%s] OCR held-out: %d strips, greedy-decode whole-sequence "
+        "accuracy %.4f; frame sums within %.1e of 1; the trained CTC loss "
+        "on gpu(0) vs cpu() %.2e relative"
+        % (card, total, acc, worst_sum, twin_err))
+    if not worst_sum <= 1e-4 or not twin_err <= 1e-4:
+        raise AssertionError("ctc eval: frame sums %g, gpu vs cpu %g"
+                             % (worst_sum, twin_err))
+    return {"strips": total, "accuracy": acc, "frame_sum_err": worst_sum,
+            "gpu_vs_cpu_loss_err": twin_err}
+
+
+def ctc_gluon_step(mt, contrib, seed, card):
+    """One step of Gluon's ``CTCLoss`` under ``autograd.record`` on
+    gpu(0): predictions (N, T, C) of the OCR's shape, the loss and its
+    gradient against the plain version on the CPU; launches counted."""
+    X, Y, _, _ = ctc_ocr_split()
+    B = CTC["batch"]
+    x = np.random.RandomState(seed + 1).randn(B, X.shape[1], 11).astype(
+        np.float32)
+    loss_fn = mt.gluon.loss.CTCLoss()
+    contrib.ctc_loss_fwd.launches = 0
+    contrib.ctc_loss_bwd.launches = 0
+    with mt.gpu(0):
+        p = mt.nd.array(x)
+        p.attach_grad()
+        with mt.autograd.record():
+            loss = loss_fn(p, mt.nd.array(Y[:B]))
+        loss.backward()
+        got, got_g = loss.asnumpy(), p.grad.asnumpy()
+    launches = {"fwd": contrib.ctc_loss_fwd.launches,
+                "bwd": contrib.ctc_loss_bwd.launches}
+    xt = torch.from_numpy(x).requires_grad_()
+    want = contrib.ctc_loss(xt.transpose(0, 1), torch.from_numpy(Y[:B]))
+    want.backward(torch.ones(B))
+    err = float(np.abs(got - want.detach().numpy()).max() /
+                np.abs(want.detach().numpy()).max())
+    gerr = float(np.abs(got_g - xt.grad.numpy()).max() /
+                 np.abs(xt.grad.numpy()).max())
+    log("  [%s] Gluon CTCLoss step on gpu(0): loss %.2e, gradient %.2e "
+        "against the CPU's plain version; launches %s"
+        % (card, err, gerr, launches))
+    if launches != {"fwd": 1, "bwd": 1} or not err <= 1e-5 or \
+            not gerr <= 1e-4:
+        raise AssertionError("ctc gluon: launches %s, loss %g, grad %g"
+                             % (launches, err, gerr))
+    return {"loss_err": err, "grad_err": gerr, "launches": launches}
+
+
+def phase_ctc(mt, seed, card):
+    """Phase 17 (module docstring): the OCR trained with CTC, Gluon's
+    CTCLoss, then the kernel pair alone."""
+    from mxtpu_torch.ops import contrib
+    t0 = time.perf_counter()
+    res = {}
+    res["training"], trained = ctc_training(mt, contrib, seed, card)
+    del trained
+    res["gluon"] = ctc_gluon_step(mt, contrib, seed, card)
+    tr, gl = res["training"]["launches"], res["gluon"]["launches"]
+    res["launches"] = {"ocr_fit_fwd": tr["fwd"], "ocr_fit_bwd": tr["bwd"],
+                       "gluon_ctc_fwd": gl["fwd"], "gluon_ctc_bwd": gl["bwd"]}
+    res["cases"], res["timed"] = ctc_kernel_checks(mt, contrib, seed, card)
+    res["seconds"] = time.perf_counter() - t0
+    log("  [%s] ctc phase %.1f s; launches %s"
+        % (card, res["seconds"], res["launches"]))
+    return res
+
+
+def sparse_flow(mt, card):
+    """The sparse example's flow at its defaults with the port on gpu(0):
+    LibSVMIter's csr batches, row_sparse pulls from a local kvstore whose
+    weight lives on the card, a row_sparse gradient pushed through the
+    store's SGD; train accuracy must rise over the epochs. Then the same
+    flow on cpu(), printed beside."""
+    import tempfile
+    from mxtpu_torch.models import sparse_linear
+    cfg = SPARSE
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.libsvm")
+        sparse_linear.synth_libsvm(path, cfg["num_examples"], cfg["dim"],
+                                   np.random.RandomState(cfg["seed"]))
+        it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(cfg["dim"],),
+                              batch_size=cfg["batch"])
+        first = it.next().data[0]
+        store = mt.kv.create("local")
+        with mt.gpu(0):
+            store.init("w", mt.nd.sparse.zeros("row_sparse", (cfg["dim"], 1)))
+            out = mt.nd.sparse.zeros("row_sparse", (cfg["dim"], 1))
+            store.row_sparse_pull("w", out=out, row_ids=mt.nd.array(
+                np.array([3.0, 1.0, 3.0])))
+        on_card = out.data._data.device == mt.gpu(0).torch_device and \
+            out.indices.asnumpy().tolist() == [1, 3]
+        t0 = time.perf_counter()
+        with mt.gpu(0):
+            accs = sparse_linear.train(
+                path, epochs=cfg["epochs"], dim=cfg["dim"],
+                batch_size=cfg["batch"], lr=cfg["lr"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with mt.cpu():
+            cpu_accs = sparse_linear.train(
+                path, epochs=cfg["epochs"], dim=cfg["dim"],
+                batch_size=cfg["batch"], lr=cfg["lr"])
+    log("  [%s] sparse example on gpu(0): %s batches of %d, train accuracy "
+        "by epoch %s (cpu() %s), %.2f s for %d epochs; the store's rows "
+        "pulled on the card %s"
+        % (card, type(first).__name__, cfg["batch"],
+           [round(a, 4) for a in accs], [round(a, 4) for a in cpu_accs],
+           secs, cfg["epochs"], on_card))
+    if not isinstance(first, mt.nd.CSRNDArray) or not on_card or \
+            not accs[-1] > accs[0]:
+        raise AssertionError("sparse flow: batch %s, on card %s, accuracy "
+                             "%s" % (type(first).__name__, on_card, accs))
+    return {"accuracy": accs, "cpu_accuracy": cpu_accs, "seconds": secs}
+
+
+def sparse_dot_bytes(nnz, rows, unique, transpose):
+    """The least bytes of csr·dense (values, column ids and row offsets
+    read, the weight rows the ids touch read, the output written) and of
+    csrᵀ·dense (the same components, the dense rows read, the unique
+    rows' values and ids written)."""
+    comps = 8 * nnz + 4 * (rows + 1)
+    if transpose:
+        return comps + 4 * rows + 8 * unique
+    return comps + 4 * unique + 4 * rows
+
+
+def sparse_dots(mt, seed, card):
+    """csr·dense and csrᵀ·dense on the card at the click-through shape
+    (CLICK): each against the float64 product of the same components on
+    the host (scipy), within SPARSE_TOL of the largest; timed beside the
+    bytes bound. Then csr + csr (the batch with itself) and the retain of
+    every other row of the csrᵀ·dense result, on the card: their
+    components stay there and equal the host's (scipy's canonical sum
+    within SPARSE_TOL, the retained rows exactly); timed."""
+    import scipy.sparse as sps
+    cfg = CLICK
+    rows, feats, k = cfg["rows"], cfg["features"], cfg["nnz"]
+    rng = np.random.RandomState(seed + 1000)
+    cols = np.sort(rng.randint(0, feats, (rows, k)), axis=1).ravel()
+    vals = rng.randn(rows * k).astype(np.float32)
+    indptr = np.arange(0, rows * k + 1, k)
+    w = rng.randn(feats, 1).astype(np.float32)
+    e = rng.randn(rows, 1).astype(np.float32)
+    ref = sps.csr_matrix((vals.astype(np.float64), cols, indptr),
+                         shape=(rows, feats))
+    with mt.gpu(0):
+        csr = mt.nd.sparse.csr_matrix((vals, cols, indptr),
+                                      shape=(rows, feats))
+        wd, ed = mt.nd.array(w), mt.nd.array(e)
+        out = mt.nd.dot(csr, wd).asnumpy()
+        rsp = mt.nd.dot(csr, ed, transpose_a=True)
+        ids, data = rsp.indices.asnumpy(), rsp.data.asnumpy()
+        fwd_ms = cuda_ms(lambda: mt.nd.dot(csr, wd), cfg["iters"])
+        t_ms = cuda_ms(lambda: mt.nd.dot(csr, ed, transpose_a=True),
+                       cfg["iters"])
+        keep = mt.nd.array(ids[::2].astype(np.float64))
+        summed = mt.nd.sparse.add(csr, csr)
+        kept = mt.nd.sparse_retain(rsp, keep)
+        on_card = all(c.device == mt.gpu(0).torch_device
+                      for a in (summed, kept) for c in a._components())
+        sp, sc, sd = [c.asnumpy() for c in (summed.indptr, summed.indices,
+                                            summed.data)]
+        kept_ids, kept_data = kept.indices.asnumpy(), kept.data.asnumpy()
+        add_ms = cuda_ms(lambda: mt.nd.sparse.add(csr, csr), cfg["iters"])
+        retain_ms = cuda_ms(lambda: mt.nd.sparse_retain(rsp, keep),
+                            cfg["iters"])
+    want = ref @ w.astype(np.float64)
+    want_t = ref.T @ e.astype(np.float64)
+    uniq = np.unique(cols)
+    err = float(np.abs(out - want).max() / max(1.0, np.abs(want).max()))
+    same_ids = ids.tolist() == uniq.tolist()
+    err_t = float(np.abs(data - want_t[uniq]).max() /
+                  max(1.0, np.abs(want_t).max())) if same_ids else \
+        float("inf")
+    twice = ref.copy()
+    twice.sum_duplicates()
+    twice = twice * 2.0
+    same_add = sp.tolist() == twice.indptr.tolist() and \
+        sc.tolist() == twice.indices.tolist()
+    err_add = float(np.abs(sd - twice.data).max() / max(
+        1.0, np.abs(twice.data).max())) if same_add else float("inf")
+    same_kept = kept_ids.tolist() == ids[::2].tolist() and \
+        np.array_equal(kept_data, data[::2])
+    b = sparse_dot_bytes(rows * k, rows, len(uniq), False) / \
+        HBM_BYTES_PER_S * 1e3
+    bt = sparse_dot_bytes(rows * k, rows, len(uniq), True) / \
+        HBM_BYTES_PER_S * 1e3
+    row = {"rows": rows, "features": feats, "nnz": rows * k,
+           "unique_columns": int(len(uniq)), "dot_ms": fwd_ms,
+           "dot_bound_ms": b, "dot_err": err, "dot_t_ms": t_ms,
+           "dot_t_bound_ms": bt, "dot_t_err": err_t,
+           "dot_t_rows": int(len(ids)), "add_ms": add_ms,
+           "add_err": err_add, "add_nnz": int(len(sd)),
+           "retain_ms": retain_ms, "retain_rows": int(len(kept_ids))}
+    log("  [%s] sparse dots at %d x %d, %d non-zeros (%d columns touched): "
+        "csr.dense %.4f ms (bound %.5f, bytes), error %.2e of the float64 "
+        "product; csr^T.dense -> row_sparse of %d rows %.4f ms (bound %.5f), "
+        "error %.2e" % (card, rows, feats, rows * k, len(uniq), fwd_ms, b,
+                        err, len(ids), t_ms, bt, err_t))
+    log("  [%s] csr + csr -> csr of %d non-zeros %.4f ms, error %.2e of "
+        "the float64 sum; retain of %d of %d rows %.4f ms, rows exact %s; "
+        "components on the card %s" % (card, len(sd), add_ms, err_add,
+                                       len(kept_ids), len(ids), retain_ms,
+                                       same_kept, on_card))
+    if not err <= SPARSE_TOL or not err_t <= SPARSE_TOL or not same_ids \
+            or not err_add <= SPARSE_TOL or not same_kept or not on_card:
+        raise AssertionError(
+            "sparse ops: dots %g, %g, ids same %s; add %g; retain exact "
+            "%s; on the card %s" % (err, err_t, same_ids, err_add,
+                                    same_kept, on_card))
+    return row
+
+
+def final_ops_on_card(mt, card, device="cuda"):
+    """Every case of ``tests/final_op_cases.py``'s LINALG_CASES and
+    CONTRIB_CASES (linalg.py's 18 names; quantize, dequantize, fft, ifft,
+    count_sketch) on CUDA tensors against cpu(): the same dtypes and NaN
+    positions, integers equal, floats within 1e-5 (forward) and 1e-4
+    (gradient) of the largest; gelqf's Q and L from cuSOLVER held to
+    LAPACK's on the host by the same forward gate."""
+    cases = _final_cases()
+
+    def run(name, arrays, attrs, diff, outs, device):
+        xs = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+        for i in diff:
+            xs[i].requires_grad_()
+        op = mt.ops.registry.get_op(name)
+        res = op.apply(op.parse_attrs(dict(attrs)), xs, device)
+        grads = []
+        if diff:
+            rng = np.random.RandomState(7)
+            heads = [torch.from_numpy(rng.randn(*res[k].shape).astype(
+                np.float32)).to(device) for k in outs]
+            grads = list(torch.autograd.grad([res[k] for k in outs],
+                                             [xs[i] for i in diff], heads))
+        return [t.detach().cpu() for t in list(res) + grads], len(res)
+
+    def err(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return float("inf")
+        if not want.is_floating_point():
+            return 0.0 if torch.equal(got, want) else float("inf")
+        g, w = got.double(), want.double()
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            return float("inf")
+        if not bool((~nan).any()):
+            return 0.0
+        return float((g[~nan] - w[~nan]).abs().max()) / max(
+            1.0, float(w[~nan].abs().max()))
+
+    worst = {"forward": 0.0, "gradient": 0.0}
+    all_cases = cases.LINALG_CASES + cases.CONTRIB_CASES
+    for name, arrays, attrs, diff, outs in all_cases:
+        got, n_out = run(name, arrays, attrs, diff, outs, device)
+        torch.cuda.synchronize()
+        want, _ = run(name, arrays, attrs, diff, outs, "cpu")
+        for j, (g, w) in enumerate(zip(got, want)):
+            kind = "forward" if j < n_out else "gradient"
+            e = err(g, w)
+            worst[kind] = max(worst[kind], e)
+            if not e <= (1e-5 if kind == "forward" else 1e-4):
+                raise AssertionError("%s %s on the card: %s %d error %g"
+                                     % (name, attrs, kind, j, e))
+    log("  [%s] linalg and contrib ops: %d cases on CUDA tensors vs cpu: "
+        "worst forward error %.3e, gradient %.3e (of the largest)"
+        % (card, len(all_cases), worst["forward"], worst["gradient"]))
+    return dict(cases=len(all_cases),
+                **{"worst_%s" % k: v for k, v in worst.items()})
+
+
+def phase_sparse(mt, seed, card):
+    """Phase 18 (module docstring): the sparse example's flow, the sparse
+    dots at a click-through shape, then the linalg and contrib ops."""
+    t0 = time.perf_counter()
+    res = {"flow": sparse_flow(mt, card), "dots": sparse_dots(mt, seed, card),
+           "ops": final_ops_on_card(mt, card)}
+    res["seconds"] = time.perf_counter() - t0
+    log("  [%s] sparse phase %.1f s" % (card, res["seconds"]))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -8377,6 +9068,14 @@ def main(argv=None):
     if "rcnn" in phases:
         log("[rcnn]")
         results["rcnn"] = phase_rcnn(mt, args.seed, card, parents)
+    # 17. the LSTM-OCR trained with CTC and the CTC kernel pair
+    if "ctc" in phases:
+        log("[ctc]")
+        results["ctc"] = phase_ctc(mt, args.seed, card)
+    # 18. the sparse NDArray, row_sparse_pull, linalg and contrib's rest
+    if "sparse" in phases:
+        log("[sparse]")
+        results["sparse"] = phase_sparse(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -8411,6 +9110,8 @@ def main(argv=None):
     rcnn_res = results["rcnn"]
     rcnn_launches = rcnn_res["launches"]
     roi = rcnn_res["roi_pooling"]
+    ctc = results["ctc"]
+    ctc_ocr_row = ctc["timed"]["ocr"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
@@ -8510,7 +9211,32 @@ def main(argv=None):
         "bwd_plain_ms": roi["bwd_plain_ms"],
         "bwd_bound_ms": roi["bwd_bound_ms"],
         "bwd_bound_by": roi["bwd_bound_by"],
-        "bwd_route_ms": roi["bwd_route_ms"], "shape": roi["shape"]}]}
+        "bwd_route_ms": roi["bwd_route_ms"], "shape": roi["shape"]}, {
+        "name": "ctc_loss", "route": "cuda",
+        "source": "mxtpu_torch/csrc/ctc_loss.cu",
+        "replaces": "mxtpu/ops/contrib.py:355",
+        "launches": sum(ctc["launches"].values()),
+        "launches_by_path": ctc["launches"],
+        "max_abs_err": ctc_ocr_row["max_abs_err"], "ms": ctc_ocr_row["ms"],
+        "plain_ms": ctc_ocr_row["plain_ms"],
+        "bound_ms": ctc_ocr_row["bound_ms"],
+        "bound_by": ctc_ocr_row["bound_by"],
+        "route_ms": ctc_ocr_row["route_ms"],
+        "library_ms": ctc_ocr_row["library_ms"],
+        "bwd_max_abs_err": ctc_ocr_row["bwd_max_abs_err"],
+        "bwd_ms": ctc_ocr_row["bwd_ms"],
+        "bwd_bound_ms": ctc_ocr_row["bwd_bound_ms"],
+        "bwd_bound_by": ctc_ocr_row["bwd_bound_by"],
+        "bwd_route_ms": ctc_ocr_row["bwd_route_ms"],
+        "pair_ms": ctc_ocr_row["pair_ms"],
+        "pair_plain_ms": ctc_ocr_row["pair_plain_ms"],
+        "pair_library_ms": ctc_ocr_row["pair_library_ms"],
+        "shape": ctc_ocr_row["shape"],
+        "speech": {k: ctc["timed"]["speech"][k] for k in (
+            "shape", "max_abs_err", "bwd_max_abs_err", "ms", "bwd_ms",
+            "pair_ms", "plain_ms", "pair_plain_ms", "library_ms",
+            "pair_library_ms", "bound_ms", "route_ms", "bwd_bound_ms",
+            "bwd_route_ms")}}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 Counterpart of ``mxtpu/gluon/loss.py``: every loss there, each a
 HybridBlock over the port's registered ops, so it runs imperatively and
-hybridized alike. ``CTCLoss`` needs the CTC op, not ported yet (ROADMAP
-A.7): constructing one raises.
+hybridized alike. ``CTCLoss`` runs the CTC op (``ops/contrib.py``: the
+kernel pair of ``csrc/ctc_loss.cu`` on the card) and, as mxtpu's
+(mxtpu/gluon/loss.py:212), passes it neither ``pred_lengths`` nor
+``label_lengths``: both are accepted and ignored.
 """
 from __future__ import annotations
 
@@ -195,12 +197,28 @@ class TripletLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Needs the CTC op (ROADMAP A.7): raises."""
+    """Connectionist temporal classification loss over the CTC op, for
+    ``layout`` NTC or TNC and ``label_layout`` NT or TN (mxtpu/gluon/
+    loss.py:192). ``pred_lengths`` and ``label_lengths`` are ignored, as
+    mxtpu ignores them (ROADMAP C: a fault of the reference)."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss needs the CTC op, which is not ported yet "
-                         "(ROADMAP A.7)")
+        if layout not in ("NTC", "TNC") or label_layout not in ("NT", "TN"):
+            raise MXNetError("CTCLoss: layout %r / label_layout %r; NTC or "
+                             "TNC and NT or TN" % (layout, label_layout))
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class Huber(Loss):

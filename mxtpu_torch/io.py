@@ -751,10 +751,11 @@ del _name
 @register_iter
 def LibSVMIter(data_libsvm, data_shape, batch_size=128, dense=False,
                **kwargs):
-    """LibSVM text as batches (parity src/io/iter_libsvm.cc): each
-    batch's data is a cpu() NDArray over a ``torch.sparse_csr`` tensor
+    """LibSVM text as batches (parity mxtpu/io.py:791,
+    src/io/iter_libsvm.cc): each batch's data is a cpu() ``CSRNDArray``
     (the reference's csr storage), or dense with ``dense=True``; the
     tail batch wraps to the first rows and reports ``pad``."""
+    from .ndarray.sparse import CSRNDArray
     feat_dim = int(_np.prod(data_shape))
     vals, cols, ptr, labels = [], [], [0], []
     with open(data_libsvm) as f:
@@ -770,24 +771,26 @@ def LibSVMIter(data_libsvm, data_shape, batch_size=128, dense=False,
             ptr.append(len(cols))
     n = len(labels)
     labels = _np.asarray(labels, dtype="float32")
-    vals = _np.asarray(vals, dtype="float32")
-    cols = _np.asarray(cols, dtype=_np.int64)
-    ptr = _np.asarray(ptr, dtype=_np.int64)
     if dense:
         full = _np.zeros((n, feat_dim), dtype="float32")
-        full[_np.repeat(_np.arange(n), _np.diff(ptr)), cols] = vals
+        ptr = _np.asarray(ptr)
+        full[_np.repeat(_np.arange(n), _np.diff(ptr)), _np.asarray(cols)] = \
+            vals
         return NDArrayIter(full.reshape((-1,) + tuple(data_shape)), labels,
                            batch_size=batch_size, last_batch_handle="pad")
-    return _LibSVMIter(vals, cols, ptr, labels, feat_dim, batch_size)
+    csr = CSRNDArray(_np.asarray(vals, dtype="float32"),
+                     _np.asarray(cols, dtype=_np.int64),
+                     _np.asarray(ptr, dtype=_np.int64), (n, feat_dim), cpu())
+    return _LibSVMIter(csr, labels, batch_size)
 
 
 class _LibSVMIter(DataIter):
-    def __init__(self, vals, cols, ptr, labels, feat_dim, batch_size):
+    def __init__(self, csr, labels, batch_size):
         super().__init__(batch_size)
-        self._csr = (vals, cols, ptr)
+        self._csr = csr
         self._labels = labels
         self._cursor = 0
-        self.provide_data = [DataDesc("data", (batch_size, feat_dim),
+        self.provide_data = [DataDesc("data", (batch_size, csr.shape[1]),
                                       "float32")]
         self.provide_label = [DataDesc("label", (batch_size,), "float32")]
 
@@ -795,25 +798,28 @@ class _LibSVMIter(DataIter):
         self._cursor = 0
 
     def next(self):
-        vals, cols, ptr = self._csr
+        from .ndarray.sparse import CSRNDArray
         n = len(self._labels)
         if self._cursor >= n:
             raise StopIteration
         lo = self._cursor
         hi = min(lo + self.batch_size, n)
         pad = self.batch_size - (hi - lo)
-        rows = _np.concatenate([_np.arange(lo, hi), _np.arange(pad) % n])
-        counts = ptr[rows + 1] - ptr[rows]
-        sel = _np.concatenate([_np.arange(ptr[r], ptr[r + 1]) for r in rows]
-                              ).astype(_np.int64)
-        crow = _np.concatenate([[0], _np.cumsum(counts)]).astype(_np.int64)
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(crow), torch.from_numpy(cols[sel]),
-            torch.from_numpy(vals[sel]),
-            (self.batch_size, self.provide_data[0].shape[1]),
-            check_invariants=True)
+        sl = self._csr[lo:hi]
+        lab = self._labels[lo:hi]
+        if pad:  # the first rows again (modulo n where pad > n)
+            wrap = _np.arange(pad) % n
+            d, ix, ptr = [c.numpy() for c in self._csr._components()]
+            sel = _np.concatenate([_np.arange(ptr[r], ptr[r + 1])
+                                   for r in wrap]).astype(_np.int64)
+            sd, six, sptr = [c.numpy() for c in sl._components()]
+            sl = CSRNDArray(_np.concatenate([sd, d[sel]]),
+                            _np.concatenate([six, ix[sel]]),
+                            _np.concatenate([sptr, sptr[-1] + _np.cumsum(
+                                ptr[wrap + 1] - ptr[wrap])]),
+                            (self.batch_size, self._csr.shape[1]), cpu())
+            lab = _np.concatenate([lab, self._labels[wrap]])
         self._cursor = hi
-        return DataBatch(data=[NDArray(csr, cpu())],
-                         label=[NDArray(torch.from_numpy(
-                             self._labels[rows]), cpu())],
+        return DataBatch(data=[sl], label=[NDArray(torch.from_numpy(lab),
+                                                   cpu())],
                          pad=pad, index=None)

@@ -18,8 +18,12 @@ Counterpart of ``mxtpu/kvstore.py`` (``KVStore`` :69, ``init`` :200,
   ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``) when ``WORLD_SIZE``
   is above 1; with neither the store is one worker, as mxtpu's is when
   ``jax.process_count() == 1``.
-- ``dist_async`` (mxtpu's TCP parameter server) and ``row_sparse_pull``
-  (no sparse NDArray yet) raise.
+- ``row_sparse_pull`` (mxtpu's :401): into a ``RowSparseNDArray`` out,
+  the unique requested rows of the stored value, gathered on the store's
+  device; into a dense out, the whole value. Every kind above serves it
+  from the worker's own copy, which the push keeps equal on every
+  worker. ``dist_async`` (mxtpu's TCP parameter server, whose
+  ``pull_rows`` ships only the rows) raises.
 - The mesh veneer (mxtpu's :211-290): with a 1-D data mesh active
   (``sharding.current()``), a ``local``/``device`` push of one value per
   mesh device is one all-reduce over the mesh (``sum_replicas``: NCCL
@@ -43,6 +47,7 @@ from . import sharding as _sharding
 from .base import MXNetError
 from .ops.collective import sum_replicas
 from .ndarray import NDArray
+from .ndarray.sparse import BaseSparseNDArray, RowSparseNDArray
 
 __all__ = ["KVStore", "create"]
 
@@ -75,6 +80,22 @@ def _process_group():
 
 def _raw(v):
     return getattr(v, "_data", v)
+
+
+def _pull_into(dst, src, row_ids=None):
+    """Write the stored value ``src`` into the out ``dst``: given
+    ``row_ids``, a ``RowSparseNDArray`` holds the unique requested rows,
+    gathered on the store's device; another sparse out is rebound to a
+    copy of the whole value (mxtpu's rebinding); a dense out is copied
+    into in place."""
+    if row_ids is not None and isinstance(dst, RowSparseNDArray):
+        rows = torch.unique(row_ids._data.to(src.device, torch.int64)
+                            .reshape(-1))
+        dst._set_rows(src[rows], rows)
+    elif isinstance(dst, BaseSparseNDArray):
+        dst._data = src.to(dst.context.torch_device, copy=True)
+    else:
+        dst._data.copy_(src)
 
 
 class KVStore:
@@ -207,11 +228,29 @@ class KVStore:
                 src = self._store[k]._data
                 copies = self._replicas.get(k, {})
                 for dst in (o if isinstance(o, list) else [o]):
-                    dst._data.copy_(copies.get(dst.context, src))
+                    _pull_into(dst, copies.get(dst.context, src))
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull needs the sparse NDArray, not "
-                         "ported yet (ROADMAP A.7); use pull")
+        """Pull only the rows ``row_ids`` (an NDArray, or one a out) of
+        each key: a ``RowSparseNDArray`` out holds the unique requested
+        rows, in order, as its data; a dense out gets the whole value."""
+        del priority
+        if out is None or row_ids is None:
+            raise MXNetError("row_sparse_pull requires out and row_ids")
+        keys, outs = self._normalize(key, out)
+        rids = row_ids if isinstance(row_ids, list) else [row_ids]
+        with torch.no_grad():
+            for k, o in zip(keys, outs):
+                if k not in self._store:
+                    raise MXNetError("row_sparse_pull: key %r was never "
+                                     "initialized" % (k,))
+                olist = o if isinstance(o, list) else [o]
+                rlist = rids if len(rids) == len(olist) \
+                    else rids * len(olist)
+                copies = self._replicas.get(k, {})
+                for dst, rid in zip(olist, rlist):
+                    _pull_into(dst, copies.get(dst.context,
+                                               self._store[k]._data), rid)
 
     # ------------------------------------------------ updater / optimizer
     def set_updater(self, updater):

@@ -29,7 +29,8 @@ __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "multiply", "divide", "true_divide", "power", "maximum",
            "minimum", "hypot", "modulo", "moveaxis", "onehot_encode",
            "equal", "not_equal", "greater", "greater_equal", "lesser",
-           "lesser_equal", "contrib", "random", "imread",
+           "lesser_equal", "contrib", "linalg", "random", "sparse",
+           "CSRNDArray", "RowSparseNDArray", "BaseSparseNDArray", "imread",
            "imdecode", "imresize"]
 
 
@@ -97,7 +98,51 @@ for _pub, _priv in [("uniform", "_random_uniform"),
     setattr(_mod, _pub, _make_nd_fn(_priv, get_op(_priv)))
 
 contrib = _PrefixNS(_mod, "_contrib_")
+linalg = _PrefixNS(_mod, "_linalg_")
 random = _PrefixNS(_mod, "_random_")
+
+# ------------------------------------------------ sparse dispatch
+# (mxtpu/ndarray/__init__.py:100-136): the registered dense ops stay
+# behind the sparse-aware names
+from . import sparse  # noqa: E402
+from .sparse import (BaseSparseNDArray, CSRNDArray,  # noqa: E402
+                     RowSparseNDArray)
+
+_dense_dot = _mod.dot
+_dense_cast_storage = _mod.cast_storage
+_dense_elemwise_add = _mod.elemwise_add
+
+
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    """``dot`` over every storage type (``sparse.dot`` where a side is
+    sparse)."""
+    if isinstance(lhs, BaseSparseNDArray) or isinstance(rhs,
+                                                        BaseSparseNDArray):
+        return sparse.dot(lhs, rhs, transpose_a=transpose_a,
+                          transpose_b=transpose_b)
+    return _dense_dot(lhs, rhs, transpose_a=transpose_a,
+                      transpose_b=transpose_b, **kw)
+
+
+def cast_storage(data, stype="default", **kw):
+    if isinstance(data, BaseSparseNDArray) or stype != "default":
+        return sparse.cast_storage(data, stype)
+    return _dense_cast_storage(data, stype=stype, **kw)
+
+
+def sparse_retain(data, indices, **kw):
+    return sparse.sparse_retain(data, indices)
+
+
+_sparse_retain = sparse_retain
+
+
+def elemwise_add(lhs, rhs, **kw):
+    if isinstance(lhs, BaseSparseNDArray) and isinstance(rhs,
+                                                         BaseSparseNDArray):
+        return sparse.add(lhs, rhs)
+    return _dense_elemwise_add(lhs, rhs, **kw)
+
 
 # ------------------------------------------------- module-level arithmetic
 add = _op.add

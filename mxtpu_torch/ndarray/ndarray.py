@@ -96,6 +96,9 @@ class NDArray:
 
     __slots__ = ("_data", "_ctx", "grad", "_grad_req", "_tape_gen",
                  "_tape_deps", "__weakref__")
+    #: the storage type: "default" (dense); ``sparse.CSRNDArray`` and
+    #: ``sparse.RowSparseNDArray`` are "csr" and "row_sparse"
+    stype = "default"
 
     def __init__(self, data, ctx=None):
         self._data = data
@@ -402,6 +405,13 @@ class NDArray:
 
     def transpose(self, axes=None):
         return invoke_op("transpose", [self], {"axes": axes or ()})[0]
+
+    def tostype(self, stype):
+        """This array in storage ``stype`` ("default": itself)."""
+        if stype in (None, "default"):
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
 
 # ---------------------------------------------------------------- invoke

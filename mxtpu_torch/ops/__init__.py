@@ -11,7 +11,8 @@ from . import random_ops
 from . import spatial
 from . import custom
 from . import optimizer_ops
+from . import linalg
 
 __all__ = ["registry", "collective", "tensor", "epilogue", "nn",
            "attention", "rnn", "contrib", "random_ops", "spatial", "custom",
-           "optimizer_ops"]
+           "optimizer_ops", "linalg"]

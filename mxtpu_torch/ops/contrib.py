@@ -1,5 +1,5 @@
-"""Contrib operators of the SSD detector: the MultiBox trio and the
-suppression sweep.
+"""Contrib operators: the SSD detector's MultiBox trio and suppression
+sweep, quantize/dequantize, fft/ifft, count_sketch and CTCLoss.
 
 Counterpart of ``mxtpu/ops/contrib.py:1-292``: ``_box_iou_corner``
 (:23), ``_contrib_MultiBoxPrior`` (:43-86: anchors, a pure function of
@@ -9,9 +9,10 @@ hard-negative mining and the location encoding) and
 ``_contrib_MultiBoxDetection`` (:237-284: decoding, the score sort, the
 ``nms_topk`` cut and the suppression sweep), each with its alias, arg
 names and attr defaults. mxtpu vmaps each op over the batch; here the
-batch is a dimension written out. The quantize, fft, CTC and
-count_sketch ops of that module are ported with the rest of the op
-library.
+batch is a dimension written out. Then the rest of that module
+(:298-483): ``_contrib_quantize``/``_contrib_dequantize``,
+``_contrib_fft``/``_contrib_ifft``, ``_contrib_count_sketch`` and
+``_contrib_CTCLoss`` with its aliases, each with mxtpu's gradient.
 
 The sweep (``_nms_scan`` :214, an XLA ``lax.scan`` over the
 score-sorted candidates) is ``nms_keep``: a hand-written CUDA kernel for
@@ -22,8 +23,17 @@ block an image; ``nms_plan`` sizes both launches and the scratch) and
 batch, for a CPU tensor. Nothing falls back: on the card the kernel runs
 or the call raises. ``nms_keep.launches`` counts kernel launches.
 
-The three ops are not differentiable (mxtpu's gradient sweep lists them
-so, ``tests/test_op_gradient_sweep.py:290-292``): their inputs are
+CTC's recursion (``_ctc_loss_one`` :355, an XLA ``lax.scan`` over time
+whose gradient is ``jax.grad`` of it) is the kernel pair of
+``csrc/ctc_loss.cu`` for a CUDA tensor (``ctc_loss_fwd``: the loss and
+every step's alpha; ``ctc_loss_bwd``: the adjoint of the scan over the
+stored alphas, then the log-softmax's; each ``.launches`` counts its
+launches) and ``ctc_loss_reference``, the scan as a loop over t with
+autograd's gradient, for a CPU tensor. The log-softmax and the labels'
+compaction (``ctc_labels``) run as torch ops before the launch.
+
+The three MultiBox ops are not differentiable (mxtpu's gradient sweep
+lists them so, ``tests/test_op_gradient_sweep.py:290-292``): their inputs are
 detached, and on meta tensors (shape inference) they return empty
 outputs of the right shapes. Every sort is stable, as ``jnp.argsort``
 is: ties (the candidates under the threshold at -inf, the anchors
@@ -38,10 +48,11 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
-from .registry import register, set_replicas
+from .registry import Required, register, set_replicas
 
 __all__ = ["nms_keep", "nms_keep_reference", "nms_plan",
-           "detection_candidates"]
+           "detection_candidates", "ctc_loss", "ctc_labels",
+           "ctc_loss_reference", "ctc_loss_fwd", "ctc_loss_bwd"]
 
 KERNEL = "multibox_nms"
 NMS_TILE = 64  # candidates a tile of the bit matrix, bits a word
@@ -409,3 +420,355 @@ register("_contrib_MultiBoxDetection", _multibox_detection,
 set_replicas(["_contrib_MultiBoxPrior", "MultiBoxPrior",
               "_contrib_MultiBoxTarget", "MultiBoxTarget",
               "_contrib_MultiBoxDetection", "MultiBoxDetection"])
+
+
+# ------------------------------------------------------------- quantization
+def _quantize(a, data, min_range, max_range):
+    """float -> uint8 affine quantization (mxtpu/ops/contrib.py:298):
+    ``clip(round((data - mn) * 255 / max(mx - mn, 1e-8)), 0, 255)``,
+    rounding half to even; the range comes back as two (1,) outputs."""
+    mn = min_range.reshape(())
+    mx = max_range.reshape(())
+    scale = 255.0 / torch.maximum(mx - mn, mx.new_tensor(1e-8))
+    q = torch.clamp(torch.round((data - mn) * scale), 0, 255).to(
+        torch.uint8)
+    return q, mn.reshape(1), mx.reshape(1)
+
+
+register("_contrib_quantize", _quantize,
+         arg_names=["data", "min_range", "max_range"],
+         attrs={"out_type": "uint8"}, num_outputs=3)
+
+
+def _dequantize(a, data, min_range, max_range):
+    """uint8 -> float32 (mxtpu/ops/contrib.py:313); the gradient reaches
+    ``min_range`` and ``max_range`` through ``max(mx - mn, 1e-8)``."""
+    mn = min_range.reshape(())
+    mx = max_range.reshape(())
+    scale = torch.maximum(mx - mn, mx.new_tensor(1e-8)) / 255.0
+    return data.to(torch.float32) * scale + mn
+
+
+register("_contrib_dequantize", _dequantize,
+         arg_names=["data", "min_range", "max_range"],
+         attrs={"out_type": "float32"})
+
+
+# ---------------------------------------------------------------------- fft
+def _fft(a, data):
+    """FFT of real rows along the last axis, re/im interleaved: the last
+    dimension doubles (mxtpu/ops/contrib.py:330)."""
+    f = torch.fft.fft(data.to(torch.complex64), dim=-1)
+    out = torch.stack([f.real, f.imag], dim=-1)
+    return out.reshape(data.shape[:-1] + (2 * data.shape[-1],)).to(
+        torch.float32)
+
+
+register("_contrib_fft", _fft, attrs={"compute_size": 128})
+
+
+def _ifft(a, data):
+    """Interleaved re/im -> the real part of the inverse FFT, times n: the
+    result is not normalized (mxtpu/ops/contrib.py:341)."""
+    n = data.shape[-1] // 2
+    c = data.reshape(data.shape[:-1] + (n, 2))
+    out = torch.fft.ifft(torch.complex(c[..., 0], c[..., 1]), dim=-1)
+    return (out.real * n).to(torch.float32)
+
+
+register("_contrib_ifft", _ifft, attrs={"compute_size": 128})
+
+
+# -------------------------------------------------------------- count_sketch
+def _count_sketch(a, data, h, s):
+    """``out[..., h[i]] += s[i] * data[..., i]`` (mxtpu/ops/contrib.py:467):
+    ``h`` truncated to int32, a negative index counted from the end, and
+    an index outside [-out_dim, out_dim) dropped, as mxtpu's scatter
+    does; repeated indices add."""
+    out_dim = int(a.out_dim)
+    idx = h.reshape(-1).to(torch.int32).to(torch.int64)
+    idx = torch.where(idx < 0, idx + out_dim, idx)
+    keep = (idx >= 0) & (idx < out_dim)
+    contrib = data * s.reshape(-1)
+    out = data.new_zeros(data.shape[:-1] + (out_dim,))
+    if data.device.type == "meta":
+        return out
+    kept = keep.nonzero().reshape(-1)
+    return out.index_add(-1, idx[kept], contrib.index_select(-1, kept))
+
+
+register("_contrib_count_sketch", _count_sketch,
+         arg_names=["data", "h", "s"],
+         attrs={"out_dim": Required(int), "processing_batch_size": 32})
+
+
+# ------------------------------------------------------------------ CTCLoss
+CTC_KERNEL = "ctc_loss"
+CTC_NEG = -1e30  # mxtpu's log-domain zero: finite, so -1e30 + x is -1e30
+
+
+def ctc_labels(label, num_classes, blank_first, label_lengths=None):
+    """mxtpu's label preparation (mxtpu/ops/contrib.py:370-383) for every
+    sequence at once: labels cast to int32, the valid ones (those below
+    ``label_lengths`` where given, else above 0 with the blank first, or
+    not negative with the blank last) moved to the front in order by a
+    stable sort, then clipped to [0, C - 1]. Returns (labels (N, L)
+    int32, the count of valid labels (N,) int32)."""
+    lab = label.to(torch.int32)
+    L = lab.shape[1]
+    if label_lengths is not None:
+        valid = torch.arange(L, device=lab.device)[None, :] < \
+            label_lengths.to(torch.int32).reshape(-1, 1)
+    elif blank_first:
+        valid = lab > 0
+    else:
+        valid = lab >= 0
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    lab = torch.gather(lab, 1, order).clamp(0, num_classes - 1)
+    return lab.contiguous(), valid.sum(1).to(torch.int32)
+
+
+def ctc_extended(lab, n_lab, blank):
+    """The extended label [blank, l1, blank, l2, ..., blank] (N, S), the
+    states a sequence reaches (N, S) and the skip transitions allowed
+    (N, S): s - 2 -> s where ext[s] is not the blank and differs from
+    ext[s - 2]."""
+    N, L = lab.shape
+    S = 2 * L + 1
+    ext = torch.full((N, S), blank, dtype=torch.int64, device=lab.device)
+    ext[:, 1::2] = lab.to(torch.int64)
+    s_idx = torch.arange(S, device=lab.device)
+    s_valid = s_idx[None, :] < 2 * n_lab.to(torch.int64)[:, None] + 1
+    ext_m2 = torch.cat([torch.full((N, 2), blank, dtype=torch.int64,
+                                   device=lab.device), ext[:, :-2]], 1)
+    can_skip = (ext != blank) & (ext != ext_m2) & (s_idx[None, :] >= 2)
+    return ext, s_valid, can_skip
+
+
+def ctc_loss_reference(data, lab, n_lab, data_len, blank):
+    """The plain version of the CTC pair: mxtpu's scan (``_ctc_loss_one``
+    :355) as a loop over t, vectorised over the sequences and the
+    states, with the log-domain zero -1e30 finite, the ``can_skip`` rule,
+    the ``isfinite(m)`` guard and the freeze past ``data_len`` (N,) int32;
+    its gradient is autograd's, through ``log_softmax`` as mxtpu's is
+    ``jax.grad``'s. data (T, N, C) -> the loss (N,); an infeasible
+    alignment gives 1e30."""
+    T, N, C = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    ext, s_valid, can_skip = ctc_extended(lab, n_lab, blank)
+    S = ext.shape[1]
+    neg = torch.tensor(CTC_NEG, dtype=logp.dtype, device=data.device)
+    rows = torch.arange(N, device=data.device)
+    s_idx = torch.arange(S, device=data.device)[None, :]
+    has = (n_lab > 0)[:, None]
+    first = logp[0, rows, ext[:, 1]][:, None]
+    alpha = torch.where(s_idx == 0, logp[0, :, blank][:, None],
+                        torch.where((s_idx == 1) & has, first, neg))
+    pad1 = neg.expand(N, 1)
+    pad2 = neg.expand(N, 2)
+    dlen = data_len.to(torch.int64)[:, None]
+    for t in range(1, T):
+        a_m1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        a_m2 = torch.where(can_skip, torch.cat([pad2, alpha[:, :-2]], 1),
+                           neg)
+        m = torch.maximum(torch.maximum(alpha, a_m1), a_m2)
+        tot = m + torch.log(torch.exp(alpha - m) + torch.exp(a_m1 - m)
+                            + torch.exp(torch.where(can_skip, a_m2, neg)
+                                        - m))
+        tot = torch.where(torch.isfinite(m), tot, neg)
+        new = torch.where(s_valid, tot + torch.gather(logp[t], 1, ext), neg)
+        alpha = torch.where(t < dlen, new, alpha)
+    n2 = 2 * n_lab.to(torch.int64)[:, None]
+    end1 = torch.gather(alpha, 1, n2)[:, 0]
+    end2 = torch.where(has[:, 0],
+                       torch.gather(alpha, 1, (n2 - 1).clamp(min=0))[:, 0],
+                       neg)
+    m = torch.maximum(end1, end2)
+    return -(m + torch.log(torch.exp(end1 - m) + torch.exp(end2 - m)))
+
+
+def _ctc_check(logp, lab, n_lab, data_len):
+    """Raise unless the kernels take these tensors: float32 logp (T, N,
+    C), int32 labels (N, L) and counts (N,), contiguous, on one CUDA
+    device. A sequence whose states do not fit a block's shared memory
+    is refused by the launcher, whose error the wrappers raise."""
+    if logp.dim() != 3 or lab.dim() != 2 or lab.shape[0] != logp.shape[1] \
+            or lab.shape[1] < 1 or logp.shape[0] < 1:
+        raise MXNetError("ctc_loss kernels: logp (T, N, C) %s and labels "
+                         "(N, L >= 1) %s do not fit"
+                         % (tuple(logp.shape), tuple(lab.shape)))
+    for name, v, dt in (("logp", logp, torch.float32),
+                        ("labels", lab, torch.int32),
+                        ("label counts", n_lab, torch.int32),
+                        ("data lengths", data_len, torch.int32)):
+        if v.dtype != dt or not v.is_contiguous():
+            raise MXNetError("ctc_loss kernels: %s must be contiguous %s, "
+                             "not %s" % (name, dt, v.dtype))
+        if not v.is_cuda or v.device != logp.device:
+            raise MXNetError("ctc_loss kernels: %s is on %s; every input "
+                             "must be on one CUDA device" % (name, v.device))
+
+
+_ctc_lock = threading.Lock()
+_ctc_fns = None
+
+
+def _ctc_kernels():
+    global _ctc_fns
+    with _ctc_lock:
+        if _ctc_fns is None:
+            from .. import build
+            lib = build.load(CTC_KERNEL)
+            fwd = lib.ctc_loss_fwd
+            fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            fwd.restype = ctypes.c_int
+            bwd = lib.ctc_loss_bwd
+            bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            bwd.restype = ctypes.c_int
+            err = lib.ctc_loss_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _ctc_fns = (fwd, bwd, err)
+        return _ctc_fns
+
+
+def _ctc_stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ctc_loss_fwd(logp, lab, n_lab, data_len, blank):
+    """Launch the forward: the loss (N,) and every step's alpha (T, N, S)
+    float32 for the backward, from the log-probabilities (T, N, C) and
+    the prepared labels (``ctc_labels``). One launch, one block a
+    sequence; ``ctc_loss_fwd.launches`` counts them."""
+    _ctc_check(logp, lab, n_lab, data_len)
+    T, N, C = logp.shape
+    S = 2 * lab.shape[1] + 1
+    loss = torch.empty(N, dtype=torch.float32, device=logp.device)
+    alpha = torch.empty((T, N, S), dtype=torch.float32, device=logp.device)
+    if N == 0:
+        return loss, alpha
+    fwd, _, err = _ctc_kernels()
+    with torch.cuda.device(logp.device):
+        rc = fwd(logp.data_ptr(), lab.data_ptr(), n_lab.data_ptr(),
+                 data_len.data_ptr(), loss.data_ptr(), alpha.data_ptr(), T,
+                 N, C, lab.shape[1], int(blank), _ctc_stream(logp))
+    if rc != 0:
+        raise MXNetError("ctc_loss_fwd launch failed: %s (cuda error %d)"
+                         % (err(rc).decode(), rc))
+    with _ctc_lock:
+        ctc_loss_fwd.launches += 1
+    return loss, alpha
+
+
+ctc_loss_fwd.launches = 0
+
+
+def ctc_loss_bwd(grad, logp, alpha, lab, n_lab, data_len, blank):
+    """Launch the backward: d loss / d logits (T, N, C) float32 for the
+    head gradient ``grad`` (N,), the adjoint of mxtpu's scan run from the
+    last step down over the forward's ``alpha``, then through the
+    log-softmax. One launch, one block a sequence, no atomics: repeats
+    are bit-identical. ``ctc_loss_bwd.launches`` counts them."""
+    _ctc_check(logp, lab, n_lab, data_len)
+    T, N, C = logp.shape
+    S = 2 * lab.shape[1] + 1
+    if tuple(alpha.shape) != (T, N, S) or alpha.dtype != torch.float32 or \
+            not alpha.is_contiguous() or alpha.device != logp.device or \
+            grad.shape != (N,) or grad.dtype != torch.float32 or \
+            not grad.is_contiguous() or grad.device != logp.device:
+        raise MXNetError("ctc_loss_bwd: alpha %s and grad %s must be "
+                         "contiguous float32 (%d, %d, %d) and (%d,) on %s"
+                         % (tuple(alpha.shape), tuple(grad.shape), T, N, S,
+                            N, logp.device))
+    dx = torch.empty_like(logp)
+    if N == 0:
+        return dx
+    _, bwd, err = _ctc_kernels()
+    with torch.cuda.device(logp.device):
+        rc = bwd(grad.data_ptr(), logp.data_ptr(), alpha.data_ptr(),
+                 lab.data_ptr(), n_lab.data_ptr(), data_len.data_ptr(),
+                 dx.data_ptr(), T, N, C, lab.shape[1], int(blank),
+                 _ctc_stream(logp))
+    if rc != 0:
+        raise MXNetError("ctc_loss_bwd launch failed: %s (cuda error %d)"
+                         % (err(rc).decode(), rc))
+    with _ctc_lock:
+        ctc_loss_bwd.launches += 1
+    return dx
+
+
+ctc_loss_bwd.launches = 0
+
+
+class _CTCFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, lab, n_lab, data_len, blank):
+        logp = torch.log_softmax(data, dim=-1).contiguous()
+        loss, alpha = ctc_loss_fwd(logp, lab, n_lab, data_len, blank)
+        ctx.save_for_backward(logp, alpha, lab, n_lab, data_len)
+        ctx.blank = blank
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad):
+        logp, alpha, lab, n_lab, data_len = ctx.saved_tensors
+        dx = ctc_loss_bwd(grad.contiguous(), logp, alpha, lab, n_lab,
+                          data_len, ctx.blank)
+        return dx, None, None, None, None
+
+
+def ctc_loss(data, label, blank_label="first", data_lengths=None,
+             label_lengths=None):
+    """CTC's negative log-likelihood (N,) of ``label`` (N, L) under the
+    activations ``data`` (T, N, C), with mxtpu's conventions
+    (``ctc_labels``, ``ctc_loss_reference``): the kernel pair of
+    ``csrc/ctc_loss.cu`` on a CUDA tensor, the plain version on a CPU
+    one."""
+    T, N, C = data.shape
+    blank_first = str(blank_label) != "last"
+    blank = 0 if blank_first else C - 1
+    if data.device.type == "meta":
+        return torch.empty(N, dtype=data.dtype, device="meta")
+    lab, n_lab = ctc_labels(label, C, blank_first, label_lengths)
+    if data_lengths is None:
+        data_len = torch.full((N,), T, dtype=torch.int32, device=data.device)
+    else:
+        data_len = data_lengths.to(torch.int32).reshape(N).contiguous()
+    if data.device.type == "cpu":
+        return ctc_loss_reference(data, lab, n_lab, data_len, blank)
+    if data.dtype != torch.float32:
+        raise MXNetError("ctc_loss on %s takes float32 activations, not %s"
+                         % (data.device, data.dtype))
+    return _CTCFunction.apply(data.contiguous(), lab, n_lab, data_len, blank)
+
+
+def _ctc_op(a, data, label, *lengths):
+    """data (T, N, C), label (N, L), then ``data_lengths`` where
+    ``use_data_lengths`` and ``label_lengths`` where ``use_label_lengths``
+    (mxtpu/ops/contrib.py:419)."""
+    rest = list(lengths)
+    data_lengths = rest.pop(0) if a.use_data_lengths else None
+    label_lengths = rest.pop(0) if a.use_label_lengths else None
+    return ctc_loss(data, label.detach(), a.blank_label,
+                    None if data_lengths is None else data_lengths.detach(),
+                    None if label_lengths is None
+                    else label_lengths.detach())
+
+
+def _ctc_args(a):
+    names = ["data", "label"]
+    if a.get("use_data_lengths"):
+        names.append("data_lengths")
+    if a.get("use_label_lengths"):
+        names.append("label_lengths")
+    return names
+
+
+register("_contrib_CTCLoss", _ctc_op, arg_names=_ctc_args,
+         attrs={"use_data_lengths": False, "use_label_lengths": False,
+                "blank_label": "first"},
+         aliases=("CTCLoss", "ctc_loss", "_contrib_ctc_loss"),
+         loss_like=True)

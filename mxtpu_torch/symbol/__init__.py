@@ -14,7 +14,7 @@ from .symbol import (Group, NameManager, Symbol, Variable, create, load,
                      load_json, var)
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "NameManager", "create", "contrib", "maximum", "minimum",
+           "NameManager", "create", "contrib", "linalg", "maximum", "minimum",
            "hypot", "zeros", "ones", "full", "arange", "uniform", "normal",
            "pow"]
 
@@ -42,6 +42,7 @@ for _name in list_ops():
 zeros = _make_sym_fn("_zeros", get_op("_zeros"))
 
 contrib = _PrefixNS(_mod, "_contrib_")
+linalg = _PrefixNS(_mod, "_linalg_")
 
 
 def _either_side(op, scalar_op, plain):

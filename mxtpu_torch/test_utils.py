@@ -2,7 +2,11 @@
 
 Counterpart of ``mxtpu/test_utils.py:19-90``: ``default_context``,
 ``set_default_context``, ``default_dtype``, ``same``, ``almost_equal``
-and ``assert_almost_equal`` (with ``find_max_violation``). The default
+and ``assert_almost_equal`` (with ``find_max_violation``), and the
+sparse helpers (:40, :378-490): ``rand_ndarray`` (with ``stype``),
+``rand_sparse_ndarray``, ``create_sparse_array``,
+``create_sparse_array_zd`` and ``shuffle_csr_column_indices``, drawing
+from a module ``RandomState(1234)`` as mxtpu's do. The default
 context is the port's, ``gpu(0)`` unless a ``with ctx:`` scope or
 ``set_default_context`` names another: it raises on a host without
 CUDA, as every entry point of the port does.
@@ -18,7 +22,11 @@ from . import ndarray as nd
 
 __all__ = ["default_context", "set_default_context", "default_dtype",
            "same", "find_max_violation", "assert_almost_equal",
-           "almost_equal", "make_rec", "make_det_rec"]
+           "almost_equal", "make_rec", "make_det_rec", "rand_ndarray",
+           "rand_sparse_ndarray", "create_sparse_array",
+           "create_sparse_array_zd", "shuffle_csr_column_indices"]
+
+_rng = _np.random.RandomState(1234)
 
 
 def default_context():
@@ -111,3 +119,58 @@ def make_det_rec(path, n, edge=300, num_classes=20, seed=0, quality=90):
                                            img_fmt=".jpg"))
     rec.close()
     return path
+
+
+def rand_ndarray(shape, stype="default", density=None):
+    """A random NDArray of ``shape``: uniform in [-1, 1), or sparse of
+    ``stype`` (``rand_sparse_ndarray``)."""
+    if stype != "default":
+        arr, _ = rand_sparse_ndarray(shape, stype, density=density)
+        return arr
+    return nd.array(_rng.uniform(-1, 1, size=shape))
+
+
+def _dense_to_sparse(dense, stype):
+    from .ndarray import sparse
+    if stype == "csr":
+        return sparse.csr_matrix(dense)
+    if stype == "row_sparse":
+        return sparse.row_sparse_array(dense)
+    raise ValueError("unknown storage type %s" % stype)
+
+
+def rand_sparse_ndarray(shape, stype, density=None, dtype=None):
+    """(a random sparse NDArray of ``stype``, its dense numpy twin): values
+    uniform in [-1, 1), each kept with probability ``density`` (0.3)."""
+    density = 0.3 if density is None else density
+    dtype = _np.float32 if dtype is None else _np.dtype(dtype)
+    dense = _rng.uniform(-1, 1, size=shape).astype(dtype)
+    dense[_rng.uniform(size=shape) > density] = 0
+    return _dense_to_sparse(dense, stype), dense
+
+
+def create_sparse_array(shape, stype, data_init=None, density=0.5,
+                        dtype=None):
+    """A sparse NDArray filled with ``data_init`` or random values in [0,
+    1) kept with probability ``density``."""
+    dtype = _np.float32 if dtype is None else _np.dtype(dtype)
+    if data_init is not None:
+        dense = _np.full(shape, data_init, dtype)
+    else:
+        dense = _rng.uniform(0, 1, size=shape).astype(dtype)
+        dense[_rng.uniform(size=shape) > density] = 0
+    return _dense_to_sparse(dense, stype)
+
+
+def create_sparse_array_zd(shape, stype, density=0.05, **kwargs):
+    """A random sparse NDArray that may hold no value at all (numpy's
+    global generator, as mxtpu's)."""
+    del kwargs
+    dense = _np.random.rand(*shape) * (_np.random.rand(*shape) < density)
+    return nd.array(dense.astype("float32")).tostype(stype)
+
+
+def shuffle_csr_column_indices(csr):
+    """mxtpu's stand-in: the dense values of ``csr`` (a dense round trip
+    keeps no index order to shuffle)."""
+    return csr.asnumpy()

@@ -62,7 +62,13 @@ the sum in (ROI, ph, pw) order where a pixel is in thousands of bins,
 and its refusals; Proposal with the suppression kernel against the plain
 Proposal on the same card inputs, bit for bit, at K = 12,000 and 6,000;
 every spatial case on CUDA tensors against cpu(); a Custom op and the
-update ops on the card; the example Faster R-CNN's step on gpu(0).
+update ops on the card; the example Faster R-CNN's step on gpu(0). A.7's
+last names and A.4.3: every linalg and contrib case of
+``final_op_cases.py`` on CUDA tensors against cpu(); the CTC kernel pair
+against its plain version on the same card tensors at every CTC case, a
+speech shape, 3,000 classes and 2,201 states, and its refusals; Gluon's
+CTCLoss on gpu(0) against cpu(); the sparse dots and a row_sparse pull
+on the card.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -2344,3 +2350,260 @@ def test_example_rcnn_step_on_gpu(cuda):
         assert all(np.isfinite(o).all() for o in got)
         outs.append(got)
     np.testing.assert_allclose(outs[0][0], outs[1][0], atol=1e-4)
+
+
+# A.7's last names and A.4.3: linalg.py, the rest of contrib.py and the
+# sparse NDArray on the card. Every linalg and contrib case of
+# final_op_cases.py on CUDA tensors against cpu(); the CTC kernel pair
+# against its plain version on the same card tensors (the loss within
+# 1e-5 relative, 1e30 where the plain version gives it, the gradient
+# within 1e-5 of the largest, NaN at the same places, bit-identical on
+# repeat, one launch each a call) at every CTC case and a speech shape,
+# and its refusals; Gluon's CTCLoss under autograd; the sparse dots and
+# row_sparse_pull with the store on the card
+from final_op_cases import CONTRIB_CASES as _CONTRIB  # noqa: E402
+from final_op_cases import CTC_CASES as _CTC  # noqa: E402
+from final_op_cases import LINALG_CASES as _LINALG  # noqa: E402
+from final_op_cases import ctc_inputs as _ctc_inputs  # noqa: E402
+
+
+def _final_op(torch, name, arrays, attrs, diff, outs, device):
+    import numpy as np
+    import mxtpu_torch as mt
+    xs = [torch.from_numpy(a.copy()).to(device) for a in arrays]
+    for i in diff:
+        xs[i].requires_grad_()
+    op = mt.ops.registry.get_op(name)
+    res = op.apply(op.parse_attrs(dict(attrs)), xs, device)
+    grads = []
+    if diff:
+        rng = np.random.RandomState(7)
+        heads = [torch.from_numpy(rng.randn(*res[k].shape).astype(
+            np.float32)).to(device) for k in outs]
+        grads = list(torch.autograd.grad([res[k] for k in outs],
+                                         [xs[i] for i in diff], heads))
+    return [t.detach().cpu() for t in list(res) + grads], len(res)
+
+
+@pytest.mark.parametrize("name,arrays,attrs,diff,outs", _LINALG + _CONTRIB,
+                         ids=["%s-%d" % (c[0], i) for i, c in
+                              enumerate(_LINALG + _CONTRIB)])
+def test_final_ops_on_the_card_match_cpu(cuda, name, arrays, attrs, diff,
+                                         outs):
+    torch, _ = cuda
+    got, n_out = _final_op(torch, name, arrays, attrs, diff, outs, "cuda")
+    torch.cuda.synchronize()
+    want, _ = _final_op(torch, name, arrays, attrs, diff, outs, "cpu")
+    assert len(got) == len(want)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if not w.is_floating_point():
+            assert torch.equal(g, w)
+            continue
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        fin = ~torch.isnan(w)
+        tol = 1e-5 if j < n_out else 1e-4
+        if fin.any():
+            scale = max(1.0, float(w[fin].abs().max()))
+            assert float((g[fin] - w[fin]).abs().max()) <= tol * scale, j
+
+
+def _ctc_kernel_vs_plain(torch, x, lab, blank_label, dl, ll, head):
+    from mxtpu_torch.ops import contrib
+    before = (contrib.ctc_loss_fwd.launches, contrib.ctc_loss_bwd.launches)
+    runs = []
+    for _ in range(2):
+        xt = x.clone().requires_grad_()
+        loss = contrib.ctc_loss(xt, lab, blank_label, dl, ll)
+        (g,) = torch.autograd.grad(loss, [xt], head)
+        runs.append((loss.detach(), g))
+    torch.cuda.synchronize()
+    assert (contrib.ctc_loss_fwd.launches, contrib.ctc_loss_bwd.launches) \
+        == (before[0] + 2, before[1] + 2)
+    T, N, C = x.shape
+    first = blank_label != "last"
+    labs, n_lab = contrib.ctc_labels(lab, C, first, ll)
+    dlen = torch.full((N,), T, dtype=torch.int32, device="cuda") \
+        if dl is None else dl.to(torch.int32)
+    xt = x.clone().requires_grad_()
+    want = contrib.ctc_loss_reference(xt, labs, n_lab, dlen,
+                                      0 if first else C - 1)
+    (want_g,) = torch.autograd.grad(want, [xt], head)
+    want = want.detach()
+    (loss, g), (loss2, g2) = runs
+    assert torch.equal(loss, loss2)
+    assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(g2))
+    big = want == 1e30
+    assert torch.equal(loss == 1e30, big)
+    if (~big).any():
+        rel = (loss - want).abs() / want.abs().clamp(min=1.0)
+        assert float(rel[~big].max()) <= 1e-5
+    nan = torch.isnan(want_g)
+    assert torch.equal(torch.isnan(g), nan)
+    scale = max(1e-30, float(want_g[~nan].abs().max()))
+    assert float((g - want_g)[~nan].abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("case", _CTC, ids=[c[0] for c in _CTC])
+def test_ctc_kernels_match_the_plain_version(cuda, case):
+    torch, _ = cuda
+    name, T, N, C, labels, attrs, dl, ll, nan = case
+    x, lab, extra, head = _ctc_inputs(T, N, C, labels, dl, ll, nan)
+    it = iter(extra)
+    dlt = torch.from_numpy(next(it)).cuda() \
+        if attrs.get("use_data_lengths") else None
+    llt = torch.from_numpy(next(it)).cuda() \
+        if attrs.get("use_label_lengths") else None
+    _ctc_kernel_vs_plain(torch, torch.from_numpy(x).cuda(),
+                         torch.from_numpy(lab).cuda(),
+                         attrs.get("blank_label", "first"), dlt, llt,
+                         torch.from_numpy(head).cuda())
+
+
+@pytest.mark.parametrize("T,N,C,L", [(800, 32, 29, 200), (50, 3, 3000, 600),
+                                     (40, 2, 5, 1100)])
+def test_ctc_kernels_at_speech_and_wide_shapes(cuda, T, N, C, L):
+    """The speech shape; 3,000 classes (a wide class row); 2,201 states
+    (more than a block's threads: each thread walks several)."""
+    import numpy as np
+    torch, _ = cuda
+    rng = np.random.RandomState(T + C)
+    x = torch.from_numpy(rng.randn(T, N, C).astype(np.float32)).cuda()
+    lab = rng.randint(1, C, (N, L)).astype(np.float32)
+    lab[:, L // 2 + rng.randint(0, L // 2):] = 0
+    head = torch.from_numpy((rng.rand(N) + 0.5).astype(np.float32)).cuda()
+    _ctc_kernel_vs_plain(torch, x, torch.from_numpy(lab).cuda(), "first",
+                         None, None, head)
+
+
+@pytest.mark.parametrize("case", ["float64", "cpu_labels", "no_labels",
+                                  "non_contiguous", "states_past_shared",
+                                  "adjoints_past_shared"])
+def test_ctc_kernels_refuse_what_they_do_not_take(cuda, case):
+    """Inputs the kernels do not take raise; so do sequences whose states
+    (forward: 2 words a state) or adjoints (backward: 8 words a state)
+    do not fit a block's shared memory, refused by the launchers, after
+    which the next launch runs."""
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import contrib
+    torch, _ = cuda
+    x = torch.randn(6, 2, 5, device="cuda")
+    lab = torch.tensor([[1.0, 2.0], [3.0, 0.0]], device="cuda")
+    if case == "float64":
+        with pytest.raises(mt.MXNetError, match="float32"):
+            contrib.ctc_loss(x.double(), lab)
+        return
+    labs, n_lab = contrib.ctc_labels(lab, 5, True)
+    dlen = torch.full((2,), 6, dtype=torch.int32, device="cuda")
+    logp = torch.log_softmax(x, -1)
+    if case.endswith("past_shared"):
+        L = 15000 if case == "states_past_shared" else 4000
+        labs = torch.ones((2, L), dtype=torch.int32, device="cuda")
+        n_lab = torch.full((2,), L, dtype=torch.int32, device="cuda")
+        with pytest.raises(mt.MXNetError, match="launch failed"):
+            if case == "states_past_shared":
+                contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, 0)
+            else:
+                alpha = torch.zeros((6, 2, 2 * L + 1), device="cuda")
+                contrib.ctc_loss_bwd(torch.ones(2, device="cuda"), logp,
+                                     alpha, labs, n_lab, dlen, 0)
+        labs, n_lab = contrib.ctc_labels(lab, 5, True)
+        loss, _ = contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, 0)
+        assert bool(torch.isfinite(loss).all())
+        return
+    if case == "cpu_labels":
+        labs = labs.cpu()
+    elif case == "no_labels":
+        labs = labs[:, :0].contiguous()
+    else:
+        logp = logp.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(mt.MXNetError, match="ctc_loss kernels"):
+        contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, 0)
+
+
+def test_gluon_ctc_loss_on_the_card(cuda):
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import contrib
+    torch, _ = cuda
+    x, lab, _, _ = _ctc_inputs(7, 3, 5, [[1, 2, 0], [3, 3, 4], [4, 1, 2]],
+                               None, None, None, seed=6)
+    pred = x.transpose(1, 0, 2).copy()
+    outs = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        with ctx:
+            loss_fn = mt.gluon.loss.CTCLoss()
+            loss_fn.hybridize()
+            p = mt.nd.array(pred)
+            p.attach_grad()
+            before = contrib.ctc_loss_fwd.launches
+            with mt.autograd.record():
+                out = loss_fn(p, mt.nd.array(lab))
+            out.backward()
+            outs.append((out.asnumpy(), p.grad.asnumpy(),
+                         contrib.ctc_loss_fwd.launches - before))
+    (lg, gg, launched), (lc, gc, none) = outs
+    assert launched == 1 and none == 0
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(gg, gc, rtol=0, atol=1e-5 * np.abs(gc).max())
+
+
+def test_sparse_ops_on_the_card(cuda):
+    """add (row_sparse and csr), sparse_retain, copy, a row slice, the
+    components' rebuild after a dense write and row_sparse_pull on
+    gpu(0): every component stays on the card and equals cpu()'s."""
+    import contextlib
+
+    import numpy as np
+    import mxtpu_torch as mt
+    torch, _ = cuda
+    from final_op_cases import sparse_device_ops
+    outs = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        with ctx:
+            arrays = sparse_device_ops(mt, contextlib.nullcontext)
+        parts = []
+        for a in arrays:
+            comps = a._components()
+            assert all(c.device == ctx.torch_device for c in comps), a
+            parts.append([a.stype, a.shape, np.dtype(a.dtype).name]
+                         + [c.cpu().numpy() for c in comps])
+        outs.append(parts)
+    for g, w in zip(*outs):
+        assert g[:3] == w[:3]
+        for gc, wc in zip(g[3:], w[3:]):
+            assert gc.dtype == wc.dtype and gc.shape == wc.shape
+            np.testing.assert_allclose(gc, wc, rtol=0, atol=1e-6)
+
+
+def test_sparse_dots_and_row_sparse_pull_on_the_card(cuda):
+    """csr·dense and csrᵀ·dense on the card against the CPU's; a
+    row_sparse pull from a store on the card lands there."""
+    import numpy as np
+    import mxtpu_torch as mt
+    torch, _ = cuda
+    rng = np.random.RandomState(0)
+    dense = rng.randn(64, 500).astype(np.float32)
+    dense[rng.rand(64, 500) > 0.05] = 0
+    w = rng.randn(500, 3).astype(np.float32)
+    e = rng.randn(64, 3).astype(np.float32)
+    got, want = [], []
+    for ctx, out in ((mt.gpu(0), got), (mt.cpu(), want)):
+        with ctx:
+            c = mt.nd.sparse.csr_matrix(dense)
+            out.append(mt.nd.dot(c, mt.nd.array(w)).asnumpy())
+            r = mt.nd.dot(c, mt.nd.array(e), transpose_a=True)
+            assert r.data._data.device == ctx.torch_device
+            out += [r.indices.asnumpy(), r.data.asnumpy()]
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-5)
+    with mt.gpu(0):
+        store = mt.kv.create("local")
+        store.init("w", mt.nd.array(w))
+        rows = mt.nd.sparse.zeros("row_sparse", (500, 3))
+        store.row_sparse_pull("w", out=rows, row_ids=mt.nd.array(
+            np.array([7.0, 2.0, 7.0])))
+    assert rows.data._data.is_cuda
+    assert rows.indices.asnumpy().tolist() == [2, 7]
+    np.testing.assert_array_equal(rows.data.asnumpy(), w[[2, 7]])

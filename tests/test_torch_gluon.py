@@ -13,7 +13,7 @@
 - Hybridized and imperative agree (the port's own two paths) within
   1e-5; BatchNorm's running statistics move in training and not at
   inference.
-- Every ported loss (all of mxtpu's but CTCLoss, which raises) with and
+- Every ported loss (all of mxtpu's; CTCLoss in test_torch_ctc.py) with and
   without a sample weight, imperative and hybridized (MaxMargin:
   imperative, as in mxtpu), value and gradient of the prediction within
   1e-5 and 1e-4 of the largest.
@@ -351,10 +351,15 @@ def test_loss_matches_mxtpu(mt, name, kw, kind, hybridize, weighted):
 
 
 def test_ctc_loss_and_transposed_convolutions_raise(mt):
-    """CTCLoss still raises (its op waits in A.7); the transposed
-    convolutions and the rest of the zoo are ported now and build."""
-    with pytest.raises(mt.MXNetError, match="CTC"):
-        mt.gluon.loss.CTCLoss()
+    """CTCLoss builds now (its op came with A.7; ``test_torch_ctc.py``
+    holds it to mxtpu's) and raises only on a layout mxtpu refuses; the
+    transposed convolutions and the rest of the zoo are ported and
+    build."""
+    for layout, label_layout in (("NTC", "NT"), ("TNC", "TN")):
+        loss = mt.gluon.loss.CTCLoss(layout, label_layout)
+        assert loss._batch_axis == label_layout.find("N")
+    with pytest.raises(mt.MXNetError, match="CTCLoss"):
+        mt.gluon.loss.CTCLoss("NCT")
     for cls in ("Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose"):
         layer = getattr(mt.gluon.nn, cls)(4, 3)
         assert layer._op_name == "Deconvolution"

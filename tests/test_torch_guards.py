@@ -136,9 +136,10 @@ def test_explicit_cpu_context_is_honoured(mt):
 
 
 def test_import_builds_nothing_and_finds_the_sources(mt):
-    assert mt.build.sources() == ["bn_relu_epilogue", "flash_attn_bwd",
-                                  "flash_attn_fwd", "flash_attn_wide",
-                                  "multibox_nms", "roi_pooling"]
+    assert mt.build.sources() == ["bn_relu_epilogue", "ctc_loss",
+                                  "flash_attn_bwd", "flash_attn_fwd",
+                                  "flash_attn_wide", "multibox_nms",
+                                  "roi_pooling"]
     assert mt.build.build_log == {} or all(
         isinstance(v, dict) for v in mt.build.build_log.values())
     src, lib = mt.build._target("flash_attn_fwd")

@@ -24,12 +24,7 @@ def mt():
 
 
 def _dense(x):
-    """numpy of an NDArray of either package; the port's csr batches
-    densified."""
-    import torch
-    t = getattr(x, "_data", None)
-    if isinstance(t, torch.Tensor) and t.layout == torch.sparse_csr:
-        return t.to_dense().numpy()
+    """numpy of an NDArray of either package (a csr batch's dense view)."""
     return x.asnumpy()
 
 
@@ -166,9 +161,16 @@ def test_libsvm_iter_is_mxtpus(mt, tmp_path, dense):
     ours = mt.io.create_iterator("LibSVMIter", **args)
     _same(_batches(ours, 2), _batches(mx.io.LibSVMIter(**args), 2))
     if not dense:
-        import torch
         ours.reset()
-        assert ours.next().data[0]._data.layout == torch.sparse_csr
+        theirs = mx.io.LibSVMIter(**args)
+        for mine, ref in zip(ours, theirs):
+            x, y = mine.data[0], ref.data[0]
+            assert isinstance(x, mt.nd.CSRNDArray) and x.stype == "csr"
+            assert x.context == mt.cpu() and x.shape == y.shape
+            for part in ("data", "indices", "indptr"):
+                got, want = getattr(x, part), getattr(y, part)
+                assert got.dtype == want.dtype, part
+                np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
         wide = dict(args, batch_size=11)  # pad beyond the row count
         _same(_batches(mt.io.LibSVMIter(**wide)),
               _batches(mx.io.LibSVMIter(**wide)))

@@ -3,8 +3,9 @@
 - Every case of mxtpu's ``tests/test_kvstore.py`` run by one body
   through both packages (values exact: they are small integers). Where
   the port refuses what mxtpu runs (``dist_async``, mxtpu's TCP
-  parameter server; ``row_sparse_pull``, the sparse NDArray), the port
-  raises MXNetError naming the ROADMAP item.
+  parameter server), the port raises MXNetError naming the ROADMAP
+  item. ``row_sparse_pull`` into a dense and a row_sparse out, and a
+  row_sparse gradient pushed through the store's SGD, give mxtpu's rows.
 - ``model._create_kvstore``'s decision table against mxtpu's: no store
   for one device unless ``dist``; ``local`` with a parameter over 16 M
   elements updates on the devices.
@@ -127,18 +128,46 @@ def test_kvstore_types_and_rank(pkg):
         pkg.kv.create("unknown_type")
 
 
-def test_row_sparse_pull(pkg):
+def _row_sparse_pulls(pkg, kind):
+    """A dense and a row_sparse pull of rows [2, 0, 2], then a row_sparse
+    gradient pushed through SGD and the rows pulled again."""
     nd = pkg.nd
-    store = pkg.kv.create("local")
+    store = pkg.kv.create(kind)
     store.init("emb", nd.array(np.arange(12).reshape(4, 3).astype("f4")))
     out = nd.zeros((4, 3))
-    rows = nd.array(np.array([0., 2.]))
-    if _is_port(pkg):
-        with pytest.raises(pkg.MXNetError, match="A.7"):
-            store.row_sparse_pull("emb", out=out, row_ids=rows)
-        return
+    rows = nd.array(np.array([2., 0., 2.]))
     store.row_sparse_pull("emb", out=out, row_ids=rows)
-    assert out.shape == (4, 3)
+    sp = nd.sparse.zeros("row_sparse", (4, 3))
+    store.row_sparse_pull("emb", out=sp, row_ids=rows)
+    got = [out.asnumpy(), sp.indices.asnumpy(), sp.data.asnumpy(),
+           sp.asnumpy()]
+    store.set_optimizer(pkg.optimizer.SGD(learning_rate=0.5,
+                                          rescale_grad=1.0))
+    grad = nd.array(np.array([[0, 0, 0], [1, 2, 3], [0, 0, 0], [4, 5, 6]],
+                             "f4")).tostype("row_sparse")
+    store.push("emb", grad)
+    after = nd.sparse.zeros("row_sparse", (4, 3))
+    store.row_sparse_pull("emb", out=after, row_ids=nd.array(
+        np.array([3., 1.])))
+    return got + [grad.indices.asnumpy(), after.indices.asnumpy(),
+                  after.data.asnumpy(), after.stype]
+
+
+@pytest.mark.parametrize("kind", ["local", "device", "dist_sync",
+                                  "dist_device_sync"])
+def test_row_sparse_pull(mt, kind):
+    with mx.cpu():
+        want = _row_sparse_pulls(mx, kind)
+    with mt.cpu():
+        got = _row_sparse_pulls(mt, kind)
+    assert want[1].tolist() == [0, 2] and want[-1] == "row_sparse"
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, str):
+            assert g == w
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
 
 
 def test_push_keeps_the_callers_array_and_pull_writes_in_place(mt):

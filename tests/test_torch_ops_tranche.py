@@ -9,7 +9,7 @@ gradient, with infinities and NaNs at the same places. The inputs plant
 exact zeros, ties, the clip bounds, NaN and -0.0 for the sorts, indices
 out of range, an int32 zero divisor, and integer and float16 arrays
 where mxtpu takes them (``op_tranche_cases.py``). Then a census of the
-port's names against mxtpu's registry.
+port's names against mxtpu's registry: all 290.
 
 torch is imported lazily and pinned to one thread: several test workers
 share the host."""
@@ -196,21 +196,21 @@ def _module_names():
 
 
 def test_census_of_the_port_against_mxtpu(tt):
-    """263 of mxtpu's 290 names; the 27 left are exactly linalg.py's and
-    the rest of contrib.py's (CTC, fft/ifft, quantize/dequantize,
-    count_sketch). spatial.py's, custom.py's and optimizer_ops.py's
-    names are all in."""
+    """All 290 of mxtpu's names, and no other: every op module of mxtpu's
+    (linalg.py's 18 and contrib.py's CTC, fft/ifft, quantize/dequantize
+    and count_sketch the last in) is in whole, each name with its
+    signature (``test_every_ported_op_has_mxtpus_signature``)."""
     torch, mt = tt
     port = set(mt.ops.registry.list_ops())
     ref = set(jreg.list_ops())
-    assert port <= ref
-    assert len(ref) == 290 and len(port) == 263
+    assert len(ref) == 290 and len(port) == 290
+    assert port == ref
     by = _module_names()
-    for done in ("tensor", "nn", "spatial", "custom", "optimizer_ops"):
+    for done in ("tensor", "nn", "spatial", "custom", "optimizer_ops",
+                 "linalg", "contrib"):
         assert by[done] <= port, done
     left = {m: sorted(n - port) for m, n in by.items() if n - port}
-    assert {m: len(v) for m, v in left.items()} == {"linalg": 18,
-                                                    "contrib": 9}
+    assert left == {}
 
 
 def test_module_level_functions_over_the_new_ops(tt):

@@ -78,11 +78,13 @@ def test_infer_shape_names_the_missing_input(mt):
 
 
 def test_unknown_op_in_json_raises(mt):
-    # an op of mxtpu/ops/linalg.py, which the port has not taken over
+    # the port registers every op of mxtpu's, linalg.py's too: the graph
+    # loads, and an op name neither package has raises
     js = mx.sym.linalg_gemm2(mx.sym.Variable("a"),
                              mx.sym.Variable("b")).tojson()
-    with pytest.raises(mt.MXNetError, match="unknown op '_linalg_gemm2'"):
-        mt.symbol.load_json(js)
+    assert mt.symbol.load_json(js).list_arguments() == ["a", "b"]
+    with pytest.raises(mt.MXNetError, match="unknown op '_linalg_nothing'"):
+        mt.symbol.load_json(js.replace("_linalg_gemm2", "_linalg_nothing"))
 
 
 def test_bound_executor_runs_the_loaded_graph(mt):
