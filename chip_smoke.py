@@ -21,7 +21,9 @@ Phases (any failure raises and exits non-zero):
    tensor-core (HMMA) instructions (none is a failure). With ``--parent
    CSRC`` (the ``csrc`` directory of another tree, such as the parent
    commit or a variant of this one; repeatable) also build that tree's
-   flash sources (those it has) and print the same figures for them.
+   flash, ROIPooling and CTC sources (those it has), started before
+   this tree's so that every nvcc runs at once, and print the same
+   figures for them.
 3. Flash kernel vs plain: the flash-attention kernel against its plain
    PyTorch version on the card, at the LM path's shapes and at edge
    cases, in float32 (max abs err <= 2e-4) and bfloat16 (<= 2e-2); then,
@@ -332,8 +334,12 @@ Phases (any failure raises and exits non-zero):
    1e-5 of the largest, bit-identical on repeat; each kernel timed at
    the OCR and the speech shapes beside the plain version,
    ``F.ctc_loss`` (forward, and forward+backward), the function's bytes
-   bound and this route's bytes with the stored alpha, and both
-   gradients held to the float64 plain version.
+   bound, this route's bytes (the stored alpha and the backward's
+   cotangents) and the scan's route bound (T - 1 steps of one step's
+   dependent chain, ``CTC_STEP_CHAIN``, at the card's top SM clock),
+   and both gradients held to the float64 plain version. With
+   ``--parent``, the other tree's CTC pair in turns with this one at
+   both shapes, its loss bit for bit this one's.
 18. The sparse NDArray (``sparse``): the sparse example's flow
    (``models/sparse_linear.py``: LibSVMIter's ``CSRNDArray`` batches,
    ``row_sparse_pull`` from a local kvstore holding the weight on the
@@ -757,17 +763,18 @@ def check_flash_build(build):
 
 
 class ParentKernels:
-    """Another tree's flash and ROIPooling sources (``--parent``: its
+    """Another tree's flash, ROIPooling and CTC sources (``--parent``: its
     ``csrc`` directory; those of NAMES it holds), built with this tree's
     nvcc flags into ``build/mxtpu_torch/parent<index>``, the flash ones
     bound by ``attention.bind``, to time them in turns with this tree's
     kernels on the same inputs through the wrappers' own launch code
-    (``attention._launch``, ``_launch_bwd``), and ROIPooling's by
-    ``roi_binding``. ``kernels`` maps each launcher
-    (``attention._SOURCE``), and "roi_pooling", to its binding."""
+    (``attention._launch``, ``_launch_bwd``), ROIPooling's by
+    ``roi_binding`` and CTC's by ``ctc_binding``. ``kernels`` maps each
+    launcher (``attention._SOURCE``), "roi_pooling" and "ctc_loss" to its
+    binding."""
 
     NAMES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_wide",
-             "roi_pooling")
+             "roi_pooling", "ctc_loss")
 
     def __init__(self, build, csrc, index=0):
         self.csrc = csrc
@@ -799,6 +806,10 @@ class ParentKernels:
                 self.kernels[name] = roi_binding(
                     lib, roi_takes_tie_count(os.path.join(self.csrc,
                                                           name + ".cu")))
+            if name == "ctc_loss":
+                self.kernels[name] = ctc_binding(
+                    lib, ctc_takes_scratch(os.path.join(self.csrc,
+                                                        name + ".cu")))
             for launcher, source in att._SOURCE.items():
                 if source == name:
                     self.kernels[launcher] = att.bind(lib, launcher)
@@ -4063,36 +4074,6 @@ def multi_gpu(args, card):
     if "group2ctx" in phases:
         log("[multi_gpu group2ctx]")
         res["group2ctx"] = multi_group2ctx(mt, args.seed, card)
-    # 11. the SSD detector (BASELINE config 5)
-    if "ssd" in phases:
-        log("[ssd]")
-        results["ssd"] = phase_ssd(mt, args.seed, card)
-    # 12. the inference and inspection surface, and the head-dim-256 LM
-    if "surface" in phases:
-        log("[surface]")
-        results["surface"] = phase_surface(mt, att, epi, args.seed, card,
-                                           parents)
-    # 13. the record pipeline: configs 2 and 5 fed from .rec files
-    if "records" in phases:
-        log("[records]")
-        results["records"] = phase_records(mt, epi, args.seed, card,
-                                           results.get("resnet_training"))
-    # 15. the rest of the image zoo at full width and the op tranche
-    if "zoo" in phases:
-        log("[zoo]")
-        results["zoo"] = phase_zoo(mt, epi, args.seed, card)
-    # 16. the Faster R-CNN at VGG16's widths and the ROIPooling kernel
-    if "rcnn" in phases:
-        log("[rcnn]")
-        results["rcnn"] = phase_rcnn(mt, args.seed, card, parents)
-    # 17. the LSTM-OCR trained with CTC and the CTC kernel pair
-    if "ctc" in phases:
-        log("[ctc]")
-        results["ctc"] = phase_ctc(mt, args.seed, card)
-    # 18. the sparse NDArray, row_sparse_pull, linalg and contrib's rest
-    if "sparse" in phases:
-        log("[sparse]")
-        results["sparse"] = phase_sparse(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -8297,7 +8278,7 @@ def ctc_prepared(contrib, x, lab, blank_label, dl, ll):
     first = blank_label != "last"
     labs, n_lab = contrib.ctc_labels(lab, C, first, ll)
     dlen = (torch.full((N,), T, dtype=torch.int32, device=x.device)
-            if dl is None else dl.to(torch.int32).contiguous())
+            if dl is None else contrib.int_convert(dl).contiguous())
     return labs, n_lab, dlen, 0 if first else C - 1
 
 
@@ -8364,25 +8345,179 @@ def ctc_bytes(T, N, C, L):
     and writes the loss; the backward reads the head gradient, the logits
     and the labels and writes the gradient. This route's: the same, with
     every step's alpha (T, N, 2L + 1) written by the forward and read by
-    the backward."""
+    the backward, and the backward's per-state cotangents (the same
+    shape) written by its scan and read by its frames pass."""
     small = 4 * (N * L + 3 * N)
     alpha = 4 * T * N * (2 * L + 1)
     fwd = 4 * T * N * C + small
     bwd = 2 * 4 * T * N * C + small
     return {"fwd": fwd, "bwd": bwd, "route_fwd": fwd + alpha,
-            "route_bwd": bwd + alpha}
+            "route_bwd": bwd + 3 * alpha}
 
 
-def ctc_timed(contrib, x, lab, card, label, iters):
+#: The dependent chain of one step of the CTC scans: (what, instructions
+#: on the chain, cycles each), from Hopper's dependent-issue latencies
+#: (4 cycles an FP32 add, multiply, FMA, compare or select; ~24 a warp
+#: shuffle; ~16 a MUFU result). In the forward, the three expf run side
+#: by side, so one is on the chain. In the backward only the adjoint
+#: depends on the step before: the alpha terms (the max, the three expf,
+#: the sum, the tie tests) are known ahead and off the chain.
+CTC_STEP_CHAIN = {
+    "fwd": [("shuffle of alpha[s - 1] from the lane below", 1, 24),
+            ("XLA's NaN max, twice (compare, NaN test, select)", 6, 4),
+            ("x - m", 1, 4),
+            ("expf: range reduction and scale", 6, 4),
+            ("expf: MUFU.EX2", 1, 16),
+            ("the two adds of the three terms", 2, 4),
+            ("logf: reduction and polynomial (no MUFU in its SASS)", 16,
+             4),
+            ("+ m, isfinite select, + logp, s_valid select", 4, 4)],
+    "bwd": [("the cotangent's two selects", 2, 4),
+            ("the division by the sum: Newton fix-up", 5, 4),
+            ("the division: MUFU.RCP", 1, 16),
+            ("the weight q e1", 1, 4),
+            ("the max's share: three adds", 3, 4),
+            ("the tie-share product and FMA", 2, 4),
+            ("shuffle of the partials from the lane above", 1, 24),
+            ("G1 + G2 + G3", 2, 4),
+            ("the frozen select", 1, 4)]}
+
+
+def ctc_scan_bound_ms(T, sm_mhz):
+    """The route bound of a dependent scan: T - 1 steps (the forward's
+    and the backward's) times the cycles of one step's dependent chain
+    (CTC_STEP_CHAIN), at the SM clock ``sm_mhz``. No parallelism over
+    states or sequences shortens it."""
+    out = {"sm_mhz": sm_mhz}
+    for k, chain in CTC_STEP_CHAIN.items():
+        cycles = sum(n * c for _, n, c in chain)
+        out[k + "_cycles"] = cycles
+        out[k + "_ms"] = max(T - 1, 0) * cycles / (sm_mhz * 1e6) * 1e3
+    return out
+
+
+def sm_max_mhz():
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip())
+
+
+def ctc_takes_scratch(src):
+    """Whether the ctc_loss.cu at ``src`` has this tree's interface (the
+    backward takes a per-state cotangent scratch), not the earlier one."""
+    with open(src) as f:
+        text = f.read()
+    head = text[text.index("int ctc_loss_bwd("):]
+    return "void* ct" in head[:head.index(")")]
+
+
+def ctc_binding(lib, scratch):
+    """ctypes bindings of a built ctc_loss library on tensors, on the
+    current stream: ``fwd(logp, lab, n_lab, dlen, blank)`` -> (loss,
+    alpha) and ``bwd(grad, logp, alpha, lab, n_lab, dlen, blank)`` -> dx.
+    With ``scratch``, this tree's interface (the backward's (T, N, S)
+    cotangent scratch); without, the earlier one."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    f, b = lib.ctc_loss_fwd, lib.ctc_loss_bwd
+    f.argtypes = [P] * 6 + [I] * 5 + [P]
+    b.argtypes = [P] * (8 if scratch else 7) + [I] * 5 + [P]
+    f.restype = b.restype = I
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError("parent ctc_loss %s launch failed (cuda "
+                                 "error %d)" % (what, rc))
+
+    def fwd(logp, lab, n_lab, dlen, blank):
+        T, N, C = logp.shape
+        S = 2 * lab.shape[1] + 1
+        loss = logp.new_empty(N)
+        alpha = logp.new_empty((T, N, S))
+        args = [logp, lab, n_lab, dlen, loss, alpha]
+        ints = [T, N, C, lab.shape[1], blank]
+        check(f(*[t.data_ptr() for t in args], *ints,
+                torch.cuda.current_stream().cuda_stream), "forward")
+        return loss, alpha
+
+    def bwd(grad, logp, alpha, lab, n_lab, dlen, blank):
+        T, N, C = logp.shape
+        dx = torch.empty_like(logp)
+        args = [grad, logp, alpha, lab, n_lab, dlen]
+        if scratch:
+            args.append(torch.empty_like(alpha))
+        ints = [T, N, C, lab.shape[1], blank]
+        check(b(*[t.data_ptr() for t in args + [dx]], *ints,
+                torch.cuda.current_stream().cuda_stream), "backward")
+        return dx
+
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def ctc_against_parent(kernels, contrib, prepared, logp, head, iters, card,
+                       label):
+    """An earlier tree's CTC kernels (``--parent``) at one shape: its loss
+    against this tree's bit for bit (the forward's arithmetic is the
+    same, term for term), its gradient's largest difference from this
+    tree's (the class sums' order differs), and the forward, the backward
+    and the two together timed in turns (parent, this, this, parent)."""
+    labs, n_lab, dlen, blank = prepared
+    p_loss, p_alpha = kernels["fwd"](logp, labs, n_lab, dlen, blank)
+    p_dx = kernels["bwd"](head, logp, p_alpha, labs, n_lab, dlen, blank)
+    loss, alpha = contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, blank)
+    dx = contrib.ctc_loss_bwd(head, logp, alpha, labs, n_lab, dlen, blank)
+    torch.cuda.synchronize()
+    same_loss = torch.equal(p_loss.view(torch.int32), loss.view(torch.int32))
+    grad_diff = float((p_dx - dx).abs().max())
+
+    def parent_pair():
+        _, pa = kernels["fwd"](logp, labs, n_lab, dlen, blank)
+        kernels["bwd"](head, logp, pa, labs, n_lab, dlen, blank)
+
+    def this_pair():
+        _, ta = contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, blank)
+        contrib.ctc_loss_bwd(head, logp, ta, labs, n_lab, dlen, blank)
+
+    fwd_p, fwd_t = in_turns(
+        lambda: kernels["fwd"](logp, labs, n_lab, dlen, blank),
+        lambda: contrib.ctc_loss_fwd(logp, labs, n_lab, dlen, blank), iters)
+    bwd_p, bwd_t = in_turns(
+        lambda: kernels["bwd"](head, logp, p_alpha, labs, n_lab, dlen,
+                               blank),
+        lambda: contrib.ctc_loss_bwd(head, logp, alpha, labs, n_lab, dlen,
+                                     blank), iters)
+    pair_p, pair_t = in_turns(parent_pair, this_pair, iters)
+    row = {"loss_bits_equal": same_loss, "grad_max_abs_diff": grad_diff,
+           "fwd_ms": {"parent": fwd_p, "this": fwd_t},
+           "bwd_ms": {"parent": bwd_p, "this": bwd_t},
+           "pair_ms": {"parent": pair_p, "this": pair_t}}
+    log("  [%s] ctc kernels at %s against the parent: loss bit for bit %s, "
+        "gradient %.2e max abs apart; ms in turns (parent, this, this, "
+        "parent): forward %s / %s, backward %s / %s, the two %s / %s"
+        % (card, label, same_loss, grad_diff,
+           [round(v, 4) for v in fwd_p], [round(v, 4) for v in fwd_t],
+           [round(v, 4) for v in bwd_p], [round(v, 4) for v in bwd_t],
+           [round(v, 4) for v in pair_p], [round(v, 4) for v in pair_t]))
+    if not same_loss:
+        raise AssertionError("ctc: the parent's loss differs at %s" % label)
+    return row
+
+
+def ctc_timed(contrib, x, lab, card, label, iters, parents=()):
     """The kernels alone at one shape: each launch's CUDA-event ms beside
     the plain version's (forward, and forward+backward under autograd),
     ``F.ctc_loss`` (blank 0, ``reduction="none"``: forward, and
     forward+backward, the same function where every alignment is
-    feasible, as here), the bytes bound and this route's bytes
-    (``ctc_bytes``); the kernels' loss and gradient against the plain
-    version's on these inputs, and the library's against the kernels'.
-    Counts these launches too: call it after the main path's counts are
-    read."""
+    feasible, as here), the bytes bound, this route's bytes
+    (``ctc_bytes``) and the scan's route bound (``ctc_scan_bound_ms``);
+    the kernels' loss and gradient against the plain version's on these
+    inputs, and the library's against the kernels'. With ``parents``,
+    each earlier tree's kernels in turns with these
+    (``ctc_against_parent``). Counts these launches too: call it after
+    the main path's counts are read."""
     T, N, C = x.shape
     labs, n_lab, dlen, blank = ctc_prepared(contrib, x, lab, "first", None,
                                             None)
@@ -8440,6 +8575,11 @@ def ctc_timed(contrib, x, lab, card, label, iters):
                "library": float((xt.grad.double() - x64.grad).abs().max())}
     nb = {k: v / HBM_BYTES_PER_S * 1e3
           for k, v in ctc_bytes(T, N, C, lab.shape[1]).items()}
+    scan = ctc_scan_bound_ms(T, sm_max_mhz())
+    prepared = (labs, n_lab, dlen, blank)
+    against = [ctc_against_parent(p.kernels["ctc_loss"], contrib, prepared,
+                                  logp, head, iters, card, label)
+               for p in parents if "ctc_loss" in p.kernels]
     row = {"shape": [T, N, C, int(lab.shape[1])], "ms": fwd_ms,
            "bwd_ms": bwd_ms, "pair_ms": pair_ms, "plain_ms": plain_ms,
            "pair_plain_ms": plain_pair_ms, "library_ms": lib_ms,
@@ -8450,7 +8590,9 @@ def ctc_timed(contrib, x, lab, card, label, iters):
            "bwd_route_ms": nb["route_bwd"], "steps": T,
            "library_loss_rel_err": lib_loss_err,
            "library_grad_max_abs_err": lib_grad_err,
-           "grad_max_abs_err_f64": f64_err}
+           "grad_max_abs_err_f64": f64_err, "scan_bound": scan,
+           "scan_bound_ms": scan["fwd_ms"],
+           "bwd_scan_bound_ms": scan["bwd_ms"], "parents": against}
     log("  [%s] ctc kernels at %s %s (T, N, C, L): forward %.4f ms (plain "
         "%.3f, F.ctc_loss %.4f, bound %.5f, route %.5f), backward %.4f ms "
         "(bound %.5f, route %.5f); the pair %.4f ms through the autograd "
@@ -8463,15 +8605,20 @@ def ctc_timed(contrib, x, lab, card, label, iters):
                   row["bwd_bound_ms"], row["bwd_route_ms"], pair_ms,
                   plain_pair_ms, lib_pair_ms, err, bwd_err, lib_loss_err,
                   lib_grad_err, f64_err["kernel"], f64_err["library"]))
+    log("  [%s] ctc scan route bound at %s: %d steps x %d cycles (forward) "
+        "and x %d (backward) at %.0f MHz: %.5f / %.5f ms"
+        % (card, label, max(T - 1, 0), scan["fwd_cycles"],
+           scan["bwd_cycles"], scan["sm_mhz"], scan["fwd_ms"],
+           scan["bwd_ms"]))
     return row
 
 
-def ctc_kernel_checks(mt, contrib, seed, card, device="cuda"):
+def ctc_kernel_checks(mt, contrib, seed, card, device="cuda", parents=()):
     """The kernel pair against its plain version on the card: every case
     of ``tests/final_op_cases.CTC_CASES`` (the infeasible alignments,
     data and label lengths, the blank last, interleaved padding, labels
     >= C, NaN logits, an OCR batch) and the speech shape; then both
-    shapes timed (``ctc_timed``)."""
+    shapes timed (``ctc_timed``, against ``parents``)."""
     cases = _final_cases()
     rows = []
     for name, T, N, C, labels, attrs, dl, ll, nan in cases.CTC_CASES:
@@ -8504,9 +8651,9 @@ def ctc_kernel_checks(mt, contrib, seed, card, device="cuda"):
     ocr_x = torch.from_numpy(np.random.RandomState(seed).randn(
         X.shape[1], B, 11).astype(np.float32)).to(device)
     timed = {"ocr": ctc_timed(contrib, ocr_x, torch.from_numpy(
-        Y[:B]).to(device), card, "OCR", CTC_ITERS["ocr"]),
+        Y[:B]).to(device), card, "OCR", CTC_ITERS["ocr"], parents),
              "speech": ctc_timed(contrib, x, lab, card, "speech",
-                                 CTC_ITERS["speech"])}
+                                 CTC_ITERS["speech"], parents)}
     return rows, timed
 
 
@@ -8676,9 +8823,10 @@ def ctc_gluon_step(mt, contrib, seed, card):
     return {"loss_err": err, "grad_err": gerr, "launches": launches}
 
 
-def phase_ctc(mt, seed, card):
+def phase_ctc(mt, seed, card, parents=()):
     """Phase 17 (module docstring): the OCR trained with CTC, Gluon's
-    CTCLoss, then the kernel pair alone."""
+    CTCLoss, then the kernel pair alone (with ``parents``, against
+    earlier trees' in turns)."""
     from mxtpu_torch.ops import contrib
     t0 = time.perf_counter()
     res = {}
@@ -8688,7 +8836,8 @@ def phase_ctc(mt, seed, card):
     tr, gl = res["training"]["launches"], res["gluon"]["launches"]
     res["launches"] = {"ocr_fit_fwd": tr["fwd"], "ocr_fit_bwd": tr["bwd"],
                        "gluon_ctc_fwd": gl["fwd"], "gluon_ctc_bwd": gl["bwd"]}
-    res["cases"], res["timed"] = ctc_kernel_checks(mt, contrib, seed, card)
+    res["cases"], res["timed"] = ctc_kernel_checks(mt, contrib, seed, card,
+                                                   parents=parents)
     res["seconds"] = time.perf_counter() - t0
     log("  [%s] ctc phase %.1f s; launches %s"
         % (card, res["seconds"], res["launches"]))
@@ -8922,10 +9071,11 @@ def main(argv=None):
     ap.add_argument("--parent", metavar="CSRC", action="append", default=[],
                     help="the csrc directory of another tree (a parent "
                          "commit or a variant, unpacked outside the "
-                         "commit): build its flash and ROIPooling sources "
-                         "too and time its kernels in turns with this "
-                         "tree's in phases 3, 3c, 12 and 16 (ROIPooling's "
-                         "backward also compared bit for bit); repeatable")
+                         "commit): build its flash, ROIPooling and CTC "
+                         "sources too and time its kernels in turns with "
+                         "this tree's in phases 3, 3c, 12, 16 and 17 "
+                         "(ROIPooling's backward and CTC's loss also "
+                         "compared bit for bit); repeatable")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s to run after the "
                          "build (for iterating on one kernel); the kernels "
@@ -8971,8 +9121,11 @@ def main(argv=None):
     log("image packages (the record pipeline decodes with cv2 and packs "
         "with PIL): %s" % image_packages())
 
-    # 2. build
+    # 2. build: the other trees' sources start first, so that every
+    # nvcc of both trees runs at once
     t0 = time.perf_counter()
+    parents = [ParentKernels(mt.build, csrc, i)
+               for i, csrc in enumerate(args.parent)]
     built = mt.build.build()
     log("[build] %s in %.1f s wall" % (
         {k: round(v, 1) for k, v in built.items()},
@@ -8982,9 +9135,10 @@ def main(argv=None):
             log("  %s: %s: %d registers, %d bytes spill stores, %d bytes "
                 "spill loads" % (name, inst, regs, st, ld))
     hmma = check_flash_build(mt.build)
-    parents = [ParentKernels(mt.build, csrc, i)  # all builds at once
-               for i, csrc in enumerate(args.parent)]
     parents = [p.finish(att) for p in parents]
+    if parents:
+        log("[build] with the other trees' sources: %.1f s wall"
+            % (time.perf_counter() - t0))
 
     results = {"card": card, "build_s": built, "hmma": hmma,
                "parents": [{"csrc": p.csrc, "ptxas": p.ptxas,
@@ -9071,7 +9225,7 @@ def main(argv=None):
     # 17. the LSTM-OCR trained with CTC and the CTC kernel pair
     if "ctc" in phases:
         log("[ctc]")
-        results["ctc"] = phase_ctc(mt, args.seed, card)
+        results["ctc"] = phase_ctc(mt, args.seed, card, parents)
     # 18. the sparse NDArray, row_sparse_pull, linalg and contrib's rest
     if "sparse" in phases:
         log("[sparse]")
@@ -9231,12 +9385,14 @@ def main(argv=None):
         "pair_ms": ctc_ocr_row["pair_ms"],
         "pair_plain_ms": ctc_ocr_row["pair_plain_ms"],
         "pair_library_ms": ctc_ocr_row["pair_library_ms"],
+        "scan_bound_ms": ctc_ocr_row["scan_bound_ms"],
+        "bwd_scan_bound_ms": ctc_ocr_row["bwd_scan_bound_ms"],
         "shape": ctc_ocr_row["shape"],
         "speech": {k: ctc["timed"]["speech"][k] for k in (
             "shape", "max_abs_err", "bwd_max_abs_err", "ms", "bwd_ms",
             "pair_ms", "plain_ms", "pair_plain_ms", "library_ms",
             "pair_library_ms", "bound_ms", "route_ms", "bwd_bound_ms",
-            "bwd_route_ms")}}]}
+            "bwd_route_ms", "scan_bound_ms", "bwd_scan_bound_ms")}}]}
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -172,6 +172,7 @@ class NDArray:
         if isinstance(other, NDArray):
             with torch.no_grad():
                 other._data.copy_(self._data.reshape(other._data.shape))
+            other._written()
             return other
         ctx = as_context(other)
         return NDArray(self._data.detach().to(ctx.torch_device, copy=True),
@@ -251,6 +252,11 @@ class NDArray:
                                  else value)
             else:
                 self._data[key] = value.to(self._data.device)
+        self._written()
+
+    def _written(self):
+        """Called after every in-place write to ``_data``: a dense array
+        has nothing to do; a sparse one marks its components stale."""
 
     def __len__(self):
         return self.shape[0]
@@ -360,6 +366,7 @@ class NDArray:
                 self._data.copy_(result._data)
             else:
                 self._data = result._data.detach()
+        self._written()
         return self
 
     def __iadd__(self, o):
@@ -452,6 +459,7 @@ def invoke_op(name, nd_inputs, attr_kwargs, out=None):
         with torch.no_grad():
             for dst, src in zip(outs_list, out_arrays):
                 dst._data.copy_(src._data)
+                dst._written()
         return outs_list
     return out_arrays
 

@@ -98,6 +98,23 @@ class BaseSparseNDArray(NDArray):
         out._hold(*components)
         return out
 
+    def _written(self):
+        """An in-place write went to the dense view (``x[:] = v``, ``+=``,
+        an op's ``out=``, ``copyto``): rebuild the components from it on
+        their next read."""
+        if self._dense is not None:
+            self._stale = True
+
+    def __getitem__(self, key):
+        """A copy, as mxtpu's index of a sparse array is: a write to it
+        never reaches this array (the dense array's basic index is a
+        write-through view, C.14)."""
+        out = super().__getitem__(key)
+        if not isinstance(out, BaseSparseNDArray) and \
+                out._data._base is not None:
+            out._data = out._data.clone()
+        return out
+
     def _sync(self):
         if self._stale:
             self._stale = False
@@ -406,6 +423,9 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     if isinstance(lhs, CSRNDArray) and not isinstance(rhs,
                                                       BaseSparseNDArray):
         rhs_mat = rhs._data.t() if transpose_b else rhs._data
+        vector = rhs_mat.dim() == 1  # a column, and the result 1-D
+        if vector:
+            rhs_mat = rhs_mat.reshape(-1, 1)
         if transpose_a:
             data, indices, _ = lhs._components()
             rows = lhs._rows()
@@ -414,11 +434,13 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
                 torch.stack([indices.to(torch.int64), rows]), data, (m, n),
                 check_invariants=False)
             out = torch.sparse.mm(coo, rhs_mat)
+            if vector:
+                out = out.reshape(-1)
             ids = torch.unique(indices.to(torch.int64))
             return RowSparseNDArray._of(out.shape, lhs.context, out[ids],
                                         ids)
         out = torch.sparse.mm(lhs._torch_csr(), rhs_mat.contiguous())
-        return NDArray(out, lhs.context)
+        return NDArray(out.reshape(-1) if vector else out, lhs.context)
     if isinstance(lhs, BaseSparseNDArray) or isinstance(rhs,
                                                         BaseSparseNDArray):
         lhs = lhs.todense() if isinstance(lhs, BaseSparseNDArray) else lhs
@@ -454,6 +476,9 @@ def add(lhs, rhs):
         keys, order = torch.sort(keys, stable=True)
         uniq, group = torch.unique_consecutive(keys, return_inverse=True)
         data = vals.new_zeros(len(uniq)).index_add_(0, group, vals[order])
+        # the type numpy promotes the two data to, as mxtpu's merge does
+        dtype = _np.result_type(*[numpy_dtype(x._components()[0].dtype)
+                                  for x in (lhs, rhs)])
         return CSRNDArray._of(lhs.shape, lhs.context, data, uniq % m,
-                              _indptr(uniq // m, n))
+                              _indptr(uniq // m, n), dtype=dtype)
     return NDArray(lhs._data + rhs._data, lhs._ctx)

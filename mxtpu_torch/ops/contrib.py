@@ -26,9 +26,10 @@ or the call raises. ``nms_keep.launches`` counts kernel launches.
 CTC's recursion (``_ctc_loss_one`` :355, an XLA ``lax.scan`` over time
 whose gradient is ``jax.grad`` of it) is the kernel pair of
 ``csrc/ctc_loss.cu`` for a CUDA tensor (``ctc_loss_fwd``: the loss and
-every step's alpha; ``ctc_loss_bwd``: the adjoint of the scan over the
-stored alphas, then the log-softmax's; each ``.launches`` counts its
-launches) and ``ctc_loss_reference``, the scan as a loop over t with
+every step's alpha, a block a sequence; ``ctc_loss_bwd``: the adjoint of
+the scan over the stored alphas, then the frames' class sums and the
+log-softmax's gradient in a second launch; each ``.launches`` counts its
+calls) and ``ctc_loss_reference``, the scan as a loop over t with
 autograd's gradient, for a CPU tensor. The log-softmax and the labels'
 compaction (``ctc_labels``) run as torch ops before the launch.
 
@@ -48,7 +49,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
-from .registry import Required, register, set_replicas
+from .registry import Required, int_convert, register, set_replicas
 
 __all__ = ["nms_keep", "nms_keep_reference", "nms_plan",
            "detection_candidates", "ctc_loss", "ctc_labels",
@@ -193,7 +194,7 @@ def _multibox_target(a, anchor, label, cls_pred):
     matched = matched | forced
     match_gt = torch.where(forced, claim, best_gt)
 
-    gt_cls = label[:, :, 0].to(torch.int32)
+    gt_cls = int_convert(label[:, :, 0])
     cls_target = torch.where(matched, torch.gather(gt_cls, 1, match_gt) + 1,
                              0)
     ratio = float(a.negative_mining_ratio)
@@ -482,11 +483,12 @@ register("_contrib_ifft", _ifft, attrs={"compute_size": 128})
 # -------------------------------------------------------------- count_sketch
 def _count_sketch(a, data, h, s):
     """``out[..., h[i]] += s[i] * data[..., i]`` (mxtpu/ops/contrib.py:467):
-    ``h`` truncated to int32, a negative index counted from the end, and
+    ``h`` converted to int32 as XLA converts it (``int_convert``: NaN is
+    0, out of range saturates), a negative index counted from the end, and
     an index outside [-out_dim, out_dim) dropped, as mxtpu's scatter
     does; repeated indices add."""
     out_dim = int(a.out_dim)
-    idx = h.reshape(-1).to(torch.int32).to(torch.int64)
+    idx = int_convert(h.reshape(-1)).to(torch.int64)
     idx = torch.where(idx < 0, idx + out_dim, idx)
     keep = (idx >= 0) & (idx < out_dim)
     contrib = data * s.reshape(-1)
@@ -509,16 +511,17 @@ CTC_NEG = -1e30  # mxtpu's log-domain zero: finite, so -1e30 + x is -1e30
 
 def ctc_labels(label, num_classes, blank_first, label_lengths=None):
     """mxtpu's label preparation (mxtpu/ops/contrib.py:370-383) for every
-    sequence at once: labels cast to int32, the valid ones (those below
+    sequence at once: labels (and ``label_lengths``) converted to int32
+    as XLA converts them (``int_convert``), the valid ones (those below
     ``label_lengths`` where given, else above 0 with the blank first, or
     not negative with the blank last) moved to the front in order by a
     stable sort, then clipped to [0, C - 1]. Returns (labels (N, L)
     int32, the count of valid labels (N,) int32)."""
-    lab = label.to(torch.int32)
+    lab = int_convert(label)
     L = lab.shape[1]
     if label_lengths is not None:
         valid = torch.arange(L, device=lab.device)[None, :] < \
-            label_lengths.to(torch.int32).reshape(-1, 1)
+            int_convert(label_lengths).reshape(-1, 1)
     elif blank_first:
         valid = lab > 0
     else:
@@ -590,8 +593,9 @@ def ctc_loss_reference(data, lab, n_lab, data_len, blank):
 def _ctc_check(logp, lab, n_lab, data_len):
     """Raise unless the kernels take these tensors: float32 logp (T, N,
     C), int32 labels (N, L) and counts (N,), contiguous, on one CUDA
-    device. A sequence whose states do not fit a block's shared memory
-    is refused by the launcher, whose error the wrappers raise."""
+    device. A sequence of more than 4,096 states (L > 2,047), which does
+    not fit a block, is refused by the launchers, whose error the
+    wrappers raise."""
     if logp.dim() != 3 or lab.dim() != 2 or lab.shape[0] != logp.shape[1] \
             or lab.shape[1] < 1 or logp.shape[0] < 1:
         raise MXNetError("ctc_loss kernels: logp (T, N, C) %s and labels "
@@ -624,7 +628,7 @@ def _ctc_kernels():
                 ctypes.c_void_p]
             fwd.restype = ctypes.c_int
             bwd = lib.ctc_loss_bwd
-            bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
                 ctypes.c_void_p]
             bwd.restype = ctypes.c_int
             err = lib.ctc_loss_error_string
@@ -641,8 +645,9 @@ def _ctc_stream(t):
 def ctc_loss_fwd(logp, lab, n_lab, data_len, blank):
     """Launch the forward: the loss (N,) and every step's alpha (T, N, S)
     float32 for the backward, from the log-probabilities (T, N, C) and
-    the prepared labels (``ctc_labels``). One launch, one block a
-    sequence; ``ctc_loss_fwd.launches`` counts them."""
+    the prepared labels (``ctc_labels``). One launch, a block a sequence
+    and a warp for every 32 states, up to 4,096 states; longer sequences
+    are refused. ``ctc_loss_fwd.launches`` counts the launches."""
     _ctc_check(logp, lab, n_lab, data_len)
     T, N, C = logp.shape
     S = 2 * lab.shape[1] + 1
@@ -668,10 +673,12 @@ ctc_loss_fwd.launches = 0
 
 def ctc_loss_bwd(grad, logp, alpha, lab, n_lab, data_len, blank):
     """Launch the backward: d loss / d logits (T, N, C) float32 for the
-    head gradient ``grad`` (N,), the adjoint of mxtpu's scan run from the
-    last step down over the forward's ``alpha``, then through the
-    log-softmax. One launch, one block a sequence, no atomics: repeats
-    are bit-identical. ``ctc_loss_bwd.launches`` counts them."""
+    head gradient ``grad`` (N,): the adjoint of mxtpu's scan run from the
+    last step down over the forward's ``alpha``, writing each step's
+    per-state cotangent to a (T, N, S) scratch tensor, then the frames'
+    class sums and the log-softmax's gradient. Two launches a call, no
+    atomics: repeats are bit-identical. ``ctc_loss_bwd.launches`` counts
+    the calls."""
     _ctc_check(logp, lab, n_lab, data_len)
     T, N, C = logp.shape
     S = 2 * lab.shape[1] + 1
@@ -686,12 +693,13 @@ def ctc_loss_bwd(grad, logp, alpha, lab, n_lab, data_len, blank):
     dx = torch.empty_like(logp)
     if N == 0:
         return dx
+    ct = torch.empty((T, N, S), dtype=torch.float32, device=logp.device)
     _, bwd, err = _ctc_kernels()
     with torch.cuda.device(logp.device):
         rc = bwd(grad.data_ptr(), logp.data_ptr(), alpha.data_ptr(),
                  lab.data_ptr(), n_lab.data_ptr(), data_len.data_ptr(),
-                 dx.data_ptr(), T, N, C, lab.shape[1], int(blank),
-                 _ctc_stream(logp))
+                 ct.data_ptr(), dx.data_ptr(), T, N, C, lab.shape[1],
+                 int(blank), _ctc_stream(logp))
     if rc != 0:
         raise MXNetError("ctc_loss_bwd launch failed: %s (cuda error %d)"
                          % (err(rc).decode(), rc))
@@ -736,7 +744,7 @@ def ctc_loss(data, label, blank_label="first", data_lengths=None,
     if data_lengths is None:
         data_len = torch.full((N,), T, dtype=torch.int32, device=data.device)
     else:
-        data_len = data_lengths.to(torch.int32).reshape(N).contiguous()
+        data_len = int_convert(data_lengths).reshape(N).contiguous()
     if data.device.type == "cpu":
         return ctc_loss_reference(data, lab, n_lab, data_len, blank)
     if data.dtype != torch.float32:

@@ -8,9 +8,9 @@ departs from LAPACK's contract the port follows mxtpu:
 
 - ``potrf`` is ``jnp.linalg.cholesky``, which factors the symmetrized
   input (A + Aᵀ) / 2 and does not raise on a matrix that is not positive
-  definite: it gives NaN over the lower triangle and 0 above it. The
-  symmetrization is written out (so autograd sees it) and
-  ``cholesky_ex``'s ``info`` picks the matrices to fill with NaN.
+  definite: it gives NaN over the lower triangle and 0 above it, and a
+  NaN gradient. The symmetrization is written out (so autograd sees it)
+  and ``cholesky_ex``'s ``info`` picks the matrices to fill with NaN.
 - ``potri`` and ``trsm`` read only the lower triangle of A
   (``lax.linalg.triangular_solve(lower=True)``); ``trmm`` multiplies by
   the whole A, with no ``tril``.
@@ -41,7 +41,10 @@ def _gemm2(a, A, B):
 
 def _potrf(a, A):
     """Cholesky factor of (A + Aᵀ) / 2; NaN on and below the diagonal, 0
-    above, where that matrix is not positive definite."""
+    above, where that matrix is not positive definite. The NaN is a
+    product with the factor, so autograd carries it back: such a
+    matrix's gradient is NaN, as ``jax.vjp`` of mxtpu's gives, and the
+    other matrices of a batch keep theirs."""
     sym = (A + A.transpose(-1, -2)) / 2
     if A.device.type == "meta":
         return torch.empty_like(A)
@@ -49,8 +52,8 @@ def _potrf(a, A):
     bad = (info != 0)[..., None, None]
     lower = torch.ones(A.shape[-2:], dtype=torch.bool,
                        device=A.device).tril()
-    return torch.where(bad & lower, torch.full_like(L, float("nan")),
-                       torch.where(bad, torch.zeros_like(L), L))
+    poison = torch.where(bad & lower, float("nan"), 1.0).to(L.dtype)
+    return torch.where(bad & ~lower, torch.zeros_like(L), L * poison)
 
 
 def _lower_solve(A, B, left, transpose):

@@ -16,7 +16,8 @@ from ..base import MXNetError, parse_attr
 
 __all__ = ["OpDef", "register", "register_op", "get_op", "op_exists",
            "list_ops", "Required", "invoke", "AttrDict", "torch_dtype",
-           "numpy_dtype", "BFLOAT16", "set_replicas", "off_batch_axis"]
+           "numpy_dtype", "BFLOAT16", "set_replicas", "off_batch_axis",
+           "int_convert"]
 
 _OPS = {}
 
@@ -60,6 +61,27 @@ def numpy_dtype(dtype):
     """The numpy dtype of a torch dtype (``BFLOAT16`` for bfloat16), as
     mxtpu's ``NDArray.dtype`` is ``np.dtype(array.dtype)``."""
     return _NUMPY[torch_dtype(dtype)]
+
+
+def int_convert(x, dtype=torch.int32):
+    """``x`` in the integer type ``dtype`` as XLA's convert makes it for
+    mxtpu's ``astype``: a float truncates toward zero, NaN becomes 0 and
+    a value outside the type's range saturates at its bound, where
+    torch's own conversion wraps or overflows; an integer converts as
+    torch converts it. The one place of that rule: ``Cast``, the index
+    reads of ``take``/``pick``/``one_hot``, ROI batch indices, CTC's
+    labels and lengths, count_sketch's ``h`` and MultiBox's classes."""
+    dtype = torch_dtype(dtype)
+    if not x.is_floating_point():
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    # float64 holds every int32 bound exactly; int64's max rounds up to
+    # 2**63, which the comparison then still maps to the max
+    xd = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    over, under = xd >= float(info.max), xd <= float(info.min)
+    mid = torch.where(over | under, torch.zeros_like(xd), xd).to(dtype)
+    return torch.where(over, info.max, torch.where(under, info.min, mid)
+                       ).to(dtype)
 
 
 class Required:

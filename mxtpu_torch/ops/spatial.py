@@ -42,7 +42,7 @@ import torch
 
 from ..base import MXNetError
 from .contrib import nms_keep
-from .registry import Required, register
+from .registry import Required, int_convert, register
 
 __all__ = ["roi_pool", "roi_pool_reference", "roi_pool_backward",
            "roi_pool_backward_reference", "check_roi_inputs"]
@@ -60,10 +60,9 @@ def _chunks(n, per_item):
 
 def _batch_index(v, n):
     """The image index of each ROI: ``roi[0]`` converted to int32 as
-    XLA converts (NaN to 0, out of range saturated, toward zero), then
-    clamped into ``[0, n)`` as XLA's gather clamps it."""
-    v = torch.nan_to_num(v.detach(), nan=0.0)
-    return v.clamp(0, n - 1).trunc().long()
+    XLA converts it (``registry.int_convert``), then clamped into
+    ``[0, n)`` as XLA's gather clamps it."""
+    return int_convert(v.detach()).clamp(0, n - 1).long()
 
 
 def _inv(n):

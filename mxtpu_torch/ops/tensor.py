@@ -39,8 +39,8 @@ import math
 import torch
 
 from ..base import MXNetError
-from .registry import (Required, off_batch_axis, register, set_replicas,
-                       torch_dtype)
+from .registry import (Required, int_convert, off_batch_axis, register,
+                       set_replicas, torch_dtype)
 
 
 def _axis_tuple(axis, ndim, exclude=False):
@@ -195,21 +195,12 @@ unary("make_loss", lambda x: x)  # the identity, gradient and all
 
 
 def _cast(a, x):
-    """``x`` in ``a.dtype``. A float cast to an integer type saturates
-    at the type's range and maps NaN to 0, truncating toward zero in
-    between, as XLA's convert does for mxtpu (mxtpu/ops/tensor.py:101);
-    torch's own conversion wraps or overflows there."""
+    """``x`` in ``a.dtype``; to an integer type as XLA's convert makes it
+    for mxtpu (mxtpu/ops/tensor.py:101; ``registry.int_convert``)."""
     dt = torch_dtype(a.dtype)
-    if not x.is_floating_point() or dt.is_floating_point or dt == torch.bool:
+    if dt.is_floating_point or dt == torch.bool:
         return x.to(dt)
-    info = torch.iinfo(dt)
-    # float64 holds every int32 bound exactly; int64's max rounds up to
-    # 2**63, which the comparison then still maps to the max
-    xd = torch.nan_to_num(x.to(torch.float64), nan=0.0)
-    over, under = xd >= float(info.max), xd <= float(info.min)
-    mid = torch.where(over | under, torch.zeros_like(xd), xd).to(dt)
-    return torch.where(over, info.max, torch.where(under, info.min, mid)
-                       ).to(dt)
+    return int_convert(x, dt)
 
 
 register("Cast", _cast, attrs={"dtype": Required(str)}, aliases=("cast",))
@@ -841,13 +832,9 @@ register("batch_dot", _batch_dot, arg_names=["lhs", "rhs"],
 
 
 def _index_of(x):
-    """``x`` as int64 indices, as XLA's int32 convert reads a float: NaN
-    is 0, a value outside int32 saturates, the rest truncate toward
-    zero."""
-    if not x.is_floating_point():
-        return x.to(torch.int64)
-    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
-    return torch.clamp(x, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int64)
+    """``x`` as int64 indices, a float read as XLA's int32 convert reads
+    it (``registry.int_convert``)."""
+    return (int_convert(x) if x.is_floating_point() else x).to(torch.int64)
 
 
 def _batch_take(a, x, indices):

@@ -596,6 +596,7 @@ class Updater:
         elif _is_host_state(self.states[index]):
             self.states[index] = _placed(self.states[index], weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+        weight._written()  # the rules update in place
 
     def get_states(self):
         return pickle.dumps({k: states_to_numpy(v)

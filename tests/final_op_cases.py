@@ -8,7 +8,8 @@ in numpy alone, so that ``test_torch_linalg.py`` and
 the CPU (where neither JAX nor mxtpu is). The CTC cases are
 ``CTC_CASES``: ``(name, T, N, C, labels, attrs, data_lengths,
 label_lengths, NaN at (t, n, c) or None)``. ``sparse_device_ops`` runs
-the sparse ops that must stay on the arrays' device through a package."""
+the sparse ops that must stay on the arrays' device through a package;
+``SPARSE_FAULTS`` the sparse bodies that once went wrong."""
 import numpy as np
 
 
@@ -52,7 +53,7 @@ LINALG_CASES = [
     ("linalg_gemm2", [_A, _C], {"transpose_a": True}, [0, 1], [0]),
     ("_linalg_potrf", [_spd(2, 4, 7)], {}, [0], [0]),
     ("_linalg_potrf", [_NONSYM], {}, [0], [0]),       # (A + Aᵀ) / 2
-    ("linalg_potrf", [_NOT_PD], {}, [], []),          # NaN, no raise
+    ("linalg_potrf", [_NOT_PD], {}, [0], [0]),  # NaN and its gradient
     ("_linalg_potri", [_lower(2, 4, 8)], {}, [0], [0]),
     ("_linalg_trmm", [_SQ, _RHS], {"alpha": 2.0}, [0, 1], [0]),  # whole A
     ("linalg_trmm", [_SQ, _RHS_R], {"rightside": True, "transpose": True},
@@ -96,6 +97,10 @@ CONTRIB_CASES = [
         [[1.0, 1.0, 0.0, 2.0, 1.0, 3.0]], np.float32), np.array(
         [[1.0, -1.0, 1.0, 1.0, -1.0, 1.0]], np.float32)], {"out_dim": 4},
      [0, 2], [0]),   # duplicate indices add
+    ("_contrib_count_sketch", [_r((2, 5), 22), np.array(
+        [[np.nan, 3e9, -3e9, 2.0, 1.0]], np.float32), np.array(
+        [[1.0, -1.0, 1.0, -1.0, 1.0]], np.float32)], {"out_dim": 4},
+     [0, 2], [0]),   # h as XLA converts it: NaN -> 0, saturated
 ]
 
 _OCR_LABELS = np.random.RandomState(21).randint(0, 11, (4, 5))
@@ -119,6 +124,16 @@ CTC_CASES = [
     ("nan_logits", 6, 3, 5, [[1, 2, 0], [3, 3, 0], [4, 1, 2]], {}, None,
      None, (1, 0, 2)),
     ("ocr", 32, 4, 11, _OCR_LABELS.tolist(), {}, None, None, None),
+    # labels and lengths as XLA converts them: NaN -> 0, saturated
+    ("label_3e9_blank_first", 6, 2, 5, [[1, 3e9, 2], [3, 1, 0]], {}, None,
+     None, None),
+    ("label_3e9_blank_last", 6, 2, 5, [[1, 3e9, 2], [3, 1, -1]],
+     {"blank_label": "last"}, None, None, None),
+    ("label_nan_blank_last", 6, 2, 5, [[1, np.nan, 2], [3, 1, -1]],
+     {"blank_label": "last"}, None, None, None),
+    ("lengths_nan_and_3e9", 6, 2, 5, [[1, 2, 3], [3, 1, 2]],
+     {"use_data_lengths": True, "use_label_lengths": True}, [np.nan, 3e9],
+     [3e9, np.nan], None),
 ]
 
 
@@ -134,6 +149,71 @@ def ctc_inputs(T, N, C, labels, data_lengths, label_lengths, nan, seed=0):
              if v is not None]
     head = (rng.rand(N) + 0.5).astype(np.float32)
     return x, lab, extra, head
+
+
+_SP = np.array([[0.0, 1.5, 0.0, 0.0], [2.0, 0.0, 0.0, -3.0],
+                [0.0, 0.0, 0.0, 0.0], [0.0, 4.0, 5.0, 0.0]], np.float32)
+
+
+def _write_all(pkg):
+    c = pkg.nd.sparse.csr_matrix(_SP)
+    c.asnumpy()  # the dense view exists before the write
+    c[:] = pkg.nd.array(2 * _SP)
+    return [c]
+
+
+def _add_in_place(pkg):
+    r = pkg.nd.sparse.row_sparse_array(_SP)
+    r += 1
+    return [r]
+
+
+def _update_out(pkg):
+    w = pkg.nd.sparse.row_sparse_array(_SP)
+    pkg.nd.sgd_update(w, pkg.nd.array(np.ones((4, 4), np.float32)), lr=0.1,
+                      out=w)
+    return [w]
+
+
+def _updater_step(pkg):
+    w = pkg.nd.sparse.row_sparse_array(_SP)
+    update = pkg.optimizer.get_updater(pkg.optimizer.SGD(learning_rate=0.1))
+    update(0, pkg.nd.array(np.ones((4, 4), np.float32)), w)
+    return [w]
+
+
+def _write_an_index(pkg):
+    c = pkg.nd.sparse.csr_matrix(_SP)
+    row = c[1]
+    row[:] = 7  # a copy: the array keeps its values
+    return [c, row]
+
+
+def _dot_vector(transpose_a):
+    def body(pkg):
+        v = pkg.nd.array(np.array([1.0, -2.0, 0.5, 3.0], np.float32))
+        return [pkg.nd.sparse.dot(pkg.nd.sparse.csr_matrix(_SP), v,
+                                  transpose_a=transpose_a)]
+    return body
+
+
+def _add_two_types(pkg):
+    sp = pkg.nd.sparse
+    i32 = sp.csr_matrix(_SP.astype(np.int32))
+    return [sp.add(sp.csr_matrix(_SP), i32), sp.add(i32, i32)]
+
+
+#: Bodies once wrong in the port, (name, body(pkg) -> arrays): in-place
+#: writes to sparse arrays (C.15: ``x[:] = v``, ``+=``, an op's
+#: ``out=``, an ``Updater`` step, a write to an index's copy), dots of
+#: a CSR array and a vector (C.16) and csr + csr of two types (C.19: the
+#: dtype numpy promotes the data to, float64 over float32 values).
+SPARSE_FAULTS = [("write_all", _write_all), ("add_in_place", _add_in_place),
+                 ("update_out", _update_out), ("updater_step", _updater_step),
+                 ("write_an_index", _write_an_index),
+                 ("dot_vector", _dot_vector(False)),
+                 ("dot_vector_transpose_a", _dot_vector(True)),
+                 ("add_two_types", _add_two_types)]
 
 
 def sparse_device_ops(pkg, refuse):

@@ -11,9 +11,12 @@ Module (``models/ctc_ocr.py``).
   seeded head within 1e-5 of the largest, ``torch.autograd.grad``
   against ``jax.vjp`` of mxtpu's op.
 - ``kernel_algorithm``: the kernel pair's arithmetic written out in numpy
-  (the forward's steps, the backward's adjoint from the last step down,
-  its tie shares, chains and class sums) against autograd of the plain
-  version, within 1e-5 of the largest gradient.
+  in the kernels' order of work (the forward's steps; the backward's
+  scan from the last step down over the stored alphas with its tie
+  shares, writing each step's per-state cotangent to a buffer; then the
+  frames pass: the blank's sum and the total by the warp's fixed tree,
+  each label class along its states in state order) against autograd
+  of the plain version, within 1e-5 of the largest gradient.
 - Gluon's ``CTCLoss`` in NTC/TNC and NT/TN, imperative and hybridized,
   with ``pred_lengths``/``label_lengths`` passed and ignored as mxtpu
   ignores them.
@@ -125,12 +128,47 @@ def _tie(x, z, y):
         np.float32)
 
 
+def _warp_sum(v):
+    """The frames pass's sum over the states: lane l adds states l, l + 32,
+    ... in order, then the 32 partial sums meet in a butterfly (every
+    lane ends with the same value), all in float32."""
+    lanes = np.zeros(32, np.float32)
+    for s0 in range(0, len(v), 32):
+        part = v[s0:s0 + 32]
+        lanes[:len(part)] = lanes[:len(part)] + part
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ off]
+    return lanes[0]
+
+
+def _frame(ct, ext, lab_cls, nl, blank, logp_t):
+    """One frame of the frames pass: the blank's sum and the total by
+    ``_warp_sum``, each label class (the first ``nl`` labels not the
+    blank's) summed over its states in state order, then dlogits =
+    dlogp - softmax * total."""
+    C = logp_t.shape[0]
+    total = _warp_sum(ct)
+    dl = np.zeros(C, np.float32)
+    dl[blank] = _warp_sum(np.where(ext == blank, ct, np.float32(0)))
+    for c in range(C):
+        states = [2 * i + 1 for i in range(nl)
+                  if lab_cls[i] == c and c != blank]
+        if states:
+            v = ct[states[0]]
+            for q in states[1:]:
+                v = np.float32(v + ct[q])
+            dl[c] = v
+    return dl - np.exp(logp_t) * total
+
+
 def kernel_algorithm(logp, lab, n_lab, dlen, blank, grad):
     """``csrc/ctc_loss.cu`` in numpy float32, a sequence at a time with its
-    states vectorised: the forward's alphas and loss, then the backward's
-    adjoint from T - 1 down (each state's partials G1, G2, G3 gathered
-    from s, s + 1 and s + 2, a frozen step passing the adjoint through),
-    the class sums and dlogits = dlogp - softmax * sum(dlogp)."""
+    states vectorised: the forward's alphas and loss; the backward's scan
+    from T - 1 down over the stored alphas (each state's partials G1, G2,
+    G3 gathered from s, s + 1 and s + 2, a frozen step passing the
+    adjoint through), writing each step's per-state cotangent ct, and
+    step 0's d logp at states 0 and 1, to a (T, S) buffer; then the
+    frames pass over that buffer (``_frame``)."""
     T, N, C = logp.shape
     S = 2 * lab.shape[1] + 1
     s = np.arange(S)
@@ -139,8 +177,9 @@ def kernel_algorithm(logp, lab, n_lab, dlen, blank, grad):
     f0 = np.float32(0)
     for n in range(N):
         nl = int(n_lab[n])
+        lab_cls = np.clip(lab[n], 0, C - 1)
         ext = np.full(S, blank)
-        ext[1::2] = np.clip(lab[n], 0, C - 1)
+        ext[1::2] = lab_cls
         valid = s < 2 * nl + 1
         em2 = np.concatenate([[blank, blank], ext[:-2]])
         skip = (ext != blank) & (ext != em2) & (s >= 2)
@@ -176,6 +215,7 @@ def kernel_algorithm(logp, lab, n_lab, dlen, blank, grad):
         g[2 * nl] = q * e1 + gm * _tie(e1v, m, e2v)
         if nl > 0:
             g[2 * nl - 1] = q * e2 + gm * _tie(e2v, m, e1v)
+        ct = np.zeros((T, S), np.float32)
         for t in range(T - 1, 0, -1):
             frozen = t >= dlen[n]
             x1, x2, x3 = terms(A[t - 1])
@@ -192,14 +232,12 @@ def kernel_algorithm(logp, lab, n_lab, dlen, blank, grad):
             G3 = np.where(skip, q * a3 + gmv * _tie(x3, m, mm), f0)
             v = G1 + np.append(G2[1:], f0) + np.append(G3[2:], [f0, f0])
             g = (v + g if frozen else v).astype(np.float32)
-            dl = np.zeros(C, np.float32)
-            np.add.at(dl, ext, c)
-            dx[t, n] = dl - np.exp(logp[t, n]) * c.sum()
-        dl = np.zeros(C, np.float32)
-        dl[blank] = g[0]
+            ct[t] = c
+        ct[0, 0] = g[0]
         if nl > 0:
-            dl[ext[1]] += g[1]
-        dx[0, n] = dl - np.exp(logp[0, n]) * (g[0] + (g[1] if nl else f0))
+            ct[0, 1] = g[1]
+        for t in range(T):
+            dx[t, n] = _frame(ct[t], ext, lab_cls, nl, blank, logp[t, n])
     return loss, dx
 
 
@@ -214,7 +252,8 @@ def test_kernel_algorithm_matches_the_plain_version(tt, case):
     labs, n_lab = contrib.ctc_labels(
         torch.from_numpy(lab), C, blank_first,
         None if ll is None else torch.tensor(ll))
-    dlen = torch.tensor(dl if dl is not None else [T] * N, dtype=torch.int32)
+    dlen = mt.ops.registry.int_convert(torch.tensor(
+        dl if dl is not None else [T] * N, dtype=torch.float32))
     xt = torch.from_numpy(x.copy()).requires_grad_()
     loss = contrib.ctc_loss_reference(xt, labs, n_lab, dlen, blank)
     (g,) = torch.autograd.grad(loss, [xt], torch.from_numpy(head))
@@ -328,7 +367,9 @@ def test_chip_smoke_bounds_count_each_tensor_once(tt, T, N, C, L):
     reads the logits and the labels and writes the loss; the backward
     reads the logits, the labels and the head and writes the gradient,
     each once) and this route's (alpha written once by the forward and
-    read once by the backward on top)."""
+    read once by the backward on top, and in the backward the per-state
+    cotangents, alpha's shape, written by the scan and read by the
+    frames pass)."""
     torch, mt = tt
     import chip_smoke
     f32, i32 = torch.float32, torch.int32
@@ -341,6 +382,7 @@ def test_chip_smoke_bounds_count_each_tensor_once(tt, T, N, C, L):
     fwd = nb((T, N, C), f32) + nb((N,), f32) + labels
     bwd = 2 * nb((T, N, C), f32) + nb((N,), f32) + labels
     alpha = nb((T, N, S), f32)
+    ct = nb((T, N, S), f32)
     assert chip_smoke.ctc_bytes(T, N, C, L) == {
         "fwd": fwd, "bwd": bwd, "route_fwd": fwd + alpha,
-        "route_bwd": bwd + alpha}
+        "route_bwd": bwd + alpha + 2 * ct}

@@ -2364,6 +2364,7 @@ def test_example_rcnn_step_on_gpu(cuda):
 from final_op_cases import CONTRIB_CASES as _CONTRIB  # noqa: E402
 from final_op_cases import CTC_CASES as _CTC  # noqa: E402
 from final_op_cases import LINALG_CASES as _LINALG  # noqa: E402
+from final_op_cases import SPARSE_FAULTS as _SPARSE_FAULTS  # noqa: E402
 from final_op_cases import ctc_inputs as _ctc_inputs  # noqa: E402
 
 
@@ -2424,7 +2425,7 @@ def _ctc_kernel_vs_plain(torch, x, lab, blank_label, dl, ll, head):
     first = blank_label != "last"
     labs, n_lab = contrib.ctc_labels(lab, C, first, ll)
     dlen = torch.full((N,), T, dtype=torch.int32, device="cuda") \
-        if dl is None else dl.to(torch.int32)
+        if dl is None else contrib.int_convert(dl)
     xt = x.clone().requires_grad_()
     want = contrib.ctc_loss_reference(xt, labs, n_lab, dlen,
                                       0 if first else C - 1)
@@ -2461,10 +2462,11 @@ def test_ctc_kernels_match_the_plain_version(cuda, case):
 
 
 @pytest.mark.parametrize("T,N,C,L", [(800, 32, 29, 200), (50, 3, 3000, 600),
-                                     (40, 2, 5, 1100)])
+                                     (40, 2, 5, 1100), (30, 2, 5, 1900)])
 def test_ctc_kernels_at_speech_and_wide_shapes(cuda, T, N, C, L):
-    """The speech shape; 3,000 classes (a wide class row); 2,201 states
-    (more than a block's threads: each thread walks several)."""
+    """The speech shape (13 warps of one state a lane); 3,000 classes (a
+    wide class row) at 1,201 states (2 a lane); 2,201 and 3,801 states
+    (3 and 4 a lane over 32 warps)."""
     import numpy as np
     torch, _ = cuda
     rng = np.random.RandomState(T + C)
@@ -2481,9 +2483,9 @@ def test_ctc_kernels_at_speech_and_wide_shapes(cuda, T, N, C, L):
                                   "adjoints_past_shared"])
 def test_ctc_kernels_refuse_what_they_do_not_take(cuda, case):
     """Inputs the kernels do not take raise; so do sequences whose states
-    (forward: 2 words a state) or adjoints (backward: 8 words a state)
-    do not fit a block's shared memory, refused by the launchers, after
-    which the next launch runs."""
+    do not fit a block (more than 4,096: 32 warps of 4 states a lane),
+    refused by the forward's and the backward's launchers, after which
+    the next launch runs."""
     import mxtpu_torch as mt
     from mxtpu_torch.ops import contrib
     torch, _ = cuda
@@ -2607,3 +2609,61 @@ def test_sparse_dots_and_row_sparse_pull_on_the_card(cuda):
     assert rows.data._data.is_cuda
     assert rows.indices.asnumpy().tolist() == [2, 7]
     np.testing.assert_array_equal(rows.data.asnumpy(), w[[2, 7]])
+
+
+@pytest.mark.parametrize("name,body", _SPARSE_FAULTS,
+                         ids=[n for n, _ in _SPARSE_FAULTS])
+def test_sparse_faults_on_the_card_match_cpu(cuda, name, body):
+    """The in-place writes to sparse arrays, the dots of a CSR array and a
+    vector and csr + csr of two types on gpu(0) against cpu(): each
+    array's storage, shape, dtype, values and components equal, its
+    tensors on its context's device."""
+    import numpy as np
+    import mxtpu_torch as mt
+    torch, _ = cuda
+    outs = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        with ctx:
+            arrays = body(mt)
+        parts = []
+        for a in arrays:
+            comps = a._components() if a.stype != "default" else [a._data]
+            assert all(c.device == ctx.torch_device for c in comps), name
+            parts.append([a.stype, a.shape, np.dtype(a.dtype).name,
+                          a.asnumpy()] + [c.cpu().numpy() for c in comps])
+        outs.append(parts)
+    for g, w in zip(*outs):
+        assert g[:3] == w[:3]
+        for gc, wc in zip(g[3:], w[3:]):
+            assert gc.dtype == wc.dtype and gc.shape == wc.shape
+            np.testing.assert_allclose(gc, wc, rtol=0, atol=1e-6)
+
+
+def test_float_to_int_conversion_on_the_card_matches_cpu(cuda):
+    """``registry.int_convert`` (XLA's convert: NaN to 0, out of range
+    saturated, toward zero in between) on CUDA tensors equals the CPU's,
+    from float32 and float64 into int32, int8, uint8 and int64; so do
+    ``Cast`` and CTC's labels and lengths (``ctc_labels``)."""
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import contrib
+    from mxtpu_torch.ops.registry import int_convert
+    torch, _ = cuda
+    nan, inf = float("nan"), float("inf")
+    vals = [nan, inf, -inf, 3e9, -3e9, 2.7, -2.7, 2147483647.0,
+            -2147483648.0, 0.5, -0.5, 127.9, 255.5, -129.0, 1e20]
+    for dt in (torch.float32, torch.float64):
+        x = torch.tensor(vals, dtype=dt)
+        for it in (torch.int32, torch.int8, torch.uint8, torch.int64):
+            assert torch.equal(int_convert(x.cuda(), it).cpu(),
+                               int_convert(x, it)), (dt, it)
+        for name in ("int32", "uint8"):
+            got = mt.ops.registry.invoke("Cast", [x.cuda()],
+                                         {"dtype": name})[2][0]
+            want = mt.ops.registry.invoke("Cast", [x], {"dtype": name})[2][0]
+            assert torch.equal(got.cpu(), want), (dt, name)
+    labels = torch.tensor([[1.0, 3e9, nan], [nan, -3e9, 2.0]])
+    lengths = torch.tensor([3e9, nan])
+    for first in (True, False):
+        got = contrib.ctc_labels(labels.cuda(), 5, first, lengths.cuda())
+        want = contrib.ctc_labels(labels, 5, first, lengths)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

@@ -6,7 +6,8 @@ scipy matrix; ``row_sparse_array``; ``zeros``/``empty`` of each storage;
 ``copy``, CSR row slices, ``cast_storage``/``tostype`` both ways, ``dot``
 (csr·dense, with ``transpose_b``, csrᵀ·dense as row_sparse, dense·csr),
 ``add``/``elemwise_add`` (rsp+rsp, csr+csr, mixed), ``sparse_retain``
-and ``retain``, a dense write rebuilding the components, and
+and ``retain``, a dense write rebuilding the components, the bodies
+that once went wrong (``final_op_cases.SPARSE_FAULTS``), and
 ``test_utils``' sparse helpers from one seed. Values exact where the
 arithmetic is a copy, within 1e-6 where it sums. Then the sparse
 example's flow (``models/sparse_linear.py``: LibSVMIter's csr batches,
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 
 import mxtpu as mx
-from final_op_cases import sparse_device_ops
+from final_op_cases import SPARSE_FAULTS, sparse_device_ops
 
 D = np.array([[0.0, 1.5, 0.0, 0.0], [2.0, 0.0, 0.0, -3.0],
               [0.0, 0.0, 0.0, 0.0], [0.0, 4.0, 5.0, 0.0]], np.float32)
@@ -135,6 +136,14 @@ def test_dot_add_and_retain_match_mxtpu(mt):
                 r.retain(nd.array(np.array([1.0, 3.0])))]
 
     _both(mt, body, tol=1e-6)
+
+
+@pytest.mark.parametrize("name,body", SPARSE_FAULTS,
+                         ids=[n for n, _ in SPARSE_FAULTS])
+def test_sparse_faults_match_mxtpu(mt, name, body):
+    """In-place writes rebuild the components (an index is a copy), dots
+    of a CSR array and a vector, csr + csr of two types."""
+    _both(mt, body, 1e-6)
 
 
 def test_a_dense_write_rebuilds_the_components(mt):
