@@ -352,7 +352,17 @@ Phases (any failure raises and exits non-zero):
    card, against scipy's sum and the rows themselves, timed; every
    linalg and contrib case of ``tests/final_op_cases.py`` on CUDA
    tensors against cpu() (gelqf's cuSOLVER Q and L against LAPACK's).
-19. Prints the kernels' JSON line (each kernel's launches by path, the
+19. ``dist_async`` and the TCP parameter server (``dist_async``): two
+   worker processes (``--kv-worker``) on gpu(0) join from ``env://``;
+   rank 0 hosts the async ``KVServer`` and the mlp trains through
+   ``fit(kvstore="dist_async")``: rank 1's push is visible to its next
+   pull while rank 0 waits at a barrier, the weights are finite and the
+   server's versions count every push. Then the launch form: ``python
+   -m mxtpu_torch.kvstore_server`` as the server and two workers under
+   ``MXTPU_ROLE=worker`` on ``dist_sync``, each on its half of every
+   batch: their weights within 1e-6 of one process on the whole batch
+   and the same bits on both. Every subprocess has a timeout.
+20. Prints the kernels' JSON line (each kernel's launches by path, the
    ``records``, ``frontend``, ``zoo``, ``rcnn`` and ``ctc`` paths
    included), then the device line last.
 
@@ -382,15 +392,40 @@ device and host ms, optimizer-state bytes a card), ring and Ulysses
 attention at the LM's widths over 4 cards (``multi_seq``: held to the
 plain attention and its backward in float64, flash launches by card, ms
 against ``FlashAttentionFunction`` on one card) and MoE, a pipeline and ``DataParallelTrainer`` each
-held to one card (``multi_parallel``); last, ``group2ctx`` placement
+held to one card, and ``DataParallelTrainer(shard_params=True)`` on a
+(2, 2) mesh held to ``shard_params=False``, each card holding half of
+every split parameter (``multi_parallel``); then ``group2ctx`` placement
 (``multi_group2ctx``): the model-parallel LSTM of
 examples/rnn/model_parallel_lstm.py at config 4's widths ('embed_rnn1'
 on gpu(0), 'rnn2_head' on gpu(1)) for 4 SGD steps through the Executor
 against the same net on gpu(0) alone (outputs and weights within 1e-6;
 each group's kernels on its own card under the profiler; step ms and
-cross-device copies). ``--multi-phases`` runs a subset (then no summary
-and no device line, rc 1). Its own summary line, then the device line,
-last.
+cross-device copies); last, the tp and fsdp meshes (``mesh_tp``): the
+LM at phase 6's widths and depth through ``Module(context=gpu(0)).fit``
+on ``mesh="data:2,tp:2"`` and ``"data:2,fsdp:2"``: first FullyConnected's
+and Embedding's tp forms on the cards against float64 at the LM's
+shapes, and one SGD step at B=4 on each mesh and on gpu(0) alone
+against the exact step (the float64 gradient on the host): each mesh
+no farther from it than 4 times the one-card step (f32 is far from
+exact on this model, phase 6's
+``train_step_vs_cpu``); then B=8, SGD with momentum, 4 steps on each
+mesh and on the replicated fused path over [gpu(0..3)] from the same
+weights: one tp all-reduce a FullyConnected a step (an fsdp all-gather
+and reduce-scatter a weight), the first of each collective held to the
+host's arithmetic (``CheckedCollectives``), each card's parameter and
+optimizer-state bytes within the replicated bytes plus the split ones
+over their split factor, 12 flash forward and 12 backward launches a
+step on every card; tokens/s per chip beside the replicated run, the
+collectives' device ms, each mesh's distance from the replicated
+weights. Then Convolution's tp form on the cards against float64 at
+ResNet-50's shapes, and ResNet-50 v2 at ``multi_mesh``'s batch for 4
+steps under ``data:2,tp:2`` with cuDNN deterministic and the fused
+step's collectives in replica order (``OrderedCollectives``): its
+weights and statistics after the first and the last step within
+max(1e-4, 4x) the one-card path's own distance from the replicated
+path, and the evaluation forward's 50 epilogue launches on each card.
+``--multi-phases`` runs a subset (then no summary and no device line,
+rc 1). Its own summary line, then the device line, last.
 """
 from __future__ import annotations
 
@@ -602,9 +637,21 @@ ROI_TIMED = dict(rois=256, test_rois=600, channels=512, shape=(37, 62),
 ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
-          "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse")
+          "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse",
+          "dist_async")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
-                "gluon", "seq", "parallel", "group2ctx")
+                "gluon", "seq", "parallel", "group2ctx", "mesh_tp")
+# --multi-gpu mesh_tp: the LM at phase 6's widths on 2-D meshes of the 4
+# cards, B=8, SGD with momentum; each card's bytes may exceed the
+# replicated ones plus the split ones over their factor by slack_bytes;
+# a mesh's first step may be exact_factor times farther from the float64
+# step than the one-card step
+MESH_TP = dict(batch=8, steps=4, lr=0.01, momentum=0.9,
+               meshes=("data:2,tp:2", "data:2,fsdp:2"),
+               resnet_mesh="data:2,tp:2", slack_bytes=0, exact_factor=4.0)
+# dist_async: the mlp (784-128-64-10) on seeded images, a global batch of
+# 64 (32 a worker), 2 epochs; each subprocess's time limit in seconds
+KV_ASYNC = dict(examples=512, batch=64, epochs=2, lr=0.1, timeout=300)
 
 
 def log(*a):
@@ -2812,21 +2859,25 @@ class StepClock:
 
 
 def fit_resnet(mt, contexts, x, y, batch, num_epoch, seed, kvstore,
-               on_module=None, mesh=None):
+               on_module=None, mesh=None, cards=None, snaps=None):
     """ResNet-50 v2 through Module.fit over ``contexts`` (with ``mesh``,
-    over the mesh's devices) from Xavier weights drawn with the numpy
-    ``seed`` (phase 7's configuration), ``on_module(mod)`` called before
-    the fit: (module, step ms, cross-entropy by step)."""
+    over the mesh's devices: ``cards`` of them where the mesh is not a
+    count) from Xavier weights drawn with the numpy ``seed`` (phase 7's
+    configuration), ``on_module(mod)`` called before the fit, the
+    parameters after the first step appended to ``snaps``: (module,
+    step ms, cross-entropy by step)."""
     mod = mt.mod.Module(mt.models.get_resnet(**RESNET), context=contexts)
     if on_module is not None:
         on_module(mod)
-    clock = StepClock(max(len(contexts), mesh or 1))
+    clock = StepClock(cards or max(len(contexts), mesh or 1))
     ce = []
 
     def record(param):
         clock(param)
         ce.append(dict(zip(*param.eval_metric.get()))["cross-entropy"])
         param.eval_metric.reset()
+        if snaps is not None and len(ce) == 1:
+            snaps.append(mod.get_params())
 
     np.random.seed(seed)
     for i in range(clock.n):
@@ -3053,11 +3104,12 @@ class DeviceTally:
 
 class CollectiveClock:
     """Times a collective of ``module/fused.py`` (looked up by ``name``
-    there, as the fused step calls it): host ms of each call and device
-    ms between CUDA events recorded on each card's current stream around
-    it (the largest). ``sum_replicas`` is the replicated step's gradient
-    sum; ``reduce_scatter_replicas`` / ``all_gather_replicas`` the
-    sharded step's."""
+    there, as the fused step calls it; or of ``ops/collective.py``, whose
+    group collectives the tp/fsdp walk calls): host ms of each call and
+    device ms between CUDA events recorded on each card's current stream
+    around it (the largest). ``sum_replicas`` is the replicated step's
+    gradient sum; ``reduce_scatter_replicas`` / ``all_gather_replicas``
+    the sharded step's."""
 
     def __init__(self, fused, name="sum_replicas"):
         self.fused, self.name = fused, name
@@ -3072,11 +3124,12 @@ class CollectiveClock:
         for (s, _), d in zip(ev, devs):
             s.record(torch.cuda.current_stream(d))
         t0 = time.perf_counter()
-        self.fn(buffers, *rest)
+        out = self.fn(buffers, *rest)
         self.host_ms.append((time.perf_counter() - t0) * 1e3)
         for (_, e), d in zip(ev, devs):
             e.record(torch.cuda.current_stream(d))
         self.pending.append(ev)
+        return out
 
     def device_ms(self):
         out = []
@@ -3565,7 +3618,8 @@ class CheckedCollectives:
             self.saved[name](*args)
             n = len(ins)
             if name == "all_gather_replicas":
-                same = all(torch.equal(o.view(n, -1)[s_], x.to(o.device))
+                same = all(torch.equal(o.view(n, -1)[s_],
+                                       x.to(o.device).reshape(-1))
                            for o in outs for s_, x in enumerate(ins))
                 worst = 0.0 if same else float("inf")
             else:
@@ -3573,7 +3627,8 @@ class CheckedCollectives:
                           for r in range(n)]
                 bounds = [bound.view(n, -1)[r] if outs is not ins else bound
                           for r in range(n)]
-                worst = max(float(((o.double().to(exact.device) - w).abs()
+                worst = max(float(((o.double().to(exact.device)
+                                    .reshape(w.shape) - w).abs()
                                    / b).max())
                             for o, w, b in zip(outs, blocks, bounds))
                 if outs is ins and not all(torch.equal(o.to(dev0), outs[0])
@@ -4008,12 +4063,558 @@ def multi_parallel(mt, seed, card, n):
     out["dp_trainer"] = sharded == ["fc1_weight"] and all(
         close(trs[0].params[k], trs[1].params[k], 2e-4, 2e-5)
         for k in trs[1].params) and not replicas_differ(trs[0]._module)
+    # DataParallelTrainer(shard_params=True) on a (2, 2) ('data', 'model')
+    # mesh against shard_params=False: fc1 (512 x 128, 2^16 elements) by
+    # rows over 'model', gathered on use
+    hh = s.FullyConnected(s.Variable("data"), num_hidden=512, name="fc1")
+    hh = s.FullyConnected(s.Activation(hh, act_type="relu"), num_hidden=4,
+                          name="fc2")
+    net2 = s.SoftmaxOutput(hh, name="softmax")
+    X2 = rng.randn(64, 128).astype("f4")
+    shard_trs, w2 = [], None
+    for shard in (True, False):
+        tr = mt.parallel.DataParallelTrainer(
+            net2, mesh=mt.parallel.make_mesh((2, 2), devices=gpus[:4]),
+            optimizer_params=params, shard_params=shard)
+        tr.init({"data": (64, 128), "softmax_label": (64,)})
+        if w2 is None:
+            w2 = {k: v.clone() for k, v in tr.params.items()}
+        else:
+            tr._module.set_params({k: mt.nd.NDArray(v, mt.gpu(0))
+                                   for k, v in w2.items()}, {})
+        for _ in range(3):
+            tr.step({"data": X2, "softmax_label": Y})
+        shard_trs.append(tr)
+    lay = shard_trs[0].fused._plan.replica_layout()
+    halves = [tuple(e.arg_dict["fc1_weight"].shape)
+              for e in shard_trs[0]._module._exec_group.execs]
+    dist = max(float((shard_trs[0].params[k].double().cpu()
+                      - shard_trs[1].params[k].double().cpu()).abs().max())
+               / max(1.0, float(shard_trs[1].params[k].abs().max()))
+               for k in w2)
+    out["dp_shard_params"] = sorted(lay.specs) == ["fc1_weight"] and \
+        halves == [(256, 128)] * 4 and dist <= 1e-5
     log("  [%s] over %d cards vs one card: %s (DataParallelTrainer updated "
-        "%s by rows)" % (card, n, out, sharded))
+        "%s by rows; with shard_params on a (2, 2) mesh fc1_weight %s a "
+        "card, %.3e of max(1, |w|) from shard_params=False after 3 steps)"
+        % (card, n, out, sharded, halves, dist))
+    del shard_trs
     if not all(out.values()):
         raise AssertionError("mesh functions on %d cards disagree with one "
                              "card: %s" % (n, out))
     del trs
+    torch.cuda.empty_cache()
+    return out
+
+
+# --multi-gpu mesh_tp: ResNet-50's convolution shapes (B, C, H=W, O, k,
+# stride, pad) for Convolution's tp form against float64 on the cards
+CONV_TP_CASES = ((64, 64, 56, 64, 3, 1, 1), (64, 256, 56, 128, 1, 2, 0),
+                 (64, 512, 28, 128, 1, 1, 0), (64, 256, 14, 256, 3, 1, 1))
+
+
+def conv_tp_on_cards(mt, seed, devices, tol=1e-4):
+    """Convolution's tp form (``ops/nn.py`` ``_conv_tp``) over a
+    ``data:2,tp:2`` layout of ``devices`` at ResNet-50's shapes: each
+    replica its rows of the batch and its half of the weight's input
+    channels; the outputs, dx (all-gathered over tp) and the weight's
+    gradient blocks (summed over data) within ``tol`` of max(1, |exact|)
+    of the float64 convolution of the whole batch on the first device."""
+    from mxtpu_torch.ops import nn as nn_ops
+    from mxtpu_torch.ops.registry import get_op
+    from mxtpu_torch.parallel.mesh import Mesh, ReplicaLayout
+    lay = ReplicaLayout(Mesh(devices, ("data", "tp"), (2, 2)),
+                        {"w": (None, "tp")})
+    op = get_op("Convolution")
+    rng = np.random.RandomState(seed)
+    dev0 = devices[0].torch_device
+    worst = {}
+    for b, c, hw, o, k, stride, pad in CONV_TP_CASES:
+        a = op.parse_attrs({"kernel": (k, k), "stride": (stride, stride),
+                            "pad": (pad, pad), "num_filter": o,
+                            "no_bias": True})
+        x = torch.tensor(rng.randn(b, c, hw, hw).astype("f4"))
+        w = torch.tensor(rng.randn(o, c, k, k).astype("f4")
+                         * np.float32(1.0 / np.sqrt(c * k * k)))
+        x64 = x.double().to(dev0).requires_grad_()
+        w64 = w.double().to(dev0).requires_grad_()
+        y64 = torch.nn.functional.conv2d(x64, w64, stride=stride,
+                                         padding=pad)
+        head = torch.randn(y64.shape, dtype=torch.float64, device=dev0,
+                           generator=torch.Generator(dev0).manual_seed(
+                               seed))
+        dx64, dw64 = torch.autograd.grad(y64, (x64, w64), head)
+        y64 = y64.detach()
+        half = b // 2
+        xs, ws, heads, rows = [], [], [], []
+        for r, ctx in enumerate(devices):
+            d = lay.coords[r]["data"]
+            rows.append(slice(d * half, (d + 1) * half))
+            dev = ctx.torch_device
+            xs.append(x[rows[-1]].to(dev).requires_grad_())
+            ws.append(lay.piece("w", w, r).contiguous().to(dev)
+                      .requires_grad_())
+            heads.append(head[rows[-1]].float().to(dev))
+        ys = [t[0] for t in nn_ops._conv_tp(a, list(zip(xs, ws)), {1: "w"},
+                                            lay)]
+        grads = torch.autograd.grad(ys, xs + ws, heads)
+        dxs, dws = grads[:len(xs)], grads[len(xs):]
+
+        def err(got, want):
+            return float((got.detach().double().to(dev0) - want).abs()
+                         .max()) / max(1.0, float(want.abs().max()))
+        e = {"y": max(err(y, y64[s]) for y, s in zip(ys, rows)),
+             "dx": max(err(g, dx64[s]) for g, s in zip(dxs, rows))}
+        blocks = []
+        for g in lay.groups(("data",)):
+            total = sum(dws[r].double().to(dev0) for r in g)
+            t = lay.coords[g[0]]["tp"]
+            blocks.append(err(total, dw64[:, t * c // 2:(t + 1) * c // 2]))
+        e["dw"] = max(blocks)
+        worst["%dx%dx%d->%d k%d s%d" % (b, c, hw, o, k, stride)] = e
+    log("  Convolution's tp form over data:2,tp:2 of %s against float64, "
+        "error over max(1, |exact|) (gate %g): %s" % (
+            [str(d) for d in devices], tol,
+            {k: {n: "%.2e" % v for n, v in e.items()}
+             for k, e in worst.items()}))
+    if max(v for e in worst.values() for v in e.values()) > tol:
+        raise AssertionError("Convolution's tp form against float64: %s"
+                             % worst)
+    return worst
+
+
+# --multi-gpu mesh_tp: the LM's FullyConnected shapes (leading dims a
+# replica, in, out, flatten) and its Embedding (vocab, dim, T) for the tp
+# forms against float64 on the cards
+TP_FC_CASES = (((4, 1024), 768, 3072, False), ((4, 1024), 3072, 768, False),
+               ((4096,), 768, 50257, True))
+TP_EMB_CASE = (50257, 768, 1024)
+
+
+def fc_embedding_tp_on_cards(mt, seed, devices, tol=1e-4):
+    """FullyConnected's and Embedding's tp forms (``ops/nn.py``
+    ``_fc_tp``, ``_embedding_tp``) over a ``data:2,tp:2`` layout of
+    ``devices`` at the LM's shapes: outputs, dx (all-gathered over tp) and
+    the weight blocks' gradients (summed over data) within ``tol`` of
+    max(1, |exact|) of float64 on the first device (``TP_FC_CASES``,
+    ``TP_EMB_CASE``)."""
+    from mxtpu_torch.ops import nn as nn_ops
+    from mxtpu_torch.ops.registry import get_op
+    from mxtpu_torch.parallel.mesh import Mesh, ReplicaLayout
+    lay = ReplicaLayout(Mesh(devices, ("data", "tp"), (2, 2)),
+                        {"w": (None, "tp")})
+    rng = np.random.RandomState(seed)
+    dev0 = devices[0].torch_device
+    gen = torch.Generator(dev0).manual_seed(seed)
+
+    def err(got, want):
+        return float((got.detach().double().to(dev0) - want).abs()
+                     .max()) / max(1.0, float(want.abs().max()))
+
+    def per_replica(full, r, rows):
+        d = lay.coords[r]["data"]
+        return full[d * rows:(d + 1) * rows]
+
+    def block_err(grads, exact, width):
+        """The weight's gradient blocks summed over each data group
+        against the exact gradient's columns of that tp index."""
+        out = []
+        for g in lay.groups(("data",)):
+            t = lay.coords[g[0]]["tp"]
+            total = sum(grads[r].double().to(dev0) for r in g)
+            out.append(err(total, exact[:, t * width:(t + 1) * width]))
+        return max(out)
+
+    worst = {}
+    fc = get_op("FullyConnected")
+    for lead, d_in, d_out, flatten in TP_FC_CASES:
+        a = fc.parse_attrs({"num_hidden": d_out, "flatten": flatten})
+        rows = lead[0]
+        x = torch.tensor(rng.randn(2 * rows, *lead[1:], d_in).astype("f4"))
+        w = torch.tensor((rng.randn(d_out, d_in) / np.sqrt(d_in))
+                         .astype("f4"))
+        b = torch.tensor(rng.randn(d_out).astype("f4"))
+        x64, w64, b64 = (t.double().to(dev0).requires_grad_()
+                         for t in (x, w, b))
+        y64 = torch.nn.functional.linear(x64, w64, b64)
+        head = torch.randn(y64.shape, dtype=torch.float64, device=dev0,
+                           generator=gen)
+        dx64, dw64, db64 = torch.autograd.grad(y64, (x64, w64, b64), head)
+        y64 = y64.detach()
+        ins, heads = [], []
+        for r, ctx in enumerate(devices):
+            dev = ctx.torch_device
+            ins.append((per_replica(x, r, rows).to(dev).requires_grad_(),
+                        lay.piece("w", w, r).contiguous().to(dev)
+                        .requires_grad_(), b.to(dev).requires_grad_()))
+            heads.append(per_replica(head, r, rows).float().to(dev))
+        ys = [t[0] for t in nn_ops._fc_tp(a, ins, {1: "w"}, lay)]
+        grads = torch.autograd.grad(ys, [i[0] for i in ins]
+                                    + [i[1] for i in ins], heads)
+        n = len(devices)
+        worst["fc %dx%d->%d" % (int(np.prod(lead)), d_in, d_out)] = {
+            "y": max(err(y, per_replica(y64, r, rows))
+                     for r, y in enumerate(ys)),
+            "dx": max(err(g, per_replica(dx64, r, rows))
+                      for r, g in enumerate(grads[:n])),
+            "dw": block_err(grads[n:], dw64, d_in // 2)}
+    vocab, dim, t = TP_EMB_CASE
+    a = get_op("Embedding").parse_attrs({"input_dim": vocab,
+                                         "output_dim": dim})
+    ids = torch.tensor(rng.randint(0, vocab, (8, t)).astype("f4"))
+    w = torch.tensor((rng.randn(vocab, dim) * 0.02).astype("f4"))
+    w64 = w.double().to(dev0).requires_grad_()
+    y64 = torch.nn.functional.embedding(ids.long().to(dev0), w64)
+    head = torch.randn(y64.shape, dtype=torch.float64, device=dev0,
+                       generator=gen)
+    dw64, = torch.autograd.grad(y64, (w64,), head)
+    y64 = y64.detach()
+    ins, heads = [], []
+    for r, ctx in enumerate(devices):
+        dev = ctx.torch_device
+        ins.append((per_replica(ids, r, 4).to(dev),
+                    lay.piece("w", w, r).contiguous().to(dev)
+                    .requires_grad_()))
+        heads.append(per_replica(head, r, 4).float().to(dev))
+    ys = [t[0] for t in nn_ops._embedding_tp(a, ins, {1: "w"}, lay)]
+    grads = torch.autograd.grad(ys, [i[1] for i in ins], heads)
+    worst["embedding %dx%d" % (vocab, dim)] = {
+        "y": max(err(y, per_replica(y64, r, 4)) for r, y in enumerate(ys)),
+        "dw": block_err(grads, dw64, dim // 2)}
+    log("  FullyConnected's and Embedding's tp forms over data:2,tp:2 of "
+        "%s against float64, error over max(1, |exact|) (gate %g): %s" % (
+            [str(d) for d in devices], tol,
+            {k: {n: "%.2e" % v for n, v in e.items()}
+             for k, e in worst.items()}))
+    if max(v for e in worst.values() for v in e.values()) > tol:
+        raise AssertionError("the tp forms against float64: %s" % worst)
+    return worst
+
+
+def lm_mesh_fit(mt, contexts, sym, w0, x, y, mesh, n, steps=None):
+    """The LM through ``Module(context=contexts).fit`` from the weights
+    ``w0`` (numpy), SGD with momentum, ``steps`` (``MESH_TP["steps"]``)
+    steps of one repeated batch; ``mesh``: a mesh spec, or False for the
+    fused path over ``contexts``: (module, step ms, cross-entropy)."""
+    mod = mt.mod.Module(sym, context=contexts)
+    clock, ce = StepClock(n), []
+
+    def record(param):
+        clock(param)
+        ce.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+
+    args = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in w0.items()}
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    start = time.perf_counter()
+    mod.fit(RepeatBatch(mt, x, y, steps or MESH_TP["steps"]), num_epoch=1,
+            eval_metric="ce", optimizer="sgd", kvstore="device",
+            optimizer_params={"learning_rate": MESH_TP["lr"],
+                              "momentum": MESH_TP["momentum"]},
+            arg_params=args, initializer=None, batch_end_callback=record,
+            metric_sync=1, mesh=mesh)
+    return mod, clock.ms(start), ce
+
+
+def lm_exact_gate(mt, sym, w0, seed, n):
+    """One SGD step of the LM at full width and depth, B = 4, on gpu(0)
+    and through ``fit(mesh=spec)`` for each of ``MESH_TP["meshes"]``,
+    from ``w0``, against the exact step (the float64 gradient on the CPU,
+    through the plain versions, as phase 6's ``train_step_vs_cpu``). f32
+    is far from exact on this model (a LayerNorm over small embeddings
+    multiplies the gradient, the sums over the tokens and classes
+    cancel), so the gate is relative: each mesh's largest distance from
+    the exact step within ``MESH_TP["exact_factor"]`` times the one-card
+    step's own."""
+    cfg = dict(LM)
+    x, y = lm_batch(seed + 3, 4, cfg["seq_len"], cfg["vocab_size"])
+    got = {}
+    for name, mesh in (("one_card", False),) + tuple(
+            (s_, s_) for s_ in MESH_TP["meshes"]):
+        mod, _, _ = lm_mesh_fit(mt, [mt.gpu(0)], sym, w0, x, y, mesh, n,
+                                steps=1)
+        got[name] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        del mod
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g64 = _grads_f64(mt, sym, {k: mt.nd.array(v, ctx=mt.cpu())
+                               for k, v in w0.items()}, x, y)
+    exact = {k: w0[k].astype(np.float64) - MESH_TP["lr"] * g / len(x)
+             for k, g in g64.items()}  # SGD's first step, rescale 1/B
+    dist = {name: max(float(np.abs(w[k] - exact[k]).max()) for k in exact)
+            for name, w in got.items()}
+    ratio = {k: v / max(dist["one_card"], 1e-30) for k, v in dist.items()}
+    log("  the LM's first SGD step (B=4, lr %g) against the exact "
+        "(float64, %.1f s on the host) step: largest distance %s; ratio "
+        "to the one-card step's %s (gate %g)" % (
+            MESH_TP["lr"], time.perf_counter() - t0,
+            {k: "%.3e" % v for k, v in dist.items()},
+            {k: round(v, 3) for k, v in ratio.items()},
+            MESH_TP["exact_factor"]))
+    bad = {k: v for k, v in ratio.items() if v > MESH_TP["exact_factor"]}
+    if bad:
+        raise AssertionError("the LM's step on %s is farther from the "
+                             "exact step than %g x the one-card step's: "
+                             "%s" % (sorted(bad), MESH_TP["exact_factor"],
+                                     dist))
+    return dict(exact_dist=dist, ratio=ratio)
+
+
+def held_to_replicated(label, runs, specs):
+    """``runs``: {name: (weights after the first step, after the last)}
+    for "replicated", "one_card" and each of ``specs``. Each spec's
+    distance from the replicated fused path (max |w - w_rep| / max(1,
+    |w_rep|)) after the first step and after the last must be within
+    max(1e-4, 4x) the one-card path's own distance from it: the same
+    function with its sums in another order, which the training's
+    conditioning can grow far past 1e-4 in a few steps."""
+    want = runs["replicated"]
+    spread = [scaled_dist(a, b) for a, b in zip(runs["one_card"], want)]
+    gate = [max(1e-4, 4 * v) for v in spread]
+    dists = {s_: [scaled_dist(a, b) for a, b in zip(runs[s_], want)]
+             for s_ in specs}
+    log("  %s (from the same start, cuDNN deterministic, the fused "
+        "step's collectives in replica order): distance from the "
+        "replicated path after the first / the last step %s; the one-card "
+        "path's %s; gates %s" % (
+            label, {k: ["%.3e" % v for v in d] for k, d in dists.items()},
+            ["%.3e" % v for v in spread], ["%.3e" % v for v in gate]))
+    for k, d in dists.items():
+        if any(v > g for v, g in zip(d, gate)):
+            raise AssertionError("%s on %s is %s from the replicated path "
+                                 "(gates %s)" % (label, k, d, gate))
+    return dict(dists=dists, one_card=spread, gates=gate)
+
+
+def mesh_bytes(mod, slack):
+    """Each card's parameter and optimizer-state bytes beside their
+    bounds: the replicated parameters' bytes plus each split one's over
+    its split factor (its state's also over the data axis where it is
+    updated by rows), plus ``slack``."""
+    fused = mod._fused
+    plan = fused._plan
+    lay = plan.replica_layout() if plan is not None else None
+    rows = set(fused.sharded_names)
+    n_data = lay.sizes.get("data", 1) if lay is not None else 1
+    bound_p = bound_s = 0
+    for k, shape in mod._exec_group.param_shapes.items():
+        full = int(np.prod(shape)) * 4
+        split = int(np.prod([lay.sizes[a] for a in lay.split_axes(k)])) \
+            if lay is not None else 1
+        bound_p += full // split
+        if k in fused.trainable:
+            bound_s += full // split // (n_data if k in rows else 1)
+    params = [sum(e.arg_dict[k]._data.numel() * e.arg_dict[k]._data
+                  .element_size() for k in mod._param_names)
+              for e in mod._exec_group.execs]
+    return dict(param_bytes=params, state_bytes=fused.opt_state_bytes(),
+                param_bound=bound_p + slack, state_bound=bound_s + slack)
+
+
+def mesh_tp(mt, att, epi, seed, card, n):
+    """The tp and fsdp meshes at full width (see the module docstring):
+    the LM on each of ``MESH_TP["meshes"]`` against the replicated fused
+    path, then ResNet-50 v2 under ``MESH_TP["resnet_mesh"]``."""
+    from mxtpu_torch.module import fused as fused_mod
+    from mxtpu_torch.ops import collective as coll
+    from mxtpu_torch.ops import nn as nn_ops
+    cfg = dict(LM)
+    b, steps = MESH_TP["batch"], MESH_TP["steps"]
+    gpus = [mt.gpu(i) for i in range(n)]
+    sym = mt.models.get_transformer_lm(**cfg)
+    w0 = {k[4:]: v for k, v in lm_params(sym, seed).items()}
+    x, y = lm_batch(seed, b, cfg["seq_len"], cfg["vocab_size"])
+    # the FullyConnected weights: 6 a layer and lm_head
+    n_fc = sum(1 for k in w0 if k.endswith("_weight")
+               and k != "tok_emb_weight")
+    out = {"gate": {}, "runs": {}}
+    # the gates: the tp forms of the LM's ops against float64 at its
+    # shapes, then the first step against the exact (float64) step
+    out["tp_forms"] = fc_embedding_tp_on_cards(mt, seed, gpus)
+    out["gate"] = lm_exact_gate(mt, sym, w0, seed, n)
+    # the runs: NCCL, each collective's first call held to the host
+    names = ("all_reduce_groups", "all_gather_groups",
+             "reduce_scatter_groups")
+    fused_names = ("sum_replicas", "reduce_scatter_replicas",
+                   "all_gather_replicas")
+    finals = {}
+    for spec in MESH_TP["meshes"] + (False,):
+        label = spec or "replicated"
+        clocks = [CollectiveClock(coll, k) for k in names] + \
+            [CollectiveClock(fused_mod, k) for k in fused_names]
+        checks = [CheckedCollectives(fused_mod)]
+        if spec:
+            checks.append(CheckedCollectives(coll))
+        fwd = DeviceTally(att, "_launch")
+        bwd = DeviceTally(att, "_launch_bwd")
+        coll.calls.clear()
+        att.flash_attention.launches = 0  # count the main path alone
+        att.flash_attention_backward.launches = 0
+        for i in range(n):
+            torch.cuda.reset_peak_memory_stats(i)
+        try:
+            mod, ms, ce = lm_mesh_fit(mt, [mt.gpu(0)] if spec else gpus,
+                                      sym, w0, x, y, spec, n)
+            launches = (att.flash_attention.launches,
+                        att.flash_attention_backward.launches)
+            coll_ms = {c.name: sum(c.device_ms()) / steps for c in clocks}
+            coll_calls = {c.name: len(c.host_ms) // steps for c in clocks}
+        finally:
+            for c in checks:
+                c.restore()
+            for c in clocks:
+                c.restore()
+            fwd.restore()
+            bwd.restore()
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(n)]
+        by_dev = {d: (fwd.by_device.get(d, 0) // steps,
+                      bwd.by_device.get(d, 0) // steps)
+                  for d in sorted(set(fwd.by_device) | set(bwd.by_device))}
+        worst = {}
+        for c in checks:
+            worst.update({"%s.%s" % (c.fused.__name__.split(".")[-1], k): v
+                          for k, v in c.worst.items()})
+        calls = {"%s/%s" % k: v // steps for k, v in coll.calls.items()}
+        mem = mesh_bytes(mod, MESH_TP["slack_bytes"])
+        finals[label] = mod.get_params()[0]
+        mean = float(np.mean(ms[1:]))
+        tokens = b * cfg["seq_len"]
+        row = dict(mesh=label, step_ms=ms, step_ms_mean=mean, ce=ce,
+                   tokens_per_s_per_chip=tokens / (mean / 1e3) / n,
+                   collectives_device_ms_per_step=coll_ms,
+                   collective_calls_per_step=dict(coll_calls, **calls),
+                   nccl_error_over_bound=worst,
+                   launches_per_step_by_device=by_dev, launches=launches,
+                   max_memory_allocated=[int(p) for p in peaks], **mem)
+        if spec:
+            lay = mod._fused._plan.replica_layout()
+            row["split_params"] = len(lay.specs)
+            row["split_elems"] = int(sum(np.prod(
+                mod._exec_group.param_shapes[k]) for k in lay.specs))
+        out["runs"][label] = row
+        log("  [%s] LM, %s, B=%d, SGD: cross-entropy %s; step ms %s (mean "
+            "after the first %.2f), %.0f tokens/s per chip; group "
+            "collectives a step %s, their device ms a step %s; first calls "
+            "on NCCL over the host's bound %s; flash launches a step by "
+            "device (fwd, bwd) %s; bytes by card: parameters %s (bound "
+            "%d), optimizer state %s (bound %d); peak memory %s GB" % (
+                card, label, b, [round(v, 4) for v in ce],
+                [round(v, 1) for v in ms], mean,
+                row["tokens_per_s_per_chip"], calls,
+                {k: round(v, 3) for k, v in coll_ms.items()},
+                {k: round(v, 3) for k, v in worst.items()}, by_dev,
+                mem["param_bytes"], mem["param_bound"], mem["state_bytes"],
+                mem["state_bound"], [round(p / 1e9, 2) for p in peaks]))
+        want_l = cfg["num_layers"]
+        if len(ce) != steps or not np.all(np.isfinite(ce)) or \
+                not ce[-1] < ce[0]:
+            raise AssertionError("LM on %s: cross-entropy %s" % (label, ce))
+        if len(by_dev) != n or any(v != (want_l, want_l)
+                                   for v in by_dev.values()) or \
+                launches != (want_l * steps * n,) * 2:
+            raise AssertionError("LM on %s: flash launches a step by "
+                                 "device %s, counts %s" % (
+                                     label, by_dev, launches))
+        if worst and max(worst.values()) > 1.0:
+            raise AssertionError("LM on %s: collectives on NCCL over the "
+                                 "host's bound %s" % (label, worst))
+        if max(mem["param_bytes"]) > mem["param_bound"] or \
+                max(mem["state_bytes"]) > mem["state_bound"]:
+            raise AssertionError("LM on %s: bytes by card over the bound "
+                                 "%s" % (label, mem))
+        if spec == "data:2,tp:2" and (
+                calls.get("all_reduce/tp") != n_fc
+                or "collective.sum_replicas" not in worst):
+            raise AssertionError("LM on %s: %s tp all-reduces a step, "
+                                 "want one a FullyConnected (%d); checked "
+                                 "%s" % (label, calls.get("all_reduce/tp"),
+                                         n_fc, sorted(worst)))
+        if spec == "data:2,fsdp:2" and (
+                calls.get("all_gather/fsdp") != n_fc - 1
+                or calls.get("reduce_scatter/fsdp") != n_fc - 1):
+            raise AssertionError("LM on %s: fsdp collectives a step %s, "
+                                 "want %d each (lm_head's 50,257 rows do "
+                                 "not split)" % (label, calls, n_fc - 1))
+        del mod
+        torch.cuda.empty_cache()
+    rep_row = out["runs"]["replicated"]
+    for spec in MESH_TP["meshes"]:
+        out["runs"][spec]["dist_from_replicated"] = scaled_dist(
+            finals[spec], finals["replicated"])
+    log("  tokens/s per chip: %s; after %d steps on NCCL each mesh's "
+        "weights are %s from the replicated path's (max |w - w_rep| / "
+        "max(1, |w_rep|); not gated: the sums' order, grown by the "
+        "training)" % (
+            {k: round(v["tokens_per_s_per_chip"])
+             for k, v in out["runs"].items()}, steps,
+            {k: "%.3e" % out["runs"][k]["dist_from_replicated"]
+             for k in MESH_TP["meshes"]}))
+    del finals
+    # ResNet-50 v2 under the tp mesh: Convolution's tp form, first each
+    # of its shapes against float64, then the net
+    out["conv_tp"] = conv_tp_on_cards(mt, seed, gpus)
+    spec = MESH_TP["resnet_mesh"]
+    rb = MULTI["batch"]
+    xr, yr = resnet_train_data(seed)
+    runs, stats = {}, {}
+    with DeterministicCudnn(), OrderedCollectives(fused_mod):
+        for name, ctxs, mesh in (("replicated", gpus, False),
+                                 ("one_card", [mt.gpu(0)], False),
+                                 (spec, [mt.gpu(0)], spec)):
+            snaps = []
+            mod, ms, ce = fit_resnet(
+                mt, ctxs, xr[:2 * rb], yr[:2 * rb], rb,
+                DP_STEPS * rb // (2 * rb), seed,
+                "device" if mesh is False and len(ctxs) > 1 else "local",
+                mesh=mesh, cards=n, snaps=snaps)
+            got = mod.get_params()
+            runs[name] = (snaps[0][0], got[0])
+            stats[name] = (snaps[0][1], got[1])
+            if mesh is False:
+                del mod
+                torch.cuda.empty_cache()
+    lay = mod._fused._plan.replica_layout()
+    convs = sum(1 for k, e in lay.specs.items() if "conv" in k
+                and e[1:2] == (("tp",),))
+    label = "ResNet-50 v2 under %s (B=%d, %d convolutions in the tp " \
+        "form), %d SGD steps" % (spec, rb, convs, DP_STEPS)
+    gate_w = held_to_replicated(label + ", weights", runs, (spec,))
+    gate_a = held_to_replicated(label + ", moving statistics", stats,
+                                (spec,))
+    log("  step ms %s" % [round(v, 1) for v in ms])
+    if convs == 0 or not np.all(np.isfinite(ce)):
+        raise AssertionError("ResNet-50 under %s: %d tp convolutions, "
+                             "cross-entropy %s" % (spec, convs, ce))
+    dw, da = gate_w["dists"][spec][-1], gate_a["dists"][spec][-1]
+    batch = mt.io.DataBatch([mt.nd.array(xr[:rb], ctx=mt.cpu())],
+                            [mt.nd.array(yr[:rb], ctx=mt.cpu())])
+    execs = mod._exec_group.execs
+    tally = DeviceTally(nn_ops, "bn_apply_relu_add")
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    try:
+        gate = eval_forward_gate(epi, forward, lambda: sum(
+            e.fused_sites for e in execs), "ResNet-50 under %s evaluation "
+            "forward" % spec, expect=RESNET_SITES * n)
+    finally:
+        tally.restore()
+    per_dev = dict(tally.by_device)
+    log("  epilogue launches of one evaluation forward by device: %s"
+        % per_dev)
+    if sorted(per_dev.values()) != [RESNET_SITES] * n:
+        raise AssertionError("epilogue launches by device %s, want %d each"
+                             % (per_dev, RESNET_SITES))
+    out["resnet"] = dict(mesh=spec, weights_dist=dw, stats_dist=da,
+                         weights_gate=gate_w, stats_gate=gate_a,
+                         tp_convolutions=convs, step_ms=ms, ce=ce,
+                         eval_launches_by_device=per_dev, **gate)
+    out["replicated_tokens_per_s_per_chip"] = \
+        rep_row["tokens_per_s_per_chip"]
+    del mod
     torch.cuda.empty_cache()
     return out
 
@@ -4074,6 +4675,9 @@ def multi_gpu(args, card):
     if "group2ctx" in phases:
         log("[multi_gpu group2ctx]")
         res["group2ctx"] = multi_group2ctx(mt, args.seed, card)
+    if "mesh_tp" in phases:
+        log("[multi_gpu mesh_tp]")
+        res["mesh_tp"] = mesh_tp(mt, att, epi, args.seed, card, n)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4098,7 +4702,11 @@ def multi_gpu(args, card):
         "ring_fwd_bwd_ms": {"%s/%d/%s" % (r["path"], r["T"], r["dtype"]):
                             r["fwd_bwd_ms"] for r in res["seq"]},
         "group2ctx_step_ms": float(np.median(
-            res["group2ctx"]["split_step_ms"]))}}))
+            res["group2ctx"]["split_step_ms"])),
+        "mesh_tp_tokens_per_s_per_chip": {
+            k: v["tokens_per_s_per_chip"]
+            for k, v in res["mesh_tp"]["runs"].items()},
+        "mesh_tp_resnet_step_ms": res["mesh_tp"]["resnet"]["step_ms"]}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -9059,6 +9667,207 @@ def phase_sparse(mt, seed, card):
     return res
 
 
+def kv_mlp(mt, seed):
+    """The dist_async phase's mlp, its seeded start ({name: numpy}) and
+    its seeded images and labels."""
+    sym = mt.models.mlp.get_symbol(10)
+    rng = np.random.RandomState(seed)
+    shapes = dict(zip(sym.list_arguments(),
+                      sym.infer_shape(data=(1, 784))[0]))
+    w0 = {}
+    for k in sorted(shapes):
+        if k in ("data", "softmax_label"):
+            continue
+        scale = np.sqrt(3.0 / shapes[k][-1]) if k.endswith("_weight") \
+            else 0.0
+        w0[k] = rng.uniform(-scale, scale, shapes[k]).astype(np.float32)
+    n = KV_ASYNC["examples"]
+    x = rng.rand(n, 784).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.float32)
+    return sym, w0, x, y
+
+
+def kv_worker(mode, seed, out):
+    """One process of the dist_async phase (``--kv-worker``): ``async``
+    (a rank of a torch.distributed job from env://, the mlp on its half
+    of the rows through ``fit(kvstore="dist_async")``), ``sync`` (a
+    worker under ``MXTPU_ROLE=worker``, its half of every batch through
+    ``fit(kvstore="dist_sync")``) or ``one`` (one process on the whole
+    batch); writes its weights (``.npz``) and a JSON row beside them."""
+    import mxtpu_torch as mt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sym, w0, x, y = kv_mlp(mt, seed)
+    b = KV_ASYNC["batch"]
+    row = {"mode": mode}
+    kv = "local"
+    if mode != "one":
+        kv = mt.kv.create("dist_async" if mode == "async" else "dist_sync")
+        r, nw = kv.rank, kv.num_workers
+        row.update(rank=r, workers=nw)
+        # each worker its half of every global batch
+        idx = np.concatenate([np.arange(s + r * b // nw,
+                                        s + (r + 1) * b // nw)
+                              for s in range(0, len(x), b)])
+        x, y, b = x[idx], y[idx], b // nw
+    if mode == "async":
+        # rank 1 pushes and pulls a key while rank 0 waits at a barrier:
+        # its pull sees its own push without the other worker
+        kv.init("probe", mt.nd.zeros((4,), ctx=mt.gpu(0)))
+        seen = []
+        if r == 1:
+            for i in range(3):
+                kv.push("probe", mt.nd.ones((4,), ctx=mt.gpu(0)) * (i + 1))
+                got = mt.nd.zeros((4,), ctx=mt.gpu(0))
+                kv.pull("probe", out=got)
+                seen.append(float(got.asnumpy()[0]))
+        kv.barrier()
+        row["probe_seen"] = seen
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    clock = StepClock(1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=b),
+            num_epoch=KV_ASYNC["epochs"], kvstore=kv, optimizer="sgd",
+            optimizer_params={"learning_rate": KV_ASYNC["lr"]},
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in w0.items()},
+            batch_end_callback=clock)
+    row["step_ms"] = clock.ms(start)
+    w = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    row["finite"] = bool(all(np.isfinite(v).all() for v in w.values()))
+    row["moved"] = float(max(np.abs(w[k] - w0[k]).max() for k in w0))
+    np.savez(out + ".npz", **w)
+    if mode != "one":
+        kv.barrier()  # every push applied
+        if mode == "async" and r == 0:
+            row["versions"] = {str(k): v for k, v in
+                               kv._server.versions.items()}
+        kv.close()
+        if mode == "async":
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    with open(out + ".json", "w") as f:
+        json.dump(row, f)
+    return 0
+
+
+def run_procs(procs, timeout):
+    """Wait for every process within ``timeout`` seconds in all; kill any
+    still running (a hung worker fails the phase): their return codes."""
+    deadline = time.monotonic() + timeout
+    rcs = []
+    try:
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline
+                                              - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rcs
+
+
+def phase_dist_async(mt, seed, card):
+    """Phase 19: ``dist_async`` over env:// with rank 0 hosting the async
+    server, then the launch form (``python -m
+    mxtpu_torch.kvstore_server`` and two ``MXTPU_ROLE=worker``
+    processes on ``dist_sync``) against one process."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kv_")
+    me = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+          "--kv-worker"]
+    out = {}
+    try:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            me + ["async", "--out", os.path.join(tmp, "async%d" % r)],
+            cwd=here, env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                               MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=str(port)))
+            for r in range(2)]
+        rcs = run_procs(procs, KV_ASYNC["timeout"])
+        wall = time.perf_counter() - t0
+        if rcs != [0, 0]:
+            raise AssertionError("dist_async workers: rcs %s" % rcs)
+        rows = []
+        for r in range(2):
+            with open(os.path.join(tmp, "async%d.json" % r)) as f:
+                rows.append(json.load(f))
+        steps = KV_ASYNC["epochs"] * KV_ASYNC["examples"] // \
+            KV_ASYNC["batch"]
+        versions = rows[0]["versions"]
+        counted = {k: v for k, v in versions.items() if k != "probe"}
+        log("  [%s] dist_async, 2 workers on gpu(0) from env://, rank 0 "
+            "serving: rank 1's pulls after its own pushes %s (rank 0 at a "
+            "barrier); weights finite %s, moved %s; the server's versions "
+            "of the %d weights %s (want %d: every push of %d steps by 2 "
+            "workers); step ms by rank %s; %.1f s wall with the processes' "
+            "start" % (card, rows[1]["probe_seen"],
+                       [r["finite"] for r in rows],
+                       [round(r["moved"], 4) for r in rows], len(counted),
+                       sorted(set(counted.values())), 2 * steps, steps,
+                       [[round(v, 2) for v in r["step_ms"]] for r in rows],
+                       wall))
+        trained = all(r["finite"] and r["moved"] > 1e-3 for r in rows)
+        if rows[1]["probe_seen"] != [1.0, 2.0, 3.0] or not trained or \
+                versions.get("probe") != 3 or len(counted) != 6 or \
+                set(counted.values()) != {2 * steps}:
+            raise AssertionError("dist_async: %s" % rows)
+        out["async"] = dict(step_ms=[r["step_ms"] for r in rows],
+                            wall_s=wall, versions=versions)
+        # the launch form on dist_sync, and one process on the whole batch
+        port = free_port()
+        kv_env = dict(os.environ, MXTPU_ROOT_URI="127.0.0.1",
+                      MXTPU_ROOT_PORT=str(port), MXTPU_NUM_WORKERS="2")
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "mxtpu_torch.kvstore_server"], cwd=here,
+            env=dict(kv_env, MXTPU_ROLE="server"))
+        procs = [subprocess.Popen(
+            me + ["sync", "--out", os.path.join(tmp, "sync%d" % r)],
+            cwd=here, env=dict(kv_env, MXTPU_ROLE="worker",
+                               MXTPU_WORKER_ID=str(r))) for r in range(2)]
+        procs.append(subprocess.Popen(
+            me + ["one", "--out", os.path.join(tmp, "one")], cwd=here,
+            env=dict(os.environ)))
+        rcs = run_procs(procs + [server], KV_ASYNC["timeout"])
+        wall = time.perf_counter() - t0
+        if rcs != [0, 0, 0, 0]:
+            raise AssertionError("the launch form: rcs (workers, one "
+                                 "process, server) %s" % rcs)
+        w = [np.load(os.path.join(tmp, "sync%d.npz" % r)) for r in range(2)]
+        one = np.load(os.path.join(tmp, "one.npz"))
+        same = all(np.array_equal(w[0][k], w[1][k]) for k in one.files)
+        dist = max(float(np.abs(w[0][k] - one[k]).max()) for k in one.files)
+        rows = []
+        for name in ("sync0", "sync1", "one"):
+            with open(os.path.join(tmp, name + ".json")) as f:
+                rows.append(json.load(f))
+        log("  [%s] the launch form: python -m mxtpu_torch.kvstore_server "
+            "and 2 MXTPU_ROLE=worker processes on dist_sync (the optimizer "
+            "on the server): workers bit-identical %s, max |w - w_one| "
+            "%.3e against one process on the whole batch (gate 1e-6); step "
+            "ms worker 0 %s, one process %s; %.1f s wall" % (
+                card, same, dist,
+                [round(v, 2) for v in rows[0]["step_ms"]],
+                [round(v, 2) for v in rows[2]["step_ms"]], wall))
+        if not same or dist > 1e-6 or rows[2]["moved"] < 1e-3:
+            raise AssertionError("the launch form: bit-identical %s, %.3e "
+                                 "from one process" % (same, dist))
+        out["launch"] = dict(step_ms=[r["step_ms"] for r in rows],
+                             wall_s=wall, max_abs_to_one=dist)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -9091,9 +9900,13 @@ def main(argv=None):
                     % ",".join(MULTI_PHASES))
     ap.add_argument("--dist-worker", action="store_true",
                     help=argparse.SUPPRESS)  # one rank of --multi-gpu
+    ap.add_argument("--kv-worker", choices=("async", "sync", "one"),
+                    help=argparse.SUPPRESS)  # one process of dist_async
     args = ap.parse_args(argv)
     if args.dist_worker:
         return dist_worker(args.seed, args.out)
+    if args.kv_worker:
+        return kv_worker(args.kv_worker, args.seed, args.out)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -9230,6 +10043,10 @@ def main(argv=None):
     if "sparse" in phases:
         log("[sparse]")
         results["sparse"] = phase_sparse(mt, args.seed, card)
+    # 19. dist_async and the TCP parameter server
+    if "dist_async" in phases:
+        log("[dist_async]")
+        results["dist_async"] = phase_dist_async(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

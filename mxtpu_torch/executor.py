@@ -48,6 +48,7 @@ import torch
 from .base import MXNetError
 from .context import as_context, current_context
 from .ndarray import NDArray
+from .ops.collective import gather_split
 from .ops.nn import bn_relu_inference
 from .ops.registry import torch_dtype, write_aux
 
@@ -145,14 +146,20 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
                          dev))
     out_entries = [(id(n), i) for n, i in symbol._outputs]
 
-    def run_replicas(arg_list, aux_list, devices=None, hook=None):
+    def run_replicas(arg_list, aux_list, devices=None, hook=None,
+                     layout=None):
         """The plan over replicas in lockstep, one value set per replica
         (one: the plain walk): ([outputs of each], [aux_updates of
         each]). Over several, each op runs by its ``replica_mode``.
         ``devices``: each replica's device, for the ops with no tensor
         inputs (default: each replica's first argument's). ``hook(node,
         n_vis, outputs)`` sees each unfused op step's outputs (the first
-        replica's)."""
+        replica's). ``layout`` (a ``parallel.mesh.ReplicaLayout``): the
+        replicas hold blocks of the parameters it splits, and tp peers
+        the same rows; an op that such a parameter reaches runs by its
+        ``tp_fn``, or on the parameter gathered right before it
+        (``_split_inputs``), and a ``group`` op runs once per row group
+        (the replicas that share a tp index)."""
         if placements and len(arg_list) > 1:
             raise MXNetError("group2ctx placement runs one replica")
         if devices is None:
@@ -174,22 +181,17 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
                     if t.device != dev:
                         x[j] = t.to(dev)
                         copies += 1
+            outs = None
+            if layout is not None and layout.specs:
+                outs, inputs = _split_inputs(node, attrs, inputs, layout,
+                                             fused_out is None)
             if fused_out is not None:
                 for env, x in zip(envs, inputs):
                     env[fused_out] = bn_relu_inference(attrs, *x)
                 continue
-            mode = "rows" if len(envs) == 1 else node.op.replica_mode(
-                attrs, inputs[0][0].ndim if inputs[0] else 0)
-            if mode == "rows":
-                outs = [node.op.apply(attrs, x, dev or d)
-                        for x, d in zip(inputs, devices)]
-            elif mode == "group":
-                outs = node.op.group_fn(attrs, inputs)
-            else:
-                raise MXNetError(
-                    "%s '%s' couples rows of the batch and has no form "
-                    "over replicas: this graph cannot train on several "
-                    "contexts as one batch" % (node.op.name, node.name))
+            if outs is None:
+                outs = _replica_outputs(node, attrs, inputs, devices, dev,
+                                        layout)
             for env, upd, o in zip(envs, updates, outs):
                 for i in range(n_vis):
                     env[(id(node), i)] = o[i]
@@ -210,6 +212,50 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
     run.replicas = run_replicas
     run.copies = 0
     return run
+
+
+def _replica_outputs(node, attrs, inputs, devices, dev, layout):
+    """Each replica's outputs of an op by its ``replica_mode``: on its
+    rows alone, or by ``group_fn`` over the replicas that hold distinct
+    rows (each tp index's on its own under a layout with a tp axis)."""
+    mode = "rows" if len(inputs) == 1 else node.op.replica_mode(
+        attrs, inputs[0][0].ndim if inputs[0] else 0)
+    if mode == "rows":
+        return [node.op.apply(attrs, x, dev or d)
+                for x, d in zip(inputs, devices)]
+    if mode is None:
+        raise MXNetError(
+            "%s '%s' couples rows of the batch and has no form over "
+            "replicas: this graph cannot train on several contexts as one "
+            "batch" % (node.op.name, node.name))
+    if layout is None or layout.tp_axis is None:
+        return node.op.group_fn(attrs, inputs)
+    outs = [None] * len(inputs)
+    for g in layout.groups(layout.row_axes):
+        for i, o in zip(g, node.op.group_fn(attrs, [inputs[i] for i in g])):
+            outs[i] = o
+    return outs
+
+
+def _split_inputs(node, attrs, inputs, layout, tp_form=True):
+    """(outputs or None, inputs) of an op over replicas that hold blocks
+    of the parameters ``layout`` splits: the op's ``tp_fn`` where it has
+    a form for the split (``tp_form``), else the inputs with every split
+    parameter gathered whole on each replica (``gather_split``)."""
+    split = {j: n.name for j, (n, _) in enumerate(node.inputs)
+             if n.is_variable and n.name in layout.specs}
+    if not split:
+        return None, inputs
+    if tp_form and node.op.tp_fn is not None:
+        outs = node.op.tp_fn(attrs, inputs, split, layout)
+        if outs is not None:
+            return outs, inputs
+    inputs = [list(x) for x in inputs]
+    for j, name in split.items():
+        whole = gather_split([x[j] for x in inputs], name, layout)
+        for x, w in zip(inputs, whole):
+            x[j] = w
+    return None, inputs
 
 
 def eager_run_range(symbol, env, start, stop, arg_vals, aux_vals, device,
@@ -492,19 +538,31 @@ class Executor:
         return self._run(False).fused_sites
 
 
-def forward_replicas(executors):
-    """A training forward of ``executors`` (one symbol, each bound on its
-    slice of the batch on its own device, its inputs loaded) as one
-    function of the whole batch: the plan walked over the replicas in
-    lockstep (``run.replicas``). Each executor keeps its tape for
-    ``backward_replicas`` and its outputs, as its own ``forward``."""
-    if len(executors) == 1:
-        return [executors[0].forward(True)]
+def forward_replicas(executors, layout=None, is_train=True):
+    """A forward of ``executors`` (one symbol, each bound on its slice of
+    the batch on its own device, its inputs loaded) as one function of
+    the whole batch: the plan walked over the replicas in lockstep
+    (``run.replicas``; ``layout``: the replicas hold blocks of split
+    parameters). In training each executor keeps its tape for
+    ``backward_replicas`` and its outputs, as its own ``forward``; at
+    inference (``is_train=False``, the fused plan) only its outputs."""
+    if len(executors) == 1 and layout is None:
+        return [executors[0].forward(is_train)]
+    devices = [ex._device for ex in executors]
+    if not is_train:
+        ins = [ex._inputs({}) for ex in executors]
+        with torch.inference_mode():
+            outs, _ = executors[0]._run(False).replicas(
+                [a for a, _ in ins], [x for _, x in ins], devices,
+                layout=layout)
+        for ex, o in zip(executors, outs):
+            ex.outputs = [ex._wrap(t) for t in o]
+        return [ex.outputs for ex in executors]
     ins = [ex._train_inputs({}) for ex in executors]
     with torch.enable_grad():
         outs, updates = executors[0]._run(True).replicas(
-            [a for a, _, _ in ins], [x for _, x, _ in ins],
-            [ex._device for ex in executors])
+            [a for a, _, _ in ins], [x for _, x, _ in ins], devices,
+            layout=layout)
     return [ex._trained(o, u, leaves) for ex, o, u, (_, _, leaves)
             in zip(executors, outs, updates, ins)]
 

@@ -18,12 +18,28 @@ Counterpart of ``mxtpu/kvstore.py`` (``KVStore`` :69, ``init`` :200,
   ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``) when ``WORLD_SIZE``
   is above 1; with neither the store is one worker, as mxtpu's is when
   ``jax.process_count() == 1``.
+- Under a cluster environment whose role is ``worker``
+  (``kvstore_server.cluster_env``: a server started as ``python -m
+  mxtpu_torch.kvstore_server``, mxtpu's ``tools/launch.py`` layout),
+  every ``dist_*`` kind goes over the TCP parameter server
+  (``kvstore_server.KVClient``, mxtpu's :70-172): the client starts its
+  heartbeat, ``dist_async`` switches the server to async mode, then a
+  barrier. ``push`` sends the merged value, ``pull`` copies the server's
+  value into each out in place, ``set_optimizer`` pickles the optimizer
+  to the server, which runs it.
+- ``dist_async`` in a ``torch.distributed`` job (``env://``): rank 0
+  hosts an async ``KVServer`` in a thread at ``MASTER_PORT + 1000`` on
+  ``MASTER_ADDR`` (``MXTPU_ASYNC_PS_URI``/``MXTPU_ASYNC_PS_PORT`` override
+  both) and every rank connects: a push applies at once and a pull never
+  waits for another worker (mxtpu's :101-149). With no cluster it is one
+  worker.
 - ``row_sparse_pull`` (mxtpu's :401): into a ``RowSparseNDArray`` out,
   the unique requested rows of the stored value, gathered on the store's
   device; into a dense out, the whole value. Every kind above serves it
   from the worker's own copy, which the push keeps equal on every
-  worker. ``dist_async`` (mxtpu's TCP parameter server, whose
-  ``pull_rows`` ships only the rows) raises.
+  worker; over the TCP server (below) a ``RowSparseNDArray`` out gets
+  only the requested rows from the server (``pull_rows``, mxtpu's
+  :401-433) and a dense out the server's whole value.
 - The mesh veneer (mxtpu's :211-290): with a 1-D data mesh active
   (``sharding.current()``), a ``local``/``device`` push of one value per
   mesh device is one all-reduce over the mesh (``sum_replicas``: NCCL
@@ -32,8 +48,10 @@ Counterpart of ``mxtpu/kvstore.py`` (``KVStore`` :69, ``init`` :200,
   copy on its own device. A value list that does not cover the mesh's
   devices, a multi-axis mesh or a ``dist`` store takes the path above.
 
-The optimizer runs on each worker after the all-reduce, mxtpu's
-"sync server" semantics; there is no server process.
+Without the TCP server the optimizer runs on each worker after the
+all-reduce, mxtpu's "sync server" semantics; over it, on the server.
+``barrier``, ``send_command_to_servers``, ``num_dead_node`` and
+``close`` follow mxtpu's :440-520.
 """
 from __future__ import annotations
 
@@ -100,19 +118,55 @@ def _pull_into(dst, src, row_ids=None):
 
 class KVStore:
     def __init__(self, kind="local"):
-        if kind == "dist_async":
-            raise MXNetError(
-                "kvstore dist_async needs mxtpu's TCP parameter server "
-                "(kvstore_server.py), not ported yet (ROADMAP A.4: "
-                "dist_async and the server)")
+        from . import kvstore_server as kvs
         self._kind = kind
         self._store = {}
         self._updater = None
         self._optimizer = None
-        self._dist = _process_group() if kind.startswith("dist") else None
+        self._dist = None
+        self._client = self._env = self._server = None
         # key -> {context: its copy of the last mesh all-reduce}
         self._replicas = {}
         self.mesh_allreduces = 0
+        if not kind.startswith("dist"):
+            return
+        env = kvs.cluster_env()
+        if env is not None and env["role"] == "worker":
+            self._env = env
+            self._connect_worker(kvs, env["uri"], env["port"],
+                                 env["worker_id"], "async" in kind)
+            return
+        self._dist = _process_group()
+        if "async" in kind and self._dist is not None:
+            self._start_async_server(kvs)
+
+    def _start_async_server(self, kvs):
+        """``dist_async`` in a torch.distributed job: rank 0 serves (an
+        async ``KVServer`` thread), every rank connects."""
+        host = os.environ.get("MXTPU_ASYNC_PS_URI",
+                              os.environ.get("MASTER_ADDR"))
+        port = os.environ.get("MXTPU_ASYNC_PS_PORT")
+        if port is None and "MASTER_PORT" in os.environ:
+            port = int(os.environ["MASTER_PORT"]) + 1000
+        if host is None or port is None:
+            raise MXNetError(
+                "dist_async over torch.distributed: set MASTER_ADDR and "
+                "MASTER_PORT (env://), or MXTPU_ASYNC_PS_URI and "
+                "MXTPU_ASYNC_PS_PORT, to where rank 0 serves")
+        rank, n = self._dist.get_rank(), self._dist.get_world_size()
+        if rank == 0:
+            self._server = kvs.KVServer(int(port), n, host="0.0.0.0")
+            self._server.sync_mode = False
+            self._server.run_in_thread()
+        self._connect_worker(kvs, host, port, rank, True)
+
+    def _connect_worker(self, kvs, host, port, rank, async_mode):
+        """Connect, start the heartbeat, set the mode, then a barrier."""
+        self._client = kvs.KVClient(host, port)
+        self._client.start_heartbeat(rank)
+        if async_mode:
+            self._client.send_command("sync_mode", False)
+        self._client.barrier()
 
     # ------------------------------------------------ identity
     @property
@@ -121,10 +175,14 @@ class KVStore:
 
     @property
     def rank(self):
+        if self._env is not None:
+            return self._env["worker_id"]
         return self._dist.get_rank() if self._dist is not None else 0
 
     @property
     def num_workers(self):
+        if self._env is not None:
+            return self._env["num_workers"]
         return self._dist.get_world_size() if self._dist is not None else 1
 
     # ------------------------------------------------ core ops
@@ -134,6 +192,9 @@ class KVStore:
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
             arr = v[0] if isinstance(v, list) else v
+            if self._client is not None:  # the lowest rank's value wins
+                self._client.init(k, arr.asnumpy(), rank=self.rank)
+                self._client.barrier()
             self._store[k] = NDArray(_raw(arr).detach().clone(),
                                      arr.context)
 
@@ -154,7 +215,8 @@ class KVStore:
         """``vlist`` in mesh order when it holds one value on each device
         of an active 1-D data mesh (and the store is not ``dist``); else
         None."""
-        if self._dist is not None or len(vlist) < 2:
+        if self._dist is not None or self._client is not None or \
+                len(vlist) < 2:
             return None
         mctx = _sharding.current()
         if mctx is None or mctx.mesh.axis_names != (mctx.layout.data_axis,):
@@ -193,6 +255,9 @@ class KVStore:
                     self._replicas[k] = {x.context: x._data for x in sums}
                 continue
             merged = self._local_merge(vlist)
+            if self._client is not None:
+                self._client.push(k, merged.asnumpy())
+                continue
             if self._dist is not None:
                 t = _raw(merged).detach()
                 if merged is vlist[0]:
@@ -226,6 +291,8 @@ class KVStore:
                     raise MXNetError("pull: key %r was never initialized"
                                      % (k,))
                 src = self._store[k]._data
+                if self._client is not None:
+                    src = torch.from_numpy(self._client.pull(k))
                 copies = self._replicas.get(k, {})
                 for dst in (o if isinstance(o, list) else [o]):
                     _pull_into(dst, copies.get(dst.context, src))
@@ -249,27 +316,75 @@ class KVStore:
                     else rids * len(olist)
                 copies = self._replicas.get(k, {})
                 for dst, rid in zip(olist, rlist):
+                    if self._client is not None:
+                        self._pull_rows_tcp(k, dst, rid)
+                        continue
                     _pull_into(dst, copies.get(dst.context,
                                                self._store[k]._data), rid)
+
+    def _pull_rows_tcp(self, k, dst, rid):
+        """A pull from the TCP server: only the unique requested rows
+        into a ``RowSparseNDArray``, the whole value into any other
+        out."""
+        if not isinstance(dst, RowSparseNDArray):
+            _pull_into(dst, torch.from_numpy(self._client.pull(k)))
+            return
+        rows = torch.unique(rid._data.to(torch.int64).reshape(-1)).cpu()
+        got = torch.from_numpy(self._client.pull_rows(k, rows.numpy()))
+        dev = dst.context.torch_device
+        dst._set_rows(got.to(dev), rows.to(dev))
 
     # ------------------------------------------------ updater / optimizer
     def set_updater(self, updater):
         self._updater = updater
 
     def set_optimizer(self, optimizer):
-        """The optimizer runs on every worker after the sum (mxtpu's
-        worker-side update, the sync server's semantics)."""
+        """Over the TCP server the optimizer is pickled to it and runs
+        there (every worker sends it; the socket's order puts it before
+        the worker's pushes). Otherwise it runs on every worker after the
+        sum (mxtpu's worker-side update, the sync server's semantics)."""
         self._optimizer = optimizer
+        if self._client is not None:
+            self._client.send_command("set_optimizer",
+                                      pickle.dumps(optimizer))
+            return
         self._updater = opt.get_updater(optimizer)
 
     # ------------------------------------------------ cluster control
     def barrier(self):
-        if self._dist is not None:
+        if self._client is not None:
+            self._client.barrier()
+        elif self._dist is not None:
             self._dist.barrier()
 
+    def send_command_to_servers(self, head, body):
+        """A command to the TCP server (``sync_mode``,
+        ``set_optimizer``); nothing without one."""
+        if self._client is not None:
+            self._client.send_command(head, body)
+
+    def num_dead_node(self, node_id=0, timeout=60):
+        """Workers the TCP server counts dead: silent longer than
+        ``timeout`` seconds since their heartbeat started, clean stops
+        excluded (``node_id`` kept for the signature); 0 without one."""
+        del node_id
+        if self._client is not None:
+            return self._client.num_dead_node(timeout)
+        return 0
+
     def close(self):
-        """Nothing to stop: the store holds no connection. The process
-        group, where one was joined, belongs to the process."""
+        """Stop this worker's connection to the TCP server (the server
+        ends once every worker has stopped). The process group, where one
+        was joined, belongs to the process."""
+        if self._client is not None:
+            self._client.stop()
+            self._client = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:

@@ -22,6 +22,18 @@ executor's parameter gradients are views into one flat buffer per dtype
 collective. The parameters of ``flat_tail`` go at the end of their buffer:
 under a sharding plan the replicated gradients then lie in one leading
 segment, summed in place, and the sharded ones after it.
+
+With ``layout`` (a ``parallel.mesh.ReplicaLayout``: a plan that splits
+parameters over the mesh, or a tp axis) the contexts are the mesh's
+devices, one replica each. Replica r takes row slice ``row_index[r]`` of
+the batch (its tp peers the same rows) and holds only its block of each
+split parameter, with a gradient of that block's size; ``set_params``
+hands each replica its blocks and ``get_params`` assembles them.
+Every forward runs the replicas as one walk, at inference too, and the
+outputs, the metric and the merged outputs are the lead replicas' (one
+per row slice: the tp peers' are the same rows again). The leading
+segment of each flat buffer is ordered by the axes its gradients are
+summed over (``layout.reduce_axes``), so each such run is one collective.
 """
 from __future__ import annotations
 
@@ -56,7 +68,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  fixed_param_names=None, grad_req="write", flat_tail=(),
-                 shared_group=None, state_names=()):
+                 shared_group=None, state_names=(), layout=None):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.workload = list(workload or [1] * len(self.contexts))
@@ -71,6 +83,10 @@ class DataParallelExecutorGroup:
         self.aux_names = symbol.list_auxiliary_states()
         self._grad_req = grad_req
         self.flat_tail = frozenset(flat_tail)
+        self.layout = layout
+        if layout is not None and layout.n != len(self.contexts):
+            raise MXNetError("a layout of %d replicas over %d contexts"
+                             % (layout.n, len(self.contexts)))
         self._coupled = False
         self.execs, self.flat_grads = [], []
         self.state_names = list(state_names)
@@ -115,7 +131,18 @@ class DataParallelExecutorGroup:
         self.data_names = [n for n, _ in data_shapes]
         self.label_names = [n for n, _ in label_shapes]
         self.batch_size = data_shapes[0][1][0]
-        self.slices = _split_input_slice(self.batch_size, self.workload)
+        lay = self.layout
+        if lay is None:
+            self.slices = _split_input_slice(self.batch_size, self.workload)
+        else:
+            rows = _split_input_slice(self.batch_size,
+                                      [1] * lay.n_row_slices)
+            self.slices = [rows[lay.row_index[r]] for r in range(lay.n)]
+        arg_shapes = self.symbol.infer_shape(
+            **dict(data_shapes + label_shapes))[0]
+        self.param_shapes = {n: tuple(sh) for n, sh in
+                             zip(self.arg_names, arg_shapes)
+                             if n in self.param_names}
         self.execs = []
         self.flat_grads = []
         for i, ctx in enumerate(self.contexts):
@@ -142,6 +169,9 @@ class DataParallelExecutorGroup:
         """(executor, {dtype: flat gradient buffer}) of one context, its
         input arrays new, its other arrays ``old``'s where given."""
         arg_shapes, _, aux_shapes = self.symbol.infer_shape(**shapes)
+        if self.layout is not None:
+            arg_shapes = [self.layout.local_shape(n, sh) for n, sh in
+                          zip(self.arg_names, arg_shapes)]
         dev = ctx.torch_device
         inputs = set(self.data_names + self.label_names)
         args, reqs, grads = {}, {}, {}
@@ -159,7 +189,7 @@ class DataParallelExecutorGroup:
         # those of flat_tail last
         need = sorted((n for n in self.param_names
                        if reqs[n] != "null" and n not in grads),
-                      key=lambda n: n in self.flat_tail)
+                      key=self._flat_order)
         flats = {}
         by_dtype = {}
         for n in need:
@@ -186,6 +216,12 @@ class DataParallelExecutorGroup:
         return self.symbol.bind(ctx, args, args_grad=grads, grad_req=reqs,
                                 aux_states=aux), flats
 
+    def _flat_order(self, name):
+        """Where ``name``'s gradient goes in its flat buffer: the leading
+        segment by the axes it is summed over, ``flat_tail`` last."""
+        axes = self.layout.reduce_axes(name) if self.layout else ()
+        return (name in self.flat_tail, axes)
+
     def reshape(self, data_shapes, label_shapes):
         if data_shapes == self.data_shapes and \
                 label_shapes == self.label_shapes:
@@ -206,8 +242,12 @@ class DataParallelExecutorGroup:
                     src = getattr(val, "_data", val)
                     if not isinstance(src, torch.Tensor):
                         src = torch.as_tensor(_np.asarray(src))
-                    for arr in blocks[name]:
-                        arr._data.copy_(src.reshape(arr.shape))
+                    lay = self.layout
+                    for r, arr in enumerate(blocks[name]):
+                        piece = src if lay is None else lay.piece(
+                            name, src.reshape(self.param_shapes.get(
+                                name, src.shape)), r)
+                        arr._data.copy_(piece.reshape(arr.shape))
 
     def get_params(self, first_only=False):
         """(arg_params, aux_params) as cpu() NDArrays: one context's
@@ -217,6 +257,16 @@ class DataParallelExecutorGroup:
         the first context's (replicas known to hold the same bits)."""
         blocks = self.param_arrays + self.aux_arrays
         names = self.param_names + self.aux_names
+        lay = self.layout
+        if lay is not None and lay.specs:
+            host = host_copies([a._data for b in blocks for a in b])
+            n = lay.n
+            vals = [lay.assemble(name, host[i * n:(i + 1) * n])
+                    for i, name in enumerate(names)]
+            vals = [NDArray(v, cpu()) for v in vals]
+            k = len(self.param_names)
+            return (dict(zip(names[:k], vals[:k])),
+                    dict(zip(names[k:], vals[k:])))
         if first_only:
             blocks = [b[:1] for b in blocks]
         n = len(blocks[0]) if blocks else 1
@@ -255,9 +305,13 @@ class DataParallelExecutorGroup:
         if is_train is None:
             is_train = self.for_training
         self.load_batch(data_batch)
+        if self.layout is not None and self.layout.couples:
+            self._coupled = is_train
+            forward_replicas(self.execs, self.layout, is_train)
+            return
         self._coupled = coupled and is_train
         if self._coupled:
-            forward_replicas(self.execs)
+            forward_replicas(self.execs, self.layout)
             return
         for exe in self.execs:
             exe.forward(is_train=is_train)
@@ -277,9 +331,18 @@ class DataParallelExecutorGroup:
         for i, exe in enumerate(self.execs):
             exe.backward(None if per_exec is None else per_exec[i])
 
+    def _leads(self):
+        """[(executor, its rows)] of the replicas that each take distinct
+        rows of the batch (all of them without a tp axis)."""
+        pairs = list(zip(self.execs, self.slices))
+        if self.layout is None:
+            return pairs
+        return [pairs[r] for r in self.layout.leads]
+
     def get_outputs(self, merge_multi_context=True):
-        outputs = [[exe.outputs[i] for exe in self.execs]
-                   for i in range(len(self.execs[0].outputs))]
+        execs = [e for e, _ in self._leads()]
+        outputs = [[exe.outputs[i] for exe in execs]
+                   for i in range(len(execs[0].outputs))]
         if merge_multi_context:
             return [self._merge(out) for out in outputs]
         return outputs
@@ -335,7 +398,7 @@ class DataParallelExecutorGroup:
             mon.install(exe)
 
     def update_metric(self, eval_metric, labels):
-        for exe, s in zip(self.execs, self.slices):
+        for exe, s in self._leads():
             eval_metric.update(
                 [lbl[self._scaled_slice(s, lbl.shape[0])] for lbl in labels],
                 exe.outputs)
@@ -345,4 +408,4 @@ class DataParallelExecutorGroup:
         its device (the bound label arrays): what the device metric folds
         in."""
         return [([exe.arg_dict[n]._data for n in self.label_names],
-                 [o._data for o in exe.outputs]) for exe in self.execs]
+                 [o._data for o in exe.outputs]) for exe, _ in self._leads()]

@@ -28,8 +28,8 @@ import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
-from ..ops.collective import (all_gather_replicas, reduce_scatter_replicas,
-                              sum_replicas)
+from ..ops.collective import (all_gather_replicas, group_positions,
+                              reduce_scatter_replicas, sum_replicas)
 
 __all__ = ["FusedTrainStep", "supports"]
 
@@ -139,18 +139,25 @@ def supports(optimizer):
 
 class _Bucket:
     """The flat buffers of one dtype's parameters updated by rows, on
-    every replica.
+    every replica; ``groups`` are the replicas that share those rows (the
+    data groups: every replica when there is no other axis), each
+    reduced on its own.
 
     ``stage[r]`` holds replica r's gradients laid out shard-major, an (n,
     C) matrix whose row s is the s-th row block of every parameter in
     turn, so one reduce-scatter leaves replica r the summed gradients of
     its own rows in ``grad[r]`` (C); replica r's updated rows are packed
-    into ``rows_in[r]`` (C) and one all-gather gives every replica all of
-    them, shard-major, in ``gathered[r]`` (n, C), copied back into the
-    parameters."""
+    into ``rows_in[r]`` (C) and one all-gather gives every replica of its
+    group all of them, shard-major, in ``gathered[r]`` (n, C), copied
+    back into the parameters. ``pre`` (groups, or None) are summed over
+    first, in place on the stage: the other row axes that a gradient has
+    not been summed over yet (fsdp, for a parameter it does not split)."""
 
-    def __init__(self, names, params, grads, n):
+    def __init__(self, names, params, grads, groups, pre=None):
         self.names = names
+        self.groups, self.pre = groups, pre
+        n = len(groups[0])
+        pos = group_positions(groups, len(params))
         dev = [p[names[0]].device for p in params]
         dtype = params[0][names[0]].dtype
         sizes = [params[0][k].numel() // n for k in names]
@@ -171,7 +178,7 @@ class _Bucket:
         self.pack_src = [[g[k].view(n, -1) for k in names] for g in grads]
         self.rows_in = [empty(total, r) for r in reps]
         self.gathered = [empty(n * total, r) for r in reps]
-        self.p_rows = [{k: _rows(params[r][k], n, r) for k in names}
+        self.p_rows = [{k: _rows(params[r][k], n, pos[r]) for k in names}
                        for r in reps]
         self.rows_src = [[self.p_rows[r][k].reshape(-1) for k in names]
                          for r in reps]
@@ -182,17 +189,24 @@ class _Bucket:
 
     def reduce(self):
         """Every replica's gradients into the stage, shard-major, then one
-        reduce-scatter."""
-        n = len(self.stage)
+        reduce-scatter a group."""
+        n = len(self.groups[0])
         for r, src in enumerate(self.pack_src):
             torch.cat(src, dim=1, out=self.stage[r].view(n, -1))
-        reduce_scatter_replicas(self.stage, self.grad)
+        for g in self.pre or ():
+            sum_replicas([self.stage[r] for r in g])
+        for g in self.groups:
+            reduce_scatter_replicas([self.stage[r] for r in g],
+                                    [self.grad[r] for r in g])
 
     def gather(self):
-        """Each replica's updated rows to every replica, one all-gather."""
+        """Each replica's updated rows to every replica of its group, one
+        all-gather a group."""
         for r, src in enumerate(self.rows_src):
             torch.cat(src, out=self.rows_in[r])
-        all_gather_replicas(self.rows_in, self.gathered)
+        for g in self.groups:
+            all_gather_replicas([self.rows_in[r] for r in g],
+                                [self.gathered[r] for r in g])
         for dst, src in zip(self.back_dst, self.back_src):
             torch._foreach_copy_(dst, src)
 
@@ -228,7 +242,18 @@ class FusedTrainStep:
     must lead each flat buffer (``DataParallelExecutorGroup(flat_tail=
     ...)``): that segment is summed in place with one all-reduce per
     dtype and its parameters updated whole, as without a plan. The
-    replicas end each step with the same bits either way."""
+    replicas end each step with the same bits either way.
+
+    When the plan splits parameters over other axes (``tp``, ``fsdp``:
+    its ``replica_layout()``), each replica holds blocks of them, and its
+    gradients are block-sized. Every collective then runs over groups of
+    replicas: a gradient is summed over the row axes its backward has
+    not summed it over (``layout.reduce_axes``: the data group, and the
+    fsdp group where fsdp does not split the parameter; never over tp,
+    whose peers hold the same rows), the leading segments one run of
+    such axes each; a parameter updated by rows is reduce-scattered and
+    all-gathered within its data group, on its own block, so it stays
+    split over tp and fsdp between steps."""
 
     def __init__(self, executors, param_names, optimizer, flat_grads=None,
                  plan=None, state=None):
@@ -248,6 +273,14 @@ class FusedTrainStep:
                              "replica's gradients in flat buffers")
         self._plan = plan if plan is not None and len(executors) > 1 \
             else None
+        self._layout = self._plan.replica_layout() \
+            if self._plan is not None else None
+        reps = list(range(len(executors)))
+        self._data_groups = self._layout.groups(
+            (self._plan.layout.data_axis,)) if self._layout is not None \
+            and self._plan.layout.data_axis in self._layout.sizes \
+            else [reps]
+        self._data_pos = group_positions(self._data_groups, len(executors))
         self.optimizer = optimizer
         init, self._apply, self._lr_scale = \
             _RULES[type(optimizer).__name__](optimizer)
@@ -257,9 +290,11 @@ class FusedTrainStep:
         self._sums = [dict(g) for g in self.grads]
         self._buckets = []
         # the flat segments summed in place, one list of replicas each
-        self._all_reduce = []
+        self._all_reduce, self._all_reduce_groups = [], []
         if len(executors) > 1:
-            self._all_reduce = self._replicated_segments(flats)
+            segs = self._replicated_segments(flats)
+            self._all_reduce = [views for _, views in segs]
+            self._all_reduce_groups = [groups for groups, _ in segs]
         if self._plan is not None:
             self._buckets = self._make_buckets()
             for b in self._buckets:
@@ -308,44 +343,83 @@ class FusedTrainStep:
                     st[n] = init(t[n])
 
     def _sharded(self):
+        """The parameters updated by rows: the plan's, unless the data
+        axis already splits the parameter itself."""
         if self._plan is None:
             return set()
-        return set(self._plan.sharded_opt_names()) & set(self.trainable)
+        data = self._plan.layout.data_axis
+        return {k for k in self._plan.sharded_opt_names()
+                if k in self.trainable
+                and data not in self._layout.split_axes(k)}
+
+    def _reduce_groups(self, name):
+        """The groups over which ``name``'s gradient is summed (None: its
+        backward has summed it already)."""
+        if self._layout is None:
+            return [list(range(len(self.params)))]
+        axes = self._layout.reduce_axes(name)
+        return self._layout.groups(axes) if axes else None
 
     def _replicated_segments(self, flats):
-        """Per dtype, every replica's view of the leading segment of its
+        """Per dtype and groups, every replica's view of the run of its
         flat buffer that holds the gradients of the parameters updated
-        whole (the whole buffer without a plan)."""
+        whole and summed over those groups: [(groups, views)]. The runs
+        lead the buffer (the whole buffer without a plan)."""
         sharded = self._sharded()
         segs = []
         for dtype in flats[0]:
-            names = [k for k in self.trainable if k not in sharded
-                     and self.grads[0][k].dtype == dtype]
-            size = sum(self.grads[0][k].numel() for k in names)
-            if not size:
-                continue
-            views = [f[dtype][:size] for f in flats]
-            for f, g in zip(flats, self.grads):
-                lo = f[dtype].data_ptr()
-                hi = lo + size * f[dtype].element_size()
-                if not all(lo <= g[k].data_ptr() < hi for k in names):
-                    raise MXNetError(
-                        "the gradients of the parameters updated whole "
-                        "must lead each flat buffer (the executor group's "
-                        "flat_tail)")
-            segs.append(views)
+            runs = {}
+            for k in self.trainable:
+                if k not in sharded and self.grads[0][k].dtype == dtype:
+                    axes = self._layout.reduce_axes(k) \
+                        if self._layout is not None else ()
+                    runs.setdefault(axes, []).append(k)
+            end = 0
+            for names in runs.values():
+                groups = self._reduce_groups(names[0])
+                size = sum(self.grads[0][k].numel() for k in names)
+                if not size or groups is None:
+                    continue
+                views = []
+                for f, g in zip(flats, self.grads):
+                    base = f[dtype]
+                    lo = min(g[k].data_ptr() for k in names)
+                    hi = lo + size * base.element_size()
+                    if not all(lo <= g[k].data_ptr() < hi for k in names):
+                        raise MXNetError(
+                            "the gradients of the parameters updated whole "
+                            "must lead each flat buffer (the executor "
+                            "group's flat_tail)")
+                    off = (lo - base.data_ptr()) // base.element_size()
+                    views.append(base[off:off + size])
+                    end = max(end, off + size)
+                segs.append((groups, views))
+            tail = [k for k in self.trainable if k in sharded
+                    and self.grads[0][k].dtype == dtype]
+            base = flats[0][dtype]
+            if any((self.grads[0][k].data_ptr() - base.data_ptr())
+                   // base.element_size() < end for k in tail):
+                raise MXNetError(
+                    "the gradients of the parameters updated whole must "
+                    "lead each flat buffer (the executor group's "
+                    "flat_tail)")
         return segs
 
     def _make_buckets(self):
-        """The buckets of the parameters updated by rows, one per dtype,
-        in trainable order."""
+        """The buckets of the parameters updated by rows, one per dtype
+        and row axes still to sum over first, in trainable order."""
         sharded = self._sharded()
+        data = self._plan.layout.data_axis
         groups = {}
         for k in self.trainable:
             if k in sharded:
-                groups.setdefault(self.params[0][k].dtype, []).append(k)
-        return [_Bucket(names, self.params, self.grads, len(self.params))
-                for names in groups.values()]
+                pre = tuple(a for a in self._layout.reduce_axes(k)
+                            if a != data)
+                groups.setdefault((self.params[0][k].dtype, pre),
+                                  []).append(k)
+        return [_Bucket(names, self.params, self.grads, self._data_groups,
+                        self._layout.groups(pre) if pre else None)
+                for (_, pre), names in groups.items()]
 
     @property
     def sharded_names(self):
@@ -363,18 +437,27 @@ class FusedTrainStep:
         return [sum(nbytes(s) for s in st.values()) for st in self.opt_state]
 
     def _full_state(self, n):
-        """Parameter ``n``'s state as numpy, its replicas' row blocks
-        concatenated where it is updated by rows."""
+        """Parameter ``n``'s state as numpy: the row blocks of each data
+        group concatenated where it is updated by rows, then each
+        replica's block of a split parameter put in place."""
+        per = [st[n] for st in self.opt_state]
+        lay = self._layout
+        split = lay is not None and n in lay.specs
         if n not in self.sharded_names:
-            return opt.states_to_numpy(self.opt_state[0][n])
-
-        def cat(parts):
-            if parts[0] is None:
-                return None
-            if isinstance(parts[0], tuple):
-                return tuple(cat(list(p)) for p in zip(*parts))
-            return np.concatenate([opt.states_to_numpy(p) for p in parts])
-        return cat([st[n] for st in self.opt_state])
+            if not split:
+                return opt.states_to_numpy(per[0])
+            local = [opt.states_to_numpy(p) for p in per]
+        else:
+            local = [None] * len(per)
+            for g in self._data_groups:
+                whole = _map_state(lambda *p: np.concatenate(
+                    [opt.states_to_numpy(x) for x in p]),
+                    *[per[r] for r in g])
+                for r in g:
+                    local[r] = whole
+            if not split:
+                return local[0]
+        return _map_state(lambda *p: lay.assemble(n, list(p)), *local)
 
     def export_opt_state(self):
         """The optimizer state as ``{index: numpy state}`` under the
@@ -396,7 +479,8 @@ class FusedTrainStep:
         (:949)."""
         idx2name = self.optimizer.idx2name
         sharded = set(self.sharded_names)
-        n_rep = len(self.opt_state)
+        lay = self._layout
+        n_rows = len(self._data_groups[0])
         with torch.no_grad():
             for n in self.trainable:
                 found = [states[j] for j in sorted(states)
@@ -405,8 +489,11 @@ class FusedTrainStep:
                     continue
                 for r, st in enumerate(self.opt_state):
                     src = found[0]
+                    if lay is not None and n in lay.specs:
+                        src = _map_state(lambda x, r=r: lay.piece(
+                            n, np.asarray(getattr(x, "_data", x)), r), src)
                     if n in sharded:
-                        src = _state_rows(src, n_rep, r)
+                        src = _state_rows(src, n_rows, self._data_pos[r])
                     _copy_state(st[n], src, n)
 
     def update(self):
@@ -417,8 +504,10 @@ class FusedTrainStep:
         with torch.no_grad():
             for b in self._buckets:
                 b.reduce()
-            for bufs in self._all_reduce:
-                sum_replicas(bufs)
+            for groups, bufs in zip(self._all_reduce_groups,
+                                    self._all_reduce):
+                for g in groups:
+                    sum_replicas([bufs[r] for r in g])
             for n, idx in zip(self.trainable, self._name_idx):
                 o._update_count(idx)
                 lr = o._get_lr(idx)
@@ -430,6 +519,16 @@ class FusedTrainStep:
                     self._apply(p[n], g[n], st[n], lr, wd)
             for b in self._buckets:
                 b.gather()
+
+
+def _map_state(fn, *states):
+    """``fn`` over the arrays of parallel states (None, an array, or a
+    tuple of them)."""
+    if states[0] is None:
+        return None
+    if isinstance(states[0], tuple):
+        return tuple(_map_state(fn, *p) for p in zip(*states))
+    return fn(*states)
 
 
 def _state_rows(state, n, r):

@@ -31,8 +31,18 @@ active mesh (``fit(mesh=...)``, ``sharding.use``, ``MXTPU_MESH``;
 mxtpu's :401-485) the fused step takes the mesh's ``ShardingPlan`` and
 runs over the mesh's devices, the executor group bound anew over them
 even for a Module bound to one context: cross-replica weight-update
-sharding (``fused.py``). A mesh the batch does not divide is declined
-with mxtpu's warning.
+sharding (``fused.py``). On a mesh with ``tp`` or ``fsdp`` axes
+(``"data:2,tp:2"``, ``"data:2,fsdp:2"``, ``"4x2"``) each device holds its
+block of every parameter the plan splits (the plan's
+``replica_layout()``): the rows of the batch split over every axis but
+``tp``, an ``fsdp`` block is gathered right before its op and its
+gradient reduce-scattered, a ``tp`` block computed on by its op's
+``tp_fn``. ``get_params``, ``save_checkpoint`` and
+``save_optimizer_states`` assemble the blocks to full size, and
+``set_params``, ``init_params`` and ``load_optimizer_states`` hand each
+device its blocks. A mesh the batch does not divide over ``data`` is
+declined with mxtpu's warning; one whose other row axes it does not
+divide raises.
 ``forward`` called directly runs each context on its slice, as mxtpu's
 does; ``get_outputs`` merges them on the first context.
 ``install_monitor`` (mxtpu :674) takes mxtpu's per-op branch (:691-694):
@@ -63,11 +73,14 @@ from __future__ import annotations
 import logging
 import pickle
 
+import torch
+
 from .. import model as _model
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import context_list, current_context
 from ..initializer import InitDesc, Uniform
+from ..ndarray import NDArray
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 from .fused import FusedTrainStep, supports
@@ -135,6 +148,9 @@ class Module(BaseModule):
         self._kvstore = None
         self._update_on_kvstore = False
         self._fused = None
+        # plan_for_module's overrides and shard_update under a mesh
+        # (DataParallelTrainer's shard_params sets them)
+        self._plan_options = {}
         self._monitor_installed = False
         # set by load(): params written at bind, states at init_optimizer
         self._arg_params = self._aux_params = None
@@ -297,9 +313,21 @@ class Module(BaseModule):
         attrs = self._symbol.attr_dict()
         group = self._exec_group
         ex = group.execs[0]
+        split = group.layout.specs if group.layout is not None else {}
+
+        def target(name):
+            """The array the initializer writes: the first replica's, or
+            a whole one where the replicas hold blocks."""
+            arr = ex.arg_dict[name]
+            if name not in split:
+                return arr
+            return NDArray(torch.zeros(group.param_shapes[name],
+                                       dtype=arr._data.dtype,
+                                       device=arr._data.device),
+                           arr.context)
         # arguments, then aux states, each in name order: the order of
         # the initializer's draws
-        pairs = [(n, ex.arg_dict[n], arg_params)
+        pairs = [(n, target(n), arg_params)
                  for n in sorted(self._param_names)] + \
                 [(n, ex.aux_dict[n], aux_params)
                  for n in sorted(self._aux_names)]
@@ -406,9 +434,11 @@ class Module(BaseModule):
             return
         if plan is not None:
             tail = frozenset(plan.sharded_opt_names())
+            layout = plan.replica_layout()
             if plan.mesh_ctx.devices != group.contexts or \
-                    group.flat_tail != tail:
-                group = self._rebind(plan.mesh_ctx.devices, tail)
+                    group.flat_tail != tail or group.layout is None or \
+                    group.layout.key != layout.key:
+                group = self._rebind(plan.mesh_ctx.devices, tail, layout)
         self._fused = FusedTrainStep(group.execs, self._param_names,
                                      self._optimizer, group.flat_grads,
                                      plan=plan)
@@ -439,45 +469,49 @@ class Module(BaseModule):
     def _resolve_sharding_plan(self):
         """The ShardingPlan of the active mesh, or None for the contexts'
         own path (mxtpu's :456-478). A mesh the batch does not divide over
-        is declined with mxtpu's log line, never with wrong arithmetic; a
-        mesh with another axis larger than 1 raises (only the 1-D data
-        mesh is ported)."""
+        ``data`` is declined with mxtpu's log line, never with wrong
+        arithmetic; one whose other row axes (the axes but ``tp``: fsdp)
+        it does not divide raises. ``_plan_options`` (``overrides``,
+        ``shard_update``) reach ``plan_for_module``."""
         from .. import sharding as _sharding
         mctx = _sharding.current()
         if mctx is None or len(mctx.devices) <= 1:
             return None
-        for axis, size in mctx.axis_sizes.items():
-            if axis != mctx.layout.data_axis and size > 1:
-                raise MXNetError(
-                    "fit(mesh=%r): axis '%s' of size %d; only a 1-D '%s' "
-                    "mesh is ported (tp/fsdp sharding is not)"
-                    % (mctx, axis, size, mctx.layout.data_axis))
-        if self._exec_group.batch_size % mctx.n_data != 0:
+        batch = self._exec_group.batch_size
+        if batch % mctx.n_data != 0:
             self.logger.warning(
                 "sharding: batch size %d does not divide over the %d-way "
                 "data axis — mesh declined, falling back to the "
-                "single-device fused path",
-                self._exec_group.batch_size, mctx.n_data)
+                "single-device fused path", batch, mctx.n_data)
             return None
-        return _sharding.plan_for_module(self, mctx)
+        plan = _sharding.plan_for_module(self, mctx, **self._plan_options)
+        rows = plan.replica_layout().n_row_slices
+        if batch % rows:
+            raise MXNetError(
+                "fit(mesh=%r): the batch of %d does not divide over the "
+                "%d row slices of axes %s (the batch splits over every "
+                "axis but tp)" % (mctx, batch, rows,
+                                  plan.replica_layout().row_axes))
+        return plan
 
-    def _rebind(self, contexts, flat_tail):
+    def _rebind(self, contexts, flat_tail, layout=None):
         """Bind the executor group anew over ``contexts`` (one replica
         each, even slices, the gradients of ``flat_tail`` last in their
-        flat buffers), carrying the parameters and aux states of the
-        current one's first replica."""
+        flat buffers; with ``layout``, each replica's rows and blocks),
+        carrying the current parameters and aux states."""
         old = self._exec_group
+        args, auxs = old.get_params(first_only=True) \
+            if old.layout is not None and old.layout.specs else (
+                {n: old.execs[0].arg_dict[n] for n in self._param_names},
+                {n: old.execs[0].aux_dict[n] for n in self._aux_names})
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, contexts, [1] * len(contexts), self._data_shapes,
             self._label_shapes, self._param_names, self.for_training,
             self.inputs_need_grad,
             fixed_param_names=self._fixed_param_names,
             grad_req=self._grad_req, flat_tail=flat_tail,
-            state_names=self._state_names)
-        ex = old.execs[0]
-        self._exec_group.set_params(
-            {n: ex.arg_dict[n] for n in self._param_names},
-            {n: ex.aux_dict[n] for n in self._aux_names})
+            state_names=self._state_names, layout=layout)
+        self._exec_group.set_params(args, auxs)
         return self._exec_group
 
     # ------------------------------------------------ compute

@@ -33,8 +33,30 @@ backward: the gradient of each is the transposed collective (the
 inverse permutation, the all-to-all with its axes swapped). On the CPU every collective works in
 replica order on the host. mxtpu has no hand-written kernel here: under
 GSPMD and ``shard_map`` XLA lowers these to its collectives.
+
+Over subgroups of the replicas (a ``ReplicaLayout``'s tp, fsdp or data
+groups: each group one collective over its own devices, NCCL caching a
+communicator per device set), ``all_reduce_groups``,
+``all_gather_groups`` and ``reduce_scatter_groups`` run the three
+collectives along any dimension; each call over all groups adds one to
+``calls[(kind, axis)]``. Their autograd forms serve a parameter split
+over the mesh. A tensor that tp peers hold as copies (they take the same
+rows of the batch) carries on each peer the whole gradient of those
+rows, so the collectives that cross tp transpose in that sense:
+
+- ``GatherAlong``: the blocks of a group concatenated along a dimension.
+  Over a row axis (fsdp: the peers take different rows, so each holds a
+  part of the gradient) the backward is the reduce-scatter; over tp it
+  is each peer's own block of its gradient.
+- ``SplitAlong``: each tp peer's own block of a tensor it holds whole;
+  the backward all-gathers the blocks' gradients.
+- ``PartialSum``: the sum over a tp group of partial products, every
+  peer then holding it; the backward hands each peer's gradient to its
+  own partial product.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -42,7 +64,13 @@ from ..base import MXNetError
 
 __all__ = ["sum_replicas", "ReplicaSum", "reduce_scatter_replicas",
            "all_gather_replicas", "ppermute", "all_to_all", "PPermute",
-           "AllToAll"]
+           "AllToAll", "all_reduce_groups", "all_gather_groups",
+           "reduce_scatter_groups", "GatherAlong", "SplitAlong",
+           "PartialSum", "gather_split", "calls"]
+
+#: (kind, axis) -> the group collectives called, one per call over all
+#: of a layout's groups (axis None where the caller names none)
+calls = Counter()
 
 
 def _nccl(buffers, what):
@@ -201,3 +229,137 @@ class ReplicaSum(torch.autograd.Function):
               for g in grads]
         sum_replicas(gs)
         return tuple(gs)
+
+
+# ----------------------------------------------------------- subgroups
+def all_reduce_groups(buffers, groups, axis=None):
+    """Sum ``buffers`` (one per replica) in place within each group."""
+    calls[("all_reduce", axis)] += 1
+    for g in groups:
+        sum_replicas([buffers[i] for i in g])
+
+
+def all_gather_groups(pieces, groups, dim, axis=None):
+    """Each replica's group's ``pieces`` concatenated along ``dim`` in
+    group order, on its own device: one all-gather a group."""
+    calls[("all_gather", axis)] += 1
+    out = [None] * len(pieces)
+    for g in groups:
+        ins = [pieces[i].contiguous() for i in g]
+        bufs = [torch.empty((len(g),) + tuple(x.shape), dtype=x.dtype,
+                            device=x.device) for x in ins]
+        all_gather_replicas(ins, bufs)
+        for i, b, x in zip(g, bufs, ins):
+            shape = list(x.shape)
+            shape[dim] *= len(g)
+            out[i] = b.movedim(0, dim).reshape(shape) if dim else \
+                b.reshape(shape)
+    return out
+
+
+def reduce_scatter_groups(values, groups, dim, axis=None):
+    """Replica i's block (its position in its group) along ``dim`` of its
+    group's sum of ``values``: one reduce-scatter a group."""
+    calls[("reduce_scatter", axis)] += 1
+    out = [None] * len(values)
+    for g in groups:
+        k = len(g)
+        stages = []
+        for i in g:
+            x = values[i]
+            shape = list(x.shape)
+            shape[dim:dim + 1] = [k, shape[dim] // k]
+            stages.append(x.reshape(shape).movedim(dim, 0).contiguous())
+        outs = [torch.empty(st.shape[1:], dtype=st.dtype, device=st.device)
+                for st in stages]
+        reduce_scatter_replicas(stages, outs)
+        for i, o in zip(g, outs):
+            out[i] = o
+    return out
+
+
+def group_positions(groups, n):
+    """Each of ``n`` replicas' position in its group."""
+    pos = [0] * n
+    for g in groups:
+        for p, i in enumerate(g):
+            pos[i] = p
+    return pos
+
+
+class GatherAlong(torch.autograd.Function):
+    """``(dim, groups, rows, axis, *pieces)``: each replica gets its
+    group's pieces concatenated along ``dim``. ``rows``: the group's
+    peers take different rows of the batch (an fsdp group), and the
+    backward reduce-scatters the gradients; otherwise (a tp group) each
+    takes its own block of its gradient."""
+
+    @staticmethod
+    def forward(ctx, dim, groups, rows, axis, *pieces):
+        ctx.args = (dim, groups, rows, axis, pieces[0].shape[dim])
+        return tuple(all_gather_groups(list(pieces), groups, dim, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dim, groups, rows, axis, size = ctx.args
+        if rows:
+            got = reduce_scatter_groups(list(grads), groups, dim, axis)
+        else:
+            pos = group_positions(groups, len(grads))
+            got = [g.narrow(dim, p * size, size)
+                   for g, p in zip(grads, pos)]
+        return (None, None, None, None) + tuple(got)
+
+
+class SplitAlong(torch.autograd.Function):
+    """``(dim, groups, axis, *xs)``: each replica's own block along
+    ``dim`` of a tensor its group's peers hold whole; the backward
+    all-gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, dim, groups, axis, *xs):
+        ctx.args = (dim, groups, axis)
+        pos = group_positions(groups, len(xs))
+        k = len(groups[0])
+        size = xs[0].shape[dim] // k
+        return tuple(x.narrow(dim, p * size, size)
+                     for x, p in zip(xs, pos))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dim, groups, axis = ctx.args
+        return (None, None, None) + tuple(
+            all_gather_groups(list(grads), groups, dim, axis))
+
+
+class PartialSum(torch.autograd.Function):
+    """``(groups, axis, *zs)``: every replica gets its group's sum of the
+    partial products ``zs``; the backward hands each replica its own
+    gradient (its peers hold the same sum and the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, groups, axis, *zs):
+        outs = [z.contiguous() for z in zs]
+        dirty = [z for z, o in zip(zs, outs) if o is z]
+        if dirty:  # summed in place: the products are the op's own
+            ctx.mark_dirty(*dirty)
+        all_reduce_groups(outs, groups, axis)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(grads)
+
+
+def gather_split(values, name, layout, keep=()):
+    """``values`` (each replica's block of the parameter ``name``) with
+    every split dimension but those in ``keep`` gathered over its axes,
+    the minor axis first (``GatherAlong``), on each replica's device."""
+    for d, axes in enumerate(layout.specs.get(name, ())):
+        if d in keep:
+            continue
+        for a in reversed(axes):
+            values = list(GatherAlong.apply(d, layout.groups((a,)),
+                                            a in layout.row_axes, a,
+                                            *values))
+    return values

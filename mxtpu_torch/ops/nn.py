@@ -31,10 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .collective import ReplicaSum, sum_replicas
+from .collective import (GatherAlong, PartialSum, ReplicaSum, SplitAlong,
+                         gather_split, sum_replicas)
 from .epilogue import bn_apply_relu_add, fold_bn
-from .registry import Required, off_batch_axis, register, set_replicas
-from .tensor import _in_range, _index_of, relu
+from .registry import (Required, off_batch_axis, register, set_replicas,
+                       set_tp)
+from .tensor import _embedding, _in_range, _index_of, relu
 
 
 def _prod(xs):
@@ -952,3 +954,89 @@ set_replicas(["Deconvolution", "UpSampling", "Crop", "LRN", "InstanceNorm",
               "LogisticRegressionOutput", "MAERegressionOutput", "SVMOutput",
               "IdentityAttachKLSparseReg", "L2Normalization"])
 set_replicas(["Pad", "pad"], lambda a, nd: not any(a.pad_width[:2]))
+
+
+
+# ---------------------------------------------------------------- tp
+def _tp_weight(split, layout, dim):
+    """The split weight's name when it is input 1, alone split, and the
+    tp axis alone splits its dimension ``dim`` (and no other); else
+    None."""
+    tp = layout.tp_axis
+    name = split.get(1)
+    if tp is None or name is None or set(split) != {1}:
+        return None
+    entries = layout.specs[name]
+    if len(entries) <= dim or entries[dim] != (tp,) or any(
+            tp in e for d, e in enumerate(entries) if d != dim):
+        return None
+    return name
+
+
+def _partial_products(inputs, w, layout, cdim, fn):
+    """The tp pattern of an op whose weight splits its input features:
+    each replica's block of the features (``SplitAlong`` on ``cdim``)
+    through ``fn`` with its block of the weight, one sum over the tp
+    group (``PartialSum``), then the replicated bias."""
+    tp = layout.tp_axis
+    groups = layout.groups((tp,))
+    xs = SplitAlong.apply(cdim, groups, tp, *[x[0] for x in inputs])
+    return PartialSum.apply(groups, tp,
+                            *[fn(x, wt) for x, wt in zip(xs, w)])
+
+
+def _fc_tp(a, inputs, split, layout):
+    """FullyConnected with its weight's input features (dim 1) over tp:
+    ``y = sum_t x_t W_t^T + b``. The forward is one all-reduce over the
+    tp group, its backward one all-gather of dx; dW stays local."""
+    name = _tp_weight(split, layout, 1)
+    if name is None:
+        return None
+    w = gather_split([x[1] for x in inputs], name, layout, keep=(1,))
+    if a.flatten:
+        inputs = [(x[0].reshape(x[0].shape[0], -1),) + tuple(x[1:])
+                  for x in inputs]
+    y = _partial_products(inputs, w, layout, inputs[0][0].ndim - 1,
+                          F.linear)
+    if not a.no_bias:
+        y = [t + x[2] for t, x in zip(y, inputs)]
+    return [(t,) for t in y]
+
+
+def _conv_tp(a, inputs, split, layout):
+    """Convolution (one group) with its weight's input channels (dim 1)
+    over tp: the partial sums of ``_fc_tp``, channel by channel."""
+    name = _tp_weight(split, layout, 1)
+    if name is None or int(a.num_group) != 1:
+        return None
+    w = gather_split([x[1] for x in inputs], name, layout, keep=(1,))
+    x0 = inputs[0][0]
+    channels_last = len(a.kernel) == 2 and a.layout == "NHWC"
+    cdim = x0.ndim - 1 if channels_last else 1
+    y = _partial_products(inputs, w, layout, cdim,
+                          lambda x, wt: _convolution(a, x, wt))
+    if not a.no_bias:
+        shape = [1] * x0.ndim
+        shape[cdim] = -1
+        y = [t + x[2].view(shape) for t, x in zip(y, inputs)]
+    return [(t,) for t in y]
+
+
+def _embedding_tp(a, inputs, split, layout):
+    """Embedding with its weight's columns (dim 1) over tp: each replica
+    looks up its columns, then one all-gather along the last axis over
+    the tp group (its backward: each peer's own columns)."""
+    name = _tp_weight(split, layout, 1)
+    if name is None:
+        return None
+    w = gather_split([x[1] for x in inputs], name, layout, keep=(1,))
+    rows = [_embedding(a, x[0], wt) for x, wt in zip(inputs, w)]
+    tp = layout.tp_axis
+    out = GatherAlong.apply(rows[0].ndim - 1, layout.groups((tp,)), False,
+                            tp, *rows)
+    return [(t,) for t in out]
+
+
+set_tp(["FullyConnected"], _fc_tp)
+set_tp(["Convolution"], _conv_tp)
+set_tp(["Embedding"], _embedding_tp)

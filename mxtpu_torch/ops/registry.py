@@ -133,6 +133,13 @@ class OpDef:
     inputs_per_replica)`` computes an op that couples rows of the batch
     (BatchNorm in training, a normalized loss) over all replicas at once
     and returns each replica's ``apply`` tuple. ``replica_mode`` picks.
+    ``tp_fn(attrs, inputs_per_replica, split, layout)`` runs the op on
+    replicas that hold blocks of a parameter split over the mesh
+    (``split``: {input position: parameter name}, ``layout`` the
+    ``parallel.mesh.ReplicaLayout``) without gathering the block its
+    ``tp`` axis splits, or returns None for a split it has no form for;
+    the walk then gathers every split input first (FullyConnected,
+    Convolution and Embedding have one).
     ``open_attrs``: the op takes attrs beyond ``attrs_spec`` (``Custom``'s
     kwargs for its prop), which ``load_json`` keeps.
     """
@@ -155,6 +162,7 @@ class OpDef:
         self.loss_like = loss_like
         self.row_local = False
         self.group_fn = None
+        self.tp_fn = None
         self.doc = doc or (fn.__doc__ or "")
 
     def replica_mode(self, attrs, ndim):
@@ -253,6 +261,12 @@ def set_replicas(names, row_local=True, group_fn=None):
         op.row_local = row_local
         if group_fn is not None:
             op.group_fn = group_fn
+
+
+def set_tp(names, tp_fn):
+    """Give the ops ``names`` their ``tp_fn``."""
+    for name in names:
+        get_op(name).tp_fn = tp_fn
 
 
 def off_batch_axis(axis, ndim):

@@ -243,6 +243,21 @@ class Optimizer:
                     if "__wd_mult__" in attrs[name]:
                         self.wd_mult[name] = float(attrs[name]["__wd_mult__"])
 
+    def __getstate__(self):
+        """The optimizer pickles (``KVStore.set_optimizer`` sends it to a
+        parameter server) with its symbol as JSON."""
+        state = dict(self.__dict__)
+        if state.get("sym") is not None:
+            state["sym"] = ("symbol-json", state["sym"].tojson())
+        return state
+
+    def __setstate__(self, state):
+        sym = state.get("sym")
+        if isinstance(sym, tuple) and sym[:1] == ("symbol-json",):
+            from .symbol import load_json
+            state["sym"] = load_json(sym[1])
+        self.__dict__.update(state)
+
     @staticmethod
     def register(klass):
         _REG[klass.__name__.lower()] = klass

@@ -1,4 +1,4 @@
-"""Data-parallel training of a Symbol over a 1-D data mesh.
+"""Data-parallel training of a Symbol over a device mesh.
 
 Counterpart of ``mxtpu/parallel/dp.py``: ``shard_params_spec`` (:29) and
 ``DataParallelTrainer`` (:64), over the Module machinery instead of a
@@ -16,8 +16,13 @@ every update path; the Module's Adam folds them into lr, which scales
 ``shard_update`` (:83-88) arms the step under a ``ShardingPlan``:
 optimizer state and the update shard over ``data`` (reduce-scatter,
 update by rows, all-gather); without it the step is the replicated one.
-``shard_params=True`` (tensor parallelism over a 'model' axis) is not
-ported and raises.
+``shard_params=True`` (:98-153) splits dim 0 of every parameter of at
+least 2^16 elements over the mesh's ``model`` axis
+(``shard_params_spec``): each card holds its block of rows, gathered
+right before its op and its gradient reduce-scattered (as ``fsdp``: the
+batch's rows split over ``data`` and ``model``), and ``shard_update`` is
+forced off, as mxtpu's :87 does. A mesh of any axes trains: those that
+split nothing take more rows of the batch.
 """
 from __future__ import annotations
 
@@ -74,17 +79,13 @@ class TrainerAdam(opt.Adam):
 
 
 class DataParallelTrainer:
-    """Whole-batch training steps of a Symbol over a 1-D data mesh."""
+    """Whole-batch training steps of a Symbol over a mesh (its ``data``
+    axis, and with ``shard_params`` its ``model`` axis)."""
 
     def __init__(self, symbol, mesh=None, optimizer="sgd",
                  optimizer_params=None, data_names=("data",),
                  label_names=("softmax_label",), shard_params=False,
                  dtype="float32", shard_update=False):
-        if shard_params:
-            raise MXNetError("DataParallelTrainer(shard_params=True) shards "
-                             "parameters over a 'model' axis: tensor "
-                             "parallelism is not ported (1-D data meshes "
-                             "only)")
         if optimizer not in ("sgd", "adam"):
             raise MXNetError("DataParallelTrainer: optimizer %r; the port "
                              "runs 'sgd' and 'adam'" % (optimizer,))
@@ -93,11 +94,7 @@ class DataParallelTrainer:
                              % (dtype,))
         self.symbol = symbol
         self.mesh = mesh or current_mesh()
-        for axis, size in self.mesh.shape.items():
-            if axis != "data" and size > 1:
-                raise MXNetError("DataParallelTrainer: axis '%s' of size %d;"
-                                 " only a 1-D 'data' mesh is ported"
-                                 % (axis, size))
+        self.shard_params = bool(shard_params)
         self.data_names = list(data_names)
         self.label_names = list(label_names)
         self.optimizer = optimizer
@@ -106,7 +103,7 @@ class DataParallelTrainer:
         self.momentum = op.get("momentum", 0.0)
         self.wd = op.get("wd", 0.0)
         self.rescale = op.get("rescale_grad", 1.0)
-        self.shard_update = bool(shard_update)
+        self.shard_update = bool(shard_update) and not self.shard_params
         self.step_count = 0
         self._module = None
 
@@ -129,8 +126,13 @@ class DataParallelTrainer:
         # an instance without param_idx2name: wd on every parameter
         optimizer = opt.SGD(momentum=self.momentum, **params) \
             if self.optimizer == "sgd" else TrainerAdam(**params)
-        mesh_ctx = sharding.MeshContext(self.mesh) if self.shard_update \
+        sharded = self.shard_update or self.shard_params
+        mesh_ctx = sharding.MeshContext(self.mesh) if sharded \
             else sharding.DISABLED
+        if self.shard_params:
+            group = mod._exec_group
+            mod._plan_options = dict(shard_update=False, overrides=(
+                shard_params_spec(group.param_shapes, self.mesh)))
         with sharding.use(mesh_ctx):
             mod.init_optimizer(kvstore=None, optimizer=optimizer)
         if mod._fused is None:
@@ -160,9 +162,15 @@ class DataParallelTrainer:
     @property
     def params(self):
         """{name: tensor}, the first replica's (the replicas hold the
-        same bits)."""
-        ex = self._module._exec_group.execs[0]
-        return {n: ex.arg_dict[n]._data for n in self._module._param_names}
+        same bits); a parameter split over the mesh assembled whole, on
+        the host."""
+        group = self._module._exec_group
+        ex = group.execs[0]
+        out = {n: ex.arg_dict[n]._data for n in self._module._param_names}
+        if group.layout is not None and group.layout.specs:
+            whole = group.get_params()[0]
+            out.update({n: whole[n]._data for n in group.layout.specs})
+        return out
 
     @property
     def aux(self):

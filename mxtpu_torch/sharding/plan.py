@@ -20,8 +20,14 @@ Counterpart of ``mxtpu/sharding/plan.py``, plain Python in both packages:
   arguments with mxtpu's defaults (on, 4096); mxtpu's environment reads
   ``MXTPU_SHARD_UPDATE`` / ``MXTPU_SHARD_MIN_ELEMS`` are not ported.
 
-The plan only decides. What runs it is the fused step
-(``module/fused.py``): it reduce-scatters the gradients of the
+The plan decides; ``replica_layout()`` says what each device then holds
+(``parallel.mesh.ReplicaLayout``: its coordinates, its rows of the batch,
+its block of each split parameter, its tp/fsdp/data groups). What runs it
+is the executor group (``module/executor_group.py``: one replica a mesh
+device, each holding its blocks), the replica walk (``executor.py``: a
+parameter split over ``fsdp`` gathered right before its op, one split
+over ``tp`` computed on its block by the op's ``tp_fn``) and the fused
+step (``module/fused.py``): it reduce-scatters the gradients of the
 parameters whose ``opt_spec`` shards over ``data``, updates each
 replica's rows and all-gathers them; the KVStore veneer
 (``kvstore.py``) consults ``current()``.
@@ -37,7 +43,7 @@ import numpy as _np
 
 from ..base import MXNetError
 from ..context import gpu, num_gpus
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, ReplicaLayout
 from .spec import PartitionSpec as PS
 from .spec import SpecLayout, parameter_spec_from_name
 
@@ -298,6 +304,15 @@ class ShardingPlan:
     def mesh(self):
         return self.mesh_ctx.mesh
 
+    def replica_layout(self):
+        """The ``ReplicaLayout`` of this plan over its mesh (one object
+        per plan): the split parameters' specs, the rows of the batch
+        over every axis but the layout's tp axis."""
+        if getattr(self, "_replica_layout", None) is None:
+            self._replica_layout = ReplicaLayout(
+                self.mesh, self._param_specs, tp_axis=self.layout.tp_axis)
+        return self._replica_layout
+
     @property
     def n_data(self):
         return self.mesh_ctx.n_data
@@ -430,13 +445,13 @@ def plan_for_module(module, mesh_ctx, overrides=None, shard_update=True):
     """The ShardingPlan of a bound, initialized Module: shapes from its
     bound arrays, trainable = parameters minus ``fixed_param_names``,
     batch shapes from the bound data and label shapes."""
-    ex = module._exec_group.execs[0]
+    shapes = module._exec_group.param_shapes
     fixed = set(module._fixed_param_names or ())
     batch_shapes = dict((module._data_shapes or [])
                         + (module._label_shapes or []))
     return ShardingPlan(
         mesh_ctx,
-        {n: tuple(ex.arg_dict[n].shape) for n in module._param_names},
+        {n: tuple(shapes[n]) for n in module._param_names},
         data_names=list(module._data_names),
         label_names=list(module._label_names),
         trainable=[n for n in module._param_names if n not in fixed],

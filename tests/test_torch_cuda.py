@@ -68,7 +68,12 @@ last names and A.4.3: every linalg and contrib case of
 against its plain version on the same card tensors at every CTC case, a
 speech shape, 3,000 classes and 2,201 states, and its refusals; Gluon's
 CTCLoss on gpu(0) against cpu(); the sparse dots and a row_sparse pull
-on the card.
+on the card. A.4's rest: the subgroup collectives (all-reduce,
+all-gather and reduce-scatter within the groups of a 2-D layout, along
+any dimension) on NCCL against the host's sums; with four cards, a
+``data:2,tp:2`` and a ``data:2,fsdp:2`` fit of the mlp from gpu(0)
+against the same fit over cpu(0..3); ``dist_async`` between two
+processes on gpu(0) with rank 0 serving.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -1128,6 +1133,133 @@ def test_mesh_collectives_on_cards(cuda):
         assert o.device == ins[j].device
         assert torch.equal(o.cpu(), torch.cat(
             [h.view(n, 1000)[j:j + 1] for h in host], dim=1))
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_group_collectives_on_cards_equal_the_host(cuda, dim):
+    """all_reduce_groups / all_gather_groups / reduce_scatter_groups
+    (in-process NCCL within each group of a data:2,tp:2 layout of four
+    cards, along ``dim``) against the same calls on cpu(0..3) (the host's
+    sums in group order): sums within 1e-6, gathers bit for bit."""
+    torch, _ = cuda
+    _gpus(torch, 4)
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import collective as C
+    from mxtpu_torch.parallel.mesh import Mesh, ReplicaLayout
+    g = torch.Generator().manual_seed(dim)
+    host = [torch.randn(8, 12, generator=g) for _ in range(4)]
+    for axes in (("tp",), ("data",), ("data", "tp")):
+        res = []
+        for ctx in (mt.gpu, mt.cpu):
+            lay = ReplicaLayout(Mesh([ctx(i) for i in range(4)],
+                                     ("data", "tp"), (2, 2)))
+            groups = lay.groups(axes)
+            xs = [h.to(ctx(i).torch_device) for i, h in enumerate(host)]
+            summed = [x.clone() for x in xs]
+            C.all_reduce_groups(summed, groups)
+            gathered = C.all_gather_groups(xs, groups, dim)
+            scattered = C.reduce_scatter_groups(xs, groups, dim)
+            for out in (summed, gathered, scattered):
+                assert [t.device for t in out] == [x.device for x in xs]
+            res.append([[t.cpu() for t in out]
+                        for out in (summed, gathered, scattered)])
+        (sg, gg, rg), (sc, gc, rc) = res
+        for a, b in zip(sg + rg, sc + rc):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        for a, b in zip(gg, gc):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("spec", ["data:2,tp:2", "data:2,fsdp:2"])
+def test_fit_on_a_2d_mesh_of_cards_matches_the_cpu(cuda, spec):
+    """The mlp through Module(gpu(0)).fit(mesh=spec) over gpu(0..3)
+    (NCCL within the tp / fsdp / data groups) against the same fit over
+    cpu(0..3), from the same weights: weights within 1e-5, each card
+    holding its blocks."""
+    torch, _ = cuda
+    _gpus(torch, 4)
+    import numpy as np
+    import mxtpu_torch as mt
+    rng = np.random.RandomState(1)
+    x = rng.rand(128, 784).astype(np.float32)
+    y = rng.randint(0, 10, 128).astype(np.float32)
+    sym = mt.models.mlp.get_symbol(10)
+    shapes = dict(zip(sym.list_arguments(),
+                      sym.infer_shape(data=(64, 784))[0]))
+    w0 = {k: (rng.rand(*s_).astype(np.float32) - 0.5) * 0.2
+          for k, s_ in shapes.items() if k not in ("data", "softmax_label")}
+    res = []
+    for ctx in (mt.gpu, mt.cpu):
+        mesh = mt.sharding.MeshContext.create(
+            spec, devices=[ctx(i) for i in range(4)])
+        mod = mt.mod.Module(sym, context=ctx(0))
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=64), num_epoch=2,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                            for k, v in w0.items()}, mesh=mesh)
+        res.append({k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+        lay = mod._fused._plan.replica_layout()
+        assert lay.specs
+        for r, e in enumerate(mod._exec_group.execs):
+            assert e.arg_dict["fc1_weight"]._data.device == \
+                ctx(r).torch_device
+            assert tuple(e.arg_dict["fc1_weight"].shape) == \
+                lay.local_shape("fc1_weight", (128, 784))
+    for k in res[1]:
+        np.testing.assert_allclose(res[0][k], res[1][k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_dist_async_two_processes_on_one_card(cuda, tmp_path):
+    """dist_async from env:// with two processes on gpu(0): rank 0 hosts
+    the async server; rank 1's pull sees its own push while rank 0 waits;
+    pushes of CUDA values land on the server and pull back onto the
+    card."""
+    torch, _ = cuda
+    import os
+    import socket
+    import subprocess
+    import sys
+    import textwrap
+    src = textwrap.dedent("""
+        import numpy as np
+        import mxtpu_torch as mt
+        kv = mt.kv.create("dist_async")
+        ctx = mt.gpu(0)
+        kv.init(0, mt.nd.zeros((3,), ctx=ctx))
+        if kv.rank == 1:
+            for i in range(3):
+                kv.push(0, mt.nd.ones((3,), ctx=ctx) * (i + 1))
+                out = mt.nd.zeros((3,), ctx=ctx)
+                kv.pull(0, out=out)
+                assert out._data.device.type == "cuda"
+                assert out.asnumpy()[0] == i + 1, out.asnumpy()
+        kv.barrier()
+        out = mt.nd.zeros((3,), ctx=ctx)
+        kv.pull(0, out=out)
+        assert out.asnumpy()[0] == 3.0
+        kv.close()
+        print("WORKER_OK")
+    """)
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, WORLD_SIZE="2",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    procs = [subprocess.Popen([sys.executable, "-c", src],
+                              env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0 and "WORKER_OK" in o, o
 
 
 @pytest.mark.parametrize("dtype,fwd_tol,grad_tol", [

@@ -8,8 +8,9 @@ processes, the optimizer runs on every worker, ``rescale_grad`` is
 1/(global batch). The result must equal one process on the whole batch
 within 1e-6 (the same sums in another order), in the port and in
 mxtpu's one-process run (within 1e-5), and the two workers' weights must
-be bit-identical. Without the variables a ``dist_sync`` store is one
-worker, as mxtpu's is; ``dist_async`` raises.
+be bit-identical. Without the variables a ``dist_sync`` or
+``dist_async`` store is one worker, as mxtpu's is
+(tests/test_torch_kvstore_async.py holds ``dist_async`` with a cluster).
 """
 import json
 import logging
@@ -165,5 +166,9 @@ def test_dist_store_without_a_cluster_is_one_worker(mt, monkeypatch):
         kv.barrier()
         jkv = mx.kv.create(name)
         assert (jkv.rank, jkv.num_workers) == (0, 1)
-    with pytest.raises(mt.MXNetError, match="dist_async"):
-        mt.kv.create("dist_async")
+    kv = mt.kv.create("dist_async")
+    assert (kv.type, kv.rank, kv.num_workers) == ("dist_async", 0, 1)
+    assert kv._client is None
+    kv.barrier()
+    jkv = mx.kv.create("dist_async")
+    assert (jkv.rank, jkv.num_workers) == (0, 1)

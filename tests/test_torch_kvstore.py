@@ -1,10 +1,9 @@
 """KVStore in mxtpu_torch vs mxtpu, on the CPU.
 
 - Every case of mxtpu's ``tests/test_kvstore.py`` run by one body
-  through both packages (values exact: they are small integers). Where
-  the port refuses what mxtpu runs (``dist_async``, mxtpu's TCP
-  parameter server), the port raises MXNetError naming the ROADMAP
-  item. ``row_sparse_pull`` into a dense and a row_sparse out, and a
+  through both packages (values exact: they are small integers), every
+  kind created in both, ``dist_async`` with no cluster one worker as in
+  mxtpu. ``row_sparse_pull`` into a dense and a row_sparse out, and a
   row_sparse gradient pushed through the store's SGD, give mxtpu's rows.
 - ``model._create_kvstore``'s decision table against mxtpu's: no store
   for one device unless ``dist``; ``local`` with a parameter over 16 M
@@ -115,12 +114,9 @@ def test_optimizer_on_kvstore(pkg):
 
 def test_kvstore_types_and_rank(pkg):
     for name in ("local", "device", "dist_sync", "dist_async"):
-        if name == "dist_async" and _is_port(pkg):
-            with pytest.raises(pkg.MXNetError, match="A.4"):
-                pkg.kv.create(name)
-            continue
         store = pkg.kv.create(name)
         assert store.type == name
+        assert (store.rank, store.num_workers) == (0, 1)
     store = pkg.kv.create("local")
     assert store.rank == 0
     assert store.num_workers == 1

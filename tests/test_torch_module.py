@@ -243,8 +243,14 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     sym = mt.models.get_mlp(4)
     x, y = np.zeros((8, 5), np.float32), np.zeros(8, np.float32)
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
-    for kw in ({"kvstore": "dist_async"},
-               {"elastic": "/tmp/x"}, {"resume": True}, {"tuned": "t.json"},
+    # dist_async is ported: with no cluster the store is one worker and
+    # the fit trains on the kvstore's updater
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            kvstore="dist_async")
+    assert mod._kvstore.type == "dist_async" and mod._update_on_kvstore
+    assert mod._kvstore.num_workers == 1 and mod._fused is None
+    mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
+    for kw in ({"elastic": "/tmp/x"}, {"resume": True}, {"tuned": "t.json"},
                {"health": True}):
         with pytest.raises(mt.MXNetError, match="not ported"):
             mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,

@@ -20,7 +20,9 @@ are numpy arrays from seeds, handed to both packages.
   348-379, 461-510).
 - ``DataParallelTrainer`` with ``shard_update`` on and off against
   mxtpu's from the same weights: rtol 2e-4 / atol 2e-5 (tests/
-  test_parallel.py:425-458).
+  test_parallel.py:425-458); ``shard_params`` and a ``model`` axis
+  training as the 1-D mesh does, rmsprop refused
+  (tests/test_torch_mesh_tp.py holds ``shard_params`` to mxtpu's).
 """
 import numpy as np
 import pytest
@@ -556,15 +558,35 @@ def test_dp_trainer_converges(tt):
 
 
 def test_dp_trainer_refuses_what_is_not_ported(tt):
+    """shard_params and a 'model' axis train now (a 'model' axis that
+    splits nothing takes more rows of the batch: the same step as the 1-D
+    mesh over the 8 devices); rmsprop stays refused."""
     torch, mt = tt
     cpus = _cpus(mt, 8)
-    with pytest.raises(mt.MXNetError, match="shard_params"):
-        mt.parallel.DataParallelTrainer(
-            _dp_net(mt), mesh=mt.parallel.make_mesh(devices=cpus),
-            shard_params=True)
-    with pytest.raises(mt.MXNetError, match="axis 'model'"):
-        mt.parallel.DataParallelTrainer(
-            _dp_net(mt), mesh=mt.parallel.make_mesh((4, 2), devices=cpus))
+    rng = np.random.RandomState(2)
+    X = rng.randn(16, 128).astype("f4")
+    y = rng.randint(0, 4, 16).astype("f4")
+    params = {"learning_rate": 0.1, "momentum": 0.9}
+    got = []
+    for mesh, shard in (((4, 2), True), ((4, 2), False), ((8,), False)):
+        tr = mt.parallel.DataParallelTrainer(
+            _dp_net(mt), mesh=mt.parallel.make_mesh(mesh, devices=cpus),
+            optimizer_params=params, shard_params=shard)
+        tr.init({"data": (16, 128), "softmax_label": (16,)})
+        if shard:  # fc1 (512 x 128 = 2^16 elements) by rows over 'model'
+            assert tuple(tr._module._exec_group.execs[0].arg_dict[
+                "fc1_weight"].shape) == (256, 128)
+        if got:
+            tr._module.set_params({k: mt.nd.NDArray(v, mt.cpu())
+                                   for k, v in got[0][0].items()}, {})
+        w0 = {k: v.clone() for k, v in tr.params.items()}
+        for _ in range(2):
+            tr.step({"data": X, "softmax_label": y})
+        got.append((w0, tr.params))
+    for _, w in got[1:]:
+        for k in w:
+            np.testing.assert_allclose(w[k].numpy(), got[0][1][k].numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
     with pytest.raises(mt.MXNetError, match="optimizer"):
         mt.parallel.DataParallelTrainer(
             _dp_net(mt), mesh=mt.parallel.make_mesh(devices=cpus),

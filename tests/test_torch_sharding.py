@@ -544,11 +544,22 @@ def test_mesh_false_beats_the_environment(tt, mlp_w0, monkeypatch):
 
 @pytest.mark.parametrize("spec", ["data:2,tp:2", "4x2", "fsdp:2,data:2"])
 def test_a_multi_axis_mesh_raises_naming_the_axis(tt, mlp_w0, spec):
+    """A mesh with a tp or fsdp axis no longer raises: fit on it matches
+    mxtpu's fit on the same spec at mxtpu's gate, with the plan armed
+    over the mesh's devices and the tp/fsdp-split weights held in blocks
+    (tests/test_torch_mesh_tp.py holds the rest)."""
     _, mt = tt
-    x, y = _mnist_like(n=64)
+    x, y = _mnist_like(n=128)
+    jm, jw, _ = _fit(mx, mx.cpu(), mlp_w0, spec, x, y, 64, num_epoch=1)
+    tm, tw, tmod = _fit(mt, mt.cpu(), mlp_w0, _mesh(mt, spec), x, y, 64,
+                        num_epoch=1)
+    _gate((tm, tw), (jm, jw))
+    lay = tmod._fused._plan.replica_layout()
     axis = "tp" if "tp" in spec or "x" in spec else "fsdp"
-    with pytest.raises(mt.MXNetError, match="axis '%s'" % axis):
-        _fit(mt, mt.cpu(), mlp_w0, _mesh(mt, spec), x, y, 64, num_epoch=1)
+    assert len(tmod._exec_group.execs) == lay.n == (8 if "x" in spec
+                                                    else 4)
+    assert {a for e in lay.specs.values() for axes in e for a in axes} \
+        == {axis}
 
 
 def test_optimizer_states_round_trip_under_a_plan(tt, mlp_runs, tmp_path):
