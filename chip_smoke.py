@@ -362,9 +362,36 @@ Phases (any failure raises and exits non-zero):
    ``MXTPU_ROLE=worker`` on ``dist_sync``, each on its half of every
    batch: their weights within 1e-6 of one process on the whole batch
    and the same bits on both. Every subprocess has a timeout.
-20. Prints the kernels' JSON line (each kernel's launches by path, the
-   ``records``, ``frontend``, ``zoo``, ``rcnn`` and ``ctc`` paths
-   included), then the device line last.
+20. The scaffolding layer (``scaffolding``): the LM of phase 4 served by
+   ``ServingSession`` behind its HTTP server, a few requests, then
+   ``GET /metrics`` and ``GET /v1/metrics`` scraped: the request and
+   batch counters, ``span_ms{span="batch[...]"}`` and the ``engine_*``
+   series count what was sent, each batch span's parent is one of its
+   requests' spans, and the flash forward launches once a layer a batch.
+   The LM trained as in phase 6 through ``Module.fit(tuned=...)`` with a
+   saved ``TunedConfig`` (``fit.max_in_flight=3``, ``fit.metric_sync=4``)
+   in turns with telemetry on, off, off, on (the tuned knobs and the same
+   knobs given explicitly alternating): ``_fit_knobs`` is the
+   artifact's, the weights of every turn are bit-identical, the ``fit_*``
+   series count the steps when on and nothing when off, the flash
+   launches are the same in every turn, and the step ms of both settings
+   are printed (not gated). A fifth fit pushes a write -> two reads ->
+   write chain onto the native ``ThreadedEngine`` mid-fit, in a span
+   whose trace id each op's dispatch span carries, and runs the profiler
+   (``api`` mode, with its torch.profiler session) around two steps:
+   the ops ran in dependency order, ``engine_ops_completed`` counts them,
+   ``nd.waitall()`` returns after a slow engine op and a long card kernel
+   launched just before it, the chrome trace holds ``fit.step`` and
+   ``executor.forward``/``backward`` with their trace ids, and the
+   torch.profiler trace the flash kernels. Last, phase 19's launch form
+   (``dist_sync`` over the TCP server, the mlp) bare and under
+   ``MXTPU_FAULTS`` (ECONNRESET at ``kvstore.push`` and ``kvstore.pull``,
+   p = 0.25) with ``MXTPU_KVSTORE_RETRIES=10``: each faulted worker's
+   snapshot shows ``fault_injected`` and ``retry_attempts`` above 0 and
+   its weights are bit-identical to the bare run's.
+21. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records``, ``frontend``, ``zoo``, ``rcnn``, ``ctc`` and
+   ``scaffolding`` paths included), then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -638,7 +665,7 @@ ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
           "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse",
-          "dist_async")
+          "dist_async", "scaffolding")
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx", "mesh_tp")
 # --multi-gpu mesh_tp: the LM at phase 6's widths on 2-D meshes of the 4
@@ -649,6 +676,15 @@ MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
 MESH_TP = dict(batch=8, steps=4, lr=0.01, momentum=0.9,
                meshes=("data:2,tp:2", "data:2,fsdp:2"),
                resnet_mesh="data:2,tp:2", slack_bytes=0, exact_factor=4.0)
+# phase 20: the served requests, the trained fit's knobs (a TunedConfig)
+# and the turns of telemetry on and off; the faulted launch form's schedule
+# and retries (each worker's pushes and pulls fail with p = 0.25)
+SCAFFOLD = dict(requests=4, clients=2, max_in_flight=3, metric_sync=4,
+                turns=(True, False, False, True), profiled_steps=(5, 6),
+                engine_step=3, engine_op_s=0.02, faults=(
+                    "kvstore.push:kind=errno,errno=ECONNRESET,p=0.25,seed=7;"
+                    "kvstore.pull:kind=errno,errno=ECONNRESET,p=0.25,seed=8"),
+                retries=10)
 # dist_async: the mlp (784-128-64-10) on seeded images, a global batch of
 # 64 (32 a worker), 2 epochs; each subprocess's time limit in seconds
 KV_ASYNC = dict(examples=512, batch=64, epochs=2, lr=0.1, timeout=300)
@@ -1616,9 +1652,9 @@ def phase_resnet(mt, epi, seed, card, profile=False):
            stats["request_latency_ms"]["p99_ms"],
            stats["batch_exec_ms"]["mean_ms"], top.min(), top.max()))
 
-    log("  batch_exec_ms of each batch: %s"
-        % [round(v, 2) for v in
-           session.metrics.histogram("batch_exec_ms")._values])
+    h = session.metrics.histogram("batch_exec_ms")
+    log("  batch_exec_ms over %d batches: min %.2f, mean %.2f, max %.2f"
+        % (h.count, h.min, h.mean, h.max))
     x = np.concatenate(requests[:max(RESNET_BUCKETS)])
     breakdown = batch_breakdown(mt, sym_json, params, x, profile,
                                 "ResNet-50")
@@ -9740,6 +9776,9 @@ def kv_worker(mode, seed, out):
     np.savez(out + ".npz", **w)
     if mode != "one":
         kv.barrier()  # every push applied
+        snap = mt.telemetry.json_snapshot(mt.telemetry.registry())["mxtpu"]
+        row["telemetry"] = {k: v for k, v in snap.items() if k.startswith(
+            ("fault_injected", "retry_", "kvstore_push", "kvstore_pull"))}
         if mode == "async" and r == 0:
             row["versions"] = {str(k): v for k, v in
                                kv._server.versions.items()}
@@ -9863,6 +9902,441 @@ def phase_dist_async(mt, seed, card):
                                  "from one process" % (same, dist))
         out["launch"] = dict(step_ms=[r["step_ms"] for r in rows],
                              wall_s=wall, max_abs_to_one=dist)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _metric_counts(tel):
+    """{(name, labels): value or count} of every series of the
+    process-wide registry (counters by value, histograms by count)."""
+    out = {}
+    for m in tel.registry().series():
+        key = (m.name, tuple(sorted(m.labels.items())))
+        out[key] = m.count if isinstance(m, tel.Histogram) else m.value
+    return out
+
+
+def _delta(before, after, name, labels=()):
+    key = (name, tuple(sorted(labels)))
+    return after.get(key, 0) - before.get(key, 0)
+
+
+def http_get(url, accept=None):
+    """(body text, content type) of a GET on the local server."""
+    import urllib.request
+    req = urllib.request.Request(url, headers={"Accept": accept}
+                                 if accept else {})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read().decode(), r.headers.get("Content-Type")
+
+
+def scaffold_served(mt, att, seed, card):
+    """Step 1 of phase 20: the LM of phase 4 served by ServingSession behind
+    its HTTP server; the requests go in process (an answer is T x vocab
+    probabilities, 1024 x 50257, too large a JSON body), the metrics are
+    scraped over HTTP."""
+    tel = mt.telemetry
+    sym = mt.models.get_transformer_lm(**LM)
+    params = lm_params(sym, seed)
+    rng = np.random.default_rng(seed + 20)
+    n = SCAFFOLD["requests"]
+    requests = [rng.integers(0, LM["vocab_size"], (1, LM["seq_len"]))
+                .astype(np.float32) for _ in range(n)]
+    session = mt.serving.ServingSession(
+        sym.tojson(), params, {"data": (1, LM["seq_len"])}, buckets=BUCKETS,
+        contexts=[mt.gpu(0)], warmup=True)
+    server = mt.serving.ServingHTTPServer(session, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    finished = []
+    errors = []
+    try:
+        before = _metric_counts(tel)
+        tel.tracing.set_span_sink(finished.append)
+        att.flash_attention.launches = 0  # count the main path alone
+
+        def client(idx):
+            try:
+                for r in range(idx, n, SCAFFOLD["clients"]):
+                    out = session.predict({"data": requests[r]})[0]
+                    if out.shape != (LM["seq_len"], LM["vocab_size"]) or \
+                            not np.isfinite(out).all():
+                        raise AssertionError("answer %d: %s" % (r,
+                                                                out.shape))
+            except Exception as exc:  # re-raised on the main thread below
+                errors.append(exc)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SCAFFOLD["clients"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        launches = att.flash_attention.launches
+        tel.tracing.set_span_sink(None)
+        after = _metric_counts(tel)
+        v1 = json.loads(http_get(server.endpoint + "/v1/metrics")[0])
+        full = json.loads(http_get(server.endpoint + "/metrics",
+                                   accept="application/json")[0])
+        text, ctype = http_get(server.endpoint + "/metrics")
+    finally:
+        tel.tracing.set_span_sink(None)
+        server.shutdown()
+    if errors:
+        raise errors[0]
+    batches = v1["batches_dispatched"]
+    batch_spans = {k[1][0][1]: _delta(before, after, *k[:1], k[1])
+                   for k in after if k[0] == "span_ms" and
+                   k[1][0][1].startswith("batch[")}
+    batch_spans = {k: v for k, v in batch_spans.items() if v}
+    req_spans = {s.span_id: s for s in finished
+                 if s.name == "serving.request"}
+    bspans = [s for s in finished if s.name.startswith("batch[")]
+    orphans = [s for s in bspans if s.parent_id not in req_spans or
+               s.trace_id != req_spans[s.parent_id].trace_id]
+    engine_series = sorted(k for k in full["mxtpu"]
+                           if k.startswith("engine_"))
+    log("  [%s] %d requests in %d batches served behind the HTTP server: "
+        "/v1/metrics requests_received %d, requests_completed %d, "
+        "batches_dispatched %d; /metrics (%s) span_ms of the batches %s, "
+        "serving.request %d; engine series %s; batch spans %d, each the "
+        "child of one of its requests' %d spans: %s; flash launches %d "
+        "(want %d layers x %d batches)"
+        % (card, n, batches, v1["requests_received"],
+           v1["requests_completed"], batches, ctype, batch_spans,
+           _delta(before, after, "span_ms", [("span", "serving.request")]),
+           engine_series, len(bspans), len(req_spans), not orphans,
+           launches, LM["num_layers"], batches))
+    want_engine = {"engine_ops_completed", "engine_ops_dispatched",
+                   "engine_queue_depth", "engine_queue_wait_ms",
+                   "engine_worker_busy_ms", "engine_workers"}
+    if v1["requests_received"] != n or v1["requests_completed"] != n or \
+            batches < 1 or sum(batch_spans.values()) != batches or \
+            _delta(before, after, "span_ms",
+                   [("span", "serving.request")]) != n or \
+            len(req_spans) != n or len(bspans) != batches or orphans or \
+            not want_engine <= set(engine_series) or \
+            ctype != tel.PROMETHEUS_CONTENT_TYPE or \
+            "mxtpu_serving_requests_completed %d" % n not in text or \
+            launches != LM["num_layers"] * batches:
+        raise AssertionError("scaffolding: served metrics disagree with "
+                             "what was sent")
+    return dict(requests=n, batches=batches, launches=launches,
+                batch_spans=batch_spans, engine_series=engine_series,
+                request_latency_ms=v1["request_latency_ms"])
+
+
+class StampedBatches(RepeatBatch):
+    """phase 6's repeated batch, stamping the host clock at each fetch and
+    calling ``hook(i)`` before handing out batch ``i`` (fit fetches batch
+    i + 1 right after it dispatches step i)."""
+
+    def __init__(self, mt, x, y, n, hook=None):
+        super().__init__(mt, x, y, n)
+        self.stamps = []
+        self.hook = hook
+
+    def __next__(self):
+        if self.hook is not None:
+            self.hook(self._i)
+        self.stamps.append(time.perf_counter())
+        return super().__next__()
+
+
+def scaffold_fit(mt, att, sym, w0, x, y, on, tuned=None, hook=None):
+    """One fit of phase 6's LM settings from the weights ``w0`` with
+    telemetry ``on`` or off, through ``tuned`` (an artifact path) or the
+    same knobs given explicitly: (module, the fit's series deltas, flash
+    launches (fwd, bwd), mean step ms after the warm-up, weights)."""
+    tel = mt.telemetry
+    steps = TRAIN["steps"]
+    knobs = {} if tuned else dict(max_in_flight=SCAFFOLD["max_in_flight"],
+                                  metric_sync=SCAFFOLD["metric_sync"])
+    tel.set_enabled(on)
+    try:
+        mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+        it = StampedBatches(mt, x, y, steps, hook=hook)
+        torch.cuda.synchronize()
+        before = _metric_counts(tel)
+        att.flash_attention.launches = 0  # count the main path alone
+        att.flash_attention_backward.launches = 0
+        mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="adam",
+                optimizer_params={"learning_rate": TRAIN["lr"]},
+                arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                            for k, v in w0.items()},
+                tuned=tuned, **knobs)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        after = _metric_counts(tel)
+    finally:
+        tel.set_enabled(True)
+    launches = (att.flash_attention.launches,
+                att.flash_attention_backward.launches)
+    w = TRAIN["warmup"]
+    step_ms = (t_end - it.stamps[w]) * 1e3 / (steps - w)
+    deltas = {k: after[k] - before.get(k, 0) for k in after
+              if k[0].startswith("fit_") or
+              k == ("span_ms", (("span", "fit.step"),))}
+    weights = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return mod, deltas, launches, step_ms, weights
+
+
+def scaffold_trained(mt, att, seed, card, tmp):
+    """Steps 2, 3 and 5 of phase 20: the LM trained through
+    ``Module.fit(tuned=...)``, in turns with telemetry on and off; then a
+    fifth fit with the engine chain pushed mid-fit and the profiler around
+    two steps."""
+    tel = mt.telemetry
+    cfg = dict(LM)
+    sym = mt.models.get_transformer_lm(**cfg)
+    w0 = {k[4:]: v for k, v in lm_params(sym, seed).items()}
+    x, y = lm_batch(seed, TRAIN["batch"], cfg["seq_len"], cfg["vocab_size"])
+    path = os.path.join(tmp, "fit_tuned.json")
+    mt.tune.TunedConfig(
+        values={"fit.max_in_flight": SCAFFOLD["max_in_flight"],
+                "fit.metric_sync": SCAFFOLD["metric_sync"]},
+        provenance=[{"event": "chip_smoke", "phase": "scaffolding"}]
+    ).save(path)
+    steps = TRAIN["steps"]
+    want_knobs = {"fit.max_in_flight": SCAFFOLD["max_in_flight"],
+                  "fit.metric_sync": SCAFFOLD["metric_sync"],
+                  "fit.device_metrics": True, "fit.device_prefetch": False}
+    want_launches = (cfg["num_layers"] * steps,) * 2
+    # the cadence syncs (every metric_sync batches and the last) and the
+    # pacer's waits (one a step once max_in_flight are queued)
+    n_syncs = len([i for i in range(steps) if i == steps - 1 or
+                   (i and i % SCAFFOLD["metric_sync"] == 0)])
+    n_waits = steps - SCAFFOLD["max_in_flight"]
+    want_on = {("fit_step_ms", ()): steps, ("fit_dispatch_ms", ()): steps,
+               ("span_ms", (("span", "fit.step"),)): steps,
+               ("fit_samples", ()): steps * TRAIN["batch"],
+               ("fit_epochs", ()): 1, ("fit_metric_sync_ms", ()): n_syncs,
+               ("fit_sync_wait_ms", ()): n_waits}
+    turns, ref_w = [], None
+    for i, on in enumerate(SCAFFOLD["turns"]):
+        mod, deltas, launches, ms, w = scaffold_fit(
+            mt, att, sym, w0, x, y, on, tuned=path if i % 2 == 0 else None)
+        same = ref_w is None or all(np.array_equal(w[k], ref_w[k])
+                                    for k in ref_w)
+        ref_w = ref_w or w
+        got = {k: deltas.get(k, 0) for k in want_on}
+        counted = got == (want_on if on else dict.fromkeys(want_on, 0))
+        turns.append(dict(telemetry=on, tuned=i % 2 == 0, step_ms=ms,
+                          launches=list(launches), knobs=mod._fit_knobs,
+                          series=counted, bit_identical=same))
+        log("  [%s] turn %d: telemetry %s, %s: step ms %.3f, flash "
+            "launches fwd %d bwd %d, _fit_knobs %s, fit series %s%s, "
+            "weights bit-identical to turn 0: %s"
+            % (card, i, "on" if on else "off",
+               "tuned=TunedConfig" if i % 2 == 0 else "explicit knobs", ms,
+               launches[0], launches[1], mod._fit_knobs,
+               {k[0] if not k[1] else "span_ms{fit.step}": v
+                for k, v in got.items()},
+               "" if counted else " (want %s)" % (
+                   "the steps" if on else "none"), same))
+        del mod
+        torch.cuda.empty_cache()
+        if turns[-1]["knobs"] != want_knobs or not same or \
+                not counted or tuple(launches) != want_launches:
+            raise AssertionError("scaffolding: turn %d %s" % (i, turns[-1]))
+    on_ms = [t["step_ms"] for t in turns if t["telemetry"]]
+    off_ms = [t["step_ms"] for t in turns if not t["telemetry"]]
+    log("  [%s] LM step ms with telemetry on %s (mean %.3f, spread %.3f), "
+        "off %s (mean %.3f, spread %.3f), in turns on, off, off, on; "
+        "printed, not gated"
+        % (card, [round(v, 3) for v in on_ms], float(np.mean(on_ms)),
+           max(on_ms) - min(on_ms), [round(v, 3) for v in off_ms],
+           float(np.mean(off_ms)), max(off_ms) - min(off_ms)))
+
+    # the fifth fit: the engine chain mid-fit, the profiler around steps
+    eng = mt.engine.get()
+    a, b = eng.new_variable(), eng.new_variable()
+    ran = []
+    pushed = {}
+    op_s = SCAFFOLD["engine_op_s"]
+
+    def op(name):
+        def body():
+            t0 = time.perf_counter()
+            time.sleep(op_s)
+            ran.append((name, t0, time.perf_counter(),
+                        tel.current_span().trace_id))
+        return body
+
+    first, last = SCAFFOLD["profiled_steps"]
+    trace = os.path.join(tmp, "scaffold_profile.json")
+    mt.profiler.set_config(mode="api", filename=trace)
+
+    def hook(i):
+        if i == SCAFFOLD["engine_step"]:
+            with tel.span("scaffold.engine_push") as sp:
+                pushed["trace_id"] = sp.trace_id
+                eng.push(op("w1"), mutable_vars=[a])
+                eng.push(op("r1"), const_vars=[a])
+                eng.push(op("r2"), const_vars=[a])
+                eng.push(op("w2"), mutable_vars=[a, b])
+        # synchronized at both ends, so that the torch.profiler session
+        # holds the kernels of the profiled steps and of no other
+        if i == first:
+            torch.cuda.synchronize()
+            mt.profiler.set_state("run")
+        if i == last + 1:
+            torch.cuda.synchronize()
+            mt.profiler.set_state("stop")
+
+    completed = tel.registry().counter("engine_ops_completed")
+    n0 = completed.value
+    mod, deltas, launches, ms, w = scaffold_fit(mt, att, sym, w0, x, y, True,
+                                                tuned=path, hook=hook)
+    mt.profiler.set_state("stop")
+    # waitall drains the engine and the card: a slow op and a long kernel
+    # launched just before it are both done when it returns
+    eng.push(op("slow"), mutable_vars=[b])
+    torch.cuda._sleep(int(5e8))
+    spun = torch.cuda.Event()
+    spun.record()
+    t0 = time.perf_counter()
+    mt.nd.waitall()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    drained = spun.query() and len(ran) == 5
+    by = {r[0]: r for r in ran}
+    ordered = by["w1"][2] <= min(by["r1"][1], by["r2"][1]) and \
+        max(by["r1"][2], by["r2"][2]) <= by["w2"][1]
+    traced = all(by[k][3] == pushed["trace_id"]
+                 for k in ("w1", "r1", "r2", "w2"))
+    mt.profiler.dump_profile()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for ev in events:
+        if ev["ph"] == "B" and "trace_id" in ev.get("args", {}):
+            spans.setdefault(ev["name"], set()).add(ev["args"]["trace_id"])
+    with open(mt.profiler.torch_trace_path()) as f:
+        tev = json.load(f)["traceEvents"]
+    kernels = {}
+    for ev in tev:
+        name = str(ev.get("name", ""))
+        if ev.get("cat") == "kernel" and "flash_" in name:
+            kern = "flash_fwd" if "flash_fwd" in name else "flash_bwd"
+            kernels[kern] = kernels.get(kern, 0) + 1
+    same = all(np.array_equal(w[k], ref_w[k]) for k in ref_w)
+    mt.profiler.clear()
+    log("  [%s] engine chain pushed at step %d (trace id %d) on %d native "
+        "workers: ran %s in dependency order %s, every dispatch span in the "
+        "pusher's trace %s, engine_ops_completed +%d; nd.waitall() after a "
+        "slow op and a long kernel: %.1f ms, drained %s"
+        % (card, SCAFFOLD["engine_step"], pushed["trace_id"],
+           eng.num_workers, [r[0] for r in ran], ordered, traced,
+           completed.value - n0, wait_ms, drained))
+    log("  [%s] profiler around steps %d-%d: chrome trace spans with trace "
+        "ids %s; torch.profiler kernels %s; fifth fit's flash launches %s, "
+        "weights bit-identical to turn 0: %s"
+        % (card, first, last,
+           {k: len(v) for k, v in sorted(spans.items())}, kernels,
+           list(launches), same))
+    n_prof = last - first + 1
+    if not ordered or not traced or not drained or \
+            completed.value - n0 != 5 or \
+            len(spans.get("fit.step", ())) != n_prof or \
+            not spans.get("executor.forward") or \
+            not spans.get("executor.backward") or \
+            not spans["executor.forward"] <= spans["fit.step"] or \
+            kernels.get("flash_fwd", 0) < n_prof * cfg["num_layers"] or \
+            kernels.get("flash_bwd", 0) < n_prof * cfg["num_layers"] or \
+            tuple(launches) != want_launches or not same:
+        raise AssertionError("scaffolding: engine/profiler step failed")
+    del mod
+    torch.cuda.empty_cache()
+    fwd = sum(t["launches"][0] for t in turns) + launches[0]
+    bwd = sum(t["launches"][1] for t in turns) + launches[1]
+    return dict(turns=turns, on_ms=on_ms, off_ms=off_ms,
+                fwd_launches=fwd, bwd_launches=bwd, engine_order=ordered,
+                waitall_ms=wait_ms, profiled_spans=sorted(spans),
+                profiled_kernels=kernels)
+
+
+def scaffold_faults(mt, seed, card, tmp):
+    """Step 4 of phase 20: phase 19's launch form (the server and two
+    ``MXTPU_ROLE=worker`` processes on ``dist_sync``, the mlp) bare, then
+    under the phase's MXTPU_FAULTS with retries."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+          "--kv-worker", "sync"]
+    runs = {}
+    for label, extra in (("bare", {}), ("faulted", {
+            "MXTPU_FAULTS": SCAFFOLD["faults"],
+            "MXTPU_KVSTORE_RETRIES": str(SCAFFOLD["retries"])})):
+        port = free_port()
+        kv_env = dict(os.environ, MXTPU_ROOT_URI="127.0.0.1",
+                      MXTPU_ROOT_PORT=str(port), MXTPU_NUM_WORKERS="2")
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "mxtpu_torch.kvstore_server"], cwd=here,
+            env=dict(kv_env, MXTPU_ROLE="server"))
+        procs = [subprocess.Popen(
+            me + ["--out", os.path.join(tmp, "%s%d" % (label, r))],
+            cwd=here, env=dict(kv_env, MXTPU_ROLE="worker",
+                               MXTPU_WORKER_ID=str(r), **extra))
+            for r in range(2)]
+        rcs = run_procs(procs + [server], KV_ASYNC["timeout"])
+        wall = time.perf_counter() - t0
+        if rcs != [0, 0, 0]:
+            raise AssertionError("scaffolding: %s launch form rcs (workers, "
+                                 "server) %s" % (label, rcs))
+        rows = []
+        for r in range(2):
+            with open(os.path.join(tmp, "%s%d.json" % (label, r))) as f:
+                rows.append(json.load(f))
+        runs[label] = dict(
+            weights=[np.load(os.path.join(tmp, "%s%d.npz" % (label, r)))
+                     for r in range(2)],
+            rows=rows, wall_s=wall)
+    bare, faulted = runs["bare"], runs["faulted"]
+    same = all(np.array_equal(fw[k], bw[k])
+               for fw, bw in zip(faulted["weights"], bare["weights"])
+               for k in bw.files)
+
+    def total(row, prefix):
+        return sum(v for k, v in row["telemetry"].items()
+                   if k.startswith(prefix) and isinstance(v, (int, float)))
+    fired = [total(r, "fault_injected") for r in faulted["rows"]]
+    retried = [total(r, "retry_attempts") for r in faulted["rows"]]
+    exhausted = [total(r, "retry_exhausted") for r in faulted["rows"]]
+    clean = [total(r, "fault_injected") + total(r, "retry_attempts")
+             for r in bare["rows"]]
+    log("  [%s] the launch form under MXTPU_FAULTS=%r, "
+        "MXTPU_KVSTORE_RETRIES=%d: fault_injected by worker %s, "
+        "retry_attempts %s, retry_exhausted %s (bare run: %s); weights "
+        "bit-identical to the bare run's %s; step ms worker 0 bare %s, "
+        "faulted %s; %.1f s and %.1f s wall"
+        % (card, SCAFFOLD["faults"], SCAFFOLD["retries"], fired, retried,
+           exhausted, clean, same,
+           [round(v, 2) for v in bare["rows"][0]["step_ms"]],
+           [round(v, 2) for v in faulted["rows"][0]["step_ms"]],
+           bare["wall_s"], faulted["wall_s"]))
+    if not same or min(fired) <= 0 or min(retried) <= 0 or any(exhausted) \
+            or any(clean):
+        raise AssertionError("scaffolding: faulted launch form %s %s %s"
+                             % (same, fired, retried))
+    return dict(fault_injected=fired, retry_attempts=retried,
+                bit_identical=same,
+                step_ms={k: v["rows"][0]["step_ms"] for k, v in runs.items()},
+                wall_s={k: v["wall_s"] for k, v in runs.items()})
+
+
+def phase_scaffolding(mt, att, seed, card):
+    """Phase 20: telemetry, tune, the engine, the profiler and the fault
+    injection on the served and trained GPT-2-small LM and the TCP
+    parameter server."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scaffold_")
+    try:
+        t0 = time.perf_counter()
+        out = {"served": scaffold_served(mt, att, seed, card)}
+        torch.cuda.empty_cache()
+        out["trained"] = scaffold_trained(mt, att, seed, card, tmp)
+        out["faults"] = scaffold_faults(mt, seed, card, tmp)
+        out["wall_s"] = time.perf_counter() - t0
+        log("  phase wall %.1f s" % out["wall_s"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -10047,6 +10521,10 @@ def main(argv=None):
     if "dist_async" in phases:
         log("[dist_async]")
         results["dist_async"] = phase_dist_async(mt, args.seed, card)
+    # 20. telemetry, tune, engine, profiler and faults on the LM's paths
+    if "scaffolding" in phases:
+        log("[scaffolding]")
+        results["scaffolding"] = phase_scaffolding(mt, att, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -10083,15 +10561,21 @@ def main(argv=None):
     roi = rcnn_res["roi_pooling"]
     ctc = results["ctc"]
     ctc_ocr_row = ctc["timed"]["ocr"]
+    scaffold = results["scaffolding"]
+    sc_served = scaffold["served"]["launches"]
+    sc_fwd = scaffold["trained"]["fwd_launches"]
+    sc_bwd = scaffold["trained"]["bwd_launches"]
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxtpu/ops/attention.py:92",
         "launches": served["launches"] + trained["fwd_launches"]
-        + surf_lm["flash_launches"],
+        + surf_lm["flash_launches"] + sc_served + sc_fwd,
         "launches_by_path": {"lm_serving": served["launches"],
                              "lm_training": trained["fwd_launches"],
-                             "lm_predictor": surf_lm["flash_launches"]},
+                             "lm_predictor": surf_lm["flash_launches"],
+                             "lm_serving_telemetry": sc_served,
+                             "lm_training_tuned": sc_fwd},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -10121,8 +10605,9 @@ def main(argv=None):
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "mxtpu/ops/attention.py:199",
-        "launches": trained["bwd_launches"],
-        "launches_by_path": {"lm_training": trained["bwd_launches"]},
+        "launches": trained["bwd_launches"] + sc_bwd,
+        "launches_by_path": {"lm_training": trained["bwd_launches"],
+                             "lm_training_tuned": sc_bwd},
         "max_abs_err": bwd_row["max_abs_err"],
         "scaled_err": bwd_row["scaled_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

@@ -48,11 +48,27 @@ samplers with their 15 ops (``ops/random_ops.py``), ``visualization``,
 spatial, custom and update ops (``ops/spatial.py`` with ROIPooling as a
 CUDA kernel, ``ops/custom.py`` over ``operator``'s ``CustomOp`` and
 ``CustomOpProp``, ``ops/optimizer_ops.py``) and the Faster R-CNN
-(``models.rcnn``).
+(``models.rcnn``); the scaffolding under all of it: ``telemetry``
+(metrics, correlated spans, Prometheus and JSON exposition under mxtpu's
+series names), ``faults`` (seeded injection points, ``RetryPolicy``),
+``tune`` (the knob registry and ``TunedConfig``, read by
+``Module.fit(tuned=...)``), ``engine`` (the native dependency engine),
+``profiler`` (chrome trace + a ``torch.profiler`` session),
+``analysis`` (findings and the concurrency witness), ``diagnostics``'
+flight recorder, ``log``, ``name`` and ``registry``.
 """
 from .libinfo import __version__
 from . import base
 from .base import MXNetError
+# the scaffolding layer first: every later module may emit into it
+from . import analysis
+from . import telemetry
+from . import diagnostics
+from . import faults
+from . import tune
+from . import profiler
+from . import log
+from . import registry
 from . import context
 from .context import Context, cpu, current_context, gpu, num_gpus
 from . import attribute
@@ -61,6 +77,7 @@ from . import ops
 from . import operator
 from . import symbol
 from . import symbol as sym
+from . import name
 from . import autograd
 from . import ndarray
 from . import ndarray as nd
@@ -82,6 +99,7 @@ from . import optimizer
 from . import metric
 from . import io
 from . import recordio
+from . import engine
 from . import image
 from . import image_record
 from . import kvstore
@@ -109,4 +127,6 @@ __all__ = ["__version__", "MXNetError", "AttrScope", "attribute", "Context",
            "metric", "io", "recordio", "image", "image_record", "kvstore",
            "kv", "model", "callback", "monitor", "module", "mod",
            "autograd", "gluon", "sharding", "parallel", "rnn",
-           "visualization", "viz", "executor_manager", "test_utils"]
+           "visualization", "viz", "executor_manager", "test_utils",
+           "analysis", "telemetry", "diagnostics", "faults", "tune",
+           "profiler", "log", "registry", "name", "engine"]

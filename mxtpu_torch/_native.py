@@ -1,8 +1,10 @@
 """ctypes bridge to the native host runtime built from ``src/core``.
 
 Counterpart of ``mxtpu/_native.py``: the record reader and writer
-(``src/core/recordio.cc``) and the bounded prefetch thread
-(``src/core/threaded_iter.h``, dmlc's ThreadedIter), behind the C ABI of
+(``src/core/recordio.cc``), the bounded prefetch thread
+(``src/core/threaded_iter.h``, dmlc's ThreadedIter) and the dependency
+engine (``src/core/engine.cc``, driven by ``engine.ThreadedEngine``),
+behind the C ABI of
 ``src/core/c_api.cc``. The port compiles ``storage.cc``, ``recordio.cc``,
 ``engine.cc`` and ``c_api.cc`` itself with the ``g++`` on ``PATH`` into
 ``build/mxtpu_torch/`` on first use (never at import), into a file named
@@ -26,7 +28,8 @@ from pathlib import Path
 from .base import MXNetError
 from .build import BUILD_DIR
 
-__all__ = ["SRC_DIR", "SOURCES", "CXX_FLAGS", "PRODUCE_FN", "library_path",
+__all__ = ["SRC_DIR", "SOURCES", "CXX_FLAGS", "PRODUCE_FN", "ASYNC_FN",
+           "library_path",
            "build", "get_lib", "check_call"]
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "src" / "core"
@@ -36,6 +39,8 @@ CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared", "-pthread")
 #: the prefetch thread's producer: int fn(void* ctx, void** out_item)
 PRODUCE_FN = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p,
                               ctypes.POINTER(ctypes.c_void_p))
+#: the dependency engine's op callback: void fn(void* ctx)
+ASYNC_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
 
 _lock = threading.Lock()
 _lib = None
@@ -97,6 +102,15 @@ def _declare(lib):
         "MXTPURecordReaderSeek": [ctypes.c_void_p, ctypes.c_uint64],
         "MXTPURecordReaderTell": [ctypes.c_void_p, u64p],
         "MXTPURecordReaderFree": [ctypes.c_void_p],
+        "MXTPUEngineNewVar": [vpp],
+        "MXTPUEngineDeleteVar": [ctypes.c_void_p],
+        "MXTPUEnginePushAsync": [ASYNC_FN, ctypes.c_void_p, vpp,
+                                 ctypes.c_int, vpp, ctypes.c_int,
+                                 ctypes.c_int],
+        "MXTPUEngineWaitForVar": [ctypes.c_void_p],
+        "MXTPUEngineWaitForAll": [],
+        "MXTPUEngineNumWorkers": [ctypes.POINTER(ctypes.c_int)],
+        "MXTPUEngineOpsCompleted": [u64p],
         "MXTPUThreadedIterCreate": [PRODUCE_FN, ctypes.c_void_p,
                                     ctypes.c_int, vpp],
         "MXTPUThreadedIterNext": [ctypes.c_void_p, vpp],

@@ -3,19 +3,24 @@
 LogValidationMetricsCallback).
 
 The port's own copy of the callbacks of ``mxtpu/callback.py`` that a
-Module fit uses, without the telemetry registry (not ported). Speedometer
-reads the metric snapshot that ``fit`` takes at its metric-sync cadence
-when the metric accumulates on the device, so it forces no device sync
-of its own. ``do_checkpoint`` writes synchronously, where mxtpu's goes
-through its asynchronous snapshot writer (not ported); the files are
-the same either way.
+Module fit uses. Speedometer reads the metric snapshot that ``fit`` takes
+at its metric-sync cadence when the metric accumulates on the device, so
+it forces no device sync of its own, and sets mxtpu's series (:96-104):
+the ``train_samples_per_sec`` gauge, the
+``train_window_samples_per_sec`` histogram and a ``train_metric{metric}``
+gauge of each scalar metric value. ``do_checkpoint`` writes
+synchronously, where mxtpu's goes through its asynchronous snapshot
+writer (not ported); the files are the same either way.
 """
 from __future__ import annotations
 
 import logging
 import math
+import numbers
 import sys
 import time
+
+from . import telemetry as _tel
 
 __all__ = ["do_checkpoint", "Speedometer", "log_train_metric", "ProgressBar",
            "LogValidationMetricsCallback"]
@@ -67,6 +72,16 @@ class Speedometer:
             pairs = metric.get_name_value()
         else:
             pairs = []
+        _tel.gauge("train_samples_per_sec",
+                   help="Speedometer window throughput").set(speed)
+        _tel.histogram(
+            "train_window_samples_per_sec",
+            bounds=(1, 10, 100, 1e3, 1e4, 1e5, 1e6, 1e7, float("inf")),
+            help="distribution of window throughput").observe(speed)
+        for k, v in pairs:
+            if isinstance(v, numbers.Real):  # the registry stays numeric
+                _tel.gauge("train_metric", labels={"metric": k}).set(
+                    float(v))
         if self.log:
             extra = "".join("\t%s=%g" % (k, v) for k, v in pairs)
             logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",

@@ -30,6 +30,13 @@ and the ``simple_bind`` method follow mxtpu's. ``eager_run_range`` walks
 a range of the graph's nodes one at a time (mxtpu :212), for
 ``Predictor.partial_forward``.
 
+Telemetry and the profiler (mxtpu :674, :732, :628-661): ``forward``
+and ``backward`` (and their replica forms) run in ``executor.forward`` /
+``executor.backward`` spans. While the profiler runs in an operator mode
+(``profiler.ops_enabled()``) the walk records one chrome-trace span per
+op node, the device synchronized at each so the span covers its
+kernels, and the backward as one ``backward`` span.
+
 ``forward_replicas`` and ``backward_replicas`` run several executors of
 one symbol, each bound on its slice of a batch on its own device, as one
 function of the whole batch: the plan is walked over the replicas in
@@ -43,8 +50,12 @@ of the whole batch under GSPMD (mxtpu/module/fused.py:235-255).
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from . import profiler as _prof
+from . import telemetry as _tel
 from .base import MXNetError
 from .context import as_context, current_context
 from .ndarray import NDArray
@@ -319,6 +330,7 @@ class Executor:
         self._runs = {}     # (is_train, fuse) -> the plan's run function
         self._tape = None   # (outputs with their graph, {name: leaf})
         self._monitor_callback = None
+        self._profiled = False  # the last training forward was profiled
 
     @staticmethod
     def _as_dict(vals, names, what, allow_missing=False):
@@ -352,6 +364,35 @@ class Executor:
             for name, o in zip(_output_names(node, n_vis), outs):
                 cb(name, self._wrap(o.detach()))
         return hook
+
+    def _profile_hook(self):
+        """The walk's hook that records each op node as a profiler span,
+        the device synchronized at each node; None unless the profiler
+        runs in an operator mode."""
+        if not _prof.ops_enabled():
+            return None
+        device = self._device
+        last = [time.time() * 1e6]
+
+        def hook(node, n_vis, outs):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.time() * 1e6
+            _prof.record_span(node.name, last[0], now,
+                              category=node.op.name)
+            last[0] = now
+        return hook
+
+    def _hooks(self):
+        hooks = [h for h in (self._monitor_hook(), self._profile_hook())
+                 if h is not None]
+        if len(hooks) < 2:
+            return hooks[0] if hooks else None
+
+        def both(node, n_vis, outs):
+            for h in hooks:
+                h(node, n_vis, outs)
+        return both
 
     def _wrap(self, t):
         """An output as an NDArray on its own device's context."""
@@ -393,7 +434,12 @@ class Executor:
         ``is_train`` the run keeps its autograd graph for ``backward``.
         With an active monitor callback every op's outputs reach it, the
         inference walk unfused."""
-        hook = self._monitor_hook()
+        with _tel.span("executor.forward", category="executor"):
+            return self._forward_impl(is_train, kwargs)
+
+    def _forward_impl(self, is_train, kwargs):
+        hook = self._hooks()
+        self._profiled = is_train and _prof.ops_enabled()
         if not is_train:
             raw_args, raw_aux = self._inputs(kwargs)
             run = self._run(False, fuse=hook is None)
@@ -436,14 +482,24 @@ class Executor:
         written (``grad_req="write"``) or added (``"add"``) in place.
         ``out_grads`` are the head gradients, one per output; without
         them every head gets ones (a loss head ignores its own)."""
-        outs, heads, leaves, names = self._backward_terms(out_grads)
-        if not names:
-            return
-        grads = [None] * len(names)
-        if outs:
-            grads = torch.autograd.grad(outs, leaves, heads,
-                                        allow_unused=True)
-        self._write_grads(names, grads)
+        with _tel.span("executor.backward", category="executor"):
+            outs, heads, leaves, names = self._backward_terms(out_grads)
+            if not names:
+                return
+            grads = [None] * len(names)
+            if outs:
+                if self._profiled:
+                    # profiled forward ran node by node: the backward is
+                    # one span that covers its device work
+                    with _prof.scope("backward", category="backward"):
+                        grads = torch.autograd.grad(outs, leaves, heads,
+                                                    allow_unused=True)
+                        if self._device.type == "cuda":
+                            torch.cuda.synchronize(self._device)
+                else:
+                    grads = torch.autograd.grad(outs, leaves, heads,
+                                                allow_unused=True)
+            self._write_grads(names, grads)
 
     def _write_grads(self, names, grads):
         self._tape = None
@@ -548,6 +604,11 @@ def forward_replicas(executors, layout=None, is_train=True):
     inference (``is_train=False``, the fused plan) only its outputs."""
     if len(executors) == 1 and layout is None:
         return [executors[0].forward(is_train)]
+    with _tel.span("executor.forward", category="executor"):
+        return _forward_replicas(executors, layout, is_train)
+
+
+def _forward_replicas(executors, layout, is_train):
     devices = [ex._device for ex in executors]
     if not is_train:
         ins = [ex._inputs({}) for ex in executors]
@@ -576,6 +637,11 @@ def backward_replicas(executors, out_grads=None):
     if len(executors) == 1:
         executors[0].backward(None if out_grads is None else out_grads[0])
         return
+    with _tel.span("executor.backward", category="executor"):
+        _backward_replicas(executors, out_grads)
+
+
+def _backward_replicas(executors, out_grads):
     terms = [ex._backward_terms(None if out_grads is None else out_grads[i])
              for i, ex in enumerate(executors)]
     outs = [o for t in terms for o in t[0]]

@@ -51,6 +51,7 @@ import torch
 from . import _native
 from . import io as _io
 from . import recordio as _rio
+from .analysis import concurrency as _conc
 from .base import MXNetError
 from .context import cpu
 from .image import image as _img
@@ -72,7 +73,7 @@ class _Prefetcher:
     def __init__(self, produce, buffer_size):
         self._produce = produce
         self._store = {}
-        self._lock = threading.Lock()
+        self._lock = _conc.lock("_Prefetcher", "_lock")
         self._last = 0
         self._error = None
         self.thread = None  # ident of the native producer thread

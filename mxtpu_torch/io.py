@@ -10,6 +10,13 @@ iterator never needs a card. ``PrefetchingIter`` fetches the next batch
 on producer threads; ``DevicePrefetchIter`` also stages it on the
 device there: through a pinned host buffer and a copy on a side stream,
 which the consumer's stream waits for before it touches the batch.
+
+Telemetry and faults as mxtpu's (io.py:233, 352-371, 565-591): a
+producer crosses the ``io.prefetch.produce`` fault point before each
+fetch (an injected fault surfaces at the consumer); the consumer counts
+``io_prefetch_ready{state=hit|wait}`` and ``io_batches{iter=...}`` and
+times ``io_prefetch_stall_ms``; ``NDArrayIter`` times
+``io_batch_assemble_ms`` and, with workers, ``io_batch_wait_ms``.
 """
 from __future__ import annotations
 
@@ -23,8 +30,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as _np
 import torch
 
+from . import telemetry as _tel
 from .base import MXNetError
 from .context import as_context, cpu, gpu
+from .faults import injection as _faults
 from .ndarray import NDArray
 from .ndarray.ndarray import NARROW
 
@@ -235,6 +244,7 @@ class PrefetchingIter(DataIter):
                 self.data_ready[i].set()
                 break
             try:
+                _faults.point("io.prefetch.produce")
                 self.next_batch[i] = self._stage(self.iters[i].next())
             except StopIteration:
                 self.next_batch[i] = None
@@ -324,15 +334,29 @@ class PrefetchingIter(DataIter):
     def iter_next(self):
         if not self.started:
             raise MXNetError("PrefetchingIter is closed")
-        if all(e.is_set() for e in self.data_ready):
+        staged = all(e.is_set() for e in self.data_ready)
+        if staged:
             self.ready_hits += 1
         else:
             self.ready_waits += 1
+        _tel.counter("io_prefetch_ready",
+                     labels={"state": "hit" if staged else "wait"},
+                     help="consumer arrivals that found the next batch "
+                          "already staged (hit) vs had to block (wait)"
+                     ).inc()
+        # time blocked on the producer threads: a healthy pipeline shows
+        # ~zero stall (the batch was ready before the consumer asked)
+        t0 = time.perf_counter()
         for e in self.data_ready:
             e.wait()
+        _tel.histogram("io_prefetch_stall_ms",
+                       help="consumer wait for the prefetch thread"
+                       ).observe((time.perf_counter() - t0) * 1e3)
         self._raise_producer_error()
         if self.next_batch[0] is None:
             return False
+        _tel.counter("io_batches", labels={"iter": "PrefetchingIter"},
+                     help="batches produced").inc()
         self._handover(self.next_batch)
         self.current_batch = DataBatch(
             sum([b.data for b in self.next_batch], []),
@@ -563,23 +587,39 @@ class NDArrayIter(DataIter):
         if not self.iter_next():
             raise StopIteration
         if self._pool is None:
-            return self._assemble(self.cursor)
-        fut = self._pending.pop(self.cursor, None)
-        if fut is None:
-            fut = self._pool.submit(self._assemble, self.cursor)
-        # queue the lookahead before waiting, so the workers stay busy
-        for k in range(1, self._num_workers + 1):
-            nc = self.cursor + k * self.batch_size
-            if nc < self.num_data and nc not in self._pending:
-                self._pending[nc] = self._pool.submit(self._assemble, nc)
-        return fut.result()
+            batch = self._assemble(self.cursor)
+        else:
+            fut = self._pending.pop(self.cursor, None)
+            if fut is None:
+                fut = self._pool.submit(self._assemble, self.cursor)
+            # queue the lookahead before waiting, so the workers stay busy
+            for k in range(1, self._num_workers + 1):
+                nc = self.cursor + k * self.batch_size
+                if nc < self.num_data and nc not in self._pending:
+                    self._pending[nc] = self._pool.submit(self._assemble,
+                                                          nc)
+            t0 = time.perf_counter()
+            batch = fut.result()
+            _tel.histogram("io_batch_wait_ms",
+                           help="consumer wait for a pooled batch "
+                           "(~0 when the lookahead keeps up)"
+                           ).observe((time.perf_counter() - t0) * 1e3)
+        _tel.counter("io_batches", labels={"iter": "NDArrayIter"},
+                     help="batches produced").inc()
+        return batch
 
     def _assemble(self, cursor):
         """The batch at ``cursor``: a pure function of (cursor, idx), safe
-        on pool threads."""
-        return DataBatch(data=self._getdata(self.data, cursor),
-                         label=self._getdata(self.label, cursor),
-                         pad=self._pad_at(cursor), index=None)
+        on pool threads. Times itself into ``io_batch_assemble_ms`` on
+        whichever thread assembles."""
+        t0 = time.perf_counter()
+        batch = DataBatch(data=self._getdata(self.data, cursor),
+                          label=self._getdata(self.label, cursor),
+                          pad=self._pad_at(cursor), index=None)
+        _tel.histogram("io_batch_assemble_ms",
+                       help="host-side slice+stage time per batch"
+                       ).observe((time.perf_counter() - t0) * 1e3)
+        return batch
 
     def _getdata(self, data_source, cursor=None):
         cursor = self.cursor if cursor is None else cursor

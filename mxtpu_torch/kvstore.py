@@ -52,6 +52,18 @@ Without the TCP server the optimizer runs on each worker after the
 all-reduce, mxtpu's "sync server" semantics; over it, on the server.
 ``barrier``, ``send_command_to_servers``, ``num_dead_node`` and
 ``close`` follow mxtpu's :440-520.
+
+Telemetry and faults (mxtpu's :41-47, :79-96, :304-400): ``push`` and
+``pull`` open the ``kvstore.push``/``kvstore.pull`` spans, observe
+``kvstore_push_ms``/``kvstore_pull_ms`` and count
+``kvstore_push_bytes``/``kvstore_pull_bytes``; a mesh merge counts
+``kvstore_mesh_allreduce``. The transport head of each key (the TCP
+client's push, pull and row pull, or the local ``kvstore.push``/
+``kvstore.pull`` fault point) runs through a ``faults.RetryPolicy``
+(``MXTPU_KVSTORE_RETRIES``, default 2; ``MXTPU_KVSTORE_BACKOFF_S``); the
+all-reduce, the mesh merge and the updater never do. A TCP push is
+retried only when its send failed, on a new connection: one whose reply
+was lost may have been applied, and raises (``KVClient``).
 """
 from __future__ import annotations
 
@@ -62,7 +74,11 @@ import torch
 
 from . import optimizer as opt
 from . import sharding as _sharding
+from . import telemetry as _tel
 from .base import MXNetError
+from .faults import RetryPolicy as _RetryPolicy
+from .faults import env_attempts as _env_attempts
+from .faults import injection as _faults
 from .ops.collective import sum_replicas
 from .ndarray import NDArray
 from .ndarray.sparse import BaseSparseNDArray, RowSparseNDArray
@@ -100,6 +116,12 @@ def _raw(v):
     return getattr(v, "_data", v)
 
 
+def _nbytes(t):
+    """Payload bytes of a tensor (its shape times its item size; no
+    copy, no device sync)."""
+    return t.numel() * t.element_size()
+
+
 def _pull_into(dst, src, row_ids=None):
     """Write the stored value ``src`` into the out ``dst``: given
     ``row_ids``, a ``RowSparseNDArray`` holds the unique requested rows,
@@ -128,6 +150,20 @@ class KVStore:
         # key -> {context: its copy of the last mesh all-reduce}
         self._replicas = {}
         self.mesh_allreduces = 0
+        # transient transport failures (socket resets, IO hiccups, and the
+        # injected faults that model them) retry through the shared policy
+        # (mxtpu's :79-96): MXTPU_KVSTORE_RETRIES counts retries after the
+        # first attempt, MXTPU_KVSTORE_BACKOFF_S is the base delay. Only
+        # the transport head is retried: a collective or an updater run
+        # twice would desync the peers or move the weights twice.
+        attempts = _env_attempts("MXTPU_KVSTORE_RETRIES", 2)
+        backoff = float(os.environ.get("MXTPU_KVSTORE_BACKOFF_S", "0.05"))
+        self._push_retry = _RetryPolicy(
+            "kvstore.push", max_attempts=attempts, backoff_s=backoff,
+            backoff_cap_s=1.0)
+        self._pull_retry = _RetryPolicy(
+            "kvstore.pull", max_attempts=attempts, backoff_s=backoff,
+            backoff_cap_s=1.0)
         if not kind.startswith("dist"):
             return
         env = kvs.cluster_env()
@@ -233,6 +269,9 @@ class KVStore:
         sums = [_raw(v).detach().clone() for v in ordered]
         sum_replicas(sums)
         self.mesh_allreduces += 1
+        _tel.counter("kvstore_mesh_allreduce",
+                     help="push aggregations lowered to mesh "
+                          "collectives instead of the host loop").inc()
         return [NDArray(t, v.context) for t, v in zip(sums, ordered)]
 
     def push(self, key, value, priority=0):
@@ -240,6 +279,15 @@ class KVStore:
         the workers); run the updater on the stored value, or store the
         sum."""
         del priority
+        with _tel.span("kvstore.push", category="kvstore") as sp:
+            self._push_impl(key, value)
+        _tel.histogram("kvstore_push_ms",
+                       help="per push() call latency").observe(
+            sp.duration_ms)
+
+    def _push_impl(self, key, value):
+        bytes_pushed = _tel.counter("kvstore_push_bytes",
+                                    help="aggregated gradient bytes pushed")
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
             vlist = v if isinstance(v, list) else [v]
@@ -247,6 +295,8 @@ class KVStore:
             ordered = self._mesh_align(vlist)
             if ordered is not None:
                 sums = self._mesh_merge(ordered)
+                bytes_pushed.inc(_nbytes(sums[0]._data))
+                self._push_retry.call(_faults.point, "kvstore.push")
                 stored = self._store.get(k)
                 mine = next((x for x in sums if stored is not None
                              and x.context == stored.context), sums[0])
@@ -255,9 +305,18 @@ class KVStore:
                     self._replicas[k] = {x.context: x._data for x in sums}
                 continue
             merged = self._local_merge(vlist)
+            bytes_pushed.inc(_nbytes(_raw(merged)))
+            # only the transport head is retried (mxtpu's :323-336): the
+            # TCP client raises a retryable error only where the server
+            # cannot have applied the push (the send failed), and
+            # MXNetError, which no policy retries, where a reply was lost
+            # after it went out; the all-reduce (every peer runs it
+            # exactly once) and the updater's in-place write run once,
+            # outside the retry
             if self._client is not None:
-                self._client.push(k, merged.asnumpy())
+                self._push_retry.call(self._push_transport, k, merged)
                 continue
+            self._push_retry.call(_faults.point, "kvstore.push")
             if self._dist is not None:
                 t = _raw(merged).detach()
                 if merged is vlist[0]:
@@ -265,6 +324,10 @@ class KVStore:
                 self._dist.all_reduce(t)
                 merged = NDArray(t, merged.context)
             self._apply_push(k, merged)
+
+    def _push_transport(self, k, merged):
+        _faults.point("kvstore.push")
+        self._client.push(k, merged.asnumpy())
 
     def _apply_push(self, k, merged):
         if k not in self._store:
@@ -284,18 +347,42 @@ class KVStore:
         del priority
         if out is None:
             raise MXNetError("pull: out is required")
+        with _tel.span("kvstore.pull", category="kvstore") as sp:
+            self._pull_impl(key, out)
+        _tel.histogram("kvstore_pull_ms",
+                       help="per pull() call latency").observe(
+            sp.duration_ms)
+
+    def _pull_impl(self, key, out):
+        bytes_pulled = _tel.counter("kvstore_pull_bytes",
+                                    help="weight bytes pulled to devices")
         keys, outs = self._normalize(key, out)
         with torch.no_grad():
             for k, o in zip(keys, outs):
                 if k not in self._store:
                     raise MXNetError("pull: key %r was never initialized"
                                      % (k,))
-                src = self._store[k]._data
+                # the same split as push: the transport read is retried,
+                # the copies into the outs happen once
                 if self._client is not None:
-                    src = torch.from_numpy(self._client.pull(k))
+                    src = torch.from_numpy(
+                        self._pull_retry.call(self._pull_transport, k))
+                else:
+                    self._pull_retry.call(_faults.point, "kvstore.pull")
+                    src = self._store[k]._data
                 copies = self._replicas.get(k, {})
                 for dst in (o if isinstance(o, list) else [o]):
-                    _pull_into(dst, copies.get(dst.context, src))
+                    val = copies.get(dst.context, src)
+                    _pull_into(dst, val)
+                    bytes_pulled.inc(_nbytes(val))
+
+    def _pull_transport(self, k):
+        _faults.point("kvstore.pull")
+        return self._client.pull(k)
+
+    def _pull_rows_transport(self, k, rows):
+        _faults.point("kvstore.pull")
+        return self._client.pull_rows(k, rows)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the rows ``row_ids`` (an NDArray, or one a out) of
@@ -327,10 +414,12 @@ class KVStore:
         into a ``RowSparseNDArray``, the whole value into any other
         out."""
         if not isinstance(dst, RowSparseNDArray):
-            _pull_into(dst, torch.from_numpy(self._client.pull(k)))
+            _pull_into(dst, torch.from_numpy(
+                self._pull_retry.call(self._pull_transport, k)))
             return
         rows = torch.unique(rid._data.to(torch.int64).reshape(-1)).cpu()
-        got = torch.from_numpy(self._client.pull_rows(k, rows.numpy()))
+        got = torch.from_numpy(self._pull_retry.call(
+            self._pull_rows_transport, k, rows.numpy()))
         dev = dst.context.torch_device
         dst._set_rows(got.to(dev), rows.to(dev))
 

@@ -46,6 +46,7 @@ import time
 
 import numpy as _np
 
+from .analysis import concurrency as _conc
 from .base import MXNetError
 
 __all__ = ["KVServer", "KVClient", "cluster_env"]
@@ -115,7 +116,7 @@ class KVServer:
         self.versions = {}       # key -> applied updates
         self.merge = {}          # key -> [running sum, contributions]
         self.updater = None      # None: the merged value is stored
-        self.cv = threading.Condition()
+        self.cv = _conc.condition(owner="KVServer", attr="cv")
         self.barrier_counts = {}
         self.init_ranks = {}     # key -> the lowest rank that set it
         self.heartbeats = {}     # rank -> monotonic time of its last ping
@@ -299,32 +300,80 @@ class KVServer:
 
 
 class KVClient:
-    """A worker's connection to the server (one request at a time)."""
+    """A worker's connection to the server (one request at a time).
+
+    A transport failure leaves the stream at an unknown point, so the
+    client drops its socket and the next request connects anew. What it
+    raises says whether the request may be sent again:
+
+    - the send failed: the server cannot have seen a whole request (it
+      drops a partial frame with its connection), so the error is a
+      ``ConnectionError``, which a ``faults.RetryPolicy`` retries;
+    - the reply was lost after the request went out: a read-only request
+      (``_REPEATABLE``) raises ``ConnectionError`` too; any other (a
+      push, an init, a barrier, a command) may have been applied, and a
+      second copy would be counted twice (a sync round would sum this
+      worker's gradient twice), so it raises ``MXNetError``, which no
+      policy retries.
+    """
+
+    #: requests that only read the server's state
+    _REPEATABLE = frozenset(("PULL", "PULL_ROWS", "HEARTBEAT", "NUM_DEAD"))
 
     def __init__(self, uri, port, connect_timeout=90):
-        deadline = time.monotonic() + connect_timeout
-        while True:
-            try:
-                self._sock = socket.create_connection((uri, int(port)),
-                                                      timeout=120)
-                self._sock.setsockopt(socket.IPPROTO_TCP,
-                                      socket.TCP_NODELAY, 1)
-                break
-            except OSError:
-                if time.monotonic() >= deadline:
-                    raise MXNetError(
-                        "cannot reach kvstore server at %s:%s" % (uri, port))
-                time.sleep(0.3)
-        self._lock = threading.Lock()
+        self._addr = (uri, int(port))
+        self._connect_timeout = connect_timeout
+        self._sock = self._connect()
+        self._lock = _conc.lock("KVClient", "_lock")
         self._barrier_id = 0
         self._push_counts = {}
         self._hb_stop = None
         self._rank = None
 
+    def _connect(self):
+        deadline = time.monotonic() + self._connect_timeout
+        while True:
+            try:
+                sock = socket.create_connection(self._addr, timeout=120)
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                return sock
+            except OSError:
+                if time.monotonic() >= deadline:
+                    raise MXNetError("cannot reach kvstore server at %s:%s"
+                                     % self._addr)
+                time.sleep(0.3)
+
+    def _drop(self):
+        sock, self._sock = self._sock, None
+        try:
+            sock.close()
+        except OSError:
+            pass
+
     def _rpc(self, *msg):
         with self._lock:
-            _send_msg(self._sock, msg)
-            resp = _recv_msg(self._sock)
+            # declared blocking seam: holding the client lock across the
+            # round trip is that lock's declared job (ALLOWED_BLOCKING)
+            _conc.blocking("http", "kvstore-rpc")
+            if self._sock is None:
+                self._sock = self._connect()
+            try:
+                _send_msg(self._sock, msg)
+            except OSError as exc:
+                self._drop()
+                raise ConnectionError("kvstore %s not sent: %s"
+                                      % (msg[0], exc)) from exc
+            try:
+                resp = _recv_msg(self._sock)
+            except (OSError, EOFError) as exc:
+                self._drop()
+                if msg[0] in self._REPEATABLE:
+                    raise ConnectionError("kvstore %s: reply lost: %s"
+                                          % (msg[0], exc)) from exc
+                raise MXNetError(
+                    "kvstore %s: the connection failed after the request "
+                    "was sent (%s); the server may have applied it, so it "
+                    "is not sent again" % (msg[0], exc)) from exc
         if resp[0] != "OK":
             raise MXNetError("kvstore rpc failed: %r" % (resp,))
         return resp
@@ -333,8 +382,9 @@ class KVClient:
         self._rpc("INIT", key, _np.asarray(value), rank)
 
     def push(self, key, value):
+        version = self._rpc("PUSH", key, _np.asarray(value))[1]
         self._push_counts[key] = self._push_counts.get(key, 0) + 1
-        return self._rpc("PUSH", key, _np.asarray(value))[1]
+        return version
 
     def pull(self, key):
         """The stored value; in sync mode, once every round this worker
@@ -385,7 +435,8 @@ class KVClient:
             self._rpc("STOP", self._rank)
         except (MXNetError, OSError):
             pass
-        self._sock.close()
+        if self._sock is not None:
+            self._drop()
 
 
 def cluster_env():

@@ -16,10 +16,22 @@ a device mesh with cross-replica weight-update sharding: it goes through
 ``sharding.resolve`` and stays active (``sharding.use``) for the whole
 fit, where ``Module._arm_fused`` finds it; ``None`` defers to
 ``MXTPU_MESH`` and ``False`` turns the mesh off even with it set. The
-knobs of mxtpu's fit that the port does not have yet (``elastic``,
-``resume``, ``tuned``, ``health``) raise MXNetError when set, rather
-than being ignored. ``monitor`` is installed after ``bind`` and armed
-with ``tic``/``toc_print`` around each batch (mxtpu :317, :485, :563),
+pipeline knobs (``max_in_flight``, ``metric_sync``, ``device_metrics``,
+``device_prefetch``) resolve through ``tune`` as mxtpu's do (:210-240):
+default < ``tuned`` artifact < env < explicit argument, recorded in
+``self._fit_knobs``. The knobs of mxtpu's fit that the port does not
+have yet (``elastic``, ``resume``, ``health``) raise MXNetError when
+set, rather than being ignored. Telemetry as mxtpu's (:425-444, :490,
+:614): each step runs in a ``fit.step`` span (the correlation root of
+the executor's and kvstore's spans) and observes ``fit_dispatch_ms``
+(the host time to launch it) and ``fit_step_ms`` (that plus the pacing
+wait, ``fit_sync_wait_ms``); ``fit_metric_sync_ms`` times the cadence
+sync; ``fit_samples``, ``fit_samples_per_sec`` and ``fit_epochs`` count
+the epochs, and ``fit.eval`` / ``fit_eval_ms`` the validation pass. No
+site waits for the card: the only waits are the pacer's event (which
+crosses the ``executor.device_wait`` fault point) and the metric sync.
+``monitor`` is installed after ``bind`` and armed with ``tic``/
+``toc_print`` around each batch (mxtpu :317, :485, :563),
 its per-op path taking the host metric. ``iter_predict`` and ``predict``
 (mxtpu :91-129) run the inference forward batch by batch, each batch's
 outputs trimmed of its pad; a module with no device views of its step
@@ -42,7 +54,10 @@ from .. import metric as _metric
 from .. import model as _model
 from .. import ndarray as nd
 from .. import sharding as _sharding
+from .. import telemetry as _tel
+from .. import tune as _tune
 from ..base import MXNetError
+from ..faults import injection as _faults
 from ..initializer import Uniform
 from ..model import BatchEndParam
 
@@ -55,7 +70,7 @@ def _as_list(obj):
     return list(obj) if isinstance(obj, (list, tuple)) else [obj]
 
 
-_UNPORTED_FIT = ("elastic", "resume", "tuned", "health")
+_UNPORTED_FIT = ("elastic", "resume", "health")
 
 
 def refuse_unported(**knobs):
@@ -65,14 +80,20 @@ def refuse_unported(**knobs):
             raise MXNetError("fit(%s=...) is not ported yet" % name)
 
 
-def _metric_sync(callbacks):
+def _metric_sync(callbacks, tuned=None):
     """The metric-sync cadence in batches: the gcd of the Speedometers'
     ``frequent`` (every window boundary is a sync); 1 when another batch
-    callback may read live values; 0 (epoch end only) with none."""
+    callback may read live values; 0 (epoch end only) with none. A
+    ``tuned`` cadence (the artifact's, mxtpu's :385-410) is reconciled by
+    gcd with the Speedometers', so no meter boundary misses a sync, and
+    applies as it is when there are no callbacks."""
     if any(not isinstance(c, _cb.Speedometer) for c in callbacks):
         return 1
     freqs = [c.frequent for c in callbacks]
-    return reduce(gcd, freqs) if freqs else 0
+    if freqs:
+        cadence = reduce(gcd, freqs)
+        return gcd(cadence, int(tuned)) if tuned else cadence
+    return int(tuned) if tuned is not None else 0
 
 
 class _Pacer:
@@ -80,19 +101,31 @@ class _Pacer:
     CUDA event per step, waiting on the oldest when the window is full.
     On the CPU a step is done when it returns, so nothing is kept."""
 
-    def __init__(self, limit, device):
+    def __init__(self, limit, device, wait_ms=None):
         self.limit = max(1, int(limit))
         self.cuda = device.type == "cuda"
         self._events = deque()
+        self._wait_ms = wait_ms
 
     def step_done(self):
+        """Record the step's event; wait for the oldest while more than
+        ``limit`` are queued. Returns the ms spent waiting, each wait
+        observed into ``fit_sync_wait_ms``."""
         if not self.cuda:
-            return
+            return 0.0
         ev = torch.cuda.Event()
         ev.record()
         self._events.append(ev)
+        waited = 0.0
         while len(self._events) > self.limit:
+            t0 = time.perf_counter()
+            _faults.point("executor.device_wait")
             self._events.popleft().synchronize()
+            w = (time.perf_counter() - t0) * 1e3
+            if self._wait_ms is not None:
+                self._wait_ms.observe(w)
+            waited += w
+        return waited
 
     def clear(self):
         self._events.clear()
@@ -215,8 +248,8 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, max_in_flight=2, metric_sync=None,
-            device_metrics=True, device_prefetch=None, mesh=None,
+            monitor=None, max_in_flight=None, metric_sync=None,
+            device_metrics=None, device_prefetch=None, mesh=None,
             elastic=None, resume=None, tuned=None, health=None):
         """Train for ``num_epoch`` epochs (parity base_module.py:376-525).
 
@@ -231,9 +264,35 @@ class BaseModule:
         closed when fit ends (mxtpu/module/base_module.py:242-256).
         ``mesh``: anything ``sharding.resolve`` takes (an int, ``"all"``,
         ``"data:4"``, a ``Mesh`` or ``MeshContext``; ``None`` reads
-        ``MXTPU_MESH``, ``False`` disables), active for the whole fit."""
-        refuse_unported(elastic=elastic, resume=resume, tuned=tuned,
-                        health=health)
+        ``MXTPU_MESH``, ``False`` disables), active for the whole fit.
+        ``tuned``: a ``tune.TunedConfig`` (or a path to one) the four
+        knobs above take their defaults from, with precedence default <
+        artifact < env (``MXTPU_FIT_INFLIGHT``, ``MXTPU_FIT_METRIC_SYNC``,
+        ``MXTPU_FIT_DEVICE_METRICS``, ``MXTPU_FIT_DEVICE_PREFETCH``) <
+        explicit argument; ``None`` defers to the process-active artifact
+        (``tune.use`` / ``MXTPU_TUNED``), ``False`` ignores it. A stale
+        artifact is refused."""
+        refuse_unported(elastic=elastic, resume=resume, health=health)
+        tuned = _tune.artifact(tuned)
+        max_in_flight = _tune.resolve_int(
+            "fit.max_in_flight", explicit=max_in_flight, artifact=tuned,
+            floor=1)
+        # an explicit or env cadence wins outright; the artifact's is a
+        # preference _metric_sync reconciles with the callbacks (mxtpu's
+        # :217-226)
+        metric_sync = _tune.resolve("fit.metric_sync", explicit=metric_sync,
+                                    artifact=False)
+        tuned_metric_sync = _tune.resolve("fit.metric_sync",
+                                          artifact=tuned) \
+            if metric_sync is None else None
+        device_metrics = _tune.resolve(
+            "fit.device_metrics", explicit=device_metrics, artifact=tuned)
+        device_prefetch = _tune.resolve(
+            "fit.device_prefetch", explicit=device_prefetch, artifact=tuned)
+        self._fit_knobs = {"fit.max_in_flight": max_in_flight,
+                           "fit.metric_sync": metric_sync,
+                           "fit.device_metrics": device_metrics,
+                           "fit.device_prefetch": device_prefetch}
         with _sharding.use(_sharding.resolve(mesh)):
             self._fit(train_data, eval_data, eval_metric,
                       epoch_end_callback, batch_end_callback, kvstore,
@@ -242,14 +301,15 @@ class BaseModule:
                       aux_params, allow_missing, force_rebind, force_init,
                       begin_epoch, num_epoch, validation_metric, monitor,
                       max_in_flight, metric_sync, device_metrics,
-                      device_prefetch)
+                      device_prefetch, tuned_metric_sync)
 
     def _fit(self, train_data, eval_data, eval_metric, epoch_end_callback,
              batch_end_callback, kvstore, optimizer, optimizer_params,
              eval_end_callback, eval_batch_end_callback, initializer,
              arg_params, aux_params, allow_missing, force_rebind,
              force_init, begin_epoch, num_epoch, validation_metric, monitor,
-             max_in_flight, metric_sync, device_metrics, device_prefetch):
+             max_in_flight, metric_sync, device_metrics, device_prefetch,
+             tuned_metric_sync=None):
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
         initializer = initializer or Uniform(0.01)
@@ -272,10 +332,35 @@ class BaseModule:
         eval_metric._device_accum = accum
         callbacks = _as_list(batch_end_callback)
         if metric_sync is None:
-            metric_sync = _metric_sync(callbacks)
+            metric_sync = _metric_sync(callbacks, tuned_metric_sync)
         metric_sync = max(0, int(metric_sync))
+        if hasattr(self, "_fit_knobs"):
+            self._fit_knobs["fit.metric_sync"] = metric_sync
+        # one pipeline for training and serving: fit emits into the same
+        # process-wide registry the serving /metrics endpoint scrapes
+        step_ms = _tel.histogram(
+            "fit_step_ms",
+            help="wall time per step: dispatch + pipeline pacing wait")
+        dispatch_ms = _tel.histogram(
+            "fit_dispatch_ms",
+            help="host time to issue one step (async dispatch, no device "
+                 "wait) — fit_step_ms minus this is pacing/back-pressure")
+        sync_wait_ms = _tel.histogram(
+            "fit_sync_wait_ms",
+            help="pacing: wall time blocked on the oldest in-flight step")
+        msync_ms = _tel.histogram(
+            "fit_metric_sync_ms",
+            help="device->host metric snapshot wall time (cadence sync)")
+        samples_total = _tel.counter("fit_samples",
+                                     help="training examples consumed")
+        sps_gauge = _tel.gauge("fit_samples_per_sec",
+                               help="epoch-level training throughput")
+        eval_ms = _tel.histogram("fit_eval_ms",
+                                 help="validation pass wall time")
+        epochs_done = _tel.counter("fit_epochs", help="epochs completed")
         pacer = _Pacer(max_in_flight, getattr(self, "_device",
-                                              torch.device("cpu")))
+                                              torch.device("cpu")),
+                       wait_ms=sync_wait_ms)
         owned = None
         if device_prefetch and not isinstance(train_data,
                                               _io.DevicePrefetchIter):
@@ -289,27 +374,40 @@ class BaseModule:
                     accum.reset()
                 data_iter = iter(train_data)
                 nbatch = 0
+                epoch_samples = 0
                 data_batch = next(data_iter, None)
                 while data_batch is not None:
                     if monitor is not None:
                         monitor.tic()
-                    self.forward_backward(data_batch)
-                    self.update()
+                    # fit.step is the correlation root of everything one
+                    # batch triggers (executor forward/backward, kvstore
+                    # push/pull inside update)
+                    with _tel.span("fit.step", category="module") as sp:
+                        self.forward_backward(data_batch)
+                        self.update()
+                    dispatch_ms.observe(sp.duration_ms)
+                    if data_batch.data:
+                        epoch_samples += data_batch.data[0].shape[0] - \
+                            (data_batch.pad or 0)
                     next_batch = next(data_iter, None)
                     views = self._step_views() if accum is not None \
                         else None
+                    pacing = 0.0
                     if views is not None:
                         for labels, outs in views:
                             accum.update(labels, outs)
-                        pacer.step_done()
+                        pacing = pacer.step_done()
                     else:
                         self.update_metric(eval_metric, data_batch.label)
+                    step_ms.observe(sp.duration_ms + pacing)
                     last = next_batch is None
                     if views is not None and (
                             last or metric_sync == 1 or
                             (metric_sync and nbatch and
                              nbatch % metric_sync == 0)):
+                        t0 = time.perf_counter()
                         accum.sync()
+                        msync_ms.observe((time.perf_counter() - t0) * 1e3)
                         if last:
                             pacer.clear()
                     if monitor is not None:
@@ -322,8 +420,13 @@ class BaseModule:
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
+                toc = time.time()
                 self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                                 time.time() - tic)
+                                 toc - tic)
+                samples_total.inc(epoch_samples)
+                epochs_done.inc()
+                if toc > tic:
+                    sps_gauge.set(epoch_samples / (toc - tic))
                 epoch_cbs = _as_list(epoch_end_callback)
                 if epoch_cbs or self._host_round_trip():
                     arg_params, aux_params = self.get_params()
@@ -334,10 +437,12 @@ class BaseModule:
                 if eval_data:
                     if accum is not None:
                         accum.last_snapshot = None
-                    res = self.score(eval_data, validation_metric,
-                                     batch_end_callback=(
-                                         eval_batch_end_callback),
-                                     epoch=epoch)
+                    with _tel.span("fit.eval", category="module") as sp:
+                        res = self.score(eval_data, validation_metric,
+                                         batch_end_callback=(
+                                             eval_batch_end_callback),
+                                         epoch=epoch)
+                    eval_ms.observe(sp.duration_ms)
                     for callback in _as_list(eval_end_callback):
                         callback(BatchEndParam(epoch, 0, validation_metric,
                                                locals()))

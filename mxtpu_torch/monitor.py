@@ -7,17 +7,31 @@ hands the callback every op's visible outputs by name (unfused: the
 BatchNorm outputs an inference walk would fold into the epilogue are
 seen), ``stat_func`` runs on each name that ``pattern`` matches, and
 ``toc`` collects them with the executors' graph outputs. Unarmed batches
-keep the fused walk. mxtpu's device adapter over its training-health tap
-kernels, and the telemetry gauges of ``toc``, are not ported: the default
-statistic gives the same numbers on the per-op path, which
-``Module.install_monitor`` always takes.
+keep the fused walk. ``toc`` also sets mxtpu's ``monitor_stat{name}``
+gauge (:122) of each numeric statistic (``k[i]`` for the elements of a
+list-valued one). mxtpu's device adapter over its training-health tap
+kernels is not ported: the default statistic gives the same numbers on
+the per-op path, which ``Module.install_monitor`` always takes.
 """
 from __future__ import annotations
 
 import logging
+import numbers
 import re
 
+from . import telemetry as _tel
+
 __all__ = ["Monitor"]
+
+
+def _scalar(v):
+    """``v`` as a float when it is one number (a Python or numpy scalar,
+    or a one-element array), else None."""
+    if isinstance(v, numbers.Real):
+        return float(v)
+    if getattr(v, "size", None) == 1 and hasattr(v, "__float__"):
+        return float(v)
+    return None
 
 
 class Monitor:
@@ -73,6 +87,15 @@ class Monitor:
         res = []
         for n, k, value in entries:
             values = value if isinstance(value, list) else [value]
+            # monitored stats double as telemetry series, so a scrape sees
+            # what the log line prints; non-numeric stats only print
+            for i, v in enumerate(values):
+                num = _scalar(v)
+                if num is not None:
+                    _tel.gauge("monitor_stat", labels={
+                        "name": k if len(values) == 1 else "%s[%d]" % (k, i)},
+                        help="latest Monitor stat per tensor "
+                             "(stat_func output)").set(num)
             res.append((n, k, "".join("%s\t" % v for v in values)))
         return res
 

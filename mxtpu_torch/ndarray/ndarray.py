@@ -478,11 +478,27 @@ def _ctx_attr(ctx):
     return as_context(ctx)
 
 
+def _initialised_cuda_devices():
+    """The CUDA devices this process has a context on (the ones that can
+    hold launched work); none without CUDA or before its first use."""
+    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        return []
+    return [d for d in range(torch.cuda.device_count())
+            if torch._C._cuda_hasPrimaryContext(d)]
+
+
 def waitall():
-    """Block until all launched device work completes (parity
-    Engine::WaitForAll)."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    """Block until all launched work completes (parity
+    Engine::WaitForAll, mxtpu/ndarray/ndarray.py:475-487): the host tasks
+    on the dependency engine, when one was started (one nobody started
+    holds nothing), then every CUDA device the process has initialised,
+    not only the current one."""
+    from .. import engine as _engine
+    eng = _engine.started()
+    if eng is not None:
+        eng.wait_for_all()
+    for d in _initialised_cuda_devices():
+        torch.cuda.synchronize(d)
 
 
 def _context(ctx):

@@ -20,7 +20,9 @@ import time
 
 import numpy as _np
 
+from ..analysis import concurrency as _conc
 from ..base import MXNetError
+from ..telemetry import current_span as _current_span
 
 __all__ = ["QueueFull", "BatcherClosed", "WorkItem", "Batch",
            "DynamicBatcher", "pad_rows", "pick_bucket"]
@@ -57,7 +59,7 @@ class WorkItem:
     math uses the monotonic clock."""
 
     __slots__ = ("inputs", "n", "event", "outputs", "error", "t_enqueue",
-                 "expire_at")
+                 "expire_at", "span")
 
     def __init__(self, inputs, n, expire_at=None):
         self.inputs = inputs
@@ -67,6 +69,10 @@ class WorkItem:
         self.error = None
         self.t_enqueue = time.monotonic()
         self.expire_at = expire_at
+        # the submitting thread's ambient telemetry span (mxtpu's :79):
+        # the dispatcher parents its batch span here, so one trace id
+        # follows a request across the queue hop
+        self.span = _current_span()
 
     def finish(self, outputs):
         self.outputs = outputs
@@ -135,8 +141,8 @@ class DynamicBatcher:
         self._items = []
         self._pending_rows = 0
         self._last_enqueue = 0.0
-        self._lock = threading.Lock()
-        self._not_empty = threading.Condition(self._lock)
+        self._lock = _conc.lock(type(self).__name__, "_lock")
+        self._not_empty = _conc.condition(self._lock)
         self._closed = False
         self._metrics = metrics
 

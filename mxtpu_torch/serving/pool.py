@@ -3,7 +3,10 @@
 Counterpart of ``mxtpu/serving/pool.py``: ``default_contexts``,
 ``_Replica`` with its dispatch/collect split (:295-325) and the round
 robin ``ExecutorPool``. Each replica owns the model weights on its
-device once and the Predictor's shape-keyed bind cache. Warmup is
+device once and the Predictor's shape-keyed bind cache. A dispatch and
+a collect cross the ``serving.replica.dispatch`` and
+``serving.replica.collect`` fault points, and a pool with metrics opens
+a ``pool.run`` span around each batch. Warmup is
 ``warmup_replica``, which the session calls on each replica's own
 dispatcher thread, because cuDNN keeps its plans per thread. The
 process-wide warm cache, hot-swap adoption and cost rows of the JAX pool
@@ -11,13 +14,14 @@ arrive in a later slice.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 import numpy as _np
 import torch
 
+from ..analysis import concurrency as _conc
 from ..base import MXNetError
+from ..faults import injection as _faults
 from ..context import Context, num_gpus
 from ..predict import Predictor, to_host
 
@@ -47,7 +51,7 @@ class _Replica:
         self.base = Predictor(symbol_json, params, ctx=ctx,
                               input_shapes=example_shapes,
                               max_cached_binds=cache_size)
-        self.lock = threading.Lock()
+        self.lock = _conc.lock("_Replica", "lock")
 
     def bind_thread(self):
         """Make this replica's device current on the calling thread (a
@@ -68,6 +72,7 @@ class _Replica:
     def dispatch(self, inputs):
         """Issue one padded batch WITHOUT waiting for results: returns the
         output tensors, whose kernels are queued on the device's stream."""
+        _faults.point("serving.replica.dispatch")
         shapes = {k: tuple(v.shape) for k, v in inputs.items()}
         with self.lock:
             pred = self.predictor_for(shapes)
@@ -77,6 +82,7 @@ class _Replica:
     def collect(self, handles):
         """Materialize dispatched outputs: one bulk device->host copy,
         which waits for the device."""
+        _faults.point("serving.replica.collect")
         return to_host(handles)
 
     def run(self, inputs):
@@ -101,7 +107,7 @@ class ExecutorPool:
                                   ctx, cache_size, metrics=metrics)
                          for ctx in contexts]
         self._rr = 0
-        self._rr_lock = threading.Lock()
+        self._rr_lock = _conc.lock("ExecutorPool", "_rr_lock")
 
     def __len__(self):
         return len(self.replicas)
@@ -119,6 +125,9 @@ class ExecutorPool:
     def run(self, inputs, replica=None):
         """Run one padded batch round-robin (or on ``replica``)."""
         rep = replica if replica is not None else self.next_replica()
+        if self.metrics:
+            with self.metrics.span("pool.run", category="serving"):
+                return rep.run(inputs)
         return rep.run(inputs)
 
     def warmup_replica(self, rep, buckets):

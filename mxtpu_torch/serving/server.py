@@ -7,12 +7,21 @@ feeding an ``ExecutorPool`` through one dispatcher thread per replica
 ``ThreadingHTTPServer``. Without ``contexts`` a session serves on every
 CUDA device and raises when there is none.
 
+Telemetry as mxtpu's (server.py:673, 717, 755, 859-880): the engine's
+series exist from its module's import, before the first scrape (the
+session starts no engine: nothing in serving pushes to it);
+``predict`` runs in a ``serving.request`` span, and each batch in
+a ``batch[<bucket>]`` span whose parent is its first request's span
+(captured at submit, across the queue hop). ``GET /v1/metrics`` answers
+the session's flat JSON stats; ``GET /metrics`` the process-wide
+registry merged with the session's, as Prometheus text, or as JSON with
+``?format=json`` or an ``Accept: application/json`` header.
+
 Not ported yet (later slices): continuous K-in-flight dispatch,
 admission control, hot-swap (``swap_model``) and the warm executable
-cache, tuned knobs, replica quarantine and respawn, diagnostics and
-telemetry, the decode session and ``/v1/generate``, and the other HTTP
-routes (``/healthz``, ``/v1/metrics``, ``/metrics``, ``/debug/*``,
-``/v1/version``, ``/v1/admin/swap``).
+cache, tuned knobs, replica quarantine and respawn, diagnostics, the
+decode session and ``/v1/generate``, and the other HTTP routes
+(``/healthz``, ``/debug/*``, ``/v1/version``, ``/v1/admin/swap``).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as _np
 
+from .. import telemetry as _tel
 from ..base import MXNetError
 from .batcher import BatcherClosed, DynamicBatcher, QueueFull
 from .metrics import MetricsRegistry
@@ -118,7 +128,11 @@ class ServingSession:
                 continue
             t0 = time.monotonic()
             try:
-                outs = self._pool.run(batch.inputs, replica=replica)
+                with _tel.span("batch[%d]" % batch.bucket,
+                               category="serving",
+                               parent=batch.items[0].span,
+                               tags={"n_valid": batch.n_valid}):
+                    outs = self._pool.run(batch.inputs, replica=replica)
             except Exception as exc:  # answer the batch, keep the worker
                 log.exception("serving: batch of %d failed", batch.n_valid)
                 batch.fail(exc)
@@ -137,8 +151,9 @@ class ServingSession:
         """Synchronous single-request inference: dict of arrays (leading
         dim = #examples) -> list of numpy outputs. Raises QueueFull under
         backpressure and TimeoutError past ``timeout``."""
-        return self.predict_async(inputs, timeout=timeout).wait(
-            timeout if timeout is not None else self.default_timeout)
+        timeout = timeout if timeout is not None else self.default_timeout
+        with self.metrics.span("serving.request"):
+            return self.predict_async(inputs, timeout).wait(timeout)
 
     def predict_async(self, inputs, timeout=None):
         """Enqueue and return the WorkItem future (``.wait(timeout)``)."""
@@ -186,8 +201,35 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _text(self, code, body, content_type):
+        body = body.encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
     def log_message(self, *a):  # quiet; metrics carry the signal
         pass
+
+    def do_GET(self):
+        path, _, query = self.path.partition("?")
+        session = self.server.session
+        if path == "/v1/metrics":
+            # the flat-JSON contract: this session's serving stats
+            self._json(200, session.stats())
+        elif path == "/metrics":
+            # the full pane: the process-wide registry (engine, fit,
+            # kvstore, io, spans) and the session's registry
+            regs = (_tel.registry(), session.metrics)
+            if "format=json" in query or "application/json" in \
+                    self.headers.get("Accept", ""):
+                self._json(200, _tel.json_snapshot(*regs))
+            else:
+                self._text(200, _tel.prometheus_text(*regs),
+                           _tel.PROMETHEUS_CONTENT_TYPE)
+        else:
+            self._json(404, {"error": "unknown path %s" % self.path})
 
     def do_POST(self):
         if self.path.partition("?")[0] not in ("/v1/predict", "/predict"):

@@ -37,10 +37,10 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
-import threading
 
 import numpy as _np
 
+from ..analysis import concurrency as _conc
 from ..base import MXNetError
 from ..context import gpu, num_gpus
 from ..parallel.mesh import Mesh, ReplicaLayout
@@ -156,7 +156,7 @@ class MeshContext:
 
 
 # ----------------------------------------------------------- active mesh
-_active_lock = threading.Lock()
+_active_lock = _conc.lock("plan", "_active_lock")
 # a contextvar: concurrent fits on different threads must not see each
 # other's mesh, and interleaved use() exits restore their own prior value
 _active = contextvars.ContextVar("mxtpu_torch_active_mesh", default=None)

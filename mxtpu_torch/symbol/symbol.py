@@ -33,18 +33,47 @@ __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
 
 class NameManager:
     """Auto-names composed ops per thread: fullyconnected0,
-    fullyconnected1, ... (an explicit name wins)."""
+    fullyconnected1, ... (an explicit name wins). Instances are context
+    managers, as mxtpu's are (mxtpu/symbol/symbol.py:24-67): entering one
+    scopes the auto-naming to its counter, and ``name.Prefix`` prepends
+    a string (``with mx.name.Prefix('net_'):``)."""
 
     _tls = threading.local()
 
-    @classmethod
-    def get(cls, name, hint):
+    def __init__(self):
+        self._counter = {}
+        self._prev = []  # a stack: re-entering one instance nests
+
+    def _name(self, name, hint):
         if name:
             return name
-        counter = cls._tls.__dict__.setdefault("counter", {})
-        idx = counter.get(hint, 0)
-        counter[hint] = idx + 1
+        idx = self._counter.get(hint, 0)
+        self._counter[hint] = idx + 1
         return "%s%d" % (hint, idx)
+
+    def __enter__(self):
+        self._prev.append(getattr(NameManager._tls, "current", None))
+        NameManager._tls.current = self
+        return self
+
+    def __exit__(self, *exc):
+        NameManager._tls.current = self._prev.pop()
+        return False
+
+    @classmethod
+    def _current(cls):
+        cur = getattr(cls._tls, "current", None)
+        if cur is None:
+            cur = cls._tls.current = NameManager()
+        return cur
+
+    @classmethod
+    def get(cls, name, hint):
+        return cls._current()._name(name, hint)
+
+    @classmethod
+    def reset(cls):
+        cls._current()._counter = {}
 
 
 class _Node:

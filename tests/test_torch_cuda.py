@@ -73,7 +73,10 @@ all-gather and reduce-scatter within the groups of a 2-D layout, along
 any dimension) on NCCL against the host's sums; with four cards, a
 ``data:2,tp:2`` and a ``data:2,fsdp:2`` fit of the mlp from gpu(0)
 against the same fit over cpu(0..3); ``dist_async`` between two
-processes on gpu(0) with rank 0 serving.
+processes on gpu(0) with rank 0 serving. A.8: ``nd.waitall()`` with
+gpu(0) current waiting for a long kernel on cuda:3 (ROADMAP C.20, four
+cards), and a small LM's fit launching the same flash kernels with
+telemetry on and off.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -2799,3 +2802,80 @@ def test_float_to_int_conversion_on_the_card_matches_cpu(cuda):
         got = contrib.ctc_labels(labels.cuda(), 5, first, lengths.cuda())
         want = contrib.ctc_labels(labels, 5, first, lengths)
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_waitall_waits_for_every_card(cuda):
+    """ROADMAP C.20: with cuda:0 current, a long kernel on cuda:3 is still
+    running when it is launched, and done when ``nd.waitall()`` returns
+    (the port once synchronized only the current device)."""
+    import mxtpu_torch as mt
+    torch, _ = cuda
+    _gpus(torch, 4)
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda:0")
+    with torch.cuda.device(3):
+        torch.cuda._sleep(int(3e9))  # ~1.5 s of spinning at 2 GHz
+        done = torch.cuda.Event()
+        done.record()
+    assert torch.cuda.current_device() == 0
+    assert not done.query()
+    mt.nd.waitall()
+    assert done.query()
+
+
+def test_telemetry_adds_no_launch(cuda):
+    """A tiny LM's fit on gpu(0) launches the same flash forward and
+    backward kernels with telemetry on and off, and its fit series count
+    the steps only when on."""
+    import logging
+    import numpy as np
+    import mxtpu_torch as mt
+    torch, att = cuda
+    sym = mt.models.get_transformer_lm(vocab_size=64, seq_len=128,
+                                       num_layers=2, num_heads=2,
+                                       d_model=64)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 64, (2, 129))
+    x = ids[:, :-1].astype(np.float32)
+    y = ids[:, 1:].reshape(-1).astype(np.float32)
+
+    class Two:
+        provide_data = [mt.io.DataDesc("data", x.shape)]
+        provide_label = [mt.io.DataDesc("softmax_label", y.shape)]
+
+        def __init__(self):
+            self.n = 0
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            if self.n == 3:
+                raise StopIteration
+            self.n += 1
+            return mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                   [mt.nd.array(y, ctx=mt.cpu())], pad=0)
+
+        def reset(self):
+            self.n = 0
+
+    steps = mt.telemetry.registry().histogram("fit_step_ms")
+    runs = []
+    for on in (True, False, True):
+        mt.telemetry.set_enabled(on)
+        try:
+            mod = mt.mod.Module(sym, context=mt.gpu(0),
+                                logger=logging.getLogger("quiet"))
+            att.flash_attention.launches = 0
+            att.flash_attention_backward.launches = 0
+            n0 = steps.count
+            mod.fit(Two(), num_epoch=1, eval_metric="ce", optimizer="adam",
+                    initializer=mt.init.Xavier())
+            torch.cuda.synchronize()
+            runs.append((att.flash_attention.launches,
+                         att.flash_attention_backward.launches,
+                         steps.count - n0))
+        finally:
+            mt.telemetry.set_enabled(True)
+    assert runs[0][:2] == runs[1][:2] == runs[2][:2] == (6, 6)
+    assert [r[2] for r in runs] == [3, 0, 3]

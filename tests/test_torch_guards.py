@@ -48,6 +48,16 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
             "from mxtpu_torch import sharding, parallel\n"
             "from mxtpu_torch.parallel import (ring_attention, moe,\n"
             "                                  pipeline, dp, mesh)\n"
+            "from mxtpu_torch import (analysis, telemetry, diagnostics,\n"
+            "                         faults, tune, engine, profiler,\n"
+            "                         log, name, registry)\n"
+            "from mxtpu_torch.analysis import (findings, declarations,\n"
+            "                                  concurrency)\n"
+            "from mxtpu_torch.telemetry import (metrics, exposition,\n"
+            "                                   tracing)\n"
+            "from mxtpu_torch.faults import injection, retry\n"
+            "from mxtpu_torch.tune import config\n"
+            "from mxtpu_torch.diagnostics import flight\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in %r)\n"
             "print(repr(bad))\n" % (str(REPO), FORBIDDEN))

@@ -256,3 +256,123 @@ def test_batcher_buckets_padding_and_backpressure(mt):
     assert q.next_batch(timeout=0.1) is None
     with pytest.raises(B.BatcherClosed):
         q.submit({"data": np.zeros((1, 3))})
+
+
+def _get(url, accept=None):
+    req = urllib.request.Request(url, headers={"Accept": accept}
+                                 if accept else {})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read().decode(), r.headers.get("Content-Type")
+
+
+def _span_counts(snap):
+    """span_ms{span=...} observation counts of a /metrics JSON body."""
+    return {k: v["count"] for k, v in snap["mxtpu"].items()
+            if k.startswith("span_ms{")}
+
+
+def _scraped(pkg, server, n_requests):
+    """/v1/metrics after ``n_requests`` sequential predicts, the change of
+    the process-wide span counts over them, and the Prometheus text."""
+    ep = "http://%s:%d" % server.server_address[:2]
+    before = _span_counts(json.loads(_get(ep + "/metrics?format=json")[0]))
+    for i in range(n_requests):
+        code, _ = _post(ep + "/v1/predict",
+                        {"inputs": {"data": _tokens(1, 40 + i)[0].tolist()}})
+        assert code == 200
+    v1 = json.loads(_get(ep + "/v1/metrics")[0])
+    after = _span_counts(json.loads(_get(ep + "/metrics?format=json")[0]))
+    text, ctype = _get(ep + "/metrics")
+    assert ctype == pkg.telemetry.PROMETHEUS_CONTENT_TYPE
+    spans = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    return v1, spans, text
+
+
+def test_metrics_endpoints_hold_mxtpus_series(mt, lm):
+    """/v1/metrics and /metrics on cpu() after the same 3 requests: the
+    series mxtpu's burst-mode server exposes, with the same counts."""
+    js, params, _ = lm
+    n = 3
+    ref_srv = mx.serving.serve(js, {k: mx.nd.array(v)
+                                    for k, v in params.items()},
+                               {"data": (1, SEQ)}, port=0, block=False,
+                               buckets=(1, 2), mode="burst",
+                               contexts=[mx.cpu()])
+    try:
+        ref_v1, ref_spans, ref_text = _scraped(mx, ref_srv, n)
+    finally:
+        ref_srv.shutdown()
+    server = mt.serving.serve(js, params, {"data": (1, SEQ)}, port=0,
+                              block=False, buckets=(1, 2),
+                              contexts=[mt.cpu()])
+    try:
+        v1, spans, text = _scraped(mt, server, n)
+        ep = server.endpoint
+        body, ctype = _get(ep + "/metrics", accept="application/json")
+        assert ctype == "application/json"
+        assert set(json.loads(body)) == {"mxtpu", "mxtpu_serving"}
+    finally:
+        server.shutdown()
+    for key in ("requests_received", "requests_completed", "batches_formed",
+                "batch_rows_valid", "batch_rows_padded", "batch_fill_ratio",
+                "shed_rate", "executor_cache_misses"):
+        assert v1[key] == ref_v1[key], key
+    for key in ("batch_exec_ms", "request_latency_ms"):
+        assert v1[key]["count"] == ref_v1[key]["count"] == n
+        assert set(v1[key]) == set(ref_v1[key])
+    assert v1["requests_completed"] == n and v1["batches_dispatched"] == n
+    for span in ("batch[1]", "serving.request", "pool.run"):
+        key = "span_ms{span=%s}" % span
+        assert spans[key] == ref_spans[key] == n, key
+    for line in ("mxtpu_serving_requests_completed 3",
+                 "mxtpu_serving_batches_formed 3",
+                 'mxtpu_span_ms_count{span="batch[1]"}',
+                 "# TYPE mxtpu_engine_ops_completed counter",
+                 "# TYPE mxtpu_engine_workers gauge"):
+        assert line in text and line in ref_text, line
+
+
+def test_batch_span_is_a_child_of_its_request_span(mt, lm):
+    js, params, _ = lm
+    finished = []
+    mt.telemetry.tracing.set_span_sink(finished.append)
+    try:
+        with mt.serving.ServingSession(js, params, {"data": (1, SEQ)},
+                                       buckets=(1,),
+                                       contexts=[mt.cpu()]) as sess:
+            for i in range(2):
+                sess.predict({"data": _tokens(1, 50 + i)[0]})
+    finally:
+        mt.telemetry.tracing.set_span_sink(None)
+    requests = {s.span_id: s for s in finished
+                if s.name == "serving.request"}
+    batches = [s for s in finished if s.name == "batch[1]"]
+    assert len(requests) == 2 and len(batches) == 2
+    for b in batches:
+        assert b.parent_id in requests
+        assert b.trace_id == requests[b.parent_id].trace_id
+        assert b.tags == {"n_valid": 1}
+
+
+def test_replica_fault_points_fail_one_batch_and_keep_serving(mt, lm):
+    """An injected fault at ``serving.replica.dispatch`` or ``collect``
+    (mxtpu's pool points) fails that batch's request; the dispatcher
+    lives on and the next request is answered."""
+    js, params, ref = lm
+    toks = _tokens(1, seed=60)[0]
+    with mt.serving.ServingSession(js, params, {"data": (1, SEQ)},
+                                   buckets=(1,),
+                                   contexts=[mt.cpu()]) as sess:
+        for point in ("serving.replica.dispatch", "serving.replica.collect"):
+            try:
+                with mt.faults.scope("%s:kind=raise,times=1" % point):
+                    with pytest.raises(mt.faults.FaultInjected,
+                                       match=point):
+                        sess.predict({"data": toks})
+                    got = sess.predict({"data": toks})[0]
+            finally:
+                mt.faults.reset()
+            np.testing.assert_allclose(got, _mxtpu_probs(ref, toks),
+                                       rtol=0, atol=ATOL)
+        assert sess.stats()["requests_failed"] == 2
