@@ -457,6 +457,8 @@ rc 1). Its own summary line, then the device line, last.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import logging
 import os
@@ -665,7 +667,25 @@ ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
           "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse",
-          "dist_async", "scaffolding")
+          "dist_async", "scaffolding", "compile")
+# phase 21, the compile pipeline: ResNet-50 v2 predicted under
+# (layout, bf16) at B=`batch`; the LM of phase 6 trained TRAIN["steps"]
+# steps under bf16; ResNet-50 trained `remat_steps` steps at B=
+# `remat_batch` without remat, with fit.remat=auto + remat_reuse and with
+# fit.remat=block (`remat_rounds` rounds of turns of `remat_turn_steps`
+# steps), and the fused step's update (`update_iters` calls a turn); the
+# quantized ResNet-50 after a calibration forward at B=`calib_batch`.
+# Times: `rounds` turns (f32, pipeline, pipeline, f32, ...) of `iters`
+# calls each. The bf16 LM's cross-entropy may be `lm_ce_rtol` (relative)
+# from the f32 fit's at each step: 5.5x the largest reading of a sound
+# plan (1.8e-4), and below what a plan with no f32 island but the loss
+# head does (1.9e-3 from the second step on, 1.1e-2 by the eighth; NVIDIA
+# H100 80GB HBM3, 700.00 W), which the phase runs as its control and
+# which must stray past it
+COMPILE = dict(batch=32, calib_batch=4, remat_batch=64, remat_steps=3,
+               rounds=3, iters=10, lm_turn_steps=3, remat_rounds=2,
+               remat_turn_steps=3, update_iters=5, lm_ce_rtol=1e-3, lr=0.1,
+               momentum=0.9)
 MULTI_PHASES = ("kvstore", "kernels", "resnet", "mesh", "lm", "dist_sync",
                 "gluon", "seq", "parallel", "group2ctx", "mesh_tp")
 # --multi-gpu mesh_tp: the LM at phase 6's widths on 2-D meshes of the 4
@@ -1428,16 +1448,19 @@ def phase_backward(att, gen, parents=()):
     return timed, worst
 
 
-def epilogue_bound_ms(shape, axis, dtype, residual):
+def epilogue_bound_ms(shape, axis, dtype, residual, out_dtype=None):
     """Least time for one epilogue pass: x (and the residual) read and y
     written once plus scale and shift, against the HBM rate; or its f32
     operations (mul, add, compare, and the residual's add) against the
-    f32 peak; whichever is larger."""
+    f32 peak; whichever is larger. ``out_dtype`` (default x's) is y's
+    and the residual's type."""
     n = 1
     for d in shape:
         n *= d
     esize = torch.empty((), dtype=dtype).element_size()
-    nbytes = n * esize * (3 if residual else 2) + 2 * shape[axis] * 4
+    osize = torch.empty((), dtype=out_dtype or dtype).element_size()
+    nbytes = n * (esize + osize * (2 if residual else 1)) + \
+        2 * shape[axis] * 4
     ops = n * (4 if residual else 3)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
@@ -1498,29 +1521,64 @@ def phase_epilogue(epi, gen):
     log("  epilogue: %d cases (%d shapes incl. NaN/inf planted, f32 and "
         "bf16, with and without residual) equal the plain version bit "
         "for bit" % (checked, len(EPILOGUE_CASES) + 2))
+    mixed = 0
+    for xt, yt in ((torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16)):
+        for shape, axis in EPILOGUE_CASES + [((32, 112, 112, 64), 3),
+                                             ((999, 37), -1)]:
+            for residual in (False, True):
+                x, s, b, r = epilogue_inputs(shape, axis, xt, residual,
+                                             gen)
+                r = r.to(yt) if r is not None else None
+                err = bit_err(
+                    epi.bn_apply_relu_add(x, s, b, r, axis=axis,
+                                          out_dtype=yt),
+                    epi.bn_apply_relu_add_reference(x, s, b, r, axis=axis,
+                                                    out_dtype=yt))
+                if err != 0.0:
+                    raise AssertionError(
+                        "epilogue %s->%s differs from its plain version: "
+                        "err %r at %s %s residual=%s"
+                        % (xt, yt, err, shape, axis, residual))
+                mixed += 1
+    log("  epilogue across types (the bf16 rewrite's boundary sites, "
+        "bf16->f32 and f32->bf16): %d cases equal the plain version bit "
+        "for bit" % mixed)
 
     timed = []
-    for (shape, axis), dtype, residual in [
+    for spec, dtype, residual in [
             (EPILOGUE_MAIN, torch.float32, False),
             (EPILOGUE_MAIN, torch.bfloat16, False),
             (EPILOGUE_MAIN, torch.float32, True),
             (((401408, 64), -1), torch.float32, False),
             (((32, 2048, 7, 7), 1), torch.float32, False),
-            (((1568, 2048), -1), torch.float32, False)]:
+            (((1568, 2048), -1), torch.float32, False),
+            # bn0 at bucket 32 under the layout and bf16 rewrites: the
+            # rows path (channels last), bf16 in and out, and the
+            # boundary pair bf16->f32
+            (((32, 112, 112, 64), 3), torch.bfloat16, False),
+            (((32, 112, 112, 64), 3, torch.float32), torch.bfloat16,
+             False)]:
+        shape, axis = spec[:2]
+        out_dtype = spec[2] if len(spec) == 3 else None
         x, s, b, r = epilogue_inputs(shape, axis, dtype, residual, gen)
 
         def kern():
-            return epi.bn_apply_relu_add(x, s, b, r, axis=axis)
+            return epi.bn_apply_relu_add(x, s, b, r, axis=axis,
+                                         out_dtype=out_dtype)
 
         def plain():
-            return epi.bn_apply_relu_add_reference(x, s, b, r, axis=axis)
+            return epi.bn_apply_relu_add_reference(x, s, b, r, axis=axis,
+                                                   out_dtype=out_dtype)
 
         err = bit_err(kern(), plain())
         ms = cuda_ms(kern, 100)
         plain_ms = cuda_ms(plain, 20)
-        bound_ms, bound_by = epilogue_bound_ms(shape, axis, dtype, residual)
+        bound_ms, bound_by = epilogue_bound_ms(shape, axis, dtype, residual,
+                                               out_dtype)
         row = dict(shape=list(shape), axis=axis,
                    dtype=str(dtype).split(".")[1], residual=residual,
+                   out_dtype=str(out_dtype or dtype).split(".")[1],
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         log("  epilogue %-8s %s axis=%d residual=%d: kernel %.4f ms, plain "
@@ -10342,6 +10400,653 @@ def phase_scaffolding(mt, att, seed, card):
     return out
 
 
+def compile_resnet_module(mt, sym, params, batch):
+    """A ResNet-50 Module bound for inference at ``batch`` on gpu(0) with
+    ``params`` (resnet_params' "arg:"/"aux:" dict)."""
+    args, auxs = compile_split(mt, params)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod.bind(data_shapes=[("data", (batch,) + RESNET["image_shape"])],
+             label_shapes=[("softmax_label", (batch,))], for_training=False)
+    mod.set_params(args, auxs)
+    return mod
+
+
+def compile_split(mt, params):
+    """(arg_params, aux_params) NDArrays on cpu() of resnet_params'."""
+    return mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+
+
+def compile_iter(mt, x):
+    """An NDArrayIter over ``x`` with zero labels, one batch."""
+    return mt.io.NDArrayIter(x, np.zeros(len(x), np.float32),
+                             batch_size=len(x))
+
+
+def compile_turns(paths, rounds, iters):
+    """ms of each named path's call, taken in turns: (a, b, b, a) per
+    round, each turn ``warm`` once then ``cuda_ms`` over ``iters`` calls;
+    ``paths`` maps a name to (enter, call) where ``enter()`` returns the
+    context the turn runs in. Returns {name: [turn ms]}."""
+    names = list(paths)
+    order = (names + names[::-1]) * rounds
+    out = {n: [] for n in names}
+    for n in order:
+        enter, call = paths[n]
+        with enter():
+            call()
+            out[n].append(cuda_ms(call, iters, warmup=0))
+    return out
+
+
+#: kernel-name fragments by the category compile_profile sums them into
+COMPILE_KINDS = (("flash", ("flash_",)), ("epilogue", ("rows_kernel",
+                                                      "planes_kernel")),
+                 ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                           "implicit_gemm", "winograd")),
+                 ("gemm", ("gemm", "cutlass", "cublas")),
+                 ("batchnorm", ("batch_norm", "bn_")),
+                 ("cast/copy", ("copy", "cast", "convert")),
+                 ("reduce", ("reduce",)))
+
+
+def compile_profile(call, label):
+    """Device ms of one ``call()`` under torch.profiler, summed by kernel
+    category (COMPILE_KINDS, first match; "other" for the rest), and the
+    heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile as _prof
+    call()
+    torch.cuda.synchronize()
+    with _prof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    total = sum(e.device_time_total for e in events) / 1e3
+    kinds = {}
+    for e in events:
+        key = e.key.lower()
+        kind = next((k for k, frags in COMPILE_KINDS
+                     if any(f in key for f in frags)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:6]
+    log("  profiled %s: %.3f ms of device time; by kind %s; top %s"
+        % (label, total, {k: round(v, 3) for k, v in sorted(
+            kinds.items(), key=lambda kv: -kv[1])},
+           [(e.key[:48], round(e.device_time_total / 1e3, 3))
+            for e in top]))
+    return {"device_ms": total, "by_kind_ms": kinds,
+            "top_ms": {e.key: e.device_time_total / 1e3 for e in top}}
+
+
+def compile_predict(mt, epi, seed, card, sym, params, profile=False):
+    """ResNet-50 v2 through Module.predict under pipeline_scope((layout,
+    bf16)): every one of the 50 BatchNorm->ReLU sites is one epilogue
+    launch with a bf16 side, on the rows path (channels last), each equal
+    bit for bit to the plain epilogue on its own inputs; outputs against
+    the f32 predict; times in turns."""
+    from mxtpu_torch.ops import nn as nn_ops
+    b = COMPILE["batch"]
+    mod = compile_resnet_module(mt, sym, params, b)
+    rng = np.random.default_rng(seed + 5)
+    x = rng.standard_normal((b,) + RESNET["image_shape"], dtype=np.float32)
+    it = compile_iter(mt, x)
+    pipe = ("layout", "bf16")
+    sites = []
+    real = nn_ops.bn_apply_relu_add
+
+    def spy(xx, scale, shift, residual=None, block_m=1024, axis=-1,
+            out_dtype=None):
+        y = real(xx, scale, shift, residual, block_m, axis, out_dtype)
+        sites.append((xx.clone(), scale.clone(), shift.clone(), axis,
+                      out_dtype, y.clone()))
+        return y
+
+    f32_out = mod.predict(it).asnumpy()
+    it.reset()
+    with mt.compile.pipeline_scope(pipe):
+        nn_ops.bn_apply_relu_add = spy
+        try:
+            epi.bn_apply_relu_add.launches = 0  # count the main path alone
+            out = mod.predict(it).asnumpy()
+            torch.cuda.synchronize()
+            launches = epi.bn_apply_relu_add.launches
+        finally:
+            nn_ops.bn_apply_relu_add = real
+        ex = mod._exec_group.execs[0]
+        report = ex.pipeline_report
+    kinds = {}
+    worst = 0.0
+    for xx, scale, shift, axis, odt, y in sites:
+        key = "%s->%s" % (str(xx.dtype)[6:], str(y.dtype)[6:])
+        kinds[key] = kinds.get(key, 0) + 1
+        outer, c, inner = epi._layout(tuple(xx.shape), axis)
+        if inner != 1 or not xx.is_contiguous():
+            raise AssertionError("an epilogue site took the planes path: "
+                                 "%s axis %d" % (tuple(xx.shape), axis))
+        want = epi.bn_apply_relu_add_reference(xx, scale, shift, None,
+                                               axis, odt)
+        worst = max(worst, bit_err(y, want))
+    del sites
+    low = sum(v for k, v in kinds.items() if "bfloat16" in k)
+    log("  ResNet-50 v2 predict B=%d under %s: applied %s, epilogue "
+        "launches %d (%s), every one on the rows path; kernel vs plain "
+        "max abs err %g" % (b, pipe, report.applied if report else None,
+                            launches, kinds, worst))
+    if report is None or report.applied != list(pipe):
+        raise AssertionError("the pipeline did not apply %s: %s"
+                             % (pipe, report and report.render()))
+    if launches != RESNET_SITES or low != RESNET_SITES or worst != 0.0:
+        raise AssertionError("epilogue under %s: %d launches, %d with a "
+                             "bf16 side, err %g (want %d, %d, 0)"
+                             % (pipe, launches, low, worst, RESNET_SITES,
+                                RESNET_SITES))
+    if out.shape != f32_out.shape or not np.isfinite(out).all():
+        raise AssertionError("bf16 predict output %s not finite"
+                             % (out.shape,))
+    diff = float(np.abs(out - f32_out).max())
+    top1 = float((out.argmax(1) == f32_out.argmax(1)).mean())
+    log("  bf16 vs f32 probabilities: max abs diff %.3e (largest %.3e); "
+        "top-1 agreement %.3f" % (diff, float(f32_out.max()), top1))
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.gpu(0))],
+                         label=[mt.nd.zeros((len(x),), ctx=mt.gpu(0))])
+
+    def call():
+        mod.forward(db, is_train=False)
+        mod.get_outputs()[0]._data.sum().item()
+
+    turns = compile_turns(
+        {"f32": (lambda: mt.compile.pipeline_scope(()), call),
+         "layout,bf16": (lambda: mt.compile.pipeline_scope(pipe), call)},
+        COMPILE["rounds"], COMPILE["iters"])
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    prof = {}
+    if profile:
+        for name, cfg in (("f32", ()), ("layout,bf16", pipe)):
+            with mt.compile.pipeline_scope(cfg):
+                prof[name] = compile_profile(
+                    call, "ResNet-50 forward B=%d %s" % (b, name))
+    log("  [%s] forward B=%d, turns of %d calls: f32 %s ms, layout,bf16 "
+        "%s ms; median %.2f vs %.2f ms (%.2fx)"
+        % (card, b, COMPILE["iters"], [round(v, 2) for v in turns["f32"]],
+           [round(v, 2) for v in turns["layout,bf16"]], med["f32"],
+           med["layout,bf16"], med["f32"] / med["layout,bf16"]))
+    del mod
+    torch.cuda.empty_cache()
+    return dict(launches=launches, site_types=kinds, kernel_err=worst,
+                max_abs_diff_vs_f32=diff, top1_vs_f32=top1,
+                turns_ms=turns, median_ms=med, profile=prof)
+
+
+def compile_lm(mt, att, seed, card, profile=False):
+    """The LM of phase 6 trained through Module.fit under bf16 from the
+    same weights as an f32 fit: 12 x steps flash forward and backward
+    launches, every one bf16, the first of each held to its plain
+    version; cross-entropy falls and stays near the f32 fit's; then
+    single steps of the two modules timed in turns."""
+    cfg = dict(LM)
+    sym = mt.models.get_transformer_lm(**cfg)
+    b, t, steps = TRAIN["batch"], cfg["seq_len"], TRAIN["steps"]
+    x, y = lm_batch(seed, b, t, cfg["vocab_size"])
+    want = cfg["num_layers"] * steps
+    mods, ce, launches, caught, casts = {}, {}, {}, {}, {}
+    init = None
+    real_fwd, real_bwd = att._flash_forward, att._flash_bwd_cuda
+    from mxtpu_torch.analysis import dataflow as _dataflow
+    tables = (_dataflow._sensitive_tables, _dataflow._BF16_COMPUTE)
+    # the control: a bf16 plan with no f32 island but the loss head (the
+    # residual stream and every LayerNorm in bf16), to show what a plan
+    # that left out its islands does to the cross-entropy
+    for name, pipe in (("f32", ()), ("bf16", ("bf16",)),
+                       ("bf16_no_islands", ("bf16",))):
+        if name == "bf16_no_islands":
+            _dataflow._sensitive_tables = set
+            _dataflow._BF16_COMPUTE = tables[1] | {"Embedding"}
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("softmax_label", y.shape)])
+        if init is None:
+            np.random.seed(seed)
+            mod.init_params(mt.init.Xavier())
+            init = mod.get_params()
+        else:
+            mod.init_params(arg_params=init[0], aux_params=init[1])
+        losses, dtypes = [], set()
+
+        def record(param, losses=losses):
+            losses.append(param.eval_metric.get()[1])
+            param.eval_metric.reset()
+
+        def fwd(q, k, v, causal, scale, want_lse=False, name=name):
+            res = real_fwd(q, k, v, causal, scale, want_lse)
+            if q.device.type == "meta":  # shape inference
+                return res
+            dtypes.add(q.dtype)
+            if name not in caught:
+                caught[name] = {"fwd": (q.clone(), k.clone(), v.clone(),
+                                        causal, scale,
+                                        res[0].clone() if want_lse
+                                        else res.clone())}
+            return res
+
+        def bwd(q, k, v, out, dout, lse, causal, scale, name=name):
+            res = real_bwd(q, k, v, out, dout, lse, causal, scale)
+            if "bwd" not in caught[name]:
+                caught[name]["bwd"] = (
+                    tuple(z.clone() for z in (q, k, v, out, dout, lse)),
+                    causal, scale, tuple(g.clone() for g in res))
+            return res
+
+        att._flash_forward, att._flash_bwd_cuda = fwd, bwd
+        try:
+            with mt.compile.pipeline_scope(pipe):
+                att.flash_attention.launches = 0  # the main path alone
+                att.flash_attention_backward.launches = 0
+                mod.fit(RepeatBatch(mt, x, y, steps), num_epoch=1,
+                        eval_metric="ce", optimizer="adam",
+                        optimizer_params={"learning_rate": TRAIN["lr"]},
+                        initializer=None, batch_end_callback=record,
+                        metric_sync=1)
+                torch.cuda.synchronize()
+                launches[name] = (att.flash_attention.launches,
+                                  att.flash_attention_backward.launches)
+        finally:
+            att._flash_forward, att._flash_bwd_cuda = real_fwd, real_bwd
+            _dataflow._sensitive_tables, _dataflow._BF16_COMPUTE = tables
+        report = mod._fused.pipeline_report
+        log("  LM %s fit: applied %s; flash launches fwd %d bwd %d (want "
+            "%d); attention dtypes %s; cross-entropy %s"
+            % (name, report.applied if report else [], launches[name][0],
+               launches[name][1], want, sorted(str(d) for d in dtypes),
+               [round(v, 4) for v in losses]))
+        if launches[name] != (want, want):
+            raise AssertionError("LM %s flash launches %s != %d each"
+                                 % (name, launches[name], want))
+        wdt = torch.bfloat16 if pipe else torch.float32
+        if dtypes != {wdt}:
+            raise AssertionError("LM %s attention ran in %s" % (name,
+                                                                dtypes))
+        if len(losses) != steps or not np.all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError("LM %s cross-entropy did not fall: %s"
+                                 % (name, losses))
+        ce[name] = losses
+        casts[name] = sum(1 for n in mod._fused._graph_symbol._topo()
+                          if not n.is_variable and n.op.name == "Cast")
+        if name == "bf16_no_islands":
+            del mod
+        else:
+            mods[name] = mod
+    control_launches = launches.pop("bf16_no_islands")
+    rel = [abs(a - b_) / b_ for a, b_ in zip(ce["bf16"], ce["f32"])]
+    ctrl = [abs(a - b_) / b_ for a, b_ in zip(ce["bf16_no_islands"],
+                                              ce["f32"])]
+    log("  bf16 vs f32 cross-entropy, relative by step: %s (gate %g); the "
+        "control with no f32 islands (%d Casts against bf16's %d): %s"
+        % ([round(v, 6) for v in rel], COMPILE["lm_ce_rtol"],
+           casts["bf16_no_islands"], casts["bf16"],
+           [round(v, 6) for v in ctrl]))
+    if max(rel) > COMPILE["lm_ce_rtol"]:
+        raise AssertionError("bf16 cross-entropy strays from f32: %s" % rel)
+    if not max(ctrl) > COMPILE["lm_ce_rtol"]:
+        raise AssertionError("the control with no f32 islands stays within "
+                             "the gate, which so cannot see one left out: "
+                             "%s" % ctrl)
+    errs = {}
+    for name, got in caught.items():
+        q, k, v, causal, scale, out = got["fwd"]
+        ref = att.flash_attention_reference(q, k, v, causal=causal,
+                                            sm_scale=scale)
+        errs[name] = {"fwd": float((out.float() - ref.float()).abs().max())}
+        ins, causal, scale, grads = got["bwd"]
+        wants = att.flash_attention_backward_reference(
+            *ins, causal=causal, sm_scale=scale)
+        errs[name]["bwd"] = max(
+            float(((g.float() - w.float()).abs()
+                   / w.float().abs().max().clamp(min=1)).max())
+            for g, w in zip(grads, wants))
+        dt = ins[0].dtype
+        if errs[name]["fwd"] > TOL[dt] or errs[name]["bwd"] > BWD_TOL[dt]:
+            raise AssertionError("LM %s flash kernels vs plain: %s"
+                                 % (name, errs[name]))
+    log("  the first flash forward/backward of each fit vs the plain "
+        "versions on its own inputs: %s" % errs)
+    del caught
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                         label=[mt.nd.array(y, ctx=mt.cpu())])
+    calls = {}
+    for name, mod in mods.items():
+        def call(mod=mod):
+            for _ in range(COMPILE["lm_turn_steps"]):
+                mod.forward_backward(db)
+                mod.update()
+        calls[name] = (lambda: mt.compile.pipeline_scope(()), call)
+    turns = compile_turns(calls, COMPILE["rounds"], 1)
+    med = {k: float(np.median(v)) / COMPILE["lm_turn_steps"]
+           for k, v in turns.items()}
+    prof = {}
+    if profile:
+        for name, mod in mods.items():
+            def one(mod=mod):
+                mod.forward_backward(db)
+                mod.update()
+            prof[name] = compile_profile(one, "LM training step %s" % name)
+    log("  [%s] LM training step, turns of %d steps: f32 %.2f ms, bf16 "
+        "%.2f ms (%.2fx)" % (card, COMPILE["lm_turn_steps"], med["f32"],
+                             med["bf16"], med["f32"] / med["bf16"]))
+    update = compile_update(mt, card, mods["f32"], "LM Adam")
+    del mods
+    torch.cuda.empty_cache()
+    return dict(launches={k: list(v) for k, v in launches.items()},
+                control_launches=list(control_launches), ce=ce,
+                ce_rel=rel, control_ce_rel=ctrl, casts=casts, kernel_err=errs,
+                step_ms=med, turns_ms=turns, profile=prof, update=update)
+
+
+def compile_remat(mt, seed, card, sym, params):
+    """ResNet-50 v2 trained COMPILE["remat_steps"] SGD steps at B=
+    COMPILE["remat_batch"] without rematerialization (cuDNN deterministic,
+    then not: the f32 path's own distance), with fit.remat=auto under
+    remat_reuse and with fit.remat=block (deterministic): peak memory of
+    each, and the remat weights within the gate (ROADMAP ops notes: a
+    relative gate, the other f32 path's own distance); the steps timed in
+    turns; then the fused step's update (compile_update)."""
+    b, steps = COMPILE["remat_batch"], COMPILE["remat_steps"]
+    rng = np.random.default_rng(seed + 7)
+    x = rng.standard_normal((b,) + RESNET["image_shape"], dtype=np.float32)
+    y = rng.integers(0, RESNET["num_classes"], b).astype(np.float32)
+    runs, mods = {}, {}
+    for name, pipe, remat, det in (
+            ("none", (), None, True), ("none_nondet", (), None, False),
+            ("remat_auto", ("remat_reuse",), "auto", True),
+            ("remat_block", (), "block", True)):
+        torch.backends.cudnn.deterministic = det
+        if remat:
+            os.environ["MXTPU_REMAT"] = remat
+        mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("softmax_label", y.shape)])
+        mod.set_params(*compile_split(mt, params))
+        db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                             label=[mt.nd.array(y, ctx=mt.cpu())])
+        try:
+            with mt.compile.pipeline_scope(pipe):
+                mod.init_optimizer(optimizer="sgd", optimizer_params={
+                    "learning_rate": COMPILE["lr"],
+                    "momentum": COMPILE["momentum"],
+                    "rescale_grad": 1.0 / b})
+            mode = mod._fused._remat_mode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                mod.forward_backward(db)
+                mod.update()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            os.environ.pop("MXTPU_REMAT", None)
+            torch.backends.cudnn.deterministic = False
+        w = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        runs[name] = dict(mode=mode, peak=int(peak), step_ms=ms, w=w)
+        log("  ResNet-50 B=%d %s (remat mode %s): peak over the steps "
+            "%.3f GB, step ms %s" % (b, name, mode, peak / 1e9,
+                                     [round(v, 1) for v in ms]))
+        if name != "none_nondet":
+            mods[name] = (mod, db)
+        del mod
+        torch.cuda.empty_cache()
+
+    def dist(a, b_):
+        return max(float(np.abs(a[k] - b_[k]).max()
+                         / max(np.abs(b_[k]).max(), 1e-12)) for k in a)
+
+    d_nd = dist(runs["none_nondet"]["w"], runs["none"]["w"])
+    gate = max(2 * d_nd, 1e-6)
+    if runs["remat_auto"]["mode"] != "annotated":
+        raise AssertionError("remat_reuse annotated nothing")
+    d_rm = {}
+    for name in ("remat_auto", "remat_block"):
+        d_rm[name] = dist(runs[name]["w"], runs["none"]["w"])
+        saved = 1 - runs[name]["peak"] / max(runs["none"]["peak"], 1)
+        log("  %s vs none: peak %.3f vs %.3f GB (%.1f%% less); weights "
+            "relative %.3e, the nondeterministic f32 path's own %.3e, gate "
+            "%.3e" % (name, runs[name]["peak"] / 1e9,
+                      runs["none"]["peak"] / 1e9, 100 * saved, d_rm[name],
+                      d_nd, gate))
+        if not runs[name]["peak"] < runs["none"]["peak"]:
+            raise AssertionError("%s did not lower the peak memory" % name)
+        if d_rm[name] > gate:
+            raise AssertionError("%s weights %g from the plain fit (gate "
+                                 "%g)" % (name, d_rm[name], gate))
+    saved = 1 - runs["remat_auto"]["peak"] / max(runs["none"]["peak"], 1)
+    calls = {}
+    for name, (mod, db) in mods.items():
+        def call(mod=mod, db=db):
+            mod.forward_backward(db)
+            mod.update()
+        calls[name] = (contextlib.nullcontext, call)
+    per_turn = COMPILE["remat_turn_steps"]
+    turns = compile_turns(calls, COMPILE["remat_rounds"], per_turn)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    log("  [%s] ResNet-50 B=%d training step, turns of %d steps: %s; "
+        "median %s ms"
+        % (card, b, per_turn, {k: [round(v, 2) for v in t]
+                               for k, t in turns.items()},
+           {k: round(v, 2) for k, v in med.items()}))
+    update = compile_update(mt, card, mods["none"][0],
+                            "ResNet-50 B=%d SGD" % b)
+    del mods, calls
+    torch.cuda.empty_cache()
+    return {k: dict(mode=v["mode"], peak_bytes=v["peak"],
+                    step_ms=v["step_ms"]) for k, v in runs.items()} | dict(
+        weights_rel=d_rm["remat_auto"], block_weights_rel=d_rm["remat_block"],
+        nondet_rel=d_nd, peak_saved=saved, turns_ms=turns, median_ms=med,
+        update=update)
+
+
+def compile_update(mt, card, mod, label):
+    """The fused step's update on the card: its foreach form over its
+    update lists against the optimizer's single-tensor update functions a
+    parameter at a time (the chain the Updater runs), from the same
+    weights, gradients and state: bit for bit after one update, then each
+    timed in turns (device ms by cuda_ms, and host-clock ms of one update
+    to a device sync)."""
+    from mxtpu_torch import optimizer as topt
+    fs = mod._fused
+    o = fs.optimizer
+    kind = type(o).__name__
+    names = fs.trainable
+    grads = fs._sums[0]
+    lr, wd = 1e-3, 1e-4
+    clip = o.clip_gradient or -1.0
+    mom = float(getattr(o, "momentum", 0.0) or 0.0)
+
+    def copy(v):
+        return tuple(copy(x) for x in v) if isinstance(v, tuple) else \
+            (None if v is None else v.clone())
+
+    def fresh():
+        return ({n: fs._targets[0][n].clone() for n in names},
+                {n: copy(fs.opt_state[0][n]) for n in names})
+
+    def chain(ps, ss):
+        for n in names:
+            if kind == "Adam":
+                topt.adam_update_(ps[n], grads[n], ss[n][0], ss[n][1], lr,
+                                  wd, o.rescale_grad, clip, o.beta1,
+                                  o.beta2, o.epsilon)
+            elif mom:
+                topt.sgd_mom_update_(ps[n], grads[n], ss[n], lr, wd,
+                                     o.rescale_grad, clip, mom)
+            else:
+                topt.sgd_update_(ps[n], grads[n], lr, wd, o.rescale_grad,
+                                 clip)
+
+    def lists(ps, ss):
+        for group in fs._update_lists:
+            fs._apply([ps[n] for n in group], [grads[n] for n in group],
+                      [ss[n] for n in group], [lr] * len(group),
+                      [wd] * len(group))
+
+    forms = {"per_parameter": chain, "foreach": lists}
+    state = {k: fresh() for k in forms}
+    with torch.no_grad():
+        for k, fn in forms.items():
+            fn(*state[k])
+        torch.cuda.synchronize()
+
+        def leaves(v):
+            return [x for y in v for x in leaves(y)] if \
+                isinstance(v, tuple) else ([] if v is None else [v])
+        a, b_ = state["per_parameter"], state["foreach"]
+        same = all(torch.equal(a[0][n], b_[0][n]) and all(
+            torch.equal(x, y) for x, y in zip(leaves(a[1][n]),
+                                               leaves(b_[1][n])))
+            for n in names)
+        dev = {k: [] for k in forms}
+        host = {k: [] for k in forms}
+        iters = COMPILE["update_iters"]
+        for k in (list(forms) + list(forms)[::-1]) * COMPILE["rounds"]:
+            call = functools.partial(forms[k], *state[k])
+            dev[k].append(cuda_ms(call, iters, warmup=1))
+            walls = []
+            for _ in range(iters):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            host[k].append(float(np.median(walls)))
+    med = {k: (float(np.median(dev[k])), float(np.median(host[k])))
+           for k in forms}
+    log("  [%s] %s update of %d parameters in %d list(s): foreach bit for "
+        "bit the per-parameter chain %s; device ms per-parameter %.3f, "
+        "foreach %.3f; host-clock ms to a sync per-parameter %.3f, foreach "
+        "%.3f (turns: device %s, host %s)"
+        % (card, label, len(names), len(fs._update_lists), same,
+           med["per_parameter"][0], med["foreach"][0],
+           med["per_parameter"][1], med["foreach"][1],
+           {k: [round(v, 3) for v in t] for k, t in dev.items()},
+           {k: [round(v, 3) for v in t] for k, t in host.items()}))
+    if not same:
+        raise AssertionError("%s: the foreach update differs from the "
+                             "per-parameter chain" % label)
+    del state
+    return dict(bit_identical=same, params=len(names),
+                lists=len(fs._update_lists), device_ms=dev, host_ms=host,
+                median_device_ms={k: v[0] for k, v in med.items()},
+                median_host_ms={k: v[1] for k, v in med.items()})
+
+
+def compile_quant(mt, epi, seed, card, sym, params):
+    """int8 post-training quantization of ResNet-50 v2: a calibration
+    forward at B=COMPILE["calib_batch"] (the recorder armed), then the
+    quantized predict at B=COMPILE["batch"] on `__q8` weights (the
+    epilogue sites still fused), top-1 agreement with f32 on the same
+    batch, times in turns."""
+    from mxtpu_torch.compile import quant as _quant
+    b, cb = COMPILE["batch"], COMPILE["calib_batch"]
+    rng = np.random.default_rng(seed + 9)
+    calib = rng.standard_normal((cb,) + RESNET["image_shape"],
+                                dtype=np.float32)
+    x = rng.standard_normal((b,) + RESNET["image_shape"], dtype=np.float32)
+    import tempfile
+    corpus = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    prev = os.environ.get("MXTPU_CORPUS_DIR")
+    os.environ["MXTPU_CORPUS_DIR"] = corpus
+    try:
+        cmod = compile_resnet_module(mt, sym, params, cb)
+        t0 = time.perf_counter()
+        with _quant.calibration_scope() as rec:
+            cmod.predict(compile_iter(mt, calib))
+        # the capture persisted to the measurement corpus and replayed
+        # by the rewrite (through the quant.calibration_load fault point)
+        if not _quant.persist_calibration(rec):
+            raise AssertionError("the calibration was not persisted")
+        calib_s = time.perf_counter() - t0
+        del cmod
+        mod = compile_resnet_module(mt, sym, params, b)
+        f32 = mod.predict(compile_iter(mt, x)).asnumpy()
+        with mt.compile.pipeline_scope(("quant",)):
+            epi.bn_apply_relu_add.launches = 0
+            out = mod.predict(compile_iter(mt, x)).asnumpy()
+            launches = epi.bn_apply_relu_add.launches
+            ex = mod._exec_group.execs[0]
+            report = ex.pipeline_report
+            q8 = sorted(ex._prepared_args)
+            int8 = [v[2] for v in ex._prep_cache.values()]
+    finally:
+        if prev is None:
+            os.environ.pop("MXTPU_CORPUS_DIR", None)
+        else:
+            os.environ["MXTPU_CORPUS_DIR"] = prev
+        shutil.rmtree(corpus, ignore_errors=True)
+    acts = sum(1 for f in report.findings() if "quantizes per-tensor" in
+               f.message) if report is not None else 0
+    top1 = float((out.argmax(1) == f32.argmax(1)).mean())
+    diff = float(np.abs(out - f32).max())
+    log("  calibration forward B=%d: %d samples over %d activations in "
+        "%.1f s; quantized predict B=%d: applied %s, %d __q8 weights "
+        "(int8 on the card: %s), %d activation quantize pairs, epilogue "
+        "launches %d; vs f32: top-1 agreement %.3f, max abs diff %.3e"
+        % (cb, rec.n_samples, len(rec.stats()), calib_s, b,
+           report.applied if report else None, len(q8),
+           all(t.dtype == torch.int8 and t.is_cuda for t in int8), acts,
+           launches, top1, diff))
+    if report is None or report.applied != ["quant"] or not q8 or \
+            len(int8) != len(q8) or launches != RESNET_SITES or not acts:
+        raise AssertionError("the quantized forward did not run on __q8 "
+                             "weights with the fused sites")
+    if not np.isfinite(out).all():
+        raise AssertionError("quantized output not finite")
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.gpu(0))],
+                         label=[mt.nd.zeros((len(x),), ctx=mt.gpu(0))])
+
+    def call():
+        mod.forward(db, is_train=False)
+        mod.get_outputs()[0]._data.sum().item()
+
+    turns = compile_turns(
+        {"f32": (lambda: mt.compile.pipeline_scope(()), call),
+         "quant": (lambda: mt.compile.pipeline_scope(("quant",)), call)},
+        COMPILE["rounds"], COMPILE["iters"])
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    log("  [%s] forward B=%d: f32 %.2f ms, quant %.2f ms" % (
+        card, b, med["f32"], med["quant"]))
+    del mod
+    torch.cuda.empty_cache()
+    return dict(q8_weights=len(q8), act_pairs=acts, launches=launches,
+                top1_vs_f32=top1, max_abs_diff_vs_f32=diff,
+                calib_samples=rec.n_samples, calib_s=calib_s,
+                median_ms=med, turns_ms=turns)
+
+
+def phase_compile(mt, att, epi, seed, card, profile=False):
+    """Phase 21: the compile pipeline on the card: ResNet-50 v2 predicted
+    under (layout, bf16) on the bf16 epilogue's rows path, the GPT-2-small
+    LM trained under bf16 on the bf16 flash pair, ResNet-50 trained with
+    fit.remat=auto under remat_reuse, and the quantized ResNet-50 after a
+    calibration pass. With ``profile``, one ResNet-50 forward and one LM
+    step in f32 and under the pipeline, each under torch.profiler."""
+    t0 = time.perf_counter()
+    sym = mt.models.get_resnet(**RESNET)
+    params = resnet_params(sym, seed)
+    out = {"resnet": compile_predict(mt, epi, seed, card, sym, params,
+                                     profile)}
+    out["lm"] = compile_lm(mt, att, seed, card, profile)
+    out["remat"] = compile_remat(mt, seed, card, sym, params)
+    out["quant"] = compile_quant(mt, epi, seed, card, sym, params)
+    out["wall_s"] = time.perf_counter() - t0
+    log("  phase wall %.1f s" % out["wall_s"])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -10525,6 +11230,11 @@ def main(argv=None):
     if "scaffolding" in phases:
         log("[scaffolding]")
         results["scaffolding"] = phase_scaffolding(mt, att, args.seed, card)
+    # 21. the compile pipeline: bf16, layout, remat and quant on the card
+    if "compile" in phases:
+        log("[compile]")
+        results["compile"] = phase_compile(mt, att, epi, args.seed, card,
+                                           profile=args.profile)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -10565,17 +11275,34 @@ def main(argv=None):
     sc_served = scaffold["served"]["launches"]
     sc_fwd = scaffold["trained"]["fwd_launches"]
     sc_bwd = scaffold["trained"]["bwd_launches"]
+    comp = results["compile"]
+    cp_lm = comp["lm"]["launches"]
+    cp_epi = {"resnet_predict_layout_bf16": comp["resnet"]["launches"],
+              "resnet_predict_quant": comp["quant"]["launches"]}
+    bf16_row = next(r for r in timed if r["dtype"] == "bfloat16"
+                    and r["B"] == max(BUCKETS))
+    bwd_bf16 = next(r for r in results["backward_timed"]
+                    if r["dtype"] == "bfloat16" and r["B"] == TRAIN["batch"])
+
+    def times(row, *keys):
+        return {k: row[k] for k in keys}
+
     kernels = {"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxtpu/ops/attention.py:92",
         "launches": served["launches"] + trained["fwd_launches"]
-        + surf_lm["flash_launches"] + sc_served + sc_fwd,
+        + surf_lm["flash_launches"] + sc_served + sc_fwd
+        + sum(v[0] for v in cp_lm.values()),
         "launches_by_path": {"lm_serving": served["launches"],
                              "lm_training": trained["fwd_launches"],
                              "lm_predictor": surf_lm["flash_launches"],
                              "lm_serving_telemetry": sc_served,
-                             "lm_training_tuned": sc_fwd},
+                             "lm_training_tuned": sc_fwd,
+                             "lm_training_compile_f32": cp_lm["f32"][0],
+                             "lm_training_bf16": cp_lm["bf16"][0]},
+        "bf16": times(bf16_row, "max_abs_err", "ms", "plain_ms",
+                      "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -10588,7 +11315,7 @@ def main(argv=None):
         + surface["resnet"]["launches"]
         + sum(rec_launches["epilogue"].values())
         + sum(front_launches.values()) + sum(zoo_launches.values())
-        + sum(rcnn_launches["epilogue"].values()),
+        + sum(rcnn_launches["epilogue"].values()) + sum(cp_epi.values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
@@ -10597,7 +11324,13 @@ def main(argv=None):
                                   surface["resnet"]["launches"]},
                                  **dict(rec_launches["epilogue"],
                                         **front_launches, **zoo_launches,
-                                        **rcnn_launches["epilogue"])),
+                                        **rcnn_launches["epilogue"],
+                                        **cp_epi)),
+        "bf16_rows": times(epi_timed[6], "shape", "axis", "max_abs_err",
+                           "ms", "plain_ms", "bound_ms", "bound_by"),
+        "bf16_to_f32_rows": times(epi_timed[7], "shape", "axis",
+                                  "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by"),
         "max_abs_err": epi_timed[0]["max_abs_err"],
         "ms": epi_timed[0]["ms"], "plain_ms": epi_timed[0]["plain_ms"],
         "bound_ms": epi_timed[0]["bound_ms"],
@@ -10605,9 +11338,14 @@ def main(argv=None):
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "mxtpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "mxtpu/ops/attention.py:199",
-        "launches": trained["bwd_launches"] + sc_bwd,
+        "launches": trained["bwd_launches"] + sc_bwd
+        + sum(v[1] for v in cp_lm.values()),
         "launches_by_path": {"lm_training": trained["bwd_launches"],
-                             "lm_training_tuned": sc_bwd},
+                             "lm_training_tuned": sc_bwd,
+                             "lm_training_compile_f32": cp_lm["f32"][1],
+                             "lm_training_bf16": cp_lm["bf16"][1]},
+        "bf16": times(bwd_bf16, "max_abs_err", "ms", "plain_ms",
+                      "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": bwd_row["max_abs_err"],
         "scaled_err": bwd_row["scaled_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

@@ -55,7 +55,13 @@ series names), ``faults`` (seeded injection points, ``RetryPolicy``),
 ``Module.fit(tuned=...)``), ``engine`` (the native dependency engine),
 ``profiler`` (chrome trace + a ``torch.profiler`` session),
 ``analysis`` (findings and the concurrency witness), ``diagnostics``'
-flight recorder, ``log``, ``name`` and ``registry``.
+flight recorder, ``log``, ``name`` and ``registry``; and the compile
+pipeline: ``compile`` (the one build seam, graph rewrites by name:
+``layout``, ``bf16``, ``quant``, ``fuse_opt``, ``remat_reuse``;
+``compile.quant``'s calibration), ``analysis``' pass web (the verifier
+passes behind ``Symbol.lint``/``Module.check``, the dataflow analyses,
+certification, the fuzzer, the numerics sanitizer) and ``diagnostics``'
+program table.
 """
 from .libinfo import __version__
 from . import base
@@ -82,6 +88,8 @@ from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import executor
+from . import compile  # noqa: A004  (mxtpu's name)
+from .analysis import sanitizer as _sanitizer  # MXTPU_SANITIZE arming
 from . import predict
 from .predict import Predictor
 from . import serving

@@ -5,8 +5,8 @@ Counterpart of ``mxtpu/analysis/declarations.py``: the same levels in
 the same order, so a lock keeps its rank across the two packages, with
 the port's own owners where its classes differ (the image-record
 prefetcher is ``_Prefetcher`` here). Keys of subsystems the port does
-not have yet (decode, elastic, the compile pipeline, diagnostics) stay,
-so the slices that port them find their level declared.
+not have yet (decode, elastic, the device-memory ledger and watchdog)
+stay, so the slices that port them find their level declared.
 :mod:`mxtpu_torch.analysis.concurrency` (the runtime witness) checks
 this hierarchy against real acquisition orders, including acquisitions
 through call indirection.

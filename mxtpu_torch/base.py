@@ -15,6 +15,13 @@ class MXNetError(RuntimeError):
     """Error raised by the framework (parity with python/mxnet/base.py:56)."""
 
 
+class NumericsError(MXNetError):
+    """A NaN/Inf tripped the runtime numerics sanitizer
+    (``MXTPU_SANITIZE``, ``analysis/sanitizer.py``), which writes its
+    postmortem (``source="sanitizer"``) before raising (mxtpu's
+    ``base.NumericsError``)."""
+
+
 def parse_attr(value, proto):
     """Parse a (possibly string) attribute value to the type of ``proto``.
 

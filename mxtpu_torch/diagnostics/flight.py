@@ -24,7 +24,7 @@ import threading
 import time
 
 __all__ = ["FlightRecorder", "recorder", "record", "flight_enabled",
-           "set_flight_enabled"]
+           "set_flight_enabled", "postmortem", "last_postmortem"]
 
 DEFAULT_CAPACITY = int(os.environ.get("MXTPU_DIAG_FLIGHT_CAP", "512"))
 
@@ -94,6 +94,51 @@ def record(kind, name, detail=None):
     r = _RECORDER
     if r is not None:
         r.record(kind, name, detail)
+
+
+_LAST_POSTMORTEM = [None]
+
+
+def postmortem(reason, source="manual", path=None, limit=256):
+    """A structured postmortem from the flight ring (mxtpu's
+    ``diagnostics.postmortem`` without the device-memory ledger and the
+    engine state, which arrive with ROADMAP A.10): the reason, its
+    source, the program cost table and the newest ``limit`` events.
+    Remembered as :func:`last_postmortem`, logged, and written as JSON to
+    ``path`` or ``$MXTPU_DIAG_DUMP_DIR`` when either is given."""
+    import json
+    import logging
+    from .. import telemetry as _tel
+    from .programs import programs as _program_rows
+    r = _RECORDER
+    dump = {"reason": str(reason), "source": source,
+            "time": round(time.time(), 6),
+            "flight": r.snapshot(limit) if r is not None else [],
+            "programs": _program_rows()}
+    _LAST_POSTMORTEM[0] = dump
+    _tel.registry().counter(
+        "diag_postmortems", labels={"source": source},
+        help="structured postmortem dumps emitted").inc()
+    log = logging.getLogger("mxtpu_torch.diagnostics")
+    log.error("postmortem (%s): %s | flight=%d programs=%d", source,
+              reason, len(dump["flight"]), len(dump["programs"]))
+    out = path or os.environ.get("MXTPU_DIAG_DUMP_DIR")
+    if out:
+        fname = os.path.join(out, "mxtpu_postmortem_%d_%d.json" % (
+            os.getpid(), int(time.time() * 1e3))) \
+            if os.path.isdir(out) else out
+        try:
+            with open(fname, "w") as f:
+                json.dump(dump, f, indent=2, default=str)
+            dump["dump_path"] = fname
+        except OSError as exc:
+            log.error("postmortem write failed: %r", exc)
+    return dump
+
+
+def last_postmortem():
+    """The most recent postmortem dict (None if none fired)."""
+    return _LAST_POSTMORTEM[0]
 
 
 def _rewire():

@@ -37,6 +37,19 @@ and ``backward`` (and their replica forms) run in ``executor.forward`` /
 op node, the device synchronized at each so the span covers its
 kernels, and the backward as one ``backward`` span.
 
+The plans are built through the compile pipeline's seam
+(``compile/pipeline.py``; mxtpu :349-445): the inference plan
+(``fwd_eval``) from the pipeline's ``executor_infer`` rewrite of the
+graph, with quant's int8 copies of the weights streamed in
+(``_inject_prepared``), the training plan (``fwd_bwd``, or the
+``fused_step`` a ``FusedTrainStep`` installs with its one transform and
+its rematerialization), each built once per pipeline config and
+calibration state and counted by ``executor_program_builds{kind=}``;
+a hit counts ``executor_program_cache_hits``. Under the bf16 rewrite the
+epilogue fuses a BatchNorm -> ReLU pair through the casts around it.
+A walk drops each value after its last reader, so only what autograd
+saves outlives its use.
+
 ``forward_replicas`` and ``backward_replicas`` run several executors of
 one symbol, each bound on its slice of a batch on its own device, as one
 function of the whole batch: the plan is walked over the replicas in
@@ -50,6 +63,7 @@ of the whole batch under GSPMD (mxtpu/module/fused.py:235-255).
 """
 from __future__ import annotations
 
+import collections
 import time
 
 import torch
@@ -57,6 +71,7 @@ import torch
 from . import profiler as _prof
 from . import telemetry as _tel
 from .base import MXNetError
+from .compile import pipeline as _pipeline
 from .context import as_context, current_context
 from .ndarray import NDArray
 from .ops.collective import gather_split
@@ -65,6 +80,33 @@ from .ops.registry import torch_dtype, write_aux
 
 __all__ = ["Executor", "simple_bind", "forward_replicas",
            "backward_replicas", "eager_run_range"]
+
+# standing series: registry-direct so it exists for /metrics even when
+# MXTPU_TELEMETRY=0 was set at import (mxtpu/executor.py:81)
+_M_CACHE_HITS = _tel.registry().counter(
+    "executor_program_cache_hits",
+    help="per-executor program-table hits (no rebuild)")
+
+
+def _version(t):
+    """A tensor's in-place version counter (None for an inference tensor,
+    which keeps none)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
+def _amp_cast(node, dtype):
+    """Whether ``node`` is one of the bf16 rewrite's boundary casts to
+    ``dtype`` ("float32" up, "bfloat16" down: ``analysis.rewrite``'s
+    ``*_f32_amp``/``*_bf16_amp`` Cast nodes; mxtpu's
+    ``equiv._is_amp_cast``)."""
+    if node.is_variable or node.op.name != "Cast":
+        return False
+    suffix = "_f32_amp" if dtype == "float32" else "_bf16_amp"
+    return node.name.endswith(suffix) and \
+        str(node.attrs.get("dtype")) == dtype
 
 
 def _fusable_bn(node, consumers, graph_outputs):
@@ -83,6 +125,35 @@ def _fusable_bn(node, consumers, graph_outputs):
     return users[0]
 
 
+def _epilogue_site(node, consumers, graph_outputs):
+    """One fused BatchNorm -> ReLU step of an inference plan, or None:
+    ``(relu, source entry, cast in, out node, out dtype)``. Under the
+    bf16 rewrite the BatchNorm is an f32 island between casts (mxtpu's
+    ``Cast(f32) -> BatchNorm -> ReLU [-> Cast(bf16)]``): the step reads
+    the up-cast's bf16 input (the up-cast is exact), and where the ReLU's
+    one consumer is a down-cast it writes that cast's bf16 output (one
+    rounding of the f32 result, as the cast rounds). ``cast in`` is the
+    up-cast when the BatchNorm is its only consumer (its step is then
+    dropped), else None; ``out node`` is the node whose output slot the
+    step writes (the ReLU or its down-cast)."""
+    relu = _fusable_bn(node, consumers, graph_outputs)
+    if relu is None:
+        return None
+    src, idx = node.inputs[0]
+    cast_in, dtype = None, None
+    if _amp_cast(src, "float32"):
+        if len(consumers.get(id(src), [])) == 1:
+            cast_in = src
+        src, idx = src.inputs[0]
+        dtype = torch.float32   # the island's f32, whatever x's type
+    out = relu
+    users = consumers.get(id(relu), [])
+    if (id(relu), 0) not in graph_outputs and len(users) == 1 and \
+            _amp_cast(users[0], "bfloat16"):
+        out, dtype = users[0], torch.bfloat16
+    return relu, (id(src), idx), cast_in, out, dtype
+
+
 def _aux_sources(node, attrs):
     """[(position among the op's aux values, name of the aux variable
     that feeds it)] of an op node with aux_names."""
@@ -96,7 +167,7 @@ def _aux_sources(node, attrs):
 
 
 def _trace_graph(symbol, is_train, fuse=True, placements=None,
-                 default_device=None):
+                 default_device=None, remat=None):
     """Return ``run(arg_vals, aux_vals) -> (outputs, aux_updates)`` for
     ``symbol``; ``aux_updates`` maps an aux variable's name to the value
     the op it feeds computed for it in a training run (later writers
@@ -104,14 +175,23 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
 
     The plan (topo order, parsed attrs, input slots) is built once here,
     so a forward only walks a list. At inference each fusable
-    ``BatchNorm -> Activation(relu)`` pair (``_fusable_bn``) becomes one
-    step, ``nn.bn_relu_inference``, that writes the ReLU's output slot:
-    the executor's counterpart of the fusion XLA builds for the JAX
-    package. ``run.fused_sites`` counts those pairs; ``run.replicas``
-    walks the plan over several replicas in lockstep
-    (``forward_replicas``). ``fuse=False`` keeps
-    an inference plan unfused, for a caller that differentiates it (the
-    epilogue kernel has no gradient); training plans never fuse.
+    ``BatchNorm -> Activation(relu)`` pair (``_epilogue_site``, through
+    the bf16 rewrite's casts around the BatchNorm) becomes one step,
+    ``nn.bn_relu_inference``, that writes the ReLU's (or its down-cast's)
+    output slot: the executor's counterpart of the fusion XLA builds for
+    the JAX package. ``run.fused_sites`` counts those pairs;
+    ``run.replicas`` walks the plan over several replicas in lockstep
+    (``forward_replicas``). ``fuse=False`` keeps an inference plan
+    unfused, for a caller that differentiates it (the epilogue kernel has
+    no gradient); training plans never fuse.
+
+    ``remat`` (training): ``(cuts, hot)`` walks the plan in segments
+    that end at the nodes of ``cuts`` (the graph's block boundaries,
+    ``_block_boundaries``); each segment that holds a node of ``hot``
+    (every segment, where ``hot`` is None) runs under ``torch.utils.
+    checkpoint``, which keeps only its inputs, so the backward recomputes
+    one segment at a time: the port's form of mxtpu's ``jax.checkpoint``
+    policies (module/fused.py:640-675).
 
     ``placements`` (group2ctx: a ``__ctx_group__`` name -> torch.device)
     puts each node on its group's device, and every other op node on
@@ -129,14 +209,27 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
     for node in topo:
         for n, _ in node.inputs:
             consumers.setdefault(id(n), []).append(node)
-    fused_into = set()  # ids of the Activation nodes folded into a BN step
+    sites = {}
+    skipped = set()  # ids of the nodes folded into an epilogue step
+    if fuse:
+        for node in topo:
+            if node.is_variable:
+                continue
+            site = _epilogue_site(node, consumers, graph_outputs)
+            if site is not None:
+                sites[id(node)] = site
+                relu, _src, cast_in, out, _dt = site
+                skipped.update(id(n) for n in (relu, cast_in, out)
+                               if n is not None)
+    # a step: (node, attrs, input entries, visible outputs, the fused
+    # epilogue's output entry, its out dtype, aux outputs, device)
     plan = []
     placements = placements or {}
     for node in topo:
         if node.is_variable:
-            plan.append((node, None, None, None, None, (), None))
+            plan.append((node, None, None, None, None, None, (), None))
             continue
-        if id(node) in fused_into:
+        if id(node) in skipped:
             continue
         attrs = node.parsed_attrs()
         if "__is_train__" in node.op.attrs_spec:
@@ -145,41 +238,58 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
         ins = [(id(n), i) for n, i in node.inputs]
         dev = placements.get(node._extra_attrs.get("__ctx_group__"),
                              default_device) if placements else None
-        relu = _fusable_bn(node, consumers, graph_outputs) \
-            if fuse else None
-        if relu is not None:
-            fused_into.add(id(relu))
-            plan.append((node, attrs, ins, 1, (id(relu), 0), (), dev))
+        site = sites.get(id(node))
+        if site is not None:
+            _relu, src, _cast_in, out, dtype = site
+            plan.append((node, attrs, [src] + ins[1:], 0, (id(out), 0),
+                         dtype, (), dev))
         else:
             aux = _aux_sources(node, attrs) \
                 if is_train and node.op.aux_names else ()
-            plan.append((node, attrs, ins, node.op.n_out(attrs), None, aux,
-                         dev))
+            plan.append((node, attrs, ins, node.op.n_out(attrs), None, None,
+                         aux, dev))
     out_entries = [(id(n), i) for n, i in symbol._outputs]
+    # each entry's last reader: the walk drops it from its env after that
+    # step, so a value lives only as long as the graph needs it (or as
+    # autograd keeps it) and not to the end of the walk
+    last = {}
+    for i, entry in enumerate(plan):
+        for k in entry[2] or ():
+            last[k] = i
+    for k in out_entries:
+        last[k] = len(plan)
+    free_after = [[] for _ in plan]
+    for k, i in last.items():
+        if i < len(plan):
+            free_after[i].append(k)
+    segments, checkpointed = [(0, len(plan))], set()
+    if remat is not None:
+        (cuts, hot), segments, lo = remat, [], 0
+        for i, entry in enumerate(plan):
+            if id(entry[0]) in cuts:
+                segments.append((lo, i + 1))
+                lo = i + 1
+        if lo < len(plan):
+            segments.append((lo, len(plan)))
+        checkpointed = {seg for seg in segments if hot is None or any(
+            id(plan[i][0]) in hot for i in range(*seg))}
+    # the values each segment reads (those made before it are handed in
+    # as a snapshot: its recompute in the backward reads them again after
+    # the walk has dropped them)
+    reads = {seg: {k for i in range(*seg) for k in plan[i][2] or ()}
+             for seg in segments}
 
-    def run_replicas(arg_list, aux_list, devices=None, hook=None,
-                     layout=None):
-        """The plan over replicas in lockstep, one value set per replica
-        (one: the plain walk): ([outputs of each], [aux_updates of
-        each]). Over several, each op runs by its ``replica_mode``.
-        ``devices``: each replica's device, for the ops with no tensor
-        inputs (default: each replica's first argument's). ``hook(node,
-        n_vis, outputs)`` sees each unfused op step's outputs (the first
-        replica's). ``layout`` (a ``parallel.mesh.ReplicaLayout``): the
-        replicas hold blocks of the parameters it splits, and tp peers
-        the same rows; an op that such a parameter reaches runs by its
-        ``tp_fn``, or on the parameter gathered right before it
-        (``_split_inputs``), and a ``group`` op runs once per row group
-        (the replicas that share a tp index)."""
-        if placements and len(arg_list) > 1:
-            raise MXNetError("group2ctx placement runs one replica")
-        if devices is None:
-            devices = [next((t.device for t in args.values()),
-                            torch.device("cpu")) for args in arg_list]
-        envs = [{} for _ in arg_list]
-        updates = [{} for _ in arg_list]
+    def steps(lo, hi, envs, updates, bound, hook, layout):
+        """Run plan entries ``[lo, hi)`` into ``envs`` (one per replica),
+        each value dropped after its last reader; ``bound`` is (each
+        replica's device, its argument values, its aux values). Returns
+        the cross-device copies made."""
+        devices, arg_list, aux_list = bound
         copies = 0
-        for node, attrs, ins, n_vis, fused_out, aux, dev in plan:
+        for step in range(lo, hi):
+            (node, attrs, ins, n_vis, fused_out, out_dtype, aux,
+             dev) = plan[step]
+            _drop(envs, free_after[step - 1] if step > lo else ())
             if attrs is None:
                 for env, args, auxs in zip(envs, arg_list, aux_list):
                     src = auxs if id(node) in aux_nodes else args
@@ -198,11 +308,12 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
                                              fused_out is None)
             if fused_out is not None:
                 for env, x in zip(envs, inputs):
-                    env[fused_out] = bn_relu_inference(attrs, *x)
+                    env[fused_out] = bn_relu_inference(
+                        attrs, *x, out_dtype=out_dtype)
                 continue
             if outs is None:
-                outs = _replica_outputs(node, attrs, inputs, devices, dev,
-                                        layout)
+                outs = _replica_outputs(node, attrs, inputs, devices,
+                                        dev, layout)
             for env, upd, o in zip(envs, updates, outs):
                 for i in range(n_vis):
                     env[(id(node), i)] = o[i]
@@ -210,19 +321,123 @@ def _trace_graph(symbol, is_train, fuse=True, placements=None,
                     upd[name] = o[n_vis + j]
             if hook is not None:
                 hook(node, n_vis, outs[0])
+        if hi > lo:
+            _drop(envs, free_after[hi - 1])
+        return copies
+
+    def segment(lo, hi, envs, bound, layout):
+        """One checkpointed segment: the entries it makes that later
+        steps read, and its aux updates, written apart from ``envs`` (a
+        recompute in the backward runs it again and must leave the walk's
+        values alone)."""
+        views = [collections.ChainMap({}, env) for env in envs]
+        updates = [{} for _ in envs]
+        copies = steps(lo, hi, views, updates, bound, None, layout)
+        return [v.maps[0] for v in views], updates, copies
+
+    def walk(arg_list, aux_list, devices, hook, layout):
+        envs = [{} for _ in arg_list]
+        updates = [{} for _ in arg_list]
+        bound = (devices, arg_list, aux_list)
+        if remat is None or hook is not None or \
+                not torch.is_grad_enabled():
+            copies = steps(0, len(plan), envs, updates, bound, hook,
+                           layout)
+        else:
+            from torch.utils.checkpoint import checkpoint
+            copies = 0
+            for lo, hi in segments:
+                if (lo, hi) not in checkpointed:
+                    copies += steps(lo, hi, envs, updates, bound, None,
+                                    layout)
+                    continue
+                snap = [{k: env[k] for k in reads[(lo, hi)] if k in env}
+                        for env in envs]
+                new, upd, c = checkpoint(segment, lo, hi, snap, bound,
+                                         layout, use_reentrant=False)
+                for env, n in zip(envs, new):
+                    env.update(n)
+                # the outer values this segment read last
+                _drop(envs, [k for i in range(lo, hi)
+                             for k in free_after[i]])
+                for u, n in zip(updates, upd):
+                    u.update(n)
+                copies += c
         run.copies = copies
         return [[env[e] for e in out_entries] for env in envs], updates
 
+    def run_replicas(arg_list, aux_list, devices=None, hook=None,
+                     layout=None):
+        """The plan over replicas in lockstep, one value set per replica
+        (one: the plain walk): ([outputs of each], [aux_updates of
+        each]). Over several, each op runs by its ``replica_mode``.
+        ``devices``: each replica's device, for the ops with no tensor
+        inputs (default: each replica's first argument's). ``hook(node,
+        n_vis, outputs)`` sees each unfused op step's outputs (the first
+        replica's). ``layout`` (a ``parallel.mesh.ReplicaLayout``): the
+        replicas hold blocks of the parameters it splits, and tp peers
+        the same rows; an op that such a parameter reaches runs by its
+        ``tp_fn``, or on the parameter gathered right before it
+        (``_split_inputs``), and a ``group`` op runs once per row group
+        (the replicas that share a tp index). A rematerialized plan
+        (``remat``) runs in checkpointed segments unless a hook watches
+        it (a hook would see the backward's recompute too)."""
+        if placements and len(arg_list) > 1:
+            raise MXNetError("group2ctx placement runs one replica")
+        if devices is None:
+            devices = [next((t.device for t in args.values()),
+                            torch.device("cpu")) for args in arg_list]
+        return walk(arg_list, aux_list, devices, hook, layout)
+
     def run(arg_vals, aux_vals, device=None, hook=None):
-        outs, updates = run_replicas([arg_vals], [aux_vals],
+        outs, updates = run.replicas([arg_vals], [aux_vals],
                                      None if device is None else [device],
                                      hook=hook)
         return outs[0], updates[0]
 
-    run.fused_sites = len(fused_into)
+    run.fused_sites = len(sites)
     run.replicas = run_replicas
     run.copies = 0
     return run
+
+
+def _drop(envs, keys):
+    """Forget ``keys`` in every env (a segment's view drops only what it
+    made itself)."""
+    for env in envs:
+        own = env.maps[0] if isinstance(env, collections.ChainMap) else env
+        for k in keys:
+            own.pop(k, None)
+
+
+def _block_boundaries(symbol):
+    """Node ids of the graph's dataflow cut vertices (mxtpu
+    executor.py:84-117): op nodes past which no earlier intermediate is
+    live; a run of directly chained cuts collapsed to its most
+    downstream node; graph outputs left out. In ResNet these are the
+    activations after each residual join."""
+    topo = symbol._topo()
+    idx = {id(n): i for i, n in enumerate(topo)}
+    last_use = {}
+    for n in topo:
+        for src, _ in n.inputs:
+            if not src.is_variable:
+                last_use[id(src)] = max(last_use.get(id(src), -1),
+                                        idx[id(n)])
+    cuts = []
+    live_horizon = -1
+    for i, n in enumerate(topo):
+        if not n.is_variable and live_horizon <= i:
+            cuts.append(n)
+        live_horizon = max(live_horizon, last_use.get(id(n), -1))
+    cut_ids = {id(n) for n in cuts}
+    for n in cuts:
+        srcs = [s_ for s_, _ in n.inputs if not s_.is_variable]
+        if len(srcs) == 1 and id(srcs[0]) in cut_ids:
+            cut_ids.discard(id(srcs[0]))
+    for n, _ in symbol._outputs:
+        cut_ids.discard(id(n))
+    return cut_ids
 
 
 def _replica_outputs(node, attrs, inputs, devices, dev, layout):
@@ -328,6 +543,17 @@ class Executor:
         self.outputs = []
         self.cross_device_copies = 0  # inputs moved in the last forward
         self._runs = {}     # (is_train, fuse) -> the plan's run function
+        self._runs_config = None  # the pipeline config the table is for
+        self._xform = {}    # (config, infer) -> (symbol, PipelineReport)
+        self.pipeline_report = None
+        self._prepared_args = {}  # quant's {new arg: {src, scale, axis}}
+        # src name -> (source tensor, its version, int8 copy)
+        self._prep_cache = {}
+        # src name -> (the tensor the scales came from, its version)
+        self._prep_src = {}
+        # the training program a FusedTrainStep installed: (kind, symbol,
+        # PipelineReport or None, remat policy or None)
+        self._train_program = None
         self._tape = None   # (outputs with their graph, {name: leaf})
         self._monitor_callback = None
         self._profiled = False  # the last training forward was profiled
@@ -342,14 +568,184 @@ class Executor:
                     raise MXNetError("%s: missing array for '%s'" % (what, n))
         return out
 
+    # -------------------------------------------------- program table
+    def _program_symbol(self, names, infer=False):
+        """The graph the plans are built from: the bind symbol run through
+        the compile pipeline (mxtpu :349-400). With the pipeline empty —
+        the default — this IS ``self._symbol``. The transform result is
+        cached per (pipeline config, inference flag): ``infer`` builds tag
+        the pipeline ``kind="executor_infer"`` and expose the bound
+        parameter values, which licenses inference-only rewrites (the
+        quant pass scales weights off them); training builds keep
+        ``kind="executor"`` and the f32 masters."""
+        key = (names, bool(infer))
+        hit = self._xform.get(key)
+        if hit is not None:
+            sym, report = hit
+            self.pipeline_report = report
+            if infer:
+                self._prepared_args = report.prepared_args \
+                    if report is not None else {}
+            return sym
+        values = None
+        if not names:
+            sym, report = self._symbol, None
+        else:
+            shapes = {n: tuple(v.shape)
+                      for d in (self.arg_dict, self.aux_dict)
+                      for n, v in d.items() if v is not None}
+            types = {n: v.dtype
+                     for d in (self.arg_dict, self.aux_dict)
+                     for n, v in d.items() if v is not None}
+            if infer:
+                values = {n: v._data for n, v in self.arg_dict.items()
+                          if v is not None}
+            sym, report = _pipeline.transform_graph(
+                self._symbol,
+                kind="executor_infer" if infer else "executor",
+                shapes=shapes, types=types, values=values)
+        self._xform[key] = (sym, report)
+        self.pipeline_report = report
+        if infer:
+            self._prepared_args = report.prepared_args \
+                if report is not None else {}
+            self._prep_cache = {}
+            self._prep_src = {
+                spec["src"]: (values[spec["src"]],
+                              _version(values[spec["src"]]))
+                for spec in self._prepared_args.values()
+                if values and spec["src"] in values}
+        return sym
+
+    def set_train_program(self, kind, symbol, report=None, remat=None):
+        """Build the training plan from ``symbol`` under ``kind`` (a
+        FusedTrainStep's transformed graph, ``fused_step``) instead of
+        the executor's own ``fwd_bwd`` graph, with ``remat`` (see
+        ``_trace_graph``); ``None`` restores the executor's own."""
+        self._train_program = None if kind is None else \
+            (kind, symbol, report, remat)
+        self._runs.pop((True, False), None)
+
     def _run(self, is_train, fuse=True):
+        """The plan for a forward: the inference program (``fwd_eval``:
+        fused, built from the pipeline's ``executor_infer`` graph), the
+        training program (``fwd_bwd``, or the ``fused_step`` a fused step
+        installed), or the monitor's unfused walk of the bind symbol. The
+        program table is valid for one pipeline config and calibration
+        state (mxtpu :403-445): a change drops it, and a quantized plan
+        is rebuilt when a parameter it scaled was swapped for another
+        tensor."""
+        from .compile import quant as _quant
+        names = _pipeline.configured()
+        cfg = (names, _quant.calibrating())
+        if self._runs_config != cfg:
+            self._runs = {}
+            self._runs_config = cfg
         key = (is_train, fuse and not is_train)
+        if key == (False, True) and self._prepared_args:
+            # a quantized plan bakes its weight scales into the graph: a
+            # parameter swapped for another tensor, or written in place
+            # (``copy_params_from``, ``set_params``: its version moves),
+            # rebuilds and re-quantizes from the new weights
+            for src, (built, version) in self._prep_src.items():
+                nd = self.arg_dict.get(src)
+                if nd is not None and (nd._data is not built or
+                                       _version(nd._data) != version):
+                    self._runs.pop(key, None)
+                    self._xform.pop((names, True), None)
+                    break
         run = self._runs.get(key)
-        if run is None:
-            run = self._runs[key] = _trace_graph(
-                self._symbol, is_train, fuse=fuse,
-                placements=self._placements, default_device=self._device)
+        if run is not None:
+            if key != (False, False):
+                _M_CACHE_HITS.inc()
+            return run
+        if key == (False, False):
+            # the monitor's per-op walk of the bind graph: not a program
+            run = _trace_graph(self._symbol, False, fuse=False,
+                               placements=self._placements,
+                               default_device=self._device)
+            self._runs[key] = run
+            return run
+        remat, calib_heads = None, None
+        if is_train and self._train_program is not None:
+            kind, symbol, report, remat = self._train_program
+            self.pipeline_report = report
+        else:
+            kind = "fwd_bwd" if is_train else "fwd_eval"
+            symbol = self._program_symbol(names, infer=not is_train)
+        _pipeline.notify_build(kind, self)
+        report = self.pipeline_report
+        if not is_train and _quant.calibrating():
+            entries = self._calib_entries(symbol)
+            if entries:
+                from .symbol.symbol import Symbol as _Sym
+                calib_heads = tuple(nm for nm, _n, _i in entries)
+                symbol = _Sym(list(symbol._outputs)
+                              + [(n, i) for _nm, n, i in entries])
+        run = _trace_graph(symbol, is_train, fuse=True,
+                           placements=self._placements,
+                           default_device=self._device, remat=remat)
+        run.replicas = _pipeline.instrument_program(
+            kind, run.replicas, owner=self,
+            precision=report.precision if report is not None else None,
+            transforms=report.transforms if report is not None else None,
+            calib_heads=calib_heads,
+            cert=report.cert if report is not None else None)
+        self._runs[key] = run
         return run
+
+    def _calib_entries(self, symbol):
+        """Observation heads for int8 activation calibration: the entries
+        ``quant_plan`` wants watched, planned on the bind symbol (stable
+        names) and located by producer name in the plan's ``symbol``
+        (mxtpu :546-575). ``[(entry_name, node, idx)]`` in plan order."""
+        from .analysis import dataflow as _df
+        from .tune import registry as _knobs
+        shapes = {n: tuple(v.shape)
+                  for d in (self.arg_dict, self.aux_dict)
+                  for n, v in d.items() if v is not None}
+        types = {n: v.dtype
+                 for d in (self.arg_dict, self.aux_dict)
+                 for n, v in d.items() if v is not None}
+        plan = _df.quant_plan(
+            self._symbol, shapes=shapes, types=types,
+            min_layer_elems=int(_knobs.resolve("quant.min_layer_elems")))
+        if not plan.observe:
+            return []
+        byname = {}
+        for n in symbol._topo():
+            if not n.is_variable:
+                byname.setdefault(n.name, n)
+        out = []
+        for name, node, idx in plan.observe:
+            n2 = byname.get(node.name)
+            if n2 is not None:
+                out.append((name, n2, idx))
+        return out
+
+    def _inject_prepared(self, raw_args):
+        """Swap quant's prepared arguments into the inference feed: each
+        quantized weight's f32 master is replaced by its int8 copy
+        (quantized once per source tensor) under the rewrite's new
+        argument name (mxtpu :577-598). No-op without an applied quant
+        rewrite."""
+        prep = self._prepared_args
+        if not prep:
+            return raw_args
+        from .compile import quant as _quant
+        out = dict(raw_args)
+        for new, spec in prep.items():
+            cur = out.pop(spec["src"], None)
+            if cur is None:
+                continue
+            cached = self._prep_cache.get(spec["src"])
+            if cached is None or cached[0] is not cur or \
+                    cached[1] != _version(cur):
+                cached = (cur, _version(cur), _quant.quantize_array(
+                    cur, spec["scale"], spec["axis"]))
+                self._prep_cache[spec["src"]] = cached
+            out[new] = cached[2]
+        return out
 
     def _monitor_hook(self):
         """The walk's hook that hands the monitor callback each op's
@@ -443,6 +839,8 @@ class Executor:
         if not is_train:
             raw_args, raw_aux = self._inputs(kwargs)
             run = self._run(False, fuse=hook is None)
+            if hook is None:
+                raw_args = self._inject_prepared(raw_args)
             with torch.inference_mode():
                 outs, _ = run(raw_args, raw_aux, self._device, hook=hook)
             self.cross_device_copies = run.copies
@@ -575,9 +973,11 @@ class Executor:
             if name in grads:
                 grads[name] = NDArray(torch.zeros_like(args[name]._data),
                                       old.context)
-        return Executor(self._symbol, self._ctx, args, args_grad=grads,
-                        grad_req=self.grad_req, aux_states=self.aux_dict,
-                        group2ctx=self._group2ctx)
+        new = Executor(self._symbol, self._ctx, args, args_grad=grads,
+                       grad_req=self.grad_req, aux_states=self.aux_dict,
+                       group2ctx=self._group2ctx)
+        new._train_program = self._train_program
+        return new
 
     @staticmethod
     def simple_bind(symbol, ctx=None, grad_req="write", type_dict=None,
@@ -611,11 +1011,14 @@ def forward_replicas(executors, layout=None, is_train=True):
 def _forward_replicas(executors, layout, is_train):
     devices = [ex._device for ex in executors]
     if not is_train:
+        run = executors[0]._run(False)
+        for ex in executors[1:]:
+            ex._prepared_args = executors[0]._prepared_args
         ins = [ex._inputs({}) for ex in executors]
         with torch.inference_mode():
-            outs, _ = executors[0]._run(False).replicas(
-                [a for a, _ in ins], [x for _, x in ins], devices,
-                layout=layout)
+            outs, _ = run.replicas(
+                [ex._inject_prepared(a) for ex, (a, _) in zip(executors, ins)],
+                [x for _, x in ins], devices, layout=layout)
         for ex, o in zip(executors, outs):
             ex.outputs = [ex._wrap(t) for t in o]
         return [ex.outputs for ex in executors]

@@ -136,7 +136,6 @@ UNREACHED = {
     "serving.decode.evict": "A.11 (the rest of serving)",
     "serving.decode.prefill": "A.11 (the rest of serving)",
     "serving.decode.block_alloc": "A.11 (the rest of serving)",
-    "quant.calibration_load": "A.9 (the compile pipeline)",
 }
 
 _KINDS = ("raise", "errno", "latency", "kill")

@@ -202,7 +202,8 @@ class Accuracy(EvalMetric):
             lab = label.to(torch.int32).reshape(-1)
             return (pred == lab).sum().to(torch.float32)
 
-        return DeviceKernel(sum_fn, lambda label, pred: label.numel())
+        return DeviceKernel(sum_fn, lambda label, pred: label.numel(),
+                            key=("Accuracy", axis))
 
 
 @register
@@ -242,7 +243,8 @@ class TopKAccuracy(EvalMetric):
             top = order[:, num_classes - k:].to(torch.int32)
             return (top == lab[:, None]).sum().to(torch.float32)
 
-        return DeviceKernel(sum_fn, lambda label, pred: int(pred.shape[0]))
+        return DeviceKernel(sum_fn, lambda label, pred: int(pred.shape[0]),
+                            key=("TopKAccuracy", want_k))
 
 
 @register
@@ -301,7 +303,8 @@ class _Regression(EvalMetric):
         def sum_fn(label, pred):
             return err(_column(label) - pred).to(torch.float32)
 
-        return DeviceKernel(sum_fn, lambda label, pred: 1)
+        return DeviceKernel(sum_fn, lambda label, pred: 1,
+                            key=(type(self).__name__,))
 
 
 @register
@@ -379,7 +382,7 @@ class Loss(EvalMetric):
     def device_kernel(self):
         return DeviceKernel(lambda label, pred: torch.sum(pred).to(
             torch.float32), lambda label, pred: pred.numel(),
-            needs_label=False)
+            needs_label=False, key=("Loss",))
 
 
 @register
@@ -479,7 +482,8 @@ class CrossEntropy(EvalMetric):
             prob = pred.gather(1, lab[:, None])[:, 0].to(torch.float32)
             return torch.sum(-torch.log(prob + eps))
 
-        return DeviceKernel(sum_fn, lambda label, pred: label.numel())
+        return DeviceKernel(sum_fn, lambda label, pred: label.numel(),
+                            key=("CrossEntropy", eps))
 
 
 class DeviceKernel:
@@ -487,14 +491,20 @@ class DeviceKernel:
     batch's partial sum as a 0-d f32 tensor on the pred's device (queued,
     not waited for); ``count_fn(label, pred)`` the matching instance
     count, from shapes, on the host. A metric that reads no labels
-    (``Loss``) sets ``needs_label=False`` and gets None for them."""
+    (``Loss``) sets ``needs_label=False`` and gets None for them.
+    ``key`` names the recipe (mxtpu's, metric.py:471-491): accumulators
+    whose kernels all have keys share one built program process-wide."""
 
-    __slots__ = ("sum_fn", "count_fn", "needs_label")
+    __slots__ = ("sum_fn", "count_fn", "needs_label", "key")
 
-    def __init__(self, sum_fn, count_fn, needs_label=True):
+    def __init__(self, sum_fn, count_fn, needs_label=True, key=None):
         self.sum_fn = sum_fn
         self.count_fn = count_fn
         self.needs_label = needs_label
+        self.key = key
+
+
+_ACCUM_FN_CACHE = {}  # kernel-recipe keys -> the built accumulate program
 
 
 def _flatten_metrics(metric):
@@ -537,6 +547,7 @@ class DeviceMetricAccum:
         return cls(metric, children, kernels)
 
     def _zero(self):
+        self._fn = getattr(self, "_fn", None)
         self._sums = [{} for _ in self.children]  # device -> sum
         self._counts = [0] * len(self.children)
         self._pending = False
@@ -553,19 +564,47 @@ class DeviceMetricAccum:
         preds = [getattr(x, "_data", x) for x in (preds or [])]
         if any(k.needs_label for k in self.kernels):
             check_label_shapes(labels, preds)
+        if self._fn is None:
+            self._fn = self._build_fn()
         with torch.no_grad():
+            parts = self._fn(labels, preds)
             for i, k in enumerate(self.kernels):
+                sums = self._sums[i]
                 pairs = zip(labels, preds) if k.needs_label else \
                     ((None, p) for p in preds)
-                for lab, p in pairs:
-                    if lab is not None:
-                        lab = lab.to(p.device, non_blocking=True)
-                    part = k.sum_fn(lab, p)
-                    sums = self._sums[i]
+                for (lab, p), part in zip(pairs, parts[i]):
                     sums[p.device] = part if p.device not in sums \
                         else sums[p.device] + part
                     self._counts[i] += int(k.count_fn(lab, p))
         self._pending = True
+
+    def _build_fn(self):
+        """The accumulate program (each kernel's partial sums of a batch),
+        built through the compile pipeline's build seam as
+        ``metric_accum``, once per kernel recipe process-wide when every
+        kernel has a key (mxtpu :574-600)."""
+        from .compile import pipeline as _pipeline
+        cache_key = tuple(k.key for k in self.kernels)
+        cacheable = all(k.key is not None for k in self.kernels)
+        if cacheable and cache_key in _ACCUM_FN_CACHE:
+            return _ACCUM_FN_CACHE[cache_key]
+        kernels = self.kernels
+
+        def accumulate(labels, preds):
+            out = []
+            for k in kernels:
+                pairs = zip(labels, preds) if k.needs_label else \
+                    ((None, p) for p in preds)
+                out.append([k.sum_fn(None if lab is None else
+                                     lab.to(p.device, non_blocking=True), p)
+                            for lab, p in pairs])
+            return out
+
+        fn = _pipeline.record_program_build("metric_accum", self,
+                                            accumulate)
+        if cacheable:
+            _ACCUM_FN_CACHE[cache_key] = fn
+        return fn
 
     def sync(self):
         """The one host round trip: fold the device sums (each device's

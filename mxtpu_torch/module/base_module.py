@@ -99,7 +99,11 @@ def _metric_sync(callbacks, tuned=None):
 class _Pacer:
     """Keeps at most ``limit`` training steps queued on the device: one
     CUDA event per step, waiting on the oldest when the window is full.
-    On the CPU a step is done when it returns, so nothing is kept."""
+    On the CPU a step is done when it returns: the window still counts
+    its steps and "waits" on the oldest (a wait that returns at once), so
+    the waits, the ``executor.device_wait`` fault point and
+    ``fit_sync_wait_ms`` see what mxtpu's window sees on any device
+    (mxtpu/module/base_module.py:519-530)."""
 
     def __init__(self, limit, device, wait_ms=None):
         self.limit = max(1, int(limit))
@@ -111,16 +115,18 @@ class _Pacer:
         """Record the step's event; wait for the oldest while more than
         ``limit`` are queued. Returns the ms spent waiting, each wait
         observed into ``fit_sync_wait_ms``."""
-        if not self.cuda:
-            return 0.0
-        ev = torch.cuda.Event()
-        ev.record()
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
         self._events.append(ev)
         waited = 0.0
         while len(self._events) > self.limit:
             t0 = time.perf_counter()
             _faults.point("executor.device_wait")
-            self._events.popleft().synchronize()
+            oldest = self._events.popleft()
+            if oldest is not None:
+                oldest.synchronize()
             w = (time.perf_counter() - t0) * 1e3
             if self._wait_ms is not None:
                 self._wait_ms.observe(w)
@@ -144,6 +150,18 @@ class BaseModule:
     @property
     def symbol(self):
         return self._symbol
+
+    def check(self, passes=None, pipeline=None):
+        """Run the analysis verifier passes with everything this module
+        knows — the bound data/label shapes, the provided parameter names
+        (unused-arg detection), and the live fused train step (the
+        in-place update audit) — and return a
+        :class:`~mxtpu_torch.analysis.Report` (mxtpu :640-654).
+        ``pipeline`` (a transform-name list, comma string, or True for
+        the configured pipeline) additionally dry-runs the compile
+        pipeline's transforms and merges what each did."""
+        from ..analysis import check_module
+        return check_module(self, passes=passes, pipeline=pipeline)
 
     def _host_round_trip(self):
         return False

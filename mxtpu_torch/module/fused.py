@@ -3,10 +3,12 @@
 Counterpart of ``mxtpu/module/fused.py``: the update rules ``_rule_sgd``,
 ``_rule_nag``, ``_rule_adam``, ``_rule_rmsprop``, ``_rule_adagrad``
 (:64-165) and ``FusedTrainStep`` with its cross-replica weight-update
-sharding (:242-260, 620-632, 708-710, 767-787) and the state shared by
+sharding (:242-260, 620-632, 708-710, 767-787), the state shared by
 the steps of a BucketingModule's buckets (``state=``, ``adopt_state``),
-without its health taps,
-rematerialization or update groups. The JAX package traces forward,
+the compile pipeline's one transform of the training graph at
+construction (:281-295, with the drift warning), rematerialization
+(``fit.remat``, :327-406) and the fuse_opt update classes (:408,
+:514-560), without its health taps. The JAX package traces forward,
 backward and the update of every parameter into one donated XLA program
 (``step`` :634-718, :794-864). Eagerly there is no program to fuse them
 into: the forward and backward are the executor's, and what is left here
@@ -16,18 +18,26 @@ collective, then updates every replica from that sum. Under a
 ``ShardingPlan`` the parameters whose optimizer state shards over
 ``data`` take the sharded route instead: one reduce-scatter of their
 gradients, each replica's rule on its 1/n of their rows, one all-gather
-of the updated rows. The rules call the optimizer's update functions, so
-they round as the Updater does. Per-parameter lr and wd come from the
+of the updated rows. SGD and Adam update a list of parameters in one
+foreach call an op (each fuse_opt update class, then the rest), the
+optimizer's single-tensor op chain in its order, so every parameter
+rounds as on the Updater; the other rules call the optimizer's update
+functions a parameter at a time. Per-parameter lr and wd come from the
 optimizer's own ``_get_lr``/``_get_wd`` each step, with Adam's bias
 correction folded into lr as its ``update`` folds it.
 """
 from __future__ import annotations
+
+import logging
+import os
 
 import numpy as np
 import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError
+from ..compile import pipeline as _pipeline
+from ..executor import _block_boundaries
 from ..ops.collective import (all_gather_replicas, group_positions,
                               reduce_scatter_replicas, sum_replicas)
 
@@ -38,20 +48,47 @@ def _f32_zeros(w):
     return torch.zeros(w.shape, dtype=torch.float32, device=w.device)
 
 
-def _rule_sgd(o):
-    mom = float(getattr(o, "momentum", 0.0) or 0.0)
+def _prep_each(o, ws, gs, wds):
+    """``optimizer._prep`` over lists: each gradient rescaled, clipped
+    (when set), plus its parameter's wd times its weight."""
     clip = o.clip_gradient or -1.0
+    g = torch._foreach_mul(gs, o.rescale_grad)
+    if clip > 0:
+        torch._foreach_clamp_min_(g, -clip)
+        torch._foreach_clamp_max_(g, clip)
+    torch._foreach_add_(g, torch._foreach_mul(ws, wds))
+    return g
+
+
+def _one_at_a_time(over_lists):
+    """``apply(p, g, s, lr, wd)`` of a rule written over lists, keeping
+    the list form as its ``over_lists``."""
+    def apply(p, g, s, lr, wd):
+        over_lists([p], [g], [s], [lr], [wd])
+    apply.over_lists = over_lists
+    return apply
+
+
+def _rule_sgd(o):
+    """``sgd_update_``/``sgd_mom_update_`` over a list of parameters, one
+    foreach call an op: the single-tensor chain's ops in its order, so
+    every parameter rounds as it would alone."""
+    mom = float(getattr(o, "momentum", 0.0) or 0.0)
 
     def init(w):
         return _f32_zeros(w) if mom else None
 
-    def apply(p, g, s, lr, wd):
-        if mom:
-            opt.sgd_mom_update_(p, g, s, lr, wd, o.rescale_grad, clip, mom)
-        else:
-            opt.sgd_update_(p, g, lr, wd, o.rescale_grad, clip)
+    def over_lists(ps, gs, ss, lrs, wds):
+        g = _prep_each(o, ps, gs, wds)
+        torch._foreach_mul_(g, lrs)
+        if not mom:
+            torch._foreach_sub_(ps, g)
+            return
+        torch._foreach_mul_(ss, mom)
+        torch._foreach_sub_(ss, g)
+        torch._foreach_add_(ps, ss)
 
-    return init, apply, None
+    return init, _one_at_a_time(over_lists), None
 
 
 def _rule_nag(o):
@@ -68,16 +105,28 @@ def _rule_nag(o):
 
 
 def _rule_adam(o):
-    clip = o.clip_gradient or -1.0
-
+    """``adam_update_`` over a list of parameters in foreach calls, as
+    ``_rule_sgd``."""
     def init(w):
         return (_f32_zeros(w), _f32_zeros(w))
 
-    def apply(p, g, s, lr, wd):
-        opt.adam_update_(p, g, s[0], s[1], lr, wd, o.rescale_grad, clip,
-                         o.beta1, o.beta2, o.epsilon)
+    def over_lists(ps, gs, ss, lrs, wds):
+        g = _prep_each(o, ps, gs, wds)
+        means = [s[0] for s in ss]
+        varis = [s[1] for s in ss]
+        torch._foreach_mul_(means, o.beta1)
+        torch._foreach_add_(means, torch._foreach_mul(g, 1 - o.beta1))
+        torch._foreach_mul_(g, g)
+        torch._foreach_mul_(g, 1 - o.beta2)
+        torch._foreach_mul_(varis, o.beta2)
+        torch._foreach_add_(varis, g)
+        denom = torch._foreach_sqrt(varis)
+        torch._foreach_add_(denom, o.epsilon)
+        step = torch._foreach_mul(means, lrs)
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(ps, step)
 
-    return init, apply, o.lr_scale
+    return init, _one_at_a_time(over_lists), o.lr_scale
 
 
 def _rule_rmsprop(o):
@@ -125,6 +174,20 @@ def _rule_trainer_adam(o):
 _RULES = {"SGD": _rule_sgd, "NAG": _rule_nag, "Adam": _rule_adam,
           "RMSProp": _rule_rmsprop, "AdaGrad": _rule_adagrad,
           "TrainerAdam": _rule_trainer_adam}
+
+
+def _over_lists(apply):
+    """A rule's ``apply(p, g, s, lr, wd)`` as ``apply(ps, gs, ss, lrs,
+    wds)``: the foreach form of a rule that has one, else the rule a
+    parameter at a time."""
+    many = getattr(apply, "over_lists", None)
+    if many is not None:
+        return many
+
+    def each(ps, gs, ss, lrs, wds):
+        for p, g, s, lr, wd in zip(ps, gs, ss, lrs, wds):
+            apply(p, g, s, lr, wd)
+    return each
 
 
 def supports(optimizer):
@@ -256,13 +319,17 @@ class FusedTrainStep:
     split over tp and fsdp between steps."""
 
     def __init__(self, executors, param_names, optimizer, flat_grads=None,
-                 plan=None, state=None):
+                 plan=None, state=None, module=None, graph_shapes=None,
+                 graph_types=None, logger=None):
         if not isinstance(executors, (list, tuple)):
             executors = [executors]
         ex0 = executors[0]
+        self._logger = logger or logging
+        self.optimizer = optimizer
         self.trainable = [n for n in param_names
                           if ex0.grad_req.get(n, "null") != "null"
                           and n in ex0.grad_dict]
+        self._install_program(executors, module, graph_shapes, graph_types)
         self.params = [{n: ex.arg_dict[n]._data for n in self.trainable}
                        for ex in executors]
         self.grads = [{n: ex.grad_dict[n]._data for n in self.trainable}
@@ -281,9 +348,9 @@ class FusedTrainStep:
             and self._plan.layout.data_axis in self._layout.sizes \
             else [reps]
         self._data_pos = group_positions(self._data_groups, len(executors))
-        self.optimizer = optimizer
-        init, self._apply, self._lr_scale = \
+        init, apply, self._lr_scale = \
             _RULES[type(optimizer).__name__](optimizer)
+        self._apply = _over_lists(apply)
         # what each replica's rule updates: the whole parameter and its
         # summed gradient, or under the plan its block of rows
         self._targets = [dict(p) for p in self.params]
@@ -297,6 +364,7 @@ class FusedTrainStep:
             self._all_reduce_groups = [groups for groups, _ in segs]
         if self._plan is not None:
             self._buckets = self._make_buckets()
+        if self._plan is not None:
             for b in self._buckets:
                 for r in range(len(self.params)):
                     self._sums[r].update(b.g_views[r])
@@ -318,6 +386,106 @@ class FusedTrainStep:
                 name2idx[n] = nxt
                 nxt += 1
         self._name_idx = [name2idx[n] for n in self.trainable]
+
+    def _install_program(self, executors, module, shapes, types):
+        """The training graph, transformed ONCE here by the compile
+        pipeline (``kind="fused_step"``), and its rematerialization, set
+        as every executor's training program (mxtpu :268-406).
+        ``self.symbol`` stays the caller's graph; ``pipeline_report``
+        says what the pipeline did. ``update`` warns once if the
+        pipeline's config drifts afterwards (re-arm via
+        ``init_optimizer(force_init=True)``)."""
+        self.symbol = executors[0]._symbol
+        self._graph_symbol = self.symbol
+        self.pipeline_report = None
+        self._pipeline_config = _pipeline.configured()
+        self._drift_warned = False
+        if self._pipeline_config:
+            self._graph_symbol, self.pipeline_report = \
+                _pipeline.transform_graph(
+                    self.symbol, kind="fused_step", shapes=shapes,
+                    types=types, module=module)
+            if self.pipeline_report.rejected:
+                self._logger.warning(
+                    "fused step: compile pipeline rejected transform(s) "
+                    "%s — training on the unrewritten graph",
+                    ",".join(self.pipeline_report.rejected))
+            elif self.pipeline_report.applied:
+                self._logger.info(
+                    "fused step: compile pipeline applied %s",
+                    ",".join(self.pipeline_report.applied))
+        self._remat_mode, remat = self._remat_policy()
+        for ex in executors:
+            ex.set_train_program("fused_step", self._graph_symbol,
+                                 self.pipeline_report, remat)
+        self._update_groups = self._derive_update_groups()
+
+    def _remat_policy(self):
+        """(mode, the executors' ``remat``) from ``MXTPU_REMAT`` /
+        ``fit.remat`` (mxtpu :327-403). The walk runs in segments that end
+        at the block boundaries (the graph's cut vertices,
+        ``executor._block_boundaries``); a checkpointed segment keeps only
+        its inputs and is recomputed in the backward. ``none`` keeps every
+        activation; ``all``, ``block`` and ``conv`` checkpoint every
+        segment; ``auto`` (and an unset knob) checkpoints the segments
+        that hold a node the remat_reuse pass annotated ``__remat__``. A
+        SET ``none``/``0`` pins no rematerialization, annotations
+        included. mxtpu's ``all`` recomputes the whole forward at once,
+        and its ``conv`` and ``auto`` keep the chosen outputs inside a
+        block; here each is the block's segment whole (the segments cost
+        less memory and time than a selective policy on ResNet-50: PERF.md,
+        PR 24)."""
+        from ..tune import registry as _knobs
+        raw = os.environ.get("MXTPU_REMAT")
+        env_set = raw is not None
+        if raw is None:
+            raw = _knobs.resolve("fit.remat")
+        mode = str(raw or "none").lower()
+        pinned_off = False
+        if mode in ("0", "none", "", "false"):
+            mode, pinned_off = "none", env_set
+        elif mode in ("1", "all", "true"):
+            mode = "all"
+        elif mode not in ("auto", "block", "conv"):
+            raise ValueError(
+                "fit.remat / MXTPU_REMAT = %r not recognized (use "
+                "none/auto/block/conv/all)" % mode)
+        graph = self._graph_symbol
+        cuts = _block_boundaries(graph)
+        if mode in ("all", "block", "conv"):
+            return mode, (cuts, None)
+        if not pinned_off:
+            hot = {id(n) for n in graph._topo() if not n.is_variable
+                   and n._extra_attrs.get("__remat__")}
+            if hot:
+                return "annotated", (cuts, hot)
+        return mode, None
+
+    def _derive_update_groups(self):
+        """(class key, member names) pairs from the fuse_opt pass's
+        ``__update_class__`` annotations on the transformed graph,
+        intersected with this step's trainables, in trainable order
+        (mxtpu :512-531); a class left with one member is dropped.
+        ``_update_lists`` are the name lists ``update`` applies the rule
+        to, one call each: every class, then the trainables in none."""
+        groups = {}
+        for n in self._graph_symbol._topo():
+            if n.is_variable:
+                key = n._extra_attrs.get("__update_class__")
+                if key:
+                    groups.setdefault(key, []).append(n.name)
+        tidx = {n: i for i, n in enumerate(self.trainable)}
+        out = []
+        for key in sorted(groups):
+            names = sorted((nm for nm in groups[key] if nm in tidx),
+                           key=tidx.get)
+            if len(names) >= 2:
+                out.append((key, names))
+        classed = {n for _, names in out for n in names}
+        rest = [n for n in self.trainable if n not in classed]
+        self._update_lists = [names for _, names in out] + \
+            ([rest] if rest else [])
+        return out
 
     def adopt_state(self, other, init):
         """Advance ``other``'s optimizer state (the same dicts, so both
@@ -499,7 +667,18 @@ class FusedTrainStep:
     def update(self):
         """Sum the replicas' gradients (reduce-scatter the sharded ones),
         apply one update to every trainable parameter (or row block) of
-        every replica, then gather the updated rows."""
+        every replica (SGD and Adam in one foreach call an op over each
+        fuse_opt update class, and over the trainables in none), then
+        gather the updated rows."""
+        if not self._drift_warned and \
+                _pipeline.configured() != self._pipeline_config:
+            self._drift_warned = True
+            self._logger.warning(
+                "fused step: the compile pipeline changed to %s after this "
+                "step was built with %s; it keeps training the graph it "
+                "was built with (re-arm with init_optimizer("
+                "force_init=True))", list(_pipeline.configured()),
+                list(self._pipeline_config))
         o = self.optimizer
         with torch.no_grad():
             for b in self._buckets:
@@ -508,15 +687,21 @@ class FusedTrainStep:
                                     self._all_reduce):
                 for g in groups:
                     sum_replicas([bufs[r] for r in g])
+            rates = {}
             for n, idx in zip(self.trainable, self._name_idx):
                 o._update_count(idx)
                 lr = o._get_lr(idx)
                 if self._lr_scale is not None:
                     lr *= self._lr_scale(o._index_update_count[idx])
-                wd = o._get_wd(idx)
+                rates[n] = (lr, o._get_wd(idx))
+            for names in self._update_lists:
+                lrs = [rates[n][0] for n in names]
+                wds = [rates[n][1] for n in names]
                 for p, g, st in zip(self._targets, self._sums,
                                     self.opt_state):
-                    self._apply(p[n], g[n], st[n], lr, wd)
+                    self._apply([p[n] for n in names],
+                                [g[n] for n in names],
+                                [st[n] for n in names], lrs, wds)
             for b in self._buckets:
                 b.gather()
 

@@ -244,7 +244,7 @@ class Module(BaseModule):
         step is disarmed, now and at any later ``init_optimizer``."""
         assert self.binded
         self._monitor_installed = True
-        self._fused = None
+        self._disarm_fused()
         self._exec_group.install_monitor(mon)
 
     # ------------------------------------------------ bind
@@ -418,7 +418,7 @@ class Module(BaseModule):
         from the current parameters, with the sharded parameters'
         gradients at the end of each flat buffer. Without one the batch must divide
         over the contexts."""
-        self._fused = None
+        self._disarm_fused()
         group = self._exec_group
         n = len(group.contexts)
         if (not self.for_training or self.inputs_need_grad
@@ -439,9 +439,39 @@ class Module(BaseModule):
                     group.flat_tail != tail or group.layout is None or \
                     group.layout.key != layout.key:
                 group = self._rebind(plan.mesh_ctx.devices, tail, layout)
+        shapes, types = self._pipeline_hints()
         self._fused = FusedTrainStep(group.execs, self._param_names,
                                      self._optimizer, group.flat_grads,
-                                     plan=plan)
+                                     plan=plan, module=self,
+                                     graph_shapes=shapes, graph_types=types,
+                                     logger=self.logger)
+
+    def _disarm_fused(self):
+        """Retire the fused step: the executors train their own graph
+        again (``fwd_bwd``)."""
+        self._fused = None
+        if self._exec_group is not None:
+            for ex in self._exec_group.execs:
+                ex.set_train_program(None, None)
+
+    def _pipeline_hints(self):
+        """Shape/dtype hints for the compile pipeline's analyses and the
+        verifier re-run that gates every transform (mxtpu :443-456): the
+        bound whole-batch data/label shapes and the parameter and aux
+        shapes they infer, with the bound arrays' dtypes."""
+        shapes = dict(self._data_shapes + (self._label_shapes or []))
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**shapes)
+        ex0 = self._exec_group.execs[0]
+        types = {}
+        for names, found, bound in (
+                (self._symbol.list_arguments(), arg_shapes, ex0.arg_dict),
+                (self._aux_names, aux_shapes, ex0.aux_dict)):
+            for n, shp in zip(names, found):
+                if n in self._param_names or n in self._aux_names:
+                    shapes[n] = tuple(shp)
+                    if n in bound:
+                        types[n] = bound[n].dtype
+        return shapes, types
 
     def borrow_optimizer(self, shared_module):
         """Train through ``shared_module``'s optimizer, kvstore and
@@ -458,13 +488,15 @@ class Module(BaseModule):
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
-        self._fused = None
+        self._disarm_fused()
         if shared_module._fused is not None:
             group = self._exec_group
+            shapes, types = self._pipeline_hints()
             self._fused = FusedTrainStep(
                 group.execs, self._param_names, self._optimizer,
                 group.flat_grads, plan=shared_module._fused._plan,
-                state=shared_module._fused)
+                state=shared_module._fused, module=self,
+                graph_shapes=shapes, graph_types=types, logger=self.logger)
 
     def _resolve_sharding_plan(self):
         """The ShardingPlan of the active mesh, or None for the contexts'

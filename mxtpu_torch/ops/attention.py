@@ -51,6 +51,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..diagnostics.programs import kernel_cost as _kernel_cost
 from .registry import register, set_replicas
 
 __all__ = ["flash_attention", "flash_attention_reference",
@@ -269,6 +270,10 @@ def _flash_cuda(q, k, v, causal, scale, want_lse=False):
             flash_attention.wide_launches += 1
         else:
             flash_attention.launches += 1
+    b, h, t, d = q.shape
+    n_kv = k.shape[2]
+    _kernel_cost(4.0 * d * _pairs(t, n_kv, causal) * b * h,
+                          2 * b * h * (t + n_kv) * d * q.element_size())
     return res
 
 
@@ -298,7 +303,21 @@ def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, scale):
             flash_attention_backward.wide_launches += 1
         else:
             flash_attention_backward.launches += 1
+    b, h, t, d = q.shape
+    n_kv = k.shape[2]
+    _kernel_cost(10.0 * d * _pairs(t, n_kv, causal) * b * h,
+                          4 * b * h * (t + n_kv) * d * q.element_size()
+                          + b * h * t * 4)
     return res
+
+
+def _pairs(t, s, causal):
+    """Live (row, key) pairs of one head (``chip_smoke.attention_pairs``):
+    every pair, or min(row + 1, S) keys a row under the causal mask."""
+    if not causal:
+        return t * s
+    n = min(t, s)
+    return n * (n + 1) // 2 + max(t - s, 0) * s
 
 
 def _launch_bwd(kernel, q, k, v, out, dout, lse, causal, scale):

@@ -3,7 +3,11 @@ its plain version.
 
 Counterpart of ``mxtpu/ops/epilogue.py``: ``bn_apply_relu_add`` computes
 ``y = relu(x * scale + shift) [+ residual]`` in f32 and stores it in
-``x.dtype``; the residual is added after the ReLU. The Pallas kernel
+``out_dtype`` (default ``x.dtype``); the residual, of the output's type,
+is added after the ReLU. x and y are each f32 or bf16: a bf16 x with an
+f32 y (or the reverse) is the compile pipeline's bf16 rewrite at a
+BatchNorm on the boundary of the bf16 region, where mxtpu's graph
+upcasts before the BatchNorm (exactly) or rounds after the ReLU (once). The Pallas kernel
 ``_kernel`` there becomes the CUDA kernel
 ``mxtpu_torch/csrc/bn_relu_epilogue.cu``;
 ``bn_apply_relu_add_reference`` beside it is the plain PyTorch version,
@@ -29,12 +33,18 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..diagnostics.programs import kernel_cost as _kernel_cost
 
 __all__ = ["bn_apply_relu_add", "bn_apply_relu_add_reference", "fold_bn",
            "check_kernel_inputs"]
 
 KERNEL = "bn_relu_epilogue"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's code of each (x dtype, y dtype) pair
+_PAIR_CODES = {(torch.float32, torch.float32): 0,
+               (torch.bfloat16, torch.bfloat16): 1,
+               (torch.bfloat16, torch.float32): 2,
+               (torch.float32, torch.bfloat16): 3}
 
 
 def fold_bn(gamma, beta, mean, var, eps=1e-5):
@@ -49,17 +59,19 @@ def _bshape(x, axis):
     return tuple(x.shape[ax] if i == ax else 1 for i in range(x.ndim))
 
 
-def bn_apply_relu_add_reference(x, scale, shift, residual=None, axis=-1):
+def bn_apply_relu_add_reference(x, scale, shift, residual=None, axis=-1,
+                                out_dtype=None):
     """Plain PyTorch version: ``relu(x.float() * scale + shift)``, then
-    ``+ residual.float()``, then ``.to(x.dtype)``. The multiply and the add
-    are separate ops, so each rounds once, as in the kernel."""
+    ``+ residual.float()``, then ``.to(out_dtype or x.dtype)``. The
+    multiply and the add are separate ops, so each rounds once, as in the
+    kernel."""
     shape = _bshape(x, axis)
     y = x.to(torch.float32) * scale.to(torch.float32).reshape(shape) \
         + shift.to(torch.float32).reshape(shape)
     y = torch.relu(y)
     if residual is not None:
         y = y + residual.to(torch.float32)
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def _layout(shape, axis):
@@ -74,14 +86,20 @@ def _layout(shape, axis):
     return outer, shape[ax], inner
 
 
-def check_kernel_inputs(x, scale, shift, residual=None, axis=-1):
+def check_kernel_inputs(x, scale, shift, residual=None, axis=-1,
+                        out_dtype=None):
     """Raise MXNetError unless the inputs are what the CUDA kernel takes:
     x float32 or bfloat16, contiguous, with a channel dim at ``axis``;
-    scale and shift float32, contiguous, of shape (C,); residual (if
-    given) of x's shape and dtype, contiguous; all on one CUDA device."""
+    ``out_dtype`` (default x's) float32 or bfloat16; scale and shift
+    float32, contiguous, of shape (C,); residual (if given) of x's shape
+    and the output's dtype, contiguous; all on one CUDA device."""
+    out_dtype = out_dtype or x.dtype
     if x.dtype not in _DTYPE_CODES:
         raise MXNetError("bn_apply_relu_add kernel: x has dtype %s; it takes "
                          "float32 or bfloat16" % x.dtype)
+    if out_dtype not in _DTYPE_CODES:
+        raise MXNetError("bn_apply_relu_add kernel: out_dtype %s; it writes "
+                         "float32 or bfloat16" % out_dtype)
     if x.ndim < 1 or not -x.ndim <= axis < x.ndim:
         raise MXNetError("bn_apply_relu_add kernel: axis %d is out of range "
                          "for x of shape %s" % (axis, tuple(x.shape)))
@@ -96,11 +114,11 @@ def check_kernel_inputs(x, scale, shift, residual=None, axis=-1):
                              "(%d,)" % (name, tuple(v.shape), c))
     if residual is not None:
         named.append(("residual", residual))
-        if residual.dtype != x.dtype or residual.shape != x.shape:
+        if residual.dtype != out_dtype or residual.shape != x.shape:
             raise MXNetError("bn_apply_relu_add kernel: residual %s %s does "
-                             "not match x %s %s"
+                             "not match the output %s %s"
                              % (residual.dtype, tuple(residual.shape),
-                                x.dtype, tuple(x.shape)))
+                                out_dtype, tuple(x.shape)))
     for name, v in named:
         if not v.is_contiguous():
             raise MXNetError("bn_apply_relu_add kernel: %s is not contiguous"
@@ -132,9 +150,9 @@ def _kernel():
         return _kernel_fn
 
 
-def _epilogue_cuda(x, scale, shift, residual, axis):
-    check_kernel_inputs(x, scale, shift, residual, axis)
-    out = torch.empty_like(x)
+def _epilogue_cuda(x, scale, shift, residual, axis, out_dtype):
+    check_kernel_inputs(x, scale, shift, residual, axis, out_dtype)
+    out = torch.empty_like(x, dtype=out_dtype)
     if x.numel() == 0:
         return out
     fn, err = _kernel()
@@ -143,30 +161,38 @@ def _epilogue_cuda(x, scale, shift, residual, axis):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                 residual.data_ptr() if residual is not None else None,
-                out.data_ptr(), outer, c, inner, _DTYPE_CODES[x.dtype],
-                stream)
+                out.data_ptr(), outer, c, inner,
+                _PAIR_CODES[(x.dtype, out_dtype)], stream)
     if rc != 0:
         raise MXNetError("bn_relu_epilogue launch failed: %s (cuda error %d)"
                          % (err(rc).decode(), rc))
     with _kernel_lock:
         bn_apply_relu_add.launches += 1
+    n = x.numel()
+    _kernel_cost(n * (4 if residual is not None else 3),
+                          n * (x.element_size() + out.element_size() * (
+                              2 if residual is not None else 1))
+                          + 2 * c * 4)
     return out
 
 
 def bn_apply_relu_add(x, scale, shift, residual=None, block_m=1024,
-                      axis=-1):
+                      axis=-1, out_dtype=None):
     """y = relu(x * scale + shift) [+ residual], one pass over x.
 
     x float32/bfloat16 with its channels at ``axis`` (``(M, C)`` by
-    default); scale/shift (C,) float32; residual optional, like x.
-    ``block_m`` is accepted for the TPU op's signature and does not change
-    the tiling or the result."""
+    default); scale/shift (C,) float32; y of ``out_dtype`` (default x's);
+    residual optional, of x's shape and y's dtype. ``block_m`` is
+    accepted for the TPU op's signature and does not change the tiling or
+    the result."""
     del block_m
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return bn_apply_relu_add_reference(x, scale, shift, residual, axis)
+        return bn_apply_relu_add_reference(x, scale, shift, residual, axis,
+                                           out_dtype)
     if x.device.type == "meta":
-        return torch.empty_like(x)
-    return _epilogue_cuda(x, scale, shift, residual, axis)
+        return torch.empty_like(x, dtype=out_dtype)
+    return _epilogue_cuda(x, scale, shift, residual, axis, out_dtype)
 
 
 bn_apply_relu_add.launches = 0

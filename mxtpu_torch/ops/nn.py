@@ -367,15 +367,30 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 def _convolution(a, data, weight, bias=None):
     """N-d convolution. ``layout="NHWC"`` keeps the weight in its OIHW
-    storage and moves only the activation: the data is viewed as NCHW for
-    the call and the result viewed back, with no copy of the weight."""
+    storage and moves only the activation: the data is viewed as NCHW in
+    torch's channels-last memory format for the call (no copy when it is
+    a dense NHWC tensor) and the result viewed back as a dense NHWC
+    tensor, with no copy of the weight."""
     nd = len(a.kernel)
     channels_last = nd == 2 and a.layout == "NHWC"
-    x = data.permute(0, 3, 1, 2) if channels_last else data
+    x = _nchw_view(data) if channels_last else data
     out = _CONV[nd](x, weight, bias, stride=_tup(a.stride, nd, 1),
                     padding=_tup(a.pad, nd, 0),
                     dilation=_tup(a.dilate, nd, 1), groups=int(a.num_group))
-    return out.permute(0, 2, 3, 1) if channels_last else out
+    return _nhwc(out) if channels_last else out
+
+
+def _nchw_view(data):
+    """An NHWC tensor as NCHW in channels-last memory format: a view of
+    a dense NHWC tensor, else one copy into that format."""
+    return data.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _nhwc(out):
+    """An NCHW result as a dense NHWC tensor: a view when the result is
+    in channels-last memory format, else one copy."""
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def _conv_infer(a, shapes):
@@ -431,7 +446,7 @@ def _pooling(a, data):
     included."""
     nd = data.ndim - 2
     channels_last = nd == 2 and a.layout == "NHWC"
-    x = data.permute(0, 3, 1, 2) if channels_last else data
+    x = _nchw_view(data) if channels_last else data
     spatial = tuple(x.shape[2:])
     if a.global_pool:
         kernel, stride, pad = spatial, (1,) * nd, (0,) * nd
@@ -454,7 +469,7 @@ def _pooling(a, data):
         out = out / denom
     elif not is_max and a.pool_type != "sum":
         raise MXNetError("unknown pool_type %s" % a.pool_type)
-    return out.permute(0, 2, 3, 1) if channels_last else out
+    return _nhwc(out) if channels_last else out
 
 
 register("Pooling", _pooling,
@@ -571,13 +586,17 @@ def _dense(x, axis):
     return xp, order.index(axis), back
 
 
-def bn_relu_inference(a, data, gamma, beta, moving_mean, moving_var):
+def bn_relu_inference(a, data, gamma, beta, moving_mean, moving_var,
+                      out_dtype=None):
     """``Activation(relu)(BatchNorm(...))`` at inference as one epilogue
     pass: ``fold_bn`` on the moving statistics (gamma = 1 under
     fix_gamma) gives the f32 per-channel scale and shift, and
     ``bn_apply_relu_add`` applies them with the ReLU. It rounds as
     ``x * scale + shift`` where the BatchNorm op rounds as
-    ``(x - mean) * (g * inv) + beta``."""
+    ``(x - mean) * (g * inv) + beta``. The result is stored in
+    ``out_dtype`` (default: data's); the math is f32 whatever data's
+    float type, as mxtpu's graph upcasts a bf16 input before its f32
+    BatchNorm."""
     _refuse_training(a)
     f32 = torch.float32
     g = torch.ones_like(gamma, dtype=f32) if a.fix_gamma else gamma.to(f32)
@@ -585,7 +604,7 @@ def bn_relu_inference(a, data, gamma, beta, moving_mean, moving_var):
                            moving_var.to(f32), a.eps)
     x, axis, back = _dense(data, int(a.axis) % data.ndim)
     y = bn_apply_relu_add(x, scale.contiguous(), shift.contiguous(),
-                          axis=axis)
+                          axis=axis, out_dtype=out_dtype)
     return y if back is None else y.permute(back)
 
 

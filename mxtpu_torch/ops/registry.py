@@ -195,10 +195,11 @@ class OpDef:
         return self.num_outputs(attrs) if callable(self.num_outputs) \
             else self.num_outputs
 
-    def input_names(self, attrs=None):
+    def input_names(self, attrs=None, n=None):
         if self.variadic:
-            return ["arg%d" % i
-                    for i in range(int((attrs or {}).get(self.variadic, 0)))]
+            count = n if n is not None else \
+                int((attrs or {}).get(self.variadic, 0))
+            return ["arg%d" % i for i in range(count)]
         if callable(self.arg_names):
             return list(self.arg_names(attrs or AttrDict()))
         return self.arg_names

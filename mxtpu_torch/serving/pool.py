@@ -8,9 +8,13 @@ a collect cross the ``serving.replica.dispatch`` and
 ``serving.replica.collect`` fault points, and a pool with metrics opens
 a ``pool.run`` span around each batch. Warmup is
 ``warmup_replica``, which the session calls on each replica's own
-dispatcher thread, because cuDNN keeps its plans per thread. The
-process-wide warm cache, hot-swap adoption and cost rows of the JAX pool
-arrive in a later slice.
+dispatcher thread, because cuDNN keeps its plans per thread; it runs in
+the compile pipeline's ``prewarm_scope`` (its builds are deploy-time,
+not mid-traffic misses), and each bucket's steady-state time is kept
+under (bucket, pipeline config), mxtpu's cost-row stamp (:149-158): a
+bf16 or quantized forward is not the f32 one's cost. The process-wide
+warm cache and hot-swap adoption of the JAX pool arrive in a later
+slice.
 """
 from __future__ import annotations
 
@@ -108,6 +112,27 @@ class ExecutorPool:
                          for ctx in contexts]
         self._rr = 0
         self._rr_lock = _conc.lock("ExecutorPool", "_rr_lock")
+        self._costs = {}  # (bucket, pipeline config) -> warm ms
+
+    @staticmethod
+    def _cost_key(bucket, pipeline=None):
+        """(bucket, compile-pipeline config): ``pipeline=None`` stamps
+        the current config."""
+        if pipeline is None:
+            from ..compile import pipeline as _pipeline
+            pipeline = _pipeline.configured()
+        return (int(bucket), tuple(pipeline))
+
+    def bucket_costs(self, pipeline=None):
+        """{bucket: warm ms} measured under one pipeline config (default:
+        the current one)."""
+        want = self._cost_key(0, pipeline)[1]
+        return {b: ms for (b, cfg), ms in self._costs.items() if cfg == want}
+
+    def owns_executor(self, ex):
+        """Whether ``ex`` is one of the replicas' bound executors."""
+        return any(hit[0] is ex for rep in self.replicas
+                   for hit in list(rep.base._bind_cache.values()))
 
     def __len__(self):
         return len(self.replicas)
@@ -135,12 +160,15 @@ class ExecutorPool:
         thread, so traffic never pays a first-call cost (kernel build,
         allocator growth, the thread's cuDNN plans). Returns
         ``{bucket: ms}`` of the second, steady-state runs."""
+        from ..compile import pipeline as _pipeline
         times = {}
-        for b in buckets:
-            dummy = {k: _np.zeros(s, dtype=_np.float32)
-                     for k, s in self.bucket_shapes(b).items()}
-            rep.run(dummy)
-            t0 = time.perf_counter()
-            rep.run(dummy)
-            times[int(b)] = (time.perf_counter() - t0) * 1e3
+        with _pipeline.prewarm_scope():
+            for b in buckets:
+                dummy = {k: _np.zeros(s, dtype=_np.float32)
+                         for k, s in self.bucket_shapes(b).items()}
+                rep.run(dummy)
+                t0 = time.perf_counter()
+                rep.run(dummy)
+                times[int(b)] = (time.perf_counter() - t0) * 1e3
+                self._costs[self._cost_key(b)] = times[int(b)]
         return times

@@ -29,12 +29,14 @@ import json
 import logging
 import threading
 import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as _np
 
 from .. import telemetry as _tel
 from ..base import MXNetError
+from ..compile import pipeline as _pipeline
 from .batcher import BatcherClosed, DynamicBatcher, QueueFull
 from .metrics import MetricsRegistry
 from .pool import ExecutorPool
@@ -79,6 +81,17 @@ class ServingSession:
             metrics=self.metrics, example_shapes=example_shapes)
         self._closed = False
         self._workers = []
+        # program builds of this session's executors (mxtpu
+        # server.py:190-200): flat under traffic once warm
+        builds = self.metrics.counter("program_builds")
+        pool_ref = weakref.ref(self._pool)
+
+        def on_build(kind, ex):
+            p = pool_ref()
+            if p is not None and p.owns_executor(ex):
+                builds.inc()
+
+        self._build_listener = _pipeline.add_build_listener(on_build)
         warms = []
         for i in range(len(self._pool.replicas)):
             warm = {"done": threading.Event()} if warmup else None
@@ -176,6 +189,7 @@ class ServingSession:
         if self._closed:
             return
         self._closed = True
+        _pipeline.remove_build_listener(self._build_listener)
         if not drain:
             self.batcher.abort(BatcherClosed("serving session shut down"))
         self.batcher.close()

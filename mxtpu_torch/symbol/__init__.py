@@ -23,6 +23,18 @@ def _make_sym_fn(opname, op):
     def fn(*args, **kwargs):
         name = kwargs.pop("name", None)
         kwargs.pop("attr", None)
+        extra = [a for a in args
+                 if not isinstance(a, (Symbol, list, tuple))]
+        if extra and not op.variadic:
+            # non-Symbol positionals map onto attrs in registration order
+            # (mxtpu/symbol/__init__.py:22-34): sym.clip(x, -1, 1)
+            args = [a for a in args if isinstance(a, Symbol)]
+            for attr_name in op.attrs_spec:
+                if not extra:
+                    break
+                if attr_name.startswith("__") or attr_name in kwargs:
+                    continue
+                kwargs[attr_name] = extra.pop(0)
         sym_kw = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
         for k in sym_kw:
             kwargs.pop(k)

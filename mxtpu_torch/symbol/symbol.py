@@ -11,8 +11,7 @@ inspection surface: ``get_internals`` (:178, aux-update outputs hidden),
 ``get_children``, ``list_inputs``, ``list_attr``, ``infer_shape_partial``
 (:327), ``infer_type`` (:356, numpy dtypes, propagated forward as
 mxtpu's types-only walk does), ``eval`` (:388), ``grad`` (:392, raises)
-and ``debug_str`` (:450). ``lint`` runs mxtpu's analysis passes, which
-are not ported.
+and ``debug_str`` (:450). ``lint`` (:395) runs the analysis passes.
 """
 from __future__ import annotations
 
@@ -92,6 +91,13 @@ class _Node:
 
     def parsed_attrs(self):
         return self.op.parse_attrs(self.attrs)
+
+    def num_outputs(self):
+        """Visible outputs followed by the updated aux values (mxtpu
+        :88-93)."""
+        if self.op is None:
+            return 1
+        return self.op.n_out(self.parsed_attrs()) + len(self.op.aux_names)
 
 
 class Symbol:
@@ -389,6 +395,25 @@ class Symbol:
     def grad(self, wrt):
         raise MXNetError("Symbol.grad: use bind + backward")
 
+    def lint(self, shapes=None, group2ctx=None, passes=None,
+             pipeline=None, **kwargs):
+        """Run the analysis verifier passes over this symbol and return a
+        :class:`~mxtpu_torch.analysis.Report` of structured findings
+        (mxtpu :395-416). Shape hints go in ``shapes={...}`` or as
+        kwargs, as ``infer_shape`` takes them: ``sym.lint(data=(64,
+        784))``. ``pipeline`` additionally dry-runs compile-pipeline
+        transforms and merges their per-node actions and rejections: a
+        list of transform names, a comma string (``pipeline="bf16"``),
+        or True for the configured pipeline. The symbol is never
+        modified."""
+        from ..analysis import analyze
+        hints = dict(shapes or {})
+        hints.update({k: tuple(v) for k, v in kwargs.items()
+                      if v is not None})
+        report = analyze(self, shapes=hints, group2ctx=group2ctx,
+                         passes=passes)
+        return _merge_pipeline_report(report, self, hints, pipeline)
+
     def debug_str(self):
         """One line a node, in topological order: its op (or Variable),
         its name and its inputs' names."""
@@ -432,6 +457,32 @@ class Symbol:
         checkpoint; mxtpu/symbol/symbol.py:446)."""
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+
+def _merge_pipeline_report(report, symbol, hints, pipeline, module=None):
+    """Dry-run compile-pipeline transforms and fold their findings into
+    ``report`` (the ``lint(pipeline=)`` / ``Module.check(pipeline=)`` /
+    CLI ``--pipeline`` surface; mxtpu :459-482). ``pipeline`` is a name
+    list, a comma string, or True for the configured pipeline."""
+    if not pipeline:
+        return report
+    from ..analysis import Report
+    from ..compile import pipeline as _pipe
+    if pipeline is True:
+        names = None  # transform_graph falls back to configured()
+        shown = list(_pipe.configured())
+    elif isinstance(pipeline, str):
+        names = [p.strip() for p in pipeline.split(",") if p.strip()]
+        shown = names
+    else:
+        names = [str(p) for p in pipeline]
+        shown = names
+    _sym2, prep = _pipe.transform_graph(symbol, kind="report",
+                                        shapes=hints, module=module,
+                                        passes=names)
+    return Report(list(report.findings) + prep.findings(),
+                  passes_run=list(report.passes_run)
+                  + ["pipeline:%s" % n for n in shown])
 
 
 def _output_names(node, n_vis):

@@ -205,10 +205,18 @@ def _warn_unread(cfg, where):
 
 
 def _refresh_import_time_consumers():
-    """Knobs resolved at module-import time (mxtpu's compile pipeline
-    snapshots ``compile.pipeline``) must re-resolve when the active
-    artifact changes after import. The port has no such consumer yet:
-    every knob it reads (``fit.*``) resolves per call."""
+    """Knobs resolved at module-import time (the compile pipeline's
+    config snapshot) must re-resolve when the active artifact changes
+    after import (mxtpu/tune/config.py:194-206). Only an already
+    imported consumer needs the poke."""
+    import sys
+    pipeline = sys.modules.get("mxtpu_torch.compile.pipeline")
+    if pipeline is not None:
+        try:
+            pipeline.refresh_from_knobs()
+        except Exception:   # a refresh failure must not fail use()
+            log.warning("tune: compile-pipeline refresh failed",
+                        exc_info=True)
 
 
 def use(spec):

@@ -52,15 +52,16 @@ log = logging.getLogger("mxtpu_torch.tune")
 #: the knobs the port reads; the rest of the catalog is declared for
 #: ``registry_version()`` parity and read by no code of the port yet
 PORTED = frozenset(("fit.max_in_flight", "fit.metric_sync",
-                    "fit.device_metrics", "fit.device_prefetch"))
+                    "fit.device_metrics", "fit.device_prefetch",
+                    "fit.remat", "compile.pipeline",
+                    "compile.fuse_opt_max_kb", "compile.remat_threshold",
+                    "quant.calibration_percentile", "quant.per_channel",
+                    "quant.min_layer_elems"))
 
 #: where each unread knob's reader comes in (ROADMAP section A), by
 #: name or by subsystem prefix
 _READ_LATER = (
     ("fit.batch_size", "A.10 (tune's search half)"),
-    ("fit.remat", "A.9 (the compile pipeline)"),
-    ("compile.", "A.9 (the compile pipeline)"),
-    ("quant.", "A.9 (the compile pipeline)"),
     ("health.", "A.10 (diagnostics, obs and health)"),
     ("serving.", "A.11 (the rest of serving)"),
     ("decode.", "A.11 (the rest of serving)"),

@@ -2879,3 +2879,239 @@ def test_telemetry_adds_no_launch(cuda):
             mt.telemetry.set_enabled(True)
     assert runs[0][:2] == runs[1][:2] == runs[2][:2] == (6, 6)
     assert [r[2] for r in runs] == [3, 0, 3]
+
+
+# ------------------------------------------------- the compile pipeline
+MIXED_CASES = [((1568, 2048), -1), ((999, 37), -1), ((2, 7, 7, 64), 3),
+               ((3, 37, 5, 7), 1), ((32, 64, 56, 56), 1)]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("pair", [("bfloat16", "float32"),
+                                  ("float32", "bfloat16")])
+@pytest.mark.parametrize("shape,axis", MIXED_CASES,
+                         ids=["x".join(map(str, s)) + "-ax%d" % a
+                              for s, a in MIXED_CASES])
+def test_epilogue_mixed_types_equal_plain_version(epi, shape, axis, pair,
+                                                  residual):
+    """A bf16 x with an f32 y (and the reverse), the bf16 rewrite's
+    boundary sites: one launch, bit for bit the plain version."""
+    torch, e = epi
+    xt, yt = (getattr(torch, d) for d in pair)
+    x, s, b, r = _epilogue_inputs(torch, shape, axis, xt, residual,
+                                  seed=sum(shape) + 1)
+    if r is not None:
+        r = r.to(yt)
+    before = e.bn_apply_relu_add.launches
+    got = e.bn_apply_relu_add(x, s, b, r, axis=axis, out_dtype=yt)
+    want = e.bn_apply_relu_add_reference(x, s, b, r, axis=axis,
+                                         out_dtype=yt)
+    torch.cuda.synchronize()
+    assert e.bn_apply_relu_add.launches == before + 1
+    assert got.dtype == yt and got.shape == x.shape
+    _same_bits(torch, got, want)
+
+
+def _bn_relu_net(mt, layout):
+    s = mt.sym
+    h = s.Convolution(s.Variable("data"), kernel=(3, 3), num_filter=16,
+                      pad=(1, 1), name="c1", layout=layout)
+    h = s.Activation(s.BatchNorm(h, name="bn1", fix_gamma=False,
+                                 axis=3 if layout else 1), act_type="relu")
+    h = s.Convolution(h, kernel=(3, 3), num_filter=16, pad=(1, 1),
+                      name="c2", layout=layout)
+    return h
+
+
+def _bind(mt, np, net, shape, seed=0):
+    ex = net.simple_bind(mt.gpu(0), grad_req="null", data=shape)
+    rng = np.random.RandomState(seed)
+    for n, a in sorted(ex.arg_dict.items()):
+        a[:] = rng.uniform(-0.5, 0.5, a.shape).astype(np.float32)
+    for n, a in sorted(ex.aux_dict.items()):
+        a[:] = (rng.uniform(0.5, 1.5, a.shape) if n.endswith("var")
+                else rng.uniform(-0.2, 0.2, a.shape)).astype(np.float32)
+    return ex
+
+
+@pytest.mark.parametrize("layout", [None, "NHWC"])
+def test_cast_sandwich_is_one_bf16_epilogue_launch(cuda, layout):
+    """Under ``bf16`` the BatchNorm is an f32 island between the rewrite's
+    casts (conv -> Cast(f32) -> BN -> ReLU -> Cast(bf16) -> conv): the
+    plan runs it as ONE bf16-in, bf16-out epilogue launch, equal to the
+    unfused walk of the same rewritten graph; under ``NHWC`` it takes
+    the rows path (channels last)."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.executor import _trace_graph
+    from mxtpu_torch.ops import nn as nn_ops
+    shape = (4, 12, 12, 3) if layout else (4, 3, 12, 12)
+    ex = _bind(mt, np, _bn_relu_net(mt, layout), shape)
+    seen = []
+    real = nn_ops.bn_apply_relu_add
+
+    def spy(x, scale, shift, residual=None, block_m=1024, axis=-1,
+            out_dtype=None):
+        seen.append((x.dtype, out_dtype, x.ndim if axis < 0 else axis,
+                     x.is_contiguous()))
+        return real(x, scale, shift, residual, block_m, axis, out_dtype)
+
+    from mxtpu_torch.ops import epilogue as epi
+    nn_ops.bn_apply_relu_add = spy
+    try:
+        with mt.compile.pipeline_scope(["bf16"]):
+            before = epi.bn_apply_relu_add.launches
+            got = ex.forward()[0]._data
+            torch.cuda.synchronize()
+            assert epi.bn_apply_relu_add.launches == before + 1
+            sym = ex._xform[(("bf16",), True)][0]
+    finally:
+        nn_ops.bn_apply_relu_add = real
+    assert seen == [(torch.bfloat16, torch.bfloat16,
+                     3 if layout else 1, True)]
+    run = _trace_graph(sym, False, fuse=False)
+    args = {n: a._data for n, a in ex.arg_dict.items()}
+    aux = {n: a._data for n, a in ex.aux_dict.items()}
+    with torch.inference_mode():
+        want = run(args, aux)[0][0]
+    # the fold (x * scale + shift) against BatchNorm's (x - mean) * inv
+    # * g + beta, then one bf16 rounding on each side
+    err = float(((got.float() - want.float()).abs()
+                 / want.float().abs().clamp(min=1)).max())
+    assert err <= 2e-2, err
+
+
+def test_axis3_batchnorm_relu_takes_the_rows_path(cuda):
+    """An NHWC conv run (the ``layout`` rewrite's form) is dense
+    channels-last, so its axis=3 BatchNorm -> ReLU reaches the kernel as
+    (N*H*W, C) rows: inner == 1, no plane walk, equal to the plain
+    epilogue bit for bit."""
+    torch, _ = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    from mxtpu_torch.ops import epilogue as epi
+    from mxtpu_torch.ops import nn as nn_ops
+    ex = _bind(mt, np, _bn_relu_net(mt, "NHWC"), (4, 12, 12, 3))
+    seen = []
+    real = epi._layout
+
+    def spy(shape, axis):
+        seen.append(real(shape, axis))
+        return real(shape, axis)
+
+    epi._layout = spy
+    before = epi.bn_apply_relu_add.launches
+    try:
+        ex.forward()
+        torch.cuda.synchronize()
+    finally:
+        epi._layout = real
+    assert epi.bn_apply_relu_add.launches == before + 1
+    assert seen == [(4 * 12 * 12, 16, 1)]
+    del nn_ops
+
+
+def test_bf16_lm_step_launches_the_bf16_flash_pair(cuda):
+    """A 2-layer LM through ``Module.fit`` under ``bf16``: FlashAttention
+    is bf16-safe (it follows the bf16 projections), so every step
+    launches the bf16 flash forward and backward, one each a layer, and
+    the loss is finite and near the f32 fit's."""
+    torch, att = cuda
+    import logging
+    import numpy as np
+    import mxtpu_torch as mt
+    b, t, vocab, layers, steps = 2, 64, 97, 2, 3
+    net = mt.models.transformer.get_symbol(vocab, t, num_layers=layers,
+                                           num_heads=2, d_model=128)
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, vocab, (b, t)).astype(np.float32)
+    y = np.roll(x, -1, axis=1).reshape(-1)
+    dtypes = []
+    real = att._launch
+
+    def spy(kernel, q, *a, **k):
+        dtypes.append(q.dtype)
+        return real(kernel, q, *a, **k)
+
+    losses = {}
+    for cfg in ((), ("bf16",)):
+        np.random.seed(1)
+        mod = mt.mod.Module(net, context=mt.gpu(0),
+                            logger=logging.getLogger("quiet"))
+        mod.bind([("data", (b, t))], [("softmax_label", (b * t,))])
+        mod.init_params(mt.init.Xavier())
+        mod.init_optimizer(optimizer="adam")
+        f0, b0 = att.flash_attention.launches, \
+            att.flash_attention_backward.launches
+        att._launch = spy
+        with mt.compile.pipeline_scope(cfg):
+            mod.init_optimizer(optimizer="adam", force_init=True)
+            try:
+                for _ in range(steps):
+                    batch = mt.io.DataBatch(
+                        [mt.nd.array(x, ctx=mt.gpu(0))],
+                        [mt.nd.array(y, ctx=mt.gpu(0))])
+                    mod.forward_backward(batch)
+                    mod.update()
+                out = mod.get_outputs()[0].asnumpy()
+            finally:
+                att._launch = real
+        torch.cuda.synchronize()
+        assert att.flash_attention.launches - f0 == layers * steps
+        assert att.flash_attention_backward.launches - b0 == layers * steps
+        losses[cfg] = -np.log(out[np.arange(b * t), y.astype(int)]).mean()
+        if cfg:
+            assert mod._fused.pipeline_report.applied == ["bf16"]
+            assert set(dtypes) == {torch.bfloat16}, dtypes
+        dtypes.clear()
+    assert np.isfinite(losses[("bf16",)])
+    assert abs(losses[("bf16",)] - losses[()]) <= 0.05 * losses[()]
+
+
+@pytest.mark.parametrize("name,params", [
+    ("sgd", {}), ("sgd", {"momentum": 0.9, "clip_gradient": 0.5}),
+    ("adam", {"wd": 1e-3})])
+def test_foreach_update_is_the_single_tensor_chain_bit_for_bit(cuda, name,
+                                                              params):
+    """The fused step's SGD and Adam update lists of card tensors in
+    foreach calls; each parameter and its state round as the optimizer's
+    single-tensor update functions (the Updater's chain) round it, bit
+    for bit, over shapes that split and do not split the foreach
+    kernels' chunks."""
+    torch, _att = cuda
+    import mxtpu_torch as mt
+    from mxtpu_torch import optimizer as topt
+    from mxtpu_torch.module import fused
+    o = mt.optimizer.create(name, rescale_grad=0.25, **params)
+    init, apply, _ = fused._RULES[type(o).__name__](o)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(3,), (64, 3, 7, 7), (1000, 2048), (65537,), (1, 1)]
+    ws = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+    gs = [4 * torch.randn(s, device="cuda", generator=gen) for s in shapes]
+    lrs = [0.1 * (i + 1) for i in range(len(shapes))]
+    wds = [1e-4 * i for i in range(len(shapes))]
+    mine = [w.clone() for w in ws]
+    theirs = [w.clone() for w in ws]
+    s_mine = [init(w) for w in ws]
+    s_theirs = [init(w) for w in ws]
+    clip = o.clip_gradient or -1.0
+    mom = float(getattr(o, "momentum", 0.0) or 0.0)
+    for _ in range(3):
+        fused._over_lists(apply)(mine, gs, s_mine, lrs, wds)
+        for w, g, s, lr, wd in zip(theirs, gs, s_theirs, lrs, wds):
+            if name == "adam":
+                topt.adam_update_(w, g, s[0], s[1], lr, wd, o.rescale_grad,
+                                  clip, o.beta1, o.beta2, o.epsilon)
+            elif mom:
+                topt.sgd_mom_update_(w, g, s, lr, wd, o.rescale_grad, clip,
+                                     mom)
+            else:
+                topt.sgd_update_(w, g, lr, wd, o.rescale_grad, clip)
+    torch.cuda.synchronize()
+    for a, b in zip(mine, theirs):
+        assert torch.equal(a, b)
+    for a, b in zip(s_mine, s_theirs):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert (x is None and y is None) or torch.equal(x, y)

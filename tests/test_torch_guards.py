@@ -57,7 +57,13 @@ def test_import_pulls_in_no_jax_and_no_mxtpu():
             "                                   tracing)\n"
             "from mxtpu_torch.faults import injection, retry\n"
             "from mxtpu_torch.tune import config\n"
-            "from mxtpu_torch.diagnostics import flight\n"
+            "from mxtpu_torch.diagnostics import flight, programs\n"
+            "from mxtpu_torch import compile as _compile\n"
+            "from mxtpu_torch.compile import pipeline, quant\n"
+            "from mxtpu_torch.analysis import (passes, dataflow, rewrite,\n"
+            "                                  equiv, graphgen, sanitizer,\n"
+            "                                  provenance)\n"
+            "from mxtpu_torch.analysis import __main__ as _cli\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in %r)\n"
             "print(repr(bad))\n" % (str(REPO), FORBIDDEN))

@@ -167,7 +167,8 @@ def test_mlp_fit_emits_mxtpus_series_with_the_same_counts(pkgs):
     for key in [("fit_samples", ()), ("fit_epochs", ()),
                 ("io_batches", (("iter", "NDArrayIter"),)),
                 ("fit_step_ms", ()), ("fit_dispatch_ms", ()),
-                ("fit_metric_sync_ms", ()), ("fit_eval_ms", ()),
+                ("fit_metric_sync_ms", ()), ("fit_sync_wait_ms", ()),
+                ("fit_eval_ms", ()),
                 ("io_batch_assemble_ms", ()),
                 ("span_ms", (("span", "fit.step"),)),
                 ("span_ms", (("span", "fit.eval"),))]:
@@ -177,6 +178,17 @@ def test_mlp_fit_emits_mxtpus_series_with_the_same_counts(pkgs):
     # and one backward span under its fit.step
     steps = got[("fit_step_ms", ())]
     assert got[("span_ms", (("span", "executor.backward"),))] == steps
+
+
+def test_fit_counts_hold_after_an_earlier_port_fit(pkgs):
+    """The state an earlier port test leaves behind: the port's default
+    registry already holds the fit's series (any ``Module.fit`` before
+    this file in the same process, as under xdist's loadfile). The
+    pacing waits are then the fit's only by moving, so the port's window
+    must wait as mxtpu's does on the CPU, and the comparison holds."""
+    mx, mt = pkgs
+    _fit_deltas(mt)
+    test_mlp_fit_emits_mxtpus_series_with_the_same_counts(pkgs)
 
 
 def test_disabled_telemetry_makes_every_helper_the_null_metric(pkgs):
