@@ -2,7 +2,7 @@
 NVIDIA GPU (with ``--multi-gpu``, its data-parallel paths on four).
 
     python3 chip_smoke.py [--out results.json] [--seed N] [--profile]
-                          [--phases kernels,epilogue,...,rcnn,ctc,sparse]
+                          [--phases kernels,epilogue,...,compile,observability]
                           [--parent CSRC [--parent CSRC ...]]
     python3 chip_smoke.py --multi-gpu [--out results.json]   # 4 cards
                           [--multi-phases kvstore,...,group2ctx]
@@ -389,9 +389,30 @@ Phases (any failure raises and exits non-zero):
    p = 0.25) with ``MXTPU_KVSTORE_RETRIES=10``: each faulted worker's
    snapshot shows ``fault_injected`` and ``retry_attempts`` above 0 and
    its weights are bit-identical to the bare run's.
-21. Prints the kernels' JSON line (each kernel's launches by path, the
-   ``records``, ``frontend``, ``zoo``, ``rcnn``, ``ctc`` and
-   ``scaffolding`` paths included), then the device line last.
+21. The compile pipeline (``compile``; see ``phase_compile``).
+22. Observability (``observability``, ``OBS``): the LM of phase 6 fit
+   8 steps with health off and on from one init, in f32 and under
+   ``bf16``: 96 + 96 flash launches each, one step's health rows against
+   float64 sums of that step's gradients and weights, the metric
+   accumulator's syncs equal, the weights bit for bit, step ms in turns;
+   again in f32 with a default-stat Monitor over the attention outputs
+   (its taps ride the cadence, the fused step stays armed). A sampled
+   ResNet-50 step with the Monitor adapter against an unsampled one and
+   the per-op path's (phase 12's row). ResNet-50 v2 fit 3 steps with
+   health at B=256: the ledger by origin, ``reconcile()`` at a quiescent
+   point (the fit's untracked bytes 0), ``liveness_ledger_check``, the
+   evaluation forward's 50 epilogue launches bit for bit the plain
+   epilogue. An LR bomb (one divergence at the step that fired it, one
+   postmortem); an injected wait at ``executor.device_wait`` past the
+   watchdog's deadline (one postmortem naming it, the weights the bare
+   fit's); the LM served behind the HTTP server (``/debug/state``,
+   ``/debug/trace``, the corpus's service rows); ``python -m
+   mxtpu_torch.tune search`` on the card and a ``fit(tuned=...)`` with
+   an ``OnlineController`` attached.
+23. Prints the kernels' JSON line (each kernel's launches by path, the
+   ``records``, ``frontend``, ``zoo``, ``rcnn``, ``ctc``,
+   ``scaffolding``, ``compile`` and ``observability`` paths included),
+   then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -667,7 +688,7 @@ ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
           "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse",
-          "dist_async", "scaffolding", "compile")
+          "dist_async", "scaffolding", "compile", "observability")
 # phase 21, the compile pipeline: ResNet-50 v2 predicted under
 # (layout, bf16) at B=`batch`; the LM of phase 6 trained TRAIN["steps"]
 # steps under bf16; ResNet-50 trained `remat_steps` steps at B=
@@ -6724,7 +6745,9 @@ def surface_sequential(mt, seed, card):
 
 def surface_monitor_step(mt, seed, card):
     """One ResNet-50 v2 SGD step at B=SURFACE["seq_batch"] with a Monitor
-    (interval 1, every tensor, the default stat) installed, against the
+    (interval 1, every tensor, the mean absolute value as a stat of its
+    own: the per-op path; the default stat takes the device adapter,
+    phase 22) installed, against the
     same step unmonitored (the fused update), cuDNN deterministic: as
     many stats as the graph's visible op outputs plus its outputs, the
     loss and the weights bit for bit; each step's ms printed."""
@@ -6750,7 +6773,8 @@ def surface_monitor_step(mt, seed, card):
             _train_modules(mt, mod, args, auxs, b)
             mon = None
             if monitored:
-                mon = mt.monitor.Monitor(1)
+                mon = mt.monitor.Monitor(
+                    1, stat_func=lambda x: abs(x.asnumpy()).mean())
                 mod.install_monitor(mon)
                 mon.tic()
             torch.cuda.synchronize()
@@ -11047,6 +11071,738 @@ def phase_compile(mt, att, epi, seed, card, profile=False):
     return out
 
 
+
+# phase 22, observability: the LM of phase 6 trained `steps` steps through
+# Module.fit at `metric_sync`, health off and on from one init, f32 and
+# bf16 (Adam at `lr`), and in f32 once more with a default-stat Monitor
+# of `monitor_interval` over `monitor_pattern` (the attention outputs);
+# the health rows of step `capture_step` held to a float64 recomputation
+# from that step's gradients and weights within `stat_rtol` (relative;
+# each row is an f32 sum of squares over up to 3.9e7 elements, summed as
+# a tree: its rounding stays below ~30 ulps, 2e-6, so 1e-4 is loose for
+# the arithmetic and tight for any wrong term: a missing member or a
+# bf16 operand errs by >= 4e-3); `turns` rounds of `turn_steps` steps of
+# the on and off modules in turns. ResNet-50 v2 fit `resnet_steps` steps
+# at B=`resnet_batch` with health on; the fit's untracked bytes (the CUDA
+# allocator's requested bytes minus the ledger's, after the fit less
+# before it, cuBLAS workspaces cleared both times) at most
+# `reconcile_slack`: the fit leaves no device tensor outside the ledger
+# but scalars freed with it, and the smallest tensor it keeps (a BN
+# gamma, 256 B) must show. The LR bomb: the mlp at `bomb_lr` from step
+# `bomb_step` (metric_sync 1). The watchdog: `wait_s` deadline, sampled
+# every `interval_s`, one `latency_ms` injected wait in the mlp fit at
+# max_in_flight 1. Serving: `requests` requests from `clients` threads.
+OBS = dict(steps=8, metric_sync=4, lr=5e-4, monitor_interval=4,
+           monitor_pattern=".*_attn_output", capture_step=5,
+           stat_rtol=1e-4, turns=3, turn_steps=3, resnet_batch=256,
+           resnet_steps=3, resnet_lr=0.1, reconcile_slack=0,
+           monitor_batch=64, mlp_batch=64, mlp_steps=6, mlp_lr=0.1,
+           bomb_step=3, bomb_lr=float("inf"), wait_s=0.25, interval_s=0.05,
+           latency_ms=1500, requests=4, clients=2, tune_steps=8)
+
+
+def obs_capture(mt, step):
+    """Wrap FusedTrainStep.update to keep, at call ``step``, the health
+    rows and float64 copies of the weights before and after and of the
+    summed gradients; returns (the dict it fills, restore)."""
+    ft = mt.module.fused.FusedTrainStep
+    real = ft.update
+    calls, cap = [0], {}
+
+    def update(self):
+        k = calls[0]
+        calls[0] += 1
+        if k != step or self._h is None:
+            return real(self)
+        names = self._h["names"]
+        cap["old"] = [self._targets[0][n].double() for n in names]
+        real(self)
+        cap["new"] = [self._targets[0][n].double() for n in names]
+        cap["grad"] = [self._sums[0][n].double() for n in names]
+        cap["rows"] = {k_: self.last_health[k_].clone()
+                       for k_ in ("sums", "max")}
+        cap["classes"] = self._health_classes
+
+    ft.update = update
+
+    def restore():
+        ft.update = real
+    return cap, restore
+
+
+def obs_stats_gate(cap, label):
+    """The captured step's rows against float64 sums of its tensors."""
+    want_s, want_m = [], []
+    i = 0
+    for _lbl, members in cap["classes"]:
+        g2 = w2 = u2 = nf = 0.0
+        gm = 0.0
+        for _ in members:
+            g, w, o = cap["grad"][i], cap["new"][i], cap["old"][i]
+            g2 += float((g * g).sum())
+            w2 += float((w * w).sum())
+            u2 += float(((w - o) ** 2).sum())
+            nf += float((~torch.isfinite(g)).sum()
+                        + (~torch.isfinite(w)).sum())
+            gm = max(gm, float(g.abs().max()))
+            i += 1
+        want_s.append((g2, w2, u2, nf))
+        want_m.append(gm)
+    got_s = cap["rows"]["sums"].double().cpu().numpy()
+    got_m = cap["rows"]["max"].double().cpu().numpy()
+    want_s, want_m = np.array(want_s), np.array(want_m)
+    # relative to each class's value, floored at 1e-6 of the column's
+    # largest: a class whose exact value is 0 (the attention's key bias
+    # has no gradient: softmax ignores a shift of every score) holds
+    # only the rounding noise of its own computation
+    floor = 1e-6 * want_s[:, :3].max(axis=0, keepdims=True)
+    rel = np.abs(got_s[:, :3] - want_s[:, :3]) / np.maximum(
+        want_s[:, :3], np.maximum(floor, 1e-30))
+    worst = float(rel.max())
+    log("  %s health rows of step %d: %d classes; vs float64 worst "
+        "relative error of the sums %.3e (gate %g), max-abs exact %s, "
+        "nonfinite %d (want 0)"
+        % (label, OBS["capture_step"], len(want_s), worst,
+           OBS["stat_rtol"], bool((got_m == want_m).all()),
+           int(got_s[:, 3].sum())))
+    if not worst <= OBS["stat_rtol"] or not (got_m == want_m).all() or \
+            got_s[:, 3].any() or want_s[:, 3].any():
+        raise AssertionError("%s health rows disagree with float64: %g"
+                             % (label, worst))
+    return worst
+
+
+def obs_lm_fit(mt, att, sym, init, x, y, pipe, health, monitor=None,
+               capture=False):
+    """One LM fit from ``init``: (module, its results)."""
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(arg_params=init[0], aux_params=init[1])
+    syncs, dtypes = [], set()
+    real_fwd = att._flash_forward
+
+    def fwd(q, k, v, causal, scale, want_lse=False):
+        if q.device.type != "meta":
+            dtypes.add(q.dtype)
+        return real_fwd(q, k, v, causal, scale, want_lse)
+
+    def record(param):
+        acc = param.eval_metric._device_accum
+        syncs.append(acc.syncs)
+
+    cap, restore = obs_capture(mt, OBS["capture_step"]) if capture \
+        else ({}, lambda: None)
+    hist = mt.telemetry.histogram("fit_step_ms")
+    n0, s0 = hist.count, hist.mean * hist.count
+    att._flash_forward = fwd
+    try:
+        with mt.compile.pipeline_scope(pipe):
+            _zero_flash_counts(att)
+            mod.fit(RepeatBatch(mt, x, y, OBS["steps"]), num_epoch=1,
+                    eval_metric="ce", optimizer="adam",
+                    optimizer_params={"learning_rate": OBS["lr"]},
+                    initializer=None, batch_end_callback=record,
+                    metric_sync=OBS["metric_sync"], health=health,
+                    monitor=monitor)
+            torch.cuda.synchronize()
+            launches = (att.flash_attention.launches,
+                        att.flash_attention_backward.launches)
+    finally:
+        att._flash_forward = real_fwd
+        restore()
+    step_ms = (hist.mean * hist.count - s0) / (hist.count - n0)
+    return mod, dict(launches=launches, syncs=syncs[-1], dtypes=dtypes,
+                     step_ms=step_ms, capture=cap)
+
+
+def obs_turns(mt, mods, x, y):
+    """Steps of each module in turns (on, off, off, on, ...): the median
+    ms of a step over `turns` rounds of `turn_steps` steps."""
+    batch = mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.cpu())],
+                            label=[mt.nd.array(y, ctx=mt.cpu())], pad=0)
+    out = {k: [] for k in mods}
+    order = list(mods)
+    for r in range(OBS["turns"]):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            mod = mods[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OBS["turn_steps"]):
+                mod.forward_backward(batch)
+                mod.update()
+            torch.cuda.synchronize()
+            out[k].append((time.perf_counter() - t0) * 1e3
+                          / OBS["turn_steps"])
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def obs_lm(mt, att, seed, card):
+    """Step 1 of phase 22: the LM's health fits, f32 and bf16."""
+    cfg = dict(LM)
+    sym = mt.models.get_transformer_lm(**cfg)
+    x, y = lm_batch(seed, TRAIN["batch"], cfg["seq_len"], cfg["vocab_size"])
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    np.random.seed(seed)
+    mod.init_params(mt.init.Xavier())
+    init = mod.get_params()
+    del mod
+    want = cfg["num_layers"] * OBS["steps"]
+    rows = {}
+    for name, pipe in (("f32", ()), ("bf16", ("bf16",))):
+        wdt = torch.bfloat16 if pipe else torch.float32
+        off, r_off = obs_lm_fit(mt, att, sym, init, x, y, pipe, False)
+        on, r_on = obs_lm_fit(mt, att, sym, init, x, y, pipe, True,
+                              capture=True)
+        w_off, w_on = off.get_params(), on.get_params()
+        same = all(torch.equal(w_on[i][k]._data, w_off[i][k]._data)
+                   for i in (0, 1) for k in w_off[i])
+        worst = obs_stats_gate(r_on["capture"], "LM %s" % name)
+        panel = on._health_session.panel_snapshot()
+        with mt.compile.pipeline_scope(pipe):
+            turns = obs_turns(mt, {"health_on": on, "health_off": off}, x,
+                              y)
+        log("  [%s] LM %s fits of %d steps: flash launches off %s on %s "
+            "(want %d each); attention %s; metric syncs off %d on %d; "
+            "weights bit for bit %s; health panel: %d classes, %d "
+            "cadences, anomalies %s; fit step ms off %.2f on %.2f; in "
+            "turns off %.2f on %.2f"
+            % (card, name, OBS["steps"], r_off["launches"],
+               r_on["launches"], want,
+               sorted(str(d) for d in r_off["dtypes"] | r_on["dtypes"]),
+               r_off["syncs"], r_on["syncs"], same, len(panel["classes"]),
+               panel["cadences"], panel["anomalies"], r_off["step_ms"],
+               r_on["step_ms"], turns["health_off"], turns["health_on"]))
+        if r_off["launches"] != (want, want) or \
+                r_on["launches"] != (want, want):
+            raise AssertionError("LM %s flash launches %s / %s != %d"
+                                 % (name, r_off["launches"],
+                                    r_on["launches"], want))
+        if r_off["dtypes"] | r_on["dtypes"] != {wdt}:
+            raise AssertionError("LM %s attention ran in %s" % (
+                name, r_off["dtypes"] | r_on["dtypes"]))
+        if r_on["syncs"] != r_off["syncs"] or not same:
+            raise AssertionError("LM %s: syncs %d vs %d, weights same %s"
+                                 % (name, r_on["syncs"], r_off["syncs"],
+                                    same))
+        if panel["anomalies"] or any(c["nonfinite"]
+                                     for c in panel["classes"]):
+            raise AssertionError("LM %s health: %s" % (name, panel))
+        rows[name] = dict(launches=r_on["launches"],
+                          off_launches=r_off["launches"],
+                          syncs=r_on["syncs"], stat_rel_err=worst,
+                          fit_step_ms_off=r_off["step_ms"],
+                          fit_step_ms_on=r_on["step_ms"],
+                          turn_step_ms=turns, classes=len(panel["classes"]))
+        del off, on, r_on, r_off
+        torch.cuda.empty_cache()
+    # the Monitor adapter over the attention outputs, in a health fit
+    mon = mt.monitor.Monitor(OBS["monitor_interval"],
+                             pattern=OBS["monitor_pattern"])
+    tocs = []
+    real_toc = mon.toc
+
+    def toc():
+        res = real_toc()
+        if res:
+            tocs.append(res)
+        return res
+    mon.toc = toc
+    mod, r = obs_lm_fit(mt, att, sym, init, x, y, (), True, monitor=mon)
+    names = sorted({k for res in tocs for _, k, _ in res})
+    vals = [float(v.split()[0]) for res in tocs for _, _, v in res]
+    sampled = -(-OBS["steps"] // OBS["monitor_interval"])
+    log("  [%s] LM f32 health fit with a Monitor adapter over %s: %d "
+        "sampled steps, %d stats each (%s...), all finite and positive "
+        "%s; fused step armed %s; flash launches %s; metric syncs %d"
+        % (card, OBS["monitor_pattern"], len(tocs),
+           len(tocs[0]) if tocs else 0, names[:2],
+           bool(vals) and all(np.isfinite(v) and v > 0 for v in vals),
+           mod._fused is not None, r["launches"], r["syncs"]))
+    if len(tocs) != sampled or any(len(t) != cfg["num_layers"]
+                                   for t in tocs) or \
+            mod._fused is None or mon._adapter is not mod or \
+            r["launches"] != (want, want) or \
+            not all(np.isfinite(v) and v > 0 for v in vals):
+        raise AssertionError("the LM's Monitor adapter: %d tocs, fused %s"
+                             % (len(tocs), mod._fused is not None))
+    rows["monitor"] = dict(launches=r["launches"], sampled=len(tocs),
+                           stats=len(tocs[0]), syncs=r["syncs"])
+    del mod
+    torch.cuda.empty_cache()
+    return rows
+
+
+def obs_monitor_step(mt, seed, card, per_op=None):
+    """A sampled ResNet-50 step with the default-stat Monitor (the
+    adapter: taps on the fused step) against an unsampled step of the
+    same module and against the per-op path's sampled step (phase 12's
+    row, or measured here), B=`monitor_batch`, cuDNN deterministic: the
+    stats are every visible op output's, the fused step stays armed and
+    the weights are bit for bit an unmonitored module's."""
+    if per_op is None:
+        per_op = surface_monitor_step(mt, seed, card)
+    sym = mt.models.get_resnet(**RESNET)
+    params = resnet_params(sym, seed)
+    args, auxs = mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+    b = OBS["monitor_batch"]
+    rng = np.random.default_rng(seed + 22)
+    batch = mt.io.DataBatch(
+        [mt.nd.array(rng.standard_normal((b,) + RESNET["image_shape"],
+                                         dtype=np.float32), ctx=mt.cpu())],
+        [mt.nd.array(rng.integers(0, RESNET["num_classes"], b)
+                     .astype(np.float32), ctx=mt.cpu())])
+    internals = sym.get_internals().list_outputs()
+    expect = len(internals) - len(sym.list_inputs())
+    res = {}
+    with DeterministicCudnn():
+        for monitored in (False, True):
+            mod = mt.mod.Module(sym, context=mt.gpu(0),
+                                logger=_quiet_logger())
+            _train_modules(mt, mod, args, auxs, b)
+            mon = mt.monitor.Monitor(2) if monitored else None
+            if mon is not None:
+                mod.install_monitor(mon)
+            ms, stats = [], []
+            for _ in range(2):  # sampled, then unsampled
+                if mon is not None:
+                    mon.tic()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mod.forward_backward(batch)
+                mod.update()
+                stats.append(mon.toc() if mon else [])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[monitored] = dict(ms=ms, stats=[len(s) for s in stats],
+                                  fused=mod._fused is not None,
+                                  params=mod.get_params())
+            del mod
+    plain, ad = res[False], res[True]
+    same_w = all(torch.equal(ad["params"][i][k]._data,
+                             plain["params"][i][k]._data)
+                 for i in (0, 1) for k in plain["params"][i])
+    log("  [%s] Monitor adapter on a ResNet-50 step at B=%d: %d stats on "
+        "the sampled step, %d on the unsampled; fused step armed %s; "
+        "weights bit for bit the unmonitored module's %s; sampled step "
+        "%.1f ms, unsampled %.1f ms (unmonitored %.1f, %.1f); the per-op "
+        "path's sampled step %.1f ms (unmonitored %.1f)"
+        % (card, b, ad["stats"][0], ad["stats"][1], ad["fused"], same_w,
+           ad["ms"][0], ad["ms"][1], plain["ms"][0], plain["ms"][1],
+           per_op["monitored_ms"], per_op["unmonitored_ms"]))
+    if ad["stats"] != [expect, 0] or not ad["fused"] or not same_w:
+        raise AssertionError("Monitor adapter: stats %s (want [%d, 0]), "
+                             "fused %s, weights %s" % (
+                                 ad["stats"], expect, ad["fused"], same_w))
+    return dict(stats=ad["stats"][0], sampled_ms=ad["ms"][0],
+                unsampled_ms=ad["ms"][1],
+                unmonitored_ms=plain["ms"][1],
+                per_op_sampled_ms=per_op["monitored_ms"],
+                per_op_unmonitored_ms=per_op["unmonitored_ms"])
+
+
+def obs_quiescent(mt):
+    """The ledger's reconcile at a quiescent point: the card idle,
+    garbage collected, cuBLAS workspaces released."""
+    import gc
+    torch.cuda.synchronize()
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    return mt.diagnostics.reconcile()
+
+
+def obs_resnet(mt, epi, seed, card):
+    """Step 2 of phase 22: ResNet-50 v2 fit with health on at
+    B=`resnet_batch`: the ledger by origin, its reconcile, the
+    evaluation forward's epilogue launches bit for bit the plain
+    epilogue, and liveness_ledger_check on its graph."""
+    sym = mt.models.get_resnet(**RESNET)
+    params = resnet_params(sym, seed)
+    args, auxs = mt.model.split_params(
+        {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}, "")
+    b = OBS["resnet_batch"]
+    rng = np.random.default_rng(seed + 23)
+    x = rng.random((b,) + RESNET["image_shape"], dtype=np.float32)
+    y = rng.integers(0, RESNET["num_classes"], b).astype(np.float32)
+    before = obs_quiescent(mt)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(arg_params=args, aux_params=auxs)
+    t0 = time.perf_counter()
+    mod.fit(RepeatBatch(mt, x, y, OBS["resnet_steps"]), num_epoch=1,
+            eval_metric="ce", optimizer="sgd",
+            optimizer_params={"learning_rate": OBS["resnet_lr"],
+                              "momentum": 0.9},
+            initializer=None, metric_sync=1, health=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = obs_quiescent(mt)
+    snap = mt.diagnostics.ledger().snapshot()
+    ctx = "gpu(0)"
+    d0 = before["by_ctx"][ctx]["drift_bytes"] if before["allocator"] \
+        and ctx in before["by_ctx"] else None
+    d1 = after["by_ctx"][ctx]
+    fit_drift = d1["drift_bytes"] - (d0 or 0)
+    panel = mod._health_session.panel_snapshot()
+    ex = mod._exec_group.execs[0]
+    findings = mt.analysis.dataflow.liveness_ledger_check(ex)
+    origins = {k: v for k, v in snap["live_bytes"].items()
+               if k.startswith(ctx)}
+    log("  [%s] ResNet-50 v2 fit(health=True) B=%d, %d steps in %.1f s: "
+        "%d health classes, %d cadences, anomalies %s; ledger by origin %s"
+        % (card, b, OBS["resnet_steps"], fit_s, len(panel["classes"]),
+           panel["cadences"], panel["anomalies"], origins))
+    log("  reconcile at a quiescent point: ledger %d B, allocator "
+        "requested %d B (allocated %d, rounding %d B in %d blocks): drift "
+        "%d B; before the module %s B; the fit's untracked bytes %d "
+        "(slack %d); liveness_ledger_check findings %s"
+        % (d1["ledger_bytes"], d1["requested_bytes"],
+           d1["allocated_bytes"], d1["rounding_bytes"], d1["blocks"],
+           d1["drift_bytes"], d0, fit_drift, OBS["reconcile_slack"],
+           [f.message for f in findings]))
+    if panel["cadences"] != OBS["resnet_steps"] or panel["anomalies"] or \
+            any(c["nonfinite"] for c in panel["classes"]):
+        raise AssertionError("ResNet-50 health: %s" % panel)
+    if abs(fit_drift) > OBS["reconcile_slack"] or findings:
+        raise AssertionError("ResNet-50 ledger: untracked %d B (slack %d), "
+                             "findings %s" % (fit_drift,
+                                              OBS["reconcile_slack"],
+                                              findings))
+    data = mt.nd.array(x, ctx=mt.gpu(0))
+    batch = mt.io.DataBatch([data], [mt.nd.array(y, ctx=mt.gpu(0))])
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]._data
+
+    gate = eval_forward_gate(epi, forward, lambda: ex.fused_sites,
+                             "ResNet-50 health fit's evaluation forward")
+    if gate["eval_max_abs_err"] != 0.0:
+        raise AssertionError("the evaluation forward is not bit for bit "
+                             "the plain epilogue's: %g"
+                             % gate["eval_max_abs_err"])
+    row = dict(gate, origins=origins, reconcile=d1, drift_before=d0,
+               fit_untracked_bytes=fit_drift, fit_s=fit_s,
+               classes=len(panel["classes"]))
+    del mod, ex, data, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def obs_mlp(mt, seed, n=None):
+    """The mlp (784-128-64-10) and `mlp_steps` seeded batches."""
+    n = n or OBS["mlp_steps"]
+    rng = np.random.RandomState(seed)
+    b = OBS["mlp_batch"]
+    x = rng.rand(b * n, 784).astype(np.float32)
+    y = rng.randint(0, 10, b * n).astype(np.float32)
+    return mt.models.get_mlp(10), x, y
+
+
+def obs_mlp_fit(mt, sym, init, x, y, **kw):
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod.bind(data_shapes=[("data", (OBS["mlp_batch"], 784))],
+             label_shapes=[("softmax_label", (OBS["mlp_batch"],))])
+    mod.init_params(arg_params=init[0], aux_params=init[1])
+    kw.setdefault("optimizer_params", {"learning_rate": OBS["mlp_lr"]})
+    mod.fit(mt.io.NDArrayIter(x, y, OBS["mlp_batch"]), num_epoch=1,
+            optimizer="sgd", initializer=None, **kw)
+    torch.cuda.synchronize()
+    return mod
+
+
+def obs_init(mt, sym, seed, shape):
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", shape[:1])])
+    np.random.seed(seed)
+    mod.init_params(mt.init.Xavier())
+    return mod.get_params()
+
+
+def obs_counter(mt, name, **labels):
+    return mt.telemetry.registry().counter(name, labels=labels).value
+
+
+def obs_bomb(mt, seed, card, corpus_dir):
+    """Step 3 of phase 22: the LR bomb. The mlp's lr jumps to `bomb_lr`
+    after step `bomb_step` - 1: that step's fresh weights are nonfinite,
+    and health_anomalies{kind=divergence} fires at its cadence (corpus
+    row `bomb_step` + 1), with exactly one postmortem."""
+    sym, x, y = obs_mlp(mt, seed)
+    init = obs_init(mt, sym, seed, (OBS["mlp_batch"], 784))
+    div0 = obs_counter(mt, "health_anomalies", kind="divergence")
+    pm0 = obs_counter(mt, "diag_postmortems", source="health")
+
+    def bomb(param):
+        if param.nbatch == OBS["bomb_step"] - 1:
+            param.locals["self"]._optimizer.lr = OBS["bomb_lr"]
+    mt.obs.corpus.reset()
+    os.environ["MXTPU_CORPUS_DIR"] = corpus_dir
+    try:
+        mod = obs_mlp_fit(mt, sym, init, x, y, eval_metric="ce",
+                          metric_sync=1, health=True,
+                          batch_end_callback=bomb)
+    finally:
+        del os.environ["MXTPU_CORPUS_DIR"]
+        mt.obs.corpus.reset()
+    rows = [r for r in mt.obs.corpus.load(corpus_dir)
+            if r["row"] == "health"]
+    fired = [r["cadence"] for r in rows if r.get("anomalies")
+             and "divergence" in r["anomalies"]]
+    div = obs_counter(mt, "health_anomalies", kind="divergence") - div0
+    pms = obs_counter(mt, "diag_postmortems", source="health") - pm0
+    pm = mt.diagnostics.last_postmortem()
+    log("  [%s] LR bomb (lr %g from step %d): divergence at cadences %s "
+        "(want [%d]); health_anomalies{kind=divergence} +%d, health "
+        "postmortems +%d: %s"
+        % (card, OBS["bomb_lr"], OBS["bomb_step"], fired,
+           OBS["bomb_step"] + 1, div, pms, pm["reason"][:90]))
+    if fired != [OBS["bomb_step"] + 1] or div != 1 or pms != 1 or \
+            pm["source"] != "health":
+        raise AssertionError("LR bomb: fired %s, divergence +%d, "
+                             "postmortems +%d" % (fired, div, pms))
+    del mod
+    return dict(fired_cadence=fired[0], divergence=div, postmortems=pms)
+
+
+def obs_watchdog(mt, seed, card):
+    """Step 4 of phase 22: one `latency_ms` wait injected at
+    executor.device_wait inside the mlp fit (max_in_flight 1), the
+    watchdog's deadline `wait_s`: exactly one postmortem naming the
+    wait, with the flight ring, the engine state and the ledger; the fit
+    ends bit for bit the bare fit."""
+    diag = mt.diagnostics
+    sym, x, y = obs_mlp(mt, seed)
+    init = obs_init(mt, sym, seed, (OBS["mlp_batch"], 784))
+    bare = obs_mlp_fit(mt, sym, init, x, y, max_in_flight=1)
+    saved = {k: os.environ.get(k) for k in ("MXTPU_WATCHDOG_WAIT_S",
+                                            "MXTPU_WATCHDOG_INTERVAL_S")}
+    diag.stop_watchdog()
+    os.environ["MXTPU_WATCHDOG_WAIT_S"] = str(OBS["wait_s"])
+    os.environ["MXTPU_WATCHDOG_INTERVAL_S"] = str(OBS["interval_s"])
+    pm0 = obs_counter(mt, "diag_postmortems", source="watchdog")
+    t0 = time.perf_counter()
+    try:
+        with mt.faults.scope("executor.device_wait:latency_ms=%d,times=1,"
+                             "after=2" % OBS["latency_ms"]):
+            faulted = obs_mlp_fit(mt, sym, init, x, y, max_in_flight=1)
+        time.sleep(4 * OBS["interval_s"])
+    finally:
+        diag.stop_watchdog()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fit_s = time.perf_counter() - t0
+    pms = obs_counter(mt, "diag_postmortems", source="watchdog") - pm0
+    pm = diag.last_postmortem()
+    wb, wf = bare.get_params(), faulted.get_params()
+    same = all(torch.equal(wb[i][k]._data, wf[i][k]._data)
+               for i in (0, 1) for k in wb[i])
+    keys = sorted(k for k in ("flight", "engine", "ledger", "waits",
+                              "programs") if k in pm)
+    log("  [%s] watchdog (deadline %.2f s, one %d ms injected wait): "
+        "watchdog postmortems +%d, reason %r, with %s (flight %d events, "
+        "engine %s, ledger %d B live); the faulted fit %.1f s, weights "
+        "bit for bit the bare fit's %s"
+        % (card, OBS["wait_s"], OBS["latency_ms"], pms, pm["reason"],
+           keys, len(pm.get("flight", ())), pm.get("engine", {}).get("type"),
+           pm.get("ledger", {}).get("live_bytes_total", 0), fit_s, same))
+    if pms != 1 or pm["source"] != "watchdog" or \
+            "device_wait" not in pm["reason"] or \
+            not {"flight", "engine", "ledger"} <= set(keys) or \
+            not pm["flight"] or not same:
+        raise AssertionError("watchdog: postmortems +%d (%s), weights %s"
+                             % (pms, pm.get("reason"), same))
+    return dict(postmortems=pms, reason=pm["reason"], fit_s=fit_s)
+
+
+def obs_served(mt, att, seed, card, corpus_dir):
+    """Step 5 of phase 22: the LM served behind the HTTP server with the
+    span ring armed and the corpus on: /debug/state with mxtpu's keys
+    and the serving pool's ledger origin, /debug/trace a Chrome trace of
+    the requests' spans, the corpus's service rows."""
+    mt.obs.trace.install()
+    ring = mt.obs.trace.ring()
+    ring.clear()
+    sym = mt.models.get_transformer_lm(**LM)
+    params = lm_params(sym, seed)
+    rng = np.random.default_rng(seed + 22)
+    n = OBS["requests"]
+    requests = [rng.integers(0, LM["vocab_size"], (1, LM["seq_len"]))
+                .astype(np.float32) for _ in range(n)]
+    mt.obs.corpus.reset()
+    os.environ["MXTPU_CORPUS_DIR"] = corpus_dir
+    session = server = None
+    errors = []
+    try:
+        session = mt.serving.ServingSession(
+            sym.tojson(), params, {"data": (1, LM["seq_len"])},
+            buckets=BUCKETS, contexts=[mt.gpu(0)], warmup=True)
+        server = mt.serving.ServingHTTPServer(session, port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        att.flash_attention.launches = 0
+
+        def client(idx):
+            try:
+                for r in range(idx, n, OBS["clients"]):
+                    out = session.predict({"data": requests[r]})[0]
+                    if not np.isfinite(out).all():
+                        raise AssertionError("answer %d not finite" % r)
+            except Exception as exc:  # re-raised on the main thread
+                errors.append(exc)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(OBS["clients"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        launches = att.flash_attention.launches
+        state = json.loads(http_get(server.endpoint + "/debug/state")[0])
+        trace = json.loads(http_get(server.endpoint + "/debug/trace")[0])
+        batches = session.stats()["batches_dispatched"]
+    finally:
+        if server is not None:
+            server.shutdown()
+        elif session is not None:
+            session.close()
+        del os.environ["MXTPU_CORPUS_DIR"]
+        mt.obs.corpus.reset()
+    if errors:
+        raise errors[0]
+    svc = [r for r in mt.obs.corpus.load(corpus_dir)
+           if r["row"] == "service" and r["source"] == "serving"]
+    slices = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    req = [e for e in slices if e["name"] == "serving.request"]
+    bat = [e for e in slices if e["name"].startswith("batch[")]
+    want_keys = {"time", "pid", "ledger", "programs", "flight", "engine",
+                 "waits", "concurrency", "trace", "serving"}
+    if torch.cuda.is_available():
+        want_keys.add("reconcile")  # the allocator's drift check
+    origin = state["ledger"]["live_bytes"].get(
+        "%s/serving_pool" % mt.gpu(0), 0)
+    log("  [%s] %d requests served in %d batches behind the HTTP server: "
+        "/debug/state keys %s, serving_pool %d B live; /debug/trace %d "
+        "events, %d serving.request and %d batch slices; corpus service "
+        "rows %d; flash launches %d"
+        % (card, n, batches, sorted(state), origin,
+           len(trace["traceEvents"]), len(req), len(bat), len(svc),
+           launches))
+    if not want_keys <= set(state) or origin <= 0 or len(req) != n or \
+            len(bat) != batches or len(svc) != batches or \
+            launches != LM["num_layers"] * batches:
+        raise AssertionError("served LM debug surface: keys %s, origin %d, "
+                             "request slices %d, batch slices %d, rows %d"
+                             % (sorted(state), origin, len(req), len(bat),
+                                len(svc)))
+    return dict(batches=batches, launches=launches, keys=sorted(state),
+                serving_pool_bytes=origin, trace_events=len(
+                    trace["traceEvents"]), corpus_rows=len(svc))
+
+
+def obs_tune(mt, seed, card, tmp):
+    """Step 6 of phase 22: `python -m mxtpu_torch.tune search` with its
+    probes on the card writes a TunedConfig; an mlp fit(tuned=...) loads
+    and applies its fit knobs; an OnlineController attached to that fit,
+    stepped after every batch, keeps fit.max_in_flight inside its
+    certified range, every move counted in tune_adjustments{knob}."""
+    import subprocess
+    path = os.path.join(tmp, "tuned.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mxtpu_torch.tune",
+                           "search", "--out", path, "--ctx", "gpu"],
+                          capture_output=True, text=True, timeout=600)
+    search_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("tune search failed: %s" % proc.stderr[-2000:])
+    cfg = mt.tune.TunedConfig.load(path, strict=True)
+    probes = [e for e in cfg.evidence if e.get("stage") == "probe"]
+    knob = mt.tune.get_knob("fit.max_in_flight")
+    lo, hi = knob.safe_range
+    sym, x, y = obs_mlp(mt, seed, OBS["tune_steps"])
+    init = obs_init(mt, sym, seed, (OBS["mlp_batch"], 784))
+    ctl = mt.tune.OnlineController(artifact=cfg).activate()
+    adj0 = obs_counter(mt, "tune_adjustments", knob="fit.max_in_flight")
+    seen, moves = [], []
+
+    def step(param):
+        # the live signals each batch; at batch 2 also a reading of no
+        # memory headroom, which must back the window off one step
+        moves.extend(ctl.step())
+        if param.nbatch == 2:
+            moves.extend(ctl.step(signals={"mem_headroom_frac": 0.0}))
+        b = ctl._bound.get("fit.max_in_flight")
+        if b is not None:
+            seen.append(b.get())
+    try:
+        mod = obs_mlp_fit(mt, sym, init, x, y, tuned=path,
+                          batch_end_callback=step)
+    finally:
+        ctl.deactivate()
+    adj = obs_counter(mt, "tune_adjustments",
+                      knob="fit.max_in_flight") - adj0
+    events = [e for e in cfg.provenance if e.get("event") == "online-adjust"]
+    applied = {k: mod._fit_knobs[k] for k in ("fit.max_in_flight",
+                                              "fit.device_prefetch")}
+    log("  [%s] tune search on the card in %.1f s: %d probes, values %s; "
+        "the tuned fit's knobs %s; the online controller's window %s "
+        "(certified %s..%s), %d moves, tune_adjustments +%d, provenance "
+        "events %d"
+        % (card, search_s, len(probes), cfg.values, applied, seen, lo, hi,
+           len(moves), adj, len(events)))
+    if not probes or any(applied[k] != cfg.values[k] for k in applied) or \
+            len(seen) != OBS["tune_steps"] or not moves or \
+            not all(lo <= v <= hi for v in seen) or \
+            adj != len(moves) or len(events) != len(moves):
+        raise AssertionError("tune: probes %d, knobs %s vs %s, window %s, "
+                             "moves %d, counter +%d"
+                             % (len(probes), applied, cfg.values, seen,
+                                len(moves), adj))
+    return dict(search_s=search_s, probes=len(probes), values=cfg.values,
+                window=seen, moves=len(moves))
+
+
+def phase_observability(mt, att, epi, seed, card, per_op=None):
+    """Phase 22: A.10 on the card (see OBS)."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"lm": obs_lm(mt, att, seed, card)}
+    out["monitor_step"] = obs_monitor_step(mt, seed, card, per_op)
+    out["resnet"] = obs_resnet(mt, epi, seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["bomb"] = obs_bomb(mt, seed, card, os.path.join(tmp, "bomb"))
+        out["watchdog"] = obs_watchdog(mt, seed, card)
+        out["served"] = obs_served(mt, att, seed, card,
+                                   os.path.join(tmp, "served"))
+        out["tune"] = obs_tune(mt, seed, card, tmp)
+    out["launches"] = {
+        "flash_fwd": {"lm_training_health_f32": out["lm"]["f32"]["launches"][0]
+                      + out["lm"]["f32"]["off_launches"][0],
+                      "lm_training_health_bf16":
+                      out["lm"]["bf16"]["launches"][0]
+                      + out["lm"]["bf16"]["off_launches"][0],
+                      "lm_training_monitor_adapter":
+                      out["lm"]["monitor"]["launches"][0],
+                      "lm_serving_debug": out["served"]["launches"]},
+        "flash_bwd": {"lm_training_health_f32": out["lm"]["f32"]["launches"][1]
+                      + out["lm"]["f32"]["off_launches"][1],
+                      "lm_training_health_bf16":
+                      out["lm"]["bf16"]["launches"][1]
+                      + out["lm"]["bf16"]["off_launches"][1],
+                      "lm_training_monitor_adapter":
+                      out["lm"]["monitor"]["launches"][1]},
+        "epilogue": {"resnet_health_eval": out["resnet"]["eval_launches"]}}
+    out["phase_s"] = time.perf_counter() - t0
+    log("  phase 22 took %.1f s" % out["phase_s"])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -11235,6 +11991,12 @@ def main(argv=None):
         log("[compile]")
         results["compile"] = phase_compile(mt, att, epi, args.seed, card,
                                            profile=args.profile)
+    # 22. the ledger, the watchdog, health, the Monitor adapter and tune
+    if "observability" in phases:
+        log("[observability]")
+        results["observability"] = phase_observability(
+            mt, att, epi, args.seed, card,
+            results.get("surface", {}).get("monitor_step"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -11279,6 +12041,7 @@ def main(argv=None):
     cp_lm = comp["lm"]["launches"]
     cp_epi = {"resnet_predict_layout_bf16": comp["resnet"]["launches"],
               "resnet_predict_quant": comp["quant"]["launches"]}
+    obs = results["observability"]["launches"]
     bf16_row = next(r for r in timed if r["dtype"] == "bfloat16"
                     and r["B"] == max(BUCKETS))
     bwd_bf16 = next(r for r in results["backward_timed"]
@@ -11293,14 +12056,16 @@ def main(argv=None):
         "replaces": "mxtpu/ops/attention.py:92",
         "launches": served["launches"] + trained["fwd_launches"]
         + surf_lm["flash_launches"] + sc_served + sc_fwd
-        + sum(v[0] for v in cp_lm.values()),
-        "launches_by_path": {"lm_serving": served["launches"],
-                             "lm_training": trained["fwd_launches"],
-                             "lm_predictor": surf_lm["flash_launches"],
-                             "lm_serving_telemetry": sc_served,
-                             "lm_training_tuned": sc_fwd,
-                             "lm_training_compile_f32": cp_lm["f32"][0],
-                             "lm_training_bf16": cp_lm["bf16"][0]},
+        + sum(v[0] for v in cp_lm.values())
+        + sum(obs["flash_fwd"].values()),
+        "launches_by_path": dict({
+            "lm_serving": served["launches"],
+            "lm_training": trained["fwd_launches"],
+            "lm_predictor": surf_lm["flash_launches"],
+            "lm_serving_telemetry": sc_served,
+            "lm_training_tuned": sc_fwd,
+            "lm_training_compile_f32": cp_lm["f32"][0],
+            "lm_training_bf16": cp_lm["bf16"][0]}, **obs["flash_fwd"]),
         "bf16": times(bf16_row, "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": main_row["max_abs_err"],
@@ -11315,7 +12080,8 @@ def main(argv=None):
         + surface["resnet"]["launches"]
         + sum(rec_launches["epilogue"].values())
         + sum(front_launches.values()) + sum(zoo_launches.values())
-        + sum(rcnn_launches["epilogue"].values()) + sum(cp_epi.values()),
+        + sum(rcnn_launches["epilogue"].values()) + sum(cp_epi.values())
+        + sum(obs["epilogue"].values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
@@ -11325,7 +12091,7 @@ def main(argv=None):
                                  **dict(rec_launches["epilogue"],
                                         **front_launches, **zoo_launches,
                                         **rcnn_launches["epilogue"],
-                                        **cp_epi)),
+                                        **cp_epi, **obs["epilogue"])),
         "bf16_rows": times(epi_timed[6], "shape", "axis", "max_abs_err",
                            "ms", "plain_ms", "bound_ms", "bound_by"),
         "bf16_to_f32_rows": times(epi_timed[7], "shape", "axis",
@@ -11339,11 +12105,13 @@ def main(argv=None):
         "source": "mxtpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": "mxtpu/ops/attention.py:199",
         "launches": trained["bwd_launches"] + sc_bwd
-        + sum(v[1] for v in cp_lm.values()),
-        "launches_by_path": {"lm_training": trained["bwd_launches"],
-                             "lm_training_tuned": sc_bwd,
-                             "lm_training_compile_f32": cp_lm["f32"][1],
-                             "lm_training_bf16": cp_lm["bf16"][1]},
+        + sum(v[1] for v in cp_lm.values())
+        + sum(obs["flash_bwd"].values()),
+        "launches_by_path": dict({
+            "lm_training": trained["bwd_launches"],
+            "lm_training_tuned": sc_bwd,
+            "lm_training_compile_f32": cp_lm["f32"][1],
+            "lm_training_bf16": cp_lm["bf16"][1]}, **obs["flash_bwd"]),
         "bf16": times(bwd_bf16, "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": bwd_row["max_abs_err"],

@@ -70,6 +70,7 @@ from .base import MXNetError
 from . import analysis
 from . import telemetry
 from . import diagnostics
+from . import obs
 from . import faults
 from . import tune
 from . import profiler
@@ -136,5 +137,5 @@ __all__ = ["__version__", "MXNetError", "AttrScope", "attribute", "Context",
            "kv", "model", "callback", "monitor", "module", "mod",
            "autograd", "gluon", "sharding", "parallel", "rnn",
            "visualization", "viz", "executor_manager", "test_utils",
-           "analysis", "telemetry", "diagnostics", "faults", "tune",
+           "analysis", "telemetry", "diagnostics", "obs", "faults", "tune",
            "profiler", "log", "registry", "name", "engine"]

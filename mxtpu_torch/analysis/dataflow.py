@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import numpy as _np
 
-from .findings import INFO, Finding
+from .findings import INFO, WARNING, Finding
 from . import provenance as _prov
 
 __all__ = ["DataflowAnalysis", "run_analysis", "precision_flow",
@@ -1159,9 +1159,25 @@ def update_fusion_plan(symbol, shapes=None, types=None, trainable=None,
 
 def liveness_ledger_check(executor):
     """Cross-check the liveness estimate against the diagnostics
-    ledger's slot model for a live executor (mxtpu :1154). The port has
-    no device-memory ledger yet (ROADMAP A.10), so this raises."""
-    from ..base import MXNetError
-    raise MXNetError(
-        "liveness_ledger_check needs the diagnostics device-memory "
-        "ledger, which the port gains with ROADMAP A.10")
+    ledger's slot model for a live executor (mxtpu :1154-1177): the
+    entries still live at the end of the walk are exactly the graph
+    outputs, and the ledger's ``executor_outputs`` slot accounts those
+    same tensors. Returns a list of findings (empty = consistent); []
+    when the ledger is disabled or the executor has not run yet."""
+    from .. import diagnostics as _diag
+    slot = getattr(executor, "_out_slot", None)
+    if not _diag.mem_enabled() or slot is None:
+        return []
+    shapes = {n: tuple(v.shape) for n, v in executor.arg_dict.items()}
+    types = {n: v.dtype for n, v in executor.arg_dict.items()}
+    info = liveness(executor._symbol, shapes=shapes, types=types)
+    actual = slot._nbytes
+    if info.complete and info.head_bytes != actual:
+        return [Finding(
+            "liveness", WARNING,
+            "liveness says the graph outputs hold %d bytes but the "
+            "ledger's executor_outputs slot accounts %d — the estimate "
+            "and the slot model drifted" % (info.head_bytes, actual),
+            fix_hint="check dtype handling in liveness() vs the "
+                     "executor's _account_outputs slot accounting")]
+    return []

@@ -9,7 +9,8 @@ counterpart; a host array that shares storage with an updated tensor is
 the in-place form of mxtpu's donation alias), and
 ``sharding_consistency`` holds each replica's tensors to the blocks the
 plan's ``ReplicaLayout`` gives it (mxtpu's ``NamedSharding`` check).
-The ledger cross-check waits for the device-memory ledger (ROADMAP A.10).
+``donation`` also cross-checks the diagnostics ledger's ``fused_step``
+slot against the live optimizer state and health scratch it accounts.
 
 TVM demonstrates that a pass framework over the graph IR is where
 correctness checks and diagnostics belong (PAPERS.md: "TVM: An Automated
@@ -410,7 +411,26 @@ class DonationSafetyPass(GraphPass):
                 "%s" % ", ".join(missing_opt[:5]),
                 fix_hint="adopt_state initializes entries the symbol "
                          "introduces — call it after joining a shared state"))
+        out.extend(self._ledger_slots(fused))
         return out
+
+    def _ledger_slots(self, fused):
+        """The ledger's ``fused_step`` slot against the bytes it accounts
+        (mxtpu :445-467): the first replica's optimizer state and the
+        health scratch."""
+        from .. import diagnostics as _diag
+        slot = getattr(fused, "_mem_slot", None)
+        if not _diag.mem_enabled() or slot is None:
+            return []
+        expected = fused.opt_state_bytes()[0] + fused._health_bytes()
+        if slot._nbytes != expected:
+            return [self.finding(
+                WARNING, "diagnostics ledger fused_step slots account %d "
+                "bytes but the live state holds %d: the slot model drifted "
+                "from the state's size" % (slot._nbytes, expected),
+                fix_hint="call the step's _account_memory() after any "
+                         "re-staging that changes state sizes")]
+        return []
 
 
 # ------------------------------------------------------------------ sharding

@@ -10,7 +10,7 @@ to f32 first: the upcast is exact, so the flag classifies the value),
 one host read pulls the flag vector, and a trip raises
 :class:`NumericsError` after writing a structured postmortem
 (``source="sanitizer"``) through the flight recorder
-(:func:`mxtpu_torch.diagnostics.flight.postmortem`).
+(:func:`mxtpu_torch.diagnostics.postmortem`).
 
 Unset, the cost is one module-global ``None`` check per program call;
 set, every call pays the reduction and a blocking host read — a

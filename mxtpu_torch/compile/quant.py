@@ -2,10 +2,10 @@
 
 Counterpart of ``mxtpu/compile/quant.py``: the same recorder, scale
 math (numpy on the host, bit for bit mxtpu's), arming seam and corpus
-rows. The port has no measurement corpus module yet (ROADMAP A.10), so
-this module writes and reads its ``"calib"`` rows itself, in mxtpu's
-file format (``$MXTPU_CORPUS_DIR/mxtpu_corpus.<pid>.jsonl``, schema 2):
-a calibration either package persists loads in the other.
+rows: its ``"calib"`` rows go through :mod:`mxtpu_torch.obs.corpus`, in
+mxtpu's file format (``$MXTPU_CORPUS_DIR/mxtpu_corpus.<pid>.jsonl``,
+schema 2), so a calibration either package persists loads in the
+other.
 ``quantize_array`` returns a torch int8 tensor on the weight's device.
 
 The ``quant`` transform pass (:mod:`mxtpu_torch.analysis.rewrite`) rewrites
@@ -275,62 +275,6 @@ def quantize_array(arr, scale, axis=-1):
 
 
 # ------------------------------------------------------- corpus persistence
-_CORPUS_ENV = "MXTPU_CORPUS_DIR"
-_CORPUS_SCHEMA = 2
-
-
-def _corpus_append(row):
-    """One durable JSONL append to this process's corpus file (mxtpu's
-    ``obs.corpus._append``). Returns True when a row landed."""
-    import json
-    import time
-    d = _os.environ.get(_CORPUS_ENV)
-    if not d:
-        return False
-    row = dict(row, v=_CORPUS_SCHEMA, t=round(time.time(), 6))
-    path = _os.path.join(d, "mxtpu_corpus.%d.jsonl" % _os.getpid())
-    try:
-        _os.makedirs(d, exist_ok=True)
-        with open(path, "a", encoding="utf-8") as f:
-            f.write(json.dumps(row, separators=(",", ":"), default=str)
-                    + "\n")
-            f.flush()
-            _os.fsync(f.fileno())
-    except OSError:
-        return False  # a bad disk must not kill the measured path
-    return True
-
-
-def _corpus_rows(dirpath=None):
-    """Every row of the corpus dir's ``*.jsonl`` files, append order per
-    file (mxtpu's ``obs.corpus.load``: a torn final line is skipped,
-    mid-file garbage raises)."""
-    import json
-    d = dirpath or _os.environ.get(_CORPUS_ENV)
-    if not d or not _os.path.isdir(d):
-        return []
-    rows = []
-    for name in sorted(_os.listdir(d)):
-        if not name.endswith(".jsonl"):
-            continue
-        with open(_os.path.join(d, name), encoding="utf-8",
-                  errors="replace") as f:
-            lines = f.read().split("\n")
-        for i, ln in enumerate(lines):
-            if not ln.strip():
-                continue
-            try:
-                row = json.loads(ln)
-            except ValueError:
-                if i == len(lines) - 1:
-                    continue  # the torn tail the contract tolerates
-                raise ValueError(
-                    "corpus %s: corrupt row at line %d" % (name, i + 1))
-            if isinstance(row, dict):
-                rows.append(row)
-    return rows
-
-
 def persist_calibration(rec=None):
     """Append the recorder's stats to the measurement corpus as one
     ``"calib"`` row (no-op without ``MXTPU_CORPUS_DIR``). The row is a
@@ -339,11 +283,9 @@ def persist_calibration(rec=None):
     rec = rec if rec is not None else _RECORDER
     if rec is None:
         return False
-    row = {"row": "calib",
-           "stats": {str(k): dict(v) for k, v in rec.stats().items()}}
-    if rec.percentile is not None:
-        row["percentile"] = float(rec.percentile)
-    return _corpus_append(row)
+    from ..obs import corpus as _corpus
+    return _corpus.record_calibration(rec.stats(),
+                                      percentile=rec.percentile)
 
 
 def load_calibration(dirpath=None):
@@ -353,9 +295,10 @@ def load_calibration(dirpath=None):
     or injected-failing corpus must surface as a rewrite decline (the
     graph serves unquantized), never a crashed build."""
     from .. import faults as _faults
+    from ..obs import corpus as _corpus
     _faults.point("quant.calibration_load")
     latest = None
-    for row in _corpus_rows(dirpath):
+    for row in _corpus.load(dirpath):
         if row.get("row") == "calib":
             latest = row
     if latest is None:

@@ -249,6 +249,14 @@ def record_program(kind, owner, counter, compile_ms, args=(), out=(),
                        "programs of this kind")
     if rec.temp_bytes > g.value:
         g.set(rec.temp_bytes)
+    # the measurement corpus's build row (mxtpu :250-258), appended
+    # outside _LOCK and gated on MXTPU_CORPUS_DIR inside record_build; a
+    # corpus failure must not take down the build it describes
+    try:
+        from ..obs import corpus as _obs_corpus
+        _obs_corpus.record_build(rec.to_dict())
+    except Exception:
+        pass
     return rec
 
 

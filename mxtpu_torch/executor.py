@@ -50,6 +50,12 @@ epilogue fuses a BatchNorm -> ReLU pair through the casts around it.
 A walk drops each value after its last reader, so only what autograd
 saves outlives its use.
 
+Diagnostics (mxtpu :317-326, 610-621, :189-195): the bound arrays count
+in the memory ledger under ``executor`` (once per storage), the outputs
+in an ``executor_outputs`` slot; with a tap filter set by a fused step's
+``arm_health`` (the Monitor adapter), a training forward of a sampled
+batch reduces each matching output to its device abs-mean.
+
 ``forward_replicas`` and ``backward_replicas`` run several executors of
 one symbol, each bound on its slice of a batch on its own device, as one
 function of the whole batch: the plan is walked over the replicas in
@@ -68,6 +74,7 @@ import time
 
 import torch
 
+from . import diagnostics as _diag
 from . import profiler as _prof
 from . import telemetry as _tel
 from .base import MXNetError
@@ -557,6 +564,21 @@ class Executor:
         self._tape = None   # (outputs with their graph, {name: leaf})
         self._monitor_callback = None
         self._profiled = False  # the last training forward was profiled
+        # monitor-adapter taps: (compiled pattern, is_active, sink) set
+        # by a fused step armed with taps; a tapped forward leaves its
+        # {name: device abs-mean} in sink["taps"]
+        self._tap_filter = None
+        self._out_slot = None
+        # memory ledger (mxtpu :317-326): every bound array (args, grads,
+        # aux) counts once per storage under 'executor' (the outermost
+        # origin wins: 'serving_pool' inside a pool bind); a gradient
+        # that is a view into a flat buffer counts the buffer once
+        if _diag.mem_enabled():
+            led = _diag.ledger()
+            with _diag.alloc_origin("executor"):
+                for d in (self.arg_dict, self.grad_dict, self.aux_dict):
+                    for v in d.values():
+                        led.track(v._data, ctx=str(v.context))
 
     @staticmethod
     def _as_dict(vals, names, what, allow_missing=False):
@@ -779,8 +801,49 @@ class Executor:
             last[0] = now
         return hook
 
-    def _hooks(self):
-        hooks = [h for h in (self._monitor_hook(), self._profile_hook())
+    def _tap_hook(self):
+        """The training walk's hook that reduces each output whose name
+        the tap pattern matches to its f32 abs-mean on the device (the
+        Monitor adapter's taps, mxtpu :189-195), into a fresh dict at the
+        filter's ``sink["taps"]``; None unless a tap filter is set and
+        active (the monitor's sampled batch)."""
+        tf = self._tap_filter
+        if tf is None or not tf[1]():
+            return None
+        prog, _, sink = tf
+        taps = sink["taps"] = {}
+        from .symbol.symbol import _output_names
+
+        def hook(node, n_vis, outs):
+            for name, o in zip(_output_names(node, n_vis), outs):
+                if prog.match(name) and o.is_floating_point():
+                    taps[name] = o.detach().float().abs().mean()
+        return hook
+
+    def set_tap_filter(self, pattern, is_active, sink):
+        """Tap the outputs ``pattern`` matches on training forwards while
+        ``is_active()``, into ``sink["taps"]`` (None: no taps). A reshaped
+        executor keeps the filter and its sink."""
+        import re
+        self._tap_filter = None if pattern is None else \
+            (re.compile(pattern), is_active or (lambda: True), sink)
+
+    def _account_outputs(self):
+        """The outputs' bytes into the ledger's ``executor_outputs`` slot
+        (mxtpu :610-621): they churn every forward at a bind-fixed size."""
+        if not _diag.mem_enabled():
+            return
+        nbytes = sum(o._data.numel() * o._data.element_size()
+                     for o in self.outputs)
+        if self._out_slot is None:
+            self._out_slot = _diag.ledger().slot(
+                self, nbytes, "executor_outputs", ctx=str(self._ctx))
+        else:
+            self._out_slot.set(nbytes)
+
+    def _hooks(self, train=False):
+        hooks = [h for h in (self._monitor_hook(), self._profile_hook(),
+                             self._tap_hook() if train else None)
                  if h is not None]
         if len(hooks) < 2:
             return hooks[0] if hooks else None
@@ -823,6 +886,7 @@ class Executor:
                   aux_updates)
         self._tape = (outs, leaves)
         self.outputs = [self._wrap(o.detach()) for o in outs]
+        self._account_outputs()
         return self.outputs
 
     def forward(self, is_train=False, **kwargs):
@@ -834,7 +898,7 @@ class Executor:
             return self._forward_impl(is_train, kwargs)
 
     def _forward_impl(self, is_train, kwargs):
-        hook = self._hooks()
+        hook = self._hooks(train=is_train)
         self._profiled = is_train and _prof.ops_enabled()
         if not is_train:
             raw_args, raw_aux = self._inputs(kwargs)
@@ -845,6 +909,7 @@ class Executor:
                 outs, _ = run(raw_args, raw_aux, self._device, hook=hook)
             self.cross_device_copies = run.copies
             self.outputs = [self._wrap(o) for o in outs]
+            self._account_outputs()
             return self.outputs
         raw_args, raw_aux, leaves = self._train_inputs(kwargs)
         run = self._run(True)
@@ -977,6 +1042,7 @@ class Executor:
                        grad_req=self.grad_req, aux_states=self.aux_dict,
                        group2ctx=self._group2ctx)
         new._train_program = self._train_program
+        new._tap_filter = self._tap_filter
         return new
 
     @staticmethod
@@ -1021,12 +1087,13 @@ def _forward_replicas(executors, layout, is_train):
                 [x for _, x in ins], devices, layout=layout)
         for ex, o in zip(executors, outs):
             ex.outputs = [ex._wrap(t) for t in o]
+            ex._account_outputs()
         return [ex.outputs for ex in executors]
     ins = [ex._train_inputs({}) for ex in executors]
     with torch.enable_grad():
         outs, updates = executors[0]._run(True).replicas(
             [a for a, _, _ in ins], [x for _, x, _ in ins], devices,
-            layout=layout)
+            hook=executors[0]._tap_hook(), layout=layout)
     return [ex._trained(o, u, leaves) for ex, o, u, (_, _, leaves)
             in zip(executors, outs, updates, ins)]
 

@@ -524,7 +524,9 @@ class DeviceMetricAccum:
     metric-sync cadence and at epoch end) copies all of them to the host
     in one transfer, adds them to the wrapped metrics' ``sum_metric`` /
     ``num_inst`` and zeroes the device sums. ``last_snapshot`` holds the
-    name/value pairs of the latest sync for callbacks (Speedometer)."""
+    name/value pairs of the latest sync for callbacks (Speedometer).
+    Riders (``add_rider``: the training-health session, mxtpu :531-545)
+    put their device tensors into that same transfer."""
 
     def __init__(self, metric, children, kernels):
         self.metric = metric
@@ -532,7 +534,20 @@ class DeviceMetricAccum:
         self.kernels = kernels
         self.last_snapshot = None
         self.syncs = 0  # host transfers made, for tests and reports
+        self._riders = []
         self._zero()
+
+    def add_rider(self, rider):
+        """Register a cadence rider: an object whose ``pull()`` returns a
+        tree of device tensors (or None) and whose ``deliver(host_tree)``
+        receives its host values. Riders share ``sync()``'s ONE ``.cpu()``
+        transfer: they add no host round trip."""
+        if rider not in self._riders:
+            self._riders.append(rider)
+
+    def remove_rider(self, rider):
+        if rider in self._riders:
+            self._riders.remove(rider)
 
     @classmethod
     def wrap(cls, metric):
@@ -608,20 +623,31 @@ class DeviceMetricAccum:
 
     def sync(self):
         """The one host round trip: fold the device sums (each device's
-        added on the first one's) into the wrapped metrics and refresh
+        added on the first one's) into the wrapped metrics, hand each
+        rider its host values from the same transfer, and refresh
         ``last_snapshot``; returns it."""
+        from .obs.health import flatten_tree
+        live = [(c, list(s.values()), n) for c, s, n in
+                zip(self.children, self._sums, self._counts) if s] \
+            if self._pending else []
+        cargo = [(r, r.pull()) for r in self._riders]
+        cargo = [(r, flatten_tree(t)) for r, t in cargo if t is not None]
+        if live or cargo:
+            dev = live[0][1][0].device if live else cargo[0][1][0].device
+            parts = [torch.stack([
+                sum(p.to(dev, torch.float64) for p in ps)
+                for _, ps, _ in live])] if live else []
+            parts += [flat.to(dev) for _, (flat, _) in cargo]
+            host = torch.cat(parts).cpu().numpy()
+            self.syncs += 1
+            for (child, _, n), v in zip(live, host[:len(live)]):
+                child.sum_metric += float(v)
+                child.num_inst += n
+            o = len(live)
+            for r, (flat, rebuild) in cargo:
+                r.deliver(rebuild(host[o:o + flat.numel()]))
+                o += flat.numel()
         if self._pending:
-            live = [(c, list(s.values()), n) for c, s, n in
-                    zip(self.children, self._sums, self._counts) if s]
-            if live:
-                dev = live[0][1][0].device
-                vals = torch.stack([
-                    sum(p.to(dev, torch.float64) for p in parts)
-                    for _, parts, _ in live]).cpu().tolist()
-                self.syncs += 1
-                for (child, _, n), v in zip(live, vals):
-                    child.sum_metric += float(v)
-                    child.num_inst += n
             self._zero()
         self.last_snapshot = self.metric.get_name_value()
         return self.last_snapshot

@@ -19,9 +19,20 @@ fit, where ``Module._arm_fused`` finds it; ``None`` defers to
 pipeline knobs (``max_in_flight``, ``metric_sync``, ``device_metrics``,
 ``device_prefetch``) resolve through ``tune`` as mxtpu's do (:210-240):
 default < ``tuned`` artifact < env < explicit argument, recorded in
-``self._fit_knobs``. The knobs of mxtpu's fit that the port does not
-have yet (``elastic``, ``resume``, ``health``) raise MXNetError when
-set, rather than being ignored. Telemetry as mxtpu's (:425-444, :490,
+``self._fit_knobs``; an active ``tune.online`` controller may move the
+in-flight window inside its certified range while the fit runs. The
+knobs of mxtpu's fit that the port does not have yet (``elastic``,
+``resume``: ROADMAP A.12) raise MXNetError when set, rather than being
+ignored. ``health`` (mxtpu :360-380, 534-560) arms the training-health
+rows of the fused step (``obs/health.py``): they ride the metric
+accumulator's cadence transfer, and the detectors run on each cadence;
+without a fused step it is disarmed with a log line. Diagnostics as
+mxtpu's (:258-291): ``fit`` arms the hang watchdog and, while it runs,
+the ``SIGUSR2`` handler; the pacer's wait is a registered device wait
+with the ``executor.device_wait`` fault point inside it; an exception
+other than an MXNetError that escapes the fit leaves a postmortem; and
+with ``MXTPU_CORPUS_DIR`` set each step appends a ``fit_step`` service
+row. Telemetry as mxtpu's (:425-444, :490,
 :614): each step runs in a ``fit.step`` span (the correlation root of
 the executor's and kvstore's spans) and observes ``fit_dispatch_ms``
 (the host time to launch it) and ``fit_step_ms`` (that plus the pacing
@@ -31,8 +42,10 @@ the epochs, and ``fit.eval`` / ``fit_eval_ms`` the validation pass. No
 site waits for the card: the only waits are the pacer's event (which
 crosses the ``executor.device_wait`` fault point) and the metric sync.
 ``monitor`` is installed after ``bind`` and armed with ``tic``/
-``toc_print`` around each batch (mxtpu :317, :485, :563),
-its per-op path taking the host metric. ``iter_predict`` and ``predict``
+``toc_print`` around each batch (mxtpu :317, :485, :563): in adapter
+mode (the default statistic over a fused step) its taps ride the
+health session's cadence and a sampled batch forces one; on its per-op
+path it takes the host metric. ``iter_predict`` and ``predict``
 (mxtpu :91-129) run the inference forward batch by batch, each batch's
 outputs trimmed of its pad; a module with no device views of its step
 (``_step_views`` None: a ``SequentialModule``) takes the host metric in
@@ -49,6 +62,7 @@ from math import gcd
 import torch
 
 from .. import callback as _cb
+from .. import diagnostics as _diag
 from .. import io as _io
 from .. import metric as _metric
 from .. import model as _model
@@ -58,6 +72,7 @@ from .. import telemetry as _tel
 from .. import tune as _tune
 from ..base import MXNetError
 from ..faults import injection as _faults
+from ..obs import corpus as _obs_corpus
 from ..initializer import Uniform
 from ..model import BatchEndParam
 
@@ -70,7 +85,7 @@ def _as_list(obj):
     return list(obj) if isinstance(obj, (list, tuple)) else [obj]
 
 
-_UNPORTED_FIT = ("elastic", "resume", "health")
+_UNPORTED_FIT = ("elastic", "resume")
 
 
 def refuse_unported(**knobs):
@@ -103,13 +118,22 @@ class _Pacer:
     its steps and "waits" on the oldest (a wait that returns at once), so
     the waits, the ``executor.device_wait`` fault point and
     ``fit_sync_wait_ms`` see what mxtpu's window sees on any device
-    (mxtpu/module/base_module.py:519-530)."""
+    (mxtpu/module/base_module.py:519-530). ``limit`` is a one-slot holder
+    ``{"v": K}`` read at each step (the online controller moves it), or
+    an int. Each wait registers with the watchdog (``wait_begin``, mxtpu
+    executor.py:55-74), the fault point inside it, so an injected latency
+    looks to the watchdog exactly like a wedged card."""
 
     def __init__(self, limit, device, wait_ms=None):
-        self.limit = max(1, int(limit))
+        self._limit = limit if isinstance(limit, dict) else \
+            {"v": max(1, int(limit))}
         self.cuda = device.type == "cuda"
         self._events = deque()
         self._wait_ms = wait_ms
+
+    @property
+    def limit(self):
+        return max(1, int(self._limit["v"]))
 
     def step_done(self):
         """Record the step's event; wait for the oldest while more than
@@ -123,10 +147,14 @@ class _Pacer:
         waited = 0.0
         while len(self._events) > self.limit:
             t0 = time.perf_counter()
-            _faults.point("executor.device_wait")
             oldest = self._events.popleft()
-            if oldest is not None:
-                oldest.synchronize()
+            _diag.wait_begin("device_wait")
+            try:
+                _faults.point("executor.device_wait")
+                if oldest is not None:
+                    oldest.synchronize()
+            finally:
+                _diag.wait_end()
             w = (time.perf_counter() - t0) * 1e3
             if self._wait_ms is not None:
                 self._wait_ms.observe(w)
@@ -289,8 +317,11 @@ class BaseModule:
         ``MXTPU_FIT_DEVICE_METRICS``, ``MXTPU_FIT_DEVICE_PREFETCH``) <
         explicit argument; ``None`` defers to the process-active artifact
         (``tune.use`` / ``MXTPU_TUNED``), ``False`` ignores it. A stale
-        artifact is refused."""
-        refuse_unported(elastic=elastic, resume=resume, health=health)
+        artifact is refused. ``health``: arm the device-resident
+        training-health rows and the detector suite (``obs/health.py``);
+        ``None`` defers to ``MXTPU_HEALTH``; they ride the metric-sync
+        cadence, adding no host round trip."""
+        refuse_unported(elastic=elastic, resume=resume)
         tuned = _tune.artifact(tuned)
         max_in_flight = _tune.resolve_int(
             "fit.max_in_flight", explicit=max_in_flight, artifact=tuned,
@@ -311,15 +342,31 @@ class BaseModule:
                            "fit.metric_sync": metric_sync,
                            "fit.device_metrics": device_metrics,
                            "fit.device_prefetch": device_prefetch}
-        with _sharding.use(_sharding.resolve(mesh)):
-            self._fit(train_data, eval_data, eval_metric,
-                      epoch_end_callback, batch_end_callback, kvstore,
-                      optimizer, optimizer_params, eval_end_callback,
-                      eval_batch_end_callback, initializer, arg_params,
-                      aux_params, allow_missing, force_rebind, force_init,
-                      begin_epoch, num_epoch, validation_metric, monitor,
-                      max_in_flight, metric_sync, device_metrics,
-                      device_prefetch, tuned_metric_sync)
+        mesh_ctx = _sharding.resolve(mesh)
+        # the hang watchdog (MXTPU_WATCHDOG=0 opts out) and the SIGUSR2
+        # postmortem handler (mxtpu :258-262)
+        _diag.on_session_start()
+        try:
+            with _sharding.use(mesh_ctx):
+                self._fit(train_data, eval_data, eval_metric,
+                          epoch_end_callback, batch_end_callback, kvstore,
+                          optimizer, optimizer_params, eval_end_callback,
+                          eval_batch_end_callback, initializer, arg_params,
+                          aux_params, allow_missing, force_rebind,
+                          force_init, begin_epoch, num_epoch,
+                          validation_metric, monitor, max_in_flight,
+                          metric_sync, device_metrics, device_prefetch,
+                          tuned_metric_sync, health)
+        except Exception as exc:
+            # a fatal training exception: capture the flight ring, the
+            # ledger and the engine state before the stack unwinds. An
+            # MXNetError is a usage error, not a backend failure (mxtpu
+            # :276-291; the port's native failures are MXNetErrors too)
+            if not isinstance(exc, MXNetError):
+                _diag.postmortem("fit_exception", exc=exc, source="fit")
+            raise
+        finally:
+            _diag.on_session_end()
 
     def _fit(self, train_data, eval_data, eval_metric, epoch_end_callback,
              batch_end_callback, kvstore, optimizer, optimizer_params,
@@ -327,7 +374,7 @@ class BaseModule:
              arg_params, aux_params, allow_missing, force_rebind,
              force_init, begin_epoch, num_epoch, validation_metric, monitor,
              max_in_flight, metric_sync, device_metrics, device_prefetch,
-             tuned_metric_sync=None):
+             tuned_metric_sync=None, health=None):
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
         initializer = initializer or Uniform(0.01)
@@ -336,18 +383,45 @@ class BaseModule:
                   for_training=True, force_rebind=force_rebind)
         if monitor is not None:
             self.install_monitor(monitor)
-            device_metrics = False  # toc reads the batch's host stats
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        # only now is the monitor's path settled: install_monitor may have
+        # gone adapter mode, and init_optimizer walked it back when the
+        # fused step declined (mxtpu :311-318); the per-op path reads the
+        # batch's host stats, which the device accumulator would miss
+        monitor_adapter = monitor is not None and \
+            getattr(self, "_monitor_adapter", None) is monitor
+        if monitor is not None and not monitor_adapter:
+            device_metrics = False
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _metric.create(eval_metric)
         accum = _metric.DeviceMetricAccum.wrap(eval_metric) \
             if device_metrics else None
         eval_metric._device_accum = accum
+        # training health: the fused step's rows and the detectors, on
+        # the metric-sync cadence; the Monitor adapter rides the same
+        # session with its detectors off (mxtpu :360-380)
+        from ..obs import health as _health
+        if health is None:
+            health = _health.armed_by_env()
+        health_session = None
+        fused = getattr(self, "_fused", None)
+        if fused is not None and (health or monitor_adapter):
+            health_session = _health.HealthSession(
+                fused, monitor=monitor if monitor_adapter else None,
+                detect=bool(health), logger=self.logger)
+            if accum is not None:
+                accum.add_rider(health_session)
+        elif health:
+            self.logger.info(
+                "fit(health): the fused train step is not armed — "
+                "training-health stats are computed inside it; disarmed "
+                "for this fit")
+        self._health_session = health_session
         callbacks = _as_list(batch_end_callback)
         if metric_sync is None:
             metric_sync = _metric_sync(callbacks, tuned_metric_sync)
@@ -376,8 +450,13 @@ class BaseModule:
         eval_ms = _tel.histogram("fit_eval_ms",
                                  help="validation pass wall time")
         epochs_done = _tel.counter("fit_epochs", help="epochs completed")
-        pacer = _Pacer(max_in_flight, getattr(self, "_device",
-                                              torch.device("cpu")),
+        # the live in-flight window: an active online controller
+        # (tune.online) may move it inside the certified range
+        from ..tune import online as _online
+        inflight_limit = _online.attach_fit(
+            {"v": max(1, int(max_in_flight))})
+        pacer = _Pacer(inflight_limit, getattr(self, "_device",
+                                               torch.device("cpu")),
                        wait_ms=sync_wait_ms)
         owned = None
         if device_prefetch and not isinstance(train_data,
@@ -404,6 +483,9 @@ class BaseModule:
                         self.forward_backward(data_batch)
                         self.update()
                     dispatch_ms.observe(sp.duration_ms)
+                    if health_session is not None:
+                        # fold the step's device rows (no transfer)
+                        health_session.on_step()
                     if data_batch.data:
                         epoch_samples += data_batch.data[0].shape[0] - \
                             (data_batch.pad or 0)
@@ -418,16 +500,32 @@ class BaseModule:
                     else:
                         self.update_metric(eval_metric, data_batch.label)
                     step_ms.observe(sp.duration_ms + pacing)
+                    if _obs_corpus.enabled():
+                        # the corpus's service row: the step's wall time,
+                        # keyed by batch rows (mxtpu :534-538)
+                        _obs_corpus.record_service(
+                            "fit_step", sp.duration_ms + pacing,
+                            rows=data_batch.data[0].shape[0]
+                            if data_batch.data else None)
                     last = next_batch is None
-                    if views is not None and (
-                            last or metric_sync == 1 or
-                            (metric_sync and nbatch and
-                             nbatch % metric_sync == 0)):
+                    cadence_now = (last or metric_sync == 1 or
+                                   (metric_sync and nbatch and
+                                    nbatch % metric_sync == 0))
+                    if health_session is not None and monitor is not None \
+                            and monitor.activated:
+                        # a sampled batch forces a cadence so its taps
+                        # land before toc_print below
+                        cadence_now = True
+                    if views is not None and cadence_now:
                         t0 = time.perf_counter()
                         accum.sync()
                         msync_ms.observe((time.perf_counter() - t0) * 1e3)
                         if last:
                             pacer.clear()
+                    elif health_session is not None and cadence_now:
+                        health_session.sync_direct()
+                    if health_session is not None and cadence_now:
+                        health_session.on_cadence(eval_metric)
                     if monitor is not None:
                         monitor.toc_print()
                     for callback in callbacks:
@@ -470,5 +568,10 @@ class BaseModule:
                 train_data.reset()
         finally:
             eval_metric._device_accum = None
+            if health_session is not None:
+                if accum is not None:
+                    accum.remove_rider(health_session)
+                health_session.close()
+            _online.release(inflight_limit)
             if owned is not None:
                 owned.close()

@@ -7,8 +7,9 @@ sharding (:242-260, 620-632, 708-710, 767-787), the state shared by
 the steps of a BucketingModule's buckets (``state=``, ``adopt_state``),
 the compile pipeline's one transform of the training graph at
 construction (:281-295, with the drift warning), rematerialization
-(``fit.remat``, :327-406) and the fuse_opt update classes (:408,
-:514-560), without its health taps. The JAX package traces forward,
+(``fit.remat``, :327-406), the fuse_opt update classes (:408,
+:514-560) and the training-health rows with the Monitor adapter's taps
+(``arm_health``, :566-599, 717-751, 847-861). The JAX package traces forward,
 backward and the update of every parameter into one donated XLA program
 (``step`` :634-718, :794-864). Eagerly there is no program to fuse them
 into: the forward and backward are the executor's, and what is left here
@@ -25,6 +26,20 @@ rounds as on the Updater; the other rules call the optimizer's update
 functions a parameter at a time. Per-parameter lr and wd come from the
 optimizer's own ``_get_lr``/``_get_wd`` each step, with Adam's bias
 correction folded into lr as its ``update`` folds it.
+
+Training health: once ``arm_health`` ran, ``update`` also leaves in
+``last_health`` each parameter class's f32 ``[grad_sq, weight_sq,
+update_sq, nonfinite]`` sums and its grad max-abs, on the device, from
+the summed gradients and the weights before and after the step (the
+first replica's: the replicas are identical). The weights before the
+step are copied into one flat f32 scratch (``torch._foreach_copy_``)
+before the rules run, so the update keeps its ops and their order; the
+rows come from library reductions over lists (``torch._foreach_norm``
+per parameter, its squares summed over each class in float64 by one
+``cumsum``), and the nonfinite counts from ``torch.isfinite`` over the
+scratch holding the gradients, then the fresh weights: a constant
+~30 launches a step, whatever the parameter count. The scratch and the
+optimizer state are the ledger's ``fused_step`` slot.
 """
 from __future__ import annotations
 
@@ -329,6 +344,7 @@ class FusedTrainStep:
         self.trainable = [n for n in param_names
                           if ex0.grad_req.get(n, "null") != "null"
                           and n in ex0.grad_dict]
+        self._executors = list(executors)
         self._install_program(executors, module, graph_shapes, graph_types)
         self.params = [{n: ex.arg_dict[n]._data for n in self.trainable}
                        for ex in executors]
@@ -386,6 +402,14 @@ class FusedTrainStep:
                 name2idx[n] = nxt
                 nxt += 1
         self._name_idx = [name2idx[n] for n in self.trainable]
+        self._health_classes = None
+        self._health_taps = None
+        self.last_health = None
+        self._h = None   # the armed health plan (see arm_health)
+        self._tap_sink = {}
+        self._mem_slot = None
+        if state is None:
+            self._account_memory()
 
     def _install_program(self, executors, module, shapes, types):
         """The training graph, transformed ONCE here by the compile
@@ -664,6 +688,110 @@ class FusedTrainStep:
                         src = _state_rows(src, n_rows, self._data_pos[r])
                     _copy_state(st[n], src, n)
 
+    def _account_memory(self):
+        """The ledger's ``fused_step`` slot of the first replica's device:
+        this step's optimizer state and health scratch (the parameters
+        are the executors' bound arrays, counted under ``executor``;
+        mxtpu's slot holds its own copy of the parameters and aux too).
+        A step that adopted another's state leaves it to that step."""
+        from .. import diagnostics as _diag
+        if not _diag.mem_enabled():
+            return
+        nbytes = self.opt_state_bytes()[0] + self._health_bytes()
+        if self._mem_slot is None:
+            dev = next(iter(self.params[0].values())).device \
+                if self.params[0] else None
+            ctx = _diag.device_label(dev) if dev is not None else "cpu(0)"
+            self._mem_slot = _diag.ledger().slot(self, nbytes, "fused_step",
+                                                 ctx=ctx)
+        else:
+            self._mem_slot.set(nbytes)
+
+    def _health_bytes(self):
+        """Device bytes of the armed health plan: the scratch and the
+        class index tensors."""
+        if self._h is None:
+            return 0
+        return sum(self._h[k].numel() * self._h[k].element_size()
+                   for k in ("scratch", "ends", "class_of"))
+
+    # ------------------------------------------------ training health
+    def arm_health(self, taps=None, tap_active=None):
+        """Arm the training-health rows (obs/health.py; mxtpu
+        :566-599): classes are the fuse_opt update classes, each
+        ungrouped trainable its own. ``taps``: a Monitor pattern whose
+        matching outputs the training walk reduces to device abs-means
+        while ``tap_active()`` (the Monitor adapter). Returns the
+        ``(label, member names)`` class list; idempotent."""
+        from ..obs.health import class_label
+        if self._plan is not None:
+            raise MXNetError(
+                "training health under a sharding plan (fit(mesh=...)) "
+                "is not ported: the step updates row blocks per replica")
+        classes, seen = [], set()
+        for _key, names in self._update_groups:
+            classes.append((class_label(names), tuple(names)))
+            seen.update(names)
+        for n in self.trainable:
+            if n not in seen:
+                classes.append((n, (n,)))
+        classes = tuple(classes)
+        if taps != self._health_taps or tap_active is not None:
+            self._health_taps = taps
+            for ex in self._executors:
+                ex.set_tap_filter(taps, tap_active, self._tap_sink)
+        if classes == self._health_classes:
+            return classes
+        self._health_classes = classes
+        names = [n for _, members in classes for n in members]
+        params = self.params[0]
+        sizes = [params[n].numel() for n in names]
+        dev = params[names[0]].device if names else torch.device("cpu")
+        scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        views, o = [], 0
+        for n, k in zip(names, sizes):
+            views.append(scratch[o:o + k].view(params[n].shape))
+            o += k
+        ends = np.cumsum([len(m) for _, m in classes]) - 1
+        self._h = {"names": names, "scratch": scratch, "views": views,
+                   "ends": torch.as_tensor(ends, device=dev),
+                   "class_of": torch.as_tensor(np.repeat(
+                       np.arange(len(classes)),
+                       [len(m) for _, m in classes]), device=dev)}
+        self.last_health = None
+        self._account_memory()
+        return classes
+
+    def _health_rows(self):
+        """The step's per-class rows from the scratch (holding the
+        weights before the step) and the first replica's weights and
+        summed gradients after it."""
+        h = self._h
+        f32 = torch.float32
+        ps = [self._targets[0][n] for n in h["names"]]
+        gs = [self._sums[0][n] for n in h["names"]]
+        ps32 = [p if p.dtype == f32 else p.float() for p in ps]
+        gs32 = [g if g.dtype == f32 else g.float() for g in gs]
+        views, scratch = h["views"], h["scratch"]
+        torch._foreach_sub_(views, ps32)           # old - new
+        cols = [torch._foreach_norm(gs32), torch._foreach_norm(ps32),
+                torch._foreach_norm(views)]
+        gmax = torch.stack(torch._foreach_norm(gs32, float("inf")))
+        nonfinite = None
+        for src in (gs32, ps32):
+            torch._foreach_copy_(views, src)
+            scratch.copy_(torch.isfinite(scratch).logical_not_())
+            n = torch.stack(torch._foreach_norm(views, 1))
+            nonfinite = n if nonfinite is None else nonfinite + n
+        rows = torch.stack([torch.stack(c) for c in cols], dim=1)
+        rows = torch.cat([rows * rows, nonfinite[:, None]], dim=1)
+        cs = torch.cumsum(rows.double(), dim=0)[h["ends"]]
+        sums = torch.cat([cs[:1], cs[1:] - cs[:-1]]).to(f32)
+        mx = torch.full((len(self._health_classes),), float("-inf"),
+                        dtype=f32, device=gmax.device)
+        mx.scatter_reduce_(0, h["class_of"], gmax, "amax")
+        return {"sums": sums, "max": mx}
+
     def update(self):
         """Sum the replicas' gradients (reduce-scatter the sharded ones),
         apply one update to every trainable parameter (or row block) of
@@ -681,6 +809,10 @@ class FusedTrainStep:
                 list(self._pipeline_config))
         o = self.optimizer
         with torch.no_grad():
+            if self._h is not None:
+                # the weights before the step, for update_sq
+                torch._foreach_copy_(self._h["views"], [
+                    self._targets[0][n] for n in self._h["names"]])
             for b in self._buckets:
                 b.reduce()
             for groups, bufs in zip(self._all_reduce_groups,
@@ -704,6 +836,11 @@ class FusedTrainStep:
                                 [st[n] for n in names], lrs, wds)
             for b in self._buckets:
                 b.gather()
+            if self._h is not None:
+                self.last_health = self._health_rows()
+                taps = self._tap_sink.pop("taps", None)
+                if taps is not None:
+                    self.last_health["taps"] = taps
 
 
 def _map_state(fn, *states):

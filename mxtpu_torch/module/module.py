@@ -45,10 +45,14 @@ declined with mxtpu's warning; one whose other row axes it does not
 divide raises.
 ``forward`` called directly runs each context on its slice, as mxtpu's
 does; ``get_outputs`` merges them on the first context.
-``install_monitor`` (mxtpu :674) takes mxtpu's per-op branch (:691-694):
-it disarms the fused step for good, and the monitor's sampled batches
-walk every op on each executor; ``output_shapes`` (:175) are inferred
-from the bound shapes.
+``install_monitor`` (mxtpu :674-695) chooses the Monitor's path as
+mxtpu's does: a Monitor with the default statistic over a fused step
+(or before the optimizer, provisionally: ``init_optimizer`` walks it
+back when the step declines to arm) rides the fused step's device taps
+(``MXTPU_MONITOR_ADAPTER=0`` opts out); any custom ``stat_func`` takes
+the per-op branch (:691-694), which disarms the fused step for good and
+walks every op on each executor on the sampled batches.
+``output_shapes`` (:175) are inferred from the bound shapes.
 
 ``state_names`` are inputs that are neither data nor parameters (an
 RNN's carried state): bound without a gradient, kept across batches,
@@ -71,6 +75,7 @@ pickles its own state tree.
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 
 import torch
@@ -152,6 +157,8 @@ class Module(BaseModule):
         # (DataParallelTrainer's shard_params sets them)
         self._plan_options = {}
         self._monitor_installed = False
+        # a default-stat Monitor riding the fused step's device taps
+        self._monitor_adapter = None
         # set by load(): params written at bind, states at init_optimizer
         self._arg_params = self._aux_params = None
         self._preload_opt_states = None
@@ -240,9 +247,28 @@ class Module(BaseModule):
         return list(zip(self._output_names, shapes))
 
     def install_monitor(self, mon):
-        """Monitor every executor's ops (mxtpu's per-op path): the fused
-        step is disarmed, now and at any later ``init_optimizer``."""
+        """Install ``mon`` (mxtpu :674-695). The default abs-mean
+        statistic rides the fused step's device taps: matched outputs
+        reduce on the device and reach the host at the metric-sync
+        cadence (or in one transfer at ``toc``), and the sampled batch
+        stays on the fused path. A custom ``stat_func`` is host code: the
+        per-op path, which disarms the fused step, now and at any later
+        ``init_optimizer``."""
         assert self.binded
+        if getattr(mon, "_default_stat", False) \
+                and os.environ.get("MXTPU_MONITOR_ADAPTER", "1") != "0" \
+                and (self._fused is not None
+                     or not self.optimizer_initialized):
+            self._monitor_adapter = mon
+            mon.bind_adapter(self)
+            if self._fused is not None:
+                self._fused.arm_health(
+                    taps=mon.re_prog.pattern,
+                    tap_active=lambda: mon.activated)
+            return
+        self._monitor_per_op(mon)
+
+    def _monitor_per_op(self, mon):
         self._monitor_installed = True
         self._disarm_fused()
         self._exec_group.install_monitor(mon)
@@ -403,6 +429,18 @@ class Module(BaseModule):
             self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._arm_fused()
+        mon = self._monitor_adapter
+        if mon is not None:
+            if self._fused is None:
+                # the fused step declined to arm: no taps to ride, so
+                # the monitor falls back to the per-op path (mxtpu
+                # :387-396)
+                self._monitor_adapter = None
+                mon._adapter = None
+                self._monitor_per_op(mon)
+            else:
+                self._fused.arm_health(taps=mon.re_prog.pattern,
+                                       tap_active=lambda: mon.activated)
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None

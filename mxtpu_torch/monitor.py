@@ -9,9 +9,17 @@ seen), ``stat_func`` runs on each name that ``pattern`` matches, and
 ``toc`` collects them with the executors' graph outputs. Unarmed batches
 keep the fused walk. ``toc`` also sets mxtpu's ``monitor_stat{name}``
 gauge (:122) of each numeric statistic (``k[i]`` for the elements of a
-list-valued one). mxtpu's device adapter over its training-health tap
-kernels is not ported: the default statistic gives the same numbers on
-the per-op path, which ``Module.install_monitor`` always takes.
+list-valued one).
+
+The device adapter (mxtpu :52-80): with the default abs-mean statistic
+and a fused step, ``Module.install_monitor`` calls ``bind_adapter``;
+the fused step's training walk then reduces each matching output of a
+sampled batch to its f32 abs-mean on the device (``Executor``'s tap
+hook), the taps ride the health session's cadence transfer inside
+``fit`` (``_deliver_taps``), or one ``.cpu()`` of them all at ``toc``
+outside it (``_pull_adapter_taps``). The sampled batch keeps the fused
+step and pays no per-tensor host copy. A custom ``stat_func`` keeps the
+per-op path.
 """
 from __future__ import annotations
 
@@ -41,6 +49,10 @@ class Monitor:
     name."""
 
     def __init__(self, interval, stat_func=None, pattern=".*", sort=False):
+        # default-stat monitors may ride the device taps (the tap is
+        # exactly the default stat: f32 abs-mean)
+        self._default_stat = stat_func is None
+        self._adapter = None   # the Module when riding device taps
         self.stat_func = stat_func or (lambda x: abs(x.asnumpy()).mean())
         self.interval, self.sort = interval, sort
         self.re_prog = re.compile(pattern)
@@ -59,6 +71,33 @@ class Monitor:
         exe.set_monitor_callback(self.stat_helper)
         self.exes.append(exe)
 
+    def bind_adapter(self, module):
+        """Enter adapter mode: stats come from the module's fused-step
+        device taps (``Module.install_monitor`` decides eligibility)."""
+        self._adapter = module
+
+    def _deliver_taps(self, host_taps):
+        """Cadence delivery from the health session: the sampled batch's
+        tap scalars, already on the host (they rode the metric-sync
+        transfer). Ignored when the batch was not sampled."""
+        if not self.activated or not host_taps:
+            return
+        for name in sorted(host_taps):
+            self.queue.append((self.step, name, float(host_taps[name])))
+
+    def _pull_adapter_taps(self):
+        """Adapter ``toc`` outside a fit loop: the latest step's taps in
+        one transfer (the per-op path pays one a tensor)."""
+        fused = getattr(self._adapter, "_fused", None)
+        h = getattr(fused, "last_health", None)
+        taps = h.get("taps") if isinstance(h, dict) else None
+        if not taps:
+            return
+        from .obs.health import tree_to_host
+        host = tree_to_host(taps)
+        for name in sorted(host):
+            self.queue.append((self.step, name, float(host[name])))
+
     def tic(self):
         """Arm this batch when it is the ``interval``-th."""
         if self.step % self.interval == 0:
@@ -74,6 +113,8 @@ class Monitor:
         if not self.activated:
             return []
         try:
+            if self._adapter is not None and not self.queue:
+                self._pull_adapter_taps()
             for exe in self.exes:
                 self.queue.extend(
                     (self.step, n, self.stat_func(arr))

@@ -30,6 +30,7 @@ import torch
 from .. import autograd as _ag
 from ..base import MXNetError
 from ..context import Context, as_context, cpu, current_context
+from ..diagnostics import ledger_mod as _ledger_mod
 from ..ops.registry import get_op, numpy_dtype, torch_dtype, write_aux
 
 __all__ = ["NDArray", "array", "invoke_op", "imperative_invoke", "waitall",
@@ -89,6 +90,16 @@ def _basic_index(t, key):
         out = torch.index_select(out, d, torch.as_tensor(
             idx, dtype=torch.int64, device=t.device))
     return out
+
+
+def _track_alloc(arr):
+    """Memory-ledger seam of the creation functions (mxtpu
+    ndarray.py:31-37): ties the fresh array's storage bytes to its
+    lifetime, under the ambient allocation origin ('ndarray' by
+    default). One global read when diagnostics are off."""
+    if _ledger_mod._ENABLED:
+        _ledger_mod._LEDGER.track(arr._data, ctx=str(arr._ctx))
+    return arr
 
 
 class NDArray:
@@ -163,8 +174,10 @@ class NDArray:
         if ctx == self._ctx:
             return self
         # a copy even where both contexts map to one torch device
-        # (cpu(0) -> cpu(1)): each context holds its own array
-        return NDArray(self._data.to(ctx.torch_device, copy=True), ctx)
+        # (cpu(0) -> cpu(1)): each context holds its own array, a new
+        # allocation the ledger accounts like a creation
+        return _track_alloc(NDArray(self._data.to(ctx.torch_device,
+                                                  copy=True), ctx))
 
     def copyto(self, other):
         """Copy into the NDArray ``other`` (in place) or onto the Context
@@ -533,8 +546,8 @@ def array(source_array, ctx=None, dtype=None):
     if dtype is not None:
         dt = torch_dtype(dtype)
     ctx = _context(ctx)
-    return NDArray(source_array.to(device=ctx.torch_device, dtype=dt,
-                                   copy=True), ctx)
+    return _track_alloc(NDArray(source_array.to(
+        device=ctx.torch_device, dtype=dt, copy=True), ctx))
 
 
 def _shape(shape):
@@ -544,8 +557,9 @@ def _shape(shape):
 def zeros(shape, ctx=None, dtype="float32", **kwargs):
     del kwargs
     ctx = _context(ctx)
-    return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                               device=ctx.torch_device), ctx)
+    return _track_alloc(NDArray(torch.zeros(
+        _shape(shape), dtype=torch_dtype(dtype), device=ctx.torch_device),
+        ctx))
 
 
 def empty(shape, ctx=None, dtype="float32"):
@@ -555,14 +569,16 @@ def empty(shape, ctx=None, dtype="float32"):
 def ones(shape, ctx=None, dtype="float32", **kwargs):
     del kwargs
     ctx = _context(ctx)
-    return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
-                              device=ctx.torch_device), ctx)
+    return _track_alloc(NDArray(torch.ones(
+        _shape(shape), dtype=torch_dtype(dtype), device=ctx.torch_device),
+        ctx))
 
 
 def full(shape, val, ctx=None, dtype="float32"):
     ctx = _context(ctx)
-    return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
-                              device=ctx.torch_device), ctx)
+    return _track_alloc(NDArray(torch.full(
+        _shape(shape), val, dtype=torch_dtype(dtype),
+        device=ctx.torch_device), ctx))
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):

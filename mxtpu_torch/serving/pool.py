@@ -12,7 +12,9 @@ dispatcher thread, because cuDNN keeps its plans per thread; it runs in
 the compile pipeline's ``prewarm_scope`` (its builds are deploy-time,
 not mid-traffic misses), and each bucket's steady-state time is kept
 under (bucket, pipeline config), mxtpu's cost-row stamp (:149-158): a
-bf16 or quantized forward is not the f32 one's cost. The process-wide
+bf16 or quantized forward is not the f32 one's cost. A replica's binds
+count in the memory ledger under ``serving_pool``, and its collect is a
+watchdog-registered wait (``serving_collect``). The process-wide
 warm cache and hot-swap adoption of the JAX pool arrive in a later
 slice.
 """
@@ -23,6 +25,7 @@ import time
 import numpy as _np
 import torch
 
+from .. import diagnostics as _diag
 from ..analysis import concurrency as _conc
 from ..base import MXNetError
 from ..faults import injection as _faults
@@ -52,9 +55,13 @@ class _Replica:
                  metrics=None):
         self.ctx = ctx
         self.metrics = metrics
-        self.base = Predictor(symbol_json, params, ctx=ctx,
-                              input_shapes=example_shapes,
-                              max_cached_binds=cache_size)
+        # every array the replica's executors bind lands in the memory
+        # ledger under the pool's own origin (outermost attribution wins
+        # over the executor's; mxtpu pool.py:262, 282)
+        with _diag.alloc_origin("serving_pool"):
+            self.base = Predictor(symbol_json, params, ctx=ctx,
+                                  input_shapes=example_shapes,
+                                  max_cached_binds=cache_size)
         self.lock = _conc.lock("_Replica", "lock")
 
     def bind_thread(self):
@@ -67,7 +74,8 @@ class _Replica:
         """The replica predictor bound to exact input ``shapes`` (caller
         holds ``self.lock``)."""
         hit = Predictor.shape_key(shapes) in self.base._bind_cache
-        self.base.reshape(shapes)
+        with _diag.alloc_origin("serving_pool"):
+            self.base.reshape(shapes)
         if self.metrics:
             self.metrics.counter("executor_cache_hits" if hit
                                  else "executor_cache_misses").inc()
@@ -85,9 +93,15 @@ class _Replica:
 
     def collect(self, handles):
         """Materialize dispatched outputs: one bulk device->host copy,
-        which waits for the device."""
-        _faults.point("serving.replica.collect")
-        return to_host(handles)
+        which waits for the device, registered with the watchdog's wait
+        table (mxtpu pool.py:312) so a wedged card shows in a
+        postmortem."""
+        _diag.wait_begin("serving_collect")
+        try:
+            _faults.point("serving.replica.collect")
+            return to_host(handles)
+        finally:
+            _diag.wait_end()
 
     def run(self, inputs):
         """Forward one padded batch synchronously; numpy outputs."""

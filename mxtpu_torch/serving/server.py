@@ -17,11 +17,20 @@ the session's flat JSON stats; ``GET /metrics`` the process-wide
 registry merged with the session's, as Prometheus text, or as JSON with
 ``?format=json`` or an ``Accept: application/json`` header.
 
-Not ported yet (later slices): continuous K-in-flight dispatch,
+Diagnostics as mxtpu's (server.py:356-378, 881-903): a session arms the
+hang watchdog and, until it closes, the ``SIGUSR2`` handler; with
+``MXTPU_CORPUS_DIR`` set each batch appends a ``serving`` service row (its execution ms, keyed by
+bucket); ``GET /debug/state`` answers ``diagnostics.debug_state()`` with
+the session's stats under ``serving``, and ``GET /debug/trace`` the
+captured timeline as Chrome trace-event JSON.
+
+Not ported yet (ROADMAP A.11): continuous K-in-flight dispatch,
 admission control, hot-swap (``swap_model``) and the warm executable
-cache, tuned knobs, replica quarantine and respawn, diagnostics, the
-decode session and ``/v1/generate``, and the other HTTP routes
-(``/healthz``, ``/debug/*``, ``/v1/version``, ``/v1/admin/swap``).
+cache, tuned serving knobs, replica quarantine and respawn, the decode
+session and ``/v1/generate``, and the routes ``/healthz``,
+``/v1/version``, ``/v1/admin/swap``; ``/debug/state`` therefore has no
+``serving_admission``, ``serving_version``, ``serving_warm_cache`` or
+``decode`` panel.
 """
 from __future__ import annotations
 
@@ -34,8 +43,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as _np
 
+from .. import diagnostics as _diag
 from .. import telemetry as _tel
 from ..base import MXNetError
+from ..obs import corpus as _obs_corpus
 from ..compile import pipeline as _pipeline
 from .batcher import BatcherClosed, DynamicBatcher, QueueFull
 from .metrics import MetricsRegistry
@@ -92,6 +103,9 @@ class ServingSession:
                 builds.inc()
 
         self._build_listener = _pipeline.add_build_listener(on_build)
+        # the hang watchdog and the SIGUSR2 postmortem handler (given
+        # back at close)
+        _diag.on_session_start()
         warms = []
         for i in range(len(self._pool.replicas)):
             warm = {"done": threading.Event()} if warmup else None
@@ -156,6 +170,11 @@ class ServingSession:
             done = time.monotonic()
             self.metrics.counter("requests_completed").inc(len(batch.items))
             self.metrics.histogram("batch_exec_ms").observe((done - t0) * 1e3)
+            if _obs_corpus.enabled():
+                # the corpus's service row: the batch's execution ms,
+                # keyed by bucket, as the cost model's fit takes it
+                _obs_corpus.record_service("serving", (done - t0) * 1e3,
+                                           bucket=batch.bucket)
             for it in batch.items:
                 self.metrics.histogram("request_latency_ms").observe(
                     (done - it.t_enqueue) * 1e3)
@@ -190,6 +209,7 @@ class ServingSession:
             return
         self._closed = True
         _pipeline.remove_build_listener(self._build_listener)
+        _diag.on_session_end()
         if not drain:
             self.batcher.abort(BatcherClosed("serving session shut down"))
         self.batcher.close()
@@ -242,6 +262,17 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._text(200, _tel.prometheus_text(*regs),
                            _tel.PROMETHEUS_CONTENT_TYPE)
+        elif path == "/debug/state":
+            # the live debug snapshot a postmortem dumps, on demand
+            state = _diag.debug_state()
+            state["serving"] = session.stats()
+            self._json(200, state)
+        elif path == "/debug/trace":
+            # the captured timeline as Chrome trace-event JSON: the span
+            # ring as slices, the flight ring as instants, cross-thread
+            # parents as flow events
+            from ..obs import trace_export as _trace_export
+            self._text(200, _trace_export.dumps(), "application/json")
         else:
             self._json(404, {"error": "unknown path %s" % self.path})
 

@@ -1,6 +1,6 @@
-"""mxtpu_torch.tune — the knob registry and the TunedConfig artifact.
+"""mxtpu_torch.tune — cost-registry-driven autotuning.
 
-Counterpart of ``mxtpu/tune``'s registry half:
+Counterpart of ``mxtpu/tune``:
 
 * :mod:`~mxtpu_torch.tune.registry` — the **knob registry**: every
   tunable declared once (name, kind, hand-picked default, env override,
@@ -13,12 +13,19 @@ Counterpart of ``mxtpu/tune``'s registry half:
   consumed with precedence ``default < artifact < env < explicit
   argument`` by ``Module.fit(tuned=)``; stale artifacts (knob-registry
   mismatch) are rejected.
+* :mod:`~mxtpu_torch.tune.cost` — the **cost model** over the program
+  table's rows and serving's per-bucket ms: predicts step/request cost
+  per candidate without running it.
+* :mod:`~mxtpu_torch.tune.searcher` — the **offline search**
+  (``python -m mxtpu_torch.tune search``): model-ranked candidates, the
+  top-K measured with short probes on the card.
+* :mod:`~mxtpu_torch.tune.online` — **online refinement**: a cadence
+  controller nudging the bounded knobs (fit's in-flight window) inside
+  their certified ranges, every move in ``tune_adjustments{knob}``.
 
-mxtpu's search, cost model, online controller and sweep
-(``searcher``, ``cost``, ``online``, ``sweep``) read the program cost
-table and the device-memory ledger of ``diagnostics``, which the port
-gains with the observability slice (ROADMAP A.10); their names raise
-``AttributeError`` until then.
+mxtpu's ``sweep`` re-runs ``bench.py`` with ``XLA_FLAGS`` combinations;
+the port has no benchmark of its own yet, so its names raise
+``AttributeError`` until the port's benchmark PR.
 """
 from __future__ import annotations
 
@@ -31,19 +38,33 @@ __all__ = [
     "Knob", "declare", "get_knob", "knobs", "registry_version",
     "resolve", "resolve_int", "catalog_rows", "catalog_table",
     "TunedConfig", "use", "active", "artifact", "SCHEMA",
+    "CostModel", "search", "search_from_rows", "OnlineController",
 ]
 
 
-_SEARCH_HALF = ("search", "search_from_rows", "probe_fit", "probe_serving",
-                "candidate_space", "enumerate_candidates", "CostModel",
-                "OnlineController", "online", "cost", "sweep", "searcher")
+_SWEEP = ("sweep", "XLA_FLAG_COMBOS", "probe_bench", "run_flag_sweep")
 
 
 def __getattr__(name):
-    if name in _SEARCH_HALF:
+    # the heavy halves (probes import serving/models) load on demand
+    if name in ("search", "search_from_rows", "probe_fit",
+                "probe_serving", "candidate_space", "enumerate_candidates",
+                "rank_candidates", "default_candidates"):
+        from . import searcher as _searcher
+        return getattr(_searcher, name)
+    if name == "CostModel":
+        from .cost import CostModel
+        return CostModel
+    if name == "OnlineController":
+        from .online import OnlineController
+        return OnlineController
+    if name in ("online", "cost", "searcher"):
+        import importlib
+        return importlib.import_module("." + name, __name__)
+    if name in _SWEEP:
         raise AttributeError(
-            "mxtpu_torch.tune.%s is mxtpu's search half, which needs "
-            "diagnostics.programs() and ledger(): the port gains it with "
-            "the observability slice (ROADMAP A.10)" % name)
+            "mxtpu_torch.tune.%s is mxtpu's sweep, which re-runs "
+            "bench.py under XLA_FLAGS combinations: the port gains it "
+            "with its own benchmark" % name)
     raise AttributeError("module %r has no attribute %r"
                          % (__name__, name))

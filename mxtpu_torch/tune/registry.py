@@ -53,6 +53,8 @@ log = logging.getLogger("mxtpu_torch.tune")
 #: ``registry_version()`` parity and read by no code of the port yet
 PORTED = frozenset(("fit.max_in_flight", "fit.metric_sync",
                     "fit.device_metrics", "fit.device_prefetch",
+                    "fit.batch_size", "health.cadence", "health.window",
+                    "health.spike_k", "serving.min_mem_headroom",
                     "fit.remat", "compile.pipeline",
                     "compile.fuse_opt_max_kb", "compile.remat_threshold",
                     "quant.calibration_percentile", "quant.per_channel",
@@ -61,8 +63,6 @@ PORTED = frozenset(("fit.max_in_flight", "fit.metric_sync",
 #: where each unread knob's reader comes in (ROADMAP section A), by
 #: name or by subsystem prefix
 _READ_LATER = (
-    ("fit.batch_size", "A.10 (tune's search half)"),
-    ("health.", "A.10 (diagnostics, obs and health)"),
     ("serving.", "A.11 (the rest of serving)"),
     ("decode.", "A.11 (the rest of serving)"),
     ("elastic.", "A.12 (elastic)"),

@@ -76,7 +76,11 @@ against the same fit over cpu(0..3); ``dist_async`` between two
 processes on gpu(0) with rank 0 serving. A.8: ``nd.waitall()`` with
 gpu(0) current waiting for a long kernel on cuda:3 (ROADMAP C.20, four
 cards), and a small LM's fit launching the same flash kernels with
-telemetry on and off.
+telemetry on and off. A.10: a CUDA fit's health rows against float64
+and its metric syncs equal a health-off fit's; the fused update with
+health armed bit for bit the unarmed one; the ledger's reconcile drift
+after a step; the watchdog firing on a CUDA-event wait held by an
+injected latency.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test). Run them on a machine with an H100 — which has no JAX, so the
@@ -3115,3 +3119,147 @@ def test_foreach_update_is_the_single_tensor_chain_bit_for_bit(cuda, name,
         for x, y in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):
             assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _health_mlp(mt, seed=0):
+    """The mlp on gpu(0) with the fused step armed and its health rows."""
+    import numpy as np
+    sym = mt.models.get_mlp(10)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (32, 784))],
+             label_shapes=[("softmax_label", (32,))])
+    np.random.seed(seed)
+    mod.init_params(mt.init.Xavier())
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 1e-3})
+    rng = np.random.RandomState(seed)
+    batch = mt.io.DataBatch(
+        [mt.nd.array(rng.rand(32, 784).astype("float32"), ctx=mt.cpu())],
+        [mt.nd.array(rng.randint(0, 10, 32).astype("float32"),
+                     ctx=mt.cpu())])
+    return mod, batch
+
+
+def test_health_rows_on_a_cuda_fit_against_float64(cuda):
+    """fit(health=True) on gpu(0): each class's four sums of the last
+    step against float64 sums of its gradients and weights (within 1e-5
+    relative: f32 tree sums over <= 1e5 elements), its max-abs exact,
+    no nonfinite; the accumulator's syncs equal a health-off fit's."""
+    torch, _att = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    syncs = {}
+    for health in (False, True):
+        mod, batch = _health_mlp(mt)
+        it = mt.io.NDArrayIter(batch.data[0].asnumpy().repeat(4, 0),
+                               batch.label[0].asnumpy().repeat(4, 0), 32)
+        seen = []
+        mod.fit(it, num_epoch=1, metric_sync=2, health=health,
+                batch_end_callback=lambda p: seen.append(
+                    p.eval_metric._device_accum.syncs))
+        syncs[health] = seen[-1]
+    assert syncs[True] == syncs[False] > 0
+    f = mod._fused
+    olds = {n: f._targets[0][n].double().clone() for n in f._h["names"]}
+    mod.forward_backward(batch)
+    mod.update()
+    rows = f.last_health
+    i = 0
+    for c, (_lbl, members) in enumerate(f._health_classes):
+        g2 = w2 = u2 = 0.0
+        gm = 0.0
+        for n in members:
+            g, w = f._sums[0][n].double(), f._targets[0][n].double()
+            g2 += float((g * g).sum())
+            w2 += float((w * w).sum())
+            u2 += float(((w - olds[n]) ** 2).sum())
+            gm = max(gm, float(g.abs().max()))
+            i += 1
+        got = rows["sums"][c].double().cpu().numpy()
+        np.testing.assert_allclose(got[:3], [g2, w2, u2], rtol=1e-5)
+        assert got[3] == 0 and float(rows["max"][c]) == gm
+
+
+@pytest.mark.parametrize("name,params", [
+    ("sgd", {"momentum": 0.9, "wd": 1e-4}), ("adam", {"wd": 1e-4})])
+def test_foreach_update_with_health_armed_is_the_chain_bit_for_bit(
+        cuda, name, params):
+    """With the health rows armed, the fused step's update keeps its ops
+    and their order: a module's weights after three steps equal, bit for
+    bit, the same module's with health off."""
+    torch, _att = cuda
+    import mxtpu_torch as mt
+    out = []
+    for armed in (False, True):
+        mod, batch = _health_mlp(mt)
+        mod.init_optimizer(optimizer=name, optimizer_params=dict(
+            params, learning_rate=0.01), force_init=True)
+        if armed:
+            mod._fused.arm_health()
+        for _ in range(3):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        out.append({k: v._data.clone()
+                    for k, v in mod.get_params()[0].items()})
+        assert (mod._fused.last_health is not None) == armed
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+def test_reconcile_drift_after_a_step_inside_its_slack(cuda):
+    """At a quiescent point after a step (synchronized, collected, cuBLAS
+    workspaces released) the allocator's requested bytes on gpu(0) exceed
+    the ledger's by exactly what the step left untracked: its health
+    rows awaiting the cadence ((C, 4) + (C,) f32; a fit's health session
+    consumes them each step)."""
+    torch, _att = cuda
+    import gc
+    import mxtpu_torch as mt
+
+    def quiescent():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        return mt.diagnostics.reconcile()
+    mod, batch = _health_mlp(mt)
+    mod._fused.arm_health()
+    before = quiescent()["by_ctx"]["gpu(0)"]["drift_bytes"]
+    mod.forward_backward(batch)
+    mod.update()
+    after = quiescent()
+    assert after["allocator"] == "cuda"
+    card = after["by_ctx"]["gpu(0)"]
+    rows = mod._fused.last_health
+    pending = sum(t.numel() * t.element_size() for t in rows.values())
+    assert card["ledger_bytes"] > 0
+    assert card["drift_bytes"] - before == pending, (card, pending)
+
+
+def test_watchdog_fires_on_a_cuda_event_wait_held_by_latency(cuda):
+    """A latency injected inside the pacer's registered wait on a CUDA
+    event, past the watchdog's deadline: one postmortem naming
+    device_wait, with the flight ring, the engine state and the ledger."""
+    torch, _att = cuda
+    import mxtpu_torch as mt
+    diag = mt.diagnostics
+    wd = diag.Watchdog(interval=0.02, wait_stall_s=0.1,
+                       engine_probe=lambda: (0, 0))
+    pacer = mt.module.base_module._Pacer(1, torch.device("cuda"))
+    fired = []
+    wd._fire = lambda reason: fired.append(diag.postmortem(
+        "watchdog: %s" % reason, source="watchdog"))
+    wd.start()
+    try:
+        x = torch.randn(512, 512, device="cuda")
+        with mt.faults.scope("executor.device_wait:latency_ms=600,times=1"):
+            for _ in range(3):
+                x = x @ x
+                x = x / x.norm()
+                pacer.step_done()
+    finally:
+        wd.stop()
+    assert len(fired) == 1
+    pm = fired[0]
+    assert "device_wait" in pm["reason"] and pm["source"] == "watchdog"
+    assert {"flight", "engine", "ledger"} <= set(pm)

@@ -2,8 +2,9 @@
 to mxtpu's: every fact table of ``precision_flow``, ``quant_plan``,
 ``liveness``, ``conv_layout``, ``remat_reuse_plan`` and
 ``update_fusion_plan`` equals mxtpu's on each fixture graph, node ids
-read as node names and dtypes by name. ``liveness_ledger_check`` needs
-the device-memory ledger and raises, naming the slice that brings it."""
+read as node names and dtypes by name. ``liveness_ledger_check`` holds
+the liveness estimate to the device-memory ledger's ``executor_outputs``
+slot, as mxtpu's does."""
 import numpy as np
 import pytest
 
@@ -110,8 +111,24 @@ def test_the_walk_types_like_mxtpus_on_a_bf16_graph(pkgs):
 
 
 def test_liveness_ledger_check_names_its_slice(pkgs):
-    _mx, mt = pkgs
+    """Before a forward there is no slot to check ([] in both packages);
+    after one the estimate and the slot agree in both; a slot that
+    drifts is named."""
+    mx, mt = pkgs
+    for pkg in (mt, mx):
+        sym, shapes = build(pkg, "mlp")
+        ex = sym.simple_bind(pkg.cpu(), **shapes)
+        check = pkg.analysis.dataflow.liveness_ledger_check
+        assert check(ex) == []
+        ex.forward(is_train=False)
+        assert ex._out_slot._nbytes > 0
+        assert check(ex) == []
+    ex._out_slot._nbytes += 4   # mxtpu's slot, drifted by hand
+    found = mx.analysis.dataflow.liveness_ledger_check(ex)
     sym, shapes = build(mt, "mlp")
     ex = sym.simple_bind(mt.cpu(), **shapes)
-    with pytest.raises(mt.MXNetError, match="A.10"):
-        mt.analysis.dataflow.liveness_ledger_check(ex)
+    ex.forward(is_train=False)
+    ex._out_slot._nbytes += 4
+    got = mt.analysis.dataflow.liveness_ledger_check(ex)
+    assert [f.message for f in got] == [f.message for f in found]
+    assert "executor_outputs slot accounts" in got[0].message

@@ -250,10 +250,15 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     assert mod._kvstore.type == "dist_async" and mod._update_on_kvstore
     assert mod._kvstore.num_workers == 1 and mod._fused is None
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
-    for kw in ({"elastic": "/tmp/x"}, {"resume": True}, {"health": True}):
+    for kw in ({"elastic": "/tmp/x"}, {"resume": True}):
         with pytest.raises(mt.MXNetError, match="not ported"):
             mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
                     **kw)
+    # health is ported: the fit trains with the health session armed
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            health=True)
+    assert mod._health_session is not None
+    assert mod._health_session.cadences >= 1
     # tuned is ported: an artifact path that cannot be read is refused
     with pytest.raises(mt.MXNetError, match="cannot read"):
         mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,

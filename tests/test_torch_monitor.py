@@ -7,8 +7,11 @@ deactivation when ``stat_func`` raises, ``fit(monitor=)``. Then the
 port's fused/unfused rule: a sampled inference batch walks the graph
 unfused, so the BatchNorm outputs are seen (mxtpu's per-op walk names
 them too), and an unsampled one keeps the fused BatchNorm->ReLU step;
-``install_monitor`` disarms the fused update and still trains to the
-same weights; a rebind (a new batch shape) keeps the monitor."""
+``install_monitor`` of a Monitor with its own ``stat_func`` disarms the
+fused update and still trains to the same weights; a rebind (a new batch
+shape) keeps the monitor. The default statistic takes the device adapter
+in both packages (the first four twins hold the two adapters' stats);
+the adapter cases at the end hold its taps to the per-op path."""
 import logging
 
 import numpy as np
@@ -217,12 +220,14 @@ def test_sampled_inference_sees_batchnorm_unsampled_stays_fused(
 
 
 def test_install_monitor_disarms_the_fused_step_and_trains_alike(mt):
-    """The monitored Module updates through the Updater (mxtpu's per-op
-    branch) and reaches the unmonitored fused Module's weights; a new
+    """A Monitor with a stat of its own (mxtpu's per-op branch; the
+    default stat rides the fused step's taps) updates through the
+    Updater and reaches the unmonitored fused Module's weights; a new
     batch shape rebinds the executors and the monitor follows them."""
     plain = _module(mt)
     assert plain._fused is not None
-    mon = mt.monitor.Monitor(1, pattern="fc1_output")
+    mon = mt.monitor.Monitor(1, pattern="fc1_output",
+                             stat_func=lambda x: abs(x.asnumpy()).mean())
     mod, _ = _train_monitored(mt, mon, steps=2)
     assert mod._fused is None
     for i in range(2):
@@ -237,3 +242,95 @@ def test_install_monitor_disarms_the_fused_step_and_trains_alike(mt):
     res = mon.toc()
     assert [k for _, k, _ in res] == ["fc1_output"]
     assert len(mon.exes) == 1 and mon.exes[0].outputs[0].shape == (8, 3)
+
+
+# ------------------------------------------------------ the device adapter
+def _monitor_values(pk, mon, steps=1, net=_mlp, data=(16, 8)):
+    mod, seen = _train_monitored(pk, mon, steps, net, data)
+    return mod, [_stats(r) for r in seen]
+
+
+@pytest.mark.parametrize("net,data", [(_mlp, (16, 8)),
+                                      (_bn_net, (2, 3, 6, 6))])
+def test_adapter_values_match_the_per_op_path_and_mxtpus_adapter(
+        mt, net, data):
+    """The default stat rides the fused step's device taps (the fused
+    step stays armed, mon._adapter is the module) and gives each op
+    output the per-op path's value within 1e-5 relative (f32 abs-means
+    in other orders), over two steps; mxtpu's adapter gives the same
+    names and values."""
+    ad_mod, ad = _monitor_values(mt, mt.monitor.Monitor(1), 2, net, data)
+    mon = mt.monitor.Monitor(1, stat_func=lambda x: abs(x.asnumpy()).mean())
+    per_mod, per = _monitor_values(mt, mon, 2, net, data)
+    ref_mod, ref = _monitor_values(mx, mx.monitor.Monitor(1), 2, net, data)
+    assert ad_mod._fused is not None and per_mod._fused is None
+    assert ref_mod._monitor_adapter is not None
+    for step in range(2):
+        assert sorted(ad[step]) == sorted(ref[step])
+        # the per-op path also reports the graph outputs once more
+        assert set(ad[step]) == set(per[step])
+        for name, v in ad[step].items():
+            assert v == pytest.approx(per[step][name], rel=1e-5), name
+            assert v == pytest.approx(ref[step][name], rel=1e-5), name
+
+
+def test_custom_stat_func_keeps_the_per_op_path(mt):
+    mon = mt.monitor.Monitor(1, stat_func=lambda x: float(
+        np.max(np.abs(x.asnumpy()))))
+    mod, seen = _train_monitored(mt, mon)
+    assert mon._adapter is None and not mon._default_stat
+    assert mod._fused is None and mon.exes
+    assert seen[0] and all(np.isfinite(float(v.split()[0]))
+                           for _, _, v in seen[0])
+
+
+def test_adapter_env_opt_out_and_declined_fused_step(mt, monkeypatch):
+    """``MXTPU_MONITOR_ADAPTER=0`` keeps the per-op path; a monitor
+    installed before an optimizer without a fused rule falls back to it
+    at init_optimizer (mxtpu :387-396)."""
+    monkeypatch.setenv("MXTPU_MONITOR_ADAPTER", "0")
+    mon = mt.monitor.Monitor(1)
+    mod, _ = _train_monitored(mt, mon)
+    assert mon._adapter is None and mod._fused is None
+    monkeypatch.delenv("MXTPU_MONITOR_ADAPTER")
+    sym = _mlp(mt)
+    mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
+    mod.bind(data_shapes=[("data", (16, 8))],
+             label_shapes=[("softmax_label", (16,))])
+    mon = mt.monitor.Monitor(1)
+    mod.install_monitor(mon)
+    assert mon._adapter is mod
+    mod.init_params()
+    mod.init_optimizer(optimizer="nadam")
+    assert mod._fused is None and mon._adapter is None and mon.exes
+
+
+def test_adapter_through_fit_rides_the_cadence(mt):
+    """fit(monitor=) with the default stat: device metrics stay on, the
+    sampled batches' taps ride the health session's cadence transfer
+    (no per-tensor copy), and the fused step trains to the weights of
+    an unmonitored fit."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 8).astype("float32")
+    y = rng.randint(0, 3, 64).astype("float32")
+    delivered, weights = [], []
+    for monitored in (True, False):
+        mod = _module(mt)
+        mon = mt.monitor.Monitor(2, pattern=".*fc.*") if monitored else None
+        if mon is not None:
+            real = mon._deliver_taps
+
+            def spy(host, real=real):
+                delivered.append(dict(host))
+                real(host)
+            mon._deliver_taps = spy
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=16), num_epoch=1,
+                monitor=mon, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1})
+        assert mod._fused is not None
+        weights.append({k: v.asnumpy()
+                        for k, v in mod.get_params()[0].items()})
+    assert len(delivered) == 2
+    assert set(delivered[0]) == {"fc1_output", "fc2_output"}
+    for k in weights[0]:
+        np.testing.assert_array_equal(weights[0][k], weights[1][k])

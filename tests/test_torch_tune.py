@@ -2,7 +2,12 @@
 same registry version and catalog, artifacts that load across the two
 packages both ways (a stale one refused by both), the same resolution
 order for every fit knob, and ``fit(tuned=...)`` setting mxtpu's knobs
-with weights bit-identical to the same knobs given explicitly."""
+with weights bit-identical to the same knobs given explicitly. The
+search half: ``search_from_rows`` on seeded rows gives mxtpu's cost
+model, rankings and winner; ``OnlineController.step`` on synthetic
+signals makes mxtpu's adjustments; fit binds its in-flight window to an
+active controller; ``python -m mxtpu_torch.tune search --ctx cpu``
+writes an artifact a fit loads."""
 import json
 import logging
 
@@ -199,9 +204,13 @@ def test_default_fit_without_artifact_keeps_the_earlier_defaults(pkgs):
 
 
 def test_search_half_names_the_slice_it_waits_for(pkgs):
+    """The search half is ported (A.10); mxtpu's sweep re-runs bench.py
+    under XLA_FLAGS and waits for the port's own benchmark, naming it."""
     _mx, mt = pkgs
     for name in ("search", "CostModel", "OnlineController", "online"):
-        with pytest.raises(AttributeError, match="A.10"):
+        assert getattr(mt.tune, name) is not None
+    for name in ("sweep", "run_flag_sweep"):
+        with pytest.raises(AttributeError, match="benchmark"):
             getattr(mt.tune, name)
 
 
@@ -214,10 +223,9 @@ def test_ported_knobs_are_the_ones_the_port_reads(pkgs):
     root = os.path.dirname(mt.__file__)
     read = set()
     for d, _dirs, files in os.walk(root):
-        if os.path.basename(d) == "tune":
-            continue
         for f in files:
-            if f.endswith(".py"):
+            if f.endswith(".py") and not (
+                    os.path.basename(d) == "tune" and f == "registry.py"):
                 with open(os.path.join(d, f)) as fh:
                     read |= set(re.findall(
                         r'resolve(?:_int)?\(\s*"([a-z_.]+)"', fh.read()))
@@ -254,3 +262,140 @@ def test_unread_knobs_in_an_artifact_or_env_are_named(pkgs, monkeypatch,
     msgs = [r.getMessage() for r in caplog.records]
     assert len(msgs) == 1 and "MXTPU_SERVING_MAX_QUEUE" in msgs[0] \
         and "A.11" in msgs[0]
+
+
+# ------------------------------------------------------ the search half
+def _rows(seed):
+    """Seeded measured rows: per-bucket warm ms, a fit basis, program
+    rows (the cost model's inputs)."""
+    rng = np.random.RandomState(seed)
+    buckets = {b: {"exec_ms": float(0.5 + 0.02 * b * rng.rand() + rng.rand())}
+               for b in (1, 8, 32, 128)[:2 + seed % 3]}
+    basis = {"step_exec_ms": float(5 + 20 * rng.rand()),
+             "dispatch_ms": float(0.5 + 3 * rng.rand()),
+             "metric_sync_ms": float(0.1 + rng.rand()),
+             "assemble_ms": float(2 * rng.rand())}
+    if seed % 2:
+        basis.pop("metric_sync_ms")
+    programs = [{"kind": k, "flops": float(rng.rand() * 1e9),
+                 "bytes_accessed": float(rng.rand() * 1e8)}
+                for k in ("fwd_eval", "fused_step")]
+    return buckets, basis, programs
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_search_from_rows_ranks_as_mxtpu(pkgs, seed):
+    """The same rows give mxtpu's cost model, rankings and winner."""
+    mx, mt = pkgs
+    buckets, basis, programs = _rows(seed)
+    out = []
+    for p in (mx, mt):
+        winner, ranked, model = p.tune.search_from_rows(
+            bucket_costs=buckets, fit_basis=dict(basis),
+            program_rows=programs, buckets=(1, 8, 32, 128), top_k=4)
+        out.append((winner, ranked, model.to_dict(),
+                    model.predict_sync_points(2, 4, 50)))
+    assert out[1] == out[0]
+    line = [p.tune.cost.ServiceLine.fit(buckets, programs[0]).to_dict()
+            for p in (mx, mt)]
+    assert line[1] == line[0]
+
+
+def _signals(seed, n=30):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        s = {"fit_pacing_waits": int(rng.randint(0, 3)),
+             "fit_sync_wait_mean_ms": float(rng.rand() * 4),
+             "fit_dispatch_mean_ms": float(rng.rand() * 4),
+             "idle_gaps": int(rng.randint(0, 2)),
+             "queue_depth": int(rng.randint(0, 3)),
+             "sheds": int(rng.randint(0, 2)),
+             "batch_service_p99_ms": float(rng.rand() * 10)}
+        if rng.rand() < 0.2:
+            s["mem_headroom_frac"] = float(rng.rand() * 0.3)
+        out.append(s)
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_online_controller_makes_mxtpus_adjustments(pkgs, seed):
+    """Synthetic signals through both controllers, bound to the same
+    knobs: the same moves, every value inside its certified range."""
+    mx, mt = pkgs
+    moves = []
+    for p in (mx, mt):
+        ctl = p.tune.OnlineController()
+        holders = {}
+        for name, v in (("fit.max_in_flight", 2),
+                        ("serving.max_in_flight", 2),
+                        ("serving.refill_watermark", 8),
+                        ("serving.queue_wait_budget_ms", 200.0)):
+            holders[name] = {"v": v}
+            ctl.bind_holder(name, holders[name])
+        seq = []
+        for sig in _signals(seed):
+            for a in ctl.step(signals=sig):
+                seq.append((a["knob"], a["from"], a["to"], a["reason"]))
+            for name, h in holders.items():
+                lo, hi = p.tune.get_knob(name).safe_range
+                assert lo <= h["v"] <= hi
+        moves.append(seq)
+    assert moves[0] and moves[1] == moves[0]
+
+
+def test_fit_binds_its_window_to_the_active_controller(pkgs):
+    """An active controller binds fit.max_in_flight's live holder during
+    the fit and releases it after; a move lands in
+    tune_adjustments{knob} and the artifact's provenance."""
+    _mx, mt = pkgs
+    cfg = mt.tune.TunedConfig(values={"fit.max_in_flight": 4})
+    ctl = mt.tune.OnlineController(artifact=cfg).activate()
+    reg = mt.telemetry.registry()
+    n0 = reg.counter("tune_adjustments",
+                     labels={"knob": "fit.max_in_flight"}).value
+    seen = []
+
+    def cb(param):
+        seen.extend(ctl.step(signals={"mem_headroom_frac": 0.0}))
+    try:
+        _fit(mt, tuned=cfg, batch_end_callback=cb)
+    finally:
+        ctl.deactivate()
+    assert [(a["from"], a["to"]) for a in seen][:2] == [(4, 3), (3, 2)]
+    assert "fit.max_in_flight" not in ctl._bound
+    assert reg.counter("tune_adjustments", labels={
+        "knob": "fit.max_in_flight"}).value - n0 == len(seen)
+    assert len([e for e in cfg.provenance
+                if e["event"] == "online-adjust"]) == len(seen)
+
+
+def test_search_cli_writes_an_artifact_fit_loads(pkgs, tmp_path):
+    """``python -m mxtpu_torch.tune search --ctx cpu`` probes the fixtures
+    on the host and writes a TunedConfig (mxtpu's schema and registry
+    version) that fit(tuned=...) loads and applies; the probes read
+    fit.batch_size."""
+    import os
+    import subprocess
+    import sys
+    mx, mt = pkgs
+    out = str(tmp_path / "t.json")
+    env = dict(os.environ, MXTPU_FIT_BATCH_SIZE="16",
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(mt.__file__))))
+    proc = subprocess.run([sys.executable, "-m", "mxtpu_torch.tune",
+                           "search", "--ctx", "cpu", "--top-k", "1",
+                           "--out", out], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    cfg = mt.tune.TunedConfig.load(out, strict=True)
+    assert mx.tune.TunedConfig.load(out, strict=True).values == cfg.values
+    probes = [e for e in cfg.evidence if e.get("stage") == "probe"]
+    assert len(probes) == 2 and cfg.provenance[-1]["event"] == \
+        "offline-search"
+    seed_fit = cfg.evidence[0]
+    assert seed_fit["group"] == "fit" and seed_fit["steps"] == 16
+    knobs, _w = _fit(mt, tuned=out)
+    assert knobs["fit.max_in_flight"] == cfg.values["fit.max_in_flight"]
+    assert knobs["fit.device_prefetch"] == \
+        cfg.values["fit.device_prefetch"]
