@@ -409,10 +409,37 @@ Phases (any failure raises and exits non-zero):
    ``/debug/trace``, the corpus's service rows); ``python -m
    mxtpu_torch.tune search`` on the card and a ``fit(tuned=...)`` with
    an ``OnlineController`` attached.
-23. Prints the kernels' JSON line (each kernel's launches by path, the
+23. Continuous serving (``continuous``, ``CONT``): the LM of phase 4 in
+   ``ServingSession(mode="continuous", max_in_flight=2)``, 16 requests
+   from 4 threads, every served batch bit for bit a direct Predictor on
+   gpu(0) at its bucket on the same inputs, 12 flash launches a batch,
+   ``rep.dispatch``'s host ms against the batch's device ms; burst and
+   continuous in turns (requests/s, ``dispatch_idle_gap_ms``,
+   ``refill_latency_ms``, ``batch_exec_ms``, the answer copy's ms);
+   ``swap_model`` to a second seeded weight set while 4 threads send (no
+   failed request, every batch its version's direct Predictor's, none of
+   the old version after the swap returned), ``prewarm`` and a rollback
+   with zero program builds. ResNet-50 v2 served continuously: 50
+   epilogue launches a batch, each bit for bit the plain epilogue on its
+   inputs. Over HTTP (the mlp): 429s past ``max_queue``, a 504 deadline,
+   503 after close, ``/healthz``, ``/v1/version``, the three serving
+   panels of ``/debug/state``, a kill at ``serving.replica.collect``
+   quarantining and respawning the replica. The LR bomb of phase 22 at
+   an lr of 1e39 (past f32, ROADMAP C.22).
+24. Decode (``decode``, ``DECODE``): the paged attention decoder at
+   GPT-2-small's widths on a ``PagedArena`` (the ledger's ``decode_kv``
+   at 604 MB with every block live), 16 requests joined equal to alone,
+   NaN in every freed block inert, a 900-token prompt joining 4 decoding
+   sequences with no prefill stall (the longest gap between tokens),
+   ``POST /v1/generate?stream=1``, each ``serving.decode.*`` fault point
+   once through ``MXTPU_FAULTS`` with no slot or block leaked, and the
+   LSTM LM's step at config 4's widths on a ``SequenceSlotArena``
+   (joined equal to alone); tokens/s, step ms by bucket, prefill-chunk
+   ms. Decode runs no hand-written kernel (its products are cuBLAS's).
+25. Prints the kernels' JSON line (each kernel's launches by path, the
    ``records``, ``frontend``, ``zoo``, ``rcnn``, ``ctc``,
-   ``scaffolding``, ``compile`` and ``observability`` paths included),
-   then the device line last.
+   ``scaffolding``, ``compile``, ``observability`` and ``continuous``
+   paths included), then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -688,7 +715,8 @@ ROI_EARLIER_MS = {"forward": 0.1276, "backward": 1.7623}
 PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
           "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse",
-          "dist_async", "scaffolding", "compile", "observability")
+          "dist_async", "scaffolding", "compile", "observability",
+          "continuous", "decode")
 # phase 21, the compile pipeline: ResNet-50 v2 predicted under
 # (layout, bf16) at B=`batch`; the LM of phase 6 trained TRAIN["steps"]
 # steps under bf16; ResNet-50 trained `remat_steps` steps at B=
@@ -11528,11 +11556,14 @@ def obs_counter(mt, name, **labels):
     return mt.telemetry.registry().counter(name, labels=labels).value
 
 
-def obs_bomb(mt, seed, card, corpus_dir):
+def obs_bomb(mt, seed, card, corpus_dir, lr=None):
     """Step 3 of phase 22: the LR bomb. The mlp's lr jumps to `bomb_lr`
-    after step `bomb_step` - 1: that step's fresh weights are nonfinite,
-    and health_anomalies{kind=divergence} fires at its cadence (corpus
-    row `bomb_step` + 1), with exactly one postmortem."""
+    (or ``lr``) after step `bomb_step` - 1: that step's fresh weights are
+    nonfinite, and health_anomalies{kind=divergence} fires at its cadence
+    (corpus row `bomb_step` + 1), with exactly one postmortem. At an lr
+    past the f32 range (1e39, phase 23) the fused update rounds it to inf
+    on the host, as mxtpu's f32 arithmetic does, and the fit runs on."""
+    lr = OBS["bomb_lr"] if lr is None else lr
     sym, x, y = obs_mlp(mt, seed)
     init = obs_init(mt, sym, seed, (OBS["mlp_batch"], 784))
     div0 = obs_counter(mt, "health_anomalies", kind="divergence")
@@ -11540,7 +11571,7 @@ def obs_bomb(mt, seed, card, corpus_dir):
 
     def bomb(param):
         if param.nbatch == OBS["bomb_step"] - 1:
-            param.locals["self"]._optimizer.lr = OBS["bomb_lr"]
+            param.locals["self"]._optimizer.lr = lr
     mt.obs.corpus.reset()
     os.environ["MXTPU_CORPUS_DIR"] = corpus_dir
     try:
@@ -11560,14 +11591,15 @@ def obs_bomb(mt, seed, card, corpus_dir):
     log("  [%s] LR bomb (lr %g from step %d): divergence at cadences %s "
         "(want [%d]); health_anomalies{kind=divergence} +%d, health "
         "postmortems +%d: %s"
-        % (card, OBS["bomb_lr"], OBS["bomb_step"], fired,
+        % (card, lr, OBS["bomb_step"], fired,
            OBS["bomb_step"] + 1, div, pms, pm["reason"][:90]))
     if fired != [OBS["bomb_step"] + 1] or div != 1 or pms != 1 or \
             pm["source"] != "health":
         raise AssertionError("LR bomb: fired %s, divergence +%d, "
                              "postmortems +%d" % (fired, div, pms))
     del mod
-    return dict(fired_cadence=fired[0], divergence=div, postmortems=pms)
+    return dict(lr=lr, fired_cadence=fired[0], divergence=div,
+                postmortems=pms)
 
 
 def obs_watchdog(mt, seed, card):
@@ -11803,6 +11835,974 @@ def phase_observability(mt, att, epi, seed, card, per_op=None):
     return out
 
 
+# phase 23, continuous serving (A.11): the LM of phase 4 at K=`inflight`
+# batches in flight, `requests` requests from `clients` threads; burst and
+# continuous in `turns`, `turn_requests` requests from `turn_clients`
+# threads a turn, after two untimed rounds each (PyTorch's caching host
+# allocator then holds the pinned blocks); a hot-swap while `clients`
+# threads send until `swap_settle_s` after swap_model returns (at most
+# `swap_max_requests` each); ResNet-50 v2 at RESNET_BUCKETS from
+# `resnet_clients` threads, `resnet_requests` requests; the HTTP taxonomy
+# on the mlp fixture with `max_queue` and a burst of `overload` requests
+CONT = dict(inflight=2, requests=16, clients=4,
+            turns=("burst", "continuous", "continuous", "burst"),
+            turn_requests=32, turn_clients=8, swap_settle_s=0.3,
+            swap_max_requests=64, resnet_requests=48, resnet_clients=8,
+            max_queue=8, overload=24, respawn_s=60.0)
+
+
+def lm_seeded(mt, seed):
+    """The phase-4 LM's graph and seeded weights."""
+    sym = mt.models.get_transformer_lm(**LM)
+    return sym, sym.tojson(), lm_params(sym, seed)
+
+
+class ServedBatches:
+    """Record every batch a session answers: its bucket, the version its
+    replica serves, the padded inputs, its items, the host ms of its
+    replica's ``dispatch``, and on the card its device ms (input copy to
+    last kernel) and answer-copy ms (events of the pool's handle)."""
+
+    def __init__(self, mt):
+        self.srv = mt.serving.server.ServingSession
+        self.rep = mt.serving.pool._Replica
+        self.real_answer = self.srv._answer
+        self.real_dispatch = self.rep.dispatch
+        self.rows = []
+        self.dispatch_ms = []
+        rows, dms = self.rows, self.dispatch_ms
+        real_answer, real_dispatch = self.real_answer, self.real_dispatch
+
+        def answer(sess, batch, rep, handle):
+            real_answer(sess, batch, rep, handle)
+            rows.append(dict(bucket=batch.bucket, version=rep.version_tag,
+                             inputs=batch.inputs, items=list(batch.items),
+                             device_ms=handle.device_ms(),
+                             copy_ms=handle.copy_ms(),
+                             t=time.perf_counter()))
+
+        def dispatch(rep, inputs):
+            t0 = time.perf_counter()
+            try:
+                return real_dispatch(rep, inputs)
+            finally:
+                dms.append((time.perf_counter() - t0) * 1e3)
+
+        self.srv._answer = answer
+        self.rep.dispatch = dispatch
+
+    def close(self):
+        self.srv._answer = self.real_answer
+        self.rep.dispatch = self.real_dispatch
+
+
+def digest(a):
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(a).view(np.uint8)).hexdigest()
+
+
+def direct_identity(mt, sym_json, params_by_version, rows, answers):
+    """Every served batch against a direct Predictor on the same card at
+    its bucket's shape, on the same padded inputs, with the weights of the
+    version its replica served: each request's answer (an array, or its
+    ``digest``) bit for bit the direct rows. Returns (batches checked,
+    worst max abs err; inf for a digest that differs)."""
+    preds = {}
+    worst = 0.0
+    for row in rows:
+        key = (row["version"], row["bucket"])
+        if key not in preds:
+            preds[key] = mt.Predictor(
+                sym_json, params_by_version[row["version"]],
+                ctx=mt.gpu(0), input_shapes={
+                    k: v.shape for k, v in row["inputs"].items()})
+        p = preds[key]
+        p.forward(**row["inputs"])
+        out = p.get_outputs()[0]
+        per = out.shape[0] // row["bucket"]
+        r0 = 0
+        for it in row["items"]:
+            want = out[r0 * per:(r0 + it.n) * per]
+            got = answers[id(it)]
+            if isinstance(got, str):
+                if got != digest(want):
+                    worst = float("inf")
+            elif got.shape != want.shape:
+                raise AssertionError("answer shape %s != direct %s"
+                                     % (got.shape, want.shape))
+            elif not np.array_equal(got, want):
+                worst = max(worst, float(np.abs(got - want).max()))
+            r0 += it.n
+    return len(rows), worst
+
+
+def cont_lm(mt, att, seed, card):
+    """23.1: the LM served continuously at K=2, byte-identical to direct
+    Predictors; then burst and continuous in turns."""
+    sym, sym_json, params = lm_seeded(mt, seed)
+    shapes = {"data": (1, LM["seq_len"])}
+    rng = np.random.default_rng(seed + 23)
+    n = CONT["requests"]
+    requests = [rng.integers(0, LM["vocab_size"], (1, LM["seq_len"]))
+                .astype(np.float32) for _ in range(n)]
+    t0 = time.perf_counter()
+    sess = mt.serving.ServingSession(
+        sym_json, params, shapes, buckets=BUCKETS, contexts=[mt.gpu(0)],
+        mode="continuous", max_in_flight=CONT["inflight"],
+        version_tag="lm-a")
+    log("  session up in %.2f s; warmup batch ms %s; cost rows %s"
+        % (time.perf_counter() - t0, sess.warmup_ms,
+           sess.pool.bucket_costs()))
+    rec = ServedBatches(mt)
+    answers, errors = {}, []
+
+    def client(idx):
+        try:
+            for r in range(idx, n, CONT["clients"]):
+                fut = sess.predict_async({"data": requests[r]})
+                answers[id(fut)] = fut.wait(600)[0]
+        except Exception as exc:  # re-raised on the main thread below
+            errors.append(exc)
+    try:
+        att.flash_attention.launches = 0  # count the main path alone
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(CONT["clients"])]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = att.flash_attention.launches
+        batches = sess.metrics.counter("batches_dispatched").value
+        stats = sess.stats()
+    finally:
+        rec.close()
+    if errors:
+        sess.close()
+        raise errors[0]
+    if len(answers) != n:
+        sess.close()
+        raise AssertionError("%d of %d requests answered" % (len(answers),
+                                                             n))
+    checked, worst = direct_identity(mt, sym_json, {"lm-a": params},
+                                     rec.rows, answers)
+    # a request alone at bucket 1 against its row in a served bucket-4
+    # batch: does cuBLAS make a row depend on its batch? (printed)
+    alone = mt.Predictor(sym_json, params, ctx=mt.gpu(0),
+                         input_shapes=shapes)
+    row_dep = []
+    for row in rec.rows:
+        if row["bucket"] != 1:
+            it = row["items"][0]
+            alone.forward(data=it.inputs["data"])
+            a = alone.get_outputs()[0]
+            row_dep.append(float(np.abs(a - answers[id(it)]).max()))
+            break
+    del alone
+    dev = [r["device_ms"] for r in rec.rows]
+    copy = [r["copy_ms"] for r in rec.rows]
+    log("  [%s] LM continuous K=%d: %d requests in %d batches (%.3f "
+        "requests/s); flash launches %d (want %d x %d); %d batches held "
+        "to a direct Predictor at their bucket on gpu(0): max abs err %g "
+        "(want 0); a bucket-4 row against the request alone at bucket 1: "
+        "max abs err %s; rep.dispatch host ms mean %.3f max %.3f against "
+        "the batch's device ms mean %.3f; answer copy ms mean %.3f"
+        % (card, CONT["inflight"], n, batches, n / wall, launches,
+           LM["num_layers"], batches, checked, worst, row_dep,
+           np.mean(rec.dispatch_ms), np.max(rec.dispatch_ms),
+           np.mean(dev), np.mean(copy)))
+    if launches != LM["num_layers"] * batches or batches < 1:
+        sess.close()
+        raise AssertionError("flash launches %d != %d x %d" % (
+            launches, LM["num_layers"], batches))
+    if worst != 0.0:
+        sess.close()
+        raise AssertionError("continuous answers differ from the direct "
+                             "Predictor: %g" % worst)
+    ring = mt.serving.pool.host_pinned_bytes()
+    log("  pinned host bytes held by PyTorch's caching host allocator "
+        "(staging and answer tensors; host memory, outside the device "
+        "ledger): %s" % ring)
+    out = dict(requests=n, batches=batches, launches=launches,
+               requests_per_s=n / wall, direct_batches=checked,
+               pinned_ring_bytes=ring,
+               row_dependence=row_dep,
+               dispatch_host_ms=list(rec.dispatch_ms), device_ms=dev,
+               copy_ms=copy, stats=stats)
+    out["turns"] = cont_turns(mt, sess, sym_json, params, shapes, rng,
+                              card)
+    out["swap"] = cont_swap(mt, att, sess, sym, sym_json, params, shapes,
+                            seed, card)
+    sess.close()
+    return out
+
+
+def lm_load(mt, sess, n, clients, rng):
+    """``n`` LM requests from ``clients`` threads, each sending its next
+    once answered, the answers dropped; returns the wall seconds."""
+    reqs = [rng.integers(0, LM["vocab_size"], (1, LM["seq_len"]))
+            .astype(np.float32) for _ in range(n)]
+    errors = []
+
+    def client(idx):
+        try:
+            for r in range(idx, n, clients):
+                sess.predict({"data": reqs[r]}, timeout=600)
+        except Exception as exc:  # re-raised below
+            errors.append(exc)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def cont_turns(mt, cont, sym_json, params, shapes, rng, card):
+    """Burst against continuous in turns (the burst session adopts the
+    continuous one's warm predictor), after two untimed rounds each:
+    requests/s, dispatch_idle_gap_ms, refill_latency_ms, batch_exec_ms,
+    the host ms of ``rep.dispatch`` against the batch's device ms, and
+    the answer copy's ms. Printed, not claimed."""
+    b0 = mt.compile.pipeline.program_build_count()
+    burst = mt.serving.ServingSession(
+        sym_json, params, shapes, buckets=BUCKETS, contexts=[mt.gpu(0)],
+        mode="burst", version_tag="lm-a")
+    built = mt.compile.pipeline.program_build_count() - b0
+    n, clients = CONT["turn_requests"], CONT["turn_clients"]
+    sessions = {"burst": burst, "continuous": cont}
+    rows = []
+    hists = ("dispatch_idle_gap_ms", "refill_latency_ms", "batch_exec_ms")
+    try:
+        for _ in range(2):
+            for sess in sessions.values():
+                lm_load(mt, sess, n, clients, rng)
+        for mode in CONT["turns"]:
+            sess = sessions[mode]
+            m = sess.metrics
+            before = {h: (m.histogram(h).count,
+                          m.histogram(h).mean * m.histogram(h).count)
+                      for h in hists}
+            rec = ServedBatches(mt)
+            try:
+                wall = lm_load(mt, sess, n, clients, rng)
+            finally:
+                rec.close()
+            row = {"mode": mode, "requests_per_s": n / wall,
+                   "batches": len(rec.rows),
+                   "dispatch_host_ms": float(np.mean(rec.dispatch_ms)),
+                   "device_ms": float(np.mean([r["device_ms"]
+                                               for r in rec.rows])),
+                   "copy_ms": float(np.mean([r["copy_ms"]
+                                             for r in rec.rows]))}
+            for h, (c0, s0) in before.items():
+                hh = m.histogram(h)
+                c = hh.count - c0
+                row[h] = (hh.mean * hh.count - s0) / c if c else None
+            rows.append(row)
+            log("  [%s] turn %s: %d requests from %d clients, %.3f "
+                "requests/s, %d batches; dispatch_idle_gap_ms %s, "
+                "refill_latency_ms %s, batch_exec_ms %s; rep.dispatch host "
+                "ms %.3f, device ms %.3f, answer copy ms %.3f"
+                % (card, mode, n, clients, row["requests_per_s"],
+                   row["batches"], _fmt(row["dispatch_idle_gap_ms"]),
+                   _fmt(row["refill_latency_ms"]),
+                   _fmt(row["batch_exec_ms"]), row["dispatch_host_ms"],
+                   row["device_ms"], row["copy_ms"]))
+    finally:
+        burst.close()
+    log("  the burst session adopted the warm predictor: %d program "
+        "builds" % built)
+    return rows
+
+
+def _fmt(v):
+    return "none" if v is None else "%.3f" % v
+
+
+def cont_swap(mt, att, sess, sym, sym_json, params_a, shapes, seed, card):
+    """23.2: hot-swap to a second seeded weight set while `clients`
+    threads send: no failed request, every answer one version's direct
+    Predictor's (held by digest), none of the old version among requests
+    sent after swap_model returned; then prewarm and a rollback to the
+    first tag with zero program builds."""
+    params_b = lm_params(sym, seed + 1)
+    answers, sent, errors = {}, {}, []
+    flipped = {}
+    stop = threading.Event()
+    rec = ServedBatches(mt)
+
+    def client(idx):
+        rng = np.random.default_rng(seed + 24 + idx)
+        try:
+            for _ in range(CONT["swap_max_requests"]):
+                if stop.is_set():
+                    break
+                x = rng.integers(0, LM["vocab_size"], (1, LM["seq_len"])) \
+                    .astype(np.float32)
+                t = time.perf_counter()
+                fut = sess.predict_async({"data": x})
+                sent[id(fut)] = t
+                answers[id(fut)] = digest(fut.wait(600)[0])
+        except Exception as exc:  # counted as a failed request
+            errors.append(exc)
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(CONT["clients"])]
+        for th in threads:
+            th.start()
+        time.sleep(CONT["swap_settle_s"])
+        info = sess.swap_model(sym_json, params_b, version_tag="lm-b")
+        flipped["t"] = time.perf_counter()
+        time.sleep(CONT["swap_settle_s"])
+        stop.set()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        stop.set()
+        rec.close()
+    if errors:
+        raise AssertionError("%d requests failed across the swap: %r"
+                             % (len(errors), errors[0]))
+    checked, worst = direct_identity(
+        mt, sym_json, {"lm-a": params_a, "lm-b": params_b}, rec.rows,
+        answers)
+    by_version = {}
+    stale = after = 0
+    for row in rec.rows:
+        by_version[row["version"]] = by_version.get(row["version"], 0) + 1
+        for it in row["items"]:
+            if sent[id(it)] > flipped["t"]:
+                after += 1
+                stale += row["version"] == "lm-a"
+    log("  [%s] swap to lm-b under %d clients: %s; %d requests, 0 failed; "
+        "batches by version %s; %d batches held to their version's direct "
+        "Predictor (answers by sha1): max abs err %g; of the %d requests "
+        "sent after swap_model returned, answered by lm-a: %d"
+        % (card, CONT["clients"], info, len(answers), by_version, checked,
+           worst, after, stale))
+    if worst != 0.0 or stale or not after or \
+            set(by_version) != {"lm-a", "lm-b"}:
+        raise AssertionError("swap: err %g, stale %d of %d, versions %s"
+                             % (worst, stale, after, by_version))
+    b0 = mt.compile.pipeline.program_build_count()
+    warmed = mt.serving.prewarm(sym_json, params_a, shapes, BUCKETS,
+                                contexts=[mt.gpu(0)], version_tag="lm-a")
+    back = sess.swap_model(sym_json, params_a, version_tag="lm-a")
+    builds = mt.compile.pipeline.program_build_count() - b0
+    rng = np.random.default_rng(seed + 24)
+    x = rng.integers(0, LM["vocab_size"], (1, LM["seq_len"])) \
+        .astype(np.float32)
+    got = sess.predict({"data": x}, timeout=600)[0]
+    ref = mt.Predictor(sym_json, params_a, ctx=mt.gpu(0),
+                       input_shapes=shapes)
+    ref.forward(data=x)
+    same = np.array_equal(got, ref.get_outputs()[0])
+    log("  prewarm of lm-a warmed %d (bucket, replica) programs; rollback "
+        "%s; program builds across both %d (want 0); the rolled-back "
+        "answer equals lm-a's Predictor: %s; warm_cache_adoptions %d"
+        % (warmed, back, builds, same,
+           sess.metrics.counter("warm_cache_adoptions").value))
+    if builds or not same:
+        raise AssertionError("rollback built %d programs, same %s"
+                             % (builds, same))
+    return dict(info=info, batches_by_version=by_version, max_abs_err=worst,
+                sent_after_swap=after, stale=stale, rollback_builds=builds,
+                prewarmed=warmed)
+
+
+def cont_resnet(mt, epi, seed, card):
+    """23.3: ResNet-50 v2 served continuously: 50 epilogue launches a
+    batch, each bit for bit the plain epilogue on its own inputs."""
+    from mxtpu_torch.ops import nn as nn_ops
+    sym = mt.models.get_resnet(**RESNET)
+    params = resnet_params(sym, seed)
+    shape = (1,) + RESNET["image_shape"]
+    rng = np.random.default_rng(seed + 25)
+    n = CONT["resnet_requests"]
+    requests = [rng.standard_normal(shape, dtype=np.float32)
+                for _ in range(n)]
+    sess = mt.serving.ServingSession(
+        sym.tojson(), params, {"data": shape}, buckets=RESNET_BUCKETS,
+        contexts=[mt.gpu(0)], mode="continuous",
+        max_in_flight=CONT["inflight"], version_tag="resnet-a")
+    real = nn_ops.bn_apply_relu_add
+    worst = []
+
+    def spy(xx, scale, shift, residual=None, block_m=1024, axis=-1,
+            out_dtype=None):
+        y = real(xx, scale, shift, residual, block_m, axis, out_dtype)
+        want = epi.bn_apply_relu_add_reference(xx, scale, shift, residual,
+                                               axis, out_dtype)
+        worst.append(torch.where(y == want, torch.zeros_like(y),
+                                 (y - want).abs().nan_to_num(
+                                     float("inf"))).max())
+        return y
+    answers, errors = [None] * n, []
+
+    def client(idx):
+        try:
+            for r in range(idx, n, CONT["resnet_clients"]):
+                answers[r] = sess.predict({"data": requests[r]},
+                                          timeout=600)[0]
+        except Exception as exc:  # re-raised below
+            errors.append(exc)
+    nn_ops.bn_apply_relu_add = spy
+    try:
+        epi.bn_apply_relu_add.launches = 0  # count the main path alone
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(CONT["resnet_clients"])]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = epi.bn_apply_relu_add.launches
+        batches = sess.metrics.counter("batches_dispatched").value
+    finally:
+        nn_ops.bn_apply_relu_add = real
+        sess.close()
+    if errors:
+        raise errors[0]
+    err = float(torch.stack(worst).max()) if worst else float("inf")
+    finite = all(a is not None and np.isfinite(a).all() for a in answers)
+    log("  [%s] ResNet-50 v2 continuous K=%d at %s: %d requests in %d "
+        "batches (%.3f images/s, the plain epilogue computed beside each "
+        "site); epilogue launches %d (want %d x %d); each site against "
+        "the plain epilogue on its inputs: max abs err %g (want 0); "
+        "answers finite %s"
+        % (card, CONT["inflight"], RESNET_BUCKETS, n, batches, n / wall,
+           launches, RESNET_SITES, batches, err, finite))
+    if launches != RESNET_SITES * batches or len(worst) != launches or \
+            err != 0.0 or not finite:
+        raise AssertionError("ResNet-50 continuous: launches %d, sites "
+                             "seen %d, err %g" % (launches, len(worst),
+                                                  err))
+    return dict(batches=batches, launches=launches, max_abs_err=err)
+
+
+def http_json(method, url, body=None, headers=None, timeout=120):
+    """(status, parsed JSON body) of one request."""
+    import urllib.error
+    import urllib.request
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=dict({"Content-Type":
+                                               "application/json"},
+                                              **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def cont_http(mt, seed, card):
+    """23.4: the HTTP surface on the card (the mlp fixture): an overload
+    past max_queue gets 429s, a deadline 504, a closed session 503;
+    /healthz, /v1/version and /debug/state's three serving panels; an
+    injected kill at serving.replica.collect quarantines and respawns the
+    replica and the session keeps serving."""
+    from mxtpu_torch.models.serving_fixtures import get_fixture
+    sj, params, shapes = get_fixture("mlp", seed=seed)
+    sess = mt.serving.ServingSession(
+        sj, params, shapes, buckets=(1, 4), max_delay_ms=1,
+        max_queue=CONT["max_queue"], contexts=[mt.gpu(0)],
+        version_tag="mlp-http",
+        admission=mt.serving.SignalAdmissionPolicy(
+            queue_wait_budget_ms=1e9))
+    server = mt.serving.ServingHTTPServer(sess, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = server.endpoint
+    x = np.random.default_rng(seed).random((1, 784), dtype=np.float32)
+    post = lambda body: http_json("POST", base + "/v1/predict", body)
+    out = {}
+    gate = threading.Event()
+    try:
+        first = post({"inputs": {"data": x.tolist()}})
+        if first[0] != 200:
+            raise AssertionError("healthy predict: %s" % (first,))
+        # wedge the one worker inside dispatch
+        rep = sess.pool.replicas[0]
+        real = rep.dispatch
+        rep.dispatch = lambda inputs: (gate.wait(30), real(inputs))[1]
+        held = [sess.predict_async({"data": x})]
+        deadline = time.monotonic() + 10
+        while sess.batcher.depth and time.monotonic() < deadline:
+            time.sleep(0.005)
+        # a request whose deadline passes in the wedged queue: 504
+        timed = post({"inputs": {"data": x.tolist()}, "timeout_sec": 0.2})
+        # an overload burst past max_queue: 429s
+        codes = []
+        lock = threading.Lock()
+
+        def burst():
+            c = post({"inputs": {"data": x.tolist()}, "timeout_sec": 20})[0]
+            with lock:
+                codes.append(c)
+        ths = [threading.Thread(target=burst)
+               for _ in range(CONT["overload"])]
+        for th in ths:
+            th.start()
+        deadline = time.monotonic() + 30
+        while len(codes) < CONT["overload"] - CONT["max_queue"] and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        n429 = codes.count(429)
+        gate.set()
+        for th in ths:
+            th.join(timeout=60)
+        for h in held:
+            h.wait(60)
+        rep.dispatch = real
+        out["overload"] = {"sent": CONT["overload"],
+                           "max_queue": CONT["max_queue"],
+                           "429": n429, "200": codes.count(200),
+                           "shed_rate": sess.stats()["shed_rate"]}
+        out["deadline_status"] = timed[0]
+        h = http_json("GET", base + "/healthz")
+        v = http_json("GET", base + "/v1/version")
+        st = http_json("GET", base + "/debug/state")[1]
+        panels = {k: k in st for k in ("serving_admission",
+                                       "serving_version",
+                                       "serving_warm_cache")}
+        # the kill: the worker dies retiring its batch; the replica is
+        # quarantined, rebuilt and re-warmed, and the session serves on
+        q0 = sess.metrics.counter("replica_quarantined").value
+        with mt.faults.scope("serving.replica.collect:kind=kill,times=1"):
+            killed = post({"inputs": {"data": x.tolist()}})
+        deadline = time.monotonic() + CONT["respawn_s"]
+        while time.monotonic() < deadline and (
+                sess.healthy_replicas() < 1 or sess.metrics.counter(
+                    "replica_respawned", labels={"outcome": "ok"}).value
+                < 1):
+            time.sleep(0.05)
+        after = post({"inputs": {"data": x.tolist()}})
+        out["kill"] = {"status": killed[0], "error": killed[1].get("error",
+                                                                   "")[:80],
+                       "quarantined": sess.metrics.counter(
+                           "replica_quarantined").value - q0,
+                       "respawned": sess.metrics.counter(
+                           "replica_respawned",
+                           labels={"outcome": "ok"}).value,
+                       "healthy": sess.healthy_replicas(),
+                       "after_status": after[0]}
+    finally:
+        gate.set()
+        sess.close()
+    closed = post({"inputs": {"data": x.tolist()}})
+    server.shutdown()
+    out.update(healthz=h, version=v[1], panels=panels,
+               closed_status=closed[0])
+    log("  [%s] HTTP on the mlp: %d requests past max_queue %d: %d x 429, "
+        "%d x 200 (shed_rate %.3f); a 0.2 s deadline in the wedged queue: "
+        "%d; /healthz %d %s; /v1/version %s; /debug/state panels %s; a "
+        "kill at serving.replica.collect: %s; after close: %d"
+        % (card, CONT["overload"], CONT["max_queue"], n429,
+           out["overload"]["200"], out["overload"]["shed_rate"],
+           timed[0], h[0], h[1], v[1], panels, out["kill"], closed[0]))
+    k = out["kill"]
+    if n429 < 1 or timed[0] != 504 or h[0] != 200 or not all(
+            panels.values()) or closed[0] != 503 or k["status"] != 500 or \
+            k["quarantined"] != 1 or k["respawned"] < 1 or \
+            k["healthy"] != 1 or k["after_status"] != 200:
+        raise AssertionError("HTTP taxonomy / respawn: %s" % out)
+    return out
+
+
+def phase_continuous(mt, att, epi, seed, card):
+    """Phase 23: A.11's continuous serving on the card (see CONT)."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"lm": cont_lm(mt, att, seed, card)}
+    out["resnet"] = cont_resnet(mt, epi, seed, card)
+    out["http"] = cont_http(mt, seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["bomb_1e39"] = obs_bomb(mt, seed, card,
+                                    os.path.join(tmp, "bomb"), lr=1e39)
+    mt.serving.warm_cache().evict()
+    out["launches"] = {
+        "flash_fwd": {"lm_continuous": out["lm"]["launches"]},
+        "epilogue": {"resnet_continuous": out["resnet"]["launches"]}}
+    out["phase_s"] = time.perf_counter() - t0
+    log("  phase 23 took %.1f s" % out["phase_s"])
+    return out
+
+
+# phase 24, decode (A.11): the paged attention decoder at GPT-2-small's
+# widths (`vocab`, `embed`, `heads` x `head_dim`, `layers`) on a
+# PagedArena of `slots` slots, `blocks_per_seq` blocks of `block` tokens
+# a sequence, step buckets `buckets`, prefill chunks of `chunk` tokens;
+# `requests` requests with prompts in `prompt` and new tokens in `new`,
+# every other one sampled at `temperature`; a `long_prompt`-token prompt
+# joining `decoding` generating sequences; the LSTM LM at config 4's
+# widths (`lstm`) for `lstm_requests` requests
+DECODE = dict(vocab=50257, embed=768, heads=12, head_dim=64, layers=12,
+              block=16, blocks_per_seq=64, slots=8, buckets=(1, 4, 8),
+              chunk=32, requests=16, prompt=(8, 512), new=(32, 64),
+              temperature=0.8, long_prompt=900, long_new=16, decoding=4,
+              decoding_new=64, timeout=600,
+              lstm=dict(vocab_size=10000, num_embed=200, num_hidden=200,
+                        num_layers=2), lstm_requests=8, lstm_new=24)
+
+
+def decode_requests(seed, n, vocab):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(DECODE["prompt"][0],
+                                DECODE["prompt"][1] + 1))
+        out.append(dict(prompt=[int(t) for t in
+                                rng.integers(0, vocab, plen)],
+                        max_new_tokens=int(rng.integers(
+                            DECODE["new"][0], DECODE["new"][1] + 1)),
+                        seed=i, temperature=DECODE["temperature"]
+                        if i % 2 else 0.0))
+    return out
+
+
+def decode_joined(sess, reqs):
+    """Every request from its own thread at once (join and leave churn
+    between steps); the tokens in request order."""
+    res = [None] * len(reqs)
+    errors = []
+
+    def run(i):
+        try:
+            res[i] = sess.generate(timeout=DECODE["timeout"], **reqs[i])
+        except Exception as exc:  # re-raised below
+            errors.append(exc)
+    ths = [threading.Thread(target=run, args=(i,))
+           for i in range(len(reqs))]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=DECODE["timeout"])
+    if errors:
+        raise errors[0]
+    if any(r is None for r in res):
+        raise AssertionError("a generate waiter hung")
+    return [r["tokens"] for r in res]
+
+
+def decode_alone(sess, reqs):
+    return [sess.generate(timeout=DECODE["timeout"], **r)["tokens"]
+            for r in reqs]
+
+
+def decode_leaks(mt, sess, base, label):
+    """The arena's free lists full and the ledger's decode_kv at ``base``."""
+    a = sess.arena
+    live = mt.diagnostics.ledger().live_bytes(origin="decode_kv")
+    ok = a.free_slots == a.capacity and a.blocks_free == a.blocks_total \
+        and live == base
+    if not ok:
+        raise AssertionError("%s leaked: free slots %d/%d, free blocks "
+                             "%d/%d, decode_kv %d B (base %d)"
+                             % (label, a.free_slots, a.capacity,
+                                a.blocks_free, a.blocks_total, live, base))
+    return ok
+
+
+def decode_gpt2(mt, seed, card):
+    """24.1-24.6 and 24.8 on the GPT-2-small-width paged decoder."""
+    from mxtpu_torch.serving.decode import attn_decode_fixture
+    from mxtpu_torch.serving.decode import session as dsession
+    t0 = time.perf_counter()
+    fx = attn_decode_fixture(
+        vocab_size=DECODE["vocab"], num_embed=DECODE["embed"],
+        num_heads=DECODE["heads"], head_dim=DECODE["head_dim"],
+        num_layers=DECODE["layers"], block_size=DECODE["block"],
+        max_blocks_per_seq=DECODE["blocks_per_seq"], seed=seed)
+    made_s = time.perf_counter() - t0
+    led = mt.diagnostics.ledger()
+    base = led.live_bytes(origin="decode_kv")
+    t0 = time.perf_counter()
+    sess = mt.serving.DecodeSession(
+        fx["step_symbol_json"], fx["params"], fx["step_example_shapes"], [],
+        buckets=DECODE["buckets"], slot_capacity=DECODE["slots"],
+        arena="paged", paged=fx, prefill_chunk_tokens=DECODE["chunk"],
+        contexts=[mt.gpu(0)], version_tag="gpt2-decode",
+        max_queue=64)
+    up_s = time.perf_counter() - t0
+    a = sess.arena
+    out = {}
+    # 24.1: the arena's bytes; the ledger's at every block live
+    want = (DECODE["slots"] * DECODE["blocks_per_seq"] * DECODE["block"]
+            * DECODE["heads"] * DECODE["head_dim"] * 4 * 2
+            * DECODE["layers"])
+    slots = [a.allocate() for _ in range(DECODE["slots"])]
+    for s in slots:
+        a.ensure_tokens(s, DECODE["block"] * DECODE["blocks_per_seq"])
+    full = led.live_bytes(origin="decode_kv") - base
+    for s in slots:
+        a.release(s)
+    log("  [%s] paged decoder %s (weights made in %.1f s, session up in "
+        "%.1f s); arena %d B (want %d = %d slots x %d blocks x %d tokens "
+        "x %d heads x %d x 4 B x K,V x %d layers); ledger decode_kv with "
+        "every block live: %d B; after release: %d B over base"
+        % (card, {k: DECODE[k] for k in ("vocab", "embed", "heads",
+                                          "head_dim", "layers")},
+           made_s, up_s, a.state_bytes(), want, DECODE["slots"],
+           DECODE["blocks_per_seq"], DECODE["block"], DECODE["heads"],
+           DECODE["head_dim"], DECODE["layers"], full,
+           led.live_bytes(origin="decode_kv") - base))
+    if a.state_bytes() != want or full != want:
+        raise AssertionError("decode arena bytes %d, ledger %d, want %d"
+                             % (a.state_bytes(), full, want))
+    decode_leaks(mt, sess, base, "the ledger check")
+    out["arena_bytes"] = want
+    # 24.2 (and 24.8): joined equals alone, timed by step bucket
+    step_ms = {}
+    real_step = dsession.DecodeSession._step_chunk_kv
+
+    def timed_step(self, pool, seqs):
+        t = time.perf_counter()
+        real_step(self, pool, seqs)
+        b = mt.serving.pick_bucket(len(seqs), self.buckets)
+        step_ms.setdefault(b, []).append((time.perf_counter() - t) * 1e3)
+    reqs = decode_requests(seed + 30, DECODE["requests"], DECODE["vocab"])
+    dsession.DecodeSession._step_chunk_kv = timed_step
+    try:
+        tok0 = sess.metrics.counter("decode_tokens_total").value
+        t0 = time.perf_counter()
+        joined = decode_joined(sess, reqs)
+        wall = time.perf_counter() - t0
+        tokens = sess.metrics.counter("decode_tokens_total").value - tok0
+        joined_steps = {b: list(v) for b, v in step_ms.items()}
+        alone = decode_alone(sess, reqs)
+    finally:
+        dsession.DecodeSession._step_chunk_kv = real_step
+    pre = sess.metrics.histogram("decode_prefill_chunk_ms")
+    same = joined == alone
+    log("  [%s] %d requests (prompts %d-%d tokens, %d-%d new, greedy and "
+        "T=%g): joined %d tokens in %.2f s (%.1f tokens/s); step ms by "
+        "bucket %s (joined run); prefill chunk ms mean %.3f over %d "
+        "chunks; joined equals alone token for token: %s"
+        % (card, len(reqs), min(len(r["prompt"]) for r in reqs),
+           max(len(r["prompt"]) for r in reqs),
+           min(r["max_new_tokens"] for r in reqs),
+           max(r["max_new_tokens"] for r in reqs), DECODE["temperature"],
+           tokens, wall, tokens / wall,
+           {b: round(float(np.mean(v)), 3) for b, v in
+            sorted(joined_steps.items())}, pre.mean, pre.count, same))
+    if not same:
+        diff = [i for i, (x, y) in enumerate(zip(joined, alone)) if x != y]
+        raise AssertionError("joined != alone for requests %s" % diff)
+    if sess.metrics.counter("decode_prefill_stalls").value:
+        raise AssertionError("chunked prefill stalled decode")
+    decode_leaks(mt, sess, base, "the joined run")
+    out.update(tokens_per_s=tokens / wall, tokens=tokens,
+               step_ms_by_bucket={b: float(np.mean(v))
+                                  for b, v in joined_steps.items()},
+               prefill_chunk_ms=pre.mean, joined_equals_alone=same)
+    # 24.3: NaN in every freed block; no live lane sees it
+    with torch.no_grad():
+        for t in a._arrays:
+            t.fill_(float("nan"))
+    poisoned = decode_joined(sess, reqs[:4])
+    log("  [%s] every block NaN-poisoned while free: the first 4 requests "
+        "again, tokens equal the clean run: %s"
+        % (card, poisoned == joined[:4]))
+    if poisoned != joined[:4]:
+        raise AssertionError("NaN in freed blocks reached a live lane")
+    # 24.4: a long prompt joins while sequences decode
+    stalls0 = sess.metrics.counter("decode_prefill_stalls").value
+    idle0 = sess.metrics.counter(
+        "decode_steps_with_admittable_waiting").value
+    rng = np.random.default_rng(seed + 31)
+    stamps = []
+    items = [sess.generate_async([int(t) for t in rng.integers(
+        0, DECODE["vocab"], 8)], max_new_tokens=DECODE["decoding_new"],
+        timeout=DECODE["timeout"], stream=True)
+        for _ in range(DECODE["decoding"])]
+
+    def drain(item, acc):
+        for ev in item.stream.events(timeout=DECODE["timeout"]):
+            if "token" in ev:
+                acc.append(time.perf_counter())
+    readers = []
+    for it in items:
+        acc = []
+        stamps.append(acc)
+        th = threading.Thread(target=drain, args=(it, acc))
+        th.start()
+        readers.append(th)
+    deadline = time.monotonic() + 60
+    while min(len(s) for s in stamps) < 2 and time.monotonic() < deadline:
+        time.sleep(0.002)
+    t_join = time.perf_counter()
+    chunks0 = sess.metrics.counter("decode_prefill_chunks").value
+    long_item = sess.generate_async(
+        [int(t) for t in rng.integers(0, DECODE["vocab"],
+                                      DECODE["long_prompt"])],
+        max_new_tokens=DECODE["long_new"], timeout=DECODE["timeout"],
+        stream=True)
+    long_first = []
+    lth = threading.Thread(target=drain, args=(long_item, long_first))
+    lth.start()
+    for th in readers + [lth]:
+        th.join(timeout=DECODE["timeout"])
+    for it in items + [long_item]:
+        it.wait(DECODE["timeout"])
+    during = [t for s in stamps for t in s]
+    gaps = [b - a_ for s in stamps for a_, b in zip(s, s[1:])
+            if b > t_join and (not long_first or a_ < long_first[0])]
+    stalls = sess.metrics.counter("decode_prefill_stalls").value - stalls0
+    idle = sess.metrics.counter(
+        "decode_steps_with_admittable_waiting").value - idle0
+    chunks = sess.metrics.counter("decode_prefill_chunks").value - chunks0
+    out["long_prompt"] = dict(
+        max_gap_ms=max(gaps) * 1e3 if gaps else None,
+        chunks=chunks, stalls=stalls,
+        ttft_ms=(long_first[0] - t_join) * 1e3 if long_first else None)
+    log("  [%s] a %d-token prompt joined %d decoding sequences: %d prefill "
+        "chunks, prefill stalls %d (want 0), steps with admittable work "
+        "waiting %d (want 0); longest gap between a decoding sequence's "
+        "tokens while it prefilled %.2f ms over %d gaps; its first token "
+        "%.1f ms after it joined; tokens streamed %d"
+        % (card, DECODE["long_prompt"], DECODE["decoding"], chunks, stalls,
+           idle, out["long_prompt"]["max_gap_ms"] or 0.0, len(gaps),
+           out["long_prompt"]["ttft_ms"] or 0.0, len(during)))
+    if stalls or idle or not gaps:
+        raise AssertionError("long prompt: stalls %d, idle steps %d, gaps "
+                             "%d" % (stalls, idle, len(gaps)))
+    decode_leaks(mt, sess, base, "the long prompt")
+    # 24.5: POST /v1/generate?stream=1
+    server = mt.serving.ServingHTTPServer(None, port=0, decode=sess)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        body = {"prompt": reqs[1]["prompt"][:64], "max_new_tokens": 24,
+                "seed": 5, "temperature": 0.8}
+        import urllib.request
+        req = urllib.request.Request(
+            server.endpoint + "/v1/generate?stream=1",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            ctype = r.headers.get("Content-Type")
+            events = [json.loads(line) for line in
+                      r.read().decode().splitlines() if line.strip()]
+        plain = http_json("POST", server.endpoint + "/v1/generate", body)
+    finally:
+        stop_socket(server)
+    streamed = [e["token"] for e in events if "token" in e]
+    done = events[-1].get("done", {})
+    log("  [%s] POST /v1/generate?stream=1 (%s): %d events, the streamed "
+        "tokens equal the terminal result: %s; the same body without "
+        "stream: %d, tokens equal: %s"
+        % (card, ctype, len(events), streamed == done.get("tokens"),
+           plain[0], plain[1].get("tokens") == streamed))
+    if streamed != done.get("tokens") or plain[0] != 200 or \
+            plain[1].get("tokens") != streamed or len(streamed) != 24:
+        raise AssertionError("stream events %s, result %s" % (events[-1],
+                                                              plain))
+    # 24.6: each serving.decode.* point once through MXTPU_FAULTS
+    faults = {}
+    for point in ("step", "prefill", "block_alloc", "evict"):
+        os.environ["MXTPU_FAULTS"] = "serving.decode.%s:kind=raise," \
+            "times=1" % point
+        mt.faults.configure()
+        try:
+            futs = [sess.generate_async(r["prompt"][:40], max_new_tokens=8,
+                                        timeout=DECODE["timeout"])
+                    for r in reqs[:2]]
+            got = []
+            for f in futs:
+                try:
+                    f.wait(DECODE["timeout"])
+                    got.append("ok")
+                except mt.faults.FaultInjected:
+                    got.append("fault")
+        finally:
+            del os.environ["MXTPU_FAULTS"]
+            mt.faults.configure(False)
+        decode_leaks(mt, sess, base, "fault at serving.decode.%s" % point)
+        faults[point] = got
+    log("  [%s] one fault at each serving.decode.* point through "
+        "MXTPU_FAULTS: %s; free slots %d/%d, free blocks %d/%d, "
+        "decode_kv back at its start after each"
+        % (card, faults, a.free_slots, a.capacity, a.blocks_free,
+           a.blocks_total))
+    if any("fault" not in v for v in faults.values()):
+        raise AssertionError("a fault point did not fire: %s" % faults)
+    out["faults"] = faults
+    sess.close()
+    return out
+
+
+def stop_socket(server):
+    """Stop a ServingHTTPServer's socket without closing its sessions
+    (its own ``shutdown`` drains them)."""
+    from http.server import ThreadingHTTPServer
+    ThreadingHTTPServer.shutdown(server)
+    server.server_close()
+
+
+def decode_lstm(mt, seed, card):
+    """24.7: the LSTM LM's step at config 4's widths on a
+    SequenceSlotArena: joined equals alone."""
+    from mxtpu_torch.serving.decode import lm_decode_fixture
+    sj, params, shapes, names, _ = lm_decode_fixture(seed=seed,
+                                                     **DECODE["lstm"])
+    base = mt.diagnostics.ledger().live_bytes(origin="decode_state")
+    sess = mt.serving.DecodeSession(
+        sj, params, shapes, names, buckets=DECODE["buckets"],
+        slot_capacity=DECODE["slots"], contexts=[mt.gpu(0)],
+        version_tag="lstm-decode")
+    rng = np.random.default_rng(seed + 32)
+    reqs = [dict(prompt=[int(t) for t in rng.integers(
+        0, DECODE["lstm"]["vocab_size"], int(rng.integers(2, 20)))],
+        max_new_tokens=DECODE["lstm_new"], seed=i,
+        temperature=DECODE["temperature"] if i % 2 else 0.0)
+        for i in range(DECODE["lstm_requests"])]
+    try:
+        live = mt.diagnostics.ledger().live_bytes(origin="decode_state") \
+            - base
+        t0 = time.perf_counter()
+        joined = decode_joined(sess, reqs)
+        wall = time.perf_counter() - t0
+        alone = decode_alone(sess, reqs)
+        steps = sess.metrics.histogram("decode_step_ms")
+        state = sess.arena.state_bytes()
+    finally:
+        sess.close()
+    after = mt.diagnostics.ledger().live_bytes(origin="decode_state")
+    log("  [%s] LSTM LM step %s on %d slots (%d B of state; ledger "
+        "decode_state %d B while it served, %d B over its start after "
+        "close): %d requests joined in %.2f s, step ms mean %.3f; joined "
+        "equals alone: %s"
+        % (card, DECODE["lstm"], DECODE["slots"], state, live, after - base,
+           len(reqs), wall, steps.mean, joined == alone))
+    if joined != alone or live != state or after != base:
+        raise AssertionError("LSTM decode: joined == alone %s, ledger %d "
+                             "of %d, %d after close" % (
+                                 joined == alone, live, state,
+                                 after - base))
+    return dict(joined_equals_alone=True, step_ms=steps.mean,
+                state_bytes=state)
+
+
+def phase_decode(mt, seed, card):
+    """Phase 24: A.11's decode session on the card (see DECODE)."""
+    t0 = time.perf_counter()
+    out = {"gpt2": decode_gpt2(mt, seed, card)}
+    out["lstm"] = decode_lstm(mt, seed, card)
+    mt.serving.warm_cache().evict()
+    out["phase_s"] = time.perf_counter() - t0
+    log("  phase 24 took %.1f s" % out["phase_s"])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -11997,6 +12997,15 @@ def main(argv=None):
         results["observability"] = phase_observability(
             mt, att, epi, args.seed, card,
             results.get("surface", {}).get("monitor_step"))
+    # 23. continuous serving: K in flight, hot-swap, admission, HTTP
+    if "continuous" in phases:
+        log("[continuous]")
+        results["continuous"] = phase_continuous(mt, att, epi, args.seed,
+                                                 card)
+    # 24. decode: the paged attention decoder and the LSTM step
+    if "decode" in phases:
+        log("[decode]")
+        results["decode"] = phase_decode(mt, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -12042,6 +13051,7 @@ def main(argv=None):
     cp_epi = {"resnet_predict_layout_bf16": comp["resnet"]["launches"],
               "resnet_predict_quant": comp["quant"]["launches"]}
     obs = results["observability"]["launches"]
+    cont = results["continuous"]["launches"]
     bf16_row = next(r for r in timed if r["dtype"] == "bfloat16"
                     and r["B"] == max(BUCKETS))
     bwd_bf16 = next(r for r in results["backward_timed"]
@@ -12057,7 +13067,8 @@ def main(argv=None):
         "launches": served["launches"] + trained["fwd_launches"]
         + surf_lm["flash_launches"] + sc_served + sc_fwd
         + sum(v[0] for v in cp_lm.values())
-        + sum(obs["flash_fwd"].values()),
+        + sum(obs["flash_fwd"].values())
+        + sum(cont["flash_fwd"].values()),
         "launches_by_path": dict({
             "lm_serving": served["launches"],
             "lm_training": trained["fwd_launches"],
@@ -12065,7 +13076,8 @@ def main(argv=None):
             "lm_serving_telemetry": sc_served,
             "lm_training_tuned": sc_fwd,
             "lm_training_compile_f32": cp_lm["f32"][0],
-            "lm_training_bf16": cp_lm["bf16"][0]}, **obs["flash_fwd"]),
+            "lm_training_bf16": cp_lm["bf16"][0]}, **obs["flash_fwd"],
+            **cont["flash_fwd"]),
         "bf16": times(bf16_row, "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": main_row["max_abs_err"],
@@ -12081,7 +13093,8 @@ def main(argv=None):
         + sum(rec_launches["epilogue"].values())
         + sum(front_launches.values()) + sum(zoo_launches.values())
         + sum(rcnn_launches["epilogue"].values()) + sum(cp_epi.values())
-        + sum(obs["epilogue"].values()),
+        + sum(obs["epilogue"].values())
+        + sum(cont["epilogue"].values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
@@ -12091,7 +13104,8 @@ def main(argv=None):
                                  **dict(rec_launches["epilogue"],
                                         **front_launches, **zoo_launches,
                                         **rcnn_launches["epilogue"],
-                                        **cp_epi, **obs["epilogue"])),
+                                        **cp_epi, **obs["epilogue"],
+                                        **cont["epilogue"])),
         "bf16_rows": times(epi_timed[6], "shape", "axis", "max_abs_err",
                            "ms", "plain_ms", "bound_ms", "bound_by"),
         "bf16_to_f32_rows": times(epi_timed[7], "shape", "axis",

@@ -132,10 +132,6 @@ POINTS = {
 UNREACHED = {
     "elastic.snapshot.write": "A.12 (elastic)",
     "elastic.snapshot.fsync_rename": "A.12 (elastic)",
-    "serving.decode.step": "A.11 (the rest of serving)",
-    "serving.decode.evict": "A.11 (the rest of serving)",
-    "serving.decode.prefill": "A.11 (the rest of serving)",
-    "serving.decode.block_alloc": "A.11 (the rest of serving)",
 }
 
 _KINDS = ("raise", "errno", "latency", "kill")

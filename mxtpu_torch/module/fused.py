@@ -63,15 +63,27 @@ def _f32_zeros(w):
     return torch.zeros(w.shape, dtype=torch.float32, device=w.device)
 
 
+def _f32(x):
+    """A scalar hyperparameter rounded to float32 on the host, ±inf past
+    the range, as mxtpu's f32 arithmetic gives: a CUDA foreach kernel
+    raises on a scalar that overflows its f32 operand."""
+    with np.errstate(over="ignore"):
+        return float(np.float32(x))
+
+
+def _f32s(xs):
+    return [_f32(x) for x in xs]
+
+
 def _prep_each(o, ws, gs, wds):
     """``optimizer._prep`` over lists: each gradient rescaled, clipped
     (when set), plus its parameter's wd times its weight."""
-    clip = o.clip_gradient or -1.0
-    g = torch._foreach_mul(gs, o.rescale_grad)
+    clip = _f32(o.clip_gradient or -1.0)
+    g = torch._foreach_mul(gs, _f32(o.rescale_grad))
     if clip > 0:
         torch._foreach_clamp_min_(g, -clip)
         torch._foreach_clamp_max_(g, clip)
-    torch._foreach_add_(g, torch._foreach_mul(ws, wds))
+    torch._foreach_add_(g, torch._foreach_mul(ws, _f32s(wds)))
     return g
 
 
@@ -95,11 +107,11 @@ def _rule_sgd(o):
 
     def over_lists(ps, gs, ss, lrs, wds):
         g = _prep_each(o, ps, gs, wds)
-        torch._foreach_mul_(g, lrs)
+        torch._foreach_mul_(g, _f32s(lrs))
         if not mom:
             torch._foreach_sub_(ps, g)
             return
-        torch._foreach_mul_(ss, mom)
+        torch._foreach_mul_(ss, _f32(mom))
         torch._foreach_sub_(ss, g)
         torch._foreach_add_(ps, ss)
 
@@ -129,15 +141,15 @@ def _rule_adam(o):
         g = _prep_each(o, ps, gs, wds)
         means = [s[0] for s in ss]
         varis = [s[1] for s in ss]
-        torch._foreach_mul_(means, o.beta1)
-        torch._foreach_add_(means, torch._foreach_mul(g, 1 - o.beta1))
+        torch._foreach_mul_(means, _f32(o.beta1))
+        torch._foreach_add_(means, torch._foreach_mul(g, _f32(1 - o.beta1)))
         torch._foreach_mul_(g, g)
-        torch._foreach_mul_(g, 1 - o.beta2)
-        torch._foreach_mul_(varis, o.beta2)
+        torch._foreach_mul_(g, _f32(1 - o.beta2))
+        torch._foreach_mul_(varis, _f32(o.beta2))
         torch._foreach_add_(varis, g)
         denom = torch._foreach_sqrt(varis)
-        torch._foreach_add_(denom, o.epsilon)
-        step = torch._foreach_mul(means, lrs)
+        torch._foreach_add_(denom, _f32(o.epsilon))
+        step = torch._foreach_mul(means, _f32s(lrs))
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(ps, step)
 

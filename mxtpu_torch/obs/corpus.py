@@ -19,9 +19,10 @@ Schema (version :data:`SCHEMA_VERSION`, one JSON object per line):
     — the *config* half of a config→measurement pair;
   * **service rows** (``"row": "service"``) — appended at the
     measurement seams: serving batch retire (``source: "serving"``,
-    keyed by ``bucket``) and the fit step loop (``"fit_step"``, keyed
-    by ``rows``), each with measured ``ms`` — the *measurement* half
-    (mxtpu's decode rows come with the decode session, ROADMAP A.11);
+    keyed by ``bucket``), the fit step loop (``"fit_step"``, keyed by
+    ``rows``) and the decode session (``"decode_step"``,
+    ``"decode_prefill"`` and ``"decode_request"``, keyed by ``rows``),
+    each with measured ``ms`` — the *measurement* half;
   * **calibration rows** (``"row": "calib"``) — appended by
     ``compile.quant.persist_calibration``: one complete snapshot of
     the int8 activation-calibration stats (per-node count / abs-max /

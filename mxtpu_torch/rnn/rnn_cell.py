@@ -79,6 +79,28 @@ class BaseRNNCell(object):
     def state_shape(self):
         return [ele["shape"] for ele in self.state_info]
 
+    def state_spec(self, batch_size, dtype="float32"):
+        """Per-state ``{"name", "shape", "dtype"}`` specs at ``batch_size``
+        (the batch wildcard 0 resolved), as mxtpu's (rnn_cell.py:74): what
+        the decode arenas size their device state from."""
+        specs = []
+        for i, info in enumerate(self.state_info):
+            if info is None or "shape" not in info:
+                raise MXNetError(
+                    "%s.state_spec: state %d has no declared shape"
+                    % (type(self).__name__, i))
+            shape = tuple(int(batch_size) if d == 0 else int(d)
+                          for d in info["shape"])
+            specs.append({"name": "%sstate_%d" % (self._prefix, i),
+                          "shape": shape, "dtype": dtype})
+        return specs
+
+    def begin_state_arrays(self, batch_size, dtype="float32"):
+        """Zero numpy state arrays shaped by :meth:`state_spec`."""
+        import numpy as _np
+        return [_np.zeros(s["shape"], dtype=s["dtype"])
+                for s in self.state_spec(batch_size, dtype=dtype)]
+
     @property
     def _gate_names(self):
         return ("",)

@@ -1,7 +1,9 @@
 """Dynamic batcher: coalesce single-example requests into bucketed batches.
 
-Counterpart of ``mxtpu/serving/batcher.py`` (:40-364): ``pick_bucket``,
-``pad_rows``, ``WorkItem``, ``Batch`` and the burst ``DynamicBatcher``.
+Counterpart of ``mxtpu/serving/batcher.py``: ``pick_bucket``,
+``pad_rows``, ``WorkItem``, ``Batch``, the burst ``DynamicBatcher`` and
+the ``ContinuousBatcher`` (:366-421) that feeds K-in-flight dispatch
+at its refill watermark.
 Requests coalesce into a small fixed set of bucket sizes, short batches
 are padded with zero rows, and a deadline (``max_delay_ms``) bounds the
 latency donated to coalescing. The queue is bounded: ``submit`` on a full
@@ -25,7 +27,7 @@ from ..base import MXNetError
 from ..telemetry import current_span as _current_span
 
 __all__ = ["QueueFull", "BatcherClosed", "WorkItem", "Batch",
-           "DynamicBatcher", "pad_rows", "pick_bucket"]
+           "DynamicBatcher", "ContinuousBatcher", "pad_rows", "pick_bucket"]
 
 
 class QueueFull(MXNetError):
@@ -102,6 +104,9 @@ class Batch:
             rows = _np.concatenate([_np.asarray(it.inputs[name])
                                     for it in items], axis=0)
             self.inputs[name] = pad_rows(rows, bucket)
+        # why the batcher released this batch (full/watermark/deadline/
+        # drain), stamped per batch: N dispatchers share one batcher
+        self.flush_reason = None
 
     def finish(self, outputs):
         """Slice output rows back to their items and complete them."""
@@ -128,7 +133,7 @@ class DynamicBatcher:
 
     def __init__(self, input_names, buckets=(1, 8, 32, 128),
                  max_delay_ms=5.0, max_queue=256, metrics=None,
-                 example_shapes=None):
+                 linger_ms=None, example_shapes=None):
         if not buckets:
             raise MXNetError("DynamicBatcher needs at least one bucket")
         self.input_names = list(input_names)
@@ -136,7 +141,10 @@ class DynamicBatcher:
                                (example_shapes or {}).items()}
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.max_delay = max_delay_ms / 1000.0
-        self.linger = self.max_delay / 4.0
+        # arrival-quiescence linger: a deadline flush waits for a
+        # streaming wave to pause (hard cap 2x max_delay)
+        self.linger = (linger_ms / 1000.0) if linger_ms is not None \
+            else self.max_delay / 4.0
         self.max_queue = max_queue
         self._items = []
         self._pending_rows = 0
@@ -145,6 +153,7 @@ class DynamicBatcher:
         self._not_empty = _conc.condition(self._lock)
         self._closed = False
         self._metrics = metrics
+        self._last_flush_reason = None
 
     # ---------------------------------------------------------- producer
     def submit(self, inputs, timeout=None):
@@ -198,6 +207,11 @@ class DynamicBatcher:
     def closed(self):
         return self._closed
 
+    @property
+    def pending_rows(self):
+        """Examples waiting in the queue (admission-control signal)."""
+        return self._pending_rows
+
     # ---------------------------------------------------------- consumer
     def _reap_expired(self, now):
         """Fail timed-out items in place (caller holds the lock)."""
@@ -231,20 +245,33 @@ class DynamicBatcher:
         ITS items and the wait resumes."""
         deadline = time.monotonic() + timeout if timeout is not None \
             else None
+        return self._next(deadline)
+
+    def _next(self, deadline, ready_rows=None, use_linger=True):
+        """The wait/assemble/fail loop behind ``next_batch`` and the
+        continuous batcher's ``next_fill``."""
         while True:
-            got = self._form_batch(deadline)
+            got = self._form_batch(deadline, ready_rows=ready_rows,
+                                   use_linger=use_linger)
             if got is None:
                 return None
-            take, rows = got
+            take, rows, reason = got
             try:
-                return self._assemble(take, rows)
+                batch = self._assemble(take, rows)
+                batch.flush_reason = reason
+                return batch
             except (ValueError, TypeError, MXNetError) as exc:
                 for it in take:
                     it.fail(MXNetError("batch assembly failed: %r" % exc))
                 if self._metrics:
                     self._metrics.counter("requests_failed").inc(len(take))
 
-    def _form_batch(self, deadline):
+    def _form_batch(self, deadline, ready_rows=None, use_linger=True):
+        """Wait for and dequeue a batch-worth of items; None on idle
+        timeout or drain-complete, else ``(items, rows, reason)``.
+        ``ready_rows`` lowers the immediate-flush threshold below the
+        largest bucket (the refill watermark); ``use_linger=False``
+        flushes at exactly ``max_delay``."""
         target = self.buckets[-1]
         with self._lock:
             while True:
@@ -254,13 +281,19 @@ class DynamicBatcher:
                     age = now - self._items[0].t_enqueue
                     since_arrival = now - self._last_enqueue
                     full = self._pending_rows >= target
+                    ready = ready_rows is not None \
+                        and self._pending_rows >= ready_rows
                     due = age >= self.max_delay and (
-                        since_arrival >= self.linger
+                        not use_linger or since_arrival >= self.linger
                         or age >= 2 * self.max_delay)
-                    if full or due or self._closed:
+                    if full or ready or due or self._closed:
                         take, rows = self._take_locked()
                         if take:
-                            return take, rows
+                            reason = ("full" if full else
+                                      "watermark" if ready else
+                                      "deadline" if due else "drain")
+                            self._last_flush_reason = reason
+                            return take, rows, reason
                         continue
                     if age < self.max_delay:
                         wait = self.max_delay - age
@@ -303,3 +336,40 @@ class DynamicBatcher:
         with self._lock:
             self._closed = True
             self._not_empty.notify_all()
+
+
+class ContinuousBatcher(DynamicBatcher):
+    """DynamicBatcher for slot-driven (K-in-flight) consumers.
+
+    The moment a device slot frees, dispatching something beats waiting:
+    ``next_fill`` releases a batch as soon as pending rows reach the
+    **refill watermark** (no deadline wait), and when the deadline does
+    fire it skips the arrival-quiescence linger. With ``hungry=False``
+    (every slot occupied) it behaves exactly like the burst batcher. The
+    watermark is the ``serving.refill_watermark`` knob; ``next_fill``
+    re-reads it per call, so the online controller may move it live."""
+
+    def __init__(self, input_names, refill_watermark=None, **kwargs):
+        super().__init__(input_names, **kwargs)
+        if refill_watermark is None:
+            # a quarter of the largest bucket
+            refill_watermark = self.buckets[-1] // 4
+        self.refill_watermark = max(1, min(int(refill_watermark),
+                                           self.buckets[-1]))
+
+    def next_fill(self, timeout=None, hungry=True):
+        """``next_batch`` for a consumer with a free device slot: flush at
+        the refill watermark, never linger. ``timeout=0`` polls without
+        blocking. None on timeout or drain-complete."""
+        deadline = time.monotonic() + timeout if timeout is not None \
+            else None
+        return self._next(deadline,
+                          ready_rows=self.refill_watermark if hungry
+                          else None,
+                          use_linger=not hungry)
+
+    @property
+    def last_flush_reason(self):
+        """Most recent flush reason (single-consumer convenience; a
+        multi-worker consumer reads ``batch.flush_reason``)."""
+        return self._last_flush_reason

@@ -49,6 +49,10 @@ def _fmt(v):
         return "+Inf"
     if v == float("-inf"):
         return "-Inf"
+    if v != v:
+        # the text format's NaN (a diverged fit's health gauges): mxtpu's
+        # exposition raises on it and fails the whole scrape
+        return "NaN"
     if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
         return str(int(v))
     return repr(v) if isinstance(v, float) else str(v)

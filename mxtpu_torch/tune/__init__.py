@@ -20,8 +20,10 @@ Counterpart of ``mxtpu/tune``:
   (``python -m mxtpu_torch.tune search``): model-ranked candidates, the
   top-K measured with short probes on the card.
 * :mod:`~mxtpu_torch.tune.online` — **online refinement**: a cadence
-  controller nudging the bounded knobs (fit's in-flight window) inside
-  their certified ranges, every move in ``tune_adjustments{knob}``.
+  controller nudging the bounded knobs (fit's in-flight window, a
+  serving session's in-flight depth, refill watermark and admission
+  budget) inside their certified ranges, every move in
+  ``tune_adjustments{knob}``.
 
 mxtpu's ``sweep`` re-runs ``bench.py`` with ``XLA_FLAGS`` combinations;
 the port has no benchmark of its own yet, so its names raise

@@ -3,8 +3,8 @@
 Counterpart of ``mxtpu/tune/online.py``: the same rules, in the same
 order, so the same signals make the same adjustments. The port's fit
 binds its in-flight window (``fit.max_in_flight``); a serving session
-binds the knobs it has (the burst-mode session of this port has no
-in-flight depth or refill watermark yet: ROADMAP A.11).
+binds its in-flight depth, its batcher's refill watermark and its
+admission budget.
 
 The offline search picks a config from probe evidence; production
 traffic then drifts — the request mix shifts, the host gets noisy
@@ -129,14 +129,13 @@ class OnlineController:
                     del self._bound[name]
 
     def bind_session(self, session):
-        """Bind a serving session's live knobs that it has: in-flight
-        depth, the batcher's refill watermark, and — when an admission
-        policy is installed — its queue-wait budget."""
+        """Bind a serving session's live knobs: in-flight depth (workers
+        re-read it every loop), the batcher's refill watermark, and, when
+        an admission policy is installed, its queue-wait budget."""
         self._session = session
-        if hasattr(session, "max_in_flight"):
-            self.bind("serving.max_in_flight",
-                      lambda: session.max_in_flight,
-                      lambda v: setattr(session, "max_in_flight", int(v)))
+        self.bind("serving.max_in_flight",
+                  lambda: session.max_in_flight,
+                  lambda v: setattr(session, "max_in_flight", int(v)))
         batcher = session.batcher
         if hasattr(batcher, "refill_watermark"):
             self.bind("serving.refill_watermark",
@@ -179,8 +178,9 @@ class OnlineController:
             sig["batch_services"] = delta("batch_services", svc.count)
             sig["batch_service_p99_ms"] = svc.percentile(99)
             sig["queue_depth"] = sess.batcher.depth
-            sig["sheds"] = delta("sheds",
-                                 m.counter("requests_shed").value)
+            # every labeled requests_shed{reason=} series, summed; the
+            # read creates no unlabeled series
+            sig["sheds"] = delta("sheds", m._sum_counters("requests_shed"))
         budget = getattr(sess, "_mem_budget", None) if sess else None
         if budget:
             sig["mem_headroom_frac"] = max(

@@ -54,17 +54,24 @@ log = logging.getLogger("mxtpu_torch.tune")
 PORTED = frozenset(("fit.max_in_flight", "fit.metric_sync",
                     "fit.device_metrics", "fit.device_prefetch",
                     "fit.batch_size", "health.cadence", "health.window",
-                    "health.spike_k", "serving.min_mem_headroom",
-                    "fit.remat", "compile.pipeline",
+                    "health.spike_k", "fit.remat", "compile.pipeline",
                     "compile.fuse_opt_max_kb", "compile.remat_threshold",
                     "quant.calibration_percentile", "quant.per_channel",
-                    "quant.min_layer_elems"))
+                    "quant.min_layer_elems",
+                    "serving.max_in_flight", "serving.refill_watermark",
+                    "serving.max_queue", "serving.max_delay_ms",
+                    "serving.queue_wait_budget_ms",
+                    "serving.watchdog_shed_s", "serving.min_mem_headroom",
+                    "serving.queue_frac_shed", "serving.degrade_frac",
+                    "serving.mem_budget_bytes", "serving.warm_versions",
+                    "decode.slot_capacity", "decode.max_new_tokens_default",
+                    "decode.join_watermark", "decode.block_size",
+                    "decode.max_blocks_per_seq",
+                    "decode.prefill_chunk_tokens"))
 
 #: where each unread knob's reader comes in (ROADMAP section A), by
 #: name or by subsystem prefix
 _READ_LATER = (
-    ("serving.", "A.11 (the rest of serving)"),
-    ("decode.", "A.11 (the rest of serving)"),
     ("elastic.", "A.12 (elastic)"),
 )
 

@@ -3,12 +3,9 @@
 Counterpart of ``mxtpu/tune/searcher.py``: the ranking
 (:func:`search_from_rows`) is mxtpu's, verbatim, and the probes run the
 port's fixtures on the device given (``ctx``, default ``gpu(0)``; pass
-``cpu()`` on the host). Deltas: the port's serving session is mxtpu's
-burst mode (its continuous in-flight dispatch and refill watermark come
-with ROADMAP A.11), so :func:`probe_serving` measures that session —
-the per-bucket warm ms that seed the cost model, the batches formed —
-and the serving knobs of the winner are chosen on those counts but
-applied by no port session yet.
+``cpu()`` on the host). :func:`probe_serving` measures the continuous
+session at the candidate's in-flight depth and refill watermark, as
+mxtpu's does.
 
 The search implements the two-stage scheme of PAPERS "Learning to
 Optimize Tensor Programs": a cheap model RANKS the whole candidate
@@ -214,10 +211,10 @@ def probe_fit(cand, steps=16, batch=None, seed=0, ctx=None):
 def probe_serving(cand, fixture="mlp", buckets=(1, 8), n_requests=48,
                   wave=6, seed=0, ctx=None):
     """Measure one serving candidate: a deterministic burst of
-    single-row requests through the port's burst-mode session on
-    ``ctx``, returning the batches formed, the fill ratio and the warm
-    per-bucket ms (the candidate's in-flight depth and watermark have no
-    reader here yet: ROADMAP A.11)."""
+    single-row requests through a continuous session on ``ctx`` at the
+    candidate's in-flight depth and refill watermark, returning batch
+    formation / refill / idle-gap counts, the fill ratio and the warm
+    per-bucket cost rows."""
     import numpy as _np
     from ..models.serving_fixtures import get_fixture
     from ..serving import ServingSession
@@ -228,7 +225,10 @@ def probe_serving(cand, fixture="mlp", buckets=(1, 8), n_requests=48,
                 for _ in range(wave)]
     sess = ServingSession(
         sym_json, params, shapes, buckets=buckets, max_delay_ms=2.0,
-        warmup=True, contexts=[_context(ctx)])
+        mode="continuous", warmup=True, tuned=False,
+        max_in_flight=cand["serving.max_in_flight"],
+        refill_watermark=cand["serving.refill_watermark"],
+        contexts=[_context(ctx)])
     try:
         items = []
         for i in range(n_requests):
@@ -240,7 +240,9 @@ def probe_serving(cand, fixture="mlp", buckets=(1, 8), n_requests=48,
         for it in items:
             it.wait(30)
         m = sess.metrics
-        formed = m.counter("batches_dispatched").value
+        formed = m.counter("batches_formed").value
+        refilled = m.counter("batches_refilled").value
+        gaps = m.histogram("dispatch_idle_gap_ms")
         valid = m.counter("batch_rows_valid").value
         padded = m.counter("batch_rows_padded").value
         costs = sess.pool.bucket_costs()
@@ -249,9 +251,11 @@ def probe_serving(cand, fixture="mlp", buckets=(1, 8), n_requests=48,
     total = valid + padded
     return {"candidate": dict(cand),
             "batches_formed": int(formed),
+            "batches_refilled": int(refilled),
+            "idle_gaps": gaps.count,
+            "idle_gap_mean_ms": round(gaps.mean, 3),
             "batch_fill_ratio": round(valid / total, 4) if total else 0.0,
-            "bucket_costs": {str(b): {"exec_ms": ms}
-                             for b, ms in costs.items()}}
+            "bucket_costs": {str(b): c for b, c in costs.items()}}
 
 
 # ------------------------------------------------------------------- search

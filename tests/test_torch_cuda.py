@@ -3263,3 +3263,198 @@ def test_watchdog_fires_on_a_cuda_event_wait_held_by_latency(cuda):
     pm = fired[0]
     assert "device_wait" in pm["reason"] and pm["source"] == "watchdog"
     assert {"flight", "engine", "ledger"} <= set(pm)
+
+
+# ----------------------------------------------------------- A.11, C.22
+def _overflow_fit(mt, ctx, opt, knob):
+    """The mlp fit with ``knob`` at 1e39 (past f32) on ``ctx``: its
+    weights and health anomalies."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    x = rng.rand(128, 784).astype("float32")
+    y = rng.randint(0, 10, 128).astype("float32")
+    sym = mt.models.get_mlp(10)
+    arg_shapes, _, _ = sym.infer_shape(data=(64, 784),
+                                       softmax_label=(64,))
+    wr = np.random.RandomState(3)
+    w = {n: (wr.randn(*s) * 0.05).astype("float32")
+         for n, s in zip(sym.list_arguments(), arg_shapes)
+         if n not in ("data", "softmax_label")}
+    params = {"learning_rate": 0.05, knob: 1e39}
+    if opt == "sgd":
+        params["momentum"] = 0.9
+    mod = mt.mod.Module(sym, context=ctx)
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=64), num_epoch=1,
+            optimizer=opt, optimizer_params=params,
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in w.items()},
+            metric_sync=1, health=True)
+    return ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            mt.obs.health.panel()["anomalies"])
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+@pytest.mark.parametrize("knob", ["learning_rate", "wd", "rescale_grad"])
+def test_hyperparameter_past_f32_fits_on_the_card(cuda, opt, knob):
+    """C.22: an lr, wd or rescale_grad of 1e39 fits on gpu(0) with no
+    error (the fused update rounds the scalar to f32 on the host, inf,
+    before the foreach call), nonfinite where the CPU fit is, with the
+    CPU fit's health findings."""
+    import numpy as np
+    import mxtpu_torch as mt
+    gw, gfind = _overflow_fit(mt, mt.gpu(0), opt, knob)
+    cw, cfind = _overflow_fit(mt, mt.cpu(), opt, knob)
+    assert gfind == cfind and "divergence" in gfind
+    for k, a in gw.items():
+        assert np.array_equal(np.isfinite(a), np.isfinite(cw[k])), k
+
+
+def _mlp_fixture(mt):
+    from mxtpu_torch.models.serving_fixtures import get_fixture
+    return get_fixture("mlp")
+
+
+def test_continuous_k2_byte_identical_to_a_direct_predictor(cuda):
+    """K=2 in flight on gpu(0): 24 clients, every answer bit for bit a
+    direct Predictor's on the card at one of the buckets; the answers
+    are the batches' own pinned tensors (no later batch writes under
+    them: each answer still equals its reference after all 24)."""
+    import threading
+    import numpy as np
+    import mxtpu_torch as mt
+    sj, params, shapes = _mlp_fixture(mt)
+    buckets = (1, 8)
+    refs = {b: mt.Predictor(sj, dict(params), ctx=mt.gpu(0),
+                            input_shapes={"data": (b, 784)})
+            for b in buckets}
+
+    def direct(x, b):
+        refs[b].forward(data=mt.serving.pad_rows(x, b))
+        return refs[b].get_outputs()[0][:1]
+
+    results, errors = {}, []
+    with mt.serving.ServingSession(sj, params, shapes, buckets=buckets,
+                                   max_delay_ms=3, contexts=[mt.gpu(0)],
+                                   max_in_flight=2,
+                                   version_tag="card-k2") as sess:
+        def client(i):
+            x = np.random.RandomState(i).rand(1, 784).astype(np.float32)
+            try:
+                results[i] = (x, sess.predict({"data": x}, timeout=60)[0])
+            except Exception as exc:
+                errors.append(exc)
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(24)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not errors and len(results) == 24
+        assert sess.stats()["batches_dispatched"] >= 3
+    for i, (x, out) in results.items():
+        assert any(np.array_equal(out, direct(x, b)) for b in buckets), i
+
+
+def test_padded_arena_scatter_leaves_live_slots(cuda):
+    """A scatter with pad rows (the out-of-range index) on CUDA tensors
+    raises nothing (no device-side assert) and leaves every live slot
+    unchanged; a gather with out-of-range pad indices neither; the CUDA
+    context stays usable."""
+    torch, _att = cuda
+    import numpy as np
+    import mxtpu_torch as mt
+    specs = [{"name": "h", "shape": (1, 3), "dtype": "float32"}]
+    a = mt.serving.SequenceSlotArena(4, specs, ctx=mt.gpu(0))
+    rows = np.arange(12, dtype=np.float32).reshape(4, 3)
+    a.scatter(np.array([0, 1, 2, 3], np.int32), [rows])
+    a.scatter(np.array([4, 2, 4, 4], np.int32),
+              [np.full((4, 3), -7, np.float32)])
+    got = a.gather(np.array([0, 1, 2, 3, 4, 9], np.int32),
+                   np.array([0, 0, 0, 0, 1, 1], np.float32))[0]
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    want = rows.copy()
+    want[2] = -7
+    np.testing.assert_array_equal(got[:4], want)
+    assert not got[4:].any()
+    a.close()
+    p = mt.serving.PagedArena(2, 2, 4, 2, [{"name": "k", "shape": (3,),
+                                            "dtype": "float32"}],
+                              ctx=mt.gpu(0))
+    s0 = p.allocate()
+    p.ensure_tokens(s0, 3)
+    flat = [p.flat_index(s0, i) for i in range(3)]
+    p.scatter_rows(np.array(flat + [p.pad_flat_index], np.int32),
+                   [np.arange(12, dtype=np.float32).reshape(4, 3)])
+    view = p.gather_view([s0, None])[0]
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        view[0].reshape(-1, 3)[:3].cpu().numpy(),
+        np.arange(9, dtype=np.float32).reshape(3, 3))
+    assert float(torch.ones(1, device="cuda").sum()) == 1.0
+    p.close()
+
+
+def test_paged_nan_gate_on_the_card(cuda):
+    """NaN in every block of a card's KV pool: the kv session's tokens on
+    gpu(0) are the clean run's."""
+    torch, _att = cuda
+    import mxtpu_torch as mt
+    fx = mt.serving.decode.attn_decode_fixture(seed=0)
+    reqs = [([1, 2, 3, 4, 5], 4, 0, 0.0), ([3, 1], 4, 1, 0.5)]
+
+    def run(poison):
+        with mt.serving.DecodeSession(
+                fx["step_symbol_json"], fx["params"],
+                fx["step_example_shapes"], [], buckets=(2,),
+                slot_capacity=2, prefill_chunk_tokens=2,
+                prefill_buckets=(2,), arena="paged", paged=fx,
+                contexts=[mt.gpu(0)], version_tag="card-nan") as sess:
+            if poison:
+                for t in sess.arena._arrays:
+                    t.fill_(float("nan"))
+            return [sess.generate(p, max_new_tokens=m, seed=s,
+                                  temperature=t, timeout=60)["tokens"]
+                    for p, m, s, t in reqs]
+    assert run(True) == run(False)
+
+
+def test_swap_with_batches_in_flight_answers_from_the_old_weights(cuda):
+    """Batches already dispatched on the old pool when swap_model flips
+    answer from the old weights on gpu(0); the next ones from the new."""
+    import threading
+    import numpy as np
+    import mxtpu_torch as mt
+    sj, params_a, shapes = _mlp_fixture(mt)
+    params_b = {k: v + np.float32(0.25) for k, v in params_a.items()}
+    ref = {t: mt.Predictor(sj, dict(p), ctx=mt.gpu(0),
+                           input_shapes={"data": (1, 784)})
+           for t, p in (("a", params_a), ("b", params_b))}
+    x = np.random.RandomState(0).rand(1, 784).astype(np.float32)
+
+    def direct(t):
+        ref[t].forward(data=x)
+        return ref[t].get_outputs()[0]
+
+    sess = mt.serving.ServingSession(sj, params_a, shapes, buckets=(1,),
+                                     max_delay_ms=1, contexts=[mt.gpu(0)],
+                                     max_in_flight=2,
+                                     version_tag="card-swap-a")
+    try:
+        rep = sess.pool.replicas[0]
+        real, gate = rep.collect, threading.Event()
+        rep.collect = lambda h: (gate.wait(30), real(h))[1]
+        old = [sess.predict_async({"data": x}) for _ in range(2)]
+        deadline = threading.Event()
+        for _ in range(500):
+            if sum(sess._inflight_n) == 2:
+                break
+            deadline.wait(0.01)
+        assert sum(sess._inflight_n) == 2
+        sess.swap_model(sj, params_b, version_tag="card-swap-b")
+        gate.set()
+        for f in old:
+            assert np.array_equal(f.wait(60)[0], direct("a"))
+        assert np.array_equal(sess.predict({"data": x}, timeout=60)[0],
+                              direct("b"))
+    finally:
+        sess.close()

@@ -45,10 +45,9 @@ def mt():
 #: the keys of mxtpu's debug_state the port does not give on the CPU, and
 #: why: reconcile needs a CUDA allocator (pinned CPU delta)
 CPU_STATE_DELTA = {"reconcile"}
-#: mxtpu's /debug/state panels of serving subsystems the port has not
-#: yet (ROADMAP A.11): admission, hot-swap versions, the warm cache
-SERVING_DELTA = {"serving_admission", "serving_version",
-                 "serving_warm_cache"}
+#: mxtpu's /debug/state panels of serving subsystems the port has not:
+#: none (admission, hot-swap versions and the warm cache are ported)
+SERVING_DELTA = set()
 
 
 def _mlp_fit(pk, sym):
@@ -321,12 +320,15 @@ def _serve(pk, **kw):
 
 
 def test_debug_state_route_keys_are_mxtpus(mt):
-    """The port's /debug/state has mxtpu's keys, less the pinned deltas
-    (CPU reconcile; A.11's serving panels), with the serving pool's
+    """The port's /debug/state has mxtpu's keys, less the pinned delta
+    (CPU reconcile), the serving panels included, with the serving pool's
     ledger origin; /debug/trace is a Chrome trace holding the requests'
     spans; the stdlib mxtpu_top renders the port's server."""
     import subprocess
     import sys
+    # the span ring: a test earlier in this process may have unhooked it
+    # (``tracing.set_span_sink(None)``)
+    mt.obs.trace.install()
     srv, mine, trace = _serve(mt, contexts=[mt.cpu()])
     try:
         top = subprocess.run([sys.executable, "tools/mxtpu_top.py", "--once",

@@ -370,3 +370,56 @@ def test_health_without_a_fused_step_is_disarmed(mt):
     mod.fit(mt.io.NDArrayIter(x, y, 32), num_epoch=1, optimizer="nadam",
             health=True)
     assert mod._fused is None and mod._health_session is None
+
+
+# ------------------------------------------------ hyperparameters past f32
+def _drop_nonfinite_health_gauges(reg):
+    """Remove the ``train_health`` gauges a diverged fit left nonfinite
+    from a process-wide registry: mxtpu's Prometheus exposition raises on
+    a NaN reading, which would fail a later test's scrape in this
+    process."""
+    with reg._lock:
+        for key, m in list(reg._series.items()):
+            if m.name == "train_health" and not np.isfinite(m.value):
+                del reg._series[key]
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+@pytest.mark.parametrize("knob", ["learning_rate", "wd", "rescale_grad"])
+def test_hyperparameter_past_f32_saturates_as_mxtpu(mt, opt, knob):
+    """An lr, wd or rescale_grad of 1e39 (past the f32 range) fits with
+    no error in both packages: the fused update rounds the scalar to f32
+    on the host (inf), as mxtpu's f32 arithmetic does, so the weights are
+    nonfinite exactly where mxtpu's are, their finite entries agree, and
+    health reports mxtpu's findings."""
+    x, y = _data(n=128)
+    got = {}
+    for pk in (mt, mx):
+        sym = _symbol(pk, "mlp")
+        w = _weights(sym, {"data": (64, 784), "softmax_label": (64,)})
+        params = {"learning_rate": 0.05, knob: 1e39}
+        if opt == "sgd":
+            params["momentum"] = 0.9
+        mod = pk.mod.Module(sym, context=pk.cpu())
+        it = pk.io.NDArrayIter(x, y, batch_size=64,
+                               label_name="softmax_label")
+        mod.fit(it, num_epoch=1, optimizer=opt, optimizer_params=params,
+                arg_params={k: pk.nd.array(v, ctx=pk.cpu())
+                            for k, v in w.items()},
+                metric_sync=1, health=True)
+        panel = (MH if pk is mx else pk.obs.health).panel()
+        got[pk.__name__] = (
+            {k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            panel["anomalies"], panel["cadences"])
+        _drop_nonfinite_health_gauges(pk.telemetry.registry())
+    mine, theirs = got["mxtpu_torch"], got["mxtpu"]
+    assert mine[1] == theirs[1] and mine[2] == theirs[2]
+    assert "divergence" in mine[1]
+    for k, a in mine[0].items():
+        b = theirs[0][k]
+        assert np.array_equal(np.isnan(a), np.isnan(b)), k
+        assert np.array_equal(np.isposinf(a), np.isposinf(b)), k
+        assert np.array_equal(np.isneginf(a), np.isneginf(b)), k
+        fin = np.isfinite(a)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=1e-5, atol=1e-6)
+    assert any(not np.isfinite(a).all() for a in mine[0].values())

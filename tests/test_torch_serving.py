@@ -289,22 +289,25 @@ def _scraped(pkg, server, n_requests):
     return v1, spans, text
 
 
-def test_metrics_endpoints_hold_mxtpus_series(mt, lm):
+@pytest.mark.parametrize("mode", ["burst", "continuous"])
+def test_metrics_endpoints_hold_mxtpus_series(mt, lm, mode):
     """/v1/metrics and /metrics on cpu() after the same 3 requests: the
-    series mxtpu's burst-mode server exposes, with the same counts."""
+    series mxtpu's server exposes in the same mode, with the same counts
+    (a batch's pool span is ``pool.run`` in burst mode and
+    ``pool.dispatch`` in continuous mode)."""
     js, params, _ = lm
     n = 3
     ref_srv = mx.serving.serve(js, {k: mx.nd.array(v)
                                     for k, v in params.items()},
                                {"data": (1, SEQ)}, port=0, block=False,
-                               buckets=(1, 2), mode="burst",
+                               buckets=(1, 2), mode=mode,
                                contexts=[mx.cpu()])
     try:
         ref_v1, ref_spans, ref_text = _scraped(mx, ref_srv, n)
     finally:
         ref_srv.shutdown()
     server = mt.serving.serve(js, params, {"data": (1, SEQ)}, port=0,
-                              block=False, buckets=(1, 2),
+                              block=False, buckets=(1, 2), mode=mode,
                               contexts=[mt.cpu()])
     try:
         v1, spans, text = _scraped(mt, server, n)
@@ -322,7 +325,8 @@ def test_metrics_endpoints_hold_mxtpus_series(mt, lm):
         assert v1[key]["count"] == ref_v1[key]["count"] == n
         assert set(v1[key]) == set(ref_v1[key])
     assert v1["requests_completed"] == n and v1["batches_dispatched"] == n
-    for span in ("batch[1]", "serving.request", "pool.run"):
+    pool_span = "pool.run" if mode == "burst" else "pool.dispatch"
+    for span in ("batch[1]", "serving.request", pool_span):
         key = "span_ms{span=%s}" % span
         assert spans[key] == ref_spans[key] == n, key
     for line in ("mxtpu_serving_requests_completed 3",

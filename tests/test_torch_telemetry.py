@@ -212,6 +212,22 @@ def test_disabled_telemetry_makes_every_helper_the_null_metric(pkgs):
             tel.set_enabled(was)
 
 
+def test_a_nan_gauge_renders_as_nan(pkgs):
+    """A NaN reading (a diverged fit's health gauges) renders as the text
+    format's ``NaN`` and the rest of the scrape stands; mxtpu's
+    exposition raises on it, failing the whole scrape (a delta)."""
+    mx_, mt = pkgs
+    reg = mt.telemetry.MetricsRegistry()
+    reg.gauge("g", labels={"stat": "grad_max"}).set(float("nan"))
+    reg.counter("c").inc(2)
+    text = mt.telemetry.prometheus_text(reg)
+    assert 'mxtpu_g{stat="grad_max"} NaN' in text and "mxtpu_c 2" in text
+    ref = mx_.telemetry.MetricsRegistry()
+    ref.gauge("g").set(float("nan"))
+    with pytest.raises(ValueError):
+        mx_.telemetry.prometheus_text(ref)
+
+
 def test_a_raising_gauge_callback_fails_the_scrape(pkgs):
     """The port never shows a broken reading as 0 (mxtpu does)."""
     _mx, mt = pkgs

@@ -245,23 +245,26 @@ def test_unread_knobs_in_an_artifact_or_env_are_named(pkgs, monkeypatch,
     _mx, mt = pkgs
     caplog.set_level(logging.WARNING, logger="mxtpu_torch.tune")
     cfg = mt.tune.TunedConfig(values={"fit.max_in_flight": 3,
-                                      "serving.max_queue": 64})
+                                      "serving.max_queue": 64,
+                                      "elastic.keep": 3})
     assert mt.tune.artifact(cfg) is cfg
     msgs = [r.getMessage() for r in caplog.records]
-    assert len(msgs) == 1 and "serving.max_queue" in msgs[0] \
-        and "A.11" in msgs[0] and "fit." not in msgs[0]
+    assert len(msgs) == 1 and "elastic.keep" in msgs[0] \
+        and "A.12" in msgs[0] and "fit." not in msgs[0] \
+        and "serving." not in msgs[0]
     caplog.clear()
     mt.tune.use(cfg)
-    assert ["serving.max_queue" in r.getMessage() for r in caplog.records] \
+    assert ["elastic.keep" in r.getMessage() for r in caplog.records] \
         == [True]
     mt.tune.use(None)
     caplog.clear()
+    monkeypatch.setenv("MXTPU_ELASTIC_KEEP", "3")
     monkeypatch.setenv("MXTPU_SERVING_MAX_QUEUE", "64")
     monkeypatch.setenv("MXTPU_FIT_INFLIGHT", "3")
     mt.tune.registry._warn_unread_env()
     msgs = [r.getMessage() for r in caplog.records]
-    assert len(msgs) == 1 and "MXTPU_SERVING_MAX_QUEUE" in msgs[0] \
-        and "A.11" in msgs[0]
+    assert len(msgs) == 1 and "MXTPU_ELASTIC_KEEP" in msgs[0] \
+        and "A.12" in msgs[0]
 
 
 # ------------------------------------------------------ the search half
