@@ -436,10 +436,41 @@ Phases (any failure raises and exits non-zero):
    LSTM LM's step at config 4's widths on a ``SequenceSlotArena``
    (joined equal to alone); tokens/s, step ms by bucket, prefill-chunk
    ms. Decode runs no hand-written kernel (its products are cuBLAS's).
-25. Prints the kernels' JSON line (each kernel's launches by path, the
+25. Elastic (``elastic``, ``ELASTIC``), under a ``tempfile`` directory
+   checked for free disk and removed at the end: the LM of phase 6 (B=4,
+   Adam, its seeded weights) trained through ``Module.fit`` over an
+   ``NDArrayIter`` of 8 distinct seeded batches, shuffled, 8 steps. In
+   f32 and then under ``MXTPU_PIPELINE=bf16``: two uninterrupted fits
+   (bit-identical or not, and their relative L2 distance); a fit with
+   ``elastic=ElasticConfig(prefix, every_n_steps=2, sync=True)`` killed
+   from the batch callback at step 4, whose last generation must hold
+   the live params, Adam moments and counters bit for bit (f32 masters
+   under bf16); ``fit(resume=prefix)`` to the end: bit for bit the
+   uninterrupted run where the repeat was bit-identical, else within 4x
+   its distance, with exactly (8 - 4) x 12 flash forwards and as many
+   backwards, every one bf16 under bf16. Then elastic off and on
+   (``every_n_steps=1``, async) in turns, 3 rounds of 6 steps, the first
+   dropped: step ms, the capture's host ms
+   (``elastic_snapshot_stall_ms``), host syncs in the capture (torch's
+   sync debug mode; must be 0), the writer's ms, bytes and MB/s a
+   generation, generations written and coalesced, the clones' device
+   bytes and the ledger's drift from the allocator after the fit.
+   ResNet-50 v2 (224x224, B=64, SGD) on 256 seeded images for 2 epochs,
+   with 64 evaluation images and ``callback.module_checkpoint`` (async)
+   at each epoch end, inside ``Supervisor.run``: SIGTERM sent from step
+   2's batch callback, the final generation (after step 3) durable
+   before ``Preempted`` propagates and bit for bit the live state, the
+   SIGTERM handler after ``run`` the one before it, ``fit(resume=True)``
+   to the end within 4x the distance of two uninterrupted runs (cuDNN's
+   atomics), every evaluation batch's 50 epilogue launches bit for bit
+   the plain epilogue on their inputs. The mlp wedged by one injected
+   ``executor.device_wait`` past the watchdog's deadline:
+   ``Supervisor.run`` retries once from the last generation and ends;
+   ``elastic_retries`` and ``elastic_restores`` each +1. Its seconds.
+26. Prints the kernels' JSON line (each kernel's launches by path, the
    ``records``, ``frontend``, ``zoo``, ``rcnn``, ``ctc``,
-   ``scaffolding``, ``compile``, ``observability`` and ``continuous``
-   paths included), then the device line last.
+   ``scaffolding``, ``compile``, ``observability``, ``continuous`` and
+   ``elastic`` paths included), then the device line last.
 
 ``--multi-gpu`` runs, in place of the phases, the data-parallel paths
 over 4 cards (it raises below 4 CUDA devices; the default run never
@@ -716,7 +747,25 @@ PHASES = ("kernels", "epilogue", "backward", "serving", "resnet", "training",
           "resnet_training", "gluon", "data_parallel", "rnn", "ssd",
           "surface", "records", "frontend", "zoo", "rcnn", "ctc", "sparse",
           "dist_async", "scaffolding", "compile", "observability",
-          "continuous", "decode")
+          "continuous", "decode", "elastic")
+# phase 25, elastic: the LM of phase 6 over `lm_batches` distinct seeded
+# batches (shuffled), `lm_steps` steps, killed at step `kill_at` with a
+# generation every `every` steps (sync) and `keep` kept, resumed within
+# `resume_factor` x the repeat distance when the repeat is not
+# bit-identical; `rounds` rounds of elastic off / on (every step, async)
+# of `turn_steps` steps; ResNet-50 v2 at B=`resnet_batch` over
+# `resnet_images` images for `resnet_epochs` epochs with `resnet_eval`
+# evaluation images, SIGTERM sent from step `sigterm_after`'s callback;
+# the mlp wedged by one `wedge_ms` wait at executor.device_wait after
+# `wedge_after` waits, past the watchdog's `wedge_wait_s` deadline; the
+# free disk wanted, in generations of the LM
+ELASTIC = dict(lm_batches=8, lm_steps=8, kill_at=4, every=2, keep=2,
+               resume_factor=4.0, rounds=3, turn_steps=6, resnet_batch=64,
+               resnet_images=256, resnet_epochs=2, resnet_eval=64,
+               resnet_lr=0.1, resnet_momentum=0.9, sigterm_after=2,
+               mlp_batch=64, mlp_steps=6, mlp_lr=0.1, wedge_ms=1500,
+               wedge_after=3, wedge_wait_s=0.25, wedge_interval_s=0.05,
+               disk_generations=4)
 # phase 21, the compile pipeline: ResNet-50 v2 predicted under
 # (layout, bf16) at B=`batch`; the LM of phase 6 trained TRAIN["steps"]
 # steps under bf16; ResNet-50 trained `remat_steps` steps at B=
@@ -12803,6 +12852,612 @@ def phase_decode(mt, seed, card):
     return out
 
 
+# ------------------------------------------------------------ phase 25
+class FlatLabels:
+    """An ``NDArrayIter`` over (N, T) labels handing each batch's labels
+    on flattened to (B*T,), as the LM's SoftmaxOutput takes them; at most
+    ``limit`` batches an epoch. Its cursor is the inner iterator's, so an
+    elastic snapshot records and restores it."""
+
+    def __init__(self, mt, inner, limit=None):
+        self._mt, self.inner, self.limit = mt, inner, limit
+        b, t = inner.provide_label[0].shape
+        self.provide_data = inner.provide_data
+        self.provide_label = [mt.io.DataDesc("softmax_label", (b * t,))]
+        self._n = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.limit is not None and self._n >= self.limit:
+            raise StopIteration
+        batch = next(self.inner)
+        self._n += 1
+        return self._mt.io.DataBatch(
+            data=batch.data, label=[batch.label[0].reshape((-1,))],
+            pad=batch.pad)
+
+    def reset(self):
+        self.inner.reset()
+        self._n = 0
+
+    def checkpoint_state(self):
+        return self.inner.checkpoint_state()
+
+    def restore_state(self, state):
+        return self.inner.restore_state(state)
+
+
+def elastic_lm_data(seed, n, seq_len, vocab):
+    """``n`` seeded token rows (n, T) and their next tokens (n, T)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (n, seq_len + 1))
+    return ids[:, :-1].astype(np.float32), ids[:, 1:].astype(np.float32)
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| over every array of two weight dicts (f64)."""
+    num = sum(float(np.sum((a[k].astype(np.float64) - b[k]) ** 2))
+              for k in b)
+    den = sum(float(np.sum(b[k].astype(np.float64) ** 2)) for k in b)
+    return (num / den) ** 0.5
+
+
+def same_bits(a, b):
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in b)
+
+
+def host_weights(mod):
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def fused_live(mod):
+    """{generation key: numpy} of a fused module's live state: params,
+    aux, the first replica's optimizer leaves."""
+    from mxtpu_torch.module.fused import state_leaves
+    arg, aux = mod.get_params()
+    out = {"arg:%s" % k: v.asnumpy() for k, v in arg.items()}
+    out.update({"aux:%s" % k: v.asnumpy() for k, v in aux.items()})
+    for n, st in mod._fused.opt_state[0].items():
+        for i, leaf in enumerate(state_leaves(st)):
+            out["opt:%s/%d" % (n, i)] = leaf.cpu().numpy()
+    return out
+
+
+def generation_gate(mt, prefix, live, opt, label):
+    """The newest generation at ``prefix`` holds ``live`` (and the
+    optimizer's counters) bit for bit; returns its cursor."""
+    snap = mt.elastic.snapshot
+    man = snap.latest_manifest(prefix)
+    got = snap.load_arrays(man)
+    differ = [k for k in live if not np.array_equal(got.get(k), live[k])]
+    counters = man["optimizer"]["num_update"] == opt.num_update and \
+        {int(k): v for k, v in man["optimizer"]["index_update_count"]
+         .items()} == dict(opt._index_update_count)
+    dtypes = sorted({str(got[k].dtype) for k in live})
+    log("  %s: generation %d (cursor %s) holds %d live arrays (%s), %d "
+        "not bit for bit; optimizer counters equal: %s"
+        % (label, man["_generation"], man["cursor"], len(live), dtypes,
+           len(differ), counters))
+    if differ or not counters:
+        raise AssertionError("%s: the generation differs from the live "
+                             "state at %s (counters %s)"
+                             % (label, differ[:5], counters))
+    return man["cursor"], dtypes
+
+
+def elastic_lm_fit(mt, att, sym, params, x, y, seed, kill_at=None,
+                   limit=None, **kw):
+    """One LM fit on gpu(0) from ``params``: (module, flash forwards,
+    flash backwards, attention dtypes, host ms of each step with the
+    compute stream drained). ``kill_at`` raises from the batch callback
+    after that step."""
+    b = TRAIN["batch"]
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    np.random.seed(seed)
+    mt.random.seed(seed)
+    it = FlatLabels(mt, mt.io.NDArrayIter(
+        x, y, batch_size=b, shuffle=True, label_name="softmax_label"),
+        limit)
+    dtypes, stamps = set(), []
+    real_fwd = att._flash_forward
+
+    def fwd(q, k, v, causal, scale, want_lse=False):
+        if q.device.type != "meta":
+            dtypes.add(str(q.dtype).replace("torch.", ""))
+        return real_fwd(q, k, v, causal, scale, want_lse)
+
+    def record(param):
+        torch.cuda.current_stream().synchronize()
+        stamps.append(time.perf_counter())
+        if kill_at is not None and len(stamps) >= kill_at:
+            raise mt.MXNetError("killed at step %d" % len(stamps))
+
+    att._flash_forward = fwd
+    att.flash_attention.launches = 0  # count the main path alone
+    att.flash_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    try:
+        mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="adam",
+                optimizer_params={"learning_rate": TRAIN["lr"]},
+                arg_params=params, initializer=None,
+                batch_end_callback=record, **kw)
+    except mt.MXNetError as exc:
+        if kill_at is None or "killed at step" not in str(exc):
+            raise
+    finally:
+        att._flash_forward = real_fwd
+    ms = [float(v) for v in np.diff([t0] + stamps) * 1e3]
+    return (mod, att.flash_attention.launches,
+            att.flash_attention_backward.launches, dtypes, ms)
+
+
+def elastic_lm(mt, att, seed, card, tmp):
+    """25.1: the LM's repeat distance, kill and resume, in f32 and bf16."""
+    cfg, el = dict(LM), ELASTIC
+    sym = mt.models.get_transformer_lm(**cfg)
+    n = el["lm_batches"] * TRAIN["batch"]
+    x, y = elastic_lm_data(seed + 25, n, cfg["seq_len"], cfg["vocab_size"])
+    params = {k[4:]: mt.nd.array(v, ctx=mt.cpu())
+              for k, v in lm_params(sym, seed).items()}
+    want = (el["lm_steps"] - el["kill_at"]) * cfg["num_layers"]
+    out, launches = {}, {"fwd": {}, "bwd": {}}
+    for name, pipe in (("f32", ()), ("bf16", ("bf16",))):
+        wdt = {"f32": "float32", "bf16": "bfloat16"}[name]
+        runs = []
+        with mt.compile.pipeline_scope(pipe):
+            for _ in range(2):
+                mod, f, bk, dts, _ms = elastic_lm_fit(mt, att, sym, params,
+                                                      x, y, seed)
+                runs.append(host_weights(mod))
+                launches["fwd"]["lm_elastic_%s_whole" % name] = \
+                    launches["fwd"].get("lm_elastic_%s_whole" % name, 0) + f
+                launches["bwd"]["lm_elastic_%s_whole" % name] = \
+                    launches["bwd"].get("lm_elastic_%s_whole" % name, 0) + bk
+                del mod
+                torch.cuda.empty_cache()
+            same = same_bits(runs[0], runs[1])
+            dist = rel_l2(runs[1], runs[0])
+            log("  [%s] LM %s: two uninterrupted fits of %d steps: "
+                "bit-identical %s, relative L2 distance %.3e"
+                % (card, name, el["lm_steps"], same, dist))
+            prefix = os.path.join(tmp, "lm_%s" % name, "ck")
+            os.makedirs(os.path.dirname(prefix))
+            ecfg = mt.elastic.ElasticConfig(prefix, every_n_steps=el["every"],
+                                            keep=el["keep"], sync=True)
+            mod, f, bk, _d, _ms = elastic_lm_fit(
+                mt, att, sym, params, x, y, seed, kill_at=el["kill_at"],
+                elastic=ecfg)
+            launches["fwd"]["lm_elastic_%s_killed" % name] = f
+            launches["bwd"]["lm_elastic_%s_killed" % name] = bk
+            cursor, dtypes = generation_gate(
+                mt, prefix, fused_live(mod), mod._optimizer,
+                "LM %s killed at step %d" % (name, el["kill_at"]))
+            if cursor["global_step"] != el["kill_at"] or \
+                    dtypes != ["float32"]:
+                raise AssertionError("LM %s: generation at %s in %s"
+                                     % (name, cursor, dtypes))
+            del mod
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            mod, f, bk, dts, _ms = elastic_lm_fit(
+                mt, att, sym, params, x, y, seed, resume=prefix,
+                elastic=False)
+            resume_s = time.perf_counter() - t0
+            got = host_weights(mod)
+            del mod
+            torch.cuda.empty_cache()
+        launches["fwd"]["lm_elastic_%s_resumed" % name] = f
+        launches["bwd"]["lm_elastic_%s_resumed" % name] = bk
+        rd = rel_l2(got, runs[0])
+        exact = same_bits(got, runs[0])
+        gate = "bit for bit" if same else "within %gx the repeat " \
+            "distance" % el["resume_factor"]
+        log("  [%s] LM %s resumed from step %d in %.1f s: flash launches "
+            "forward %d, backward %d (want %d each), attention dtypes %s; "
+            "against the uninterrupted fit bit for bit %s, relative L2 "
+            "%.3e; gate: %s" % (card, name, el["kill_at"], resume_s, f, bk,
+                                want, sorted(dts), exact, rd, gate))
+        if f != want or bk != want or dts != {wdt}:
+            raise AssertionError("LM %s resumed: launches %d / %d, dtypes "
+                                 "%s" % (name, f, bk, dts))
+        if (same and not exact) or rd > el["resume_factor"] * dist:
+            raise AssertionError("LM %s resumed: %.3e from the "
+                                 "uninterrupted fit (repeat %.3e, "
+                                 "bit-identical %s)" % (name, rd, dist,
+                                                        same))
+        shutil.rmtree(os.path.dirname(prefix), ignore_errors=True)
+        out[name] = dict(repeat_bit_identical=same, repeat_rel_l2=dist,
+                         resumed_bit_identical=exact, resumed_rel_l2=rd,
+                         gate=gate, resume_s=resume_s, resumed_fwd=f,
+                         resumed_bwd=bk)
+    out["launches"] = launches
+    out["inputs"] = (sym, params, x, y)
+    return out
+
+
+def elastic_turns(mt, att, seed, card, tmp, inputs):
+    """25.2: elastic off and on (every step, async) in turns."""
+    el = ELASTIC
+    sym, params, x, y = inputs
+    reg = mt.telemetry.registry()
+    snap = mt.elastic.snapshot
+    writer = snap.writer()
+    real_capture = snap.capture_module
+    syncs, capture_ms, stall_ms = [], [], []
+
+    def counted(*a, **k):
+        """capture_module under torch's sync debug mode: each
+        synchronizing operation it reaches warns once, and is counted."""
+        import warnings
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                return real_capture(*a, **k)
+            finally:
+                capture_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.set_sync_debug_mode(0)
+                syncs.append(sum("called a synchronizing" in
+                                 str(w.message) for w in seen))
+
+    def stats():
+        h = reg.histogram("elastic_snapshot_stall_ms")
+        w = reg.histogram("elastic_snapshot_write_ms")
+        return dict(stall_n=h.count, stall_sum=h.sum, write_n=w.count,
+                    write_sum=w.sum,
+                    bytes=reg.counter("elastic_snapshot_bytes").value,
+                    written=writer.jobs_written,
+                    coalesced=writer.jobs_coalesced)
+
+    prefix = os.path.join(tmp, "turns", "ck")
+    os.makedirs(os.path.dirname(prefix))
+    rows, steps = {"off": [], "on": []}, {"off": [], "on": []}
+    fwd = bwd = 0
+    clone_bytes, drift = 0, []
+    s0 = stats()
+    snap.capture_module = counted
+    try:
+        for _ in range(el["rounds"]):
+            for mode in ("off", "on"):
+                ecfg = mt.elastic.ElasticConfig(
+                    prefix, every_n_steps=1, keep=el["keep"],
+                    sync=False) if mode == "on" else False
+                mod, f, bk, _d, ms = elastic_lm_fit(
+                    mt, att, sym, params, x, y, seed,
+                    limit=el["turn_steps"], elastic=ecfg)
+                fwd, bwd = fwd + f, bwd + bk
+                rows[mode].append(float(np.mean(ms[1:])))
+                steps[mode].append([round(v, 1) for v in ms])
+                if mode == "on":
+                    snap_bufs = mod._fused._snap or {"flats": ()}
+                    clone_bytes = sum(t.numel() * t.element_size()
+                                      for t in snap_bufs["flats"])
+                    drift.append(mt.diagnostics.ledger().reconcile()
+                                 ["drift_bytes"])
+                    copy_ms = host_copy_ms(mod._fused)
+                del mod
+                torch.cuda.empty_cache()
+    finally:
+        snap.capture_module = real_capture
+    s1 = stats()
+    d = {k: s1[k] - s0[k] for k in s0}
+    stall = d["stall_sum"] / max(1, d["stall_n"])
+    cap = np.array(capture_ms)
+    write_ms = d["write_sum"] / max(1, d["write_n"])
+    per_gen = d["bytes"] / max(1, d["write_n"])
+    mbps = d["bytes"] / 1e6 / max(1e-9, d["write_sum"] / 1e3)
+    log("  [%s] LM step ms, elastic off %s, on (every step, async) %s "
+        "(means of steps 2-%d of each turn); each step: off %s, on %s"
+        % (card, [round(v, 2) for v in rows["off"]],
+           [round(v, 2) for v in rows["on"]], el["turn_steps"],
+           steps["off"], steps["on"]))
+    log("  [%s] capture: %d captures, %.2f ms of the training thread each "
+        "(elastic_snapshot_stall_ms: the cadence metric sync, which waits "
+        "for the step, and the capture); the capture alone (clones, the "
+        "copy to pinned memory enqueued, the manifest) median %.2f ms, "
+        "mean %.2f, max %.2f; host syncs in the capture %s; the clones "
+        "hold %.3f GB on the card; one generation's clone and copy to "
+        "pinned memory, waited for: %.1f ms (%.1f GB/s); writer: %d "
+        "generations written (%d coalesced), %.1f ms and %.3f GB each, "
+        "%.1f MB/s; the ledger's drift from the allocator after each "
+        "on-turn %s B"
+        % (card, d["stall_n"], stall, np.median(cap), cap.mean(),
+           cap.max(), syncs, clone_bytes / 1e9, copy_ms,
+           clone_bytes / 1e6 / copy_ms, d["written"], d["coalesced"],
+           write_ms, per_gen / 1e9, mbps, drift))
+    if not syncs or any(syncs) or not clone_bytes:
+        raise AssertionError("the capture made host syncs: %s (clones "
+                             "%d B on the card)" % (syncs, clone_bytes))
+    return dict(step_ms_off=rows["off"], step_ms_on=rows["on"],
+                steps_ms=steps,
+                captures=d["stall_n"], stall_ms=stall,
+                capture_ms_median=float(np.median(cap)),
+                capture_ms_mean=float(cap.mean()), copy_ms=copy_ms,
+                syncs=sum(syncs),
+                clone_bytes=clone_bytes, written=d["written"],
+                coalesced=d["coalesced"], write_ms=write_ms,
+                bytes_per_generation=per_gen, mb_per_s=mbps,
+                ledger_drift_bytes=drift, fwd=fwd, bwd=bwd)
+
+
+def host_copy_ms(fused):
+    """Host-clock ms of one ``export_host_state`` waited for to its end
+    (the clones and the copy to pinned memory), after the card is
+    idle."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _p, _a, _o, ready = fused.export_host_state()
+    for ev in ready:
+        ev.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def elastic_resnet_fit(mt, sym, params, x, y, xe, ye, seed, spy,
+                       module=None, **kw):
+    """ResNet-50 v2 through fit on gpu(0) (``module``, or a new one) from
+    ``params``, SGD, with an evaluation at each epoch end and ``spy`` in
+    place of the epilogue's wrapper."""
+    from mxtpu_torch.ops import nn as nn_ops
+    el = ELASTIC
+    b = el["resnet_batch"]
+    mod = module or mt.mod.Module(sym, context=mt.gpu(0),
+                                  logger=_quiet_logger())
+    np.random.seed(seed)
+    mt.random.seed(seed)
+    real = nn_ops.bn_apply_relu_add
+    nn_ops.bn_apply_relu_add = spy
+    try:
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=b),
+                eval_data=mt.io.NDArrayIter(xe, ye, batch_size=b),
+                num_epoch=el["resnet_epochs"], eval_metric=["acc", "ce"],
+                optimizer="sgd",
+                optimizer_params={"learning_rate": el["resnet_lr"],
+                                  "momentum": el["resnet_momentum"],
+                                  "rescale_grad": 1.0 / b},
+                arg_params=params[0], aux_params=params[1],
+                initializer=None, **kw)
+    finally:
+        nn_ops.bn_apply_relu_add = real
+    return mod
+
+
+def elastic_resnet(mt, epi, seed, card, tmp):
+    """25.3: ResNet-50 v2 preempted by SIGTERM inside Supervisor.run."""
+    import signal
+    el = ELASTIC
+    sym = mt.models.get_resnet(**RESNET)
+    raw = resnet_params(sym, seed)
+    params = tuple({k[4:]: mt.nd.array(v, ctx=mt.cpu())
+                    for k, v in raw.items() if k.startswith(kind)}
+                   for kind in ("arg:", "aux:"))
+    rng = np.random.RandomState(seed + 25)
+    n, ne = el["resnet_images"], el["resnet_eval"]
+    x = rng.rand(n, *RESNET["image_shape"]).astype(np.float32)
+    y = rng.randint(0, RESNET["num_classes"], n).astype(np.float32)
+    xe = rng.rand(ne, *RESNET["image_shape"]).astype(np.float32)
+    ye = rng.randint(0, RESNET["num_classes"], ne).astype(np.float32)
+    from mxtpu_torch.ops import nn as nn_ops
+    real = nn_ops.bn_apply_relu_add
+    worst = []
+
+    def spy(xx, scale, shift, residual=None, block_m=1024, axis=-1,
+            out_dtype=None):
+        got = real(xx, scale, shift, residual, block_m, axis, out_dtype)
+        want = epi.bn_apply_relu_add_reference(xx, scale, shift, residual,
+                                               axis, out_dtype)
+        worst.append(torch.where(got == want, torch.zeros_like(got),
+                                 (got - want).abs().nan_to_num(
+                                     float("inf"))).max())
+        return got
+
+    runs = []
+    epi.bn_apply_relu_add.launches = 0  # count the main path alone
+    for _ in range(2):
+        mod = elastic_resnet_fit(mt, sym, params, x, y, xe, ye, seed,
+                                 spy)
+        runs.append(host_weights(mod))
+        del mod
+        torch.cuda.empty_cache()
+    same = same_bits(runs[0], runs[1])
+    dist = rel_l2(runs[1], runs[0])
+    log("  [%s] ResNet-50 v2, B=%d, %d epochs: two uninterrupted fits "
+        "bit-identical %s, relative L2 distance %.3e"
+        % (card, el["resnet_batch"], el["resnet_epochs"], same, dist))
+    prefix = os.path.join(tmp, "resnet", "ck")
+    ckpt = os.path.join(tmp, "resnet", "epoch")
+    os.makedirs(os.path.dirname(prefix))
+    sup = mt.elastic.Supervisor(retries=0)
+    ecfg = mt.elastic.ElasticConfig(prefix, supervisor=sup, keep=el["keep"])
+    before = signal.getsignal(signal.SIGTERM)
+    held = {}
+
+    def fit_fn(resume):
+        def cb(param):
+            if param.nbatch == el["sigterm_after"] - 1 and param.epoch == 0:
+                os.kill(os.getpid(), signal.SIGTERM)
+        mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+        held["mod"] = mod
+        return elastic_resnet_fit(
+            mt, sym, params, x, y, xe, ye, seed, spy, module=mod,
+            batch_end_callback=cb, elastic=ecfg, resume=resume,
+            epoch_end_callback=mt.callback.module_checkpoint(
+                mod, ckpt, save_optimizer_states=True))
+
+    preempted = False
+    try:
+        sup.run(fit_fn)
+    except mt.elastic.Preempted as exc:
+        preempted = str(exc)
+    after = signal.getsignal(signal.SIGTERM)
+    log("  [%s] SIGTERM from step %d's callback inside Supervisor.run: "
+        "Preempted %r; the handler after run is the one before: %s"
+        % (card, el["sigterm_after"], preempted, after is before))
+    if not preempted or after is not before:
+        raise AssertionError("ResNet-50: preempted %r, handler restored %s"
+                             % (preempted, after is before))
+    mod = held.pop("mod")
+    cursor, _dt = generation_gate(mt, prefix, fused_live(mod),
+                                  mod._optimizer, "ResNet-50 preempted")
+    if cursor["global_step"] != el["sigterm_after"] + 1:
+        raise AssertionError("ResNet-50: final generation at %s" % cursor)
+    del mod
+    torch.cuda.empty_cache()
+    mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+    mod = elastic_resnet_fit(
+        mt, sym, params, x, y, xe, ye, seed, spy, module=mod,
+        elastic=mt.elastic.ElasticConfig(prefix, keep=el["keep"]),
+        resume=True, epoch_end_callback=mt.callback.module_checkpoint(
+            mod, ckpt, save_optimizer_states=True))
+    got = host_weights(mod)
+    torch.cuda.synchronize()
+    launches = epi.bn_apply_relu_add.launches
+    _sym, ck_args, _aux = mt.model.load_checkpoint(ckpt,
+                                                  el["resnet_epochs"])
+    ck_same = same_bits({k: v.asnumpy() for k, v in ck_args.items()}, got)
+    del mod
+    torch.cuda.empty_cache()
+    rd = rel_l2(got, runs[0])
+    exact = same_bits(got, runs[0])
+    err = float(torch.stack(worst).max()) if worst else float("inf")
+    evals = 2 * el["resnet_epochs"] + el["resnet_epochs"]
+    batches = evals * (el["resnet_eval"] // el["resnet_batch"])
+    log("  [%s] ResNet-50 resumed to the end: against the uninterrupted "
+        "fit bit for bit %s, relative L2 %.3e (gate %gx %.3e); the last "
+        "module_checkpoint bit for bit the live weights %s; epilogue "
+        "launches %d in %d evaluation batches (want %d a batch), each "
+        "against the plain epilogue on its inputs: max abs err %g"
+        % (card, exact, rd, el["resume_factor"], dist, ck_same, launches,
+           batches, RESNET_SITES, err))
+    if rd > el["resume_factor"] * dist or (same and not exact) or \
+            not ck_same:
+        raise AssertionError("ResNet-50 resumed: %.3e from the "
+                             "uninterrupted fit (repeat %.3e); checkpoint "
+                             "%s" % (rd, dist, ck_same))
+    if launches != RESNET_SITES * batches or len(worst) != launches or \
+            err != 0.0:
+        raise AssertionError("ResNet-50 evaluation: launches %d, sites "
+                             "seen %d, err %g" % (launches, len(worst), err))
+    return dict(repeat_bit_identical=same, repeat_rel_l2=dist,
+                resumed_bit_identical=exact, resumed_rel_l2=rd,
+                eval_batches=batches, launches=launches, max_abs_err=err)
+
+
+def elastic_wedge(mt, seed, card, tmp):
+    """25.4: the mlp wedged once at executor.device_wait; the supervisor
+    restores and retries."""
+    el = ELASTIC
+    diag, reg = mt.diagnostics, mt.telemetry.registry()
+    rng = np.random.RandomState(seed + 25)
+    b = el["mlp_batch"]
+    x = rng.rand(b * el["mlp_steps"], 784).astype(np.float32)
+    y = rng.randint(0, 10, b * el["mlp_steps"]).astype(np.float32)
+    sym = mt.models.get_mlp(10)
+    init = obs_init(mt, sym, seed, (b, 784))
+
+    def fit(**kw):
+        mod = mt.mod.Module(sym, context=mt.gpu(0), logger=_quiet_logger())
+        mod.fit(mt.io.NDArrayIter(x, y, b), num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": el["mlp_lr"]},
+                arg_params=init[0], aux_params=init[1], initializer=None,
+                max_in_flight=1, **kw)
+        torch.cuda.synchronize()
+        return mod
+
+    bare = host_weights(fit())
+    prefix = os.path.join(tmp, "wedge", "ck")
+    os.makedirs(os.path.dirname(prefix))
+    sup = mt.elastic.Supervisor(retries=1, backoff_s=0.05)
+    ecfg = mt.elastic.ElasticConfig(prefix, every_n_steps=1, sync=True,
+                                    supervisor=sup)
+    r0 = reg.counter("elastic_retries").value
+    s0 = reg.counter("elastic_restores").value
+    attempts, held = [], {}
+
+    def fit_fn(resume):
+        attempts.append(resume)
+        held["mod"] = fit(elastic=ecfg, resume=resume)
+
+    saved = {k: os.environ.get(k) for k in ("MXTPU_WATCHDOG_WAIT_S",
+                                            "MXTPU_WATCHDOG_INTERVAL_S")}
+    diag.stop_watchdog()
+    os.environ["MXTPU_WATCHDOG_WAIT_S"] = str(el["wedge_wait_s"])
+    os.environ["MXTPU_WATCHDOG_INTERVAL_S"] = str(el["wedge_interval_s"])
+    t0 = time.perf_counter()
+    try:
+        with mt.faults.scope("executor.device_wait:latency_ms=%d,times=1,"
+                             "after=%d" % (el["wedge_ms"],
+                                           el["wedge_after"])):
+            sup.run(fit_fn)
+    finally:
+        diag.stop_watchdog()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    retries = reg.counter("elastic_retries").value - r0
+    restores = reg.counter("elastic_restores").value - s0
+    same = same_bits(host_weights(held.pop("mod")), bare)
+    log("  [%s] the mlp wedged once (%d ms at executor.device_wait past "
+        "the watchdog's %.2f s): attempts %s, elastic_retries +%d, "
+        "elastic_restores +%d, %.1f s; weights bit for bit the bare fit's "
+        "%s" % (card, el["wedge_ms"], el["wedge_wait_s"], attempts, retries,
+                restores, secs, same))
+    if attempts != [False, True] or retries != 1 or restores != 1:
+        raise AssertionError("wedge: attempts %s, retries +%d, restores "
+                             "+%d" % (attempts, retries, restores))
+    return dict(attempts=attempts, retries=retries, restores=restores,
+                seconds=secs, bit_for_bit=same)
+
+
+def phase_elastic(mt, att, epi, seed, card):
+    """Phase 25: async snapshots, exact resume and the supervisor on the
+    card (see the module docstring)."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        sym = mt.models.get_transformer_lm(**LM)
+        arg_shapes, _, _ = sym.infer_shape(data=(1, LM["seq_len"]))
+        n_params = sum(int(np.prod(s)) for nm, s in
+                       zip(sym.list_arguments(), arg_shapes)
+                       if nm not in ("data", "softmax_label"))
+        gen_bytes = 3 * 4 * n_params  # params and Adam's two moments
+        need = ELASTIC["disk_generations"] * gen_bytes
+        log("  %s: %.1f GB free; an LM generation is ~%.2f GB, %d wanted"
+            % (tmp, free / 1e9, gen_bytes / 1e9,
+               ELASTIC["disk_generations"]))
+        if free < need:
+            raise AssertionError("elastic: %.1f GB free under %s, %.1f GB "
+                                 "wanted" % (free / 1e9, tmp, need / 1e9))
+        parts = {}
+        lm = elastic_lm(mt, att, seed, card, tmp)
+        parts["lm"] = time.perf_counter() - t0
+        turns = elastic_turns(mt, att, seed, card, tmp, lm.pop("inputs"))
+        parts["turns"] = time.perf_counter() - t0 - sum(parts.values())
+        resnet = elastic_resnet(mt, epi, seed, card, tmp)
+        parts["resnet"] = time.perf_counter() - t0 - sum(parts.values())
+        wedge = elastic_wedge(mt, seed, card, tmp)
+        parts["wedge"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log("  phase 25 (elastic): %.1f s (%s)"
+        % (secs, ", ".join("%s %.1f s" % kv for kv in parts.items())))
+    fwd = dict(lm["launches"]["fwd"], lm_elastic_turns=turns["fwd"])
+    bwd = dict(lm["launches"]["bwd"], lm_elastic_turns=turns["bwd"])
+    return dict(lm=lm, turns=turns, resnet=resnet, wedge=wedge,
+                seconds=secs, parts=parts, launches={
+                    "flash_fwd": fwd, "flash_bwd": bwd,
+                    "epilogue": {"resnet_elastic_eval": resnet["launches"]}})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -13006,6 +13661,10 @@ def main(argv=None):
     if "decode" in phases:
         log("[decode]")
         results["decode"] = phase_decode(mt, args.seed, card)
+    # 25. elastic: snapshots, exact resume, preemption and the wedge
+    if "elastic" in phases:
+        log("[elastic]")
+        results["elastic"] = phase_elastic(mt, att, epi, args.seed, card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -13052,6 +13711,7 @@ def main(argv=None):
               "resnet_predict_quant": comp["quant"]["launches"]}
     obs = results["observability"]["launches"]
     cont = results["continuous"]["launches"]
+    elastic = results["elastic"]["launches"]
     bf16_row = next(r for r in timed if r["dtype"] == "bfloat16"
                     and r["B"] == max(BUCKETS))
     bwd_bf16 = next(r for r in results["backward_timed"]
@@ -13068,7 +13728,8 @@ def main(argv=None):
         + surf_lm["flash_launches"] + sc_served + sc_fwd
         + sum(v[0] for v in cp_lm.values())
         + sum(obs["flash_fwd"].values())
-        + sum(cont["flash_fwd"].values()),
+        + sum(cont["flash_fwd"].values())
+        + sum(elastic["flash_fwd"].values()),
         "launches_by_path": dict({
             "lm_serving": served["launches"],
             "lm_training": trained["fwd_launches"],
@@ -13077,7 +13738,7 @@ def main(argv=None):
             "lm_training_tuned": sc_fwd,
             "lm_training_compile_f32": cp_lm["f32"][0],
             "lm_training_bf16": cp_lm["bf16"][0]}, **obs["flash_fwd"],
-            **cont["flash_fwd"]),
+            **cont["flash_fwd"], **elastic["flash_fwd"]),
         "bf16": times(bf16_row, "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": main_row["max_abs_err"],
@@ -13094,7 +13755,8 @@ def main(argv=None):
         + sum(front_launches.values()) + sum(zoo_launches.values())
         + sum(rcnn_launches["epilogue"].values()) + sum(cp_epi.values())
         + sum(obs["epilogue"].values())
-        + sum(cont["epilogue"].values()),
+        + sum(cont["epilogue"].values())
+        + sum(elastic["epilogue"].values()),
         "launches_by_path": dict({"resnet_serving": resnet["launches"],
                                   "resnet_training_eval": resnet_eval,
                                   "gluon_eval": gluon_eval,
@@ -13105,7 +13767,8 @@ def main(argv=None):
                                         **front_launches, **zoo_launches,
                                         **rcnn_launches["epilogue"],
                                         **cp_epi, **obs["epilogue"],
-                                        **cont["epilogue"])),
+                                        **cont["epilogue"],
+                                        **elastic["epilogue"])),
         "bf16_rows": times(epi_timed[6], "shape", "axis", "max_abs_err",
                            "ms", "plain_ms", "bound_ms", "bound_by"),
         "bf16_to_f32_rows": times(epi_timed[7], "shape", "axis",
@@ -13120,12 +13783,14 @@ def main(argv=None):
         "replaces": "mxtpu/ops/attention.py:199",
         "launches": trained["bwd_launches"] + sc_bwd
         + sum(v[1] for v in cp_lm.values())
-        + sum(obs["flash_bwd"].values()),
+        + sum(obs["flash_bwd"].values())
+        + sum(elastic["flash_bwd"].values()),
         "launches_by_path": dict({
             "lm_training": trained["bwd_launches"],
             "lm_training_tuned": sc_bwd,
             "lm_training_compile_f32": cp_lm["f32"][1],
-            "lm_training_bf16": cp_lm["bf16"][1]}, **obs["flash_bwd"]),
+            "lm_training_bf16": cp_lm["bf16"][1]}, **obs["flash_bwd"],
+            **elastic["flash_bwd"]),
         "bf16": times(bwd_bf16, "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by", "library_ms"),
         "max_abs_err": bwd_row["max_abs_err"],

@@ -25,7 +25,9 @@ Parameter and Trainer over several contexts; the mesh: ``sharding``
 (``MeshContext``, ``ShardingPlan``; ``Module.fit(mesh=...)`` with
 cross-replica weight-update sharding) and ``parallel`` (ring and Ulysses
 attention on the flash kernels, mixture of experts, pipelines,
-``DataParallelTrainer``); RNNs and bucketing (``rnn``,
+``DataParallelTrainer``); ``elastic`` (async snapshots of a fit,
+``fit(elastic=..., resume=...)`` exact to the bit, the ``Supervisor``'s
+restore-retry and SIGTERM preemption); RNNs and bucketing (``rnn``,
 ``BucketingModule``); the SSD detector (``models.ssd``, the MultiBox ops
 of ``ops/contrib.py`` with the suppression sweep as a CUDA kernel,
 ``MakeLoss``, ``smooth_l1``) with ``models.ssd_data``'s synthetic boxes
@@ -122,6 +124,7 @@ from . import rnn
 from . import gluon
 from . import sharding
 from . import parallel
+from . import elastic
 from . import visualization
 from . import visualization as viz
 from . import executor_manager
@@ -135,7 +138,7 @@ __all__ = ["__version__", "MXNetError", "AttrScope", "attribute", "Context",
            "lr_scheduler", "optimizer",
            "metric", "io", "recordio", "image", "image_record", "kvstore",
            "kv", "model", "callback", "monitor", "module", "mod",
-           "autograd", "gluon", "sharding", "parallel", "rnn",
+           "autograd", "gluon", "sharding", "parallel", "elastic", "rnn",
            "visualization", "viz", "executor_manager", "test_utils",
            "analysis", "telemetry", "diagnostics", "obs", "faults", "tune",
            "profiler", "log", "registry", "name", "engine"]

@@ -8,9 +8,10 @@ at its metric-sync cadence when the metric accumulates on the device, so
 it forces no device sync of its own, and sets mxtpu's series (:96-104):
 the ``train_samples_per_sec`` gauge, the
 ``train_window_samples_per_sec`` histogram and a ``train_metric{metric}``
-gauge of each scalar metric value. ``do_checkpoint`` writes
-synchronously, where mxtpu's goes through its asynchronous snapshot
-writer (not ported); the files are the same either way.
+gauge of each scalar metric value. ``module_checkpoint`` and
+``do_checkpoint`` write through the elastic snapshot writer, as mxtpu's
+do (:14-45): ``module_checkpoint`` captures the live Module's device
+state itself, so ``fit`` hands it no host copy of the params.
 """
 from __future__ import annotations
 
@@ -22,19 +23,36 @@ import time
 
 from . import telemetry as _tel
 
-__all__ = ["do_checkpoint", "Speedometer", "log_train_metric", "ProgressBar",
-           "LogValidationMetricsCallback"]
+__all__ = ["module_checkpoint", "do_checkpoint", "Speedometer",
+           "log_train_metric", "ProgressBar", "LogValidationMetricsCallback"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback: ``mod.save_checkpoint(..., async_write=True)``
+    every ``period`` epochs. It reads the live Module's state on the card
+    itself (the fused step's clones), so it needs no host params from
+    ``fit`` (``_needs_host_params`` False)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states,
+                                async_write=True)
+    _callback._needs_host_params = False
+    return _callback
 
 
 def do_checkpoint(prefix, period=1):
     """Epoch-end callback: ``model.save_checkpoint`` of the symbol and
-    params ``fit`` hands it, every ``period`` epochs."""
+    params ``fit`` hands it, every ``period`` epochs, written on the
+    snapshot writer's thread while the next epoch runs."""
     from .model import save_checkpoint
     period = int(max(1, period))
 
     def _callback(iter_no, sym, arg, aux):
         if (iter_no + 1) % period == 0:
-            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux,
+                            async_write=True)
     return _callback
 
 

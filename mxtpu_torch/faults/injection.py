@@ -129,10 +129,7 @@ POINTS = {
 #: the points of :data:`POINTS` whose seam the port does not have yet,
 #: with the slice (ROADMAP section A) that brings it: a schedule may name
 #: them, and they never fire here
-UNREACHED = {
-    "elastic.snapshot.write": "A.12 (elastic)",
-    "elastic.snapshot.fsync_rename": "A.12 (elastic)",
-}
+UNREACHED = {}
 
 _KINDS = ("raise", "errno", "latency", "kill")
 

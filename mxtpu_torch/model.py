@@ -8,16 +8,15 @@ rules (``_create_kvstore`` :20, ``_initialize_kvstore`` :45,
 checkpoint part (``_checkpoint_manifest`` :81, ``save_checkpoint`` :100,
 ``load_checkpoint`` :142), in mxtpu's formats, so a checkpoint written by
 either package loads in the other, and the legacy ``FeedForward``
-(:157-273) over the port's ``Module``. Writes are synchronous: mxtpu's
-``async_write`` goes through its elastic snapshot writer, which is not
-ported, so asking for it raises, and ``wait_checkpoints`` returns at
-once.
+(:157-273) over the port's ``Module``. ``async_write`` hands the params
+to the elastic snapshot writer (``elastic/snapshot.py``), which writes
+them on its thread; ``wait_checkpoints`` (and ``load_checkpoint``) drain
+it first.
 """
 from __future__ import annotations
 
 import json
 import logging
-import os
 import time
 from collections import namedtuple
 
@@ -115,43 +114,37 @@ def checkpoint_manifest(save_dict, epoch):
     }
 
 
-def _write_atomic(path, data):
-    """tmp + fsync + rename: the file has either all of ``data`` or its
-    previous content."""
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
-def refuse_async(async_write):
-    if async_write:
-        raise MXNetError("save_checkpoint(async_write=True) needs the "
-                         "elastic snapshot writer, which is not ported yet "
-                         "(ROADMAP A.12); write synchronously")
-
-
-def save_params(param_name, epoch, arg_params, aux_params):
-    """``param_name`` (arg:/aux: names) and its manifest."""
+def save_params(param_name, epoch, arg_params, aux_params,
+                async_write=False):
+    """``param_name`` (arg:/aux: names) and its manifest; with
+    ``async_write`` both on the snapshot writer's thread."""
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    manifest = checkpoint_manifest(save_dict, epoch)
+    if async_write:
+        from . import elastic as _elastic
+        _elastic.async_save_ndarrays(
+            param_name, save_dict, manifest=manifest,
+            on_done=lambda job: logging.info('Saved checkpoint to "%s"',
+                                             param_name))
+        return
+    from .elastic.durable import write_atomic
     nd.save(param_name, save_dict)
-    _write_atomic(param_name + ".manifest.json", json.dumps(
-        checkpoint_manifest(save_dict, epoch), indent=1).encode())
+    write_atomic(param_name + ".manifest.json",
+                 json.dumps(manifest, indent=1).encode())
     logging.info('Saved checkpoint to "%s"', param_name)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
                     async_write=False):
     """prefix-symbol.json + prefix-%04d.params + the manifest (parity
-    model.py:340)."""
-    refuse_async(async_write)
+    model.py:340). ``async_write``: the params are captured without
+    waiting for the card and written on the snapshot writer's thread
+    (``wait_checkpoints`` drains it)."""
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
     save_params("%s-%04d.params" % (prefix, epoch), epoch, arg_params,
-                aux_params)
+                aux_params, async_write=async_write)
 
 
 def split_params(save_dict, fname):
@@ -169,16 +162,19 @@ def split_params(save_dict, fname):
 
 
 def load_checkpoint(prefix, epoch):
-    """(symbol, arg_params, aux_params), the params as cpu() NDArrays."""
+    """(symbol, arg_params, aux_params), the params as cpu() NDArrays,
+    after any async write in flight."""
+    wait_checkpoints(prefix)
     symbol = sym.load("%s-symbol.json" % prefix)
     fname = "%s-%04d.params" % (prefix, epoch)
     return (symbol,) + split_params(nd.load(fname), fname)
 
 
 def wait_checkpoints(prefix=None):
-    """Block until pending checkpoint writes are durable: the port writes
-    synchronously, so there is never one."""
+    """Block until pending async checkpoint writes are durable."""
     del prefix
+    from .elastic import snapshot as _snap
+    _snap.flush_pending()
 
 
 class FeedForward:

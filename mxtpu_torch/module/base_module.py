@@ -20,10 +20,20 @@ pipeline knobs (``max_in_flight``, ``metric_sync``, ``device_metrics``,
 ``device_prefetch``) resolve through ``tune`` as mxtpu's do (:210-240):
 default < ``tuned`` artifact < env < explicit argument, recorded in
 ``self._fit_knobs``; an active ``tune.online`` controller may move the
-in-flight window inside its certified range while the fit runs. The
-knobs of mxtpu's fit that the port does not have yet (``elastic``,
-``resume``: ROADMAP A.12) raise MXNetError when set, rather than being
-ignored. ``health`` (mxtpu :360-380, 534-560) arms the training-health
+in-flight window inside its certified range while the fit runs.
+``elastic`` and ``resume`` (mxtpu :259-289, 338-352, 449-502, 560-570,
+624-628; ``elastic/``) arm the async snapshots of an ``ElasticSession``
+and restore a generation after bind/init: a mid-epoch resume keeps the
+restored metric sums and iterator cursor through the epoch top, or
+replays and discards the epoch head where the iterator has no cursor;
+the session's ``pre_lookahead`` runs before the lookahead fetch and its
+``on_step`` after the step's cadence work and before the batch
+callbacks (where a supervisor's wedge or SIGTERM surfaces), its
+``on_epoch`` after ``train_data.reset()``; a fit that returns leaves
+every snapshot and async checkpoint durable. Epoch-end callbacks that
+read the device state themselves (``_needs_host_params`` False:
+``callback.module_checkpoint``) get no host copy of the params.
+``health`` (mxtpu :360-380, 534-560) arms the training-health
 rows of the fused step (``obs/health.py``): they ride the metric
 accumulator's cadence transfer, and the detectors run on each cadence;
 without a fused step it is disarmed with a log line. Diagnostics as
@@ -83,16 +93,6 @@ def _as_list(obj):
     if obj is None:
         return []
     return list(obj) if isinstance(obj, (list, tuple)) else [obj]
-
-
-_UNPORTED_FIT = ("elastic", "resume")
-
-
-def refuse_unported(**knobs):
-    """Raise MXNetError for a knob of mxtpu's fit the port lacks."""
-    for name in _UNPORTED_FIT:
-        if knobs.get(name) not in (None, False):
-            raise MXNetError("fit(%s=...) is not ported yet" % name)
 
 
 def _metric_sync(callbacks, tuned=None):
@@ -320,8 +320,29 @@ class BaseModule:
         artifact is refused. ``health``: arm the device-resident
         training-health rows and the detector suite (``obs/health.py``);
         ``None`` defers to ``MXTPU_HEALTH``; they ride the metric-sync
-        cadence, adding no host round trip."""
-        refuse_unported(elastic=elastic, resume=resume)
+        cadence, adding no host round trip. ``elastic``: a prefix string,
+        an ``elastic.ElasticConfig`` or its kwargs dict (``None`` reads
+        ``MXTPU_ELASTIC``, ``False`` disables): snapshot the train state
+        asynchronously at its cadence. ``resume``: ``True`` resumes the
+        elastic prefix's newest durable generation (a fresh start when
+        there is none), or a prefix / manifest path; the resumed fit is
+        bit-exact on weights against an uninterrupted run."""
+        from .. import elastic as _elastic
+        el_cfg = _elastic.ElasticConfig.resolve(elastic)
+        resume_state = None
+        if resume:
+            spec = resume
+            if resume is True:
+                if el_cfg is None:
+                    raise MXNetError(
+                        "fit(resume=True) needs elastic= (or MXTPU_ELASTIC)"
+                        " to name the checkpoint prefix")
+                spec = el_cfg.prefix
+            resume_state = _elastic.load_resume(spec)
+            if resume_state is None:
+                self.logger.info(
+                    "fit(resume): no durable generation at %r — starting "
+                    "fresh", spec)
         tuned = _tune.artifact(tuned)
         max_in_flight = _tune.resolve_int(
             "fit.max_in_flight", explicit=max_in_flight, artifact=tuned,
@@ -356,7 +377,7 @@ class BaseModule:
                           force_init, begin_epoch, num_epoch,
                           validation_metric, monitor, max_in_flight,
                           metric_sync, device_metrics, device_prefetch,
-                          tuned_metric_sync, health)
+                          tuned_metric_sync, health, el_cfg, resume_state)
         except Exception as exc:
             # a fatal training exception: capture the flight ring, the
             # ledger and the engine state before the stack unwinds. An
@@ -374,7 +395,8 @@ class BaseModule:
              arg_params, aux_params, allow_missing, force_rebind,
              force_init, begin_epoch, num_epoch, validation_metric, monitor,
              max_in_flight, metric_sync, device_metrics, device_prefetch,
-             tuned_metric_sync=None, health=None):
+             tuned_metric_sync=None, health=None, el_cfg=None,
+             resume_state=None):
         if num_epoch is None:
             raise MXNetError("fit: please specify num_epoch")
         initializer = initializer or Uniform(0.01)
@@ -399,6 +421,21 @@ class BaseModule:
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _metric.create(eval_metric)
+        # elastic resume: applied AFTER bind/init, so set_params writes
+        # the restored values into the bound arrays and the restored RNG
+        # streams are not consumed by the (overwritten) initializer draws
+        from .. import elastic as _elastic
+        el_session = None
+        restored_iter = False
+        if resume_state is not None:
+            restored_iter = _elastic.apply_resume(
+                self, resume_state, eval_metric=eval_metric,
+                train_data=train_data)
+            begin_epoch = max(begin_epoch, resume_state.begin_epoch)
+        if el_cfg is not None:
+            el_session = _elastic.ElasticSession(
+                self, el_cfg, logger=self.logger,
+                resume_state=resume_state)
         accum = _metric.DeviceMetricAccum.wrap(eval_metric) \
             if device_metrics else None
         eval_metric._device_accum = accum
@@ -466,11 +503,26 @@ class BaseModule:
         try:
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
-                eval_metric.reset()
-                if accum is not None:
-                    accum.reset()
+                # a mid-epoch resume continues THIS epoch: the restored
+                # metric sums and iterator cursor survive its top once
+                resumed_here = (resume_state is not None
+                                and not resume_state.epoch_boundary
+                                and epoch == resume_state.epoch)
+                if not resumed_here:
+                    eval_metric.reset()
+                    if accum is not None:
+                        accum.reset()
                 data_iter = iter(train_data)
                 nbatch = 0
+                if resumed_here:
+                    nbatch = resume_state.start_nbatch
+                    if not restored_iter:
+                        # an iterator without a cursor: replay the epoch
+                        # head and discard it (same order, no training,
+                        # no RNG draws)
+                        for _ in range(nbatch):
+                            if next(data_iter, None) is None:
+                                break
                 epoch_samples = 0
                 data_batch = next(data_iter, None)
                 while data_batch is not None:
@@ -486,6 +538,11 @@ class BaseModule:
                     if health_session is not None:
                         # fold the step's device rows (no transfer)
                         health_session.on_step()
+                    if el_session is not None:
+                        # BEFORE the lookahead fetch below: the only
+                        # point where the iterator's cursor still reads
+                        # "batches 0..nbatch consumed"
+                        el_session.pre_lookahead(train_data, epoch, nbatch)
                     if data_batch.data:
                         epoch_samples += data_batch.data[0].shape[0] - \
                             (data_batch.pad or 0)
@@ -525,9 +582,16 @@ class BaseModule:
                     elif health_session is not None and cadence_now:
                         health_session.sync_direct()
                     if health_session is not None and cadence_now:
+                        # the detectors run BEFORE el_session.on_step
+                        # below, so a rollback aborts before a snapshot
+                        # of the diverged state
                         health_session.on_cadence(eval_metric)
                     if monitor is not None:
                         monitor.toc_print()
+                    if el_session is not None:
+                        # the cadence snapshot point, and where the
+                        # supervisor's wedge or SIGTERM surfaces
+                        el_session.on_step(eval_metric, accum, train_data)
                     for callback in callbacks:
                         callback(BatchEndParam(epoch, nbatch, eval_metric,
                                                locals()))
@@ -543,13 +607,18 @@ class BaseModule:
                 epochs_done.inc()
                 if toc > tic:
                     sps_gauge.set(epoch_samples / (toc - tic))
+                # a callback that reads the device state itself
+                # (module_checkpoint) needs no host copy of the params
                 epoch_cbs = _as_list(epoch_end_callback)
-                if epoch_cbs or self._host_round_trip():
+                need_host = any(getattr(cb, "_needs_host_params", True)
+                                for cb in epoch_cbs)
+                arg_params = aux_params = None
+                if need_host or self._host_round_trip():
                     arg_params, aux_params = self.get_params()
                     if self._host_round_trip():
                         self.set_params(arg_params, aux_params)
-                    for callback in epoch_cbs:
-                        callback(epoch, self.symbol, arg_params, aux_params)
+                for callback in epoch_cbs:
+                    callback(epoch, self.symbol, arg_params, aux_params)
                 if eval_data:
                     if accum is not None:
                         accum.last_snapshot = None
@@ -566,6 +635,12 @@ class BaseModule:
                         self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                          name, val)
                 train_data.reset()
+                if el_session is not None:
+                    el_session.on_epoch(epoch, eval_metric, train_data)
+            # fit returning implies its snapshots and async checkpoints
+            # are durable
+            from ..elastic import snapshot as _snapshot
+            _snapshot.flush_pending()
         finally:
             eval_metric._device_accum = None
             if health_session is not None:

@@ -357,6 +357,7 @@ class FusedTrainStep:
                           if ex0.grad_req.get(n, "null") != "null"
                           and n in ex0.grad_dict]
         self._executors = list(executors)
+        self._param_names = list(param_names)
         self._install_program(executors, module, graph_shapes, graph_types)
         self.params = [{n: ex.arg_dict[n]._data for n in self.trainable}
                        for ex in executors]
@@ -420,6 +421,7 @@ class FusedTrainStep:
         self._h = None   # the armed health plan (see arm_health)
         self._tap_sink = {}
         self._mem_slot = None
+        self._snap = None  # the snapshot clones (export_device_state)
         if state is None:
             self._account_memory()
 
@@ -700,6 +702,171 @@ class FusedTrainStep:
                         src = _state_rows(src, n_rows, self._data_pos[r])
                     _copy_state(st[n], src, n)
 
+    # ------------------------------------------------ elastic state seam
+    def opt_spec(self, name):
+        """The plan's spec of ``name``'s optimizer state (replicated
+        without a plan): what the snapshot manifest records."""
+        from ..sharding import PartitionSpec
+        return self._plan.opt_spec(name) if self._plan is not None \
+            else PartitionSpec()
+
+    @property
+    def splits_params(self):
+        """Whether each replica holds blocks of some parameters (a mesh
+        with tp or fsdp axes): no snapshot of the device state then."""
+        return self._layout is not None and bool(self._layout.specs)
+
+    def row_block_replicas(self):
+        """The replicas of the first data group in row-block order: the
+        holders of the row blocks of the state kept by rows."""
+        return sorted(self._data_groups[0], key=self._data_pos.__getitem__)
+
+    def export_device_state(self):
+        """Copies of (params, aux, opt_state) on their devices — the
+        elastic capture point (mxtpu's ``export_device_state``,
+        docs/elastic.md). The parameters and aux states are the first
+        replica's (every parameter the module names, fixed ones too);
+        ``opt_state`` is a per-replica list holding every state of the
+        first replica and, for the state kept by rows, each row block's
+        holder (``row_block_replicas``). On the card each device's
+        values are cloned in ONE ``torch._foreach_copy_`` on its current
+        stream, after the step that made them, into a buffer set reused
+        from call to call (one flat buffer per dtype, the ledger's
+        ``elastic_snapshot`` slot): the next step's in-place update
+        cannot reach the clones, which stay valid until the next call.
+        The copy first waits (on the card, not the host) for the
+        previous ``export_host_state``'s copies out of the buffers. On
+        the CPU the values are plain copies."""
+        if self.splits_params:
+            raise MXNetError(
+                "an elastic snapshot of a mesh that splits parameters "
+                "(tp, fsdp) is not ported: each replica holds blocks of "
+                "them; snapshot on a data-only mesh")
+        ex0 = self._executors[0]
+        p = {n: ex0.arg_dict[n]._data for n in self._param_names}
+        a = {n: v._data for n, v in ex0.aux_dict.items()}
+        sharded = set(self.sharded_names)
+        holders = self.row_block_replicas()
+        o = [{} for _ in self.opt_state]
+        for n in self.trainable:
+            o[0][n] = self.opt_state[0][n]
+            if n in sharded:
+                for r in holders:
+                    o[r][n] = self.opt_state[r][n]
+        srcs = list(p.values()) + list(a.values()) + \
+            [x for st in o for v in st.values() for x in state_leaves(v)]
+        return self._rebuild(p, a, o, self._clone(srcs))
+
+    def export_host_state(self):
+        """``export_device_state`` with its copies started to pinned host
+        memory: ``(params, aux, opt_state, ready)`` of host tensors, valid
+        once every CUDA event of ``ready`` has completed (on the CPU,
+        plain copies and no event). On the card one ``non_blocking``
+        copy a flat buffer runs on the device's copy stream after the
+        clones; nothing here waits for the card."""
+        p, a, o = self.export_device_state()
+        snap = self._snap
+        if snap is None:
+            return p, a, o, []
+        from ..elastic.snapshot import stage_to_host
+        host, ready = stage_to_host(snap["flats"])
+        snap["in_use"] = ready
+        views = [host[i][off:off + t.numel()].view(t.shape)
+                 for t, (i, off) in zip(snap["views"], snap["where"])]
+        p, a, o = self._rebuild(p, a, o, views)
+        return p, a, o, ready
+
+    @staticmethod
+    def _rebuild(p, a, o, leaves):
+        """(params, aux, opt) of the same structure over ``leaves``."""
+        it = iter(leaves)
+        p = {n: next(it) for n in p}
+        a = {n: next(it) for n in a}
+        o = [{n: unflatten_state(v, [next(it) for _ in state_leaves(v)])
+              for n, v in st.items()} for st in o]
+        return p, a, o
+
+    def _clone(self, srcs):
+        """Copies of ``srcs``: on the card into the reused flat buffers
+        (made at the first call and whenever the shapes change), one
+        ``_foreach_copy_`` per device; on the CPU fresh copies."""
+        if not srcs or srcs[0].device.type != "cuda":
+            self._snap = None
+            return [t.detach().clone() for t in srcs]
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in srcs)
+        snap = self._snap
+        if snap is None or snap["key"] != key:
+            snap = self._snap = self._snapshot_buffers(srcs, key)
+        by_dev = {}
+        for t, v in zip(srcs, snap["views"]):
+            by_dev.setdefault(t.device, ([], []))
+            by_dev[t.device][0].append(v)
+            by_dev[t.device][1].append(t.detach())
+        with torch.no_grad():
+            for dev, (dst, src) in by_dev.items():
+                stream = torch.cuda.current_stream(dev)
+                for ev in snap["in_use"]:
+                    stream.wait_event(ev)
+                with torch.cuda.device(dev):
+                    torch._foreach_copy_(dst, src)
+        snap["in_use"] = []
+        return snap["views"]
+
+    def _snapshot_buffers(self, srcs, key):
+        """One flat buffer per (device, dtype) and each source's view."""
+        from .. import diagnostics as _diag
+        sizes = {}
+        where = []
+        for t in srcs:
+            k = (t.device, t.dtype)
+            where.append((k, sizes.get(k, 0)))
+            sizes[k] = sizes.get(k, 0) + t.numel()
+        order = list(sizes)
+        flats = [torch.empty(sizes[k], dtype=k[1], device=k[0])
+                 for k in order]
+        index = {k: i for i, k in enumerate(order)}
+        where = [(index[k], off) for k, off in where]
+        views = [flats[i][off:off + t.numel()].view(t.shape)
+                 for t, (i, off) in zip(srcs, where)]
+        if _diag.mem_enabled():
+            for f in flats:
+                _diag.ledger().track(f, origin="elastic_snapshot",
+                                     ctx=_diag.device_label(f.device))
+        return {"key": key, "flats": flats, "views": views,
+                "where": where, "in_use": []}
+
+    def stage_opt_leaves(self, name, leaves):
+        """Adopt restored optimizer-state leaves for ``name`` (checkpoint
+        resume), in place on every replica. A leaf is a host array of the
+        whole state, or an object with ``rows(start, stop)`` giving those
+        rows of it (the saved row blocks); the state kept by rows takes
+        each replica's block, the rest the whole leaf. The live dtypes
+        stay (f32 masters stay f32)."""
+        cur = state_leaves(self.opt_state[0][name])
+        if len(cur) != len(leaves):
+            raise ValueError(
+                "opt-state restore for %r: %d leaves saved, %d live"
+                % (name, len(leaves), len(cur)))
+        by_rows = name in set(self.sharded_names)
+
+        def rows(leaf, start, stop):
+            if hasattr(leaf, "rows"):
+                return leaf.rows(start, stop)
+            return np.asarray(leaf)[start:stop]
+        with torch.no_grad():
+            for r, st in enumerate(self.opt_state):
+                for dst, leaf in zip(state_leaves(st[name]), leaves):
+                    k = dst.shape[0] if dst.dim() else None
+                    if by_rows:
+                        pos = self._data_pos[r]
+                        src = rows(leaf, pos * k, (pos + 1) * k)
+                    elif hasattr(leaf, "rows"):
+                        src = leaf.rows(0, k)
+                    else:
+                        src = leaf
+                    dst.copy_(torch.as_tensor(np.asarray(src)).reshape(
+                        dst.shape))
+
     def _account_memory(self):
         """The ledger's ``fused_step`` slot of the first replica's device:
         this step's optimizer state and health scratch (the parameters
@@ -853,6 +1020,30 @@ class FusedTrainStep:
                 taps = self._tap_sink.pop("taps", None)
                 if taps is not None:
                     self.last_health["taps"] = taps
+
+
+def state_leaves(state):
+    """An optimizer state's arrays in order: None -> [], an array ->
+    [it], a tuple -> its members' (``jax.tree.leaves`` over mxtpu's)."""
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [x for s in state for x in state_leaves(s)]
+    return [state]
+
+
+def unflatten_state(template, leaves):
+    """``template``'s structure over ``leaves`` (inverse of
+    ``state_leaves``)."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            return tuple(build(x) for x in t)
+        return next(it)
+    return build(template)
 
 
 def _map_state(fn, *states):

@@ -69,8 +69,18 @@ mxtpu/module/module.py:101-146, 699-744) write mxtpu's files:
 ``-symbol.json`` and ``.params`` load in either package, bit for bit.
 A ``.states`` file is a pickle of ``{index: numpy state}``, which the
 port's update paths read and write (through the kvstore when it
-updates); it is not interchangeable with mxtpu's, whose fused step
-pickles its own state tree.
+updates); the fused step's loads in mxtpu's fused step and back (under
+a plan, the row blocks gathered to full size). ``async_write`` (mxtpu
+:110-145, 698-740) routes the params and the states through the elastic
+snapshot writer: with the fused step armed the values are cloned on the
+card and copied to pinned memory on a copy stream, and serialized on
+the writer thread; under a plan that keeps optimizer state by rows the
+states are then mxtpu's ``mxtpu-opt-states-sharded-1`` JSON manifest
+with an nd data file of each replica's row blocks, nothing gathered
+(``elastic.save_sharded_opt_states``). On a mesh that splits the
+parameters themselves (tp, fsdp) the async write takes the assembled
+host values. ``model.wait_checkpoints`` drains the writer, and
+``load_optimizer_states`` waits for it, then reads either form.
 """
 from __future__ import annotations
 
@@ -181,37 +191,81 @@ class Module(BaseModule):
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
                         async_write=False):
         """``prefix-symbol.json``, ``prefix-%04d.params`` and its
-        manifest, and with ``save_optimizer_states`` ``prefix-%04d.states``,
-        written synchronously (``async_write`` raises: not ported)."""
-        _model.refuse_async(async_write)
+        manifest, and with ``save_optimizer_states`` ``prefix-%04d.states``.
+        ``async_write`` writes the params and states on the elastic
+        snapshot writer: with the fused step armed they are captured
+        from the card (``export_host_state``) without waiting for it."""
         self._symbol.save("%s-symbol.json" % prefix)
-        arg_params, aux_params = self.get_params()
-        _model.save_params("%s-%04d.params" % (prefix, epoch), epoch,
-                           arg_params, aux_params)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        if async_write:
+            from .. import elastic as _elastic
+            if self._fused is not None and not self._fused.splits_params:
+                # the first replica's values, as get_params gives them
+                arg, aux, _o, ready = self._fused.export_host_state()
+                save_dict = {("arg:%s" % k): v for k, v in arg.items()}
+                save_dict.update({("aux:%s" % k): v
+                                  for k, v in aux.items()})
+                _elastic.writer().submit(_elastic.SnapshotJob(
+                    "ndsave", save_dict, data_path=param_name,
+                    manifest=_model.checkpoint_manifest(save_dict, epoch),
+                    ready=ready, label=os.path.basename(param_name)))
+            else:
+                _model.save_checkpoint(prefix, epoch, None,
+                                       *self.get_params(), async_write=True)
+        else:
+            arg_params, aux_params = self.get_params()
+            _model.save_params(param_name, epoch, arg_params, aux_params)
         if save_optimizer_states:
             state_name = "%s-%04d.states" % (prefix, epoch)
-            self.save_optimizer_states(state_name)
+            self.save_optimizer_states(state_name, async_write=async_write)
             self.logger.info('Saved optimizer state to "%s"', state_name)
 
-    def save_optimizer_states(self, fname):
-        """Pickle of ``{index: numpy state}`` from the fused step, the
-        kvstore's updater or the Updater, whichever updates."""
+    def save_optimizer_states(self, fname, async_write=False):
+        """The optimizer state of the fused step, the kvstore's updater or
+        the Updater, whichever updates: a pickle of ``{index: numpy
+        state}``. ``async_write`` writes the fused step's on the snapshot
+        writer: the pickle, or under a plan that keeps state by rows the
+        sharded manifest with each replica's row blocks."""
         assert self.optimizer_initialized
-        if self._fused is None and self._update_on_kvstore:
+        fused = self._fused
+        if fused is not None:
+            if async_write:
+                from .. import elastic as _elastic
+                if fused.splits_params:
+                    blob = pickle.dumps(fused.export_opt_state())
+                    _elastic.writer().submit(_elastic.SnapshotJob(
+                        "bytes", {}, data_path=fname,
+                        assemble=lambda _host: blob,
+                        label=os.path.basename(fname)))
+                elif fused.sharded_names:
+                    _elastic.save_sharded_opt_states(fname, fused,
+                                                     async_write=True)
+                else:
+                    _elastic.async_save_opt_states_pickle(fname, fused)
+                return
+            with open(fname, "wb") as f:
+                f.write(pickle.dumps(fused.export_opt_state()))
+        elif self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
-            return
-        with open(fname, "wb") as f:
-            f.write(pickle.dumps(self._fused.export_opt_state())
-                    if self._fused is not None
-                    else self._updater.get_states())
+        else:
+            with open(fname, "wb") as f:
+                f.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
+        """Load what ``save_optimizer_states`` wrote (either package's),
+        after any async write in flight."""
         assert self.optimizer_initialized
+        _model.wait_checkpoints()
         if self._fused is None and self._update_on_kvstore:
             self._kvstore.load_optimizer_states(fname)
             return
         with open(fname, "rb") as f:
-            states = pickle.loads(f.read())
+            raw = f.read()
+        if self._fused is not None and raw[:1] == b"{":
+            from .. import elastic as _elastic
+            _elastic.load_sharded_opt_states(fname, self._fused)
+            return
+        states = pickle.loads(raw)
         if self._fused is not None:
             self._fused.import_opt_state(states)
         else:

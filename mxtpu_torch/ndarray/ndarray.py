@@ -635,11 +635,14 @@ def host_copies(tensors):
 
 
 def _raw_bytes(t):
-    """(numpy name of the dtype, the tensor's bytes) of a host tensor."""
+    """(numpy name of the dtype, a contiguous numpy view of the bytes) of
+    a host tensor or numpy array."""
+    if isinstance(t, _np.ndarray):
+        return t.dtype.name, _np.ascontiguousarray(t)
     t = t.contiguous()
     if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
-        return "bfloat16", t.view(torch.int16).numpy().tobytes()
-    return dtype_name(t.dtype), t.numpy().tobytes()
+        return "bfloat16", t.view(torch.int16).numpy()
+    return dtype_name(t.dtype), t.numpy()
 
 
 def save(fname, data):
@@ -650,16 +653,26 @@ def save(fname, data):
     items = list(data.items()) if isinstance(data, dict) else \
         [("", v) for v in data]
     host = host_copies([getattr(v, "_data", v) for _, v in items])
+    save_host(fname, [(name, t) for (name, _), t in zip(items, host)])
+
+
+def save_host(fname, items):
+    """``save``'s file from ``[(name, host array)]`` (cpu tensors or numpy
+    arrays), written from the arrays' own memory without another copy:
+    the caller's arrays are already its own (the elastic snapshot
+    writer's)."""
     with open(fname, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<q", len(items)))
-        for (name, _), t in zip(items, host):
+        for name, t in items:
             dtype, raw = _raw_bytes(t)
             hdr = json.dumps({"shape": list(t.shape),
                               "dtype": dtype}).encode()
-            for chunk in (name.encode(), hdr, raw):
+            for chunk in (name.encode(), hdr):
                 f.write(struct.pack("<q", len(chunk)))
                 f.write(chunk)
+            f.write(struct.pack("<q", raw.nbytes))
+            f.write(memoryview(raw.reshape(-1)).cast("B"))
 
 
 def _from_raw(raw, dtype, shape):

@@ -101,18 +101,10 @@ def _writer_file():
         os.makedirs(os.path.dirname(path), exist_ok=True)
         f = open(path, "a", encoding="utf-8")
         if fresh:
-            _fsync_dir(path)  # the file's creation itself is durable
+            from ..elastic.durable import fsync_dir
+            fsync_dir(path)  # the file's creation itself is durable
         _FILE = (path, f)
         return f
-
-
-def _fsync_dir(path):
-    """fsync the directory holding ``path`` (its new entry is durable)."""
-    fd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
 
 
 def _append(row):

@@ -54,10 +54,11 @@ def _finite(x):
 
 class HealthPolicy:
     """What a confirmed divergence does. ``warn`` (default) emits the
-    Finding / counter / flight event and moves on; ``rollback`` (mxtpu's
-    abort-and-restore through the elastic supervisor) needs the elastic
-    generations of ROADMAP A.12: the port refuses it with MXNetError at
-    fit start (``HealthSession``)."""
+    Finding / counter / flight event and moves on; ``rollback`` — armed
+    by ``MXTPU_HEALTH_ACTION=rollback`` — additionally fires the
+    watchdog's action seam (``diagnostics.fire_actions``), so an attached
+    elastic ``Supervisor`` aborts the fit before it snapshots the
+    diverged state and restores the last good generation."""
 
     ACTIONS = ("warn", "rollback")
 

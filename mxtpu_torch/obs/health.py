@@ -23,7 +23,9 @@ On the host side of each cadence the deterministic
 :class:`~mxtpu_torch.obs.detectors.DetectorSuite` turns the stats and the
 metric's window loss into Findings, ``health_anomalies{kind}`` counters,
 flight events and a postmortem on divergence. ``MXTPU_HEALTH_ACTION=
-rollback`` needs the elastic generations of ROADMAP A.12 and is refused.
+rollback`` also fires the watchdog's action seam: an elastic
+``Supervisor`` aborts the fit before it snapshots the diverged state and
+retries from the last good generation (``elastic/``).
 
 Arm with ``Module.fit(health=True)`` or ``MXTPU_HEALTH=1``; tune via
 ``health.cadence`` / ``health.window`` / ``health.spike_k``. Surfaces:
@@ -37,7 +39,6 @@ import os
 
 from .. import telemetry as _tel
 from ..analysis import concurrency as _conc
-from ..base import MXNetError
 from .detectors import DetectorSuite, HealthPolicy
 
 __all__ = ["HealthAccum", "HealthSession", "HealthPolicy",
@@ -194,11 +195,6 @@ class HealthSession:
     def __init__(self, fused, monitor=None, detect=True, logger=None):
         from ..tune import registry as _knobs
         self.policy = HealthPolicy.from_env()
-        if self.policy.action == "rollback":
-            raise MXNetError(
-                "MXTPU_HEALTH_ACTION=rollback restores the last good "
-                "elastic generation, which the port gains with ROADMAP "
-                "A.12 (elastic); use 'warn'")
         self.fused = fused
         self.monitor = monitor
         self.detect = bool(detect)
@@ -379,8 +375,11 @@ class HealthSession:
         return _san.trip_count()
 
     def _act(self, finding):
-        """The divergence action: a postmortem, unless the sanitizer
-        already captured one for the same nonfinite this window."""
+        """The divergence action: a postmortem (unless the sanitizer
+        already captured one for the same nonfinite this window), then
+        the rollback seam if armed (mxtpu :372-390): the supervisor's
+        watchdog action flags a wedge, and the fit aborts at this step's
+        ``ElasticSession.on_step``, before its snapshot."""
         from .. import diagnostics as _diag
         if self._sanitizer_trips() == self._san_trips:
             _diag.postmortem("health: %s" % finding.message,
@@ -389,6 +388,12 @@ class HealthSession:
             self.logger.info(
                 "training health: sanitizer already captured this "
                 "window's nonfinite — skipping the duplicate postmortem")
+        if self.policy.action == "rollback":
+            reason = "health divergence: %s" % finding.message
+            self.logger.warning(
+                "training health: rollback armed — firing the "
+                "supervisor action seam (%s)", reason)
+            _diag.fire_actions(reason)
 
     def _refresh_panel(self, stats, loss):
         anomalies = {}

@@ -266,7 +266,6 @@ class DecodeSession:
                  kv_blocks=None, clock=None, trace_sample=None):
         from ... import tune as _tune
         self.metrics = MetricsRegistry(namespace="mxtpu_decode")
-        _diag.on_session_start()
         # the session clock: EVERY request-latency stamp (enqueue,
         # admission, token retire, deadline) reads this one callable, so
         # tests inject a deterministic clock and assert exact TTFT/TBT
@@ -493,6 +492,10 @@ class DecodeSession:
                                fn=lambda: self.arena.blocks_free)
             self.metrics.gauge("decode_kv_block_occupancy",
                                fn=lambda: self.arena.block_occupancy)
+        # the watchdog/signal hold is taken only once nothing above can
+        # raise: a refused session (no CUDA device, a bad argument) must
+        # not keep the process's SIGUSR2 handler from its next fit
+        _diag.on_session_start()
         self._worker = self._spawn_worker()
 
     # --------------------------------------------------------- versions

@@ -67,13 +67,13 @@ PORTED = frozenset(("fit.max_in_flight", "fit.metric_sync",
                     "decode.slot_capacity", "decode.max_new_tokens_default",
                     "decode.join_watermark", "decode.block_size",
                     "decode.max_blocks_per_seq",
-                    "decode.prefill_chunk_tokens"))
+                    "decode.prefill_chunk_tokens",
+                    "elastic.every_n_steps", "elastic.epoch_period",
+                    "elastic.keep"))
 
 #: where each unread knob's reader comes in (ROADMAP section A), by
 #: name or by subsystem prefix
-_READ_LATER = (
-    ("elastic.", "A.12 (elastic)"),
-)
+_READ_LATER = ()
 
 
 def unread_by(name):

@@ -246,18 +246,47 @@ def test_kill_and_resume_is_bit_exact(mt, tmp_path, model, path):
 
 
 def test_async_write_raises(mt, tmp_path):
+    """``async_write`` no longer raises: the Module's and
+    ``model.save_checkpoint``'s async writes land through the snapshot
+    writer, with the manifest and the optimizer states, and load in
+    both packages bit for bit."""
     mod = mt.mod.Module(mt.models.get_mlp(4), context=mt.cpu(),
                         logger=_quiet())
     mod.bind(data_shapes=[("data", (2, 5))],
              label_shapes=[("softmax_label", (2,))])
     mod.init_params()
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    assert mod._fused is not None
     prefix = str(tmp_path / "a")
-    with pytest.raises(mt.MXNetError, match="async"):
-        mod.save_checkpoint(prefix, 1, async_write=True)
-    with pytest.raises(mt.MXNetError, match="async"):
-        mt.model.save_checkpoint(prefix, 1, mod.symbol, *mod.get_params(),
-                                 async_write=True)
-    assert not os.listdir(tmp_path)  # nothing was written
+    mod.save_checkpoint(prefix, 1, save_optimizer_states=True,
+                        async_write=True)
+    mt.model.save_checkpoint(str(tmp_path / "b"), 1, mod.symbol,
+                             *mod.get_params(), async_write=True)
+    mt.model.wait_checkpoints()
+    live = mod.get_params()[0]
+    for p in (prefix, str(tmp_path / "b")):
+        for load in (mt.model.load_checkpoint, mx.model.load_checkpoint):
+            _, args, _ = load(p, 1)
+            assert sorted(args) == sorted(live)
+            for k, v in args.items():
+                np.testing.assert_array_equal(v.asnumpy(),
+                                              live[k].asnumpy(), err_msg=k)
+        man = json.load(open(p + "-0001.params.manifest.json"))
+        assert man["format"] == "mxtpu-checkpoint-1"
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+    mod.load_optimizer_states(prefix + "-0001.states")
+    theirs = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                context=mx.cpu())
+    theirs.bind(data_shapes=[("data", (2, 5))],
+                label_shapes=[("softmax_label", (2,))])
+    theirs.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    got = theirs._fused.export_opt_state()
+    want = mod._fused.export_opt_state()
+    assert sorted(got) == sorted(want)
+    for idx in want:
+        np.testing.assert_array_equal(got[idx], want[idx])
 
 
 def test_do_checkpoint_and_params_files(mt, tmp_path):

@@ -3458,3 +3458,237 @@ def test_swap_with_batches_in_flight_answers_from_the_old_weights(cuda):
                               direct("b"))
     finally:
         sess.close()
+
+
+# ---------------------------------------------------------------- elastic
+def _elastic_mlp(mt, seed=0, n=192, batch=64):
+    """The mlp (784-128-64-10) and ``n`` seeded examples."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n, 784).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.float32)
+    return mt.io.NDArrayIter(x, y, batch_size=batch,
+                             label_name="softmax_label")
+
+
+def _elastic_fit(mt, ctx=None, kill_at=None, **kw):
+    """The mlp fit on gpu(0) (or ``ctx``) with Adam; ``kill_at`` raises
+    RuntimeError from the batch callback after that many steps."""
+    import numpy as np
+    mod = mt.mod.Module(mt.models.mlp.get_symbol(10),
+                        context=ctx or mt.gpu(0))
+    np.random.seed(3)
+    mt.random.seed(3)
+    steps = [0]
+
+    def cb(param):
+        steps[0] += 1
+        if kill_at is not None and steps[0] >= kill_at:
+            raise RuntimeError("killed")
+    try:
+        mod.fit(_elastic_mlp(mt), num_epoch=2, optimizer="adam",
+                optimizer_params={"learning_rate": 0.003},
+                initializer=mt.init.Xavier(), batch_end_callback=cb, **kw)
+    except RuntimeError as exc:
+        assert "killed" in str(exc)
+    return mod
+
+
+def _live_arrays(mod):
+    """{generation key: cpu tensor} of a fused module's live state."""
+    from mxtpu_torch.module.fused import state_leaves
+    arg, aux = mod.get_params()
+    out = {"arg:%s" % k: v._data for k, v in arg.items()}
+    out.update({"aux:%s" % k: v._data for k, v in aux.items()})
+    for n, st in mod._fused.opt_state[0].items():
+        for i, leaf in enumerate(state_leaves(st)):
+            out["opt:%s/%d" % (n, i)] = leaf.cpu()
+    return out
+
+
+def test_elastic_capture_makes_no_host_sync(cuda, tmp_path):
+    """The capture on the training thread (clones, the copy to pinned
+    memory, the manifest) makes no host sync: it runs under torch's
+    sync debug mode set to raise on one."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    mod = _elastic_fit(mt)
+    cursor = {"epoch": 1, "nbatch": 2, "global_step": 6,
+              "epoch_boundary": False}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        arrays, manifest, ready = mt.elastic.capture_module(mod, cursor)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ready and manifest["opt_format"] == "leaves"
+    assert all(v.is_pinned() for k, v in arrays.items()
+               if k.startswith(("arg:", "aux:", "opt:")))
+
+
+def test_elastic_generation_reloads_bit_for_bit_on_the_card(cuda, tmp_path):
+    """A generation written by a fit on gpu(0) holds the live params,
+    Adam's moments and counters at the kill bit for bit, and a resumed
+    fit on the card ends bit for bit the uninterrupted one."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    whole = _elastic_fit(mt)
+    prefix = str(tmp_path / "ck")
+    cfg = mt.elastic.ElasticConfig(prefix, every_n_steps=1, sync=True)
+    killed = _elastic_fit(mt, kill_at=4, elastic=cfg)
+    snap = mt.elastic.snapshot
+    man = snap.latest_manifest(prefix)
+    got = snap.load_arrays(man)
+    assert man["cursor"]["global_step"] == 4
+    assert man["optimizer"]["num_update"] == killed._optimizer.num_update
+    for k, v in _live_arrays(killed).items():
+        assert torch.equal(torch.from_numpy(got[k]), v), k
+    resumed = _elastic_fit(mt, resume=prefix)
+    for a, b in zip(whole.get_params(), resumed.get_params()):
+        for k in a:
+            assert torch.equal(a[k]._data, b[k]._data), k
+
+
+def test_elastic_clones_are_independent_of_the_next_step(cuda):
+    """The capture's clones on the card and its pinned host copies keep
+    the values of the step they were taken after, while the next step
+    updates the weights and moments in place."""
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    from mxtpu_torch.module.fused import state_leaves
+    mod = _elastic_fit(mt)
+    fused = mod._fused
+    before = {k: v.clone() for k, v in _live_arrays(mod).items()}
+    p, _a, o, ready = fused.export_host_state()
+    dev_p, _da, dev_o = fused.export_device_state()
+    it = _elastic_mlp(mt)
+    mod.forward_backward(next(it))
+    mod.update()
+    for ev in ready:
+        ev.synchronize()
+    after = _live_arrays(mod)
+    moved = 0
+    for n, v in p.items():
+        assert torch.equal(v, before["arg:%s" % n]), n
+        assert torch.equal(dev_p[n].cpu(), before["arg:%s" % n]), n
+        moved += not torch.equal(after["arg:%s" % n], before["arg:%s" % n])
+    for n, st in o[0].items():
+        for i, leaf in enumerate(state_leaves(st)):
+            assert torch.equal(leaf, before["opt:%s/%d" % (n, i)]), n
+        for i, leaf in enumerate(state_leaves(dev_o[0][n])):
+            assert torch.equal(leaf.cpu(), before["opt:%s/%d" % (n, i)]), n
+    assert moved == len(p)
+
+
+def _odd_net(mt):
+    """fc1 (128 rows, kept by rows over two cards) and fc2 (5 rows,
+    which no 2-way split divides: the plan keeps it whole)."""
+    s = mt.sym
+    h = s.Activation(s.FullyConnected(s.Variable("data"), num_hidden=128,
+                                      name="fc1"), act_type="relu")
+    return s.SoftmaxOutput(s.FullyConnected(h, num_hidden=5, name="fc2"),
+                           name="softmax")
+
+
+def _odd_fit(mt, mesh, kill_at=None, **kw):
+    import numpy as np
+    rng = np.random.RandomState(0)
+    x = rng.rand(192, 784).astype(np.float32)
+    y = rng.randint(0, 5, 192).astype(np.float32)
+    mod = mt.mod.Module(_odd_net(mt), context=mt.gpu(0))
+    np.random.seed(3)
+    steps = [0]
+
+    def cb(param):
+        steps[0] += 1
+        if kill_at is not None and steps[0] >= kill_at:
+            raise RuntimeError("killed")
+    try:
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=64), num_epoch=2,
+                optimizer="adam", optimizer_params={"learning_rate": 0.003},
+                initializer=mt.init.Xavier(), batch_end_callback=cb,
+                mesh=mesh, **kw)
+    except RuntimeError as exc:
+        assert "killed" in str(exc)
+    return mod
+
+
+def test_elastic_padded_sharded_plan_leaves_round_trip(cuda, tmp_path):
+    """A plan over two cards that keeps fc1's Adam state by rows and
+    fc2's 5 rows whole (no 2-way split divides them): the generation
+    holds each card's row block and the whole leaves bit for bit, the
+    async ``.states`` manifest round-trips into the plan bit for bit,
+    and the resumed fit ends bit for bit the uninterrupted one."""
+    torch, _ = cuda
+    _gpus(torch, 2)
+    import mxtpu_torch as mt
+    mesh = mt.sharding.MeshContext.create(2, devices=[mt.gpu(0), mt.gpu(1)])
+    whole = _odd_fit(mt, mesh)
+    prefix = str(tmp_path / "ck")
+    cfg = mt.elastic.ElasticConfig(prefix, every_n_steps=1, sync=True)
+    mod = _odd_fit(mt, mesh, kill_at=3, elastic=cfg)
+    fused = mod._fused
+    assert fused.sharded_names == ["fc1_weight"]
+    man = mt.elastic.latest_manifest(prefix)
+    entries = man["opt_entries"]
+    assert len(entries["fc1_weight"]["shards"]["0"]["pieces"]) == 2
+    assert "shards" not in entries["fc2_weight"]
+    arrays = mt.elastic.load_arrays(man)
+    for r in (0, 1):
+        for i in (0, 1):
+            assert torch.equal(torch.from_numpy(
+                arrays["opt:fc1_weight/%d#%d" % (i, r)]),
+                fused.opt_state[r]["fc1_weight"][i].cpu())
+            assert torch.equal(torch.from_numpy(
+                arrays["opt:fc2_weight/%d" % i]),
+                fused.opt_state[r]["fc2_weight"][i].cpu())
+    fname = str(tmp_path / "mesh.states")
+    mod.save_optimizer_states(fname, async_write=True)
+    mt.model.wait_checkpoints()
+    before = [{k: tuple(x.clone() for x in v) for k, v in st.items()}
+              for st in fused.opt_state]
+    for st in fused.opt_state:
+        for v in st.values():
+            for x in v:
+                x.zero_()
+    mod.load_optimizer_states(fname)
+    for st, old in zip(fused.opt_state, before):
+        for k in old:
+            for x, y in zip(st[k], old[k]):
+                assert torch.equal(x, y), k
+    resumed = _odd_fit(mt, mesh, resume=prefix)
+    for a, b in zip(whole.get_params(), resumed.get_params()):
+        for k in a:
+            assert torch.equal(a[k]._data, b[k]._data), k
+
+
+def test_elastic_sigterm_inside_supervisor_run_restores_the_handler(
+        cuda, tmp_path):
+    """SIGTERM inside ``Supervisor.run`` on the card: the fit flushes a
+    final generation, ``Preempted`` propagates, and the SIGTERM handler
+    after ``run`` is the one before it."""
+    import os
+    import signal
+    torch, _ = cuda
+    import mxtpu_torch as mt
+    prefix = str(tmp_path / "ck")
+    before = signal.getsignal(signal.SIGTERM)
+    sup = mt.elastic.Supervisor(retries=0)
+    cfg = mt.elastic.ElasticConfig(prefix, supervisor=sup)
+
+    def fit_fn(resume):
+        mod = mt.mod.Module(mt.models.mlp.get_symbol(10),
+                            context=mt.gpu(0))
+
+        def cb(param):
+            if param.nbatch == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+        mod.fit(_elastic_mlp(mt), num_epoch=2, optimizer="sgd",
+                initializer=mt.init.Xavier(), batch_end_callback=cb,
+                elastic=cfg, resume=resume)
+
+    with pytest.raises(mt.elastic.Preempted):
+        sup.run(fit_fn)
+    assert signal.getsignal(signal.SIGTERM) is before
+    man = mt.elastic.latest_manifest(prefix)
+    assert man["cursor"]["global_step"] == 3

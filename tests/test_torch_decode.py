@@ -325,8 +325,32 @@ def test_correctness_gate_mid_run_swap(mt):
 
 
 def test_liveness_gate_zero_idle_steps_and_slot_reuse(mt):
+    """The session's first step waits until all four requests are in
+    (queued or active), so the two late ones are provably queued when
+    the first slots free: the equality below holds by construction, not
+    by when the threads happen to arrive."""
     with _session(mt, slot_capacity=2) as sess:
+        all_in = threading.Event()
+        step_chunk = sess._step_chunk
+
+        def gated_step(*args, **kwargs):
+            all_in.wait(timeout=60)
+            return step_chunk(*args, **kwargs)
+
+        def release_when_all_in():
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                with sess._lock:
+                    if len(sess._queue) + len(sess._active) >= 4:
+                        break
+                time.sleep(0.001)
+            all_in.set()
+
+        sess._step_chunk = gated_step
+        releaser = threading.Thread(target=release_when_all_in, daemon=True)
+        releaser.start()
         res = _run_joined(sess, [([2], 6, 0, 0.0)] * 4)
+        releaser.join(timeout=60)
         tripped = sess.metrics.counter(
             "decode_steps_with_admittable_waiting").value
     assert tripped == 0
@@ -491,6 +515,23 @@ def test_session_without_contexts_needs_cuda(mt):
     sym, params, shapes, names, _ = _fixture(mt)
     with pytest.raises(mt.MXNetError, match="CUDA"):
         mt.serving.DecodeSession(sym, params, shapes, names)
+
+
+@pytest.mark.parametrize("bad", ["arena", "admission"])
+def test_refused_session_takes_no_process_hold(mt, bad):
+    """A constructor that raises leaves no watchdog/signal hold behind:
+    a leaked hold would keep the next fit from installing its SIGUSR2
+    handler (and from giving the signal back after it)."""
+    import signal
+    sym, params, shapes, names, _ = _fixture(mt)
+    kw = {"arena": "bogus"} if bad == "arena" else {"admission": object()}
+    held = mt.diagnostics._SESSIONS[0]
+    disposition = signal.getsignal(signal.SIGUSR2)
+    with pytest.raises(mt.MXNetError):
+        mt.serving.DecodeSession(sym, params, shapes, names,
+                                 contexts=[mt.cpu()], warmup=False, **kw)
+    assert mt.diagnostics._SESSIONS[0] == held
+    assert signal.getsignal(signal.SIGUSR2) is disposition
 
 
 # ---------------------------------------------------------------- HTTP

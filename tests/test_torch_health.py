@@ -18,7 +18,10 @@ twins of tests/test_health.py run by one body through both packages:
   gradients in different places);
 * the LR bomb: an lr of inf from step 3 fires one divergence at the
   cadence of that step, with one postmortem, in both packages;
-* ``MXTPU_HEALTH_ACTION=rollback`` (ROADMAP A.12) refused.
+* ``MXTPU_HEALTH_ACTION=rollback`` accepted, and its gate (the twin of
+  mxtpu's ``test_health_divergence_rollback_gate``): an inf batch fires
+  one divergence, the supervisor aborts the fit before it snapshots
+  the diverged step, and the retry ends bit for bit on a clean run.
 """
 import os
 
@@ -150,8 +153,9 @@ def test_the_same_streams_give_the_same_findings(mt, seed):
 
 
 def test_health_policy_and_rollback_refused(mt, monkeypatch):
-    """The policy parses as mxtpu's; ``rollback`` needs the elastic
-    generations of ROADMAP A.12, so a health fit refuses it."""
+    """The policy parses as mxtpu's; ``rollback`` is accepted now that
+    the elastic generations it restores exist: a health fit under it
+    trains, and its session holds the policy."""
     for env, want in (("rollback", "rollback"), ("reformat-disk", "warn")):
         monkeypatch.setenv("MXTPU_HEALTH_ACTION", env)
         assert mt.obs.detectors.HealthPolicy.from_env().action == want == \
@@ -159,8 +163,9 @@ def test_health_policy_and_rollback_refused(mt, monkeypatch):
     monkeypatch.setenv("MXTPU_HEALTH_ACTION", "rollback")
     x, y = _data(64)
     mod = mt.mod.Module(mt.models.get_mlp(10), context=mt.cpu())
-    with pytest.raises(mt.MXNetError, match="A.12"):
-        mod.fit(mt.io.NDArrayIter(x, y, 32), num_epoch=1, health=True)
+    mod.fit(mt.io.NDArrayIter(x, y, 32), num_epoch=1, health=True)
+    assert mod._health_session.policy.action == "rollback"
+    assert mod._health_session.cadences >= 1
 
 
 def test_class_label_env_and_knobs(mt, monkeypatch):
@@ -423,3 +428,74 @@ def test_hyperparameter_past_f32_saturates_as_mxtpu(mt, opt, knob):
         fin = np.isfinite(a)
         np.testing.assert_allclose(a[fin], b[fin], rtol=1e-5, atol=1e-6)
     assert any(not np.isfinite(a).all() for a in mine[0].values())
+
+
+# ------------------------------------------- the rollback gate
+def _rollback_iter(pk, poison_batch=None):
+    x, y = _data()
+    if poison_batch is not None:
+        x = x.copy()
+        x[poison_batch * 64:(poison_batch + 1) * 64] = np.inf
+    return pk.io.NDArrayIter(x, y, batch_size=64,
+                             label_name="softmax_label")
+
+
+def _rollback_fit(mt, mod, metric, it, **kw):
+    mt.random.seed(11)
+    np.random.seed(11)
+    mod.fit(it, num_epoch=2, eval_metric=metric, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+            initializer=mt.initializer.Xavier(), metric_sync=1,
+            health=True, **kw)
+
+
+def test_health_divergence_rollback_gate(mt, tmp_path, monkeypatch):
+    """Injected divergence (an inf batch mid-epoch) -> a divergence
+    Finding + ``health_anomalies`` -> the armed rollback policy fires the
+    supervisor seam -> the diverged trajectory aborts BEFORE its
+    snapshot -> the retry restores the last good generation and the fit
+    completes with weights bit-exact against a clean run."""
+    import signal
+    monkeypatch.setenv("MXTPU_HEALTH_ACTION", "rollback")
+    handler = signal.getsignal(signal.SIGTERM)
+    reg = mt.telemetry.registry()
+    clean = mt.mod.Module(mt.models.mlp.get_symbol(10), context=mt.cpu())
+    m_full = mt.metric.create(["acc", "ce"])
+    _rollback_fit(mt, clean, m_full, _rollback_iter(mt))
+    w_full = {k: v.asnumpy() for k, v in clean.get_params()[0].items()}
+
+    prefix = str(tmp_path / "ck")
+    sup = mt.elastic.Supervisor(retries=2, backoff_s=0.0)
+    cfg = mt.elastic.ElasticConfig(prefix, every_n_steps=1, sync=True,
+                                   supervisor=sup)
+    mod = mt.mod.Module(mt.models.mlp.get_symbol(10), context=mt.cpu())
+    metric = mt.metric.create(["acc", "ce"])
+    attempts = []
+    div0 = reg.counter("health_anomalies",
+                       labels={"kind": "divergence"}).value
+    restores0 = reg.counter("elastic_restores").value
+
+    def fit_fn(resume):
+        attempts.append(resume)
+        # attempt 1 feeds an all-inf batch 2; the retry's data is clean
+        it = _rollback_iter(mt, 2 if len(attempts) == 1 else None)
+        _rollback_fit(mt, mod, metric, it, elastic=cfg, resume=resume)
+
+    sup.run(fit_fn)
+    assert signal.getsignal(signal.SIGTERM) is handler
+    assert attempts == [False, True]
+    assert sup.retries_done == 1
+    assert reg.counter("elastic_restores").value == restores0 + 1
+    # the detector fired exactly once (hysteresis) and was surfaced
+    assert reg.counter("health_anomalies",
+                       labels={"kind": "divergence"}).value == div0 + 1
+    pm = mt.diagnostics.last_postmortem()
+    assert pm is not None and pm["source"] == "health"
+    assert "divergence" in pm["reason"]
+    # the diverged step was never snapshotted: the retry replayed the
+    # poisoned batch with clean data and the result is bit-exact
+    w_sup = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    for k in w_full:
+        np.testing.assert_array_equal(w_full[k], w_sup[k], err_msg=k)
+    assert dict(m_full.get_name_value())["accuracy"] == \
+        dict(metric.get_name_value())["accuracy"]

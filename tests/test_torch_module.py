@@ -239,7 +239,7 @@ def test_device_metric_accum_syncs_at_the_cadence(mt):
         assert n1 == n2 and abs(v1 - v2) < 1e-6
 
 
-def test_fit_refuses_unported_knobs_and_contexts(mt):
+def test_fit_refuses_unported_knobs_and_contexts(mt, tmp_path):
     sym = mt.models.get_mlp(4)
     x, y = np.zeros((8, 5), np.float32), np.zeros(8, np.float32)
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
@@ -250,10 +250,21 @@ def test_fit_refuses_unported_knobs_and_contexts(mt):
     assert mod._kvstore.type == "dist_async" and mod._update_on_kvstore
     assert mod._kvstore.num_workers == 1 and mod._fused is None
     mod = mt.mod.Module(sym, context=mt.cpu(), logger=_quiet())
-    for kw in ({"elastic": "/tmp/x"}, {"resume": True}):
-        with pytest.raises(mt.MXNetError, match="not ported"):
-            mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
-                    **kw)
+    # elastic and resume are ported: the fit snapshots at its epoch end,
+    # resume=True needs the prefix that elastic names, and a resumed fit
+    # past its last epoch trains no step
+    prefix = str(tmp_path / "el")
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            elastic=prefix)
+    assert mt.elastic.list_generations(prefix) == [1]
+    with pytest.raises(mt.MXNetError, match="needs elastic="):
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                resume=True)
+    w = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            elastic=prefix, resume=True, force_init=True)
+    for k, v in mod.get_params()[0].items():
+        np.testing.assert_array_equal(v.asnumpy(), w[k], err_msg=k)
     # health is ported: the fit trains with the health session armed
     mod.fit(mt.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
             health=True)

@@ -237,34 +237,45 @@ def test_ported_knobs_are_the_ones_the_port_reads(pkgs):
         assert later != "no slice yet", k.name
 
 
+#: the knob these tests treat as unread, and the slice they say brings
+#: its reader: every knob the port declares is read now, so the test
+#: takes one out of ``PORTED`` itself to exercise the mechanism
+UNREAD_KNOB, UNREAD_ENV, LATER = ("elastic.keep", "MXTPU_ELASTIC_KEEP",
+                                  "a later slice (test)")
+
+
 def test_unread_knobs_in_an_artifact_or_env_are_named(pkgs, monkeypatch,
                                                        caplog):
     """An artifact (mxtpu's, say) that sets a knob the port does not read
-    is accepted with a warning naming the knob and its slice; the fit
-    knobs pass without one. So does an env override of such a knob."""
+    is accepted with a warning naming the knob and its slice; the knobs
+    the port reads pass without one. So does an env override of such a
+    knob."""
     _mx, mt = pkgs
+    reg = mt.tune.registry
+    assert reg.unread_by(UNREAD_KNOB) is None  # the port reads them all
+    monkeypatch.setattr(reg, "PORTED", reg.PORTED - {UNREAD_KNOB})
+    monkeypatch.setattr(reg, "_READ_LATER", ((UNREAD_KNOB, LATER),))
     caplog.set_level(logging.WARNING, logger="mxtpu_torch.tune")
     cfg = mt.tune.TunedConfig(values={"fit.max_in_flight": 3,
                                       "serving.max_queue": 64,
-                                      "elastic.keep": 3})
+                                      UNREAD_KNOB: 3})
     assert mt.tune.artifact(cfg) is cfg
     msgs = [r.getMessage() for r in caplog.records]
-    assert len(msgs) == 1 and "elastic.keep" in msgs[0] \
-        and "A.12" in msgs[0] and "fit." not in msgs[0] \
+    assert len(msgs) == 1 and UNREAD_KNOB in msgs[0] \
+        and LATER in msgs[0] and "fit." not in msgs[0] \
         and "serving." not in msgs[0]
     caplog.clear()
     mt.tune.use(cfg)
-    assert ["elastic.keep" in r.getMessage() for r in caplog.records] \
+    assert [UNREAD_KNOB in r.getMessage() for r in caplog.records] \
         == [True]
     mt.tune.use(None)
     caplog.clear()
-    monkeypatch.setenv("MXTPU_ELASTIC_KEEP", "3")
+    monkeypatch.setenv(UNREAD_ENV, "3")
     monkeypatch.setenv("MXTPU_SERVING_MAX_QUEUE", "64")
     monkeypatch.setenv("MXTPU_FIT_INFLIGHT", "3")
-    mt.tune.registry._warn_unread_env()
+    reg._warn_unread_env()
     msgs = [r.getMessage() for r in caplog.records]
-    assert len(msgs) == 1 and "MXTPU_ELASTIC_KEEP" in msgs[0] \
-        and "A.12" in msgs[0]
+    assert len(msgs) == 1 and UNREAD_ENV in msgs[0] and LATER in msgs[0]
 
 
 # ------------------------------------------------------ the search half
